@@ -6,7 +6,9 @@
 Phases, each fatal on failure:
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
-2. build: ``nvcc`` compiles ``confild_tpu_torch/csrc/*.cu`` (timed);
+2. build: ``nvcc`` compiles every ``confild_tpu_torch/csrc/*.cu``, one
+   process per source, all started together (timed; ptxas registers and
+   spills);
 3. forward decode kernel against its plain version at Case4 widths
    (SIREN-FiLM 3 -> 384 x 16 modulated layers -> 3, w0 30), 16 rows x 262144
    points, both held to a float64 run under the JAX tests' criterion
@@ -28,7 +30,26 @@ Phases, each fatal on failure:
 6. fused path inside DPS: one guided step's gradient with respect to
    ``x_prev`` through the full-width U-Net with the operator forced onto the
    kernels and forced onto the plain decode; they must agree to a relative
-   L2 error of 1e-3.
+   L2 error of 1e-3;
+7. training-backward kernel against its plain version at Case4 widths,
+   4 rows x 262144 points (a training batch: each row spans several
+   chunks of the kernel) and 4 rows x 16384 points (a chunk holds whole
+   rows): every cotangent (dz, dW_first, dW_mid, dW_head, and after the
+   autograd chain dlatents, dW2, db1) held to a chunked float64 autograd
+   run of the reference decode under the same criterion with a
+   ``1e-6 * max|f64|`` floor; two launches bitwise equal; the kernel's and
+   the plain version's times at 4 x 262144, and the bound;
+8. the general op's gradient on the card (latents, decoder and coordinates
+   all requiring grad) against plain autograd at 4 x 4096, and one training
+   batch's gradients with ``use_fused_decode`` true and false at 4 x 16384:
+   relative L2 of 1e-3 per leaf;
+9. main path, training: ``confild_tpu_torch.cli.train_cnf.main`` at full
+   Case4 width (``recipes/cnf/case4.yml``: 16 x 384 SIREN-FiLM, batch 4)
+   on 8 seeded snapshots x 262144 points: 3 epochs (6 batch steps, 2
+   decoder steps, 2 evals, 2 checkpoints), then a resume for 1 epoch that
+   must continue the epoch count; launch counts zeroed before and read
+   after each run; the newest checkpoint must load through
+   ``CNF_inference``.
 
 The script imports nothing of JAX or of ``confild_tpu``.  With no CUDA
 device it exits non-zero and prints no result.  The last line is
@@ -38,8 +59,10 @@ device it exits non-zero and prints no result.  The last line is
 from __future__ import annotations
 
 import copy
+import csv
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -50,13 +73,15 @@ import torch
 import yaml
 
 from confild_tpu_torch import config as cfgmod
-from confild_tpu_torch.cli import sample_conditional
+from confild_tpu_torch.cli import sample_conditional, train_cnf
 from confild_tpu_torch.device import resolve_device
 from confild_tpu_torch.guidance import (create_sampler, get_conditioning_method,
                                         get_noise, get_operator)
 from confild_tpu_torch.guidance.operators import FUSED_MIN_PAIRS
+from confild_tpu_torch.inference import CNF_inference
 from confild_tpu_torch.models import unet as tunet
-from confild_tpu_torch.models.cnf import SirenFilm
+from confild_tpu_torch.models.cnf import SirenFilm, siren_film_apply
+from confild_tpu_torch.train.cnf_trainer import CNFTrainer
 from confild_tpu_torch.ops import cuda_build
 from confild_tpu_torch.ops import siren_decode as sd
 
@@ -78,6 +103,8 @@ CASE4_RECIPE = dict(
     latent_size=384, decode_batch_size=16, seed=0)
 MESH_POINTS = 4096
 GRAD_REL_TOL = 1e-3
+RECIPE_CNF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "recipes", "cnf",
+                          "case4.yml")
 # flops of one sin2pi activation in the kernels: round-reduce (2), square (1),
 # five FMAs (10), final multiply (1), FiLM add (1)
 ACT_FLOPS = 15
@@ -108,6 +135,33 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def device_profile(label: str, fn, top: int = 6) -> dict:
+    """Device time by kernel name (torch.profiler) of one call of ``fn``
+    after a warm-up call, and the device's busy share of its wall time;
+    returns ``{kernel name: (ms, launches)}``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    busy = sum(ms for ms, _ in kernels.values())
+    log(f"[profile] {label}: wall {wall_ms:.1f} ms under the profiler, device busy "
+        f"{busy:.1f} ms ({busy / wall_ms:.1%}), {sum(n for _, n in kernels.values())} "
+        f"kernel launches")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"[profile]   {ms:9.2f} ms  x{n:<5d} {name[:100]}")
+    return kernels
+
+
 def phase_device():
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -120,13 +174,18 @@ def phase_device():
 
 
 def phase_build():
+    names = sorted(p.stem for p in cuda_build.CSRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
-    path = cuda_build.build("siren_decode")
+    paths = cuda_build.build_all(names)
     dt = time.perf_counter() - t0
-    log(f"[build] {path.name} in {dt:.2f} s")
-    for line in cuda_build.build_logs.get("siren_decode", "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"[build] {line.strip()}")
+    log(f"[build] {', '.join(p.name for p in paths)} in {dt:.2f} s")
+    for name in names:
+        for line in cuda_build.build_logs.get(name, "").splitlines():
+            kernel = re.search(r"(siren_[a-z_]+_kernel)", line)
+            if "Function properties" in line and kernel:
+                log(f"[build] {name}: {kernel.group(1)}")
+            elif "registers" in line or "spill" in line or "error" in line:
+                log(f"[build] {name}: {line.strip()}")
 
 
 def case4_decoder(device):
@@ -353,31 +412,12 @@ def phase_main_path(root):
 
 
 def profile_step(step) -> None:
-    """Device time of one guided step by kernel (torch.profiler) and the
-    device's busy share of the step's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    """Device time of one guided step by kernel and the convolutions' share."""
+    kernels = device_profile("one guided step (plain decode)", step, top=8)
     busy = sum(ms for ms, _ in kernels.values())
     conv = sum(ms for k, (ms, _) in kernels.items()
                if "conv" in k.lower() or "cudnn" in k.lower() or "implicit" in k.lower())
-    log(f"[profile] one guided step (plain decode): wall {wall_ms:.1f} ms under the "
-        f"profiler, device busy {busy:.1f} ms ({busy / wall_ms:.1%}), convolution "
-        f"kernels {conv:.1f} ms ({conv / max(busy, 1e-9):.1%} of busy), "
-        f"{sum(n for _, n in kernels.values())} kernel launches")
-    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
-        log(f"[profile]   {ms:9.2f} ms  x{n:<5d} {name[:100]}")
+    log(f"[profile]   convolution kernels {conv:.1f} ms ({conv / max(busy, 1e-9):.1%} of busy)")
 
 
 def phase_fused_dps(root, device):
@@ -434,6 +474,272 @@ def phase_fused_dps(root, device):
         raise SystemExit("fused DPS gradient disagrees with the plain decode")
 
 
+# ---------------------------------------------------------------------------
+# training: the training-backward kernel, the ops' gradients, the CLI
+# ---------------------------------------------------------------------------
+
+def f64_train_grads(model, coords, latents, g, chunk: int):
+    """Float64 autograd of ``sum(decode * g)`` through the reference layer
+    loop (``siren_film_apply``'s ``torch.sin`` arithmetic), chunked over
+    points: the decoder's parameter gradients, ``dL/dlatents`` and
+    ``dL/dz_l`` per row (the gradient of each layer's FiLM term)."""
+    m64 = _double(model).requires_grad_(True)
+    lat = latents.double().requires_grad_(True)
+    dz = torch.zeros((m64.n_modulated, latents.shape[0], m64.net1[0].out_features),
+                     dtype=torch.float64, device=latents.device)
+    for i in range(0, coords.shape[0], chunk):
+        x, films = coords[i:i + chunk].double()[None], []
+        for lin1, lin2 in zip(m64.net1[:-1], m64.net2):
+            films.append(lin2(lat[:, None, :]))
+            films[-1].retain_grad()
+            x = torch.sin(m64.w0 * (lin1(x) + films[-1]))
+        (m64.net1[-1](x) * g[:, i:i + chunk].double()).sum().backward()
+        for l, f in enumerate(films):
+            dz[l] += f.grad[:, 0, :]
+    grads = {n: p.grad for n, p in m64.named_parameters()}
+    n_mod = m64.n_modulated
+    return {
+        "dz": dz, "dW_first": grads["net1.0.weight"].t(),
+        "dW_mid": torch.stack([grads[f"net1.{l}.weight"].t() for l in range(1, n_mod)]),
+        "dW_head": grads[f"net1.{n_mod}.weight"].t(), "dlatents": lat.grad,
+        "dW2": torch.stack([grads[f"net2.{l}.weight"].t() for l in range(n_mod)]),
+        "db1": torch.stack([grads[f"net1.{l}.bias"] for l in range(n_mod)])}
+
+
+def bwd_case(model, device, rows, points, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    coords = torch.rand((points, 3), generator=gen, device=device) * 2 - 1
+    latents = torch.randn((rows, 384), generator=gen, device=device) * 0.1
+    g = torch.randn((rows, points, 3), generator=gen, device=device)
+    w_first, w_mid, w_head, _, w2, b1, scale = sd.stack_weights(model, model.w0)
+    z = sd.film_table(latents, w2, b1, scale)
+    return coords, latents, g, z, (w_first, w_mid, w_head), w2, scale
+
+
+def bwd_check(model, device, rows, points, seed) -> float:
+    """Training-backward kernel vs plain vs float64 at ``rows x points``,
+    every cotangent, and two launches bitwise equal; returns the kernel's
+    largest error against float64."""
+    coords, latents, g, z, ops, w2, scale = bwd_case(model, device, rows, points, seed)
+    with torch.no_grad():
+        kern = sd.decode_bwd(coords, z, g, *ops)
+        again = sd.decode_bwd(coords, z, g, *ops)
+        plain = sd.decode_bwd_plain(coords, z, g, *ops)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(kern, again))
+    kern_u = sd.unfold_bwd(kern, latents, w2, scale)
+    plain_u = sd.unfold_bwd(plain, latents, w2, scale)
+    del plain
+    # the chained cotangents as training takes them: autograd through the
+    # train op (backward = the kernel) to the latents, net2 and the biases
+    m = copy.deepcopy(model).requires_grad_(True)
+    lat = latents.clone().requires_grad_(True)
+    out = sd.fused_siren_decode_train(m, coords, lat, m.w0)
+    out.backward(g)
+    n_mod = m.n_modulated
+    kern_u["dlatents"] = lat.grad
+    kern_u["dW2"] = torch.stack([m.net2[l].weight.grad.t() for l in range(n_mod)])
+    kern_u["db1"] = torch.stack([m.net1[l].bias.grad for l in range(n_mod)])
+    truth = f64_train_grads(model, coords, latents, g, chunk=4096)
+    ok = same
+    for name, want in truth.items():
+        err_k = (kern_u[name].double() - want).abs().max().item()
+        err_p = (plain_u[name].double() - want).abs().max().item()
+        top = want.abs().max().item()
+        good = err_k <= 2 * err_p + 1e-6 * top and torch.isfinite(kern_u[name]).all().item()
+        ok &= good
+        log(f"[bwd] {rows}x{points} {name}: |kernel-f64| {err_k:.3e}, |plain-f64| "
+            f"{err_p:.3e}, max |f64| {top:.3e} -> {'ok' if good else 'FAIL'}")
+    log(f"[bwd] {rows}x{points} two launches bitwise equal: {same}")
+    if not ok:
+        raise SystemExit("training-backward kernel fails the f64-relative criterion "
+                         "or is not deterministic")
+    max_abs_err = max((kern_u[k].double() - truth[k]).abs().max().item() for k in truth)
+    del plain_u, kern_u, truth, m, out
+    torch.cuda.empty_cache()
+    return max_abs_err
+
+
+def phase_bwd(device, results):
+    """The training-backward kernel checked at 4 x 262144, the shape the
+    training path gives it (every row spans 8 chunks of ``BWD_PAIRS``
+    pairs, so a row's dz sums across chunk launches), and at 4 x 16384
+    (a chunk holds two whole rows); kernel and plain timed at 4 x 262144."""
+    model = case4_decoder(device)
+    rows, points = 4, 262144
+    max_abs_err = bwd_check(model, device, rows, points, seed=14)
+    bwd_check(model, device, 4, 16384, seed=13)
+    coords, latents, g, z, ops, w2, scale = bwd_case(model, device, rows, points, seed=14)
+    n_mod = z.shape[0]
+    with torch.no_grad():
+        ms = cuda_ms(lambda: sd.decode_bwd(coords, z, g, *ops), reps=3)
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms = cuda_ms(lambda: sd.decode_bwd_plain(coords, z, g, *ops), reps=2)
+        plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    h, c_in, c_out = 384, 3, 3
+    pairs = rows * points
+    # forward recompute, dx chain and dW products (section 3 of the port's
+    # plan: 3 x 4.43 MFLOP a pair at Case4), the sine and its derivative
+    flops = pairs * (2 * h * (c_in + 3 * (n_mod - 1) * h + 2 * c_out) + 2 * c_in * h
+                     + (2 * ACT_FLOPS + 3) * h * n_mod)
+    nbytes = 4 * (points * c_in + 2 * n_mod * rows * h + pairs * c_out + 2 * c_in * h
+                  + 2 * (n_mod - 1) * h * h + 2 * h * c_out)
+    bound_ms, bound_by = bound(flops, nbytes)
+    with torch.no_grad():
+        device_profile(f"training backward {rows}x{points}",
+                       lambda: sd.decode_bwd(coords, z, g, *ops), top=4)
+    log(f"[bwd] {rows}x{points}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
+        f"bound {bound_ms:.3f} ms ({bound_by}, {flops / 1e12:.2f} TFLOP); plain {plain_ms:.3f} "
+        f"ms (peak memory {plain_peak:.2f} GiB); library: none (no single PyTorch call "
+        f"computes it)")
+    results["siren_decode_bwd"] = dict(
+        max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, shape=f"{rows}x{points}")
+
+
+def rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def phase_op_grads(device, root):
+    """The general op's gradient on the card, and one training batch's
+    gradients with the fused decode and with the plain decode."""
+    model = case4_decoder(device)
+    coords, latents, g, *_ = bwd_case(model, device, 4, 4096, seed=15)
+    leaves = {}
+    for fused in (True, False):
+        m = copy.deepcopy(model).requires_grad_(True)
+        lat = latents.clone().requires_grad_(True)
+        c = coords.clone().requires_grad_(True)
+        out = (sd.fused_siren_decode(m, c, lat, m.w0) if fused
+               else siren_film_apply(m, c[None], lat[:, None], m.w0))
+        out.backward(g)
+        leaves[fused] = {"latents": lat.grad, "coords": c.grad,
+                         **{n: p.grad for n, p in m.named_parameters()}}
+    worst = max(rel_l2(leaves[True][k], leaves[False][k]) for k in leaves[False])
+    log(f"[op-grad] general op 4x4096, kernels vs plain autograd: worst leaf rel L2 "
+        f"{worst:.3e} over {len(leaves[False])} leaves (tol {GRAD_REL_TOL})")
+    if not worst <= GRAD_REL_TOL:
+        raise SystemExit("general op gradient disagrees with plain autograd")
+
+    recipe = write_training_case(os.path.join(root, "step"), n_snapshots=8, points=16384)
+    grads = {}
+    for fused in (True, False):
+        hp = cfgmod.basic_input(recipe, use_fused_decode=fused)
+        tr = CNFTrainer(hp)
+        tr.init_state(seed=0)
+        with torch.no_grad():   # a non-zero table, so every latent leaf is live
+            tr.state.latents.copy_(0.1 * torch.randn(
+                tr.state.latents.shape, generator=torch.Generator().manual_seed(1)))
+        sd.reset_launch_counts()
+        loss = tr._batch_loss(torch.arange(4, device=device), 0, 0)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = dict(sd.LAUNCHES)
+        if fused and (counts["siren_decode_forward"] == 0 or counts["siren_decode_bwd"] == 0):
+            raise SystemExit(f"fused training step launched {counts}")
+        grads[fused] = {"latents": tr.state.latents.grad,
+                        **{n: p.grad for n, p in tr.model.named_parameters()}}
+    worst = max(rel_l2(grads[True][k], grads[False][k]) for k in grads[False])
+    log(f"[step-grad] one training batch 4x16384, use_fused_decode true vs false: worst "
+        f"leaf rel L2 {worst:.3e} over {len(grads[False])} leaves (tol {GRAD_REL_TOL})")
+    if not worst <= GRAD_REL_TOL:
+        raise SystemExit("fused training step disagrees with the plain decode")
+
+
+def write_training_case(root, n_snapshots: int, points: int, epochs: int = 3) -> str:
+    """``recipes/cnf/case4.yml`` at full width on seeded synthetic flow
+    snapshots (smooth travelling waves on random 3-D points)."""
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(points)
+    coords = rng.uniform(size=(points, 3)).astype(np.float32)
+    phase = rng.uniform(0, 2 * np.pi, size=(n_snapshots, 1, 3))
+    k = rng.normal(size=(3, 3)) * 4
+    fois = np.sin(coords @ k + phase) + 0.1 * rng.standard_normal((n_snapshots, points, 3))
+    np.save(os.path.join(root, "output.npy"), fois.astype(np.float32))
+    np.save(os.path.join(root, "coords.npy"), coords)
+    with open(RECIPE_CNF) as f:
+        recipe = yaml.safe_load(f)
+    recipe.update(data_path=os.path.join(root, "output.npy"),
+                  coor_path=os.path.join(root, "coords.npy"),
+                  save_path=os.path.join(root, "run"), epochs=epochs, save_every=2,
+                  multiGPU=1)
+    path = os.path.join(root, "case4.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(recipe, f)
+    return path
+
+
+def phase_train(root):
+    """The training CLI at full Case4 width; then a 1-epoch resume."""
+    recipe = write_training_case(os.path.join(root, "train"), n_snapshots=8, points=262144)
+    hp = cfgmod.basic_input(recipe)
+    torch.cuda.reset_peak_memory_stats()
+    sd.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = train_cnf.main([recipe])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(sd.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(hp.save_path, "progress.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in rows if r.get("loss")]
+    epoch_s = [float(r["wait_train_chunk"]) for r in rows if r.get("wait_train_chunk")]
+    eval_s = [float(r["wait_eval"]) for r in rows if r.get("wait_eval")]
+    n_batches = trainer.N_samples // hp.batch_size
+    t1 = time.perf_counter()
+    trainer.save(999)
+    save_ms = (time.perf_counter() - t1) * 1e3
+    os.remove(os.path.join(hp.save_path, "checkpoint_999.pt"))
+    log(f"[train] Case4 {trainer.N_samples} snapshots x {trainer.flat_coords.shape[0]} points, "
+        f"batch {hp.batch_size}: {len(losses)} epochs, losses {[round(x, 6) for x in losses]}, "
+        f"CLI wall {wall:.1f} s, peak memory {peak:.2f} GiB; launches {counts}")
+    log(f"[train] ms per batch step {np.mean(epoch_s[1:]) * 1e3 / n_batches:.1f} (first "
+        f"epoch {epoch_s[0] * 1e3 / n_batches:.1f}), eval {np.mean(eval_s) * 1e3:.1f} ms "
+        f"({trainer.N_samples} rows), checkpoint {save_ms:.1f} ms")
+    if not (losses and all(np.isfinite(losses))):
+        raise SystemExit(f"training losses not finite: {losses}")
+    # one more batch step of the real epoch loop (with the decoder step of
+    # an epoch > 0), in memory only: the checkpoints on disk stay as written
+    device_profile("one training batch step (Case4, 4 x 262144)",
+                   lambda: trainer._run_epoch(np.arange(hp.batch_size)[None], 1, False))
+    missing = [k for k in ("siren_decode_forward", "siren_decode_bwd") if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"training ran without launching {missing}")
+
+    hp_resume = cfgmod.basic_input(recipe, epochs=1)
+    with open(recipe, "w") as f:
+        yaml.safe_dump(hp_resume.to_dict(), f)
+    sd.reset_launch_counts()
+    resumed = train_cnf.main([recipe])
+    torch.cuda.synchronize()
+    for k, v in sd.LAUNCHES.items():
+        counts[k] += v
+    with open(os.path.join(hp.save_path, "progress.csv")) as f:
+        first_epoch = int(next(csv.DictReader(f))["epoch"])
+    log(f"[train] resume: first epoch {first_epoch}, final epoch {resumed.state.epoch}, "
+        f"launches {dict(sd.LAUNCHES)}")
+    if first_epoch != trainer.state.epoch or resumed.state.epoch != trainer.state.epoch:
+        raise SystemExit("the resumed run did not continue the epoch count")
+
+    newest = os.path.join(hp.save_path, f"checkpoint_{resumed.state.epoch}.pt")
+    cnf_yml = os.path.join(root, "train", "cnf.yml")
+    with open(cnf_yml, "w") as f:
+        yaml.safe_dump({k: hp.to_dict()[k] for k in ("dims", "hidden_size", "NF")}, f)
+    inf = CNF_inference(newest, cnf_yml)
+    # Case4's lumped normalizer is per mesh point: decode the whole mesh
+    pred = inf.predict(resumed.train_coord, [0, 1], batch_size=2)
+    want = resumed.infer(resumed.train_coord, resumed.state.latents[:2]).cpu().numpy()
+    rel = float(np.linalg.norm(pred - want) / np.linalg.norm(want))
+    log(f"[train] {os.path.basename(newest)} through CNF_inference: {pred.shape}, rel L2 "
+        f"vs the trainer's own decode {rel:.3e}")
+    if not (np.isfinite(pred).all() and rel <= GRAD_REL_TOL):
+        raise SystemExit("the trainer's checkpoint does not load through CNF_inference")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -446,21 +752,29 @@ def main() -> int:
     phase_forward(device, results)
     phase_dz(device, results)
     phase_crossover(device)
+    phase_bwd(device, results)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         launches = phase_main_path(root)
         phase_fused_dps(root, device)
+        phase_op_grads(device, root)
+        train_launches = phase_train(root)
+    for k, v in train_launches.items():
+        launches[k] += v
 
     kernels = []
-    for kname, key, line in (("siren_decode_forward", "siren_decode_forward", 96),
-                             ("siren_decode_dz", "siren_decode_dz@384x1024", 315)):
+    for kname, key, src, line in (
+            ("siren_decode_forward", "siren_decode_forward", "siren_decode.cu", 96),
+            ("siren_decode_dz", "siren_decode_dz@384x1024", "siren_decode.cu", 315),
+            ("siren_decode_bwd", "siren_decode_bwd", "siren_decode_bwd.cu", 434)):
         r = results[key]
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": "confild_tpu_torch/csrc/siren_decode.cu",
+            "source": f"confild_tpu_torch/csrc/{src}",
             "replaces": f"confild_tpu/ops/siren_decode.py:{line}",
             "launches": launches[kname],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None})
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "shape": r["shape"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,8 +7,11 @@ numpy arrays.
 * ``'ms'``   : ``(x - mean) / std``                     params = (mean, std)
 * ``'none'`` : identity                                 params = None
 
-Fitting normalizers belongs to CNF training, which is a later slice of the
-port; this module applies fitted params.
+Fitting (:func:`fit`, ``Normalizer.fit_normalize``) runs on numpy arrays
+on the host, as the CNF trainer does before it moves the data to the
+device.  It matches the torch reference: a reduction over ``dim`` with
+``keepdims`` (a global scalar when ``dim`` is None) and a Bessel-corrected
+std.
 """
 
 from __future__ import annotations
@@ -19,6 +22,23 @@ import numpy as np
 import torch
 
 METHODS = ("-11", "01", "ms", "none")
+
+
+def fit(data: np.ndarray, method: str = "-11", dim: int | None = None):
+    """Normalizer params of ``data``: an ``(a, b)`` pair, or None for
+    ``'none'`` (``confild_tpu/core/normalize.py:27-47``)."""
+    if method == "none":
+        return None
+    if method in ("-11", "01"):
+        if dim is None:
+            return np.max(data), np.min(data)
+        return np.max(data, axis=dim, keepdims=True), np.min(data, axis=dim, keepdims=True)
+    if method == "ms":
+        if dim is None:
+            return np.mean(data), np.std(data, ddof=1)
+        return (np.mean(data, axis=dim, keepdims=True),
+                np.std(data, axis=dim, keepdims=True, ddof=1))
+    raise ValueError(f"unknown normalizer method {method!r}")
 
 
 def _tensor(p, dtype, device) -> torch.Tensor:
@@ -61,15 +81,20 @@ def denormalize(data_norm, params, method: str = "-11"):
 
 
 class Normalizer:
-    """The reference ``Normalizer_ts`` API without fitting
-    (``normalize`` / ``denormalize`` / ``get_params``); ``params`` is the
-    fitted (a, b) pair."""
+    """The reference ``Normalizer_ts`` API (``fit_normalize`` /
+    ``normalize`` / ``denormalize`` / ``get_params``); ``params`` is the
+    fitted (a, b) pair, or None before fitting."""
 
     def __init__(self, params: Sequence[Any] = (), method: str = "-11",
                  dim: int | None = None):
         self.params = tuple(params) if params is not None and len(params) else None
         self.method = method
         self.dim = dim
+
+    def fit_normalize(self, data):
+        if self.params is None and self.method != "none":
+            self.params = fit(data, self.method, self.dim)
+        return normalize(data, self.params, self.method)
 
     def normalize(self, data):
         return normalize(data, self.params, self.method)

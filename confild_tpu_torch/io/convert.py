@@ -2,9 +2,13 @@
 state dicts, and the loaders for both checkpoint formats.
 
 * A JAX-package ``.ckpt`` is a pickled pytree of numpy arrays (nested dicts
-  and lists, ``confild_tpu/io/checkpoint.py:34-69``); it is read with
-  ``pickle``, so neither format needs JAX.  Unpickling runs code from the
-  file: load only checkpoints you trust.
+  and lists, ``confild_tpu/io/checkpoint.py:34-69``).  A CNF checkpoint
+  also pickles its optax optimizer states (``cnf_trainer.py:622-631``),
+  whose classes live in ``optax`` and import JAX.  :func:`read_ckpt`
+  unpickles with :class:`CkptUnpickler`, which maps every ``optax`` class
+  to a plain stand-in (:class:`OptaxState`) and refuses any class other
+  than numpy's array types, so reading a ``.ckpt`` never imports optax or
+  JAX.  Load only checkpoints you trust all the same.
 * A reference ``.pt`` is read with ``torch.load(weights_only=True)``.
 
 Layouts: JAX dense kernels are ``(in, out)`` and become torch ``(out, in)``
@@ -16,6 +20,9 @@ in, *k)`` (OIHW).  Key names are the reference's
 
 from __future__ import annotations
 
+import functools
+import importlib
+import operator
 import os
 import pickle
 from typing import Any
@@ -109,9 +116,87 @@ def read_pt(path: str) -> Any:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+class OptaxState(tuple):
+    """Stand-in for a pickled optax state (a NamedTuple): the field values
+    in order, and by name where the class is known (``count``, ``mu``,
+    ``nu`` of ``ScaleByAdamState``)."""
+
+    def __new__(cls, *values):
+        return super().__new__(cls, values)
+
+
+_OPTAX_FIELDS = {"ScaleByAdamState": ("count", "mu", "nu"),
+                 "ScaleByScheduleState": ("count",)}
+
+
+@functools.cache
+def _optax_stand_in(module: str, name: str) -> type:
+    ns = {f: property(operator.itemgetter(i))
+          for i, f in enumerate(_OPTAX_FIELDS.get(name, ()))}
+    return type(name, (OptaxState,), {**ns, "__module__": __name__})
+
+
+# what numpy pickles arrays, scalars and dtypes with
+_NUMPY_NAMES = {"_reconstruct", "ndarray", "dtype", "scalar", "_frombuffer"}
+
+
+class CkptUnpickler(pickle.Unpickler):
+    """Unpickler for the JAX package's ``.ckpt`` files that needs neither
+    JAX nor optax: numpy arrays and Python containers as usual, optax
+    states as :class:`OptaxState` stand-ins, any other class refused."""
+
+    def find_class(self, module: str, name: str):
+        root = module.split(".")[0]
+        if root == "optax":
+            return _optax_stand_in(module, name)
+        if root == "numpy" and name in _NUMPY_NAMES:
+            try:
+                mod = importlib.import_module(module)
+            except ImportError:     # written by numpy 2 (numpy._core), read by numpy 1
+                mod = importlib.import_module(module.replace("numpy._core", "numpy.core"))
+            return getattr(mod, name)
+        raise pickle.UnpicklingError(
+            f"{module}.{name} is not allowed in a .ckpt file: the port reads numpy "
+            f"arrays, Python containers and optax states only")
+
+
 def read_ckpt(path: str) -> Any:
     with open(path, "rb") as f:
-        return pickle.load(f)
+        return CkptUnpickler(f).load()
+
+
+def _find_adam(state) -> OptaxState | None:
+    if isinstance(state, OptaxState) and type(state).__name__ == "ScaleByAdamState":
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_adam(s)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_jax(opt_state, layout: str = "decoder") -> dict[str, dict[str, torch.Tensor]]:
+    """``torch.optim.Adam`` per-parameter state from a pickled optax Adam
+    state (``ScaleByAdamState`` inside the ``optax.adam`` chain):
+    ``{name: {"step", "exp_avg", "exp_avg_sq"}}``.
+
+    ``layout="decoder"``: ``mu`` / ``nu`` are parameter pytrees and go
+    through :func:`cnf_state_dict_from_jax` (kernels transposed), keyed by
+    the ``SirenFilm`` state-dict names.  ``layout="latents"``: one table,
+    keyed ``"latents"``."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState in the optimizer state")
+    if layout == "decoder":
+        mu, nu = cnf_state_dict_from_jax(adam.mu), cnf_state_dict_from_jax(adam.nu)
+    elif layout == "latents":
+        mu, nu = {"latents": _t(adam.mu)}, {"latents": _t(adam.nu)}
+    else:
+        raise ValueError(f"unknown layout {layout!r}")
+    step = float(np.asarray(adam.count))
+    return {k: {"step": torch.tensor(step), "exp_avg": mu[k], "exp_avg_sq": nu[k]}
+            for k in mu}
 
 
 def _strip_module(sd: dict) -> dict:

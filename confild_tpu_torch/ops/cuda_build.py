@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes
 ``build/<name>-<hash>.so`` (compiled for ``sm_90a``), loaded with
-``ctypes``.  A hash of the source and the flags names the library, so an
-edited source is rebuilt and a built one is reused.  Nothing is compiled
+``ctypes``.  A hash of the source, the shared ``csrc/*.cuh`` headers and
+the flags names the library, so an edited source is rebuilt and a built
+one is reused.  Nothing is compiled
 when a module is imported: the CPU tests import every module and have no
 ``nvcc``.
 """
@@ -42,25 +43,42 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all(names: list[str]) -> list[Path]:
+    """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
+    ``nvcc`` process per source, all started together."""
+    outs = [library_path(name) for name in names]
+    jobs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        jobs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        build_logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{build_logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_logs[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{build_logs[name]}")
-    os.replace(tmp, out)
-    return out
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

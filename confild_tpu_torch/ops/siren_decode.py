@@ -1,4 +1,4 @@
-"""SIREN-FiLM decode: the port's two CUDA kernels and their plain versions.
+"""SIREN-FiLM decode: the port's CUDA kernels and their plain versions.
 
 The decode is a stack of ``x = sin(w0 * (x @ W1_l + z_l))`` layers over
 ``T x M`` (latent rows x mesh points) pairs, ``z_l = latents @ W2_l + b1_l``.
@@ -8,11 +8,22 @@ folded into the first and middle weights and into ``z``, so the activation
 is ``sin2pi(r) = sin(2*pi*r)``, a round-reduce plus an odd minimax
 polynomial.
 
-Kernels (``csrc/siren_decode.cu``):
+Kernels:
 
-* ``siren_decode_forward`` replaces ``_decode_kernel``: the full forward.
-* ``siren_decode_dz`` replaces ``_decode_dz_kernel``: ``dL/dz`` for every
-  layer, from which ``dL/dlatents`` is two small matmuls.
+* ``siren_decode_forward`` (``csrc/siren_decode.cu``) replaces
+  ``_decode_kernel``: the full forward.
+* ``siren_decode_dz`` (same file) replaces ``_decode_dz_kernel``:
+  ``dL/dz`` for every layer, from which ``dL/dlatents`` is two small
+  matmuls.
+* ``siren_decode_bwd`` (``csrc/siren_decode_bwd.cu``) replaces
+  ``_decode_bwd_kernel``: every training cotangent (``dz`` and the weight
+  gradients of the first, middle and head layers), as two launches per
+  chunk of ``BWD_PAIRS`` pairs.
+
+As in the JAX package, the FiLM table and the folding stay outside the
+kernels: the autograd functions take the folded operands, and autograd
+chains ``dz`` back through :func:`film_table` and :func:`stack_weights`
+to the latents, ``net2`` and the biases, undoing the scale.
 
 Each kernel has a plain PyTorch version beside it that repeats its
 arithmetic.  A wrapper takes the plain version only for CPU tensors; for
@@ -42,7 +53,15 @@ _SIN2PI_COEFFS = (
     -12.271581478633225,
 )
 
-LAUNCHES = {"siren_decode_forward": 0, "siren_decode_dz": 0}
+LAUNCHES = {"siren_decode_forward": 0, "siren_decode_dz": 0, "siren_decode_bwd": 0}
+
+# pairs per chunk of the training backward: its workspace holds every
+# pre-activation and dpre of a chunk, 2 * n_mod * BWD_PAIRS * H floats
+# (1.6 GB at Case4)
+BWD_PAIRS = 32768
+# points per chunk of the general op's coordinate gradient (a plain
+# autograd recompute), as the JAX package's BWD_CHUNK (siren_decode.py:250)
+BWD_CHUNK = 4096
 
 
 def reset_launch_counts() -> None:
@@ -144,6 +163,20 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    """The built training-backward kernels with their C signatures."""
+    lib = cuda_build.load("siren_decode_bwd")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.siren_bwd_chain.argtypes = [p] * 9 + [ll] + [i] * 8 + [p]
+    lib.siren_bwd_chain.restype = i
+    lib.siren_bwd_reduce.argtypes = [p] * 8 + [ll] + [i] * 8 + [p]
+    lib.siren_bwd_reduce.restype = i
+    lib.siren_bwd_tile_pairs.argtypes = []
+    lib.siren_bwd_tile_pairs.restype = i
+    return lib
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} failed with CUDA error {err}")
@@ -183,17 +216,21 @@ def decode_forward(coords, z, w_first, w_mid, w_head, b_head) -> torch.Tensor:
 # dz: plain version and kernel
 # ---------------------------------------------------------------------------
 
+def _pre_activations(coords, z, w_first, w_mid):
+    """Every layer's pre-activation ``r_l`` ``(T, M, H)`` of the forward."""
+    pres = []
+    for l in range(z.shape[0]):
+        x = (coords @ w_first)[None] if l == 0 else _sin2pi(pres[-1]) @ w_mid[l - 1]
+        pres.append(x + z[l][:, None, :])
+    return pres
+
+
 def decode_dz_plain(coords, z, g, w_first, w_mid, w_head):
     """The dz kernel's arithmetic: recompute the forward keeping every
     pre-activation, then walk back.  Returns ``dL/dz`` for the scaled FiLM
     table, ``(n_mod, T, H)``."""
     n_mod = z.shape[0]
-    pres = []
-    x = None
-    for l in range(n_mod):
-        r = ((coords @ w_first)[None] if l == 0 else x @ w_mid[l - 1]) + z[l][:, None, :]
-        pres.append(r)
-        x = _sin2pi(r)
+    pres = _pre_activations(coords, z, w_first, w_mid)
     dz = torch.empty_like(z)
     dx = g @ w_head.t()
     for l in range(n_mod - 1, -1, -1):
@@ -243,26 +280,186 @@ def decode_dz(coords, z, g, w_first, w_mid, w_head) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# training backward: plain version and kernel
+# ---------------------------------------------------------------------------
+
+def decode_bwd_plain(coords, z, g, w_first, w_mid, w_head):
+    """The training-backward kernel's arithmetic: recompute the forward
+    keeping every pre-activation, then walk back.  Returns the cotangents
+    of the folded operands ``(dz, dw_first, dw_mid, dw_head)``."""
+    n_mod, _, h = z.shape
+    pres = _pre_activations(coords, z, w_first, w_mid)
+    dw_head = _sin2pi(pres[-1]).reshape(-1, h).t() @ g.reshape(-1, g.shape[-1])
+    dz = torch.empty_like(z)
+    dw_mid = torch.empty_like(w_mid)
+    dx = g @ w_head.t()
+    for l in range(n_mod - 1, -1, -1):
+        dpre = dx * _cos2pi_scaled(pres[l])
+        dz[l] = dpre.sum(dim=1)
+        if l > 0:
+            dw_mid[l - 1] = _sin2pi(pres[l - 1]).reshape(-1, h).t() @ dpre.reshape(-1, h)
+            dx = dpre @ w_mid[l - 1].t()
+        else:
+            dw_first = coords.t() @ dpre.sum(dim=0)
+    return dz, dw_first, dw_mid, dw_head
+
+
+def decode_bwd(coords, z, g, w_first, w_mid, w_head):
+    """Training cotangents on folded operands, ``(dz, dw_first, dw_mid,
+    dw_head)``.
+
+    CPU tensors take :func:`decode_bwd_plain`; CUDA tensors launch
+    ``siren_decode_bwd``: its chain kernel and its reduction kernel, one
+    after the other, over chunks of ``BWD_PAIRS`` (row, point) pairs."""
+    if coords.device.type == "cpu":
+        return decode_bwd_plain(coords, z, g, w_first, w_mid, w_head)
+    dev = coords.device
+    _check_cuda(dev, coords=coords, z=z, g=g, w_first=w_first, w_mid=w_mid,
+                w_head=w_head)
+    n_mod, t, h = z.shape
+    m, c_in = coords.shape
+    c_out = w_head.shape[1]
+    _check_hidden(h)
+    if (g.shape != (t, m, c_out) or w_first.shape != (c_in, h)
+            or w_mid.shape != (n_mod - 1, h, h) or w_head.shape != (h, c_out)):
+        raise ValueError("decode operands have inconsistent shapes")
+    dz = torch.zeros_like(z)
+    dw_first = torch.zeros_like(w_first)
+    dw_mid = torch.zeros_like(w_mid)
+    dw_head = torch.zeros_like(w_head)
+    pairs = t * m
+    if pairs == 0:
+        return dz, dw_first, dw_mid, dw_head
+    lib = _bwd_library()
+    tile = lib.siren_bwd_tile_pairs()
+    chunk = min(pairs, BWD_PAIRS)
+    qa = -(-chunk // tile) * tile
+    r_ws, d_ws = torch.empty((2, n_mod, qa, h), device=dev, dtype=torch.float32)
+    w_mid_t = w_mid.transpose(1, 2).contiguous()
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        for p0 in range(0, pairs, chunk):
+            q = min(chunk, pairs - p0)
+            err = lib.siren_bwd_chain(
+                _ptr(coords), _ptr(z), _ptr(g), _ptr(w_first), _ptr(w_mid), _ptr(w_mid_t),
+                _ptr(w_head), _ptr(r_ws), _ptr(d_ws), p0, q, qa, t, m, c_in, h, n_mod,
+                c_out, stream)
+            _raise_on(err, "siren_bwd_chain launch")
+            LAUNCHES["siren_decode_bwd"] += 1
+            err = lib.siren_bwd_reduce(
+                _ptr(r_ws), _ptr(d_ws), _ptr(coords), _ptr(g), _ptr(dz), _ptr(dw_first),
+                _ptr(dw_mid), _ptr(dw_head), p0, q, qa, t, m, c_in, h, n_mod, c_out, stream)
+            _raise_on(err, "siren_bwd_reduce launch")
+            LAUNCHES["siren_decode_bwd"] += 1
+    return dz, dw_first, dw_mid, dw_head
+
+
+# ---------------------------------------------------------------------------
 # model-level ops
 # ---------------------------------------------------------------------------
+
+def _dcoords_chunked(model: SirenFilm, coords, latents, g, w0: float):
+    """``dL/dcoords`` by a plain autograd recompute of the reference decode
+    in chunks of ``BWD_CHUNK`` points (``confild_tpu/ops/siren_decode.py:
+    253-279``): the chunks are independent, so memory stays at one chunk's
+    activations."""
+    dcoords = torch.empty_like(coords)
+    lat = latents.detach()[:, None, :]
+    with torch.enable_grad():
+        for lo in range(0, coords.shape[0], BWD_CHUNK):
+            c = coords[lo:lo + BWD_CHUNK].detach().requires_grad_(True)
+            out = siren_film_apply(model, c[None], lat, w0)
+            (dcoords[lo:lo + BWD_CHUNK],) = torch.autograd.grad(
+                out, c, g[:, lo:lo + BWD_CHUNK])
+    return dcoords
+
+
+class _TrainDecode(torch.autograd.Function):
+    """The decode on folded operands: forward kernel, training-backward
+    kernel.  ``dcoords_fn(g)`` gives the coordinate gradient (the general
+    op) or is None (the train op: query points are frozen)."""
+
+    @staticmethod
+    def forward(ctx, coords, z, w_first, w_mid, w_head, b_head, dcoords_fn):
+        ctx.save_for_backward(coords, z, w_first, w_mid, w_head)
+        ctx.dcoords_fn = dcoords_fn
+        return decode_forward(coords, z, w_first, w_mid, w_head, b_head)
+
+    @staticmethod
+    def backward(ctx, g):
+        coords, z, w_first, w_mid, w_head = ctx.saved_tensors
+        g = g.contiguous()
+        dz, dw_first, dw_mid, dw_head = decode_bwd(coords, z, g, w_first, w_mid, w_head)
+        dcoords = None
+        if ctx.needs_input_grad[0] and ctx.dcoords_fn is not None:
+            dcoords = ctx.dcoords_fn(g)
+        return dcoords, dz, dw_first, dw_mid, dw_head, g.sum(dim=(0, 1)), None
+
+
+def _decode(model: SirenFilm, coords, latents, w0: float, with_dcoords: bool):
+    # net2 stays bias-free (reference FiLM semantics): the JAX op gives a
+    # structural net2 bias leaf a zero cotangent (siren_decode.py:598-601);
+    # SirenFilm has no such leaf, so there is nothing to zero here
+    w_first, w_mid, w_head, b_head, w2, b1, scale = stack_weights(model, w0)
+    z = film_table(latents, w2, b1, scale)
+    coords = coords.contiguous()
+    dcoords_fn = None
+    if with_dcoords and coords.requires_grad:
+        dcoords_fn = functools.partial(_dcoords_chunked, model, coords.detach(),
+                                       latents, w0=w0)
+    return _TrainDecode.apply(coords, z, w_first, w_mid, w_head, b_head, dcoords_fn)
+
 
 def fused_siren_decode(model: SirenFilm, coords, latents, w0: float = 30.0):
     """Decode every latent row at every coordinate: ``(T, M, C_out)``.
 
-    ``coords`` ``(M, C_in)`` (normalized), ``latents`` ``(T, L)``.  On the
-    card this is the forward kernel and has no gradient yet (the JAX
-    general op's backward is the training kernel, a later slice of the
-    port); on the CPU it is the differentiable plain version."""
-    if coords.device.type == "cuda" and torch.is_grad_enabled() and (
-            latents.requires_grad or any(p.requires_grad for p in model.parameters())):
-        raise NotImplementedError(
-            "the gradient of the general fused decode needs the training "
-            "kernel (fused_siren_decode_bwd), which comes with the CNF "
-            "training slice of the port; use fused_siren_decode_frozen for "
-            "gradients with respect to the latents")
-    w_first, w_mid, w_head, b_head, w2, b1, scale = stack_weights(model, w0)
-    z = film_table(latents, w2, b1, scale)
-    return decode_forward(coords.contiguous(), z, w_first, w_mid, w_head, b_head)
+    ``coords`` ``(M, C_in)`` (normalized), ``latents`` ``(T, L)``.  The
+    forward is the forward kernel; the gradient with respect to the
+    latents and the decoder is the training-backward kernel, and the one
+    with respect to ``coords`` a chunked plain recompute
+    (:func:`_dcoords_chunked`).  On the CPU both are the plain versions."""
+    return _decode(model, coords, latents, w0, with_dcoords=True)
+
+
+def fused_siren_decode_train(model: SirenFilm, coords, latents, w0: float = 30.0):
+    """:func:`fused_siren_decode` with frozen query points: the CNF
+    training op (``confild_tpu/ops/siren_decode.py:618-644``); ``coords``
+    gets no gradient."""
+    return _decode(model, coords, latents, w0, with_dcoords=False)
+
+
+def fused_siren_decode_bwd(model: SirenFilm, coords, latents, g, w0: float = 30.0):
+    """Every training cotangent of the decode for the output cotangent
+    ``g`` ``(T, M, C_out)``: ``(grads, dlatents)``, ``grads`` keyed by the
+    decoder's state-dict names (the JAX function returns the parameter
+    pytree, ``confild_tpu/ops/siren_decode.py:491-608``)."""
+    with torch.no_grad():
+        w_first, w_mid, w_head, _, w2, b1, scale = stack_weights(model, w0)
+        z = film_table(latents, w2, b1, scale)
+        u = unfold_bwd(decode_bwd(coords.contiguous(), z, g.contiguous(), w_first, w_mid,
+                                  w_head), latents, w2, scale)
+        n_mod = z.shape[0]
+        grads = {}
+        for l in range(n_mod):
+            grads[f"net1.{l}.weight"] = (u["dW_first"] if l == 0 else u["dW_mid"][l - 1]).t()
+            grads[f"net1.{l}.bias"] = u["db1"][l]
+            grads[f"net2.{l}.weight"] = u["dW2"][l].t()
+        grads[f"net1.{n_mod}.weight"] = u["dW_head"].t()
+        grads[f"net1.{n_mod}.bias"] = g.sum(dim=(0, 1))
+    return grads, u["dlatents"]
+
+
+def unfold_bwd(folded, latents, w2, scale) -> dict:
+    """The cotangents of the unfolded decoder from the folded ones
+    ``(dz, dw_first, dw_mid, dw_head)`` of :func:`decode_bwd`: undo the
+    ``w0 / (2*pi)`` scale and chain ``dz`` through the FiLM table to
+    ``dlatents``, ``dW2`` and ``db1`` (``confild_tpu/ops/siren_decode.py:
+    572-582``).  Weights stay [in][out]."""
+    dz, dw_first, dw_mid, dw_head = folded
+    dz = dz * scale
+    return {"dz": dz, "dW_first": dw_first * scale, "dW_mid": dw_mid * scale,
+            "dW_head": dw_head, "dlatents": torch.einsum("nth,nlh->tl", dz, w2),
+            "dW2": torch.einsum("tl,nth->nlh", latents, dz), "db1": dz.sum(dim=1)}
 
 
 def fused_siren_decode_dz(model: SirenFilm, coords, latents, g, w0: float = 30.0):

@@ -17,9 +17,10 @@ from confild_tpu.inference import CNF_inference as JInference
 from confild_tpu.io import torch_export
 from confild_tpu.io.checkpoint import save_pytree
 from confild_tpu.models import unet as junet
-from confild_tpu_torch.cli import sample_conditional
+from confild_tpu_torch.cli import sample_conditional, train_cnf
 from confild_tpu_torch.core.normalize import Normalizer
 from confild_tpu_torch.inference import CNF_inference, decoder
+from test_cnf_trainer import make_case
 from torch_parity_utils import jax_siren, limit_torch_threads, perturbed
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -154,6 +155,27 @@ def test_entry_points_refuse_cpu_unless_asked(tmp_path, monkeypatch):
     del recipe["device"]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _run(tmp_path, recipe)
+    make_case(tmp_path / "ckpt", epochs=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cnf.main([str(tmp_path / "ckpt" / "case.yml")])
     out = decoder(np.zeros((4, 2), np.float32), np.zeros((2, 8), np.float32), model,
                   x_norm, y_norm, device="cpu")
     assert out.shape == (2, 4, 1)
+
+
+def test_train_cnf_cli_cpu(tmp_path):
+    """The CNF training CLI on the CPU: trains, evaluates and checkpoints,
+    then a second call resumes from the newest checkpoint and continues the
+    epoch count; the JAX package's progress.csv columns."""
+    make_case(tmp_path, epochs=3, device="cpu", save_every=2)
+    recipe = str(tmp_path / "case.yml")
+    trainer = train_cnf.main([recipe])
+    assert trainer.state.epoch == 2
+    assert sorted(f for f in os.listdir(tmp_path / "run") if f.startswith("checkpoint_")) == \
+        ["checkpoint_0.pt", "checkpoint_2.pt"]
+    again = train_cnf.main([recipe])
+    assert again.state.epoch == 4
+    with open(tmp_path / "run" / "progress.csv") as f:
+        header = f.readline().strip().split(",")
+    assert {"epoch", "loss", "test_error_0", "test_error_1", "wait_train_chunk",
+            "wait_eval", "wait_save"} <= set(header)
