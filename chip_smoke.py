@@ -51,6 +51,29 @@ Phases, each fatal on failure:
    after each run; the newest checkpoint must load through
    ``CNF_inference``.
 
+10. flash-attention kernels (forward, dq, dk/dv) against their plain
+    versions and a float64 run at the path's shape (64, 144, 64), a ragged
+    (2, 200, 32), the xl recipe's (16, 9216, 64), the auto threshold's
+    (4, 16384, 64) and bf16 (2, 256, 64), under the same criterion; two
+    launches bitwise equal; forward + backward at (4, 16384, 64) within 64 MB
+    above inputs and outputs (O(N) memory); times of the kernels, the plain
+    versions and ``scaled_dot_product_attention`` (a yardstick only) at
+    (64, 144, 64), (16, 9216, 64) and (4, 16384, 64), beside their bounds;
+11. the full-width Case4 U-Net (384^2, 128 ch, mult 1,1,2,2,4,4, heads of
+    64), batch 8: one ``training_losses`` forward and backward with
+    ``use_flash_attention`` true and false on the same weights and draws;
+    loss and every parameter gradient agree to a relative L2 of 1e-3;
+12. main path, diffusion training: ``confild_tpu_torch.cli.train_diffusion
+    .main`` on ``recipes/diffusion/case4.yml`` as published with
+    ``use_flash_attention: true``, on 32 + 8 seeded synthetic 384 x 384
+    latent images: 3 steps (``save_interval`` 2, ``log_interval`` 1), then a
+    resume from ``model000003.pt`` to step 4 that must read back the step
+    count and the EMA; ms per step, peak memory, a device profile of one
+    step;
+13. train -> sample: ``cli.sample_conditional.main`` once more with the EMA
+    just written and flash attention on (the DPS gradient runs the flash
+    forward and backward).
+
 The script imports nothing of JAX or of ``confild_tpu``.  With no CUDA
 device it exits non-zero and prints no result.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel.
@@ -73,7 +96,8 @@ import torch
 import yaml
 
 from confild_tpu_torch import config as cfgmod
-from confild_tpu_torch.cli import sample_conditional, train_cnf
+from confild_tpu_torch.cli import sample_conditional, train_cnf, train_diffusion
+from confild_tpu_torch.diffusion import create_gaussian_diffusion
 from confild_tpu_torch.device import resolve_device
 from confild_tpu_torch.guidance import (create_sampler, get_conditioning_method,
                                         get_noise, get_operator)
@@ -83,6 +107,7 @@ from confild_tpu_torch.models import unet as tunet
 from confild_tpu_torch.models.cnf import SirenFilm, siren_film_apply
 from confild_tpu_torch.train.cnf_trainer import CNFTrainer
 from confild_tpu_torch.ops import cuda_build
+from confild_tpu_torch.ops import flash_attention as fa
 from confild_tpu_torch.ops import siren_decode as sd
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
@@ -105,6 +130,16 @@ MESH_POINTS = 4096
 GRAD_REL_TOL = 1e-3
 RECIPE_CNF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "recipes", "cnf",
                           "case4.yml")
+RECIPE_DIFFUSION = os.path.join(os.path.dirname(os.path.abspath(__file__)), "recipes",
+                                "diffusion", "case4.yml")
+# (BH, N, D, dtype) of the flash checks: the Case4 middle block at batch 8,
+# a ragged edge, the xl recipe's level-8 block at batch 4, the auto
+# threshold, bf16
+FLASH_CHECKS = ((64, 144, 64, torch.float32), (2, 200, 32, torch.float32),
+                (16, 9216, 64, torch.float32), (4, 16384, 64, torch.float32),
+                (2, 256, 64, torch.bfloat16))
+FLASH_TIMES = ((64, 144, 64), (16, 9216, 64), (4, 16384, 64))
+FLASH_PATH_SHAPE = "64x144x64"
 # flops of one sin2pi activation in the kernels: round-reduce (2), square (1),
 # five FMAs (10), final multiply (1), FiLM add (1)
 ACT_FLOPS = 15
@@ -179,13 +214,21 @@ def phase_build():
     paths = cuda_build.build_all(names)
     dt = time.perf_counter() - t0
     log(f"[build] {', '.join(p.name for p in paths)} in {dt:.2f} s")
+    # one line per kernel instantiation: registers and spills (ptxas -v)
     for name in names:
+        kernel, spill = None, ""
         for line in cuda_build.build_logs.get(name, "").splitlines():
-            kernel = re.search(r"(siren_[a-z_]+_kernel)", line)
-            if "Function properties" in line and kernel:
-                log(f"[build] {name}: {kernel.group(1)}")
-            elif "registers" in line or "spill" in line or "error" in line:
-                log(f"[build] {name}: {line.strip()}")
+            found = re.search(r"((?:siren|flash)_[a-z_]+_kernel)(?:ILi(\d+)E(\w*?)E)?", line)
+            if "Function properties" in line and found:
+                kernel = found.group(1) + (f"<{found.group(2)}, "
+                                           f"{'bf16' if 'bfloat16' in found.group(3) else 'f32'}>"
+                                           if found.group(2) else "")
+            elif "spill stores" in line:
+                spill = re.sub(r"\s+", " ", line.strip())
+            elif "registers" in line and kernel:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                log(f"[build] {name}: {kernel}: {regs} registers, {spill}")
+                kernel = None
 
 
 def case4_decoder(device):
@@ -740,6 +783,330 @@ def phase_train(root):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# flash attention: the kernels, the U-Net route, diffusion training
+# ---------------------------------------------------------------------------
+
+def f64_attention(q, k, v, g):
+    """Float64 forward and backward of softmax attention, one head at a
+    time: ``{"out", "lse", "dq", "dk", "dv"}``."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    res = {n: [] for n in ("out", "lse", "dq", "dk", "dv")}
+    for b in range(q.shape[0]):
+        qb, kb, vb, gb = (t[b].double() for t in (q, k, v, g))
+        s = qb @ kb.t() * scale
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.exp(s - lse[:, None])
+        out = p @ vb
+        ds = p * (gb @ vb.t() - (gb * out).sum(-1, keepdim=True))
+        for name, val in (("out", out), ("lse", lse), ("dq", ds @ kb * scale),
+                          ("dk", ds.t() @ qb * scale), ("dv", p.t() @ gb)):
+            res[name].append(val)
+        del s, p, ds
+    return {n: torch.stack(v) for n, v in res.items()}
+
+
+def flash_case(device, bh, n, d, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((bh, n, d), generator=gen, device=device).to(dtype) for _ in range(4)]
+
+
+def flash_check(device, bh, n, d, dtype) -> dict:
+    """Kernels vs plain vs float64 on every output, two launches bitwise
+    equal; returns the kernels' largest errors against float64."""
+    q, k, v, g = flash_case(device, bh, n, d, dtype, seed=bh + n)
+    out, lse = fa.flash_forward(q, k, v)
+    kern = dict(zip(("dq", "dk", "dv"), fa.flash_backward(q, k, v, out, lse, g)),
+                out=out, lse=lse)
+    out2, lse2 = fa.flash_forward(q, k, v)
+    again = (out2, lse2, *fa.flash_backward(q, k, v, out2, lse2, g))
+    same = all(torch.equal(a, kern[n]) for a, n in zip(again, ("out", "lse", "dq", "dk", "dv")))
+    del again, out2, lse2
+    p_out, p_lse = fa.flash_forward_plain(q, k, v)
+    plain = dict(zip(("dq", "dk", "dv"), fa.flash_backward_plain(q, k, v, p_out, p_lse, g)),
+                 out=p_out, lse=p_lse)
+    truth = f64_attention(q, k, v, g)
+    torch.cuda.synchronize()
+    ok, errs = same, {}
+    for name, want in truth.items():
+        err_k = (kern[name].double() - want).abs().max().item()
+        err_p = (plain[name].double() - want).abs().max().item()
+        top = want.abs().max().item()
+        good = err_k <= 2 * err_p + 1e-6 * top and torch.isfinite(kern[name]).all().item()
+        ok &= good
+        errs[name] = err_k
+        log(f"[flash] ({bh}, {n}, {d}) {str(dtype)[6:]} {name}: |kernel-f64| {err_k:.3e}, "
+            f"|plain-f64| {err_p:.3e}, max |f64| {top:.3e} -> {'ok' if good else 'FAIL'}")
+    log(f"[flash] ({bh}, {n}, {d}) {str(dtype)[6:]} two launches bitwise equal: {same}")
+    if not ok:
+        raise SystemExit("flash kernels fail the f64-relative criterion or are not "
+                         "deterministic")
+    del kern, plain, truth
+    torch.cuda.empty_cache()
+    return errs
+
+
+def flash_memory(device) -> None:
+    """Forward + backward through the kernels at (4, 16384, 64): the peak
+    above inputs and outputs is O(N), not the (BH, N, N) weights."""
+    q, k, v, g = flash_case(device, 4, 16384, 64, torch.float32, seed=1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, lse = fa.flash_forward(q, k, v)
+    grads = fa.flash_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    outputs = sum(t.numel() * t.element_size() for t in (out, lse, *grads))
+    extra = (torch.cuda.max_memory_allocated() - base - outputs) / 2**20
+    dense = 4 * 16384 * 16384 * 4 / 2**30
+    log(f"[flash] (4, 16384, 64) forward + backward: {extra:.2f} MiB above inputs and "
+        f"outputs (limit 64 MiB; one dense (BH, N, N) f32 tensor is {dense:.2f} GiB)")
+    if not extra < 64:
+        raise SystemExit("flash forward + backward is not O(N) in memory")
+
+
+def flash_bounds(bh, n, d) -> dict:
+    """(ms, bound_by) of each function from its flops (an exponential counts
+    as one operation) and the bytes of its inputs and outputs (f32)."""
+    mat, rows, exps = bh * n * n * d, bh * n, bh * n * n
+    io = 4 * bh * n * d
+    return {"flash_forward": bound(4 * mat + exps, 3 * io + io + 4 * rows),
+            "flash_bwd_dq": bound(6 * mat + exps, 4 * io + 8 * rows + io),
+            "flash_bwd_dkv": bound(8 * mat + exps, 4 * io + 8 * rows + 2 * io),
+            "backward": bound(10 * mat + exps, 5 * io + 4 * rows + 3 * io)}
+
+
+def flash_times(device, bh, n, d) -> dict:
+    """Kernels, plain versions and scaled_dot_product_attention at one shape,
+    CUDA events after a warm-up; every time in ms."""
+    q, k, v, g = flash_case(device, bh, n, d, torch.float32, seed=7)
+    out, lse = fa.flash_forward(q, k, v)
+    delta = (g * out).sum(-1).contiguous()
+    reps = 20 if n < 1000 else 3
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(*leaves), leaves, g)
+    t = {
+        "flash_forward": cuda_ms(lambda: fa.flash_forward(q, k, v), reps),
+        "flash_bwd_dq": cuda_ms(lambda: fa.bwd_dq(q, k, v, g, lse, delta), reps),
+        "flash_bwd_dkv": cuda_ms(lambda: fa.bwd_dkv(q, k, v, g, lse, delta), reps),
+        "fwd_bwd": cuda_ms(lambda: fa.flash_backward(q, k, v, *fa.flash_forward(q, k, v), g),
+                           reps),
+        "plain_forward": cuda_ms(lambda: fa.flash_forward_plain(q, k, v), reps),
+        "plain_fwd_bwd": cuda_ms(lambda: fa.flash_backward_plain(
+            q, k, v, *fa.flash_forward_plain(q, k, v), g), reps),
+        "sdpa_forward": cuda_ms(lambda: sdpa(q, k, v), reps),
+        "sdpa_fwd_bwd": cuda_ms(sdpa_fwd_bwd, reps)}
+    t["plain_backward"] = t["plain_fwd_bwd"] - t["plain_forward"]
+    b = flash_bounds(bh, n, d)
+    log(f"[flash-time] ({bh}, {n}, {d}) f32: forward kernel {t['flash_forward']:.3f} ms (bound "
+        f"{b['flash_forward'][0]:.3f}, {b['flash_forward'][1]}; "
+        f"{4 * bh * n * n * d / t['flash_forward'] / 1e9:.2f} TFLOP/s), plain "
+        f"{t['plain_forward']:.3f}, sdpa {t['sdpa_forward']:.3f}")
+    log(f"[flash-time] ({bh}, {n}, {d}) f32: dq kernel {t['flash_bwd_dq']:.3f} ms (bound "
+        f"{b['flash_bwd_dq'][0]:.3f}), dk/dv kernel {t['flash_bwd_dkv']:.3f} ms (bound "
+        f"{b['flash_bwd_dkv'][0]:.3f}); forward + backward: kernels {t['fwd_bwd']:.3f} ms "
+        f"(bound {b['flash_forward'][0] + b['backward'][0]:.3f}), plain "
+        f"{t['plain_fwd_bwd']:.3f}, sdpa {t['sdpa_fwd_bwd']:.3f}")
+    del leaves
+    torch.cuda.empty_cache()
+    return dict(t, bounds=b)
+
+
+def phase_flash(device, results) -> None:
+    errs = {}
+    for bh, n, d, dtype in FLASH_CHECKS:
+        errs[(bh, n, d, dtype)] = flash_check(device, bh, n, d, dtype)
+    flash_memory(device)
+    path = errs[(64, 144, 64, torch.float32)]
+    times = {f"{bh}x{n}x{d}": flash_times(device, bh, n, d) for bh, n, d in FLASH_TIMES}
+    log("[flash-time] " + json.dumps({s: {k: v for k, v in t.items() if k != "bounds"}
+                                      for s, t in times.items()}))
+    t = times[FLASH_PATH_SHAPE]
+    for name, err, plain, lib in (
+            ("flash_forward", max(path["out"], path["lse"]), t["plain_forward"],
+             t["sdpa_forward"]),
+            ("flash_bwd_dq", path["dq"], t["plain_backward"], None),
+            ("flash_bwd_dkv", max(path["dk"], path["dv"]), t["plain_backward"], None)):
+        results[name] = dict(max_abs_err=err, ms=t[name], plain_ms=plain,
+                             bound_ms=t["bounds"][name][0], bound_by=t["bounds"][name][1],
+                             library_ms=lib, shape=FLASH_PATH_SHAPE)
+
+
+CASE4_UNET = {k: CASE4_RECIPE[k] for k in (
+    "image_size", "num_channels", "num_res_blocks", "num_heads", "num_head_channels",
+    "attention_resolutions", "channel_mult")}
+
+
+def phase_unet_flash(root, device) -> None:
+    """One training_losses forward and backward of the full-width Case4
+    U-Net at batch 8 with flash attention on and off: same weights, t and
+    noise."""
+    state = torch.load(write_assets(root, 10)["ema_path"], weights_only=True)
+    diffusion = create_gaussian_diffusion(steps=1000, noise_schedule="cosine")
+    gen = torch.Generator(device=device).manual_seed(21)
+    x0 = torch.rand((8, 1, 384, 384), generator=gen, device=device) * 2 - 1
+    noise = torch.randn(x0.shape, generator=gen, device=device)
+    t = torch.tensor([3, 120, 250, 400, 555, 700, 850, 999])
+    res = {}
+    for flash in (True, False):
+        model = tunet.create_model(**CASE4_UNET, use_flash_attention=flash)
+        model.load_state_dict(state)
+        model.to(device)
+        fa.reset_launch_counts()
+        loss = diffusion.training_losses(model, x0, t, noise=noise)["loss"]
+        loss.mean().backward()
+        torch.cuda.synchronize()
+        counts = dict(fa.LAUNCHES)
+        res[flash] = (loss.detach(), {n: p.grad for n, p in model.named_parameters()})
+        log(f"[unet-flash] use_flash_attention={flash}: loss mean {loss.mean().item():.6f}, "
+            f"launches {counts}")
+        if not (all(v > 0 for v in counts.values()) if flash else not any(counts.values())):
+            raise SystemExit(f"flash route launches wrong for use_flash_attention={flash}")
+        del model, loss
+    loss_rel = rel_l2(res[True][0], res[False][0])
+    worst = max((rel_l2(res[True][1][n], res[False][1][n]), n) for n in res[False][1])
+    log(f"[unet-flash] Case4 U-Net batch 8, flash vs dense: loss rel L2 {loss_rel:.3e}, worst "
+        f"gradient rel L2 {worst[0]:.3e} ({worst[1]}) over {len(res[False][1])} parameters "
+        f"(tol {GRAD_REL_TOL})")
+    if not (loss_rel <= GRAD_REL_TOL and worst[0] <= GRAD_REL_TOL):
+        raise SystemExit("the U-Net's flash route disagrees with the dense route")
+    del res
+    torch.cuda.empty_cache()
+
+
+def write_diffusion_case(root, n_train=32, n_valid=8) -> dict:
+    """``recipes/diffusion/case4.yml`` as published, with flash attention on,
+    on seeded synthetic 384 x 384 latent images; cut to 3 steps, a save
+    every 2, a log line every step."""
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(384)
+    for name, n in (("train", n_train), ("valid", n_valid)):
+        base = np.sin(np.linspace(0, 8 * np.pi, 384))[None, :, None] * rng.uniform(
+            0.5, 1.5, size=(n, 1, 1))
+        np.save(os.path.join(root, f"{name}.npy"),
+                (base + 0.1 * rng.standard_normal((n, 384, 384))).astype(np.float32))
+    with open(RECIPE_DIFFUSION) as f:
+        recipe = yaml.safe_load(f)
+    recipe.update(use_flash_attention=True, lr_anneal_steps=3, save_interval=2, log_interval=1,
+                  log_path=os.path.join(root, "logs"),
+                  train_data_path=os.path.join(root, "train.npy"),
+                  valid_data_path=os.path.join(root, "valid.npy"))
+    return recipe
+
+
+def _write_yaml(path, recipe) -> str:
+    with open(path, "w") as f:
+        yaml.safe_dump(recipe, f)
+    return path
+
+
+def phase_train_diffusion(root) -> tuple[dict, str]:
+    """The diffusion training CLI at full Case4 width, then a resume; returns
+    the launch counts and the newest EMA file."""
+    recipe = write_diffusion_case(os.path.join(root, "diffusion"))
+    logs = recipe["log_path"]
+    path = _write_yaml(os.path.join(root, "diffusion", "case4.yml"), recipe)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    loop = train_diffusion.main([path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(logs, "progress.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in rows]
+    valid = [float(r["valid_mse"]) for r in rows]
+    files = sorted(os.listdir(logs))
+    log(f"[train-diffusion] Case4 U-Net, batch {loop.batch_size}, 384^2: {loop.step} steps, "
+        f"losses {[round(x, 6) for x in losses]}, valid_mse {[round(x, 6) for x in valid]}, "
+        f"CLI wall {wall:.1f} s, peak memory {peak:.2f} GiB; launches {counts}; files {files}")
+    want = [f"{p}{s:06d}.pt" for s in (2, 3) for p in ("model", "opt", "ema_0.9999_")]
+    if not (loop.step == 3 and len(losses) == 3 and all(np.isfinite(losses + valid))
+            and set(want) <= set(files)):
+        raise SystemExit("diffusion training: wrong step count, non-finite losses or "
+                         "missing checkpoints")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise SystemExit(f"diffusion training ran without launching {missing}")
+
+    # ms per step: three more steps of the same loop, in memory only (the
+    # files on disk stay as written), each synchronized; then a profile
+    data = [next(loop.data)[0] for _ in range(4)]
+    step_ms = []
+    for batch in data[:3]:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loop.run_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    log(f"[train-diffusion] ms per training step (train + validation forward, synchronized "
+        f"wall, after the CLI's 3): {[round(x, 1) for x in step_ms]}; CLI wall per step "
+        f"{wall * 1e3 / 3:.1f} (first step, build and data set-up included)")
+    kernels = device_profile("one diffusion training step (Case4, batch 8, flash on)",
+                             lambda: loop.run_step(data[3]), top=10)
+    busy = sum(ms for ms, _ in kernels.values())
+    shares = {"convolutions and matmuls (cuDNN, cuBLAS)": (
+                  "conv", "cudnn", "implicit", "winograd", "fft", "gemm", "xmma", "cutlass"),
+              "flash kernels": ("flash_",), "optimizer": ("adam", "multi_tensor", "foreach")}
+    parts = []
+    for label, keys in shares.items():
+        ms = sum(m for k, (m, _) in kernels.items()
+                 if any(key in k.lower() for key in keys)
+                 and (label.startswith("flash") or "flash_" not in k.lower()))
+        parts.append(f"{label} {ms:.1f} ms ({ms / max(busy, 1e-9):.1%})")
+    log("[profile]   " + ", ".join(parts) + " of busy")
+    del loop
+    torch.cuda.empty_cache()
+
+    ema3 = torch.load(os.path.join(logs, "ema_0.9999_000003.pt"), weights_only=True)
+    resume = dict(recipe, lr_anneal_steps=4,
+                  resume_checkpoint=os.path.join(logs, "model000003.pt"))
+    fa.reset_launch_counts()
+    again = train_diffusion.main([_write_yaml(path, resume)])
+    torch.cuda.synchronize()
+    for k, v in fa.LAUNCHES.items():
+        counts[k] += v
+    params4 = torch.load(os.path.join(logs, "model000004.pt"), weights_only=True)
+    ema4 = torch.load(os.path.join(logs, "ema_0.9999_000004.pt"), weights_only=True)
+    ema_err = max((ema4[k] - (0.9999 * ema3[k] + 0.0001 * params4[k])).abs().max().item()
+                  for k in ema4)
+    log(f"[train-diffusion] resume: resume step {again.resume_step}, final step {again.step}, "
+        f"max |ema4 - (r ema3 + (1 - r) params4)| {ema_err:.3e}; launches {dict(fa.LAUNCHES)}")
+    if not (again.resume_step == 3 and again.step == 4 and ema_err <= 1e-6):
+        raise SystemExit("the resumed diffusion run did not read back the step or the EMA")
+    del again
+    torch.cuda.empty_cache()
+    return counts, os.path.join(logs, "ema_0.9999_000004.pt")
+
+
+def phase_train_to_sample(root, ema_path) -> dict:
+    """The DPS CLI with the EMA just trained and flash attention on."""
+    recipe = dict(write_assets(root, 10), ema_path=ema_path, use_flash_attention=True,
+                  save_path=os.path.join(root, "samples_trained.npy"))
+    path = _write_yaml(os.path.join(root, "case4_trained.yml"), recipe)
+    fa.reset_launch_counts()
+    sd.reset_launch_counts()
+    timings = sample_conditional.main([path])
+    torch.cuda.synchronize()
+    counts = {**fa.LAUNCHES, **sd.LAUNCHES}
+    fields = np.load(recipe["save_path"])
+    T = CASE4_RECIPE["time_length"]
+    log(f"[train-sample] fields {fields.shape} from {os.path.basename(ema_path)}, finite "
+        f"{bool(np.isfinite(fields).all())}; {timings['steps']} guided steps "
+        f"{timings['sample_s'] * 1e3 / timings['steps']:.1f} ms/step; launches {counts}")
+    if fields.shape != (1, T, MESH_POINTS, 3) or not np.isfinite(fields).all():
+        raise SystemExit("sampling from the trained EMA gave a wrong field")
+    missing = [k for k in fa.LAUNCHES if fa.LAUNCHES[k] == 0]
+    if missing:
+        raise SystemExit(f"sampling with flash on ran without launching {missing}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -753,28 +1120,42 @@ def main() -> int:
     phase_dz(device, results)
     phase_crossover(device)
     phase_bwd(device, results)
+    phase_flash(device, results)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         launches = phase_main_path(root)
         phase_fused_dps(root, device)
         phase_op_grads(device, root)
-        train_launches = phase_train(root)
-    for k, v in train_launches.items():
-        launches[k] += v
+        for k, v in phase_train(root).items():
+            launches[k] += v
+        phase_unet_flash(root, device)
+        flash_launches, ema_path = phase_train_diffusion(root)
+        for k, v in phase_train_to_sample(root, ema_path).items():
+            if k in flash_launches:
+                flash_launches[k] += v
+            else:
+                launches[k] += v
+    launches.update(flash_launches)
 
     kernels = []
-    for kname, key, src, line in (
-            ("siren_decode_forward", "siren_decode_forward", "siren_decode.cu", 96),
-            ("siren_decode_dz", "siren_decode_dz@384x1024", "siren_decode.cu", 315),
-            ("siren_decode_bwd", "siren_decode_bwd", "siren_decode_bwd.cu", 434)):
+    for kname, key, src, replaces in (
+            ("siren_decode_forward", "siren_decode_forward", "siren_decode.cu",
+             "siren_decode.py:96"),
+            ("siren_decode_dz", "siren_decode_dz@384x1024", "siren_decode.cu",
+             "siren_decode.py:315"),
+            ("siren_decode_bwd", "siren_decode_bwd", "siren_decode_bwd.cu",
+             "siren_decode.py:434"),
+            ("flash_forward", "flash_forward", "flash_attention.cu", "flash_attention.py:56"),
+            ("flash_bwd_dq", "flash_bwd_dq", "flash_attention.cu", "flash_attention.py:158"),
+            ("flash_bwd_dkv", "flash_bwd_dkv", "flash_attention.cu", "flash_attention.py:188")):
         r = results[key]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"confild_tpu_torch/csrc/{src}",
-            "replaces": f"confild_tpu/ops/siren_decode.py:{line}",
+            "replaces": f"confild_tpu/ops/{replaces}",
             "launches": launches[kname],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "shape": r["shape"]})
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms"), "shape": r["shape"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -30,44 +30,14 @@ import numpy as np
 import torch
 
 from confild_tpu_torch import config as cfgmod
+from confild_tpu_torch.cli.train_diffusion import build_model_and_diffusion
 from confild_tpu_torch.core.packing import reconstruct_frame
 from confild_tpu_torch.device import resolve_device
-from confild_tpu_torch.diffusion import create_gaussian_diffusion
 from confild_tpu_torch.guidance import (create_sampler, get_conditioning_method,
                                         get_noise, get_operator)
 from confild_tpu_torch.inference import decoder
 from confild_tpu_torch.io.convert import load_unet_state_dict
 from confild_tpu_torch.models import unet as tunet
-
-
-def build_model_and_diffusion(hp):
-    """Counterpart of ``confild_tpu/cli/train_diffusion.py::
-    build_model_and_diffusion``: the U-Net and its diffusion from a recipe."""
-    if hp.get("use_bf16", hp.get("use_fp16", False)):
-        raise NotImplementedError(
-            "the bf16 U-Net torso is not ported yet (ROADMAP.md Queue 1, "
-            "item 10: diffusion training with a bf16 torso)")
-    model = tunet.create_model(
-        image_size=hp.image_size,
-        num_channels=hp.num_channels,
-        num_res_blocks=hp.num_res_blocks,
-        channel_mult=hp.get("channel_mult"),
-        attention_resolutions=hp.attention_resolutions,
-        num_heads=hp.get("num_heads", 4),
-        num_head_channels=hp.get("num_head_channels", -1),
-        out_channels=hp.get("out_channels", 1),
-        dims=hp.get("dims", 2),
-        use_scale_shift_norm=hp.get("use_scale_shift_norm", False),
-        dropout=hp.get("dropout", 0.0),
-        use_flash_attention=hp.get("use_flash_attention"),
-    )
-    diffusion = create_gaussian_diffusion(
-        steps=hp.steps,
-        noise_schedule=hp.noise_schedule,
-        learn_sigma=hp.get("learn_sigma", False),
-        timestep_respacing=hp.get("timestep_respacing") or None,
-    )
-    return model, diffusion
 
 
 def load_unet(path: str, model: tunet.UNetModel) -> tunet.UNetModel:

@@ -1,8 +1,10 @@
-"""Gaussian diffusion.  ``training_losses`` and ``calc_bpd_loop`` of the JAX
-package belong to the diffusion-training slice of the port."""
+"""Gaussian diffusion: sampling steps, training losses and timestep
+samplers.  ``calc_bpd_loop`` and the unguided sample loops of the JAX
+package are still to port (ROADMAP.md Queue 1, item 10)."""
 
 from confild_tpu_torch.diffusion.gaussian import (  # noqa: F401
     GaussianDiffusion,
+    LossType,
     ModelMeanType,
     ModelVarType,
     create_gaussian_diffusion,

@@ -7,7 +7,8 @@ at the gather (:func:`confild_tpu_torch.core.schedules.extract`).
 Respacing is folded into the schedule; the model receives original-process
 indices through ``timestep_map`` (the ``_WrappedModel`` contract,
 ``respace.py:110-128``).  Every step that draws noise takes an explicit
-``noise`` tensor or a ``torch.Generator``.
+``noise`` tensor or a ``torch.Generator``.  ``training_losses`` is the
+training objective (``confild_tpu/diffusion/gaussian.py:303-367``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import numpy as np
 import torch
 
 from confild_tpu_torch.core import schedules as sched
+from confild_tpu_torch.diffusion.losses import discretized_gaussian_log_likelihood, normal_kl
+from confild_tpu_torch.models.nn import mean_flat
 
 ModelFn = Callable[..., torch.Tensor]  # model(x, t, **kwargs) -> output
 _ext = sched.extract
@@ -35,6 +38,16 @@ class ModelVarType(enum.Enum):
     FIXED_SMALL = "fixed_small"
     FIXED_LARGE = "fixed_large"
     LEARNED_RANGE = "learned_range"
+
+
+class LossType(enum.Enum):
+    MSE = "mse"
+    RESCALED_MSE = "rescaled_mse"
+    KL = "kl"
+    RESCALED_KL = "rescaled_kl"
+
+    def is_vb(self) -> bool:
+        return self in (LossType.KL, LossType.RESCALED_KL)
 
 
 def _noise_like(x: torch.Tensor, noise: torch.Tensor | None,
@@ -55,10 +68,12 @@ class GaussianDiffusion:
     def __init__(self, schedule: sched.DiffusionSchedule,
                  model_mean_type: ModelMeanType = ModelMeanType.EPSILON,
                  model_var_type: ModelVarType = ModelVarType.FIXED_LARGE,
+                 loss_type: LossType = LossType.MSE,
                  rescale_timesteps: bool = False):
         self.s = schedule
         self.model_mean_type = model_mean_type
         self.model_var_type = model_var_type
+        self.loss_type = loss_type
         self.rescale_timesteps = rescale_timesteps
         self.num_timesteps = schedule.num_timesteps
         # derived tables the steps gather from (float64, host)
@@ -74,6 +89,12 @@ class GaussianDiffusion:
         return mapped
 
     # -- q process ----------------------------------------------------------
+
+    def q_mean_variance(self, x_start, t):
+        mean = _ext(self.s.sqrt_alphas_cumprod, t, x_start) * x_start
+        variance = _ext(1.0 - self.s.alphas_cumprod, t, x_start)
+        log_variance = _ext(self.s.log_one_minus_alphas_cumprod, t, x_start)
+        return mean, variance, log_variance
 
     def q_sample(self, x_start, t, noise):
         return (_ext(self.s.sqrt_alphas_cumprod, t, x_start) * x_start
@@ -170,6 +191,57 @@ class GaussianDiffusion:
         sample = mean_pred + nonzero_mask * sigma * noise
         return {"sample": sample, "pred_xstart": out["pred_xstart"]}
 
+    # -- training losses ------------------------------------------------------
+
+    def _vb_terms_bpd(self, model: ModelFn, x_start, x_t, t, clip_denoised=True,
+                      model_kwargs=None) -> dict:
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(x_start, x_t, t)
+        out = self.p_mean_variance(model, x_t, t, clip_denoised, model_kwargs=model_kwargs)
+        kl = mean_flat(normal_kl(true_mean, true_log_var, out["mean"],
+                                 out["log_variance"])) / np.log(2.0)
+        decoder_nll = -discretized_gaussian_log_likelihood(
+            x_start, means=out["mean"], log_scales=0.5 * out["log_variance"])
+        decoder_nll = mean_flat(decoder_nll) / np.log(2.0)
+        output = torch.where((t == 0).to(kl.device), decoder_nll, kl)
+        return {"output": output, "pred_xstart": out["pred_xstart"]}
+
+    def training_losses(self, model: ModelFn, x_start, t, model_kwargs=None, noise=None,
+                        valid: bool = False, generator=None) -> dict:
+        """Per-sample losses (reference ``gaussian_diffusion.py:744-821``);
+        ``noise`` (else drawn from ``generator``) is the JAX function's
+        ``normal(key)``.  ``valid=True`` renames mse to valid_mse."""
+        model_kwargs = model_kwargs or {}
+        noise = _noise_like(x_start, noise, generator)
+        x_t = self.q_sample(x_start, t, noise)
+        terms: dict[str, torch.Tensor] = {}
+        mse_name = "valid_mse" if valid else "mse"
+
+        if self.loss_type.is_vb():
+            terms["loss"] = self._vb_terms_bpd(model, x_start, x_t, t,
+                                               model_kwargs=model_kwargs)["output"]
+            if self.loss_type == LossType.RESCALED_KL:
+                terms["loss"] = terms["loss"] * self.num_timesteps
+            return terms
+
+        model_output = model(x_t, self.model_t(t, x_t.device), **model_kwargs)
+        if self.model_var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
+            model_output, model_var_values = model_output.chunk(2, dim=1)
+            # the variance's VLB with the mean frozen (the reference's
+            # frozen_out, :784-800)
+            frozen = torch.cat([model_output.detach(), model_var_values], dim=1)
+            terms["vb"] = self._vb_terms_bpd(lambda *a, **k: frozen, x_start, x_t, t,
+                                             model_kwargs=model_kwargs)["output"]
+            if self.loss_type == LossType.RESCALED_MSE:
+                terms["vb"] = terms["vb"] * self.num_timesteps / 1000.0
+
+        if self.model_mean_type == ModelMeanType.PREVIOUS_X:
+            target = self.q_posterior_mean_variance(x_start, x_t, t)[0]
+        else:
+            target = x_start if self.model_mean_type == ModelMeanType.START_X else noise
+        terms[mse_name] = mean_flat((target - model_output) ** 2)
+        terms["loss"] = terms[mse_name] + terms["vb"] if "vb" in terms else terms[mse_name]
+        return terms
+
 
 # ---------------------------------------------------------------------------
 # factory mirroring reference create_gaussian_diffusion (script_util.py:388-426)
@@ -177,10 +249,18 @@ class GaussianDiffusion:
 
 def create_gaussian_diffusion(*, steps: int = 1000, learn_sigma: bool = False,
                               sigma_small: bool = False, noise_schedule: str = "linear",
-                              predict_xstart: bool = False, rescale_timesteps: bool = False,
+                              use_kl: bool = False, predict_xstart: bool = False,
+                              rescale_timesteps: bool = False,
+                              rescale_learned_sigmas: bool = False,
                               timestep_respacing: str | Sequence[int] | None = None,
                               ) -> GaussianDiffusion:
     schedule = sched.named_schedule(noise_schedule, steps, timestep_respacing)
+    if use_kl:
+        loss_type = LossType.RESCALED_KL
+    elif rescale_learned_sigmas:
+        loss_type = LossType.RESCALED_MSE
+    else:
+        loss_type = LossType.MSE
     if not learn_sigma:
         var_type = ModelVarType.FIXED_SMALL if sigma_small else ModelVarType.FIXED_LARGE
     else:
@@ -188,7 +268,7 @@ def create_gaussian_diffusion(*, steps: int = 1000, learn_sigma: bool = False,
     return GaussianDiffusion(
         schedule,
         model_mean_type=ModelMeanType.START_X if predict_xstart else ModelMeanType.EPSILON,
-        model_var_type=var_type, rescale_timesteps=rescale_timesteps)
+        model_var_type=var_type, loss_type=loss_type, rescale_timesteps=rescale_timesteps)
 
 
 # string registries of the guided stage (reference

@@ -176,20 +176,24 @@ def _find_adam(state) -> OptaxState | None:
     return None
 
 
-def adam_state_from_jax(opt_state, layout: str = "decoder") -> dict[str, dict[str, torch.Tensor]]:
-    """``torch.optim.Adam`` per-parameter state from a pickled optax Adam
-    state (``ScaleByAdamState`` inside the ``optax.adam`` chain):
-    ``{name: {"step", "exp_avg", "exp_avg_sq"}}``.
+def adam_state_from_jax(opt_state, layout: str = "decoder",
+                        model: UNetModel | None = None) -> dict[str, dict[str, torch.Tensor]]:
+    """``torch.optim.Adam`` / ``AdamW`` per-parameter state from a pickled
+    optax Adam state (``ScaleByAdamState`` inside the ``optax.adam`` or
+    ``optax.adamw`` chain): ``{name: {"step", "exp_avg", "exp_avg_sq"}}``.
 
     ``layout="decoder"``: ``mu`` / ``nu`` are parameter pytrees and go
     through :func:`cnf_state_dict_from_jax` (kernels transposed), keyed by
-    the ``SirenFilm`` state-dict names.  ``layout="latents"``: one table,
-    keyed ``"latents"``."""
+    the ``SirenFilm`` state-dict names.  ``layout="unet"``: the same through
+    :func:`unet_state_dict_from_jax` for ``model``, keyed by the U-Net's
+    names.  ``layout="latents"``: one table, keyed ``"latents"``."""
     adam = _find_adam(opt_state)
     if adam is None:
         raise ValueError("no optax ScaleByAdamState in the optimizer state")
     if layout == "decoder":
         mu, nu = cnf_state_dict_from_jax(adam.mu), cnf_state_dict_from_jax(adam.nu)
+    elif layout == "unet":
+        mu, nu = unet_state_dict_from_jax(adam.mu, model), unet_state_dict_from_jax(adam.nu, model)
     elif layout == "latents":
         mu, nu = {"latents": _t(adam.mu)}, {"latents": _t(adam.nu)}
     else:

@@ -18,6 +18,19 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    """Mean over all non-batch dims."""
+    return x.mean(dim=tuple(range(1, x.ndim)))
+
+
+@torch.no_grad()
+def update_ema(ema_params, new_params, rate: float = 0.9999) -> None:
+    """EMA lerp in place: ``ema = rate * ema + (1 - rate) * new``
+    (``src/nn.py:70-80``, ``confild_tpu/models/nn.py:472-476``)."""
+    for e, p in zip(ema_params, new_params):
+        e.mul_(rate).add_(p.to(e.dtype), alpha=1.0 - rate)
+
+
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
                        max_period: float = 10000.0) -> torch.Tensor:
     """Sinusoidal embeddings, ``cos`` then ``sin`` halves as the reference

@@ -11,9 +11,11 @@ channels-first, with the reference state-dict keys
 * input / middle / output stacks with skip concatenation and nearest-up /
   strided-conv (or avg-pool) down sampling (``unet.py:396-663``).
 
-Only the dense attention path is ported.  The JAX package switches a block
-to its Pallas flash-attention kernel at ``FLASH_MIN_TOKENS`` tokens; that
-kernel is a later slice of the port, so such a configuration raises.
+An attention block takes the dense path or the flash-attention kernels
+(``confild_tpu_torch/ops/flash_attention.py``), as the JAX package routes it:
+``use_flash_attention`` true sends every block through the kernels; left
+unset (auto), only blocks of at least ``FLASH_MIN_TOKENS`` tokens take them.
+Block rematerialization (``use_checkpoint``) is not ported.
 """
 
 from __future__ import annotations
@@ -26,9 +28,11 @@ import torch
 from torch import nn
 
 from confild_tpu_torch.models import nn as tnn
+from confild_tpu_torch.ops.flash_attention import flash_attention
 
-# token count at which the JAX package's U-Net uses flash attention
-# (confild_tpu/models/unet.py:185)
+# token count at which the JAX package's U-Net uses flash attention in auto
+# mode (confild_tpu/models/unet.py:185); kept for routing parity, the H100
+# crossover is in PERF.md
 FLASH_MIN_TOKENS = 16384
 
 
@@ -60,6 +64,7 @@ class AttnSpec:
     ch: int
     num_heads: int
     new_order: bool = False
+    use_flash: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +101,8 @@ class UNetConfig:
     use_scale_shift_norm: bool = False
     resblock_updown: bool = False
     use_new_attention_order: bool = False
+    use_flash_attention: bool = False  # the flash kernels (O(N) memory)
+    flash_auto: bool = False           # gate flash per block by token count
 
     @property
     def emb_ch(self) -> int:
@@ -123,6 +130,18 @@ class UNetPlan:
 def build_plan(cfg: UNetConfig) -> UNetPlan:
     """Mirror of the reference block construction (``unet.py:478-615``)."""
     mc, emb_ch = cfg.model_channels, cfg.emb_ch
+
+    def flash_at(ds: int) -> bool:
+        """Auto mode gates flash per block (``confild_tpu/models/unet.py:
+        192-201``)."""
+        if not cfg.use_flash_attention:
+            return False
+        return not cfg.flash_auto or _tokens(cfg.image_size, cfg.dims, ds) >= FLASH_MIN_TOKENS
+
+    def attn(ch: int, upsample: bool = False) -> AttnSpec:
+        # ``ds`` is read at the call: the current level's downsample factor
+        return AttnSpec(ch, cfg.heads_for(ch, upsample), cfg.use_new_attention_order,
+                        flash_at(ds))
     ch = input_ch = int(cfg.channel_mult[0] * mc)
     input_blocks: list[tuple[Any, ...]] = [(ConvSpec(cfg.dims, cfg.in_channels, ch),)]
     input_block_chans = [ch]
@@ -133,7 +152,7 @@ def build_plan(cfg: UNetConfig) -> UNetPlan:
                                          cfg.use_scale_shift_norm, dropout=cfg.dropout)]
             ch = int(mult * mc)
             if ds in cfg.attention_resolutions:
-                layers.append(AttnSpec(ch, cfg.heads_for(ch), cfg.use_new_attention_order))
+                layers.append(attn(ch))
             input_blocks.append(tuple(layers))
             input_block_chans.append(ch)
         if level != len(cfg.channel_mult) - 1:
@@ -147,7 +166,7 @@ def build_plan(cfg: UNetConfig) -> UNetPlan:
 
     middle_block = (
         ResSpec(cfg.dims, ch, ch, emb_ch, cfg.use_scale_shift_norm, dropout=cfg.dropout),
-        AttnSpec(ch, cfg.heads_for(ch), cfg.use_new_attention_order),
+        attn(ch),
         ResSpec(cfg.dims, ch, ch, emb_ch, cfg.use_scale_shift_norm, dropout=cfg.dropout),
     )
 
@@ -159,8 +178,7 @@ def build_plan(cfg: UNetConfig) -> UNetPlan:
                               cfg.use_scale_shift_norm, dropout=cfg.dropout)]
             ch = int(mc * mult)
             if ds in cfg.attention_resolutions:
-                layers.append(AttnSpec(ch, cfg.heads_for(ch, upsample=True),
-                                       cfg.use_new_attention_order))
+                layers.append(attn(ch, upsample=True))
             if level and i == cfg.num_res_blocks:
                 if cfg.resblock_updown:
                     layers.append(ResSpec(cfg.dims, ch, ch, emb_ch, cfg.use_scale_shift_norm,
@@ -218,7 +236,9 @@ class ResBlock(nn.Module):
 
 
 class AttentionBlock(nn.Module):
-    """Dense self-attention over the flattened spatial positions."""
+    """Self-attention over the flattened spatial positions: dense, or the
+    flash kernels when ``spec.use_flash`` (``confild_tpu/models/unet.py:
+    378-384``)."""
 
     def __init__(self, spec: AttnSpec):
         super().__init__()
@@ -238,10 +258,15 @@ class AttentionBlock(nn.Module):
             q, k, v = (t.reshape(b * heads, d, n) for t in qkv.chunk(3, dim=1))
         else:
             q, k, v = qkv.reshape(b * heads, 3 * d, n).split(d, dim=1)
-        scale = 1.0 / np.sqrt(np.sqrt(d))
-        logits = torch.einsum("bct,bcs->bts", q * scale, k * scale)
-        weights = torch.softmax(logits.float(), dim=-1).type(x.dtype)
-        out = torch.einsum("bts,bcs->bct", weights, v).reshape(b, c, n)
+        if self.spec.use_flash:
+            # (B*heads, N, d) in the same head order for both layouts
+            out = flash_attention(*(t.transpose(1, 2) for t in (q, k, v)))
+            out = out.transpose(1, 2).reshape(b, c, n)
+        else:
+            scale = 1.0 / np.sqrt(np.sqrt(d))
+            logits = torch.einsum("bct,bcs->bts", q * scale, k * scale)
+            weights = torch.softmax(logits.float(), dim=-1).type(x.dtype)
+            out = torch.einsum("bts,bcs->bct", weights, v).reshape(b, c, n)
         return (h + self.proj_out(out)).reshape(b, c, *spatial)
 
 
@@ -307,6 +332,34 @@ class UNetModel(nn.Module):
             tnn.GroupNorm32(self.plan.out_ch_final), nn.SiLU(),
             tnn.conv_nd(cfg.dims, self.plan.out_ch_final, cfg.out_channels, 3, padding=1))
 
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> "UNetModel":
+        """The reference's initialisation from ``generator``: torch's default
+        ``±1/sqrt(fan_in)`` uniform for every convolution and linear layer,
+        unit GroupNorms, and the ``zero_module`` layers (each ResBlock's
+        output convolution, each attention projection and the final
+        convolution, reference ``unet.py:216-223,290,660``) zeroed, as the
+        JAX ``init`` zeroes them."""
+        zeroed = {id(self.out[2])}
+        for m in self.modules():
+            if isinstance(m, ResBlock):
+                zeroed.add(id(m.out_layers[3]))
+            elif isinstance(m, AttentionBlock):
+                zeroed.add(id(m.proj_out))
+        for m in self.modules():
+            if isinstance(m, nn.GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
+                if id(m) in zeroed:
+                    m.weight.zero_()
+                    m.bias.zero_()
+                    continue
+                bound = 1.0 / np.sqrt(m.weight[0].numel())
+                for t in (m.weight, m.bias):
+                    t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
+        return self
+
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
         emb = self.time_embed(tnn.timestep_embedding(timesteps, self.cfg.model_channels))
         hs = []
@@ -332,6 +385,13 @@ _DEFAULT_CHANNEL_MULT = {
 }
 
 
+def _tokens(image_size: int, dims: int, ds: int) -> int:
+    """Tokens of an attention block at downsample factor ``ds`` (the image
+    depth times the plane for ``dims == 3``)."""
+    n = image_size // ds
+    return image_size * n * n if dims == 3 else n ** dims
+
+
 def create_model(image_size: int, num_channels: int, num_res_blocks: int,
                  dims: int = 2, out_channels: int = 1,
                  channel_mult: str | Sequence[float] | None = None,
@@ -340,7 +400,8 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
                  num_heads_upsample: int = -1, use_scale_shift_norm: bool = False,
                  dropout: float = 0.0, resblock_updown: bool = False,
                  use_new_attention_order: bool = False,
-                 use_flash_attention: bool | None = None) -> UNetModel:
+                 use_flash_attention: bool | None = None,
+                 use_checkpoint: bool = False) -> UNetModel:
     if channel_mult is None:
         if image_size not in _DEFAULT_CHANNEL_MULT:
             raise ValueError(f"unsupported image size: {image_size}")
@@ -353,15 +414,17 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
     attention_ds = tuple(image_size // int(res)
                          for res in str(attention_resolutions).split(","))
 
-    def tokens(ds):
-        n = image_size // ds
-        return image_size * n * n if dims == 3 else n ** dims
-    if use_flash_attention or (use_flash_attention is None and attention_ds
-                               and max(map(tokens, attention_ds)) >= FLASH_MIN_TOKENS):
+    if use_checkpoint:
         raise NotImplementedError(
-            "flash attention (the JAX package's ops/flash_attention.py kernels, "
-            f"engaged at >= {FLASH_MIN_TOKENS} tokens) is not ported yet; see "
-            "ROADMAP.md Queue 2")
+            "block rematerialization (use_checkpoint) is not ported yet "
+            "(ROADMAP.md Queue 1, item 10)")
+    # auto (None): build_plan gates flash per block at FLASH_MIN_TOKENS; the
+    # flag records whether any block crosses it (confild_tpu/models/unet.py:
+    # 630-668)
+    flash_auto = use_flash_attention is None
+    if flash_auto:
+        use_flash_attention = max(_tokens(image_size, dims, ds)
+                                  for ds in attention_ds) >= FLASH_MIN_TOKENS
 
     cfg = UNetConfig(
         image_size=image_size, in_channels=out_channels, model_channels=num_channels,
@@ -370,5 +433,6 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
         dropout=dropout, channel_mult=channel_mult, dims=dims, num_heads=num_heads,
         num_head_channels=num_head_channels, num_heads_upsample=num_heads_upsample,
         use_scale_shift_norm=use_scale_shift_norm, resblock_updown=resblock_updown,
-        use_new_attention_order=use_new_attention_order)
+        use_new_attention_order=use_new_attention_order,
+        use_flash_attention=bool(use_flash_attention), flash_auto=flash_auto)
     return UNetModel(cfg)

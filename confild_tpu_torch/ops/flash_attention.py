@@ -1,0 +1,213 @@
+"""Flash attention: the port's CUDA kernels and their plain versions.
+
+Counterpart of ``confild_tpu/ops/flash_attention.py``.  q, k, v are
+``(BH, N, D)``; logits are scaled by ``1/sqrt(D)`` and the softmax runs in
+float32.  The forward keeps the per-row logsumexp ``lse`` ``(BH, N)``; the
+backward is the FlashAttention-2 two-pass recompute (``:12-20``): with
+``delta = rowsum(dO * O)`` and ``P = exp(S - lse)`` rebuilt blockwise,
+
+    dV = P^T dO,  dS = P * (dO V^T - delta),  dQ = scale dS K,  dK = scale dS^T Q.
+
+Kernels (``csrc/flash_attention.cu``):
+
+* ``flash_forward`` replaces ``_flash_kernel``: ``out`` and ``lse``;
+* ``flash_bwd_dq`` replaces ``_bwd_dq_kernel``: ``dQ``;
+* ``flash_bwd_dkv`` replaces ``_bwd_dkv_kernel``: ``dK`` and ``dV``.
+
+``delta`` is computed in torch, as the JAX package computes it outside its
+kernels (``:233-234``).  The TPU kernels' block sizes and interpret mode are
+Mosaic tiling and have no counterpart; ragged ``N`` is masked inside the
+CUDA kernels, with no padded copy.
+
+Each kernel has a plain PyTorch version beside it.  A wrapper takes the
+plain version only for CPU tensors; for CUDA tensors it launches its kernel
+or raises.  ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from confild_tpu_torch.ops import cuda_build
+
+LAUNCHES = {"flash_forward": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+_HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def reference_attention(q, k, v):
+    """Dense attention, the counterpart of ``_reference_attention``: float32
+    logits and softmax, the weights cast to ``v``'s type."""
+    d = q.shape[-1]
+    logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(d)
+    weights = torch.softmax(logits, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", weights.to(v.dtype), v)
+
+
+def flash_forward_plain(q, k, v):
+    """The forward kernel's arithmetic in float32: ``(out, lse)``, ``out`` in
+    the input type and ``lse`` float32 ``(BH, N)``."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    out = torch.einsum("bqk,bkd->bqd", torch.exp(s - lse[..., None]), v.float())
+    return out.to(q.dtype), lse
+
+
+def _delta(out, g):
+    return (g.float() * out.float()).sum(dim=-1)
+
+
+def flash_backward_plain(q, k, v, out, lse, g):
+    """The backward kernels' arithmetic in float32: ``P = exp(S - lse)``
+    rebuilt from the saved logsumexp, then ``(dq, dk, dv)`` in the input
+    type."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    p = torch.exp(torch.einsum("bqd,bkd->bqk", qf, kf) * scale - lse[..., None])
+    dv = torch.einsum("bqk,bqd->bkd", p, gf)
+    ds = p * (torch.einsum("bqd,bkd->bqk", gf, vf) - _delta(out, g)[..., None])
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built kernels with their C signatures declared."""
+    lib = cuda_build.load("flash_attention")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_forward.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.flash_forward.restype = i
+    lib.flash_bwd_dq.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.flash_bwd_dq.restype = i
+    lib.flash_bwd_dkv.argtypes = [p] * 8 + [i] * 4 + [p]
+    lib.flash_bwd_dkv.restype = i
+    return lib
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check(ref, **tensors) -> tuple[int, int, int, int]:
+    """Device, type, shape and contiguity of the kernels' operands against
+    ``ref`` (q); returns ``(BH, N, D, dtype code)``."""
+    bh, n, d = ref.shape
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA flash kernels take a head width of {_HEAD_DIMS}, got {d}")
+    if ref.dtype not in _DTYPES:
+        raise TypeError(f"the CUDA flash kernels take float32 or bfloat16, got {ref.dtype}")
+    for name, t in tensors.items():
+        want_dtype = torch.float32 if name in ("lse", "delta") else ref.dtype
+        want_shape = (bh, n) if name in ("lse", "delta") else (bh, n, d)
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, q on {ref.device}")
+        if t.dtype != want_dtype:
+            raise TypeError(f"{name} must be {want_dtype}, got {t.dtype}")
+        if tuple(t.shape) != want_shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want_shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return bh, n, d, _DTYPES[ref.dtype]
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed with CUDA error {err}")
+
+
+def flash_forward(q, k, v):
+    """``(out, lse)``.  CPU tensors take :func:`flash_forward_plain`; CUDA
+    tensors launch ``flash_forward``."""
+    if q.device.type == "cpu":
+        return flash_forward_plain(q, k, v)
+    bh, n, d, code = _check(q, q=q, k=k, v=v)
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, n), device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        err = _library().flash_forward(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse),
+                                       bh, n, d, code, _stream(q.device))
+    _raise_on(err, "flash_forward launch")
+    LAUNCHES["flash_forward"] += 1
+    return out, lse
+
+
+def bwd_dq(q, k, v, g, lse, delta):
+    """``dq`` on CUDA tensors: launches ``flash_bwd_dq``."""
+    bh, n, d, code = _check(q, q=q, k=k, v=v, g=g, lse=lse, delta=delta)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _library().flash_bwd_dq(_ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse),
+                                      _ptr(delta), _ptr(dq), bh, n, d, code, _stream(q.device))
+    _raise_on(err, "flash_bwd_dq launch")
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def bwd_dkv(q, k, v, g, lse, delta):
+    """``(dk, dv)`` on CUDA tensors: launches ``flash_bwd_dkv``."""
+    bh, n, d, code = _check(q, q=q, k=k, v=v, g=g, lse=lse, delta=delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _library().flash_bwd_dkv(_ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse),
+                                       _ptr(delta), _ptr(dk), _ptr(dv), bh, n, d, code,
+                                       _stream(q.device))
+    _raise_on(err, "flash_bwd_dkv launch")
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_backward(q, k, v, out, lse, g):
+    """``(dq, dk, dv)``.  CPU tensors take :func:`flash_backward_plain`;
+    CUDA tensors launch ``flash_bwd_dq`` and then ``flash_bwd_dkv``, with
+    ``delta = rowsum(dO * O)`` from torch."""
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, out, lse, g)
+    _check(q, out=out)
+    delta = _delta(out, g).contiguous()
+    return (bwd_dq(q, k, v, g, lse, delta), *bwd_dkv(q, k, v, g, lse, delta))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel; backward the dq and dk/dv kernels (on the CPU, the
+    plain versions of both)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_forward(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        return flash_backward(q, k, v, out, lse, g.contiguous())
+
+
+def flash_attention(q, k, v):
+    """Online-softmax attention: q, k, v ``(BH, N, D)`` -> ``(BH, N, D)``."""
+    return _FlashAttention.apply(q, k, v)

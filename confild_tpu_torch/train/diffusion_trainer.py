@@ -1,0 +1,295 @@
+"""Diffusion training loop, the port of ``confild_tpu/train/diffusion_trainer.py``
+(reference ``UnconditionalDiffusionTraining_and_Generation/src/train_util.py``
+``TrainLoop``).
+
+Reproduced semantics:
+
+* AdamW with the linear lr anneal over ``lr_anneal_steps`` (optax's
+  ``linear_schedule``: the lr of an update is ``lr * (1 - count / N)``,
+  ``count`` the updates applied so far), ``lr_anneal_steps`` counted as
+  total steps (a resume continues towards the same horizon);
+* an EMA of the parameters per rate, updated after every step;
+* microbatch gradient accumulation, the noise drawn for the whole batch
+  first so that microbatched and full-batch steps agree;
+* the non-finite-gradient guard: a step whose gradient norm is not finite
+  leaves the parameters and the optimizer state as they were;
+* a validation forward after every step (``valid_mse``), per-quartile
+  losses bucketed by t, ``grad_norm``, ``param_norm``,
+  ``skipped_nonfinite``;
+* ``model/ema_{rate}/opt{step:06d}.pt`` triplets, filename-based resume
+  (from the port's ``.pt`` triplet or the JAX package's ``.ckpt`` one), the
+  ``DIFFUSION_TRAINING_TEST`` early exit.
+
+The random draws (``t``, the importance weights, the noise) are kept apart
+from the step arithmetic: :meth:`TrainLoop.train_step` and
+:meth:`TrainLoop.valid_step` take them as tensors, so a test can feed the
+port the numbers the JAX step drew.  The U-Net runs without dropout in
+training, as the JAX step (which passes no dropout key) does.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from confild_tpu_torch.device import resolve_device
+from confild_tpu_torch.diffusion.gaussian import GaussianDiffusion
+from confild_tpu_torch.diffusion.resample import UniformSampler
+from confild_tpu_torch.io import checkpoint as ckpt_io
+from confild_tpu_torch.io import convert
+from confild_tpu_torch.models import nn as tnn
+from confild_tpu_torch.utils import logger as tlog
+
+
+def global_norm(tensors) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+
+
+def _to_cpu(sd: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in sd.items()}
+
+
+class TrainLoop:
+    """``run_loop()`` trains ``model`` (its current weights are the start
+    unless ``resume_checkpoint`` names a triplet) on batches from ``data``
+    on ``device`` (default: the CUDA card; the CPU only when asked)."""
+
+    def __init__(self, *, model, diffusion: GaussianDiffusion, data: Iterator,
+                 batch_size: int, microbatch: int = -1, lr: float = 1e-4,
+                 ema_rate: str | float = "0.9999", log_interval: int = 10,
+                 save_interval: int = 10000, resume_checkpoint: str = "",
+                 weight_decay: float = 0.0, lr_anneal_steps: int = 0,
+                 valid_data: Iterator | None = None, schedule_sampler=None,
+                 save_dir: str | None = None, mesh=None, seed: int = 42,
+                 steps_per_call: int = 1, keep_checkpoints: int = 0, device_data=None,
+                 device=None):
+        if int(steps_per_call) > 1 or device_data is not None:
+            raise NotImplementedError(
+                "steps_per_call > 1 and device_data (the JAX package's multi-step scan "
+                "and device-resident dataset) are not ported yet (ROADMAP.md Queue 1, "
+                "item 10)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "data-parallel training over a mesh is not ported yet (ROADMAP.md "
+                "Queue 1, item 13): the port trains on one card")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.diffusion = diffusion
+        self.data = data
+        self.valid_data = valid_data
+        self.batch_size = batch_size
+        self.microbatch = microbatch if microbatch > 0 else batch_size
+        self.lr = lr
+        self.ema_rate = ([ema_rate] if isinstance(ema_rate, float)
+                         else [float(x) for x in str(ema_rate).split(",")])
+        self.log_interval = log_interval
+        self.save_interval = save_interval
+        self.resume_checkpoint = resume_checkpoint
+        self.lr_anneal_steps = lr_anneal_steps
+        self.sampler = schedule_sampler or UniformSampler(diffusion.num_timesteps)
+        self.save_dir = save_dir or (tlog.get_current().dir or ".")
+        self.keep_checkpoints = keep_checkpoints
+        # t and the importance weights are drawn on the host (the schedule
+        # tables live there), the noise on the device
+        self.generator = torch.Generator().manual_seed(seed)
+        self.noise_generator = torch.Generator(self.device).manual_seed(seed + 1)
+
+        self.params = list(self.model.parameters())
+        self.opt = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                     weight_decay=weight_decay)
+        self.resume_step = 0
+        self._load()
+        self.step = self.resume_step
+        self.sampler_state = self.sampler.init_state()
+
+    # -- setup ----------------------------------------------------------------
+
+    def _load(self) -> None:
+        """Parameters, AdamW state and EMAs from the resume triplet; without
+        one the EMAs start equal to the parameters."""
+        path = self.resume_checkpoint
+        names = [n for n, _ in self.model.named_parameters()]
+        if path:
+            self.resume_step = ckpt_io.parse_resume_step(path)
+            self.model.load_state_dict(convert.load_unet_state_dict(path, self.model))
+            print(f"loading model from checkpoint: {path} at step {self.resume_step}")
+            self._load_optimizer(os.path.join(
+                os.path.dirname(path),
+                f"opt{self.resume_step:06d}{os.path.splitext(path)[1]}"), names)
+        self.ema_params = []
+        for rate in self.ema_rate:
+            ema = [p.detach().clone() for p in self.params]
+            ema_path = ckpt_io.find_ema_checkpoint(path or None, self.resume_step, str(rate))
+            if ema_path:
+                sd = convert.load_unet_state_dict(ema_path, self.model)
+                ema = [sd[n].to(self.device, torch.float32) for n in names]
+                print(f"loading EMA from checkpoint: {ema_path}")
+            self.ema_params.append(ema)
+
+    def _load_optimizer(self, opt_path: str, names: list[str]) -> None:
+        if not os.path.exists(opt_path):
+            return
+        if opt_path.endswith(".pt"):
+            self.opt.load_state_dict(convert.read_pt(opt_path))
+            return
+        saved = convert.adam_state_from_jax(convert.read_ckpt(opt_path), "unet", self.model)
+        for name, p in zip(names, self.params):
+            st = saved[name]
+            self.opt.state[p] = {"step": st["step"].clone().float(),
+                                 "exp_avg": st["exp_avg"].to(p.device, p.dtype),
+                                 "exp_avg_sq": st["exp_avg_sq"].to(p.device, p.dtype)}
+
+    def _update_count(self) -> int:
+        """Updates applied so far (optax's schedule count)."""
+        state = self.opt.state.get(self.params[0])
+        return int(state["step"]) if state else 0
+
+    def _lr(self) -> float:
+        if not self.lr_anneal_steps:
+            return self.lr
+        frac = min(self._update_count(), self.lr_anneal_steps) / self.lr_anneal_steps
+        return self.lr * (1.0 - frac)
+
+    # -- steps ------------------------------------------------------------------
+
+    def train_step(self, batch: torch.Tensor, t: torch.Tensor, weights: torch.Tensor,
+                   noise: torch.Tensor) -> dict:
+        """One optimizer step on ``batch`` with the given draws: ``t`` and
+        ``weights`` ``(B,)`` on the host, ``noise`` like ``batch``.  Returns
+        the step's metrics as floats (NaN for an empty loss quartile)."""
+        n_micro = max(self.batch_size // self.microbatch, 1)
+        micro = self.microbatch if n_micro > 1 else batch.shape[0]
+        self.opt.zero_grad(set_to_none=True)
+        loss_total, terms_all = 0.0, []
+        for i in range(n_micro):
+            sl = slice(i * micro, (i + 1) * micro)
+            terms = self.diffusion.training_losses(self.model, batch[sl], t[sl],
+                                                   noise=noise[sl])
+            loss = (terms["loss"] * weights[sl].to(self.device)).mean() / n_micro
+            loss.backward()
+            loss_total += loss.detach()
+            terms_all.append({k: v.detach() for k, v in terms.items()})
+        terms = {k: torch.cat([tm[k] for tm in terms_all]) for k in terms_all[0]}
+
+        grad_norm = global_norm(p.grad for p in self.params)
+        grads_ok = bool(torch.isfinite(grad_norm))
+        if grads_ok:
+            for group in self.opt.param_groups:
+                group["lr"] = self._lr()
+            self.opt.step()
+        for ema, rate in zip(self.ema_params, self.ema_rate):
+            tnn.update_ema(ema, self.params, rate)
+        losses = terms["loss"].cpu()
+        self.sampler_state = self.sampler.update(self.sampler_state, t, losses)
+        self.step += 1
+
+        metrics = {"loss": float(loss_total), "grad_norm": float(grad_norm),
+                   "param_norm": float(global_norm(p.detach() for p in self.params)),
+                   "skipped_nonfinite": 0.0 if grads_ok else 1.0}
+        quartile = (4 * t / self.diffusion.num_timesteps).long()
+        for q in range(4):
+            mask = quartile == q
+            metrics[f"loss_q{q}"] = (float(losses[mask].mean()) if mask.any()
+                                     else float("nan"))
+        for k in ("mse", "vb"):
+            if k in terms:
+                metrics[k] = float(terms[k].mean())
+        return metrics
+
+    @torch.no_grad()
+    def valid_step(self, batch: torch.Tensor, t: torch.Tensor, weights: torch.Tensor,
+                   noise: torch.Tensor) -> float:
+        """The weighted validation MSE of the current parameters."""
+        terms = self.diffusion.training_losses(self.model, batch, t, noise=noise,
+                                               valid=True)
+        return float((terms["valid_mse"] * weights.to(self.device)).mean())
+
+    def _draws(self, batch: torch.Tensor):
+        t, weights, _ = self.sampler.sample(self.sampler_state, self.generator,
+                                            batch.shape[0])
+        noise = torch.randn(batch.shape, generator=self.noise_generator,
+                            device=self.device, dtype=batch.dtype)
+        return t, weights, noise
+
+    def run_step(self, batch) -> None:
+        logger = tlog.get_current()
+        batch = torch.as_tensor(batch, device=self.device)
+        metrics = self.train_step(batch, *self._draws(batch))
+        if self.valid_data is not None:
+            vbatch, _ = next(self.valid_data)
+            vbatch = torch.as_tensor(vbatch, device=self.device)
+            metrics["valid_mse"] = self.valid_step(vbatch, *self._draws(vbatch))
+        logger.logkv("step", self.step)
+        logger.logkv("samples", (self.step + 1) * self.batch_size)
+        for k, v in metrics.items():
+            if not np.isnan(v):
+                logger.logkv_mean(k, v)
+
+    # -- loop -------------------------------------------------------------------
+
+    def run_loop(self) -> None:
+        """Step until ``lr_anneal_steps`` total steps (forever when 0),
+        logging every ``log_interval`` and saving every ``save_interval``
+        steps and at the end (``confild_tpu/train/diffusion_trainer.py:
+        346-367``)."""
+        logger = tlog.get_current()
+        while not self.lr_anneal_steps or self.step < self.lr_anneal_steps:
+            batch, _cond = next(self.data)
+            self.run_step(batch)
+            if self.step % self.log_interval == 0:
+                logger.dumpkvs()
+            if self.step % self.save_interval == 0 and self.step >= self.save_interval:
+                self.save()
+                if os.environ.get("DIFFUSION_TRAINING_TEST", ""):
+                    return
+        self.save()
+
+    # -- checkpoints ------------------------------------------------------------
+
+    def ema_state_dict(self, i: int = 0) -> dict:
+        """The EMA of rate ``ema_rate[i]`` as a U-Net state dict."""
+        names = [n for n, _ in self.model.named_parameters()]
+        return dict(zip(names, self.ema_params[i]))
+
+    def save(self) -> dict:
+        paths = ckpt_io.diffusion_paths(self.save_dir, self.step, self.ema_rate)
+        ckpt_io.save(paths["model"], _to_cpu(self.model.state_dict()))
+        for i, rate in enumerate(self.ema_rate):
+            ckpt_io.save(paths["ema"][rate], _to_cpu(self.ema_state_dict(i)))
+        opt = self.opt.state_dict()
+        opt["state"] = {k: _to_cpu(v) for k, v in opt["state"].items()}
+        ckpt_io.save(paths["opt"], opt)
+        if self.keep_checkpoints:
+            ckpt_io.rotate_checkpoints(self.save_dir, self.keep_checkpoints, kind="diffusion")
+        print(f"saved checkpoint at step {self.step}")
+        return paths
+
+
+def load_latent_image_data(train_path: str, valid_path: str | None, batch_size: int,
+                           seed: int = 42, scale_minmax: tuple | None = None):
+    """Latent-image dataset pipeline (reference ``scripts/train.py:44-61``),
+    the JAX package's numpy pipeline unchanged: load .npy, global min-max to
+    [-1, 1], add the channel dim, an infinite shuffled iterator.  Returns
+    ``(train_iter, valid_iter, (max, min))``."""
+    train = np.load(train_path).astype(np.float32)
+    mx, mn = (float(train.max()), float(train.min())) if scale_minmax is None else scale_minmax
+
+    def prep(arr):
+        return ((arr - mn) / (mx - mn) * 2 - 1)[:, None, ...]
+
+    train = prep(train)
+    valid = prep(np.load(valid_path).astype(np.float32)) if valid_path else None
+
+    def infinite(arr, bs, seed):
+        rng = np.random.default_rng(seed)
+        while True:
+            perm = rng.permutation(arr.shape[0])
+            for i in range(0, len(perm) - bs + 1, bs):
+                yield arr[perm[i:i + bs]], {}
+
+    return (infinite(train, batch_size, seed),
+            infinite(valid, batch_size, seed + 1) if valid is not None else None,
+            (mx, mn))

@@ -1,11 +1,14 @@
-"""Key-value logger, the part of ``confild_tpu/utils/logger.py`` the CNF
-trainer uses (the OpenAI baselines logger the reference vendors at
+"""Key-value logger, the part of ``confild_tpu/utils/logger.py`` the
+trainers use (the OpenAI baselines logger the reference vendors at
 ``src/logger.py``).
 
 Formats: ``stdout`` (aligned table), ``log`` (the same to ``log.txt``),
-``json`` (one object per dump in ``progress.json``) and ``csv``
-(``progress.csv``, the header rewritten when new keys appear).
-``profile_kv`` adds a scope's wall seconds to the ``wait_<name>`` key.
+``json`` (one object per dump in ``progress.json``), ``csv``
+(``progress.csv``, the header rewritten when new keys appear) and
+``tensorboard`` (scalars under ``tb/``; a writer that writes nothing when
+``torch.utils.tensorboard`` does not import).  ``logkv_mean`` keeps a
+running mean between dumps; ``profile_kv`` adds a scope's wall seconds to
+the ``wait_<name>`` key.
 """
 
 from __future__ import annotations
@@ -83,6 +86,34 @@ class CSVOutputFormat:
         pass
 
 
+class TensorBoardOutputFormat:
+    """Scalars to a ``SummaryWriter`` at the dump's ``step`` (or the dump
+    count); nothing at all when ``torch.utils.tensorboard`` (which needs the
+    ``tensorboard`` package) does not import."""
+
+    def __init__(self, logdir: str):
+        self.step = 0
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            self.writer = SummaryWriter(logdir)
+        except ImportError:
+            self.writer = None
+
+    def writekvs(self, kvs: dict) -> None:
+        if self.writer is None:
+            return
+        step = int(kvs.get("step", self.step))
+        for k, v in kvs.items():
+            if hasattr(v, "__float__"):
+                self.writer.add_scalar(k, float(v), step)
+        self.writer.flush()
+        self.step += 1
+
+    def close(self) -> None:
+        if self.writer is not None:
+            self.writer.close()
+
+
 def make_output_format(fmt: str, ev_dir: str, log_suffix: str = ""):
     if fmt == "stdout":
         return HumanOutputFormat(sys.stdout)
@@ -94,9 +125,7 @@ def make_output_format(fmt: str, ev_dir: str, log_suffix: str = ""):
     if fmt == "csv":
         return CSVOutputFormat(os.path.join(ev_dir, f"progress{log_suffix}.csv"))
     if fmt in ("tensorboard", "tensorboard_new"):
-        raise NotImplementedError(
-            "TensorBoard logging is not ported yet (ROADMAP.md Queue 1, item 12: "
-            "analysis and utils)")
+        return TensorBoardOutputFormat(os.path.join(ev_dir, f"tb{log_suffix}"))
     raise ValueError(f"Unknown format specified: {fmt}")
 
 
@@ -105,17 +134,24 @@ class Logger:
 
     def __init__(self, dir: str | None, output_formats: list):
         self.name2val: dict[str, Any] = {}
+        self.name2cnt: dict[str, int] = {}
         self.dir = dir
         self.output_formats = output_formats
 
     def logkv(self, key, val) -> None:
         self.name2val[key] = val
 
+    def logkv_mean(self, key, val) -> None:
+        oldval, cnt = self.name2val.get(key, 0), self.name2cnt.get(key, 0)
+        self.name2val[key] = oldval * cnt / (cnt + 1) + float(val) / (cnt + 1)
+        self.name2cnt[key] = cnt + 1
+
     def dumpkvs(self) -> dict:
         out = self.name2val.copy()
         for fmt in self.output_formats:
             fmt.writekvs(out)
         self.name2val.clear()
+        self.name2cnt.clear()
         return out
 
     def close(self) -> None:
@@ -155,6 +191,10 @@ def get_current() -> Logger:
 
 def logkv(key, val) -> None:
     get_current().logkv(key, val)
+
+
+def logkv_mean(key, val) -> None:
+    get_current().logkv_mean(key, val)
 
 
 def dumpkvs() -> dict:

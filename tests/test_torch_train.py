@@ -467,9 +467,14 @@ def test_unported_options_raise(tmp_path, capsys):
     hp = _port_case(tmp_path, epochs=1, extra_siren_in=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TTrainer(hp)
+    # TensorBoard logging is ported now (the diffusion CLI asks for it): it
+    # writes scalars, or nothing where the tensorboard package is missing
     from confild_tpu_torch.utils import logger as tlog
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlog.configure(str(tmp_path / "log"), ["tensorboard"])
+    logger = tlog.configure(str(tmp_path / "log"), ["tensorboard"])
+    logger.logkv_mean("loss", 1.0)
+    logger.logkv_mean("loss", 2.0)
+    assert logger.dumpkvs() == {"loss": 1.5}
+    logger.close()
 
 
 RESUME_WITHOUT_JAX = r"""
