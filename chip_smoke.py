@@ -8,7 +8,9 @@ Phases, each fatal on failure:
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build: ``nvcc`` compiles every ``confild_tpu_torch/csrc/*.cu``, one
    process per source, all started together (timed; ptxas registers and
-   spills);
+   spills, and for the flash kernels the count of tensor-core ``HMMA``
+   instructions in ``cuobjdump -sass``: every backward instantiation must
+   have some);
 3. forward decode kernel against its plain version at Case4 widths
    (SIREN-FiLM 3 -> 384 x 16 modulated layers -> 3, w0 30), 16 rows x 262144
    points, both held to a float64 run under the JAX tests' criterion
@@ -54,11 +56,16 @@ Phases, each fatal on failure:
 10. flash-attention kernels (forward, dq, dk/dv) against their plain
     versions and a float64 run at the path's shape (64, 144, 64), a ragged
     (2, 200, 32), the xl recipe's (16, 9216, 64), the auto threshold's
-    (4, 16384, 64) and bf16 (2, 256, 64), under the same criterion; two
-    launches bitwise equal; forward + backward at (4, 16384, 64) within 64 MB
-    above inputs and outputs (O(N) memory); times of the kernels, the plain
-    versions and ``scaled_dot_product_attention`` (a yardstick only) at
-    (64, 144, 64), (16, 9216, 64) and (4, 16384, 64), beside their bounds;
+    (4, 16384, 64) and bf16 (2, 256, 64), under the same criterion (each
+    error's share of its limit is printed); two launches bitwise equal;
+    forward + backward at (4, 16384, 64) within 64 MB above inputs and
+    outputs (O(N) memory); times of the kernels, the plain versions and
+    ``scaled_dot_product_attention`` (a yardstick only: its forward, its
+    backward alone on a retained graph, on the (BH, N, D) tensors and on
+    their (1, BH, N, D) view, which takes another backend, and the CUDA
+    kernels each launches) at (64, 144, 64), (16, 9216, 64) and
+    (4, 16384, 64), beside two bounds (the tensor cores' 3xTF32 rate, and
+    CUDA-core float32);
 11. the full-width Case4 U-Net (384^2, 128 ch, mult 1,1,2,2,4,4, heads of
     64), batch 8: one ``training_losses`` forward and backward with
     ``use_flash_attention`` true and false on the same weights and draws;
@@ -86,6 +93,7 @@ import csv
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -110,9 +118,14 @@ from confild_tpu_torch.ops import cuda_build
 from confild_tpu_torch.ops import flash_attention as fa
 from confild_tpu_torch.ops import siren_decode as sd
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3,
+# dense TF32 on the tensor cores (a 3xTF32 product takes three), and the
+# special-function units' exponentials (132 SMs x 16 a clock x 1.98 GHz)
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_TF32_FLOPS = 495e12
+TF32_SPLIT_PRODUCTS = 3
+PEAK_EXP_PER_S = 132 * 16 * 1.98e9
 
 CASE4_CNF = dict(in_coord_features=3, in_latent_features=384, out_features=3,
                  num_hidden_layers=15, hidden_features=384, w0=30.0)
@@ -208,27 +221,58 @@ def phase_device():
     return name, count, smi[0]
 
 
+def kernel_label(line: str) -> str | None:
+    """``flash_bwd_dq_kernel<64, f32>`` from a line holding a kernel's
+    mangled name, or None."""
+    found = re.search(r"((?:siren|flash)_[a-z_]+_kernel)(?:ILi(\d+)E(\w*?)E)?", line)
+    if not found:
+        return None
+    return found.group(1) + (f"<{found.group(2)}, "
+                             f"{'bf16' if 'bfloat16' in found.group(3) else 'f32'}>"
+                             if found.group(2) else "")
+
+
+def hmma_counts(path) -> dict:
+    """Tensor-core instructions (``HMMA``) per kernel in the SASS of a built
+    library, from ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = kernel_label(line)
+            if kernel:
+                counts[kernel] = 0
+        elif kernel and "HMMA" in line:
+            counts[kernel] += 1
+    return counts
+
+
 def phase_build():
     names = sorted(p.stem for p in cuda_build.CSRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
     paths = cuda_build.build_all(names)
     dt = time.perf_counter() - t0
     log(f"[build] {', '.join(p.name for p in paths)} in {dt:.2f} s")
-    # one line per kernel instantiation: registers and spills (ptxas -v)
+    # one line per kernel instantiation: registers and spills (ptxas -v),
+    # and for the flash kernels their tensor-core instructions
+    flash_hmma = hmma_counts(cuda_build.library_path("flash_attention"))
     for name in names:
         kernel, spill = None, ""
         for line in cuda_build.build_logs.get(name, "").splitlines():
-            found = re.search(r"((?:siren|flash)_[a-z_]+_kernel)(?:ILi(\d+)E(\w*?)E)?", line)
-            if "Function properties" in line and found:
-                kernel = found.group(1) + (f"<{found.group(2)}, "
-                                           f"{'bf16' if 'bfloat16' in found.group(3) else 'f32'}>"
-                                           if found.group(2) else "")
+            if "Function properties" in line and kernel_label(line):
+                kernel = kernel_label(line)
             elif "spill stores" in line:
                 spill = re.sub(r"\s+", " ", line.strip())
             elif "registers" in line and kernel:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                log(f"[build] {name}: {kernel}: {regs} registers, {spill}")
+                tc = f", {flash_hmma[kernel]} HMMA" if kernel in flash_hmma else ""
+                log(f"[build] {name}: {kernel}: {regs} registers, {spill}{tc}")
                 kernel = None
+    no_tc = [k for k, v in flash_hmma.items() if "flash_bwd" in k and v == 0]
+    if no_tc or not any("flash_bwd" in k for k in flash_hmma):
+        raise SystemExit(f"flash backward kernels without tensor-core instructions: {no_tc}")
 
 
 def case4_decoder(device):
@@ -832,11 +876,13 @@ def flash_check(device, bh, n, d, dtype) -> dict:
         err_k = (kern[name].double() - want).abs().max().item()
         err_p = (plain[name].double() - want).abs().max().item()
         top = want.abs().max().item()
-        good = err_k <= 2 * err_p + 1e-6 * top and torch.isfinite(kern[name]).all().item()
+        limit = 2 * err_p + 1e-6 * top
+        good = err_k <= limit and torch.isfinite(kern[name]).all().item()
         ok &= good
         errs[name] = err_k
         log(f"[flash] ({bh}, {n}, {d}) {str(dtype)[6:]} {name}: |kernel-f64| {err_k:.3e}, "
-            f"|plain-f64| {err_p:.3e}, max |f64| {top:.3e} -> {'ok' if good else 'FAIL'}")
+            f"|plain-f64| {err_p:.3e}, max |f64| {top:.3e}, error / limit "
+            f"{err_k / limit:.3f} -> {'ok' if good else 'FAIL'}")
     log(f"[flash] ({bh}, {n}, {d}) {str(dtype)[6:]} two launches bitwise equal: {same}")
     if not ok:
         raise SystemExit("flash kernels fail the f64-relative criterion or are not "
@@ -865,15 +911,52 @@ def flash_memory(device) -> None:
         raise SystemExit("flash forward + backward is not O(N) in memory")
 
 
+def tc_bound(flops: float, exps: float, nbytes: float) -> tuple[float, str]:
+    """Least time on the tensor cores: products at the 3xTF32 rate,
+    exponentials at the special-function rate, bytes at the HBM rate; the
+    largest of the three (ms, what bounds it)."""
+    t_ops = max(flops * TF32_SPLIT_PRODUCTS / PEAK_TF32_FLOPS, exps / PEAK_EXP_PER_S)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def flash_bounds(bh, n, d) -> dict:
-    """(ms, bound_by) of each function from its flops (an exponential counts
-    as one operation) and the bytes of its inputs and outputs (f32)."""
+    """Per function ``(tensor-core ms, bound_by, CUDA-core f32 ms)`` from its
+    flops, its exponentials and the bytes of its inputs and outputs (f32);
+    on the CUDA cores an exponential counts as one operation."""
     mat, rows, exps = bh * n * n * d, bh * n, bh * n * n
     io = 4 * bh * n * d
-    return {"flash_forward": bound(4 * mat + exps, 3 * io + io + 4 * rows),
-            "flash_bwd_dq": bound(6 * mat + exps, 4 * io + 8 * rows + io),
-            "flash_bwd_dkv": bound(8 * mat + exps, 4 * io + 8 * rows + 2 * io),
-            "backward": bound(10 * mat + exps, 5 * io + 4 * rows + 3 * io)}
+    work = {"flash_forward": (4 * mat, 3 * io + io + 4 * rows),
+            "flash_bwd_dq": (6 * mat, 4 * io + 8 * rows + io),
+            "flash_bwd_dkv": (8 * mat, 4 * io + 8 * rows + 2 * io),
+            "backward": (10 * mat, 5 * io + 4 * rows + 3 * io)}
+    return {name: (*tc_bound(flops, exps, nbytes), bound(flops + exps, nbytes)[0])
+            for name, (flops, nbytes) in work.items()}
+
+
+def sdpa_kernels(device, bh, n, d) -> None:
+    """The CUDA kernels that scaled_dot_product_attention's float32 forward
+    and backward launch (which backend, which precision), by name, on the
+    kernels' (BH, N, D) layout and on its (1, BH, N, D) view."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for shape in ((bh, n, d), (1, bh, n, d)):
+        leaves = [t.reshape(shape).requires_grad_(True)
+                  for t in flash_case(device, bh, n, d, torch.float32, 7)[:3]]
+        out = sdpa(*leaves)
+        torch.autograd.grad(out, leaves, torch.ones_like(out), retain_graph=True)   # warm-up
+        torch.cuda.synchronize()
+        for label, fn in (("forward", lambda: sdpa(*leaves)),
+                          ("backward", lambda: torch.autograd.grad(
+                              out, leaves, torch.ones_like(out), retain_graph=True))):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+            log(f"[flash-sdpa] {shape} f32 {label} kernels: {names}")
+        del leaves, out
 
 
 def flash_times(device, bh, n, d) -> dict:
@@ -888,6 +971,10 @@ def flash_times(device, bh, n, d) -> dict:
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(*leaves), leaves, g)
+    graph = sdpa(*leaves)   # retained: its backward alone is timed
+    # the same call on the (1, BH, N, D) view, which takes another backend
+    leaves4 = [t.detach().reshape(1, bh, n, d).requires_grad_(True) for t in leaves]
+    graph4 = sdpa(*leaves4)
     t = {
         "flash_forward": cuda_ms(lambda: fa.flash_forward(q, k, v), reps),
         "flash_bwd_dq": cuda_ms(lambda: fa.bwd_dq(q, k, v, g, lse, delta), reps),
@@ -898,19 +985,30 @@ def flash_times(device, bh, n, d) -> dict:
         "plain_fwd_bwd": cuda_ms(lambda: fa.flash_backward_plain(
             q, k, v, *fa.flash_forward_plain(q, k, v), g), reps),
         "sdpa_forward": cuda_ms(lambda: sdpa(q, k, v), reps),
-        "sdpa_fwd_bwd": cuda_ms(sdpa_fwd_bwd, reps)}
+        "sdpa_fwd_bwd": cuda_ms(sdpa_fwd_bwd, reps),
+        "sdpa_backward": cuda_ms(lambda: torch.autograd.grad(graph, leaves, g, retain_graph=True),
+                                 reps),
+        "sdpa_4d_forward": cuda_ms(lambda: sdpa(*leaves4), reps),
+        "sdpa_4d_backward": cuda_ms(lambda: torch.autograd.grad(
+            graph4, leaves4, g.reshape(1, bh, n, d), retain_graph=True), reps)}
     t["plain_backward"] = t["plain_fwd_bwd"] - t["plain_forward"]
+    t["bwd_pair"] = t["flash_bwd_dq"] + t["flash_bwd_dkv"]
     b = flash_bounds(bh, n, d)
     log(f"[flash-time] ({bh}, {n}, {d}) f32: forward kernel {t['flash_forward']:.3f} ms (bound "
-        f"{b['flash_forward'][0]:.3f}, {b['flash_forward'][1]}; "
+        f"{b['flash_forward'][0]:.3f} tensor cores, {b['flash_forward'][2]:.3f} f32; "
         f"{4 * bh * n * n * d / t['flash_forward'] / 1e9:.2f} TFLOP/s), plain "
         f"{t['plain_forward']:.3f}, sdpa {t['sdpa_forward']:.3f}")
     log(f"[flash-time] ({bh}, {n}, {d}) f32: dq kernel {t['flash_bwd_dq']:.3f} ms (bound "
-        f"{b['flash_bwd_dq'][0]:.3f}), dk/dv kernel {t['flash_bwd_dkv']:.3f} ms (bound "
-        f"{b['flash_bwd_dkv'][0]:.3f}); forward + backward: kernels {t['fwd_bwd']:.3f} ms "
-        f"(bound {b['flash_forward'][0] + b['backward'][0]:.3f}), plain "
+        f"{b['flash_bwd_dq'][0]:.3f} tensor cores, {b['flash_bwd_dq'][2]:.3f} f32), dk/dv "
+        f"kernel {t['flash_bwd_dkv']:.3f} ms (bound {b['flash_bwd_dkv'][0]:.3f}, "
+        f"{b['flash_bwd_dkv'][2]:.3f}); pair {t['bwd_pair']:.3f} ms "
+        f"({14 * bh * n * n * d / t['bwd_pair'] / 1e9:.2f} TFLOP/s), sdpa backward alone "
+        f"{t['sdpa_backward']:.3f} ms ((1, BH, N, D) view: forward {t['sdpa_4d_forward']:.3f}, "
+        f"backward alone {t['sdpa_4d_backward']:.3f})")
+    log(f"[flash-time] ({bh}, {n}, {d}) f32: forward + backward: kernels {t['fwd_bwd']:.3f} "
+        f"ms (bound {b['flash_forward'][0] + b['backward'][0]:.3f}), plain "
         f"{t['plain_fwd_bwd']:.3f}, sdpa {t['sdpa_fwd_bwd']:.3f}")
-    del leaves
+    del leaves, graph, leaves4, graph4
     torch.cuda.empty_cache()
     return dict(t, bounds=b)
 
@@ -920,19 +1018,27 @@ def phase_flash(device, results) -> None:
     for bh, n, d, dtype in FLASH_CHECKS:
         errs[(bh, n, d, dtype)] = flash_check(device, bh, n, d, dtype)
     flash_memory(device)
+    sdpa_kernels(device, *FLASH_TIMES[1])
     path = errs[(64, 144, 64, torch.float32)]
     times = {f"{bh}x{n}x{d}": flash_times(device, bh, n, d) for bh, n, d in FLASH_TIMES}
     log("[flash-time] " + json.dumps({s: {k: v for k, v in t.items() if k != "bounds"}
                                       for s, t in times.items()}))
     t = times[FLASH_PATH_SHAPE]
-    for name, err, plain, lib in (
-            ("flash_forward", max(path["out"], path["lse"]), t["plain_forward"],
-             t["sdpa_forward"]),
-            ("flash_bwd_dq", path["dq"], t["plain_backward"], None),
-            ("flash_bwd_dkv", max(path["dk"], path["dv"]), t["plain_backward"], None)):
+    pair = "flash_bwd_dq + flash_bwd_dkv"
+    for name, err, plain, step, covers in (
+            ("flash_forward", max(path["out"], path["lse"]), t["plain_forward"], "forward",
+             "flash_forward"),
+            ("flash_bwd_dq", path["dq"], t["plain_backward"], "backward", pair),
+            ("flash_bwd_dkv", max(path["dk"], path["dv"]), t["plain_backward"], "backward",
+             pair)):
+        # the faster of SDPA's two layouts, which take different backends
+        lib, layout = min((t[f"sdpa_{step}"], "(BH, N, D)"),
+                          (t[f"sdpa_4d_{step}"], "(1, BH, N, D)"))
         results[name] = dict(max_abs_err=err, ms=t[name], plain_ms=plain,
                              bound_ms=t["bounds"][name][0], bound_by=t["bounds"][name][1],
-                             library_ms=lib, shape=FLASH_PATH_SHAPE)
+                             library_ms=lib, library_call=f"scaled_dot_product_attention "
+                             f"{step} on {layout}", library_covers=covers,
+                             shape=FLASH_PATH_SHAPE)
 
 
 CASE4_UNET = {k: CASE4_RECIPE[k] for k in (
@@ -1155,7 +1261,8 @@ def main() -> int:
             "launches": launches[kname],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r.get("library_ms"), "shape": r["shape"]})
+            "library_ms": r.get("library_ms"), "shape": r["shape"],
+            **{k: r[k] for k in ("library_call", "library_covers") if k in r}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -13,27 +13,80 @@
 // _flash_backward.
 //
 // Bound on the H100: operations.  The forward does 4*N*N*D flops per head
-// (two products) and the backward 10*N*N*D (S, dP, dV, dQ, dK) against
-// O(N*D) bytes, so at N >= 144 the float32 FMA rate bounds all three (no
-// tensor cores: float32 inputs stay in full float32, as in the JAX path).
+// (two products) and the backward 14*N*N*D over its two passes (dq: S, dP,
+// dQ; dk/dv: S, dP, dV, dK) against O(N*D) bytes, so at N >= 144 the
+// arithmetic bounds all three.
 //
-// Design.  The TPU kernels carry the running max, denominator and output
-// accumulator in VMEM across a sequential kv grid axis; Hopper blocks run in
-// no order, so here each block loops over the other axis itself:
+// Design common to all three.  The TPU kernels carry the running max,
+// denominator and output accumulator in VMEM across a sequential kv grid
+// axis; Hopper blocks run in no order, so here each block loops over the
+// other axis itself:
 //   * forward and dq: one block per (head, 64 query rows), looping over
 //     64-key tiles;
 //   * dk/dv: one block per (head, 64 keys), looping over 64-query tiles.
 // Every output element has one owner thread, so there are no atomics and two
-// launches give bitwise-equal results.  A block has 256 threads; thread
-// (ty, tx) = (t / 16, t % 16) owns tile rows 4*ty .. 4*ty + 3 and columns
-// tx + 16*j, so the 16 threads of one row sit in one half-warp and the row
-// max and sum are shuffle reductions.  Tiles are staged in shared memory as
-// float32 with a row stride of D + 1 (no bank conflicts on the column walks);
-// above 48 KB that needs cudaFuncSetAttribute.  Ragged edges are masked in
-// the kernels, with no padded copy: keys past N get probability 0 (the tile
-// of a forward block always holds a real key, so the running max is finite
-// and exp never sees -inf - -inf), and query rows past N add nothing to
-// dK and dV.  The (N, N) matrices never leave shared memory: memory is O(N).
+// launches give bitwise-equal results.  Ragged edges are masked in the
+// kernels, with no padded copy: keys past N get probability 0 (the tile of a
+// forward block always holds a real key, so the running max is finite and
+// exp never sees -inf - -inf), and query rows past N add nothing to dK and
+// dV.  The (N, N) matrices never leave shared memory: memory is O(N).
+//
+// Forward: float32 FMAs on CUDA cores (67 TFLOP/s peak).  256 threads;
+// thread (ty, tx) = (t / 16, t % 16) owns tile rows 4*ty .. 4*ty + 3 and
+// columns tx + 16*j, so the 16 threads of one row sit in one half-warp and
+// the row max and sum are shuffle reductions.  Tiles sit in shared memory as
+// float32 with a row stride of D + 1 (no bank conflicts on the column walks).
+//
+// Backward: tensor cores with a 3xTF32 split.  Every product goes through
+// mma.sync.m16n8k8 (tf32 in, f32 accumulate).  A plain TF32 product keeps 11
+// significant bits and misses the float32 criterion the kernels are held to
+// (|kernel - f64| <= 2 |plain f32 - f64| + 1e-6 max|f64|) by some 300x, so
+// each f32 operand x is split into big = rna_tf32(x) and small =
+// rna_tf32(x - big), and each product accumulates small*big + big*small
+// (first) + big*big: about 22 significant bits per operand.  The tensor
+// cores truncate their f32 sums, so the products go into short zeroed
+// partials that float32 adds carry into the running sums (see mma3).  bf16
+// inputs are exact in TF32 (small = 0), so Q.K^T and dO.V^T take one
+// product and the products with P or dS two.
+//   * Bound: 3 x 14 N^2 D tensor-core flops at 495 TFLOP/s dense TF32, i.e.
+//     165 TFLOP/s of backward arithmetic, 2.5x the CUDA-core f32 rate.
+//     Beside each product the loop loads and splits its operands (two
+//     integer operations and a subtract each) and adds its partial, and it
+//     waits on dependent mma chains and on the barriers between products;
+//     chip_smoke.py phase 10 times the pair against this bound.
+//   * mma.sync, not wgmma: wgmma takes TF32 only with both operands K-major
+//     in shared memory, but three of the five products (dQ = dS.K,
+//     dK = dS^T.Q, dV = P^T.dO) reduce along the row axis of row-major
+//     tiles and would need transposed copies written by threads; mma.sync
+//     fragments are ordinary shared loads in either direction.
+//   * Eight warps: warp (wm, wn) = (w % 4, w / 4) owns rows 16 wm .. 16 wm
+//     + 15 of the block's 64 (query rows in dq, keys in dk/dv); it computes
+//     S and dP for the 32 columns of half wn as four n8 fragments, and dQ
+//     (or dK and dV) for the D / 2 output columns of half wn, kept in
+//     registers across the loop.  The backward needs no row max, so P and
+//     dS are formed in the accumulator registers; they reach the next
+//     product (whose A layout differs) through one 64 x 64 tile in shared
+//     memory.  A block runs at up to 255 registers a thread, one an SM
+//     (dq at 128 spills, and ran slower on the card); dk/dv at D = 32 fits
+//     two an SM and runs at 128.
+//   * The streamed tiles (K, V for dq; Q, dO, lse and delta for dk/dv)
+//     arrive by 16-byte cp.async in a raw stage while the tile before them
+//     computes.  After the barrier that ends that tile, each thread splits
+//     its own chunks of the stage into big and small halves in shared
+//     memory (once, rather than by every warp at every use, four times
+//     over) and then issues the copies of the next tile.  Where the stage
+//     does not fit (D = 128), each thread loads its chunks into registers
+//     at the top of the tile instead, which overlaps only the barrier.
+//     The resident tiles (Q, dO for dq; K, V for dk/dv) arrive by cp.async
+//     and are split when their A fragments are loaded, as are P and dS.
+//     bf16 tiles are widened to f32 (exact in TF32: no small half).
+//   * Shared tiles have a row stride of D with an XOR swizzle of the column
+//     (c ^ swz(r), swz(r) = 8 (r & 3) + (r & 4)): fragments read along
+//     rows (A, and B of S) and along columns (B of dQ, dK, dV) both hit 32
+//     distinct banks, and a 16-byte chunk stays contiguous.
+//   * Shared memory (f32): the resident pair, the streamed pair's two
+//     halves, the P / dS tile (+ lse and delta) and the stage: 80 KB at
+//     D = 32, 144 KB at D = 64, and 208 KB at D = 128, with no stage.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -44,7 +97,7 @@
 namespace {
 
 constexpr int TILE = 64;       // query rows and keys per tile
-constexpr int THREADS = 256;   // 16 x 16 threads, 4 x 4 tile entries each
+constexpr int THREADS = 256;   // forward: 16 x 16 threads; backward: 8 warps
 constexpr int PLD = TILE + 1;  // row stride of the P / dS tiles
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -122,10 +175,340 @@ __device__ __forceinline__ void tile_pv(float out[4][D / 16], const float* __res
 
 template <int D>
 constexpr size_t fwd_smem() { return sizeof(float) * (3 * TILE * (D + 1) + TILE * PLD); }
+// ---------------------------------------------------------------------------
+// backward helpers: swizzled tiles, cp.async, 3xTF32 mma.sync fragments
+// ---------------------------------------------------------------------------
+// eight warps: warp w owns rows 16 (w % 4) .. + 15 of the block's 64 and
+// half of each product's columns, (w / 4) of two
+constexpr int KEYS_HALF = TILE / 2;   // S / dP columns a warp computes
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr size_t SMEM_MAX = 227 * 1024;   // shared memory a block may take
+constexpr size_t SMEM_SM = 228 * 1024;    // an SM's, 1 KB of it reserved per block
+
+// floats one raw (unconverted) 64 x D tile of T takes in the stage
+template <int D, typename T>
+constexpr int RAW = TILE * D * (int)sizeof(T) / 4;
+
+// The streamed pair (K, V for dq; Q, dO for dk/dv) goes through a raw stage
+// in shared memory where it fits: 16-byte cp.async copies of the next tile
+// run while the current one computes.  dq: the resident pair, the streamed
+// pair's big and small halves, the dS tile, then the stage.  dk/dv: the same
+// with P / dS, lse and delta of the query tile, then the stage with its
+// lse and delta.
 template <int D>
-constexpr size_t dq_smem() { return sizeof(float) * (4 * TILE * (D + 1) + TILE * PLD); }
+__host__ __device__ constexpr size_t dq_base() {
+  return sizeof(float) * (6 * TILE * D + TILE * TILE);
+}
+template <int D, typename T>
+__host__ __device__ constexpr bool dq_staged() {
+  return dq_base<D>() + sizeof(float) * 2 * RAW<D, T> <= SMEM_MAX;
+}
+template <int D, typename T>
+__host__ __device__ constexpr size_t dq_smem() {
+  return dq_base<D>() + (dq_staged<D, T>() ? sizeof(float) * 2 * RAW<D, T> : 0);
+}
 template <int D>
-constexpr size_t dkv_smem() { return sizeof(float) * (4 * TILE * (D + 1) + 2 * TILE * PLD + 2 * TILE); }
+__host__ __device__ constexpr size_t dkv_base() {
+  return sizeof(float) * (6 * TILE * D + TILE * TILE + 2 * TILE);
+}
+template <int D, typename T>
+__host__ __device__ constexpr bool dkv_staged() {
+  return dkv_base<D>() + sizeof(float) * (2 * RAW<D, T> + 2 * TILE) <= SMEM_MAX;
+}
+template <int D, typename T>
+__host__ __device__ constexpr size_t dkv_smem() {
+  return dkv_base<D>() + (dkv_staged<D, T>() ? sizeof(float) * (2 * RAW<D, T> + 2 * TILE) : 0);
+}
+// blocks an SM holds at this much shared memory, as a launch bound (1 or 2)
+constexpr int blocks_for(size_t smem) { return 2 * (smem + 1024) <= SMEM_SM ? 2 : 1; }
+
+// column swizzle of row r: fragment walks along rows and along columns both
+// conflict-free; bits 0-1 stay 0, so a 4-float chunk stays contiguous
+__device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
+
+template <int LD>
+__device__ __forceinline__ float ld_sw(const float* tile, int r, int c) {
+  return tile[r * LD + (c ^ swz(r))];
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// 16 bytes global -> shared, zeros when !valid (src is not read then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+// 4 bytes (rows of lse and delta need not be 16-byte aligned)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// x rounded to TF32 (10 stored mantissa bits), to nearest with ties away
+// from zero, as cvt.rna.tf32.f32 rounds a finite x; by bit arithmetic (two
+// integer operations), because ptxas expands the cvt into five
+__device__ __forceinline__ uint32_t rna_tf32(uint32_t bits) {
+  return (bits + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, both TF32; an operand that is exact in TF32 (bfloat16
+// data) is its own big half
+template <bool EXACT>
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  if constexpr (EXACT) {
+    big = __float_as_uint(x);
+    small = 0u;
+  } else {
+    big = rna_tf32(__float_as_uint(x));
+    small = rna_tf32(__float_as_uint(x - __uint_as_float(big)));
+  }
+}
+
+// A 64 x D tile moves as 16-byte chunks (4 float32 or 8 bfloat16 values),
+// CHUNKS a thread; chunk i of this thread sits at row r, column c.
+template <int D, typename T>
+constexpr int CHUNKS = RAW<D, T> / 4 / THREADS;
+
+template <int D, typename T>
+__device__ __forceinline__ void chunk_at(int i, int& r, int& c) {
+  constexpr int PER = 16 / (int)sizeof(T);
+  const int e = threadIdx.x + i * THREADS;
+  r = e / (D / PER);
+  c = (e % (D / PER)) * PER;
+}
+
+// this thread's chunks of rows row0 .. row0 + TILE - 1 of a (N, D) matrix,
+// unconverted (zeros past n): into registers, or by cp.async into the raw
+// stage, where chunk i of thread t sits at float 4 (t + i THREADS)
+template <int D, typename T>
+__device__ __forceinline__ void fetch_rows(float4 x[CHUNKS<D, T>], const T* src, int row0,
+                                           int n) {
+#pragma unroll
+  for (int i = 0; i < CHUNKS<D, T>; ++i) {
+    int r, c;
+    chunk_at<D, T>(i, r, c);
+    x[i] = row0 + r < n
+               ? __ldg(reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c))
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+template <int D, typename T>
+__device__ __forceinline__ void stage_rows(float* raw, const T* src, int row0, int n) {
+#pragma unroll
+  for (int i = 0; i < CHUNKS<D, T>; ++i) {
+    int r, c;
+    chunk_at<D, T>(i, r, c);
+    const int gr = row0 + r;
+    cp_async16(raw + 4 * (threadIdx.x + i * THREADS), src + (size_t)(gr < n ? gr : 0) * D + c,
+               gr < n);
+  }
+}
+
+// chunk i, as loaded, into swizzled tiles of row stride D: float32 split
+// into its big and small halves, bfloat16 widened (exact in TF32: big only)
+template <int D, typename T>
+__device__ __forceinline__ void put_chunk(float4 x, int i, float* big, float* small) {
+  int r, c;
+  chunk_at<D, T>(i, r, c);
+  if constexpr (sizeof(T) == 2) {
+    const uint32_t u[4] = {__float_as_uint(x.x), __float_as_uint(x.y), __float_as_uint(x.z),
+                           __float_as_uint(x.w)};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(big + r * D + ((c + 4 * h) ^ swz(r))) = make_float4(
+          __uint_as_float(u[2 * h] << 16), __uint_as_float(u[2 * h] & 0xffff0000u),
+          __uint_as_float(u[2 * h + 1] << 16), __uint_as_float(u[2 * h + 1] & 0xffff0000u));
+  } else {
+    uint32_t b[4], sm[4];
+    split<false>(x.x, b[0], sm[0]);
+    split<false>(x.y, b[1], sm[1]);
+    split<false>(x.z, b[2], sm[2]);
+    split<false>(x.w, b[3], sm[3]);
+    const int o = r * D + (c ^ swz(r));
+    *reinterpret_cast<uint4*>(big + o) = make_uint4(b[0], b[1], b[2], b[3]);
+    *reinterpret_cast<uint4*>(small + o) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
+  }
+}
+template <int D, typename T>
+__device__ __forceinline__ void put_rows(const float4 x[CHUNKS<D, T>], float* big, float* small) {
+#pragma unroll
+  for (int i = 0; i < CHUNKS<D, T>; ++i) put_chunk<D, T>(x[i], i, big, small);
+}
+// the thread's own chunks of the raw stage (its cp.async copies, visible to
+// it after cp_async_wait_all) into split tiles
+template <int D, typename T>
+__device__ __forceinline__ void put_staged(const float* raw, float* big, float* small) {
+#pragma unroll
+  for (int i = 0; i < CHUNKS<D, T>; ++i)
+    put_chunk<D, T>(*reinterpret_cast<const float4*>(raw + 4 * (threadIdx.x + i * THREADS)), i,
+                    big, small);
+}
+
+// a resident tile (Q, dO for dq; K, V for dk/dv): float32 by cp.async
+// straight into the swizzled tile (split later, at fragment load; waited
+// for with cp_async_wait_all), bfloat16 through registers, widened
+template <int D, typename T>
+__device__ __forceinline__ void load_resident(float* tile, const T* src, int row0, int n) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < CHUNKS<D, T>; ++i) {
+      int r, c;
+      chunk_at<D, T>(i, r, c);
+      const int gr = row0 + r;
+      cp_async16(tile + r * D + (c ^ swz(r)), src + (size_t)(gr < n ? gr : 0) * D + c, gr < n);
+    }
+  } else {
+    float4 x[CHUNKS<D, T>];
+    fetch_rows<D, T>(x, src, row0, n);
+    put_rows<D, T>(x, tile, nullptr);
+  }
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a * b as small*big + big*small (the correction terms first) + big*big
+template <bool EXACT_A, bool EXACT_B>
+__device__ __forceinline__ void mma3_into(float c[4], const uint32_t ab[4], const uint32_t as[4],
+                                          const uint32_t bb[2], const uint32_t bs[2]) {
+  if constexpr (!EXACT_A) mma_tf32(c, as, bb);
+  if constexpr (!EXACT_B) mma_tf32(c, ab, bs);
+  mma_tf32(c, ab, bb);
+}
+
+// The tensor cores truncate their sums toward zero.  Carried across a whole
+// loop in their accumulator that bias grows with the step count (4-5x the
+// plain float32 error, and the float32 check failed), so the products go
+// into a zeroed partial, which a float32 add (round to nearest) carries into
+// the running sum: every k8 step for S and dP, whose error exp amplifies,
+// and every second step for the products with P and dS.
+template <bool EXACT_A, bool EXACT_B>
+__device__ __forceinline__ void mma3(float c[4], const uint32_t ab[4], const uint32_t as[4],
+                                     const uint32_t bb[2], const uint32_t bs[2]) {
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3_into<EXACT_A, EXACT_B>(part, ab, as, bb, bs);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += part[e];
+}
+
+// Fragments of m16n8k8 (g = lane / 4, t = lane % 4).  A, 16 x 8 at (r0, c0):
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
+template <int LD, bool EXACT>
+__device__ __forceinline__ void frag_a(uint32_t big[4], uint32_t small[4], const float* tile,
+                                       int r0, int c0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  split<EXACT>(ld_sw<LD>(tile, r0 + g, c0 + t), big[0], small[0]);
+  split<EXACT>(ld_sw<LD>(tile, r0 + g + 8, c0 + t), big[1], small[1]);
+  split<EXACT>(ld_sw<LD>(tile, r0 + g, c0 + t + 4), big[2], small[2]);
+  split<EXACT>(ld_sw<LD>(tile, r0 + g + 8, c0 + t + 4), big[3], small[3]);
+}
+// B, 8 x 8, B[k][j] = tile[n0 + j][c0 + k] (a product with the tile's
+// transpose): (k, j) = (t, g), (t + 4, g); from a tile's split halves
+template <int LD, bool EXACT>
+__device__ __forceinline__ void frag_b_rows(uint32_t big[2], uint32_t small[2], const float* tb,
+                                            const float* ts, int n0, int c0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3, r = n0 + g;
+  const int o0 = r * LD + ((c0 + t) ^ swz(r)), o1 = r * LD + ((c0 + t + 4) ^ swz(r));
+  big[0] = __float_as_uint(tb[o0]);
+  big[1] = __float_as_uint(tb[o1]);
+  if constexpr (!EXACT) {
+    small[0] = __float_as_uint(ts[o0]);
+    small[1] = __float_as_uint(ts[o1]);
+  }
+}
+// B, 8 x 8, B[k][j] = tile[k0 + k][n0 + j] (a product with the tile)
+template <int LD, bool EXACT>
+__device__ __forceinline__ void frag_b_cols(uint32_t big[2], uint32_t small[2], const float* tb,
+                                            const float* ts, int k0, int n0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int o0 = (k0 + t) * LD + ((n0 + g) ^ swz(k0 + t));
+  const int o1 = (k0 + t + 4) * LD + ((n0 + g) ^ swz(k0 + t + 4));
+  big[0] = __float_as_uint(tb[o0]);
+  big[1] = __float_as_uint(tb[o1]);
+  if constexpr (!EXACT) {
+    small[0] = __float_as_uint(ts[o0]);
+    small[1] = __float_as_uint(ts[o1]);
+  }
+}
+
+// c[j] = rows r0 .. r0 + 15 of a times rows n0 + 8j .. n0 + 8j + 7 of b
+// (given as its split halves), transposed, j < NT: a warp's 16 x 8NT block
+// of a . b^T over D (accumulator layout: c[j][2h + e] is row r0 + g + 8h,
+// column n0 + 8j + 2t + e)
+template <int D, bool EXACT, int NT>
+__device__ __forceinline__ void strip_abt(float c[NT][4], const float* a, const float* bb_tile,
+                                          const float* bs_tile, int r0, int n0) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ab[4], as[4];
+    frag_a<D, EXACT>(ab, as, a, r0, 8 * kk);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t bb[2], bs[2];
+      frag_b_rows<D, EXACT>(bb, bs, bb_tile, bs_tile, n0 + 8 * j, 8 * kk);
+      mma3<EXACT, EXACT>(c[j], ab, as, bb, bs);
+    }
+  }
+}
+
+// acc[nd] += rows r0 .. r0 + 15 of the block's 64 x 64 P or dS tile
+// (float32, split here) times columns c0 + 8nd .. of a 64 x D tile (given
+// as its split halves; exact in TF32 when EXACT), nd < NT
+template <int D, bool EXACT, int NT>
+__device__ __forceinline__ void strip_pm(float acc[NT][4], const float* p, const float* mb,
+                                         const float* ms, int r0, int c0) {
+#pragma unroll
+  for (int k2 = 0; k2 < TILE / 8; k2 += 2) {
+    float part[NT][4];
+#pragma unroll
+    for (int nd = 0; nd < NT; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[nd][e] = 0.f;
+#pragma unroll
+    for (int kc = k2; kc < k2 + 2; ++kc) {
+      uint32_t ab[4], as[4];
+      frag_a<TILE, false>(ab, as, p, r0, 8 * kc);
+#pragma unroll
+      for (int nd = 0; nd < NT; ++nd) {
+        uint32_t bb[2], bs[2];
+        frag_b_cols<D, EXACT>(bb, bs, mb, ms, 8 * kc, c0 + 8 * nd);
+        mma3_into<false, EXACT>(part[nd], ab, as, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < NT; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] += part[nd][e];
+  }
+}
+
+// the accumulator pair (row, col) and (row, col + 1), col even, into the
+// block's swizzled 64 x 64 P / dS tile
+__device__ __forceinline__ void store_pair(float* tile, int row, int col, float x, float y) {
+  *reinterpret_cast<float2*>(tile + row * TILE + (col ^ swz(row))) = make_float2(x, y);
+}
+
+template <typename T> __device__ __forceinline__ void store2(T* dst, float x, float y);
+template <> __device__ __forceinline__ void store2<float>(float* dst, float x, float y) {
+  *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+}
+template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst, float x,
+                                                                 float y) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
+}
 
 // ---------------------------------------------------------------------------
 // forward: out = softmax(q k^T * scale) v, lse = logsumexp of each row
@@ -200,138 +583,245 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 // ---------------------------------------------------------------------------
 // backward, pass 1: dQ = scale * sum_j dS_ij K_j,
-//   P = exp(S - lse), dS = P * (dO V^T - delta)
+//   P = exp(S - lse), dS = P * (dO V^T - delta).
+// Block: 64 query rows; K and V streamed (through the stage where it fits)
+// and split.  Warp (wm, wn) = (w % 4, w / 4) computes S, dP and dS of rows
+// 16wm .. 16wm + 15 and keys 32wn .. 32wn + 31, and dQ of the same rows and
+// columns (D / 2) wn .. (D / 2) wn + D / 2 - 1.
 // ---------------------------------------------------------------------------
 template <int D, typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int n, float scale) {
+  constexpr bool EXACT = sizeof(T) == 2;   // bfloat16 operands are exact in TF32
+  constexpr bool STAGED = dq_staged<D, T>();
+  constexpr int NS = KEYS_HALF / 8, ND = D / 16;
+  const float scale2 = scale * LOG2E;
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
-  float* sO = sQ + TILE * (D + 1);   // dO tile
-  float* sK = sO + TILE * (D + 1);
-  float* sV = sK + TILE * (D + 1);
-  float* sS = sV + TILE * (D + 1);   // dS tile
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float* sO = sQ + TILE * D;           // dO tile
+  float* sKb = sO + TILE * D;          // K and V, big and small halves
+  float* sKs = sKb + TILE * D;
+  float* sVb = sKs + TILE * D;
+  float* sVs = sVb + TILE * D;
+  float* sS = sVs + TILE * D;          // dS tile
+  float* sRaw = sS + TILE * TILE;      // stage: raw K, V of the next tile
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int r0 = 16 * (warp & 3), n0 = KEYS_HALF * (warp >> 2), c0 = (D / 2) * (warp >> 2);
   const int q0 = blockIdx.x * TILE;
   const size_t base = (size_t)blockIdx.y * n * D;
   const size_t rbase = (size_t)blockIdx.y * n;
 
-  load_tile<D>(sQ, q + base, q0, n);
-  load_tile<D>(sO, dout + base, q0, n);
-  float lr[4], dr[4], acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + 4 * ty + i;
-    lr[i] = r < n ? lse[rbase + r] : 0.f;
-    dr[i] = r < n ? delta[rbase + r] : 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+  load_resident<D, T>(sQ, q + base, q0, n);
+  load_resident<D, T>(sO, dout + base, q0, n);
+  if constexpr (STAGED) {
+    stage_rows<D, T>(sRaw, k + base, 0, n);
+    stage_rows<D, T>(sRaw + RAW<D, T>, v + base, 0, n);
   }
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < n; k0 += TILE) {
-    __syncthreads();
-    load_tile<D>(sK, k + base, k0, n);
-    load_tile<D>(sV, v + base, k0, n);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<D>(s, sQ, sK, ty, tx);
-    tile_dot<D>(dp, sO, sV, ty, tx);
+  float lr[2], dr[2], acc[ND][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const bool row_ok = q0 + 4 * ty + i < n;
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + r0 + g + 8 * h;
+    lr[h] = r < n ? lse[rbase + r] * LOG2E : 0.f;   // P = 2^(S scale log2 e - lse log2 e)
+    dr[h] = r < n ? delta[rbase + r] : 0.f;
+  }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool ok = row_ok && k0 + tx + 16 * j < n;
-        const float p = ok ? expf(s[i][j] * scale - lr[i]) : 0.f;
-        sS[(4 * ty + i) * PLD + tx + 16 * j] = p * (dp[i][j] - dr[i]);
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  const int tiles = (n + TILE - 1) / TILE;
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * TILE;
+    if constexpr (STAGED) {
+      cp_async_wait_all();
+      __syncthreads();   // every warp is done with tile it - 1; the resident tiles are in
+      put_staged<D, T>(sRaw, sKb, sKs);
+      put_staged<D, T>(sRaw + RAW<D, T>, sVb, sVs);
+      __syncthreads();
+      if (it + 1 < tiles) {   // tile it + 1 streams in while tile it computes
+        stage_rows<D, T>(sRaw, k + base, k0 + TILE, n);
+        stage_rows<D, T>(sRaw + RAW<D, T>, v + base, k0 + TILE, n);
+        cp_async_commit();
       }
+    } else {
+      float4 xk[CHUNKS<D, T>], xv[CHUNKS<D, T>];
+      fetch_rows<D, T>(xk, k + base, k0, n);
+      fetch_rows<D, T>(xv, v + base, k0, n);
+      __syncthreads();   // every warp is done with tile it - 1
+      put_rows<D, T>(xk, sKb, sKs);
+      put_rows<D, T>(xv, sVb, sVs);
+      cp_async_wait_all();
+      __syncthreads();
     }
-    __syncthreads();
-    tile_pv<D>(acc, sS, sK, ty, tx);
+    float s[NS][4], dp[NS][4];
+    strip_abt<D, EXACT, NS>(s, sQ, sKb, sKs, r0, n0);
+    strip_abt<D, EXACT, NS>(dp, sO, sVb, sVs, r0, n0);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = q0 + r0 + g + 8 * h < n && k0 + n0 + 8 * j + 2 * t + e < n;
+          const float p = ok ? exp2f(s[j][2 * h + e] * scale2 - lr[h]) : 0.f;
+          ds[e] = p * (dp[j][2 * h + e] - dr[h]);
+        }
+        store_pair(sS, r0 + g + 8 * h, n0 + 8 * j + 2 * t, ds[0], ds[1]);
+      }
+    __syncthreads();   // both halves of every dS row are in
+    strip_pm<D, EXACT, ND>(acc, sS, sKb, sKs, r0, c0);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + 4 * ty + i;
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + r0 + g + 8 * h;
     if (r >= n) continue;
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c)
-      dq[base + (size_t)r * D + tx + 16 * c] = from_float<T>(acc[i][c] * scale);
+    for (int nd = 0; nd < ND; ++nd)
+      store2<T>(dq + base + (size_t)r * D + c0 + 8 * nd + 2 * t, acc[nd][2 * h] * scale,
+                acc[nd][2 * h + 1] * scale);
   }
 }
 
 // ---------------------------------------------------------------------------
 // backward, pass 2: dV_j = sum_i P_ij dO_i, dK_j = scale * sum_i dS_ij Q_i.
-// The block's tiles are transposed: rows are keys, columns are queries.
+// Block: 64 keys; Q and dO streamed (through the stage where it fits) and
+// split, lse and delta streamed.  The products are transposed (rows are
+// keys, columns queries); warp (wm, wn) computes P^T, dP^T and dS^T of keys
+// 16wm .. 16wm + 15 and queries 32wn .. 32wn + 31, and dK, dV of the same
+// keys and columns (D / 2) wn .. (D / 2) wn + D / 2 - 1.
 // ---------------------------------------------------------------------------
 template <int D, typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, blocks_for(dkv_smem<D, T>()))
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      int n, float scale) {
+  constexpr bool EXACT = sizeof(T) == 2;
+  constexpr bool STAGED = dkv_staged<D, T>();
+  constexpr int NS = KEYS_HALF / 8, ND = D / 16;
+  const float scale2 = scale * LOG2E;
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;
-  float* sV = sK + TILE * (D + 1);
-  float* sQ = sV + TILE * (D + 1);
-  float* sO = sQ + TILE * (D + 1);   // dO tile
-  float* sP = sO + TILE * (D + 1);   // P^T tile (keys x queries)
-  float* sS = sP + TILE * PLD;       // dS^T tile
-  float* sL = sS + TILE * PLD;       // lse of the query tile
-  float* sD = sL + TILE;             // delta of the query tile
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float* sV = sK + TILE * D;
+  float* sQb = sV + TILE * D;          // Q and dO, big and small halves
+  float* sQs = sQb + TILE * D;
+  float* sOb = sQs + TILE * D;
+  float* sOs = sOb + TILE * D;
+  float* sP = sOs + TILE * D;          // P^T, then dS^T
+  float* sL = sP + TILE * TILE;        // lse and delta of the query tile
+  float* sD = sL + TILE;
+  float* sRaw = sD + TILE;             // stage: raw Q, dO, lse, delta of the next tile
+  float* sRawL = sRaw + 2 * RAW<D, T>;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int r0 = 16 * (warp & 3), n0 = KEYS_HALF * (warp >> 2), c0 = (D / 2) * (warp >> 2);
   const int k0 = blockIdx.x * TILE;
   const size_t base = (size_t)blockIdx.y * n * D;
   const size_t rbase = (size_t)blockIdx.y * n;
+  // lse (threads 0 .. 63) and delta (64 .. 127) of a query tile
+  const int vi = threadIdx.x % TILE;
+  const float* vsrc = (threadIdx.x < TILE ? lse : delta) + rbase;
 
-  load_tile<D>(sK, k + base, k0, n);
-  load_tile<D>(sV, v + base, k0, n);
-  float acc_k[4][D / 16], acc_v[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+  load_resident<D, T>(sK, k + base, k0, n);
+  load_resident<D, T>(sV, v + base, k0, n);
+  if constexpr (STAGED) {
+    stage_rows<D, T>(sRaw, q + base, 0, n);
+    stage_rows<D, T>(sRaw + RAW<D, T>, dout + base, 0, n);
+    if (threadIdx.x < 2 * TILE) cp_async4(sRawL + threadIdx.x, vsrc + (vi < n ? vi : 0), vi < n);
+  }
+  cp_async_commit();
 
-  for (int q0 = 0; q0 < n; q0 += TILE) {
-    __syncthreads();
-    load_tile<D>(sQ, q + base, q0, n);
-    load_tile<D>(sO, dout + base, q0, n);
-    if (threadIdx.x < TILE) {
-      const int r = q0 + threadIdx.x;
-      sL[threadIdx.x] = r < n ? lse[rbase + r] : 0.f;
-      sD[threadIdx.x] = r < n ? delta[rbase + r] : 0.f;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<D>(s, sK, sQ, ty, tx);   // s[i][j]: key 4*ty + i, query tx + 16*j
-    tile_dot<D>(dp, sV, sO, ty, tx);
+  float acc_k[ND][4], acc_v[ND][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qc = tx + 16 * j;
-      const bool ok = q0 + qc < n;    // query rows past N add nothing
+  for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = ok ? expf(s[i][j] * scale - sL[qc]) : 0.f;
-        sP[(4 * ty + i) * PLD + qc] = p;
-        sS[(4 * ty + i) * PLD + qc] = p * (dp[i][j] - sD[qc]);
+    for (int e = 0; e < 4; ++e) acc_k[nd][e] = acc_v[nd][e] = 0.f;
+
+  const int tiles = (n + TILE - 1) / TILE;
+  for (int it = 0; it < tiles; ++it) {
+    const int q0 = it * TILE;
+    if constexpr (STAGED) {
+      cp_async_wait_all();
+      __syncthreads();   // every warp is done with tile it - 1; the resident tiles are in
+      put_staged<D, T>(sRaw, sQb, sQs);
+      put_staged<D, T>(sRaw + RAW<D, T>, sOb, sOs);
+      if (threadIdx.x < 2 * TILE) sL[threadIdx.x] = sRawL[threadIdx.x];
+      __syncthreads();
+      if (it + 1 < tiles) {   // tile it + 1 streams in while tile it computes
+        const int q1 = q0 + TILE;
+        stage_rows<D, T>(sRaw, q + base, q1, n);
+        stage_rows<D, T>(sRaw + RAW<D, T>, dout + base, q1, n);
+        if (threadIdx.x < 2 * TILE)
+          cp_async4(sRawL + threadIdx.x, vsrc + (q1 + vi < n ? q1 + vi : 0), q1 + vi < n);
+        cp_async_commit();
       }
+    } else {
+      float4 xq[CHUNKS<D, T>], xo[CHUNKS<D, T>];
+      fetch_rows<D, T>(xq, q + base, q0, n);
+      fetch_rows<D, T>(xo, dout + base, q0, n);
+      const float ld = threadIdx.x < 2 * TILE && q0 + vi < n ? vsrc[q0 + vi] : 0.f;
+      __syncthreads();   // every warp is done with tile it - 1
+      put_rows<D, T>(xq, sQb, sQs);
+      put_rows<D, T>(xo, sOb, sOs);
+      if (threadIdx.x < 2 * TILE) sL[threadIdx.x] = ld;
+      cp_async_wait_all();
+      __syncthreads();
     }
+
+    // P^T: s[j][2h + e] is key r0 + g + 8h, query n0 + 8j + 2t + e
+    float s[NS][4];
+    strip_abt<D, EXACT, NS>(s, sK, sQb, sQs, r0, n0);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float p[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qc = n0 + 8 * j + 2 * t + e;   // query rows past N add nothing
+          p[e] = q0 + qc < n ? exp2f(s[j][2 * h + e] * scale2 - sL[qc] * LOG2E) : 0.f;
+        }
+        store_pair(sP, r0 + g + 8 * h, n0 + 8 * j + 2 * t, p[0], p[1]);
+      }
     __syncthreads();
-    tile_pv<D>(acc_v, sP, sO, ty, tx);
-    tile_pv<D>(acc_k, sS, sQ, ty, tx);
+    strip_pm<D, EXACT, ND>(acc_v, sP, sOb, sOs, r0, c0);
+
+    // dS^T = P^T * (dP^T - delta), P^T read back from this thread's own slots
+    float dp[NS][4];
+    strip_abt<D, EXACT, NS>(dp, sV, sOb, sOs, r0, n0);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + g + 8 * h, col = n0 + 8 * j + 2 * t;
+        const float2 p = *reinterpret_cast<const float2*>(sP + row * TILE + (col ^ swz(row)));
+        dp[j][2 * h] = p.x * (dp[j][2 * h] - sD[col]);
+        dp[j][2 * h + 1] = p.y * (dp[j][2 * h + 1] - sD[col + 1]);
+      }
+    __syncthreads();   // every warp has read P^T as fragments
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store_pair(sP, r0 + g + 8 * h, n0 + 8 * j + 2 * t, dp[j][2 * h], dp[j][2 * h + 1]);
+    __syncthreads();
+    strip_pm<D, EXACT, ND>(acc_k, sP, sQb, sQs, r0, c0);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + 4 * ty + i;
+  for (int h = 0; h < 2; ++h) {
+    const int r = k0 + r0 + g + 8 * h;
     if (r >= n) continue;
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const size_t o = base + (size_t)r * D + tx + 16 * c;
-      dk[o] = from_float<T>(acc_k[i][c] * scale);
-      dv[o] = from_float<T>(acc_v[i][c]);
+    for (int nd = 0; nd < ND; ++nd) {
+      const size_t o = base + (size_t)r * D + c0 + 8 * nd + 2 * t;
+      store2<T>(dk + o, acc_k[nd][2 * h] * scale, acc_k[nd][2 * h + 1] * scale);
+      store2<T>(dv + o, acc_v[nd][2 * h], acc_v[nd][2 * h + 1]);
     }
   }
 }
@@ -345,6 +835,11 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 }
 
 dim3 grid_for(int bh, int n) { return dim3((unsigned)((n + TILE - 1) / TILE), (unsigned)bh); }
+
+// the backward's tile copies move 16 bytes a thread
+bool aligned16(const void* a, const void* b, const void* c, const void* d) {
+  return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c | (uintptr_t)d) & 15u) == 0;
+}
 
 template <int D, typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
@@ -360,7 +855,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, float* ls
 template <int D, typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* delta, void* dq, int bh, int n, cudaStream_t stream) {
-  const size_t smem = dq_smem<D>();
+  if (!aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
+  const size_t smem = dq_smem<D, T>();
   cudaError_t err = prepare(flash_bwd_dq_kernel<D, T>, smem);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dq_kernel<D, T><<<grid_for(bh, n), THREADS, smem, stream>>>(
@@ -372,7 +868,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
 template <int D, typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* delta, void* dk, void* dv, int bh, int n, cudaStream_t stream) {
-  const size_t smem = dkv_smem<D>();
+  if (!aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
+  const size_t smem = dkv_smem<D, T>();
   cudaError_t err = prepare(flash_bwd_dkv_kernel<D, T>, smem);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dkv_kernel<D, T><<<grid_for(bh, n), THREADS, smem, stream>>>(

@@ -2,7 +2,8 @@
 function (its plain versions, which the CUDA kernels repeat) against the
 JAX Pallas kernels in interpret mode, at the JAX tests' shapes and
 tolerances (``tests/test_flash_attention.py``), plus the wrapper's operand
-checks."""
+checks and the backward kernels' 3xTF32 numeric scheme (emulated here)
+against float64."""
 
 import jax
 import jax.numpy as jnp
@@ -144,3 +145,103 @@ def test_kernel_operand_checks(case, exc, match):
         ops["v"] = torch.zeros(2, 16, 64, device="meta")
     with pytest.raises(exc, match=match):
         tfa._check(ops["q"], **ops)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' numeric scheme: 3xTF32 products on the tensor cores
+# ---------------------------------------------------------------------------
+
+def _rna_tf32(x):
+    """float32 -> TF32 (10 stored mantissa bits), to nearest with ties away
+    from zero: ``cvt.rna.tf32.f32`` on finite values, by bit arithmetic as
+    the kernels do it."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    big = _rna_tf32(x)
+    return big, _rna_tf32(x - big)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as small*big + big*small + big*big, float32 sums (each TF32
+    product is exact in float32)."""
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    mm = lambda x, y: (torch.from_numpy(x) @ torch.from_numpy(y)).numpy()
+    return (mm(as_, bb) + mm(ab, bs)) + mm(ab, bb)
+
+
+def _mm_tf32(a, b):
+    """a @ b with each operand rounded to TF32 once (a plain TF32 product)."""
+    return (torch.from_numpy(_rna_tf32(a)) @ torch.from_numpy(_rna_tf32(b))).numpy()
+
+
+def _backward_with(mm, q, k, v, g, lse, delta):
+    """The kernels' arithmetic head by head, every product through ``mm``:
+    P = 2^(S scale log2 e - lse log2 e), dS = P (dO V^T - delta)."""
+    log2e = np.float32(1.4426950408889634)
+    scale = np.float32(1.0 / np.sqrt(q.shape[-1]))
+    grads = []
+    for b in range(q.shape[0]):
+        s = mm(q[b], np.ascontiguousarray(k[b].T))
+        p = np.exp2(s * (scale * log2e) - lse[b][:, None] * log2e).astype(np.float32)
+        ds = (p * (mm(g[b], np.ascontiguousarray(v[b].T)) - delta[b][:, None])).astype(np.float32)
+        grads.append((mm(ds, k[b]) * scale, mm(np.ascontiguousarray(ds.T), q[b]) * scale,
+                      mm(np.ascontiguousarray(p.T), g[b])))
+    return [np.stack(x) for x in zip(*grads)]
+
+
+def _f64_backward(q, k, v, g):
+    q, k, v, g = (x.astype(np.float64) for x in (q, k, v, g))
+    s = np.einsum("bqd,bkd->bqk", q, k) / np.sqrt(q.shape[-1])
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    out = np.einsum("bqk,bkd->bqd", p, v)
+    ds = p * (np.einsum("bqd,bkd->bqk", g, v) - (g * out).sum(-1, keepdims=True))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    return (np.einsum("bqk,bkd->bqd", ds, k) * scale, np.einsum("bqk,bqd->bkd", ds, q) * scale,
+            np.einsum("bqk,bqd->bkd", p, g))
+
+
+def _scheme_margins(mm, bh, n, d, seed):
+    """error / limit of dq, dk, dv under the kernels' criterion
+    ``|x - f64| <= 2 |plain f32 - f64| + 1e-6 max|f64|``."""
+    q, k, v, g = _inputs(bh, n, d, seed=seed)
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out, lse = tfa.flash_forward_plain(tq, tk, tv)
+    plain = [x.numpy() for x in tfa.flash_backward_plain(tq, tk, tv, out, lse, tg)]
+    delta = tfa._delta(out, tg).numpy()
+    got = _backward_with(mm, q, k, v, g, lse.numpy(), delta)
+    truth = _f64_backward(q, k, v, g)
+    return [np.abs(x - t).max() / (2 * np.abs(pl - t).max() + 1e-6 * np.abs(t).max())
+            for x, pl, t in zip(got, plain, truth)]
+
+
+@pytest.mark.parametrize("bh,n,d", [(2, 200, 32), (8, 144, 64)])
+def test_3xtf32_backward_meets_the_f32_criterion(bh, n, d):
+    """3xTF32 products (with float32 sums) keep dq, dk, dv within the
+    criterion the CUDA kernels are held to on the card."""
+    margins = _scheme_margins(_mm_3xtf32, bh, n, d, seed=6)
+    assert max(margins) <= 1.0, margins
+
+
+def test_single_tf32_backward_misses_the_f32_criterion():
+    """One TF32 product per matmul (11 significant bits) is far outside it:
+    the split is needed."""
+    margins = _scheme_margins(_mm_tf32, 8, 144, 64, seed=6)
+    assert min(margins) > 10.0, margins
+
+
+def test_rna_tf32_rounding():
+    """Ties away from zero at the 13th bit, carries into the exponent, exact
+    on TF32 values, and big + small reproduces x to about 22 bits."""
+    ulp = np.float32(2.0 ** -10)
+    x = np.array([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0 ** -23, 2 - 2.0 ** -23, 0.75,
+                  -3.0], np.float32)
+    want = np.array([1 + ulp, -(1 + ulp), 1.0, 2.0, 0.75, -3.0], np.float32)
+    np.testing.assert_array_equal(_rna_tf32(x), want)
+    r = np.random.default_rng(0).standard_normal(4096).astype(np.float32)
+    big, small = _split(r)
+    assert np.all(np.abs(r - _rna_tf32(r)) <= np.abs(r) * 2.0 ** -11)
+    assert np.all(np.abs(r.astype(np.float64) - big - small) <= np.abs(r) * 2.0 ** -22)
