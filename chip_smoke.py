@@ -9,12 +9,15 @@ Phases, each fatal on failure:
 2. build: ``nvcc`` compiles every ``confild_tpu_torch/csrc/*.cu``, one
    process per source, all started together (timed; ptxas registers and
    spills, and for the flash kernels the count of tensor-core ``HMMA``
-   instructions in ``cuobjdump -sass``: every backward instantiation must
-   have some);
+   instructions in ``cuobjdump -sass``: every forward and backward
+   instantiation must have some);
 3. forward decode kernel against its plain version at Case4 widths
    (SIREN-FiLM 3 -> 384 x 16 modulated layers -> 3, w0 30), 16 rows x 262144
    points, both held to a float64 run under the JAX tests' criterion
-   ``err_kernel <= 2 * err_plain_f32 + 1e-6``; times and the roofline bound;
+   ``err_kernel <= 2 * err_plain_f32 + 1e-6``; times and the roofline bound
+   (the SIREN rows' bound: matrix products at the tensor cores' 3xTF32 rate,
+   sines at the CUDA-core float32 rate, bytes at the HBM rate, the largest;
+   the CUDA-core figure of all the flops is logged beside it);
 4. dz kernel against its plain version (same criterion on ``dL/dlatents``)
    at 384 rows x 10 sensors and 384 rows x 1024 points, and the time of the
    whole operator gradient (plain autograd decode vs forward + dz kernels)
@@ -64,15 +67,19 @@ Phases, each fatal on failure:
     backward alone on a retained graph, on the (BH, N, D) tensors and on
     their (1, BH, N, D) view, which takes another backend, and the CUDA
     kernels each launches) at (64, 144, 64), (16, 9216, 64) and
-    (4, 16384, 64), beside two bounds (the tensor cores' 3xTF32 rate, and
-    CUDA-core float32);
+    (4, 16384, 64), each the median of 7 separately timed repeats with
+    their least and largest (at 144 tokens, where the host's launch rate
+    bounds those, also the forwards' device time from ``torch.profiler``),
+    the SM clock and its maximum logged before and after, beside two
+    bounds (the tensor cores' 3xTF32 rate, and CUDA-core float32);
 11. the full-width Case4 U-Net (384^2, 128 ch, mult 1,1,2,2,4,4, heads of
     64), batch 8: one ``training_losses`` forward and backward with
     ``use_flash_attention`` true and false on the same weights and draws;
     loss and every parameter gradient agree to a relative L2 of 1e-3;
 12. main path, diffusion training: ``confild_tpu_torch.cli.train_diffusion
-    .main`` on ``recipes/diffusion/case4.yml`` as published with
-    ``use_flash_attention: true``, on 32 + 8 seeded synthetic 384 x 384
+    .main`` on ``recipes/diffusion/case4.yml``, which leaves
+    ``use_flash_attention`` on auto (null: dense at Case4's 144 tokens),
+    forced to ``true``, on 32 + 8 seeded synthetic 384 x 384
     latent images: 3 steps (``save_interval`` 2, ``log_interval`` 1), then a
     resume from ``model000003.pt`` to step 4 that must read back the step
     count and the EMA; ms per step, peak memory, a device profile of one
@@ -162,23 +169,47 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call, CUDA events around ``reps`` calls after
-    one warm-up call."""
+def cuda_median(fn, calls: int, repeats: int = 7) -> tuple[float, float, float]:
+    """Milliseconds per call as ``(median, least, largest)`` over
+    ``repeats`` separately timed runs of ``calls`` calls each (CUDA events),
+    after one warm-up call."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    times.sort()
+    return times[len(times) // 2], times[0], times[-1]
+
+
+def sm_clocks() -> str:
+    """The SM clock and its maximum, as ``nvidia-smi`` reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """Least time with every flop on the CUDA cores (float32)."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def tc_bound(flops: float, nbytes: float, other_s: float = 0.0) -> tuple[float, str]:
+    """Least time with the matrix products (``flops``) on the tensor cores
+    at the 3xTF32 rate, the rest of the arithmetic taking ``other_s``
+    seconds on its own units, and the bytes at the HBM rate: the largest of
+    the three (ms, what bounds it)."""
+    t_ops = max(flops * TF32_SPLIT_PRODUCTS / PEAK_TF32_FLOPS, other_s)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -249,6 +280,24 @@ def hmma_counts(path) -> dict:
     return counts
 
 
+def ptxas_lines(report: str, hmma: dict) -> list[str]:
+    """One line per kernel instantiation of an ``nvcc -Xptxas -v`` report:
+    registers, spills and, where ``hmma`` counts them, tensor-core
+    instructions."""
+    lines, kernel, spill = [], None, ""
+    for line in report.splitlines():
+        if "Function properties" in line and kernel_label(line):
+            kernel = kernel_label(line)
+        elif "spill stores" in line:
+            spill = re.sub(r"\s+", " ", line.strip())
+        elif "registers" in line and kernel:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            tc = f", {hmma[kernel]} HMMA" if kernel in hmma else ""
+            lines.append(f"{kernel}: {regs} registers, {spill}{tc}")
+            kernel = None
+    return lines
+
+
 def phase_build():
     names = sorted(p.stem for p in cuda_build.CSRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
@@ -259,20 +308,12 @@ def phase_build():
     # and for the flash kernels their tensor-core instructions
     flash_hmma = hmma_counts(cuda_build.library_path("flash_attention"))
     for name in names:
-        kernel, spill = None, ""
-        for line in cuda_build.build_logs.get(name, "").splitlines():
-            if "Function properties" in line and kernel_label(line):
-                kernel = kernel_label(line)
-            elif "spill stores" in line:
-                spill = re.sub(r"\s+", " ", line.strip())
-            elif "registers" in line and kernel:
-                regs = re.search(r"Used (\d+) registers", line).group(1)
-                tc = f", {flash_hmma[kernel]} HMMA" if kernel in flash_hmma else ""
-                log(f"[build] {name}: {kernel}: {regs} registers, {spill}{tc}")
-                kernel = None
-    no_tc = [k for k, v in flash_hmma.items() if "flash_bwd" in k and v == 0]
-    if no_tc or not any("flash_bwd" in k for k in flash_hmma):
-        raise SystemExit(f"flash backward kernels without tensor-core instructions: {no_tc}")
+        for line in ptxas_lines(cuda_build.build_logs.get(name, ""), flash_hmma):
+            log(f"[build] {name}: {line}")
+    no_tc = [k for k, v in flash_hmma.items() if v == 0]
+    kinds = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    if no_tc or not all(any(k.startswith(p) for k in flash_hmma) for p in kinds):
+        raise SystemExit(f"flash kernels without tensor-core instructions: {no_tc}")
 
 
 def case4_decoder(device):
@@ -333,16 +374,19 @@ def phase_forward(device, results):
     del plain, truth
     torch.cuda.empty_cache()
     with torch.no_grad():
-        ms = cuda_ms(lambda: sd.decode_forward(coords, z, *ops), reps=3)
-        plain_ms = cuda_ms(lambda: sd.decode_forward_plain(coords, z, *ops), reps=3)
+        ms = cuda_median(lambda: sd.decode_forward(coords, z, *ops), 3, repeats=1)[0]
+        plain_ms = cuda_median(lambda: sd.decode_forward_plain(coords, z, *ops), 3, repeats=1)[0]
     n_mod, h, c_in, c_out = z.shape[0], 384, 3, 3
     pairs = rows * points
-    flops = pairs * (2 * h * (c_in + (n_mod - 1) * h + c_out) + ACT_FLOPS * h * n_mod)
+    mat = pairs * 2 * h * (c_in + (n_mod - 1) * h + c_out)
+    act = pairs * ACT_FLOPS * h * n_mod
+    flops = mat + act
     nbytes = 4 * (points * c_in + n_mod * rows * h + c_in * h + (n_mod - 1) * h * h
                   + h * c_out + c_out + pairs * c_out)
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by = tc_bound(mat, nbytes, act / PEAK_F32_FLOPS)
     log(f"[forward] kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-        f"({bound_by}); kernel {flops / ms / 1e9:.2f} TFLOP/s")
+        f"({bound_by}; every flop on the CUDA cores: {bound(flops, nbytes)[0]:.3f} ms); "
+        f"kernel {flops / ms / 1e9:.2f} TFLOP/s")
     results["siren_decode_forward"] = dict(
         max_abs_err=err_k, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         shape=f"{rows}x{points}")
@@ -381,17 +425,18 @@ def phase_dz(device, results):
         del dz_p, truth
         torch.cuda.empty_cache()
         with torch.no_grad():
-            ms = cuda_ms(lambda: sd.decode_dz(coords, z, g, *ops), reps=5)
-            plain_ms = cuda_ms(lambda: sd.decode_dz_plain(coords, z, g, *ops), reps=3)
+            ms = cuda_median(lambda: sd.decode_dz(coords, z, g, *ops), 5, repeats=1)[0]
+            plain_ms = cuda_median(lambda: sd.decode_dz_plain(coords, z, g, *ops), 3, repeats=1)[0]
         n_mod, h, c_in, c_out = z.shape[0], 384, 3, 3
         pairs = rows * points
-        flops = pairs * (2 * h * (c_in + 2 * (n_mod - 1) * h + c_out)
-                         + (2 * ACT_FLOPS + 2) * h * n_mod)
+        mat = pairs * 2 * h * (c_in + 2 * (n_mod - 1) * h + c_out)
+        act = pairs * (2 * ACT_FLOPS + 2) * h * n_mod
         nbytes = 4 * (points * c_in + n_mod * rows * h + pairs * c_out + c_in * h
                       + (n_mod - 1) * h * h + h * c_out + n_mod * rows * h)
-        bound_ms, bound_by = bound(flops, nbytes)
+        bound_ms, bound_by = tc_bound(mat, nbytes, act / PEAK_F32_FLOPS)
         log(f"[dz] {rows}x{points}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.3f} ms ({bound_by})")
+            f"bound {bound_ms:.3f} ms ({bound_by}; every flop on the CUDA cores: "
+            f"{bound(mat + act, nbytes)[0]:.3f} ms)")
         results[f"siren_decode_dz@{rows}x{points}"] = dict(
             max_abs_err=err_k, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, shape=f"{rows}x{points}")
@@ -415,8 +460,8 @@ def phase_crossover(device):
             out = sd.fused_siren_decode_frozen(model, coords, lat, model.w0)
             torch.autograd.grad((out * g).sum(), lat)
 
-        t_plain = cuda_ms(plain, reps=5)
-        t_fused = cuda_ms(fused, reps=5)
+        t_plain = cuda_median(plain, 5, repeats=1)[0]
+        t_fused = cuda_median(fused, 5, repeats=1)[0]
         rows.append({"points": points, "pairs": 384 * points,
                      "plain_autograd_ms": t_plain, "fused_ms": t_fused})
         log(f"[crossover] 384x{points} ({384 * points} pairs): plain autograd "
@@ -542,9 +587,9 @@ def phase_fused_dps(root, device):
         counts = dict(sd.LAUNCHES)
         if use_pallas and (counts["siren_decode_forward"] == 0 or counts["siren_decode_dz"] == 0):
             raise SystemExit(f"forced fused DPS step launched {counts}")
-        step_ms[use_pallas] = cuda_ms(
+        step_ms[use_pallas] = cuda_median(
             lambda: sampler._one_step(model, x_prev, t, y, method, noise=noise,
-                                      measurement_noise=torch.zeros_like(y)), reps=3)
+                                      measurement_noise=torch.zeros_like(y)), 3, repeats=1)[0]
         log(f"[dps] use_pallas={use_pallas}: launches {counts}, guided step "
             f"{step_ms[use_pallas]:.1f} ms")
         if not use_pallas:      # the path Case4's 10 sensors take
@@ -659,25 +704,27 @@ def phase_bwd(device, results):
     coords, latents, g, z, ops, w2, scale = bwd_case(model, device, rows, points, seed=14)
     n_mod = z.shape[0]
     with torch.no_grad():
-        ms = cuda_ms(lambda: sd.decode_bwd(coords, z, g, *ops), reps=3)
+        ms = cuda_median(lambda: sd.decode_bwd(coords, z, g, *ops), 3, repeats=1)[0]
         torch.cuda.reset_peak_memory_stats()
-        plain_ms = cuda_ms(lambda: sd.decode_bwd_plain(coords, z, g, *ops), reps=2)
+        plain_ms = cuda_median(lambda: sd.decode_bwd_plain(coords, z, g, *ops), 2, repeats=1)[0]
         plain_peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
     h, c_in, c_out = 384, 3, 3
     pairs = rows * points
     # forward recompute, dx chain and dW products (section 3 of the port's
     # plan: 3 x 4.43 MFLOP a pair at Case4), the sine and its derivative
-    flops = pairs * (2 * h * (c_in + 3 * (n_mod - 1) * h + 2 * c_out) + 2 * c_in * h
-                     + (2 * ACT_FLOPS + 3) * h * n_mod)
+    mat = pairs * (2 * h * (c_in + 3 * (n_mod - 1) * h + 2 * c_out) + 2 * c_in * h)
+    act = pairs * (2 * ACT_FLOPS + 3) * h * n_mod
+    flops = mat + act
     nbytes = 4 * (points * c_in + 2 * n_mod * rows * h + pairs * c_out + 2 * c_in * h
                   + 2 * (n_mod - 1) * h * h + 2 * h * c_out)
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by = tc_bound(mat, nbytes, act / PEAK_F32_FLOPS)
     with torch.no_grad():
         device_profile(f"training backward {rows}x{points}",
                        lambda: sd.decode_bwd(coords, z, g, *ops), top=4)
     log(f"[bwd] {rows}x{points}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
-        f"bound {bound_ms:.3f} ms ({bound_by}, {flops / 1e12:.2f} TFLOP); plain {plain_ms:.3f} "
+        f"bound {bound_ms:.3f} ms ({bound_by}, {flops / 1e12:.2f} TFLOP; every flop on the "
+        f"CUDA cores: {bound(flops, nbytes)[0]:.3f} ms); plain {plain_ms:.3f} "
         f"ms (peak memory {plain_peak:.2f} GiB); library: none (no single PyTorch call "
         f"computes it)")
     results["siren_decode_bwd"] = dict(
@@ -911,16 +958,6 @@ def flash_memory(device) -> None:
         raise SystemExit("flash forward + backward is not O(N) in memory")
 
 
-def tc_bound(flops: float, exps: float, nbytes: float) -> tuple[float, str]:
-    """Least time on the tensor cores: products at the 3xTF32 rate,
-    exponentials at the special-function rate, bytes at the HBM rate; the
-    largest of the three (ms, what bounds it)."""
-    t_ops = max(flops * TF32_SPLIT_PRODUCTS / PEAK_TF32_FLOPS, exps / PEAK_EXP_PER_S)
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
 def flash_bounds(bh, n, d) -> dict:
     """Per function ``(tensor-core ms, bound_by, CUDA-core f32 ms)`` from its
     flops, its exponentials and the bytes of its inputs and outputs (f32);
@@ -931,7 +968,8 @@ def flash_bounds(bh, n, d) -> dict:
             "flash_bwd_dq": (6 * mat, 4 * io + 8 * rows + io),
             "flash_bwd_dkv": (8 * mat, 4 * io + 8 * rows + 2 * io),
             "backward": (10 * mat, 5 * io + 4 * rows + 3 * io)}
-    return {name: (*tc_bound(flops, exps, nbytes), bound(flops + exps, nbytes)[0])
+    return {name: (*tc_bound(flops, nbytes, exps / PEAK_EXP_PER_S),
+                   bound(flops + exps, nbytes)[0])
             for name, (flops, nbytes) in work.items()}
 
 
@@ -961,11 +999,13 @@ def sdpa_kernels(device, bh, n, d) -> None:
 
 def flash_times(device, bh, n, d) -> dict:
     """Kernels, plain versions and scaled_dot_product_attention at one shape,
-    CUDA events after a warm-up; every time in ms."""
+    each the median of 7 separately timed repeats (CUDA events, after a
+    warm-up); every time in ms, and under ``spread`` each one's least and
+    largest repeat."""
     q, k, v, g = flash_case(device, bh, n, d, torch.float32, seed=7)
     out, lse = fa.flash_forward(q, k, v)
     delta = (g * out).sum(-1).contiguous()
-    reps = 20 if n < 1000 else 3
+    calls = 20 if n < 1000 else 1
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -975,42 +1015,55 @@ def flash_times(device, bh, n, d) -> dict:
     # the same call on the (1, BH, N, D) view, which takes another backend
     leaves4 = [t.detach().reshape(1, bh, n, d).requires_grad_(True) for t in leaves]
     graph4 = sdpa(*leaves4)
-    t = {
-        "flash_forward": cuda_ms(lambda: fa.flash_forward(q, k, v), reps),
-        "flash_bwd_dq": cuda_ms(lambda: fa.bwd_dq(q, k, v, g, lse, delta), reps),
-        "flash_bwd_dkv": cuda_ms(lambda: fa.bwd_dkv(q, k, v, g, lse, delta), reps),
-        "fwd_bwd": cuda_ms(lambda: fa.flash_backward(q, k, v, *fa.flash_forward(q, k, v), g),
-                           reps),
-        "plain_forward": cuda_ms(lambda: fa.flash_forward_plain(q, k, v), reps),
-        "plain_fwd_bwd": cuda_ms(lambda: fa.flash_backward_plain(
-            q, k, v, *fa.flash_forward_plain(q, k, v), g), reps),
-        "sdpa_forward": cuda_ms(lambda: sdpa(q, k, v), reps),
-        "sdpa_fwd_bwd": cuda_ms(sdpa_fwd_bwd, reps),
-        "sdpa_backward": cuda_ms(lambda: torch.autograd.grad(graph, leaves, g, retain_graph=True),
-                                 reps),
-        "sdpa_4d_forward": cuda_ms(lambda: sdpa(*leaves4), reps),
-        "sdpa_4d_backward": cuda_ms(lambda: torch.autograd.grad(
-            graph4, leaves4, g.reshape(1, bh, n, d), retain_graph=True), reps)}
+    fns = {
+        "flash_forward": lambda: fa.flash_forward(q, k, v),
+        "flash_bwd_dq": lambda: fa.bwd_dq(q, k, v, g, lse, delta),
+        "flash_bwd_dkv": lambda: fa.bwd_dkv(q, k, v, g, lse, delta),
+        "fwd_bwd": lambda: fa.flash_backward(q, k, v, *fa.flash_forward(q, k, v), g),
+        "plain_forward": lambda: fa.flash_forward_plain(q, k, v),
+        "plain_fwd_bwd": lambda: fa.flash_backward_plain(
+            q, k, v, *fa.flash_forward_plain(q, k, v), g),
+        "sdpa_forward": lambda: sdpa(q, k, v),
+        "sdpa_fwd_bwd": sdpa_fwd_bwd,
+        "sdpa_backward": lambda: torch.autograd.grad(graph, leaves, g, retain_graph=True),
+        "sdpa_4d_forward": lambda: sdpa(*leaves4),
+        "sdpa_4d_backward": lambda: torch.autograd.grad(
+            graph4, leaves4, g.reshape(1, bh, n, d), retain_graph=True)}
+    t, spread = {}, {}
+    for name, fn in fns.items():
+        t[name], *spread[name] = cuda_median(fn, calls)
     t["plain_backward"] = t["plain_fwd_bwd"] - t["plain_forward"]
     t["bwd_pair"] = t["flash_bwd_dq"] + t["flash_bwd_dkv"]
+    if calls > 1:   # the host's launch rate bounds the events here: device time too
+        for name in ("flash_forward", "sdpa_4d_forward"):
+            kernels = device_profile(f"{name} ({bh}, {n}, {d}), {calls} calls",
+                                     lambda: [fns[name]() for _ in range(calls)], top=3)
+            t[f"{name}_device"] = sum(ms for ms, _ in kernels.values()) / calls
+
+    def ms(name):
+        return f"{t[name]:.3f} [{spread[name][0]:.3f}-{spread[name][1]:.3f}]"
     b = flash_bounds(bh, n, d)
-    log(f"[flash-time] ({bh}, {n}, {d}) f32: forward kernel {t['flash_forward']:.3f} ms (bound "
-        f"{b['flash_forward'][0]:.3f} tensor cores, {b['flash_forward'][2]:.3f} f32; "
+    log(f"[flash-time] ({bh}, {n}, {d}) f32, ms as median [least-largest] of 7: forward "
+        f"kernel {ms('flash_forward')} (bound {b['flash_forward'][0]:.3f} tensor cores, "
+        f"{b['flash_forward'][2]:.3f} f32; "
         f"{4 * bh * n * n * d / t['flash_forward'] / 1e9:.2f} TFLOP/s), plain "
-        f"{t['plain_forward']:.3f}, sdpa {t['sdpa_forward']:.3f}")
-    log(f"[flash-time] ({bh}, {n}, {d}) f32: dq kernel {t['flash_bwd_dq']:.3f} ms (bound "
+        f"{ms('plain_forward')}, sdpa {ms('sdpa_forward')} ((1, BH, N, D) view "
+        f"{ms('sdpa_4d_forward')})" + (
+            f"; device time a call (torch.profiler): forward kernel "
+            f"{t['flash_forward_device']:.4f}, sdpa view {t['sdpa_4d_forward_device']:.4f}"
+            if calls > 1 else ""))
+    log(f"[flash-time] ({bh}, {n}, {d}) f32: dq kernel {ms('flash_bwd_dq')} (bound "
         f"{b['flash_bwd_dq'][0]:.3f} tensor cores, {b['flash_bwd_dq'][2]:.3f} f32), dk/dv "
-        f"kernel {t['flash_bwd_dkv']:.3f} ms (bound {b['flash_bwd_dkv'][0]:.3f}, "
+        f"kernel {ms('flash_bwd_dkv')} (bound {b['flash_bwd_dkv'][0]:.3f}, "
         f"{b['flash_bwd_dkv'][2]:.3f}); pair {t['bwd_pair']:.3f} ms "
         f"({14 * bh * n * n * d / t['bwd_pair'] / 1e9:.2f} TFLOP/s), sdpa backward alone "
-        f"{t['sdpa_backward']:.3f} ms ((1, BH, N, D) view: forward {t['sdpa_4d_forward']:.3f}, "
-        f"backward alone {t['sdpa_4d_backward']:.3f})")
-    log(f"[flash-time] ({bh}, {n}, {d}) f32: forward + backward: kernels {t['fwd_bwd']:.3f} "
-        f"ms (bound {b['flash_forward'][0] + b['backward'][0]:.3f}), plain "
-        f"{t['plain_fwd_bwd']:.3f}, sdpa {t['sdpa_fwd_bwd']:.3f}")
+        f"{ms('sdpa_backward')} ((1, BH, N, D) view {ms('sdpa_4d_backward')})")
+    log(f"[flash-time] ({bh}, {n}, {d}) f32: forward + backward: kernels {ms('fwd_bwd')} "
+        f"(bound {b['flash_forward'][0] + b['backward'][0]:.3f}), plain "
+        f"{ms('plain_fwd_bwd')}, sdpa {ms('sdpa_fwd_bwd')}")
     del leaves, graph, leaves4, graph4
     torch.cuda.empty_cache()
-    return dict(t, bounds=b)
+    return dict(t, bounds=b, spread=spread)
 
 
 def phase_flash(device, results) -> None:
@@ -1020,7 +1073,9 @@ def phase_flash(device, results) -> None:
     flash_memory(device)
     sdpa_kernels(device, *FLASH_TIMES[1])
     path = errs[(64, 144, 64, torch.float32)]
+    log(f"[flash-time] SM clock, max SM clock before the timings: {sm_clocks()}")
     times = {f"{bh}x{n}x{d}": flash_times(device, bh, n, d) for bh, n, d in FLASH_TIMES}
+    log(f"[flash-time] SM clock, max SM clock after the timings: {sm_clocks()}")
     log("[flash-time] " + json.dumps({s: {k: v for k, v in t.items() if k != "bounds"}
                                       for s, t in times.items()}))
     t = times[FLASH_PATH_SHAPE]

@@ -21,8 +21,8 @@
 // denominator and output accumulator in VMEM across a sequential kv grid
 // axis; Hopper blocks run in no order, so here each block loops over the
 // other axis itself:
-//   * forward and dq: one block per (head, 64 query rows), looping over
-//     64-key tiles;
+//   * forward: one block per (head, 128 query rows), looping over 64-key
+//     tiles; dq: one block per (head, 64 query rows), the same loop;
 //   * dk/dv: one block per (head, 64 keys), looping over 64-query tiles.
 // Every output element has one owner thread, so there are no atomics and two
 // launches give bitwise-equal results.  Ragged edges are masked in the
@@ -31,13 +31,8 @@
 // exp never sees -inf - -inf), and query rows past N add nothing to dK and
 // dV.  The (N, N) matrices never leave shared memory: memory is O(N).
 //
-// Forward: float32 FMAs on CUDA cores (67 TFLOP/s peak).  256 threads;
-// thread (ty, tx) = (t / 16, t % 16) owns tile rows 4*ty .. 4*ty + 3 and
-// columns tx + 16*j, so the 16 threads of one row sit in one half-warp and
-// the row max and sum are shuffle reductions.  Tiles sit in shared memory as
-// float32 with a row stride of D + 1 (no bank conflicts on the column walks).
-//
-// Backward: tensor cores with a 3xTF32 split.  Every product goes through
+// All three run their products on the tensor cores with a 3xTF32 split.
+// Every product goes through
 // mma.sync.m16n8k8 (tf32 in, f32 accumulate).  A plain TF32 product keeps 11
 // significant bits and misses the float32 criterion the kernels are held to
 // (|kernel - f64| <= 2 |plain f32 - f64| + 1e-6 max|f64|) by some 300x, so
@@ -47,18 +42,60 @@
 // cores truncate their f32 sums, so the products go into short zeroed
 // partials that float32 adds carry into the running sums (see mma3).  bf16
 // inputs are exact in TF32 (small = 0), so Q.K^T and dO.V^T take one
-// product and the products with P or dS two.
+// product and the products with P or dS two.  mma.sync, not wgmma: wgmma
+// takes TF32 only with both operands K-major in shared memory, but P.V and
+// three of the backward's products (dQ = dS.K, dK = dS^T.Q, dV = P^T.dO)
+// reduce along the row axis of row-major tiles and would need transposed
+// copies written by threads; mma.sync fragments are ordinary shared loads
+// in either direction.
+//
+// Forward (replaces _flash_kernel, confild_tpu/ops/flash_attention.py:56).
+//   * Bound: 3 x 4 N^2 D tensor-core flops at 495 TFLOP/s dense TF32 (165
+//     TFLOP/s of attention arithmetic) and N^2 exponentials at the
+//     special-function units' rate; the first is 6.5x the second at D = 64.
+//     Beside the products the loop splits K, V and P (two integer
+//     operations and a subtract a value), adds the partials, rescales the
+//     output, and waits on mma chains and two barriers a key tile.
+//   * Eight warps over 128 query rows (a build-time choice,
+//     FLASH_FWD_WARPS; four warps over 64 rows, the alternative, was
+//     slower at every shape tools/flash_fwd_tiling.py times): warp w
+//     owns rows 16 w .. 16 w + 15 and all 64 keys of each tile, so a row's
+//     max and sum stay in one quad of lanes (two shuffles) and the softmax
+//     needs no barrier between warps.  The warp's 16 x D output block stays
+//     in registers across the loop, rescaled by alpha = 2^(m_old - m_new)
+//     before each tile's P.V; the running sum is kept per thread, a tile's
+//     16 values summed before they join it (a sequential float32 sum of
+//     every value read lse at 0.20 of the limit at 16384 tokens), and
+//     summed over the quad once at the end.  Logits are scaled by scale * log2 e,
+//     so P = exp2(s - m) and lse = m ln 2 + ln l.
+//   * P never leaves registers.  The accumulator of S gives a thread keys
+//     2t, 2t + 1 of each k8 step where the A fragment of P.V wants keys t,
+//     t + 4; a product's sum does not depend on the order of its k index,
+//     so P.V takes key 2t as index t and key 2t + 1 as index t + 4, and V's
+//     B fragment reads its rows in the same order (frag_b_pairs; V's tile
+//     has its own swizzle, swz_pairs, under which those reads hit 32 banks).
+//     That replaces a trip through shared memory (a store, a warp barrier
+//     and four loads each k8 step) and the quad shuffles that were the
+//     other way.
+//   * Q (float32, or bf16 widened) is resident in shared memory and split
+//     when its A fragments are loaded; K and V stream through the cp.async
+//     stage and are split once a tile, as in the backward (below).  S builds
+//     up in partials zeroed every k8 step (abt_step, two steps an
+//     iteration: unrolled in full the loop spilled at D = 64) and P.V in
+//     partials zeroed every second step, each carried by float32 adds.
+//   * Shared memory (f32): Q, K and V in two halves each, and the stage:
+//     64 KB at D = 32, 128 KB at D = 64, 192 KB at D = 128 with no stage
+//     (float32) or 224 KB with it (bf16).  One block an SM.
+//   * bf16: JAX rounds P to bf16 before P.V (flash_attention.py:80-81);
+//     this kernel, like the port's plain version, keeps P in float32.
+//
+// Backward (3xTF32 as above).
 //   * Bound: 3 x 14 N^2 D tensor-core flops at 495 TFLOP/s dense TF32, i.e.
 //     165 TFLOP/s of backward arithmetic, 2.5x the CUDA-core f32 rate.
 //     Beside each product the loop loads and splits its operands (two
 //     integer operations and a subtract each) and adds its partial, and it
 //     waits on dependent mma chains and on the barriers between products;
 //     chip_smoke.py phase 10 times the pair against this bound.
-//   * mma.sync, not wgmma: wgmma takes TF32 only with both operands K-major
-//     in shared memory, but three of the five products (dQ = dS.K,
-//     dK = dS^T.Q, dV = P^T.dO) reduce along the row axis of row-major
-//     tiles and would need transposed copies written by threads; mma.sync
-//     fragments are ordinary shared loads in either direction.
 //   * Eight warps: warp (wm, wn) = (w % 4, w / 4) owns rows 16 wm .. 16 wm
 //     + 15 of the block's 64 (query rows in dq, keys in dk/dv); it computes
 //     S and dP for the 32 columns of half wn as four n8 fragments, and dQ
@@ -96,92 +133,28 @@
 
 namespace {
 
-constexpr int TILE = 64;       // query rows and keys per tile
-constexpr int THREADS = 256;   // forward: 16 x 16 threads; backward: 8 warps
-constexpr int PLD = TILE + 1;  // row stride of the P / dS tiles
+constexpr int TILE = 64;       // keys (and backward rows) per tile
+constexpr int THREADS = 256;   // backward: 8 warps
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+// forward: FWD_WARPS warps, each owning 16 query rows and all 64 keys of a
+// tile; 8 over 128 rows, or 4 over 64 rows when built with
+// -DFLASH_FWD_WARPS=4 (the tiling the design rejected, kept measurable)
+#ifndef FLASH_FWD_WARPS
+#define FLASH_FWD_WARPS 8
+#endif
+constexpr int FWD_WARPS = FLASH_FWD_WARPS;
+static_assert(FWD_WARPS == 4 || FWD_WARPS == 8, "the forward tiles 64 or 128 query rows");
+constexpr int FWD_THREADS = 32 * FWD_WARPS;
+constexpr int FWD_ROWS = 16 * FWD_WARPS;
 
-// rows row0 .. row0 + TILE - 1 of a (N, D) matrix into a float tile of row
-// stride D + 1; rows past n are zeros
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __restrict__ src,
-                                          int row0, int n) {
-  for (int e = threadIdx.x; e < TILE * D; e += THREADS) {
-    const int r = e / D, c = e % D, gr = row0 + r;
-    dst[r * (D + 1) + c] = gr < n ? to_float(src[(size_t)gr * D + c]) : 0.f;
-  }
-}
-
-// sum and max over the 16 threads of a half-warp (one tile row)
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o, 16));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o, 16);
-  return x;
-}
-
-// acc[i][j] = sum_d a[(4*ty + i)][d] * b[(tx + 16*j)][d] over two tiles of
-// row stride D + 1
-template <int D>
-__device__ __forceinline__ void tile_dot(float acc[4][4], const float* __restrict__ a,
-                                         const float* __restrict__ b, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(4 * ty + i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// out[i][c] += sum_k p[(4*ty + i)][k] * m[k][(tx + 16*c)]: a TILE x TILE
-// probability tile (stride PLD) times a TILE x D value tile (stride D + 1)
-template <int D>
-__device__ __forceinline__ void tile_pv(float out[4][D / 16], const float* __restrict__ p,
-                                        const float* __restrict__ m, int ty, int tx) {
-#pragma unroll 4
-  for (int k = 0; k < TILE; ++k) {
-    float pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = p[(4 * ty + i) * PLD + k];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const float mv = m[k * (D + 1) + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) out[i][c] = fmaf(pv[i], mv, out[i][c]);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t fwd_smem() { return sizeof(float) * (3 * TILE * (D + 1) + TILE * PLD); }
 // ---------------------------------------------------------------------------
-// backward helpers: swizzled tiles, cp.async, 3xTF32 mma.sync fragments
+// helpers: swizzled tiles, cp.async, 3xTF32 mma.sync fragments
 // ---------------------------------------------------------------------------
-// eight warps: warp w owns rows 16 (w % 4) .. + 15 of the block's 64 and
-// half of each product's columns, (w / 4) of two
+// backward, eight warps: warp w owns rows 16 (w % 4) .. + 15 of the block's
+// 64 and half of each product's columns, (w / 4) of two
 constexpr int KEYS_HALF = TILE / 2;   // S / dP columns a warp computes
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr size_t SMEM_MAX = 227 * 1024;   // shared memory a block may take
 constexpr size_t SMEM_SM = 228 * 1024;    // an SM's, 1 KB of it reserved per block
 
@@ -221,10 +194,26 @@ __host__ __device__ constexpr size_t dkv_smem() {
 }
 // blocks an SM holds at this much shared memory, as a launch bound (1 or 2)
 constexpr int blocks_for(size_t smem) { return 2 * (smem + 1024) <= SMEM_SM ? 2 : 1; }
+// forward: Q, the streamed K and V in big and small halves, then the stage
+template <int D>
+__host__ __device__ constexpr size_t fwd_base() {
+  return sizeof(float) * (FWD_ROWS * D + 4 * TILE * D);
+}
+template <int D, typename T>
+__host__ __device__ constexpr bool fwd_staged() {
+  return fwd_base<D>() + sizeof(float) * 2 * RAW<D, T> <= SMEM_MAX;
+}
+template <int D, typename T>
+__host__ __device__ constexpr size_t fwd_smem() {
+  return fwd_base<D>() + (fwd_staged<D, T>() ? sizeof(float) * 2 * RAW<D, T> : 0);
+}
 
 // column swizzle of row r: fragment walks along rows and along columns both
 // conflict-free; bits 0-1 stay 0, so a 4-float chunk stays contiguous
 __device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
+// the forward's V tile, read in row pairs (2t, 2t + 1) by frag_b_pairs:
+// rows 2t and rows 2t + 1 each land on four distinct 8-bank groups
+__device__ __forceinline__ int swz_pairs(int r) { return (r & 7) << 2; }
 
 template <int LD>
 __device__ __forceinline__ float ld_sw(const float* tile, int r, int c) {
@@ -270,57 +259,60 @@ __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
 }
 
 // A 64 x D tile moves as 16-byte chunks (4 float32 or 8 bfloat16 values),
-// CHUNKS a thread; chunk i of this thread sits at row r, column c.
-template <int D, typename T>
-constexpr int CHUNKS = RAW<D, T> / 4 / THREADS;
+// CHUNKS a thread of the NTH in a block; chunk i of this thread sits at row
+// r, column c.
+template <int D, typename T, int NTH = THREADS>
+constexpr int CHUNKS = RAW<D, T> / 4 / NTH;
 
-template <int D, typename T>
+template <int D, typename T, int NTH = THREADS>
 __device__ __forceinline__ void chunk_at(int i, int& r, int& c) {
   constexpr int PER = 16 / (int)sizeof(T);
-  const int e = threadIdx.x + i * THREADS;
+  const int e = threadIdx.x + i * NTH;
   r = e / (D / PER);
   c = (e % (D / PER)) * PER;
 }
 
 // this thread's chunks of rows row0 .. row0 + TILE - 1 of a (N, D) matrix,
 // unconverted (zeros past n): into registers, or by cp.async into the raw
-// stage, where chunk i of thread t sits at float 4 (t + i THREADS)
-template <int D, typename T>
-__device__ __forceinline__ void fetch_rows(float4 x[CHUNKS<D, T>], const T* src, int row0,
+// stage, where chunk i of thread t sits at float 4 (t + i NTH)
+template <int D, typename T, int NTH = THREADS>
+__device__ __forceinline__ void fetch_rows(float4 x[CHUNKS<D, T, NTH>], const T* src, int row0,
                                            int n) {
 #pragma unroll
-  for (int i = 0; i < CHUNKS<D, T>; ++i) {
+  for (int i = 0; i < CHUNKS<D, T, NTH>; ++i) {
     int r, c;
-    chunk_at<D, T>(i, r, c);
+    chunk_at<D, T, NTH>(i, r, c);
     x[i] = row0 + r < n
                ? __ldg(reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c))
                : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
-template <int D, typename T>
+template <int D, typename T, int NTH = THREADS>
 __device__ __forceinline__ void stage_rows(float* raw, const T* src, int row0, int n) {
 #pragma unroll
-  for (int i = 0; i < CHUNKS<D, T>; ++i) {
+  for (int i = 0; i < CHUNKS<D, T, NTH>; ++i) {
     int r, c;
-    chunk_at<D, T>(i, r, c);
+    chunk_at<D, T, NTH>(i, r, c);
     const int gr = row0 + r;
-    cp_async16(raw + 4 * (threadIdx.x + i * THREADS), src + (size_t)(gr < n ? gr : 0) * D + c,
+    cp_async16(raw + 4 * (threadIdx.x + i * NTH), src + (size_t)(gr < n ? gr : 0) * D + c,
                gr < n);
   }
 }
 
-// chunk i, as loaded, into swizzled tiles of row stride D: float32 split
-// into its big and small halves, bfloat16 widened (exact in TF32: big only)
-template <int D, typename T>
+// chunk i, as loaded, into swizzled tiles of row stride D (swz, or
+// swz_pairs when PAIRED): float32 split into its big and small halves,
+// bfloat16 widened (exact in TF32: big only)
+template <int D, typename T, int NTH = THREADS, bool PAIRED = false>
 __device__ __forceinline__ void put_chunk(float4 x, int i, float* big, float* small) {
   int r, c;
-  chunk_at<D, T>(i, r, c);
+  chunk_at<D, T, NTH>(i, r, c);
+  const int sw = PAIRED ? swz_pairs(r) : swz(r);
   if constexpr (sizeof(T) == 2) {
     const uint32_t u[4] = {__float_as_uint(x.x), __float_as_uint(x.y), __float_as_uint(x.z),
                            __float_as_uint(x.w)};
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float4*>(big + r * D + ((c + 4 * h) ^ swz(r))) = make_float4(
+      *reinterpret_cast<float4*>(big + r * D + ((c + 4 * h) ^ sw)) = make_float4(
           __uint_as_float(u[2 * h] << 16), __uint_as_float(u[2 * h] & 0xffff0000u),
           __uint_as_float(u[2 * h + 1] << 16), __uint_as_float(u[2 * h + 1] & 0xffff0000u));
   } else {
@@ -329,43 +321,45 @@ __device__ __forceinline__ void put_chunk(float4 x, int i, float* big, float* sm
     split<false>(x.y, b[1], sm[1]);
     split<false>(x.z, b[2], sm[2]);
     split<false>(x.w, b[3], sm[3]);
-    const int o = r * D + (c ^ swz(r));
+    const int o = r * D + (c ^ sw);
     *reinterpret_cast<uint4*>(big + o) = make_uint4(b[0], b[1], b[2], b[3]);
     *reinterpret_cast<uint4*>(small + o) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
   }
 }
-template <int D, typename T>
-__device__ __forceinline__ void put_rows(const float4 x[CHUNKS<D, T>], float* big, float* small) {
+template <int D, typename T, int NTH = THREADS, bool PAIRED = false>
+__device__ __forceinline__ void put_rows(const float4 x[CHUNKS<D, T, NTH>], float* big,
+                                         float* small) {
 #pragma unroll
-  for (int i = 0; i < CHUNKS<D, T>; ++i) put_chunk<D, T>(x[i], i, big, small);
+  for (int i = 0; i < CHUNKS<D, T, NTH>; ++i) put_chunk<D, T, NTH, PAIRED>(x[i], i, big, small);
 }
 // the thread's own chunks of the raw stage (its cp.async copies, visible to
 // it after cp_async_wait_all) into split tiles
-template <int D, typename T>
+template <int D, typename T, int NTH = THREADS, bool PAIRED = false>
 __device__ __forceinline__ void put_staged(const float* raw, float* big, float* small) {
 #pragma unroll
-  for (int i = 0; i < CHUNKS<D, T>; ++i)
-    put_chunk<D, T>(*reinterpret_cast<const float4*>(raw + 4 * (threadIdx.x + i * THREADS)), i,
-                    big, small);
+  for (int i = 0; i < CHUNKS<D, T, NTH>; ++i)
+    put_chunk<D, T, NTH, PAIRED>(
+        *reinterpret_cast<const float4*>(raw + 4 * (threadIdx.x + i * NTH)), i, big, small);
 }
 
-// a resident tile (Q, dO for dq; K, V for dk/dv): float32 by cp.async
-// straight into the swizzled tile (split later, at fragment load; waited
-// for with cp_async_wait_all), bfloat16 through registers, widened
-template <int D, typename T>
+// a resident tile (Q, dO for dq; K, V for dk/dv; Q for the forward):
+// float32 by cp.async straight into the swizzled tile (split later, at
+// fragment load; waited for with cp_async_wait_all), bfloat16 through
+// registers, widened
+template <int D, typename T, int NTH = THREADS>
 __device__ __forceinline__ void load_resident(float* tile, const T* src, int row0, int n) {
   if constexpr (sizeof(T) == 4) {
 #pragma unroll
-    for (int i = 0; i < CHUNKS<D, T>; ++i) {
+    for (int i = 0; i < CHUNKS<D, T, NTH>; ++i) {
       int r, c;
-      chunk_at<D, T>(i, r, c);
+      chunk_at<D, T, NTH>(i, r, c);
       const int gr = row0 + r;
       cp_async16(tile + r * D + (c ^ swz(r)), src + (size_t)(gr < n ? gr : 0) * D + c, gr < n);
     }
   } else {
-    float4 x[CHUNKS<D, T>];
-    fetch_rows<D, T>(x, src, row0, n);
-    put_rows<D, T>(x, tile, nullptr);
+    float4 x[CHUNKS<D, T, NTH>];
+    fetch_rows<D, T, NTH>(x, src, row0, n);
+    put_rows<D, T, NTH>(x, tile, nullptr);
   }
 }
 
@@ -440,10 +434,42 @@ __device__ __forceinline__ void frag_b_cols(uint32_t big[2], uint32_t small[2], 
   }
 }
 
+// B, 8 x 8, of a product with the tile whose k8 step takes its rows in
+// the order k0, k0 + 2, k0 + 4, k0 + 6, k0 + 1, k0 + 3, k0 + 5, k0 + 7
+// (B[k][j] = tile[k0 + 2k][n0 + j] and B[k + 4][j] = tile[k0 + 2k + 1][n0 + j],
+// k < 4): the order of an A fragment taken straight from an accumulator,
+// whose thread holds columns 2t and 2t + 1 (see the forward); a tile
+// swizzled by swz_pairs
+template <int LD, bool EXACT>
+__device__ __forceinline__ void frag_b_pairs(uint32_t big[2], uint32_t small[2], const float* tb,
+                                             const float* ts, int k0, int n0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3, r = k0 + 2 * t;
+  const int o0 = r * LD + ((n0 + g) ^ swz_pairs(r));
+  const int o1 = (r + 1) * LD + ((n0 + g) ^ swz_pairs(r + 1));
+  big[0] = __float_as_uint(tb[o0]);
+  big[1] = __float_as_uint(tb[o1]);
+  if constexpr (!EXACT) {
+    small[0] = __float_as_uint(ts[o0]);
+    small[1] = __float_as_uint(ts[o1]);
+  }
+}
+
 // c[j] = rows r0 .. r0 + 15 of a times rows n0 + 8j .. n0 + 8j + 7 of b
 // (given as its split halves), transposed, j < NT: a warp's 16 x 8NT block
 // of a . b^T over D (accumulator layout: c[j][2h + e] is row r0 + g + 8h,
-// column n0 + 8j + 2t + e)
+// column n0 + 8j + 2t + e); abt_step is its k8 step kk
+template <int D, bool EXACT, int NT>
+__device__ __forceinline__ void abt_step(float c[NT][4], const float* a, const float* bb_tile,
+                                         const float* bs_tile, int r0, int n0, int kk) {
+  uint32_t ab[4], as[4];
+  frag_a<D, EXACT>(ab, as, a, r0, 8 * kk);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t bb[2], bs[2];
+    frag_b_rows<D, EXACT>(bb, bs, bb_tile, bs_tile, n0 + 8 * j, 8 * kk);
+    mma3<EXACT, EXACT>(c[j], ab, as, bb, bs);
+  }
+}
 template <int D, bool EXACT, int NT>
 __device__ __forceinline__ void strip_abt(float c[NT][4], const float* a, const float* bb_tile,
                                           const float* bs_tile, int r0, int n0) {
@@ -452,16 +478,7 @@ __device__ __forceinline__ void strip_abt(float c[NT][4], const float* a, const 
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    uint32_t ab[4], as[4];
-    frag_a<D, EXACT>(ab, as, a, r0, 8 * kk);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t bb[2], bs[2];
-      frag_b_rows<D, EXACT>(bb, bs, bb_tile, bs_tile, n0 + 8 * j, 8 * kk);
-      mma3<EXACT, EXACT>(c[j], ab, as, bb, bs);
-    }
-  }
+  for (int kk = 0; kk < D / 8; ++kk) abt_step<D, EXACT, NT>(c, a, bb_tile, bs_tile, r0, n0, kk);
 }
 
 // acc[nd] += rows r0 .. r0 + 15 of the block's 64 x 64 P or dS tile
@@ -511,73 +528,159 @@ template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16*
 }
 
 // ---------------------------------------------------------------------------
-// forward: out = softmax(q k^T * scale) v, lse = logsumexp of each row
+// forward: out = softmax(q k^T * scale) v, lse = logsumexp of each row.
+// Block: FWD_ROWS query rows, resident; K and V streamed (through the stage
+// where it fits) and split.  Warp w computes S, P and the output of rows
+// 16w .. 16w + 15 over all 64 keys of a tile and all D columns.
 // ---------------------------------------------------------------------------
 template <int D, typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(FWD_THREADS, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ lse, int n, float scale) {
+  constexpr bool EXACT = sizeof(T) == 2;   // bfloat16 operands are exact in TF32
+  constexpr bool STAGED = fwd_staged<D, T>();
+  constexpr int NS = TILE / 8, ND = D / 8;
+  const float scale2 = scale * LOG2E;
   extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sK = sQ + TILE * (D + 1);
-  float* sV = sK + TILE * (D + 1);
-  float* sP = sV + TILE * (D + 1);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q0 = blockIdx.x * TILE;
+  float* sQ = smem;                    // FWD_ROWS x D
+  float* sKb = sQ + FWD_ROWS * D;      // K and V, big and small halves
+  float* sKs = sKb + TILE * D;
+  float* sVb = sKs + TILE * D;         // (swizzled by swz_pairs)
+  float* sVs = sVb + TILE * D;
+  float* sRaw = sVs + TILE * D;        // stage: raw K, V of the next tile
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int r0 = 16 * warp;
+  const int q0 = blockIdx.x * FWD_ROWS;
   const size_t base = (size_t)blockIdx.y * n * D;
 
-  load_tile<D>(sQ, q + base, q0, n);
-  float m[4], l[4], acc[4][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+  for (int h = 0; h < FWD_ROWS / TILE; ++h)   // swz(r) depends on r % 8 only
+    load_resident<D, T, FWD_THREADS>(sQ + h * TILE * D, q + base, q0 + h * TILE, n);
+  if constexpr (STAGED) {
+    stage_rows<D, T, FWD_THREADS>(sRaw, k + base, 0, n);
+    stage_rows<D, T, FWD_THREADS>(sRaw + RAW<D, T>, v + base, 0, n);
   }
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < n; k0 += TILE) {
-    __syncthreads();   // the previous tile's readers are done
-    load_tile<D>(sK, k + base, k0, n);
-    load_tile<D>(sV, v + base, k0, n);
-    __syncthreads();
-    float s[4][4];
-    tile_dot<D>(s, sQ, sK, ty, tx);
+  // rows r0 + g + 8h: running max of the logits (log2 units), this thread's
+  // share of the running sum, and the output in accumulator layout
+  // (acc[nd][2h + e] is column 8nd + 2t + e)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[ND][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
+  for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = (k0 + tx + 16 * j < n) ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  const int tiles = (n + TILE - 1) / TILE;
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * TILE;
+    if constexpr (STAGED) {
+      cp_async_wait_all();
+      __syncthreads();   // every warp is done with tile it - 1; Q is in
+      put_staged<D, T, FWD_THREADS>(sRaw, sKb, sKs);
+      put_staged<D, T, FWD_THREADS, true>(sRaw + RAW<D, T>, sVb, sVs);
+      __syncthreads();
+      if (it + 1 < tiles) {   // tile it + 1 streams in while tile it computes
+        stage_rows<D, T, FWD_THREADS>(sRaw, k + base, k0 + TILE, n);
+        stage_rows<D, T, FWD_THREADS>(sRaw + RAW<D, T>, v + base, k0 + TILE, n);
+        cp_async_commit();
       }
-      const float m_new = fmaxf(m[i], row_max(mx));   // finite: the tile holds a key
-      const float alpha = expf(m[i] - m_new);         // 0 on the first tile
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);        // 0 for masked keys
-        sP[(4 * ty + i) * PLD + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = alpha * l[i] + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
+    } else {
+      float4 xk[CHUNKS<D, T, FWD_THREADS>], xv[CHUNKS<D, T, FWD_THREADS>];
+      fetch_rows<D, T, FWD_THREADS>(xk, k + base, k0, n);
+      fetch_rows<D, T, FWD_THREADS>(xv, v + base, k0, n);
+      __syncthreads();   // every warp is done with tile it - 1
+      put_rows<D, T, FWD_THREADS>(xk, sKb, sKs);
+      put_rows<D, T, FWD_THREADS, true>(xv, sVb, sVs);
+      cp_async_wait_all();
+      __syncthreads();
     }
-    __syncthreads();
-    tile_pv<D>(acc, sP, sV, ty, tx);
+
+    // S: s[j][2h + e] is row r0 + g + 8h, key k0 + 8j + 2t + e; scaled to
+    // log2 units, keys past n at -inf
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    // two k8 steps an iteration: unrolled in full, the fragment loads run
+    // ahead and push the kernel past 255 registers at D = 64
+#pragma unroll 2
+    for (int kk = 0; kk < D / 8; ++kk) abt_step<D, EXACT, NS>(s, sQ, sKb, sKs, r0, 0, kk);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = k0 + 8 * j + 2 * t + (e & 1) < n ? s[j][e] * scale2 : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {   // a row lives in one quad of lanes
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);   // finite: the tile holds a key
+      alpha[h] = exp2f(m[h] - m_new);           // 0 on the first tile
+      m[h] = m_new;
+    }
+    float tile_sum[2] = {0.f, 0.f};   // summed a tile at a time: a shorter chain
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m[e >> 1]);   // P; 0 for keys past n
+        tile_sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + tile_sum[h];
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e >> 1];
+
+    // acc += P V, two k8 steps a partial.  P's A fragment of step j is
+    // s[j] as it stands, its keys taken in the order frag_b_pairs reads V.
+#pragma unroll
+    for (int j2 = 0; j2 < NS; j2 += 2) {
+      uint32_t pb[2][4], ps[2][4];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        split<false>(s[j2 + c][0], pb[c][0], ps[c][0]);   // (g, key 2t)
+        split<false>(s[j2 + c][2], pb[c][1], ps[c][1]);   // (g + 8, key 2t)
+        split<false>(s[j2 + c][1], pb[c][2], ps[c][2]);   // (g, key 2t + 1)
+        split<false>(s[j2 + c][3], pb[c][3], ps[c][3]);   // (g + 8, key 2t + 1)
+      }
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          uint32_t bb[2], bs[2];
+          frag_b_pairs<D, EXACT>(bb, bs, sVb, sVs, 8 * (j2 + c), 8 * nd);
+          mma3_into<false, EXACT>(part, pb[c], ps[c], bb, bs);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] += part[e];
+      }
+    }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + 4 * ty + i;
-    if (r >= n) continue;
-    const float inv = 1.f / l[i];
+  for (int h = 0; h < 2; ++h) {   // the quad's shares of the sum
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c)
-      out[base + (size_t)r * D + tx + 16 * c] = from_float<T>(acc[i][c] * inv);
-    if (tx == 0) lse[(size_t)blockIdx.y * n + r] = m[i] + logf(l[i]);
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + r0 + g + 8 * h;
+    if (r >= n) continue;
+    const float inv = 1.f / l[h];
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+      store2<T>(out + base + (size_t)r * D + 8 * nd + 2 * t, acc[nd][2 * h] * inv,
+                acc[nd][2 * h + 1] * inv);
+    if (t == 0) lse[(size_t)blockIdx.y * n + r] = m[h] * LN2 + logf(l[h]);
   }
 }
 
@@ -834,9 +937,10 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// the backward: one block per (head, 64 rows)
 dim3 grid_for(int bh, int n) { return dim3((unsigned)((n + TILE - 1) / TILE), (unsigned)bh); }
 
-// the backward's tile copies move 16 bytes a thread
+// the tile copies move 16 bytes a thread
 bool aligned16(const void* a, const void* b, const void* c, const void* d) {
   return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c | (uintptr_t)d) & 15u) == 0;
 }
@@ -844,10 +948,12 @@ bool aligned16(const void* a, const void* b, const void* c, const void* d) {
 template <int D, typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
                int n, cudaStream_t stream) {
-  const size_t smem = fwd_smem<D>();
+  if (!aligned16(q, k, v, out)) return (int)cudaErrorMisalignedAddress;
+  const size_t smem = fwd_smem<D, T>();
   cudaError_t err = prepare(flash_fwd_kernel<D, T>, smem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<D, T><<<grid_for(bh, n), THREADS, smem, stream>>>(
+  const dim3 grid((unsigned)((n + FWD_ROWS - 1) / FWD_ROWS), (unsigned)bh);
+  flash_fwd_kernel<D, T><<<grid, FWD_THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, n, 1.f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }

@@ -14,10 +14,12 @@ Kernels (``csrc/flash_attention.cu``):
 * ``flash_bwd_dq`` replaces ``_bwd_dq_kernel``: ``dQ``;
 * ``flash_bwd_dkv`` replaces ``_bwd_dkv_kernel``: ``dK`` and ``dV``.
 
-The forward runs float32 FMAs; the two backward kernels run their products
-on the tensor cores as 3xTF32 (each float32 operand split into two TF32
-halves, three products), which keeps the float32 result within the same
-float64 criterion as the plain version (``chip_smoke.py`` phase 10).
+All three kernels run their products on the tensor cores as 3xTF32 (each
+float32 operand split into two TF32 halves, three products), which keeps
+the float32 result within the same float64 criterion as the plain version
+(``chip_smoke.py`` phase 10).  For bfloat16 inputs the forward, like
+:func:`flash_forward_plain`, keeps the probabilities in float32 for P.V,
+where the JAX kernel rounds them to bfloat16 (``:80-81``).
 
 ``delta`` is computed in torch, as the JAX package computes it outside its
 kernels (``:233-234``).  The TPU kernels' block sizes and interpret mode are

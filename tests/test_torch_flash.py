@@ -2,8 +2,8 @@
 function (its plain versions, which the CUDA kernels repeat) against the
 JAX Pallas kernels in interpret mode, at the JAX tests' shapes and
 tolerances (``tests/test_flash_attention.py``), plus the wrapper's operand
-checks and the backward kernels' 3xTF32 numeric scheme (emulated here)
-against float64."""
+checks and the kernels' 3xTF32 numeric scheme, forward and backward
+(emulated here), against float64."""
 
 import jax
 import jax.numpy as jnp
@@ -148,7 +148,7 @@ def test_kernel_operand_checks(case, exc, match):
 
 
 # ---------------------------------------------------------------------------
-# the backward kernels' numeric scheme: 3xTF32 products on the tensor cores
+# the kernels' numeric scheme: 3xTF32 products on the tensor cores
 # ---------------------------------------------------------------------------
 
 def _rna_tf32(x):
@@ -230,6 +230,59 @@ def test_single_tf32_backward_misses_the_f32_criterion():
     """One TF32 product per matmul (11 significant bits) is far outside it:
     the split is needed."""
     margins = _scheme_margins(_mm_tf32, 8, 144, 64, seed=6)
+    assert min(margins) > 10.0, margins
+
+
+def _forward_with(mm, q, k, v):
+    """The forward kernel's loop head by head, every product through ``mm``:
+    64-key tiles, a running max in log2 units, the alpha rescale of the sum
+    and the output, P = 2^(S scale log2 e - m); ``(out, lse)`` with
+    lse = m ln 2 + ln l."""
+    log2e = np.float32(1.4426950408889634)
+    scale2 = np.float32(1.0 / np.sqrt(q.shape[-1])) * log2e
+    outs, lses = [], []
+    for b in range(q.shape[0]):
+        n = q.shape[1]
+        m = np.full(n, -np.inf, np.float32)
+        l = np.zeros(n, np.float32)
+        acc = np.zeros((n, q.shape[-1]), np.float32)
+        for k0 in range(0, n, 64):
+            s = mm(q[b], np.ascontiguousarray(k[b, k0:k0 + 64].T)) * scale2
+            m_new = np.maximum(m, s.max(-1))
+            alpha = np.exp2(m - m_new)
+            p = np.exp2(s - m_new[:, None])
+            l = alpha * l + p.sum(-1)
+            acc = alpha[:, None] * acc + mm(p, v[b, k0:k0 + 64])
+            m = m_new
+        outs.append(acc / l[:, None])
+        lses.append(m * np.float32(0.6931471805599453) + np.log(l))
+    return np.stack(outs), np.stack(lses)
+
+
+def _forward_margins(mm, bh, n, d, seed):
+    """error / limit of out and lse under the kernels' criterion."""
+    q, k, v = _inputs(bh, n, d, seed=seed, count=3)
+    plain = [x.numpy() for x in tfa.flash_forward_plain(*map(torch.from_numpy, (q, k, v)))]
+    got = _forward_with(mm, q, k, v)
+    s = np.einsum("bqd,bkd->bqk", q.astype(np.float64), k.astype(np.float64)) / np.sqrt(d)
+    lse = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
+    truth = (np.einsum("bqk,bkd->bqd", np.exp(s - lse[..., None]), v.astype(np.float64)), lse)
+    return [np.abs(x - t).max() / (2 * np.abs(pl - t).max() + 1e-6 * np.abs(t).max())
+            for x, pl, t in zip(got, plain, truth)]
+
+
+@pytest.mark.parametrize("bh,n,d", [(2, 200, 32), (8, 144, 64)])
+def test_3xtf32_forward_meets_the_f32_criterion(bh, n, d):
+    """3xTF32 products with the forward kernel's online softmax keep out and
+    lse within the criterion the CUDA kernel is held to on the card (the
+    ragged last key tile included at N = 200)."""
+    margins = _forward_margins(_mm_3xtf32, bh, n, d, seed=7)
+    assert max(margins) <= 1.0, margins
+
+
+def test_single_tf32_forward_misses_the_f32_criterion():
+    """One TF32 product per matmul puts out and lse far outside it."""
+    margins = _forward_margins(_mm_tf32, 8, 144, 64, seed=7)
     assert min(margins) > 10.0, margins
 
 
