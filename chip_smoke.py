@@ -280,24 +280,6 @@ def hmma_counts(path) -> dict:
     return counts
 
 
-def ptxas_lines(report: str, hmma: dict) -> list[str]:
-    """One line per kernel instantiation of an ``nvcc -Xptxas -v`` report:
-    registers, spills and, where ``hmma`` counts them, tensor-core
-    instructions."""
-    lines, kernel, spill = [], None, ""
-    for line in report.splitlines():
-        if "Function properties" in line and kernel_label(line):
-            kernel = kernel_label(line)
-        elif "spill stores" in line:
-            spill = re.sub(r"\s+", " ", line.strip())
-        elif "registers" in line and kernel:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            tc = f", {hmma[kernel]} HMMA" if kernel in hmma else ""
-            lines.append(f"{kernel}: {regs} registers, {spill}{tc}")
-            kernel = None
-    return lines
-
-
 def phase_build():
     names = sorted(p.stem for p in cuda_build.CSRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
@@ -308,8 +290,17 @@ def phase_build():
     # and for the flash kernels their tensor-core instructions
     flash_hmma = hmma_counts(cuda_build.library_path("flash_attention"))
     for name in names:
-        for line in ptxas_lines(cuda_build.build_logs.get(name, ""), flash_hmma):
-            log(f"[build] {name}: {line}")
+        kernel, spill = None, ""
+        for line in cuda_build.build_logs.get(name, "").splitlines():
+            if "Function properties" in line and kernel_label(line):
+                kernel = kernel_label(line)
+            elif "spill stores" in line:
+                spill = re.sub(r"\s+", " ", line.strip())
+            elif "registers" in line and kernel:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                tc = f", {flash_hmma[kernel]} HMMA" if kernel in flash_hmma else ""
+                log(f"[build] {name}: {kernel}: {regs} registers, {spill}{tc}")
+                kernel = None
     no_tc = [k for k, v in flash_hmma.items() if v == 0]
     kinds = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     if no_tc or not all(any(k.startswith(p) for k in flash_hmma) for p in kinds):

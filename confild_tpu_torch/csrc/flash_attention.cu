@@ -56,18 +56,17 @@
 //     Beside the products the loop splits K, V and P (two integer
 //     operations and a subtract a value), adds the partials, rescales the
 //     output, and waits on mma chains and two barriers a key tile.
-//   * Eight warps over 128 query rows (a build-time choice,
-//     FLASH_FWD_WARPS; four warps over 64 rows, the alternative, was
-//     slower at every shape tools/flash_fwd_tiling.py times): warp w
-//     owns rows 16 w .. 16 w + 15 and all 64 keys of each tile, so a row's
-//     max and sum stay in one quad of lanes (two shuffles) and the softmax
-//     needs no barrier between warps.  The warp's 16 x D output block stays
-//     in registers across the loop, rescaled by alpha = 2^(m_old - m_new)
+//   * Eight warps over 128 query rows (four warps over 64 rows, the
+//     alternative, was slower at every shape timed): warp w owns rows
+//     16 w .. 16 w + 15 and all 64 keys of each tile, so a row's max and
+//     sum stay in one quad of lanes (two shuffles) and the softmax needs no
+//     barrier between warps.  The warp's 16 x D output block stays in
+//     registers across the loop, rescaled by alpha = 2^(m_old - m_new)
 //     before each tile's P.V; the running sum is kept per thread, a tile's
 //     16 values summed before they join it (a sequential float32 sum of
 //     every value read lse at 0.20 of the limit at 16384 tokens), and
-//     summed over the quad once at the end.  Logits are scaled by scale * log2 e,
-//     so P = exp2(s - m) and lse = m ln 2 + ln l.
+//     summed over the quad once at the end.  Logits are scaled by
+//     scale * log2 e, so P = exp2(s - m) and lse = m ln 2 + ln l.
 //   * P never leaves registers.  The accumulator of S gives a thread keys
 //     2t, 2t + 1 of each k8 step where the A fragment of P.V wants keys t,
 //     t + 4; a product's sum does not depend on the order of its k index,
@@ -134,18 +133,9 @@
 namespace {
 
 constexpr int TILE = 64;       // keys (and backward rows) per tile
-constexpr int THREADS = 256;   // backward: 8 warps
-
-// forward: FWD_WARPS warps, each owning 16 query rows and all 64 keys of a
-// tile; 8 over 128 rows, or 4 over 64 rows when built with
-// -DFLASH_FWD_WARPS=4 (the tiling the design rejected, kept measurable)
-#ifndef FLASH_FWD_WARPS
-#define FLASH_FWD_WARPS 8
-#endif
-constexpr int FWD_WARPS = FLASH_FWD_WARPS;
-static_assert(FWD_WARPS == 4 || FWD_WARPS == 8, "the forward tiles 64 or 128 query rows");
-constexpr int FWD_THREADS = 32 * FWD_WARPS;
-constexpr int FWD_ROWS = 16 * FWD_WARPS;
+constexpr int THREADS = 256;   // 8 warps
+// forward: query rows a block, 16 a warp, each warp over all 64 keys of a tile
+constexpr int FWD_ROWS = 128;
 
 // ---------------------------------------------------------------------------
 // helpers: swizzled tiles, cp.async, 3xTF32 mma.sync fragments
@@ -259,42 +249,41 @@ __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
 }
 
 // A 64 x D tile moves as 16-byte chunks (4 float32 or 8 bfloat16 values),
-// CHUNKS a thread of the NTH in a block; chunk i of this thread sits at row
-// r, column c.
-template <int D, typename T, int NTH = THREADS>
-constexpr int CHUNKS = RAW<D, T> / 4 / NTH;
+// CHUNKS a thread; chunk i of this thread sits at row r, column c.
+template <int D, typename T>
+constexpr int CHUNKS = RAW<D, T> / 4 / THREADS;
 
-template <int D, typename T, int NTH = THREADS>
+template <int D, typename T>
 __device__ __forceinline__ void chunk_at(int i, int& r, int& c) {
   constexpr int PER = 16 / (int)sizeof(T);
-  const int e = threadIdx.x + i * NTH;
+  const int e = threadIdx.x + i * THREADS;
   r = e / (D / PER);
   c = (e % (D / PER)) * PER;
 }
 
 // this thread's chunks of rows row0 .. row0 + TILE - 1 of a (N, D) matrix,
 // unconverted (zeros past n): into registers, or by cp.async into the raw
-// stage, where chunk i of thread t sits at float 4 (t + i NTH)
-template <int D, typename T, int NTH = THREADS>
-__device__ __forceinline__ void fetch_rows(float4 x[CHUNKS<D, T, NTH>], const T* src, int row0,
+// stage, where chunk i of thread t sits at float 4 (t + i THREADS)
+template <int D, typename T>
+__device__ __forceinline__ void fetch_rows(float4 x[CHUNKS<D, T>], const T* src, int row0,
                                            int n) {
 #pragma unroll
-  for (int i = 0; i < CHUNKS<D, T, NTH>; ++i) {
+  for (int i = 0; i < CHUNKS<D, T>; ++i) {
     int r, c;
-    chunk_at<D, T, NTH>(i, r, c);
+    chunk_at<D, T>(i, r, c);
     x[i] = row0 + r < n
                ? __ldg(reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c))
                : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
-template <int D, typename T, int NTH = THREADS>
+template <int D, typename T>
 __device__ __forceinline__ void stage_rows(float* raw, const T* src, int row0, int n) {
 #pragma unroll
-  for (int i = 0; i < CHUNKS<D, T, NTH>; ++i) {
+  for (int i = 0; i < CHUNKS<D, T>; ++i) {
     int r, c;
-    chunk_at<D, T, NTH>(i, r, c);
+    chunk_at<D, T>(i, r, c);
     const int gr = row0 + r;
-    cp_async16(raw + 4 * (threadIdx.x + i * NTH), src + (size_t)(gr < n ? gr : 0) * D + c,
+    cp_async16(raw + 4 * (threadIdx.x + i * THREADS), src + (size_t)(gr < n ? gr : 0) * D + c,
                gr < n);
   }
 }
@@ -302,10 +291,10 @@ __device__ __forceinline__ void stage_rows(float* raw, const T* src, int row0, i
 // chunk i, as loaded, into swizzled tiles of row stride D (swz, or
 // swz_pairs when PAIRED): float32 split into its big and small halves,
 // bfloat16 widened (exact in TF32: big only)
-template <int D, typename T, int NTH = THREADS, bool PAIRED = false>
+template <int D, typename T, bool PAIRED = false>
 __device__ __forceinline__ void put_chunk(float4 x, int i, float* big, float* small) {
   int r, c;
-  chunk_at<D, T, NTH>(i, r, c);
+  chunk_at<D, T>(i, r, c);
   const int sw = PAIRED ? swz_pairs(r) : swz(r);
   if constexpr (sizeof(T) == 2) {
     const uint32_t u[4] = {__float_as_uint(x.x), __float_as_uint(x.y), __float_as_uint(x.z),
@@ -326,40 +315,40 @@ __device__ __forceinline__ void put_chunk(float4 x, int i, float* big, float* sm
     *reinterpret_cast<uint4*>(small + o) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
   }
 }
-template <int D, typename T, int NTH = THREADS, bool PAIRED = false>
-__device__ __forceinline__ void put_rows(const float4 x[CHUNKS<D, T, NTH>], float* big,
+template <int D, typename T, bool PAIRED = false>
+__device__ __forceinline__ void put_rows(const float4 x[CHUNKS<D, T>], float* big,
                                          float* small) {
 #pragma unroll
-  for (int i = 0; i < CHUNKS<D, T, NTH>; ++i) put_chunk<D, T, NTH, PAIRED>(x[i], i, big, small);
+  for (int i = 0; i < CHUNKS<D, T>; ++i) put_chunk<D, T, PAIRED>(x[i], i, big, small);
 }
 // the thread's own chunks of the raw stage (its cp.async copies, visible to
 // it after cp_async_wait_all) into split tiles
-template <int D, typename T, int NTH = THREADS, bool PAIRED = false>
+template <int D, typename T, bool PAIRED = false>
 __device__ __forceinline__ void put_staged(const float* raw, float* big, float* small) {
 #pragma unroll
-  for (int i = 0; i < CHUNKS<D, T, NTH>; ++i)
-    put_chunk<D, T, NTH, PAIRED>(
-        *reinterpret_cast<const float4*>(raw + 4 * (threadIdx.x + i * NTH)), i, big, small);
+  for (int i = 0; i < CHUNKS<D, T>; ++i)
+    put_chunk<D, T, PAIRED>(
+        *reinterpret_cast<const float4*>(raw + 4 * (threadIdx.x + i * THREADS)), i, big, small);
 }
 
 // a resident tile (Q, dO for dq; K, V for dk/dv; Q for the forward):
 // float32 by cp.async straight into the swizzled tile (split later, at
 // fragment load; waited for with cp_async_wait_all), bfloat16 through
 // registers, widened
-template <int D, typename T, int NTH = THREADS>
+template <int D, typename T>
 __device__ __forceinline__ void load_resident(float* tile, const T* src, int row0, int n) {
   if constexpr (sizeof(T) == 4) {
 #pragma unroll
-    for (int i = 0; i < CHUNKS<D, T, NTH>; ++i) {
+    for (int i = 0; i < CHUNKS<D, T>; ++i) {
       int r, c;
-      chunk_at<D, T, NTH>(i, r, c);
+      chunk_at<D, T>(i, r, c);
       const int gr = row0 + r;
       cp_async16(tile + r * D + (c ^ swz(r)), src + (size_t)(gr < n ? gr : 0) * D + c, gr < n);
     }
   } else {
-    float4 x[CHUNKS<D, T, NTH>];
-    fetch_rows<D, T, NTH>(x, src, row0, n);
-    put_rows<D, T, NTH>(x, tile, nullptr);
+    float4 x[CHUNKS<D, T>];
+    fetch_rows<D, T>(x, src, row0, n);
+    put_rows<D, T>(x, tile, nullptr);
   }
 }
 
@@ -529,12 +518,12 @@ template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16*
 
 // ---------------------------------------------------------------------------
 // forward: out = softmax(q k^T * scale) v, lse = logsumexp of each row.
-// Block: FWD_ROWS query rows, resident; K and V streamed (through the stage
+// Block: 128 query rows (FWD_ROWS), resident; K and V streamed (through the stage
 // where it fits) and split.  Warp w computes S, P and the output of rows
 // 16w .. 16w + 15 over all 64 keys of a tile and all D columns.
 // ---------------------------------------------------------------------------
 template <int D, typename T>
-__global__ void __launch_bounds__(FWD_THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ lse, int n, float scale) {
   constexpr bool EXACT = sizeof(T) == 2;   // bfloat16 operands are exact in TF32
@@ -555,10 +544,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 #pragma unroll
   for (int h = 0; h < FWD_ROWS / TILE; ++h)   // swz(r) depends on r % 8 only
-    load_resident<D, T, FWD_THREADS>(sQ + h * TILE * D, q + base, q0 + h * TILE, n);
+    load_resident<D, T>(sQ + h * TILE * D, q + base, q0 + h * TILE, n);
   if constexpr (STAGED) {
-    stage_rows<D, T, FWD_THREADS>(sRaw, k + base, 0, n);
-    stage_rows<D, T, FWD_THREADS>(sRaw + RAW<D, T>, v + base, 0, n);
+    stage_rows<D, T>(sRaw, k + base, 0, n);
+    stage_rows<D, T>(sRaw + RAW<D, T>, v + base, 0, n);
   }
   cp_async_commit();
 
@@ -577,21 +566,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if constexpr (STAGED) {
       cp_async_wait_all();
       __syncthreads();   // every warp is done with tile it - 1; Q is in
-      put_staged<D, T, FWD_THREADS>(sRaw, sKb, sKs);
-      put_staged<D, T, FWD_THREADS, true>(sRaw + RAW<D, T>, sVb, sVs);
+      put_staged<D, T>(sRaw, sKb, sKs);
+      put_staged<D, T, true>(sRaw + RAW<D, T>, sVb, sVs);
       __syncthreads();
       if (it + 1 < tiles) {   // tile it + 1 streams in while tile it computes
-        stage_rows<D, T, FWD_THREADS>(sRaw, k + base, k0 + TILE, n);
-        stage_rows<D, T, FWD_THREADS>(sRaw + RAW<D, T>, v + base, k0 + TILE, n);
+        stage_rows<D, T>(sRaw, k + base, k0 + TILE, n);
+        stage_rows<D, T>(sRaw + RAW<D, T>, v + base, k0 + TILE, n);
         cp_async_commit();
       }
     } else {
-      float4 xk[CHUNKS<D, T, FWD_THREADS>], xv[CHUNKS<D, T, FWD_THREADS>];
-      fetch_rows<D, T, FWD_THREADS>(xk, k + base, k0, n);
-      fetch_rows<D, T, FWD_THREADS>(xv, v + base, k0, n);
+      float4 xk[CHUNKS<D, T>], xv[CHUNKS<D, T>];
+      fetch_rows<D, T>(xk, k + base, k0, n);
+      fetch_rows<D, T>(xv, v + base, k0, n);
       __syncthreads();   // every warp is done with tile it - 1
-      put_rows<D, T, FWD_THREADS>(xk, sKb, sKs);
-      put_rows<D, T, FWD_THREADS, true>(xv, sVb, sVs);
+      put_rows<D, T>(xk, sKb, sKs);
+      put_rows<D, T, true>(xv, sVb, sVs);
       cp_async_wait_all();
       __syncthreads();
     }
@@ -953,7 +942,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, float* ls
   cudaError_t err = prepare(flash_fwd_kernel<D, T>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((n + FWD_ROWS - 1) / FWD_ROWS), (unsigned)bh);
-  flash_fwd_kernel<D, T><<<grid, FWD_THREADS, smem, stream>>>(
+  flash_fwd_kernel<D, T><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, n, 1.f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }

@@ -237,23 +237,34 @@ def _forward_with(mm, q, k, v):
     """The forward kernel's loop head by head, every product through ``mm``:
     64-key tiles, a running max in log2 units, the alpha rescale of the sum
     and the output, P = 2^(S scale log2 e - m); ``(out, lse)`` with
-    lse = m ln 2 + ln l."""
+    lse = m ln 2 + ln l.  The sum l is kept as the kernel keeps it: lane t
+    of a row's quad holds keys 8j + 2t + e (j < 8, e < 2) of each tile, adds
+    those 16 in order into a tile sum, adds that into its own running sum,
+    and the four lanes' sums are added pairwise at the end, all in float32."""
     log2e = np.float32(1.4426950408889634)
     scale2 = np.float32(1.0 / np.sqrt(q.shape[-1])) * log2e
     outs, lses = [], []
     for b in range(q.shape[0]):
         n = q.shape[1]
         m = np.full(n, -np.inf, np.float32)
-        l = np.zeros(n, np.float32)
+        lanes = np.zeros((n, 4), np.float32)
         acc = np.zeros((n, q.shape[-1]), np.float32)
         for k0 in range(0, n, 64):
             s = mm(q[b], np.ascontiguousarray(k[b, k0:k0 + 64].T)) * scale2
             m_new = np.maximum(m, s.max(-1))
             alpha = np.exp2(m - m_new)
             p = np.exp2(s - m_new[:, None])
-            l = alpha * l + p.sum(-1)
+            by_lane = np.zeros((n, 64), np.float32)   # keys past n: P = 0
+            by_lane[:, :p.shape[1]] = p
+            by_lane = by_lane.reshape(n, 8, 4, 2)      # [row, j, t, e]
+            tile_sum = np.zeros((n, 4), np.float32)
+            for j in range(8):
+                for e in range(2):
+                    tile_sum = tile_sum + by_lane[:, j, :, e]
+            lanes = alpha[:, None] * lanes + tile_sum
             acc = alpha[:, None] * acc + mm(p, v[b, k0:k0 + 64])
             m = m_new
+        l = (lanes[:, 0] + lanes[:, 1]) + (lanes[:, 2] + lanes[:, 3])
         outs.append(acc / l[:, None])
         lses.append(m * np.float32(0.6931471805599453) + np.log(l))
     return np.stack(outs), np.stack(lses)
