@@ -8,9 +8,10 @@ Phases, each fatal on failure:
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build: ``nvcc`` compiles every ``confild_tpu_torch/csrc/*.cu``, one
    process per source, all started together (timed; ptxas registers and
-   spills, and for the flash kernels the count of tensor-core ``HMMA``
-   instructions in ``cuobjdump -sass``: every forward and backward
-   instantiation must have some);
+   spills, and for the flash and SIREN-backward kernels the count of
+   tensor-core ``HMMA`` instructions in ``cuobjdump -sass``: every flash
+   forward and backward instantiation and every instantiation of the
+   SIREN backward's chain and reduction kernels must have some);
 3. forward decode kernel against its plain version at Case4 widths
    (SIREN-FiLM 3 -> 384 x 16 modulated layers -> 3, w0 30), 16 rows x 262144
    points, both held to a float64 run under the JAX tests' criterion
@@ -37,13 +38,16 @@ Phases, each fatal on failure:
    kernels and forced onto the plain decode; they must agree to a relative
    L2 error of 1e-3;
 7. training-backward kernel against its plain version at Case4 widths,
-   4 rows x 262144 points (a training batch: each row spans several
-   chunks of the kernel) and 4 rows x 16384 points (a chunk holds whole
-   rows): every cotangent (dz, dW_first, dW_mid, dW_head, and after the
+   4 rows x 262144 points (a training batch: each row spans 4 chunks of
+   the kernel) and 4 rows x 16384 points (one chunk holds every row):
+   every cotangent (dz, dW_first, dW_mid, dW_head, and after the
    autograd chain dlatents, dW2, db1) held to a chunked float64 autograd
    run of the reference decode under the same criterion with a
-   ``1e-6 * max|f64|`` floor; two launches bitwise equal; the kernel's and
-   the plain version's times at 4 x 262144, and the bound;
+   ``1e-6 * max|f64|`` floor; two launches bitwise equal; at 4 x 262144
+   the kernel's time (median of 7 separately timed calls with the least
+   and largest, the SM clocks before and after), each of its kernels'
+   device time from ``torch.profiler`` (the chain and the reduction with
+   their rate of products), the plain version's time, and the bound;
 8. the general op's gradient on the card (latents, decoder and coordinates
    all requiring grad) against plain autograd at 4 x 4096, and one training
    batch's gradients with ``use_fused_decode`` true and false at 4 x 16384:
@@ -253,14 +257,17 @@ def phase_device():
 
 
 def kernel_label(line: str) -> str | None:
-    """``flash_bwd_dq_kernel<64, f32>`` from a line holding a kernel's
-    mangled name, or None."""
+    """``flash_bwd_dq_kernel<64, f32>`` or ``siren_bwd_chain_kernel<6>``
+    from a line holding a kernel's mangled name, or None."""
     found = re.search(r"((?:siren|flash)_[a-z_]+_kernel)(?:ILi(\d+)E(\w*?)E)?", line)
     if not found:
         return None
-    return found.group(1) + (f"<{found.group(2)}, "
-                             f"{'bf16' if 'bfloat16' in found.group(3) else 'f32'}>"
-                             if found.group(2) else "")
+    if not found.group(2):
+        return found.group(1)
+    if found.group(1).startswith("siren"):
+        return f"{found.group(1)}<{found.group(2)}>"
+    return (f"{found.group(1)}<{found.group(2)}, "
+            f"{'bf16' if 'bfloat16' in found.group(3) else 'f32'}>")
 
 
 def hmma_counts(path) -> dict:
@@ -280,6 +287,11 @@ def hmma_counts(path) -> dict:
     return counts
 
 
+# kernels whose every instantiation must run its products on the tensor cores
+TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "siren_bwd_chain",
+                       "siren_bwd_reduce")
+
+
 def phase_build():
     names = sorted(p.stem for p in cuda_build.CSRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
@@ -287,8 +299,10 @@ def phase_build():
     dt = time.perf_counter() - t0
     log(f"[build] {', '.join(p.name for p in paths)} in {dt:.2f} s")
     # one line per kernel instantiation: registers and spills (ptxas -v),
-    # and for the flash kernels their tensor-core instructions
-    flash_hmma = hmma_counts(cuda_build.library_path("flash_attention"))
+    # and for the tensor-core libraries the HMMA count of each kernel
+    hmma = {}
+    for lib in ("flash_attention", "siren_decode_bwd"):
+        hmma.update(hmma_counts(cuda_build.library_path(lib)))
     for name in names:
         kernel, spill = None, ""
         for line in cuda_build.build_logs.get(name, "").splitlines():
@@ -298,13 +312,14 @@ def phase_build():
                 spill = re.sub(r"\s+", " ", line.strip())
             elif "registers" in line and kernel:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                tc = f", {flash_hmma[kernel]} HMMA" if kernel in flash_hmma else ""
+                tc = f", {hmma[kernel]} HMMA" if kernel in hmma else ""
                 log(f"[build] {name}: {kernel}: {regs} registers, {spill}{tc}")
                 kernel = None
-    no_tc = [k for k, v in flash_hmma.items() if v == 0]
-    kinds = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    if no_tc or not all(any(k.startswith(p) for k in flash_hmma) for p in kinds):
-        raise SystemExit(f"flash kernels without tensor-core instructions: {no_tc}")
+    required = {k: v for k, v in hmma.items() if k.startswith(TENSOR_CORE_KERNELS)}
+    no_tc = [k for k, v in required.items() if v == 0]
+    if no_tc or not all(any(k.startswith(p) for k in required) for p in TENSOR_CORE_KERNELS):
+        raise SystemExit(f"kernels without tensor-core instructions: {no_tc} "
+                         f"(found {sorted(required)})")
 
 
 def case4_decoder(device):
@@ -685,9 +700,11 @@ def bwd_check(model, device, rows, points, seed) -> float:
 
 def phase_bwd(device, results):
     """The training-backward kernel checked at 4 x 262144, the shape the
-    training path gives it (every row spans 8 chunks of ``BWD_PAIRS``
+    training path gives it (every row spans 4 chunks of ``BWD_PAIRS``
     pairs, so a row's dz sums across chunk launches), and at 4 x 16384
-    (a chunk holds two whole rows); kernel and plain timed at 4 x 262144."""
+    (one chunk holds all four rows); kernel and plain timed at 4 x 262144,
+    the kernel as the median of 7 separately timed calls, and the device
+    time of each of its kernels from one profiled call."""
     model = case4_decoder(device)
     rows, points = 4, 262144
     max_abs_err = bwd_check(model, device, rows, points, seed=14)
@@ -695,7 +712,9 @@ def phase_bwd(device, results):
     coords, latents, g, z, ops, w2, scale = bwd_case(model, device, rows, points, seed=14)
     n_mod = z.shape[0]
     with torch.no_grad():
-        ms = cuda_median(lambda: sd.decode_bwd(coords, z, g, *ops), 3, repeats=1)[0]
+        log(f"[bwd-time] SM clock, max before: {sm_clocks()}")
+        ms, least, largest = cuda_median(lambda: sd.decode_bwd(coords, z, g, *ops), 1)
+        log(f"[bwd-time] SM clock, max after: {sm_clocks()}")
         torch.cuda.reset_peak_memory_stats()
         plain_ms = cuda_median(lambda: sd.decode_bwd_plain(coords, z, g, *ops), 2, repeats=1)[0]
         plain_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -711,13 +730,22 @@ def phase_bwd(device, results):
                   + 2 * (n_mod - 1) * h * h + 2 * h * c_out)
     bound_ms, bound_by = tc_bound(mat, nbytes, act / PEAK_F32_FLOPS)
     with torch.no_grad():
-        device_profile(f"training backward {rows}x{points}",
-                       lambda: sd.decode_bwd(coords, z, g, *ops), top=4)
-    log(f"[bwd] {rows}x{points}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
-        f"bound {bound_ms:.3f} ms ({bound_by}, {flops / 1e12:.2f} TFLOP; every flop on the "
-        f"CUDA cores: {bound(flops, nbytes)[0]:.3f} ms); plain {plain_ms:.3f} "
-        f"ms (peak memory {plain_peak:.2f} GiB); library: none (no single PyTorch call "
-        f"computes it)")
+        prof = device_profile(f"training backward {rows}x{points}",
+                              lambda: sd.decode_bwd(coords, z, g, *ops), top=6)
+    # the products each kernel computes (the chain: forward and dx chain)
+    products = {"chain": pairs * 4 * (n_mod - 1) * h * h, "reduce": pairs * 2 * (n_mod - 1) * h * h}
+    for part in ("chain", "reduce", "sums", "split", "fold"):
+        hits = [v for k, v in prof.items() if f"siren_bwd_{part}_kernel" in k]
+        dev_ms = sum(ms for ms, _ in hits)
+        rate = (f", {products[part] / dev_ms / 1e9:.2f} TFLOP/s of products"
+                if part in products and dev_ms else "")
+        log(f"[bwd-time] {part}: {dev_ms:.3f} ms device, {sum(n for _, n in hits)} "
+            f"launches{rate}")
+    log(f"[bwd] {rows}x{points}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median of 7 "
+        f"({flops / ms / 1e9:.2f} TFLOP/s), bound {bound_ms:.3f} ms ({bound_by}, "
+        f"{flops / 1e12:.2f} TFLOP; every flop on the CUDA cores: "
+        f"{bound(flops, nbytes)[0]:.3f} ms); plain {plain_ms:.3f} ms (peak memory "
+        f"{plain_peak:.2f} GiB); library: none (no single PyTorch call computes it)")
     results["siren_decode_bwd"] = dict(
         max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, shape=f"{rows}x{points}")

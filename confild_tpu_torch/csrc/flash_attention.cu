@@ -130,7 +130,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
+
+using namespace tf32mma;
 
 constexpr int TILE = 64;       // keys (and backward rows) per tile
 constexpr int THREADS = 256;   // 8 warps
@@ -210,42 +214,10 @@ __device__ __forceinline__ float ld_sw(const float* tile, int r, int c) {
   return tile[r * LD + (c ^ swz(r))];
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-// 16 bytes global -> shared, zeros when !valid (src is not read then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
 // 4 bytes (rows of lse and delta need not be 16-byte aligned)
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// x rounded to TF32 (10 stored mantissa bits), to nearest with ties away
-// from zero, as cvt.rna.tf32.f32 rounds a finite x; by bit arithmetic (two
-// integer operations), because ptxas expands the cvt into five
-__device__ __forceinline__ uint32_t rna_tf32(uint32_t bits) {
-  return (bits + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small, both TF32; an operand that is exact in TF32 (bfloat16
-// data) is its own big half
-template <bool EXACT>
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  if constexpr (EXACT) {
-    big = __float_as_uint(x);
-    small = 0u;
-  } else {
-    big = rna_tf32(__float_as_uint(x));
-    small = rna_tf32(__float_as_uint(x - __uint_as_float(big)));
-  }
 }
 
 // A 64 x D tile moves as 16-byte chunks (4 float32 or 8 bfloat16 values),
@@ -350,37 +322,6 @@ __device__ __forceinline__ void load_resident(float* tile, const T* src, int row
     fetch_rows<D, T>(x, src, row0, n);
     put_rows<D, T>(x, tile, nullptr);
   }
-}
-
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a * b as small*big + big*small (the correction terms first) + big*big
-template <bool EXACT_A, bool EXACT_B>
-__device__ __forceinline__ void mma3_into(float c[4], const uint32_t ab[4], const uint32_t as[4],
-                                          const uint32_t bb[2], const uint32_t bs[2]) {
-  if constexpr (!EXACT_A) mma_tf32(c, as, bb);
-  if constexpr (!EXACT_B) mma_tf32(c, ab, bs);
-  mma_tf32(c, ab, bb);
-}
-
-// The tensor cores truncate their sums toward zero.  Carried across a whole
-// loop in their accumulator that bias grows with the step count (4-5x the
-// plain float32 error, and the float32 check failed), so the products go
-// into a zeroed partial, which a float32 add (round to nearest) carries into
-// the running sum: every k8 step for S and dP, whose error exp amplifies,
-// and every second step for the products with P and dS.
-template <bool EXACT_A, bool EXACT_B>
-__device__ __forceinline__ void mma3(float c[4], const uint32_t ab[4], const uint32_t as[4],
-                                     const uint32_t bb[2], const uint32_t bs[2]) {
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  mma3_into<EXACT_A, EXACT_B>(part, ab, as, bb, bs);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += part[e];
 }
 
 // Fragments of m16n8k8 (g = lane / 4, t = lane % 4).  A, 16 x 8 at (r0, c0):

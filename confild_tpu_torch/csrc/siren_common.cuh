@@ -1,6 +1,7 @@
-// Device helpers shared by the SIREN-FiLM decode kernels (siren_decode.cu,
-// siren_decode_bwd.cu): the polynomial sine in turns and the per-thread
-// tile products.  See siren_decode.cu for the operand layouts.
+// Device helpers shared by the SIREN-FiLM decode kernels: the polynomial
+// sine in turns (siren_decode.cu and siren_decode_bwd.cu) and the forward
+// and dz kernels' per-thread tile products (siren_decode.cu).  See
+// siren_decode.cu for the operand layouts.
 #pragma once
 
 #include <cuda_runtime.h>

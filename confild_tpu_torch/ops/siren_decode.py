@@ -57,8 +57,13 @@ LAUNCHES = {"siren_decode_forward": 0, "siren_decode_dz": 0, "siren_decode_bwd":
 
 # pairs per chunk of the training backward: its workspace holds every
 # pre-activation and dpre of a chunk, 2 * n_mod * BWD_PAIRS * H floats
-# (1.6 GB at Case4)
-BWD_PAIRS = 32768
+# (3.2 GB at Case4)
+BWD_PAIRS = 65536
+# fixed slices of a chunk's pairs that the backward's reductions sum apart
+# (so that their grid fills the card) and add in order at the end; each
+# slice keeps a partial of every cotangent, BWD_SLICES x 9.0 MB at Case4
+# with 4 rows
+BWD_SLICES = 16
 # points per chunk of the general op's coordinate gradient (a plain
 # autograd recompute), as the JAX package's BWD_CHUNK (siren_decode.py:250)
 BWD_CHUNK = 4096
@@ -168,12 +173,16 @@ def _bwd_library() -> ctypes.CDLL:
     """The built training-backward kernels with their C signatures."""
     lib = cuda_build.load("siren_decode_bwd")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.siren_bwd_chain.argtypes = [p] * 9 + [ll] + [i] * 8 + [p]
-    lib.siren_bwd_chain.restype = i
-    lib.siren_bwd_reduce.argtypes = [p] * 8 + [ll] + [i] * 8 + [p]
-    lib.siren_bwd_reduce.restype = i
-    lib.siren_bwd_tile_pairs.argtypes = []
-    lib.siren_bwd_tile_pairs.restype = i
+    for name, args in (
+            ("siren_bwd_split", [p, p, i, i, p]),
+            ("siren_bwd_chain", [p] * 8 + [ll] + [i] * 8 + [p]),
+            ("siren_bwd_reduce", [p] * 3 + [ll, ll] + [i] * 5 + [p]),
+            ("siren_bwd_sums", [p] * 5 + [ll] * 4 + [i] * 9 + [p]),
+            ("siren_bwd_fold", [p, p, ll, i, p]),
+            ("siren_bwd_tile_pairs", []),
+            ("siren_bwd_shape_ok", [i] * 4)):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = i
     return lib
 
 
@@ -309,8 +318,10 @@ def decode_bwd(coords, z, g, w_first, w_mid, w_head):
     dw_head)``.
 
     CPU tensors take :func:`decode_bwd_plain`; CUDA tensors launch
-    ``siren_decode_bwd``: its chain kernel and its reduction kernel, one
-    after the other, over chunks of ``BWD_PAIRS`` (row, point) pairs."""
+    ``siren_decode_bwd``: the weight split once, then per chunk of
+    ``BWD_PAIRS`` (row, point) pairs the chain, the tensor-core reduction
+    and the CUDA-core sums, then the fold of the ``BWD_SLICES`` partials
+    (``csrc/siren_decode_bwd.cu``)."""
     if coords.device.type == "cpu":
         return decode_bwd_plain(coords, z, g, w_first, w_mid, w_head)
     dev = coords.device
@@ -319,39 +330,55 @@ def decode_bwd(coords, z, g, w_first, w_mid, w_head):
     n_mod, t, h = z.shape
     m, c_in = coords.shape
     c_out = w_head.shape[1]
-    _check_hidden(h)
     if (g.shape != (t, m, c_out) or w_first.shape != (c_in, h)
             or w_mid.shape != (n_mod - 1, h, h) or w_head.shape != (h, c_out)):
         raise ValueError("decode operands have inconsistent shapes")
-    dz = torch.zeros_like(z)
-    dw_first = torch.zeros_like(w_first)
-    dw_mid = torch.zeros_like(w_mid)
-    dw_head = torch.zeros_like(w_head)
-    pairs = t * m
-    if pairs == 0:
-        return dz, dw_first, dw_mid, dw_head
     lib = _bwd_library()
-    tile = lib.siren_bwd_tile_pairs()
-    chunk = min(pairs, BWD_PAIRS)
-    qa = -(-chunk // tile) * tile
-    r_ws, d_ws = torch.empty((2, n_mod, qa, h), device=dev, dtype=torch.float32)
-    w_mid_t = w_mid.transpose(1, 2).contiguous()
-    with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        for p0 in range(0, pairs, chunk):
-            q = min(chunk, pairs - p0)
-            err = lib.siren_bwd_chain(
-                _ptr(coords), _ptr(z), _ptr(g), _ptr(w_first), _ptr(w_mid), _ptr(w_mid_t),
-                _ptr(w_head), _ptr(r_ws), _ptr(d_ws), p0, q, qa, t, m, c_in, h, n_mod,
-                c_out, stream)
-            _raise_on(err, "siren_bwd_chain launch")
+    if not lib.siren_bwd_shape_ok(h, n_mod, c_in, c_out):
+        raise ValueError(f"the CUDA training backward takes a hidden width that is a "
+                         f"multiple of 64 and at most 384 and at most 4 input and output "
+                         f"features, got {h}, {c_in}, {c_out}")
+    sizes = (n_mod * t * h, c_in * h, (n_mod - 1) * h * h, h * c_out)
+    shapes = (z.shape, w_first.shape, w_mid.shape, w_head.shape)
+    n_el = sum(sizes)
+    out = torch.zeros(n_el, device=dev, dtype=torch.float32)
+    pairs = t * m
+    if pairs > 0:
+        tile = lib.siren_bwd_tile_pairs()
+        chunk = min(pairs, BWD_PAIRS)
+        qa = -(-chunk // tile) * tile
+        r_ws, d_ws = torch.empty((2, n_mod, qa, h), device=dev, dtype=torch.float32)
+        parts = torch.zeros((BWD_SLICES, n_el), device=dev, dtype=torch.float32)
+        wsplit = torch.empty((max(n_mod - 1, 1), 4, h, h), device=dev, dtype=torch.float32)
+        dwf_off, dwmid_off = sizes[0], sizes[0] + sizes[1]
+        dwh_off = dwmid_off + sizes[2]
+        with torch.cuda.device(dev):
+            stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+            if n_mod > 1:
+                _raise_on(lib.siren_bwd_split(_ptr(w_mid), _ptr(wsplit), h, n_mod - 1, stream),
+                          "siren_bwd_split launch")
+                LAUNCHES["siren_decode_bwd"] += 1
+            for p0 in range(0, pairs, chunk):
+                q = min(chunk, pairs - p0)
+                err = lib.siren_bwd_chain(
+                    _ptr(coords), _ptr(z), _ptr(g), _ptr(w_first), _ptr(wsplit), _ptr(w_head),
+                    _ptr(r_ws), _ptr(d_ws), p0, q, qa, t, m, c_in, h, n_mod, c_out, stream)
+                _raise_on(err, "siren_bwd_chain launch")
+                LAUNCHES["siren_decode_bwd"] += 1
+                if n_mod > 1:
+                    err = lib.siren_bwd_reduce(_ptr(r_ws), _ptr(d_ws), _ptr(parts), n_el,
+                                               dwmid_off, q, qa, h, n_mod, BWD_SLICES, stream)
+                    _raise_on(err, "siren_bwd_reduce launch")
+                    LAUNCHES["siren_decode_bwd"] += 1
+                err = lib.siren_bwd_sums(
+                    _ptr(r_ws), _ptr(d_ws), _ptr(coords), _ptr(g), _ptr(parts), n_el, dwf_off,
+                    dwh_off, p0, q, qa, t, m, c_in, h, n_mod, c_out, BWD_SLICES, stream)
+                _raise_on(err, "siren_bwd_sums launch")
+                LAUNCHES["siren_decode_bwd"] += 1
+            _raise_on(lib.siren_bwd_fold(_ptr(parts), _ptr(out), n_el, BWD_SLICES, stream),
+                      "siren_bwd_fold launch")
             LAUNCHES["siren_decode_bwd"] += 1
-            err = lib.siren_bwd_reduce(
-                _ptr(r_ws), _ptr(d_ws), _ptr(coords), _ptr(g), _ptr(dz), _ptr(dw_first),
-                _ptr(dw_mid), _ptr(dw_head), p0, q, qa, t, m, c_in, h, n_mod, c_out, stream)
-            _raise_on(err, "siren_bwd_reduce launch")
-            LAUNCHES["siren_decode_bwd"] += 1
-    return dz, dw_first, dw_mid, dw_head
+    return tuple(x.view(shape) for x, shape in zip(out.split(sizes), shapes))
 
 
 # ---------------------------------------------------------------------------
