@@ -8,17 +8,24 @@ Phases, each fatal on failure:
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build: ``nvcc`` compiles every ``confild_tpu_torch/csrc/*.cu``, one
    process per source, all started together (timed; ptxas registers and
-   spills, and for the flash and SIREN-backward kernels the count of
-   tensor-core ``HMMA`` instructions in ``cuobjdump -sass``: every flash
-   forward and backward instantiation and every instantiation of the
-   SIREN backward's chain and reduction kernels must have some);
-3. forward decode kernel against its plain version at Case4 widths
-   (SIREN-FiLM 3 -> 384 x 16 modulated layers -> 3, w0 30), 16 rows x 262144
-   points, both held to a float64 run under the JAX tests' criterion
-   ``err_kernel <= 2 * err_plain_f32 + 1e-6``; times and the roofline bound
-   (the SIREN rows' bound: matrix products at the tensor cores' 3xTF32 rate,
-   sines at the CUDA-core float32 rate, bytes at the HBM rate, the largest;
-   the CUDA-core figure of all the flops is logged beside it);
+   spills, and for the flash and SIREN tensor-core kernels the count of
+   ``HMMA`` instructions in ``cuobjdump -sass``: every flash forward and
+   backward instantiation, every instantiation of the SIREN forward and of
+   the SIREN backward's chain, and its reduction kernel must have some);
+3. forward decode kernel against its plain version and a float64 run under
+   the JAX tests' criterion ``err_kernel <= 2 * err_plain_f32 + 1e-6`` (each
+   error printed as a share of its limit), two launches bitwise equal: at
+   Case4 widths (SIREN-FiLM 3 -> 384 x 16 modulated layers -> 3, w0 30),
+   16 rows x 262144 points (a decoder chunk) and 4 x 262144 (a CNF training
+   batch), and at Case2 widths (2 -> 256 x 11 -> 4) at 3 x 3000 (another
+   instantiation, a ragged last block); at 16 and 4 rows the kernel's time
+   (median of 7 separately timed calls with the least and largest, the SM
+   clocks before and after), the split's and the forward's device time
+   from ``torch.profiler`` with the rate of products, the L2 bytes of the
+   split weight stream, the plain version's time and the roofline bound
+   (the SIREN rows' bound: matrix products at the tensor cores' 3xTF32
+   rate, sines at the CUDA-core float32 rate, bytes at the HBM rate, the
+   largest; the CUDA-core figure of all the flops is logged beside it);
 4. dz kernel against its plain version (same criterion on ``dL/dlatents``)
    at 384 rows x 10 sensors and 384 rows x 1024 points, and the time of the
    whole operator gradient (plain autograd decode vs forward + dz kernels)
@@ -226,16 +233,22 @@ def device_profile(label: str, fn, top: int = 6) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    # the profiler now and then records no device activity at all for a
+    # call that ran kernels; such a call is profiled again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                ms, n = kernels.get(e.name, (0.0, 0))
+                kernels[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+        if kernels:
+            break
+        log(f"[profile] {label}: no device activity recorded; profiling it again")
     busy = sum(ms for ms, _ in kernels.values())
     log(f"[profile] {label}: wall {wall_ms:.1f} ms under the profiler, device busy "
         f"{busy:.1f} ms ({busy / wall_ms:.1%}), {sum(n for _, n in kernels.values())} "
@@ -288,8 +301,8 @@ def hmma_counts(path) -> dict:
 
 
 # kernels whose every instantiation must run its products on the tensor cores
-TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "siren_bwd_chain",
-                       "siren_bwd_reduce")
+TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "siren_fwd",
+                       "siren_bwd_chain", "siren_bwd_reduce")
 
 
 def phase_build():
@@ -301,7 +314,7 @@ def phase_build():
     # one line per kernel instantiation: registers and spills (ptxas -v),
     # and for the tensor-core libraries the HMMA count of each kernel
     hmma = {}
-    for lib in ("flash_attention", "siren_decode_bwd"):
+    for lib in ("flash_attention", "siren_decode", "siren_decode_bwd"):
         hmma.update(hmma_counts(cuda_build.library_path(lib)))
     for name in names:
         kernel, spill = None, ""
@@ -352,50 +365,113 @@ def _double(model):
     return copy.deepcopy(model).double()
 
 
-def phase_forward(device, results):
-    """Forward kernel vs plain at one decoder chunk of a 262144-point mesh."""
-    model = case4_decoder(device)
-    gen = torch.Generator(device=device).manual_seed(3)
-    rows, points = 16, 262144
-    coords = torch.rand((points, 3), generator=gen, device=device) * 2 - 1
-    latents = torch.randn((rows, 384), generator=gen, device=device) * 0.1
-    w_first, w_mid, w_head, b_head, w2, b1, scale = sd.stack_weights(model, model.w0)
-    ops = [w_first, w_mid, w_head, b_head]
-    z = sd.film_table(latents, w2, b1, scale)
+CASE2_CNF = dict(in_coord_features=2, in_latent_features=256, out_features=4,
+                 num_hidden_layers=10, hidden_features=256, w0=30.0)
 
+
+def forward_case(model, device, rows, points, seed):
+    """Coordinates and latents from a seed, and the folded operands."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c_in, n_lat = model.net1[0].in_features, model.net2[0].in_features
+    coords = torch.rand((points, c_in), generator=gen, device=device) * 2 - 1
+    latents = torch.randn((rows, n_lat), generator=gen, device=device) * 0.1
+    w_first, w_mid, w_head, b_head, w2, b1, scale = sd.stack_weights(model, model.w0)
+    z = sd.film_table(latents, w2, b1, scale)
+    return coords, latents, z, [w_first, w_mid, w_head, b_head]
+
+
+def forward_check(model, device, rows, points, seed, label) -> float:
+    """Forward kernel vs plain vs float64 at ``rows x points`` under the JAX
+    tests' criterion ``err_kernel <= 2 * err_plain_f32 + 1e-6``, and two
+    launches bitwise equal; returns the kernel's error."""
+    coords, latents, z, ops = forward_case(model, device, rows, points, seed)
     with torch.no_grad():
         kern = sd.decode_forward(coords, z, *ops)
+        same = torch.equal(kern, sd.decode_forward(coords, z, *ops))
         plain = sd.decode_forward_plain(coords, z, *ops)
         truth = f64_decode(model, coords, latents, chunk=32768)
     torch.cuda.synchronize()
     err_k = (kern.double() - truth).abs().max().item()
     err_p = (plain.double() - truth).abs().max().item()
-    diff = (kern - plain).abs().max().item()
-    ok = err_k <= 2 * err_p + 1e-6 and torch.isfinite(kern).all().item()
-    log(f"[forward] {rows}x{points}: |kernel-f64| {err_k:.3e}, |plain-f64| {err_p:.3e}, "
-        f"|kernel-plain| {diff:.3e} -> {'ok' if ok else 'FAIL'}")
+    limit = 2 * err_p + 1e-6
+    ok = err_k <= limit and same and torch.isfinite(kern).all().item()
+    log(f"[forward] {label} {rows}x{points}: |kernel-f64| {err_k:.3e}, |plain-f64| "
+        f"{err_p:.3e}, |kernel-plain| {(kern - plain).abs().max().item():.3e}, max |f64| "
+        f"{truth.abs().max().item():.3e}, error / limit {err_k / limit:.3f}; two launches "
+        f"bitwise equal: {same} -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit("forward kernel fails the f64-relative criterion")
-
-    del plain, truth
+        raise SystemExit("forward kernel fails the f64-relative criterion or is not "
+                         "deterministic")
+    del kern, plain, truth
     torch.cuda.empty_cache()
+    return err_k
+
+
+def forward_time(model, device, rows, points, seed) -> dict:
+    """The forward kernel at ``rows x points``: median of 7 separately timed
+    calls with the least and largest and the SM clocks around them, each
+    of its kernels' device time (torch.profiler) with the rate of
+    products, the plain version's time, the bound, and the bytes that the
+    blocks read of the split weight stream (from L2)."""
+    coords, _, z, ops = forward_case(model, device, rows, points, seed)
+    fn = lambda: sd.decode_forward(coords, z, *ops)
     with torch.no_grad():
-        ms = cuda_median(lambda: sd.decode_forward(coords, z, *ops), 3, repeats=1)[0]
-        plain_ms = cuda_median(lambda: sd.decode_forward_plain(coords, z, *ops), 3, repeats=1)[0]
-    n_mod, h, c_in, c_out = z.shape[0], 384, 3, 3
+        log(f"[forward-time] SM clock, max before: {sm_clocks()}")
+        ms, least, largest = cuda_median(fn, 1)
+        log(f"[forward-time] SM clock, max after: {sm_clocks()}")
+        plain_ms = cuda_median(lambda: sd.decode_forward_plain(coords, z, *ops), 3,
+                               repeats=1)[0]
+        prof = device_profile(f"forward {rows}x{points}", fn, top=3)
+    n_mod, h = z.shape[0], z.shape[2]
+    c_in, c_out = coords.shape[1], ops[2].shape[1]
     pairs = rows * points
+    products = pairs * 2 * (n_mod - 1) * h * h
     mat = pairs * 2 * h * (c_in + (n_mod - 1) * h + c_out)
     act = pairs * ACT_FLOPS * h * n_mod
     flops = mat + act
     nbytes = 4 * (points * c_in + n_mod * rows * h + c_in * h + (n_mod - 1) * h * h
                   + h * c_out + c_out + pairs * c_out)
     bound_ms, bound_by = tc_bound(mat, nbytes, act / PEAK_F32_FLOPS)
-    log(f"[forward] kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-        f"({bound_by}; every flop on the CUDA cores: {bound(flops, nbytes)[0]:.3f} ms); "
-        f"kernel {flops / ms / 1e9:.2f} TFLOP/s")
-    results["siren_decode_forward"] = dict(
-        max_abs_err=err_k, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        shape=f"{rows}x{points}")
+    fwd_ms = 0.0
+    for part, name in (("split", "siren_split_kernel"), ("forward", "siren_fwd_kernel")):
+        hits = [v for k, v in prof.items() if name in k]
+        dev_ms = sum(ms_ for ms_, _ in hits)
+        if not hits:
+            log(f"[forward-time] {rows}x{points} {part}: device time not measured")
+            continue
+        rate = (f", {products / dev_ms / 1e9:.2f} TFLOP/s of products"
+                if part == "forward" else "")
+        fwd_ms = dev_ms if part == "forward" else fwd_ms
+        log(f"[forward-time] {rows}x{points} {part}: {dev_ms:.3f} ms device, "
+            f"{sum(n for _, n in hits)} launches{rate}")
+    stream = -(-pairs // 64) * (n_mod - 1) * 2 * h * h * 4
+    log(f"[forward-time] {rows}x{points}: the blocks read {stream / 1e12:.3f} TB of the "
+        f"{(n_mod - 1) * 2 * h * h * 4 / 1e6:.1f} MB split weight stream from L2"
+        + (f" ({stream / 1e9 / fwd_ms:.2f} TB/s over the forward's device time)"
+           if fwd_ms else ""))
+    log(f"[forward] {rows}x{points}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median "
+        f"of 7 ({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}; every flop on the CUDA cores: "
+        f"{bound(flops, nbytes)[0]:.3f} ms); library: none (no single PyTorch call "
+        f"computes it)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                shape=f"{rows}x{points}")
+
+
+def phase_forward(device, results):
+    """Forward kernel vs plain vs float64 at one decoder chunk of a
+    262144-point mesh (16 rows), at a CNF training batch (4 rows) and at
+    Case2's widths (a second instantiation, a ragged last block); timed
+    at 16 and 4 rows."""
+    model = case4_decoder(device)
+    err = forward_check(model, device, 16, 262144, 3, "case4")
+    forward_check(model, device, 4, 262144, 4, "case4")
+    case2 = SirenFilm(**CASE2_CNF, generator=torch.Generator().manual_seed(2)).to(device)
+    forward_check(case2.requires_grad_(False), device, 3, 3000, 5, "case2")
+    del case2
+    results["siren_decode_forward"] = dict(forward_time(model, device, 16, 262144, 3),
+                                           max_abs_err=err)
+    forward_time(model, device, 4, 262144, 4)
 
 
 def dz_case(model, device, rows, points, seed):
@@ -735,7 +811,8 @@ def phase_bwd(device, results):
     # the products each kernel computes (the chain: forward and dx chain)
     products = {"chain": pairs * 4 * (n_mod - 1) * h * h, "reduce": pairs * 2 * (n_mod - 1) * h * h}
     for part in ("chain", "reduce", "sums", "split", "fold"):
-        hits = [v for k, v in prof.items() if f"siren_bwd_{part}_kernel" in k]
+        name = "siren_split_kernel" if part == "split" else f"siren_bwd_{part}_kernel"
+        hits = [v for k, v in prof.items() if name in k]
         dev_ms = sum(ms for ms, _ in hits)
         rate = (f", {products[part] / dev_ms / 1e9:.2f} TFLOP/s of products"
                 if part in products and dev_ms else "")
@@ -1098,6 +1175,9 @@ def phase_flash(device, results) -> None:
     log("[flash-time] " + json.dumps({s: {k: v for k, v in t.items() if k != "bounds"}
                                       for s, t in times.items()}))
     t = times[FLASH_PATH_SHAPE]
+    fwd, lib = t["flash_forward"], min(t["sdpa_forward"], t["sdpa_4d_forward"])
+    log(f"[flash-time] {FLASH_PATH_SHAPE} forward as called, event median {fwd:.4f} ms against "
+        f"SDPA's faster layout {lib:.4f}: {'beats' if fwd < lib else 'does not beat'} it")
     pair = "flash_bwd_dq + flash_bwd_dkv"
     for name, err, plain, step, covers in (
             ("flash_forward", max(path["out"], path["lse"]), t["plain_forward"], "forward",

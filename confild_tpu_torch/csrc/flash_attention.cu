@@ -862,11 +862,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // ---------------------------------------------------------------------------
 // launchers: one instantiation per (D, type)
 // ---------------------------------------------------------------------------
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 // the backward: one block per (head, 64 rows)
 dim3 grid_for(int bh, int n) { return dim3((unsigned)((n + TILE - 1) / TILE), (unsigned)bh); }
 
@@ -880,7 +875,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, float* ls
                int n, cudaStream_t stream) {
   if (!aligned16(q, k, v, out)) return (int)cudaErrorMisalignedAddress;
   const size_t smem = fwd_smem<D, T>();
-  cudaError_t err = prepare(flash_fwd_kernel<D, T>, smem);
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem(flash_fwd_kernel<D, T>, smem, done);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((n + FWD_ROWS - 1) / FWD_ROWS), (unsigned)bh);
   flash_fwd_kernel<D, T><<<grid, THREADS, smem, stream>>>(
@@ -893,7 +889,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
               const float* delta, void* dq, int bh, int n, cudaStream_t stream) {
   if (!aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
   const size_t smem = dq_smem<D, T>();
-  cudaError_t err = prepare(flash_bwd_dq_kernel<D, T>, smem);
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, T>, smem, done);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dq_kernel<D, T><<<grid_for(bh, n), THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, n,
@@ -906,7 +903,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                const float* delta, void* dk, void* dv, int bh, int n, cudaStream_t stream) {
   if (!aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
   const size_t smem = dkv_smem<D, T>();
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<D, T>, smem);
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, T>, smem, done);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dkv_kernel<D, T><<<grid_for(bh, n), THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, n,

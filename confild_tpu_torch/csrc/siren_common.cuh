@@ -1,6 +1,6 @@
 // Device helpers shared by the SIREN-FiLM decode kernels: the polynomial
-// sine in turns (siren_decode.cu and siren_decode_bwd.cu) and the forward
-// and dz kernels' per-thread tile products (siren_decode.cu).  See
+// sine in turns (siren_decode.cu and siren_decode_bwd.cu) and the dz
+// kernel's per-thread tile products and shape rule (siren_decode.cu).  See
 // siren_decode.cu for the operand layouts.
 #pragma once
 

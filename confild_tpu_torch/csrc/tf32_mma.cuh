@@ -1,7 +1,8 @@
-// Device helpers shared by the port's tensor-core kernels
-// (flash_attention.cu, siren_decode_bwd.cu): 16-byte cp.async copies into
-// shared memory, and float32 products on the tensor cores as a 3xTF32 split
-// on mma.sync.m16n8k8.
+// Helpers shared by the port's tensor-core kernels (flash_attention.cu,
+// and through siren_tc.cuh siren_decode.cu and siren_decode_bwd.cu): 16-byte
+// cp.async copies into shared memory, float32 products on the tensor cores
+// as a 3xTF32 split on mma.sync.m16n8k8, and on the host the dynamic
+// shared-memory attribute, set once per kernel and device.
 //
 // A plain TF32 product keeps 11 significant bits and misses the float32
 // criterion the kernels are held to (|kernel - f64| <= 2 |plain f32 - f64|
@@ -79,6 +80,20 @@ __device__ __forceinline__ void mma3(float c[4], const uint32_t ab[4], const uin
   mma3_into<EXACT_A, EXACT_B>(part, ab, as, bb, bs);
 #pragma unroll
   for (int e = 0; e < 4; ++e) c[e] += part[e];
+}
+
+// the dynamic shared-memory attribute of one kernel, set once per device
+// (done holds a bit per device, one static per kernel): a
+// cudaFuncSetAttribute on every launch costs host time on short calls
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, unsigned long long& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (done >> dev & 1ull)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < 64) done |= 1ull << dev;
+  return err;
 }
 
 }  // namespace tf32mma

@@ -11,7 +11,9 @@ polynomial.
 Kernels:
 
 * ``siren_decode_forward`` (``csrc/siren_decode.cu``) replaces
-  ``_decode_kernel``: the full forward.
+  ``_decode_kernel``: the full forward, its hidden-by-hidden products on
+  the tensor cores, as two launches per call (the middle weights split
+  into TF32 halves, then the forward).
 * ``siren_decode_dz`` (same file) replaces ``_decode_dz_kernel``:
   ``dL/dz`` for every layer, from which ``dL/dlatents`` is two small
   matmuls.
@@ -150,8 +152,17 @@ def _check_cuda(device: torch.device, **tensors: torch.Tensor) -> None:
 
 def _check_hidden(h: int) -> None:
     if h % 32 or h > 512:
-        raise ValueError(f"the CUDA decode kernels take a hidden width that is a "
+        raise ValueError(f"the CUDA dz kernel takes a hidden width that is a "
                          f"multiple of 32 and at most 512, got {h}")
+
+
+def _check_tensor_core_shape(ok: int, what: str, h: int, c_in: int, c_out: int) -> None:
+    """The forward's and the training backward's shape rule
+    (``csrc/siren_tc.cuh::shape_ok``), as the library reports it."""
+    if not ok:
+        raise ValueError(f"the CUDA {what} takes a hidden width that is a multiple of 64 "
+                         f"and at most 384 and at most 4 input and output features, got "
+                         f"{h}, {c_in}, {c_out}")
 
 
 @functools.cache
@@ -159,12 +170,14 @@ def _library() -> ctypes.CDLL:
     """The built kernels with their C signatures declared."""
     lib = cuda_build.load("siren_decode")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.siren_decode_forward.argtypes = [p] * 7 + [i] * 6 + [p]
-    lib.siren_decode_forward.restype = i
-    lib.siren_decode_dz.argtypes = [p] * 9 + [i] * 7 + [p]
-    lib.siren_decode_dz.restype = i
-    lib.siren_tile_pairs.argtypes = []
-    lib.siren_tile_pairs.restype = i
+    for name, args in (
+            ("siren_fwd_split", [p, p, i, i, p]),
+            ("siren_decode_forward", [p] * 7 + [i] * 6 + [p]),
+            ("siren_fwd_shape_ok", [i] * 4),
+            ("siren_decode_dz", [p] * 9 + [i] * 7 + [p]),
+            ("siren_tile_pairs", [])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = i
     return lib
 
 
@@ -195,7 +208,9 @@ def decode_forward(coords, z, w_first, w_mid, w_head, b_head) -> torch.Tensor:
     """Fused forward on folded operands: ``(T, M, C_out)``.
 
     CPU tensors take :func:`decode_forward_plain`; CUDA tensors launch
-    ``siren_decode_forward``."""
+    ``siren_decode_forward``: the middle weights split once into TF32
+    halves (when there are any), then the tensor-core forward
+    (``csrc/siren_decode.cu``)."""
     if coords.device.type == "cpu":
         return decode_forward_plain(coords, z, w_first, w_mid, w_head, b_head)
     dev = coords.device
@@ -204,18 +219,27 @@ def decode_forward(coords, z, w_first, w_mid, w_head, b_head) -> torch.Tensor:
     n_mod, t, h = z.shape
     m, c_in = coords.shape
     c_out = w_head.shape[1]
-    _check_hidden(h)
     if (w_first.shape != (c_in, h) or w_mid.shape != (n_mod - 1, h, h)
             or w_head.shape != (h, c_out) or b_head.shape != (c_out,)):
         raise ValueError("decode operands have inconsistent shapes")
+    lib = _library()
+    _check_tensor_core_shape(lib.siren_fwd_shape_ok(h, n_mod, c_in, c_out), "decode forward",
+                             h, c_in, c_out)
     out = torch.empty((t, m, c_out), device=dev, dtype=torch.float32)
     if t == 0 or m == 0:
         return out
     with torch.cuda.device(dev):
-        err = _library().siren_decode_forward(
-            _ptr(coords), _ptr(z), _ptr(w_first), _ptr(w_mid), _ptr(w_head),
-            _ptr(b_head), _ptr(out), t, m, c_in, h, n_mod, c_out,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        wsplit = None
+        if n_mod > 1:
+            wsplit = torch.empty((n_mod - 1, 2, h, h), device=dev, dtype=torch.float32)
+            _raise_on(lib.siren_fwd_split(_ptr(w_mid), _ptr(wsplit), h, n_mod - 1, stream),
+                      "siren_fwd_split launch")
+            LAUNCHES["siren_decode_forward"] += 1
+        err = lib.siren_decode_forward(
+            _ptr(coords), _ptr(z), _ptr(w_first),
+            _ptr(wsplit) if wsplit is not None else None, _ptr(w_head), _ptr(b_head),
+            _ptr(out), t, m, c_in, h, n_mod, c_out, stream)
     _raise_on(err, "siren_decode_forward launch")
     LAUNCHES["siren_decode_forward"] += 1
     return out
@@ -334,10 +358,8 @@ def decode_bwd(coords, z, g, w_first, w_mid, w_head):
             or w_mid.shape != (n_mod - 1, h, h) or w_head.shape != (h, c_out)):
         raise ValueError("decode operands have inconsistent shapes")
     lib = _bwd_library()
-    if not lib.siren_bwd_shape_ok(h, n_mod, c_in, c_out):
-        raise ValueError(f"the CUDA training backward takes a hidden width that is a "
-                         f"multiple of 64 and at most 384 and at most 4 input and output "
-                         f"features, got {h}, {c_in}, {c_out}")
+    _check_tensor_core_shape(lib.siren_bwd_shape_ok(h, n_mod, c_in, c_out), "training backward",
+                             h, c_in, c_out)
     sizes = (n_mod * t * h, c_in * h, (n_mod - 1) * h * h, h * c_out)
     shapes = (z.shape, w_first.shape, w_mid.shape, w_head.shape)
     n_el = sum(sizes)
