@@ -10,8 +10,9 @@ Phases, each fatal on failure:
    process per source, all started together (timed; ptxas registers and
    spills, and for the flash and SIREN tensor-core kernels the count of
    ``HMMA`` instructions in ``cuobjdump -sass``: every flash forward and
-   backward instantiation, every instantiation of the SIREN forward and of
-   the SIREN backward's chain, and its reduction kernel must have some);
+   backward instantiation, every instantiation of the SIREN forward, of the
+   SIREN chain in its training mode and in its dz mode, and the training
+   reduction kernel must have some);
 3. forward decode kernel against its plain version and a float64 run under
    the JAX tests' criterion ``err_kernel <= 2 * err_plain_f32 + 1e-6`` (each
    error printed as a share of its limit), two launches bitwise equal: at
@@ -26,11 +27,21 @@ Phases, each fatal on failure:
    (the SIREN rows' bound: matrix products at the tensor cores' 3xTF32
    rate, sines at the CUDA-core float32 rate, bytes at the HBM rate, the
    largest; the CUDA-core figure of all the flops is logged beside it);
-4. dz kernel against its plain version (same criterion on ``dL/dlatents``)
-   at 384 rows x 10 sensors and 384 rows x 1024 points, and the time of the
-   whole operator gradient (plain autograd decode vs forward + dz kernels)
-   over a sweep of sensor counts, which places the crossover of the
-   operator's ``rows x points > 65536`` rule;
+4. dz kernel (the chain's dz mode and its fold) against its plain version
+   and a float64 autograd run (same criterion on ``dL/dlatents``, each
+   error printed as a share of its limit),
+   two launches bitwise equal: at Case4 widths 384 rows x 10 sensors, 384 x
+   1024 and a ragged 100 x 3000 (rows cut across blocks and chunks), and at
+   Case2 widths 3 x 3000; at 384 x 1024 also against the training
+   backward's dz under the same criterion; at 384 x 1024 and 384 x 10 the
+   kernel's time (median of 7 separately timed calls with the least and
+   largest, the SM clocks before and after), the chain's, the fold's and
+   the split's device time from ``torch.profiler`` with the rate of
+   products, the peak workspace, the plain version's time and the bound;
+   then the time and peak memory above inputs of the whole operator
+   gradient (plain autograd decode vs forward + dz kernels) over a sweep of
+   sensor counts up to 2048, which places the crossover of the operator's
+   ``rows x points > 65536`` rule;
 5. main path: ``confild_tpu_torch.cli.sample_conditional.main`` at full Case4
    widths (U-Net 384^2, 128 ch, mult 1,1,2,2,4,4, 2 res blocks, 64-channel
    heads; CNF 16 x 384) on synthetic assets written from a seed in the
@@ -42,8 +53,9 @@ Phases, each fatal on failure:
    after each run; every kernel must have launched;
 6. fused path inside DPS: one guided step's gradient with respect to
    ``x_prev`` through the full-width U-Net with the operator forced onto the
-   kernels and forced onto the plain decode; they must agree to a relative
-   L2 error of 1e-3;
+   kernels and forced onto the plain decode, at 10 and at 1024 sensors;
+   they must agree to a relative L2 error of 1e-3; each step's time, and
+   at 1024 sensors each route's device time from ``torch.profiler``;
 7. training-backward kernel against its plain version at Case4 widths,
    4 rows x 262144 points (a training batch: each row spans 4 chunks of
    the kernel) and 4 rows x 16384 points (one chunk holds every row):
@@ -302,7 +314,7 @@ def hmma_counts(path) -> dict:
 
 # kernels whose every instantiation must run its products on the tensor cores
 TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "siren_fwd",
-                       "siren_bwd_chain", "siren_bwd_reduce")
+                       "siren_bwd_chain", "siren_dz_chain", "siren_bwd_reduce")
 
 
 def phase_build():
@@ -476,60 +488,135 @@ def phase_forward(device, results):
 
 def dz_case(model, device, rows, points, seed):
     gen = torch.Generator(device=device).manual_seed(seed)
-    coords = torch.rand((points, 3), generator=gen, device=device) * 2 - 1
-    latents = torch.rand((rows, 384), generator=gen, device=device) * 2 - 1
-    g = torch.randn((rows, points, 3), generator=gen, device=device)
+    c_in, n_lat = model.net1[0].in_features, model.net2[0].in_features
+    coords = torch.rand((points, c_in), generator=gen, device=device) * 2 - 1
+    latents = torch.rand((rows, n_lat), generator=gen, device=device) * 2 - 1
+    g = torch.randn((rows, points, model.net1[-1].out_features), generator=gen, device=device)
     w_first, w_mid, w_head, _, w2, b1, scale = sd.stack_weights(model, model.w0)
     ops = [w_first, w_mid, w_head]
     z = sd.film_table(latents, w2, b1, scale)
     return coords, latents, g, z, ops, w2, scale
 
 
+def dz_check(model, device, rows, points, seed, label, against_bwd=False) -> float:
+    """dz kernel vs plain vs float64 on ``dL/dlatents`` at ``rows x
+    points`` under ``err_kernel <= 2 * err_plain + 1e-6``, two
+    launches bitwise equal, and with ``against_bwd`` the training
+    backward's dz under the same criterion and against the kernel's;
+    returns the kernel's error."""
+    coords, latents, g, z, ops, w2, scale = dz_case(model, device, rows, points, seed)
+    dl = lambda dz: torch.einsum("nth,nlh->tl", dz * scale, w2)
+    with torch.no_grad():
+        dz_k = sd.decode_dz(coords, z, g, *ops)
+        same = torch.equal(dz_k, sd.decode_dz(coords, z, g, *ops))
+        dl_k, dl_p = dl(dz_k), dl(sd.decode_dz_plain(coords, z, g, *ops))
+        dl_b = dl(sd.decode_bwd(coords, z, g, *ops)[0]) if against_bwd else None
+    truth = f64_dlatents(model, coords, latents, g, chunk=128)
+    err_k = (dl_k.double() - truth).abs().max().item()
+    err_p = (dl_p.double() - truth).abs().max().item()
+    top = truth.abs().max().item()
+    limit = 2 * err_p + 1e-6
+    ok = err_k <= limit and same and torch.isfinite(dl_k).all().item()
+    log(f"[dz] {label} {rows}x{points}: |dlatents kernel-f64| {err_k:.3e}, |plain-f64| "
+        f"{err_p:.3e}, max |f64| {top:.3e}, error / limit {err_k / limit:.3f}; two launches "
+        f"bitwise equal: {same} -> {'ok' if ok else 'FAIL'}")
+    if dl_b is not None:
+        err_b = (dl_b.double() - truth).abs().max().item()
+        diff = (dl_k - dl_b).abs().max().item()
+        good = err_b <= limit and diff <= limit
+        ok &= good
+        log(f"[dz] {label} {rows}x{points}: training backward's dz |dlatents bwd-f64| "
+            f"{err_b:.3e} (error / limit {err_b / limit:.3f}), |dz kernel - bwd| "
+            f"{diff:.3e} (/ limit {diff / limit:.3f}) -> {'ok' if good else 'FAIL'}")
+    if not ok:
+        raise SystemExit("dz kernel fails the f64-relative criterion, disagrees with the "
+                         "training backward or is not deterministic")
+    del dz_k, dl_k, dl_p, dl_b, truth
+    torch.cuda.empty_cache()
+    return err_k
+
+
+def peak_above(fn) -> float:
+    """Peak device memory of one call of ``fn`` above what was allocated
+    before it, in GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def dz_time(model, device, rows, points, seed) -> dict:
+    """The dz kernel at ``rows x points``: median of 7 separately timed
+    calls with the least and largest and the SM clocks around them, the
+    device time of the chain, the fold and the split (torch.profiler) with
+    the rate of products, the peak workspace, the plain version's time and
+    the bound."""
+    coords, _, g, z, ops, _, _ = dz_case(model, device, rows, points, seed)
+    fn = lambda: sd.decode_dz(coords, z, g, *ops)
+    n_mod, h = z.shape[0], z.shape[2]
+    c_in, c_out = coords.shape[1], g.shape[2]
+    pairs = rows * points
+    with torch.no_grad():
+        log(f"[dz-time] SM clock, max before: {sm_clocks()}")
+        ms, least, largest = cuda_median(fn, 1 if pairs > 65536 else 5)
+        log(f"[dz-time] SM clock, max after: {sm_clocks()}")
+        peak = peak_above(fn)
+        plain_ms = cuda_median(lambda: sd.decode_dz_plain(coords, z, g, *ops), 3, repeats=1)[0]
+        prof = device_profile(f"dz {rows}x{points}", fn, top=4)
+    dz_mib = 4 * z.numel() / 2**20
+    log(f"[dz-time] {rows}x{points}: peak memory above inputs {peak * 1024:.1f} MiB: dz "
+        f"{dz_mib:.1f} MiB and a workspace of {peak * 1024 - dz_mib:.1f} MiB (a chunk's "
+        f"pre-activations and partials, the split weights)")
+    products = pairs * 4 * (n_mod - 1) * h * h   # forward recompute and dx chain
+    for part, name in (("chain", "siren_dz_chain_kernel"), ("fold", "siren_dz_fold_kernel"),
+                       ("split", "siren_split_kernel")):
+        hits = [v for k, v in prof.items() if name in k]
+        dev_ms = sum(ms_ for ms_, _ in hits)
+        rate = (f", {products / dev_ms / 1e9:.2f} TFLOP/s of products"
+                if part == "chain" and dev_ms else "")
+        log(f"[dz-time] {rows}x{points} {part}: {dev_ms:.3f} ms device, "
+            f"{sum(n for _, n in hits)} launches{rate}")
+    mat = pairs * 2 * h * (c_in + 2 * (n_mod - 1) * h + c_out)
+    act = pairs * (2 * ACT_FLOPS + 2) * h * n_mod
+    nbytes = 4 * (points * c_in + n_mod * rows * h + pairs * c_out + c_in * h
+                  + (n_mod - 1) * h * h + h * c_out + n_mod * rows * h)
+    bound_ms, bound_by = tc_bound(mat, nbytes, act / PEAK_F32_FLOPS)
+    log(f"[dz] {rows}x{points}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median of 7 "
+        f"({products / ms / 1e9:.2f} TFLOP/s of products), plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}; every flop on the CUDA cores: "
+        f"{bound(mat + act, nbytes)[0]:.3f} ms); library: none (no single PyTorch call "
+        f"computes it; the operator's other route is timed in [crossover])")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                shape=f"{rows}x{points}")
+
+
 def phase_dz(device, results):
-    """dz kernel vs plain at Case4's 10 sensors and at 1024 points."""
+    """dz kernel vs plain vs float64 at Case4's 10 sensors, at 1024 points
+    (also against the training backward's dz), at a ragged 100 x 3000 that
+    cuts rows across blocks and chunks, and at Case2's widths; timed at
+    384 x 1024 and 384 x 10."""
     model = case4_decoder(device)
-    for rows, points in ((384, 10), (384, 1024)):
-        coords, latents, g, z, ops, w2, scale = dz_case(model, device, rows, points, seed=5)
-        with torch.no_grad():
-            dz_k = sd.decode_dz(coords, z, g, *ops)
-            dz_p = sd.decode_dz_plain(coords, z, g, *ops)
-            dl_k = torch.einsum("nth,nlh->tl", dz_k * scale, w2)
-            dl_p = torch.einsum("nth,nlh->tl", dz_p * scale, w2)
-        truth = f64_dlatents(model, coords, latents, g, chunk=128)
-        err_k = (dl_k.double() - truth).abs().max().item()
-        err_p = (dl_p.double() - truth).abs().max().item()
-        ok = err_k <= 2 * err_p + 1e-6 and torch.isfinite(dl_k).all().item()
-        log(f"[dz] {rows}x{points}: |dlatents kernel-f64| {err_k:.3e}, "
-            f"|plain-f64| {err_p:.3e} (max |truth| {truth.abs().max().item():.3e}) "
-            f"-> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit("dz kernel fails the f64-relative criterion")
-        del dz_p, truth
-        torch.cuda.empty_cache()
-        with torch.no_grad():
-            ms = cuda_median(lambda: sd.decode_dz(coords, z, g, *ops), 5, repeats=1)[0]
-            plain_ms = cuda_median(lambda: sd.decode_dz_plain(coords, z, g, *ops), 3, repeats=1)[0]
-        n_mod, h, c_in, c_out = z.shape[0], 384, 3, 3
-        pairs = rows * points
-        mat = pairs * 2 * h * (c_in + 2 * (n_mod - 1) * h + c_out)
-        act = pairs * (2 * ACT_FLOPS + 2) * h * n_mod
-        nbytes = 4 * (points * c_in + n_mod * rows * h + pairs * c_out + c_in * h
-                      + (n_mod - 1) * h * h + h * c_out + n_mod * rows * h)
-        bound_ms, bound_by = tc_bound(mat, nbytes, act / PEAK_F32_FLOPS)
-        log(f"[dz] {rows}x{points}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.3f} ms ({bound_by}; every flop on the CUDA cores: "
-            f"{bound(mat + act, nbytes)[0]:.3f} ms)")
+    err = {}
+    for rows, points in ((384, 10), (384, 1024), (100, 3000)):
+        err[rows, points] = dz_check(model, device, rows, points, 5, "case4",
+                                     against_bwd=points == 1024)
+    case2 = SirenFilm(**CASE2_CNF, generator=torch.Generator().manual_seed(2)).to(device)
+    dz_check(case2.requires_grad_(False), device, 3, 3000, 6, "case2")
+    del case2
+    for rows, points in ((384, 1024), (384, 10)):
         results[f"siren_decode_dz@{rows}x{points}"] = dict(
-            max_abs_err=err_k, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, shape=f"{rows}x{points}")
+            dz_time(model, device, rows, points, 5), max_abs_err=err[rows, points])
 
 
 def phase_crossover(device):
     """Operator gradient cost, plain autograd decode vs forward + dz kernels,
-    over sensor counts at 384 rows: where the operator's 65536 rule sits."""
+    over sensor counts at 384 rows: time and peak memory above inputs, where
+    the operator's 65536 rule sits."""
     model = case4_decoder(device)
     rows = []
-    for points in (10, 64, 128, 170, 256, 512, 1024):
+    for points in (10, 64, 128, 170, 256, 512, 1024, 2048):
         coords, latents, g, *_ = dz_case(model, device, 384, points, seed=7)
 
         def plain():
@@ -543,11 +630,16 @@ def phase_crossover(device):
             torch.autograd.grad((out * g).sum(), lat)
 
         t_plain = cuda_median(plain, 5, repeats=1)[0]
+        mem_plain = peak_above(plain)
+        torch.cuda.empty_cache()
         t_fused = cuda_median(fused, 5, repeats=1)[0]
-        rows.append({"points": points, "pairs": 384 * points,
-                     "plain_autograd_ms": t_plain, "fused_ms": t_fused})
-        log(f"[crossover] 384x{points} ({384 * points} pairs): plain autograd "
-            f"{t_plain:.3f} ms, forward+dz kernels {t_fused:.3f} ms")
+        mem_fused = peak_above(fused)
+        torch.cuda.empty_cache()
+        rows.append({"points": points, "pairs": 384 * points, "plain_autograd_ms": t_plain,
+                     "fused_ms": t_fused, "plain_peak_gib": mem_plain, "fused_peak_gib": mem_fused})
+        log(f"[crossover] 384x{points} ({384 * points} pairs): plain autograd {t_plain:.3f} ms, "
+            f"peak {mem_plain:.3f} GiB; "
+            f"forward+dz kernels {t_fused:.3f} ms, peak {mem_fused:.3f} GiB")
     log("[crossover] " + json.dumps(rows))
 
 
@@ -636,56 +728,66 @@ def profile_step(step) -> None:
 
 def phase_fused_dps(root, device):
     """One guided step's gradient through the full-width U-Net, with the
-    operator forced onto the kernels and onto the plain decode."""
+    operator forced onto the kernels and onto the plain decode, at Case4's
+    10 sensors and at 1024; at 1024 each route's device time."""
     T, L = CASE4_RECIPE["time_length"], CASE4_RECIPE["latent_size"]
     hp = cfgmod.basic_input(write_assets(root, 10))
     model, _ = sample_conditional.build_model_and_diffusion(hp)
     model = sample_conditional.load_unet(hp.ema_path, model).to(device).eval().requires_grad_(False)
     sampler = create_sampler(steps=hp.steps, noise_schedule=hp.noise_schedule,
                              timestep_respacing=hp.timestep_respacing)
-    y = torch.as_tensor(np.load(hp.sensor_measures), device=device)
     gen = torch.Generator(device=device).manual_seed(11)
     # a late step (internal index 1): at the first steps x0_hat is clamped
     # to [-1, 1] nearly everywhere and the gradient is almost all zero
     x_prev = 0.5 * torch.randn((1, 1, T, L), generator=gen, device=device)
     noise = torch.randn((1, 1, T, L), generator=gen, device=device)
     t = torch.full((1,), 1, dtype=torch.long)
-    grads, step_ms = {}, {}
-    for use_pallas in (False, True):
-        op = get_operator("case4", coords_path=hp.sensor_coords, max_val_path=hp.data_max,
-                          min_val_path=hp.data_min, normalizer_params_path=hp.cnf_normalizer,
-                          ckpt_path=hp.cnf_checkpoint, device=device)
-        op.use_pallas = use_pallas
-        method = get_conditioning_method("ps", op, get_noise("gaussian", sigma=0.0), scale=1.0)
+    for n_sensors in (10, 1024):
+        assets = write_assets(root, n_sensors)
+        y = torch.as_tensor(np.load(assets["sensor_measures"]), device=device)
+        grads = {}
+        for use_pallas in (False, True):
+            op = get_operator("case4", coords_path=assets["sensor_coords"],
+                              max_val_path=hp.data_max, min_val_path=hp.data_min,
+                              normalizer_params_path=hp.cnf_normalizer,
+                              ckpt_path=hp.cnf_checkpoint, device=device)
+            op.use_pallas = use_pallas
+            method = get_conditioning_method("ps", op, get_noise("gaussian", sigma=0.0),
+                                             scale=1.0)
 
-        def grad():
-            x = x_prev.clone().requires_grad_(True)
-            out = sampler.diffusion.p_sample(model, x, t, noise=noise)
-            norm = method.misfit(out["pred_xstart"], y)
-            return torch.autograd.grad(norm.sum(), x)[0]
-        sd.reset_launch_counts()
-        grads[use_pallas] = grad()
-        torch.cuda.synchronize()
-        counts = dict(sd.LAUNCHES)
-        if use_pallas and (counts["siren_decode_forward"] == 0 or counts["siren_decode_dz"] == 0):
-            raise SystemExit(f"forced fused DPS step launched {counts}")
-        step_ms[use_pallas] = cuda_median(
-            lambda: sampler._one_step(model, x_prev, t, y, method, noise=noise,
-                                      measurement_noise=torch.zeros_like(y)), 3, repeats=1)[0]
-        log(f"[dps] use_pallas={use_pallas}: launches {counts}, guided step "
-            f"{step_ms[use_pallas]:.1f} ms")
-        if not use_pallas:      # the path Case4's 10 sensors take
-            profile_step(lambda: sampler._one_step(
-                model, x_prev, t, y, method, noise=noise,
-                measurement_noise=torch.zeros_like(y)))
-    a, b = grads[True], grads[False]
-    rel = ((a - b).norm() / b.norm()).item()
-    ok = rel <= GRAD_REL_TOL and torch.isfinite(a).all().item() and b.norm().item() > 0
-    log(f"[dps] grad wrt x_prev, kernels vs plain decode: rel L2 {rel:.3e} "
-        f"(tol {GRAD_REL_TOL}), max abs {(a - b).abs().max().item():.3e}, "
-        f"|grad| {b.norm().item():.3e} -> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("fused DPS gradient disagrees with the plain decode")
+            def grad():
+                x = x_prev.clone().requires_grad_(True)
+                out = sampler.diffusion.p_sample(model, x, t, noise=noise)
+                norm = method.misfit(out["pred_xstart"], y)
+                return torch.autograd.grad(norm.sum(), x)[0]
+
+            def step():
+                sampler._one_step(model, x_prev, t, y, method, noise=noise,
+                                  measurement_noise=torch.zeros_like(y))
+            sd.reset_launch_counts()
+            grads[use_pallas] = grad()
+            torch.cuda.synchronize()
+            counts = dict(sd.LAUNCHES)
+            if use_pallas and (counts["siren_decode_forward"] == 0
+                               or counts["siren_decode_dz"] == 0):
+                raise SystemExit(f"forced fused DPS step launched {counts}")
+            step_ms = cuda_median(step, 3, repeats=1)[0]
+            log(f"[dps] {n_sensors} sensors, use_pallas={use_pallas}: launches {counts}, "
+                f"guided step {step_ms:.1f} ms")
+            if n_sensors == 10 and not use_pallas:   # the path Case4's 10 sensors take
+                profile_step(step)
+            elif n_sensors == 1024:
+                device_profile(f"one guided step, 1024 sensors, "
+                               f"{'forward + dz kernels' if use_pallas else 'plain decode'}",
+                               step, top=3)
+        a, b = grads[True], grads[False]
+        rel = ((a - b).norm() / b.norm()).item()
+        ok = rel <= GRAD_REL_TOL and torch.isfinite(a).all().item() and b.norm().item() > 0
+        log(f"[dps] {n_sensors} sensors, grad wrt x_prev, kernels vs plain decode: rel L2 "
+            f"{rel:.3e} (tol {GRAD_REL_TOL}), max abs {(a - b).abs().max().item():.3e}, "
+            f"|grad| {b.norm().item():.3e} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("fused DPS gradient disagrees with the plain decode")
 
 
 # ---------------------------------------------------------------------------
@@ -1400,7 +1502,7 @@ def main() -> int:
     for kname, key, src, replaces in (
             ("siren_decode_forward", "siren_decode_forward", "siren_decode.cu",
              "siren_decode.py:96"),
-            ("siren_decode_dz", "siren_decode_dz@384x1024", "siren_decode.cu",
+            ("siren_decode_dz", "siren_decode_dz@384x1024", "siren_decode_bwd.cu",
              "siren_decode.py:315"),
             ("siren_decode_bwd", "siren_decode_bwd", "siren_decode_bwd.cu",
              "siren_decode.py:434"),

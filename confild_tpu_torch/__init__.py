@@ -5,9 +5,10 @@ The package mirrors the JAX package's layout (``core/``, ``models/``,
 keeps the reference PyTorch state-dict keys, so reference ``.pt`` files and
 the JAX package's ``.ckpt`` pytrees both load (``io/convert.py``).
 
-It imports neither ``jax`` nor ``confild_tpu``.  The two SIREN-FiLM decode
+It imports neither ``jax`` nor ``confild_tpu``.  The SIREN-FiLM decode
 kernels (``ops/siren_decode.py``) are hand-written CUDA C++ for ``sm_90a``
-(``csrc/siren_decode.cu``), built with ``nvcc`` at first use.  Entry points
+(``csrc/siren_decode.cu``, ``csrc/siren_decode_bwd.cu``), built with
+``nvcc`` at first use.  Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -1,8 +1,7 @@
-// SIREN-FiLM decode kernels for Hopper (sm_90a): float32 results; the
-// forward's hidden-by-hidden products on the tensor cores as 3xTF32, the dz
-// kernel in float32 on the CUDA cores.
+// SIREN-FiLM decode kernels for Hopper (sm_90a): float32 results, every
+// hidden-by-hidden product on the tensor cores as 3xTF32.
 //
-// Both kernels take operands that the Python wrapper
+// The kernel takes operands that the Python wrapper
 // (confild_tpu_torch/ops/siren_decode.py) has already folded: the first and
 // middle weights and the FiLM table z are scaled by w0 / (2*pi), so every
 // pre-activation is "in turns" and the activation is sin2pi(r) = sin(2*pi*r),
@@ -14,10 +13,9 @@
 //   coords  (M, C_in)          normalized query points
 //   z       (n_mod, T, H)      scaled FiLM rows  z_l = (latents @ W2_l + b1_l) * s
 //   w_first (C_in, H)          scaled first weight  [in][out]
-//   w_mid   (n_mod - 1, H, H)  scaled middle weights [in][out]
-//   w_mid_t (n_mod - 1, H, H)  the same, transposed  [out][in]   (dz only)
-//   wsplit  (n_mod - 1) x 2 H^2 the middle weights split into TF32 halves in
-//                              B-fragment order (siren_tc.cuh; forward only)
+//   wsplit  the middle weights (n_mod - 1, H, H) split into TF32 halves in
+//           B-fragment order (siren_tc.cuh): the forward's n_mod - 1
+//           products
 //   w_head  (H, C_out), b_head (C_out)
 //
 // ---------------------------------------------------------------------------
@@ -48,22 +46,8 @@
 // Known cost: every block rereads the whole split stream from L2, 64 pairs
 // a read (1.16 TB per 16 x 262144 call at Case4).
 //
-// siren_decode_dz replaces the Pallas kernel _decode_dz_kernel
-// (confild_tpu/ops/siren_decode.py:315, launched at :393 by
-// fused_siren_decode_dz).
-//
-// Bound on the H100: operations (a forward recompute plus a backward of the
-// same size, about twice the forward's flops).  The TPU kernel accumulates
-// dz across a sequential grid; Hopper blocks run in no order, so here one
-// block owns whole latent rows (grid-stride over t) and walks that row's
-// points in chunks of TP, keeping dz[l][j] for its row in shared memory
-// (thread j owns column j: deterministic, no atomics).  The n_mod
-// pre-activations of a chunk (n_mod * TP * H floats, 786 KB at Case4) do not
-// fit in shared memory; they go to a per-block slice of a global workspace
-// that only the writing thread reads back.  The backward product
-// dx = dpre @ W_l^T reads W_l^T (w_mid_t) so that it is coalesced as well.
-// Known cost: at Case4's 10 sensors per row, a chunk holds 10 live pairs of
-// TP and each block rereads every weight for them.
+// The dz kernel (the DPS guidance gradient) is the training chain's dz mode
+// and lives with it in siren_decode_bwd.cu.
 // ---------------------------------------------------------------------------
 
 #include "siren_common.cuh"
@@ -71,12 +55,7 @@
 
 namespace {
 
-using siren::MAX_THREADS;
-using siren::TP;
-using siren::TWO_PI;
-using siren::first_layer;
 using siren::sin2pi;
-using siren::tile_matmul;
 
 // ---------------------------------------------------------------------------
 // forward: eight warps over 64 pairs (siren_tc.cuh)
@@ -176,121 +155,9 @@ int launch_fwd(const float* coords, const float* z, const float* w_first, const 
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// dz: one thread per hidden unit (blockDim.x == H, H % 32 == 0, H <= 512)
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(MAX_THREADS)
-siren_dz_kernel(const float* __restrict__ coords,
-                const float* __restrict__ z,
-                const float* __restrict__ g,
-                const float* __restrict__ w_first,
-                const float* __restrict__ w_mid,
-                const float* __restrict__ w_mid_t,
-                const float* __restrict__ w_head,
-                float* __restrict__ dz,
-                float* __restrict__ workspace,
-                int T, int M, int C_in, int H, int n_mod, int C_out) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                     // TP * H: activations, then dpre
-  float* dzs = xs + TP * H;             // n_mod * H row accumulators
-  float* cs = dzs + n_mod * H;          // TP * C_in
-  float* gs = cs + TP * C_in;           // TP * C_out
-
-  const int j = threadIdx.x;
-  // pre-activations of this block's chunk: [l][p][j]; thread j only ever
-  // reads back what it wrote, so no synchronisation guards it
-  float* pre = workspace + (size_t)blockIdx.x * n_mod * TP * H;
-
-  for (int t = blockIdx.x; t < T; t += gridDim.x) {
-    for (int l = 0; l < n_mod; ++l) dzs[l * H + j] = 0.f;
-
-    for (int m0 = 0; m0 < M; m0 += TP) {
-      __syncthreads();  // the previous chunk is done with cs, gs and xs
-      for (int i = j; i < TP * C_in; i += blockDim.x) {
-        const int m = m0 + i / C_in;
-        cs[i] = m < M ? coords[(size_t)m * C_in + i % C_in] : 0.f;
-      }
-      for (int i = j; i < TP * C_out; i += blockDim.x) {
-        const int m = m0 + i / C_out;
-        // masked pairs get g = 0, so they add nothing to dz
-        gs[i] = m < M ? g[((size_t)t * M + m) * C_out + i % C_out] : 0.f;
-      }
-      __syncthreads();
-
-      // forward recompute, storing every pre-activation r_l
-      float acc[TP];
-      first_layer(cs, w_first, C_in, H, j, acc);
-      {
-        const float zj = z[(size_t)t * H + j];
-#pragma unroll
-        for (int p = 0; p < TP; ++p) {
-          const float r = acc[p] + zj;
-          pre[p * H + j] = r;
-          xs[p * H + j] = sin2pi(r);
-        }
-      }
-      __syncthreads();
-      for (int l = 1; l < n_mod; ++l) {
-#pragma unroll
-        for (int p = 0; p < TP; ++p) acc[p] = 0.f;
-        tile_matmul(xs, w_mid + (size_t)(l - 1) * H * H, H, H, j, acc);
-        __syncthreads();
-        const float zj = z[((size_t)l * T + t) * H + j];
-        float* pre_l = pre + (size_t)l * TP * H;
-#pragma unroll
-        for (int p = 0; p < TP; ++p) {
-          const float r = acc[p] + zj;
-          pre_l[p * H + j] = r;
-          xs[p * H + j] = sin2pi(r);
-        }
-        __syncthreads();
-      }
-
-      // backward: dx = g @ w_head^T, then per layer dpre = dx * 2pi cos2pi(r)
-      float dx[TP];
-#pragma unroll
-      for (int p = 0; p < TP; ++p) dx[p] = 0.f;
-      for (int o = 0; o < C_out; ++o) {
-        const float w = __ldg(w_head + (size_t)j * C_out + o);
-#pragma unroll
-        for (int p = 0; p < TP; ++p) dx[p] = fmaf(gs[p * C_out + o], w, dx[p]);
-      }
-      for (int l = n_mod - 1; l >= 0; --l) {
-        const float* pre_l = pre + (size_t)l * TP * H;
-        float dsum = 0.f;
-#pragma unroll
-        for (int p = 0; p < TP; ++p) {
-          dx[p] *= TWO_PI * sin2pi(pre_l[p * H + j] + 0.25f);  // d sin2pi / dr
-          dsum += dx[p];
-        }
-        dzs[l * H + j] += dsum;
-        if (l > 0) {
-#pragma unroll
-          for (int p = 0; p < TP; ++p) xs[p * H + j] = dx[p];
-          __syncthreads();
-#pragma unroll
-          for (int p = 0; p < TP; ++p) acc[p] = 0.f;
-          tile_matmul(xs, w_mid_t + (size_t)(l - 1) * H * H, H, H, j, acc);
-          __syncthreads();
-#pragma unroll
-          for (int p = 0; p < TP; ++p) dx[p] = acc[p];
-        }
-      }
-    }
-    for (int l = 0; l < n_mod; ++l) dz[((size_t)l * T + t) * H + j] = dzs[l * H + j];
-  }
-}
-
-size_t dz_smem_bytes(int H, int n_mod, int C_in, int C_out) {
-  return sizeof(float) * ((size_t)TP * H + (size_t)n_mod * H + (size_t)TP * (C_in + C_out));
-}
-
 }  // namespace
 
 extern "C" {
-
-int siren_tile_pairs() { return TP; }
 
 int siren_fwd_shape_ok(int H, int n_mod, int C_in, int C_out) {
   return siren_tc::shape_ok(H, n_mod, C_in, C_out) ? 1 : 0;
@@ -324,21 +191,6 @@ int siren_decode_forward(const float* coords, const float* z, const float* w_fir
   }
 #undef SIREN_FWD
   return (int)cudaErrorInvalidValue;
-}
-
-int siren_decode_dz(const float* coords, const float* z, const float* g, const float* w_first,
-                    const float* w_mid, const float* w_mid_t, const float* w_head, float* dz,
-                    float* workspace, int grid, int T, int M, int C_in, int H, int n_mod,
-                    int C_out, void* stream) {
-  if (!siren::shape_ok(H, n_mod, C_in, C_out) || T <= 0 || M <= 0 || grid <= 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = dz_smem_bytes(H, n_mod, C_in, C_out);
-  cudaError_t err = cudaFuncSetAttribute(siren_dz_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  siren_dz_kernel<<<grid, H, smem, (cudaStream_t)stream>>>(
-      coords, z, g, w_first, w_mid, w_mid_t, w_head, dz, workspace, T, M, C_in, H, n_mod, C_out);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

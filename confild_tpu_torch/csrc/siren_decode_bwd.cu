@@ -1,7 +1,8 @@
-// SIREN-FiLM training backward for Hopper (sm_90a): float32 results, the
-// hidden-by-hidden matrix products on the tensor cores as 3xTF32.
+// SIREN-FiLM training backward and dz kernels for Hopper (sm_90a): float32
+// results, the hidden-by-hidden matrix products on the tensor cores as
+// 3xTF32.
 //
-// Replaces the Pallas kernel _decode_bwd_kernel
+// siren_decode_bwd replaces the Pallas kernel _decode_bwd_kernel
 // (confild_tpu/ops/siren_decode.py:434, launched at :523 by
 // fused_siren_decode_bwd): every training cotangent of the decode on the
 // folded operands of siren_decode.cu (w_first, w_mid and z scaled by
@@ -39,9 +40,12 @@
 //   halves and laid out as mma.sync B fragments: a lane's four values (big
 //   and small of its two k rows) are one 16-byte load.  35 MB at Case4, read
 //   by every chain block from L2.
-// * siren_bwd_chain_kernel (its product, chain_product, is siren_tc.cuh's,
-//   shared with the forward): a block owns CP = 64 pairs (the M dimension of
-//   every product) and keeps their 64 x H activations in shared memory.
+// * siren_bwd_chain_kernel: the training mode of siren_tc.cuh's chain_body,
+//   whose dz mode is the dz kernel below (the same forward recompute and dx
+//   chain, writing per-row sums of dpre instead of D; its product,
+//   chain_product, is the forward's too): a block owns CP = 64
+//   pairs (the M dimension of every product) and keeps their 64 x H
+//   activations in shared memory.
 //   Eight warps each own H / 8 output columns for all 64 rows, 96
 //   accumulators a thread at H = 384.  The weights stream as 16-row
 //   K-slices through a two-stage cp.async buffer, one continuous stream
@@ -79,6 +83,33 @@
 // mma.sync.  wgmma (asynchronous, operands from shared memory) is the way
 // past both; TF32 wgmma wants both operands K-major, which the pair-major
 // workspace and the activation tile are not.
+//
+// ---------------------------------------------------------------------------
+// siren_decode_dz replaces the Pallas kernel _decode_dz_kernel
+// (confild_tpu/ops/siren_decode.py:315, launched at :393 by
+// fused_siren_decode_dz): dL/dz_l for every layer, (n_mod, T, H), the sum
+// over each row's points of dpre_l.
+//
+// Bound on the H100: operations.  A pair costs the forward recompute and
+// the dx chain, 2 x 2 (n_mod - 1) H^2 flops of products (8.85 MFLOP at
+// Case4), against 24 bytes of coordinates and cotangent; 384 x 1024 pairs
+// take at least 21.1 ms at the tensor cores' 3xTF32 rate.
+//
+// Design: the chain in its dz mode, one block per 64 pairs whatever the row
+// length, so a call with few points per row still fills the card.  The
+// weights are split as for the training backward (siren_bwd_split), and the
+// host walks the same chunks of at most BWD_PAIRS pairs, so the workspace is
+// bounded by a chunk, not by T x M.  Per chunk:
+// * siren_dz_chain_kernel: the forward recompute stores every r_l (R, as in
+//   training mode), then the dx chain; after each layer the block sums
+//   dpre_l over its 64 pairs in pair order, one sum per latent row they
+//   touch, into its partial parts[block][l][slot][H] (slot: the row less
+//   the row of the block's first pair; dz_slots(M) of them, 8 when M = 10,
+//   2 when M >= 64);
+// * siren_dz_fold_kernel: each (layer, row, column) of dz adds the partials
+//   of the blocks that hold the row, in block order, to what earlier chunks
+//   left there.
+// No atomics: two launches are bitwise equal.
 // ---------------------------------------------------------------------------
 
 #include <stdint.h>
@@ -88,7 +119,6 @@
 
 namespace {
 
-using siren::TWO_PI;
 using siren::sin2pi;
 using namespace siren_tc;  // THREADS (every kernel but the sums), CP, KS, A_PAD, MAX_C
 
@@ -113,12 +143,8 @@ __host__ __device__ inline int slice_len(int Q, int slices) {
 // chain
 // ---------------------------------------------------------------------------
 
-size_t chain_smem_bytes(int H) {
-  return sizeof(float) * ((size_t)CP * (H + A_PAD) + 2 * (size_t)kslice_floats(H) +
-                          2 * (size_t)CP * MAX_C) + sizeof(int) * CP;
-}
-
-// Workspace: R[l][q][j] and D[l][q][j], layer stride Qa * H.
+// Workspace: R[l][q][j] and D[l][q][j], layer stride Qa * H (the chain's
+// training mode, siren_tc.cuh)
 template <int NT>
 __global__ void __launch_bounds__(THREADS, 1)
 siren_bwd_chain_kernel(const float* __restrict__ coords,
@@ -131,101 +157,63 @@ siren_bwd_chain_kernel(const float* __restrict__ coords,
                        float* __restrict__ D,
                        long long p0, int Q, int Qa, int T, int M, int C_in,
                        int n_mod, int C_out) {
-  constexpr int H = NT * 64;
-  constexpr int lda = H + A_PAD;
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                              // CP x (H + A_PAD): activations, then dpre
-  float* stage = As + CP * lda;                  // two K-slices
-  float* cs = stage + 2 * kslice_floats(H);      // CP x C_in
-  float* gs = cs + CP * MAX_C;                   // CP x C_out
-  int* zrow = reinterpret_cast<int*>(gs + CP * MAX_C);  // CP row offsets t * H
+  chain_body<NT, false>(smem, coords, z, g, w_first, wstream, w_head, R, D, p0, Q, Qa, T, M,
+                        C_in, n_mod, C_out, 0);
+}
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * CP;
-  const size_t lstride = (size_t)Qa * H;
-  const int u_total = 2 * (n_mod - 1) * (H / KS);
-  int u = 0;
-  issue_kslice(stage, wstream, 0, u_total, H);
+// latent rows that the CP consecutive pairs of one block can touch when a
+// row has M points, ceil((CP - 1) / M) + 1: the slots of a block's dz
+// partial
+__host__ __device__ inline int dz_slots(int M) {
+  const int s = (CP - 2 + M) / M + 1;
+  return s < CP ? s : CP;
+}
 
-  for (int i = tid; i < CP * C_in; i += THREADS) {
-    const int q = q0 + i / C_in;
-    cs[i] = q < Q ? coords[((p0 + q) % M) * C_in + i % C_in] : 0.f;
-  }
-  for (int i = tid; i < CP * C_out; i += THREADS) {
-    const int q = q0 + i / C_out;
-    // masked pairs get g = 0, so their dpre is 0
-    gs[i] = q < Q ? g[(p0 + q) * C_out + i % C_out] : 0.f;
-  }
-  for (int p = tid; p < CP; p += THREADS) {
-    const int q = q0 + p < Q ? q0 + p : Q - 1;
-    zrow[p] = (int)((p0 + q) / M) * H;
-  }
-  __syncthreads();
+// Workspace: R as above and the blocks' partials parts[block][l][slot][j]
+// (the chain's dz mode)
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+siren_dz_chain_kernel(const float* __restrict__ coords,
+                      const float* __restrict__ z,
+                      const float* __restrict__ g,
+                      const float* __restrict__ w_first,
+                      const float* __restrict__ wstream,
+                      const float* __restrict__ w_head,
+                      float* __restrict__ R,
+                      float* __restrict__ parts,
+                      long long p0, int Q, int Qa, int T, int M, int C_in,
+                      int n_mod, int C_out) {
+  extern __shared__ __align__(16) float smem[];
+  chain_body<NT, true>(smem, coords, z, g, w_first, wstream, w_head, R, parts, p0, Q, Qa, T, M,
+                       C_in, n_mod, C_out, dz_slots(M));
+}
 
-  float acc[4][NT][4];
-  // first layer on the CUDA cores: r_0 = coords . w_first + z_0
-  first_layer_frags<NT>(cs, w_first, C_in, H, acc);
-
-  // forward recompute: store r_l, keep sin2pi(r_l) as the next A
-  for (int l = 0; l < n_mod; ++l) {
-    if (l > 0) {
-      chain_product<NT>(As, stage, wstream, u, u_total, H, acc);
-      __syncthreads();  // every warp is done reading As
+// one thread per (layer, row of the chunk, column): dz += the partials of
+// the chunk's blocks that hold the row, in block order
+__global__ void __launch_bounds__(THREADS)
+siren_dz_fold_kernel(const float* __restrict__ parts, float* __restrict__ dz, long long p0,
+                     int Q, int T, int M, int H, int n_mod) {
+  const int slots = dz_slots(M);
+  const long long t_lo = p0 / M;
+  const int rows = (int)((p0 + Q - 1) / M - t_lo + 1);
+  const long long total = (long long)n_mod * rows * H;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const int j = (int)(e % H);
+    const int r = (int)((e / H) % rows);
+    const int l = (int)(e / H / rows);
+    const long long t = t_lo + r;
+    // the row's pairs in the chunk: q in [a, b)
+    const int a = (int)((t * M > p0 ? t * M : p0) - p0);
+    const int b = (int)(((t + 1) * M < p0 + Q ? (t + 1) * M : p0 + Q) - p0);
+    float* out = dz + ((size_t)l * T + t) * H + j;
+    float acc = *out;
+    for (int bk = a / CP; bk <= (b - 1) / CP; ++bk) {
+      const long long slot = t - (p0 + (long long)bk * CP) / M;
+      acc += parts[(((size_t)bk * n_mod + l) * slots + slot) * H + j];
     }
-    const float* zl = z + (size_t)l * T * H;
-    float* Rl = R + l * lstride + (size_t)q0 * H;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          int row, col;
-          frag_pos<NT>(mt, nt, h, row, col);
-          const float2 zz = *reinterpret_cast<const float2*>(zl + zrow[row] + col);
-          const float2 r = make_float2(acc[mt][nt][2 * h] + zz.x, acc[mt][nt][2 * h + 1] + zz.y);
-          *reinterpret_cast<float2*>(Rl + (size_t)row * H + col) = r;
-          *reinterpret_cast<float2*>(As + row * lda + col) = make_float2(sin2pi(r.x), sin2pi(r.y));
-        }
-  }
-
-  // backward, the head on the CUDA cores: dx = g . w_head^T
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int row, col;
-        frag_pos<NT>(mt, nt, e / 2, row, col);
-        col += e % 2;
-        float a = 0.f;
-        for (int o = 0; o < C_out; ++o)
-          a = fmaf(gs[row * C_out + o], __ldg(w_head + (size_t)col * C_out + o), a);
-        acc[mt][nt][e] = a;
-      }
-  // per layer dpre = dx * 2pi cos2pi(r) (r read back where this thread wrote
-  // it), then dx = dpre . W_l^T
-  for (int l = n_mod - 1; l >= 0; --l) {
-    const float* Rl = R + l * lstride + (size_t)q0 * H;
-    float* Dl = D + l * lstride + (size_t)q0 * H;
-    if (l > 0) __syncthreads();  // every warp is done reading As
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          int row, col;
-          frag_pos<NT>(mt, nt, h, row, col);
-          const float2 r = *reinterpret_cast<const float2*>(Rl + (size_t)row * H + col);
-          float2 d;
-          d.x = acc[mt][nt][2 * h] * (TWO_PI * sin2pi(r.x + 0.25f));  // d sin2pi / dr
-          d.y = acc[mt][nt][2 * h + 1] * (TWO_PI * sin2pi(r.y + 0.25f));
-          *reinterpret_cast<float2*>(Dl + (size_t)row * H + col) = d;
-          if (l > 0) *reinterpret_cast<float2*>(As + row * lda + col) = d;
-        }
-    if (l > 0) chain_product<NT>(As, stage, wstream, u, u_total, H, acc);
+    *out = acc;
   }
 }
 
@@ -521,19 +509,43 @@ siren_bwd_fold_kernel(const float* __restrict__ parts, float* __restrict__ out, 
   }
 }
 
-template <int NT>
+// the chain over a chunk of Q pairs, one block per CP pairs: training mode
+// (DZ_MODE false) writes D into out, dz mode the blocks' partials
+template <int NT, bool DZ_MODE>
 int launch_chain(const float* coords, const float* z, const float* g, const float* w_first,
-                 const float* wsplit, const float* w_head, float* R, float* D, long long p0,
+                 const float* wsplit, const float* w_head, float* R, float* out, long long p0,
                  int Q, int Qa, int T, int M, int C_in, int n_mod, int C_out,
                  cudaStream_t stream) {
   static unsigned long long done = 0;
+  const auto kernel = DZ_MODE ? siren_dz_chain_kernel<NT> : siren_bwd_chain_kernel<NT>;
   const size_t smem = chain_smem_bytes(NT * 64);
-  cudaError_t err = allow_smem(siren_bwd_chain_kernel<NT>, smem, done);
+  cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
   const unsigned int blocks = (unsigned int)((Q + CP - 1) / CP);
-  siren_bwd_chain_kernel<NT><<<blocks, THREADS, smem, stream>>>(
-      coords, z, g, w_first, wsplit, w_head, R, D, p0, Q, Qa, T, M, C_in, n_mod, C_out);
+  kernel<<<blocks, THREADS, smem, stream>>>(coords, z, g, w_first, wsplit, w_head, R, out, p0,
+                                            Q, Qa, T, M, C_in, n_mod, C_out);
   return (int)cudaGetLastError();
+}
+
+// the width's instantiation of launch_chain
+template <bool DZ_MODE>
+int chain(const float* coords, const float* z, const float* g, const float* w_first,
+          const float* wsplit, const float* w_head, float* R, float* out, long long p0, int Q,
+          int Qa, int T, int M, int C_in, int H, int n_mod, int C_out, cudaStream_t stream) {
+#define SIREN_CHAIN(NT)                                                                    \
+  case NT:                                                                                 \
+    return launch_chain<NT, DZ_MODE>(coords, z, g, w_first, wsplit, w_head, R, out, p0, Q, \
+                                     Qa, T, M, C_in, n_mod, C_out, stream);
+  switch (H / 64) {
+    SIREN_CHAIN(1)
+    SIREN_CHAIN(2)
+    SIREN_CHAIN(3)
+    SIREN_CHAIN(4)
+    SIREN_CHAIN(5)
+    SIREN_CHAIN(6)
+  }
+#undef SIREN_CHAIN
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -558,21 +570,8 @@ int siren_bwd_chain(const float* coords, const float* z, const float* g, const f
   if (!shape_ok(H, n_mod, C_in, C_out) || T <= 0 || M <= 0 || Q <= 0 || Qa < Q ||
       Qa % CP != 0 || (n_mod > 1 && wsplit == nullptr))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define SIREN_CHAIN(NT)                                                                     \
-  case NT:                                                                                  \
-    return launch_chain<NT>(coords, z, g, w_first, wsplit, w_head, R, D, p0, Q, Qa, T, M, \
-                            C_in, n_mod, C_out, s);
-  switch (H / 64) {
-    SIREN_CHAIN(1)
-    SIREN_CHAIN(2)
-    SIREN_CHAIN(3)
-    SIREN_CHAIN(4)
-    SIREN_CHAIN(5)
-    SIREN_CHAIN(6)
-  }
-#undef SIREN_CHAIN
-  return (int)cudaErrorInvalidValue;
+  return chain<false>(coords, z, g, w_first, wsplit, w_head, R, D, p0, Q, Qa, T, M, C_in, H,
+                      n_mod, C_out, (cudaStream_t)stream);
 }
 
 int siren_bwd_reduce(const float* R, const float* D, float* parts, long long E,
@@ -609,6 +608,30 @@ int siren_bwd_fold(const float* parts, float* out, long long E, int slices, void
   const long long want = (E + THREADS - 1) / THREADS;
   const unsigned int blocks = (unsigned int)(want < 4096 ? want : 4096);
   siren_bwd_fold_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(parts, out, E, slices);
+  return (int)cudaGetLastError();
+}
+
+int siren_dz_slots(int M) { return M > 0 ? dz_slots(M) : 0; }
+
+// One chunk of dz: the pairs p0 .. p0 + Q - 1, with R (n_mod, Qa, H) and
+// parts (Qa / CP, n_mod, siren_dz_slots(M), H) its workspace; the chain,
+// then the fold into dz (zeroed before the first chunk).
+int siren_decode_dz(const float* coords, const float* z, const float* g, const float* w_first,
+                    const float* wsplit, const float* w_head, float* R, float* parts, float* dz,
+                    long long p0, int Q, int Qa, int T, int M, int C_in, int H, int n_mod,
+                    int C_out, void* stream) {
+  if (!shape_ok(H, n_mod, C_in, C_out) || T <= 0 || M <= 0 || Q <= 0 || Qa < Q ||
+      Qa % CP != 0 || p0 < 0 || p0 + Q > (long long)T * M || (long long)T * H > 2147483647LL ||
+      (n_mod > 1 && wsplit == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int err = chain<true>(coords, z, g, w_first, wsplit, w_head, R, parts, p0, Q, Qa, T, M,
+                              C_in, H, n_mod, C_out, s);
+  if (err != 0) return err;
+  const long long rows = (p0 + Q - 1) / M - p0 / M + 1;
+  const long long want = (n_mod * rows * H + THREADS - 1) / THREADS;
+  const unsigned int blocks = (unsigned int)(want < 4096 ? want : 4096);
+  siren_dz_fold_kernel<<<blocks, THREADS, 0, s>>>(parts, dz, p0, Q, T, M, H, n_mod);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,11 @@
-// Tensor-core pieces shared by the SIREN-FiLM decode forward
-// (siren_decode.cu, siren_fwd_kernel) and the training backward's chain
-// (siren_decode_bwd.cu, siren_bwd_chain_kernel): the middle weights split
-// once a call into 3xTF32 B fragments, and the product of a block's CP x H
-// activation tile with one of them, streamed through a two-stage cp.async
-// buffer of K-slices.
+// Tensor-core pieces shared by the SIREN-FiLM decode kernels: the middle
+// weights split once a call into 3xTF32 B fragments, the product of a
+// block's CP x H activation tile with one of them, streamed through a
+// two-stage cp.async buffer of K-slices (the forward, siren_fwd_kernel in
+// siren_decode.cu, and the chain), and the chain itself: a forward
+// recompute then the dx chain, in two modes, the training backward's
+// (siren_bwd_chain_kernel) and dz's (siren_dz_chain_kernel), both in
+// siren_decode_bwd.cu.
 //
 // A block owns CP = 64 (row, point) pairs (the M dimension of every
 // product) and keeps their activations in shared memory, row stride
@@ -16,6 +18,7 @@
 
 #include <stdint.h>
 
+#include "siren_common.cuh"
 #include "tf32_mma.cuh"
 
 namespace siren_tc {
@@ -192,6 +195,165 @@ __device__ __forceinline__ void first_layer_frags(const float* cs, const float* 
           a = fmaf(cs[row * C_in + c], __ldg(w_first + (size_t)c * H + col), a);
         acc[mt][nt][e] = a;
       }
+}
+
+// ---------------------------------------------------------------------------
+// the chain: forward recompute, then the dx chain
+// ---------------------------------------------------------------------------
+
+// dynamic shared memory of a chain block
+inline size_t chain_smem_bytes(int H) {
+  return sizeof(float) * ((size_t)CP * (H + A_PAD) + 2 * (size_t)kslice_floats(H) +
+                          2 * (size_t)CP * MAX_C) + sizeof(int) * CP;
+}
+
+// dz mode: thread j sums column j of the tile's first n rows (dpre of the
+// block's pairs) in row order, one sum per latent row, into that row's
+// slot: the row less the row of the block's first pair
+template <int H>
+__device__ __forceinline__ void row_sums(const float* As, const int* zrow, float* part, int n) {
+  constexpr int lda = H + A_PAD;
+  for (int j = threadIdx.x; j < H; j += THREADS) {
+    int slot = 0;
+    float s = 0.f;
+    for (int r = 0; r < n; ++r) {
+      const int rs = (zrow[r] - zrow[0]) / H;
+      if (rs != slot) {
+        part[(size_t)slot * H + j] = s;
+        s = 0.f;
+        slot = rs;
+      }
+      s += As[r * lda + j];
+    }
+    part[(size_t)slot * H + j] = s;
+  }
+}
+
+// The chain over a block's CP pairs q0 .. q0 + CP - 1 (q0 = blockIdx.x * CP)
+// of a chunk of Q pairs that starts at pair p0 (pair p = t * M + m): the
+// forward recompute stores every pre-activation r_l in R[l][q][j] (layer
+// stride Qa * H) and keeps sin2pi(r_l) as the next A; then the dx chain,
+// dpre_l = dx_l * 2pi cos2pi(r_l) (r read back where this thread wrote it),
+// dx_{l-1} = dpre_l . W_l^T.  wstream is the split of the forward's n_mod - 1
+// products followed by the dx chain's (siren_split_kernel, n_prod =
+// 2 (n_mod - 1)).
+//
+// Training mode (DZ false): out = D[l][q][j], every dpre_l.  dz mode: no D;
+// after each layer the block sums dpre_l over its pairs, per latent row
+// (row_sums), into out = parts[block][l][slot][j], slots per block.
+template <int NT, bool DZ>
+__device__ __forceinline__ void chain_body(float* smem, const float* __restrict__ coords,
+                                           const float* __restrict__ z,
+                                           const float* __restrict__ g,
+                                           const float* __restrict__ w_first,
+                                           const float* __restrict__ wstream,
+                                           const float* __restrict__ w_head,
+                                           float* __restrict__ R, float* __restrict__ out,
+                                           long long p0, int Q, int Qa, int T, int M, int C_in,
+                                           int n_mod, int C_out, int slots) {
+  using siren::TWO_PI;
+  using siren::sin2pi;
+  constexpr int H = NT * 64;
+  constexpr int lda = H + A_PAD;
+  float* As = smem;                              // CP x (H + A_PAD): activations, then dpre
+  float* stage = As + CP * lda;                  // two K-slices
+  float* cs = stage + 2 * kslice_floats(H);      // CP x C_in
+  float* gs = cs + CP * MAX_C;                   // CP x C_out
+  int* zrow = reinterpret_cast<int*>(gs + CP * MAX_C);  // CP row offsets t * H
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * CP;
+  const size_t lstride = (size_t)Qa * H;
+  const int u_total = 2 * (n_mod - 1) * (H / KS);
+  int u = 0;
+  issue_kslice(stage, wstream, 0, u_total, H);
+
+  for (int i = tid; i < CP * C_in; i += THREADS) {
+    const int q = q0 + i / C_in;
+    cs[i] = q < Q ? coords[((p0 + q) % M) * C_in + i % C_in] : 0.f;
+  }
+  for (int i = tid; i < CP * C_out; i += THREADS) {
+    const int q = q0 + i / C_out;
+    // masked pairs get g = 0, so their dpre is 0
+    gs[i] = q < Q ? g[(p0 + q) * C_out + i % C_out] : 0.f;
+  }
+  for (int p = tid; p < CP; p += THREADS) {
+    const int q = q0 + p < Q ? q0 + p : Q - 1;
+    zrow[p] = (int)((p0 + q) / M) * H;
+  }
+  __syncthreads();
+
+  float acc[4][NT][4];
+  // first layer on the CUDA cores: r_0 = coords . w_first + z_0
+  first_layer_frags<NT>(cs, w_first, C_in, H, acc);
+
+  // forward recompute: store r_l, keep sin2pi(r_l) as the next A
+  for (int l = 0; l < n_mod; ++l) {
+    if (l > 0) {
+      chain_product<NT>(As, stage, wstream, u, u_total, H, acc);
+      __syncthreads();  // every warp is done reading As
+    }
+    const float* zl = z + (size_t)l * T * H;
+    float* Rl = R + l * lstride + (size_t)q0 * H;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int row, col;
+          frag_pos<NT>(mt, nt, h, row, col);
+          const float2 zz = *reinterpret_cast<const float2*>(zl + zrow[row] + col);
+          const float2 r = make_float2(acc[mt][nt][2 * h] + zz.x, acc[mt][nt][2 * h + 1] + zz.y);
+          *reinterpret_cast<float2*>(Rl + (size_t)row * H + col) = r;
+          *reinterpret_cast<float2*>(As + row * lda + col) = make_float2(sin2pi(r.x), sin2pi(r.y));
+        }
+  }
+
+  // backward, the head on the CUDA cores: dx = g . w_head^T
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int row, col;
+        frag_pos<NT>(mt, nt, e / 2, row, col);
+        col += e % 2;
+        float a = 0.f;
+        for (int o = 0; o < C_out; ++o)
+          a = fmaf(gs[row * C_out + o], __ldg(w_head + (size_t)col * C_out + o), a);
+        acc[mt][nt][e] = a;
+      }
+  // per layer dpre = dx * 2pi cos2pi(r) (r read back where this thread wrote
+  // it), then dx = dpre . W_l^T
+  for (int l = n_mod - 1; l >= 0; --l) {
+    const float* Rl = R + l * lstride + (size_t)q0 * H;
+    float* Dl = out + l * lstride + (size_t)q0 * H;  // training mode
+    // every warp is done reading As (the last product's final K-slice has
+    // no barrier after it); training mode writes no As at l = 0
+    if (DZ || l > 0) __syncthreads();
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int row, col;
+          frag_pos<NT>(mt, nt, h, row, col);
+          const float2 r = *reinterpret_cast<const float2*>(Rl + (size_t)row * H + col);
+          float2 d;
+          d.x = acc[mt][nt][2 * h] * (TWO_PI * sin2pi(r.x + 0.25f));  // d sin2pi / dr
+          d.y = acc[mt][nt][2 * h + 1] * (TWO_PI * sin2pi(r.y + 0.25f));
+          if constexpr (!DZ) *reinterpret_cast<float2*>(Dl + (size_t)row * H + col) = d;
+          if (DZ || l > 0) *reinterpret_cast<float2*>(As + row * lda + col) = d;
+        }
+    if constexpr (DZ) {
+      __syncthreads();  // As holds dpre_l of every pair
+      row_sums<H>(As, zrow, out + ((size_t)blockIdx.x * n_mod + l) * slots * H, min(CP, Q - q0));
+    }
+    if (l > 0) chain_product<NT>(As, stage, wstream, u, u_total, H, acc);
+  }
 }
 
 }  // namespace siren_tc

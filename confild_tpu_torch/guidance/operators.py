@@ -27,9 +27,13 @@ __OPERATOR__: dict[str, Callable[..., Any]] = {}
 
 # rows x points above which the DPS decode takes the fused kernels
 # (forward + dz) instead of the plain autograd decode.  Chosen on a TPU
-# (confild_tpu/guidance/operators.py:124-133) and kept for parity; on the
-# H100 the plain path was faster at every size measured up to 393216 pairs
-# (PERF.md), so retuning it is an open ROADMAP item.
+# (confild_tpu/guidance/operators.py:124-133) and kept for parity.  On an
+# H100 (chip_smoke.py phase 4 [crossover], 384 rows, 10 to 2048 sensors)
+# forward + dz took 0.60-0.93 of the plain path's time at every size in
+# three runs, and above 65536 pairs their peak memory stays at 1.6 GiB while
+# the plain path's grows with the pairs (10.7 GiB at 393216, 21.4 at
+# 786432); so every size that this rule routes to the kernels is faster
+# there, and the sizes below it would be too (PERF.md §6).
 FUSED_MIN_PAIRS = 65536
 
 

@@ -14,9 +14,11 @@ Kernels:
   ``_decode_kernel``: the full forward, its hidden-by-hidden products on
   the tensor cores, as two launches per call (the middle weights split
   into TF32 halves, then the forward).
-* ``siren_decode_dz`` (same file) replaces ``_decode_dz_kernel``:
-  ``dL/dz`` for every layer, from which ``dL/dlatents`` is two small
-  matmuls.
+* ``siren_decode_dz`` (``csrc/siren_decode_bwd.cu``) replaces
+  ``_decode_dz_kernel``: ``dL/dz`` for every layer, from which
+  ``dL/dlatents`` is two small matmuls.  It is the training backward's
+  chain in a dz mode (the weights split once a call, then per chunk of
+  ``BWD_PAIRS`` pairs the chain and the fold of its per-block row sums).
 * ``siren_decode_bwd`` (``csrc/siren_decode_bwd.cu``) replaces
   ``_decode_bwd_kernel``: every training cotangent (``dz`` and the weight
   gradients of the first, middle and head layers), as two launches per
@@ -150,15 +152,9 @@ def _check_cuda(device: torch.device, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_hidden(h: int) -> None:
-    if h % 32 or h > 512:
-        raise ValueError(f"the CUDA dz kernel takes a hidden width that is a "
-                         f"multiple of 32 and at most 512, got {h}")
-
-
 def _check_tensor_core_shape(ok: int, what: str, h: int, c_in: int, c_out: int) -> None:
-    """The forward's and the training backward's shape rule
-    (``csrc/siren_tc.cuh::shape_ok``), as the library reports it."""
+    """The shape rule of the tensor-core kernels (forward, dz, training
+    backward: ``csrc/siren_tc.cuh::shape_ok``), as the library reports it."""
     if not ok:
         raise ValueError(f"the CUDA {what} takes a hidden width that is a multiple of 64 "
                          f"and at most 384 and at most 4 input and output features, got "
@@ -173,9 +169,7 @@ def _library() -> ctypes.CDLL:
     for name, args in (
             ("siren_fwd_split", [p, p, i, i, p]),
             ("siren_decode_forward", [p] * 7 + [i] * 6 + [p]),
-            ("siren_fwd_shape_ok", [i] * 4),
-            ("siren_decode_dz", [p] * 9 + [i] * 7 + [p]),
-            ("siren_tile_pairs", [])):
+            ("siren_fwd_shape_ok", [i] * 4)):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i
     return lib
@@ -183,7 +177,7 @@ def _library() -> ctypes.CDLL:
 
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
-    """The built training-backward kernels with their C signatures."""
+    """The built training-backward and dz kernels with their C signatures."""
     lib = cuda_build.load("siren_decode_bwd")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, args in (
@@ -193,7 +187,9 @@ def _bwd_library() -> ctypes.CDLL:
             ("siren_bwd_sums", [p] * 5 + [ll] * 4 + [i] * 9 + [p]),
             ("siren_bwd_fold", [p, p, ll, i, p]),
             ("siren_bwd_tile_pairs", []),
-            ("siren_bwd_shape_ok", [i] * 4)):
+            ("siren_bwd_shape_ok", [i] * 4),
+            ("siren_dz_slots", [i]),
+            ("siren_decode_dz", [p] * 9 + [ll] + [i] * 8 + [p])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i
     return lib
@@ -274,41 +270,71 @@ def decode_dz_plain(coords, z, g, w_first, w_mid, w_head):
     return dz
 
 
+def pair_chunks(pairs: int, chunk: int) -> list[tuple[int, int]]:
+    """``(p0, q)``: the first pair and the length of each chunk of at most
+    ``chunk`` pairs, in order."""
+    return [(p0, min(chunk, pairs - p0)) for p0 in range(0, pairs, chunk)]
+
+
+def _chain_setup(lib, w_mid, pairs, stream, counter):
+    """What the dz and training-backward wrappers set up alike for the
+    chain (``csrc/siren_decode_bwd.cu``): the middle weights split once
+    into TF32 halves, the forward's products then the dx chain's (one
+    launch, counted under ``counter``), the padded length ``qa`` of a
+    chunk's workspace, and the chunks ``(p0, q)`` of at most ``BWD_PAIRS``
+    pairs."""
+    n_mid, h = w_mid.shape[0], w_mid.shape[2]
+    wsplit = torch.empty((max(n_mid, 1), 4, h, h), device=w_mid.device, dtype=torch.float32)
+    if n_mid:
+        _raise_on(lib.siren_bwd_split(_ptr(w_mid), _ptr(wsplit), h, n_mid, stream),
+                  "siren_bwd_split launch")
+        LAUNCHES[counter] += 1
+    tile = lib.siren_bwd_tile_pairs()
+    chunk = min(pairs, BWD_PAIRS)
+    return wsplit, -(-chunk // tile) * tile, pair_chunks(pairs, chunk)
+
+
 def decode_dz(coords, z, g, w_first, w_mid, w_head) -> torch.Tensor:
     """``dL/dz`` on folded operands, ``(n_mod, T, H)``.
 
     CPU tensors take :func:`decode_dz_plain`; CUDA tensors launch
-    ``siren_decode_dz``."""
+    ``siren_decode_dz``: the middle weights split once into TF32 halves
+    (the forward's products and the dx chain's), then per chunk of
+    ``BWD_PAIRS`` (row, point) pairs the tensor-core chain in its dz mode
+    and the fold of its per-block row sums into ``dz``
+    (``csrc/siren_decode_bwd.cu``).  The workspace is one chunk's
+    pre-activations and partials, whatever ``T x M``."""
     if coords.device.type == "cpu":
         return decode_dz_plain(coords, z, g, w_first, w_mid, w_head)
     dev = coords.device
-    w_mid_t = w_mid.transpose(1, 2).contiguous()
     _check_cuda(dev, coords=coords, z=z, g=g, w_first=w_first, w_mid=w_mid,
                 w_head=w_head)
     n_mod, t, h = z.shape
     m, c_in = coords.shape
     c_out = w_head.shape[1]
-    _check_hidden(h)
     if (g.shape != (t, m, c_out) or w_first.shape != (c_in, h)
             or w_mid.shape != (n_mod - 1, h, h) or w_head.shape != (h, c_out)):
         raise ValueError("decode operands have inconsistent shapes")
-    dz = torch.empty_like(z)
-    if t == 0:
+    lib = _bwd_library()
+    _check_tensor_core_shape(lib.siren_bwd_shape_ok(h, n_mod, c_in, c_out), "dz kernel",
+                             h, c_in, c_out)
+    dz = torch.zeros_like(z)
+    pairs = t * m
+    if pairs == 0:
         return dz
-    if m == 0:
-        return dz.zero_()
-    lib = _library()
-    grid = min(t, 4 * torch.cuda.get_device_properties(dev).multi_processor_count)
-    workspace = torch.empty((grid, n_mod, lib.siren_tile_pairs(), h),
-                            device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
-        err = lib.siren_decode_dz(
-            _ptr(coords), _ptr(z), _ptr(g), _ptr(w_first), _ptr(w_mid),
-            _ptr(w_mid_t), _ptr(w_head), _ptr(dz), _ptr(workspace), grid,
-            t, m, c_in, h, n_mod, c_out,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, "siren_decode_dz launch")
-    LAUNCHES["siren_decode_dz"] += 1
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        wsplit, qa, chunks = _chain_setup(lib, w_mid, pairs, stream, "siren_decode_dz")
+        r_ws = torch.empty((n_mod, qa, h), device=dev, dtype=torch.float32)
+        parts = torch.empty((qa // lib.siren_bwd_tile_pairs(), n_mod, lib.siren_dz_slots(m), h),
+                            device=dev, dtype=torch.float32)
+        for p0, q in chunks:
+            err = lib.siren_decode_dz(
+                _ptr(coords), _ptr(z), _ptr(g), _ptr(w_first), _ptr(wsplit), _ptr(w_head),
+                _ptr(r_ws), _ptr(parts), _ptr(dz), p0, q, qa, t, m, c_in, h, n_mod, c_out,
+                stream)
+            _raise_on(err, "siren_decode_dz launch")
+            LAUNCHES["siren_decode_dz"] += 2   # the chain and the fold
     return dz
 
 
@@ -366,22 +392,14 @@ def decode_bwd(coords, z, g, w_first, w_mid, w_head):
     out = torch.zeros(n_el, device=dev, dtype=torch.float32)
     pairs = t * m
     if pairs > 0:
-        tile = lib.siren_bwd_tile_pairs()
-        chunk = min(pairs, BWD_PAIRS)
-        qa = -(-chunk // tile) * tile
-        r_ws, d_ws = torch.empty((2, n_mod, qa, h), device=dev, dtype=torch.float32)
-        parts = torch.zeros((BWD_SLICES, n_el), device=dev, dtype=torch.float32)
-        wsplit = torch.empty((max(n_mod - 1, 1), 4, h, h), device=dev, dtype=torch.float32)
         dwf_off, dwmid_off = sizes[0], sizes[0] + sizes[1]
         dwh_off = dwmid_off + sizes[2]
         with torch.cuda.device(dev):
             stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-            if n_mod > 1:
-                _raise_on(lib.siren_bwd_split(_ptr(w_mid), _ptr(wsplit), h, n_mod - 1, stream),
-                          "siren_bwd_split launch")
-                LAUNCHES["siren_decode_bwd"] += 1
-            for p0 in range(0, pairs, chunk):
-                q = min(chunk, pairs - p0)
+            wsplit, qa, chunks = _chain_setup(lib, w_mid, pairs, stream, "siren_decode_bwd")
+            r_ws, d_ws = torch.empty((2, n_mod, qa, h), device=dev, dtype=torch.float32)
+            parts = torch.zeros((BWD_SLICES, n_el), device=dev, dtype=torch.float32)
+            for p0, q in chunks:
                 err = lib.siren_bwd_chain(
                     _ptr(coords), _ptr(z), _ptr(g), _ptr(w_first), _ptr(wsplit), _ptr(w_head),
                     _ptr(r_ws), _ptr(d_ws), p0, q, qa, t, m, c_in, h, n_mod, c_out, stream)
