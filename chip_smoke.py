@@ -110,6 +110,31 @@ Phases, each fatal on failure:
 13. train -> sample: ``cli.sample_conditional.main`` once more with the EMA
     just written and flash attention on (the DPS gradient runs the flash
     forward and backward).
+14. unguided generation and evaluation, in the same temporary root:
+    (a) ``cli.sample.main`` on ``recipes/diffusion/case4.yml`` with phase
+    12's EMA and data range, flash forced on, the published batch of 8,
+    1000 steps respaced to 10, decoding through a Case4-width CNF
+    (``recipes/cnf/case4.yml``) trained for 1 epoch by ``cli.train_cnf`` on 4
+    seeded snapshots of a 4096-point mesh: fields ``(8, 384, 4096, 3)``,
+    finite; two saved rows held to a float64 decode of the same denormalized
+    latents under the forward check's criterion (against the folded plain
+    decode); then ms per sampling step (synchronized wall, median of the
+    steps after the first, a loop of its own on the same weights), a device
+    profile of one step, peak memory, the decode's seconds and the derived
+    seconds per 1000-step batch of 8; the decode of every generated row
+    timed on the card by ``CNFTrainer.infer`` (the plain decode the CLI
+    takes) and by the forward kernel; ``ddim_sample_loop`` at ``eta`` 0 run
+    twice from the same noise must be finite and bitwise equal;
+    (b) ``cli.eval_cnf.main`` on phase 9's newest checkpoint and its 8 x
+    262144-point snapshots (the SIREN forward kernel), its per-channel MSE
+    and rMAE held to the same evaluation through the plain decode on the
+    card within a relative 1e-4, and the spot-check mode once;
+    (c) ``cli.integral_timescale.main`` on a ``.npy`` of channel 0 of
+    generated sample 0, ``(time, points)``, without ``--plot`` (the card's
+    machine has neither ``h5py`` nor ``matplotlib``): tau finite and equal to
+    ``analysis.metrics.integral_timescale`` called directly.
+    Launch counts are zeroed before and read after each CLI run; the flash
+    forward must launch in (a) and the SIREN forward in (b).
 
 The script imports nothing of JAX or of ``confild_tpu``.  With no CUDA
 device it exits non-zero and prints no result.  The last line is
@@ -134,13 +159,16 @@ import torch
 import yaml
 
 from confild_tpu_torch import config as cfgmod
-from confild_tpu_torch.cli import sample_conditional, train_cnf, train_diffusion
+from confild_tpu_torch.analysis import metrics
+from confild_tpu_torch.cli import (eval_cnf, integral_timescale, sample, sample_conditional,
+                                   train_cnf, train_diffusion)
 from confild_tpu_torch.diffusion import create_gaussian_diffusion
-from confild_tpu_torch.device import resolve_device
+from confild_tpu_torch.device import resolve_device, synchronize
 from confild_tpu_torch.guidance import (create_sampler, get_conditioning_method,
                                         get_noise, get_operator)
 from confild_tpu_torch.guidance.operators import FUSED_MIN_PAIRS
 from confild_tpu_torch.inference import CNF_inference
+from confild_tpu_torch.io.checkpoint import latest_checkpoint
 from confild_tpu_torch.models import unet as tunet
 from confild_tpu_torch.models.cnf import SirenFilm, siren_film_apply
 from confild_tpu_torch.train.cnf_trainer import CNFTrainer
@@ -1468,6 +1496,202 @@ def phase_train_to_sample(root, ema_path) -> dict:
         raise SystemExit(f"sampling with flash on ran without launching {missing}")
     return counts
 
+def generated_rows_check(trainer, latents, fields, rows) -> None:
+    """Rows of the saved fields against a float64 decode of the same
+    denormalized latents, under the forward check's criterion with the
+    folded plain decode as the f32 yardstick; the forward kernel's error on
+    the same rows is printed beside them."""
+    device = trainer.device
+    model = trainer.model
+    coords = trainer.in_normalizer.to(device).normalize(
+        torch.as_tensor(trainer.train_coord, device=device))
+    denorm = trainer.out_normalizer.to(device).denormalize
+    lat = torch.as_tensor(latents[rows], device=device)
+    w_first, w_mid, w_head, b_head, w2, b1, scale = sd.stack_weights(model, model.w0)
+    with torch.no_grad():
+        truth = denorm(f64_decode(model, coords, lat, chunk=MESH_POINTS))
+        fold = denorm(sd.decode_forward_plain(coords, sd.film_table(lat, w2, b1, scale),
+                                              w_first, w_mid, w_head, b_head))
+        kern = denorm(sd.fused_siren_decode(model, coords, lat, model.w0))
+    saved = torch.as_tensor(fields[rows], device=device)
+    err_s, err_f, err_k = ((x.double() - truth).abs().max().item() for x in (saved, fold, kern))
+    limit = 2 * err_f + 1e-6
+    ok = err_s <= limit and bool(torch.isfinite(saved).all())
+    log(f"[generate] rows {rows} of sample 0 ({len(rows)}x{MESH_POINTS}): |saved-f64| "
+        f"{err_s:.3e}, |folded plain-f64| {err_f:.3e}, |forward kernel-f64| {err_k:.3e}, "
+        f"max |f64| {truth.abs().max().item():.3e}, error / limit {err_s / limit:.3f} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the generated fields are not the decode of the generated latents")
+
+
+def decode_route_times(trainer, latents) -> None:
+    """The CLI's decode of every generated row, ``CNFTrainer.infer`` (the
+    plain decode, as the JAX package routes it) against the forward kernel
+    on the same rows and chunks: synchronized wall seconds of each, results
+    kept on the card."""
+    device = trainer.device
+    model = trainer.model
+    coords = trainer.in_normalizer.to(device).normalize(
+        torch.as_tensor(trainer.train_coord, device=device))
+    denorm = trainer.out_normalizer.to(device).denormalize
+    lat = torch.as_tensor(latents.reshape(-1, latents.shape[-1]), device=device)
+    chunk = 16
+    routes = {
+        "infer (plain)": lambda rows: trainer.infer(trainer.train_coord, rows),
+        "forward kernel": lambda rows: denorm(sd.fused_siren_decode(model, coords, rows,
+                                                                    model.w0))}
+    seconds = {}
+    with torch.no_grad():
+        for name, fn in routes.items():
+            fn(lat[:chunk])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(0, lat.shape[0], chunk):
+                fn(lat[i:i + chunk])
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+    log(f"[generate] decode routes, {lat.shape[0]} rows x {coords.shape[0]} points in chunks "
+        f"of {chunk}, on the card: " + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
+        + f"; plain / kernel {seconds['infer (plain)'] / seconds['forward kernel']:.2f}")
+
+
+def phase_generate(root, ema_path, device) -> dict:
+    """Unguided generation at full Case4 U-Net width through ``cli.sample``,
+    then ``cli.eval_cnf`` and ``cli.integral_timescale``; returns the launch
+    counts of the CLI runs."""
+    T = CASE4_RECIPE["time_length"]
+    logs = os.path.dirname(ema_path)
+    cnf_recipe = write_training_case(os.path.join(root, "generate"), n_snapshots=4,
+                                     points=MESH_POINTS, epochs=1)
+    train_cnf.main([cnf_recipe])
+    with open(RECIPE_DIFFUSION) as f:
+        recipe = yaml.safe_load(f)
+    recipe.update(use_flash_attention=True, timestep_respacing="10", ema_path=ema_path,
+                  max_val=os.path.join(logs, "data_max.npy"),
+                  min_val=os.path.join(logs, "data_min.npy"), cnf_case_file_path=cnf_recipe,
+                  save_path=os.path.join(root, "generated.npy"), seed=0)
+    path = _write_yaml(os.path.join(root, "generate", "sample.yml"), recipe)
+    batch = recipe["test_batch_size"]
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    sd.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sample.main([path])
+    wall = time.perf_counter() - t0
+    counts = {**fa.LAUNCHES, **sd.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fields = np.load(recipe["save_path"])
+    expected = (batch, T, MESH_POINTS, 3)
+    log(f"[generate] cli.sample: fields {fields.shape}, finite "
+        f"{bool(np.isfinite(fields).all())}; {out['steps']} steps {out['sample_s']:.3f} s, "
+        f"decode {out['decode_s']:.3f} s ({batch} x {T} rows x {MESH_POINTS} points, the "
+        f"plain decode of CNFTrainer.infer), CLI wall {wall:.1f} s, peak memory {peak:.2f} "
+        f"GiB; launches {counts}")
+    if fields.shape != expected or not np.isfinite(fields).all():
+        raise SystemExit(f"unguided generation gave a wrong field: {fields.shape}, "
+                         f"expected {expected}")
+    if counts["flash_forward"] == 0:
+        raise SystemExit("unguided generation with flash on ran without the flash forward")
+    trainer = CNFTrainer(cfgmod.basic_input(cnf_recipe), device=device)
+    trainer.load(-1, siren_only=True)
+    generated_rows_check(trainer, out["latents"][0], fields[0], [0, T - 1])
+    decode_route_times(trainer, out["latents"])
+    del trainer
+
+    # ms per step: the same loop on the same weights, a synchronized clock
+    # read after every step
+    hp = cfgmod.basic_input(path)
+    model, diffusion = train_diffusion.build_model_and_diffusion(hp)
+    model = sample.load_unet(hp.ema_path, model).to(device).eval().requires_grad_(False)
+    shape = (batch, 1, T, hp.latent_length)
+    stamps = []
+
+    def clock(x_t, **_):
+        synchronize(device)
+        stamps.append(time.perf_counter())
+        return x_t
+    synchronize(device)
+    stamps.append(time.perf_counter())
+    diffusion.p_sample_loop(model, shape, generator=torch.Generator(device).manual_seed(1),
+                            step_hook=clock)
+    step_ms = np.diff(stamps) * 1e3
+    median = float(np.median(step_ms[1:]))
+    log(f"[generate] ms per unguided step (batch {batch}, synchronized wall): "
+        f"{[round(float(x), 1) for x in step_ms]}; median after the first {median:.1f} ms; "
+        f"seconds per 1000-step batch of {batch} {median:.1f} (derived)")
+    x = torch.randn(shape, generator=torch.Generator(device).manual_seed(2), device=device)
+    t_mid = torch.full((batch,), diffusion.num_timesteps // 2, dtype=torch.long)
+    with torch.no_grad():
+        device_profile(f"one unguided step (Case4, batch {batch}, flash on)",
+                       lambda: diffusion.p_sample(model, x, t_mid, noise=x), top=8)
+    ddim = [diffusion.ddim_sample_loop(model, shape, noise=x, eta=0.0)
+            for _ in range(2)]
+    same = torch.equal(ddim[0], ddim[1])
+    finite = bool(torch.isfinite(ddim[0]).all())
+    log(f"[generate] ddim_sample_loop, eta 0, {diffusion.num_timesteps} steps, twice from "
+        f"the same noise: finite {finite}, bitwise equal {same}, max |diff| "
+        f"{(ddim[0] - ddim[1]).abs().max().item():.3e}")
+    if not (same and finite):
+        raise SystemExit("DDIM at eta 0 is not finite or not repeatable")
+    del model, ddim
+    torch.cuda.empty_cache()
+
+    # (b) eval_cnf on phase 9's checkpoint and snapshots, kernel vs plain
+    train_root = os.path.join(root, "train")
+    ckpt, _ = latest_checkpoint(os.path.join(train_root, "run"))
+    args = ["--checkpoint", ckpt, "--config", os.path.join(train_root, "cnf.yml"),
+            "--data", os.path.join(train_root, "output.npy"),
+            "--coords", os.path.join(train_root, "coords.npy"), "--batch-size", "16"]
+    sd.reset_launch_counts()
+    t0 = time.perf_counter()
+    mse, rmae = eval_cnf.main(args)
+    eval_s = time.perf_counter() - t0
+    eval_counts = dict(sd.LAUNCHES)
+    inf = CNF_inference(ckpt, os.path.join(train_root, "cnf.yml"),
+                        os.path.join(train_root, "output.npy"), use_pallas=False)
+    t0 = time.perf_counter()
+    pred = inf.predict(np.load(os.path.join(train_root, "coords.npy")),
+                       list(range(inf.data.shape[0])), 16)
+    plain_s = time.perf_counter() - t0
+    p_mse = metrics.per_channel_mse(pred, inf.data)
+    p_rmae = metrics.per_channel_rmae(pred, inf.data)
+    rel = max(float(np.max(np.abs(mse - p_mse) / np.abs(p_mse))),
+              float(np.max(np.abs(rmae - p_rmae) / np.abs(p_rmae))))
+    log(f"[eval] cli.eval_cnf on {os.path.basename(ckpt)} ({inf.data.shape[0]} x "
+        f"{inf.data.shape[1]} points): MSE {mse.tolist()}, rMAE {rmae.tolist()}; plain "
+        f"decode MSE {p_mse.tolist()}, rMAE {p_rmae.tolist()}; largest relative "
+        f"difference {rel:.3e}; CLI wall {eval_s:.3f} s, plain predict {plain_s:.3f} s; "
+        f"launches {eval_counts}")
+    if not (rel <= 1e-4 and np.isfinite(mse).all()):
+        raise SystemExit("eval_cnf through the kernel disagrees with the plain decode")
+    sd.reset_launch_counts()
+    t0 = time.perf_counter()
+    spot = eval_cnf.main(args + ["--timestep", "2", "--row", "0", "--vals", "5"])
+    log(f"[eval] spot check at timestep 2: MSE {spot[0].tolist()}, wall "
+        f"{time.perf_counter() - t0:.3f} s; launches {dict(sd.LAUNCHES)}")
+    for k, v in sd.LAUNCHES.items():
+        eval_counts[k] += v
+    if eval_counts["siren_decode_forward"] == 0 or not np.isfinite(spot[0]).all():
+        raise SystemExit("eval_cnf ran without the SIREN forward kernel or gave non-finite "
+                         "errors")
+    del inf, pred
+
+    # (c) the integral timescale of channel 0 of generated sample 0
+    u_path = os.path.join(root, "generate", "u.npy")
+    np.save(u_path, fields[0, :, :, 0])
+    t0 = time.perf_counter()
+    tau = integral_timescale.main(["--output-dir", u_path, "--output-dt", "1.0"])
+    direct = metrics.integral_timescale(np.load(u_path), 1.0)
+    log(f"[timescale] channel 0 of sample 0, {T} x {MESH_POINTS}: tau {tau!r} (in snapshot "
+        f"intervals), direct {direct!r}, wall {time.perf_counter() - t0:.3f} s")
+    if not (np.isfinite(tau) and tau == direct):
+        raise SystemExit("integral_timescale disagrees with analysis.metrics")
+    for k, v in eval_counts.items():
+        counts[k] += v
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1491,11 +1715,13 @@ def main() -> int:
             launches[k] += v
         phase_unet_flash(root, device)
         flash_launches, ema_path = phase_train_diffusion(root)
-        for k, v in phase_train_to_sample(root, ema_path).items():
-            if k in flash_launches:
-                flash_launches[k] += v
-            else:
-                launches[k] += v
+        for phase_counts in (phase_train_to_sample(root, ema_path),
+                             phase_generate(root, ema_path, device)):
+            for k, v in phase_counts.items():
+                if k in flash_launches:
+                    flash_launches[k] += v
+                else:
+                    launches[k] += v
     launches.update(flash_launches)
 
     kernels = []

@@ -30,25 +30,13 @@ import numpy as np
 import torch
 
 from confild_tpu_torch import config as cfgmod
+from confild_tpu_torch.cli.sample import load_unet
 from confild_tpu_torch.cli.train_diffusion import build_model_and_diffusion
 from confild_tpu_torch.core.packing import reconstruct_frame
-from confild_tpu_torch.device import resolve_device
+from confild_tpu_torch.device import resolve_device, synchronize
 from confild_tpu_torch.guidance import (create_sampler, get_conditioning_method,
                                         get_noise, get_operator)
 from confild_tpu_torch.inference import decoder
-from confild_tpu_torch.io.convert import load_unet_state_dict
-from confild_tpu_torch.models import unet as tunet
-
-
-def load_unet(path: str, model: tunet.UNetModel) -> tunet.UNetModel:
-    """Counterpart of ``confild_tpu/cli/sample.py::load_unet_params``."""
-    model.load_state_dict(load_unet_state_dict(path, model))
-    return model
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def main(argv=None) -> dict:
@@ -94,12 +82,12 @@ def main(argv=None) -> dict:
     # y_n = noiser(y)); 'clean' / sigma=0 is the identity
     measurement = noiser(measurement, generator=torch.Generator(device).manual_seed(seed + 2))
 
-    _sync(device)
+    synchronize(device)
     t0 = time.perf_counter()
     samples = sampler.p_sample_loop(
         lambda x, t: model(x, t), x_start, mask * measurement, cond_method,
         generator=torch.Generator(device).manual_seed(seed + 1))
-    _sync(device)
+    synchronize(device)
     t_sample = time.perf_counter() - t0
     samples = samples.reshape(n, hp.time_length, hp.latent_size)
 

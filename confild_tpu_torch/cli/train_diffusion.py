@@ -35,7 +35,7 @@ def build_model_and_diffusion(hp):
     if hp.get("use_bf16", hp.get("use_fp16", False)):
         raise NotImplementedError(
             "the bf16 U-Net torso is not ported yet (ROADMAP.md Queue 1, "
-            "item 10: the bf16 torso and f32 tail)")
+            "item 4: the bf16 torso and f32 tail)")
     model = tunet.create_model(
         image_size=hp.image_size,
         num_channels=hp.num_channels,

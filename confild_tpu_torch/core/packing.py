@@ -15,10 +15,27 @@ import numpy as np
 import torch
 
 
+def pack_latents(latents):
+    """``(B, T, L) -> (B, 1, T, L)`` channel-first latent image."""
+    return latents[:, None, :, :]
+
+
+def unpack_latents(images):
+    """``(B, 1, T, L) -> (B, T, L)``."""
+    if images.shape[1] != 1:
+        raise ValueError(f"expected a 1-channel latent image, got {tuple(images.shape)}")
+    return images[:, 0, :, :]
+
+
 def create_coordinates_grid(shape: Sequence[int], dtype=np.float32) -> np.ndarray:
     """Unit-cube coordinate grid: ``shape=(H, W, ...) -> (H, W, ..., ndim)``."""
     axes = [np.linspace(0.0, 1.0, s, dtype=dtype) for s in shape]
     return np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+
+
+def flatten_grid(coords: np.ndarray) -> np.ndarray:
+    """``(H, W, ..., d) -> (H*W*..., d)``."""
+    return coords.reshape(-1, coords.shape[-1])
 
 
 def reconstruct_frame(flat_values, mask, shape: Sequence[int],
@@ -38,6 +55,12 @@ def reconstruct_frame(flat_values, mask, shape: Sequence[int],
                      dtype=values.dtype, device=values.device)
     out[torch.as_tensor(idx, device=values.device)] = values
     return out.reshape(*shape, values.shape[-1])
+
+
+def minmax_to_unit_interval(data, data_max, data_min):
+    """Global min-max -> [-1, 1] (diffusion training data contract,
+    reference ``scripts/train.py:47-49``)."""
+    return (data - data_min) / (data_max - data_min) * 2.0 - 1.0
 
 
 def unit_interval_to_minmax(data_norm, data_max, data_min):

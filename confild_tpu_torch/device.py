@@ -25,3 +25,10 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (a no-op on the CPU), so that a host
+    clock read after it times the work and not its launch."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

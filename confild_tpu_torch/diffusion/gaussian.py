@@ -7,12 +7,18 @@ at the gather (:func:`confild_tpu_torch.core.schedules.extract`).
 Respacing is folded into the schedule; the model receives original-process
 indices through ``timestep_map`` (the ``_WrappedModel`` contract,
 ``respace.py:110-128``).  Every step that draws noise takes an explicit
-``noise`` tensor or a ``torch.Generator``.  ``training_losses`` is the
-training objective (``confild_tpu/diffusion/gaussian.py:303-367``).
+``noise`` tensor or a ``torch.Generator``; the loops take the initial image
+(``noise``) and each step's draw (``step_noise(i)``, ``i`` the respaced
+index) the same way, so that fed the JAX loop's draws (the first half of
+``split(key)`` for the image, ``normal(fold_in(loop_key, i))`` for step
+``i``) they give the JAX result.  Python loops take the place of the JAX
+package's ``lax.scan``.  ``training_losses`` is the training objective
+(``confild_tpu/diffusion/gaussian.py:303-367``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import enum
 from typing import Callable, Sequence
 
@@ -24,6 +30,7 @@ from confild_tpu_torch.diffusion.losses import discretized_gaussian_log_likeliho
 from confild_tpu_torch.models.nn import mean_flat
 
 ModelFn = Callable[..., torch.Tensor]  # model(x, t, **kwargs) -> output
+StepNoise = Callable[[int], torch.Tensor]  # respaced index i -> step i's draw
 _ext = sched.extract
 
 
@@ -55,6 +62,13 @@ def _noise_like(x: torch.Tensor, noise: torch.Tensor | None,
     if noise is not None:
         return noise
     return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+
+
+def _initial_image(shape, noise, generator) -> torch.Tensor:
+    if noise is not None:
+        return noise
+    return torch.randn(tuple(shape), generator=generator,
+                       device=None if generator is None else generator.device)
 
 
 class GaussianDiffusion:
@@ -163,22 +177,48 @@ class GaussianDiffusion:
         return ((_ext(self.s.sqrt_recip_alphas_cumprod, t, x_t) * x_t - pred_xstart)
                 / _ext(self.s.sqrt_recipm1_alphas_cumprod, t, x_t))
 
+    # -- classifier guidance (reference gaussian_diffusion.py:356-393) ------
+
+    def condition_mean(self, cond_fn, p_mean_var, x, t, model_kwargs=None):
+        """The mean shifted by the variance times ``cond_fn``'s gradient of
+        the log-likelihood."""
+        gradient = cond_fn(x, self.model_t(t, x.device), **(model_kwargs or {}))
+        return p_mean_var["mean"] + p_mean_var["variance"] * gradient
+
+    def condition_score(self, cond_fn, p_mean_var, x, t, model_kwargs=None) -> dict:
+        """The score-based conditioning of DDIM: eps shifted by
+        ``sqrt(1 - alpha_bar)`` times the gradient, x0 and the mean
+        recomputed from it."""
+        alpha_bar = _ext(self.s.alphas_cumprod, t, x)
+        eps = self._predict_eps_from_xstart(x, t, p_mean_var["pred_xstart"])
+        eps = eps - torch.sqrt(1 - alpha_bar) * cond_fn(
+            x, self.model_t(t, x.device), **(model_kwargs or {}))
+        out = dict(p_mean_var)
+        out["pred_xstart"] = self._predict_xstart_from_eps(x, t, eps)
+        out["mean"], _, _ = self.q_posterior_mean_variance(out["pred_xstart"], x, t)
+        return out
+
     # -- sampling steps -------------------------------------------------------
 
     def p_sample(self, model: ModelFn, x, t, generator=None, noise=None,
-                 clip_denoised=True, denoised_fn=None, model_kwargs=None) -> dict:
+                 clip_denoised=True, denoised_fn=None, cond_fn=None,
+                 model_kwargs=None) -> dict:
         """One ancestral step; ``noise`` (else drawn from ``generator``) is the
         JAX loop's ``normal(fold_in(key, i))`` (``gaussian.py:204``)."""
         out = self.p_mean_variance(model, x, t, clip_denoised, denoised_fn, model_kwargs)
         noise = _noise_like(x, noise, generator)
         nonzero_mask = (t != 0).to(x.device, x.dtype).reshape(-1, *(1,) * (x.ndim - 1))
+        if cond_fn is not None:
+            out["mean"] = self.condition_mean(cond_fn, out, x, t, model_kwargs)
         sample = out["mean"] + nonzero_mask * torch.exp(0.5 * out["log_variance"]) * noise
         return {"sample": sample, "pred_xstart": out["pred_xstart"]}
 
     def ddim_sample(self, model: ModelFn, x, t, generator=None, noise=None,
-                    clip_denoised=True, denoised_fn=None, model_kwargs=None,
-                    eta: float = 0.0) -> dict:
+                    clip_denoised=True, denoised_fn=None, cond_fn=None,
+                    model_kwargs=None, eta: float = 0.0) -> dict:
         out = self.p_mean_variance(model, x, t, clip_denoised, denoised_fn, model_kwargs)
+        if cond_fn is not None:
+            out = self.condition_score(cond_fn, out, x, t, model_kwargs)
         eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
         alpha_bar = _ext(self.s.alphas_cumprod, t, x)
         alpha_bar_prev = _ext(self.s.alphas_cumprod_prev, t, x)
@@ -190,6 +230,60 @@ class GaussianDiffusion:
         nonzero_mask = (t != 0).to(x.device, x.dtype).reshape(-1, *(1,) * (x.ndim - 1))
         sample = mean_pred + nonzero_mask * sigma * noise
         return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+
+    def ddim_reverse_sample(self, model: ModelFn, x, t, clip_denoised=True,
+                            denoised_fn=None, model_kwargs=None) -> dict:
+        """Deterministic reverse ODE step x_t -> x_{t+1} (reference
+        ``gaussian_diffusion.py:588-621``)."""
+        out = self.p_mean_variance(model, x, t, clip_denoised, denoised_fn, model_kwargs)
+        eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
+        alpha_bar_next = _ext(self.s.alphas_cumprod_next, t, x)
+        mean_pred = (out["pred_xstart"] * torch.sqrt(alpha_bar_next)
+                     + torch.sqrt(1 - alpha_bar_next) * eps)
+        return {"sample": mean_pred, "pred_xstart": out["pred_xstart"]}
+
+    # -- sampling loops -------------------------------------------------------
+
+    def _loop(self, step_fn, shape, noise, generator, step_noise, cond_fn,
+              step_hook) -> torch.Tensor:
+        """``x_T`` (``noise``, else drawn) through every step from the last
+        respaced index down to 0; without ``cond_fn`` under ``no_grad``."""
+        grad_mode = torch.no_grad() if cond_fn is None else contextlib.nullcontext()
+        with grad_mode:
+            img = _initial_image(shape, noise, generator)
+            for i in range(self.num_timesteps - 1, -1, -1):
+                t = torch.full((img.shape[0],), i, dtype=torch.long)
+                out = step_fn(img, t, None if step_noise is None else step_noise(i))
+                nxt = out["sample"]
+                if step_hook is not None:
+                    nxt = step_hook(x_t=nxt, x_prev=img, t=t, pred_xstart=out["pred_xstart"])
+                img = nxt
+        return img
+
+    def p_sample_loop(self, model: ModelFn, shape: Sequence[int], noise=None,
+                      generator=None, step_noise: StepNoise | None = None,
+                      clip_denoised=True, denoised_fn=None, cond_fn=None,
+                      model_kwargs=None, step_hook=None) -> torch.Tensor:
+        """The ancestral loop (``confild_tpu/diffusion/gaussian.py:213-241``).
+        ``step_hook(x_t=, x_prev=, t=, pred_xstart=) -> x_next`` may replace
+        each step's result; draws not passed in come from ``generator``, on
+        its device."""
+        def step(img, t, draw):
+            return self.p_sample(model, img, t, generator, draw, clip_denoised,
+                                 denoised_fn, cond_fn, model_kwargs)
+        return self._loop(step, shape, noise, generator, step_noise, cond_fn, step_hook)
+
+    def ddim_sample_loop(self, model: ModelFn, shape: Sequence[int], noise=None,
+                         generator=None, step_noise: StepNoise | None = None,
+                         clip_denoised=True, denoised_fn=None, cond_fn=None,
+                         model_kwargs=None, eta: float = 0.0,
+                         step_hook=None) -> torch.Tensor:
+        """The DDIM loop (``confild_tpu/diffusion/gaussian.py:277-301``); the
+        draws as in :meth:`p_sample_loop` (at ``eta`` 0 they do not enter)."""
+        def step(img, t, draw):
+            return self.ddim_sample(model, img, t, generator, draw, clip_denoised,
+                                    denoised_fn, cond_fn, model_kwargs, eta)
+        return self._loop(step, shape, noise, generator, step_noise, cond_fn, step_hook)
 
     # -- training losses ------------------------------------------------------
 
@@ -241,6 +335,38 @@ class GaussianDiffusion:
         terms[mse_name] = mean_flat((target - model_output) ** 2)
         terms["loss"] = terms[mse_name] + terms["vb"] if "vb" in terms else terms[mse_name]
         return terms
+
+
+    def _prior_bpd(self, x_start) -> torch.Tensor:
+        t = torch.full((x_start.shape[0],), self.num_timesteps - 1, dtype=torch.long)
+        qt_mean, _, qt_log_variance = self.q_mean_variance(x_start, t)
+        kl_prior = normal_kl(qt_mean, qt_log_variance, 0.0, 0.0)
+        return mean_flat(kl_prior) / np.log(2.0)
+
+    @torch.no_grad()
+    def calc_bpd_loop(self, model: ModelFn, x_start, generator=None,
+                      step_noise: StepNoise | None = None, clip_denoised=True,
+                      model_kwargs=None) -> dict:
+        """Bits per dimension over every timestep (reference
+        ``gaussian_diffusion.py:841-896``): ``vb``, ``xstart_mse`` and ``mse``
+        as ``(B, T)`` with t descending, as the JAX package returns them.
+        ``step_noise(i)`` is the JAX loop's ``normal(fold_in(key, i))``."""
+        vb, xstart_mse, mse = [], [], []
+        for i in range(self.num_timesteps - 1, -1, -1):
+            t = torch.full((x_start.shape[0],), i, dtype=torch.long)
+            noise = _noise_like(x_start, None if step_noise is None else step_noise(i),
+                                generator)
+            x_t = self.q_sample(x_start, t, noise)
+            out = self._vb_terms_bpd(model, x_start, x_t, t, clip_denoised, model_kwargs)
+            eps = self._predict_eps_from_xstart(x_t, t, out["pred_xstart"])
+            vb.append(out["output"])
+            xstart_mse.append(mean_flat((out["pred_xstart"] - x_start) ** 2))
+            mse.append(mean_flat((eps - noise) ** 2))
+        vb = torch.stack(vb, dim=1)
+        prior_bpd = self._prior_bpd(x_start)
+        return {"total_bpd": vb.sum(dim=1) + prior_bpd, "prior_bpd": prior_bpd, "vb": vb,
+                "xstart_mse": torch.stack(xstart_mse, dim=1),
+                "mse": torch.stack(mse, dim=1)}
 
 
 # ---------------------------------------------------------------------------

@@ -91,7 +91,7 @@ class CNF_inference:
         self.model.load_state_dict(state)
         self.model.to(self.device).requires_grad_(False)
         self.latents = (None if latents is None else
-                        torch.as_tensor(latents, dtype=torch.float32, device=self.device))
+                        torch.tensor(latents, dtype=torch.float32, device=self.device))
         self.data = np.load(data_path) if data_path else None
 
     def predict(self, coords, latent_indices: Sequence[int] | None = None,

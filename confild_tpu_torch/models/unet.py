@@ -417,7 +417,7 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
     if use_checkpoint:
         raise NotImplementedError(
             "block rematerialization (use_checkpoint) is not ported yet "
-            "(ROADMAP.md Queue 1, item 10)")
+            "(ROADMAP.md Queue 1, item 1)")
     # auto (None): build_plan gates flash per block at FLASH_MIN_TOKENS; the
     # flag records whether any block crosses it (confild_tpu/models/unet.py:
     # 630-668)

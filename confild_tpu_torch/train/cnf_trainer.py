@@ -108,10 +108,10 @@ class CNFTrainer:
         if hp.get("extra_siren_in") is not None:
             raise NotImplementedError(
                 "extra_siren_in (the SIRENAutodecoder_film_extra_in NF) is not ported "
-                "yet (ROADMAP.md Queue 1, item 11: rest of the model zoo)")
+                "yet (ROADMAP.md Queue 1, item 3: the _extra_in CNF)")
         if int(hp.get("multiGPU", 1) or 1) > 1:
             print(f"multiGPU: {hp.multiGPU} requested; the port trains on one card "
-                  "(the multi-device slice, ROADMAP.md Queue 1, item 13, is still to come)")
+                  "(the multi-device slice, ROADMAP.md Queue 1, item 7, is still to come)")
 
         if not infer_mode:
             fois = self._load_fois(hp)
@@ -419,7 +419,7 @@ class CNFTrainer:
         if os.path.isdir(path):
             raise NotImplementedError(
                 f"{path} is an Orbax (multi-process) checkpoint of the JAX package; "
-                "the port reads single-file checkpoints only (ROADMAP.md Queue 1, item 13)")
+                "the port reads single-file checkpoints only (ROADMAP.md Queue 1, item 7)")
         if path.endswith(".pt"):
             return self._load_pt(path, siren_only)
         ck = convert.read_ckpt(path)

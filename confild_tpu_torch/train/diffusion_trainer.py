@@ -70,11 +70,11 @@ class TrainLoop:
             raise NotImplementedError(
                 "steps_per_call > 1 and device_data (the JAX package's multi-step scan "
                 "and device-resident dataset) are not ported yet (ROADMAP.md Queue 1, "
-                "item 10)")
+                "item 5)")
         if mesh is not None:
             raise NotImplementedError(
                 "data-parallel training over a mesh is not ported yet (ROADMAP.md "
-                "Queue 1, item 13): the port trains on one card")
+                "Queue 1, item 7): the port trains on one card")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.diffusion = diffusion

@@ -1,6 +1,5 @@
-"""Key-value logger, the part of ``confild_tpu/utils/logger.py`` the
-trainers use (the OpenAI baselines logger the reference vendors at
-``src/logger.py``).
+"""Key-value logger, the port of ``confild_tpu/utils/logger.py`` (the
+OpenAI baselines logger the reference vendors at ``src/logger.py``).
 
 Formats: ``stdout`` (aligned table), ``log`` (the same to ``log.txt``),
 ``json`` (one object per dump in ``progress.json``), ``csv``
@@ -8,7 +7,8 @@ Formats: ``stdout`` (aligned table), ``log`` (the same to ``log.txt``),
 ``tensorboard`` (scalars under ``tb/``; a writer that writes nothing when
 ``torch.utils.tensorboard`` does not import).  ``logkv_mean`` keeps a
 running mean between dumps; ``profile_kv`` adds a scope's wall seconds to
-the ``wait_<name>`` key.
+the ``wait_<name>`` key; ``log`` writes a line to the sequence writers
+(``stdout`` and ``log``) at or above the logger's level.
 """
 
 from __future__ import annotations
@@ -21,8 +21,23 @@ import time
 from contextlib import contextmanager
 from typing import Any
 
+DEBUG, INFO, WARN, ERROR, DISABLED = 10, 20, 30, 40, 50
 
-class HumanOutputFormat:
+
+class KVWriter:
+    def writekvs(self, kvs: dict) -> None:
+        raise NotImplementedError
+
+    def close(self) -> None:
+        pass
+
+
+class SeqWriter:
+    def writeseq(self, seq) -> None:
+        raise NotImplementedError
+
+
+class HumanOutputFormat(KVWriter, SeqWriter):
     def __init__(self, filename_or_file):
         self.own_file = isinstance(filename_or_file, str)
         self.file = open(filename_or_file, "at") if self.own_file else filename_or_file
@@ -38,11 +53,15 @@ class HumanOutputFormat:
         valwidth = max(map(len, key2str.values()))
         dashes = "-" * (keywidth + valwidth + 7)
         lines = [dashes]
-        for key, val in key2str.items():
+        for key, val in sorted(key2str.items()):
             lines.append(f"| {key}{' ' * (keywidth - len(key))} | "
                          f"{val}{' ' * (valwidth - len(val))} |")
         lines.append(dashes)
         self.file.write("\n".join(lines) + "\n")
+        self.file.flush()
+
+    def writeseq(self, seq) -> None:
+        self.file.write(" ".join(map(str, seq)) + "\n")
         self.file.flush()
 
     def close(self) -> None:
@@ -54,7 +73,7 @@ def _truncate(s: str, maxlen: int = 30) -> str:
     return s[: maxlen - 3] + "..." if len(s) > maxlen else s
 
 
-class JSONOutputFormat:
+class JSONOutputFormat(KVWriter):
     def __init__(self, filename: str):
         self.file = open(filename, "at")
 
@@ -67,7 +86,7 @@ class JSONOutputFormat:
         self.file.close()
 
 
-class CSVOutputFormat:
+class CSVOutputFormat(KVWriter):
     def __init__(self, filename: str):
         self.filename = filename
         self.keys: list[str] = []
@@ -82,11 +101,8 @@ class CSVOutputFormat:
             for row in self.rows:
                 w.writerow({k: row.get(k, "") for k in self.keys})
 
-    def close(self) -> None:
-        pass
 
-
-class TensorBoardOutputFormat:
+class TensorBoardOutputFormat(KVWriter):
     """Scalars to a ``SummaryWriter`` at the dump's ``step`` (or the dump
     count); nothing at all when ``torch.utils.tensorboard`` (which needs the
     ``tensorboard`` package) does not import."""
@@ -114,7 +130,7 @@ class TensorBoardOutputFormat:
             self.writer.close()
 
 
-def make_output_format(fmt: str, ev_dir: str, log_suffix: str = ""):
+def make_output_format(fmt: str, ev_dir: str, log_suffix: str = "") -> KVWriter:
     if fmt == "stdout":
         return HumanOutputFormat(sys.stdout)
     os.makedirs(ev_dir, exist_ok=True)
@@ -135,6 +151,7 @@ class Logger:
     def __init__(self, dir: str | None, output_formats: list):
         self.name2val: dict[str, Any] = {}
         self.name2cnt: dict[str, int] = {}
+        self.level = INFO
         self.dir = dir
         self.output_formats = output_formats
 
@@ -154,6 +171,15 @@ class Logger:
         self.name2cnt.clear()
         return out
 
+    def log(self, *args, level: int = INFO) -> None:
+        if self.level <= level:
+            for fmt in self.output_formats:
+                if isinstance(fmt, SeqWriter):
+                    fmt.writeseq(map(str, args))
+
+    def set_level(self, level: int) -> None:
+        self.level = level
+
     def close(self) -> None:
         for fmt in self.output_formats:
             fmt.close()
@@ -168,15 +194,27 @@ class Logger:
             self.name2val[key] = self.name2val.get(key, 0) + time.time() - start
 
 
+def _process_index() -> int:
+    """This process's rank: ``torch.distributed``'s when it is initialized,
+    else 0."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
 def configure(dir: str | None = None, format_strs: list[str] | None = None,
               log_suffix: str = "") -> Logger:
     """Configure the global logger (``OPENAI_LOGDIR`` / ``OPENAI_LOG_FORMAT``
     honored, as in the reference; without either directory, ``logs`` under
-    the working directory).  The port runs one process, so the per-rank
-    suffixes of the JAX logger do not arise."""
+    the working directory).  A process of rank > 0 gets a ``-rank{i}`` file
+    suffix and the formats of ``OPENAI_LOG_FORMAT_MPI`` (default ``log``),
+    as in the reference (``logger.py:481-489``)."""
     if dir is None:
         dir = os.environ.get("OPENAI_LOGDIR") or "logs"
-    if format_strs is None:
+    rank = _process_index()
+    if rank > 0:
+        log_suffix = f"{log_suffix}-rank{rank:03d}"
+        format_strs = os.environ.get("OPENAI_LOG_FORMAT_MPI", "log").split(",")
+    elif format_strs is None:
         format_strs = os.environ.get("OPENAI_LOG_FORMAT", "stdout,log,csv").split(",")
     Logger.CURRENT = Logger(dir, [make_output_format(f, dir, log_suffix)
                                   for f in format_strs if f])
@@ -205,3 +243,31 @@ def dumpkvs() -> dict:
 def profile_kv(scopename: str):
     with get_current().profile_kv(scopename):
         yield
+
+
+def log(*args, **kwargs) -> None:
+    get_current().log(*args, **kwargs)
+
+
+def set_level(level: int) -> None:
+    get_current().set_level(level)
+
+
+def profile(fn):
+    """Time every call of ``fn`` into ``wait_<fn name>``."""
+    def wrapped(*args, **kwargs):
+        with profile_kv(fn.__name__):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def get_logger(name: str = "DPS"):
+    """Tiny stdlib logger (reference ``src/util/logger.py`` get_logger)."""
+    import logging
+    logger = logging.getLogger(name)
+    if not logger.handlers:
+        handler = logging.StreamHandler()
+        handler.setFormatter(logging.Formatter("%(asctime)s [%(name)s] >> %(message)s"))
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+    return logger

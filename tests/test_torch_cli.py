@@ -17,7 +17,7 @@ from confild_tpu.inference import CNF_inference as JInference
 from confild_tpu.io import torch_export
 from confild_tpu.io.checkpoint import save_pytree
 from confild_tpu.models import unet as junet
-from confild_tpu_torch.cli import sample_conditional, train_cnf
+from confild_tpu_torch.cli import eval_cnf, sample, sample_conditional, train_cnf
 from confild_tpu_torch.core.normalize import Normalizer
 from confild_tpu_torch.inference import CNF_inference, decoder
 from test_cnf_trainer import make_case
@@ -158,6 +158,16 @@ def test_entry_points_refuse_cpu_unless_asked(tmp_path, monkeypatch):
     make_case(tmp_path / "ckpt", epochs=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cnf.main([str(tmp_path / "ckpt" / "case.yml")])
+    unconditional = dict(recipe, test_batch_size=1, latent_length=8,
+                         cnf_case_file_path=str(tmp_path / "ckpt" / "case.yml"))
+    path = tmp_path / "uncond.yml"
+    path.write_text(yaml.safe_dump(unconditional))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sample.main([str(path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_cnf.main(["--checkpoint", recipe["cnf_checkpoint"], "--config",
+                       str(tmp_path / "ckpt" / "case.yml"), "--data",
+                       str(tmp_path / "ckpt" / "fois.npy")])
     out = decoder(np.zeros((4, 2), np.float32), np.zeros((2, 8), np.float32), model,
                   x_norm, y_norm, device="cpu")
     assert out.shape == (2, 4, 1)

@@ -463,7 +463,7 @@ def test_latent_noise_is_seeded_and_latent_init(tmp_path):
 def test_unported_options_raise(tmp_path, capsys):
     hp = _port_case(tmp_path, epochs=1, multiGPU=2)
     TTrainer(hp)
-    assert "ROADMAP.md Queue 1, item 13" in capsys.readouterr().out
+    assert "ROADMAP.md Queue 1, item 7" in capsys.readouterr().out
     hp = _port_case(tmp_path, epochs=1, extra_siren_in=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TTrainer(hp)
