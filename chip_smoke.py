@@ -10,16 +10,18 @@ Phases, each fatal on failure:
    process per source, all started together (timed; ptxas registers and
    spills, and for the flash and SIREN tensor-core kernels the count of
    ``HMMA`` instructions in ``cuobjdump -sass``: every flash forward and
-   backward instantiation, every instantiation of the SIREN forward, of the
-   SIREN chain in its training mode and in its dz mode, and the training
-   reduction kernel must have some);
+   backward instantiation, every instantiation of the SIREN forward (float32
+   and bf16), of the SIREN chain in its training mode and in its dz mode,
+   and the training reduction kernel must have some);
 3. forward decode kernel against its plain version and a float64 run under
    the JAX tests' criterion ``err_kernel <= 2 * err_plain_f32 + 1e-6`` (each
    error printed as a share of its limit), two launches bitwise equal: at
    Case4 widths (SIREN-FiLM 3 -> 384 x 16 modulated layers -> 3, w0 30),
    16 rows x 262144 points (a decoder chunk) and 4 x 262144 (a CNF training
-   batch), and at Case2 widths (2 -> 256 x 11 -> 4) at 3 x 3000 (another
-   instantiation, a ragged last block); at 16 and 4 rows the kernel's time
+   batch), at Case2 widths (2 -> 256 x 11 -> 4) at 3 x 3000 (another
+   instantiation, a ragged last block), and at a hidden width of 96 (3 ->
+   96 x 4 -> 3, zero-padded to 128 by the wrapper) at 4 x 3000; at 16 and
+   4 rows the kernel's time
    (median of 7 separately timed calls with the least and largest, the SM
    clocks before and after), the split's and the forward's device time
    from ``torch.profiler`` with the rate of products, the L2 bytes of the
@@ -31,8 +33,9 @@ Phases, each fatal on failure:
    and a float64 autograd run (same criterion on ``dL/dlatents``, each
    error printed as a share of its limit),
    two launches bitwise equal: at Case4 widths 384 rows x 10 sensors, 384 x
-   1024 and a ragged 100 x 3000 (rows cut across blocks and chunks), and at
-   Case2 widths 3 x 3000; at 384 x 1024 also against the training
+   1024 and a ragged 100 x 3000 (rows cut across blocks and chunks), at
+   Case2 widths 3 x 3000 and at the hidden width 96 at 4 x 3000; at 384 x
+   1024 also against the training
    backward's dz under the same criterion; at 384 x 1024 and 384 x 10 the
    kernel's time (median of 7 separately timed calls with the least and
    largest, the SM clocks before and after), the chain's, the fold's and
@@ -62,7 +65,8 @@ Phases, each fatal on failure:
    every cotangent (dz, dW_first, dW_mid, dW_head, and after the
    autograd chain dlatents, dW2, db1) held to a chunked float64 autograd
    run of the reference decode under the same criterion with a
-   ``1e-6 * max|f64|`` floor; two launches bitwise equal; at 4 x 262144
+   ``1e-6 * max|f64|`` floor (also at the hidden width 96, 4 x 3000); two
+   launches bitwise equal; at 4 x 262144
    the kernel's time (median of 7 separately timed calls with the least
    and largest, the SM clocks before and after), each of its kernels'
    device time from ``torch.profiler`` (the chain and the reduction with
@@ -82,7 +86,9 @@ Phases, each fatal on failure:
 10. flash-attention kernels (forward, dq, dk/dv) against their plain
     versions and a float64 run at the path's shape (64, 144, 64), a ragged
     (2, 200, 32), the xl recipe's (16, 9216, 64), the auto threshold's
-    (4, 16384, 64) and bf16 (2, 256, 64), under the same criterion (each
+    (4, 16384, 64), bf16 (2, 256, 64) and (64, 144, 64) (P and dS rounded
+    to bf16 as in JAX), and 16-channel heads (8, 144, 16) in f32 and bf16
+    (zero-padded to 32 by the wrapper), under the same criterion (each
     error's share of its limit is printed); two launches bitwise equal;
     forward + backward at (4, 16384, 64) within 64 MB above inputs and
     outputs (O(N) memory); times of the kernels, the plain versions and
@@ -135,6 +141,31 @@ Phases, each fatal on failure:
     ``analysis.metrics.integral_timescale`` called directly.
     Launch counts are zeroed before and read after each CLI run; the flash
     forward must launch in (a) and the SIREN forward in (b).
+15. bf16 and rematerialization, at full width:
+    (a) the bf16 SIREN forward kernel (``compute_dtype`` bfloat16) against
+    its plain version (relative L2 1e-2) at 16 x 262144 and 384 x 10 on
+    Case4's decoder, two launches bitwise equal, its float64 error beside
+    the float32 kernel's; its time (median of 7) at 16 x 262144 and 4 x
+    262144 beside the float32 kernel's in the same run and the plain bf16
+    version's, with its bound at the dense bf16 tensor-core rate; one
+    ``fused_siren_decode_frozen(..., compute_dtype=bf16)`` forward and its
+    dz backward at 384 x 1024 (counts zeroed before, read after: the bf16
+    forward and dz kernels must launch), its gradient equal to the float32
+    op's;
+    (b) ``cli.train_diffusion`` on ``recipes/diffusion/case4.yml`` with
+    ``use_bf16`` true and flash forced on (3 steps; the flash forward, dq
+    and dk/dv kernels must launch on bf16), ms per step and peak memory
+    beside phase 12's float32 figures; ``cli.sample`` from its EMA (batch 8,
+    ``cast_torso_params``, flash on, 10 respaced steps, the CNF of phase
+    14), ms per unguided step beside phase 14's and peak memory; the bf16
+    vs float32 relative error of one forward with the same weights;
+    (c) one training step of the Case4 U-Net with ``use_checkpoint``
+    ("full") and without, from the same state: gradients equal to a
+    relative 1e-5, each step's time and peak memory; then
+    ``recipes/diffusion/case4_xl_768.yml``'s model (768^2, batch 4, f32,
+    flash on auto: dense at 9216 tokens) through ``cli.train_diffusion``
+    for 3 steps with ``remat_policy`` "full" and "matmuls": ms per step and
+    peak memory of each.
 
 The script imports nothing of JAX or of ``confild_tpu``.  With no CUDA
 device it exits non-zero and prints no result.  The last line is
@@ -145,6 +176,7 @@ from __future__ import annotations
 
 import copy
 import csv
+import gc
 import json
 import os
 import re
@@ -183,6 +215,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_TF32_FLOPS = 495e12
 TF32_SPLIT_PRODUCTS = 3
+PEAK_BF16_FLOPS = 989e12
 PEAK_EXP_PER_S = 132 * 16 * 1.98e9
 
 CASE4_CNF = dict(in_coord_features=3, in_latent_features=384, out_features=3,
@@ -208,7 +241,8 @@ RECIPE_DIFFUSION = os.path.join(os.path.dirname(os.path.abspath(__file__)), "rec
 # threshold, bf16
 FLASH_CHECKS = ((64, 144, 64, torch.float32), (2, 200, 32, torch.float32),
                 (16, 9216, 64, torch.float32), (4, 16384, 64, torch.float32),
-                (2, 256, 64, torch.bfloat16))
+                (2, 256, 64, torch.bfloat16), (64, 144, 64, torch.bfloat16),
+                (8, 144, 16, torch.float32), (8, 144, 16, torch.bfloat16))
 FLASH_TIMES = ((64, 144, 64), (16, 9216, 64), (4, 16384, 64))
 FLASH_PATH_SHAPE = "64x144x64"
 # flops of one sin2pi activation in the kernels: round-reduce (2), square (1),
@@ -254,12 +288,14 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def tc_bound(flops: float, nbytes: float, other_s: float = 0.0) -> tuple[float, str]:
+def tc_bound(flops: float, nbytes: float, other_s: float = 0.0,
+             rate: float = PEAK_TF32_FLOPS / TF32_SPLIT_PRODUCTS) -> tuple[float, str]:
     """Least time with the matrix products (``flops``) on the tensor cores
-    at the 3xTF32 rate, the rest of the arithmetic taking ``other_s``
-    seconds on its own units, and the bytes at the HBM rate: the largest of
-    the three (ms, what bounds it)."""
-    t_ops = max(flops * TF32_SPLIT_PRODUCTS / PEAK_TF32_FLOPS, other_s)
+    at ``rate`` (by default the 3xTF32 rate; ``PEAK_BF16_FLOPS`` for bf16
+    operands), the rest of the arithmetic taking ``other_s`` seconds on its
+    own units, and the bytes at the HBM rate: the largest of the three (ms,
+    what bounds it)."""
+    t_ops = max(flops / rate, other_s)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -312,7 +348,8 @@ def phase_device():
 def kernel_label(line: str) -> str | None:
     """``flash_bwd_dq_kernel<64, f32>`` or ``siren_bwd_chain_kernel<6>``
     from a line holding a kernel's mangled name, or None."""
-    found = re.search(r"((?:siren|flash)_[a-z_]+_kernel)(?:ILi(\d+)E(\w*?)E)?", line)
+    found = re.search(r"((?:siren|flash)(?:_(?:[a-z]+|bf16))+_kernel)(?:ILi(\d+)E(\w*?)E)?",
+                      line)
     if not found:
         return None
     if not found.group(2):
@@ -342,7 +379,8 @@ def hmma_counts(path) -> dict:
 
 # kernels whose every instantiation must run its products on the tensor cores
 TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "siren_fwd",
-                       "siren_bwd_chain", "siren_dz_chain", "siren_bwd_reduce")
+                       "siren_fwd_bf16", "siren_bwd_chain", "siren_dz_chain",
+                       "siren_bwd_reduce")
 
 
 def phase_build():
@@ -407,6 +445,14 @@ def _double(model):
 
 CASE2_CNF = dict(in_coord_features=2, in_latent_features=256, out_features=4,
                  num_hidden_layers=10, hidden_features=256, w0=30.0)
+# a hidden width that is no multiple of 64: the wrappers pad it to 128
+H96_CNF = dict(in_coord_features=3, in_latent_features=384, out_features=3,
+               num_hidden_layers=3, hidden_features=96, w0=30.0)
+
+
+def h96_decoder(device):
+    return SirenFilm(**H96_CNF, generator=torch.Generator().manual_seed(3)).to(
+        device).requires_grad_(False)
 
 
 def forward_case(model, device, rows, points, seed):
@@ -509,6 +555,7 @@ def phase_forward(device, results):
     case2 = SirenFilm(**CASE2_CNF, generator=torch.Generator().manual_seed(2)).to(device)
     forward_check(case2.requires_grad_(False), device, 3, 3000, 5, "case2")
     del case2
+    forward_check(h96_decoder(device), device, 4, 3000, 6, "H=96 (padded to 128)")
     results["siren_decode_forward"] = dict(forward_time(model, device, 16, 262144, 3),
                                            max_abs_err=err)
     forward_time(model, device, 4, 262144, 4)
@@ -633,6 +680,7 @@ def phase_dz(device, results):
     case2 = SirenFilm(**CASE2_CNF, generator=torch.Generator().manual_seed(2)).to(device)
     dz_check(case2.requires_grad_(False), device, 3, 3000, 6, "case2")
     del case2
+    dz_check(h96_decoder(device), device, 4, 3000, 7, "H=96 (padded to 128)")
     for rows, points in ((384, 1024), (384, 10)):
         results[f"siren_decode_dz@{rows}x{points}"] = dict(
             dz_time(model, device, rows, points, 5), max_abs_err=err[rows, points])
@@ -915,6 +963,7 @@ def phase_bwd(device, results):
     rows, points = 4, 262144
     max_abs_err = bwd_check(model, device, rows, points, seed=14)
     bwd_check(model, device, 4, 16384, seed=13)
+    bwd_check(h96_decoder(device), device, 4, 3000, seed=16)
     coords, latents, g, z, ops, w2, scale = bwd_case(model, device, rows, points, seed=14)
     n_mod = z.shape[0]
     with torch.no_grad():
@@ -1367,24 +1416,40 @@ def phase_unet_flash(root, device) -> None:
     torch.cuda.empty_cache()
 
 
-def write_diffusion_case(root, n_train=32, n_valid=8) -> dict:
-    """``recipes/diffusion/case4.yml`` as published, with flash attention on,
-    on seeded synthetic 384 x 384 latent images; cut to 3 steps, a save
-    every 2, a log line every step."""
+def write_diffusion_case(root, n_train=32, n_valid=8, recipe_path=RECIPE_DIFFUSION,
+                         **over) -> dict:
+    """A diffusion recipe (``recipes/diffusion/case4.yml`` by default) as
+    published, with flash attention on unless ``over`` says otherwise, on
+    seeded synthetic latent images of its image size; cut to 3 steps, a
+    save every 2, a log line every step; ``over`` updates the recipe."""
     os.makedirs(root, exist_ok=True)
-    rng = np.random.default_rng(384)
+    with open(recipe_path) as f:
+        recipe = yaml.safe_load(f)
+    size = recipe["image_size"]
+    rng = np.random.default_rng(size)
     for name, n in (("train", n_train), ("valid", n_valid)):
-        base = np.sin(np.linspace(0, 8 * np.pi, 384))[None, :, None] * rng.uniform(
+        base = np.sin(np.linspace(0, 8 * np.pi, size))[None, :, None] * rng.uniform(
             0.5, 1.5, size=(n, 1, 1))
         np.save(os.path.join(root, f"{name}.npy"),
-                (base + 0.1 * rng.standard_normal((n, 384, 384))).astype(np.float32))
-    with open(RECIPE_DIFFUSION) as f:
-        recipe = yaml.safe_load(f)
-    recipe.update(use_flash_attention=True, lr_anneal_steps=3, save_interval=2, log_interval=1,
-                  log_path=os.path.join(root, "logs"),
-                  train_data_path=os.path.join(root, "train.npy"),
-                  valid_data_path=os.path.join(root, "valid.npy"))
+                (base + 0.1 * rng.standard_normal((n, size, size))).astype(np.float32))
+    recipe.update({"use_flash_attention": True, "lr_anneal_steps": 3, "save_interval": 2,
+                   "log_interval": 1, "log_path": os.path.join(root, "logs"),
+                   "train_data_path": os.path.join(root, "train.npy"),
+                   "valid_data_path": os.path.join(root, "valid.npy"), **over})
     return recipe
+
+
+def timed_steps(loop, batches) -> list[float]:
+    """Synchronized wall ms of one ``run_step`` (train + validation forward)
+    per batch, in memory only (the files on disk stay as written)."""
+    step_ms = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loop.run_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    return step_ms
 
 
 def _write_yaml(path, recipe) -> str:
@@ -1393,9 +1458,10 @@ def _write_yaml(path, recipe) -> str:
     return path
 
 
-def phase_train_diffusion(root) -> tuple[dict, str]:
+def phase_train_diffusion(root, figures) -> tuple[dict, str]:
     """The diffusion training CLI at full Case4 width, then a resume; returns
-    the launch counts and the newest EMA file."""
+    the launch counts and the newest EMA file, and puts the ms per step and
+    the peak memory into ``figures``."""
     recipe = write_diffusion_case(os.path.join(root, "diffusion"))
     logs = recipe["log_path"]
     path = _write_yaml(os.path.join(root, "diffusion", "case4.yml"), recipe)
@@ -1424,16 +1490,10 @@ def phase_train_diffusion(root) -> tuple[dict, str]:
     if missing:
         raise SystemExit(f"diffusion training ran without launching {missing}")
 
-    # ms per step: three more steps of the same loop, in memory only (the
-    # files on disk stay as written), each synchronized; then a profile
+    # ms per step: three more steps of the same loop; then a profile
     data = [next(loop.data)[0] for _ in range(4)]
-    step_ms = []
-    for batch in data[:3]:
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loop.run_step(batch)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t1) * 1e3)
+    step_ms = timed_steps(loop, data[:3])
+    figures.update(diffusion_step_ms=step_ms, diffusion_peak_gib=peak)
     log(f"[train-diffusion] ms per training step (train + validation forward, synchronized "
         f"wall, after the CLI's 3): {[round(x, 1) for x in step_ms]}; CLI wall per step "
         f"{wall * 1e3 / 3:.1f} (first step, build and data set-up included)")
@@ -1556,22 +1616,54 @@ def decode_route_times(trainer, latents) -> None:
         + f"; plain / kernel {seconds['infer (plain)'] / seconds['forward kernel']:.2f}")
 
 
-def phase_generate(root, ema_path, device) -> dict:
-    """Unguided generation at full Case4 U-Net width through ``cli.sample``,
-    then ``cli.eval_cnf`` and ``cli.integral_timescale``; returns the launch
-    counts of the CLI runs."""
-    T = CASE4_RECIPE["time_length"]
+def unguided_step_ms(path, device):
+    """ms per unguided step of a ``cli.sample`` recipe: the CLI's U-Net (its
+    torso pre-cast, as the CLI does) and loop, a synchronized clock read
+    after every step; returns the step times, the model, the diffusion and
+    the sample shape."""
+    hp = cfgmod.basic_input(path)
+    model, diffusion = train_diffusion.build_model_and_diffusion(hp)
+    model = sample.load_unet(hp.ema_path, model).to(device).eval().requires_grad_(False)
+    model.cast_torso_params()
+    shape = (hp.test_batch_size, 1, hp.time_length, hp.latent_length)
+    stamps = []
+
+    def clock(x_t, **_):
+        synchronize(device)
+        stamps.append(time.perf_counter())
+        return x_t
+    synchronize(device)
+    stamps.append(time.perf_counter())
+    diffusion.p_sample_loop(model, shape, generator=torch.Generator(device).manual_seed(1),
+                            step_hook=clock)
+    return np.diff(stamps) * 1e3, model, diffusion, shape
+
+
+def sample_recipe(root, ema_path, cnf_recipe, name, **over) -> str:
+    """``recipes/diffusion/case4.yml`` for ``cli.sample`` from ``ema_path``
+    (and the data range saved beside it), flash on, 10 respaced steps,
+    decoding through ``cnf_recipe``'s CNF."""
     logs = os.path.dirname(ema_path)
-    cnf_recipe = write_training_case(os.path.join(root, "generate"), n_snapshots=4,
-                                     points=MESH_POINTS, epochs=1)
-    train_cnf.main([cnf_recipe])
     with open(RECIPE_DIFFUSION) as f:
         recipe = yaml.safe_load(f)
     recipe.update(use_flash_attention=True, timestep_respacing="10", ema_path=ema_path,
                   max_val=os.path.join(logs, "data_max.npy"),
                   min_val=os.path.join(logs, "data_min.npy"), cnf_case_file_path=cnf_recipe,
-                  save_path=os.path.join(root, "generated.npy"), seed=0)
-    path = _write_yaml(os.path.join(root, "generate", "sample.yml"), recipe)
+                  save_path=os.path.join(root, f"{name}.npy"), seed=0, **over)
+    return _write_yaml(os.path.join(root, f"{name}.yml"), recipe)
+
+
+def phase_generate(root, ema_path, device, figures) -> dict:
+    """Unguided generation at full Case4 U-Net width through ``cli.sample``,
+    then ``cli.eval_cnf`` and ``cli.integral_timescale``; returns the launch
+    counts of the CLI runs and puts the ms per step and the CLI's peak
+    memory into ``figures``."""
+    T = CASE4_RECIPE["time_length"]
+    cnf_recipe = write_training_case(os.path.join(root, "generate"), n_snapshots=4,
+                                     points=MESH_POINTS, epochs=1)
+    train_cnf.main([cnf_recipe])
+    path = sample_recipe(os.path.join(root, "generate"), ema_path, cnf_recipe, "sample")
+    recipe = cfgmod.basic_input(path).to_dict()
     batch = recipe["test_batch_size"]
 
     torch.cuda.reset_peak_memory_stats()
@@ -1600,24 +1692,10 @@ def phase_generate(root, ema_path, device) -> dict:
     decode_route_times(trainer, out["latents"])
     del trainer
 
-    # ms per step: the same loop on the same weights, a synchronized clock
-    # read after every step
-    hp = cfgmod.basic_input(path)
-    model, diffusion = train_diffusion.build_model_and_diffusion(hp)
-    model = sample.load_unet(hp.ema_path, model).to(device).eval().requires_grad_(False)
-    shape = (batch, 1, T, hp.latent_length)
-    stamps = []
-
-    def clock(x_t, **_):
-        synchronize(device)
-        stamps.append(time.perf_counter())
-        return x_t
-    synchronize(device)
-    stamps.append(time.perf_counter())
-    diffusion.p_sample_loop(model, shape, generator=torch.Generator(device).manual_seed(1),
-                            step_hook=clock)
-    step_ms = np.diff(stamps) * 1e3
+    # ms per step: the same loop on the same weights
+    step_ms, model, diffusion, shape = unguided_step_ms(path, device)
     median = float(np.median(step_ms[1:]))
+    figures.update(unguided_ms=median, sample_peak_gib=peak)
     log(f"[generate] ms per unguided step (batch {batch}, synchronized wall): "
         f"{[round(float(x), 1) for x in step_ms]}; median after the first {median:.1f} ms; "
         f"seconds per 1000-step batch of {batch} {median:.1f} (derived)")
@@ -1693,40 +1771,357 @@ def phase_generate(root, ema_path, device) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 15: bf16 (the SIREN forward's compute dtype, the U-Net torso) and
+# block rematerialization
+# ---------------------------------------------------------------------------
+
+RECIPE_XL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "recipes", "diffusion",
+                         "case4_xl_768.yml")
+# the bf16 forward kernel against its plain version: both round every
+# product's operands to bf16; f32 sums in other orders flip a rounding now
+# and then, and 16 layers of w0 = 30 carry a flip on
+BF16_DECODE_REL_TOL = 1e-2
+REMAT_REL_TOL = 1e-5
+
+
+def bf16_forward_check(model, device, rows, points, seed) -> float:
+    """The bf16 forward kernel against its plain bf16 version (relative L2)
+    and float64 beside the float32 kernel's and the plain version's errors,
+    two launches bitwise equal; returns its largest error against float64."""
+    coords, latents, z, ops = forward_case(model, device, rows, points, seed)
+
+    def bf16():
+        return sd.decode_forward(coords, z, *ops, compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        kern = bf16()
+        same = torch.equal(kern, bf16())
+        plain = sd.decode_forward_plain(coords, z, *ops, torch.bfloat16)
+        f32 = sd.decode_forward(coords, z, *ops)
+        truth = f64_decode(model, coords, latents, chunk=32768)
+    torch.cuda.synchronize()
+    rel = rel_l2(kern, plain)
+    errs = {name: ((x.double() - truth).abs().max().item(), rel_l2(x.double(), truth))
+            for name, x in (("bf16 kernel", kern), ("bf16 plain", plain), ("f32 kernel", f32))}
+    ok = rel <= BF16_DECODE_REL_TOL and same and bool(torch.isfinite(kern).all())
+    log(f"[bf16-forward] case4 {rows}x{points}: kernel vs plain bf16 rel L2 {rel:.3e} (tol "
+        f"{BF16_DECODE_REL_TOL}), max abs {(kern - plain).abs().max().item():.3e}; against "
+        f"float64 (max abs, rel L2): " + ", ".join(f"{k} {a:.3e}, {r:.3e}"
+                                                  for k, (a, r) in errs.items())
+        + f", max |f64| {truth.abs().max().item():.3e}; two launches bitwise equal: {same} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the bf16 forward kernel disagrees with its plain version or is not "
+                         "deterministic")
+    del kern, plain, f32, truth
+    torch.cuda.empty_cache()
+    return errs["bf16 kernel"][0]
+
+
+def bf16_forward_time(model, device, rows, points, seed) -> dict:
+    """The bf16 forward kernel and the float32 one at ``rows x points`` in
+    this run (medians of 7 with the least and largest, SM clocks around
+    them), the bf16 kernel's device time by launch, the plain bf16 version's
+    time, and the bound with the products at the dense bf16 rate."""
+    coords, _, z, ops = forward_case(model, device, rows, points, seed)
+    fns = {"bf16": lambda: sd.decode_forward(coords, z, *ops, compute_dtype=torch.bfloat16),
+           "f32": lambda: sd.decode_forward(coords, z, *ops)}
+    with torch.no_grad():
+        log(f"[bf16-time] SM clock, max before: {sm_clocks()}")
+        t = {k: cuda_median(fn, 1) for k, fn in fns.items()}
+        log(f"[bf16-time] SM clock, max after: {sm_clocks()}")
+        plain_ms = cuda_median(lambda: sd.decode_forward_plain(coords, z, *ops, torch.bfloat16),
+                               2, repeats=1)[0]
+        prof = device_profile(f"bf16 forward {rows}x{points}", fns["bf16"], top=3)
+    n_mod, h = z.shape[0], z.shape[2]
+    c_in, c_out = coords.shape[1], ops[2].shape[1]
+    pairs = rows * points
+    mat = pairs * 2 * h * (c_in + (n_mod - 1) * h + c_out)
+    act = pairs * ACT_FLOPS * h * n_mod
+    nbytes = 4 * (points * c_in + n_mod * rows * h + c_in * h + (n_mod - 1) * h * h
+                  + h * c_out + c_out + pairs * c_out)
+    bound_ms, bound_by = tc_bound(mat, nbytes, act / PEAK_F32_FLOPS, rate=PEAK_BF16_FLOPS)
+    for part, name in (("fragments", "siren_bf16_frag_kernel"),
+                       ("forward", "siren_fwd_bf16_kernel")):
+        hits = [v for k, v in prof.items() if name in k]
+        if not hits:
+            log(f"[bf16-time] {rows}x{points} {part}: device time not measured")
+            continue
+        dev_ms = sum(ms for ms, _ in hits)
+        rate = (f", {pairs * 2 * (n_mod - 1) * h * h / dev_ms / 1e9:.2f} TFLOP/s of products"
+                if part == "forward" and dev_ms else "")
+        log(f"[bf16-time] {rows}x{points} {part}: {dev_ms:.3f} ms device, "
+            f"{sum(n for _, n in hits)} launches{rate}")
+    stream = -(-pairs // 64) * (n_mod - 1) * h * h * 2
+    ms, least, largest = t["bf16"]
+    log(f"[bf16-forward] {rows}x{points}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median "
+        f"of 7 ({(mat + act) / ms / 1e9:.2f} TFLOP/s), float32 kernel in this run "
+        f"{t['f32'][0]:.3f} ms [{t['f32'][1]:.3f}-{t['f32'][2]:.3f}] "
+        f"({t['f32'][0] / ms:.2f}x), plain bf16 {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({bound_by}: products at the dense bf16 rate, sines on the CUDA cores); the blocks "
+        f"read {stream / 1e12:.3f} TB of bf16 weight fragments from L2; library: none")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                shape=f"{rows}x{points}", f32_ms=t["f32"][0])
+
+
+def bf16_frozen_path(device) -> dict:
+    """``fused_siren_decode_frozen`` with ``compute_dtype`` float32, then
+    bfloat16, forward and dz backward at 384 x 1024 (the DPS gradient at
+    1024 sensors): the bf16 run must launch the bf16 forward and the dz
+    kernels (counts zeroed before, read after), and its gradient equals the
+    float32 run's (the backward ignores the compute dtype); returns the
+    bf16 run's launch counts."""
+    model = case4_decoder(device)
+    coords, latents, g, *_ = dz_case(model, device, 384, 1024, seed=9)
+    grads = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        lat = latents.clone().requires_grad_(True)
+        sd.reset_launch_counts()
+        out = sd.fused_siren_decode_frozen(model, coords, lat, model.w0, compute_dtype=dtype)
+        (out * g).sum().backward()
+        torch.cuda.synchronize()
+        counts = dict(sd.LAUNCHES)
+        grads[dtype] = lat.grad
+    same = torch.equal(grads[torch.bfloat16], grads[torch.float32])
+    ok = (same and counts["siren_decode_forward_bf16"] > 0 and counts["siren_decode_dz"] > 0
+          and counts["siren_decode_forward"] == 0
+          and bool(torch.isfinite(grads[torch.bfloat16]).all()))
+    log(f"[bf16-frozen] fused_siren_decode_frozen(compute_dtype=bf16) 384x1024, forward and dz "
+        f"backward: launches {counts}; dL/dlatents equal to the float32 op's: {same} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the bf16 frozen decode did not run the bf16 forward and the dz "
+                         "kernels, or its gradient is not the float32 backward's")
+    return counts
+
+
+def phase_bf16_decode(device, results) -> dict:
+    """Phase 15 (a): the bf16 SIREN forward kernel; returns the launch
+    counts of the frozen op's run."""
+    model = case4_decoder(device)
+    err = bf16_forward_check(model, device, 16, 262144, 3)
+    bf16_forward_check(model, device, 384, 10, 5)
+    results["siren_decode_forward_bf16"] = dict(bf16_forward_time(model, device, 16, 262144, 3),
+                                                max_abs_err=err)
+    bf16_forward_time(model, device, 4, 262144, 4)
+    return bf16_frozen_path(device)
+
+
+def phase_bf16_unet(root, device, figures) -> dict:
+    """Phase 15 (b): the bf16 Case4 U-Net trained and sampled through the
+    CLIs; returns the flash launch counts of both CLI runs."""
+    recipe = write_diffusion_case(os.path.join(root, "diffusion_bf16"), use_bf16=True)
+    logs = recipe["log_path"]
+    path = _write_yaml(os.path.join(root, "diffusion_bf16", "case4.yml"), recipe)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    loop = train_diffusion.main([path])
+    torch.cuda.synchronize()
+    counts = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(logs, "progress.csv")) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    step_ms = timed_steps(loop, [next(loop.data)[0] for _ in range(3)])
+    f32_ms = figures["diffusion_step_ms"]
+    log(f"[bf16-unet] cli.train_diffusion, Case4 U-Net bf16 torso, batch {loop.batch_size}, "
+        f"flash on: losses {[round(x, 6) for x in losses]}, launches {counts}; ms per step "
+        f"{[round(x, 1) for x in step_ms]} (float32, phase 12: "
+        f"{[round(x, 1) for x in f32_ms]}; {np.median(f32_ms) / np.median(step_ms):.2f}x), "
+        f"peak memory {peak:.2f} GiB (float32: {figures['diffusion_peak_gib']:.2f})")
+    if not (loop.model.cfg.torso_dtype == torch.bfloat16 and len(losses) == 3
+            and np.isfinite(losses).all() and all(v > 0 for v in counts.values())):
+        raise SystemExit("bf16 diffusion training: wrong torso, non-finite losses or a flash "
+                         "kernel not launched")
+    batch = next(loop.data)[0]
+    device_profile("one bf16 diffusion training step (Case4, batch 8, flash on)",
+                   lambda: loop.run_step(batch), top=8)
+    del loop
+    torch.cuda.empty_cache()
+
+    # phase 5's seeded Case4 weights (the EMA of 3 steps from the zeroed
+    # output convolutions gives an output near 0)
+    state = torch.load(write_assets(root, 10)["ema_path"], weights_only=True)
+    gen = torch.Generator(device=device).manual_seed(31)
+    x = torch.randn((2, 1, 384, 384), generator=gen, device=device)
+    ts = torch.tensor([100, 700], device=device)
+    outs = {}
+    for bf16 in (False, True):
+        model = tunet.create_model(**CASE4_UNET, use_flash_attention=True, use_bf16=bf16)
+        model.load_state_dict(state)
+        with torch.no_grad():
+            outs[bf16] = model.to(device).eval()(x, ts)
+        del model
+    log(f"[bf16-unet] one forward (batch 2, flash on) with phase 5's seeded Case4 weights: "
+        f"bf16 vs float32 relative L2 {rel_l2(outs[True], outs[False]):.3e}, max abs "
+        f"{(outs[True] - outs[False]).abs().max().item():.3e}, max |float32| "
+        f"{outs[False].abs().max().item():.3e}")
+
+    ema_path = os.path.join(logs, "ema_0.9999_000003.pt")
+
+    cnf_recipe = os.path.join(root, "generate", "case4.yml")   # phase 14's CNF
+    spath = sample_recipe(os.path.join(root, "diffusion_bf16"), ema_path, cnf_recipe,
+                          "sample", use_bf16=True)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    out = sample.main([spath])
+    speak = torch.cuda.max_memory_allocated() / 2**30
+    scounts = dict(fa.LAUNCHES)
+    fields = np.load(cfgmod.basic_input(spath).save_path)
+    step_ms, model, *_ = unguided_step_ms(spath, device)
+    median = float(np.median(step_ms[1:]))
+    cast = {p.dtype for m in model.torso_layers() for p in m.parameters()}
+    log(f"[bf16-unet] cli.sample from the bf16 EMA: fields {fields.shape}, finite "
+        f"{bool(np.isfinite(fields).all())}, sampling {out['sample_s']:.3f} s, decode "
+        f"{out['decode_s']:.3f} s, peak memory {speak:.2f} GiB (float32, phase 14: "
+        f"{figures['sample_peak_gib']:.2f}); launches {scounts}; torso dtypes {cast}; ms per "
+        f"unguided step {[round(float(v), 1) for v in step_ms]}, median after the first "
+        f"{median:.1f} (float32, phase 14: {figures['unguided_ms']:.1f}; "
+        f"{figures['unguided_ms'] / median:.2f}x)")
+    if not (np.isfinite(fields).all() and fields.shape[0] == 8 and scounts["flash_forward"] > 0
+            and cast == {torch.bfloat16}):
+        raise SystemExit("bf16 sampling gave a wrong field, ran without the flash forward or "
+                         "did not pre-cast its torso")
+    del model
+    torch.cuda.empty_cache()
+    return {k: counts[k] + scounts[k] for k in counts}
+
+
+def phase_remat(root, device) -> None:
+    """Phase 15 (c): one Case4 training step with and without block
+    rematerialization from the same state, then the xl recipe through the
+    CLI under the "full" and "matmuls" policies."""
+    state = torch.load(write_assets(root, 10)["ema_path"], weights_only=True)
+    diffusion = create_gaussian_diffusion(steps=1000, noise_schedule="cosine")
+    gen = torch.Generator(device=device).manual_seed(41)
+    x0 = torch.rand((8, 1, 384, 384), generator=gen, device=device) * 2 - 1
+    noise = torch.randn(x0.shape, generator=gen, device=device)
+    t = torch.tensor([3, 120, 250, 400, 555, 700, 850, 999])
+    res = {}
+    for ckpt in (False, True):
+        model = tunet.create_model(**CASE4_UNET, use_checkpoint=ckpt)
+        model.load_state_dict(state)
+        model.to(device)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            diffusion.training_losses(model, x0, t, noise=noise)["loss"].mean().backward()
+        step()   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        res[ckpt] = ((time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() / 2**30,
+                     {n: p.grad for n, p in model.named_parameters()})
+        del model
+        torch.cuda.empty_cache()
+    worst = max((rel_l2(res[True][2][n], res[False][2][n]), n) for n in res[False][2])
+    ok = worst[0] <= REMAT_REL_TOL
+    log(f"[remat] Case4 U-Net, batch 8, one training step (forward + backward): "
+        f"use_checkpoint full {res[True][0]:.1f} ms, peak {res[True][1]:.2f} GiB; without "
+        f"{res[False][0]:.1f} ms, peak {res[False][1]:.2f} GiB; worst gradient rel L2 "
+        f"{worst[0]:.3e} ({worst[1]}, tol {REMAT_REL_TOL}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("rematerialized gradients differ from the plain step's")
+    del res
+    for policy in ("full", "matmuls"):
+        try:
+            train_xl(root, policy, batch=4)
+            continue
+        except torch.cuda.OutOfMemoryError as err:   # recorded, then a batch that fits
+            log(f"[remat] case4_xl_768.yml, remat_policy {policy}, batch 4: out of memory, "
+                f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                f"({str(err).splitlines()[0]}); again at batch 2")
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_xl(root, policy, batch=2)
+
+
+def train_xl(root, policy: str, batch: int) -> None:
+    """``recipes/diffusion/case4_xl_768.yml``'s model (768^2, f32, flash on
+    auto) through ``cli.train_diffusion`` for 3 steps at ``batch`` under
+    ``remat_policy``: ms per step and peak memory."""
+    recipe = write_diffusion_case(os.path.join(root, f"xl_{policy}_{batch}"), n_train=2 * batch,
+                                  n_valid=batch, recipe_path=RECIPE_XL,
+                                  use_flash_attention=None, remat_policy=policy,
+                                  batch_size=batch)
+    path = _write_yaml(os.path.join(root, f"xl_{policy}_{batch}", "case.yml"), recipe)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop = train_diffusion.main([path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(recipe["log_path"], "progress.csv")) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    step_ms = timed_steps(loop, [next(loop.data)[0] for _ in range(2)])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cfg = loop.model.cfg
+    log(f"[remat] cli.train_diffusion on case4_xl_768.yml (768^2, batch {loop.batch_size}, f32, "
+        f"flash {'on' if cfg.use_flash_attention else 'off (auto: dense)'}), use_checkpoint "
+        f"{cfg.use_checkpoint}, remat_policy {cfg.remat_policy}: losses "
+        f"{[round(x, 6) for x in losses]}, CLI wall {wall:.1f} s, ms per step "
+        f"{[round(x, 1) for x in step_ms]}, peak memory {peak:.2f} GiB")
+    if not (cfg.use_checkpoint and cfg.remat_policy == policy and len(losses) == 3
+            and np.isfinite(losses).all()):
+        raise SystemExit(f"the xl recipe did not train under remat policy {policy}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
 
     device = resolve_device("cuda")
+    start = time.perf_counter()
+
+    def stamp(done: str) -> None:
+        log(f"[time] {done} done at {time.perf_counter() - start:.1f} s")
     name, count, smi = phase_device()
     phase_build()
+    stamp("phases 1-2 (build)")
     results = {}
     phase_forward(device, results)
     phase_dz(device, results)
     phase_crossover(device)
     phase_bwd(device, results)
+    stamp("phases 3-4, 7 (SIREN kernels)")
     phase_flash(device, results)
+    stamp("phase 10 (flash kernels)")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         launches = phase_main_path(root)
         phase_fused_dps(root, device)
+        stamp("phases 5-6 (DPS)")
         phase_op_grads(device, root)
         for k, v in phase_train(root).items():
             launches[k] += v
+        stamp("phases 8-9 (CNF training)")
         phase_unet_flash(root, device)
-        flash_launches, ema_path = phase_train_diffusion(root)
-        for phase_counts in (phase_train_to_sample(root, ema_path),
-                             phase_generate(root, ema_path, device)):
-            for k, v in phase_counts.items():
+        figures = {}
+        flash_launches, ema_path = phase_train_diffusion(root, figures)
+        stamp("phases 11-12 (diffusion training)")
+        for label, run in (("phase 13 (train -> sample)",
+                            lambda: phase_train_to_sample(root, ema_path)),
+                           ("phase 14 (generation, evaluation)",
+                            lambda: phase_generate(root, ema_path, device, figures)),
+                           ("phase 15a (bf16 SIREN forward)",
+                            lambda: phase_bf16_decode(device, results)),
+                           ("phase 15b (bf16 U-Net)",
+                            lambda: phase_bf16_unet(root, device, figures))):
+            for k, v in run().items():
                 if k in flash_launches:
                     flash_launches[k] += v
                 else:
                     launches[k] += v
+            stamp(label)
+        phase_remat(root, device)
+        stamp("phase 15c (remat)")
     launches.update(flash_launches)
 
     kernels = []
     for kname, key, src, replaces in (
             ("siren_decode_forward", "siren_decode_forward", "siren_decode.cu",
+             "siren_decode.py:96"),
+            ("siren_decode_forward_bf16", "siren_decode_forward_bf16", "siren_decode.cu",
              "siren_decode.py:96"),
             ("siren_decode_dz", "siren_decode_dz@384x1024", "siren_decode_bwd.cu",
              "siren_decode.py:315"),

@@ -12,8 +12,10 @@ training coordinates through the trained CNF (``cnf_case_file_path``: its
 newest checkpoint in ``save_path``, decoder only) in ``decode_batch_size``
 chunks, and saves the ``(B, T, M, C)`` fields to ``save_path``.  The draws
 come from a generator seeded with ``seed``.  ``device`` (optional; the
-default is the CUDA card).  The decode is ``CNFTrainer.infer``, the plain
-SIREN-FiLM decode, as in the JAX package.
+default is the CUDA card).  A bf16 U-Net (``use_bf16``) has its torso's
+convolutions pre-cast after loading (``UNetModel.cast_torso_params``).  The
+decode is ``CNFTrainer.infer``, the plain SIREN-FiLM decode, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -48,7 +50,10 @@ def main(argv=None) -> dict:
     device = resolve_device(hp.get("device"))
 
     model, diffusion = build_model_and_diffusion(hp)
+    # sampling only: the torso's convolutions pre-cast once (bit-identical
+    # to the cast at use), as the JAX CLI does on every load
     model = load_unet(hp.ema_path, model).to(device).eval().requires_grad_(False)
+    model.cast_torso_params()
     shape = (hp.test_batch_size, 1, hp.time_length, hp.latent_length)
 
     synchronize(device)

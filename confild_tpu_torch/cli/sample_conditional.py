@@ -47,7 +47,10 @@ def main(argv=None) -> dict:
     device = resolve_device(hp.get("device"))
 
     model, _ = build_model_and_diffusion(hp)
+    # sampling only: the torso's convolutions pre-cast once (bit-identical
+    # to the cast at use), as the JAX CLI does on every load
     model = load_unet(hp.ema_path, model).to(device).eval().requires_grad_(False)
+    model.cast_torso_params()
 
     measurement = torch.as_tensor(np.load(hp.sensor_measures), dtype=torch.float32,
                                   device=device)

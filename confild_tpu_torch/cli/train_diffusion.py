@@ -30,12 +30,7 @@ from confild_tpu_torch.utils import logger as tlog
 
 def build_model_and_diffusion(hp):
     """The U-Net and its diffusion from a recipe (``confild_tpu/cli/
-    train_diffusion.py:28-53``).  The U-Net is float32: the bf16 torso
-    raises."""
-    if hp.get("use_bf16", hp.get("use_fp16", False)):
-        raise NotImplementedError(
-            "the bf16 U-Net torso is not ported yet (ROADMAP.md Queue 1, "
-            "item 4: the bf16 torso and f32 tail)")
+    train_diffusion.py:28-53``)."""
     model = tunet.create_model(
         image_size=hp.image_size,
         num_channels=hp.num_channels,
@@ -48,8 +43,11 @@ def build_model_and_diffusion(hp):
         dims=hp.get("dims", 2),
         use_scale_shift_norm=hp.get("use_scale_shift_norm", False),
         dropout=hp.get("dropout", 0.0),
+        use_bf16=hp.get("use_bf16", hp.get("use_fp16", False)),
         use_checkpoint=hp.get("use_checkpoint", False),
+        remat_policy=hp.get("remat_policy", "full"),
         use_flash_attention=hp.get("use_flash_attention"),
+        use_f32_tail=hp.get("use_f32_tail", False),
     )
     diffusion = create_gaussian_diffusion(
         steps=hp.steps,

@@ -2,8 +2,10 @@
 // two-pass backward, float32 arithmetic for float32 and bfloat16 inputs.
 //
 // Layouts (row-major, contiguous): q, k, v, dO, out, dq, dk, dv are
-// (BH, N, D); lse and delta are (BH, N) float32.  D is 32, 64 or 128.
-// Logits are scaled by 1 / sqrt(D); the softmax runs in float32.
+// (BH, N, D); lse and delta are (BH, N) float32.  D is 32, 64 or 128 (the
+// wrapper zero-pads a narrower head to the next of these).  Logits are
+// scaled by the caller's scale (1 / sqrt of the unpadded width); the softmax
+// runs in float32.
 //
 // ---------------------------------------------------------------------------
 // flash_forward replaces the Pallas kernel _flash_kernel
@@ -41,8 +43,10 @@
 // (first) + big*big: about 22 significant bits per operand.  The tensor
 // cores truncate their f32 sums, so the products go into short zeroed
 // partials that float32 adds carry into the running sums (see mma3).  bf16
-// inputs are exact in TF32 (small = 0), so Q.K^T and dO.V^T take one
-// product and the products with P or dS two.  mma.sync, not wgmma: wgmma
+// inputs are exact in TF32 (small = 0), and for them P and dS are rounded to
+// bf16 before their products, as the JAX kernels round them
+// (flash_attention.py:80-81, 180, 210, 214), which leaves them exact too:
+// every product of bf16 inputs is one mma.  mma.sync, not wgmma: wgmma
 // takes TF32 only with both operands K-major in shared memory, but P.V and
 // three of the backward's products (dQ = dS.K, dK = dS^T.Q, dV = P^T.dO)
 // reduce along the row axis of row-major tiles and would need transposed
@@ -85,8 +89,9 @@
 //   * Shared memory (f32): Q, K and V in two halves each, and the stage:
 //     64 KB at D = 32, 128 KB at D = 64, 192 KB at D = 128 with no stage
 //     (float32) or 224 KB with it (bf16).  One block an SM.
-//   * bf16: JAX rounds P to bf16 before P.V (flash_attention.py:80-81);
-//     this kernel, like the port's plain version, keeps P in float32.
+//   * bf16: P is rounded to bf16 before P.V, as in JAX (flash_attention.py:
+//     80-81), relative to the running max of its 64-key tile; the running sum
+//     adds the unrounded float32 values.
 //
 // Backward (3xTF32 as above).
 //   * Bound: 3 x 14 N^2 D tensor-core flops at 495 TFLOP/s dense TF32, i.e.
@@ -114,8 +119,10 @@
 //     does not fit (D = 128), each thread loads its chunks into registers
 //     at the top of the tile instead, which overlaps only the barrier.
 //     The resident tiles (Q, dO for dq; K, V for dk/dv) arrive by cp.async
-//     and are split when their A fragments are loaded, as are P and dS.
-//     bf16 tiles are widened to f32 (exact in TF32: no small half).
+//     and are split when their A fragments are loaded, as are P and dS
+//     (rounded to bf16 instead for bf16 inputs: P for dV, dS for dQ and dK;
+//     dS itself is formed from the float32 P, as in JAX).  bf16 tiles are
+//     widened to f32 (exact in TF32: no small half).
 //   * Shared tiles have a row stride of D with an XOR swizzle of the column
 //     (c ^ swz(r), swz(r) = 8 (r & 3) + (r & 4)): fragments read along
 //     rows (A, and B of S) and along columns (B of dQ, dK, dV) both hit 32
@@ -324,16 +331,36 @@ __device__ __forceinline__ void load_resident(float* tile, const T* src, int row
   }
 }
 
+// An operand of the forward's P.V or of the backward's products with P and
+// dS: split into TF32 halves, or for bf16 inputs (ROUND) rounded to bf16 as
+// the JAX kernels round P and dS, which is exact in TF32 (no small half).
+template <bool ROUND>
+__device__ __forceinline__ void split_p(float x, uint32_t& big, uint32_t& small) {
+  if constexpr (ROUND) {
+    big = __float_as_uint(__bfloat162float(__float2bfloat16_rn(x)));
+    small = 0u;
+  } else {
+    split<false>(x, big, small);
+  }
+}
+
 // Fragments of m16n8k8 (g = lane / 4, t = lane % 4).  A, 16 x 8 at (r0, c0):
-// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
-template <int LD, bool EXACT>
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); split<EXACT>, or rounded to
+// bf16 when ROUND (split_p)
+template <int LD, bool EXACT, bool ROUND = false>
 __device__ __forceinline__ void frag_a(uint32_t big[4], uint32_t small[4], const float* tile,
                                        int r0, int c0) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  split<EXACT>(ld_sw<LD>(tile, r0 + g, c0 + t), big[0], small[0]);
-  split<EXACT>(ld_sw<LD>(tile, r0 + g + 8, c0 + t), big[1], small[1]);
-  split<EXACT>(ld_sw<LD>(tile, r0 + g, c0 + t + 4), big[2], small[2]);
-  split<EXACT>(ld_sw<LD>(tile, r0 + g + 8, c0 + t + 4), big[3], small[3]);
+  const float x[4] = {ld_sw<LD>(tile, r0 + g, c0 + t), ld_sw<LD>(tile, r0 + g + 8, c0 + t),
+                      ld_sw<LD>(tile, r0 + g, c0 + t + 4),
+                      ld_sw<LD>(tile, r0 + g + 8, c0 + t + 4)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (ROUND)
+      split_p<true>(x[i], big[i], small[i]);
+    else
+      split<EXACT>(x[i], big[i], small[i]);
+  }
 }
 // B, 8 x 8, B[k][j] = tile[n0 + j][c0 + k] (a product with the tile's
 // transpose): (k, j) = (t, g), (t + 4, g); from a tile's split halves
@@ -412,7 +439,8 @@ __device__ __forceinline__ void strip_abt(float c[NT][4], const float* a, const 
 }
 
 // acc[nd] += rows r0 .. r0 + 15 of the block's 64 x 64 P or dS tile
-// (float32, split here) times columns c0 + 8nd .. of a 64 x D tile (given
+// (float32, split here; for bf16 inputs, EXACT, rounded to bf16 here, as
+// JAX rounds P and dS) times columns c0 + 8nd .. of a 64 x D tile (given
 // as its split halves; exact in TF32 when EXACT), nd < NT
 template <int D, bool EXACT, int NT>
 __device__ __forceinline__ void strip_pm(float acc[NT][4], const float* p, const float* mb,
@@ -427,12 +455,12 @@ __device__ __forceinline__ void strip_pm(float acc[NT][4], const float* p, const
 #pragma unroll
     for (int kc = k2; kc < k2 + 2; ++kc) {
       uint32_t ab[4], as[4];
-      frag_a<TILE, false>(ab, as, p, r0, 8 * kc);
+      frag_a<TILE, false, EXACT>(ab, as, p, r0, 8 * kc);
 #pragma unroll
       for (int nd = 0; nd < NT; ++nd) {
         uint32_t bb[2], bs[2];
         frag_b_cols<D, EXACT>(bb, bs, mb, ms, 8 * kc, c0 + 8 * nd);
-        mma3_into<false, EXACT>(part[nd], ab, as, bb, bs);
+        mma3_into<EXACT, EXACT>(part[nd], ab, as, bb, bs);
       }
     }
 #pragma unroll
@@ -570,16 +598,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e >> 1];
 
     // acc += P V, two k8 steps a partial.  P's A fragment of step j is
-    // s[j] as it stands, its keys taken in the order frag_b_pairs reads V.
+    // s[j] as it stands (rounded to bf16 for bf16 inputs), its keys taken in
+    // the order frag_b_pairs reads V.
 #pragma unroll
     for (int j2 = 0; j2 < NS; j2 += 2) {
       uint32_t pb[2][4], ps[2][4];
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        split<false>(s[j2 + c][0], pb[c][0], ps[c][0]);   // (g, key 2t)
-        split<false>(s[j2 + c][2], pb[c][1], ps[c][1]);   // (g + 8, key 2t)
-        split<false>(s[j2 + c][1], pb[c][2], ps[c][2]);   // (g, key 2t + 1)
-        split<false>(s[j2 + c][3], pb[c][3], ps[c][3]);   // (g + 8, key 2t + 1)
+        split_p<EXACT>(s[j2 + c][0], pb[c][0], ps[c][0]);   // (g, key 2t)
+        split_p<EXACT>(s[j2 + c][2], pb[c][1], ps[c][1]);   // (g + 8, key 2t)
+        split_p<EXACT>(s[j2 + c][1], pb[c][2], ps[c][2]);   // (g, key 2t + 1)
+        split_p<EXACT>(s[j2 + c][3], pb[c][3], ps[c][3]);   // (g + 8, key 2t + 1)
       }
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd) {
@@ -588,7 +617,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         for (int c = 0; c < 2; ++c) {
           uint32_t bb[2], bs[2];
           frag_b_pairs<D, EXACT>(bb, bs, sVb, sVs, 8 * (j2 + c), 8 * nd);
-          mma3_into<false, EXACT>(part, pb[c], ps[c], bb, bs);
+          mma3_into<EXACT, EXACT>(part, pb[c], ps[c], bb, bs);
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[nd][e] += part[e];
@@ -872,7 +901,7 @@ bool aligned16(const void* a, const void* b, const void* c, const void* d) {
 
 template <int D, typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
-               int n, cudaStream_t stream) {
+               int n, float scale, cudaStream_t stream) {
   if (!aligned16(q, k, v, out)) return (int)cudaErrorMisalignedAddress;
   const size_t smem = fwd_smem<D, T>();
   static unsigned long long done = 0;
@@ -880,27 +909,27 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, float* ls
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((n + FWD_ROWS - 1) / FWD_ROWS), (unsigned)bh);
   flash_fwd_kernel<D, T><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, n, 1.f / sqrtf((float)D));
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, n, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D, typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-              const float* delta, void* dq, int bh, int n, cudaStream_t stream) {
+              const float* delta, void* dq, int bh, int n, float scale, cudaStream_t stream) {
   if (!aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
   const size_t smem = dq_smem<D, T>();
   static unsigned long long done = 0;
   cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, T>, smem, done);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dq_kernel<D, T><<<grid_for(bh, n), THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, n,
-      1.f / sqrtf((float)D));
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, n, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D, typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* delta, void* dk, void* dv, int bh, int n, cudaStream_t stream) {
+               const float* delta, void* dk, void* dv, int bh, int n, float scale,
+               cudaStream_t stream) {
   if (!aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
   const size_t smem = dkv_smem<D, T>();
   static unsigned long long done = 0;
@@ -908,7 +937,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dkv_kernel<D, T><<<grid_for(bh, n), THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, n,
-      1.f / sqrtf((float)D));
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -933,24 +962,26 @@ bool args_ok(int bh, int n, int d, int dtype) {
 
 extern "C" {
 
+// scale: the logits' factor, 1 / sqrt of the head width before padding
 int flash_forward(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
-                  int n, int d, int dtype, void* stream) {
+                  int n, int d, int dtype, float scale, void* stream) {
   if (!args_ok(bh, n, d, dtype)) return (int)cudaErrorInvalidValue;
-  FLASH_DISPATCH(launch_fwd, q, k, v, out, lse, bh, n, (cudaStream_t)stream)
+  FLASH_DISPATCH(launch_fwd, q, k, v, out, lse, bh, n, scale, (cudaStream_t)stream)
 }
 
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                  const float* lse, const float* delta, void* dq, int bh, int n, int d,
-                 int dtype, void* stream) {
+                 int dtype, float scale, void* stream) {
   if (!args_ok(bh, n, d, dtype)) return (int)cudaErrorInvalidValue;
-  FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, bh, n, (cudaStream_t)stream)
+  FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, bh, n, scale, (cudaStream_t)stream)
 }
 
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, void* dk, void* dv, int bh, int n,
-                  int d, int dtype, void* stream) {
+                  int d, int dtype, float scale, void* stream) {
   if (!args_ok(bh, n, d, dtype)) return (int)cudaErrorInvalidValue;
-  FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, n, (cudaStream_t)stream)
+  FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, n, scale,
+                 (cudaStream_t)stream)
 }
 
 }  // extern "C"

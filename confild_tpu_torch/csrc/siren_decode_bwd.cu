@@ -554,10 +554,6 @@ extern "C" {
 
 int siren_bwd_tile_pairs() { return CP; }
 
-int siren_bwd_shape_ok(int H, int n_mod, int C_in, int C_out) {
-  return shape_ok(H, n_mod, C_in, C_out) ? 1 : 0;
-}
-
 // the forward's and the dx chain's products: 2 n_mid
 int siren_bwd_split(const float* w_mid, float* wsplit, int H, int n_mid, void* stream) {
   return launch_split(w_mid, wsplit, H, n_mid, 2 * n_mid, (cudaStream_t)stream);

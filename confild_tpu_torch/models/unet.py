@@ -15,17 +15,34 @@ An attention block takes the dense path or the flash-attention kernels
 (``confild_tpu_torch/ops/flash_attention.py``), as the JAX package routes it:
 ``use_flash_attention`` true sends every block through the kernels; left
 unset (auto), only blocks of at least ``FLASH_MIN_TOKENS`` tokens take them.
-Block rematerialization (``use_checkpoint``) is not ported.
+
+As in the JAX package (``confild_tpu/models/unet.py:142-153, 508-577``):
+
+* a bf16 torso (``use_bf16`` / ``use_fp16``): activations are cast to
+  bfloat16 after the input, every convolution casts its float32 weights at
+  use, the timestep embedding runs in float32 and is cast afterwards,
+  GroupNorm keeps float32 statistics, the dense attention's logits and
+  softmax stay float32; the tail (final norm, SiLU, convolution) runs in
+  the torso dtype unless ``use_f32_tail``, and the output returns to the
+  input's dtype.  :meth:`UNetModel.cast_torso_params` pre-casts the torso's
+  convolutions for sampling;
+* block rematerialization (``use_checkpoint``): each input block, the
+  middle block and each output block run under ``torch.utils.checkpoint``
+  (non-reentrant, RNG state preserved), with the ``remat_policy`` of
+  :data:`REMAT_POLICIES`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from confild_tpu_torch.models import nn as tnn
 from confild_tpu_torch.ops.flash_attention import flash_attention
@@ -34,6 +51,24 @@ from confild_tpu_torch.ops.flash_attention import flash_attention
 # mode (confild_tpu/models/unet.py:185); kept for routing parity, the H100
 # crossover is in PERF.md
 FLASH_MIN_TOKENS = 16384
+
+_aten = torch.ops.aten
+_MATMULS = frozenset({_aten.convolution.default, _aten.mm.default, _aten.bmm.default,
+                      _aten.addmm.default})
+# the remat policies of confild_tpu/models/unet.py:94-120, as the ops whose
+# outputs a checkpointed block saves (None: none, the whole block is
+# recomputed).  "matmuls" saves the convolutions' and matrix products'
+# outputs; "matmuls+stats" also GroupNorm's statistics, JAX's tagged
+# ``gn_stats``: the float32 torso's ``native_group_norm`` (its mean and rstd,
+# with the normalized output that the op returns beside them) and the bf16
+# torso's ``var_mean`` (models/nn.py::_GroupNormLowp)
+REMAT_POLICIES = {"full": None, "matmuls": _MATMULS,
+                  "matmuls+stats": _MATMULS | {_aten.native_group_norm.default,
+                                               _aten.var_mean.correction}}
+
+
+def _save_ops(ops, ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +138,10 @@ class UNetConfig:
     use_new_attention_order: bool = False
     use_flash_attention: bool = False  # the flash kernels (O(N) memory)
     flash_auto: bool = False           # gate flash per block by token count
+    torso_dtype: torch.dtype = torch.float32   # torch.bfloat16 for a bf16 torso
+    tail_dtype: torch.dtype | None = None      # final norm + conv; None: the torso's
+    use_checkpoint: bool = False       # rematerialize each top-level block
+    remat_policy: str = "full"         # a key of REMAT_POLICIES
 
     @property
     def emb_ch(self) -> int:
@@ -244,8 +283,8 @@ class AttentionBlock(nn.Module):
         super().__init__()
         self.spec = spec
         self.norm = tnn.GroupNorm32(spec.ch)
-        self.qkv = nn.Conv1d(spec.ch, 3 * spec.ch, 1)
-        self.proj_out = nn.Conv1d(spec.ch, spec.ch, 1)
+        self.qkv = tnn.conv_nd(1, spec.ch, 3 * spec.ch, 1)
+        self.proj_out = tnn.conv_nd(1, spec.ch, spec.ch, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, *spatial = x.shape
@@ -263,9 +302,12 @@ class AttentionBlock(nn.Module):
             out = flash_attention(*(t.transpose(1, 2) for t in (q, k, v)))
             out = out.transpose(1, 2).reshape(b, c, n)
         else:
+            # float32 logits and softmax, the weights in the activation
+            # dtype; q and k are scaled in float32, as JAX's product with a
+            # NumPy scalar promotes them
             scale = 1.0 / np.sqrt(np.sqrt(d))
-            logits = torch.einsum("bct,bcs->bts", q * scale, k * scale)
-            weights = torch.softmax(logits.float(), dim=-1).type(x.dtype)
+            logits = torch.einsum("bct,bcs->bts", q.float() * scale, k.float() * scale)
+            weights = torch.softmax(logits, dim=-1).type(x.dtype)
             out = torch.einsum("bts,bcs->bct", weights, v).reshape(b, c, n)
         return (h + self.proj_out(out)).reshape(b, c, *spatial)
 
@@ -360,17 +402,51 @@ class UNetModel(nn.Module):
                     t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
         return self
 
+    def torso_layers(self):
+        """The convolutions of the input, middle and output blocks: the
+        layers of the JAX package's ``_TORSO_KERNEL_KEYS`` (``in_conv``,
+        ``out_conv``, ``skip``, ``qkv``, ``proj``, ``conv``); not the
+        timestep embedding, the ResBlocks' embedding projections, the
+        GroupNorms or the tail."""
+        for stack in (self.input_blocks, [self.middle_block], self.output_blocks):
+            for block in stack:
+                for m in block.modules():
+                    if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d)):
+                        yield m
+
+    @torch.no_grad()
+    def cast_torso_params(self) -> "UNetModel":
+        """Pre-cast the torso's convolutions to ``cfg.torso_dtype``, in place
+        (``confild_tpu/models/unet.py:470-506``): the cast at use becomes a
+        no-op, with bit-identical outputs.  For sampling only: training keeps
+        float32 parameters."""
+        if self.cfg.torso_dtype != torch.float32:
+            for m in self.torso_layers():
+                m.to(self.cfg.torso_dtype)
+        return self
+
+    def _block(self, block, h, emb):
+        if not (self.cfg.use_checkpoint and torch.is_grad_enabled()):
+            return block(h, emb)
+        ops = REMAT_POLICIES[self.cfg.remat_policy]
+        context = {} if ops is None else {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, functools.partial(_save_ops, ops))}
+        return checkpoint(block, h, emb, use_reentrant=False, preserve_rng_state=True,
+                          **context)
+
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
-        emb = self.time_embed(tnn.timestep_embedding(timesteps, self.cfg.model_channels))
+        cfg = self.cfg
+        emb = self.time_embed(tnn.timestep_embedding(timesteps, cfg.model_channels))
         hs = []
-        h = x
+        h = x.to(cfg.torso_dtype)
         for block in self.input_blocks:
-            h = block(h, emb)
+            h = self._block(block, h, emb)
             hs.append(h)
-        h = self.middle_block(h, emb)
+        h = self._block(self.middle_block, h, emb)
         for block in self.output_blocks:
-            h = block(torch.cat([h, hs.pop()], dim=1), emb)
-        return self.out[2](tnn.group_norm_silu(self.out[0], h))
+            h = self._block(block, torch.cat([h, hs.pop()], dim=1), emb)
+        h = h.to(cfg.tail_dtype or cfg.torso_dtype)
+        return self.out[2](tnn.group_norm_silu(self.out[0], h)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -401,7 +477,11 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
                  dropout: float = 0.0, resblock_updown: bool = False,
                  use_new_attention_order: bool = False,
                  use_flash_attention: bool | None = None,
-                 use_checkpoint: bool = False) -> UNetModel:
+                 use_checkpoint: bool = False, remat_policy: str = "full",
+                 use_bf16: bool = False, use_fp16: bool = False,
+                 use_f32_tail: bool = False) -> UNetModel:
+    """The U-Net of a recipe (``confild_tpu/models/unet.py:595-674``);
+    ``use_fp16`` means a bf16 torso, as in the JAX package."""
     if channel_mult is None:
         if image_size not in _DEFAULT_CHANNEL_MULT:
             raise ValueError(f"unsupported image size: {image_size}")
@@ -414,10 +494,9 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
     attention_ds = tuple(image_size // int(res)
                          for res in str(attention_resolutions).split(","))
 
-    if use_checkpoint:
-        raise NotImplementedError(
-            "block rematerialization (use_checkpoint) is not ported yet "
-            "(ROADMAP.md Queue 1, item 1)")
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}; one of "
+                         f"{sorted(REMAT_POLICIES)}")
     # auto (None): build_plan gates flash per block at FLASH_MIN_TOKENS; the
     # flag records whether any block crosses it (confild_tpu/models/unet.py:
     # 630-668)
@@ -434,5 +513,8 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
         num_head_channels=num_head_channels, num_heads_upsample=num_heads_upsample,
         use_scale_shift_norm=use_scale_shift_norm, resblock_updown=resblock_updown,
         use_new_attention_order=use_new_attention_order,
-        use_flash_attention=bool(use_flash_attention), flash_auto=flash_auto)
+        use_flash_attention=bool(use_flash_attention), flash_auto=flash_auto,
+        torso_dtype=torch.bfloat16 if (use_bf16 or use_fp16) else torch.float32,
+        tail_dtype=torch.float32 if use_f32_tail else None,
+        use_checkpoint=use_checkpoint, remat_policy=remat_policy)
     return UNetModel(cfg)

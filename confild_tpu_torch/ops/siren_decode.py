@@ -14,6 +14,13 @@ Kernels:
   ``_decode_kernel``: the full forward, its hidden-by-hidden products on
   the tensor cores, as two launches per call (the middle weights split
   into TF32 halves, then the forward).
+* ``siren_decode_forward_bf16`` (``csrc/siren_decode.cu``) replaces
+  ``_decode_kernel`` with ``compute_dtype=jnp.bfloat16``: every product's
+  operands rounded to bfloat16 (the weights after the ``w0 / (2*pi)``
+  scale), float32 accumulation, FiLM and ``sin2pi`` in float32; two
+  launches per call (the middle weights rounded to bfloat16 fragments,
+  then the forward).  As in JAX, the backward kernels stay float32
+  whatever the forward's ``compute_dtype``.
 * ``siren_decode_dz`` (``csrc/siren_decode_bwd.cu``) replaces
   ``_decode_dz_kernel``: ``dL/dz`` for every layer, from which
   ``dL/dlatents`` is two small matmuls.  It is the training backward's
@@ -29,6 +36,12 @@ kernels: the autograd functions take the folded operands, and autograd
 chains ``dz`` back through :func:`film_table` and :func:`stack_weights`
 to the latents, ``net2`` and the biases, undoing the scale.
 
+The kernels take a hidden width that is a multiple of 64 up to 384 and at
+most 4 input and output features; a narrower hidden width is zero-padded
+to the next multiple of 64 (:func:`pad_hidden`), which is exact: a padded
+unit has zero weights, bias and FiLM column, so its pre-activation is 0,
+``sin2pi(0) = 0``, and the next layer's zero rows ignore it.
+
 Each kernel has a plain PyTorch version beside it that repeats its
 arithmetic.  A wrapper takes the plain version only for CPU tensors; for
 CUDA tensors it launches its kernel or raises.  ``LAUNCHES`` counts kernel
@@ -42,6 +55,7 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from confild_tpu_torch.models.cnf import SirenFilm, siren_film_apply
 from confild_tpu_torch.ops import cuda_build
@@ -57,7 +71,12 @@ _SIN2PI_COEFFS = (
     -12.271581478633225,
 )
 
-LAUNCHES = {"siren_decode_forward": 0, "siren_decode_dz": 0, "siren_decode_bwd": 0}
+LAUNCHES = {"siren_decode_forward": 0, "siren_decode_forward_bf16": 0, "siren_decode_dz": 0,
+            "siren_decode_bwd": 0}
+# the forward's compute dtypes (the JAX kernel's ``compute_dtype``)
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+# the tensor-core kernels' limits (csrc/siren_tc.cuh::shape_ok)
+MAX_HIDDEN, MAX_FEATURES = 384, 4
 
 # pairs per chunk of the training backward: its workspace holds every
 # pre-activation and dpre of a chunk, 2 * n_mod * BWD_PAIRS * H floats
@@ -130,12 +149,27 @@ def film_table(latents, w2, b1, scale):
 # forward: plain version and kernel
 # ---------------------------------------------------------------------------
 
-def decode_forward_plain(coords, z, w_first, w_mid, w_head, b_head):
-    """The forward kernel's arithmetic as a layer loop: ``(T, M, C_out)``."""
-    x = _sin2pi((coords @ w_first)[None] + z[0][:, None, :])
+def _operand_rounding(compute_dtype):
+    """What the forward does to each product's operands: nothing in
+    float32; in bfloat16 a rounding to bfloat16 (the JAX kernel's ``mxu``
+    helper), the product then taken in float32."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
+    if compute_dtype == torch.bfloat16:
+        return lambda x: x.to(torch.bfloat16).float()
+    return lambda x: x
+
+
+def decode_forward_plain(coords, z, w_first, w_mid, w_head, b_head,
+                         compute_dtype=torch.float32):
+    """The forward kernels' arithmetic as a layer loop: ``(T, M, C_out)``;
+    with ``compute_dtype`` bfloat16 each product's operands are rounded to
+    bfloat16 and multiplied in float32."""
+    r = _operand_rounding(compute_dtype)
+    x = _sin2pi((r(coords) @ r(w_first))[None] + z[0][:, None, :])
     for l in range(1, z.shape[0]):
-        x = _sin2pi(x @ w_mid[l - 1] + z[l][:, None, :])
-    return x @ w_head + b_head
+        x = _sin2pi(r(x) @ r(w_mid[l - 1]) + z[l][:, None, :])
+    return r(x) @ r(w_head) + b_head
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -152,13 +186,49 @@ def _check_cuda(device: torch.device, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_tensor_core_shape(ok: int, what: str, h: int, c_in: int, c_out: int) -> None:
-    """The shape rule of the tensor-core kernels (forward, dz, training
-    backward: ``csrc/siren_tc.cuh::shape_ok``), as the library reports it."""
-    if not ok:
-        raise ValueError(f"the CUDA {what} takes a hidden width that is a multiple of 64 "
-                         f"and at most 384 and at most 4 input and output features, got "
-                         f"{h}, {c_in}, {c_out}")
+def kernel_hidden_width(h: int, c_in: int, c_out: int) -> int:
+    """The hidden width the kernels run a decoder of ``h`` units at: the
+    next multiple of 64.  Raises beyond the kernels' limits."""
+    if h > MAX_HIDDEN or c_in > MAX_FEATURES or c_out > MAX_FEATURES:
+        raise ValueError(
+            f"the CUDA SIREN kernels take a hidden width of at most {MAX_HIDDEN} (zero-padded "
+            f"to a multiple of 64) and at most {MAX_FEATURES} input and output features, got "
+            f"{h}, {c_in}, {c_out}")
+    return -(-h // 64) * 64
+
+
+def pad_hidden(z, w_first, w_mid, w_head, width: int):
+    """The folded operands with ``width - H`` zero hidden units appended:
+    zero FiLM columns, zero weights in and out."""
+    p = width - z.shape[-1]
+    if p == 0:
+        return z, w_first, w_mid, w_head
+    return (F.pad(z, (0, p)), F.pad(w_first, (0, p)), F.pad(w_mid, (0, p, 0, p)),
+            F.pad(w_head, (0, 0, 0, p)))
+
+
+def padded_forward(forward, coords, z, w_first, w_mid, w_head, b_head, width: int):
+    """``forward`` on operands padded to ``width`` hidden units (the output
+    does not change shape)."""
+    return forward(coords, *pad_hidden(z, w_first, w_mid, w_head, width), b_head)
+
+
+def padded_dz(dz_fn, coords, z, g, w_first, w_mid, w_head, width: int):
+    """``dz_fn`` on operands padded to ``width`` hidden units; ``dz``
+    sliced back to ``H``."""
+    h = z.shape[-1]
+    zp, w_first, w_mid, w_head = pad_hidden(z, w_first, w_mid, w_head, width)
+    return dz_fn(coords, zp, g, w_first, w_mid, w_head)[..., :h].contiguous()
+
+
+def padded_bwd(bwd_fn, coords, z, g, w_first, w_mid, w_head, width: int):
+    """``bwd_fn`` on operands padded to ``width`` hidden units; every
+    cotangent sliced back to ``H``."""
+    h = z.shape[-1]
+    zp, w_first, w_mid, w_head = pad_hidden(z, w_first, w_mid, w_head, width)
+    dz, dw_first, dw_mid, dw_head = bwd_fn(coords, zp, g, w_first, w_mid, w_head)
+    return (dz[..., :h].contiguous(), dw_first[:, :h].contiguous(),
+            dw_mid[:, :h, :h].contiguous(), dw_head[:h].contiguous())
 
 
 @functools.cache
@@ -169,7 +239,8 @@ def _library() -> ctypes.CDLL:
     for name, args in (
             ("siren_fwd_split", [p, p, i, i, p]),
             ("siren_decode_forward", [p] * 7 + [i] * 6 + [p]),
-            ("siren_fwd_shape_ok", [i] * 4)):
+            ("siren_fwd_bf16_frags", [p, p, i, i, p]),
+            ("siren_decode_forward_bf16", [p] * 7 + [i] * 6 + [p])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i
     return lib
@@ -187,7 +258,6 @@ def _bwd_library() -> ctypes.CDLL:
             ("siren_bwd_sums", [p] * 5 + [ll] * 4 + [i] * 9 + [p]),
             ("siren_bwd_fold", [p, p, ll, i, p]),
             ("siren_bwd_tile_pairs", []),
-            ("siren_bwd_shape_ok", [i] * 4),
             ("siren_dz_slots", [i]),
             ("siren_decode_dz", [p] * 9 + [ll] + [i] * 8 + [p])):
         getattr(lib, name).argtypes = args
@@ -200,45 +270,75 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed with CUDA error {err}")
 
 
-def decode_forward(coords, z, w_first, w_mid, w_head, b_head) -> torch.Tensor:
-    """Fused forward on folded operands: ``(T, M, C_out)``.
-
-    CPU tensors take :func:`decode_forward_plain`; CUDA tensors launch
-    ``siren_decode_forward``: the middle weights split once into TF32
-    halves (when there are any), then the tensor-core forward
-    (``csrc/siren_decode.cu``)."""
-    if coords.device.type == "cpu":
-        return decode_forward_plain(coords, z, w_first, w_mid, w_head, b_head)
+def _operands(coords, z, w_first, w_mid, w_head, **more):
+    """The CUDA wrappers' checks of the folded operands (device, float32,
+    contiguous, consistent shapes); returns ``(n_mod, T, H, M, C_in,
+    C_out)`` and the kernels' padded hidden width."""
     dev = coords.device
-    _check_cuda(dev, coords=coords, z=z, w_first=w_first, w_mid=w_mid,
-                w_head=w_head, b_head=b_head)
+    _check_cuda(dev, coords=coords, z=z, w_first=w_first, w_mid=w_mid, w_head=w_head, **more)
     n_mod, t, h = z.shape
     m, c_in = coords.shape
     c_out = w_head.shape[1]
+    g, b_head = more.get("g"), more.get("b_head")
     if (w_first.shape != (c_in, h) or w_mid.shape != (n_mod - 1, h, h)
-            or w_head.shape != (h, c_out) or b_head.shape != (c_out,)):
+            or w_head.shape != (h, c_out) or (b_head is not None and b_head.shape != (c_out,))
+            or (g is not None and g.shape != (t, m, c_out))):
         raise ValueError("decode operands have inconsistent shapes")
+    return (n_mod, t, h, m, c_in, c_out), kernel_hidden_width(h, c_in, c_out)
+
+
+def _launch_forward(coords, z, w_first, w_mid, w_head, b_head, compute_dtype):
+    """Launches on operands of a kernel width: the weights' preparation
+    (the TF32 split, or the bf16 fragments), then the forward."""
     lib = _library()
-    _check_tensor_core_shape(lib.siren_fwd_shape_ok(h, n_mod, c_in, c_out), "decode forward",
-                             h, c_in, c_out)
+    dev = coords.device
+    n_mod, t, h = z.shape
+    m, c_in = coords.shape
+    c_out = w_head.shape[1]
+    bf16 = compute_dtype == torch.bfloat16
+    name = "siren_decode_forward_bf16" if bf16 else "siren_decode_forward"
     out = torch.empty((t, m, c_out), device=dev, dtype=torch.float32)
     if t == 0 or m == 0:
         return out
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        wsplit = None
+        wprep = None
         if n_mod > 1:
-            wsplit = torch.empty((n_mod - 1, 2, h, h), device=dev, dtype=torch.float32)
-            _raise_on(lib.siren_fwd_split(_ptr(w_mid), _ptr(wsplit), h, n_mod - 1, stream),
-                      "siren_fwd_split launch")
-            LAUNCHES["siren_decode_forward"] += 1
-        err = lib.siren_decode_forward(
+            if bf16:
+                wprep = torch.empty((n_mod - 1, h, h), device=dev, dtype=torch.bfloat16)
+                err = lib.siren_fwd_bf16_frags(_ptr(w_mid), _ptr(wprep), h, n_mod - 1, stream)
+            else:
+                wprep = torch.empty((n_mod - 1, 2, h, h), device=dev, dtype=torch.float32)
+                err = lib.siren_fwd_split(_ptr(w_mid), _ptr(wprep), h, n_mod - 1, stream)
+            _raise_on(err, f"{name} weight preparation launch")
+            LAUNCHES[name] += 1
+        err = getattr(lib, name)(
             _ptr(coords), _ptr(z), _ptr(w_first),
-            _ptr(wsplit) if wsplit is not None else None, _ptr(w_head), _ptr(b_head),
+            _ptr(wprep) if wprep is not None else None, _ptr(w_head), _ptr(b_head),
             _ptr(out), t, m, c_in, h, n_mod, c_out, stream)
-    _raise_on(err, "siren_decode_forward launch")
-    LAUNCHES["siren_decode_forward"] += 1
+    _raise_on(err, f"{name} launch")
+    LAUNCHES[name] += 1
     return out
+
+
+def decode_forward(coords, z, w_first, w_mid, w_head, b_head,
+                   compute_dtype=torch.float32) -> torch.Tensor:
+    """Fused forward on folded operands: ``(T, M, C_out)``.
+
+    CPU tensors take :func:`decode_forward_plain`.  CUDA tensors launch, on
+    operands padded to the kernels' hidden width, ``siren_decode_forward``
+    for ``compute_dtype`` float32 (the middle weights split once into TF32
+    halves, then the 3xTF32 tensor-core forward) or
+    ``siren_decode_forward_bf16`` for bfloat16 (the middle weights rounded
+    once into bfloat16 fragments, then the bf16 tensor-core forward),
+    ``csrc/siren_decode.cu``; any other ``compute_dtype`` raises.  The
+    operands are float32 in both modes."""
+    _operand_rounding(compute_dtype)
+    if coords.device.type == "cpu":
+        return decode_forward_plain(coords, z, w_first, w_mid, w_head, b_head, compute_dtype)
+    _, width = _operands(coords, z, w_first, w_mid, w_head, b_head=b_head)
+    return padded_forward(functools.partial(_launch_forward, compute_dtype=compute_dtype),
+                          coords, z, w_first, w_mid, w_head, b_head, width)
 
 
 # ---------------------------------------------------------------------------
@@ -302,22 +402,23 @@ def decode_dz(coords, z, g, w_first, w_mid, w_head) -> torch.Tensor:
     (the forward's products and the dx chain's), then per chunk of
     ``BWD_PAIRS`` (row, point) pairs the tensor-core chain in its dz mode
     and the fold of its per-block row sums into ``dz``
-    (``csrc/siren_decode_bwd.cu``).  The workspace is one chunk's
-    pre-activations and partials, whatever ``T x M``."""
+    (``csrc/siren_decode_bwd.cu``), on operands padded to the kernels'
+    hidden width.  The workspace is one chunk's pre-activations and
+    partials, whatever ``T x M``."""
     if coords.device.type == "cpu":
         return decode_dz_plain(coords, z, g, w_first, w_mid, w_head)
+    _, width = _operands(coords, z, w_first, w_mid, w_head, g=g)
+    return padded_dz(_launch_dz, coords, z, g, w_first, w_mid, w_head, width)
+
+
+def _launch_dz(coords, z, g, w_first, w_mid, w_head) -> torch.Tensor:
+    """Launches on operands of a kernel width: the split, then per chunk
+    the chain in its dz mode and the fold."""
+    lib = _bwd_library()
     dev = coords.device
-    _check_cuda(dev, coords=coords, z=z, g=g, w_first=w_first, w_mid=w_mid,
-                w_head=w_head)
     n_mod, t, h = z.shape
     m, c_in = coords.shape
     c_out = w_head.shape[1]
-    if (g.shape != (t, m, c_out) or w_first.shape != (c_in, h)
-            or w_mid.shape != (n_mod - 1, h, h) or w_head.shape != (h, c_out)):
-        raise ValueError("decode operands have inconsistent shapes")
-    lib = _bwd_library()
-    _check_tensor_core_shape(lib.siren_bwd_shape_ok(h, n_mod, c_in, c_out), "dz kernel",
-                             h, c_in, c_out)
     dz = torch.zeros_like(z)
     pairs = t * m
     if pairs == 0:
@@ -371,21 +472,22 @@ def decode_bwd(coords, z, g, w_first, w_mid, w_head):
     ``siren_decode_bwd``: the weight split once, then per chunk of
     ``BWD_PAIRS`` (row, point) pairs the chain, the tensor-core reduction
     and the CUDA-core sums, then the fold of the ``BWD_SLICES`` partials
-    (``csrc/siren_decode_bwd.cu``)."""
+    (``csrc/siren_decode_bwd.cu``), on operands padded to the kernels'
+    hidden width."""
     if coords.device.type == "cpu":
         return decode_bwd_plain(coords, z, g, w_first, w_mid, w_head)
+    _, width = _operands(coords, z, w_first, w_mid, w_head, g=g)
+    return padded_bwd(_launch_bwd, coords, z, g, w_first, w_mid, w_head, width)
+
+
+def _launch_bwd(coords, z, g, w_first, w_mid, w_head):
+    """Launches on operands of a kernel width: the split, per chunk the
+    chain, the reduction and the sums, then the fold."""
+    lib = _bwd_library()
     dev = coords.device
-    _check_cuda(dev, coords=coords, z=z, g=g, w_first=w_first, w_mid=w_mid,
-                w_head=w_head)
     n_mod, t, h = z.shape
     m, c_in = coords.shape
     c_out = w_head.shape[1]
-    if (g.shape != (t, m, c_out) or w_first.shape != (c_in, h)
-            or w_mid.shape != (n_mod - 1, h, h) or w_head.shape != (h, c_out)):
-        raise ValueError("decode operands have inconsistent shapes")
-    lib = _bwd_library()
-    _check_tensor_core_shape(lib.siren_bwd_shape_ok(h, n_mod, c_in, c_out), "training backward",
-                             h, c_in, c_out)
     sizes = (n_mod * t * h, c_in * h, (n_mod - 1) * h * h, h * c_out)
     shapes = (z.shape, w_first.shape, w_mid.shape, w_head.shape)
     n_el = sum(sizes)
@@ -442,15 +544,16 @@ def _dcoords_chunked(model: SirenFilm, coords, latents, g, w0: float):
 
 
 class _TrainDecode(torch.autograd.Function):
-    """The decode on folded operands: forward kernel, training-backward
-    kernel.  ``dcoords_fn(g)`` gives the coordinate gradient (the general
-    op) or is None (the train op: query points are frozen)."""
+    """The decode on folded operands: forward kernel (in ``compute_dtype``),
+    training-backward kernel (float32 whatever the forward's dtype, as in
+    JAX).  ``dcoords_fn(g)`` gives the coordinate gradient (the general op)
+    or is None (the train op: query points are frozen)."""
 
     @staticmethod
-    def forward(ctx, coords, z, w_first, w_mid, w_head, b_head, dcoords_fn):
+    def forward(ctx, coords, z, w_first, w_mid, w_head, b_head, dcoords_fn, compute_dtype):
         ctx.save_for_backward(coords, z, w_first, w_mid, w_head)
         ctx.dcoords_fn = dcoords_fn
-        return decode_forward(coords, z, w_first, w_mid, w_head, b_head)
+        return decode_forward(coords, z, w_first, w_mid, w_head, b_head, compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -460,10 +563,11 @@ class _TrainDecode(torch.autograd.Function):
         dcoords = None
         if ctx.needs_input_grad[0] and ctx.dcoords_fn is not None:
             dcoords = ctx.dcoords_fn(g)
-        return dcoords, dz, dw_first, dw_mid, dw_head, g.sum(dim=(0, 1)), None
+        return dcoords, dz, dw_first, dw_mid, dw_head, g.sum(dim=(0, 1)), None, None
 
 
-def _decode(model: SirenFilm, coords, latents, w0: float, with_dcoords: bool):
+def _decode(model: SirenFilm, coords, latents, w0: float, with_dcoords: bool,
+            compute_dtype=torch.float32):
     # net2 stays bias-free (reference FiLM semantics): the JAX op gives a
     # structural net2 bias leaf a zero cotangent (siren_decode.py:598-601);
     # SirenFilm has no such leaf, so there is nothing to zero here
@@ -474,25 +578,29 @@ def _decode(model: SirenFilm, coords, latents, w0: float, with_dcoords: bool):
     if with_dcoords and coords.requires_grad:
         dcoords_fn = functools.partial(_dcoords_chunked, model, coords.detach(),
                                        latents, w0=w0)
-    return _TrainDecode.apply(coords, z, w_first, w_mid, w_head, b_head, dcoords_fn)
+    return _TrainDecode.apply(coords, z, w_first, w_mid, w_head, b_head, dcoords_fn,
+                              compute_dtype)
 
 
-def fused_siren_decode(model: SirenFilm, coords, latents, w0: float = 30.0):
+def fused_siren_decode(model: SirenFilm, coords, latents, w0: float = 30.0,
+                       compute_dtype=torch.float32):
     """Decode every latent row at every coordinate: ``(T, M, C_out)``.
 
     ``coords`` ``(M, C_in)`` (normalized), ``latents`` ``(T, L)``.  The
-    forward is the forward kernel; the gradient with respect to the
-    latents and the decoder is the training-backward kernel, and the one
-    with respect to ``coords`` a chunked plain recompute
+    forward is the forward kernel, its products in ``compute_dtype``
+    (float32 or bfloat16); the gradient with respect to the latents and the
+    decoder is the training-backward kernel (float32), and the one with
+    respect to ``coords`` a chunked plain recompute
     (:func:`_dcoords_chunked`).  On the CPU both are the plain versions."""
-    return _decode(model, coords, latents, w0, with_dcoords=True)
+    return _decode(model, coords, latents, w0, with_dcoords=True, compute_dtype=compute_dtype)
 
 
-def fused_siren_decode_train(model: SirenFilm, coords, latents, w0: float = 30.0):
+def fused_siren_decode_train(model: SirenFilm, coords, latents, w0: float = 30.0,
+                             compute_dtype=torch.float32):
     """:func:`fused_siren_decode` with frozen query points: the CNF
     training op (``confild_tpu/ops/siren_decode.py:618-644``); ``coords``
     gets no gradient."""
-    return _decode(model, coords, latents, w0, with_dcoords=False)
+    return _decode(model, coords, latents, w0, with_dcoords=False, compute_dtype=compute_dtype)
 
 
 def fused_siren_decode_bwd(model: SirenFilm, coords, latents, g, w0: float = 30.0):
@@ -545,22 +653,24 @@ class _FrozenDecode(torch.autograd.Function):
     ``measurements.py:76-78``)."""
 
     @staticmethod
-    def forward(ctx, latents, model, coords, w0):
+    def forward(ctx, latents, model, coords, w0, compute_dtype):
         ctx.model, ctx.w0 = model, w0
         ctx.save_for_backward(latents, coords)
-        return fused_siren_decode(model, coords, latents, w0)
+        return fused_siren_decode(model, coords, latents, w0, compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
         latents, coords = ctx.saved_tensors
         return (fused_siren_decode_dz(ctx.model, coords, latents, g, ctx.w0),
-                None, None, None)
+                None, None, None, None)
 
 
-def fused_siren_decode_frozen(model: SirenFilm, coords, latents, w0: float = 30.0):
+def fused_siren_decode_frozen(model: SirenFilm, coords, latents, w0: float = 30.0,
+                              compute_dtype=torch.float32):
     """:func:`fused_siren_decode` differentiable with respect to ``latents``
-    only (decoder and coordinates are frozen)."""
-    return _FrozenDecode.apply(latents, model, coords, w0)
+    only (decoder and coordinates are frozen); the forward's products in
+    ``compute_dtype``, the backward the float32 dz kernel, as in JAX."""
+    return _FrozenDecode.apply(latents, model, coords, w0, compute_dtype)
 
 
 def siren_decode(model: SirenFilm, coords, latents, w0: float = 30.0,

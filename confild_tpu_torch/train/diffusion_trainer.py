@@ -16,6 +16,9 @@ Reproduced semantics:
 * a validation forward after every step (``valid_mse``), per-quartile
   losses bucketed by t, ``grad_norm``, ``param_norm``,
   ``skipped_nonfinite``;
+* a bf16 U-Net torso (``use_bf16``) trains on float32 parameters,
+  gradients, EMA and AdamW state (its convolutions cast their weights at
+  use), with no loss scaling, as the JAX loop does;
 * ``model/ema_{rate}/opt{step:06d}.pt`` triplets, filename-based resume
   (from the port's ``.pt`` triplet or the JAX package's ``.ckpt`` one), the
   ``DIFFUSION_TRAINING_TEST`` early exit.

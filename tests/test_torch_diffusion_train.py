@@ -411,11 +411,18 @@ def test_train_diffusion_cli_cpu(tmp_path, monkeypatch):
 
 
 def test_train_diffusion_cli_refusals(tmp_path, monkeypatch):
-    """bf16 raises (Case4 is f32); without a card and without ``device:
-    cpu`` the CLI raises; ``DIFFUSION_TRAINING_TEST`` stops at the first
-    save."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_diffusion.main([_recipe(tmp_path, use_bf16=True)])
+    """bf16, which raised, trains now: a ``use_bf16`` recipe with block
+    rematerialization takes its steps with finite losses on float32
+    parameters; without a card and without ``device: cpu`` the CLI raises;
+    ``DIFFUSION_TRAINING_TEST`` stops at the first save."""
+    loop = train_diffusion.main([_recipe(tmp_path, use_bf16=True, use_checkpoint=True,
+                                         remat_policy="matmuls", lr_anneal_steps=2,
+                                         log_path=str(tmp_path / "bf16"))])
+    assert loop.step == 2 and loop.model.cfg.torso_dtype == torch.bfloat16
+    assert loop.model.cfg.use_checkpoint and loop.model.cfg.remat_policy == "matmuls"
+    assert all(p.dtype == torch.float32 for p in loop.model.parameters())
+    with open(tmp_path / "bf16" / "progress.csv") as f:
+        assert all(np.isfinite(float(r["loss"])) for r in csv.DictReader(f))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_diffusion.main([_recipe(tmp_path, device=None)])

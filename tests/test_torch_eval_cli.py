@@ -120,9 +120,14 @@ def test_sample_cli_postprocessing_matches_jax(cnf_run, tmp_path, monkeypatch):
 
 
 def test_sample_cli_refuses_bf16(cnf_run, tmp_path):
-    _, path = _sample_recipe(tmp_path, cnf_run[0], use_bf16=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sample.main([path])
+    """bf16, which ``cli.sample`` refused, samples now: a ``use_bf16``
+    recipe generates and decodes finite fields of the f32 run's shape (the
+    bf16 U-Net's numerics: tests/test_torch_bf16.py)."""
+    recipe, path = _sample_recipe(tmp_path, cnf_run[0], use_bf16=True)
+    out = sample.main([path])
+    fields = np.load(recipe["save_path"])
+    assert fields.shape == (2, LATENT, 120, 2) and np.all(np.isfinite(fields))
+    assert out["steps"] == 5 and np.all(np.isfinite(out["latents"]))
 
 
 def _eval_args(cnf_run, *extra):

@@ -111,6 +111,59 @@ def test_bf16_inputs():
                                rtol=5e-2, atol=5e-2)
 
 
+# bf16 rounding of P and dS: mean |port - JAX| / mean |JAX| on every output.
+# With one JAX tile (block 256 >= N) the JAX kernel rounds P relative to the
+# row's max, as the plain version does, so the two agree to f32 summation
+# order (about 1e-7; a bf16 rounding flips now and then).  Keeping P and dS
+# in f32, as the port did before, misses this by about 100x (1.4e-3 to
+# 1.7e-3 on every output at these shapes).
+BF16_ROUNDING_TOL = 1e-5
+
+
+@pytest.mark.parametrize("bh,n,d", [(2, 256, 64), (4, 144, 64)])
+def test_bf16_rounds_p_and_ds_as_jax(bh, n, d):
+    """Forward and backward on bf16 inputs against the JAX kernels in
+    interpret mode with one key tile, on the same residuals and cotangent."""
+    rng = np.random.default_rng(4)
+    jb = [jnp.asarray(rng.standard_normal((bh, n, d)), jnp.bfloat16) for _ in range(4)]
+    j_out, j_lse = jfa._flash_forward(*jb[:3], 256, 256, True)
+    want = [j_out, *jfa._flash_backward(*jb[:3], j_out, j_lse, jb[3], 256, 256, True)]
+    tb = [torch.from_numpy(np.asarray(a, np.float32)).bfloat16() for a in jb]
+    out, _ = tfa.flash_forward_plain(*tb[:3])
+    grads = tfa.flash_backward_plain(*tb[:3], torch.from_numpy(np.asarray(j_out, np.float32))
+                                     .bfloat16(), torch.from_numpy(np.asarray(j_lse)), tb[3])
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (out, *grads), want):
+        assert a.dtype == torch.bfloat16
+        a, b = a.float().numpy(), np.asarray(b, np.float32)
+        rel = np.abs(a - b).mean() / np.abs(b).mean()
+        assert rel <= BF16_ROUNDING_TOL, (name, rel)
+
+
+@pytest.mark.parametrize("d", [16, 48])
+def test_head_padding_is_exact(d):
+    """A head narrower than the kernels' widths is zero-padded and the
+    outputs sliced back: the plain versions through the padding functions
+    equal the plain versions at the true width (1e-6)."""
+    q, k, v, g = map(torch.from_numpy, _inputs(2, 96, d, seed=6))
+    out, lse = tfa.flash_forward_plain(q, k, v)
+    p_out, p_lse = tfa.padded_forward(tfa.flash_forward_plain, q, k, v)
+    assert p_out.shape == out.shape == (2, 96, d)
+    torch.testing.assert_close(p_out, out, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(p_lse, lse, rtol=1e-6, atol=1e-6)
+    want = tfa.flash_backward_plain(q, k, v, out, lse, g)
+    got = tfa.padded_backward(tfa.flash_backward_plain, q, k, v, out, lse, g)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_head_width_limit():
+    assert [tfa.kernel_head_width(d) for d in (8, 32, 33, 64, 100, 128)] == [32, 32, 64, 64,
+                                                                               128, 128]
+    with pytest.raises(ValueError, match="at most 128"):
+        tfa.kernel_head_width(160)
+
+
 def test_launch_counts_untouched_on_cpu():
     """CPU tensors take the plain versions: no kernel launch is counted."""
     tfa.reset_launch_counts()

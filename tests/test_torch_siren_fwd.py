@@ -20,6 +20,7 @@ widths: Case4 (3 -> 384 x 16 modulated layers -> 3), Case2 (2 -> 256 x 11
 product); all at w0 30.
 """
 
+import functools
 import math
 
 import jax.numpy as jnp
@@ -155,3 +156,44 @@ def test_emulation_matches_pallas_interpret():
     assert ours.shape == pallas.shape == (5, 300, 3)
     assert err(ours) <= bound and err(pallas) <= bound, (err(ours), err(pallas), bound)
     np.testing.assert_allclose(ours, pallas, rtol=1e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("hidden", [32, 96])
+def test_hidden_padding_is_exact(hidden):
+    """The CUDA wrappers zero-pad the hidden width to the kernels' next
+    multiple of 64: through the padding functions the plain forward, dz and
+    training backward equal the unpadded ones (1e-6), cotangents sliced
+    back to ``H``."""
+    _, model = jax_siren(c_in=3, latent=16, c_out=2, layers=2, hidden=hidden)
+    rng = np.random.default_rng(7)
+    coords = t(rng.uniform(-1, 1, (200, 3)))
+    latents = t(0.1 * rng.standard_normal((3, 16)))
+    g = t(rng.standard_normal((3, 200, 2)))
+    with torch.no_grad():
+        w_first, w_mid, w_head, b_head, w2, b1, scale = tsd.stack_weights(model, model.w0)
+        z = tsd.film_table(latents, w2, b1, scale)
+        width = tsd.kernel_hidden_width(hidden, 3, 2)
+        assert width == 64 * (hidden // 64 + 1)
+        close = dict(rtol=1e-6, atol=1e-6)
+        for dtype in (torch.float32, torch.bfloat16):
+            torch.testing.assert_close(
+                tsd.padded_forward(functools.partial(tsd.decode_forward_plain,
+                                                     compute_dtype=dtype),
+                                   coords, z, w_first, w_mid, w_head, b_head, width),
+                tsd.decode_forward_plain(coords, z, w_first, w_mid, w_head, b_head, dtype),
+                **close)
+        ops = (coords, z, g, w_first, w_mid, w_head)
+        dz = tsd.padded_dz(tsd.decode_dz_plain, *ops, width)
+        assert dz.shape == z.shape
+        torch.testing.assert_close(dz, tsd.decode_dz_plain(*ops), **close)
+        for a, b in zip(tsd.padded_bwd(tsd.decode_bwd_plain, *ops, width),
+                        tsd.decode_bwd_plain(*ops)):
+            assert a.shape == b.shape
+            torch.testing.assert_close(a, b, **close)
+
+
+def test_kernel_width_limits():
+    assert [tsd.kernel_hidden_width(h, 3, 3) for h in (1, 64, 65, 384)] == [64, 64, 128, 384]
+    for args in ((448, 3, 3), (384, 5, 3), (384, 3, 5)):
+        with pytest.raises(ValueError, match="at most 384"):
+            tsd.kernel_hidden_width(*args)

@@ -77,17 +77,21 @@ def test_state_dict_keys_match_torch_export():
 def test_flash_attention_is_not_ported():
     """Flash attention is ported now: ``use_flash_attention=True`` builds a
     model whose every attention block takes the kernels, where it used to
-    raise.  What the slice leaves unported, block rematerialization, still
-    raises."""
+    raise.  Block rematerialization, which raised too, is ported as well: a
+    ``use_checkpoint`` model with flash on runs forward and backward
+    (its parity is ``tests/test_torch_remat.py``)."""
     m = tunet.create_model(image_size=16, num_channels=32, num_res_blocks=1,
                            channel_mult="1,2", attention_resolutions="8",
                            use_flash_attention=True)
     assert m.cfg.use_flash_attention and not m.cfg.flash_auto
     assert _attn_flags(m.plan, tunet.AttnSpec) == [True] * 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tunet.create_model(image_size=16, num_channels=32, num_res_blocks=1,
+    r = tunet.create_model(image_size=16, num_channels=32, num_res_blocks=1,
                            channel_mult="1,2", attention_resolutions="8",
-                           use_checkpoint=True)
+                           use_flash_attention=True, use_checkpoint=True)
+    assert r.cfg.use_checkpoint and r.cfg.remat_policy == "full"
+    x = torch.randn(1, 1, 16, 16, requires_grad=True)
+    r(x, torch.tensor([5])).sum().backward()
+    assert x.grad.shape == x.shape and torch.isfinite(x.grad).all()
 
 
 def _attn_flags(plan, spec_type):
