@@ -166,10 +166,35 @@ Phases, each fatal on failure:
     flash on auto: dense at 9216 tokens) through ``cli.train_diffusion``
     for 3 steps with ``remat_policy`` "full" and "matmuls": ms per step and
     peak memory of each.
+16. the slice of the 2-D turbulence demo:
+    (a) every SIREN kernel at the widths above 384, H = 448 (3 -> 448 x 6
+    -> 3) and 512 (2 -> 512 x 6 -> 2), where a block owns 32 pairs: the
+    float32 forward at 4 x 16384 and a ragged 3 x 3001, the bf16 forward
+    at 4 x 16384, dz at 64 x 1024 (also against the training backward's)
+    and a ragged 100 x 3000, the training backward at 4 x 16384, under the
+    criteria of phases 3, 15, 4 and 7; each width's registers, spills and
+    shared memory; the float32 forward and the training backward timed at
+    4 x 262144 (median of 7, with their bounds and plain versions);
+    (b) the Case4 U-Net (float32, batch 8, flash on) trained by
+    ``TrainLoop`` with ``steps_per_call`` 4 over 32 seeded images resident
+    on the card (``device_data``): ms per step of a call, against
+    ``run_step`` on the same loop and phase 12's figure, peak memory,
+    finite losses, the EMA moved;
+    (c) ``confild_tpu_torch.examples.demo_turbulence`` end to end, ``--fast``
+    (32^2 grid, H = 128) and at the f4 widths cut to 2 trajectories, 2 CNF
+    epochs and 25 diffusion steps, each run after the SIREN forward and
+    training-backward kernels are held against their plain versions and
+    float64 at its CNF's widths and batch (2 -> 128 x 5 -> 2 over 64 x
+    1024; 2 -> 384 x 7 -> 2 over 128 x 4096; criteria of phases 3 and 7):
+    each stage's wall, the CNF batch step,
+    the diffusion step, peak memory, the metrics; every gate finite; the
+    SIREN forward and training-backward launches of the CNF stage counted
+    (zeroed before each run, read after).
 
 The script imports nothing of JAX or of ``confild_tpu``.  With no CUDA
 device it exits non-zero and prints no result.  The last line is
-``{"ok": true, "device": {...}}``; the line before it lists every kernel.
+``{"ok": true, "device": {...}}``; the line before it lists every kernel
+(the rows at H = 448 and 512 with 0 launches: no main path runs them).
 """
 
 from __future__ import annotations
@@ -196,6 +221,7 @@ from confild_tpu_torch.cli import (eval_cnf, integral_timescale, sample, sample_
                                    train_cnf, train_diffusion)
 from confild_tpu_torch.diffusion import create_gaussian_diffusion
 from confild_tpu_torch.device import resolve_device, synchronize
+from confild_tpu_torch.examples import demo_turbulence
 from confild_tpu_torch.guidance import (create_sampler, get_conditioning_method,
                                         get_noise, get_operator)
 from confild_tpu_torch.guidance.operators import FUSED_MIN_PAIRS
@@ -204,6 +230,8 @@ from confild_tpu_torch.io.checkpoint import latest_checkpoint
 from confild_tpu_torch.models import unet as tunet
 from confild_tpu_torch.models.cnf import SirenFilm, siren_film_apply
 from confild_tpu_torch.train.cnf_trainer import CNFTrainer
+from confild_tpu_torch.train.diffusion_trainer import TrainLoop
+from confild_tpu_torch.utils import logger as tlog
 from confild_tpu_torch.ops import cuda_build
 from confild_tpu_torch.ops import flash_attention as fa
 from confild_tpu_torch.ops import siren_decode as sd
@@ -248,6 +276,15 @@ FLASH_PATH_SHAPE = "64x144x64"
 # flops of one sin2pi activation in the kernels: round-reduce (2), square (1),
 # five FMAs (10), final multiply (1), FiLM add (1)
 ACT_FLOPS = 15
+# ptxas's report of each kernel instantiation ("N registers, ..."), filled
+# by phase 2
+PTXAS = {}
+
+
+def block_pairs(h: int) -> int:
+    """Pairs a SIREN kernel block owns at hidden width ``h``, as the built
+    library reports it."""
+    return sd._bwd_library().siren_bwd_tile_pairs(h)
 
 
 def log(msg: str) -> None:
@@ -404,7 +441,8 @@ def phase_build():
             elif "registers" in line and kernel:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
                 tc = f", {hmma[kernel]} HMMA" if kernel in hmma else ""
-                log(f"[build] {name}: {kernel}: {regs} registers, {spill}{tc}")
+                PTXAS[kernel] = f"{regs} registers, {spill}{tc}"
+                log(f"[build] {name}: {kernel}: {PTXAS[kernel]}")
                 kernel = None
     required = {k: v for k, v in hmma.items() if k.startswith(TENSOR_CORE_KERNELS)}
     no_tc = [k for k, v in required.items() if v == 0]
@@ -530,12 +568,12 @@ def forward_time(model, device, rows, points, seed) -> dict:
         fwd_ms = dev_ms if part == "forward" else fwd_ms
         log(f"[forward-time] {rows}x{points} {part}: {dev_ms:.3f} ms device, "
             f"{sum(n for _, n in hits)} launches{rate}")
-    stream = -(-pairs // 64) * (n_mod - 1) * 2 * h * h * 4
+    stream = -(-pairs // block_pairs(h)) * (n_mod - 1) * 2 * h * h * 4
     log(f"[forward-time] {rows}x{points}: the blocks read {stream / 1e12:.3f} TB of the "
         f"{(n_mod - 1) * 2 * h * h * 4 / 1e6:.1f} MB split weight stream from L2"
         + (f" ({stream / 1e9 / fwd_ms:.2f} TB/s over the forward's device time)"
            if fwd_ms else ""))
-    log(f"[forward] {rows}x{points}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median "
+    log(f"[forward] {rows}x{points} H={h}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median "
         f"of 7 ({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_by}; every flop on the CUDA cores: "
         f"{bound(flops, nbytes)[0]:.3f} ms); library: none (no single PyTorch call "
@@ -900,18 +938,19 @@ def f64_train_grads(model, coords, latents, g, chunk: int):
 
 def bwd_case(model, device, rows, points, seed):
     gen = torch.Generator(device=device).manual_seed(seed)
-    coords = torch.rand((points, 3), generator=gen, device=device) * 2 - 1
-    latents = torch.randn((rows, 384), generator=gen, device=device) * 0.1
-    g = torch.randn((rows, points, 3), generator=gen, device=device)
+    c_in, n_lat = model.net1[0].in_features, model.net2[0].in_features
+    coords = torch.rand((points, c_in), generator=gen, device=device) * 2 - 1
+    latents = torch.randn((rows, n_lat), generator=gen, device=device) * 0.1
+    g = torch.randn((rows, points, model.net1[-1].out_features), generator=gen, device=device)
     w_first, w_mid, w_head, _, w2, b1, scale = sd.stack_weights(model, model.w0)
     z = sd.film_table(latents, w2, b1, scale)
     return coords, latents, g, z, (w_first, w_mid, w_head), w2, scale
 
 
-def bwd_check(model, device, rows, points, seed) -> float:
+def bwd_check(model, device, rows, points, seed, chunk: int = 4096) -> float:
     """Training-backward kernel vs plain vs float64 at ``rows x points``,
     every cotangent, and two launches bitwise equal; returns the kernel's
-    largest error against float64."""
+    largest error against float64 (computed ``chunk`` points at a time)."""
     coords, latents, g, z, ops, w2, scale = bwd_case(model, device, rows, points, seed)
     with torch.no_grad():
         kern = sd.decode_bwd(coords, z, g, *ops)
@@ -932,7 +971,7 @@ def bwd_check(model, device, rows, points, seed) -> float:
     kern_u["dlatents"] = lat.grad
     kern_u["dW2"] = torch.stack([m.net2[l].weight.grad.t() for l in range(n_mod)])
     kern_u["db1"] = torch.stack([m.net1[l].bias.grad for l in range(n_mod)])
-    truth = f64_train_grads(model, coords, latents, g, chunk=4096)
+    truth = f64_train_grads(model, coords, latents, g, chunk=chunk)
     ok = same
     for name, want in truth.items():
         err_k = (kern_u[name].double() - want).abs().max().item()
@@ -960,11 +999,19 @@ def phase_bwd(device, results):
     the kernel as the median of 7 separately timed calls, and the device
     time of each of its kernels from one profiled call."""
     model = case4_decoder(device)
-    rows, points = 4, 262144
-    max_abs_err = bwd_check(model, device, rows, points, seed=14)
+    max_abs_err = bwd_check(model, device, 4, 262144, seed=14)
     bwd_check(model, device, 4, 16384, seed=13)
     bwd_check(h96_decoder(device), device, 4, 3000, seed=16)
-    coords, latents, g, z, ops, w2, scale = bwd_case(model, device, rows, points, seed=14)
+    results["siren_decode_bwd"] = dict(bwd_time(model, device, 4, 262144, seed=14),
+                                       max_abs_err=max_abs_err)
+
+
+def bwd_time(model, device, rows, points, seed) -> dict:
+    """The training backward at ``rows x points``: the median of 7
+    separately timed calls with the SM clocks around them, the plain
+    version's time and peak memory, the bound, and each of its kernels'
+    device time from one profiled call."""
+    coords, latents, g, z, ops, w2, scale = bwd_case(model, device, rows, points, seed)
     n_mod = z.shape[0]
     with torch.no_grad():
         log(f"[bwd-time] SM clock, max before: {sm_clocks()}")
@@ -974,7 +1021,7 @@ def phase_bwd(device, results):
         plain_ms = cuda_median(lambda: sd.decode_bwd_plain(coords, z, g, *ops), 2, repeats=1)[0]
         plain_peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
-    h, c_in, c_out = 384, 3, 3
+    h, c_in, c_out = z.shape[2], coords.shape[1], g.shape[2]
     pairs = rows * points
     # forward recompute, dx chain and dW products (section 3 of the port's
     # plan: 3 x 4.43 MFLOP a pair at Case4), the sine and its derivative
@@ -997,14 +1044,13 @@ def phase_bwd(device, results):
                 if part in products and dev_ms else "")
         log(f"[bwd-time] {part}: {dev_ms:.3f} ms device, {sum(n for _, n in hits)} "
             f"launches{rate}")
-    log(f"[bwd] {rows}x{points}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median of 7 "
-        f"({flops / ms / 1e9:.2f} TFLOP/s), bound {bound_ms:.3f} ms ({bound_by}, "
+    log(f"[bwd] {rows}x{points} H={h}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median "
+        f"of 7 ({flops / ms / 1e9:.2f} TFLOP/s), bound {bound_ms:.3f} ms ({bound_by}, "
         f"{flops / 1e12:.2f} TFLOP; every flop on the CUDA cores: "
         f"{bound(flops, nbytes)[0]:.3f} ms); plain {plain_ms:.3f} ms (peak memory "
         f"{plain_peak:.2f} GiB); library: none (no single PyTorch call computes it)")
-    results["siren_decode_bwd"] = dict(
-        max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, shape=f"{rows}x{points}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                shape=f"{rows}x{points}")
 
 
 def rel_l2(a, b) -> float:
@@ -1785,7 +1831,7 @@ BF16_DECODE_REL_TOL = 1e-2
 REMAT_REL_TOL = 1e-5
 
 
-def bf16_forward_check(model, device, rows, points, seed) -> float:
+def bf16_forward_check(model, device, rows, points, seed, label="case4") -> float:
     """The bf16 forward kernel against its plain bf16 version (relative L2)
     and float64 beside the float32 kernel's and the plain version's errors,
     two launches bitwise equal; returns its largest error against float64."""
@@ -1804,7 +1850,7 @@ def bf16_forward_check(model, device, rows, points, seed) -> float:
     errs = {name: ((x.double() - truth).abs().max().item(), rel_l2(x.double(), truth))
             for name, x in (("bf16 kernel", kern), ("bf16 plain", plain), ("f32 kernel", f32))}
     ok = rel <= BF16_DECODE_REL_TOL and same and bool(torch.isfinite(kern).all())
-    log(f"[bf16-forward] case4 {rows}x{points}: kernel vs plain bf16 rel L2 {rel:.3e} (tol "
+    log(f"[bf16-forward] {label} {rows}x{points}: kernel vs plain bf16 rel L2 {rel:.3e} (tol "
         f"{BF16_DECODE_REL_TOL}), max abs {(kern - plain).abs().max().item():.3e}; against "
         f"float64 (max abs, rel L2): " + ", ".join(f"{k} {a:.3e}, {r:.3e}"
                                                   for k, (a, r) in errs.items())
@@ -1852,7 +1898,7 @@ def bf16_forward_time(model, device, rows, points, seed) -> dict:
                 if part == "forward" and dev_ms else "")
         log(f"[bf16-time] {rows}x{points} {part}: {dev_ms:.3f} ms device, "
             f"{sum(n for _, n in hits)} launches{rate}")
-    stream = -(-pairs // 64) * (n_mod - 1) * h * h * 2
+    stream = -(-pairs // block_pairs(h)) * (n_mod - 1) * h * h * 2
     ms, least, largest = t["bf16"]
     log(f"[bf16-forward] {rows}x{points}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median "
         f"of 7 ({(mat + act) / ms / 1e9:.2f} TFLOP/s), float32 kernel in this run "
@@ -2066,6 +2112,155 @@ def train_xl(root, policy: str, batch: int) -> None:
         raise SystemExit(f"the xl recipe did not train under remat policy {policy}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the SIREN kernels at H = 448 and 512, multi-step training from a
+# device-resident set, the turbulence demo end to end
+# ---------------------------------------------------------------------------
+
+# six modulated layers at the two widths above 384 (blocks of 32 pairs):
+# Case4's 3 coordinates and outputs at 448, the demo's 2 at 512
+WIDE_CNFS = {448: dict(in_coord_features=3, in_latent_features=256, out_features=3,
+                       num_hidden_layers=5, hidden_features=448, w0=30.0),
+             512: dict(in_coord_features=2, in_latent_features=256, out_features=2,
+                       num_hidden_layers=5, hidden_features=512, w0=30.0)}
+
+
+def phase_wide(device, results) -> None:
+    """Phase 16a: every SIREN kernel at H = 448 and 512 against its plain
+    version and float64 under the criteria of phases 3, 4, 7 and 15; each
+    width's registers, spills and shared memory; the float32 forward and
+    the training backward timed at 4 x 262144."""
+    for h, cfg in WIDE_CNFS.items():
+        nt = h // 64
+        for kernel in ("siren_fwd_kernel", "siren_fwd_bf16_kernel", "siren_bwd_chain_kernel",
+                       "siren_dz_chain_kernel"):
+            log(f"[wide] H={h}: {kernel}<{nt}>: {PTXAS.get(f'{kernel}<{nt}>', 'not reported')}")
+        log(f"[wide] H={h}: blocks of {block_pairs(h)} pairs; chain shared memory "
+            f"{sd._bwd_library().siren_bwd_chain_smem(h)} bytes (of 232448 a block may take)")
+        model = SirenFilm(**cfg, generator=torch.Generator().manual_seed(h)).to(
+            device).requires_grad_(False)
+        label = f"H={h}"
+        err_f = forward_check(model, device, 4, 16384, 21, label)
+        forward_check(model, device, 3, 3001, 22, label)
+        bf16_forward_check(model, device, 4, 16384, 23, label)
+        dz_check(model, device, 64, 1024, 24, label, against_bwd=True)
+        dz_check(model, device, 100, 3000, 25, label)
+        err_b = bwd_check(model, device, 4, 16384, seed=26)
+        results[f"siren_decode_forward@H{h}"] = dict(
+            forward_time(model, device, 4, 262144, 27), max_abs_err=err_f)
+        results[f"siren_decode_bwd@H{h}"] = dict(
+            bwd_time(model, device, 4, 262144, seed=28), max_abs_err=err_b)
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase_multistep(root, device, figures) -> None:
+    """Phase 16b: the Case4 U-Net (float32, batch 8, flash on as in phase
+    12) trained ``steps_per_call`` = 4 steps a call over 32 seeded images
+    resident on the card (``device_data``): synchronized wall per step of a
+    call after a first one, against ``run_step`` on the same loop and
+    batches of the same set (no validation data: the step alone) and
+    phase 12's ``run_step`` (which adds a validation forward), peak memory,
+    finite losses, the EMA moved."""
+    recipe = write_diffusion_case(os.path.join(root, "multistep"))
+    hp = cfgmod.Config(recipe)
+    model, diffusion = train_diffusion.build_model_and_diffusion(hp)
+    model.reset_parameters(torch.Generator().manual_seed(42))
+    images = np.load(recipe["train_data_path"])[:, None]
+    tlog.configure(os.path.join(root, "multistep", "logs"), [])
+    loop = TrainLoop(model=model, diffusion=diffusion, data=None, device_data=images,
+                     batch_size=hp.batch_size, lr=float(hp.lr), ema_rate=hp.get("ema_rate", "0.9999"),
+                     steps_per_call=4, save_dir=os.path.join(root, "multistep", "logs"),
+                     device=device)
+    ema0 = [e.clone() for e in loop.ema_params[0]]
+    logged = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        synchronize(device)
+        t0 = time.perf_counter()
+        loop.run_steps(4)
+        synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        logged.append(tlog.get_current().dumpkvs())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = max((e - e0).abs().max().item() for e, e0 in zip(loop.ema_params[0], ema0))
+    losses = [row["loss"] for row in logged]
+    one_ms = timed_steps(loop, [loop.device_batch() for _ in range(4)])
+    single = figures.get("diffusion_step_ms", [])
+    log(f"[multistep] Case4 U-Net, batch {hp.batch_size}, 4 steps a call over {len(images)} "
+        f"images on the card: mean loss per call {[round(x, 6) for x in losses]}, second "
+        f"call {wall_ms / 4:.1f} ms a step; run_step on the same loop "
+        f"{[round(x, 1) for x in one_ms]} ms (median {np.median(one_ms):.1f}); phase 12's "
+        f"run_step with its validation forward {[round(x, 1) for x in single]}; peak memory "
+        f"{peak:.2f} GiB, max |EMA moved| {moved:.3e}")
+    if not (loop.step == 12 and all(np.isfinite(losses)) and moved > 0):
+        raise SystemExit("multi-step training from device data: wrong step count, non-finite "
+                         "losses or an EMA that did not move")
+    del loop, model
+    torch.cuda.empty_cache()
+
+
+DEMO_F4_CUT = ["--flow", "forced_soft", "--n-traj", "2", "--n-snap", "64", "--window", "64",
+               "--latent", "256", "--hidden", "384", "--nf-layers", "6", "--nf-cadence",
+               "batch", "--unet-channels", "96", "--unet-mult", "1,1,2,2,4", "--diff-batch",
+               "64", "--scale-sigmas", "2.5", "--cnf-epochs", "2", "--diff-steps", "25"]
+
+
+# the demo CNF (its cnf.yml: 2 coordinates and outputs, w0 30) and the batch
+# its fused step gives the kernels (batch_size snapshots x grid^2 points):
+# --fast (latent 32, 4 hidden layers of 128, 64 x 32^2), then DEMO_F4_CUT's
+# widths (latent 256, 6 hidden layers of 384, 128 x 64^2)
+DEMO_CNFS = {"--fast": (dict(in_coord_features=2, in_latent_features=32, out_features=2,
+                             num_hidden_layers=4, hidden_features=128, w0=30.0), 64, 1024),
+             "f4 widths, cut": (dict(in_coord_features=2, in_latent_features=256,
+                                     out_features=2, num_hidden_layers=6,
+                                     hidden_features=384, w0=30.0), 128, 4096)}
+
+
+def phase_demo(root, device) -> dict:
+    """Phase 16c: ``confild_tpu_torch.examples.demo_turbulence`` end to end
+    on the card, ``--fast`` (32^2 grid, H = 128), then at the f4 widths
+    with a cut depth (2 trajectories, 2 CNF epochs, 25 diffusion steps).
+    Before each run the SIREN forward and training-backward kernels at that
+    run's CNF widths and batch, against their plain versions and float64
+    under the criteria of phases 3 and 7.  Each run: each stage's wall, the
+    CNF batch step, the diffusion step, the metrics; every gate finite, and
+    the CNF stage launched the SIREN forward and training-backward kernels
+    (counts zeroed before each run, read after; the later stages launch
+    none).  Returns the two runs' launch counts."""
+    counts = dict.fromkeys(sd.LAUNCHES, 0)
+    for label, name, argv in (("--fast", "demo_fast", ["--fast"]),
+                              ("f4 widths, cut", "demo_f4", DEMO_F4_CUT)):
+        cfg, rows, points = DEMO_CNFS[label]
+        model = SirenFilm(**cfg, generator=torch.Generator().manual_seed(rows)).to(
+            device).requires_grad_(False)
+        err_f = forward_check(model, device, rows, points, 31, f"demo {label}")
+        err_b = bwd_check(model, device, rows, points, seed=32, chunk=512)
+        log(f"[demo] {label}: the kernels at the CNF's {rows}x{points} batch, H = "
+            f"{cfg['hidden_features']}, {model.n_modulated} modulated layers: forward "
+            f"|kernel-f64| {err_f:.3e}, training backward {err_b:.3e} -> ok")
+        del model
+        torch.cuda.empty_cache()
+        sd.reset_launch_counts()
+        m = demo_turbulence.main(argv + ["--out", os.path.join(root, name)])
+        synchronize(torch.device("cuda"))
+        run = dict(sd.LAUNCHES)
+        for k, v in run.items():
+            counts[k] += v
+        gates = m["cnf_rmae"] + [m["spectra_relative_error"], m["timescale_ratio"]]
+        log(f"[demo] {label}: stages (s) "
+            f"{ {k: round(v, 2) for k, v in m['timing']['stage_s'].items()} }, CNF batch step "
+            f"{m['timing']['cnf_batch_step_ms']:.1f} ms, diffusion step "
+            f"{m['timing']['diffusion_step_ms']:.1f} ms, peak {m['timing']['peak_gib']:.2f} GiB, "
+            f"SIREN launches {run}")
+        log(f"[demo] {label}: " + json.dumps({k: v for k, v in m.items() if k != "timing"}))
+        if not (all(np.isfinite(gates)) and run["siren_decode_forward"] > 0
+                and run["siren_decode_bwd"] > 0):
+            raise SystemExit(f"demo {label}: non-finite gates or the CNF stage ran without the "
+                             "SIREN kernels")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2115,6 +2310,13 @@ def main() -> int:
             stamp(label)
         phase_remat(root, device)
         stamp("phase 15c (remat)")
+        phase_wide(device, results)
+        stamp("phase 16a (SIREN kernels at H = 448 and 512)")
+        phase_multistep(root, device, figures)
+        stamp("phase 16b (multi-step training from device data)")
+        for k, v in phase_demo(root, device).items():
+            launches[k] += v
+        stamp("phase 16c (the turbulence demo)")
     launches.update(flash_launches)
 
     kernels = []
@@ -2127,15 +2329,25 @@ def main() -> int:
              "siren_decode.py:315"),
             ("siren_decode_bwd", "siren_decode_bwd", "siren_decode_bwd.cu",
              "siren_decode.py:434"),
+            ("siren_decode_forward", "siren_decode_forward@H448", "siren_decode.cu",
+             "siren_decode.py:96"),
+            ("siren_decode_forward", "siren_decode_forward@H512", "siren_decode.cu",
+             "siren_decode.py:96"),
+            ("siren_decode_bwd", "siren_decode_bwd@H448", "siren_decode_bwd.cu",
+             "siren_decode.py:434"),
+            ("siren_decode_bwd", "siren_decode_bwd@H512", "siren_decode_bwd.cu",
+             "siren_decode.py:434"),
             ("flash_forward", "flash_forward", "flash_attention.cu", "flash_attention.py:56"),
             ("flash_bwd_dq", "flash_bwd_dq", "flash_attention.cu", "flash_attention.py:158"),
             ("flash_bwd_dkv", "flash_bwd_dkv", "flash_attention.cu", "flash_attention.py:188")):
         r = results[key]
         kernels.append({
-            "name": kname, "route": "cuda",
+            "name": key if "@H" in key else kname, "route": "cuda",
             "source": f"confild_tpu_torch/csrc/{src}",
             "replaces": f"confild_tpu/ops/{replaces}",
-            "launches": launches[kname],
+            # no main path decodes above H = 384: the wide widths' launches
+            # on it are none (the wrapper's count is the narrow widths')
+            "launches": 0 if "@H" in key else launches[kname],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"],

@@ -1,7 +1,8 @@
 """PyTorch / CUDA port of ``confild_tpu`` for one NVIDIA H100.
 
 The package mirrors the JAX package's layout (``core/``, ``models/``,
-``ops/``, ``diffusion/``, ``guidance/``, ``inference.py``, ``cli/``) and
+``ops/``, ``diffusion/``, ``guidance/``, ``inference.py``, ``cli/``; the
+turbulence demo in ``examples/``) and
 keeps the reference PyTorch state-dict keys, so reference ``.pt`` files and
 the JAX package's ``.ckpt`` pytrees both load (``io/convert.py``).
 

@@ -29,9 +29,10 @@
 // 16 x 262144 pairs at Case4 take at least 112.6 ms.
 //
 // Design: the training chain's forward half (siren_decode_bwd.cu), without
-// its workspace.  A block owns CP = 64 consecutive (row, point) pairs,
-// p = t * M + m (the M dimension of every product), and keeps their
-// 64 x H activations in shared memory for the whole layer stack.  Eight
+// its workspace.  A block owns CP consecutive (row, point) pairs,
+// p = t * M + m (the M dimension of every product; CP = 64 up to H = 384,
+// 32 at H = 448 and 512, siren_tc.cuh::block_pairs), and keeps their
+// CP x H activations in shared memory for the whole layer stack.  Eight
 // warps each own H / 8 output columns.  Every H x H product is a 3xTF32
 // mma.sync.m16n8k8 (tf32_mma.cuh): the middle weights are split once a call
 // (siren_split_kernel, the n_mod - 1 forward products only, 17.7 MB at
@@ -43,7 +44,7 @@
 // head (C_out columns, one warp per output, lanes striding over H, a
 // shuffle tree) stay on the CUDA cores in float32.  The ragged last block
 // is masked.  No atomics: two launches are bitwise equal.
-// Known cost: every block rereads the whole split stream from L2, 64 pairs
+// Known cost: every block rereads the whole split stream from L2, CP pairs
 // a read (1.16 TB per 16 x 262144 call at Case4).
 //
 // ---------------------------------------------------------------------------
@@ -61,7 +62,8 @@
 // products and 5.8 ms of sines.
 //
 // Design: siren_fwd_kernel's scheme with mma.sync.m16n8k16.bf16 and an f32
-// accumulator.  A block owns CP = 64 pairs and keeps their activations in
+// accumulator.  A block owns CP pairs (as the float32 kernel) and keeps
+// their activations in
 // shared memory as bf16 (the rounding JAX applies at the next product), row
 // stride H + 8 so that A fragments hit 32 banks.  Eight warps each own H / 8
 // output columns.  The middle weights are rounded to bf16 once a call, in
@@ -92,13 +94,14 @@ namespace {
 using siren::sin2pi;
 
 // ---------------------------------------------------------------------------
-// forward: eight warps over 64 pairs (siren_tc.cuh)
+// forward: eight warps over a block's pairs (siren_tc.cuh)
 // ---------------------------------------------------------------------------
 
 size_t fwd_smem_bytes(int H) {
   using namespace siren_tc;
-  return sizeof(float) * ((size_t)CP * (H + A_PAD) + 2 * (size_t)kslice_floats(H) +
-                          (size_t)CP * MAX_C) + sizeof(int) * CP;
+  const size_t cp = block_pairs(H);
+  return sizeof(float) * (cp * (H + A_PAD) + 2 * (size_t)kslice_floats(H) + cp * MAX_C) +
+         sizeof(int) * cp;
 }
 
 template <int NT>
@@ -114,6 +117,7 @@ siren_fwd_kernel(const float* __restrict__ coords,
   using namespace siren_tc;
   constexpr int H = NT * 64;
   constexpr int lda = H + A_PAD;
+  constexpr int CP = block_pairs(H), MT = m_tiles(NT);
   extern __shared__ __align__(16) float smem[];
   float* As = smem;                              // CP x (H + A_PAD) activations
   float* stage = As + CP * lda;                  // two K-slices
@@ -137,7 +141,7 @@ siren_fwd_kernel(const float* __restrict__ coords,
   }
   __syncthreads();
 
-  float acc[4][NT][4];
+  float acc[MT][NT][4];
   // first layer on the CUDA cores: r_0 = coords . w_first + z_0
   first_layer_frags<NT>(cs, w_first, C_in, H, acc);
   for (int l = 0; l < n_mod; ++l) {
@@ -147,7 +151,7 @@ siren_fwd_kernel(const float* __restrict__ coords,
     }
     const float* zl = z + (size_t)l * T * H;
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -182,8 +186,8 @@ int launch_fwd(const float* coords, const float* z, const float* w_first, const 
   const size_t smem = fwd_smem_bytes(NT * 64);
   cudaError_t err = tf32mma::allow_smem(siren_fwd_kernel<NT>, smem, done);
   if (err != cudaSuccess) return (int)err;
-  const long long pairs = (long long)T * M;
-  const unsigned int blocks = (unsigned int)((pairs + siren_tc::CP - 1) / siren_tc::CP);
+  const long long pairs = (long long)T * M, cp = siren_tc::block_pairs(NT * 64);
+  const unsigned int blocks = (unsigned int)((pairs + cp - 1) / cp);
   siren_fwd_kernel<NT><<<blocks, siren_tc::THREADS, smem, stream>>>(
       coords, z, w_first, wsplit, w_head, b_head, out, T, M, C_in, n_mod, C_out);
   return (int)cudaGetLastError();
@@ -253,13 +257,14 @@ __device__ __forceinline__ void issue_kslice16(uint2* stage, const uint2* wfrag,
 template <int NT>
 __device__ __forceinline__ void bf16_product(const __nv_bfloat16* As, uint2* stage,
                                              const uint2* wfrag, int& u, int u_total,
-                                             float (&acc)[4][NT][4]) {
+                                             float (&acc)[siren_tc::m_tiles(NT)][NT][4]) {
   constexpr int H = NT * 64, lda2 = (H + A_PAD16) / 2, nb8 = H / 8;
+  constexpr int MT = siren_tc::m_tiles(NT);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const uint32_t* A32 = reinterpret_cast<const uint32_t*>(As);
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -273,9 +278,9 @@ __device__ __forceinline__ void bf16_product(const __nv_bfloat16* As, uint2* sta
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
       const int kw = (s * KS16 + kk * 16) / 2 + t;   // the word of columns 2t, 2t + 1
-      uint32_t a[4][4];
+      uint32_t a[MT][4];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
+      for (int mt = 0; mt < MT; ++mt) {
         const uint32_t* r = A32 + (mt * 16 + g) * lda2 + kw;
         a[mt][0] = r[0];
         a[mt][1] = r[8 * lda2];
@@ -287,7 +292,7 @@ __device__ __forceinline__ void bf16_product(const __nv_bfloat16* As, uint2* sta
         const uint2 b = sb[(kk * nb8 + nt) * 32];
         const uint32_t bb[2] = {b.x, b.y};
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma_bf16(acc[mt][nt], a[mt], bb);
+        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], bb);
       }
     }
   }
@@ -295,9 +300,10 @@ __device__ __forceinline__ void bf16_product(const __nv_bfloat16* As, uint2* sta
 
 size_t fwd_bf16_smem_bytes(int H) {
   using namespace siren_tc;
-  return sizeof(__nv_bfloat16) * (size_t)CP * (H + A_PAD16) +
-         sizeof(uint2) * 2 * (size_t)kslice16_frags(H) + sizeof(float) * (size_t)CP * MAX_C +
-         sizeof(int) * CP;
+  const size_t cp = block_pairs(H);
+  return sizeof(__nv_bfloat16) * cp * (H + A_PAD16) +
+         sizeof(uint2) * 2 * (size_t)kslice16_frags(H) + sizeof(float) * cp * MAX_C +
+         sizeof(int) * cp;
 }
 
 template <int NT>
@@ -313,6 +319,7 @@ siren_fwd_bf16_kernel(const float* __restrict__ coords,
   using namespace siren_tc;
   constexpr int H = NT * 64;
   constexpr int lda2 = (H + A_PAD16) / 2;        // words of a bf16 activation row
+  constexpr int CP = block_pairs(H), MT = m_tiles(NT);
   extern __shared__ __align__(16) unsigned char smem16[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem16);   // CP x (H + A_PAD16)
   uint32_t* A32 = reinterpret_cast<uint32_t*>(As);
@@ -338,12 +345,12 @@ siren_fwd_bf16_kernel(const float* __restrict__ coords,
   }
   __syncthreads();
 
-  float acc[4][NT][4];
+  float acc[MT][NT][4];
   {  // first layer: coords . w_first, K = C_in padded to 16 by zeros
-    uint32_t a[4][4];
+    uint32_t a[MT][4];
     auto cv = [&](int row, int c) { return c < C_in ? cs[row * C_in + c] : 0.f; };
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
+    for (int mt = 0; mt < MT; ++mt) {
       const int row = mt * 16 + g;
       a[mt][0] = pack_bf16(cv(row, 2 * t), cv(row, 2 * t + 1));
       a[mt][1] = pack_bf16(cv(row + 8, 2 * t), cv(row + 8, 2 * t + 1));
@@ -356,7 +363,7 @@ siren_fwd_bf16_kernel(const float* __restrict__ coords,
       const float w1 = 2 * t + 1 < C_in ? __ldg(w_first + (size_t)(2 * t + 1) * H + n) : 0.f;
       const uint32_t b[2] = {pack_bf16(w0, w1), 0u};
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
+      for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
         mma_bf16(acc[mt][nt], a[mt], b);
@@ -370,7 +377,7 @@ siren_fwd_bf16_kernel(const float* __restrict__ coords,
     }
     const float* zl = z + (size_t)l * T * H;
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -384,8 +391,8 @@ siren_fwd_bf16_kernel(const float* __restrict__ coords,
   }
   __syncthreads();  // the last activations are complete
 
-  // linear head: warp w < 4 owns pairs 16w .. 16w + 15, N = C_out padded to 8
-  if (warp < 4) {
+  // linear head: warp w < MT owns pairs 16w .. 16w + 15, N = C_out padded to 8
+  if (warp < MT) {
     float c[4] = {0.f, 0.f, 0.f, 0.f};
     auto wv = [&](int k) { return g < C_out ? __ldg(w_head + (size_t)k * C_out + g) : 0.f; };
     for (int kb = 0; kb < H / 16; ++kb) {
@@ -411,8 +418,8 @@ int launch_fwd_bf16(const float* coords, const float* z, const float* w_first,
   const size_t smem = fwd_bf16_smem_bytes(NT * 64);
   cudaError_t err = tf32mma::allow_smem(siren_fwd_bf16_kernel<NT>, smem, done);
   if (err != cudaSuccess) return (int)err;
-  const long long pairs = (long long)T * M;
-  const unsigned int blocks = (unsigned int)((pairs + siren_tc::CP - 1) / siren_tc::CP);
+  const long long pairs = (long long)T * M, cp = siren_tc::block_pairs(NT * 64);
+  const unsigned int blocks = (unsigned int)((pairs + cp - 1) / cp);
   siren_fwd_bf16_kernel<NT><<<blocks, siren_tc::THREADS, smem, stream>>>(
       coords, z, w_first, wfrag, w_head, b_head, out, T, M, C_in, n_mod, C_out);
   return (int)cudaGetLastError();
@@ -432,7 +439,7 @@ int siren_decode_forward(const float* coords, const float* z, const float* w_fir
                          float* out, int T, int M, int C_in, int H, int n_mod, int C_out,
                          void* stream) {
   if (!siren_tc::shape_ok(H, n_mod, C_in, C_out) || T <= 0 || M <= 0 ||
-      (long long)T * M > 2147483647LL * siren_tc::CP || (long long)T * H > 2147483647LL ||
+      (long long)T * M > 2147483647LL * siren_tc::block_pairs(H) || (long long)T * H > 2147483647LL ||
       (n_mod > 1 && wsplit == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -447,6 +454,8 @@ int siren_decode_forward(const float* coords, const float* z, const float* w_fir
     SIREN_FWD(4)
     SIREN_FWD(5)
     SIREN_FWD(6)
+    SIREN_FWD(7)
+    SIREN_FWD(8)
   }
 #undef SIREN_FWD
   return (int)cudaErrorInvalidValue;
@@ -467,7 +476,7 @@ int siren_decode_forward_bf16(const float* coords, const float* z, const float* 
                               float* out, int T, int M, int C_in, int H, int n_mod, int C_out,
                               void* stream) {
   if (!siren_tc::shape_ok(H, n_mod, C_in, C_out) || T <= 0 || M <= 0 ||
-      (long long)T * M > 2147483647LL * siren_tc::CP || (long long)T * H > 2147483647LL ||
+      (long long)T * M > 2147483647LL * siren_tc::block_pairs(H) || (long long)T * H > 2147483647LL ||
       (n_mod > 1 && wfrag == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -483,6 +492,8 @@ int siren_decode_forward_bf16(const float* coords, const float* z, const float* 
     SIREN_FWD_BF16(4)
     SIREN_FWD_BF16(5)
     SIREN_FWD_BF16(6)
+    SIREN_FWD_BF16(7)
+    SIREN_FWD_BF16(8)
   }
 #undef SIREN_FWD_BF16
   return (int)cudaErrorInvalidValue;

@@ -44,10 +44,10 @@
 //   whose dz mode is the dz kernel below (the same forward recompute and dx
 //   chain, writing per-row sums of dpre instead of D; its product,
 //   chain_product, is the forward's too): a block owns CP = 64
-//   pairs (the M dimension of every product) and keeps their 64 x H
-//   activations in shared memory.
-//   Eight warps each own H / 8 output columns for all 64 rows, 96
-//   accumulators a thread at H = 384.  The weights stream as 16-row
+//   pairs (32 at H = 448 and 512; the M dimension of every product) and
+//   keeps their CP x H activations in shared memory.
+//   Eight warps each own H / 8 output columns for all CP rows, 96
+//   accumulators a thread at H = 384 (64 at H = 512).  The weights stream as 16-row
 //   K-slices through a two-stage cp.async buffer, one continuous stream
 //   across all 2 (n_mod - 1) products, so the next product's first slice
 //   loads while a layer's epilogue runs.  The activations are split as
@@ -95,17 +95,17 @@
 // Case4), against 24 bytes of coordinates and cotangent; 384 x 1024 pairs
 // take at least 21.1 ms at the tensor cores' 3xTF32 rate.
 //
-// Design: the chain in its dz mode, one block per 64 pairs whatever the row
+// Design: the chain in its dz mode, one block per CP pairs whatever the row
 // length, so a call with few points per row still fills the card.  The
 // weights are split as for the training backward (siren_bwd_split), and the
 // host walks the same chunks of at most BWD_PAIRS pairs, so the workspace is
 // bounded by a chunk, not by T x M.  Per chunk:
 // * siren_dz_chain_kernel: the forward recompute stores every r_l (R, as in
 //   training mode), then the dx chain; after each layer the block sums
-//   dpre_l over its 64 pairs in pair order, one sum per latent row they
+//   dpre_l over its CP pairs in pair order, one sum per latent row they
 //   touch, into its partial parts[block][l][slot][H] (slot: the row less
-//   the row of the block's first pair; dz_slots(M) of them, 8 when M = 10,
-//   2 when M >= 64);
+//   the row of the block's first pair; dz_slots(M, H) of them, at CP = 64
+//   8 when M = 10 and 2 when M >= 64);
 // * siren_dz_fold_kernel: each (layer, row, column) of dz adds the partials
 //   of the blocks that hold the row, in block order, to what earlier chunks
 //   left there.
@@ -120,7 +120,7 @@
 namespace {
 
 using siren::sin2pi;
-using namespace siren_tc;  // THREADS (every kernel but the sums), CP, KS, A_PAD, MAX_C
+using namespace siren_tc;  // THREADS (every kernel but the sums), block_pairs, KS, MAX_C
 
 // reduction
 constexpr int RT = 128;          // output tile
@@ -162,12 +162,13 @@ siren_bwd_chain_kernel(const float* __restrict__ coords,
                         C_in, n_mod, C_out, 0);
 }
 
-// latent rows that the CP consecutive pairs of one block can touch when a
-// row has M points, ceil((CP - 1) / M) + 1: the slots of a block's dz
-// partial
-__host__ __device__ inline int dz_slots(int M) {
-  const int s = (CP - 2 + M) / M + 1;
-  return s < CP ? s : CP;
+// latent rows that the CP = block_pairs(H) consecutive pairs of one block
+// can touch when a row has M points, ceil((CP - 1) / M) + 1: the slots of a
+// block's dz partial
+__host__ __device__ inline int dz_slots(int M, int H) {
+  const int cp = block_pairs(H);
+  const int s = (cp - 2 + M) / M + 1;
+  return s < cp ? s : cp;
 }
 
 // Workspace: R as above and the blocks' partials parts[block][l][slot][j]
@@ -186,7 +187,7 @@ siren_dz_chain_kernel(const float* __restrict__ coords,
                       int n_mod, int C_out) {
   extern __shared__ __align__(16) float smem[];
   chain_body<NT, true>(smem, coords, z, g, w_first, wstream, w_head, R, parts, p0, Q, Qa, T, M,
-                       C_in, n_mod, C_out, dz_slots(M));
+                       C_in, n_mod, C_out, dz_slots(M, NT * 64));
 }
 
 // one thread per (layer, row of the chunk, column): dz += the partials of
@@ -194,7 +195,7 @@ siren_dz_chain_kernel(const float* __restrict__ coords,
 __global__ void __launch_bounds__(THREADS)
 siren_dz_fold_kernel(const float* __restrict__ parts, float* __restrict__ dz, long long p0,
                      int Q, int T, int M, int H, int n_mod) {
-  const int slots = dz_slots(M);
+  const int slots = dz_slots(M, H), cp = block_pairs(H);
   const long long t_lo = p0 / M;
   const int rows = (int)((p0 + Q - 1) / M - t_lo + 1);
   const long long total = (long long)n_mod * rows * H;
@@ -209,8 +210,8 @@ siren_dz_fold_kernel(const float* __restrict__ parts, float* __restrict__ dz, lo
     const int b = (int)(((t + 1) * M < p0 + Q ? (t + 1) * M : p0 + Q) - p0);
     float* out = dz + ((size_t)l * T + t) * H + j;
     float acc = *out;
-    for (int bk = a / CP; bk <= (b - 1) / CP; ++bk) {
-      const long long slot = t - (p0 + (long long)bk * CP) / M;
+    for (int bk = a / cp; bk <= (b - 1) / cp; ++bk) {
+      const long long slot = t - (p0 + (long long)bk * cp) / M;
       acc += parts[(((size_t)bk * n_mod + l) * slots + slot) * H + j];
     }
     *out = acc;
@@ -509,7 +510,7 @@ siren_bwd_fold_kernel(const float* __restrict__ parts, float* __restrict__ out, 
   }
 }
 
-// the chain over a chunk of Q pairs, one block per CP pairs: training mode
+// the chain over a chunk of Q pairs, one block per block_pairs(H) pairs: training mode
 // (DZ_MODE false) writes D into out, dz mode the blocks' partials
 template <int NT, bool DZ_MODE>
 int launch_chain(const float* coords, const float* z, const float* g, const float* w_first,
@@ -521,7 +522,8 @@ int launch_chain(const float* coords, const float* z, const float* g, const floa
   const size_t smem = chain_smem_bytes(NT * 64);
   cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return (int)err;
-  const unsigned int blocks = (unsigned int)((Q + CP - 1) / CP);
+  constexpr int cp = block_pairs(NT * 64);
+  const unsigned int blocks = (unsigned int)((Q + cp - 1) / cp);
   kernel<<<blocks, THREADS, smem, stream>>>(coords, z, g, w_first, wsplit, w_head, R, out, p0,
                                             Q, Qa, T, M, C_in, n_mod, C_out);
   return (int)cudaGetLastError();
@@ -543,6 +545,8 @@ int chain(const float* coords, const float* z, const float* g, const float* w_fi
     SIREN_CHAIN(4)
     SIREN_CHAIN(5)
     SIREN_CHAIN(6)
+    SIREN_CHAIN(7)
+    SIREN_CHAIN(8)
   }
 #undef SIREN_CHAIN
   return (int)cudaErrorInvalidValue;
@@ -552,7 +556,12 @@ int chain(const float* coords, const float* z, const float* g, const float* w_fi
 
 extern "C" {
 
-int siren_bwd_tile_pairs() { return CP; }
+// pairs a chain block owns at hidden width H: a chunk's workspace is
+// padded to a multiple of it
+int siren_bwd_tile_pairs(int H) { return block_pairs(H); }
+
+// dynamic shared memory of a chain block at hidden width H, in bytes
+long long siren_bwd_chain_smem(int H) { return (long long)chain_smem_bytes(H); }
 
 // the forward's and the dx chain's products: 2 n_mid
 int siren_bwd_split(const float* w_mid, float* wsplit, int H, int n_mid, void* stream) {
@@ -564,7 +573,7 @@ int siren_bwd_chain(const float* coords, const float* z, const float* g, const f
                     int Q, int Qa, int T, int M, int C_in, int H, int n_mod, int C_out,
                     void* stream) {
   if (!shape_ok(H, n_mod, C_in, C_out) || T <= 0 || M <= 0 || Q <= 0 || Qa < Q ||
-      Qa % CP != 0 || (n_mod > 1 && wsplit == nullptr))
+      Qa % block_pairs(H) != 0 || (n_mod > 1 && wsplit == nullptr))
     return (int)cudaErrorInvalidValue;
   return chain<false>(coords, z, g, w_first, wsplit, w_head, R, D, p0, Q, Qa, T, M, C_in, H,
                       n_mod, C_out, (cudaStream_t)stream);
@@ -607,18 +616,19 @@ int siren_bwd_fold(const float* parts, float* out, long long E, int slices, void
   return (int)cudaGetLastError();
 }
 
-int siren_dz_slots(int M) { return M > 0 ? dz_slots(M) : 0; }
+int siren_dz_slots(int M, int H) { return M > 0 && H > 0 ? dz_slots(M, H) : 0; }
 
 // One chunk of dz: the pairs p0 .. p0 + Q - 1, with R (n_mod, Qa, H) and
-// parts (Qa / CP, n_mod, siren_dz_slots(M), H) its workspace; the chain,
+// parts (Qa / siren_bwd_tile_pairs(H), n_mod, siren_dz_slots(M, H), H) its
+// workspace; the chain,
 // then the fold into dz (zeroed before the first chunk).
 int siren_decode_dz(const float* coords, const float* z, const float* g, const float* w_first,
                     const float* wsplit, const float* w_head, float* R, float* parts, float* dz,
                     long long p0, int Q, int Qa, int T, int M, int C_in, int H, int n_mod,
                     int C_out, void* stream) {
   if (!shape_ok(H, n_mod, C_in, C_out) || T <= 0 || M <= 0 || Q <= 0 || Qa < Q ||
-      Qa % CP != 0 || p0 < 0 || p0 + Q > (long long)T * M || (long long)T * H > 2147483647LL ||
-      (n_mod > 1 && wsplit == nullptr))
+      Qa % block_pairs(H) != 0 || p0 < 0 || p0 + Q > (long long)T * M ||
+      (long long)T * H > 2147483647LL || (n_mod > 1 && wsplit == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int err = chain<true>(coords, z, g, w_first, wsplit, w_head, R, parts, p0, Q, Qa, T, M,

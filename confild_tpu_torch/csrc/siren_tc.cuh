@@ -1,19 +1,20 @@
 // Tensor-core pieces shared by the SIREN-FiLM decode kernels: the middle
 // weights split once a call into 3xTF32 B fragments, the product of a
-// block's CP x H activation tile with one of them, streamed through a
+// block's activation tile (its pairs x H) with one of them, streamed through a
 // two-stage cp.async buffer of K-slices (the forward, siren_fwd_kernel in
 // siren_decode.cu, and the chain), and the chain itself: a forward
 // recompute then the dx chain, in two modes, the training backward's
 // (siren_bwd_chain_kernel) and dz's (siren_dz_chain_kernel), both in
 // siren_decode_bwd.cu.
 //
-// A block owns CP = 64 (row, point) pairs (the M dimension of every
-// product) and keeps their activations in shared memory, row stride
-// H + A_PAD.  Eight warps each own H / 8 output columns for all 64 rows,
-// 16 * H / 64 accumulators a thread.  Every product is a 3xTF32
-// mma.sync.m16n8k8 (tf32_mma.cuh); the tensor cores truncate their own f32
-// sums, so a fragment's products of two k8 steps go into a zeroed partial
-// that a float32 add carries into the running sum.
+// A block owns block_pairs(H) (row, point) pairs (the M dimension of every
+// product: 64 up to H = 384, 32 above) and keeps their activations in
+// shared memory, row stride H + A_PAD.  Eight warps each own H / 8 output
+// columns for all of the block's rows, 4 * m_tiles * H / 64 accumulators a
+// thread (96 at H = 384 with 64 pairs, 64 at H = 512 with 32).  Every
+// product is a 3xTF32 mma.sync.m16n8k8 (tf32_mma.cuh); the tensor cores
+// truncate their own f32 sums, so a fragment's products of two k8 steps go
+// into a zeroed partial that a float32 add carries into the running sum.
 #pragma once
 
 #include <stdint.h>
@@ -25,12 +26,20 @@ namespace siren_tc {
 
 using namespace tf32mma;
 
-constexpr int MAX_H = 384;       // widest hidden layer the accumulators' registers hold
+constexpr int MAX_H = 512;       // widest hidden layer
 constexpr int MAX_C = 4;         // widest C_in and C_out
 constexpr int THREADS = 256;     // 8 warps
-constexpr int CP = 64;           // pairs a block owns
+constexpr int WIDE_NT = 6;       // widest H / 64 whose blocks own 64 pairs
 constexpr int KS = 16;           // weight rows a streamed K-slice holds (two k8 steps)
 constexpr int A_PAD = 4;         // activation row stride H + 4: A fragments hit 32 banks
+
+// m16 tiles of pairs a block owns at H = 64 NT: four (64 pairs) up to
+// H = 384; two (32 pairs) at H = 448 and 512, where 64 pairs would need
+// 112 and 128 accumulators a thread and, with the two K-slice stages, more
+// than the 227 KB of shared memory a block may take
+__host__ __device__ constexpr int m_tiles(int NT) { return NT <= WIDE_NT ? 4 : 2; }
+// pairs a block owns at hidden width H
+__host__ __device__ constexpr int block_pairs(int H) { return 16 * m_tiles(H / 64); }
 
 // H a multiple of 64 up to MAX_H, C_in and C_out up to MAX_C
 inline bool shape_ok(int H, int n_mod, int C_in, int C_out) {
@@ -107,20 +116,22 @@ __device__ __forceinline__ void issue_kslice(float* stage, const float* wstream,
   cp_async_commit();
 }
 
-// acc = A (CP x H in shared memory, row stride H + A_PAD) . B, B being the
+// acc = A (block_pairs(H) x H in shared memory, row stride H + A_PAD) . B,
+// B being the
 // H / KS slices u .. u + H / KS - 1 of the weight stream.  On entry slice u
 // is in flight into stage buffer u & 1; on exit the slice after the last
 // is (when there is one), and u has moved past this product.
 template <int NT>
 __device__ __forceinline__ void chain_product(const float* As, float* stage,
                                               const float* wstream, int& u, int u_total,
-                                              int H, float (&acc)[4][NT][4]) {
+                                              int H, float (&acc)[m_tiles(NT)][NT][4]) {
+  constexpr int MT = m_tiles(NT);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int lda = H + A_PAD;
   const int nb8 = H / 8;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -132,11 +143,11 @@ __device__ __forceinline__ void chain_product(const float* As, float* stage,
     issue_kslice(stage, wstream, u + 1, u_total, H);
     const float4* sb = reinterpret_cast<const float4*>(stage + (u & 1) * kslice_floats(H));
     // the slice's two k8 steps go into one zeroed partial per fragment
-    uint32_t ab[2][4][4], as[2][4][4];
+    uint32_t ab[2][MT][4], as[2][MT][4];
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
+      for (int mt = 0; mt < MT; ++mt) {
         const float* a = As + (mt * 16 + g) * lda + s * KS + kk * 8 + t;
         split<false>(a[0], ab[kk][mt][0], as[kk][mt][0]);
         split<false>(a[8 * lda], ab[kk][mt][1], as[kk][mt][1]);
@@ -156,7 +167,7 @@ __device__ __forceinline__ void chain_product(const float* As, float* stage,
         bs[kk][1] = __float_as_uint(b.w);
       }
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
+      for (int mt = 0; mt < MT; ++mt) {
         float part[4] = {0.f, 0.f, 0.f, 0.f};
         mma3_into<false, false>(part, ab[0][mt], as[0][mt], bb[0], bs[0]);
         mma3_into<false, false>(part, ab[1][mt], as[1][mt], bb[1], bs[1]);
@@ -177,12 +188,13 @@ __device__ __forceinline__ void frag_pos(int mt, int nt, int h, int& row, int& c
 }
 
 // the first layer on the CUDA cores, into the accumulator fragments:
-// acc = coords . w_first (cs: CP x C_in in shared memory)
+// acc = coords . w_first (cs: the block's pairs x C_in in shared memory)
 template <int NT>
 __device__ __forceinline__ void first_layer_frags(const float* cs, const float* w_first,
-                                                  int C_in, int H, float (&acc)[4][NT][4]) {
+                                                  int C_in, int H,
+                                                  float (&acc)[m_tiles(NT)][NT][4]) {
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int mt = 0; mt < m_tiles(NT); ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -203,8 +215,9 @@ __device__ __forceinline__ void first_layer_frags(const float* cs, const float* 
 
 // dynamic shared memory of a chain block
 inline size_t chain_smem_bytes(int H) {
-  return sizeof(float) * ((size_t)CP * (H + A_PAD) + 2 * (size_t)kslice_floats(H) +
-                          2 * (size_t)CP * MAX_C) + sizeof(int) * CP;
+  const size_t cp = block_pairs(H);
+  return sizeof(float) * (cp * (H + A_PAD) + 2 * (size_t)kslice_floats(H) + 2 * cp * MAX_C) +
+         sizeof(int) * cp;
 }
 
 // dz mode: thread j sums column j of the tile's first n rows (dpre of the
@@ -229,7 +242,8 @@ __device__ __forceinline__ void row_sums(const float* As, const int* zrow, float
   }
 }
 
-// The chain over a block's CP pairs q0 .. q0 + CP - 1 (q0 = blockIdx.x * CP)
+// The chain over a block's CP = block_pairs(H) pairs q0 .. q0 + CP - 1
+// (q0 = blockIdx.x * CP)
 // of a chunk of Q pairs that starts at pair p0 (pair p = t * M + m): the
 // forward recompute stores every pre-activation r_l in R[l][q][j] (layer
 // stride Qa * H) and keeps sin2pi(r_l) as the next A; then the dx chain,
@@ -255,6 +269,7 @@ __device__ __forceinline__ void chain_body(float* smem, const float* __restrict_
   using siren::sin2pi;
   constexpr int H = NT * 64;
   constexpr int lda = H + A_PAD;
+  constexpr int CP = block_pairs(H), MT = m_tiles(NT);
   float* As = smem;                              // CP x (H + A_PAD): activations, then dpre
   float* stage = As + CP * lda;                  // two K-slices
   float* cs = stage + 2 * kslice_floats(H);      // CP x C_in
@@ -283,7 +298,7 @@ __device__ __forceinline__ void chain_body(float* smem, const float* __restrict_
   }
   __syncthreads();
 
-  float acc[4][NT][4];
+  float acc[MT][NT][4];
   // first layer on the CUDA cores: r_0 = coords . w_first + z_0
   first_layer_frags<NT>(cs, w_first, C_in, H, acc);
 
@@ -296,7 +311,7 @@ __device__ __forceinline__ void chain_body(float* smem, const float* __restrict_
     const float* zl = z + (size_t)l * T * H;
     float* Rl = R + l * lstride + (size_t)q0 * H;
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -312,7 +327,7 @@ __device__ __forceinline__ void chain_body(float* smem, const float* __restrict_
 
   // backward, the head on the CUDA cores: dx = g . w_head^T
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -334,7 +349,7 @@ __device__ __forceinline__ void chain_body(float* smem, const float* __restrict_
     // no barrier after it); training mode writes no As at l = 0
     if (DZ || l > 0) __syncthreads();
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll

@@ -86,21 +86,43 @@ def siren_film_apply(model: SirenFilm, coords: torch.Tensor,
     return model.net1[-1](x)
 
 
-def _make_film(name: str) -> Callable[..., SirenFilm]:
+def siren_film_extra_in_apply(model: SirenFilm, coords, latents,
+                              w0: float = DEFAULT_W0) -> torch.Tensor:
+    """``SIRENAutodecoder_film_extra_in`` (``nf_networks.py:503-508``):
+    ``coords`` is a pair ``(spatial_coords, extra_scalar)``; the scalar
+    (broadcastable, e.g. per-sample ``(B, 1, 1)``) is prepended as a
+    constant coordinate channel."""
+    spatial, extra = coords
+    extra_chan = torch.ones_like(spatial[..., :1]) * extra
+    spatial_b = spatial.expand(*extra_chan.shape[:-1], spatial.shape[-1])
+    return siren_film_apply(model, torch.cat([extra_chan, spatial_b], dim=-1), latents, w0)
+
+
+class SirenFilmExtraIn(SirenFilm):
+    """``SIRENAutodecoder_film_extra_in``: the SIREN-FiLM decoder, its
+    ``in_coord_features`` counting the extra channel, called with a
+    ``(spatial_coords, extra_scalar)`` pair.  Its state-dict keys are the
+    plain decoder's."""
+
+    def forward(self, coords, latents: torch.Tensor) -> torch.Tensor:
+        return siren_film_extra_in_apply(self, coords, latents, self.w0)
+
+
+def _make_film(name: str, cls=SirenFilm) -> Callable[..., SirenFilm]:
     def factory(in_coord_features: int, in_latent_features: int,
                 out_features: int, num_hidden_layers: int,
                 hidden_features: int, w0: float = DEFAULT_W0,
                 **_ignored) -> SirenFilm:
-        return SirenFilm(in_coord_features, in_latent_features, out_features,
-                         num_hidden_layers, hidden_features, w0)
+        return cls(in_coord_features, in_latent_features, out_features,
+                   num_hidden_layers, hidden_features, w0)
     factory.__name__ = name
     return factory
 
 
-# The ``_extra_in`` variant of the JAX registry (a prepended scalar channel)
-# belongs to the NF-zoo slice of the port.
 NF_REGISTRY: dict[str, Callable[..., SirenFilm]] = {
     "SIRENAutodecoder_film": _make_film("SIRENAutodecoder_film"),
+    "SIRENAutodecoder_film_extra_in": _make_film("SIRENAutodecoder_film_extra_in",
+                                                 SirenFilmExtraIn),
 }
 
 

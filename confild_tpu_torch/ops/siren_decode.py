@@ -36,10 +36,12 @@ kernels: the autograd functions take the folded operands, and autograd
 chains ``dz`` back through :func:`film_table` and :func:`stack_weights`
 to the latents, ``net2`` and the biases, undoing the scale.
 
-The kernels take a hidden width that is a multiple of 64 up to 384 and at
-most 4 input and output features; a narrower hidden width is zero-padded
-to the next multiple of 64 (:func:`pad_hidden`), which is exact: a padded
-unit has zero weights, bias and FiLM column, so its pre-activation is 0,
+The kernels take a hidden width that is a multiple of 64 up to 512 (a
+block owns 64 pairs up to 384 and 32 above, ``csrc/siren_tc.cuh``) and at
+most 4 input and output features; any other hidden width up to 512 is
+zero-padded to the next multiple of 64 (:func:`pad_hidden`), which is
+exact: a padded unit has zero weights, bias and FiLM column, so its
+pre-activation is 0,
 ``sin2pi(0) = 0``, and the next layer's zero rows ignore it.
 
 Each kernel has a plain PyTorch version beside it that repeats its
@@ -76,7 +78,7 @@ LAUNCHES = {"siren_decode_forward": 0, "siren_decode_forward_bf16": 0, "siren_de
 # the forward's compute dtypes (the JAX kernel's ``compute_dtype``)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 # the tensor-core kernels' limits (csrc/siren_tc.cuh::shape_ok)
-MAX_HIDDEN, MAX_FEATURES = 384, 4
+MAX_HIDDEN, MAX_FEATURES = 512, 4
 
 # pairs per chunk of the training backward: its workspace holds every
 # pre-activation and dpre of a chunk, 2 * n_mod * BWD_PAIRS * H floats
@@ -257,11 +259,13 @@ def _bwd_library() -> ctypes.CDLL:
             ("siren_bwd_reduce", [p] * 3 + [ll, ll] + [i] * 5 + [p]),
             ("siren_bwd_sums", [p] * 5 + [ll] * 4 + [i] * 9 + [p]),
             ("siren_bwd_fold", [p, p, ll, i, p]),
-            ("siren_bwd_tile_pairs", []),
-            ("siren_dz_slots", [i]),
+            ("siren_bwd_tile_pairs", [i]),
+            ("siren_bwd_chain_smem", [i]),
+            ("siren_dz_slots", [i, i]),
             ("siren_decode_dz", [p] * 9 + [ll] + [i] * 8 + [p])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i
+    lib.siren_bwd_chain_smem.restype = ll
     return lib
 
 
@@ -389,7 +393,7 @@ def _chain_setup(lib, w_mid, pairs, stream, counter):
         _raise_on(lib.siren_bwd_split(_ptr(w_mid), _ptr(wsplit), h, n_mid, stream),
                   "siren_bwd_split launch")
         LAUNCHES[counter] += 1
-    tile = lib.siren_bwd_tile_pairs()
+    tile = lib.siren_bwd_tile_pairs(h)
     chunk = min(pairs, BWD_PAIRS)
     return wsplit, -(-chunk // tile) * tile, pair_chunks(pairs, chunk)
 
@@ -427,8 +431,8 @@ def _launch_dz(coords, z, g, w_first, w_mid, w_head) -> torch.Tensor:
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         wsplit, qa, chunks = _chain_setup(lib, w_mid, pairs, stream, "siren_decode_dz")
         r_ws = torch.empty((n_mod, qa, h), device=dev, dtype=torch.float32)
-        parts = torch.empty((qa // lib.siren_bwd_tile_pairs(), n_mod, lib.siren_dz_slots(m), h),
-                            device=dev, dtype=torch.float32)
+        parts = torch.empty((qa // lib.siren_bwd_tile_pairs(h), n_mod, lib.siren_dz_slots(m, h),
+                             h), device=dev, dtype=torch.float32)
         for p0, q in chunks:
             err = lib.siren_decode_dz(
                 _ptr(coords), _ptr(z), _ptr(g), _ptr(w_first), _ptr(wsplit), _ptr(w_head),

@@ -20,7 +20,10 @@ Training dynamics reproduced exactly (they carry load):
 On the card the decode is the fused train op (forward kernel; backward the
 training kernel, ``csrc/siren_decode_bwd.cu``); ``use_fused_decode: false``
 takes the plain ``siren_film_apply`` autograd path, as the JAX jnp path
-does.  Plain Python loops take the place of the JAX trainer's ``lax.scan``.
+does.  ``extra_siren_in`` (a parametric CNF: a scalar per sample prepended
+as a coordinate channel, ``SIRENAutodecoder_film_extra_in``) trains on the
+plain path too, as in the JAX trainer.  Plain Python loops take the place
+of the JAX trainer's ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from confild_tpu_torch.device import resolve_device
 from confild_tpu_torch.io import checkpoint as ckpt_io
 from confild_tpu_torch.io import convert
 from confild_tpu_torch.models import cnf as cnf_models
-from confild_tpu_torch.models.cnf import siren_film_apply
+from confild_tpu_torch.models.cnf import siren_film_apply, siren_film_extra_in_apply
 from confild_tpu_torch.ops.siren_decode import fused_siren_decode, fused_siren_decode_train
 from confild_tpu_torch.train.schedulers import cosine_decay_schedule
 from confild_tpu_torch.utils import logger as tlog
@@ -105,10 +108,18 @@ class CNFTrainer:
         self.hp = hp
         self.device = resolve_device(device if device is not None else hp.get("device"))
         self.save_path = hp.save_path
-        if hp.get("extra_siren_in") is not None:
-            raise NotImplementedError(
-                "extra_siren_in (the SIRENAutodecoder_film_extra_in NF) is not ported "
-                "yet (ROADMAP.md Queue 1, item 3: the _extra_in CNF)")
+        # extra scalar SIREN input (parametric CNF, reference :117-136): an
+        # int n is linspace(0, 1, n), a triple the linspace arguments, else
+        # the explicit values
+        self.extra_siren_in = None
+        spec = hp.get("extra_siren_in")
+        if spec is not None:
+            if isinstance(spec, int):
+                self.extra_siren_in = np.linspace(0, 1, spec, dtype=np.float32)
+            elif len(spec) == 3:
+                self.extra_siren_in = np.linspace(*spec, dtype=np.float32)
+            else:
+                self.extra_siren_in = np.asarray(spec, np.float32)
         if int(hp.get("multiGPU", 1) or 1) > 1:
             print(f"multiGPU: {hp.multiGPU} requested; the port trains on one card "
                   "(the multi-device slice, ROADMAP.md Queue 1, item 7, is still to come)")
@@ -121,8 +132,20 @@ class CNFTrainer:
                             or nf_spec["out_features"])
             assert out_features == fois.shape[-1], \
                 "NF out_features inconsistent with data shape"
-            self.spatio_shape = fois.shape[1:-1]
-            self.spatio_axis = list(range(1, fois.ndim - 1))
+            if self.extra_siren_in is not None:
+                # data layout (t, n_extra, *spatial, c): the first two axes
+                # flatten into the sample axis (reference basic_set :34-38)
+                self.n_extra = fois.shape[1]
+                if self.n_extra != len(self.extra_siren_in):
+                    raise ValueError(
+                        f"extra_siren_in has {len(self.extra_siren_in)} values but the data "
+                        f"has {self.n_extra} along its second axis")
+                self.spatio_shape = fois.shape[2:-1]
+                self.spatio_axis = list(range(1, fois.ndim - 2))
+                fois = fois.reshape(fois.shape[0] * self.n_extra, *fois.shape[2:])
+            else:
+                self.spatio_shape = fois.shape[1:-1]
+                self.spatio_axis = list(range(1, fois.ndim - 1))
             coords = self._load_coords(hp)
             self.train_coord = np.asarray(coords, np.float32)
             self.N_samples = fois.shape[0]
@@ -132,12 +155,17 @@ class CNFTrainer:
         # :169-217); the JAX package's .ckpt file is read first, as there
         self.in_normalizer = cnorm.Normalizer(**hp.normalizer)
         self.out_normalizer = cnorm.Normalizer(**hp.normalizer)
+        # the extra scalar's own normalizer, saved as extra_normalizer_params
+        self.extra_in_normalizer = (cnorm.Normalizer(**hp.normalizer)
+                                    if self.extra_siren_in is not None else None)
         for name in ("normalizer_params.ckpt", "normalizer_params.pt"):
             path = os.path.join(hp.save_path, name)
             if os.path.exists(path):
                 params = convert.load_normalizer_file(path)
                 self.in_normalizer.params = tuple(params["x_normalizer_params"])
                 self.out_normalizer.params = tuple(params["y_normalizer_params"])
+                if self.extra_in_normalizer is not None and "extra_normalizer_params" in params:
+                    self.extra_in_normalizer.params = tuple(params["extra_normalizer_params"])
                 break
         else:
             if infer_mode:
@@ -147,18 +175,33 @@ class CNFTrainer:
                         else fois.reshape(-1, *fois.shape[hp.dims + 1:]))
             self.in_normalizer.fit_normalize(coord_fit)
             self.out_normalizer.fit_normalize(fois_fit)
+            fitted = {"x_normalizer_params": self.in_normalizer,
+                      "y_normalizer_params": self.out_normalizer}
+            if self.extra_in_normalizer is not None:
+                self.extra_in_normalizer.fit_normalize(self.extra_siren_in.reshape(-1))
+                fitted["extra_normalizer_params"] = self.extra_in_normalizer
             ckpt_io.save(os.path.join(hp.save_path, "normalizer_params.pt"), {
-                "x_normalizer_params": tuple(torch.as_tensor(np.asarray(p))
-                                             for p in self.in_normalizer.get_params()),
-                "y_normalizer_params": tuple(torch.as_tensor(np.asarray(p))
-                                             for p in self.out_normalizer.get_params()),
-            })
+                key: tuple(torch.as_tensor(np.asarray(p)) for p in norm.get_params())
+                for key, norm in fitted.items()})
 
-        self.model = cnf_models.siren_film_from_recipe(hp).to(self.device)
+        if self.extra_siren_in is not None:
+            # the extra scalar is one more coordinate channel (reference
+            # :229-240)
+            nf_spec = hp.NF
+            self.model = cnf_models.create_nf(
+                nf_spec["name"], in_coord_features=hp.dims + 1,
+                in_latent_features=hp.hidden_size, out_features=nf_spec["out_features"],
+                num_hidden_layers=nf_spec["num_hidden_layers"],
+                hidden_features=nf_spec["hidden_features"]).to(self.device)
+        else:
+            self.model = cnf_models.siren_film_from_recipe(hp).to(self.device)
         self.w0 = self.model.w0
         nf_name = hp.NF["name"] if isinstance(hp.NF, dict) else hp.NF.get("name")
+        # the kernels take the plain FiLM decoder; the extra-input variant
+        # trains on the plain path, as in the JAX trainer
         self.use_fused_decode = (bool(hp.get("use_fused_decode", True))
-                                 and nf_name == "SIRENAutodecoder_film")
+                                 and nf_name == "SIRENAutodecoder_film"
+                                 and self.extra_siren_in is None)
 
         if not infer_mode:
             dev = self.device
@@ -170,6 +213,10 @@ class CNFTrainer:
             # targets (the loss over flat points equals the loss over the grid)
             self.flat_coords = self.normed_coords.reshape(-1, self.normed_coords.shape[-1])
             self.flat_fois = self.normed_fois.reshape(self.N_samples, -1, self.normed_fois.shape[-1])
+            if self.extra_in_normalizer is not None:
+                self.normed_extra = torch.as_tensor(np.asarray(
+                    self.extra_in_normalizer.normalize(self.extra_siren_in), np.float32),
+                    device=dev)
         self.state: CNFTrainState | None = None
         self._schedules_cache = None
 
@@ -265,7 +312,10 @@ class CNFTrainer:
             rows = rows + noise_std * torch.randn(
                 rows.shape, generator=_noise_generator(self.device, epoch, batch),
                 device=self.device)
-        if self.use_fused_decode:
+        if self.extra_siren_in is not None:
+            out = self._extra_in_decode(idx, rows)
+            target = self.normed_fois[idx]
+        elif self.use_fused_decode:
             out = fused_siren_decode_train(self.model, self.flat_coords, rows, self.w0)
             target = self.flat_fois[idx]
         else:
@@ -277,6 +327,15 @@ class CNFTrainer:
         if latent_l2:
             loss = loss + latent_l2 * torch.mean(rows_clean ** 2)
         return loss
+
+    def _extra_in_decode(self, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """The extra-input decode of samples ``idx``: sample ``i`` is
+        trajectory ``i // n_extra`` at extra value ``i % n_extra``
+        (reference basic_set :34-38)."""
+        ex = self.normed_extra[idx % self.n_extra].reshape(
+            (idx.shape[0],) + (1,) * (len(self.spatio_shape) + 1))
+        return siren_film_extra_in_apply(self.model, (self.normed_coords, ex),
+                                         self.expand_latents(rows), self.w0)
 
     def _apply_nf_step(self) -> None:
         """The once-per-epoch decoder step on the summed gradients; a
@@ -365,7 +424,10 @@ class CNFTrainer:
         for lo in range(0, n, eval_bs):
             idx = torch.arange(lo, min(lo + eval_bs, n), device=self.device)
             rows = self.state.latents[idx]
-            if self.use_fused_decode:
+            if self.extra_siren_in is not None:
+                pred = self._extra_in_decode(idx, rows)
+                err = criteria(denorm(pred), denorm(self.normed_fois[idx]), self.spatio_axis)
+            elif self.use_fused_decode:
                 pred = fused_siren_decode(self.model, self.flat_coords, rows, self.w0)
                 err = criteria(denorm(pred), denorm(self.flat_fois[idx]), (1,))
             else:

@@ -21,7 +21,12 @@ Reproduced semantics:
   use), with no loss scaling, as the JAX loop does;
 * ``model/ema_{rate}/opt{step:06d}.pt`` triplets, filename-based resume
   (from the port's ``.pt`` triplet or the JAX package's ``.ckpt`` one), the
-  ``DIFFUSION_TRAINING_TEST`` early exit.
+  ``DIFFUSION_TRAINING_TEST`` early exit;
+* ``steps_per_call`` steps a call (:meth:`TrainLoop.run_steps`: the JAX
+  loop's multi-step scan, here a Python loop of steps) logged as the mean
+  of each metric's finite values over the call, and ``device_data``: a
+  training array resident on the device, each step's batch gathered there
+  with indices drawn on the device (no host-to-device batch copies).
 
 The random draws (``t``, the importance weights, the noise) are kept apart
 from the step arithmetic: :meth:`TrainLoop.train_step` and
@@ -69,11 +74,8 @@ class TrainLoop:
                  save_dir: str | None = None, mesh=None, seed: int = 42,
                  steps_per_call: int = 1, keep_checkpoints: int = 0, device_data=None,
                  device=None):
-        if int(steps_per_call) > 1 or device_data is not None:
-            raise NotImplementedError(
-                "steps_per_call > 1 and device_data (the JAX package's multi-step scan "
-                "and device-resident dataset) are not ported yet (ROADMAP.md Queue 1, "
-                "item 5)")
+        if device_data is not None and valid_data is not None:
+            raise ValueError("device_data does not support valid_data")
         if mesh is not None:
             raise NotImplementedError(
                 "data-parallel training over a mesh is not ported yet (ROADMAP.md "
@@ -99,6 +101,15 @@ class TrainLoop:
         # tables live there), the noise on the device
         self.generator = torch.Generator().manual_seed(seed)
         self.noise_generator = torch.Generator(self.device).manual_seed(seed + 1)
+        # several steps a call; 1 keeps one step per run_loop iteration
+        self.steps_per_call = max(int(steps_per_call), 1)
+        # a device-resident training array (n, C, H, W); each step gathers
+        # batch_size rows with indices drawn by its own device generator
+        self.device_data = None
+        if device_data is not None:
+            self.device_data = torch.as_tensor(np.asarray(device_data, np.float32),
+                                               device=self.device)
+            self.index_generator = torch.Generator(self.device).manual_seed(seed + 2)
 
         self.params = list(self.model.parameters())
         self.opt = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
@@ -217,14 +228,43 @@ class TrainLoop:
                             device=self.device, dtype=batch.dtype)
         return t, weights, noise
 
-    def run_step(self, batch) -> None:
-        logger = tlog.get_current()
+    def device_batch(self) -> torch.Tensor:
+        """``batch_size`` rows of ``device_data`` at indices drawn on the
+        device (with replacement, as the JAX loop's ``randint``)."""
+        idx = torch.randint(0, self.device_data.shape[0], (self.batch_size,),
+                            generator=self.index_generator, device=self.device)
+        return self.device_data[idx]
+
+    def _step(self, batch) -> dict:
+        """One training step on ``batch`` and, with ``valid_data``, the
+        validation forward on its next batch; returns the step's metrics."""
         batch = torch.as_tensor(batch, device=self.device)
         metrics = self.train_step(batch, *self._draws(batch))
         if self.valid_data is not None:
-            vbatch, _ = next(self.valid_data)
-            vbatch = torch.as_tensor(vbatch, device=self.device)
+            vbatch = torch.as_tensor(next(self.valid_data)[0], device=self.device)
             metrics["valid_mse"] = self.valid_step(vbatch, *self._draws(vbatch))
+        return metrics
+
+    def run_steps(self, k: int) -> None:
+        """``k`` steps, logged once as the mean of each metric's finite
+        values over them (``confild_tpu/train/diffusion_trainer.py:
+        369-405``).  With ``device_data`` each step gathers its batch on
+        the device; otherwise each takes the next batch of ``data`` (and
+        of ``valid_data``, for its validation forward)."""
+        all_metrics = [self._step(self.device_batch() if self.device_data is not None
+                                  else next(self.data)[0]) for _ in range(k)]
+        logger = tlog.get_current()
+        logger.logkv("step", self.step)
+        logger.logkv("samples", self.step * self.batch_size)
+        for name in all_metrics[0]:
+            vals = np.asarray([m[name] for m in all_metrics], np.float64)
+            finite = vals[np.isfinite(vals)]
+            if finite.size:
+                logger.logkv_mean(name, float(finite.mean()))
+
+    def run_step(self, batch) -> None:
+        metrics = self._step(batch)
+        logger = tlog.get_current()
         logger.logkv("step", self.step)
         logger.logkv("samples", (self.step + 1) * self.batch_size)
         for k, v in metrics.items():
@@ -234,17 +274,22 @@ class TrainLoop:
     # -- loop -------------------------------------------------------------------
 
     def run_loop(self) -> None:
-        """Step until ``lr_anneal_steps`` total steps (forever when 0),
+        """Step until ``lr_anneal_steps`` total steps (forever when 0; with
+        ``steps_per_call`` k a call may pass it by up to k - 1 steps),
         logging every ``log_interval`` and saving every ``save_interval``
         steps and at the end (``confild_tpu/train/diffusion_trainer.py:
         346-367``)."""
         logger = tlog.get_current()
+        k = self.steps_per_call
         while not self.lr_anneal_steps or self.step < self.lr_anneal_steps:
-            batch, _cond = next(self.data)
-            self.run_step(batch)
-            if self.step % self.log_interval == 0:
+            if k > 1 or self.device_data is not None:
+                self.run_steps(k)
+            else:
+                batch, _cond = next(self.data)
+                self.run_step(batch)
+            if self.step % self.log_interval < k:
                 logger.dumpkvs()
-            if self.step % self.save_interval == 0 and self.step >= self.save_interval:
+            if self.step % self.save_interval < k and self.step >= self.save_interval:
                 self.save()
                 if os.environ.get("DIFFUSION_TRAINING_TEST", ""):
                     return

@@ -4,7 +4,8 @@
 training backward's chain (``csrc/siren_tc.cuh::chain_body``) in its dz
 mode: every hidden-by-hidden product of the forward recompute and of the dx
 chain is a 3xTF32 tensor-core product summed as zeroed partials per 16 of
-k; after each layer a block of ``CP`` = 64 pairs sums ``dpre_l`` over
+k; after each layer a block of ``CP`` = 64 pairs (32 above H = 384,
+``tests/test_torch_siren_wide.py``) sums ``dpre_l`` over
 its pairs in pair order, one float32 sum per latent row it touches (a
 slot), and a fold adds each row's block sums in block order, chunk after
 chunk of ``BWD_PAIRS`` pairs.  That arithmetic is emulated here on
@@ -34,7 +35,7 @@ from test_torch_siren_bwd import _bwd_f64, _chain_mm, _dsin, _np, _seq_sum, _sin
 from test_torch_siren_fwd import WIDTHS
 from torch_parity_utils import jax_siren, limit_torch_threads, t
 
-# pairs a chain block owns (csrc/siren_tc.cuh::CP)
+# pairs a chain block owns up to H = 384 (csrc/siren_tc.cuh::block_pairs)
 CP = 64
 # 3 rows of 100 points in chunks of 192 pairs: blocks of 64 cut rows 0 and 1
 # (at pairs 100 and 200), and the chunk boundary at 192 cuts row 1

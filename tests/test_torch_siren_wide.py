@@ -1,0 +1,119 @@
+"""The SIREN-FiLM kernels' widths above 384, and the demo CNF's, on the CPU.
+
+The CUDA kernels take a hidden width up to 512; above 384 a block owns 32
+pairs instead of 64 (``csrc/siren_tc.cuh::block_pairs``), so that the
+accumulators stay in registers and the two K-slice stages fit the shared
+memory of a block.  Here (the width limits are
+``test_torch_siren_fwd.py::test_kernel_width_limits``): the plain
+versions (what a CPU tensor takes) at H = 448 and 512, and at the
+turbulence demo's CNF widths (2 coordinates and outputs), against the JAX
+package's Pallas kernels in interpret mode (forward rtol 1e-5, dz and the
+training backward rtol 1e-4, the tolerances of
+``tests/test_torch_siren_fwd.py``, ``test_torch_siren_dz.py`` and
+``test_torch_train.py``, the backward's absolute floor scaled to each
+leaf's magnitude); and the dz kernel's row slots and fold cover every pair
+once with 32-pair blocks.  The kernels themselves run on the card
+(``chip_smoke.py`` phases 16a and 16c).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import test_torch_siren_dz as dz_maps
+from confild_tpu.ops import siren_decode as jsd
+from confild_tpu_torch.io.convert import cnf_state_dict_from_jax
+from confild_tpu_torch.ops import siren_decode as tsd
+from torch_parity_utils import jax_siren, limit_torch_threads, t
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _threads():
+    limit_torch_threads()
+
+
+# (c_in, latent, c_out, middle layers, hidden, rows, points): the two wide
+# widths, and the turbulence demo CNF's at its f4 widths (7 modulated layers
+# of 384) and under --fast (5 of 128), with 2 coordinates and 2 outputs
+WIDE = {"448": (3, 16, 3, 2, 448, 3, 200), "512": (2, 16, 2, 1, 512, 2, 150),
+        "demo-f4": (2, 16, 2, 6, 384, 2, 150), "demo-fast": (2, 16, 2, 4, 128, 3, 200)}
+
+
+def _wide(name, seed=0):
+    c_in, latent, c_out, layers, hidden, rows, points = WIDE[name]
+    params, model = jax_siren(c_in=c_in, latent=latent, c_out=c_out, layers=layers,
+                              hidden=hidden, seed=seed)
+    rng = np.random.default_rng(seed + 10)
+    coords = rng.uniform(-1, 1, (points, c_in)).astype(np.float32)
+    latents = (0.1 * rng.standard_normal((rows, latent))).astype(np.float32)
+    g = rng.standard_normal((rows, points, c_out)).astype(np.float32)
+    return params, model, coords, latents, g
+
+
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_forward_plain_matches_pallas_interpret(name):
+    params, model, coords, latents, _ = _wide(name)
+    pallas = np.asarray(jsd._fused_forward(params, jnp.asarray(coords), jnp.asarray(latents),
+                                           30.0, 2, 128, True, jnp.float32))
+    with torch.no_grad():
+        ours = tsd.fused_siren_decode(model, t(coords), t(latents)).numpy()
+    assert ours.shape == pallas.shape
+    np.testing.assert_allclose(ours, pallas, rtol=1e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_dz_plain_matches_pallas_interpret(name):
+    params, model, coords, latents, g = _wide(name, seed=1)
+    pallas = np.asarray(jsd.fused_siren_decode_dz(params, coords, latents, g, 30.0, 8, 128,
+                                                  True))
+    ours = tsd.fused_siren_decode_dz(model, t(coords), t(latents), t(g)).numpy()
+    assert ours.shape == pallas.shape == (latents.shape[0], latents.shape[1])
+    np.testing.assert_allclose(ours, pallas, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_bwd_plain_matches_pallas_interpret(name):
+    params, model, coords, latents, g = _wide(name, seed=2)
+    jdp, jdl = jsd.fused_siren_decode_bwd(params, coords, latents, g, 30.0, 8, 128, True)
+    grads, dlatents = tsd.fused_siren_decode_bwd(model, t(coords), t(latents), t(g))
+    want = cnf_state_dict_from_jax(jax.tree.map(np.asarray, jdp))
+    assert set(grads) == set(want)
+    for k in want:
+        # f32 sums over the pairs in another order: at these widths a leaf
+        # reaches some 700 (dW_head), so the absolute floor is 1e-6 of each
+        # leaf's largest magnitude (the floor of the kernels' criterion)
+        w = want[k].numpy()
+        np.testing.assert_allclose(grads[k].numpy(), w, rtol=1e-4,
+                                   atol=max(1e-5, 1e-6 * np.abs(w).max()), err_msg=k)
+    np.testing.assert_allclose(dlatents.numpy(), np.asarray(jdl), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,rows,chunk", [
+    (10, 50, 448), (31, 20, 448), (64, 20, 448), (1000, 3, 448), (1024, 3, 640),
+    (10, 384, tsd.BWD_PAIRS), (4096, 64, tsd.BWD_PAIRS),
+])
+def test_slots_and_fold_cover_every_pair_once_with_32_pair_blocks(monkeypatch, m, rows,
+                                                                 chunk):
+    """The dz kernel's index maps at the wide widths' block of 32 pairs:
+    every (row, point) pair in exactly one block slot of its own row, and
+    every row's slots folded once; a block needs at most ``dz_slots``."""
+    monkeypatch.setattr(dz_maps, "CP", 32)
+    pairs = rows * m
+    seen = np.zeros(pairs, np.int64)
+    for p0, q in tsd.pair_chunks(pairs, chunk):
+        blocks = dz_maps._block_slots(p0, q, m)
+        assert len(blocks) == -(-q // 32)
+        for b, slots in zip(range(0, q, 32), blocks):
+            assert slots[-1] + 1 <= dz_maps._dz_slots(m)
+            pair = p0 + b + np.arange(len(slots))
+            np.testing.assert_array_equal(pair // m - (p0 + b) // m, slots)
+        for row, sources in dz_maps._fold_sources(p0, q, m).items():
+            for bk, slot in sources:
+                slots = blocks[bk]
+                hit = p0 + bk * 32 + np.flatnonzero(slots == slot)
+                assert np.all(hit // m == row) and hit.size
+                seen[hit] += 1
+    assert np.all(seen == 1)
+    assert dz_maps._dz_slots(10) == 5 and dz_maps._dz_slots(64) == 2

@@ -464,8 +464,10 @@ def test_unported_options_raise(tmp_path, capsys):
     hp = _port_case(tmp_path, epochs=1, multiGPU=2)
     TTrainer(hp)
     assert "ROADMAP.md Queue 1, item 7" in capsys.readouterr().out
+    # extra_siren_in is ported (tests/test_torch_extra_in.py); a count of
+    # extra values that the data's second axis does not hold is refused
     hp = _port_case(tmp_path, epochs=1, extra_siren_in=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="extra_siren_in"):
         TTrainer(hp)
     # TensorBoard logging is ported now (the diffusion CLI asks for it): it
     # writes scalars, or nothing where the tensorboard package is missing
