@@ -189,7 +189,23 @@ Phases, each fatal on failure:
     each stage's wall, the CNF batch step,
     the diffusion step, peak memory, the metrics; every gate finite; the
     SIREN forward and training-backward launches of the CNF stage counted
-    (zeroed before each run, read after).
+    (zeroed before each run, read after);
+    (d) the demo's held-out DPS experiment and quality report against (c)'s
+    f4-width run directory: ``examples.demo_conditional.main`` cut to 2
+    held-out trajectories, 2 members, 20 steps, scale 1.0 and the sensor
+    sweep at 16 and 1000, without the prior check, whose oracle fit (200
+    steps, not the script's 4000) and one round trip then run alone on a
+    held-out trajectory; ``examples.demo_report.main`` with 4 members of 10
+    steps; at the sweep's 1000-sensor batch (4 members x 64 rows x 1000
+    points, over ``FUSED_MIN_PAIRS``) the DPS gradient on the fused route
+    (SIREN forward + dz kernels) and the plain route: d misfit / d x0_hat
+    against float64 under phase 4's criterion, and one guided step's
+    gradient through the bf16 U-Net within phase 6's 1e-3; the sweep's two
+    budgets alone with the counts zeroed before each (the forward and dz
+    kernels launch at 1000 sensors, nothing at 16); each stage's wall, ms
+    per guided step at 16 and 1000 sensors, the oracle fit's ms a step and
+    peak memory, each JSON's pooled numbers, all finite, with the JAX
+    scripts' keys; the launches of both ``main`` runs counted.
 
 The script imports nothing of JAX or of ``confild_tpu``.  With no CUDA
 device it exits non-zero and prints no result.  The last line is
@@ -219,9 +235,11 @@ from confild_tpu_torch import config as cfgmod
 from confild_tpu_torch.analysis import metrics
 from confild_tpu_torch.cli import (eval_cnf, integral_timescale, sample, sample_conditional,
                                    train_cnf, train_diffusion)
+from confild_tpu_torch.core.normalize import Normalizer
+from confild_tpu_torch.core.packing import minmax_to_unit_interval, unit_interval_to_minmax
 from confild_tpu_torch.diffusion import create_gaussian_diffusion
 from confild_tpu_torch.device import resolve_device, synchronize
-from confild_tpu_torch.examples import demo_turbulence
+from confild_tpu_torch.examples import demo_conditional, demo_report, demo_turbulence
 from confild_tpu_torch.guidance import (create_sampler, get_conditioning_method,
                                         get_noise, get_operator)
 from confild_tpu_torch.guidance.operators import FUSED_MIN_PAIRS
@@ -2261,6 +2279,220 @@ def phase_demo(root, device) -> dict:
     return counts
 
 
+# the keys of the JAX scripts' reports (examples/demo_conditional.py:656-690,
+# examples/demo_report.py:334-351); the port's add "device"
+COND_KEYS = {"run_dir", "protocol", "per_trajectory", "sensor_rmae_pooled",
+             "sigma3_coverage_pooled", "field_rmae_held_out", "field_rmae_per_member_held_out",
+             "field_rmae_pooled_incl_validation", "field_rmae_unconditional_control",
+             "conditioning_gain", "sensor_sweep", "prior_coverage", "in_distribution_control",
+             "spectra_relative_error", "integral_timescale_truth",
+             "integral_timescale_conditional", "timescale_ratio", "wall_clock_s"}
+REPORT_KEYS = {"run_dir", "cnf_rmae", "cnf_recon_spectra_error", "spectra_relative_error",
+               "integral_timescale_real", "integral_timescale_generated", "timescale_ratio",
+               "spectra_error_ci95", "timescale_ratio_ci95", "velocity_pdf_js_divergence",
+               "two_point_correlation_error", "bootstrap_resamples", "n_gen", "sample_steps"}
+# phase 16d's cut of the conditional protocol, and the oracle fit's steps
+# when called alone (the script's 4000 a trajectory take minutes)
+DEMO_COND_CUT = ["--n-held", "2", "--n-ens", "2", "--steps", "20", "--scales", "1.0",
+                 "--sensor-sweep", "16,1000", "--no-prior-check"]
+ORACLE_FIT_STEPS = 200
+
+
+def f64_misfit_grad(assets, coords, yn_params, y, x0):
+    """d(sum of the members' ||y - A(x0)||) / dx0 with the CNF operator's
+    arithmetic in float64 (the plain decode of a float64 copy of the
+    decoder)."""
+    tr, dev = assets.tr, assets.device
+    m64 = _double(tr.model)
+    xn = tr.in_normalizer.to(dev).normalize(torch.as_tensor(coords, device=dev)).double()
+    y_norm = Normalizer(tuple(torch.as_tensor(p, dtype=torch.float64, device=dev)
+                              for p in yn_params), tr.out_normalizer.method,
+                        tr.out_normalizer.dim)
+    x = x0.double().requires_grad_(True)
+    rows = unit_interval_to_minmax(x, assets.mx, assets.mn).reshape(-1, x.shape[-1])
+    fields = y_norm.denormalize(siren_film_apply(m64, xn, rows[:, None, :], m64.w0))
+    b = x.shape[0]
+    misfit = torch.linalg.vector_norm(y.double().reshape(1, -1) - fields.reshape(b, -1), dim=1)
+    return torch.autograd.grad(misfit.sum(), x)[0]
+
+
+def demo_guidance_check(assets, truth, idx, device) -> None:
+    """Phase 16d (c): the DPS gradient at the sensor sweep's 1000-sensor
+    batch (4 members x 64 rows x 1000 points) on the fused route (SIREN
+    forward + dz kernels) and on the plain route, from the same inputs.
+    The operator's gradient d misfit / d x0_hat on both routes against
+    float64 under phase 4's criterion (max |err| of the kernels <= 2 x the
+    plain route's, with phase 7's floor of 1e-6 x max |f64|; relative L2
+    error <= 2 x the plain route's + 1e-6); then one
+    guided step's gradient with respect to x_prev through the bf16 U-Net,
+    fused against plain within GRAD_REL_TOL (phase 6's).  The fused route
+    must launch the forward and dz kernels, the plain route neither."""
+    n_ens, T, L = 4, assets.n_snap, assets.latent
+    coords = assets.full_coords[idx]
+    yn = demo_conditional.ynorm_sliced(assets.tr.out_normalizer, idx)
+    y = torch.as_tensor(truth[:, idx, :], device=device)
+    sampler = create_sampler(steps=1000, noise_schedule="cosine", timestep_respacing="20")
+    gen = torch.Generator(device=device).manual_seed(16)
+    x_prev = 0.5 * torch.randn((n_ens, 1, T, L), generator=gen, device=device)
+    noise = torch.randn((n_ens, 1, T, L), generator=gen, device=device)
+    # a late step: at the first steps x0_hat is clamped nearly everywhere
+    t = torch.full((n_ens,), 1, dtype=torch.long)
+    with torch.no_grad():
+        x0 = sampler.diffusion.p_sample(assets.unet, x_prev, t, noise=noise)["pred_xstart"]
+    x0 = x0.float()
+    op_grads, step_grads = {}, {}
+    for use_pallas in (True, False):
+        method = demo_conditional.dps_method(assets, coords, yn, use_pallas=use_pallas)
+        sd.reset_launch_counts()
+        x = x0.clone().requires_grad_(True)
+        op_grads[use_pallas] = torch.autograd.grad(method.misfit(x, y).sum(), x)[0]
+        x = x_prev.clone().requires_grad_(True)
+        out = sampler.diffusion.p_sample(assets.unet, x, t, noise=noise)
+        step_grads[use_pallas] = torch.autograd.grad(
+            method.misfit(out["pred_xstart"], y).sum(), x)[0]
+        torch.cuda.synchronize()
+        counts = dict(sd.LAUNCHES)
+        launched = counts["siren_decode_forward"] > 0 and counts["siren_decode_dz"] > 0
+        log(f"[demo-cond] guidance gradient at {n_ens}x{T} rows x {len(idx)} points, "
+            f"use_pallas={use_pallas}: launches {counts}")
+        if launched != use_pallas or (not use_pallas and any(counts.values())):
+            raise SystemExit(f"the {'fused' if use_pallas else 'plain'} DPS route launched "
+                             f"{counts}")
+    truth64 = f64_misfit_grad(assets, coords, yn, y, x0)
+    err = {k: (g.double() - truth64).abs().max().item() for k, g in op_grads.items()}
+    rel = {k: ((g.double() - truth64).norm() / truth64.norm()).item()
+           for k, g in op_grads.items()}
+    # phase 7's floor, 1e-6 of the largest float64 entry, keeps the
+    # max-abs limit meaningful at any gradient scale
+    limit = 2 * err[False] + 1e-6 * truth64.abs().max().item()
+    rel_limit = 2 * rel[False] + 1e-6
+    a, b = step_grads[True], step_grads[False]
+    step_rel = ((a - b).norm() / b.norm()).item()
+    ok = (err[True] <= limit and rel[True] <= rel_limit and step_rel <= GRAD_REL_TOL
+          and torch.isfinite(a).all().item() and b.norm().item() > 0)
+    log(f"[demo-cond] d misfit / d x0_hat, kernels vs float64: max |err| {err[True]:.3e} "
+        f"(plain {err[False]:.3e}, error / limit {err[True] / limit:.3f}), rel L2 "
+        f"{rel[True]:.3e} (plain {rel[False]:.3e}, / limit {rel[True] / rel_limit:.3f}), max "
+        f"|f64| {truth64.abs().max().item():.3e}; guided step's grad wrt x_prev through the "
+        f"bf16 U-Net, kernels vs plain: rel L2 {step_rel:.3e} (tol {GRAD_REL_TOL}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the fused DPS route's gradient fails its criterion against float64 "
+                         "or the plain route")
+
+
+def _finite(values) -> bool:
+    return bool(np.all(np.isfinite(np.asarray(values, dtype=np.float64))))
+
+
+def phase_demo_conditional(root, device) -> dict:
+    """Phase 16d: ``demo_conditional`` and ``demo_report`` against phase
+    16c's f4-width run directory.  (a) ``demo_conditional.main`` on 2
+    held-out trajectories, 2 members, 20 steps, scale 1.0, the sweep at 16
+    and 1000 sensors, without the prior check, whose stages then run
+    alone on trajectory 0: the oracle fit for ``ORACLE_FIT_STEPS`` steps
+    (ms a step, peak memory) and one round trip at t* = 15 of 20;
+    (b) ``demo_report.main`` with 4 members of 10 steps; (c) the guidance
+    gradient check (``demo_guidance_check``); (d) the sweep's two budgets
+    again with the counts zeroed before each: the forward and dz kernels
+    launch at 1000 sensors and not at 16; ms per guided step at each;
+    every stage's wall and each JSON's pooled numbers, all finite, and
+    the JAX scripts' keys.  Returns the launch counts of (a) and (b)."""
+    run = os.path.join(root, "demo_f4")
+    counts = dict.fromkeys(sd.LAUNCHES, 0)
+    sd.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = demo_conditional.main(DEMO_COND_CUT + ["--out", run])
+    synchronize(device)
+    cond_s = time.perf_counter() - t0
+    for k, v in sd.LAUNCHES.items():
+        counts[k] += v
+    if not (counts["siren_decode_forward"] > 0 and counts["siren_decode_dz"] > 0):
+        raise SystemExit(f"demo_conditional's 1000-sensor sweep launched {counts}")
+    timing = rep["device"]["timing"]
+    log(f"[demo-cond] demo_conditional.main {' '.join(DEMO_COND_CUT)}: {cond_s:.1f} s, stages "
+        f"(s) { {k: round(v, 2) for k, v in timing['stage_s'].items()} }, ms per guided step "
+        f"{ {k: round(v, 1) for k, v in timing['guided_step_ms'].items()} }, unguided "
+        f"{timing['unconditional_step_ms']:.1f}, peak {timing['peak_gib']:.2f} GiB, SIREN "
+        f"launches {counts}")
+    pooled = {k: rep[k] for k in ("sensor_rmae_pooled", "sigma3_coverage_pooled",
+                                  "field_rmae_held_out", "field_rmae_per_member_held_out",
+                                  "field_rmae_unconditional_control", "conditioning_gain",
+                                  "spectra_relative_error", "timescale_ratio")}
+    log("[demo-cond] pooled: " + json.dumps(pooled))
+    log("[demo-cond] sweep: " + json.dumps(rep["sensor_sweep"]))
+    numbers = list(pooled.values()) + [v for r in rep["sensor_sweep"] for v in r.values()]
+    if not (_finite(numbers) and COND_KEYS | {"device"} == set(rep)):
+        raise SystemExit("demo_conditional: non-finite numbers or other keys than the JAX "
+                         "script's")
+
+    assets = demo_conditional.load_assets(run, device)
+    held = demo_turbulence.simulate_turbulence(
+        assets.grid, assets.n_snap, 1, seed=777, **demo_turbulence.FLOW_PRESETS[assets.flow])
+    truth = held.reshape(assets.n_snap, -1, 2)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    z, loss_end, loss_mid = demo_conditional.fit_oracle(assets, truth, ORACLE_FIT_STEPS)
+    synchronize(device)
+    fit_ms = (time.perf_counter() - t0) * 1e3 / ORACLE_FIT_STEPS
+    fit_gib = torch.cuda.max_memory_allocated() / 2**30
+    x0 = torch.as_tensor(minmax_to_unit_interval(
+        z.cpu().numpy(), assets.mx, assets.mn), device=device)[None, None]
+    diffusion = create_gaussian_diffusion(steps=1000, noise_schedule="cosine",
+                                          timestep_respacing="20")
+    t0 = time.perf_counter()
+    img = demo_conditional.roundtrip(assets, diffusion, x0, 15,
+                                     torch.Generator(device).manual_seed(50))
+    synchronize(device)
+    rt_s = time.perf_counter() - t0
+    rt_rel = ((img - x0).norm() / x0.norm()).item()
+    log(f"[demo-cond] oracle fit alone on trajectory 0 ({assets.n_snap} rows x "
+        f"{assets.grid ** 2} points, {ORACLE_FIT_STEPS} steps, not the script's "
+        f"{demo_conditional.N_FIT}): {fit_ms:.2f} ms a step, peak {fit_gib:.2f} GiB, loss at "
+        f"step {ORACLE_FIT_STEPS // 2} {loss_mid:.4e}, at the end {loss_end:.4e}; round trip "
+        f"to t* = 15 of 20 and back {rt_s:.2f} s, latent rel L2 {rt_rel:.3f}")
+    if not _finite([fit_ms, loss_end, loss_mid, rt_rel]):
+        raise SystemExit("oracle fit or round trip not finite")
+
+    sd.reset_launch_counts()
+    t0 = time.perf_counter()
+    rrep = demo_report.main(["--out", run, "--n-gen", "4", "--sample-steps", "10"])
+    synchronize(device)
+    report_s = time.perf_counter() - t0
+    for k, v in sd.LAUNCHES.items():
+        counts[k] += v
+    scalars = {k: v for k, v in rrep.items() if k not in ("run_dir", "device")}
+    log(f"[demo-report] demo_report.main --n-gen 4 --sample-steps 10: {report_s:.1f} s, stages "
+        f"(s) { {k: round(v, 2) for k, v in rrep['device']['timing']['stage_s'].items()} }, "
+        f"{rrep['device']['timing']['sample_step_ms']:.1f} ms a sampling step; "
+        + json.dumps(scalars))
+    numbers = (rrep["cnf_rmae"] + rrep["spectra_error_ci95"] + rrep["timescale_ratio_ci95"]
+               + list(rrep["velocity_pdf_js_divergence"].values())
+               + [rrep[k] for k in ("spectra_relative_error", "timescale_ratio",
+                                    "two_point_correlation_error")])
+    if not (_finite(numbers) and REPORT_KEYS | {"device"} == set(rrep)):
+        raise SystemExit("demo_report: non-finite numbers or other keys than the JAX "
+                         "script's")
+
+    idx16, idx1000 = demo_conditional.sweep_indices(assets.grid, (16, 1000), 777)
+    demo_guidance_check(assets, truth, idx1000, device)
+    for idx in (idx16, idx1000):
+        sd.reset_launch_counts()
+        row, ms = demo_conditional.sweep_sensors(assets, truth, idx, "ps", 1.0, 20, 316)
+        synchronize(device)
+        run_counts = dict(sd.LAUNCHES)
+        fused = len(idx) * 4 * assets.n_snap > FUSED_MIN_PAIRS
+        log(f"[demo-cond] sweep alone at {len(idx)} sensors (4 x {assets.n_snap} rows, "
+            f"{'fused' if fused else 'plain'} route): {ms:.1f} ms a guided step, launches "
+            f"{run_counts}, field rMAE {row['field_rmae']:.4f}")
+        launched = run_counts["siren_decode_forward"] > 0 and run_counts["siren_decode_dz"] > 0
+        if launched != fused or (not fused and any(run_counts.values())):
+            raise SystemExit(f"the sweep at {len(idx)} sensors launched {run_counts}")
+    del assets
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2317,6 +2549,9 @@ def main() -> int:
         for k, v in phase_demo(root, device).items():
             launches[k] += v
         stamp("phase 16c (the turbulence demo)")
+        for k, v in phase_demo_conditional(root, device).items():
+            launches[k] += v
+        stamp("phase 16d (the demo's DPS experiment and report)")
     launches.update(flash_launches)
 
     kernels = []

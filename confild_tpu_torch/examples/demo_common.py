@@ -2,7 +2,8 @@
 of ``examples/demo_common.py``.
 
 The stage-2 U-Net must be built identically by whatever trains it and
-whatever loads its checkpoints, or the checkpoints fail to load (or, worse,
+whatever loads its checkpoints (the demo itself, ``demo_conditional`` and
+``demo_report``), or the checkpoints fail to load (or, worse,
 load into another structure): ``attention_resolutions`` entries are divided
 into the image size to obtain downsample factors, so the entry is derived
 from the image size, keeping attention at the deepest levels the channel
@@ -15,9 +16,13 @@ from __future__ import annotations
 import glob
 import json
 import os
+import time
 
 import numpy as np
+import torch
 
+from confild_tpu_torch.device import synchronize
+from confild_tpu_torch.io.convert import load_unet_state_dict
 from confild_tpu_torch.models import unet as tunet
 
 
@@ -96,3 +101,58 @@ def load_demo_unet(dckpt_dir: str, n_snap: int, latent: int):
         kw = {k: v for k, v in cfg.items() if k not in ("n_snap", "latent")}
         return build_demo_unet(n_snap, latent, **kw)
     return build_demo_unet(n_snap, latent)
+
+
+def read_run_config(out_dir: str) -> dict:
+    """The ``config`` block of a demo run directory's ``demo_metrics.json``.
+    Only the run directory's own file is read: another run's metrics would
+    describe another configuration."""
+    path = os.path.join(out_dir, "demo_metrics.json")
+    if not os.path.exists(path):
+        raise SystemExit(f"{path} missing — this run dir's pipeline has not completed "
+                         "(rerun demo_turbulence for this out dir)")
+    with open(path) as f:
+        return json.load(f)["config"]
+
+
+def latent_scale(out_dir: str, latents: np.ndarray) -> tuple[float, float]:
+    """The latent-image scale ``(max, min)`` the diffusion stage persisted in
+    ``dckpt/`` (sigma-based under ``--scale-sigmas``), else the latent
+    table's own min-max."""
+    try:
+        return (float(np.load(os.path.join(out_dir, "dckpt", "data_max.npy"))),
+                float(np.load(os.path.join(out_dir, "dckpt", "data_min.npy"))))
+    except FileNotFoundError:
+        return float(latents.max()), float(latents.min())
+
+
+def load_demo_ema(out_dir: str, n_snap: int, latent: int, device):
+    """The demo U-Net of ``unet.json`` carrying the newest EMA checkpoint
+    of ``dckpt/`` (the port's ``.pt`` or the JAX package's ``.ckpt``), on
+    ``device`` for sampling: eval mode, no parameter gradients, the bf16
+    torso pre-cast."""
+    dckpt = os.path.join(out_dir, "dckpt")
+    emas = sorted(glob.glob(os.path.join(dckpt, "ema_*.pt"))
+                  + glob.glob(os.path.join(dckpt, "ema_*.ckpt")))
+    if not emas:
+        raise FileNotFoundError(f"no EMA checkpoint under {dckpt} — stage 2 (diffusion "
+                                "training) has not completed")
+    model = load_demo_unet(dckpt, n_snap, latent)
+    model.load_state_dict(load_unet_state_dict(emas[-1], model))
+    return model.to(device).eval().requires_grad_(False).cast_torso_params()
+
+
+def clock(device) -> float:
+    """The host clock after the card's queued work is done."""
+    synchronize(device)
+    return time.perf_counter()
+
+
+def device_entry(device, **timing) -> dict:
+    """What ran the script, for its report: the card's name and count (or
+    the CPU), and the timings measured there."""
+    if device.type == "cuda":
+        kind, count = torch.cuda.get_device_name(device), torch.cuda.device_count()
+    else:
+        kind, count = "cpu", 1
+    return {"kind": kind, "count": count, "timing": timing}

@@ -46,10 +46,10 @@ from confild_tpu_torch import config as cfgmod
 from confild_tpu_torch.analysis.metrics import (integral_timescale, per_channel_rmae,
                                                 spectra_relative_error)
 from confild_tpu_torch.core.packing import minmax_to_unit_interval, unit_interval_to_minmax
-from confild_tpu_torch.device import resolve_device, synchronize
+from confild_tpu_torch.device import resolve_device
 from confild_tpu_torch.diffusion import create_gaussian_diffusion
-from confild_tpu_torch.examples.demo_common import (build_demo_unet, save_demo_unet_config,
-                                                    sliding_windows)
+from confild_tpu_torch.examples.demo_common import (build_demo_unet, clock,
+                                                    save_demo_unet_config, sliding_windows)
 from confild_tpu_torch.io import checkpoint as ckpt_io
 from confild_tpu_torch.train.cnf_trainer import CNFTrainer
 from confild_tpu_torch.train.diffusion_trainer import TrainLoop
@@ -183,11 +183,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _clock(device) -> float:
-    synchronize(device)
-    return time.perf_counter()
-
-
 def _cnf_batch_step_ms(save_path: str, epochs: int, n_batches: int):
     """The last epoch's wall time over its batch steps, from the trainer's
     log of this run (``wait_train_chunk``: one epoch, synchronized by the
@@ -227,7 +222,7 @@ def main(argv=None) -> dict:
     n_gen = 8 if args.fast else 64
     stage_s = {}
 
-    t0 = _clock(device)
+    t0 = clock(device)
     flow_kw = FLOW_PRESETS[args.flow]
     print(f"[1/5] simulating {n_traj}x{n_snap} snapshots of {args.flow} "
           f"2-D turbulence on {grid}^2 ...")
@@ -261,7 +256,7 @@ def main(argv=None) -> dict:
     print(f"      data {fields.shape}, {stage_s['simulate']:.1f}s")
 
     print("[2/5] stage 1: CNF auto-decoding fit ...")
-    t1 = _clock(device)
+    t1 = clock(device)
     lr_block = {"nf": args.nf_lr, "latents": 1e-2}
     total_epochs = args.fix_nf_epochs + cnf_epochs
     if args.latent_lr_end is not None:
@@ -355,12 +350,12 @@ def main(argv=None) -> dict:
     recon_spec_err = spectra_relative_error(
         recon.reshape(n_eval, grid, grid, 2)[..., 0].reshape(-1, grid),
         flat[:n_eval].reshape(n_eval, grid, grid, 2)[..., 0].reshape(-1, grid), axis=-1)
-    stage_s["cnf"] = _clock(device) - t1
+    stage_s["cnf"] = clock(device) - t1
     print(f"      CNF rMAE per channel: {cnf_rmae}, recon spectra err "
           f"{recon_spec_err:.4f} ({stage_s['cnf']:.1f}s)")
 
     print("[3/5] stage 2: diffusion training on latent images ...")
-    t2 = _clock(device)
+    t2 = clock(device)
     latents = tr.state.latents.detach().cpu().numpy()       # (T*traj, latent)
     imgs = latents.reshape(n_traj, n_snap, latent)
     if args.scale_sigmas:
@@ -407,15 +402,15 @@ def main(argv=None) -> dict:
                      steps_per_call=1 if args.fast else 25,
                      save_dir=dckpt, device=device)
     first_step = loop.step
-    t_loop = _clock(device)
+    t_loop = clock(device)
     loop.run_loop()
-    loop_s = _clock(device) - t_loop
+    loop_s = clock(device) - t_loop
     steps_run = loop.step - first_step
-    stage_s["diffusion"] = _clock(device) - t2
+    stage_s["diffusion"] = clock(device) - t2
     print(f"      {loop.step} steps done ({stage_s['diffusion']:.1f}s)")
 
     print("[4/5] sampling + decode ...")
-    t3 = _clock(device)
+    t3 = clock(device)
     respaced = create_gaussian_diffusion(steps=1000, noise_schedule="cosine",
                                          timestep_respacing=str(sample_steps))
     sampler = build_demo_unet(window, latent, **unet_kw)
@@ -430,7 +425,7 @@ def main(argv=None) -> dict:
             gen_batches.append(gen[:, 0].float().cpu().numpy())
     gen = np.concatenate(gen_batches)[:n_gen]                 # (n_gen, T, L)
     gen_lat = unit_interval_to_minmax(gen, mx, mn)
-    stage_s["sample"] = _clock(device) - t3
+    stage_s["sample"] = clock(device) - t3
     t4 = time.perf_counter()
     gen_fields = np.stack([tr.infer(tr.train_coord, gen_lat[s]).cpu().numpy()
                            for s in range(gen_lat.shape[0])])   # (n_gen, T, n*n, 2)
