@@ -206,6 +206,37 @@ Phases, each fatal on failure:
     per guided step at 16 and 1000 sensors, the oracle fit's ms a step and
     peak memory, each JSON's pooled numbers, all finite, with the JAX
     scripts' keys; the launches of both ``main`` runs counted.
+17. multi-device (``confild_tpu_torch/parallel/mesh.py``, ring
+    attention, the sharded entry points), held against one process on the
+    same global batches and seeds, which runs first: ``cli.train_cnf`` on
+    phase 9's case cut to 2 epochs with ``multiGPU: 2`` (one process:
+    no mesh), a ``TrainLoop`` step of the Case4 U-Net (flash forced,
+    phase 5's seeded weights, global batch 8, phase 11's draws), and
+    ``cli.sample_conditional`` with a 2-member ensemble at 10 and 1024
+    sensors (one process also with every U-Net weight one float32 ulp
+    up, to measure how far the guided trajectory carries a rounding
+    difference):
+    (b) two ranks spawned on this card over gloo (NCCL refuses two ranks
+    on one device; each rank passes ``cuda:0`` and joins within
+    ``RANK_JOIN_S``): the CNF gradients before each optimizer's first step
+    and the epochs' losses, the U-Net's gradients and loss within a
+    relative L2 of 1e-5, the SIREN forward and backward kernels and the
+    flash kernels launched on each rank, the ensembles' fields within 1e-4
+    or 10x the one-ulp move, the larger, each side's operator route
+    printed; ms per CNF batch step and per diffusion step a rank beside
+    one process's, and the all-reduce of a step's gradients timed alone
+    (recorded only);
+    (c) where two cards are visible, the same over NCCL, a card a rank,
+    and the xl recipe's 9216-token attention block through the ring
+    against its dense route (relative L2 1e-5); on one card a line says
+    it did not run;
+    (a) last, in this process: a 1-rank NCCL group on a file store
+    (destroyed in ``finally``): ``CNFTrainer`` (phase 9's case, 1 epoch)
+    and the ``TrainLoop`` step with ``get_mesh(1)`` bitwise equal to
+    ``mesh=None`` (cuDNN's deterministic algorithms on for both), and
+    ``ring_attention`` over the one rank at (16, 9216, 64) against phase
+    10's float64 attention under phase 10's criterion.  The ranks' and
+    (a)'s mesh runs' launches are added to the kernels' counts.
 
 The script imports nothing of JAX or of ``confild_tpu``.  With no CUDA
 device it exits non-zero and prints no result.  The last line is
@@ -217,6 +248,7 @@ from __future__ import annotations
 
 import copy
 import csv
+import datetime
 import gc
 import json
 import os
@@ -247,6 +279,8 @@ from confild_tpu_torch.inference import CNF_inference
 from confild_tpu_torch.io.checkpoint import latest_checkpoint
 from confild_tpu_torch.models import unet as tunet
 from confild_tpu_torch.models.cnf import SirenFilm, siren_film_apply
+from confild_tpu_torch.ops.ring_attention import ring_attention
+from confild_tpu_torch.parallel import mesh as pmesh
 from confild_tpu_torch.train.cnf_trainer import CNFTrainer
 from confild_tpu_torch.train.diffusion_trainer import TrainLoop
 from confild_tpu_torch.utils import logger as tlog
@@ -2493,6 +2527,465 @@ def phase_demo_conditional(root, device) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 17: multi-device (the data mesh over torch.distributed, ring attention)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+# the spawned ranks' limit: they build nothing (phase 2 did) and run about a
+# minute; a hung collective ends at the process group's own timeout first
+RANK_JOIN_S = 600
+RANK_GROUP_TIMEOUT = datetime.timedelta(minutes=5)
+# the diffusion step's inputs: phase 11's t, unit weights and seeded x0 and noise
+DIFF_T = (3, 120, 250, 400, 555, 700, 850, 999)
+
+
+def _rel(a, b) -> float:
+    """Relative L2 of ``a`` against ``b`` (0 when both are zero)."""
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    den = b.norm().item()
+    return (a - b).norm().item() / den if den else (a - b).norm().item()
+
+
+def allreduce_ms(tensors, mesh) -> float:
+    """Synchronized wall ms of one all-reduce of copies of ``tensors`` over
+    ``mesh`` (a step's gradient all-reduce, timed alone after a barrier),
+    median of 3; 0 without a mesh."""
+    if mesh is None:
+        return 0.0
+    copies = [t.detach().clone() for t in tensors]
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        pmesh.barrier(mesh)
+        t0 = time.perf_counter()
+        pmesh.all_reduce_mean_(copies, mesh)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def cnf_run(recipe: str) -> dict:
+    """``cli.train_cnf.main`` on ``recipe`` with the first gradient of each
+    optimizer recorded just before its step (the latent table's at batch
+    0, the decoder's summed epoch-0 gradient at epoch 1), the epochs'
+    losses, the launches, then one more epoch timed, and the all-reduces
+    of a batch step (the latent table's; the decoder's, once an epoch)
+    timed alone."""
+    from confild_tpu_torch.train import cnf_trainer
+    grads, losses = {}, []
+    adam_step, run_epoch = cnf_trainer._adam_step, CNFTrainer._run_epoch
+
+    def recording_step(opt, schedule):
+        params = opt.param_groups[0]["params"]
+        name = "latents" if len(params) == 1 else "decoder"
+        grads.setdefault(name, [p.grad.detach().cpu().clone() for p in params])
+        adam_step(opt, schedule)
+
+    def recording_epoch(self, perm, epoch, fix_nf):
+        losses.append(run_epoch(self, perm, epoch, fix_nf))
+        return losses[-1]
+    cnf_trainer._adam_step, CNFTrainer._run_epoch = recording_step, recording_epoch
+    try:
+        sd.reset_launch_counts()
+        trainer = train_cnf.main([recipe])
+        torch.cuda.synchronize()
+    finally:
+        cnf_trainer._adam_step, CNFTrainer._run_epoch = adam_step, run_epoch
+    counts = dict(sd.LAUNCHES)
+    bs = trainer.hp.batch_size
+    n_batches = trainer.N_samples // bs
+    perm = np.arange(n_batches * bs).reshape(n_batches, bs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer._run_epoch(perm, 2, False)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n_batches
+    allreduce = (allreduce_ms([trainer.state.latents], trainer.mesh)
+                 + allreduce_ms(list(trainer.model.parameters()), trainer.mesh) / n_batches)
+    out = {"grads": grads, "losses": losses, "counts": counts, "ms": ms,
+           "allreduce_ms": allreduce,
+           "mesh": None if trainer.mesh is None else trainer.mesh.size}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def diffusion_inputs(device, size: int):
+    """Phase 11's draws: a seeded global batch of 8 ``size``^2 images, its
+    noise, ``DIFF_T`` and unit weights."""
+    gen = torch.Generator(device=device).manual_seed(21)
+    x0 = torch.rand((8, 1, size, size), generator=gen, device=device) * 2 - 1
+    return x0, torch.tensor(DIFF_T), torch.ones(8), torch.randn(x0.shape, generator=gen,
+                                                                device=device)
+
+
+def diffusion_loop(root, device, mesh):
+    """The Case4 U-Net of ``recipes/diffusion/case4.yml`` (flash forced,
+    phase 5's seeded weights) in a ``TrainLoop`` of global batch 8 over
+    ``mesh``."""
+    with open(RECIPE_DIFFUSION) as f:
+        recipe = dict(yaml.safe_load(f), use_flash_attention=True)
+    model, diffusion = train_diffusion.build_model_and_diffusion(cfgmod.Config(recipe))
+    model.load_state_dict(torch.load(os.path.join(root, "ema.pt"), weights_only=True))
+    return TrainLoop(model=model, diffusion=diffusion, data=None, batch_size=8,
+                     lr=float(recipe["lr"]), save_dir=os.path.join(root, "multi_diffusion"),
+                     mesh=mesh, device=device)
+
+
+def diffusion_run(root, device, mesh) -> dict:
+    """One step on the seeded global batch: loss, every gradient before the
+    optimizer, the flash launches; then two steps timed, and the all-reduce
+    of the U-Net's gradients timed alone (DDP runs it in buckets during
+    the backward)."""
+    loop = diffusion_loop(root, device, mesh)
+    inputs = diffusion_inputs(device, loop.model.cfg.image_size)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    metrics = loop.train_step(*inputs)
+    torch.cuda.synchronize()
+    out = {"loss": metrics["loss"], "counts": dict(fa.LAUNCHES),
+           "grads": {n: p.grad.detach().cpu() for n, p in loop.model.named_parameters()}}
+    step_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop.train_step(*inputs)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out["ms"] = step_ms
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["allreduce_ms"] = allreduce_ms(loop.params, mesh)
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dps_run(recipe: str) -> dict:
+    sd.reset_launch_counts()
+    out = sample_conditional.main([recipe])
+    torch.cuda.synchronize()
+    return {**out, "counts": dict(sd.LAUNCHES)}
+
+
+def multi_cases(root) -> dict:
+    """Recipes of phase 17's main paths, for one process (``one``) and for
+    the ranks of (b) (``gloo``) and of (c) (``nccl``), on separate save
+    paths: the CNF case of phase 9
+    (8 snapshots x 262144 points, batch 4, 2 epochs, ``multiGPU: 2``) and
+    the DPS CLI of phase 5 with a 2-member ensemble at 10 and 1024
+    sensors; and for one process the same ensemble with every U-Net
+    weight one float32 ulp up (``ulp``), which measures how far the
+    guided trajectory carries a rounding difference."""
+    cnf = os.path.join(root, "multi_cnf")
+    with open(write_training_case(cnf, n_snapshots=8, points=262144, epochs=2)) as f:
+        base = yaml.safe_load(f)
+    ema = torch.load(write_assets(root, 10)["ema_path"], weights_only=True)
+    ema_ulp = os.path.join(root, "ema_ulp.pt")
+    torch.save({k: torch.nextafter(v, torch.full_like(v, float("inf"))) for k, v in ema.items()},
+               ema_ulp)
+    cases = {}
+    for side in ("one", "gloo", "nccl", "ulp"):
+        cases[f"cnf_{side}"] = _write_yaml(
+            os.path.join(cnf, f"case_{side}.yml"),
+            dict(base, multiGPU=MESH_RANKS, save_path=os.path.join(cnf, f"run_{side}")))
+        for n_sensors in (10, 1024):
+            recipe = dict(write_assets(root, n_sensors), no_of_samples=MESH_RANKS,
+                          save_path=os.path.join(root, f"multi_{side}_{n_sensors}.npy"))
+            if side == "ulp":
+                recipe["ema_path"] = ema_ulp
+            cases[f"dps{n_sensors}_{side}"] = _write_yaml(
+                os.path.join(root, f"multi_dps{n_sensors}_{side}.yml"), recipe)
+    return cases
+
+
+def ring_block_check(mesh, device) -> None:
+    """Phase 17c: the xl recipe's first attention block (9216 tokens, 256
+    channels in 4 heads, batch 4) of a U-Net over ``mesh``, through the
+    ring, against the same block's dense route: output and gradients
+    within a relative L2 of 1e-5 (float32 both, sums in another order)."""
+    with open(RECIPE_XL) as f:
+        xl = yaml.safe_load(f)
+    model = tunet.create_model(**{k: xl[k] for k in (
+        "image_size", "num_channels", "num_res_blocks", "num_heads", "num_head_channels",
+        "attention_resolutions", "channel_mult")}, use_flash_attention=False,
+        sequence_parallel_mesh=mesh)
+    block = next(m for m in model.modules() if isinstance(m, tunet.AttentionBlock))
+    torch.manual_seed(3)
+    block = block.to(device)
+    for p in block.parameters():
+        torch.nn.init.normal_(p, std=0.05)
+    x = torch.randn((4, block.spec.ch, 96, 96), device=device)
+    g = torch.randn_like(x)
+    res = {}
+    for route, seq_mesh in (("ring", mesh), ("dense", None)):
+        block.seq_mesh = seq_mesh
+        block.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_(True)
+        out = block(xi)
+        (out * g).sum().backward()
+        torch.cuda.synchronize()
+        res[route] = [out.detach(), xi.grad, *(p.grad for p in block.parameters())]
+    worst = max(_rel(a, b) for a, b in zip(res["ring"], res["dense"]))
+    log(f"[multi] (c) rank {pmesh.process_index()}: the xl recipe's 9216-token block over "
+        f"{mesh.size} ranks, ring vs dense: worst relative L2 over the output and gradients "
+        f"{worst:.3e} (tol 1e-5)")
+    if not worst <= 1e-5:
+        raise SystemExit("the U-Net's ring route disagrees with its dense route")
+
+
+def rank_main(rank, world, backend, store, root, cases):
+    """One spawned rank of phase 17 (b) or (c): on ``cuda:0`` over gloo for
+    (b), on ``cuda:<rank>`` over NCCL for (c); saves its results beside
+    ``root``."""
+    device = torch.device("cuda", 0 if backend == "gloo" else rank)
+    # the CLIs take this rank's card from LOCAL_RANK, as under torchrun
+    os.environ["LOCAL_RANK"] = str(device.index)
+    try:
+        device = pmesh.initialize_distributed(device, backend=backend,
+                                              init_method=f"file://{store}",
+                                              world_size=world, rank=rank,
+                                              timeout=RANK_GROUP_TIMEOUT)
+        out = {"cnf": cnf_run(cases[f"cnf_{backend}"]),
+               "diffusion": diffusion_run(root, device, pmesh.get_mesh())}
+        out.update({f"dps{n}": dps_run(cases[f"dps{n}_{backend}"]) for n in (10, 1024)})
+        if backend == "nccl":
+            ring_block_check(pmesh.get_mesh(), device)
+        torch.save(out, os.path.join(root, f"multi_{backend}_rank{rank}.pt"))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(root, cases, backend: str) -> list[dict]:
+    """``MESH_RANKS`` spawned ranks of ``rank_main``, each joined within
+    ``RANK_JOIN_S``; a rank that fails, or is still running, fails the
+    phase (the others are ended)."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(root, f"multi_{backend}_store")
+    procs = [ctx.Process(target=rank_main, args=(r, MESH_RANKS, backend, store, root, cases))
+             for r in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANK_JOIN_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    if alive or any(p.exitcode for p in procs):
+        raise SystemExit(f"phase 17 ranks over {backend}: exit codes "
+                         f"{[p.exitcode for p in procs]} (None: still running at "
+                         f"{RANK_JOIN_S} s)")
+    return [torch.load(os.path.join(root, f"multi_{backend}_rank{r}.pt"), weights_only=False)
+            for r in range(MESH_RANKS)]
+
+
+def compare_ranks(label: str, backend: str, ranks: list[dict], one: dict, root) -> dict:
+    """Each rank against the one-process run on the same global batches:
+    gradients before the optimizer and losses within a relative L2 of
+    1e-5 (the losses also at rtol 1e-5; a U-Net gradient within 1e-5 of
+    its norm plus 1e-6 of the largest one's, for gradients that are zero up
+    to rounding), the DPS ensembles' fields within 1e-4 where both sides
+    take the same operator route (else phase 16d's ``GRAD_REL_TOL``) or 10x
+    their move under a one-ulp change of the U-Net's weights, the larger,
+    every path's kernels launched on every rank.
+    Returns the launches summed over the ranks."""
+    tol = 1e-5
+    ok, launches = True, {}
+    for r, res in enumerate(ranks):
+        cnf, diff = res["cnf"], res["diffusion"]
+        worst_cnf = max(_rel(a, b) for k in ("latents", "decoder")
+                        for a, b in zip(cnf["grads"][k], one["cnf"]["grads"][k]))
+        loss_cnf = _rel(cnf["losses"], one["cnf"]["losses"])
+        # per tensor, with a floor of 1e-6 of the largest gradient's norm for
+        # the gradients that are zero up to rounding
+        largest = max(g.norm().item() for g in one["diffusion"]["grads"].values())
+        worst_diff, worst_name = max(
+            ((diff["grads"][n] - g).norm().item() / (g.norm().item() + 0.1 * largest), n)
+            for n, g in one["diffusion"]["grads"].items())
+        loss_diff = _rel(diff["loss"], one["diffusion"]["loss"])
+        good = (cnf["mesh"] == MESH_RANKS and max(worst_cnf, loss_cnf, worst_diff, loss_diff) <= tol
+                and np.allclose(cnf["losses"], one["cnf"]["losses"], rtol=tol, atol=0)
+                and np.isclose(diff["loss"], one["diffusion"]["loss"], rtol=tol, atol=0)
+                and cnf["counts"]["siren_decode_forward"] > 0
+                and cnf["counts"]["siren_decode_bwd"] > 0
+                and all(v > 0 for v in diff["counts"].values()))
+        log(f"[multi] ({label}) rank {r}: CNF on a {cnf['mesh']}-rank mesh, epoch losses "
+            f"{[round(x, 6) for x in cnf['losses']]} (one process "
+            f"{[round(x, 6) for x in one['cnf']['losses']]}, rel L2 {loss_cnf:.3e}), worst "
+            f"gradient rel L2 {worst_cnf:.3e}, SIREN launches {cnf['counts']}, ms per batch "
+            f"step {cnf['ms']:.1f} (one process {one['cnf']['ms']:.1f}), its all-reduces "
+            f"alone {cnf['allreduce_ms']:.2f} ms ({cnf['allreduce_ms'] / cnf['ms']:.1%}); "
+            f"diffusion loss "
+            f"{diff['loss']:.6f} (one process {one['diffusion']['loss']:.6f}, rel {loss_diff:.3e}), "
+            f"worst gradient rel L2 {worst_diff:.3e} ({worst_name}) over {len(diff['grads'])} "
+            f"tensors, flash "
+            f"launches {diff['counts']}, ms per step {[round(x, 1) for x in diff['ms']]} (one "
+            f"process {[round(x, 1) for x in one['diffusion']['ms']]}), the all-reduce of "
+            f"its gradients alone {diff['allreduce_ms']:.1f} ms "
+            f"({diff['allreduce_ms'] / np.median(diff['ms']):.1%} of a step), peak "
+            f"{diff['peak_gib']:.2f} GiB -> {'ok' if good else 'FAIL'}")
+        ok &= good
+        for key in ("cnf", "diffusion", "dps10", "dps1024"):
+            for k, v in res[key]["counts"].items():
+                launches[k] = launches.get(k, 0) + v
+    for n_sensors in (10, 1024):
+        key, ref = f"dps{n_sensors}", one[f"dps{n_sensors}one"]
+        got, want, ulp = (np.load(os.path.join(root, f"multi_{side}_{n_sensors}.npy"))
+                          for side in (backend, "one", "ulp"))
+        routes = {"one process": ref["fused"],
+                  **{f"rank {r}": res[key]["fused"] for r, res in enumerate(ranks)}}
+        # a rank's batch of one member runs other cuDNN and cuBLAS algorithms
+        # than one process's batch of two, and the guided trajectory carries a
+        # rounding difference far (1/sqrt(alpha_bar) in x0_hat, the w0 = 30
+        # decoder): the limit is 1e-4 or 10x the one-process ensemble's own
+        # move under a one-ulp change of every U-Net weight, the larger
+        drift = _rel(torch.from_numpy(ulp), torch.from_numpy(want))
+        limit = max(1e-4 if len(set(routes.values())) == 1 else GRAD_REL_TOL, 10 * drift)
+        err = _rel(torch.from_numpy(got), torch.from_numpy(want))
+        good = got.shape == want.shape and np.isfinite(got).all() and err <= limit
+        log(f"[multi] ({label}) DPS ensemble of {MESH_RANKS} at {n_sensors} sensors, one member "
+            f"a rank: fields {got.shape}, rel L2 against one process {err:.3e} (limit "
+            f"{limit:.3e}; one process with every U-Net weight one ulp up: {drift:.3e}); "
+            f"operator route (kernels?) {routes}; SIREN launches per rank "
+            f"{[res[key]['counts'] for res in ranks]}, ms per guided step per rank "
+            f"{[round(res[key]['sample_s'] * 1e3 / res[key]['steps'], 1) for res in ranks]} "
+            f"(one process {ref['sample_s'] * 1e3 / ref['steps']:.1f}) -> "
+            f"{'ok' if good else 'FAIL'}")
+        ok &= good
+    if not ok:
+        raise SystemExit(f"phase 17 ({label}): the ranks disagree with one process")
+    return launches
+
+
+def one_rank_check(root, device) -> dict:
+    """Phase 17a, in this process, last: a 1-rank NCCL group (file store);
+    ``CNFTrainer`` (phase 9's case, 1 epoch) and ``TrainLoop`` (phase 12's
+    U-Net, flash forced, 1 step) with ``get_mesh(1)`` bitwise equal to
+    ``mesh=None`` (cuDNN's deterministic algorithms on for both); then
+    ``ring_attention`` over the one rank at (16, 9216, 64) against phase
+    10's float64 attention under phase 10's criterion.  Returns the mesh
+    runs' launches."""
+    store = os.path.join(root, "multi_nccl1_store")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.distributed.init_process_group("nccl", init_method=f"file://{store}", world_size=1,
+                                         rank=0, timeout=RANK_GROUP_TIMEOUT)
+    torch.backends.cudnn.deterministic = True
+    launches = {}
+    try:
+        mesh = pmesh.get_mesh(1)
+        recipe = write_training_case(os.path.join(root, "multi_one_rank"), n_snapshots=8,
+                                     points=262144, epochs=1)
+        states = {}
+        for name, m in (("none", None), ("mesh", mesh)):
+            sd.reset_launch_counts()
+            trainer = CNFTrainer(cfgmod.basic_input(recipe, save_path=os.path.join(
+                root, "multi_one_rank", name)), device=device, mesh=m)
+            trainer.init_state(seed=0)
+            trainer.train(log_formats=())
+            torch.cuda.synchronize()
+            states[name] = [trainer.state.latents.detach().clone(),
+                            *(p.detach().clone() for p in trainer.model.parameters()),
+                            *(p.grad.clone() for p in trainer.model.parameters())]
+            if m is not None:
+                launches = dict(sd.LAUNCHES)
+            del trainer
+        cnf_equal = all(torch.equal(a, b) for a, b in zip(states["none"], states["mesh"]))
+        del states
+        runs = {}
+        for name, m in (("none", None), ("mesh", mesh)):
+            loop = diffusion_loop(root, device, m)
+            fa.reset_launch_counts()
+            metrics = loop.train_step(*diffusion_inputs(device, loop.model.cfg.image_size))
+            torch.cuda.synchronize()
+            runs[name] = (metrics["loss"], [p.grad.clone() for p in loop.params],
+                          [p.detach().clone() for p in loop.params])
+            if m is not None:
+                launches.update(fa.LAUNCHES)
+            del loop
+            gc.collect()
+            torch.cuda.empty_cache()
+        diff_equal = (runs["none"][0] == runs["mesh"][0] and all(
+            torch.equal(a, b) for i in (1, 2) for a, b in zip(runs["none"][i], runs["mesh"][i])))
+        del runs
+        log(f"[multi] (a) 1 rank over NCCL, get_mesh(1) against mesh=None: CNFTrainer 1 epoch "
+            f"(latents, decoder, its gradient sum) bitwise equal {cnf_equal}; TrainLoop 1 step "
+            f"(loss, gradients, parameters) bitwise equal {diff_equal}; launches {launches}")
+        if not (cnf_equal and diff_equal):
+            raise SystemExit("a 1-rank mesh does not reproduce the single-process run bitwise")
+
+        q, k, v, g = flash_case(device, 16, 9216, 64, torch.float32, seed=17)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = ring_attention(*leaves, mesh)
+        (out * g).sum().backward()
+        ring = {"out": out.detach(), "dq": leaves[0].grad, "dk": leaves[1].grad,
+                "dv": leaves[2].grad}
+        del out, leaves
+        p_out, p_lse = fa.flash_forward_plain(q, k, v)
+        plain = dict(zip(("dq", "dk", "dv"), fa.flash_backward_plain(q, k, v, p_out, p_lse, g)),
+                     out=p_out)
+        truth = f64_attention(q, k, v, g)
+        torch.cuda.synchronize()
+        ok = True
+        for name, r in ring.items():
+            want = truth[name]
+            err_r = (r.double() - want).abs().max().item()
+            err_p = (plain[name].double() - want).abs().max().item()
+            limit = 2 * err_p + 1e-6 * want.abs().max().item()
+            good = err_r <= limit and torch.isfinite(r).all().item()
+            ok &= good
+            log(f"[multi] (a) ring_attention over 1 rank (16, 9216, 64) {name}: |ring-f64| "
+                f"{err_r:.3e}, |plain-f64| {err_p:.3e}, error / limit {err_r / limit:.3f} -> "
+                f"{'ok' if good else 'FAIL'}")
+        if not ok:
+            raise SystemExit("ring attention fails phase 10's float64 criterion")
+        del ring, plain, truth, q, k, v, g
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def one_process_runs(root, device, cases) -> dict:
+    """Phase 17's references: each path in this process, without a mesh."""
+    one = {"cnf": cnf_run(cases["cnf_one"]), "diffusion": diffusion_run(root, device, None),
+           **{f"dps{n}{side}": dps_run(cases[f"dps{n}_{side}"])
+              for n in (10, 1024) for side in ("one", "ulp")}}
+    if one["cnf"]["mesh"] is not None:
+        raise SystemExit("multiGPU: 2 in one process did not train on one device")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return one
+
+
+def phase_multidevice(root, device) -> dict:
+    """Phase 17: (b) two spawned ranks on this card over gloo, then (c)
+    over NCCL with a card a rank where there are two cards, each held
+    against one process on the same global batches; then (a) in this
+    process.  Returns the ranks' and (a)'s mesh runs' launches."""
+    cases = multi_cases(root)
+    one = one_process_runs(root, device, cases)
+    launches = compare_ranks("b", "gloo", spawn_ranks(root, cases, "gloo"), one, root)
+    if torch.cuda.device_count() >= MESH_RANKS:
+        for k, v in compare_ranks("c", "nccl", spawn_ranks(root, cases, "nccl"), one,
+                                  root).items():
+            launches[k] = launches.get(k, 0) + v
+    else:
+        log(f"[multi] (c) not run: {torch.cuda.device_count()} card visible; NCCL puts one "
+            f"rank on each card, and (c) needs {MESH_RANKS}")
+    for k, v in one_rank_check(root, device).items():
+        launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2552,6 +3045,12 @@ def main() -> int:
         for k, v in phase_demo_conditional(root, device).items():
             launches[k] += v
         stamp("phase 16d (the demo's DPS experiment and report)")
+        for k, v in phase_multidevice(root, device).items():
+            if k in flash_launches:
+                flash_launches[k] += v
+            else:
+                launches[k] += v
+        stamp("phase 17 (multi-device)")
     launches.update(flash_launches)
 
     kernels = []

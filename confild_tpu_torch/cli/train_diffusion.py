@@ -9,7 +9,13 @@ pair is saved to the log dir as ``data_max.npy`` / ``data_min.npy`` for the
 inference CLIs.  A fresh run starts from the reference initialisation drawn
 from ``seed`` (default 42); ``resume_checkpoint`` names a
 ``model{step:06d}.pt`` (or JAX ``.ckpt``) triplet to continue.  ``device``
-(optional; the default is the CUDA card).
+(optional; the default is the CUDA card, ``cuda:LOCAL_RANK`` under
+torchrun).
+
+Data parallel over ranks: ``torchrun --nproc-per-node N -m
+confild_tpu_torch.cli.train_diffusion case.yml``.  The mesh is the largest
+count of ranks that divides ``batch_size``, as the JAX CLI picks devices;
+ranks beyond it take no part.
 """
 
 from __future__ import annotations
@@ -21,9 +27,9 @@ import numpy as np
 import torch
 
 from confild_tpu_torch import config as cfgmod
-from confild_tpu_torch.device import resolve_device
 from confild_tpu_torch.diffusion import create_gaussian_diffusion
 from confild_tpu_torch.models import unet as tunet
+from confild_tpu_torch.parallel import mesh as pmesh
 from confild_tpu_torch.train.diffusion_trainer import TrainLoop, load_latent_image_data
 from confild_tpu_torch.utils import logger as tlog
 
@@ -58,19 +64,31 @@ def build_model_and_diffusion(hp):
     return model, diffusion
 
 
-def main(argv=None) -> TrainLoop:
-    """Train the recipe; returns the finished :class:`TrainLoop`."""
+def main(argv=None) -> TrainLoop | None:
+    """Train the recipe; returns the finished :class:`TrainLoop` (None on a
+    rank outside the mesh)."""
     argv = argv if argv is not None else sys.argv[1:]
     hp = cfgmod.basic_input(argv[0])
-    device = resolve_device(hp.get("device"))
+    device = pmesh.initialize_distributed(hp.get("device"))
+    # the data mesh must evenly divide the batch
+    n = pmesh.process_count()
+    while n > 1 and hp.batch_size % n:
+        n -= 1
+    mesh = pmesh.get_mesh(n) if n > 1 else None
+    if pmesh.process_index() >= n:
+        print(f"rank {pmesh.process_index()}: outside the {n}-rank mesh, not training")
+        return None
 
     log_dir = hp.get("log_path") or "./diffusion_logs"
     tlog.configure(log_dir, ["stdout", "log", "csv", "tensorboard"])
 
+    # every rank reads the same global batches (the same seed) and keeps
+    # its slice of each
     data, valid_data, (mx, mn) = load_latent_image_data(
         hp.train_data_path, hp.get("valid_data_path"), hp.batch_size)
-    np.save(os.path.join(log_dir, "data_max.npy"), mx)
-    np.save(os.path.join(log_dir, "data_min.npy"), mn)
+    if pmesh.process_index() == 0:
+        np.save(os.path.join(log_dir, "data_max.npy"), mx)
+        np.save(os.path.join(log_dir, "data_min.npy"), mn)
 
     seed = hp.get("seed", 42)
     model, diffusion = build_model_and_diffusion(hp)
@@ -90,6 +108,7 @@ def main(argv=None) -> TrainLoop:
         weight_decay=hp.get("weight_decay", 0.0),
         lr_anneal_steps=hp.get("lr_anneal_steps", 0),
         save_dir=log_dir,
+        mesh=mesh,
         seed=seed,
         device=device,
     )

@@ -121,16 +121,23 @@ class CNFDecodeOperator:
     def _unnorm(self, data):
         return unit_interval_to_minmax(data, self._max, self._min)
 
+    def fused_route(self, rows: int) -> bool:
+        """Whether a decode of ``rows`` latent rows takes the kernels: by
+        ``use_pallas``, else when ``rows x points > FUSED_MIN_PAIRS`` (the
+        rows of the batch this operator sees: a rank's shard of an ensemble
+        may take the plain route where the whole ensemble takes the
+        kernels)."""
+        if self.use_pallas is not None:
+            return self.use_pallas
+        return rows * self.norm_coords.shape[0] > FUSED_MIN_PAIRS
+
     def decode_latents(self, latents):
         """(T, L) latent rows -> (T, M, C_out) physical fields.
 
         With ``rows x points > FUSED_MIN_PAIRS`` (or ``use_pallas=True``) the
         decode is the frozen fused op, whose backward is the dz kernel;
         otherwise the plain ``torch.sin`` layer loop under autograd."""
-        use_pallas = self.use_pallas
-        if use_pallas is None:
-            use_pallas = latents.shape[0] * self.norm_coords.shape[0] > FUSED_MIN_PAIRS
-        if use_pallas:
+        if self.fused_route(latents.shape[0]):
             fields = fused_siren_decode_frozen(self.model, self.norm_coords, latents, self.w0)
         else:
             fields = siren_decode(self.model, self.norm_coords, latents, self.w0,

@@ -128,6 +128,25 @@ class GuidedSampler:
             return img, torch.stack(distances)
         return img
 
+    @staticmethod
+    def sharded_noise_fn(shape, measurement, cond_method, generator: torch.Generator,
+                         rows: slice) -> NoiseFn:
+        """Each step's noise drawn for the whole ensemble of ``shape``, in
+        the order in which one process draws it (the sample noise, the
+        ``ps+`` perturbations, the measurement noise), keeping the ensemble
+        members ``rows``: a shard of the ensemble then follows the same
+        trajectories as it does in the whole."""
+        n_misfit = getattr(cond_method, "num_sampling", 0) if cond_method.needs_grad else 0
+
+        def noise_fn(i):
+            noise = torch.randn(shape, generator=generator, device=generator.device)
+            misfit = [torch.rand(shape, generator=generator, device=generator.device)[rows]
+                      for _ in range(n_misfit)]
+            m_noise = torch.randn(measurement.shape, generator=generator,
+                                  device=measurement.device, dtype=measurement.dtype)
+            return noise[rows], m_noise, misfit or None
+        return noise_fn
+
     def _inner_sample(self, model, x, t, generator, noise) -> dict:
         """The unconditional reverse step of the subclass."""
         raise NotImplementedError

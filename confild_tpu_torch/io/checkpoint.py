@@ -13,7 +13,14 @@
 
 The JAX package's ``.ckpt`` pickles of either kind are found too and read
 by :mod:`confild_tpu_torch.io.convert`.  Orbax directories (the JAX
-package's multi-process checkpoints) are not read by the port.
+package's multi-process checkpoints) are not read by the port: reading them
+needs orbax, which imports JAX (:func:`confild_tpu_torch.io.convert.read_ckpt`
+says how to convert one).
+
+Under a process group the state is replicated, so one file holds it: rank 0
+writes it (:func:`save` is a no-op on the other ranks; the trainers add a
+barrier after a save), every rank reads it, and only rank 0 rotates
+(``confild_tpu/io/checkpoint.py:104-110``).
 """
 
 from __future__ import annotations
@@ -26,10 +33,15 @@ from typing import Any
 
 import torch
 
+from confild_tpu_torch.parallel.mesh import process_index
+
 
 def save(path: str, obj: Any) -> None:
     """``torch.save`` through a temporary file and an atomic rename, so a
-    crash never leaves a truncated checkpoint under the final name."""
+    crash never leaves a truncated checkpoint under the final name.  Only
+    rank 0 of a process group writes."""
+    if process_index() != 0:
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp"
     torch.save(obj, tmp)
@@ -61,13 +73,14 @@ _GENERATION = {"cnf": r"^checkpoint_(\d+)\.pt$",
 
 def rotate_checkpoints(save_path: str, keep: int, kind: str = "cnf") -> list[str]:
     """Delete all but the newest ``keep`` generations of the port's ``.pt``
-    checkpoints in ``save_path``; returns the deleted paths.  ``kind``:
+    checkpoints in ``save_path`` (rank 0 only: the other ranks delete
+    nothing); returns the deleted paths.  ``kind``:
     ``"cnf"`` (``checkpoint_{epoch}.pt``) or ``"diffusion"`` (the
     ``model/ema_*/opt{step:06d}.pt`` triplet, rotated as a unit so a kept
     model keeps its EMA and optimizer)."""
     if kind not in _GENERATION:
         raise ValueError(f"unknown checkpoint kind {kind!r}")
-    if not keep or keep <= 0:
+    if not keep or keep <= 0 or process_index() != 0:
         return []
     groups: dict[int, list[str]] = {}
     for p in glob.glob(os.path.join(save_path, "*.pt")):

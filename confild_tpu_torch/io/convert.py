@@ -161,6 +161,16 @@ class CkptUnpickler(pickle.Unpickler):
 
 
 def read_ckpt(path: str) -> Any:
+    """A JAX-package ``.ckpt`` file.  An Orbax directory (the JAX package's
+    multi-process checkpoint) raises: reading one needs orbax, which imports
+    JAX."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is an Orbax (multi-process) checkpoint of the JAX package; the "
+            "port reads single-file checkpoints only (orbax imports JAX).  Convert it "
+            "with the JAX package in one process: from confild_tpu.io.checkpoint "
+            f"import load_pytree, save_pytree; save_pytree('{path}', "
+            f"load_pytree('{path}')) rewrites it as one file")
     with open(path, "rb") as f:
         return CkptUnpickler(f).load()
 

@@ -15,6 +15,10 @@ An attention block takes the dense path or the flash-attention kernels
 (``confild_tpu_torch/ops/flash_attention.py``), as the JAX package routes it:
 ``use_flash_attention`` true sends every block through the kernels; left
 unset (auto), only blocks of at least ``FLASH_MIN_TOKENS`` tokens take them.
+With a ``seq_mesh`` of more than one rank, a block of at least
+``ring_min_tokens`` tokens (divisible by the ring) takes ring attention
+(``confild_tpu_torch/ops/ring_attention.py``) before either, as
+``confild_tpu/models/unet.py:366-377`` routes it.
 
 As in the JAX package (``confild_tpu/models/unet.py:142-153, 508-577``):
 
@@ -46,11 +50,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from confild_tpu_torch.models import nn as tnn
 from confild_tpu_torch.ops.flash_attention import flash_attention
+from confild_tpu_torch.ops.ring_attention import ring_attention
 
 # token count at which the JAX package's U-Net uses flash attention in auto
 # mode (confild_tpu/models/unet.py:185); kept for routing parity, the H100
 # crossover is in PERF.md
 FLASH_MIN_TOKENS = 16384
+# token count at which a U-Net with a seq_mesh takes ring attention
+# (confild_tpu/models/unet.py:346)
+RING_MIN_TOKENS = 8192
 
 _aten = torch.ops.aten
 _MATMULS = frozenset({_aten.convolution.default, _aten.mm.default, _aten.bmm.default,
@@ -275,9 +283,13 @@ class ResBlock(nn.Module):
 
 
 class AttentionBlock(nn.Module):
-    """Self-attention over the flattened spatial positions: dense, or the
-    flash kernels when ``spec.use_flash`` (``confild_tpu/models/unet.py:
-    378-384``)."""
+    """Self-attention over the flattened spatial positions: ring attention
+    over ``seq_mesh`` (set by :class:`UNetModel`) from ``ring_min_tokens``
+    tokens, else dense, or the flash kernels when ``spec.use_flash``
+    (``confild_tpu/models/unet.py:366-384``)."""
+
+    seq_mesh = None
+    ring_min_tokens = RING_MIN_TOKENS
 
     def __init__(self, spec: AttnSpec):
         super().__init__()
@@ -297,7 +309,13 @@ class AttentionBlock(nn.Module):
             q, k, v = (t.reshape(b * heads, d, n) for t in qkv.chunk(3, dim=1))
         else:
             q, k, v = qkv.reshape(b * heads, 3 * d, n).split(d, dim=1)
-        if self.spec.use_flash:
+        n_ring = self.seq_mesh.size if self.seq_mesh is not None else 0
+        if n_ring > 1 and n >= self.ring_min_tokens and n % n_ring == 0:
+            # sequence parallel, in float32 as the JAX package's ring
+            out = ring_attention(*(t.transpose(1, 2).float() for t in (q, k, v)),
+                                 self.seq_mesh)
+            out = out.to(x.dtype).transpose(1, 2).reshape(b, c, n)
+        elif self.spec.use_flash:
             # (B*heads, N, d) in the same head order for both layouts
             out = flash_attention(*(t.transpose(1, 2) for t in (q, k, v)))
             out = out.transpose(1, 2).reshape(b, c, n)
@@ -356,9 +374,14 @@ class TimestepEmbedSequential(nn.Sequential):
 
 
 class UNetModel(nn.Module):
-    """``model(x, timesteps)`` with ``x`` ``(B, C, *spatial)``."""
+    """``model(x, timesteps)`` with ``x`` ``(B, C, *spatial)``.  ``seq_mesh``:
+    a :class:`~confild_tpu_torch.parallel.mesh.DataMesh` over which the
+    attention blocks of at least ``ring_min_tokens`` tokens run ring
+    attention; every rank of it runs the model on the same batch (the batch
+    is not sharded over the same ranks)."""
 
-    def __init__(self, cfg: UNetConfig):
+    def __init__(self, cfg: UNetConfig, seq_mesh=None,
+                 ring_min_tokens: int = RING_MIN_TOKENS):
         super().__init__()
         self.cfg = cfg
         self.plan = build_plan(cfg)
@@ -373,6 +396,10 @@ class UNetModel(nn.Module):
         self.out = nn.Sequential(
             tnn.GroupNorm32(self.plan.out_ch_final), nn.SiLU(),
             tnn.conv_nd(cfg.dims, self.plan.out_ch_final, cfg.out_channels, 3, padding=1))
+        self.seq_mesh, self.ring_min_tokens = seq_mesh, ring_min_tokens
+        for m in self.modules():
+            if isinstance(m, AttentionBlock):
+                m.seq_mesh, m.ring_min_tokens = seq_mesh, ring_min_tokens
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> "UNetModel":
@@ -479,9 +506,10 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
                  use_flash_attention: bool | None = None,
                  use_checkpoint: bool = False, remat_policy: str = "full",
                  use_bf16: bool = False, use_fp16: bool = False,
-                 use_f32_tail: bool = False) -> UNetModel:
+                 use_f32_tail: bool = False, sequence_parallel_mesh=None) -> UNetModel:
     """The U-Net of a recipe (``confild_tpu/models/unet.py:595-674``);
-    ``use_fp16`` means a bf16 torso, as in the JAX package."""
+    ``use_fp16`` means a bf16 torso, as in the JAX package;
+    ``sequence_parallel_mesh`` is the model's ``seq_mesh``."""
     if channel_mult is None:
         if image_size not in _DEFAULT_CHANNEL_MULT:
             raise ValueError(f"unsupported image size: {image_size}")
@@ -517,4 +545,4 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
         torso_dtype=torch.bfloat16 if (use_bf16 or use_fp16) else torch.float32,
         tail_dtype=torch.float32 if use_f32_tail else None,
         use_checkpoint=use_checkpoint, remat_policy=remat_policy)
-    return UNetModel(cfg)
+    return UNetModel(cfg, seq_mesh=sequence_parallel_mesh)

@@ -24,6 +24,19 @@ does.  ``extra_siren_in`` (a parametric CNF: a scalar per sample prepended
 as a coordinate channel, ``SIRENAutodecoder_film_extra_in``) trains on the
 plain path too, as in the JAX trainer.  Plain Python loops take the place
 of the JAX trainer's ``lax.scan``.
+
+Data parallelism (``mesh``, the JAX trainer's ``shard_map`` over the batch,
+``cnf_trainer.py:368-380``): every rank draws the same permutation and the
+same latent noise, keeps its contiguous part of each batch's rows and runs
+the decode (the kernels, on the card) on those rows only.  The gradients of
+the latent table and of the decoder are averaged over the mesh with an
+explicit all-reduce: the latent table's before each of its steps, the
+decoder's before each of its steps under ``nf_optim_cadence: batch`` and
+once at the end of each epoch under the reference cadence, where the
+decoder steps once an epoch on the sum of its batches' gradients (an
+all-reduce placed by the trainer fits both cadences, where DDP would
+reduce every backward and need ``no_sync`` for the epoch's sum).  The
+state stays the same on every rank; rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from einops import rearrange
 
 from confild_tpu_torch.core import normalize as cnorm
@@ -42,6 +56,7 @@ from confild_tpu_torch.io import convert
 from confild_tpu_torch.models import cnf as cnf_models
 from confild_tpu_torch.models.cnf import siren_film_apply, siren_film_extra_in_apply
 from confild_tpu_torch.ops.siren_decode import fused_siren_decode, fused_siren_decode_train
+from confild_tpu_torch.parallel import mesh as pmesh
 from confild_tpu_torch.train.schedulers import cosine_decay_schedule
 from confild_tpu_torch.utils import logger as tlog
 from confild_tpu_torch.utils import readdata
@@ -102,10 +117,12 @@ class CNFTrainer:
     siren_only)``, ``infer(coords, latents)`` and ``eval_rmae()``.
 
     Runs on ``device`` (default: the recipe's ``device`` key, else the
-    CUDA card; without a card it raises unless asked for the CPU)."""
+    CUDA card; without a card it raises unless asked for the CPU), data
+    parallel over ``mesh`` when one is given."""
 
-    def __init__(self, hp, infer_mode: bool = False, device=None):
+    def __init__(self, hp, infer_mode: bool = False, device=None, mesh=None):
         self.hp = hp
+        self.mesh = mesh
         self.device = resolve_device(device if device is not None else hp.get("device"))
         self.save_path = hp.save_path
         # extra scalar SIREN input (parametric CNF, reference :117-136): an
@@ -120,9 +137,6 @@ class CNFTrainer:
                 self.extra_siren_in = np.linspace(*spec, dtype=np.float32)
             else:
                 self.extra_siren_in = np.asarray(spec, np.float32)
-        if int(hp.get("multiGPU", 1) or 1) > 1:
-            print(f"multiGPU: {hp.multiGPU} requested; the port trains on one card "
-                  "(the multi-device slice, ROADMAP.md Queue 1, item 7, is still to come)")
 
         if not infer_mode:
             fois = self._load_fois(hp)
@@ -158,15 +172,17 @@ class CNFTrainer:
         # the extra scalar's own normalizer, saved as extra_normalizer_params
         self.extra_in_normalizer = (cnorm.Normalizer(**hp.normalizer)
                                     if self.extra_siren_in is not None else None)
-        for name in ("normalizer_params.ckpt", "normalizer_params.pt"):
-            path = os.path.join(hp.save_path, name)
-            if os.path.exists(path):
-                params = convert.load_normalizer_file(path)
-                self.in_normalizer.params = tuple(params["x_normalizer_params"])
-                self.out_normalizer.params = tuple(params["y_normalizer_params"])
-                if self.extra_in_normalizer is not None and "extra_normalizer_params" in params:
-                    self.extra_in_normalizer.params = tuple(params["extra_normalizer_params"])
-                break
+        found = [p for p in (os.path.join(hp.save_path, name) for name in
+                             ("normalizer_params.ckpt", "normalizer_params.pt"))
+                 if os.path.exists(p)]
+        # every rank has looked before rank 0 writes a fitted one
+        pmesh.barrier(mesh)
+        if found:
+            params = convert.load_normalizer_file(found[0])
+            self.in_normalizer.params = tuple(params["x_normalizer_params"])
+            self.out_normalizer.params = tuple(params["y_normalizer_params"])
+            if self.extra_in_normalizer is not None and "extra_normalizer_params" in params:
+                self.extra_in_normalizer.params = tuple(params["extra_normalizer_params"])
         else:
             if infer_mode:
                 raise FileNotFoundError(f"no normalizer params in {hp.save_path}")
@@ -284,6 +300,8 @@ class CNFTrainer:
 
     def _new_state(self, latents: torch.Tensor, epoch: int) -> CNFTrainState:
         lat = torch.nn.Parameter(latents.to(self.device, torch.float32))
+        if self.mesh is not None:
+            pmesh.replicate([*self.model.parameters(), lat], self.mesh)
         opt_nf = torch.optim.Adam(self.model.parameters(), lr=self.hp.lr["nf"])
         opt_lat = torch.optim.Adam([lat], lr=self.hp.lr["latents"])
         self.model.zero_grad(set_to_none=True)
@@ -301,17 +319,26 @@ class CNFTrainer:
 
     # -- train --------------------------------------------------------------
 
+    def _local(self, x):
+        """This rank's part of a batch (all of it without a mesh)."""
+        return x if self.mesh is None else pmesh.shard_batch(x, self.mesh)
+
     def _batch_loss(self, idx: torch.Tensor, epoch: int, batch: int) -> torch.Tensor:
+        """The loss of this rank's rows of the batch ``idx`` (every row
+        without a mesh)."""
         hp = self.hp
+        n_rows = idx.shape[0]
+        idx = self._local(idx)
         rows_clean = self.state.latents[idx]
         rows = rows_clean
         # latent-noise regularization (beyond reference, opt-in; 0 = parity):
-        # the generator is seeded per epoch and batch, so a resume repeats it
+        # the generator is seeded per epoch and batch, so a resume repeats
+        # it; the whole batch's noise is drawn, and this rank's rows kept
         noise_std = float(hp.get("latent_noise_std", 0.0) or 0.0)
         if noise_std:
-            rows = rows + noise_std * torch.randn(
-                rows.shape, generator=_noise_generator(self.device, epoch, batch),
-                device=self.device)
+            rows = rows + noise_std * self._local(torch.randn(
+                (n_rows, rows.shape[-1]),
+                generator=_noise_generator(self.device, epoch, batch), device=self.device))
         if self.extra_siren_in is not None:
             out = self._extra_in_decode(idx, rows)
             target = self.normed_fois[idx]
@@ -341,11 +368,22 @@ class CNFTrainer:
         """The once-per-epoch decoder step on the summed gradients; a
         parameter with no gradient yet steps on zeros, as the JAX trainer's
         zero accumulator does after a resume."""
+        self._decoder_grads()
+        _adam_step(self.state.opt_nf, self._schedules_cache[0])
+        self.model.zero_grad(set_to_none=False)
+
+    def _decoder_grads(self) -> list[torch.Tensor]:
+        """The decoder's ``.grad`` tensors; a parameter with no gradient
+        yet gets zeros, as the JAX trainer's zero accumulator after a
+        resume."""
         for p in self.model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        _adam_step(self.state.opt_nf, self._schedules_cache[0])
-        self.model.zero_grad(set_to_none=False)
+        return [p.grad for p in self.model.parameters()]
+
+    def _mean_over_mesh(self, tensors) -> None:
+        if self.mesh is not None:
+            pmesh.all_reduce_mean_(tensors, self.mesh)
 
     def _run_epoch(self, perm: np.ndarray, epoch: int, fix_nf: bool) -> float:
         per_batch_nf = not fix_nf and self._per_batch_nf
@@ -361,11 +399,18 @@ class CNFTrainer:
                 self.model.zero_grad(set_to_none=True)
             loss = self._batch_loss(idx, epoch, b)
             loss.backward()     # decoder grads add up in .grad over the epoch
+            self._mean_over_mesh([s.latents.grad])
             _adam_step(s.opt_lat, lat_sched)
             if per_batch_nf:
+                self._mean_over_mesh(self._decoder_grads())
                 _adam_step(s.opt_nf, nf_sched)
             losses.append(loss.detach())
-        return float(torch.stack(losses).mean())
+        if self.mesh is not None and not fix_nf and not per_batch_nf:
+            # the epoch's summed decoder gradient, the same on every rank
+            self._mean_over_mesh(self._decoder_grads())
+        losses = torch.stack(losses)
+        self._mean_over_mesh([losses])
+        return float(losses.mean())
 
     def train(self, fix_nf: bool = False, log_formats=("stdout",)) -> CNFTrainState:
         hp = self.hp
@@ -415,14 +460,19 @@ class CNFTrainer:
         """rMAE per channel over every snapshot, in ``test_batch_size``
         chunks of denormalized fields (reference :429-459).  The last chunk
         is simply shorter: eager PyTorch needs no padded fixed shape, and
-        every snapshot counts once as in the JAX trainer's masked mean."""
+        every snapshot counts once as in the JAX trainer's masked mean.
+        Under a mesh each rank evaluates its contiguous part of the
+        snapshots, and the sums are all-reduced."""
         n = self.N_samples
         eval_bs = min(self.hp.test_batch_size, n)
         denorm = self.out_normalizer.to(self.device).denormalize
         criteria = TEST_CRITERIA[self.hp.test_criteria]
-        total = 0.0
-        for lo in range(0, n, eval_bs):
-            idx = torch.arange(lo, min(lo + eval_bs, n), device=self.device)
+        snapshots = torch.arange(n, device=self.device)
+        if self.mesh is not None:
+            index, shards = self.mesh.batch_index()
+            snapshots = snapshots.tensor_split(shards)[index]
+        total = torch.zeros(self.flat_fois.shape[-1], device=self.device)
+        for idx in snapshots.split(eval_bs):
             rows = self.state.latents[idx]
             if self.extra_siren_in is not None:
                 pred = self._extra_in_decode(idx, rows)
@@ -435,6 +485,8 @@ class CNFTrainer:
                                         self.expand_latents(rows), self.w0)
                 err = criteria(denorm(pred), denorm(self.normed_fois[idx]), self.spatio_axis)
             total = total + err.sum(dim=0)
+        if self.mesh is not None:
+            dist.all_reduce(total, group=self.mesh.group)
         return (total / n).cpu().numpy()
 
     # -- checkpointing (4-part dict, reference :468-528) ---------------------
@@ -454,6 +506,7 @@ class CNFTrainer:
         keep = int(self.hp.get("keep_checkpoints", 0) or 0)
         if keep:
             ckpt_io.rotate_checkpoints(self.save_path, keep)
+        pmesh.barrier(self.mesh)
         return path
 
     def _checkpoint_path(self, checkpoint_id: int) -> str | None:
@@ -478,10 +531,6 @@ class CNFTrainer:
         if path is None:
             print(f"*No checkpoint found in {self.save_path}*, starting from scratch")
             return None
-        if os.path.isdir(path):
-            raise NotImplementedError(
-                f"{path} is an Orbax (multi-process) checkpoint of the JAX package; "
-                "the port reads single-file checkpoints only (ROADMAP.md Queue 1, item 7)")
         if path.endswith(".pt"):
             return self._load_pt(path, siren_only)
         ck = convert.read_ckpt(path)

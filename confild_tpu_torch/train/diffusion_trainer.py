@@ -33,10 +33,21 @@ from the step arithmetic: :meth:`TrainLoop.train_step` and
 :meth:`TrainLoop.valid_step` take them as tensors, so a test can feed the
 port the numbers the JAX step drew.  The U-Net runs without dropout in
 training, as the JAX step (which passes no dropout key) does.
+
+Data parallelism (``mesh``, a :class:`~confild_tpu_torch.parallel.mesh.
+DataMesh`): every rank takes the *global* batch and the global batch's
+draws, from generators seeded alike on every rank, and keeps its own
+contiguous slice, so that a step equals the single-process step on the same
+batch.  The U-Net trains under DDP (gradients averaged over the mesh once a
+step; microbatches before the last run under ``no_sync``); the EMA and the
+checkpoints hold the unwrapped module's parameters.  The per-sample losses
+are gathered, so the logged metrics and the timestep sampler's state are
+the global batch's on every rank.  Rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Iterator
 
@@ -49,6 +60,7 @@ from confild_tpu_torch.diffusion.resample import UniformSampler
 from confild_tpu_torch.io import checkpoint as ckpt_io
 from confild_tpu_torch.io import convert
 from confild_tpu_torch.models import nn as tnn
+from confild_tpu_torch.parallel import mesh as pmesh
 from confild_tpu_torch.utils import logger as tlog
 
 
@@ -63,7 +75,8 @@ def _to_cpu(sd: dict) -> dict:
 class TrainLoop:
     """``run_loop()`` trains ``model`` (its current weights are the start
     unless ``resume_checkpoint`` names a triplet) on batches from ``data``
-    on ``device`` (default: the CUDA card; the CPU only when asked)."""
+    on ``device`` (default: the CUDA card; the CPU only when asked), data
+    parallel over ``mesh`` when one is given."""
 
     def __init__(self, *, model, diffusion: GaussianDiffusion, data: Iterator,
                  batch_size: int, microbatch: int = -1, lr: float = 1e-4,
@@ -76,10 +89,10 @@ class TrainLoop:
                  device=None):
         if device_data is not None and valid_data is not None:
             raise ValueError("device_data does not support valid_data")
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel training over a mesh is not ported yet (ROADMAP.md "
-                "Queue 1, item 7): the port trains on one card")
+        if mesh is not None and not isinstance(mesh, pmesh.DataMesh):
+            raise TypeError(f"mesh must be a DataMesh (parallel.mesh.get_mesh), "
+                            f"not {type(mesh).__name__}")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.diffusion = diffusion
@@ -112,12 +125,26 @@ class TrainLoop:
             self.index_generator = torch.Generator(self.device).manual_seed(seed + 2)
 
         self.params = list(self.model.parameters())
+        # the module the training forward runs through: DDP averages the
+        # gradients over the mesh (and broadcasts rank 0's weights at start)
+        self.ddp = self.model
+        if mesh is not None:
+            self.ddp = torch.nn.parallel.DistributedDataParallel(self.model,
+                                                                 process_group=mesh.group)
         self.opt = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                      weight_decay=weight_decay)
         self.resume_step = 0
         self._load()
         self.step = self.resume_step
         self.sampler_state = self.sampler.init_state()
+
+    def _local(self, x):
+        """This rank's slice of a global batch (all of it without a mesh)."""
+        return x if self.mesh is None else pmesh.shard_batch(x, self.mesh)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's slice, concatenated (``x`` itself without a mesh)."""
+        return x if self.mesh is None else pmesh.all_gather_cat(x, self.mesh)
 
     # -- setup ----------------------------------------------------------------
 
@@ -171,22 +198,37 @@ class TrainLoop:
 
     def train_step(self, batch: torch.Tensor, t: torch.Tensor, weights: torch.Tensor,
                    noise: torch.Tensor) -> dict:
-        """One optimizer step on ``batch`` with the given draws: ``t`` and
-        ``weights`` ``(B,)`` on the host, ``noise`` like ``batch``.  Returns
-        the step's metrics as floats (NaN for an empty loss quartile)."""
+        """One optimizer step on the global ``batch`` with the given draws:
+        ``t`` and ``weights`` ``(B,)`` on the host, ``noise`` like ``batch``
+        (under a mesh each rank computes on its slice of all four).
+        Returns the step's metrics as floats (NaN for an empty loss
+        quartile), of the global batch."""
+        t_all = t
+        batch, t, weights, noise = self._local((batch, t, weights, noise))
+        batch = torch.as_tensor(batch, device=self.device)
         n_micro = max(self.batch_size // self.microbatch, 1)
-        micro = self.microbatch if n_micro > 1 else batch.shape[0]
+        if batch.shape[0] % n_micro:
+            raise ValueError(f"{batch.shape[0]} rows a rank do not split into "
+                             f"{n_micro} microbatches")
+        micro = batch.shape[0] // n_micro
         self.opt.zero_grad(set_to_none=True)
         loss_total, terms_all = 0.0, []
         for i in range(n_micro):
             sl = slice(i * micro, (i + 1) * micro)
-            terms = self.diffusion.training_losses(self.model, batch[sl], t[sl],
-                                                   noise=noise[sl])
-            loss = (terms["loss"] * weights[sl].to(self.device)).mean() / n_micro
-            loss.backward()
+            # DDP averages the gradients once, after the last microbatch
+            sync = self.ddp.no_sync() if self.mesh is not None and i < n_micro - 1 \
+                else contextlib.nullcontext()
+            with sync:
+                terms = self.diffusion.training_losses(self.ddp, batch[sl], t[sl],
+                                                       noise=noise[sl])
+                loss = (terms["loss"] * weights[sl].to(self.device)).mean() / n_micro
+                loss.backward()
             loss_total += loss.detach()
             terms_all.append({k: v.detach() for k, v in terms.items()})
-        terms = {k: torch.cat([tm[k] for tm in terms_all]) for k in terms_all[0]}
+        terms = {k: self._gather(torch.cat([tm[k] for tm in terms_all]))
+                 for k in terms_all[0]}
+        if self.mesh is not None:
+            loss_total = self._gather(loss_total.reshape(1)).mean()
 
         grad_norm = global_norm(p.grad for p in self.params)
         grads_ok = bool(torch.isfinite(grad_norm))
@@ -196,14 +238,15 @@ class TrainLoop:
             self.opt.step()
         for ema, rate in zip(self.ema_params, self.ema_rate):
             tnn.update_ema(ema, self.params, rate)
+        # the global batch's t and losses: every rank's sampler state is the same
         losses = terms["loss"].cpu()
-        self.sampler_state = self.sampler.update(self.sampler_state, t, losses)
+        self.sampler_state = self.sampler.update(self.sampler_state, t_all, losses)
         self.step += 1
 
         metrics = {"loss": float(loss_total), "grad_norm": float(grad_norm),
                    "param_norm": float(global_norm(p.detach() for p in self.params)),
                    "skipped_nonfinite": 0.0 if grads_ok else 1.0}
-        quartile = (4 * t / self.diffusion.num_timesteps).long()
+        quartile = (4 * t_all / self.diffusion.num_timesteps).long()
         for q in range(4):
             mask = quartile == q
             metrics[f"loss_q{q}"] = (float(losses[mask].mean()) if mask.any()
@@ -216,32 +259,38 @@ class TrainLoop:
     @torch.no_grad()
     def valid_step(self, batch: torch.Tensor, t: torch.Tensor, weights: torch.Tensor,
                    noise: torch.Tensor) -> float:
-        """The weighted validation MSE of the current parameters."""
-        terms = self.diffusion.training_losses(self.model, batch, t, noise=noise,
-                                               valid=True)
-        return float((terms["valid_mse"] * weights.to(self.device)).mean())
+        """The weighted validation MSE of the current parameters on the
+        global ``batch`` (under a mesh, the mean of the ranks' slices)."""
+        batch, t, weights, noise = self._local((batch, t, weights, noise))
+        terms = self.diffusion.training_losses(
+            self.model, torch.as_tensor(batch, device=self.device), t, noise=noise,
+            valid=True)
+        mse = (terms["valid_mse"] * weights.to(self.device)).mean()
+        return float(self._gather(mse.reshape(1)).mean())
 
-    def _draws(self, batch: torch.Tensor):
+    def _draws(self, batch):
+        """The global batch's draws, alike on every rank."""
         t, weights, _ = self.sampler.sample(self.sampler_state, self.generator,
                                             batch.shape[0])
         noise = torch.randn(batch.shape, generator=self.noise_generator,
-                            device=self.device, dtype=batch.dtype)
+                            device=self.device, dtype=torch.float32)
         return t, weights, noise
 
     def device_batch(self) -> torch.Tensor:
         """``batch_size`` rows of ``device_data`` at indices drawn on the
-        device (with replacement, as the JAX loop's ``randint``)."""
+        device (with replacement, as the JAX loop's ``randint``): the global
+        batch, alike on every rank of a mesh."""
         idx = torch.randint(0, self.device_data.shape[0], (self.batch_size,),
                             generator=self.index_generator, device=self.device)
         return self.device_data[idx]
 
     def _step(self, batch) -> dict:
-        """One training step on ``batch`` and, with ``valid_data``, the
-        validation forward on its next batch; returns the step's metrics."""
-        batch = torch.as_tensor(batch, device=self.device)
+        """One training step on the global ``batch`` and, with
+        ``valid_data``, the validation forward on its next batch; returns
+        the step's metrics."""
         metrics = self.train_step(batch, *self._draws(batch))
         if self.valid_data is not None:
-            vbatch = torch.as_tensor(next(self.valid_data)[0], device=self.device)
+            vbatch = next(self.valid_data)[0]
             metrics["valid_mse"] = self.valid_step(vbatch, *self._draws(vbatch))
         return metrics
 
@@ -255,7 +304,7 @@ class TrainLoop:
                                   else next(self.data)[0]) for _ in range(k)]
         logger = tlog.get_current()
         logger.logkv("step", self.step)
-        logger.logkv("samples", self.step * self.batch_size)
+        logger.logkv("samples", self.step * self.batch_size * pmesh.process_count())
         for name in all_metrics[0]:
             vals = np.asarray([m[name] for m in all_metrics], np.float64)
             finite = vals[np.isfinite(vals)]
@@ -266,7 +315,7 @@ class TrainLoop:
         metrics = self._step(batch)
         logger = tlog.get_current()
         logger.logkv("step", self.step)
-        logger.logkv("samples", (self.step + 1) * self.batch_size)
+        logger.logkv("samples", (self.step + 1) * self.batch_size * pmesh.process_count())
         for k, v in metrics.items():
             if not np.isnan(v):
                 logger.logkv_mean(k, v)
@@ -303,6 +352,8 @@ class TrainLoop:
         return dict(zip(names, self.ema_params[i]))
 
     def save(self) -> dict:
+        """The triplet at the current step (rank 0 writes; every rank
+        waits for it)."""
         paths = ckpt_io.diffusion_paths(self.save_dir, self.step, self.ema_rate)
         ckpt_io.save(paths["model"], _to_cpu(self.model.state_dict()))
         for i, rate in enumerate(self.ema_rate):
@@ -312,7 +363,9 @@ class TrainLoop:
         ckpt_io.save(paths["opt"], opt)
         if self.keep_checkpoints:
             ckpt_io.rotate_checkpoints(self.save_dir, self.keep_checkpoints, kind="diffusion")
-        print(f"saved checkpoint at step {self.step}")
+        pmesh.barrier(self.mesh)
+        if pmesh.process_index() == 0:
+            print(f"saved checkpoint at step {self.step}")
         return paths
 
 

@@ -266,9 +266,11 @@ def test_nonfinite_gradient_skips_the_update(tmp_path):
 
 def test_unported_options_raise(tmp_path):
     model, diff = tunet.create_model(**UNET), t_create_diffusion(steps=20, noise_schedule="cosine")
-    # steps_per_call and device_data are ported (tests/test_torch_multistep.py)
+    # steps_per_call and device_data are ported (tests/test_torch_multistep.py),
+    # and mesh (tests/test_torch_parallel.py): a mesh that is not a DataMesh
+    # is refused
     for kw in (dict(mesh=object()),):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="DataMesh"):
             TrainLoop(model=model, diffusion=diff, data=None, batch_size=4, device="cpu",
                       save_dir=str(tmp_path), **kw)
 

@@ -31,6 +31,7 @@ from confild_tpu.train.cnf_trainer import CNFTrainer as JTrainer
 from confild_tpu.train.cnf_trainer import rMAE as j_rmae
 from confild_tpu.utils import readdata as jread
 from confild_tpu_torch import config as tconfig
+from confild_tpu_torch.cli import train_cnf
 from confild_tpu_torch.core import normalize as tnorm
 from confild_tpu_torch.inference import CNF_inference
 from confild_tpu_torch.io import checkpoint as tckpt
@@ -461,9 +462,17 @@ def test_latent_noise_is_seeded_and_latent_init(tmp_path):
 
 
 def test_unported_options_raise(tmp_path, capsys):
+    # multiGPU: 2 in one process trains on one device without a mesh, as
+    # the JAX CLI maps it onto min(multiGPU, devices)
     hp = _port_case(tmp_path, epochs=1, multiGPU=2)
-    TTrainer(hp)
-    assert "ROADMAP.md Queue 1, item 7" in capsys.readouterr().out
+    tr = train_cnf.main([str(tmp_path / "case.yml")])
+    assert tr.mesh is None and tr.state.epoch == 0
+    assert np.all(np.isfinite(_np(tr.state.latents)))
+    assert "multiGPU" not in capsys.readouterr().out
+    # a JAX Orbax directory raises, saying how to rewrite it as one file
+    os.makedirs(os.path.join(hp.save_path, "checkpoint_7.ckpt"))
+    with pytest.raises(NotImplementedError, match="load_pytree.*save_pytree|save_pytree"):
+        TTrainer(hp).load(-1)
     # extra_siren_in is ported (tests/test_torch_extra_in.py); a count of
     # extra values that the data's second axis does not hold is refused
     hp = _port_case(tmp_path, epochs=1, extra_siren_in=4)
