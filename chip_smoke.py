@@ -237,6 +237,40 @@ Phases, each fatal on failure:
     ``ring_attention`` over the one rank at (16, 9216, 64) against phase
     10's float64 attention under phase 10's criterion.  The ranks' and
     (a)'s mesh runs' launches are added to the kernels' counts.
+18. the rest of the model zoo (fatal on failure, as every phase):
+    (a) every auto-decoder of the decoder zoo (``SIREN_rez_Autodecoder_film``,
+    ``SIRENAutodecoder_tw_film``, ``FNAutodecoder_film``,
+    ``GNAutodecoder_film``, ``SIRENAutodecoder_fp``,
+    ``SIRENAutodecoder_mdf_film``) through ``cli.train_cnf`` on phase 9's
+    recipe (Case4 widths) over 8 seeded snapshots of 65536 points (a
+    quarter of Case4's, for plain autograd's activations), lr 1e-5 / 1e-3
+    (``ZOO_LR``): 2 epochs and a 1-epoch resume, losses finite and falling, tw_film's ``w0`` moved, no
+    kernel launched (the plain route), ms per batch step and peak memory;
+    ``cli.eval_cnf`` on the residual decoder's checkpoint, its decode held
+    to the trainer's within 1e-4; the same recipe with
+    ``SIRENAutodecoder_film`` launching the SIREN forward and training
+    kernels (counts zeroed before each run, read after);
+    (b) every registry decoder (the trained ones, the others seeded at
+    Case4 widths) forward and input gradient at 2 x 4096 in float32
+    against the same module in float64 on the card (relative L2 1e-4);
+    (c) ``cli.train_classifier`` on upstream guided-diffusion's published
+    256^2 classifier (width 128, depth 2, attention at 32,16,8, attention
+    pool, scale-shift norm, resblock up/down; lr 3e-4, weight decay 0.05),
+    2 classes, 64 seeded latent images, batch 32, 10 steps, the checkpoint
+    read back, ms per step, peak memory;
+    (d) that classifier with ``use_flash_attention``: logits and
+    ``classifier_cond_fn``'s gradient against the dense build (phase 11's
+    1e-3), the flash forward, dq and dk/dv launched (1024, 256 and 64
+    tokens, 64-channel heads);
+    (e) classifier-guided DDPM (1000 steps respaced to 10, batch 4) of a
+    class-conditional U-Net at Case4's widths at 256^2 (2 classes, labels
+    fed to it and to ``cond_fn``): finite samples, ms per guided step, one
+    step's guided mean against float64 (1e-3);
+    (f) ``create_sr_model(256, 64, 128, 2)``: one forward and backward at
+    batch 4 against float64 (1e-3 on the output, the input's and every
+    parameter's gradient).
+    Phase 18's flash launches are added to the kernels' counts, and so are
+    the SIREN launches of its FiLM run.
 
 The script imports nothing of JAX or of ``confild_tpu``.  With no CUDA
 device it exits non-zero and prints no result.  The last line is
@@ -248,6 +282,7 @@ from __future__ import annotations
 
 import copy
 import csv
+import dataclasses
 import datetime
 import gc
 import json
@@ -2986,6 +3021,424 @@ def phase_multidevice(root, device) -> dict:
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# phase 18: the decoder zoo and the classifier
+# ---------------------------------------------------------------------------
+
+# the auto-decoders the CNF trainer takes (plain route), then the FiLM
+# decoder, which must still take the kernels
+ZOO_TRAINED = ("SIREN_rez_Autodecoder_film", "SIRENAutodecoder_tw_film", "FNAutodecoder_film",
+               "GNAutodecoder_film", "SIRENAutodecoder_fp", "SIRENAutodecoder_mdf_film")
+# Case4's 262144 points a snapshot cut to a quarter: plain autograd keeps
+# every layer's activations (about 13 GB at 4 x 65536 for the 16-layer
+# decoders, twice that for the residual one)
+ZOO_POINTS = 65536
+# the learning rates of phase 18's CNF runs: the published ones (nf 1e-4,
+# latents 1e-5) raise the loss at the decoder's first Adam step on a fresh
+# decoder (phase 9's FiLM run: 0.557, 0.568, 0.559), so 3 epochs cannot show
+# training; a tenth of the decoder's rate and 100 times the latents' fall
+# from the first step for every zoo decoder (the CPU at 4096 points)
+ZOO_LR = {"nf": 1e-5, "latents": 1e-3}
+# the f32-vs-f64 check of every registry decoder: rows x points
+ZOO_CHECK = (2, 4096)
+ZOO_REL_TOL = 1e-4
+# upstream guided-diffusion's published 256x256 classifier (the JAX CLI's and
+# create_classifier's defaults), 2 classes, batch 32, 10 steps
+CLASSIFIER_RECIPE = dict(image_size=256, classifier_width=128, classifier_depth=2,
+                         classifier_attention_resolutions="32,16,8", out_channels=2,
+                         batch_size=32, lr=3e-4, weight_decay=0.05, lr_anneal_steps=10,
+                         noised=True, steps=1000, noise_schedule="cosine", log_interval=1,
+                         save_interval=10)
+CLASSIFIER_IMAGES = 64
+# create_sr_model's (large_size, small_size, num_channels, num_res_blocks)
+SR_MODEL = (256, 64, 128, 2)
+# the Case4 U-Net's widths at 256^2, class-conditional
+CLASS_COND_UNET = dict(image_size=256, num_channels=128, num_res_blocks=2, num_heads=4,
+                       num_head_channels=64, attention_resolutions="32,16,8",
+                       channel_mult="1,1,2,2,4,4", class_cond=True, num_classes=2)
+
+
+def _nf_kwargs_case4(name) -> dict:
+    """Case4's decoder widths for any registry name (the autoencoders encode
+    64 prior features through a 2 x 384 sine MLP into the 384 latent)."""
+    if name.startswith("SIRENAutoencoder"):
+        return dict(hyper_in_features=64,
+                    hyper_latent_features=CASE4_CNF["in_latent_features"],
+                    hyper_num_hidden_layers=2,
+                    hyper_hidden_features=CASE4_CNF["hidden_features"],
+                    nf_in_features=4 if name.endswith("extra_in") else 3, out_features=3,
+                    nf_num_hidden_layers=CASE4_CNF["num_hidden_layers"],
+                    nf_hidden_features=CASE4_CNF["hidden_features"])
+    kw = {k: v for k, v in CASE4_CNF.items() if k != "w0"}
+    if name.endswith("extra_in"):
+        kw["in_coord_features"] = 4
+    return kw
+
+
+def _perturb_(model, seed: int, scale: float = 0.02):
+    """Every parameter plus seeded noise: the zero-initialised layers would
+    make a random U-Net's output and gradients trivial."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(scale * torch.randn(p.shape, generator=gen).to(p.device))
+    return model
+
+
+def _as_float64(model):
+    """A float64 copy of a U-Net-family module, its torso dtype too (the
+    torso casts its input to ``cfg.torso_dtype``)."""
+    m = copy.deepcopy(model).double()
+    m.zero_grad(set_to_none=True)
+    m.cfg = dataclasses.replace(m.cfg, torso_dtype=torch.float64)
+    return m
+
+
+def zoo_train(root, name, recipe) -> dict:
+    """``cli.train_cnf`` on ``recipe`` with ``NF.name`` set to ``name``: 2
+    epochs, then a 1-epoch resume; launches counted (zeroed before each
+    run, read after), ms per batch step, peak memory."""
+    hp = cfgmod.basic_input(recipe)
+    spec = dict(hp.NF)
+    spec["name"] = name
+    path = _write_yaml(os.path.join(root, f"{name}.yml"), {
+        **hp.to_dict(), "NF": spec, "save_path": os.path.join(root, name), "epochs": 2,
+        "keep_checkpoints": 1, "lr": ZOO_LR})
+    torch.cuda.reset_peak_memory_stats()
+    sd.reset_launch_counts()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = train_cnf.main([path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**sd.LAUNCHES, **fa.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    w0_moved = (None if name != "SIRENAutodecoder_tw_film"
+                else float(trainer.model.w0.detach()) - CASE4_CNF["w0"])
+    losses, epoch_s = [], []
+
+    save_s = []
+
+    def read_progress():          # each run rewrites progress.csv
+        with open(os.path.join(root, name, "progress.csv")) as f:
+            rows = list(csv.DictReader(f))
+        losses.extend(float(r["loss"]) for r in rows if r.get("loss"))
+        epoch_s.extend(float(r["wait_train_chunk"]) for r in rows if r.get("wait_train_chunk"))
+        save_s.extend(float(r["wait_save"]) for r in rows if r.get("wait_save"))
+    read_progress()
+    _write_yaml(path, {**cfgmod.basic_input(path).to_dict(), "epochs": 1})
+    sd.reset_launch_counts()
+    fa.reset_launch_counts()
+    resumed = train_cnf.main([path])
+    torch.cuda.synchronize()
+    for k, v in {**sd.LAUNCHES, **fa.LAUNCHES}.items():
+        counts[k] += v
+    read_progress()
+    n_batches = trainer.N_samples // hp.batch_size
+    step_ms = [s * 1e3 / n_batches for s in epoch_s]
+    log(f"[zoo] {name}: {sum(p.numel() for p in trainer.model.parameters()) / 1e6:.1f} M "
+        f"parameters, losses {[round(x, 6) for x in losses]} (2 epochs, then the resume's), "
+        f"ms per batch step {[round(x, 1) for x in step_ms]}, checkpoints "
+        f"{[round(x, 1) for x in save_s]} s, CLI wall {wall:.1f} s, peak "
+        f"{peak:.2f} GiB, launches {counts}"
+        + ("" if w0_moved is None else f", w0 moved by {w0_moved:.3e}"))
+    if not (len(losses) == 3 and np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise SystemExit(f"{name}: the losses are not finite and falling: {losses}")
+    if resumed.state.epoch != trainer.state.epoch:
+        raise SystemExit(f"{name}: the resume did not continue the epoch count")
+    if w0_moved is not None and w0_moved == 0.0:
+        raise SystemExit("tw_film's trainable w0 did not move")
+    return {"trainer": resumed, "counts": counts, "step_ms": step_ms, "peak": peak,
+            "path": path}
+
+
+def zoo_check(name, model, device, seed) -> None:
+    """``model``'s forward and its input gradient (``sum(out * g)`` with
+    respect to the coordinates and the latents, or the priors) in float32
+    against the same module in float64, on the card: relative L2."""
+    rows, points = ZOO_CHECK
+    gen = torch.Generator(device).manual_seed(seed)
+    coords = torch.rand((rows, points, 3), generator=gen, device=device) * 2 - 1
+    if name.startswith("SIRENAutoencoder"):
+        second = torch.randn((rows, 1, 64), generator=gen, device=device)
+    elif name == "SIRENAutodecoder_film_single":
+        second = None
+    else:
+        second = 0.1 * torch.randn((rows, 1, CASE4_CNF["in_latent_features"]), generator=gen,
+                                   device=device)
+    extra = torch.rand((rows, 1, 1), generator=gen, device=device) if name.endswith(
+        "extra_in") else None
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        m = model if dtype == torch.float32 else copy.deepcopy(model).double()
+        c = coords.to(dtype).detach().requires_grad_(True)
+        z = None if second is None else second.to(dtype).detach().requires_grad_(True)
+        inp = c if extra is None else (c, extra.to(dtype))
+        outs = m(inp, z) if z is not None else m(inp)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        g = [torch.randn(o.shape, generator=torch.Generator(device).manual_seed(seed + i),
+                         device=device).to(dtype) for i, o in enumerate(outs)]
+        leaves = [c] if z is None else [c, z]
+        grads = torch.autograd.grad(sum((o * gi).sum() for o, gi in zip(outs, g)), leaves)
+        res[dtype] = [o.detach() for o in outs] + [gr.detach() for gr in grads]
+        del m
+    errs = [rel_l2(a, b) for a, b in zip(res[torch.float32], res[torch.float64])]
+    log(f"[zoo-f64] {name}: rel L2 vs float64 of the outputs and the input gradients "
+        f"{[f'{e:.2e}' for e in errs]} (tol {ZOO_REL_TOL})")
+    if not all(np.isfinite(e) and e <= ZOO_REL_TOL for e in errs):
+        raise SystemExit(f"{name}: float32 disagrees with float64")
+
+
+def phase_zoo(root, device) -> dict:
+    """(a) every auto-decoder of the zoo through ``cli.train_cnf`` at Case4
+    widths, ``cli.eval_cnf`` on one zoo checkpoint, the FiLM decoder on the
+    same recipe through the kernels; (b) every registry decoder's forward
+    and input gradient against float64 on the card.  Returns the FiLM
+    run's launches."""
+    from confild_tpu_torch.models.cnf import NF_REGISTRY, create_nf
+    zoo = os.path.join(root, "zoo")
+    recipe = write_training_case(zoo, n_snapshots=8, points=ZOO_POINTS, epochs=2)
+    trained = {}
+    for name in ZOO_TRAINED:
+        run = zoo_train(zoo, name, recipe)
+        if any(run["counts"].values()):
+            raise SystemExit(f"{name} launched a kernel: the zoo takes the plain route")
+        trained[name] = run
+        if name == "SIREN_rez_Autodecoder_film":
+            # cli.eval_cnf on its checkpoint: the plain decode, held to the
+            # trainer's own decode through CNF_inference
+            tr = run["trainer"]
+            ck = os.path.join(zoo, name, f"checkpoint_{tr.state.epoch}.pt")
+            yml = _write_yaml(os.path.join(zoo, f"{name}_cnf.yml"), {
+                k: cfgmod.basic_input(run["path"]).to_dict()[k]
+                for k in ("dims", "hidden_size", "NF")})
+            t0 = time.perf_counter()
+            mse, rmae = eval_cnf.main(["--checkpoint", ck, "--config", yml, "--data",
+                                       os.path.join(zoo, "output.npy"), "--coords",
+                                       os.path.join(zoo, "coords.npy"), "--batch-size", "4",
+                                       "--device", str(device)])
+            wall = time.perf_counter() - t0
+            inf = CNF_inference(ck, yml, device=device)
+            pred = inf.predict(tr.train_coord, [0, 1], batch_size=2)
+            want = tr.infer(tr.train_coord, tr.state.latents[:2]).cpu().numpy()
+            rel = float(np.linalg.norm(pred - want) / np.linalg.norm(want))
+            log(f"[zoo] eval_cnf on {name}'s checkpoint: MSE {mse.tolist()}, rMAE "
+                f"{rmae.tolist()}, wall {wall:.1f} s; CNF_inference vs the trainer's decode "
+                f"rel L2 {rel:.3e}")
+            if not (np.all(np.isfinite(mse)) and np.all(np.isfinite(rmae))
+                    and rel <= ZOO_REL_TOL):
+                raise SystemExit("eval_cnf on a zoo checkpoint failed")
+        run["trainer"] = run["trainer"].model      # keep the decoder only
+        shutil.rmtree(os.path.join(zoo, name))     # its checkpoints (10 GB for fp, mdf)
+        gc.collect()
+        torch.cuda.empty_cache()
+    film = zoo_train(zoo, "SIRENAutodecoder_film", recipe)
+    missing = [k for k in ("siren_decode_forward", "siren_decode_bwd") if film["counts"][k] == 0]
+    if missing:
+        raise SystemExit(f"SIRENAutodecoder_film trained without launching {missing}")
+    del film["trainer"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for i, name in enumerate(sorted(NF_REGISTRY)):
+        if name in trained:
+            model = trained[name]["trainer"]
+        else:
+            with torch.device(device):      # 0.85 G parameters drawn on the card
+                model = create_nf(name, **_nf_kwargs_case4(name))
+                model.reset_parameters(torch.Generator(device).manual_seed(100 + i))
+        zoo_check(name, model, device, seed=200 + i)
+        del model
+        trained.pop(name, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {k: film["counts"][k] for k in ("siren_decode_forward", "siren_decode_bwd")}
+
+
+def write_classifier_case(root) -> str:
+    """64 seeded 256 x 256 latent images of 2 classes whose means differ,
+    and the published classifier's recipe cut to 10 steps."""
+    os.makedirs(root, exist_ok=True)
+    size = CLASSIFIER_RECIPE["image_size"]
+    rng = np.random.default_rng(size)
+    labels = np.arange(CLASSIFIER_IMAGES) % 2
+    base = np.sin(np.linspace(0, 8 * np.pi, size))[None, :, None] * rng.uniform(
+        0.5, 1.5, size=(CLASSIFIER_IMAGES, 1, 1))
+    data = base + (labels[:, None, None] - 0.5) + 0.1 * rng.standard_normal(
+        (CLASSIFIER_IMAGES, size, size))
+    np.save(os.path.join(root, "latents.npy"), data.astype(np.float32))
+    np.save(os.path.join(root, "labels.npy"), labels)
+    return _write_yaml(os.path.join(root, "classifier.yml"), {
+        **CLASSIFIER_RECIPE, "train_data_path": os.path.join(root, "latents.npy"),
+        "label_path": os.path.join(root, "labels.npy"), "log_path": os.path.join(root, "logs")})
+
+
+def phase_classifier(root, device) -> dict:
+    """(c) ``cli.train_classifier`` on the published 256^2 classifier; (d) the
+    same classifier with flash attention against the dense build; (e)
+    classifier-guided DDPM of a class-conditional Case4-width U-Net; (f)
+    ``SuperResModel`` forward and backward against float64.  Returns the
+    flash launches of (d)."""
+    from confild_tpu_torch.cli import train_classifier
+    from confild_tpu_torch.models import unet_extras
+    from confild_tpu_torch.train.classifier_trainer import classifier_cond_fn
+    recipe = write_classifier_case(os.path.join(root, "classifier"))
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    loop = train_classifier.main([recipe])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(fa.LAUNCHES.values()):
+        raise SystemExit("the dense classifier launched a flash kernel")
+    with open(os.path.join(root, "classifier", "logs", "progress.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in rows if r.get("loss")]
+    accs = [float(r["acc"]) for r in rows if r.get("acc")]
+    step_ms = []
+    for _ in range(3):            # in memory only: the checkpoint stays as written
+        x, y = next(loop.data)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loop.run_step(x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    ck = os.path.join(root, "classifier", "logs", "model000010.pt")
+    clf = unet_extras.create_classifier(**{k: CLASSIFIER_RECIPE[k] for k in (
+        "image_size", "classifier_width", "classifier_depth",
+        "classifier_attention_resolutions", "out_channels")})
+    clf.load_state_dict(torch.load(ck, weights_only=True))
+    clf.to(device).eval().requires_grad_(False)
+    size = CLASSIFIER_RECIPE["image_size"]
+    log(f"[classifier] {size}^2, batch {CLASSIFIER_RECIPE['batch_size']}: losses "
+        f"{[round(v, 4) for v in losses]}, accuracy {accs}, CLI wall {wall:.1f} s for 10 "
+        f"steps, ms per step {[round(v, 1) for v in step_ms]}, peak {peak:.2f} GiB; "
+        f"{os.path.basename(ck)} read back")
+    if not (len(losses) == 10 and np.all(np.isfinite(losses))):
+        raise SystemExit(f"classifier training losses: {losses}")
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the flash build against the dense one: logits and cond_fn's gradient
+    flash = unet_extras.EncoderUNetModel(
+        dataclasses.replace(clf.cfg, use_flash_attention=True), pool="attention",
+        encoder_out_channels=2)
+    flash.load_state_dict(clf.state_dict())
+    flash.to(device).eval().requires_grad_(False)
+    diffusion = create_gaussian_diffusion(steps=1000, noise_schedule="cosine")
+    gen = torch.Generator(device).manual_seed(18)
+    x0 = torch.as_tensor(np.load(os.path.join(root, "classifier", "latents.npy"))[:4, None],
+                         device=device)
+    x0 = (x0 - x0.min()) / (x0.max() - x0.min()) * 2 - 1
+    ts = torch.tensor([10, 300, 600, 900])
+    xt = diffusion.q_sample(x0, ts, torch.randn(x0.shape, generator=gen, device=device))
+    y = torch.tensor([0, 1, 0, 1], device=device)
+    res = {}
+    for label, m in (("dense", clf), ("flash", flash)):
+        fa.reset_launch_counts()
+        with torch.no_grad():
+            logits = m(xt, ts.to(device))
+        grad = classifier_cond_fn(m, scale=1.0)(xt, ts.to(device), y=y)
+        torch.cuda.synchronize()
+        res[label] = (logits, grad, dict(fa.LAUNCHES))
+    counts = res["flash"][2]
+    errs = (rel_l2(res["flash"][0], res["dense"][0]), rel_l2(res["flash"][1], res["dense"][1]))
+    log(f"[classifier-flash] 1024 / 256 / 64 tokens, 64-channel heads, batch 4: logits rel "
+        f"L2 {errs[0]:.3e}, cond_fn gradient rel L2 {errs[1]:.3e} (tol {GRAD_REL_TOL}); "
+        f"flash launches {counts}, dense {res['dense'][2]}")
+    if any(res["dense"][2].values()) or not all(v > 0 for v in counts.values()):
+        raise SystemExit("the classifier's flash route did not launch every flash kernel")
+    if not all(e <= GRAD_REL_TOL for e in errs):
+        raise SystemExit("the classifier's flash route disagrees with the dense route")
+    del flash, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) classifier-guided DDPM, a class-conditional U-Net at Case4 widths
+    unet = _perturb_(tunet.create_model(**CLASS_COND_UNET).reset_parameters(
+        torch.Generator().manual_seed(19)), 20).to(device).eval().requires_grad_(False)
+    guided = create_gaussian_diffusion(steps=1000, noise_schedule="cosine",
+                                       timestep_respacing="10")
+    cond_fn = classifier_cond_fn(clf, scale=1.0)
+    kwargs = {"y": torch.tensor([0, 1, 0, 1], device=device)}
+    shape = (4, 1, size, size)
+    stamps = []
+
+    def clock(x_t, **_):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return x_t
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    out = guided.p_sample_loop(unet, shape, generator=torch.Generator(device).manual_seed(1),
+                               cond_fn=cond_fn, model_kwargs=kwargs, step_hook=clock)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = np.diff(stamps) * 1e3
+    x = torch.randn(shape, generator=torch.Generator(device).manual_seed(2), device=device)
+    tt = torch.full((4,), guided.num_timesteps - 1, dtype=torch.long)
+    means = {}
+    for dtype in (torch.float32, torch.float64):
+        u = unet if dtype == torch.float32 else _as_float64(unet)
+        c = clf if dtype == torch.float32 else _as_float64(clf)
+        pmv = guided.p_mean_variance(u, x.to(dtype), tt, model_kwargs=kwargs)
+        means[dtype] = guided.condition_mean(classifier_cond_fn(c, 1.0), pmv, x.to(dtype), tt,
+                                             kwargs)
+        del u, c
+    err = rel_l2(means[torch.float32], means[torch.float64])
+    log(f"[guided] class-conditional U-Net {size}^2 (Case4 widths, 2 classes), batch 4, 10 "
+        f"respaced steps under classifier guidance: finite {bool(torch.isfinite(out).all())}, "
+        f"ms per guided step {np.median(ms[1:]):.1f} (first {ms[0]:.1f}), peak {peak:.2f} GiB; "
+        f"one step's guided mean vs float64 rel L2 {err:.3e} (tol {GRAD_REL_TOL})")
+    if not (torch.isfinite(out).all() and err <= GRAD_REL_TOL):
+        raise SystemExit("classifier-guided sampling failed")
+    del unet, out, means
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) SuperResModel: one forward and backward against float64
+    sr = _perturb_(unet_extras.create_sr_model(*SR_MODEL).reset_parameters(
+        torch.Generator().manual_seed(21)), 22).to(device)
+    gen = torch.Generator(device).manual_seed(23)
+    large, small = SR_MODEL[:2]
+    xs = torch.randn((4, 1, large, large), generator=gen, device=device)
+    low = torch.randn((4, 1, small, small), generator=gen, device=device)
+    g = torch.randn((4, 1, large, large), generator=gen, device=device)
+    ts = torch.tensor([5, 250, 500, 999], device=device)
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        m = sr if dtype == torch.float32 else _as_float64(sr)
+        xi = xs.to(dtype).detach().requires_grad_(True)
+        o = m(xi, ts, low_res=low.to(dtype))
+        (o * g.to(dtype)).sum().backward()
+        res[dtype] = {"out": o.detach(), "dx": xi.grad,
+                      **{n: p.grad for n, p in m.named_parameters()}}
+    names = [n for n in res[torch.float32] if n not in ("out", "dx")]
+    # a conv bias straight before a one-channel-a-group GroupNorm has a zero
+    # gradient: each parameter's error is taken against the norm of all
+    # parameter gradients
+    total = torch.sqrt(sum(res[torch.float64][n].norm() ** 2 for n in names)).item()
+    errs = {"out": rel_l2(res[torch.float32]["out"], res[torch.float64]["out"]),
+            "dx": rel_l2(res[torch.float32]["dx"], res[torch.float64]["dx"]),
+            "params": rel_l2(torch.cat([res[torch.float32][n].flatten() for n in names]),
+                             torch.cat([res[torch.float64][n].flatten() for n in names]))}
+    worst = max(((res[torch.float32][n] - res[torch.float64][n]).norm().item() / total, n)
+                for n in names)
+    log(f"[super-res] create_sr_model{SR_MODEL}, batch 4, vs float64: rel L2 of the output "
+        f"{errs['out']:.3e}, of dx {errs['dx']:.3e}, of all {len(names)} parameter "
+        f"gradients {errs['params']:.3e}, the worst parameter's error over their norm "
+        f"{worst[0]:.3e} ({worst[1]}) (tol {GRAD_REL_TOL})")
+    if not all(e <= GRAD_REL_TOL for e in (*errs.values(), worst[0])):
+        raise SystemExit("SuperResModel disagrees with float64")
+    del sr, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3051,6 +3504,12 @@ def main() -> int:
             else:
                 launches[k] += v
         stamp("phase 17 (multi-device)")
+        for k, v in phase_zoo(root, device).items():
+            launches[k] += v
+        stamp("phase 18a-b (the decoder zoo)")
+        for k, v in phase_classifier(root, device).items():
+            flash_launches[k] += v
+        stamp("phase 18c-f (classifier, guidance, super-resolution)")
     launches.update(flash_launches)
 
     kernels = []

@@ -1,7 +1,10 @@
 """CNF inference API (reference ``ConditionalNeuralField/cnf/
 inference_function.py``): batched decode helpers and the checkpoint-driven
-``CNF_inference`` class.  The decode is the fused CUDA kernel
-(:mod:`confild_tpu_torch.ops.siren_decode`) on the card.
+``CNF_inference`` class.  The decoder is any name of the registry: a
+``SIRENAutodecoder_film`` decodes through the fused CUDA kernel
+(:mod:`confild_tpu_torch.ops.siren_decode`) on the card, every other one on
+the plain route (its own forward under autograd), as the JAX package decodes
+a non-FiLM decoder.
 """
 
 from __future__ import annotations
@@ -16,8 +19,9 @@ from confild_tpu_torch.core import normalize as cnorm
 from confild_tpu_torch.core.packing import create_coordinates_grid
 from confild_tpu_torch.device import resolve_device
 from confild_tpu_torch.io import convert
-from confild_tpu_torch.models.cnf import SirenFilm, create_nf
+from confild_tpu_torch.models.cnf import SirenFilm, create_nf, nf_kwargs
 from confild_tpu_torch.ops.siren_decode import siren_decode
+
 
 def _f32(x, device) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
@@ -29,7 +33,16 @@ def _inputs(coords, latents, x_normalizer, device):
     return x_normalizer.normalize(_f32(coords, device)), _f32(latents, device)
 
 
-def pass_through_model_batch(coords, latents, model: SirenFilm, x_normalizer,
+def _decode(model: torch.nn.Module, coords, rows, w0: float, use_pallas: bool):
+    """``(T, L) x (M, C) -> (T, M, C_out)``: the FiLM decoder through
+    ``siren_decode`` (the kernel when ``use_pallas``), any other decoder
+    through its forward."""
+    if isinstance(model, SirenFilm):
+        return siren_decode(model, coords, rows, w0, use_pallas)
+    return model(coords[None], rows[:, None])
+
+
+def pass_through_model_batch(coords, latents, model: torch.nn.Module, x_normalizer,
                              y_normalizer, batch_size: int = 16,
                              use_pallas: bool = True, w0: float = 30.0,
                              device=None) -> torch.Tensor:
@@ -37,13 +50,13 @@ def pass_through_model_batch(coords, latents, model: SirenFilm, x_normalizer,
     device (reference ``inference_function.py:22-48``)."""
     coords, latents = _inputs(coords, latents, x_normalizer, resolve_device(device))
     outs = [y_normalizer.denormalize(
-                siren_decode(model, coords, latents[sid:sid + batch_size], w0, use_pallas))
+                _decode(model, coords, latents[sid:sid + batch_size], w0, use_pallas))
             for sid in range(0, latents.shape[0], batch_size)]
     return torch.cat(outs, dim=0)
 
 
 @torch.no_grad()
-def decoder(coords, latents, model: SirenFilm, x_normalizer, y_normalizer,
+def decoder(coords, latents, model: torch.nn.Module, x_normalizer, y_normalizer,
             batch_size: int = 16, use_pallas: bool = True, w0: float = 30.0,
             device=None) -> np.ndarray:
     """Streaming decode without gradients: each row chunk is copied to host
@@ -51,14 +64,10 @@ def decoder(coords, latents, model: SirenFilm, x_normalizer, y_normalizer,
     ``inference_function.py:51-76`` streams to the CPU)."""
     coords, latents = _inputs(coords, latents, x_normalizer, resolve_device(device))
     outs = [y_normalizer.denormalize(
-                siren_decode(model, coords, latents[sid:sid + batch_size], w0, use_pallas)
+                _decode(model, coords, latents[sid:sid + batch_size], w0, use_pallas)
             ).cpu().numpy()
             for sid in range(0, latents.shape[0], batch_size)]
     return np.concatenate(outs, axis=0)
-
-
-def _nf_arg(nf: dict, key: str):
-    return nf.get(key, nf.get("kwargs", {}).get(key))
 
 
 class CNF_inference:
@@ -81,13 +90,9 @@ class CNF_inference:
         self.y_normalizer = cnorm.Normalizer(y_par, "-11", 0).to(self.device)
 
         nf = self.config["NF"]
-        self.model = create_nf(
-            nf["name"], in_coord_features=self.config["dims"],
-            in_latent_features=self.config["hidden_size"],
-            out_features=_nf_arg(nf, "out_features"),
-            num_hidden_layers=_nf_arg(nf, "num_hidden_layers"),
-            hidden_features=_nf_arg(nf, "hidden_features"))
-        state, latents = convert.load_cnf_checkpoint(checkpoint_path)
+        self.model = create_nf(nf["name"], **nf_kwargs(nf, self.config["dims"],
+                                                        self.config["hidden_size"]))
+        state, latents = convert.load_cnf_checkpoint(checkpoint_path, nf["name"])
         self.model.load_state_dict(state)
         self.model.to(self.device).requires_grad_(False)
         self.latents = (None if latents is None else
@@ -101,7 +106,7 @@ class CNF_inference:
                    else self.latents[torch.as_tensor(latent_indices)])
         return decoder(coords, latents, self.model, self.x_normalizer,
                        self.y_normalizer, batch_size, use_pallas=self.use_pallas,
-                       w0=self.model.w0, device=self.device)
+                       w0=getattr(self.model, "w0", 30.0), device=self.device)
 
     def get_all_predictions(self, coords, batch_size: int = 16) -> np.ndarray:
         return self.predict(coords, None, batch_size)

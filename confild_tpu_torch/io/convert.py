@@ -30,6 +30,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from confild_tpu_torch.models.cnf import NF_REGISTRY
 from confild_tpu_torch.models.unet import (AttnSpec, ConvSpec, DownSpec,
                                           ResSpec, UNetModel, UpSpec)
 
@@ -54,14 +55,42 @@ def _group_norm(sd: dict, prefix: str, p: dict) -> None:
     sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
+def _tree_state_dict(sd: dict, prefix: str, tree: Any) -> None:
+    if isinstance(tree, dict) and "kernel" in tree:
+        # a dense layer: the kernel as an (out, in) weight, its other leaves
+        # (bias, a Gabor filter's gamma and mu) as they are
+        sd[f"{prefix}.weight"] = _t(np.asarray(tree["kernel"]).T)
+        for k, v in tree.items():
+            if k != "kernel":
+                sd[f"{prefix}.{k}"] = _t(v)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            _tree_state_dict(sd, f"{prefix}.{k}" if prefix else k, v)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _tree_state_dict(sd, f"{prefix}.{i}", v)
+    else:
+        sd[prefix] = _t(tree)
+
+
+def nf_state_dict_from_jax(name: str, params: Any) -> dict[str, torch.Tensor]:
+    """The JAX parameter pytree of the registry decoder ``name`` -> the
+    port's state dict: each dense layer (``{"kernel", "bias"}``) an
+    ``nn.Linear`` at its pytree path (``net1.i`` / ``net2.i`` keep the
+    reference's ``BatchLinear`` keys, as :func:`cnf_state_dict_from_jax`),
+    every other leaf under its path as it is (``filters.i.gamma``,
+    ``hw_net.i.weight``, ``hyper_last.bias``, ``w0``, the feature map's
+    ``B``)."""
+    if name not in NF_REGISTRY:
+        raise KeyError(f"unknown NF model {name!r}; known: {sorted(NF_REGISTRY)}")
+    sd: dict[str, torch.Tensor] = {}
+    _tree_state_dict(sd, "", params)
+    return sd
+
+
 def cnf_state_dict_from_jax(params: Any) -> dict[str, torch.Tensor]:
     """``{"net1": [...], "net2": [...]}`` -> ``SirenFilm`` state dict."""
-    sd: dict[str, torch.Tensor] = {}
-    for i, layer in enumerate(params["net1"]):
-        _dense(sd, f"net1.{i}", layer)
-    for i, layer in enumerate(params["net2"]):
-        sd[f"net2.{i}.weight"] = _t(np.asarray(layer["kernel"]).T)
-    return sd
+    return nf_state_dict_from_jax("SIRENAutodecoder_film", params)
 
 
 def _unet_layer(sd: dict, prefix: str, p: dict, spec) -> None:
@@ -90,21 +119,57 @@ def _unet_layer(sd: dict, prefix: str, p: dict, spec) -> None:
 
 
 def unet_state_dict_from_jax(params: Any, model: UNetModel) -> dict[str, torch.Tensor]:
-    """JAX U-Net params -> ``UNetModel`` state dict, walking ``model.plan``."""
+    """JAX U-Net params -> ``UNetModel`` (or ``SuperResModel``) state dict,
+    walking ``model.plan``; a class-conditional model's ``label_emb`` too."""
+    sd = _torso_state_dict(params, model.plan, ("input_blocks", "middle_block",
+                                                "output_blocks"))
+    if "label_emb" in params:
+        sd["label_emb.weight"] = _t(params["label_emb"]["embedding"])
+    _group_norm(sd, "out.0", params["out_norm"])
+    _conv(sd, "out.2", params["out_conv"])
+    return sd
+
+
+def _torso_state_dict(params: Any, plan, stacks) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
     _dense(sd, "time_embed.0", params["time_embed"][0])
     _dense(sd, "time_embed.2", params["time_embed"][1])
-    plan = model.plan
-    for i, (bp, bs) in enumerate(zip(params["input_blocks"], plan.input_blocks)):
-        for j, (p, spec) in enumerate(zip(bp, bs)):
-            _unet_layer(sd, f"input_blocks.{i}.{j}", p, spec)
-    for j, (p, spec) in enumerate(zip(params["middle_block"], plan.middle_block)):
-        _unet_layer(sd, f"middle_block.{j}", p, spec)
-    for i, (bp, bs) in enumerate(zip(params["output_blocks"], plan.output_blocks)):
-        for j, (p, spec) in enumerate(zip(bp, bs)):
-            _unet_layer(sd, f"output_blocks.{i}.{j}", p, spec)
-    _group_norm(sd, "out.0", params["out_norm"])
-    _conv(sd, "out.2", params["out_conv"])
+    for stack in stacks:
+        blocks, specs = params[stack], getattr(plan, stack)
+        if stack == "middle_block":
+            blocks, specs = [blocks], [specs]
+        for i, (bp, bs) in enumerate(zip(blocks, specs)):
+            for j, (p, spec) in enumerate(zip(bp, bs)):
+                prefix = f"{stack}.{j}" if stack == "middle_block" else f"{stack}.{i}.{j}"
+                _unet_layer(sd, prefix, p, spec)
+    return sd
+
+
+def encoder_state_dict_from_jax(params: Any, model) -> dict[str, torch.Tensor]:
+    """JAX ``EncoderUNetModel`` params -> the port's (reference keys),
+    walking ``model.plan``; the head as ``model.pool`` lays it out (the
+    attention pool's ``pos_emb`` ``(N + 1, C)`` becomes the reference's
+    ``positional_embedding`` ``(C, N + 1)``, its dense ``qkv`` / ``proj``
+    the 1-D convolutions ``qkv_proj`` / ``c_proj``, as
+    ``tests/test_extras.py:58-94`` maps them)."""
+    sd = _torso_state_dict(params, model.plan, ("input_blocks", "middle_block"))
+    if model.pool == "adaptive":
+        _group_norm(sd, "out.0", params["out_norm"])
+        _conv(sd, "out.3", params["out_conv"])
+    elif model.pool == "attention":
+        _group_norm(sd, "out.0", params["out_norm"])
+        pool = params["attn_pool"]
+        sd["out.2.positional_embedding"] = _t(np.asarray(pool["pos_emb"]).T)
+        for key, name in (("qkv", "qkv_proj"), ("proj", "c_proj")):
+            sd[f"out.2.{name}.weight"] = _t(np.asarray(pool[key]["kernel"]).T[:, :, None])
+            sd[f"out.2.{name}.bias"] = _t(pool[key]["bias"])
+    else:
+        _dense(sd, "out.0", params["out_fc1"])
+        if model.pool == "spatial_v2":
+            _group_norm(sd, "out.1", params["out_norm"])
+            _dense(sd, "out.3", params["out_fc2"])
+        else:
+            _dense(sd, "out.2", params["out_fc2"])
     return sd
 
 
@@ -192,9 +257,9 @@ def adam_state_from_jax(opt_state, layout: str = "decoder",
     optax Adam state (``ScaleByAdamState`` inside the ``optax.adam`` or
     ``optax.adamw`` chain): ``{name: {"step", "exp_avg", "exp_avg_sq"}}``.
 
-    ``layout="decoder"``: ``mu`` / ``nu`` are parameter pytrees and go
-    through :func:`cnf_state_dict_from_jax` (kernels transposed), keyed by
-    the ``SirenFilm`` state-dict names.  ``layout="unet"``: the same through
+    ``layout="decoder"``: ``mu`` / ``nu`` are a registry decoder's parameter
+    pytrees and go through :func:`nf_state_dict_from_jax` (kernels
+    transposed), keyed by its state-dict names.  ``layout="unet"``: the same through
     :func:`unet_state_dict_from_jax` for ``model``, keyed by the U-Net's
     names.  ``layout="latents"``: one table, keyed ``"latents"``."""
     adam = _find_adam(opt_state)
@@ -235,14 +300,16 @@ def latents_from_hidden_states(hidden_states) -> np.ndarray:
     return arr.reshape(arr.shape[0], arr.shape[-1]) if arr.ndim > 2 else arr
 
 
-def load_cnf_checkpoint(path: str) -> tuple[dict, np.ndarray | None]:
-    """(SirenFilm state dict, latents or None) from ``.pt`` or ``.ckpt``."""
+def load_cnf_checkpoint(path: str, name: str = "SIRENAutodecoder_film"
+                        ) -> tuple[dict, np.ndarray | None]:
+    """(state dict of the registry decoder ``name``, latents or None) from
+    ``.pt`` or ``.ckpt``."""
     if path.endswith(".pt"):
         ck = read_pt(path)
         state = _strip_module(ck["model_state_dict"])
     else:
         ck = read_ckpt(path)
-        state = cnf_state_dict_from_jax(ck["model_state_dict"])
+        state = nf_state_dict_from_jax(name, ck["model_state_dict"])
     hs = ck.get("hidden_states")
     return state, (None if hs is None else latents_from_hidden_states(hs))
 

@@ -50,17 +50,22 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
     return emb
 
 
+# activation dtypes whose GroupNorm is torch's own (statistics in that dtype)
+_FULL_PRECISION = (torch.float32, torch.float64)
+
+
 class GroupNorm32(nn.GroupNorm):
     """GroupNorm with float32 statistics (``src/nn.py:17-19``), the output
     in the activation dtype; torch's eps default 1e-5; ``min(32,
-    channels)`` groups as the JAX package.  A float32 input takes torch's
-    ``group_norm``; any other (the bf16 torso) :class:`_GroupNormLowp`."""
+    channels)`` groups as the JAX package.  A float32 input (or a float64
+    one, a reference run) takes torch's ``group_norm``; any other (the bf16
+    torso) :class:`_GroupNormLowp`."""
 
     def __init__(self, channels: int, num_groups: int = 32):
         super().__init__(min(num_groups, channels), channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == torch.float32:
+        if x.dtype in _FULL_PRECISION:
             return super().forward(x)
         return _GroupNormLowp.apply(x, self.weight, self.bias, None, None, self.num_groups,
                                     self.eps, False)
@@ -153,8 +158,8 @@ def group_norm_silu(norm: GroupNorm32, x: torch.Tensor,
                     film_shift: torch.Tensor | None = None) -> torch.Tensor:
     """``silu(norm(x) * (1 + film_scale) + film_shift)``, the ResBlock chain
     of ``src/unet.py:233-241`` with the optional scale-shift modulation
-    (off float32 one :class:`_GroupNormLowp`)."""
-    if x.dtype != torch.float32:
+    (below float32 one :class:`_GroupNormLowp`)."""
+    if x.dtype not in _FULL_PRECISION:
         return _GroupNormLowp.apply(x, norm.weight, norm.bias, film_scale, film_shift,
                                     norm.num_groups, norm.eps, True)
     h = norm(x)

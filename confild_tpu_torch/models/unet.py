@@ -138,6 +138,7 @@ class UNetConfig:
     channel_mult: tuple[float, ...] = (1, 2, 4, 8)
     conv_resample: bool = True
     dims: int = 2
+    num_classes: int | None = None     # class-conditional: a label embedding
     num_heads: int = 1
     num_head_channels: int = -1
     num_heads_upsample: int = -1
@@ -320,11 +321,12 @@ class AttentionBlock(nn.Module):
             out = flash_attention(*(t.transpose(1, 2) for t in (q, k, v)))
             out = out.transpose(1, 2).reshape(b, c, n)
         else:
-            # float32 logits and softmax, the weights in the activation
-            # dtype; q and k are scaled in float32, as JAX's product with a
-            # NumPy scalar promotes them
+            # float32 logits and softmax (float64 in a float64 run), the
+            # weights in the activation dtype; q and k are scaled in float32,
+            # as JAX's product with a NumPy scalar promotes them
             scale = 1.0 / np.sqrt(np.sqrt(d))
-            logits = torch.einsum("bct,bcs->bts", q.float() * scale, k.float() * scale)
+            up = torch.promote_types(q.dtype, torch.float32)
+            logits = torch.einsum("bct,bcs->bts", q.to(up) * scale, k.to(up) * scale)
             weights = torch.softmax(logits, dim=-1).type(x.dtype)
             out = torch.einsum("bts,bcs->bct", weights, v).reshape(b, c, n)
         return (h + self.proj_out(out)).reshape(b, c, *spatial)
@@ -373,8 +375,41 @@ class TimestepEmbedSequential(nn.Sequential):
         return x
 
 
+@torch.no_grad()
+def reset_unet_parameters(model: nn.Module, zeroed: Sequence[nn.Module],
+                          generator: torch.Generator | None = None):
+    """torch's default ``±1/sqrt(fan_in)`` uniform for every convolution and
+    linear layer of ``model`` from ``generator``, unit GroupNorms, standard
+    normal embeddings; each ResBlock's output convolution, each attention
+    projection and the layers in ``zeroed`` zeroed."""
+    zeroed = {id(m) for m in zeroed}
+    for m in model.modules():
+        if isinstance(m, ResBlock):
+            zeroed.add(id(m.out_layers[3]))
+        elif isinstance(m, AttentionBlock):
+            zeroed.add(id(m.proj_out))
+    for m in model.modules():
+        if isinstance(m, nn.GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
+        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
+            if id(m) in zeroed:
+                m.weight.zero_()
+                m.bias.zero_()
+                continue
+            bound = 1.0 / np.sqrt(m.weight[0].numel())
+            for t in (m.weight, m.bias):
+                t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
+    return model
+
+
 class UNetModel(nn.Module):
-    """``model(x, timesteps)`` with ``x`` ``(B, C, *spatial)``.  ``seq_mesh``:
+    """``model(x, timesteps, y=None)`` with ``x`` ``(B, C, *spatial)`` and,
+    for a class-conditional model (``cfg.num_classes``), int labels ``y``
+    ``(B,)`` whose embedding ``label_emb`` adds to the timestep embedding
+    (``confild_tpu/models/unet.py:520-522``).  ``seq_mesh``:
     a :class:`~confild_tpu_torch.parallel.mesh.DataMesh` over which the
     attention blocks of at least ``ring_min_tokens`` tokens run ring
     attention; every rank of it runs the model on the same batch (the batch
@@ -388,6 +423,8 @@ class UNetModel(nn.Module):
         mc, emb_ch = cfg.model_channels, cfg.emb_ch
         self.time_embed = nn.Sequential(nn.Linear(mc, emb_ch), nn.SiLU(),
                                         nn.Linear(emb_ch, emb_ch))
+        if cfg.num_classes is not None:
+            self.label_emb = nn.Embedding(cfg.num_classes, emb_ch)
         self.input_blocks = nn.ModuleList(
             TimestepEmbedSequential(*map(_layer, block)) for block in self.plan.input_blocks)
         self.middle_block = TimestepEmbedSequential(*map(_layer, self.plan.middle_block))
@@ -405,29 +442,12 @@ class UNetModel(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None) -> "UNetModel":
         """The reference's initialisation from ``generator``: torch's default
         ``±1/sqrt(fan_in)`` uniform for every convolution and linear layer,
-        unit GroupNorms, and the ``zero_module`` layers (each ResBlock's
-        output convolution, each attention projection and the final
-        convolution, reference ``unet.py:216-223,290,660``) zeroed, as the
-        JAX ``init`` zeroes them."""
-        zeroed = {id(self.out[2])}
-        for m in self.modules():
-            if isinstance(m, ResBlock):
-                zeroed.add(id(m.out_layers[3]))
-            elif isinstance(m, AttentionBlock):
-                zeroed.add(id(m.proj_out))
-        for m in self.modules():
-            if isinstance(m, nn.GroupNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-            elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
-                if id(m) in zeroed:
-                    m.weight.zero_()
-                    m.bias.zero_()
-                    continue
-                bound = 1.0 / np.sqrt(m.weight[0].numel())
-                for t in (m.weight, m.bias):
-                    t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
-        return self
+        unit GroupNorms, a standard normal label embedding, and the
+        ``zero_module`` layers (each ResBlock's output convolution, each
+        attention projection and the final convolution, reference
+        ``unet.py:216-223,290,660``) zeroed, as the JAX ``init`` zeroes
+        them."""
+        return reset_unet_parameters(self, [self.out[2]], generator)
 
     def torso_layers(self):
         """The convolutions of the input, middle and output blocks: the
@@ -461,9 +481,15 @@ class UNetModel(nn.Module):
         return checkpoint(block, h, emb, use_reentrant=False, preserve_rng_state=True,
                           **context)
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                y: torch.Tensor | None = None) -> torch.Tensor:
         cfg = self.cfg
-        emb = self.time_embed(tnn.timestep_embedding(timesteps, cfg.model_channels))
+        emb = self.time_embed(tnn.timestep_embedding(timesteps, cfg.model_channels).to(
+            self.time_embed[0].weight.dtype))
+        if cfg.num_classes is not None:
+            if y is None:
+                raise ValueError("a class-conditional model needs labels y")
+            emb = emb + self.label_emb(y.to(emb.device))
         hs = []
         h = x.to(cfg.torso_dtype)
         for block in self.input_blocks:
@@ -498,7 +524,8 @@ def _tokens(image_size: int, dims: int, ds: int) -> int:
 def create_model(image_size: int, num_channels: int, num_res_blocks: int,
                  dims: int = 2, out_channels: int = 1,
                  channel_mult: str | Sequence[float] | None = None,
-                 learn_sigma: bool = False, attention_resolutions: str = "16",
+                 learn_sigma: bool = False, class_cond: bool = False,
+                 num_classes: int = 1000, attention_resolutions: str = "16",
                  num_heads: int = 1, num_head_channels: int = -1,
                  num_heads_upsample: int = -1, use_scale_shift_norm: bool = False,
                  dropout: float = 0.0, resblock_updown: bool = False,
@@ -508,8 +535,9 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
                  use_bf16: bool = False, use_fp16: bool = False,
                  use_f32_tail: bool = False, sequence_parallel_mesh=None) -> UNetModel:
     """The U-Net of a recipe (``confild_tpu/models/unet.py:595-674``);
-    ``use_fp16`` means a bf16 torso, as in the JAX package;
-    ``sequence_parallel_mesh`` is the model's ``seq_mesh``."""
+    ``use_fp16`` means a bf16 torso, as in the JAX package; ``class_cond``
+    gives it ``num_classes`` label embeddings; ``sequence_parallel_mesh`` is
+    the model's ``seq_mesh``."""
     if channel_mult is None:
         if image_size not in _DEFAULT_CHANNEL_MULT:
             raise ValueError(f"unsupported image size: {image_size}")
@@ -537,7 +565,8 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
         image_size=image_size, in_channels=out_channels, model_channels=num_channels,
         out_channels=out_channels if not learn_sigma else 2 * out_channels,
         num_res_blocks=num_res_blocks, attention_resolutions=attention_ds,
-        dropout=dropout, channel_mult=channel_mult, dims=dims, num_heads=num_heads,
+        dropout=dropout, channel_mult=channel_mult, dims=dims,
+        num_classes=num_classes if class_cond else None, num_heads=num_heads,
         num_head_channels=num_head_channels, num_heads_upsample=num_heads_upsample,
         use_scale_shift_norm=use_scale_shift_norm, resblock_updown=resblock_updown,
         use_new_attention_order=use_new_attention_order,

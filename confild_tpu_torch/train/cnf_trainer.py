@@ -17,12 +17,17 @@ Training dynamics reproduced exactly (they carry load):
 * MSE on normalized fields; an rMAE eval on denormalized fields and a
   checkpoint at every ``save_every`` boundary and at the last epoch.
 
-On the card the decode is the fused train op (forward kernel; backward the
-training kernel, ``csrc/siren_decode_bwd.cu``); ``use_fused_decode: false``
-takes the plain ``siren_film_apply`` autograd path, as the JAX jnp path
-does.  ``extra_siren_in`` (a parametric CNF: a scalar per sample prepended
-as a coordinate channel, ``SIRENAutodecoder_film_extra_in``) trains on the
-plain path too, as in the JAX trainer.  Plain Python loops take the place
+The decoder is any name of the registry (``NF.name``; the zoo of
+``models/cnf_zoo.py``), called as ``model(coords, rows)`` wherever the JAX
+trainer calls ``model(params, coords, rows)``.  On the card the
+``SIRENAutodecoder_film`` decode is the fused train op (forward kernel;
+backward the training kernel, ``csrc/siren_decode_bwd.cu``), as the JAX
+trainer fuses that name only (``cnf_trainer.py:194-202``);
+``use_fused_decode: false``, every other name and ``extra_siren_in`` (a
+parametric CNF: a scalar per sample prepended as a coordinate channel,
+``SIRENAutodecoder_film_extra_in``) take the plain autograd path, as the JAX
+jnp path does.  Every decoder parameter (``SIRENAutodecoder_tw_film``'s
+``w0`` too) steps with the decoder's Adam.  Plain Python loops take the place
 of the JAX trainer's ``lax.scan``.
 
 Data parallelism (``mesh``, the JAX trainer's ``shard_map`` over the batch,
@@ -54,7 +59,6 @@ from confild_tpu_torch.device import resolve_device
 from confild_tpu_torch.io import checkpoint as ckpt_io
 from confild_tpu_torch.io import convert
 from confild_tpu_torch.models import cnf as cnf_models
-from confild_tpu_torch.models.cnf import siren_film_apply, siren_film_extra_in_apply
 from confild_tpu_torch.ops.siren_decode import fused_siren_decode, fused_siren_decode_train
 from confild_tpu_torch.parallel import mesh as pmesh
 from confild_tpu_torch.train.schedulers import cosine_decay_schedule
@@ -200,24 +204,30 @@ class CNFTrainer:
                 key: tuple(torch.as_tensor(np.asarray(p)) for p in norm.get_params())
                 for key, norm in fitted.items()})
 
-        if self.extra_siren_in is not None:
-            # the extra scalar is one more coordinate channel (reference
-            # :229-240)
-            nf_spec = hp.NF
-            self.model = cnf_models.create_nf(
-                nf_spec["name"], in_coord_features=hp.dims + 1,
-                in_latent_features=hp.hidden_size, out_features=nf_spec["out_features"],
-                num_hidden_layers=nf_spec["num_hidden_layers"],
-                hidden_features=nf_spec["hidden_features"]).to(self.device)
-        else:
-            self.model = cnf_models.siren_film_from_recipe(hp).to(self.device)
-        self.w0 = self.model.w0
-        nf_name = hp.NF["name"] if isinstance(hp.NF, dict) else hp.NF.get("name")
-        # the kernels take the plain FiLM decoder; the extra-input variant
-        # trains on the plain path, as in the JAX trainer
+        # built on the device: a hypernetwork decoder's constructor draws
+        # its 0.85 G parameters there (init_state draws the seeded init)
+        with torch.device(self.device):
+            if self.extra_siren_in is not None:
+                # the extra scalar is one more coordinate channel (reference
+                # :229-240)
+                nf_spec = hp.NF
+                self.model = cnf_models.create_nf(
+                    nf_spec["name"], in_coord_features=hp.dims + 1,
+                    in_latent_features=hp.hidden_size, out_features=nf_spec["out_features"],
+                    num_hidden_layers=nf_spec["num_hidden_layers"],
+                    hidden_features=nf_spec["hidden_features"])
+            else:
+                self.model = cnf_models.siren_film_from_recipe(hp)
+        self.nf_name = hp.NF["name"] if isinstance(hp.NF, dict) else hp.NF.get("name")
+        # the kernels take the plain FiLM decoder; every other decoder and
+        # the extra-input variant train on the plain path, as in the JAX
+        # trainer
         self.use_fused_decode = (bool(hp.get("use_fused_decode", True))
-                                 and nf_name == "SIRENAutodecoder_film"
+                                 and self.nf_name == "SIRENAutodecoder_film"
                                  and self.extra_siren_in is None)
+        # the FiLM decoder's frequency, which the fused route takes (None for
+        # the zoo's decoders: tw_film's w0 is a parameter)
+        self.w0 = self.model.w0 if isinstance(self.model, cnf_models.SirenFilm) else None
 
         if not infer_mode:
             dev = self.device
@@ -346,8 +356,7 @@ class CNFTrainer:
             out = fused_siren_decode_train(self.model, self.flat_coords, rows, self.w0)
             target = self.flat_fois[idx]
         else:
-            out = siren_film_apply(self.model, self.normed_coords, self.expand_latents(rows),
-                                   self.w0)
+            out = self.model(self.normed_coords, self.expand_latents(rows))
             target = self.normed_fois[idx]
         loss = LOSS_FNS[hp.loss_fn](out, target)
         latent_l2 = float(hp.get("latent_l2", 0.0) or 0.0)   # opt-in code prior
@@ -361,8 +370,7 @@ class CNFTrainer:
         (reference basic_set :34-38)."""
         ex = self.normed_extra[idx % self.n_extra].reshape(
             (idx.shape[0],) + (1,) * (len(self.spatio_shape) + 1))
-        return siren_film_extra_in_apply(self.model, (self.normed_coords, ex),
-                                         self.expand_latents(rows), self.w0)
+        return self.model((self.normed_coords, ex), self.expand_latents(rows))
 
     def _apply_nf_step(self) -> None:
         """The once-per-epoch decoder step on the summed gradients; a
@@ -481,8 +489,7 @@ class CNFTrainer:
                 pred = fused_siren_decode(self.model, self.flat_coords, rows, self.w0)
                 err = criteria(denorm(pred), denorm(self.flat_fois[idx]), (1,))
             else:
-                pred = siren_film_apply(self.model, self.normed_coords,
-                                        self.expand_latents(rows), self.w0)
+                pred = self.model(self.normed_coords, self.expand_latents(rows))
                 err = criteria(denorm(pred), denorm(self.normed_fois[idx]), self.spatio_axis)
             total = total + err.sum(dim=0)
         if self.mesh is not None:
@@ -536,7 +543,7 @@ class CNFTrainer:
         ck = convert.read_ckpt(path)
         opt_nf, opt_lat = ck.get("optim_net_dec_dict"), ck.get("optim_states_dict")
         return self._restore(
-            ck, convert.cnf_state_dict_from_jax(ck["model_state_dict"]),
+            ck, convert.nf_state_dict_from_jax(self.nf_name, ck["model_state_dict"]),
             convert.adam_state_from_jax(opt_nf, "decoder") if opt_nf else None,
             convert.adam_state_from_jax(opt_lat, "latents") if opt_lat else None, siren_only)
 
@@ -597,8 +604,6 @@ class CNFTrainer:
         # one singleton per coordinate grid axis, for coords of any rank
         n_ones = max(coord.ndim - 1, 1)
         return torch.cat([
-            denorm(siren_film_apply(
-                self.model, coord,
-                latents[lo:lo + chunk].reshape(-1, *(1,) * n_ones, latents.shape[-1]),
-                self.w0))
+            denorm(self.model(
+                coord, latents[lo:lo + chunk].reshape(-1, *(1,) * n_ones, latents.shape[-1])))
             for lo in range(0, n_rows, chunk)])

@@ -21,8 +21,10 @@ from confild_tpu_torch.diffusion import create_gaussian_diffusion
 from confild_tpu_torch.diffusion.resample import LossSecondMomentResampler
 from confild_tpu_torch.io import checkpoint as ckpt_io
 from confild_tpu_torch.models import unet as tunet
+from confild_tpu_torch.models.unet_extras import create_classifier
 from confild_tpu_torch.ops.ring_attention import ring_attention
 from confild_tpu_torch.parallel import mesh as pmesh
+from confild_tpu_torch.train.classifier_trainer import ClassifierTrainLoop
 from confild_tpu_torch.train.cnf_trainer import CNFTrainer
 from confild_tpu_torch.train.diffusion_trainer import TrainLoop
 from confild_tpu_torch.utils import logger as tlog
@@ -156,6 +158,25 @@ def task_cnf_hybrid(d):
 
 def task_dps(d):
     return sample_conditional.main([os.path.join(d, "dps.yml")])
+
+
+def task_classifier(d):
+    """Two ``ClassifierTrainLoop`` steps on the global batch with the given
+    draws (DDP over the mesh), then a rank-0 save read back on every rank."""
+    inp = torch.load(os.path.join(d, "classifier.pt"), weights_only=False)
+    tlog.configure(os.path.join(d, "logs"), [])
+    model = create_classifier(**inp["config"])
+    model.load_state_dict(inp["state_dict"])
+    loop = ClassifierTrainLoop(model=model, diffusion=create_gaussian_diffusion(
+        steps=20, noise_schedule="cosine"), data=None, batch_size=4, lr=3e-3,
+        lr_anneal_steps=4, save_dir=os.path.join(d, "clf"), mesh=pmesh.get_mesh(),
+        device="cpu")
+    res = {"metrics": [loop.train_step(*step) for step in inp["steps"]],
+           "grads": {n: p.grad.clone() for n, p in loop.model.named_parameters()},
+           "params": {k: v.clone() for k, v in loop.model.state_dict().items()}}
+    saved = torch.load(loop.save()["model"], weights_only=True)
+    res["read_back"] = all(torch.equal(saved[k], v) for k, v in loop.model.state_dict().items())
+    return res
 
 
 def main():
