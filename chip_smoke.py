@@ -213,9 +213,9 @@ Phases, each fatal on failure:
     no mesh), a ``TrainLoop`` step of the Case4 U-Net (flash forced,
     phase 5's seeded weights, global batch 8, phase 11's draws), and
     ``cli.sample_conditional`` with a 2-member ensemble at 10 and 1024
-    sensors (one process also with every U-Net weight one float32 ulp
-    up, to measure how far the guided trajectory carries a rounding
-    difference):
+    sensors, 1000 steps respaced to 5 (one process also with every U-Net
+    weight one float32 ulp up, to measure how far the guided trajectory
+    carries a rounding difference):
     (b) two ranks spawned on this card over gloo (NCCL refuses two ranks
     on one device; each rank passes ``cuda:0`` and joins within
     ``RANK_JOIN_S``): the CNF gradients before each optimizer's first step
@@ -242,8 +242,9 @@ Phases, each fatal on failure:
     ``SIRENAutodecoder_tw_film``, ``FNAutodecoder_film``,
     ``GNAutodecoder_film``, ``SIRENAutodecoder_fp``,
     ``SIRENAutodecoder_mdf_film``) through ``cli.train_cnf`` on phase 9's
-    recipe (Case4 widths) over 8 seeded snapshots of 65536 points (a
-    quarter of Case4's, for plain autograd's activations), lr 1e-5 / 1e-3
+    recipe (Case4 widths; the two hypernetwork decoders, fp and mdf, cut to
+    3 hidden layers, ``ZOO_DEPTH``) over 8 seeded snapshots of 65536 points
+    (a quarter of Case4's, for plain autograd's activations), lr 1e-5 / 1e-3
     (``ZOO_LR``): 2 epochs and a 1-epoch resume, losses finite and falling, tw_film's ``w0`` moved, no
     kernel launched (the plain route), ms per batch step and peak memory;
     ``cli.eval_cnf`` on the residual decoder's checkpoint, its decode held
@@ -271,11 +272,46 @@ Phases, each fatal on failure:
     parameter's gradient).
     Phase 18's flash launches are added to the kernels' counts, and so are
     the SIREN launches of its FiLM run.
+19. the SIREN kernels at every width a FiLM recipe may ask for (hidden
+    widths up to 1024, up to 16 coordinates and outputs; blocks of 16
+    pairs above 512), on
+    ``recipes/cnf/case4.yml`` with ``hidden_features`` 1024 and
+    ``out_features`` 5 (``WIDE_CNF``: 3 -> 1024 x 16 modulated layers -> 5,
+    which the kernels refused before):
+    (a) every SIREN kernel (float32 and bf16 forward, dz, training
+    backward) against its plain version and float64 under the criteria of
+    phases 3, 15, 4 and 7, with bitwise repeats, at H = 576, 640, 768 and
+    896 with 3 -> 5 (six modulated layers), at H = 1024 with 16 -> 16 and
+    at 384 with 3 -> 16 (six layers), and at ``WIDE_CNF`` (also a ragged 3
+    x 3001 forward): the forwards at 4 x 16384, dz at a ragged 64 x 1000
+    (also against the training backward's), the training backward at 4 x
+    16384, and at ``WIDE_CNF`` also at the shapes (b) and (c) give them,
+    several chunks of 65536 pairs: dz at 384 x 1000 (also against the
+    training backward's) and the training backward at 4 x 65536; each
+    width's registers, spills and shared memory;
+    (e) at ``WIDE_CNF`` the float32 forward, the training backward and the
+    bf16 forward at 4 x 262144 and dz at 384 x 1000 timed (medians of 3,
+    beside their bounds and plain versions; the plain training backward
+    over chunks of the points), and the forward and training backward of
+    the two C = 16 decoders at 4 x 65536;
+    (b) ``cli.train_cnf`` on the recipe over 4 seeded 5-field snapshots of
+    65536 points, 2 epochs and a 1-epoch resume at phase 18's latent
+    learning rate and a tenth of its decoder rate (``WIDE_LR``): losses
+    finite and falling, ms per batch step, peak memory, the forward and
+    training-backward kernels launched;
+    (c) ``cli.sample_conditional`` with phase 5's Case4 U-Net and the
+    decoder (b) trained, 1000 steps respaced to 10, at 1000 sensors (384 x
+    1000 pairs: the operator on the forward and dz kernels), and (d) the
+    CLI's full-field decode of the 384 rows at phase 5's 4096 points
+    through ``inference.decoder`` (the forward kernel): fields finite and
+    of 5 channels.  (b)'s and (c)'s launches (zeroed before each run, read
+    after) are the H = 1024 rows' counts.
 
 The script imports nothing of JAX or of ``confild_tpu``.  With no CUDA
 device it exits non-zero and prints no result.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
-(the rows at H = 448 and 512 with 0 launches: no main path runs them).
+(the rows at H = 448 and 512 and at C = 16 with 0 launches: no main path
+runs them; the rows at H = 1024 with phase 19's).
 """
 
 from __future__ import annotations
@@ -293,6 +329,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -484,12 +521,29 @@ def kernel_label(line: str) -> str | None:
             f"{'bf16' if 'bfloat16' in found.group(3) else 'f32'}>")
 
 
-def hmma_counts(path) -> dict:
-    """Tensor-core instructions (``HMMA``) per kernel in the SASS of a built
-    library, from ``cuobjdump -sass``."""
+def hmma_counts(paths) -> dict:
+    """Tensor-core instructions (``HMMA``) per kernel in the SASS of the
+    built libraries, from ``cuobjdump -sass``: one process per kernel (the
+    kernels that ``cuobjdump -res-usage`` lists), as many at once as there
+    are CPU cores."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
-                          check=True).stdout
+
+    def cuobjdump(*args) -> str:
+        proc = subprocess.run([tool, *args], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"cuobjdump {args[0]} failed with code {proc.returncode}")
+        return proc.stdout
+    jobs = [(fun, str(path)) for path in paths
+            for fun in re.findall(r"Function (\S+?):", cuobjdump("-res-usage", str(path)))]
+    counts = {}
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        for sass in pool.map(lambda job: cuobjdump("-sass", "-fun", *job), jobs):
+            counts.update(hmma_in(sass))
+    return counts
+
+
+def hmma_in(sass: str) -> dict:
+    """``HMMA`` instructions per kernel in a ``cuobjdump -sass`` listing."""
     counts, kernel = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -515,9 +569,8 @@ def phase_build():
     log(f"[build] {', '.join(p.name for p in paths)} in {dt:.2f} s")
     # one line per kernel instantiation: registers and spills (ptxas -v),
     # and for the tensor-core libraries the HMMA count of each kernel
-    hmma = {}
-    for lib in ("flash_attention", "siren_decode", "siren_decode_bwd"):
-        hmma.update(hmma_counts(cuda_build.library_path(lib)))
+    hmma = hmma_counts(cuda_build.library_path(lib) for lib in (
+        "flash_attention", "siren_decode", "siren_decode_bwd"))
     for name in names:
         kernel, spill = None, ""
         for line in cuda_build.build_logs.get(name, "").splitlines():
@@ -618,9 +671,10 @@ def forward_check(model, device, rows, points, seed, label) -> float:
     return err_k
 
 
-def forward_time(model, device, rows, points, seed) -> dict:
-    """The forward kernel at ``rows x points``: median of 7 separately timed
-    calls with the least and largest and the SM clocks around them, each
+def forward_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
+    """The forward kernel at ``rows x points``: median of ``repeats``
+    separately timed calls with the least and largest and the SM clocks
+    around them, each
     of its kernels' device time (torch.profiler) with the rate of
     products, the plain version's time, the bound, and the bytes that the
     blocks read of the split weight stream (from L2)."""
@@ -628,10 +682,10 @@ def forward_time(model, device, rows, points, seed) -> dict:
     fn = lambda: sd.decode_forward(coords, z, *ops)
     with torch.no_grad():
         log(f"[forward-time] SM clock, max before: {sm_clocks()}")
-        ms, least, largest = cuda_median(fn, 1)
+        ms, least, largest = cuda_median(fn, 1, repeats)
         log(f"[forward-time] SM clock, max after: {sm_clocks()}")
-        plain_ms = cuda_median(lambda: sd.decode_forward_plain(coords, z, *ops), 3,
-                               repeats=1)[0]
+        plain_ms = cuda_median(lambda: sd.decode_forward_plain(coords, z, *ops),
+                               3 if repeats > 3 else 1, repeats=1)[0]
         prof = device_profile(f"forward {rows}x{points}", fn, top=3)
     n_mod, h = z.shape[0], z.shape[2]
     c_in, c_out = coords.shape[1], ops[2].shape[1]
@@ -661,7 +715,7 @@ def forward_time(model, device, rows, points, seed) -> dict:
         + (f" ({stream / 1e9 / fwd_ms:.2f} TB/s over the forward's device time)"
            if fwd_ms else ""))
     log(f"[forward] {rows}x{points} H={h}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median "
-        f"of 7 ({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms, bound "
+        f"of {repeats} ({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_by}; every flop on the CUDA cores: "
         f"{bound(flops, nbytes)[0]:.3f} ms); library: none (no single PyTorch call "
         f"computes it)")
@@ -747,9 +801,9 @@ def peak_above(fn) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
-def dz_time(model, device, rows, points, seed) -> dict:
-    """The dz kernel at ``rows x points``: median of 7 separately timed
-    calls with the least and largest and the SM clocks around them, the
+def dz_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
+    """The dz kernel at ``rows x points``: median of ``repeats`` separately
+    timed calls with the least and largest and the SM clocks around them, the
     device time of the chain, the fold and the split (torch.profiler) with
     the rate of products, the peak workspace, the plain version's time and
     the bound."""
@@ -760,10 +814,11 @@ def dz_time(model, device, rows, points, seed) -> dict:
     pairs = rows * points
     with torch.no_grad():
         log(f"[dz-time] SM clock, max before: {sm_clocks()}")
-        ms, least, largest = cuda_median(fn, 1 if pairs > 65536 else 5)
+        ms, least, largest = cuda_median(fn, 1 if pairs > 65536 else 5, repeats)
         log(f"[dz-time] SM clock, max after: {sm_clocks()}")
         peak = peak_above(fn)
-        plain_ms = cuda_median(lambda: sd.decode_dz_plain(coords, z, g, *ops), 3, repeats=1)[0]
+        plain_ms = cuda_median(lambda: sd.decode_dz_plain(coords, z, g, *ops),
+                               3 if repeats > 3 else 1, repeats=1)[0]
         prof = device_profile(f"dz {rows}x{points}", fn, top=4)
     dz_mib = 4 * z.numel() / 2**20
     log(f"[dz-time] {rows}x{points}: peak memory above inputs {peak * 1024:.1f} MiB: dz "
@@ -783,7 +838,8 @@ def dz_time(model, device, rows, points, seed) -> dict:
     nbytes = 4 * (points * c_in + n_mod * rows * h + pairs * c_out + c_in * h
                   + (n_mod - 1) * h * h + h * c_out + n_mod * rows * h)
     bound_ms, bound_by = tc_bound(mat, nbytes, act / PEAK_F32_FLOPS)
-    log(f"[dz] {rows}x{points}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median of 7 "
+    log(f"[dz] {rows}x{points} H={h}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median of "
+        f"{repeats} "
         f"({products / ms / 1e9:.2f} TFLOP/s of products), plain {plain_ms:.3f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_by}; every flop on the CUDA cores: "
         f"{bound(mat + act, nbytes)[0]:.3f} ms); library: none (no single PyTorch call "
@@ -1093,19 +1149,33 @@ def phase_bwd(device, results):
                                        max_abs_err=max_abs_err)
 
 
-def bwd_time(model, device, rows, points, seed) -> dict:
-    """The training backward at ``rows x points``: the median of 7
-    separately timed calls with the SM clocks around them, the plain
-    version's time and peak memory, the bound, and each of its kernels'
-    device time from one profiled call."""
+# bytes of the pre-activations that the plain training backward keeps at
+# once: above them it runs over the points in chunks
+PLAIN_BWD_BYTES = 30e9
+
+
+def bwd_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
+    """The training backward at ``rows x points``: the median of
+    ``repeats`` separately timed calls with the SM clocks around them, the
+    plain version's time and peak memory (over chunks of the points when
+    its pre-activations would pass ``PLAIN_BWD_BYTES``; the cotangents sum
+    over the points), the bound, and each of its kernels' device time from
+    one profiled call."""
     coords, latents, g, z, ops, w2, scale = bwd_case(model, device, rows, points, seed)
     n_mod = z.shape[0]
+    step = points
+    while 4 * n_mod * rows * step * z.shape[2] > PLAIN_BWD_BYTES:
+        step = -(-step // 2)
+
+    def plain():
+        for lo in range(0, points, step):
+            sd.decode_bwd_plain(coords[lo:lo + step], z, g[:, lo:lo + step].contiguous(), *ops)
     with torch.no_grad():
         log(f"[bwd-time] SM clock, max before: {sm_clocks()}")
-        ms, least, largest = cuda_median(lambda: sd.decode_bwd(coords, z, g, *ops), 1)
+        ms, least, largest = cuda_median(lambda: sd.decode_bwd(coords, z, g, *ops), 1, repeats)
         log(f"[bwd-time] SM clock, max after: {sm_clocks()}")
         torch.cuda.reset_peak_memory_stats()
-        plain_ms = cuda_median(lambda: sd.decode_bwd_plain(coords, z, g, *ops), 2, repeats=1)[0]
+        plain_ms = cuda_median(plain, 2 if repeats > 3 else 1, repeats=1)[0]
         plain_peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
     h, c_in, c_out = z.shape[2], coords.shape[1], g.shape[2]
@@ -1132,10 +1202,12 @@ def bwd_time(model, device, rows, points, seed) -> dict:
         log(f"[bwd-time] {part}: {dev_ms:.3f} ms device, {sum(n for _, n in hits)} "
             f"launches{rate}")
     log(f"[bwd] {rows}x{points} H={h}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median "
-        f"of 7 ({flops / ms / 1e9:.2f} TFLOP/s), bound {bound_ms:.3f} ms ({bound_by}, "
+        f"of {repeats} ({flops / ms / 1e9:.2f} TFLOP/s), bound {bound_ms:.3f} ms ({bound_by}, "
         f"{flops / 1e12:.2f} TFLOP; every flop on the CUDA cores: "
-        f"{bound(flops, nbytes)[0]:.3f} ms); plain {plain_ms:.3f} ms (peak memory "
-        f"{plain_peak:.2f} GiB); library: none (no single PyTorch call computes it)")
+        f"{bound(flops, nbytes)[0]:.3f} ms); plain {plain_ms:.3f} ms"
+        + (f" over {-(-points // step)} chunks of {step} points" if step < points else "")
+        + f" (peak memory {plain_peak:.2f} GiB); library: none (no single PyTorch call "
+        f"computes it)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 shape=f"{rows}x{points}")
 
@@ -1190,15 +1262,18 @@ def phase_op_grads(device, root):
         raise SystemExit("fused training step disagrees with the plain decode")
 
 
-def write_training_case(root, n_snapshots: int, points: int, epochs: int = 3) -> str:
-    """``recipes/cnf/case4.yml`` at full width on seeded synthetic flow
-    snapshots (smooth travelling waves on random 3-D points)."""
+def write_training_case(root, n_snapshots: int, points: int, epochs: int = 3,
+                        channels: int = 3, **nf) -> str:
+    """``recipes/cnf/case4.yml`` at full width (its ``NF`` entries
+    overridden by ``nf``) on seeded synthetic flow snapshots of ``channels``
+    fields (smooth travelling waves on random 3-D points)."""
     os.makedirs(root, exist_ok=True)
     rng = np.random.default_rng(points)
     coords = rng.uniform(size=(points, 3)).astype(np.float32)
-    phase = rng.uniform(0, 2 * np.pi, size=(n_snapshots, 1, 3))
-    k = rng.normal(size=(3, 3)) * 4
-    fois = np.sin(coords @ k + phase) + 0.1 * rng.standard_normal((n_snapshots, points, 3))
+    phase = rng.uniform(0, 2 * np.pi, size=(n_snapshots, 1, channels))
+    k = rng.normal(size=(3, channels)) * 4
+    fois = (np.sin(coords @ k + phase)
+            + 0.1 * rng.standard_normal((n_snapshots, points, channels)))
     np.save(os.path.join(root, "output.npy"), fois.astype(np.float32))
     np.save(os.path.join(root, "coords.npy"), coords)
     with open(RECIPE_CNF) as f:
@@ -1207,6 +1282,7 @@ def write_training_case(root, n_snapshots: int, points: int, epochs: int = 3) ->
                   coor_path=os.path.join(root, "coords.npy"),
                   save_path=os.path.join(root, "run"), epochs=epochs, save_every=2,
                   multiGPU=1)
+    recipe["NF"].update(nf)
     path = os.path.join(root, "case4.yml")
     with open(path, "w") as f:
         yaml.safe_dump(recipe, f)
@@ -1951,9 +2027,9 @@ def bf16_forward_check(model, device, rows, points, seed, label="case4") -> floa
     return errs["bf16 kernel"][0]
 
 
-def bf16_forward_time(model, device, rows, points, seed) -> dict:
+def bf16_forward_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
     """The bf16 forward kernel and the float32 one at ``rows x points`` in
-    this run (medians of 7 with the least and largest, SM clocks around
+    this run (medians of ``repeats`` with the least and largest, SM clocks around
     them), the bf16 kernel's device time by launch, the plain bf16 version's
     time, and the bound with the products at the dense bf16 rate."""
     coords, _, z, ops = forward_case(model, device, rows, points, seed)
@@ -1961,10 +2037,10 @@ def bf16_forward_time(model, device, rows, points, seed) -> dict:
            "f32": lambda: sd.decode_forward(coords, z, *ops)}
     with torch.no_grad():
         log(f"[bf16-time] SM clock, max before: {sm_clocks()}")
-        t = {k: cuda_median(fn, 1) for k, fn in fns.items()}
+        t = {k: cuda_median(fn, 1, repeats) for k, fn in fns.items()}
         log(f"[bf16-time] SM clock, max after: {sm_clocks()}")
         plain_ms = cuda_median(lambda: sd.decode_forward_plain(coords, z, *ops, torch.bfloat16),
-                               2, repeats=1)[0]
+                               2 if repeats > 3 else 1, repeats=1)[0]
         prof = device_profile(f"bf16 forward {rows}x{points}", fns["bf16"], top=3)
     n_mod, h = z.shape[0], z.shape[2]
     c_in, c_out = coords.shape[1], ops[2].shape[1]
@@ -1987,8 +2063,8 @@ def bf16_forward_time(model, device, rows, points, seed) -> dict:
             f"{sum(n for _, n in hits)} launches{rate}")
     stream = -(-pairs // block_pairs(h)) * (n_mod - 1) * h * h * 2
     ms, least, largest = t["bf16"]
-    log(f"[bf16-forward] {rows}x{points}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median "
-        f"of 7 ({(mat + act) / ms / 1e9:.2f} TFLOP/s), float32 kernel in this run "
+    log(f"[bf16-forward] {rows}x{points} H={h}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] "
+        f"median of {repeats} ({(mat + act) / ms / 1e9:.2f} TFLOP/s), float32 kernel in this run "
         f"{t['f32'][0]:.3f} ms [{t['f32'][1]:.3f}-{t['f32'][2]:.3f}] "
         f"({t['f32'][0] / ms:.2f}x), plain bf16 {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
         f"({bound_by}: products at the dense bf16 rate, sines on the CUDA cores); the blocks "
@@ -2573,6 +2649,9 @@ RANK_JOIN_S = 600
 RANK_GROUP_TIMEOUT = datetime.timedelta(minutes=5)
 # the diffusion step's inputs: phase 11's t, unit weights and seeded x0 and noise
 DIFF_T = (3, 120, 250, 400, 555, 700, 850, 999)
+# the ensembles' guided steps: phase 5's 1000 steps respaced to 5, not 10
+# (one process runs each ensemble twice, once one ulp up, before the ranks)
+MULTI_RESPACING = "5"
 
 
 def _rel(a, b) -> float:
@@ -2711,9 +2790,10 @@ def multi_cases(root) -> dict:
     paths: the CNF case of phase 9
     (8 snapshots x 262144 points, batch 4, 2 epochs, ``multiGPU: 2``) and
     the DPS CLI of phase 5 with a 2-member ensemble at 10 and 1024
-    sensors; and for one process the same ensemble with every U-Net
-    weight one float32 ulp up (``ulp``), which measures how far the
-    guided trajectory carries a rounding difference."""
+    sensors (``MULTI_RESPACING`` guided steps); and for one process the
+    same ensemble with every U-Net weight one float32 ulp up (``ulp``),
+    which measures how far the guided trajectory carries a rounding
+    difference."""
     cnf = os.path.join(root, "multi_cnf")
     with open(write_training_case(cnf, n_snapshots=8, points=262144, epochs=2)) as f:
         base = yaml.safe_load(f)
@@ -2728,6 +2808,7 @@ def multi_cases(root) -> dict:
             dict(base, multiGPU=MESH_RANKS, save_path=os.path.join(cnf, f"run_{side}")))
         for n_sensors in (10, 1024):
             recipe = dict(write_assets(root, n_sensors), no_of_samples=MESH_RANKS,
+                          timestep_respacing=MULTI_RESPACING,
                           save_path=os.path.join(root, f"multi_{side}_{n_sensors}.npy"))
             if side == "ulp":
                 recipe["ema_path"] = ema_ulp
@@ -3040,6 +3121,12 @@ ZOO_POINTS = 65536
 # training; a tenth of the decoder's rate and 100 times the latents' fall
 # from the first step for every zoo decoder (the CPU at 4096 points)
 ZOO_LR = {"nf": 1e-5, "latents": 1e-3}
+# the two hypernetwork decoders at 3 hidden layers instead of Case4's 15:
+# their output layer holds every SIREN weight (0.85 G parameters at 15
+# layers, 0.17 G at 3); at 15 their host-side init, float64 checks and
+# 10 GB checkpoints took 70-80 s more of phase 18, and the script 1235 s
+# on an H100 host that built the kernels in 101 s, over its time limit
+ZOO_DEPTH = {"SIRENAutodecoder_fp": 3, "SIRENAutodecoder_mdf_film": 3}
 # the f32-vs-f64 check of every registry decoder: rows x points
 ZOO_CHECK = (2, 4096)
 ZOO_REL_TOL = 1e-4
@@ -3095,16 +3182,19 @@ def _as_float64(model):
     return m
 
 
-def zoo_train(root, name, recipe) -> dict:
-    """``cli.train_cnf`` on ``recipe`` with ``NF.name`` set to ``name``: 2
-    epochs, then a 1-epoch resume; launches counted (zeroed before each
-    run, read after), ms per batch step, peak memory."""
+def zoo_train(root, name, recipe, lr: dict = ZOO_LR) -> dict:
+    """``cli.train_cnf`` on ``recipe`` with ``NF.name`` set to ``name`` and
+    learning rates ``lr``: 2 epochs, then a 1-epoch resume; launches
+    counted (zeroed before each run, read after), ms per batch step, peak
+    memory."""
     hp = cfgmod.basic_input(recipe)
     spec = dict(hp.NF)
     spec["name"] = name
+    if name in ZOO_DEPTH:
+        spec["num_hidden_layers"] = ZOO_DEPTH[name]
     path = _write_yaml(os.path.join(root, f"{name}.yml"), {
         **hp.to_dict(), "NF": spec, "save_path": os.path.join(root, name), "epochs": 2,
-        "keep_checkpoints": 1, "lr": ZOO_LR})
+        "keep_checkpoints": 1, "lr": lr})
     torch.cuda.reset_peak_memory_stats()
     sd.reset_launch_counts()
     fa.reset_launch_counts()
@@ -3230,7 +3320,7 @@ def phase_zoo(root, device) -> dict:
                     and rel <= ZOO_REL_TOL):
                 raise SystemExit("eval_cnf on a zoo checkpoint failed")
         run["trainer"] = run["trainer"].model      # keep the decoder only
-        shutil.rmtree(os.path.join(zoo, name))     # its checkpoints (10 GB for fp, mdf)
+        shutil.rmtree(os.path.join(zoo, name))     # its checkpoints (2 GB for fp, mdf)
         gc.collect()
         torch.cuda.empty_cache()
     film = zoo_train(zoo, "SIRENAutodecoder_film", recipe)
@@ -3439,6 +3529,180 @@ def phase_classifier(root, device) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the SIREN kernels at every width a FiLM recipe may ask for
+# ---------------------------------------------------------------------------
+
+# recipes/cnf/case4.yml at the widest decoder the kernels take: 3
+# coordinates, 15 hidden layers of 1024, 5 outputs (u, v, w, p, T)
+WIDE_NF = dict(hidden_features=1024, out_features=5)
+WIDE_CNF = dict(CASE4_CNF, **WIDE_NF)
+# (a)'s other decoders, (C_in, C_out, hidden layers, H): six modulated
+# layers at each width above 512 with Case4's coordinates and WIDE_NF's
+# outputs, 16 coordinates and outputs at 1024, 16 outputs at Case4's 384
+WIDER_CHECKS = tuple((3, 5, 5, h) for h in (576, 640, 768, 896)) + (
+    (16, 16, 5, 1024), (3, 16, 5, 384))
+# the timed C = 16 decoders, at 4 x this many points
+C16_POINTS = 65536
+WIDE_SENSORS = 1000
+WIDE_POINTS = 65536
+# (b)'s learning rates: phase 18's latents rate; the decoder's a tenth of
+# phase 18's, since a first Adam step moves a pre-activation by up to w0 x
+# lr x H (at phase 18's 1e-5 the loss rose at H = 1024: 0.7063, 0.7179,
+# 0.7239)
+WIDE_LR = {"nf": 1e-6, "latents": 1e-3}
+
+
+def wide_kernel_checks(model, device, label) -> dict:
+    """Every SIREN kernel of ``model``'s width against its plain version
+    and float64 under the criteria of phases 3, 15, 4 and 7, each with a
+    bitwise repeat: the float32 and bf16 forwards at 4 x 16384, dz at a
+    ragged 64 x 1000 (also against the training backward's), the training
+    backward at 4 x 16384; the width's registers, spills and shared memory
+    first.  Returns the kernels' errors against float64."""
+    h = model.net1[0].out_features
+    width = sd.kernel_hidden_width(h, model.net1[0].in_features, model.net1[-1].out_features)
+    for kernel in ("siren_fwd_kernel", "siren_fwd_bf16_kernel", "siren_bwd_chain_kernel",
+                   "siren_dz_chain_kernel"):
+        nt = width // 64
+        log(f"[wider] {label}: {kernel}<{nt}>: {PTXAS.get(f'{kernel}<{nt}>', 'not reported')}")
+    log(f"[wider] {label}: blocks of {block_pairs(width)} pairs; chain shared memory "
+        f"{sd._bwd_library().siren_bwd_chain_smem(width)} bytes (of 232448 a block may "
+        f"take)")
+    return {"forward": forward_check(model, device, 4, 16384, 31, label),
+            "bf16": bf16_forward_check(model, device, 4, 16384, 32, label),
+            "dz": dz_check(model, device, 64, WIDE_SENSORS, 33, label, against_bwd=True),
+            "bwd": bwd_check(model, device, 4, 16384, seed=34)}
+
+
+def write_wide_assets(root, model) -> str:
+    """Phase 5's Case4 assets (its seeded U-Net, mesh and data range) with
+    ``model`` as the CNF, its normalizer and ``WIDE_SENSORS`` sensors'
+    measures at its outputs: a ``cli.sample_conditional`` recipe."""
+    T, L = CASE4_RECIPE["time_length"], CASE4_RECIPE["latent_size"]
+    recipe = write_assets(root, WIDE_SENSORS)
+    c_out = model.net1[-1].out_features
+    cnf = os.path.join(root, "cnf_wide.pt")
+    torch.save({"model_state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
+                "hidden_states": {"latents": torch.zeros(1, L)}}, cnf)
+    normalizer = os.path.join(root, "normalizer_wide.pt")
+    torch.save({"x_normalizer_params": (torch.ones(3), torch.zeros(3)),
+                "y_normalizer0u_params": torch.ones(1, c_out),
+                "y_normalizer0l_params": -torch.ones(1, c_out)}, normalizer)
+    rng = np.random.default_rng(19)
+    measures = os.path.join(root, "measures_wide.npy")
+    np.save(measures, (0.1 * rng.standard_normal((T, WIDE_SENSORS, c_out))).astype(np.float32))
+    recipe.update(cnf_checkpoint=cnf, cnf_normalizer=normalizer, sensor_measures=measures,
+                  save_path=os.path.join(root, "samples_wide.npy"))
+    return _write_yaml(os.path.join(root, "case4_wide.yml"), recipe)
+
+
+def phase_wider(root, device, results) -> dict:
+    """Phase 19: ``recipes/cnf/case4.yml`` with ``hidden_features`` 1024
+    and ``out_features`` 5 (``WIDE_CNF``), which the kernels refused before
+    they took H up to 1024 and C up to 16.  (a) every SIREN kernel at
+    every width of ``WIDER_CHECKS`` and at ``WIDE_CNF``'s (also a ragged
+    3 x 3001 forward, dz at 384 x ``WIDE_SENSORS`` and the training
+    backward at 4 x ``WIDE_POINTS``, the shapes (c) and (b) give them); (e) the float32 forward, the training backward, the
+    bf16 forward at 4 x 262144 and dz at 384 x 1000 timed at ``WIDE_CNF``
+    (medians of 3), and the forward and the training backward of the two
+    C = 16 decoders at 4 x ``C16_POINTS``; (b) ``cli.train_cnf`` on the
+    recipe over 4 seeded 5-field snapshots of ``WIDE_POINTS`` points (2
+    epochs and a 1-epoch resume at ``WIDE_LR``): finite, falling losses;
+    (c) ``cli.sample_conditional`` with the Case4 U-Net of phase 5 and the
+    decoder (b) trained, at ``WIDE_SENSORS`` sensors, 10 guided steps, the
+    operator on the forward and dz kernels (384 x 1000 pairs), and (d) the
+    CLI's full-field decode through ``inference.decoder`` (the forward
+    kernel).  Returns (b)'s and (c)'s launches (zeroed before each run,
+    read after)."""
+    errs = {}
+    for c_in, c_out, layers, h in WIDER_CHECKS:
+        model = SirenFilm(in_coord_features=c_in, in_latent_features=256, out_features=c_out,
+                          num_hidden_layers=layers, hidden_features=h, w0=30.0,
+                          generator=torch.Generator().manual_seed(h + c_in)).to(
+            device).requires_grad_(False)
+        label = f"H={h} {c_in}->{c_out}"
+        errs[h, c_out] = wide_kernel_checks(model, device, label)
+        if c_out == 16:
+            tag = f"@H{h}C16"
+            results["siren_decode_forward" + tag] = dict(
+                forward_time(model, device, 4, C16_POINTS, 35, repeats=3),
+                max_abs_err=errs[h, c_out]["forward"])
+            results["siren_decode_bwd" + tag] = dict(
+                bwd_time(model, device, 4, C16_POINTS, seed=36, repeats=3),
+                max_abs_err=errs[h, c_out]["bwd"])
+        del model
+        torch.cuda.empty_cache()
+    model = SirenFilm(**WIDE_CNF, generator=torch.Generator().manual_seed(19)).to(
+        device).requires_grad_(False)
+    label = "Case4 at H=1024 3->5"
+    err = wide_kernel_checks(model, device, label)
+    forward_check(model, device, 3, 3001, 37, label)
+    # the main path's shapes, which span several chunks of BWD_PAIRS pairs:
+    # (c)'s dz at 384 x 1000 (rows straddle chunk launches) and (b)'s
+    # training backward at 4 x WIDE_POINTS; the rows report their errors
+    err["dz"] = dz_check(model, device, CASE4_RECIPE["time_length"], WIDE_SENSORS, 41, label,
+                         against_bwd=True)
+    err["bwd"] = bwd_check(model, device, 4, WIDE_POINTS, seed=42)
+    results["siren_decode_forward@H1024"] = dict(
+        forward_time(model, device, 4, 262144, 38, repeats=3), max_abs_err=err["forward"])
+    results["siren_decode_bwd@H1024"] = dict(
+        bwd_time(model, device, 4, 262144, seed=39, repeats=3), max_abs_err=err["bwd"])
+    results["siren_decode_forward_bf16@H1024"] = dict(
+        bf16_forward_time(model, device, 4, 262144, 38, repeats=3), max_abs_err=err["bf16"])
+    results["siren_decode_dz@H1024"] = dict(
+        dz_time(model, device, CASE4_RECIPE["time_length"], WIDE_SENSORS, 40, repeats=3),
+        max_abs_err=err["dz"])
+    del model
+    torch.cuda.empty_cache()
+    return wider_paths(root)
+
+
+def wider_paths(root) -> dict:
+    """Phase 19 (b), (c) and (d); returns their launches."""
+    wide = os.path.join(root, "wider")
+    recipe = write_training_case(wide, n_snapshots=4, points=WIDE_POINTS, epochs=2,
+                                 channels=WIDE_NF["out_features"], **WIDE_NF)
+    run = zoo_train(wide, "SIRENAutodecoder_film", recipe, lr=WIDE_LR)
+    counts = dict(run["counts"])
+    log(f"[wider] cli.train_cnf on case4.yml with {WIDE_NF}: ms per batch step (4 x "
+        f"{WIDE_POINTS}) {[round(x, 1) for x in run['step_ms']]}, peak {run['peak']:.2f} GiB, "
+        f"launches {counts}")
+    missing = [k for k in ("siren_decode_forward", "siren_decode_bwd") if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"the wide CNF trained without launching {missing}")
+
+    path = write_wide_assets(root, run["trainer"].model)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    T = CASE4_RECIPE["time_length"]
+    torch.cuda.reset_peak_memory_stats()
+    sd.reset_launch_counts()
+    t0 = time.perf_counter()
+    timings = sample_conditional.main([path])
+    wall = time.perf_counter() - t0
+    dps = dict(sd.LAUNCHES)
+    fields = np.load(cfgmod.basic_input(path).save_path)
+    expected = (1, T, MESH_POINTS, WIDE_NF["out_features"])
+    log(f"[wider] cli.sample_conditional, {WIDE_SENSORS} sensors: fields {fields.shape}, finite "
+        f"{bool(np.isfinite(fields).all())}; {timings['steps']} guided steps "
+        f"{timings['sample_s'] * 1e3 / timings['steps']:.1f} ms/step (operator on the "
+        f"{'kernels' if timings['fused'] else 'plain decode'}), decode "
+        f"{timings['decode_s'] * 1e3:.1f} ms ({T} rows x {MESH_POINTS} points), CLI wall "
+        f"{wall:.1f} s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {dps}")
+    if fields.shape != expected or not np.isfinite(fields).all():
+        raise SystemExit(f"the wide CNF's DPS output is wrong: {fields.shape}, expected "
+                         f"{expected}")
+    missing = [k for k in ("siren_decode_forward", "siren_decode_dz") if dps[k] == 0]
+    if missing or not timings["fused"]:
+        raise SystemExit(f"the wide CNF's DPS run did not launch {missing}")
+    for k, v in dps.items():
+        counts[k] += v
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3510,6 +3774,8 @@ def main() -> int:
         for k, v in phase_classifier(root, device).items():
             flash_launches[k] += v
         stamp("phase 18c-f (classifier, guidance, super-resolution)")
+        wide_launches = phase_wider(root, device, results)
+        stamp("phase 19 (the SIREN kernels up to H = 1024, C = 16)")
     launches.update(flash_launches)
 
     kernels = []
@@ -3530,6 +3796,22 @@ def main() -> int:
              "siren_decode.py:434"),
             ("siren_decode_bwd", "siren_decode_bwd@H512", "siren_decode_bwd.cu",
              "siren_decode.py:434"),
+            ("siren_decode_forward", "siren_decode_forward@H1024", "siren_decode.cu",
+             "siren_decode.py:96"),
+            ("siren_decode_forward_bf16", "siren_decode_forward_bf16@H1024",
+             "siren_decode.cu", "siren_decode.py:96"),
+            ("siren_decode_dz", "siren_decode_dz@H1024", "siren_decode_bwd.cu",
+             "siren_decode.py:315"),
+            ("siren_decode_bwd", "siren_decode_bwd@H1024", "siren_decode_bwd.cu",
+             "siren_decode.py:434"),
+            ("siren_decode_forward", "siren_decode_forward@H1024C16", "siren_decode.cu",
+             "siren_decode.py:96"),
+            ("siren_decode_bwd", "siren_decode_bwd@H1024C16", "siren_decode_bwd.cu",
+             "siren_decode.py:434"),
+            ("siren_decode_forward", "siren_decode_forward@H384C16", "siren_decode.cu",
+             "siren_decode.py:96"),
+            ("siren_decode_bwd", "siren_decode_bwd@H384C16", "siren_decode_bwd.cu",
+             "siren_decode.py:434"),
             ("flash_forward", "flash_forward", "flash_attention.cu", "flash_attention.py:56"),
             ("flash_bwd_dq", "flash_bwd_dq", "flash_attention.cu", "flash_attention.py:158"),
             ("flash_bwd_dkv", "flash_bwd_dkv", "flash_attention.cu", "flash_attention.py:188")):
@@ -3538,9 +3820,12 @@ def main() -> int:
             "name": key if "@H" in key else kname, "route": "cuda",
             "source": f"confild_tpu_torch/csrc/{src}",
             "replaces": f"confild_tpu/ops/{replaces}",
-            # no main path decodes above H = 384: the wide widths' launches
-            # on it are none (the wrapper's count is the narrow widths')
-            "launches": 0 if "@H" in key else launches[kname],
+            # phase 19's main paths (cli.train_cnf, cli.sample_conditional)
+            # run its decoder at H = 1024, 3 -> 5; no main path runs the
+            # other widths above 384 or C = 16 (the base rows count the
+            # narrow widths' launches)
+            "launches": (wide_launches[kname] if key.endswith("@H1024")
+                         else 0 if "@H" in key else launches[kname]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"],

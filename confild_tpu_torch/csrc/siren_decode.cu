@@ -31,12 +31,13 @@
 // Design: the training chain's forward half (siren_decode_bwd.cu), without
 // its workspace.  A block owns CP consecutive (row, point) pairs,
 // p = t * M + m (the M dimension of every product; CP = 64 up to H = 384,
-// 32 at H = 448 and 512, siren_tc.cuh::block_pairs), and keeps their
-// CP x H activations in shared memory for the whole layer stack.  Eight
-// warps each own H / 8 output columns.  Every H x H product is a 3xTF32
-// mma.sync.m16n8k8 (tf32_mma.cuh): the middle weights are split once a call
-// (siren_split_kernel, the n_mod - 1 forward products only, 17.7 MB at
-// Case4) and stream as 16-row K-slices through a two-stage cp.async buffer,
+// 32 at H = 448 and 512, 16 from 576 to 1024, siren_tc.cuh::block_pairs),
+// and keeps their CP x H activations in shared memory for the whole layer
+// stack.  Eight warps each own H / 8 output columns.  Every H x H product is
+// a 3xTF32 mma.sync.m16n8k8 (tf32_mma.cuh): the middle weights are split
+// once a call (siren_split_kernel, the n_mod - 1 forward products only,
+// 17.7 MB at Case4) and stream as K-slices of 16 rows (8 above H = 512)
+// through a two-stage cp.async buffer,
 // in one stream across the layers, so the next layer's first slice loads
 // while a layer's epilogue runs (chain_product, siren_tc.cuh).  The
 // epilogue adds the FiLM row and applies sin2pi in place; nothing goes to
@@ -45,7 +46,8 @@
 // shuffle tree) stay on the CUDA cores in float32.  The ragged last block
 // is masked.  No atomics: two launches are bitwise equal.
 // Known cost: every block rereads the whole split stream from L2, CP pairs
-// a read (1.16 TB per 16 x 262144 call at Case4).
+// a read (1.16 TB per 16 x 262144 call at Case4; 8.2 TB per 4 x 262144
+// call at 16 modulated layers of 1024, where a block owns 16 pairs).
 //
 // ---------------------------------------------------------------------------
 // siren_decode_forward_bf16 is the same forward with the JAX kernel's
@@ -71,7 +73,8 @@
 // TF32 half), and stream as 32-row K-slices (two k16 steps) through a
 // two-stage cp.async buffer, one stream across the layers.  The first layer
 // is one m16n8k16 per fragment with K = C_in padded to 16 by zeros, and the
-// head one per warp of 16 pairs (four warps) with N = C_out padded to 8, so
+// head one per warp of 16 pairs and n8 block of outputs, N = C_out padded
+// to a multiple of 8, so
 // every product is a tensor-core product on bf16 operands.  The products
 // accumulate in the mma's float32 accumulator: the tensor cores' truncation
 // of their sums (2^-23 relative an add) is far below the bf16 rounding of
@@ -127,7 +130,7 @@ siren_fwd_kernel(const float* __restrict__ coords,
   const int tid = threadIdx.x;
   const long long P = (long long)T * M;
   const long long p0 = (long long)blockIdx.x * CP;
-  const int u_total = (n_mod - 1) * (H / KS);
+  const int u_total = (n_mod - 1) * (H / k_rows(NT));
   int u = 0;
   issue_kslice(stage, wstream, 0, u_total, H);
 
@@ -354,14 +357,15 @@ siren_fwd_bf16_kernel(const float* __restrict__ coords,
       const int row = mt * 16 + g;
       a[mt][0] = pack_bf16(cv(row, 2 * t), cv(row, 2 * t + 1));
       a[mt][1] = pack_bf16(cv(row + 8, 2 * t), cv(row + 8, 2 * t + 1));
-      a[mt][2] = a[mt][3] = 0u;
+      a[mt][2] = pack_bf16(cv(row, 2 * t + 8), cv(row, 2 * t + 9));
+      a[mt][3] = pack_bf16(cv(row + 8, 2 * t + 8), cv(row + 8, 2 * t + 9));
     }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int n = (warp * NT + nt) * 8 + g;
-      const float w0 = 2 * t < C_in ? __ldg(w_first + (size_t)(2 * t) * H + n) : 0.f;
-      const float w1 = 2 * t + 1 < C_in ? __ldg(w_first + (size_t)(2 * t + 1) * H + n) : 0.f;
-      const uint32_t b[2] = {pack_bf16(w0, w1), 0u};
+      auto wv = [&](int c) { return c < C_in ? __ldg(w_first + (size_t)c * H + n) : 0.f; };
+      const uint32_t b[2] = {pack_bf16(wv(2 * t), wv(2 * t + 1)),
+                             pack_bf16(wv(2 * t + 8), wv(2 * t + 9))};
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -391,21 +395,26 @@ siren_fwd_bf16_kernel(const float* __restrict__ coords,
   }
   __syncthreads();  // the last activations are complete
 
-  // linear head: warp w < MT owns pairs 16w .. 16w + 15, N = C_out padded to 8
+  // linear head: warp w < MT owns pairs 16w .. 16w + 15 and takes the
+  // outputs 8 at a time, N = C_out padded to a multiple of 8
   if (warp < MT) {
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    auto wv = [&](int k) { return g < C_out ? __ldg(w_head + (size_t)k * C_out + g) : 0.f; };
-    for (int kb = 0; kb < H / 16; ++kb) {
-      const uint32_t* r = A32 + (warp * 16 + g) * lda2 + kb * 8 + t;
-      const uint32_t a[4] = {r[0], r[8 * lda2], r[4], r[8 * lda2 + 4]};
-      const int k = kb * 16 + 2 * t;
-      const uint32_t b[2] = {pack_bf16(wv(k), wv(k + 1)), pack_bf16(wv(k + 8), wv(k + 9))};
-      mma_bf16(c, a, b);
-    }
+    for (int n0 = 0; n0 < C_out; n0 += 8) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      auto wv = [&](int k) {
+        return n0 + g < C_out ? __ldg(w_head + (size_t)k * C_out + n0 + g) : 0.f;
+      };
+      for (int kb = 0; kb < H / 16; ++kb) {
+        const uint32_t* r = A32 + (warp * 16 + g) * lda2 + kb * 8 + t;
+        const uint32_t a[4] = {r[0], r[8 * lda2], r[4], r[8 * lda2 + 4]};
+        const int k = kb * 16 + 2 * t;
+        const uint32_t b[2] = {pack_bf16(wv(k), wv(k + 1)), pack_bf16(wv(k + 8), wv(k + 9))};
+        mma_bf16(c, a, b);
+      }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = warp * 16 + g + 8 * (e / 2), col = 2 * t + e % 2;
-      if (col < C_out && p0 + row < P) out[(p0 + row) * C_out + col] = c[e] + b_head[col];
+      for (int e = 0; e < 4; ++e) {
+        const int row = warp * 16 + g + 8 * (e / 2), col = n0 + 2 * t + e % 2;
+        if (col < C_out && p0 + row < P) out[(p0 + row) * C_out + col] = c[e] + b_head[col];
+      }
     }
   }
 }
@@ -442,23 +451,10 @@ int siren_decode_forward(const float* coords, const float* z, const float* w_fir
       (long long)T * M > 2147483647LL * siren_tc::block_pairs(H) || (long long)T * H > 2147483647LL ||
       (n_mod > 1 && wsplit == nullptr))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define SIREN_FWD(NT)                                                                         \
-  case NT:                                                                                    \
-    return launch_fwd<NT>(coords, z, w_first, wsplit, w_head, b_head, out, T, M, C_in, n_mod, \
-                          C_out, s);
-  switch (H / 64) {
-    SIREN_FWD(1)
-    SIREN_FWD(2)
-    SIREN_FWD(3)
-    SIREN_FWD(4)
-    SIREN_FWD(5)
-    SIREN_FWD(6)
-    SIREN_FWD(7)
-    SIREN_FWD(8)
-  }
-#undef SIREN_FWD
-  return (int)cudaErrorInvalidValue;
+  return siren_tc::with_width(H, [&](auto nt) {
+    return launch_fwd<decltype(nt)::value>(coords, z, w_first, wsplit, w_head, b_head, out, T,
+                                           M, C_in, n_mod, C_out, (cudaStream_t)stream);
+  });
 }
 
 // compute dtype bfloat16: the n_mid middle weights as bf16 B fragments
@@ -479,24 +475,11 @@ int siren_decode_forward_bf16(const float* coords, const float* z, const float* 
       (long long)T * M > 2147483647LL * siren_tc::block_pairs(H) || (long long)T * H > 2147483647LL ||
       (n_mod > 1 && wfrag == nullptr))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const uint2* wf = (const uint2*)wfrag;
-#define SIREN_FWD_BF16(NT)                                                                  \
-  case NT:                                                                                  \
-    return launch_fwd_bf16<NT>(coords, z, w_first, wf, w_head, b_head, out, T, M, C_in,     \
-                               n_mod, C_out, s);
-  switch (H / 64) {
-    SIREN_FWD_BF16(1)
-    SIREN_FWD_BF16(2)
-    SIREN_FWD_BF16(3)
-    SIREN_FWD_BF16(4)
-    SIREN_FWD_BF16(5)
-    SIREN_FWD_BF16(6)
-    SIREN_FWD_BF16(7)
-    SIREN_FWD_BF16(8)
-  }
-#undef SIREN_FWD_BF16
-  return (int)cudaErrorInvalidValue;
+  return siren_tc::with_width(H, [&](auto nt) {
+    return launch_fwd_bf16<decltype(nt)::value>(coords, z, w_first, (const uint2*)wfrag,
+                                                 w_head, b_head, out, T, M, C_in, n_mod,
+                                                 C_out, (cudaStream_t)stream);
+  });
 }
 
 }  // extern "C"

@@ -44,11 +44,12 @@
 //   whose dz mode is the dz kernel below (the same forward recompute and dx
 //   chain, writing per-row sums of dpre instead of D; its product,
 //   chain_product, is the forward's too): a block owns CP = 64
-//   pairs (32 at H = 448 and 512; the M dimension of every product) and
-//   keeps their CP x H activations in shared memory.
+//   pairs (32 at H = 448 and 512, 16 from 576 to 1024; the M dimension of
+//   every product) and keeps their CP x H activations in shared memory.
 //   Eight warps each own H / 8 output columns for all CP rows, 96
-//   accumulators a thread at H = 384 (64 at H = 512).  The weights stream as 16-row
-//   K-slices through a two-stage cp.async buffer, one continuous stream
+//   accumulators a thread at H = 384 (64 at H = 512 and 1024).  The weights
+//   stream as K-slices of 16 rows (8 above H = 512) through a two-stage
+//   cp.async buffer, one continuous stream
 //   across all 2 (n_mod - 1) products, so the next product's first slice
 //   loads while a layer's epilogue runs.  The activations are split as
 //   their A fragments are loaded.
@@ -67,6 +68,8 @@
 //   C_out or one row as their second dimension, almost no flops): dz row
 //   sums, dW_first and dW_head, per slice, in segments of SSEG pairs within
 //   each row's run of pairs; a pass over the workspace, bound by bytes.
+//   Its per-feature sums sit in registers, sized 4 when C_in and C_out are
+//   at most 4 and MAX_C = 16 otherwise.
 // * siren_bwd_fold_kernel: the slices' partials added in slice order into
 //   the outputs.
 //
@@ -120,7 +123,7 @@
 namespace {
 
 using siren::sin2pi;
-using namespace siren_tc;  // THREADS (every kernel but the sums), block_pairs, KS, MAX_C
+using namespace siren_tc;  // THREADS (every kernel but the sums), block_pairs, MAX_C
 
 // reduction
 constexpr int RT = 128;          // output tile
@@ -133,6 +136,7 @@ constexpr int R_CHUNKS = RK * RT / 4 / THREADS;   // 16-byte chunks a thread cop
 constexpr int STHREADS = 128;
 constexpr int SSEG = 512;        // pairs summed apart before joining a total
 constexpr int SBATCH = 32;       // loads a thread keeps in flight (8 took 2.5x the time)
+constexpr int NARROW_C = 4;      // the sums' per-feature registers when C_in, C_out <= 4
 
 __host__ __device__ inline int slice_len(int Q, int slices) {
   const int per = (Q + slices - 1) / slices;
@@ -392,21 +396,21 @@ siren_bwd_reduce_kernel(const float* __restrict__ R,
 enum SumKind { DZ = 0, DZ_FIRST = 1, HEAD = 2 };
 
 // One pair's terms: dz and, for DZ_FIRST, dW_first += coords (x);
-// for HEAD, dW_head += sin2pi(x) g.
-template <int KIND>
+// for HEAD, dW_head += sin2pi(x) g; nc <= NC features.
+template <int KIND, int NC>
 __device__ __forceinline__ void sum_pair(float x, const float* __restrict__ cq,
                                          const float* __restrict__ gq, int nc, float& seg,
-                                         float (&seg_c)[MAX_C]) {
+                                         float (&seg_c)[NC]) {
   if constexpr (KIND == HEAD) {
     const float s = sin2pi(x);
 #pragma unroll
-    for (int c = 0; c < MAX_C; ++c)
+    for (int c = 0; c < NC; ++c)
       if (c < nc) seg_c[c] = fmaf(s, __ldg(gq + c), seg_c[c]);
   } else {
     seg += x;
     if constexpr (KIND == DZ_FIRST) {
 #pragma unroll
-      for (int c = 0; c < MAX_C; ++c)
+      for (int c = 0; c < NC; ++c)
         if (c < nc) seg_c[c] = fmaf(__ldg(cq + c), x, seg_c[c]);
     }
   }
@@ -416,7 +420,7 @@ __device__ __forceinline__ void sum_pair(float x, const float* __restrict__ cq,
 // [lo, hi) of one slice: each row's run of pairs in segments of SSEG; dz
 // row totals go to the slice's partial as each run ends, the dW totals at
 // the end.
-template <int KIND>
+template <int KIND, int NC>
 __device__ __forceinline__ void sums_body(const float* __restrict__ X,
                                           const float* __restrict__ coords,
                                           const float* __restrict__ g,
@@ -424,9 +428,9 @@ __device__ __forceinline__ void sums_body(const float* __restrict__ X,
                                           long long p0, int lo, int hi, int M, int C_in, int H,
                                           int C_out, int j) {
   const int nc = KIND == HEAD ? C_out : C_in;
-  float tot_c[MAX_C];
+  float tot_c[NC];
 #pragma unroll
-  for (int c = 0; c < MAX_C; ++c) tot_c[c] = 0.f;
+  for (int c = 0; c < NC; ++c) tot_c[c] = 0.f;
   for (int a = lo; a < hi;) {  // one row's run of pairs
     const long long t = (p0 + a) / M;
     const int b = (int)min((long long)hi, (t + 1) * M - p0);
@@ -434,9 +438,9 @@ __device__ __forceinline__ void sums_body(const float* __restrict__ X,
     float tot = 0.f;
     for (int s0 = a; s0 < b; s0 += SSEG) {
       const int s1 = min(b, s0 + SSEG);
-      float seg = 0.f, seg_c[MAX_C];
+      float seg = 0.f, seg_c[NC];
 #pragma unroll
-      for (int c = 0; c < MAX_C; ++c) seg_c[c] = 0.f;
+      for (int c = 0; c < NC; ++c) seg_c[c] = 0.f;
       int q = s0;
       for (; q + SBATCH <= s1; q += SBATCH) {
         float x[SBATCH];
@@ -444,33 +448,34 @@ __device__ __forceinline__ void sums_body(const float* __restrict__ X,
         for (int i = 0; i < SBATCH; ++i) x[i] = X[(size_t)(q + i) * H + j];
 #pragma unroll
         for (int i = 0; i < SBATCH; ++i)
-          sum_pair<KIND>(x[i], coords + (q + i + m0) * C_in, g + (p0 + q + i) * C_out, nc, seg,
-                         seg_c);
+          sum_pair<KIND, NC>(x[i], coords + (q + i + m0) * C_in, g + (p0 + q + i) * C_out, nc,
+                             seg, seg_c);
       }
       for (; q < s1; ++q)
-        sum_pair<KIND>(X[(size_t)q * H + j], coords + (q + m0) * C_in, g + (p0 + q) * C_out,
-                       nc, seg, seg_c);
+        sum_pair<KIND, NC>(X[(size_t)q * H + j], coords + (q + m0) * C_in,
+                           g + (p0 + q) * C_out, nc, seg, seg_c);
       tot += seg;
 #pragma unroll
-      for (int c = 0; c < MAX_C; ++c) tot_c[c] += seg_c[c];
+      for (int c = 0; c < NC; ++c) tot_c[c] += seg_c[c];
     }
     if constexpr (KIND != HEAD) dz_row0[(size_t)t * H + j] += tot;
     a = b;
   }
   if constexpr (KIND == HEAD) {
 #pragma unroll
-    for (int c = 0; c < MAX_C; ++c)
+    for (int c = 0; c < NC; ++c)
       if (c < nc) dw[(size_t)j * C_out + c] += tot_c[c];
   } else if constexpr (KIND == DZ_FIRST) {
 #pragma unroll
-    for (int c = 0; c < MAX_C; ++c)
+    for (int c = 0; c < NC; ++c)
       if (c < nc) dw[(size_t)c * H + j] += tot_c[c];
   }
 }
 
 // grid (column tiles of STHREADS, n_mod + 1 jobs, slices).  Job l < n_mod:
 // dz_l row sums of D_l (and for l = 0 dW_first = coords^T D_0); job n_mod:
-// dW_head = sin2pi(R_last)^T g.
+// dW_head = sin2pi(R_last)^T g.  C_in, C_out <= NC.
+template <int NC>
 __global__ void __launch_bounds__(STHREADS)
 siren_bwd_sums_kernel(const float* __restrict__ R,
                       const float* __restrict__ D,
@@ -490,12 +495,13 @@ siren_bwd_sums_kernel(const float* __restrict__ R,
   const size_t lstride = (size_t)Qa * H;
   float* dz_l = ps + (size_t)job * T * H;  // dz is the partial's first block
   if (job == n_mod)
-    sums_body<HEAD>(R + (n_mod - 1) * lstride, coords, g, nullptr, ps + dwh_off, p0, lo, hi, M,
-                    C_in, H, C_out, j);
+    sums_body<HEAD, NC>(R + (n_mod - 1) * lstride, coords, g, nullptr, ps + dwh_off, p0, lo,
+                        hi, M, C_in, H, C_out, j);
   else if (job == 0)
-    sums_body<DZ_FIRST>(D, coords, g, dz_l, ps + dwf_off, p0, lo, hi, M, C_in, H, C_out, j);
+    sums_body<DZ_FIRST, NC>(D, coords, g, dz_l, ps + dwf_off, p0, lo, hi, M, C_in, H, C_out, j);
   else
-    sums_body<DZ>(D + job * lstride, coords, g, dz_l, nullptr, p0, lo, hi, M, C_in, H, C_out, j);
+    sums_body<DZ, NC>(D + job * lstride, coords, g, dz_l, nullptr, p0, lo, hi, M, C_in, H,
+                      C_out, j);
 }
 
 // out[e] = parts[0][e] + parts[1][e] + ... in slice order
@@ -534,22 +540,11 @@ template <bool DZ_MODE>
 int chain(const float* coords, const float* z, const float* g, const float* w_first,
           const float* wsplit, const float* w_head, float* R, float* out, long long p0, int Q,
           int Qa, int T, int M, int C_in, int H, int n_mod, int C_out, cudaStream_t stream) {
-#define SIREN_CHAIN(NT)                                                                    \
-  case NT:                                                                                 \
-    return launch_chain<NT, DZ_MODE>(coords, z, g, w_first, wsplit, w_head, R, out, p0, Q, \
-                                     Qa, T, M, C_in, n_mod, C_out, stream);
-  switch (H / 64) {
-    SIREN_CHAIN(1)
-    SIREN_CHAIN(2)
-    SIREN_CHAIN(3)
-    SIREN_CHAIN(4)
-    SIREN_CHAIN(5)
-    SIREN_CHAIN(6)
-    SIREN_CHAIN(7)
-    SIREN_CHAIN(8)
-  }
-#undef SIREN_CHAIN
-  return (int)cudaErrorInvalidValue;
+  return with_width(H, [&](auto nt) {
+    return launch_chain<decltype(nt)::value, DZ_MODE>(coords, z, g, w_first, wsplit, w_head, R,
+                                                      out, p0, Q, Qa, T, M, C_in, n_mod, C_out,
+                                                      stream);
+  });
 }
 
 }  // namespace
@@ -602,9 +597,11 @@ int siren_bwd_sums(const float* R, const float* D, const float* coords, const fl
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned int)((H + STHREADS - 1) / STHREADS), (unsigned int)(n_mod + 1),
                   (unsigned int)slices);
-  siren_bwd_sums_kernel<<<grid, STHREADS, 0, (cudaStream_t)stream>>>(
-      R, D, coords, g, parts, E, dwf_off, dwh_off, p0, Q, Qa, T, M, C_in, H, n_mod, C_out,
-      slices);
+  const auto kernel = C_in <= NARROW_C && C_out <= NARROW_C ? siren_bwd_sums_kernel<NARROW_C>
+                                                            : siren_bwd_sums_kernel<MAX_C>;
+  kernel<<<grid, STHREADS, 0, (cudaStream_t)stream>>>(R, D, coords, g, parts, E, dwf_off,
+                                                      dwh_off, p0, Q, Qa, T, M, C_in, H, n_mod,
+                                                      C_out, slices);
   return (int)cudaGetLastError();
 }
 

@@ -8,16 +8,20 @@
 // siren_decode_bwd.cu.
 //
 // A block owns block_pairs(H) (row, point) pairs (the M dimension of every
-// product: 64 up to H = 384, 32 above) and keeps their activations in
-// shared memory, row stride H + A_PAD.  Eight warps each own H / 8 output
-// columns for all of the block's rows, 4 * m_tiles * H / 64 accumulators a
-// thread (96 at H = 384 with 64 pairs, 64 at H = 512 with 32).  Every
-// product is a 3xTF32 mma.sync.m16n8k8 (tf32_mma.cuh); the tensor cores
-// truncate their own f32 sums, so a fragment's products of two k8 steps go
-// into a zeroed partial that a float32 add carries into the running sum.
+// product: 64 up to H = 384, 32 at 448 and 512, 16 from 576 to 1024) and
+// keeps their activations in shared memory, row stride H + A_PAD.  Eight
+// warps each own H / 8 output columns for all of the block's rows,
+// 4 * m_tiles * H / 64 accumulators a thread (96 at H = 384 with 64 pairs,
+// 64 at H = 512 with 32 and at H = 1024 with 16).  Every product is a
+// 3xTF32 mma.sync.m16n8k8 (tf32_mma.cuh); the tensor cores truncate their
+// own f32 sums, so a fragment's products of one K-slice (two k8 steps up to
+// H = 512, one above) go into a zeroed partial that a float32 add carries
+// into the running sum.
 #pragma once
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "siren_common.cuh"
 #include "tf32_mma.cuh"
@@ -26,20 +30,27 @@ namespace siren_tc {
 
 using namespace tf32mma;
 
-constexpr int MAX_H = 512;       // widest hidden layer
-constexpr int MAX_C = 4;         // widest C_in and C_out
+constexpr int MAX_H = 1024;      // widest hidden layer
+constexpr int MAX_C = 16;        // widest C_in and C_out
 constexpr int THREADS = 256;     // 8 warps
 constexpr int WIDE_NT = 6;       // widest H / 64 whose blocks own 64 pairs
-constexpr int KS = 16;           // weight rows a streamed K-slice holds (two k8 steps)
+constexpr int MID_NT = 8;        // widest H / 64 whose blocks own 32 pairs
 constexpr int A_PAD = 4;         // activation row stride H + 4: A fragments hit 32 banks
 
 // m16 tiles of pairs a block owns at H = 64 NT: four (64 pairs) up to
 // H = 384; two (32 pairs) at H = 448 and 512, where 64 pairs would need
 // 112 and 128 accumulators a thread and, with the two K-slice stages, more
-// than the 227 KB of shared memory a block may take
-__host__ __device__ constexpr int m_tiles(int NT) { return NT <= WIDE_NT ? 4 : 2; }
+// than the 227 KB of shared memory a block may take; one (16 pairs) from
+// H = 576 to 1024, where 32 pairs would need 72 to 128 accumulators
+__host__ __device__ constexpr int m_tiles(int NT) {
+  return NT <= WIDE_NT ? 4 : NT <= MID_NT ? 2 : 1;
+}
 // pairs a block owns at hidden width H
 __host__ __device__ constexpr int block_pairs(int H) { return 16 * m_tiles(H / 64); }
+// weight rows a streamed K-slice holds at H = 64 NT: 16 (two k8 steps) up
+// to H = 512; 8 (one k8 step) above, where two 16-row stages (128 KiB each
+// at H = 1024) would not fit beside the activation tile
+__host__ __device__ constexpr int k_rows(int NT) { return NT <= MID_NT ? 16 : 8; }
 
 // H a multiple of 64 up to MAX_H, C_in and C_out up to MAX_C
 inline bool shape_ok(int H, int n_mod, int C_in, int C_out) {
@@ -47,8 +58,20 @@ inline bool shape_ok(int H, int n_mod, int C_in, int C_out) {
          C_out >= 1 && C_out <= MAX_C;
 }
 
-// floats of one streamed K-slice: KS rows x H columns, big and small
-__host__ __device__ inline int kslice_floats(int H) { return KS * H * 2; }
+// f(std::integral_constant<int, H / 64>()) for the instantiation of width
+// H, or cudaErrorInvalidValue when there is none
+template <int NT = 1, typename F>
+int with_width(int H, F&& f) {
+  if (H == NT * 64) return f(std::integral_constant<int, NT>());
+  if constexpr (NT < MAX_H / 64) {
+    return with_width<NT + 1>(H, f);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+}
+
+// floats of one streamed K-slice: k_rows rows x H columns, big and small
+__host__ __device__ inline int kslice_floats(int H) { return k_rows(H / 64) * H * 2; }
 
 // ---------------------------------------------------------------------------
 // weights: big and small halves in B-fragment order
@@ -117,15 +140,15 @@ __device__ __forceinline__ void issue_kslice(float* stage, const float* wstream,
 }
 
 // acc = A (block_pairs(H) x H in shared memory, row stride H + A_PAD) . B,
-// B being the
-// H / KS slices u .. u + H / KS - 1 of the weight stream.  On entry slice u
-// is in flight into stage buffer u & 1; on exit the slice after the last
-// is (when there is one), and u has moved past this product.
+// B being the H / k_rows slices u .. u + H / k_rows - 1 of the weight
+// stream.  On entry slice u is in flight into stage buffer u & 1; on exit
+// the slice after the last is (when there is one), and u has moved past
+// this product.
 template <int NT>
 __device__ __forceinline__ void chain_product(const float* As, float* stage,
                                               const float* wstream, int& u, int u_total,
                                               int H, float (&acc)[m_tiles(NT)][NT][4]) {
-  constexpr int MT = m_tiles(NT);
+  constexpr int MT = m_tiles(NT), KS = k_rows(NT), KK = KS / 8;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int lda = H + A_PAD;
@@ -142,10 +165,10 @@ __device__ __forceinline__ void chain_product(const float* As, float* stage,
     __syncthreads();  // slice u visible to all; every warp is done with slice u - 1
     issue_kslice(stage, wstream, u + 1, u_total, H);
     const float4* sb = reinterpret_cast<const float4*>(stage + (u & 1) * kslice_floats(H));
-    // the slice's two k8 steps go into one zeroed partial per fragment
-    uint32_t ab[2][MT][4], as[2][MT][4];
+    // the slice's k8 steps go into one zeroed partial per fragment
+    uint32_t ab[KK][MT][4], as[KK][MT][4];
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
+    for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const float* a = As + (mt * 16 + g) * lda + s * KS + kk * 8 + t;
@@ -157,9 +180,9 @@ __device__ __forceinline__ void chain_product(const float* As, float* stage,
     const float4* bf = sb + warp * NT * 32 + lane;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      uint32_t bb[2][2], bs[2][2];
+      uint32_t bb[KK][2], bs[KK][2];
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
+      for (int kk = 0; kk < KK; ++kk) {
         const float4 b = bf[(kk * nb8 + nt) * 32];
         bb[kk][0] = __float_as_uint(b.x);
         bb[kk][1] = __float_as_uint(b.y);
@@ -169,8 +192,9 @@ __device__ __forceinline__ void chain_product(const float* As, float* stage,
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         float part[4] = {0.f, 0.f, 0.f, 0.f};
-        mma3_into<false, false>(part, ab[0][mt], as[0][mt], bb[0], bs[0]);
-        mma3_into<false, false>(part, ab[1][mt], as[1][mt], bb[1], bs[1]);
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk)
+          mma3_into<false, false>(part, ab[kk][mt], as[kk][mt], bb[kk], bs[kk]);
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[e];
       }
@@ -279,7 +303,7 @@ __device__ __forceinline__ void chain_body(float* smem, const float* __restrict_
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * CP;
   const size_t lstride = (size_t)Qa * H;
-  const int u_total = 2 * (n_mod - 1) * (H / KS);
+  const int u_total = 2 * (n_mod - 1) * (H / k_rows(NT));
   int u = 0;
   issue_kslice(stage, wstream, 0, u_total, H);
 

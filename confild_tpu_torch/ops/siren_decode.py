@@ -36,13 +36,13 @@ kernels: the autograd functions take the folded operands, and autograd
 chains ``dz`` back through :func:`film_table` and :func:`stack_weights`
 to the latents, ``net2`` and the biases, undoing the scale.
 
-The kernels take a hidden width that is a multiple of 64 up to 512 (a
-block owns 64 pairs up to 384 and 32 above, ``csrc/siren_tc.cuh``) and at
-most 4 input and output features; any other hidden width up to 512 is
-zero-padded to the next multiple of 64 (:func:`pad_hidden`), which is
-exact: a padded unit has zero weights, bias and FiLM column, so its
-pre-activation is 0,
-``sin2pi(0) = 0``, and the next layer's zero rows ignore it.
+The kernels take a hidden width that is a multiple of 64 up to 1024 (a
+block owns 64 pairs up to 384, 32 at 448 and 512 and 16 above,
+``csrc/siren_tc.cuh``) and at most 16 input and output features; any other
+hidden width up to 1024 is zero-padded to the next multiple of 64
+(:func:`pad_hidden`), which is exact: a padded unit has zero weights, bias
+and FiLM column, so its pre-activation is 0, ``sin2pi(0) = 0``, and the
+next layer's zero rows ignore it.
 
 Each kernel has a plain PyTorch version beside it that repeats its
 arithmetic.  A wrapper takes the plain version only for CPU tensors; for
@@ -78,11 +78,11 @@ LAUNCHES = {"siren_decode_forward": 0, "siren_decode_forward_bf16": 0, "siren_de
 # the forward's compute dtypes (the JAX kernel's ``compute_dtype``)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 # the tensor-core kernels' limits (csrc/siren_tc.cuh::shape_ok)
-MAX_HIDDEN, MAX_FEATURES = 512, 4
+MAX_HIDDEN, MAX_FEATURES = 1024, 16
 
-# pairs per chunk of the training backward: its workspace holds every
-# pre-activation and dpre of a chunk, 2 * n_mod * BWD_PAIRS * H floats
-# (3.2 GB at Case4)
+# pairs per chunk of the training backward, whatever the width: its
+# workspace holds every pre-activation and dpre of a chunk, 2 * n_mod *
+# BWD_PAIRS * H floats (3.2 GB at Case4, 8.6 GB at 16 layers of 1024)
 BWD_PAIRS = 65536
 # fixed slices of a chunk's pairs that the backward's reductions sum apart
 # (so that their grid fills the card) and add in order at the end; each

@@ -4,8 +4,8 @@
 training backward's chain (``csrc/siren_tc.cuh::chain_body``) in its dz
 mode: every hidden-by-hidden product of the forward recompute and of the dx
 chain is a 3xTF32 tensor-core product summed as zeroed partials per 16 of
-k; after each layer a block of ``CP`` = 64 pairs (32 above H = 384,
-``tests/test_torch_siren_wide.py``) sums ``dpre_l`` over
+k; after each layer a block of ``CP`` = 64 pairs (32 at H = 448 and 512,
+16 above, ``tests/test_torch_siren_wide.py``) sums ``dpre_l`` over
 its pairs in pair order, one float32 sum per latent row it touches (a
 slot), and a fold adds each row's block sums in block order, chunk after
 chunk of ``BWD_PAIRS`` pairs.  That arithmetic is emulated here on

@@ -194,11 +194,14 @@ def test_hidden_padding_is_exact(hidden):
 
 def test_kernel_width_limits():
     assert [tsd.kernel_hidden_width(h, 3, 3)
-            for h in (1, 64, 65, 384, 385, 400, 448, 449, 500, 512)] \
-        == [64, 64, 128, 384, 448, 448, 448, 512, 512, 512]
+            for h in (1, 64, 65, 384, 385, 400, 448, 449, 500, 512, 513, 576, 600, 640, 1000,
+                      1024)] \
+        == [64, 64, 128, 384, 448, 448, 448, 512, 512, 512, 576, 576, 640, 640, 1024, 1024]
     assert tsd.kernel_hidden_width(512, 2, 2) == 512
-    for args in ((513, 3, 3), (640, 2, 2), (384, 5, 3), (384, 3, 5), (448, 5, 2),
-                 (512, 2, 5)):
-        with pytest.raises(ValueError, match="at most 512"):
+    assert tsd.kernel_hidden_width(1024, 16, 16) == 1024
+    assert tsd.kernel_hidden_width(384, 5, 3) == tsd.kernel_hidden_width(384, 3, 16) == 384
+    for args in ((1025, 3, 3), (1088, 2, 2), (384, 17, 3), (384, 3, 17), (1024, 17, 2),
+                 (512, 2, 17)):
+        with pytest.raises(ValueError, match="at most 1024"):
             tsd.kernel_hidden_width(*args)
-    assert tsd.MAX_HIDDEN == 512 and tsd.MAX_FEATURES == 4
+    assert tsd.MAX_HIDDEN == 1024 and tsd.MAX_FEATURES == 16

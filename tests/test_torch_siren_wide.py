@@ -1,19 +1,25 @@
 """The SIREN-FiLM kernels' widths above 384, and the demo CNF's, on the CPU.
 
-The CUDA kernels take a hidden width up to 512; above 384 a block owns 32
-pairs instead of 64 (``csrc/siren_tc.cuh::block_pairs``), so that the
-accumulators stay in registers and the two K-slice stages fit the shared
-memory of a block.  Here (the width limits are
+The CUDA kernels take a hidden width up to 1024 and up to 16 coordinates
+and outputs; above 384 a block owns 32 pairs instead of 64, and above 512
+16 (``csrc/siren_tc.cuh::block_pairs``), so that the accumulators stay in
+registers and the two K-slice stages fit the shared memory of a block.
+Here (the width limits are
 ``test_torch_siren_fwd.py::test_kernel_width_limits``): the plain
-versions (what a CPU tensor takes) at H = 448 and 512, and at the
-turbulence demo's CNF widths (2 coordinates and outputs), against the JAX
-package's Pallas kernels in interpret mode (forward rtol 1e-5, dz and the
-training backward rtol 1e-4, the tolerances of
+versions (what a CPU tensor takes) at H = 448, 512, 640 and 1024, with 5
+outputs (the 3-D velocity, pressure and temperature), with 16 coordinates
+and outputs, and at the turbulence demo's CNF widths (2 coordinates and
+outputs), against the JAX package's Pallas kernels in interpret mode, the
+weights carried across by ``cnf_state_dict_from_jax`` (forward rtol 1e-5,
+dz and the training backward rtol 1e-4, the tolerances of
 ``tests/test_torch_siren_fwd.py``, ``test_torch_siren_dz.py`` and
 ``test_torch_train.py``, the backward's absolute floor scaled to each
-leaf's magnitude); and the dz kernel's row slots and fold cover every pair
-once with 32-pair blocks.  The kernels themselves run on the card
-(``chip_smoke.py`` phases 16a and 16c).
+leaf's magnitude); the dz kernel's row slots and fold cover every pair
+once with 32- and 16-pair blocks; and one epoch of the port's
+``CNFTrainer`` against the JAX trainer (which trains through its Pallas
+kernels at any width) at ``hidden_features`` 640 and ``out_features`` 5.
+The kernels themselves run on the card (``chip_smoke.py`` phases 16a, 16c
+and 19).
 """
 
 import jax
@@ -24,8 +30,13 @@ import torch
 
 import test_torch_siren_dz as dz_maps
 from confild_tpu.ops import siren_decode as jsd
+from confild_tpu.train.cnf_trainer import CNFTrainer as JTrainer
+from confild_tpu_torch import config as tconfig
 from confild_tpu_torch.io.convert import cnf_state_dict_from_jax
 from confild_tpu_torch.ops import siren_decode as tsd
+from confild_tpu_torch.train.cnf_trainer import CNFTrainer as TTrainer
+from test_cnf_trainer import make_case
+from test_torch_train import _assert_same_state, _csv_rows
 from torch_parity_utils import jax_siren, limit_torch_threads, t
 
 
@@ -34,10 +45,14 @@ def _threads():
     limit_torch_threads()
 
 
-# (c_in, latent, c_out, middle layers, hidden, rows, points): the two wide
-# widths, and the turbulence demo CNF's at its f4 widths (7 modulated layers
-# of 384) and under --fast (5 of 128), with 2 coordinates and 2 outputs
+# (c_in, latent, c_out, middle layers, hidden, rows, points): the widths
+# of 32-pair blocks; those of 16-pair blocks with 5 outputs and with 16
+# coordinates and outputs; 16 outputs at a width of 64-pair blocks; and
+# the turbulence demo CNF's at its f4 widths (7 modulated layers of 384)
+# and under --fast (5 of 128), with 2 coordinates and 2 outputs
 WIDE = {"448": (3, 16, 3, 2, 448, 3, 200), "512": (2, 16, 2, 1, 512, 2, 150),
+        "640-c5": (3, 16, 5, 2, 640, 2, 128), "1024-c5": (3, 16, 5, 1, 1024, 2, 100),
+        "1024-c16": (16, 16, 16, 1, 1024, 2, 64), "384-c16": (3, 16, 16, 2, 384, 2, 128),
         "demo-f4": (2, 16, 2, 6, 384, 2, 150), "demo-fast": (2, 16, 2, 4, 128, 3, 200)}
 
 
@@ -90,30 +105,87 @@ def test_bwd_plain_matches_pallas_interpret(name):
     np.testing.assert_allclose(dlatents.numpy(), np.asarray(jdl), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("m,rows,chunk", [
-    (10, 50, 448), (31, 20, 448), (64, 20, 448), (1000, 3, 448), (1024, 3, 640),
-    (10, 384, tsd.BWD_PAIRS), (4096, 64, tsd.BWD_PAIRS),
-])
-def test_slots_and_fold_cover_every_pair_once_with_32_pair_blocks(monkeypatch, m, rows,
-                                                                 chunk):
-    """The dz kernel's index maps at the wide widths' block of 32 pairs:
-    every (row, point) pair in exactly one block slot of its own row, and
-    every row's slots folded once; a block needs at most ``dz_slots``."""
-    monkeypatch.setattr(dz_maps, "CP", 32)
+def _check_slots_and_fold(monkeypatch, cp, m, rows, chunk):
+    """The dz kernel's index maps at blocks of ``cp`` pairs: every (row,
+    point) pair in exactly one block slot of its own row, and every row's
+    slots folded once; a block needs at most ``dz_slots``."""
+    monkeypatch.setattr(dz_maps, "CP", cp)
     pairs = rows * m
     seen = np.zeros(pairs, np.int64)
     for p0, q in tsd.pair_chunks(pairs, chunk):
         blocks = dz_maps._block_slots(p0, q, m)
-        assert len(blocks) == -(-q // 32)
-        for b, slots in zip(range(0, q, 32), blocks):
+        assert len(blocks) == -(-q // cp)
+        for b, slots in zip(range(0, q, cp), blocks):
             assert slots[-1] + 1 <= dz_maps._dz_slots(m)
             pair = p0 + b + np.arange(len(slots))
             np.testing.assert_array_equal(pair // m - (p0 + b) // m, slots)
         for row, sources in dz_maps._fold_sources(p0, q, m).items():
             for bk, slot in sources:
                 slots = blocks[bk]
-                hit = p0 + bk * 32 + np.flatnonzero(slots == slot)
+                hit = p0 + bk * cp + np.flatnonzero(slots == slot)
                 assert np.all(hit // m == row) and hit.size
                 seen[hit] += 1
     assert np.all(seen == 1)
+
+
+@pytest.mark.parametrize("m,rows,chunk", [
+    (10, 50, 448), (31, 20, 448), (64, 20, 448), (1000, 3, 448), (1024, 3, 640),
+    (10, 384, tsd.BWD_PAIRS), (4096, 64, tsd.BWD_PAIRS),
+])
+def test_slots_and_fold_cover_every_pair_once_with_32_pair_blocks(monkeypatch, m, rows,
+                                                                 chunk):
+    """The index maps at the block of 32 pairs (H = 448 and 512)."""
+    _check_slots_and_fold(monkeypatch, 32, m, rows, chunk)
     assert dz_maps._dz_slots(10) == 5 and dz_maps._dz_slots(64) == 2
+
+
+@pytest.mark.parametrize("m,rows,chunk", [
+    (10, 50, 448), (7, 20, 448), (15, 30, 448), (16, 20, 448), (1000, 3, 448),
+    (1000, 384, tsd.BWD_PAIRS), (10, 384, tsd.BWD_PAIRS), (4096, 64, tsd.BWD_PAIRS),
+])
+def test_slots_and_fold_cover_every_pair_once_with_16_pair_blocks(monkeypatch, m, rows,
+                                                                 chunk):
+    """The index maps at the block of 16 pairs (H = 576 to 1024), with rows
+    shorter than a block (7, 10, 15 points) and DPS's 384 x 1000."""
+    _check_slots_and_fold(monkeypatch, 16, m, rows, chunk)
+    assert dz_maps._dz_slots(7) == 4 and dz_maps._dz_slots(10) == 3
+    assert dz_maps._dz_slots(16) == 2 and dz_maps._dz_slots(1000) == 2
+
+
+def _five_field_case(root, **extra):
+    """``make_case`` with a FiLM decoder of 640 units and 5 outputs, its
+    snapshots 5 seeded fields (travelling waves) of the same points."""
+    root.mkdir()
+    nf = {"name": "SIRENAutodecoder_film", "num_hidden_layers": 1, "out_features": 5,
+          "hidden_features": 640}
+    hp = make_case(root, epochs=1, NF=nf, **extra)
+    rng = np.random.default_rng(5)
+    coords = np.load(root / "coords.npy")
+    phase = rng.uniform(0, 2 * np.pi, size=(16, 1, 5))
+    k = rng.normal(size=(2, 5)) * 3
+    np.save(root / "fois.npy", np.sin(coords @ k + phase).astype(np.float32))
+    return hp
+
+
+def test_wide_five_output_trainer_matches_jax(tmp_path):
+    """One epoch of a FiLM recipe at 640 hidden units and 5 outputs, which
+    the JAX trainer trains through its Pallas kernels and the port's kernels
+    now take: latents, decoder and the logged losses agree with the JAX
+    trainer (the fused decode on both sides; the port's plain versions on
+    the CPU), at the trainers' parity tolerance."""
+    jhp = _five_field_case(tmp_path / "jax")
+    _five_field_case(tmp_path / "torch", device="cpu")
+    jtr = JTrainer(jhp)
+    ttr = TTrainer(tconfig.basic_input(str(tmp_path / "torch" / "case.yml")))
+    jtr.state = jtr.init_state()
+    ttr.init_state(cnf_state_dict_from_jax(jax.tree.map(np.asarray, jtr.state.nf_params)))
+    assert ttr.use_fused_decode and jtr.use_fused_decode
+    assert ttr.model.net1[-1].out_features == 5 and ttr.model.net1[0].out_features == 640
+    assert tsd.kernel_hidden_width(640, 2, 5) == 640
+    jtr.train(log_formats=())
+    ttr.train(log_formats=())
+    _assert_same_state(jtr, ttr)
+    a = [float(r["loss"]) for r in _csv_rows(ttr.hp.save_path) if r.get("loss")]
+    b = [float(r["loss"]) for r in _csv_rows(jtr.hp.save_path) if r.get("loss")]
+    assert len(a) == len(b) > 0
+    np.testing.assert_allclose(a, b, rtol=1e-5)
