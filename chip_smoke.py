@@ -273,8 +273,9 @@ Phases, each fatal on failure:
     Phase 18's flash launches are added to the kernels' counts, and so are
     the SIREN launches of its FiLM run.
 19. the SIREN kernels at every width a FiLM recipe may ask for (hidden
-    widths up to 1024, up to 16 coordinates and outputs; blocks of 16
-    pairs above 512), on
+    widths up to 1024, the float32 forward up to 3072, up to 16
+    coordinates and outputs; blocks of 16 pairs above 512 in the bf16
+    forward, dz and the training backward), on
     ``recipes/cnf/case4.yml`` with ``hidden_features`` 1024 and
     ``out_features`` 5 (``WIDE_CNF``: 3 -> 1024 x 16 modulated layers -> 5,
     which the kernels refused before):
@@ -305,19 +306,36 @@ Phases, each fatal on failure:
     CLI's full-field decode of the 384 rows at phase 5's 4096 points
     through ``inference.decoder`` (the forward kernel): fields finite and
     of 5 channels.  (b)'s and (c)'s launches (zeroed before each run, read
-    after) are the H = 1024 rows' counts.
+    after) are the H = 1024 rows' counts; (e) also times the forward at
+    the shapes they launch it at (4 x 65536, 384 x 1000, 16 x 4096) and
+    the training backward at 4 x 65536;
+    (f) the float32 forward above H = 512 is a thread-block cluster kernel
+    (``csrc/siren_fwd_cluster.cu``: wgmma, bulk asynchronous copies,
+    distributed shared memory), so (a)'s forward checks above 512 hold it,
+    and it is also checked alone: its plan at every width 576..3072 equal
+    to the built library's, its weight preparation bitwise against the
+    plain layout at 576, 1024, 2048 and 3072, the forward against its plain
+    version and float64 at 1536, 2048 and 3072 (3 -> 5, six modulated
+    layers, 4 x 16384; a ragged 3 x 3001 at 2048; bitwise repeats), and
+    timed (medians of 3, SM clocks, the stream bytes) at 2048 with
+    ``WIDE_CNF``'s depth at 4 x 262144 and at 3072 at six layers at 4 x
+    65536; the SASS scan counts its wgmma (HGMMA) instructions;
+    (g) a decoder of ``WIDE_CNF``'s depth at H = 2048 through
+    ``inference.CNF_inference`` (16 rows x 4096 points, against its plain
+    route): its launches are the H = 2048 row's.
 
 The script imports nothing of JAX or of ``confild_tpu``.  With no CUDA
 device it exits non-zero and prints no result.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
-(the rows at H = 448 and 512 and at C = 16 with 0 launches: no main path
-runs them; the rows at H = 1024 with phase 19's).
+(the rows at H = 448 and 512, at C = 16 and at H = 3072 with 0 launches:
+no main path runs them; the rows at H = 1024 and 2048 with phase 19's).
 """
 
 from __future__ import annotations
 
 import copy
 import csv
+import ctypes
 import dataclasses
 import datetime
 import gc
@@ -507,14 +525,18 @@ def phase_device():
 
 
 def kernel_label(line: str) -> str | None:
-    """``flash_bwd_dq_kernel<64, f32>`` or ``siren_bwd_chain_kernel<6>``
-    from a line holding a kernel's mangled name, or None."""
+    """``flash_bwd_dq_kernel<64, f32>``, ``siren_bwd_chain_kernel<6>`` or
+    ``siren_fwd_cluster_kernel<256, 2>`` from a line holding a kernel's
+    mangled name, or None."""
     found = re.search(r"((?:siren|flash)(?:_(?:[a-z]+|bf16))+_kernel)(?:ILi(\d+)E(\w*?)E)?",
                       line)
     if not found:
         return None
     if not found.group(2):
         return found.group(1)
+    second = re.fullmatch(r"Li(\d+)", found.group(3))
+    if second:
+        return f"{found.group(1)}<{found.group(2)}, {second.group(1)}>"
     if found.group(1).startswith("siren"):
         return f"{found.group(1)}<{found.group(2)}>"
     return (f"{found.group(1)}<{found.group(2)}, "
@@ -522,10 +544,10 @@ def kernel_label(line: str) -> str | None:
 
 
 def hmma_counts(paths) -> dict:
-    """Tensor-core instructions (``HMMA``) per kernel in the SASS of the
-    built libraries, from ``cuobjdump -sass``: one process per kernel (the
-    kernels that ``cuobjdump -res-usage`` lists), as many at once as there
-    are CPU cores."""
+    """Tensor-core instructions per kernel in the SASS of the built
+    libraries, from ``cuobjdump -sass`` (``hmma_in``): one process per kernel
+    (the kernels that ``cuobjdump -res-usage`` lists), as many at once as
+    there are CPU cores."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
 
     def cuobjdump(*args) -> str:
@@ -543,22 +565,32 @@ def hmma_counts(paths) -> dict:
 
 
 def hmma_in(sass: str) -> dict:
-    """``HMMA`` instructions per kernel in a ``cuobjdump -sass`` listing."""
+    """Tensor-core instructions per kernel in a ``cuobjdump -sass`` listing:
+    ``{kernel: {"HMMA": n, "HGMMA": n}}`` (``mma.sync`` and ``wgmma``)."""
     counts, kernel = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             kernel = kernel_label(line)
             if kernel:
-                counts[kernel] = 0
-        elif kernel and "HMMA" in line:
-            counts[kernel] += 1
+                counts[kernel] = {"HMMA": 0, "HGMMA": 0}
+        elif kernel:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    counts[kernel][op] += 1
     return counts
 
 
-# kernels whose every instantiation must run its products on the tensor cores
-TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "siren_fwd",
-                       "siren_fwd_bf16", "siren_bwd_chain", "siren_dz_chain",
-                       "siren_bwd_reduce")
+def tc_label(counts: dict) -> str:
+    """``48 HMMA`` or ``0 HMMA, 24 HGMMA``."""
+    return f"{counts['HMMA']} HMMA" + (f", {counts['HGMMA']} HGMMA" if counts["HGMMA"] else "")
+
+
+# kernels whose every instantiation must run its products on the tensor
+# cores: mma.sync (HMMA), and wgmma (HGMMA) for the cluster forward
+TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                       "siren_fwd_kernel", "siren_fwd_bf16_kernel", "siren_bwd_chain_kernel",
+                       "siren_dz_chain_kernel", "siren_bwd_reduce_kernel",
+                       "siren_fwd_cluster_kernel")
 
 
 def phase_build():
@@ -568,9 +600,10 @@ def phase_build():
     dt = time.perf_counter() - t0
     log(f"[build] {', '.join(p.name for p in paths)} in {dt:.2f} s")
     # one line per kernel instantiation: registers and spills (ptxas -v),
-    # and for the tensor-core libraries the HMMA count of each kernel
+    # and for the tensor-core libraries the HMMA and HGMMA counts of each
+    # kernel
     hmma = hmma_counts(cuda_build.library_path(lib) for lib in (
-        "flash_attention", "siren_decode", "siren_decode_bwd"))
+        "flash_attention", "siren_decode", "siren_decode_bwd", "siren_fwd_cluster"))
     for name in names:
         kernel, spill = None, ""
         for line in cuda_build.build_logs.get(name, "").splitlines():
@@ -580,13 +613,19 @@ def phase_build():
                 spill = re.sub(r"\s+", " ", line.strip())
             elif "registers" in line and kernel:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                tc = f", {hmma[kernel]} HMMA" if kernel in hmma else ""
+                tc = f", {tc_label(hmma[kernel])}" if kernel in hmma else ""
                 PTXAS[kernel] = f"{regs} registers, {spill}{tc}"
                 log(f"[build] {name}: {kernel}: {PTXAS[kernel]}")
                 kernel = None
-    required = {k: v for k, v in hmma.items() if k.startswith(TENSOR_CORE_KERNELS)}
+    required = {k: v["HMMA"] + v["HGMMA"] for k, v in hmma.items()
+                if k.split("<")[0] in TENSOR_CORE_KERNELS}
     no_tc = [k for k, v in required.items() if v == 0]
-    if no_tc or not all(any(k.startswith(p) for k in required) for p in TENSOR_CORE_KERNELS):
+    no_hgmma = [k for k, v in hmma.items()
+                if k.startswith("siren_fwd_cluster_kernel") and v["HGMMA"] == 0]
+    if no_hgmma:
+        raise SystemExit(f"cluster forward instantiations without wgmma (HGMMA): {no_hgmma}")
+    if no_tc or not all(any(k.split("<")[0] == p for k in required)
+                        for p in TENSOR_CORE_KERNELS):
         raise SystemExit(f"kernels without tensor-core instructions: {no_tc} "
                          f"(found {sorted(required)})")
 
@@ -698,7 +737,10 @@ def forward_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
                   + h * c_out + c_out + pairs * c_out)
     bound_ms, bound_by = tc_bound(mat, nbytes, act / PEAK_F32_FLOPS)
     fwd_ms = 0.0
-    for part, name in (("split", "siren_split_kernel"), ("forward", "siren_fwd_kernel")):
+    cluster = h > sd.NARROW_HIDDEN
+    names = ((("prep", "siren_fwd_cluster_prep_kernel"), ("forward", "siren_fwd_cluster_kernel"))
+             if cluster else (("split", "siren_split_kernel"), ("forward", "siren_fwd_kernel")))
+    for part, name in names:
         hits = [v for k, v in prof.items() if name in k]
         dev_ms = sum(ms_ for ms_, _ in hits)
         if not hits:
@@ -709,8 +751,12 @@ def forward_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
         fwd_ms = dev_ms if part == "forward" else fwd_ms
         log(f"[forward-time] {rows}x{points} {part}: {dev_ms:.3f} ms device, "
             f"{sum(n for _, n in hits)} launches{rate}")
-    stream = -(-pairs // block_pairs(h)) * (n_mod - 1) * 2 * h * h * 4
-    log(f"[forward-time] {rows}x{points}: the blocks read {stream / 1e12:.3f} TB of the "
+    # every block (every cluster above NARROW_HIDDEN, each block its
+    # columns) reads the whole split stream
+    group = sd.cluster_plan(h).pairs if cluster else block_pairs(h)
+    stream = -(-pairs // group) * (n_mod - 1) * 2 * h * h * 4
+    log(f"[forward-time] {rows}x{points}: the {'clusters' if cluster else 'blocks'} read "
+        f"{stream / 1e12:.3f} TB of the "
         f"{(n_mod - 1) * 2 * h * h * 4 / 1e6:.1f} MB split weight stream from L2"
         + (f" ({stream / 1e9 / fwd_ms:.2f} TB/s over the forward's device time)"
            if fwd_ms else ""))
@@ -3530,7 +3576,8 @@ def phase_classifier(root, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 19: the SIREN kernels at every width a FiLM recipe may ask for
+# phase 19: the SIREN kernels at every width a FiLM recipe may ask for, and
+# the float32 forward's cluster kernel above H = 512 up to its widest
 # ---------------------------------------------------------------------------
 
 # recipes/cnf/case4.yml at the widest decoder the kernels take: 3
@@ -3551,6 +3598,28 @@ WIDE_POINTS = 65536
 # lr x H (at phase 18's 1e-5 the loss rose at H = 1024: 0.7063, 0.7179,
 # 0.7239)
 WIDE_LR = {"nf": 1e-6, "latents": 1e-3}
+# the cluster forward alone at widths no other kernel takes, (C_in, C_out,
+# hidden layers, H): six modulated layers, Case4's coordinates, WIDE_NF's
+# outputs, up to the widest (sd.MAX_HIDDEN["forward"])
+CLUSTER_CHECKS = tuple((3, 5, 5, h) for h in (1536, 2048, sd.MAX_HIDDEN["forward"]))
+# the preparation's widths, checked bitwise against the plain layout
+PREP_WIDTHS = (576, 1024, 2048, sd.MAX_HIDDEN["forward"])
+# the widest forward's timed shape: 4 x this many points
+CLUSTER_MAX_POINTS = 65536
+# cli-free decode through inference.CNF_inference at H = 2048: rows, points
+INFER_2048 = (16, MESH_POINTS)
+
+
+def cluster_plan_line(h: int) -> str:
+    """The cluster forward's plan at width ``h`` (``sd.cluster_plan``, held
+    to the built library's), its ptxas line and the clusters the card holds
+    at once."""
+    plan = sd.cluster_plan(h)
+    kernel = f"siren_fwd_cluster_kernel<{plan.share}, {plan.m_tiles}>"
+    return (f"{plan.blocks} blocks of {plan.share} columns over {plan.pairs} pairs, "
+            f"{plan.stages} stages, {plan.smem_bytes} bytes of shared memory, "
+            f"{sd.cluster_capacity(torch.cuda.current_device(), plan.width, 3, 5)} clusters at "
+            f"once; {kernel}: {PTXAS.get(kernel, 'not reported')}")
 
 
 def wide_kernel_checks(model, device, label) -> dict:
@@ -3559,11 +3628,17 @@ def wide_kernel_checks(model, device, label) -> dict:
     bitwise repeat: the float32 and bf16 forwards at 4 x 16384, dz at a
     ragged 64 x 1000 (also against the training backward's), the training
     backward at 4 x 16384; the width's registers, spills and shared memory
-    first.  Returns the kernels' errors against float64."""
+    first (above H = 512 the float32 forward is the cluster kernel).
+    Returns the kernels' errors against float64."""
     h = model.net1[0].out_features
-    width = sd.kernel_hidden_width(h, model.net1[0].in_features, model.net1[-1].out_features)
-    for kernel in ("siren_fwd_kernel", "siren_fwd_bf16_kernel", "siren_bwd_chain_kernel",
-                   "siren_dz_chain_kernel"):
+    width = sd.kernel_hidden_width(h, model.net1[0].in_features, model.net1[-1].out_features,
+                                   "bwd")
+    kernels = ("siren_fwd_bf16_kernel", "siren_bwd_chain_kernel", "siren_dz_chain_kernel")
+    if width <= sd.NARROW_HIDDEN:
+        kernels = ("siren_fwd_kernel",) + kernels
+    else:
+        log(f"[wider] {label}: float32 forward: {cluster_plan_line(width)}")
+    for kernel in kernels:
         nt = width // 64
         log(f"[wider] {label}: {kernel}<{nt}>: {PTXAS.get(f'{kernel}<{nt}>', 'not reported')}")
     log(f"[wider] {label}: blocks of {block_pairs(width)} pairs; chain shared memory "
@@ -3613,8 +3688,12 @@ def phase_wider(root, device, results) -> dict:
     decoder (b) trained, at ``WIDE_SENSORS`` sensors, 10 guided steps, the
     operator on the forward and dz kernels (384 x 1000 pairs), and (d) the
     CLI's full-field decode through ``inference.decoder`` (the forward
-    kernel).  Returns (b)'s and (c)'s launches (zeroed before each run,
-    read after)."""
+    kernel).  (e) also times the forward at the shapes (b) and (c) launch it
+    at and the training backward at 4 x ``WIDE_POINTS``.  Then (f) the
+    float32 forward's cluster kernel alone at widths no other kernel takes
+    (``cluster_checks``) and (g) an H = 2048 decoder through
+    ``inference.CNF_inference`` (``infer_2048``).  Returns (b)'s and (c)'s
+    launches (zeroed before each run, read after) and (g)'s."""
     errs = {}
     for c_in, c_out, layers, h in WIDER_CHECKS:
         model = SirenFilm(in_coord_features=c_in, in_latent_features=256, out_features=c_out,
@@ -3625,7 +3704,9 @@ def phase_wider(root, device, results) -> dict:
         errs[h, c_out] = wide_kernel_checks(model, device, label)
         if c_out == 16:
             tag = f"@H{h}C16"
-            results["siren_decode_forward" + tag] = dict(
+            forward = ("siren_decode_forward_cluster" if h > sd.NARROW_HIDDEN
+                       else "siren_decode_forward")
+            results[forward + tag] = dict(
                 forward_time(model, device, 4, C16_POINTS, 35, repeats=3),
                 max_abs_err=errs[h, c_out]["forward"])
             results["siren_decode_bwd" + tag] = dict(
@@ -3644,7 +3725,7 @@ def phase_wider(root, device, results) -> dict:
     err["dz"] = dz_check(model, device, CASE4_RECIPE["time_length"], WIDE_SENSORS, 41, label,
                          against_bwd=True)
     err["bwd"] = bwd_check(model, device, 4, WIDE_POINTS, seed=42)
-    results["siren_decode_forward@H1024"] = dict(
+    results["siren_decode_forward_cluster@H1024"] = dict(
         forward_time(model, device, 4, 262144, 38, repeats=3), max_abs_err=err["forward"])
     results["siren_decode_bwd@H1024"] = dict(
         bwd_time(model, device, 4, 262144, seed=39, repeats=3), max_abs_err=err["bwd"])
@@ -3653,9 +3734,135 @@ def phase_wider(root, device, results) -> dict:
     results["siren_decode_dz@H1024"] = dict(
         dz_time(model, device, CASE4_RECIPE["time_length"], WIDE_SENSORS, 40, repeats=3),
         max_abs_err=err["dz"])
+    # the shapes (b) and (c) launch the forward and the training backward
+    # at (a training batch, a guided step's operator, a decode chunk), for
+    # calls x (time - bound) in PERF.md
+    for rows, points in ((4, WIDE_POINTS), (CASE4_RECIPE["time_length"], WIDE_SENSORS),
+                         (CASE4_RECIPE["decode_batch_size"], MESH_POINTS)):
+        forward_time(model, device, rows, points, 48, repeats=3)
+    bwd_time(model, device, 4, WIDE_POINTS, seed=49, repeats=3)
     del model
     torch.cuda.empty_cache()
-    return wider_paths(root)
+    cluster_checks(device, results)
+    counts = wider_paths(root)
+    counts["siren_decode_forward_cluster@H2048"] = infer_2048(root, device)
+    return counts
+
+
+def prep_check(h: int) -> None:
+    """The cluster forward's weight preparation at width ``h`` (two middle
+    weights from a seed) bitwise against the plain layout
+    (``sd.cluster_weight_layout``)."""
+    plan = sd.cluster_plan(h)
+    gen = torch.Generator(device="cuda").manual_seed(h)
+    w_mid = torch.randn((2, h, h), generator=gen, device="cuda")
+    image = torch.empty(2 * 2 * h * h, device="cuda")
+    lib = sd._cluster_library()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    sd._raise_on(lib.siren_fwd_cluster_prep(sd._ptr(w_mid), sd._ptr(image), h, 2, stream),
+                 "siren_fwd_cluster_prep")
+    same = torch.equal(image, sd.cluster_weight_layout(w_mid, plan.share))
+    log(f"[cluster] H={h}: the preparation of 2 middle weights bitwise equal to the plain "
+        f"layout: {same}")
+    if not same:
+        raise SystemExit("the cluster forward's weight preparation differs from its plain layout")
+
+
+def cluster_checks(device, results) -> None:
+    """Phase 19 (f): the float32 forward's cluster kernel alone where no
+    other SIREN kernel runs.  Its plan at every width it takes, held to the
+    built library's (``siren_fwd_cluster_plan``); its preparation bitwise
+    against the plain layout; the forward against its plain version and
+    float64 (phase 3's criterion, bitwise repeat) at ``CLUSTER_CHECKS`` (4 x
+    16384) and a ragged 3 x 3001 at 2048; timed (medians of 3, SM clocks,
+    the reckoned stream bytes) at 2048 with WIDE_CNF's depth at 4 x 262144
+    and at the widest at six layers at 4 x ``CLUSTER_MAX_POINTS``."""
+    lib = sd._cluster_library()
+    out = (ctypes.c_int * 5)()
+    for h in range(sd.NARROW_HIDDEN + 64, sd.MAX_HIDDEN["forward"] + 1, 64):
+        plan = sd.cluster_plan(h)
+        sd._raise_on(lib.siren_fwd_cluster_plan(h, out), "siren_fwd_cluster_plan")
+        if tuple(out) != (plan.blocks, plan.share, plan.m_tiles, plan.stages, plan.smem_bytes):
+            raise SystemExit(f"cluster plan at H = {h}: the library's {tuple(out)}, the "
+                             f"wrapper's {plan}")
+    log(f"[cluster] the wrapper's plans equal the library's at H = {sd.NARROW_HIDDEN + 64}.."
+        f"{sd.MAX_HIDDEN['forward']}")
+    for h in PREP_WIDTHS:
+        prep_check(h)
+    for c_in, c_out, layers, h in CLUSTER_CHECKS:
+        model = SirenFilm(in_coord_features=c_in, in_latent_features=256, out_features=c_out,
+                          num_hidden_layers=layers, hidden_features=h, w0=30.0,
+                          generator=torch.Generator().manual_seed(h + c_in)).to(
+            device).requires_grad_(False)
+        label = f"H={h} {c_in}->{c_out}"
+        log(f"[cluster] {label}: {cluster_plan_line(h)}")
+        err = forward_check(model, device, 4, 16384, 43, label)
+        if h == 2048:
+            forward_check(model, device, 3, 3001, 44, label)
+        if h == sd.MAX_HIDDEN["forward"]:
+            results[f"siren_decode_forward_cluster@H{h}"] = dict(
+                forward_time(model, device, 4, CLUSTER_MAX_POINTS, 45, repeats=3),
+                max_abs_err=err)
+        del model
+        torch.cuda.empty_cache()
+    model = SirenFilm(**dict(WIDE_CNF, hidden_features=2048),
+                      generator=torch.Generator().manual_seed(2048)).to(
+        device).requires_grad_(False)
+    err = forward_check(model, device, 4, 16384, 46, "Case4 at H=2048 3->5")
+    results["siren_decode_forward_cluster@H2048"] = dict(
+        forward_time(model, device, 4, 262144, 47, repeats=3), max_abs_err=err)
+    del model
+    torch.cuda.empty_cache()
+
+
+def infer_2048(root, device) -> int:
+    """Phase 19 (g): a decoder of ``WIDE_CNF``'s depth at H = 2048 (the
+    parent port raised) decoded through ``inference.CNF_inference`` on the
+    card, ``INFER_2048`` rows x points: finite, of its shape, and against the
+    plain route (``use_pallas=False``, relative 1e-4 as phase 14's
+    ``eval_cnf``).  Returns the cluster forward's launches in the kernel
+    route's run (zeroed before, read after)."""
+    d = os.path.join(root, "infer_2048")
+    os.makedirs(d, exist_ok=True)
+    nf = dict(WIDE_NF, hidden_features=2048)
+    model = SirenFilm(**dict(WIDE_CNF, **nf), generator=torch.Generator().manual_seed(4096))
+    rows, points = INFER_2048
+    rng = np.random.default_rng(2048)
+    torch.save({"model_state_dict": model.state_dict(),
+                "hidden_states": {"latents": torch.from_numpy(
+                    (0.1 * rng.standard_normal((rows, WIDE_CNF["in_latent_features"])))
+                    .astype(np.float32))}}, os.path.join(d, "checkpoint_1.pt"))
+    c_out = nf["out_features"]
+    torch.save({"x_normalizer_params": (torch.ones(3), torch.zeros(3)),
+                "y_normalizer_params": (torch.full((1, c_out), 2.0),
+                                        torch.full((1, c_out), -1.0))},
+               os.path.join(d, "normalizer_params.pt"))
+    with open(RECIPE_CNF) as f:
+        recipe = yaml.safe_load(f)
+    recipe["NF"].update(nf)
+    cfg = _write_yaml(os.path.join(d, "cnf.yml"), recipe)
+    del model
+    coords = rng.uniform(size=(points, 3)).astype(np.float32)
+    args = (os.path.join(d, "checkpoint_1.pt"), cfg)
+    sd.reset_launch_counts()
+    t0 = time.perf_counter()
+    fused = CNF_inference(*args, device=device).predict(coords, batch_size=rows)
+    wall = time.perf_counter() - t0
+    launches = sd.LAUNCHES["siren_decode_forward_cluster"]
+    plain = CNF_inference(*args, device=device, use_pallas=False).predict(coords,
+                                                                          batch_size=rows)
+    rel = float(np.linalg.norm(fused - plain) / np.linalg.norm(plain))
+    ok = (fused.shape == (rows, points, c_out) and bool(np.isfinite(fused).all())
+          and rel <= ZOO_REL_TOL and launches > 0)
+    log(f"[cluster] inference.CNF_inference at H=2048 ({WIDE_CNF['num_hidden_layers'] + 1} "
+        f"modulated layers, {c_out} outputs): {fused.shape}, finite "
+        f"{bool(np.isfinite(fused).all())}, {wall:.2f} s with the load; against the plain "
+        f"route rel L2 {rel:.3e} (tol {ZOO_REL_TOL}); cluster forward launches {launches} "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("CNF_inference at H = 2048 is wrong or did not launch the cluster "
+                         "forward")
+    return launches
 
 
 def wider_paths(root) -> dict:
@@ -3668,7 +3875,8 @@ def wider_paths(root) -> dict:
     log(f"[wider] cli.train_cnf on case4.yml with {WIDE_NF}: ms per batch step (4 x "
         f"{WIDE_POINTS}) {[round(x, 1) for x in run['step_ms']]}, peak {run['peak']:.2f} GiB, "
         f"launches {counts}")
-    missing = [k for k in ("siren_decode_forward", "siren_decode_bwd") if counts[k] == 0]
+    missing = [k for k in ("siren_decode_forward_cluster", "siren_decode_bwd")
+               if counts[k] == 0]
     if missing:
         raise SystemExit(f"the wide CNF trained without launching {missing}")
 
@@ -3695,7 +3903,7 @@ def wider_paths(root) -> dict:
     if fields.shape != expected or not np.isfinite(fields).all():
         raise SystemExit(f"the wide CNF's DPS output is wrong: {fields.shape}, expected "
                          f"{expected}")
-    missing = [k for k in ("siren_decode_forward", "siren_decode_dz") if dps[k] == 0]
+    missing = [k for k in ("siren_decode_forward_cluster", "siren_decode_dz") if dps[k] == 0]
     if missing or not timings["fused"]:
         raise SystemExit(f"the wide CNF's DPS run did not launch {missing}")
     for k, v in dps.items():
@@ -3775,7 +3983,8 @@ def main() -> int:
             flash_launches[k] += v
         stamp("phase 18c-f (classifier, guidance, super-resolution)")
         wide_launches = phase_wider(root, device, results)
-        stamp("phase 19 (the SIREN kernels up to H = 1024, C = 16)")
+        stamp("phase 19 (the SIREN kernels up to H = 1024, C = 16; the float32 forward up "
+              f"to H = {sd.MAX_HIDDEN['forward']})")
     launches.update(flash_launches)
 
     kernels = []
@@ -3796,16 +4005,21 @@ def main() -> int:
              "siren_decode.py:434"),
             ("siren_decode_bwd", "siren_decode_bwd@H512", "siren_decode_bwd.cu",
              "siren_decode.py:434"),
-            ("siren_decode_forward", "siren_decode_forward@H1024", "siren_decode.cu",
-             "siren_decode.py:96"),
+            ("siren_decode_forward_cluster", "siren_decode_forward_cluster@H1024",
+             "siren_fwd_cluster.cu", "siren_decode.py:96"),
+            ("siren_decode_forward_cluster", "siren_decode_forward_cluster@H2048",
+             "siren_fwd_cluster.cu", "siren_decode.py:96"),
+            ("siren_decode_forward_cluster",
+             f"siren_decode_forward_cluster@H{sd.MAX_HIDDEN['forward']}",
+             "siren_fwd_cluster.cu", "siren_decode.py:96"),
             ("siren_decode_forward_bf16", "siren_decode_forward_bf16@H1024",
              "siren_decode.cu", "siren_decode.py:96"),
             ("siren_decode_dz", "siren_decode_dz@H1024", "siren_decode_bwd.cu",
              "siren_decode.py:315"),
             ("siren_decode_bwd", "siren_decode_bwd@H1024", "siren_decode_bwd.cu",
              "siren_decode.py:434"),
-            ("siren_decode_forward", "siren_decode_forward@H1024C16", "siren_decode.cu",
-             "siren_decode.py:96"),
+            ("siren_decode_forward_cluster", "siren_decode_forward_cluster@H1024C16",
+             "siren_fwd_cluster.cu", "siren_decode.py:96"),
             ("siren_decode_bwd", "siren_decode_bwd@H1024C16", "siren_decode_bwd.cu",
              "siren_decode.py:434"),
             ("siren_decode_forward", "siren_decode_forward@H384C16", "siren_decode.cu",
@@ -3821,11 +4035,13 @@ def main() -> int:
             "source": f"confild_tpu_torch/csrc/{src}",
             "replaces": f"confild_tpu/ops/{replaces}",
             # phase 19's main paths (cli.train_cnf, cli.sample_conditional)
-            # run its decoder at H = 1024, 3 -> 5; no main path runs the
+            # run its decoder at H = 1024, 3 -> 5, and (g)
+            # inference.CNF_inference one at 2048; no main path runs the
             # other widths above 384 or C = 16 (the base rows count the
             # narrow widths' launches)
             "launches": (wide_launches[kname] if key.endswith("@H1024")
-                         else 0 if "@H" in key else launches[kname]),
+                         else wide_launches.get(key, 0) if "@H" in key
+                         else launches[kname]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"],

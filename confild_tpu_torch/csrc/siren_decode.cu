@@ -20,7 +20,8 @@
 //
 // ---------------------------------------------------------------------------
 // siren_decode_forward replaces the Pallas kernel _decode_kernel
-// (confild_tpu/ops/siren_decode.py:96, launched at :177 by _fused_forward).
+// (confild_tpu/ops/siren_decode.py:96, launched at :177 by _fused_forward)
+// at H <= 512; wider float32 forwards are siren_fwd_cluster.cu's.
 //
 // Bound on the H100: operations.  Each (row, point) pair costs
 // 2*H*(C_in + (n_mod-1)*H + C_out) flops (4.4 MFLOP at Case4) against 12
@@ -31,13 +32,13 @@
 // Design: the training chain's forward half (siren_decode_bwd.cu), without
 // its workspace.  A block owns CP consecutive (row, point) pairs,
 // p = t * M + m (the M dimension of every product; CP = 64 up to H = 384,
-// 32 at H = 448 and 512, 16 from 576 to 1024, siren_tc.cuh::block_pairs),
+// 32 at H = 448 and 512, siren_tc.cuh::block_pairs),
 // and keeps their CP x H activations in shared memory for the whole layer
 // stack.  Eight warps each own H / 8 output columns.  Every H x H product is
 // a 3xTF32 mma.sync.m16n8k8 (tf32_mma.cuh): the middle weights are split
 // once a call (siren_split_kernel, the n_mod - 1 forward products only,
-// 17.7 MB at Case4) and stream as K-slices of 16 rows (8 above H = 512)
-// through a two-stage cp.async buffer,
+// 17.7 MB at Case4) and stream as K-slices of 16 rows through a two-stage
+// cp.async buffer,
 // in one stream across the layers, so the next layer's first slice loads
 // while a layer's epilogue runs (chain_product, siren_tc.cuh).  The
 // epilogue adds the FiLM row and applies sin2pi in place; nothing goes to
@@ -46,8 +47,7 @@
 // shuffle tree) stay on the CUDA cores in float32.  The ragged last block
 // is masked.  No atomics: two launches are bitwise equal.
 // Known cost: every block rereads the whole split stream from L2, CP pairs
-// a read (1.16 TB per 16 x 262144 call at Case4; 8.2 TB per 4 x 262144
-// call at 16 modulated layers of 1024, where a block owns 16 pairs).
+// a read (1.16 TB per 16 x 262144 call at Case4).
 //
 // ---------------------------------------------------------------------------
 // siren_decode_forward_bf16 is the same forward with the JAX kernel's
@@ -64,7 +64,8 @@
 // products and 5.8 ms of sines.
 //
 // Design: siren_fwd_kernel's scheme with mma.sync.m16n8k16.bf16 and an f32
-// accumulator.  A block owns CP pairs (as the float32 kernel) and keeps
+// accumulator, at every H up to 1024.  A block owns CP pairs (64 up to
+// H = 384, 32 at 448 and 512, 16 from 576 to 1024) and keeps
 // their activations in
 // shared memory as bf16 (the rounding JAX applies at the next product), row
 // stride H + 8 so that A fragments hit 32 banks.  Eight warps each own H / 8
@@ -89,12 +90,29 @@
 
 #include <cuda_bf16.h>
 
+#include <type_traits>
+
 #include "siren_common.cuh"
 #include "siren_tc.cuh"
 
 namespace {
 
 using siren::sin2pi;
+
+// the float32 forward's widest H (wider: siren_fwd_cluster.cu)
+constexpr int F32_MAX_H = 512;
+
+// f(std::integral_constant<int, H / 64>()) for the float32 forward's
+// instantiation of width H, or cudaErrorInvalidValue when there is none
+template <int NT = 1, typename F>
+int with_f32_width(int H, F&& f) {
+  if (H == NT * 64) return f(std::integral_constant<int, NT>());
+  if constexpr (NT < F32_MAX_H / 64) {
+    return with_f32_width<NT + 1>(H, f);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // forward: eight warps over a block's pairs (siren_tc.cuh)
@@ -447,11 +465,11 @@ int siren_decode_forward(const float* coords, const float* z, const float* w_fir
                          const float* wsplit, const float* w_head, const float* b_head,
                          float* out, int T, int M, int C_in, int H, int n_mod, int C_out,
                          void* stream) {
-  if (!siren_tc::shape_ok(H, n_mod, C_in, C_out) || T <= 0 || M <= 0 ||
+  if (!siren_tc::shape_ok(H, n_mod, C_in, C_out) || H > F32_MAX_H || T <= 0 || M <= 0 ||
       (long long)T * M > 2147483647LL * siren_tc::block_pairs(H) || (long long)T * H > 2147483647LL ||
       (n_mod > 1 && wsplit == nullptr))
     return (int)cudaErrorInvalidValue;
-  return siren_tc::with_width(H, [&](auto nt) {
+  return with_f32_width(H, [&](auto nt) {
     return launch_fwd<decltype(nt)::value>(coords, z, w_first, wsplit, w_head, b_head, out, T,
                                            M, C_in, n_mod, C_out, (cudaStream_t)stream);
   });

@@ -8,7 +8,8 @@ one is reused.  Nothing is compiled
 when a module is imported: the CPU tests import every module and have no
 ``nvcc``.  ``--split-compile=0`` lets each nvcc optimise a source's kernels
 on every CPU core at once: the SIREN sources instantiate every hidden
-width from 64 to 1024, one kernel of each family a width.
+width up to 1024 (the float32 forward up to 512), one kernel of each
+family a width.
 """
 
 from __future__ import annotations

@@ -11,9 +11,16 @@ polynomial.
 Kernels:
 
 * ``siren_decode_forward`` (``csrc/siren_decode.cu``) replaces
-  ``_decode_kernel``: the full forward, its hidden-by-hidden products on
-  the tensor cores, as two launches per call (the middle weights split
-  into TF32 halves, then the forward).
+  ``_decode_kernel`` at H <= 512: the full forward, its hidden-by-hidden
+  products on the tensor cores, as two launches per call (the middle
+  weights split into TF32 halves, then the forward).
+* ``siren_decode_forward_cluster`` (``csrc/siren_fwd_cluster.cu``)
+  replaces ``_decode_kernel`` in float32 above H = 512: a thread-block
+  cluster splits every layer's output columns over its blocks (``wgmma``,
+  the weights streamed by bulk asynchronous copies, the activations read
+  through distributed shared memory), as two launches per call (the
+  middle weights split into TF32 halves and laid out as the blocks' stage
+  images, :func:`cluster_weight_layout`, then the forward).
 * ``siren_decode_forward_bf16`` (``csrc/siren_decode.cu``) replaces
   ``_decode_kernel`` with ``compute_dtype=jnp.bfloat16``: every product's
   operands rounded to bfloat16 (the weights after the ``w0 / (2*pi)``
@@ -36,11 +43,14 @@ kernels: the autograd functions take the folded operands, and autograd
 chains ``dz`` back through :func:`film_table` and :func:`stack_weights`
 to the latents, ``net2`` and the biases, undoing the scale.
 
-The kernels take a hidden width that is a multiple of 64 up to 1024 (a
-block owns 64 pairs up to 384, 32 at 448 and 512 and 16 above,
-``csrc/siren_tc.cuh``) and at most 16 input and output features; any other
-hidden width up to 1024 is zero-padded to the next multiple of 64
-(:func:`pad_hidden`), which is exact: a padded unit has zero weights, bias
+Each kernel family has its own widest hidden layer (``MAX_HIDDEN``): the
+float32 forward 3072 (a cluster of up to 8 blocks above 512,
+:func:`cluster_plan`), the bf16 forward, dz and the training backward 1024
+(a block owns 64 pairs up to 384, 32 at 448 and 512 and 16 above,
+``csrc/siren_tc.cuh``); all take at most 16 input and output features.  A
+hidden width is zero-padded to the kernel's width (the next multiple of 64,
+or the cluster plan's width, :func:`kernel_hidden_width`,
+:func:`pad_hidden`), which is exact: a padded unit has zero weights, bias
 and FiLM column, so its pre-activation is 0, ``sin2pi(0) = 0``, and the
 next layer's zero rows ignore it.
 
@@ -55,6 +65,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -73,12 +84,20 @@ _SIN2PI_COEFFS = (
     -12.271581478633225,
 )
 
-LAUNCHES = {"siren_decode_forward": 0, "siren_decode_forward_bf16": 0, "siren_decode_dz": 0,
-            "siren_decode_bwd": 0}
+LAUNCHES = {"siren_decode_forward": 0, "siren_decode_forward_cluster": 0,
+            "siren_decode_forward_bf16": 0, "siren_decode_dz": 0, "siren_decode_bwd": 0}
 # the forward's compute dtypes (the JAX kernel's ``compute_dtype``)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
-# the tensor-core kernels' limits (csrc/siren_tc.cuh::shape_ok)
-MAX_HIDDEN, MAX_FEATURES = 1024, 16
+# each kernel family's widest hidden layer (csrc/siren_tc.cuh::shape_ok;
+# the float32 forward above NARROW_HIDDEN: csrc/siren_fwd_cluster.cu) and
+# the widest C_in, C_out of all of them
+FAMILIES = {"forward": "float32 forward", "forward_bf16": "bfloat16 forward",
+            "dz": "dz", "bwd": "training backward"}
+MAX_HIDDEN = {"forward": 3072, "forward_bf16": 1024, "dz": 1024, "bwd": 1024}
+MAX_FEATURES = 16
+# the float32 forward's widest H on siren_decode.cu's kernel; wider is the
+# cluster kernel's
+NARROW_HIDDEN = 512
 
 # pairs per chunk of the training backward, whatever the width: its
 # workspace holds every pre-activation and dpre of a chunk, 2 * n_mod *
@@ -188,14 +207,102 @@ def _check_cuda(device: torch.device, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def kernel_hidden_width(h: int, c_in: int, c_out: int) -> int:
-    """The hidden width the kernels run a decoder of ``h`` units at: the
-    next multiple of 64.  Raises beyond the kernels' limits."""
-    if h > MAX_HIDDEN or c_in > MAX_FEATURES or c_out > MAX_FEATURES:
+# ---------------------------------------------------------------------------
+# the float32 forward above NARROW_HIDDEN: the cluster plan and the weights'
+# stage images (csrc/siren_fwd_cluster.cu)
+# ---------------------------------------------------------------------------
+
+# (S, MT) of the cluster kernel's instantiations: S columns a block, MT m64
+# tiles (64 pairs each) a cluster
+CLUSTER_CONFIGS = ((128, 2), (192, 2), (256, 2), (384, 1))
+CLUSTER_MAX_BLOCKS = 8         # the largest portable cluster
+CLUSTER_KSLICE = 16            # weight rows a stage holds
+SMEM_PER_BLOCK = 232448        # the shared memory a Hopper block may take
+_SHARE_PAD, _SMEM_ALIGN = 16, 128
+
+
+class ClusterPlan(NamedTuple):
+    """How the cluster kernel runs a hidden width: ``blocks`` blocks of
+    ``share`` columns over ``64 * m_tiles`` pairs."""
+    blocks: int
+    share: int
+    m_tiles: int
+
+    @property
+    def width(self) -> int:
+        return self.blocks * self.share
+
+    @property
+    def pairs(self) -> int:
+        return 64 * self.m_tiles
+
+    def _bytes(self, stages: int) -> int:
+        p = self.pairs
+        return (_SMEM_ALIGN + stages * CLUSTER_KSLICE * self.share * 8
+                + p * (self.share + _SHARE_PAD) * 4 + 2 * p * MAX_FEATURES * 4 + p * 4
+                + 2 * stages * 8)
+
+    @property
+    def stages(self) -> int:
+        """Stages of the weight ring: as many as fit, 2 to 4."""
+        ns = 4
+        while ns > 2 and self._bytes(ns) > SMEM_PER_BLOCK:
+            ns -= 1
+        return ns
+
+    @property
+    def smem_bytes(self) -> int:
+        return self._bytes(self.stages)
+
+
+def cluster_plan(h: int) -> ClusterPlan:
+    """The cluster for hidden width ``h`` (``csrc/siren_fwd_cluster.cu::
+    plan_for``): the smallest padded width ``blocks * share >= h`` with at
+    most ``CLUSTER_MAX_BLOCKS`` blocks; ties go to more pairs a cluster,
+    then to fewer blocks."""
+    plans = [ClusterPlan(-(-h // s), s, mt) for s, mt in CLUSTER_CONFIGS
+             if -(-h // s) <= CLUSTER_MAX_BLOCKS]
+    if h < 1 or not plans:
+        raise ValueError(f"no cluster plan for a hidden width of {h}")
+    return min(plans, key=lambda p: (p.width, -p.m_tiles, p.blocks))
+
+
+def tf32_split(x: torch.Tensor):
+    """``(big, small)``: ``x`` rounded to TF32 (to nearest, ties away from
+    zero, by bit arithmetic as ``csrc/tf32_mma.cuh::rna_tf32``) and the
+    rest rounded the same way."""
+    def rna(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    big = rna(x)
+    return big, rna(x - big)
+
+
+def cluster_weight_layout(w_mid: torch.Tensor, share: int) -> torch.Tensor:
+    """What the cluster kernel's preparation writes, flat: for each block
+    (its ``share`` columns), middle weight and 16-row K-slice, the stage
+    image ``[k8][big, small][n / 8][j / 4][n % 8][j % 4]`` of ``w_mid``
+    ``(n_mid, H, H)`` [k][n], split into TF32 halves; fragment row ``j`` of
+    k8 step ``kk`` is row ``4 (j % 4) + 2 kk + j / 4`` of the slice (the
+    kernel's ``load_a`` reads A in the same order)."""
+    n_mid, h, _ = w_mid.shape
+    x = torch.stack(tf32_split(w_mid)).view(2, n_mid, h // 16, 4, 2, 2, h // share, share // 8, 8)
+    # (half, layer, slice, j % 4, k8, j / 4, block, n / 8, n % 8) -> the image order
+    return x.permute(6, 1, 2, 4, 0, 7, 5, 8, 3).reshape(-1)
+
+
+def kernel_hidden_width(h: int, c_in: int, c_out: int, family: str) -> int:
+    """The hidden width the ``family`` kernel (a key of ``FAMILIES``) runs
+    a decoder of ``h`` units at: the next multiple of 64, or above
+    ``NARROW_HIDDEN`` for the float32 forward the cluster plan's width.
+    Raises beyond the family's limits."""
+    limit = MAX_HIDDEN[family]
+    if h > limit or c_in > MAX_FEATURES or c_out > MAX_FEATURES:
         raise ValueError(
-            f"the CUDA SIREN kernels take a hidden width of at most {MAX_HIDDEN} (zero-padded "
-            f"to a multiple of 64) and at most {MAX_FEATURES} input and output features, got "
-            f"{h}, {c_in}, {c_out}")
+            f"the CUDA SIREN {FAMILIES[family]} kernel takes a hidden width of at most {limit} "
+            f"(zero-padded to its kernel width) and at most {MAX_FEATURES} input and output "
+            f"features, got {h}, {c_in}, {c_out}")
+    if family == "forward" and h > NARROW_HIDDEN:
+        return cluster_plan(h).width
     return -(-h // 64) * 64
 
 
@@ -274,10 +381,10 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed with CUDA error {err}")
 
 
-def _operands(coords, z, w_first, w_mid, w_head, **more):
+def _operands(family, coords, z, w_first, w_mid, w_head, **more):
     """The CUDA wrappers' checks of the folded operands (device, float32,
     contiguous, consistent shapes); returns ``(n_mod, T, H, M, C_in,
-    C_out)`` and the kernels' padded hidden width."""
+    C_out)`` and the ``family`` kernel's padded hidden width."""
     dev = coords.device
     _check_cuda(dev, coords=coords, z=z, w_first=w_first, w_mid=w_mid, w_head=w_head, **more)
     n_mod, t, h = z.shape
@@ -288,18 +395,83 @@ def _operands(coords, z, w_first, w_mid, w_head, **more):
             or w_head.shape != (h, c_out) or (b_head is not None and b_head.shape != (c_out,))
             or (g is not None and g.shape != (t, m, c_out))):
         raise ValueError("decode operands have inconsistent shapes")
-    return (n_mod, t, h, m, c_in, c_out), kernel_hidden_width(h, c_in, c_out)
+    return (n_mod, t, h, m, c_in, c_out), kernel_hidden_width(h, c_in, c_out, family)
 
 
-def _launch_forward(coords, z, w_first, w_mid, w_head, b_head, compute_dtype):
-    """Launches on operands of a kernel width: the weights' preparation
-    (the TF32 split, or the bf16 fragments), then the forward."""
-    lib = _library()
+@functools.cache
+def _cluster_library() -> ctypes.CDLL:
+    """The built cluster forward with its C signatures declared."""
+    lib = cuda_build.load("siren_fwd_cluster")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, args in (
+            ("siren_fwd_cluster_plan", [i, p]),
+            ("siren_fwd_cluster_max_clusters", [i, i, i, p]),
+            ("siren_fwd_cluster_prep", [p, p, i, i, p]),
+            ("siren_decode_forward_cluster", [p] * 7 + [i] * 6 + [p])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = i
+    return lib
+
+
+@functools.cache
+def cluster_capacity(device_index: int, h: int, c_in: int, c_out: int) -> int:
+    """Clusters of the plan for width ``h`` that the card holds at once
+    (``cudaOccupancyMaxActiveClusters``); raises when it holds none."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _cluster_library().siren_fwd_cluster_max_clusters(h, c_in, c_out, ctypes.byref(n))
+    _raise_on(err, "siren_decode_forward_cluster's occupancy query")
+    if n.value < 1:
+        plan = cluster_plan(h)
+        raise RuntimeError(f"the card admits no cluster of {plan.blocks} blocks with "
+                           f"{plan.smem_bytes} bytes of shared memory each (H = {h})")
+    return n.value
+
+
+def _launch_forward_cluster(coords, z, w_first, w_mid, w_head, b_head):
+    """Launches of the float32 forward above ``NARROW_HIDDEN`` on operands
+    of the cluster plan's width: the weights' stage images, then the
+    forward."""
+    lib = _cluster_library()
     dev = coords.device
     n_mod, t, h = z.shape
     m, c_in = coords.shape
     c_out = w_head.shape[1]
+    name = "siren_decode_forward_cluster"
+    out = torch.empty((t, m, c_out), device=dev, dtype=torch.float32)
+    if t == 0 or m == 0:
+        return out
+    cluster_capacity(dev.index if dev.index is not None else torch.cuda.current_device(),
+                     h, c_in, c_out)
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        wprep = None
+        if n_mod > 1:
+            wprep = torch.empty((n_mod - 1) * 2 * h * h, device=dev, dtype=torch.float32)
+            _raise_on(lib.siren_fwd_cluster_prep(_ptr(w_mid), _ptr(wprep), h, n_mod - 1, stream),
+                      f"{name} weight preparation launch")
+            LAUNCHES[name] += 1
+        err = lib.siren_decode_forward_cluster(
+            _ptr(coords), _ptr(z), _ptr(w_first),
+            _ptr(wprep) if wprep is not None else None, _ptr(w_head), _ptr(b_head),
+            _ptr(out), t, m, c_in, h, n_mod, c_out, stream)
+    _raise_on(err, f"{name} launch")
+    LAUNCHES[name] += 1
+    return out
+
+
+def _launch_forward(coords, z, w_first, w_mid, w_head, b_head, compute_dtype):
+    """Launches on operands of a kernel width: the weights' preparation
+    (the TF32 split, or the bf16 fragments), then the forward; the float32
+    forward above ``NARROW_HIDDEN`` is the cluster kernel's."""
+    n_mod, t, h = z.shape
     bf16 = compute_dtype == torch.bfloat16
+    if not bf16 and h > NARROW_HIDDEN:
+        return _launch_forward_cluster(coords, z, w_first, w_mid, w_head, b_head)
+    lib = _library()
+    dev = coords.device
+    m, c_in = coords.shape
+    c_out = w_head.shape[1]
     name = "siren_decode_forward_bf16" if bf16 else "siren_decode_forward"
     out = torch.empty((t, m, c_out), device=dev, dtype=torch.float32)
     if t == 0 or m == 0:
@@ -330,17 +502,19 @@ def decode_forward(coords, z, w_first, w_mid, w_head, b_head,
     """Fused forward on folded operands: ``(T, M, C_out)``.
 
     CPU tensors take :func:`decode_forward_plain`.  CUDA tensors launch, on
-    operands padded to the kernels' hidden width, ``siren_decode_forward``
-    for ``compute_dtype`` float32 (the middle weights split once into TF32
-    halves, then the 3xTF32 tensor-core forward) or
-    ``siren_decode_forward_bf16`` for bfloat16 (the middle weights rounded
-    once into bfloat16 fragments, then the bf16 tensor-core forward),
-    ``csrc/siren_decode.cu``; any other ``compute_dtype`` raises.  The
-    operands are float32 in both modes."""
+    operands padded to the kernel's hidden width, ``siren_decode_forward``
+    for ``compute_dtype`` float32 up to ``NARROW_HIDDEN`` (the middle
+    weights split once into TF32 halves, then the 3xTF32 tensor-core
+    forward) and ``siren_decode_forward_cluster`` above it
+    (``csrc/siren_fwd_cluster.cu``), or ``siren_decode_forward_bf16`` for
+    bfloat16 (the middle weights rounded once into bfloat16 fragments, then
+    the bf16 tensor-core forward), ``csrc/siren_decode.cu``; any other
+    ``compute_dtype`` raises.  The operands are float32 in both modes."""
     _operand_rounding(compute_dtype)
     if coords.device.type == "cpu":
         return decode_forward_plain(coords, z, w_first, w_mid, w_head, b_head, compute_dtype)
-    _, width = _operands(coords, z, w_first, w_mid, w_head, b_head=b_head)
+    family = "forward_bf16" if compute_dtype == torch.bfloat16 else "forward"
+    _, width = _operands(family, coords, z, w_first, w_mid, w_head, b_head=b_head)
     return padded_forward(functools.partial(_launch_forward, compute_dtype=compute_dtype),
                           coords, z, w_first, w_mid, w_head, b_head, width)
 
@@ -411,7 +585,7 @@ def decode_dz(coords, z, g, w_first, w_mid, w_head) -> torch.Tensor:
     partials, whatever ``T x M``."""
     if coords.device.type == "cpu":
         return decode_dz_plain(coords, z, g, w_first, w_mid, w_head)
-    _, width = _operands(coords, z, w_first, w_mid, w_head, g=g)
+    _, width = _operands("dz", coords, z, w_first, w_mid, w_head, g=g)
     return padded_dz(_launch_dz, coords, z, g, w_first, w_mid, w_head, width)
 
 
@@ -480,7 +654,7 @@ def decode_bwd(coords, z, g, w_first, w_mid, w_head):
     hidden width."""
     if coords.device.type == "cpu":
         return decode_bwd_plain(coords, z, g, w_first, w_mid, w_head)
-    _, width = _operands(coords, z, w_first, w_mid, w_head, g=g)
+    _, width = _operands("bwd", coords, z, w_first, w_mid, w_head, g=g)
     return padded_bwd(_launch_bwd, coords, z, g, w_first, w_mid, w_head, width)
 
 

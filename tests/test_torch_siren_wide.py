@@ -181,7 +181,7 @@ def test_wide_five_output_trainer_matches_jax(tmp_path):
     ttr.init_state(cnf_state_dict_from_jax(jax.tree.map(np.asarray, jtr.state.nf_params)))
     assert ttr.use_fused_decode and jtr.use_fused_decode
     assert ttr.model.net1[-1].out_features == 5 and ttr.model.net1[0].out_features == 640
-    assert tsd.kernel_hidden_width(640, 2, 5) == 640
+    assert all(tsd.kernel_hidden_width(640, 2, 5, family) == 640 for family in tsd.FAMILIES)
     jtr.train(log_formats=())
     ttr.train(log_formats=())
     _assert_same_state(jtr, ttr)
