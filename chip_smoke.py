@@ -309,17 +309,21 @@ Phases, each fatal on failure:
     after) are the H = 1024 rows' counts; (e) also times the forward at
     the shapes they launch it at (4 x 65536, 384 x 1000, 16 x 4096) and
     the training backward at 4 x 65536;
-    (f) the float32 forward above H = 512 is a thread-block cluster kernel
-    (``csrc/siren_fwd_cluster.cu``: wgmma, bulk asynchronous copies,
-    distributed shared memory), so (a)'s forward checks above 512 hold it,
-    and it is also checked alone: its plan at every width 576..3072 equal
-    to the built library's, its weight preparation bitwise against the
-    plain layout at 576, 1024, 2048 and 3072, the forward against its plain
-    version and float64 at 1536, 2048 and 3072 (3 -> 5, six modulated
-    layers, 4 x 16384; a ragged 3 x 3001 at 2048; bitwise repeats), and
-    timed (medians of 3, SM clocks, the stream bytes) at 2048 with
-    ``WIDE_CNF``'s depth at 4 x 262144 and at 3072 at six layers at 4 x
-    65536; the SASS scan counts its wgmma (HGMMA) instructions;
+    (f) above H = 512 the float32 forward and the chain of dz and the
+    training backward are thread-block cluster kernels
+    (``csrc/siren_fwd_cluster.cu``, ``csrc/siren_chain_cluster.cu``:
+    wgmma, bulk asynchronous copies, distributed shared memory), so (a)'s
+    checks above 512 hold them, and they are also checked alone: their
+    plan at every width 576..3072 equal to the built library's, their
+    weight preparations bitwise against the plain layouts at 576, 1024,
+    2048 and 3072, the forward, dz and the training backward against their
+    plain versions and float64 at 1536, 2048 and 3072 (3 -> 5, six
+    modulated layers; a ragged 3 x 3001 forward at 2048; bitwise repeats),
+    dz and the training backward also on decoders of one and two modulated
+    layers at 640, 2048 and 3072, and timed (medians of 3, SM clocks, the
+    stream bytes) at 2048 with ``WIDE_CNF``'s depth at 4 x 262144 (the
+    forward) and at 3072 at six layers; the SASS scan counts their wgmma
+    (HGMMA) instructions;
     (g) a decoder of ``WIDE_CNF``'s depth at H = 2048 through
     ``inference.CNF_inference`` (16 rows x 4096 points, against its plain
     route): its launches are the H = 2048 row's.
@@ -525,9 +529,14 @@ def phase_device():
 
 
 def kernel_label(line: str) -> str | None:
-    """``flash_bwd_dq_kernel<64, f32>``, ``siren_bwd_chain_kernel<6>`` or
-    ``siren_fwd_cluster_kernel<256, 2>`` from a line holding a kernel's
-    mangled name, or None."""
+    """``flash_bwd_dq_kernel<64, f32>``, ``siren_bwd_chain_kernel<6>``,
+    ``siren_fwd_cluster_kernel<256, 2>`` or
+    ``siren_chain_cluster_kernel<256, 2, dz>`` (its training mode ``bwd``)
+    from a line holding a kernel's mangled name, or None."""
+    chain = re.search(r"(siren_chain_cluster_kernel)ILi(\d+)ELi(\d+)ELb([01])E", line)
+    if chain:
+        return (f"{chain.group(1)}<{chain.group(2)}, {chain.group(3)}, "
+                f"{'dz' if chain.group(4) == '1' else 'bwd'}>")
     found = re.search(r"((?:siren|flash)(?:_(?:[a-z]+|bf16))+_kernel)(?:ILi(\d+)E(\w*?)E)?",
                       line)
     if not found:
@@ -586,11 +595,11 @@ def tc_label(counts: dict) -> str:
 
 
 # kernels whose every instantiation must run its products on the tensor
-# cores: mma.sync (HMMA), and wgmma (HGMMA) for the cluster forward
+# cores: mma.sync (HMMA), and wgmma (HGMMA) for the cluster kernels
+CLUSTER_KERNELS = ("siren_fwd_cluster_kernel", "siren_chain_cluster_kernel")
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                        "siren_fwd_kernel", "siren_fwd_bf16_kernel", "siren_bwd_chain_kernel",
-                       "siren_dz_chain_kernel", "siren_bwd_reduce_kernel",
-                       "siren_fwd_cluster_kernel")
+                       "siren_dz_chain_kernel", "siren_bwd_reduce_kernel") + CLUSTER_KERNELS
 
 
 def phase_build():
@@ -603,7 +612,8 @@ def phase_build():
     # and for the tensor-core libraries the HMMA and HGMMA counts of each
     # kernel
     hmma = hmma_counts(cuda_build.library_path(lib) for lib in (
-        "flash_attention", "siren_decode", "siren_decode_bwd", "siren_fwd_cluster"))
+        "flash_attention", "siren_decode", "siren_decode_bwd", "siren_fwd_cluster",
+        "siren_chain_cluster"))
     for name in names:
         kernel, spill = None, ""
         for line in cuda_build.build_logs.get(name, "").splitlines():
@@ -621,9 +631,9 @@ def phase_build():
                 if k.split("<")[0] in TENSOR_CORE_KERNELS}
     no_tc = [k for k, v in required.items() if v == 0]
     no_hgmma = [k for k, v in hmma.items()
-                if k.startswith("siren_fwd_cluster_kernel") and v["HGMMA"] == 0]
+                if k.startswith(CLUSTER_KERNELS) and v["HGMMA"] == 0]
     if no_hgmma:
-        raise SystemExit(f"cluster forward instantiations without wgmma (HGMMA): {no_hgmma}")
+        raise SystemExit(f"cluster kernel instantiations without wgmma (HGMMA): {no_hgmma}")
     if no_tc or not all(any(k.split("<")[0] == p for k in required)
                         for p in TENSOR_CORE_KERNELS):
         raise SystemExit(f"kernels without tensor-core instructions: {no_tc} "
@@ -738,7 +748,7 @@ def forward_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
     bound_ms, bound_by = tc_bound(mat, nbytes, act / PEAK_F32_FLOPS)
     fwd_ms = 0.0
     cluster = h > sd.NARROW_HIDDEN
-    names = ((("prep", "siren_fwd_cluster_prep_kernel"), ("forward", "siren_fwd_cluster_kernel"))
+    names = ((("prep", "siren_cluster_prep_kernel"), ("forward", "siren_fwd_cluster_kernel"))
              if cluster else (("split", "siren_split_kernel"), ("forward", "siren_fwd_kernel")))
     for part, name in names:
         hits = [v for k, v in prof.items() if name in k]
@@ -847,6 +857,31 @@ def peak_above(fn) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
+def chain_kernel(h: int, narrow: str) -> str:
+    """The chain's kernel name at width ``h``: the narrow one up to
+    ``NARROW_HIDDEN``, the cluster chain above it."""
+    return "siren_chain_cluster_kernel" if h > sd.NARROW_HIDDEN else narrow
+
+
+def prep_kernel(h: int) -> str:
+    """The weight preparation's kernel name at width ``h``."""
+    return "siren_cluster_prep_kernel" if h > sd.NARROW_HIDDEN else "siren_split_kernel"
+
+
+def chain_stream(pairs: int, h: int, n_mod: int, chain_ms: float) -> str:
+    """The bytes that the chain's blocks (above ``NARROW_HIDDEN`` its
+    clusters, each block its columns) read of the split weight stream,
+    the forward's products and the dx chain's, over ``pairs`` pairs in
+    chunks of ``BWD_PAIRS``, and the rate over the chain's device time."""
+    group = sd.cluster_plan(h).pairs if h > sd.NARROW_HIDDEN else block_pairs(h)
+    units = sum(-(-q // group) for _, q in sd.pair_chunks(pairs, min(pairs, sd.BWD_PAIRS)))
+    one = 2 * (n_mod - 1) * 2 * h * h * 4
+    return (f"the {'clusters' if h > sd.NARROW_HIDDEN else 'blocks'} of {group} pairs read "
+            f"{units * one / 1e12:.3f} TB of the {one / 1e6:.1f} MB split weight stream from L2"
+            + (f" ({units * one / 1e9 / chain_ms:.2f} TB/s over the chain's device time)"
+               if chain_ms else ""))
+
+
 def dz_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
     """The dz kernel at ``rows x points``: median of ``repeats`` separately
     timed calls with the least and largest and the SM clocks around them, the
@@ -871,14 +906,17 @@ def dz_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
         f"{dz_mib:.1f} MiB and a workspace of {peak * 1024 - dz_mib:.1f} MiB (a chunk's "
         f"pre-activations and partials, the split weights)")
     products = pairs * 4 * (n_mod - 1) * h * h   # forward recompute and dx chain
-    for part, name in (("chain", "siren_dz_chain_kernel"), ("fold", "siren_dz_fold_kernel"),
-                       ("split", "siren_split_kernel")):
+    chain_ms = 0.0
+    for part, name in (("chain", chain_kernel(h, "siren_dz_chain_kernel")),
+                       ("fold", "siren_dz_fold_kernel"), ("split", prep_kernel(h))):
         hits = [v for k, v in prof.items() if name in k]
         dev_ms = sum(ms_ for ms_, _ in hits)
+        chain_ms = dev_ms if part == "chain" else chain_ms
         rate = (f", {products / dev_ms / 1e9:.2f} TFLOP/s of products"
                 if part == "chain" and dev_ms else "")
         log(f"[dz-time] {rows}x{points} {part}: {dev_ms:.3f} ms device, "
             f"{sum(n for _, n in hits)} launches{rate}")
+    log(f"[dz-time] {rows}x{points}: {chain_stream(pairs, h, n_mod, chain_ms)}")
     mat = pairs * 2 * h * (c_in + 2 * (n_mod - 1) * h + c_out)
     act = pairs * (2 * ACT_FLOPS + 2) * h * n_mod
     nbytes = 4 * (points * c_in + n_mod * rows * h + pairs * c_out + c_in * h
@@ -1097,6 +1135,12 @@ def phase_fused_dps(root, device):
 # training: the training-backward kernel, the ops' gradients, the CLI
 # ---------------------------------------------------------------------------
 
+def abs_max(x: torch.Tensor) -> float:
+    """The largest magnitude in ``x``; 0 for an empty tensor (the middle
+    weights' gradient of a decoder of one modulated layer)."""
+    return x.abs().max().item() if x.numel() else 0.0
+
+
 def f64_train_grads(model, coords, latents, g, chunk: int):
     """Float64 autograd of ``sum(decode * g)`` through the reference layer
     loop (``siren_film_apply``'s ``torch.sin`` arithmetic), chunked over
@@ -1116,10 +1160,12 @@ def f64_train_grads(model, coords, latents, g, chunk: int):
         for l, f in enumerate(films):
             dz[l] += f.grad[:, 0, :]
     grads = {n: p.grad for n, p in m64.named_parameters()}
-    n_mod = m64.n_modulated
+    n_mod, h = m64.n_modulated, dz.shape[2]
+    # a decoder of one modulated layer has no middle weights
+    dw_mid = [grads[f"net1.{l}.weight"].t() for l in range(1, n_mod)]
     return {
         "dz": dz, "dW_first": grads["net1.0.weight"].t(),
-        "dW_mid": torch.stack([grads[f"net1.{l}.weight"].t() for l in range(1, n_mod)]),
+        "dW_mid": torch.stack(dw_mid) if dw_mid else dz.new_zeros((0, h, h)),
         "dW_head": grads[f"net1.{n_mod}.weight"].t(), "dlatents": lat.grad,
         "dW2": torch.stack([grads[f"net2.{l}.weight"].t() for l in range(n_mod)]),
         "db1": torch.stack([grads[f"net1.{l}.bias"] for l in range(n_mod)])}
@@ -1163,9 +1209,9 @@ def bwd_check(model, device, rows, points, seed, chunk: int = 4096) -> float:
     truth = f64_train_grads(model, coords, latents, g, chunk=chunk)
     ok = same
     for name, want in truth.items():
-        err_k = (kern_u[name].double() - want).abs().max().item()
-        err_p = (plain_u[name].double() - want).abs().max().item()
-        top = want.abs().max().item()
+        err_k = abs_max(kern_u[name].double() - want)
+        err_p = abs_max(plain_u[name].double() - want)
+        top = abs_max(want)
         good = err_k <= 2 * err_p + 1e-6 * top and torch.isfinite(kern_u[name]).all().item()
         ok &= good
         log(f"[bwd] {rows}x{points} {name}: |kernel-f64| {err_k:.3e}, |plain-f64| "
@@ -1174,7 +1220,7 @@ def bwd_check(model, device, rows, points, seed, chunk: int = 4096) -> float:
     if not ok:
         raise SystemExit("training-backward kernel fails the f64-relative criterion "
                          "or is not deterministic")
-    max_abs_err = max((kern_u[k].double() - truth[k]).abs().max().item() for k in truth)
+    max_abs_err = max(abs_max(kern_u[k].double() - truth[k]) for k in truth)
     del plain_u, kern_u, truth, m, out
     torch.cuda.empty_cache()
     return max_abs_err
@@ -1239,14 +1285,18 @@ def bwd_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
                               lambda: sd.decode_bwd(coords, z, g, *ops), top=6)
     # the products each kernel computes (the chain: forward and dx chain)
     products = {"chain": pairs * 4 * (n_mod - 1) * h * h, "reduce": pairs * 2 * (n_mod - 1) * h * h}
+    chain_ms = 0.0
     for part in ("chain", "reduce", "sums", "split", "fold"):
-        name = "siren_split_kernel" if part == "split" else f"siren_bwd_{part}_kernel"
+        name = {"split": prep_kernel(h), "chain": chain_kernel(h, "siren_bwd_chain_kernel")}.get(
+            part, f"siren_bwd_{part}_kernel")
         hits = [v for k, v in prof.items() if name in k]
         dev_ms = sum(ms for ms, _ in hits)
+        chain_ms = dev_ms if part == "chain" else chain_ms
         rate = (f", {products[part] / dev_ms / 1e9:.2f} TFLOP/s of products"
                 if part in products and dev_ms else "")
         log(f"[bwd-time] {part}: {dev_ms:.3f} ms device, {sum(n for _, n in hits)} "
             f"launches{rate}")
+    log(f"[bwd-time] {rows}x{points}: {chain_stream(pairs, h, n_mod, chain_ms)}")
     log(f"[bwd] {rows}x{points} H={h}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median "
         f"of {repeats} ({flops / ms / 1e9:.2f} TFLOP/s), bound {bound_ms:.3f} ms ({bound_by}, "
         f"{flops / 1e12:.2f} TFLOP; every flop on the CUDA cores: "
@@ -3602,6 +3652,12 @@ WIDE_LR = {"nf": 1e-6, "latents": 1e-3}
 # hidden layers, H): six modulated layers, Case4's coordinates, WIDE_NF's
 # outputs, up to the widest (sd.MAX_HIDDEN["forward"])
 CLUSTER_CHECKS = tuple((3, 5, 5, h) for h in (1536, 2048, sd.MAX_HIDDEN["forward"]))
+# the chain in both modes on shallow decoders, (C_in, C_out, hidden layers,
+# H): one modulated layer (no middle weight, no dx product) and two, at
+# each pair count of the cluster plans (128 pairs at 640 and 2048, 64 at
+# the widest)
+SHALLOW_CHECKS = tuple((3, 5, layers, h) for h in (640, 2048, sd.MAX_HIDDEN["dz"])
+                       for layers in (0, 1))
 # the preparation's widths, checked bitwise against the plain layout
 PREP_WIDTHS = (576, 1024, 2048, sd.MAX_HIDDEN["forward"])
 # the widest forward's timed shape: 4 x this many points
@@ -3610,16 +3666,28 @@ CLUSTER_MAX_POINTS = 65536
 INFER_2048 = (16, MESH_POINTS)
 
 
-def cluster_plan_line(h: int) -> str:
-    """The cluster forward's plan at width ``h`` (``sd.cluster_plan``, held
-    to the built library's), its ptxas line and the clusters the card holds
-    at once."""
+def check_decoder(device, c_in: int, c_out: int, layers: int, h: int):
+    """A frozen decoder of ``layers`` middle layers of width ``h`` (256
+    latents, w0 30, weights from the seed ``h + c_in``) and its label."""
+    model = SirenFilm(in_coord_features=c_in, in_latent_features=256, out_features=c_out,
+                      num_hidden_layers=layers, hidden_features=h, w0=30.0,
+                      generator=torch.Generator().manual_seed(h + c_in)).to(
+        device).requires_grad_(False)
+    return model, f"H={h} {c_in}->{c_out}"
+
+
+def cluster_plan_line(h: int, family: str = "forward") -> str:
+    """A cluster kernel's plan at width ``h`` (``sd.cluster_plan``, held to
+    the built libraries'), its ptxas line and the clusters the card holds
+    at once: the float32 forward's, or the chain's in the ``family`` "dz"
+    or "bwd" (its dz or training mode)."""
     plan = sd.cluster_plan(h)
-    kernel = f"siren_fwd_cluster_kernel<{plan.share}, {plan.m_tiles}>"
+    kernel = (f"siren_fwd_cluster_kernel<{plan.share}, {plan.m_tiles}>" if family == "forward"
+              else f"siren_chain_cluster_kernel<{plan.share}, {plan.m_tiles}, {family}>")
     return (f"{plan.blocks} blocks of {plan.share} columns over {plan.pairs} pairs, "
             f"{plan.stages} stages, {plan.smem_bytes} bytes of shared memory, "
-            f"{sd.cluster_capacity(torch.cuda.current_device(), plan.width, 3, 5)} clusters at "
-            f"once; {kernel}: {PTXAS.get(kernel, 'not reported')}")
+            f"{sd.cluster_capacity(torch.cuda.current_device(), plan.width, 3, 5, family)} "
+            f"clusters at once; {kernel}: {PTXAS.get(kernel, 'not reported')}")
 
 
 def wide_kernel_checks(model, device, label) -> dict:
@@ -3633,17 +3701,23 @@ def wide_kernel_checks(model, device, label) -> dict:
     h = model.net1[0].out_features
     width = sd.kernel_hidden_width(h, model.net1[0].in_features, model.net1[-1].out_features,
                                    "bwd")
-    kernels = ("siren_fwd_bf16_kernel", "siren_bwd_chain_kernel", "siren_dz_chain_kernel")
+    kernels = ("siren_fwd_bf16_kernel",)
     if width <= sd.NARROW_HIDDEN:
-        kernels = ("siren_fwd_kernel",) + kernels
+        kernels = ("siren_fwd_kernel",) + kernels + ("siren_bwd_chain_kernel",
+                                                     "siren_dz_chain_kernel")
     else:
-        log(f"[wider] {label}: float32 forward: {cluster_plan_line(width)}")
+        for family in ("forward", "dz", "bwd"):
+            log(f"[wider] {label}: cluster {sd.FAMILIES[family]}: "
+                f"{cluster_plan_line(width, family)}")
     for kernel in kernels:
         nt = width // 64
         log(f"[wider] {label}: {kernel}<{nt}>: {PTXAS.get(f'{kernel}<{nt}>', 'not reported')}")
-    log(f"[wider] {label}: blocks of {block_pairs(width)} pairs; chain shared memory "
-        f"{sd._bwd_library().siren_bwd_chain_smem(width)} bytes (of 232448 a block may "
-        f"take)")
+    if width > sd.NARROW_HIDDEN:
+        log(f"[wider] {label}: the bf16 forward's blocks of {block_pairs(width)} pairs")
+    else:
+        log(f"[wider] {label}: blocks of {block_pairs(width)} pairs; chain shared memory "
+            f"{sd._bwd_library().siren_bwd_chain_smem(width)} bytes (of 232448 a block may "
+            f"take)")
     return {"forward": forward_check(model, device, 4, 16384, 31, label),
             "bf16": bf16_forward_check(model, device, 4, 16384, 32, label),
             "dz": dz_check(model, device, 64, WIDE_SENSORS, 33, label, against_bwd=True),
@@ -3689,27 +3763,23 @@ def phase_wider(root, device, results) -> dict:
     operator on the forward and dz kernels (384 x 1000 pairs), and (d) the
     CLI's full-field decode through ``inference.decoder`` (the forward
     kernel).  (e) also times the forward at the shapes (b) and (c) launch it
-    at and the training backward at 4 x ``WIDE_POINTS``.  Then (f) the
-    float32 forward's cluster kernel alone at widths no other kernel takes
+    at and the training backward at 4 x ``WIDE_POINTS``.  Above H = 512 the
+    float32 forward, dz and the training backward's chain are the cluster
+    kernels.  Then (f) the cluster kernels alone at the widths above 1024
     (``cluster_checks``) and (g) an H = 2048 decoder through
     ``inference.CNF_inference`` (``infer_2048``).  Returns (b)'s and (c)'s
     launches (zeroed before each run, read after) and (g)'s."""
     errs = {}
     for c_in, c_out, layers, h in WIDER_CHECKS:
-        model = SirenFilm(in_coord_features=c_in, in_latent_features=256, out_features=c_out,
-                          num_hidden_layers=layers, hidden_features=h, w0=30.0,
-                          generator=torch.Generator().manual_seed(h + c_in)).to(
-            device).requires_grad_(False)
-        label = f"H={h} {c_in}->{c_out}"
+        model, label = check_decoder(device, c_in, c_out, layers, h)
         errs[h, c_out] = wide_kernel_checks(model, device, label)
         if c_out == 16:
             tag = f"@H{h}C16"
-            forward = ("siren_decode_forward_cluster" if h > sd.NARROW_HIDDEN
-                       else "siren_decode_forward")
-            results[forward + tag] = dict(
+            wide = "_cluster" if h > sd.NARROW_HIDDEN else ""
+            results[f"siren_decode_forward{wide}{tag}"] = dict(
                 forward_time(model, device, 4, C16_POINTS, 35, repeats=3),
                 max_abs_err=errs[h, c_out]["forward"])
-            results["siren_decode_bwd" + tag] = dict(
+            results[f"siren_decode_bwd{wide}{tag}"] = dict(
                 bwd_time(model, device, 4, C16_POINTS, seed=36, repeats=3),
                 max_abs_err=errs[h, c_out]["bwd"])
         del model
@@ -3727,11 +3797,11 @@ def phase_wider(root, device, results) -> dict:
     err["bwd"] = bwd_check(model, device, 4, WIDE_POINTS, seed=42)
     results["siren_decode_forward_cluster@H1024"] = dict(
         forward_time(model, device, 4, 262144, 38, repeats=3), max_abs_err=err["forward"])
-    results["siren_decode_bwd@H1024"] = dict(
+    results["siren_decode_bwd_cluster@H1024"] = dict(
         bwd_time(model, device, 4, 262144, seed=39, repeats=3), max_abs_err=err["bwd"])
     results["siren_decode_forward_bf16@H1024"] = dict(
         bf16_forward_time(model, device, 4, 262144, 38, repeats=3), max_abs_err=err["bf16"])
-    results["siren_decode_dz@H1024"] = dict(
+    results["siren_decode_dz_cluster@H1024"] = dict(
         dz_time(model, device, CASE4_RECIPE["time_length"], WIDE_SENSORS, 40, repeats=3),
         max_abs_err=err["dz"])
     # the shapes (b) and (c) launch the forward and the training backward
@@ -3750,33 +3820,44 @@ def phase_wider(root, device, results) -> dict:
 
 
 def prep_check(h: int) -> None:
-    """The cluster forward's weight preparation at width ``h`` (two middle
-    weights from a seed) bitwise against the plain layout
-    (``sd.cluster_weight_layout``)."""
+    """The cluster kernels' weight preparations at width ``h`` (two middle
+    weights from a seed) bitwise against their plain layouts: the
+    forward's (``sd.cluster_weight_layout``) and the chain's, the forward's
+    products then the dx chain's transposed ones
+    (``sd.cluster_chain_weight_layout``)."""
     plan = sd.cluster_plan(h)
     gen = torch.Generator(device="cuda").manual_seed(h)
     w_mid = torch.randn((2, h, h), generator=gen, device="cuda")
-    image = torch.empty(2 * 2 * h * h, device="cuda")
-    lib = sd._cluster_library()
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    sd._raise_on(lib.siren_fwd_cluster_prep(sd._ptr(w_mid), sd._ptr(image), h, 2, stream),
-                 "siren_fwd_cluster_prep")
-    same = torch.equal(image, sd.cluster_weight_layout(w_mid, plan.share))
-    log(f"[cluster] H={h}: the preparation of 2 middle weights bitwise equal to the plain "
-        f"layout: {same}")
-    if not same:
-        raise SystemExit("the cluster forward's weight preparation differs from its plain layout")
+    for what, prep, layout, n_prod in (
+            ("forward", sd._cluster_library().siren_fwd_cluster_prep, sd.cluster_weight_layout,
+             2),
+            ("chain", sd._chain_cluster_library().siren_chain_cluster_prep,
+             sd.cluster_chain_weight_layout, 4)):
+        image = torch.empty(n_prod * 2 * h * h, device="cuda")
+        sd._raise_on(prep(sd._ptr(w_mid), sd._ptr(image), h, 2, stream), f"the {what}'s prep")
+        same = torch.equal(image, layout(w_mid, plan.share))
+        log(f"[cluster] H={h}: the {what}'s preparation of 2 middle weights ({n_prod} "
+            f"products) bitwise equal to the plain layout: {same}")
+        if not same:
+            raise SystemExit(f"the cluster {what}'s weight preparation differs from its plain "
+                             f"layout")
 
 
 def cluster_checks(device, results) -> None:
-    """Phase 19 (f): the float32 forward's cluster kernel alone where no
-    other SIREN kernel runs.  Its plan at every width it takes, held to the
-    built library's (``siren_fwd_cluster_plan``); its preparation bitwise
-    against the plain layout; the forward against its plain version and
-    float64 (phase 3's criterion, bitwise repeat) at ``CLUSTER_CHECKS`` (4 x
-    16384) and a ragged 3 x 3001 at 2048; timed (medians of 3, SM clocks,
-    the reckoned stream bytes) at 2048 with WIDE_CNF's depth at 4 x 262144
-    and at the widest at six layers at 4 x ``CLUSTER_MAX_POINTS``."""
+    """Phase 19 (f): the cluster kernels above H = 1024, where only they
+    and the bf16 forward's refusal run.  Their plan at every width they
+    take, held to the built library's (``siren_fwd_cluster_plan``: the two
+    share ``siren_cluster.cuh::plan_for``); their preparations bitwise against the
+    plain layouts; the forward against its plain version and float64
+    (phase 3's criterion, bitwise repeat) at ``CLUSTER_CHECKS`` (4 x 16384)
+    and a ragged 3 x 3001 at 2048, the chain's dz mode (64 x
+    ``WIDE_SENSORS``, also against the training backward's dz) and training
+    mode (4 x 16384) under phases 4 and 7's criteria at ``CLUSTER_CHECKS``
+    and on the shallow decoders of ``SHALLOW_CHECKS``; timed (medians of 3, SM clocks, the reckoned stream bytes) at 2048 with
+    WIDE_CNF's depth at 4 x 262144 (the forward) and at the widest at six
+    layers (the forward and the training backward at 4 x
+    ``CLUSTER_MAX_POINTS``, dz at 384 x ``WIDE_SENSORS``)."""
     lib = sd._cluster_library()
     out = (ctypes.c_int * 5)()
     for h in range(sd.NARROW_HIDDEN + 64, sd.MAX_HIDDEN["forward"] + 1, 64):
@@ -3785,24 +3866,41 @@ def cluster_checks(device, results) -> None:
         if tuple(out) != (plan.blocks, plan.share, plan.m_tiles, plan.stages, plan.smem_bytes):
             raise SystemExit(f"cluster plan at H = {h}: the library's {tuple(out)}, the "
                              f"wrapper's {plan}")
-    log(f"[cluster] the wrapper's plans equal the library's at H = {sd.NARROW_HIDDEN + 64}.."
+    log(f"[cluster] the wrapper's plans equal the library's (siren_cluster.cuh::plan_for, "
+        f"which the forward and the chain share) at H = {sd.NARROW_HIDDEN + 64}.."
         f"{sd.MAX_HIDDEN['forward']}")
     for h in PREP_WIDTHS:
         prep_check(h)
     for c_in, c_out, layers, h in CLUSTER_CHECKS:
-        model = SirenFilm(in_coord_features=c_in, in_latent_features=256, out_features=c_out,
-                          num_hidden_layers=layers, hidden_features=h, w0=30.0,
-                          generator=torch.Generator().manual_seed(h + c_in)).to(
-            device).requires_grad_(False)
-        label = f"H={h} {c_in}->{c_out}"
-        log(f"[cluster] {label}: {cluster_plan_line(h)}")
+        model, label = check_decoder(device, c_in, c_out, layers, h)
+        for family in ("forward", "dz", "bwd"):
+            log(f"[cluster] {label}: {sd.FAMILIES[family]}: {cluster_plan_line(h, family)}")
         err = forward_check(model, device, 4, 16384, 43, label)
         if h == 2048:
             forward_check(model, device, 3, 3001, 44, label)
+        # the chain in both modes: dz at a ragged 64 x 1000 (also against the
+        # training backward's dz), the training backward at 4 x 16384
+        err_dz = dz_check(model, device, 64, WIDE_SENSORS, 50, label, against_bwd=True)
+        err_bwd = bwd_check(model, device, 4, 16384, seed=51)
         if h == sd.MAX_HIDDEN["forward"]:
             results[f"siren_decode_forward_cluster@H{h}"] = dict(
                 forward_time(model, device, 4, CLUSTER_MAX_POINTS, 45, repeats=3),
                 max_abs_err=err)
+            results[f"siren_decode_dz_cluster@H{h}"] = dict(
+                dz_time(model, device, CASE4_RECIPE["time_length"], WIDE_SENSORS, 52,
+                        repeats=3), max_abs_err=err_dz)
+            results[f"siren_decode_bwd_cluster@H{h}"] = dict(
+                bwd_time(model, device, 4, CLUSTER_MAX_POINTS, seed=53, repeats=3),
+                max_abs_err=err_bwd)
+        del model
+        torch.cuda.empty_cache()
+    for c_in, c_out, layers, h in SHALLOW_CHECKS:
+        model, label = check_decoder(device, c_in, c_out, layers, h)
+        label += f" ({layers + 1} modulated)"
+        log(f"[cluster] {label}: dz (64 x {WIDE_SENSORS}) and the training backward "
+            f"(4 x 16384) of a shallow decoder")
+        dz_check(model, device, 64, WIDE_SENSORS, 54, label, against_bwd=True)
+        bwd_check(model, device, 4, 16384, seed=55)
         del model
         torch.cuda.empty_cache()
     model = SirenFilm(**dict(WIDE_CNF, hidden_features=2048),
@@ -3875,7 +3973,7 @@ def wider_paths(root) -> dict:
     log(f"[wider] cli.train_cnf on case4.yml with {WIDE_NF}: ms per batch step (4 x "
         f"{WIDE_POINTS}) {[round(x, 1) for x in run['step_ms']]}, peak {run['peak']:.2f} GiB, "
         f"launches {counts}")
-    missing = [k for k in ("siren_decode_forward_cluster", "siren_decode_bwd")
+    missing = [k for k in ("siren_decode_forward_cluster", "siren_decode_bwd_cluster")
                if counts[k] == 0]
     if missing:
         raise SystemExit(f"the wide CNF trained without launching {missing}")
@@ -3903,7 +4001,8 @@ def wider_paths(root) -> dict:
     if fields.shape != expected or not np.isfinite(fields).all():
         raise SystemExit(f"the wide CNF's DPS output is wrong: {fields.shape}, expected "
                          f"{expected}")
-    missing = [k for k in ("siren_decode_forward_cluster", "siren_decode_dz") if dps[k] == 0]
+    missing = [k for k in ("siren_decode_forward_cluster", "siren_decode_dz_cluster")
+               if dps[k] == 0]
     if missing or not timings["fused"]:
         raise SystemExit(f"the wide CNF's DPS run did not launch {missing}")
     for k, v in dps.items():
@@ -3983,7 +4082,7 @@ def main() -> int:
             flash_launches[k] += v
         stamp("phase 18c-f (classifier, guidance, super-resolution)")
         wide_launches = phase_wider(root, device, results)
-        stamp("phase 19 (the SIREN kernels up to H = 1024, C = 16; the float32 forward up "
+        stamp("phase 19 (the SIREN kernels up to H = 1024, C = 16; the cluster kernels up "
               f"to H = {sd.MAX_HIDDEN['forward']})")
     launches.update(flash_launches)
 
@@ -4014,14 +4113,20 @@ def main() -> int:
              "siren_fwd_cluster.cu", "siren_decode.py:96"),
             ("siren_decode_forward_bf16", "siren_decode_forward_bf16@H1024",
              "siren_decode.cu", "siren_decode.py:96"),
-            ("siren_decode_dz", "siren_decode_dz@H1024", "siren_decode_bwd.cu",
+            ("siren_decode_dz_cluster", "siren_decode_dz_cluster@H1024",
+             "siren_chain_cluster.cu", "siren_decode.py:315"),
+            ("siren_decode_bwd_cluster", "siren_decode_bwd_cluster@H1024",
+             "siren_chain_cluster.cu", "siren_decode.py:434"),
+            ("siren_decode_dz_cluster",
+             f"siren_decode_dz_cluster@H{sd.MAX_HIDDEN['dz']}", "siren_chain_cluster.cu",
              "siren_decode.py:315"),
-            ("siren_decode_bwd", "siren_decode_bwd@H1024", "siren_decode_bwd.cu",
+            ("siren_decode_bwd_cluster",
+             f"siren_decode_bwd_cluster@H{sd.MAX_HIDDEN['bwd']}", "siren_chain_cluster.cu",
              "siren_decode.py:434"),
             ("siren_decode_forward_cluster", "siren_decode_forward_cluster@H1024C16",
              "siren_fwd_cluster.cu", "siren_decode.py:96"),
-            ("siren_decode_bwd", "siren_decode_bwd@H1024C16", "siren_decode_bwd.cu",
-             "siren_decode.py:434"),
+            ("siren_decode_bwd_cluster", "siren_decode_bwd_cluster@H1024C16",
+             "siren_chain_cluster.cu", "siren_decode.py:434"),
             ("siren_decode_forward", "siren_decode_forward@H384C16", "siren_decode.cu",
              "siren_decode.py:96"),
             ("siren_decode_bwd", "siren_decode_bwd@H384C16", "siren_decode_bwd.cu",

@@ -90,29 +90,12 @@
 
 #include <cuda_bf16.h>
 
-#include <type_traits>
-
 #include "siren_common.cuh"
 #include "siren_tc.cuh"
 
 namespace {
 
 using siren::sin2pi;
-
-// the float32 forward's widest H (wider: siren_fwd_cluster.cu)
-constexpr int F32_MAX_H = 512;
-
-// f(std::integral_constant<int, H / 64>()) for the float32 forward's
-// instantiation of width H, or cudaErrorInvalidValue when there is none
-template <int NT = 1, typename F>
-int with_f32_width(int H, F&& f) {
-  if (H == NT * 64) return f(std::integral_constant<int, NT>());
-  if constexpr (NT < F32_MAX_H / 64) {
-    return with_f32_width<NT + 1>(H, f);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // forward: eight warps over a block's pairs (siren_tc.cuh)
@@ -148,7 +131,7 @@ siren_fwd_kernel(const float* __restrict__ coords,
   const int tid = threadIdx.x;
   const long long P = (long long)T * M;
   const long long p0 = (long long)blockIdx.x * CP;
-  const int u_total = (n_mod - 1) * (H / k_rows(NT));
+  const int u_total = (n_mod - 1) * (H / KROWS);
   int u = 0;
   issue_kslice(stage, wstream, 0, u_total, H);
 
@@ -465,11 +448,11 @@ int siren_decode_forward(const float* coords, const float* z, const float* w_fir
                          const float* wsplit, const float* w_head, const float* b_head,
                          float* out, int T, int M, int C_in, int H, int n_mod, int C_out,
                          void* stream) {
-  if (!siren_tc::shape_ok(H, n_mod, C_in, C_out) || H > F32_MAX_H || T <= 0 || M <= 0 ||
+  if (!siren_tc::shape_ok(H, n_mod, C_in, C_out) || H > siren_tc::CHAIN_MAX_H || T <= 0 || M <= 0 ||
       (long long)T * M > 2147483647LL * siren_tc::block_pairs(H) || (long long)T * H > 2147483647LL ||
       (n_mod > 1 && wsplit == nullptr))
     return (int)cudaErrorInvalidValue;
-  return with_f32_width(H, [&](auto nt) {
+  return siren_tc::with_width<siren_tc::CHAIN_MAX_H>(H, [&](auto nt) {
     return launch_fwd<decltype(nt)::value>(coords, z, w_first, wsplit, w_head, b_head, out, T,
                                            M, C_in, n_mod, C_out, (cudaStream_t)stream);
   });
@@ -493,7 +476,7 @@ int siren_decode_forward_bf16(const float* coords, const float* z, const float* 
       (long long)T * M > 2147483647LL * siren_tc::block_pairs(H) || (long long)T * H > 2147483647LL ||
       (n_mod > 1 && wfrag == nullptr))
     return (int)cudaErrorInvalidValue;
-  return siren_tc::with_width(H, [&](auto nt) {
+  return siren_tc::with_width<siren_tc::MAX_H>(H, [&](auto nt) {
     return launch_fwd_bf16<decltype(nt)::value>(coords, z, w_first, (const uint2*)wfrag,
                                                  w_head, b_head, out, T, M, C_in, n_mod,
                                                  C_out, (cudaStream_t)stream);

@@ -44,12 +44,11 @@
 //   whose dz mode is the dz kernel below (the same forward recompute and dx
 //   chain, writing per-row sums of dpre instead of D; its product,
 //   chain_product, is the forward's too): a block owns CP = 64
-//   pairs (32 at H = 448 and 512, 16 from 576 to 1024; the M dimension of
-//   every product) and keeps their CP x H activations in shared memory.
-//   Eight warps each own H / 8 output columns for all CP rows, 96
-//   accumulators a thread at H = 384 (64 at H = 512 and 1024).  The weights
-//   stream as K-slices of 16 rows (8 above H = 512) through a two-stage
-//   cp.async buffer, one continuous stream
+//   pairs (32 at H = 448 and 512; the M dimension of every product) and
+//   keeps their CP x H activations in shared memory.  Eight warps each own
+//   H / 8 output columns for all CP rows, 96 accumulators a thread at
+//   H = 384 (64 at H = 512).  The weights stream as K-slices of 16 rows
+//   through a two-stage cp.async buffer, one continuous stream
 //   across all 2 (n_mod - 1) products, so the next product's first slice
 //   loads while a layer's epilogue runs.  The activations are split as
 //   their A fragments are loaded.
@@ -72,6 +71,9 @@
 //   at most 4 and MAX_C = 16 otherwise.
 // * siren_bwd_fold_kernel: the slices' partials added in slice order into
 //   the outputs.
+// The chain takes H up to 512; above it siren_chain_cluster.cu's cluster
+// chain writes the same workspace, which the reduction, the sums and the
+// fold here take at every H up to WORKSPACE_MAX_H.
 //
 // Every partial element has one owner thread, which adds the chunks in
 // order: no atomics, a fixed summation order, bitwise the same result from
@@ -107,23 +109,28 @@
 //   training mode), then the dx chain; after each layer the block sums
 //   dpre_l over its CP pairs in pair order, one sum per latent row they
 //   touch, into its partial parts[block][l][slot][H] (slot: the row less
-//   the row of the block's first pair; dz_slots(M, H) of them, at CP = 64
-//   8 when M = 10 and 2 when M >= 64);
-// * siren_dz_fold_kernel: each (layer, row, column) of dz adds the partials
-//   of the blocks that hold the row, in block order, to what earlier chunks
-//   left there.
+//   the row of the block's first pair; siren::dz_slots(M, CP) of them, at
+//   CP = 64 8 when M = 10 and 2 when M >= 64);
+// * siren_dz_fold_kernel (siren_dz_fold.cuh): each (layer, row, column) of
+//   dz adds the partials of the blocks that hold the row, in block order,
+//   to what earlier chunks left there.
 // No atomics: two launches are bitwise equal.
 // ---------------------------------------------------------------------------
 
 #include <stdint.h>
 
 #include "siren_common.cuh"
+#include "siren_dz_fold.cuh"
 #include "siren_tc.cuh"
 
 namespace {
 
 using siren::sin2pi;
 using namespace siren_tc;  // THREADS (every kernel but the sums), block_pairs, MAX_C
+
+// the widest H of the workspace that the reduction, the sums and the fold
+// take (the cluster chain's, siren_chain_cluster.cu)
+constexpr int WORKSPACE_MAX_H = 3072;
 
 // reduction
 constexpr int RT = 128;          // output tile
@@ -141,6 +148,12 @@ constexpr int NARROW_C = 4;      // the sums' per-feature registers when C_in, C
 __host__ __device__ inline int slice_len(int Q, int slices) {
   const int per = (Q + slices - 1) / slices;
   return (per + RK - 1) / RK * RK;
+}
+
+// H a multiple of 64 up to WORKSPACE_MAX_H, C_in and C_out up to MAX_C
+inline bool workspace_ok(int H, int n_mod, int C_in, int C_out) {
+  return H > 0 && H % 64 == 0 && H <= WORKSPACE_MAX_H && n_mod >= 1 && C_in >= 1 &&
+         C_in <= MAX_C && C_out >= 1 && C_out <= MAX_C;
 }
 
 // ---------------------------------------------------------------------------
@@ -166,15 +179,6 @@ siren_bwd_chain_kernel(const float* __restrict__ coords,
                         C_in, n_mod, C_out, 0);
 }
 
-// latent rows that the CP = block_pairs(H) consecutive pairs of one block
-// can touch when a row has M points, ceil((CP - 1) / M) + 1: the slots of a
-// block's dz partial
-__host__ __device__ inline int dz_slots(int M, int H) {
-  const int cp = block_pairs(H);
-  const int s = (cp - 2 + M) / M + 1;
-  return s < cp ? s : cp;
-}
-
 // Workspace: R as above and the blocks' partials parts[block][l][slot][j]
 // (the chain's dz mode)
 template <int NT>
@@ -191,35 +195,7 @@ siren_dz_chain_kernel(const float* __restrict__ coords,
                       int n_mod, int C_out) {
   extern __shared__ __align__(16) float smem[];
   chain_body<NT, true>(smem, coords, z, g, w_first, wstream, w_head, R, parts, p0, Q, Qa, T, M,
-                       C_in, n_mod, C_out, dz_slots(M, NT * 64));
-}
-
-// one thread per (layer, row of the chunk, column): dz += the partials of
-// the chunk's blocks that hold the row, in block order
-__global__ void __launch_bounds__(THREADS)
-siren_dz_fold_kernel(const float* __restrict__ parts, float* __restrict__ dz, long long p0,
-                     int Q, int T, int M, int H, int n_mod) {
-  const int slots = dz_slots(M, H), cp = block_pairs(H);
-  const long long t_lo = p0 / M;
-  const int rows = (int)((p0 + Q - 1) / M - t_lo + 1);
-  const long long total = (long long)n_mod * rows * H;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
-       e += (long long)gridDim.x * blockDim.x) {
-    const int j = (int)(e % H);
-    const int r = (int)((e / H) % rows);
-    const int l = (int)(e / H / rows);
-    const long long t = t_lo + r;
-    // the row's pairs in the chunk: q in [a, b)
-    const int a = (int)((t * M > p0 ? t * M : p0) - p0);
-    const int b = (int)(((t + 1) * M < p0 + Q ? (t + 1) * M : p0 + Q) - p0);
-    float* out = dz + ((size_t)l * T + t) * H + j;
-    float acc = *out;
-    for (int bk = a / cp; bk <= (b - 1) / cp; ++bk) {
-      const long long slot = t - (p0 + (long long)bk * cp) / M;
-      acc += parts[(((size_t)bk * n_mod + l) * slots + slot) * H + j];
-    }
-    *out = acc;
-  }
+                       C_in, n_mod, C_out, siren::dz_slots(M, block_pairs(NT * 64)));
 }
 
 // ---------------------------------------------------------------------------
@@ -540,7 +516,7 @@ template <bool DZ_MODE>
 int chain(const float* coords, const float* z, const float* g, const float* w_first,
           const float* wsplit, const float* w_head, float* R, float* out, long long p0, int Q,
           int Qa, int T, int M, int C_in, int H, int n_mod, int C_out, cudaStream_t stream) {
-  return with_width(H, [&](auto nt) {
+  return with_width<CHAIN_MAX_H>(H, [&](auto nt) {
     return launch_chain<decltype(nt)::value, DZ_MODE>(coords, z, g, w_first, wsplit, w_head, R,
                                                       out, p0, Q, Qa, T, M, C_in, n_mod, C_out,
                                                       stream);
@@ -577,7 +553,7 @@ int siren_bwd_chain(const float* coords, const float* z, const float* g, const f
 int siren_bwd_reduce(const float* R, const float* D, float* parts, long long E,
                      long long dwmid_off, int Q, int Qa, int H, int n_mod, int slices,
                      void* stream) {
-  if (!shape_ok(H, n_mod, 1, 1) || n_mod < 2 || Q <= 0 || Qa < Q || slices < 1)
+  if (!workspace_ok(H, n_mod, 1, 1) || n_mod < 2 || Q <= 0 || Qa < Q || slices < 1)
     return (int)cudaErrorInvalidValue;
   static unsigned long long done = 0;
   cudaError_t err = allow_smem(siren_bwd_reduce_kernel, REDUCE_SMEM, done);
@@ -593,7 +569,8 @@ int siren_bwd_sums(const float* R, const float* D, const float* coords, const fl
                    float* parts, long long E, long long dwf_off, long long dwh_off, long long p0,
                    int Q, int Qa, int T, int M, int C_in, int H, int n_mod, int C_out,
                    int slices, void* stream) {
-  if (!shape_ok(H, n_mod, C_in, C_out) || T <= 0 || M <= 0 || Q <= 0 || Qa < Q || slices < 1)
+  if (!workspace_ok(H, n_mod, C_in, C_out) || T <= 0 || M <= 0 || Q <= 0 || Qa < Q ||
+      slices < 1)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned int)((H + STHREADS - 1) / STHREADS), (unsigned int)(n_mod + 1),
                   (unsigned int)slices);
@@ -613,7 +590,9 @@ int siren_bwd_fold(const float* parts, float* out, long long E, int slices, void
   return (int)cudaGetLastError();
 }
 
-int siren_dz_slots(int M, int H) { return M > 0 && H > 0 ? dz_slots(M, H) : 0; }
+int siren_dz_slots(int M, int H) {
+  return M > 0 && H > 0 ? siren::dz_slots(M, block_pairs(H)) : 0;
+}
 
 // One chunk of dz: the pairs p0 .. p0 + Q - 1, with R (n_mod, Qa, H) and
 // parts (Qa / siren_bwd_tile_pairs(H), n_mod, siren_dz_slots(M, H), H) its
@@ -631,11 +610,7 @@ int siren_decode_dz(const float* coords, const float* z, const float* g, const f
   const int err = chain<true>(coords, z, g, w_first, wsplit, w_head, R, parts, p0, Q, Qa, T, M,
                               C_in, H, n_mod, C_out, s);
   if (err != 0) return err;
-  const long long rows = (p0 + Q - 1) / M - p0 / M + 1;
-  const long long want = (n_mod * rows * H + THREADS - 1) / THREADS;
-  const unsigned int blocks = (unsigned int)(want < 4096 ? want : 4096);
-  siren_dz_fold_kernel<<<blocks, THREADS, 0, s>>>(parts, dz, p0, Q, T, M, H, n_mod);
-  return (int)cudaGetLastError();
+  return siren::launch_dz_fold(parts, dz, p0, Q, T, M, H, n_mod, block_pairs(H), s);
 }
 
 }  // extern "C"

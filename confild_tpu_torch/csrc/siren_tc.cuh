@@ -8,15 +8,16 @@
 // siren_decode_bwd.cu.
 //
 // A block owns block_pairs(H) (row, point) pairs (the M dimension of every
-// product: 64 up to H = 384, 32 at 448 and 512, 16 from 576 to 1024) and
-// keeps their activations in shared memory, row stride H + A_PAD.  Eight
-// warps each own H / 8 output columns for all of the block's rows,
-// 4 * m_tiles * H / 64 accumulators a thread (96 at H = 384 with 64 pairs,
-// 64 at H = 512 with 32 and at H = 1024 with 16).  Every product is a
+// product: 64 up to H = 384, 32 at 448 and 512, and, for the bf16 forward
+// alone, 16 from 576 to 1024) and keeps their activations in shared memory,
+// row stride H + A_PAD.  Eight warps each own H / 8 output columns for all
+// of the block's rows, 4 * m_tiles * H / 64 accumulators a thread (96 at
+// H = 384 with 64 pairs, 64 at H = 512 with 32).  Every product is a
 // 3xTF32 mma.sync.m16n8k8 (tf32_mma.cuh); the tensor cores truncate their
-// own f32 sums, so a fragment's products of one K-slice (two k8 steps up to
-// H = 512, one above) go into a zeroed partial that a float32 add carries
-// into the running sum.
+// own f32 sums, so a fragment's products of one K-slice (two k8 steps) go
+// into a zeroed partial that a float32 add carries into the running sum.
+// The float32 kernels here take H up to CHAIN_MAX_H; wider float32 widths
+// are the cluster kernels' (siren_cluster.cuh).
 #pragma once
 
 #include <stdint.h>
@@ -30,7 +31,8 @@ namespace siren_tc {
 
 using namespace tf32mma;
 
-constexpr int MAX_H = 1024;      // widest hidden layer
+constexpr int MAX_H = 1024;      // widest hidden layer (the bf16 forward)
+constexpr int CHAIN_MAX_H = 512; // widest of the float32 forward and the chain
 constexpr int MAX_C = 16;        // widest C_in and C_out
 constexpr int THREADS = 256;     // 8 warps
 constexpr int WIDE_NT = 6;       // widest H / 64 whose blocks own 64 pairs
@@ -41,16 +43,15 @@ constexpr int A_PAD = 4;         // activation row stride H + 4: A fragments hit
 // H = 384; two (32 pairs) at H = 448 and 512, where 64 pairs would need
 // 112 and 128 accumulators a thread and, with the two K-slice stages, more
 // than the 227 KB of shared memory a block may take; one (16 pairs) from
-// H = 576 to 1024, where 32 pairs would need 72 to 128 accumulators
+// H = 576 to 1024 (the bf16 forward), where 32 pairs would need 72 to 128
+// accumulators
 __host__ __device__ constexpr int m_tiles(int NT) {
   return NT <= WIDE_NT ? 4 : NT <= MID_NT ? 2 : 1;
 }
 // pairs a block owns at hidden width H
 __host__ __device__ constexpr int block_pairs(int H) { return 16 * m_tiles(H / 64); }
-// weight rows a streamed K-slice holds at H = 64 NT: 16 (two k8 steps) up
-// to H = 512; 8 (one k8 step) above, where two 16-row stages (128 KiB each
-// at H = 1024) would not fit beside the activation tile
-__host__ __device__ constexpr int k_rows(int NT) { return NT <= MID_NT ? 16 : 8; }
+// weight rows a streamed K-slice holds: two k8 steps
+constexpr int KROWS = 16;
 
 // H a multiple of 64 up to MAX_H, C_in and C_out up to MAX_C
 inline bool shape_ok(int H, int n_mod, int C_in, int C_out) {
@@ -59,19 +60,19 @@ inline bool shape_ok(int H, int n_mod, int C_in, int C_out) {
 }
 
 // f(std::integral_constant<int, H / 64>()) for the instantiation of width
-// H, or cudaErrorInvalidValue when there is none
-template <int NT = 1, typename F>
+// H up to WIDEST, or cudaErrorInvalidValue when there is none
+template <int WIDEST, int NT = 1, typename F>
 int with_width(int H, F&& f) {
   if (H == NT * 64) return f(std::integral_constant<int, NT>());
-  if constexpr (NT < MAX_H / 64) {
-    return with_width<NT + 1>(H, f);
+  if constexpr (NT < WIDEST / 64) {
+    return with_width<WIDEST, NT + 1>(H, f);
   } else {
     return (int)cudaErrorInvalidValue;
   }
 }
 
-// floats of one streamed K-slice: k_rows rows x H columns, big and small
-__host__ __device__ inline int kslice_floats(int H) { return k_rows(H / 64) * H * 2; }
+// floats of one streamed K-slice: KROWS rows x H columns, big and small
+__host__ __device__ inline int kslice_floats(int H) { return KROWS * H * 2; }
 
 // ---------------------------------------------------------------------------
 // weights: big and small halves in B-fragment order
@@ -140,7 +141,7 @@ __device__ __forceinline__ void issue_kslice(float* stage, const float* wstream,
 }
 
 // acc = A (block_pairs(H) x H in shared memory, row stride H + A_PAD) . B,
-// B being the H / k_rows slices u .. u + H / k_rows - 1 of the weight
+// B being the H / KROWS slices u .. u + H / KROWS - 1 of the weight
 // stream.  On entry slice u is in flight into stage buffer u & 1; on exit
 // the slice after the last is (when there is one), and u has moved past
 // this product.
@@ -148,7 +149,8 @@ template <int NT>
 __device__ __forceinline__ void chain_product(const float* As, float* stage,
                                               const float* wstream, int& u, int u_total,
                                               int H, float (&acc)[m_tiles(NT)][NT][4]) {
-  constexpr int MT = m_tiles(NT), KS = k_rows(NT), KK = KS / 8;
+  static_assert(NT * 64 <= CHAIN_MAX_H, "the float32 kernels' widest H");
+  constexpr int MT = m_tiles(NT), KS = KROWS, KK = KS / 8;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int lda = H + A_PAD;
@@ -303,7 +305,7 @@ __device__ __forceinline__ void chain_body(float* smem, const float* __restrict_
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * CP;
   const size_t lstride = (size_t)Qa * H;
-  const int u_total = 2 * (n_mod - 1) * (H / k_rows(NT));
+  const int u_total = 2 * (n_mod - 1) * (H / KROWS);
   int u = 0;
   issue_kslice(stage, wstream, 0, u_total, H);
 

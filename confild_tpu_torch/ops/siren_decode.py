@@ -29,14 +29,23 @@ Kernels:
   then the forward).  As in JAX, the backward kernels stay float32
   whatever the forward's ``compute_dtype``.
 * ``siren_decode_dz`` (``csrc/siren_decode_bwd.cu``) replaces
-  ``_decode_dz_kernel``: ``dL/dz`` for every layer, from which
+  ``_decode_dz_kernel`` at H <= 512: ``dL/dz`` for every layer, from which
   ``dL/dlatents`` is two small matmuls.  It is the training backward's
   chain in a dz mode (the weights split once a call, then per chunk of
   ``BWD_PAIRS`` pairs the chain and the fold of its per-block row sums).
 * ``siren_decode_bwd`` (``csrc/siren_decode_bwd.cu``) replaces
-  ``_decode_bwd_kernel``: every training cotangent (``dz`` and the weight
-  gradients of the first, middle and head layers), as two launches per
-  chunk of ``BWD_PAIRS`` pairs.
+  ``_decode_bwd_kernel`` at H <= 512: every training cotangent (``dz`` and
+  the weight gradients of the first, middle and head layers): per chunk of
+  ``BWD_PAIRS`` pairs the chain, which writes every pre-activation and
+  dpre to a workspace, then the reduction and the sums of that workspace;
+  the fold of their partials at the end.
+* ``siren_decode_dz_cluster`` and ``siren_decode_bwd_cluster``
+  (``csrc/siren_chain_cluster.cu``) replace them above H = 512: the chain
+  as a thread-block cluster kernel, in its dz mode and its training mode,
+  on the cluster forward's machinery (``csrc/siren_cluster.cuh``); its
+  weight preparation lays out the forward's products and the dx chain's
+  transposed ones (:func:`cluster_chain_weight_layout`).  The training
+  mode's workspace goes through the same reduction, sums and fold.
 
 As in the JAX package, the FiLM table and the folding stay outside the
 kernels: the autograd functions take the folded operands, and autograd
@@ -44,10 +53,11 @@ chains ``dz`` back through :func:`film_table` and :func:`stack_weights`
 to the latents, ``net2`` and the biases, undoing the scale.
 
 Each kernel family has its own widest hidden layer (``MAX_HIDDEN``): the
-float32 forward 3072 (a cluster of up to 8 blocks above 512,
-:func:`cluster_plan`), the bf16 forward, dz and the training backward 1024
-(a block owns 64 pairs up to 384, 32 at 448 and 512 and 16 above,
-``csrc/siren_tc.cuh``); all take at most 16 input and output features.  A
+float32 forward, dz and the training backward 3072 (a block owns 64 pairs
+up to 384 and 32 at 448 and 512, ``csrc/siren_tc.cuh``; above 512 a
+cluster of up to 8 blocks, :func:`cluster_plan`), the bf16 forward 1024
+(16 pairs a block above 512); all take at most 16 input and output
+features.  A
 hidden width is zero-padded to the kernel's width (the next multiple of 64,
 or the cluster plan's width, :func:`kernel_hidden_width`,
 :func:`pad_hidden`), which is exact: a padded unit has zero weights, bias
@@ -85,23 +95,28 @@ _SIN2PI_COEFFS = (
 )
 
 LAUNCHES = {"siren_decode_forward": 0, "siren_decode_forward_cluster": 0,
-            "siren_decode_forward_bf16": 0, "siren_decode_dz": 0, "siren_decode_bwd": 0}
+            "siren_decode_forward_bf16": 0, "siren_decode_dz": 0, "siren_decode_bwd": 0,
+            "siren_decode_dz_cluster": 0, "siren_decode_bwd_cluster": 0}
 # the forward's compute dtypes (the JAX kernel's ``compute_dtype``)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 # each kernel family's widest hidden layer (csrc/siren_tc.cuh::shape_ok;
-# the float32 forward above NARROW_HIDDEN: csrc/siren_fwd_cluster.cu) and
-# the widest C_in, C_out of all of them
+# the float32 families above NARROW_HIDDEN: csrc/siren_fwd_cluster.cu,
+# csrc/siren_chain_cluster.cu) and the widest C_in, C_out of all of them
 FAMILIES = {"forward": "float32 forward", "forward_bf16": "bfloat16 forward",
             "dz": "dz", "bwd": "training backward"}
-MAX_HIDDEN = {"forward": 3072, "forward_bf16": 1024, "dz": 1024, "bwd": 1024}
+MAX_HIDDEN = {"forward": 3072, "forward_bf16": 1024, "dz": 3072, "bwd": 3072}
 MAX_FEATURES = 16
-# the float32 forward's widest H on siren_decode.cu's kernel; wider is the
-# cluster kernel's
+# the widest H of the float32 forward on siren_decode.cu's kernel and of dz
+# and the training backward on siren_decode_bwd.cu's chain; wider is the
+# cluster kernels'
 NARROW_HIDDEN = 512
+# the families that run on a cluster kernel above NARROW_HIDDEN
+CLUSTER_FAMILIES = ("forward", "dz", "bwd")
 
 # pairs per chunk of the training backward, whatever the width: its
 # workspace holds every pre-activation and dpre of a chunk, 2 * n_mod *
-# BWD_PAIRS * H floats (3.2 GB at Case4, 8.6 GB at 16 layers of 1024)
+# BWD_PAIRS * H floats (3.2 GB at Case4, 8.6 GB at 16 layers of 1024, 9.7 GB
+# at six layers of 3072)
 BWD_PAIRS = 65536
 # fixed slices of a chunk's pairs that the backward's reductions sum apart
 # (so that their grid fills the card) and add in order at the end; each
@@ -290,18 +305,27 @@ def cluster_weight_layout(w_mid: torch.Tensor, share: int) -> torch.Tensor:
     return x.permute(6, 1, 2, 4, 0, 7, 5, 8, 3).reshape(-1)
 
 
+def cluster_chain_weight_layout(w_mid: torch.Tensor, share: int) -> torch.Tensor:
+    """What the cluster chain's preparation writes, flat: for each block,
+    the stage images (:func:`cluster_weight_layout`) of the forward's
+    products ``w_mid[0] .. w_mid[n_mid - 1]`` followed by the dx chain's
+    ``w_mid[n_mid - 1]^T .. w_mid[0]^T``, in the order the chain consumes
+    them."""
+    return cluster_weight_layout(torch.cat([w_mid, w_mid.transpose(1, 2).flip(0)]), share)
+
+
 def kernel_hidden_width(h: int, c_in: int, c_out: int, family: str) -> int:
     """The hidden width the ``family`` kernel (a key of ``FAMILIES``) runs
     a decoder of ``h`` units at: the next multiple of 64, or above
-    ``NARROW_HIDDEN`` for the float32 forward the cluster plan's width.
-    Raises beyond the family's limits."""
+    ``NARROW_HIDDEN`` for the float32 families (``CLUSTER_FAMILIES``) the
+    cluster plan's width.  Raises beyond the family's limits."""
     limit = MAX_HIDDEN[family]
     if h > limit or c_in > MAX_FEATURES or c_out > MAX_FEATURES:
         raise ValueError(
             f"the CUDA SIREN {FAMILIES[family]} kernel takes a hidden width of at most {limit} "
             f"(zero-padded to its kernel width) and at most {MAX_FEATURES} input and output "
             f"features, got {h}, {c_in}, {c_out}")
-    if family == "forward" and h > NARROW_HIDDEN:
+    if family in CLUSTER_FAMILIES and h > NARROW_HIDDEN:
         return cluster_plan(h).width
     return -(-h // 64) * 64
 
@@ -414,18 +438,46 @@ def _cluster_library() -> ctypes.CDLL:
 
 
 @functools.cache
-def cluster_capacity(device_index: int, h: int, c_in: int, c_out: int) -> int:
+def _chain_cluster_library() -> ctypes.CDLL:
+    """The built cluster chain (dz and training modes) with its C
+    signatures declared."""
+    lib = cuda_build.load("siren_chain_cluster")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, args in (
+            ("siren_chain_cluster_max_clusters", [i, i, i, i, p]),
+            ("siren_chain_cluster_prep", [p, p, i, i, p]),
+            ("siren_dz_cluster_slots", [i, i]),
+            ("siren_bwd_chain_cluster", [p] * 8 + [ll] + [i] * 8 + [p]),
+            ("siren_decode_dz_cluster", [p] * 9 + [ll] + [i] * 8 + [p])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = i
+    return lib
+
+
+@functools.cache
+def cluster_capacity(device_index: int, h: int, c_in: int, c_out: int,
+                     family: str = "forward") -> int:
     """Clusters of the plan for width ``h`` that the card holds at once
-    (``cudaOccupancyMaxActiveClusters``); raises when it holds none."""
+    (``cudaOccupancyMaxActiveClusters``) for the ``family`` kernel (a key of
+    ``CLUSTER_FAMILIES``); raises when it holds none."""
     n = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = _cluster_library().siren_fwd_cluster_max_clusters(h, c_in, c_out, ctypes.byref(n))
-    _raise_on(err, "siren_decode_forward_cluster's occupancy query")
+        if family == "forward":
+            err = _cluster_library().siren_fwd_cluster_max_clusters(h, c_in, c_out,
+                                                                    ctypes.byref(n))
+        else:
+            err = _chain_cluster_library().siren_chain_cluster_max_clusters(
+                int(family == "dz"), h, c_in, c_out, ctypes.byref(n))
+    _raise_on(err, f"the cluster {FAMILIES[family]} kernel's occupancy query")
     if n.value < 1:
         plan = cluster_plan(h)
         raise RuntimeError(f"the card admits no cluster of {plan.blocks} blocks with "
                            f"{plan.smem_bytes} bytes of shared memory each (H = {h})")
     return n.value
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def _launch_forward_cluster(coords, z, w_first, w_mid, w_head, b_head):
@@ -441,8 +493,7 @@ def _launch_forward_cluster(coords, z, w_first, w_mid, w_head, b_head):
     out = torch.empty((t, m, c_out), device=dev, dtype=torch.float32)
     if t == 0 or m == 0:
         return out
-    cluster_capacity(dev.index if dev.index is not None else torch.cuda.current_device(),
-                     h, c_in, c_out)
+    cluster_capacity(_device_index(dev), h, c_in, c_out)
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         wprep = None
@@ -554,35 +605,44 @@ def pair_chunks(pairs: int, chunk: int) -> list[tuple[int, int]]:
     return [(p0, min(chunk, pairs - p0)) for p0 in range(0, pairs, chunk)]
 
 
-def _chain_setup(lib, w_mid, pairs, stream, counter):
+def _chain_setup(w_mid, pairs, stream, counter):
     """What the dz and training-backward wrappers set up alike for the
-    chain (``csrc/siren_decode_bwd.cu``): the middle weights split once
-    into TF32 halves, the forward's products then the dx chain's (one
-    launch, counted under ``counter``), the padded length ``qa`` of a
-    chunk's workspace, and the chunks ``(p0, q)`` of at most ``BWD_PAIRS``
-    pairs."""
+    chain: the middle weights prepared once, the forward's products then
+    the dx chain's (one launch, counted under ``counter``), the pairs a
+    block (or above ``NARROW_HIDDEN`` a cluster) owns, the padded length
+    ``qa`` of a chunk's workspace, a multiple of them, and the chunks
+    ``(p0, q)`` of at most ``BWD_PAIRS`` pairs.  Up to ``NARROW_HIDDEN``
+    the preparation is the TF32 split in B-fragment order
+    (``csrc/siren_decode_bwd.cu``), above it the blocks' stage images
+    (``csrc/siren_chain_cluster.cu``, :func:`cluster_chain_weight_layout`)."""
     n_mid, h = w_mid.shape[0], w_mid.shape[2]
-    wsplit = torch.empty((max(n_mid, 1), 4, h, h), device=w_mid.device, dtype=torch.float32)
+    wide = h > NARROW_HIDDEN
+    wprep = torch.empty((max(n_mid, 1), 4, h, h), device=w_mid.device, dtype=torch.float32)
     if n_mid:
-        _raise_on(lib.siren_bwd_split(_ptr(w_mid), _ptr(wsplit), h, n_mid, stream),
-                  "siren_bwd_split launch")
+        if wide:
+            err = _chain_cluster_library().siren_chain_cluster_prep(_ptr(w_mid), _ptr(wprep), h,
+                                                                    n_mid, stream)
+        else:
+            err = _bwd_library().siren_bwd_split(_ptr(w_mid), _ptr(wprep), h, n_mid, stream)
+        _raise_on(err, f"{counter} weight preparation launch")
         LAUNCHES[counter] += 1
-    tile = lib.siren_bwd_tile_pairs(h)
+    tile = cluster_plan(h).pairs if wide else _bwd_library().siren_bwd_tile_pairs(h)
     chunk = min(pairs, BWD_PAIRS)
-    return wsplit, -(-chunk // tile) * tile, pair_chunks(pairs, chunk)
+    return wprep, tile, -(-chunk // tile) * tile, pair_chunks(pairs, chunk)
 
 
 def decode_dz(coords, z, g, w_first, w_mid, w_head) -> torch.Tensor:
     """``dL/dz`` on folded operands, ``(n_mod, T, H)``.
 
-    CPU tensors take :func:`decode_dz_plain`; CUDA tensors launch
-    ``siren_decode_dz``: the middle weights split once into TF32 halves
-    (the forward's products and the dx chain's), then per chunk of
-    ``BWD_PAIRS`` (row, point) pairs the tensor-core chain in its dz mode
-    and the fold of its per-block row sums into ``dz``
-    (``csrc/siren_decode_bwd.cu``), on operands padded to the kernels'
-    hidden width.  The workspace is one chunk's pre-activations and
-    partials, whatever ``T x M``."""
+    CPU tensors take :func:`decode_dz_plain`; CUDA tensors launch, on
+    operands padded to the kernels' hidden width, ``siren_decode_dz`` up to
+    ``NARROW_HIDDEN`` (``csrc/siren_decode_bwd.cu``) and
+    ``siren_decode_dz_cluster`` above it (``csrc/siren_chain_cluster.cu``):
+    the middle weights prepared once (the forward's products and the dx
+    chain's), then per chunk of ``BWD_PAIRS`` (row, point) pairs the
+    tensor-core chain in its dz mode and the fold of its per-block (or
+    per-cluster) row sums into ``dz``.  The workspace is one chunk's
+    pre-activations and partials, whatever ``T x M``."""
     if coords.device.type == "cpu":
         return decode_dz_plain(coords, z, g, w_first, w_mid, w_head)
     _, width = _operands("dz", coords, z, w_first, w_mid, w_head, g=g)
@@ -590,9 +650,8 @@ def decode_dz(coords, z, g, w_first, w_mid, w_head) -> torch.Tensor:
 
 
 def _launch_dz(coords, z, g, w_first, w_mid, w_head) -> torch.Tensor:
-    """Launches on operands of a kernel width: the split, then per chunk
-    the chain in its dz mode and the fold."""
-    lib = _bwd_library()
+    """Launches on operands of a kernel width: the weights' preparation,
+    then per chunk the chain in its dz mode and the fold."""
     dev = coords.device
     n_mod, t, h = z.shape
     m, c_in = coords.shape
@@ -601,19 +660,25 @@ def _launch_dz(coords, z, g, w_first, w_mid, w_head) -> torch.Tensor:
     pairs = t * m
     if pairs == 0:
         return dz
+    wide = h > NARROW_HIDDEN
+    if wide:
+        name, lib = "siren_decode_dz_cluster", _chain_cluster_library()
+        cluster_capacity(_device_index(dev), h, c_in, c_out, "dz")
+        launch, slots = lib.siren_decode_dz_cluster, lib.siren_dz_cluster_slots(m, h)
+    else:
+        name, lib = "siren_decode_dz", _bwd_library()
+        launch, slots = lib.siren_decode_dz, lib.siren_dz_slots(m, h)
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        wsplit, qa, chunks = _chain_setup(lib, w_mid, pairs, stream, "siren_decode_dz")
+        wprep, tile, qa, chunks = _chain_setup(w_mid, pairs, stream, name)
         r_ws = torch.empty((n_mod, qa, h), device=dev, dtype=torch.float32)
-        parts = torch.empty((qa // lib.siren_bwd_tile_pairs(h), n_mod, lib.siren_dz_slots(m, h),
-                             h), device=dev, dtype=torch.float32)
+        parts = torch.empty((qa // tile, n_mod, slots, h), device=dev, dtype=torch.float32)
         for p0, q in chunks:
-            err = lib.siren_decode_dz(
-                _ptr(coords), _ptr(z), _ptr(g), _ptr(w_first), _ptr(wsplit), _ptr(w_head),
-                _ptr(r_ws), _ptr(parts), _ptr(dz), p0, q, qa, t, m, c_in, h, n_mod, c_out,
-                stream)
-            _raise_on(err, "siren_decode_dz launch")
-            LAUNCHES["siren_decode_dz"] += 2   # the chain and the fold
+            err = launch(_ptr(coords), _ptr(z), _ptr(g), _ptr(w_first), _ptr(wprep),
+                         _ptr(w_head), _ptr(r_ws), _ptr(parts), _ptr(dz), p0, q, qa, t, m, c_in,
+                         h, n_mod, c_out, stream)
+            _raise_on(err, f"{name} launch")
+            LAUNCHES[name] += 2   # the chain and the fold
     return dz
 
 
@@ -646,12 +711,14 @@ def decode_bwd(coords, z, g, w_first, w_mid, w_head):
     """Training cotangents on folded operands, ``(dz, dw_first, dw_mid,
     dw_head)``.
 
-    CPU tensors take :func:`decode_bwd_plain`; CUDA tensors launch
-    ``siren_decode_bwd``: the weight split once, then per chunk of
-    ``BWD_PAIRS`` (row, point) pairs the chain, the tensor-core reduction
-    and the CUDA-core sums, then the fold of the ``BWD_SLICES`` partials
-    (``csrc/siren_decode_bwd.cu``), on operands padded to the kernels'
-    hidden width."""
+    CPU tensors take :func:`decode_bwd_plain`; CUDA tensors launch, on
+    operands padded to the kernels' hidden width, ``siren_decode_bwd`` up
+    to ``NARROW_HIDDEN`` and ``siren_decode_bwd_cluster`` above it: the
+    weights prepared once, then per chunk of ``BWD_PAIRS`` (row, point)
+    pairs the chain (``csrc/siren_decode_bwd.cu``, above ``NARROW_HIDDEN``
+    the cluster chain of ``csrc/siren_chain_cluster.cu``), the tensor-core
+    reduction and the CUDA-core sums, then the fold of the ``BWD_SLICES``
+    partials (``csrc/siren_decode_bwd.cu``)."""
     if coords.device.type == "cpu":
         return decode_bwd_plain(coords, z, g, w_first, w_mid, w_head)
     _, width = _operands("bwd", coords, z, w_first, w_mid, w_head, g=g)
@@ -659,8 +726,8 @@ def decode_bwd(coords, z, g, w_first, w_mid, w_head):
 
 
 def _launch_bwd(coords, z, g, w_first, w_mid, w_head):
-    """Launches on operands of a kernel width: the split, per chunk the
-    chain, the reduction and the sums, then the fold."""
+    """Launches on operands of a kernel width: the weights' preparation,
+    per chunk the chain, the reduction and the sums, then the fold."""
     lib = _bwd_library()
     dev = coords.device
     n_mod, t, h = z.shape
@@ -672,32 +739,38 @@ def _launch_bwd(coords, z, g, w_first, w_mid, w_head):
     out = torch.zeros(n_el, device=dev, dtype=torch.float32)
     pairs = t * m
     if pairs > 0:
+        if h > NARROW_HIDDEN:
+            name = "siren_decode_bwd_cluster"
+            chain = _chain_cluster_library().siren_bwd_chain_cluster
+            cluster_capacity(_device_index(dev), h, c_in, c_out, "bwd")
+        else:
+            name, chain = "siren_decode_bwd", lib.siren_bwd_chain
         dwf_off, dwmid_off = sizes[0], sizes[0] + sizes[1]
         dwh_off = dwmid_off + sizes[2]
         with torch.cuda.device(dev):
             stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-            wsplit, qa, chunks = _chain_setup(lib, w_mid, pairs, stream, "siren_decode_bwd")
+            wprep, _, qa, chunks = _chain_setup(w_mid, pairs, stream, name)
             r_ws, d_ws = torch.empty((2, n_mod, qa, h), device=dev, dtype=torch.float32)
             parts = torch.zeros((BWD_SLICES, n_el), device=dev, dtype=torch.float32)
             for p0, q in chunks:
-                err = lib.siren_bwd_chain(
-                    _ptr(coords), _ptr(z), _ptr(g), _ptr(w_first), _ptr(wsplit), _ptr(w_head),
-                    _ptr(r_ws), _ptr(d_ws), p0, q, qa, t, m, c_in, h, n_mod, c_out, stream)
-                _raise_on(err, "siren_bwd_chain launch")
-                LAUNCHES["siren_decode_bwd"] += 1
+                err = chain(_ptr(coords), _ptr(z), _ptr(g), _ptr(w_first), _ptr(wprep),
+                            _ptr(w_head), _ptr(r_ws), _ptr(d_ws), p0, q, qa, t, m, c_in, h,
+                            n_mod, c_out, stream)
+                _raise_on(err, f"{name} chain launch")
+                LAUNCHES[name] += 1
                 if n_mod > 1:
                     err = lib.siren_bwd_reduce(_ptr(r_ws), _ptr(d_ws), _ptr(parts), n_el,
                                                dwmid_off, q, qa, h, n_mod, BWD_SLICES, stream)
                     _raise_on(err, "siren_bwd_reduce launch")
-                    LAUNCHES["siren_decode_bwd"] += 1
+                    LAUNCHES[name] += 1
                 err = lib.siren_bwd_sums(
                     _ptr(r_ws), _ptr(d_ws), _ptr(coords), _ptr(g), _ptr(parts), n_el, dwf_off,
                     dwh_off, p0, q, qa, t, m, c_in, h, n_mod, c_out, BWD_SLICES, stream)
                 _raise_on(err, "siren_bwd_sums launch")
-                LAUNCHES["siren_decode_bwd"] += 1
+                LAUNCHES[name] += 1
             _raise_on(lib.siren_bwd_fold(_ptr(parts), _ptr(out), n_el, BWD_SLICES, stream),
                       "siren_bwd_fold launch")
-            LAUNCHES["siren_decode_bwd"] += 1
+            LAUNCHES[name] += 1
     return tuple(x.view(shape) for x, shape in zip(out.split(sizes), shapes))
 
 

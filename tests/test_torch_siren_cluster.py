@@ -1,17 +1,21 @@
-"""The float32 SIREN-FiLM forward above H = 512, on the CPU.
+"""The float32 SIREN-FiLM kernels above H = 512, on the CPU.
 
-On the card that forward is a thread-block cluster kernel
-(``csrc/siren_fwd_cluster.cu``): each block of a cluster owns a share of
+On the card the forward, dz and the training backward's chain are
+thread-block cluster kernels there (``csrc/siren_fwd_cluster.cu``,
+``csrc/siren_chain_cluster.cu``): each block of a cluster owns a share of
 every layer's output columns, and the middle weights stream from a
-preparation that lays them out as the blocks' shared-memory stage images.
-Here: the port's forward (the plain version a CPU tensor takes) at
+preparation that lays them out as the blocks' shared-memory stage images
+(for the chain the forward's products, then the dx chain's transposed
+ones).  Here: the port's forward (the plain version a CPU tensor takes) at
 H = 1536 and 2048 against the JAX package's Pallas forward in interpret mode
 (rtol 1e-5, the wide forward tests' tolerance), ``CNF_inference`` at 2048
 against the JAX package's, the zero padding to a cluster plan's width, a
-pure-Python mirror of the plan at every width the kernel takes, the plain
-weight layout (its inverse and its TF32 halves, and the preparation
+pure-Python mirror of the plan at every width the kernels take, the plain
+weight layouts (their inverse and their TF32 halves, and the preparation
 kernel's index arithmetic written out), and the per-family width limits.
-The kernel itself runs on the card (``chip_smoke.py`` phase 19).
+dz and the training backward at 1536 and 2048 against the JAX kernels are
+``test_torch_siren_wide.py``'s.  The kernels themselves run on the card
+(``chip_smoke.py`` phase 19).
 """
 
 import jax.numpy as jnp
@@ -146,20 +150,27 @@ def _halves(image, share, n_mid, h):
     return x.permute(4, 1, 2, 8, 3, 6, 0, 5, 7).reshape(2, n_mid, h, h)
 
 
-def _prep_source(e, h, share, n_mid):
-    """What the preparation kernel (``siren_fwd_cluster_prep_kernel``)
-    reads for its float4 ``e``: the half, the layer, the four weight rows
-    and the column."""
+def _prep_source(e, h, share, n_mid, n_prod=None):
+    """What the preparation kernel (``csrc/siren_cluster.cuh::
+    siren_cluster_prep_kernel``) reads for its float4 ``e`` of ``n_prod``
+    products (``n_mid`` for the forward, ``2 n_mid`` for the chain): the
+    half, the middle weight, and the four (row, column) elements of it, a
+    transposed product's read as (column, row)."""
+    n_prod = n_mid if n_prod is None else n_prod
     slices, img = h // 16, share * 2
     stage = 4 * img
-    per_rank = n_mid * slices * stage
+    per_rank = n_prod * slices * stage
     rank, rem = divmod(e, per_rank)
     u, w = divmod(rem, stage)
-    layer, c = divmod(u, slices)
+    product, c = divmod(u, slices)
     kk, half, x = w // (2 * img), (w // img) % 2, w % img
     g8, kc, r = x // 16, (x // 8) % 2, x % 8
     k0 = c * 16 + 2 * kk + kc
-    return half, layer, [k0 + 4 * i for i in range(4)], rank * share + g8 * 8 + r
+    n = rank * share + g8 * 8 + r
+    ks = [k0 + 4 * i for i in range(4)]
+    if product >= n_mid:
+        return half, 2 * n_mid - 1 - product, (n, ks)
+    return half, product, (ks, n)
 
 
 @pytest.mark.parametrize("h", [576, 1024, 2304])
@@ -182,18 +193,64 @@ def test_cluster_weight_layout(h):
     torch.testing.assert_close(big + small, w, rtol=2 ** -21, atol=0)
     quads = image.view(-1, 4)
     for e in range(0, quads.shape[0], 251):
-        half, layer, rows, col = _prep_source(e, h, plan.share, 2)
+        half, layer, index = _prep_source(e, h, plan.share, 2)
         src = (want_big if half == 0 else want_small)[layer]
-        assert torch.equal(quads[e], src[rows, col])
+        assert torch.equal(quads[e], src[index])
+
+
+@pytest.mark.parametrize("h", [576, 1024, 2304])
+def test_cluster_chain_weight_layout(h):
+    """The chain's stage images of three middle weights: per block the
+    forward's three products, then the dx chain's W_2^T, W_1^T, W_0^T.
+    Through the inverse each product gives back its weight's TF32 halves
+    exactly (the dx chain's: ``w_mid.transpose`` in reverse order), the
+    forward's part of each block equals the forward's layout, and the
+    preparation kernel's index arithmetic with ``2 n_mid`` products reads,
+    for every 253rd float4, the element the layout puts there."""
+    plan = tsd.cluster_plan(h)
+    w = torch.from_numpy(np.random.default_rng(h + 1).standard_normal((3, h, h))
+                         .astype(np.float32))
+    image = tsd.cluster_chain_weight_layout(w, plan.share)
+    assert image.numel() == 2 * 3 * 2 * h * h
+    big, small = _halves(image, plan.share, 6, h)
+    want_big, want_small = tsd.tf32_split(w)
+    tr_big, tr_small = tsd.tf32_split(w.transpose(1, 2).flip(0).contiguous())
+    assert torch.equal(big[:3], want_big) and torch.equal(small[:3], want_small)
+    assert torch.equal(big[3:], tr_big) and torch.equal(small[3:], tr_small)
+    assert torch.equal(big[3], want_big[2].t()) and torch.equal(small[5], want_small[0].t())
+    per_block = image.view(plan.blocks, 6, -1)
+    forward = tsd.cluster_weight_layout(w, plan.share).view(plan.blocks, 3, -1)
+    assert torch.equal(per_block[:, :3], forward)
+    quads = image.view(-1, 4)
+    for e in range(0, quads.shape[0], 253):
+        half, layer, index = _prep_source(e, h, plan.share, 3, n_prod=6)
+        src = (want_big if half == 0 else want_small)[layer]
+        assert torch.equal(quads[e], src[index])
+
+
+@pytest.mark.parametrize("family", ["dz", "bwd"])
+def test_chain_widths_follow_the_cluster_plan(family):
+    """dz and the training backward run above 512 at the cluster plan's
+    width, as the forward does, at every width up to 3072 and with up to 16
+    coordinates and outputs; past 3072 they raise, naming the family."""
+    for h in range(tsd.NARROW_HIDDEN + 1, tsd.MAX_HIDDEN[family] + 1, 37):
+        assert tsd.kernel_hidden_width(h, 3, 5, family) == tsd.cluster_plan(h).width
+    for h in CLUSTER_WIDTHS:
+        assert tsd.kernel_hidden_width(h, 16, 16, family) == tsd.cluster_plan(h).width
+    for h in (3073, 3136, 4096):
+        with pytest.raises(ValueError, match=f"the CUDA SIREN {tsd.FAMILIES[family]} kernel "
+                                             f"takes a hidden width of at most 3072"):
+            tsd.kernel_hidden_width(h, 3, 5, family)
 
 
 @pytest.mark.parametrize("family", sorted(tsd.FAMILIES))
 def test_width_limits_per_family(family):
-    """The float32 forward takes every width up to 3072 (its cluster
-    plan's), the bf16 forward, dz and the training backward up to 1024;
-    past a family's limit the error names the family and its limit."""
+    """The float32 forward, dz and the training backward take every width
+    up to 3072 (their cluster plan's above 512), the bf16 forward up to
+    1024; past a family's limit the error names the family and its
+    limit."""
     limit = tsd.MAX_HIDDEN[family]
-    assert limit == (3072 if family == "forward" else 1024)
+    assert limit == (1024 if family == "forward_bf16" else 3072)
     assert tsd.kernel_hidden_width(limit, 3, 5, family) == limit
     with pytest.raises(ValueError, match=f"the CUDA SIREN {tsd.FAMILIES[family]} kernel takes "
                                          f"a hidden width of at most {limit}"):

@@ -4,10 +4,10 @@
 training backward's chain (``csrc/siren_tc.cuh::chain_body``) in its dz
 mode: every hidden-by-hidden product of the forward recompute and of the dx
 chain is a 3xTF32 tensor-core product summed as zeroed partials per 16 of
-k; after each layer a block of ``CP`` = 64 pairs (32 at H = 448 and 512,
-16 above, ``tests/test_torch_siren_wide.py``) sums ``dpre_l`` over
-its pairs in pair order, one float32 sum per latent row it touches (a
-slot), and a fold adds each row's block sums in block order, chunk after
+k; after each layer a block of ``CP`` = 64 pairs (32 at H = 448 and 512;
+above 512 a cluster of 128 or 64, ``tests/test_torch_siren_wide.py``) sums
+``dpre_l`` over its pairs in pair order, one float32 sum per latent row it
+touches (a slot), and a fold adds each row's block sums in block order, chunk after
 chunk of ``BWD_PAIRS`` pairs.  That arithmetic is emulated here on
 ``decode_dz_plain``'s walk (the chain's products from
 ``tests/test_torch_siren_bwd.py``, the TF32 products from
@@ -64,7 +64,7 @@ def _case(width, seed=0):
 
 # ---------------------------------------------------------------------------
 # the kernels' index maps (csrc/siren_tc.cuh::row_sums,
-# csrc/siren_decode_bwd.cu::dz_slots and siren_dz_fold_kernel)
+# csrc/siren_dz_fold.cuh::dz_slots and siren_dz_fold_kernel)
 # ---------------------------------------------------------------------------
 
 def _dz_slots(m):

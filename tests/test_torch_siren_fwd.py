@@ -193,30 +193,31 @@ def test_hidden_padding_is_exact(hidden):
 
 
 def test_kernel_width_limits():
-    """Each kernel family's widths: the next multiple of 64 up to its limit
-    (1024 for the bf16 forward, dz and the training backward), the float32
-    forward above 512 at its cluster plan's width up to 3072; past a limit,
-    or past 16 coordinates or outputs, the error names the family."""
+    """Each kernel family's widths: the next multiple of 64 up to 512, then
+    for the bf16 forward up to its limit of 1024 and for the float32
+    families (the forward, dz and the training backward) at the cluster
+    plan's width up to 3072; past a limit, or past 16 coordinates or
+    outputs, the error names the family."""
     narrow = (1, 64, 65, 384, 385, 400, 448, 449, 500, 512)
-    assert [tsd.kernel_hidden_width(h, 3, 3, "forward") for h in narrow] \
-        == [64, 64, 128, 384, 448, 448, 448, 512, 512, 512]
-    for family in ("forward_bf16", "dz", "bwd"):
+    for family in tsd.FAMILIES:
+        assert [tsd.kernel_hidden_width(h, 3, 3, family) for h in narrow] \
+            == [64, 64, 128, 384, 448, 448, 448, 512, 512, 512]
+    assert [tsd.kernel_hidden_width(h, 3, 3, "forward_bf16")
+            for h in (513, 576, 600, 640, 1000, 1024)] == [576, 576, 640, 640, 1024, 1024]
+    assert tsd.kernel_hidden_width(1024, 16, 16, "forward_bf16") == 1024
+    for args in ((1025, 3, 3), (1088, 2, 2), (2048, 3, 5), (384, 17, 3), (384, 3, 17),
+                 (1024, 17, 2), (512, 2, 17)):
+        with pytest.raises(ValueError, match="bfloat16 forward kernel takes a hidden "
+                                             "width of at most 1024"):
+            tsd.kernel_hidden_width(*args, "forward_bf16")
+    for family in ("forward", "dz", "bwd"):
         assert [tsd.kernel_hidden_width(h, 3, 3, family)
-                for h in narrow + (513, 576, 600, 640, 1000, 1024)] \
-            == [64, 64, 128, 384, 448, 448, 448, 512, 512, 512, 576, 576, 640, 640, 1024, 1024]
-        assert tsd.kernel_hidden_width(1024, 16, 16, family) == 1024
-        for args in ((1025, 3, 3), (1088, 2, 2), (2048, 3, 5), (384, 17, 3), (384, 3, 17),
-                     (1024, 17, 2), (512, 2, 17)):
+                for h in (513, 576, 600, 640, 1000, 1024, 1025, 2048, 2049, 3072)] \
+            == [576, 576, 640, 640, 1024, 1024, 1152, 2048, 2304, 3072]
+        assert tsd.kernel_hidden_width(3072, 16, 16, family) == 3072
+        for args in ((3073, 3, 3), (4096, 2, 2), (2048, 17, 3), (1024, 3, 17)):
             with pytest.raises(ValueError, match=f"{tsd.FAMILIES[family]} kernel takes a hidden "
-                                                 f"width of at most 1024"):
+                                                 f"width of at most 3072"):
                 tsd.kernel_hidden_width(*args, family)
-    assert [tsd.kernel_hidden_width(h, 3, 3, "forward")
-            for h in (513, 576, 600, 640, 1000, 1024, 1025, 2048, 2049, 3072)] \
-        == [576, 576, 640, 640, 1024, 1024, 1152, 2048, 2304, 3072]
-    assert tsd.kernel_hidden_width(3072, 16, 16, "forward") == 3072
-    for args in ((3073, 3, 3), (4096, 2, 2), (2048, 17, 3), (1024, 3, 17)):
-        with pytest.raises(ValueError, match="float32 forward kernel takes a hidden width of "
-                                             "at most 3072"):
-            tsd.kernel_hidden_width(*args, "forward")
-    assert tsd.MAX_HIDDEN == {"forward": 3072, "forward_bf16": 1024, "dz": 1024, "bwd": 1024}
+    assert tsd.MAX_HIDDEN == {"forward": 3072, "forward_bf16": 1024, "dz": 3072, "bwd": 3072}
     assert tsd.MAX_FEATURES == 16 and tsd.NARROW_HIDDEN == 512

@@ -1,13 +1,17 @@
 """The SIREN-FiLM kernels' widths above 384, and the demo CNF's, on the CPU.
 
-The CUDA kernels take a hidden width up to 1024 and up to 16 coordinates
-and outputs; above 384 a block owns 32 pairs instead of 64, and above 512
-16 (``csrc/siren_tc.cuh::block_pairs``), so that the accumulators stay in
-registers and the two K-slice stages fit the shared memory of a block.
-Here (the width limits are
+The CUDA kernels take up to 16 coordinates and outputs; above 384 a block
+of the narrow kernels owns 32 pairs instead of 64
+(``csrc/siren_tc.cuh::block_pairs``), so that the accumulators stay in
+registers and the two K-slice stages fit the shared memory of a block, and
+above 512 the float32 forward, dz and the training backward's chain are
+cluster kernels (a cluster owns 128 pairs, 64 above H = 2048) up to
+H = 3072.  Here (the width limits are
 ``test_torch_siren_fwd.py::test_kernel_width_limits``): the plain
-versions (what a CPU tensor takes) at H = 448, 512, 640 and 1024, with 5
-outputs (the 3-D velocity, pressure and temperature), with 16 coordinates
+versions (what a CPU tensor takes) at H = 448, 512, 640, 1024, 1536,
+2048 and 3072, with 5
+outputs (the 3-D velocity, pressure and temperature; at 640 and 2048 also
+with a single modulated layer), with 16 coordinates
 and outputs, and at the turbulence demo's CNF widths (2 coordinates and
 outputs), against the JAX package's Pallas kernels in interpret mode, the
 weights carried across by ``cnf_state_dict_from_jax`` (forward rtol 1e-5,
@@ -15,7 +19,8 @@ dz and the training backward rtol 1e-4, the tolerances of
 ``tests/test_torch_siren_fwd.py``, ``test_torch_siren_dz.py`` and
 ``test_torch_train.py``, the backward's absolute floor scaled to each
 leaf's magnitude); the dz kernel's row slots and fold cover every pair
-once with 32- and 16-pair blocks; and one epoch of the port's
+once with 32-pair blocks and with the cluster chain's 128- and 64-pair
+clusters; and one epoch of the port's
 ``CNFTrainer`` against the JAX trainer (which trains through its Pallas
 kernels at any width) at ``hidden_features`` 640 and ``out_features`` 5.
 The kernels themselves run on the card (``chip_smoke.py`` phases 16a, 16c
@@ -46,12 +51,17 @@ def _threads():
 
 
 # (c_in, latent, c_out, middle layers, hidden, rows, points): the widths
-# of 32-pair blocks; those of 16-pair blocks with 5 outputs and with 16
-# coordinates and outputs; 16 outputs at a width of 64-pair blocks; and
+# of 32-pair blocks; those of the cluster kernels with 5 outputs (up to
+# 2048, where a cluster owns 128 pairs, and the widest, 3072; also of one
+# modulated layer, with no middle weight) and with 16 coordinates and
+# outputs; 16 outputs at a width of 64-pair blocks; and
 # the turbulence demo CNF's at its f4 widths (7 modulated layers of 384)
 # and under --fast (5 of 128), with 2 coordinates and 2 outputs
 WIDE = {"448": (3, 16, 3, 2, 448, 3, 200), "512": (2, 16, 2, 1, 512, 2, 150),
         "640-c5": (3, 16, 5, 2, 640, 2, 128), "1024-c5": (3, 16, 5, 1, 1024, 2, 100),
+        "1536-c5": (3, 16, 5, 2, 1536, 2, 64), "2048-c5": (3, 16, 5, 1, 2048, 2, 48),
+        "3072-c5": (3, 16, 5, 1, 3072, 2, 32), "640-c5-n1": (3, 16, 5, 0, 640, 2, 64),
+        "2048-c5-n1": (3, 16, 5, 0, 2048, 2, 48),
         "1024-c16": (16, 16, 16, 1, 1024, 2, 64), "384-c16": (3, 16, 16, 2, 384, 2, 128),
         "demo-f4": (2, 16, 2, 6, 384, 2, 150), "demo-fast": (2, 16, 2, 4, 128, 3, 200)}
 
@@ -139,17 +149,22 @@ def test_slots_and_fold_cover_every_pair_once_with_32_pair_blocks(monkeypatch, m
     assert dz_maps._dz_slots(10) == 5 and dz_maps._dz_slots(64) == 2
 
 
+@pytest.mark.parametrize("cp", [tsd.cluster_plan(h).pairs for h in (1024, 3072)])
 @pytest.mark.parametrize("m,rows,chunk", [
     (10, 50, 448), (7, 20, 448), (15, 30, 448), (16, 20, 448), (1000, 3, 448),
     (1000, 384, tsd.BWD_PAIRS), (10, 384, tsd.BWD_PAIRS), (4096, 64, tsd.BWD_PAIRS),
 ])
-def test_slots_and_fold_cover_every_pair_once_with_16_pair_blocks(monkeypatch, m, rows,
-                                                                 chunk):
-    """The index maps at the block of 16 pairs (H = 576 to 1024), with rows
-    shorter than a block (7, 10, 15 points) and DPS's 384 x 1000."""
-    _check_slots_and_fold(monkeypatch, 16, m, rows, chunk)
-    assert dz_maps._dz_slots(7) == 4 and dz_maps._dz_slots(10) == 3
-    assert dz_maps._dz_slots(16) == 2 and dz_maps._dz_slots(1000) == 2
+def test_slots_and_fold_cover_every_pair_once_with_cluster_blocks(monkeypatch, cp, m, rows,
+                                                                  chunk):
+    """The index maps at the cluster chain's units of P pairs (128 up to
+    H = 2048, 64 above), with rows much shorter than a cluster (7, 10, 15
+    points), chunks that do not end on a cluster's edge and DPS's
+    384 x 1000."""
+    assert cp in (64, 128)
+    _check_slots_and_fold(monkeypatch, cp, m, rows, chunk)
+    assert dz_maps._dz_slots(1000) == 2 and dz_maps._dz_slots(4096) == 2
+    assert dz_maps._dz_slots(7) == (cp - 2 + 7) // 7 + 1 == -(-(cp - 1) // 7) + 1
+    assert dz_maps._dz_slots(16) == cp // 16 + 1
 
 
 def _five_field_case(root, **extra):
