@@ -9,37 +9,38 @@ Phases, each fatal on failure:
 2. build: ``nvcc`` compiles every ``confild_tpu_torch/csrc/*.cu``, one
    process per source, all started together (timed; ptxas registers and
    spills, and for the flash and SIREN tensor-core kernels the count of
-   ``HMMA`` instructions in ``cuobjdump -sass``: every flash forward and
-   backward instantiation, every instantiation of the SIREN forward (float32
-   and bf16), of the SIREN chain in its training mode and in its dz mode,
-   and the training reduction kernel must have some);
+   ``HMMA`` and ``HGMMA`` instructions in ``cuobjdump -sass``: every flash
+   forward and backward instantiation, every instantiation of the bf16
+   SIREN forward and the training reduction kernel must have some, and
+   every instantiation of the SIREN cluster kernels (the float32 forward,
+   the chain in its training mode and in its dz mode) some ``HGMMA``);
 3. forward decode kernel against its plain version and a float64 run under
    the JAX tests' criterion ``err_kernel <= 2 * err_plain_f32 + 1e-6`` (each
    error printed as a share of its limit), two launches bitwise equal: at
    Case4 widths (SIREN-FiLM 3 -> 384 x 16 modulated layers -> 3, w0 30),
    16 rows x 262144 points (a decoder chunk) and 4 x 262144 (a CNF training
-   batch), at Case2 widths (2 -> 256 x 11 -> 4) at 3 x 3000 (another
-   instantiation, a ragged last block), and at a hidden width of 96 (3 ->
+   batch), at Case2 widths (2 -> 256 x 11 -> 4) at 3 x 3000 (a cluster of
+   one block, a ragged last cluster), and at a hidden width of 96 (3 ->
    96 x 4 -> 3, zero-padded to 128 by the wrapper) at 4 x 3000; at 16 and
    4 rows the kernel's time
    (median of 7 separately timed calls with the least and largest, the SM
-   clocks before and after), the split's and the forward's device time
-   from ``torch.profiler`` with the rate of products, the L2 bytes of the
-   split weight stream, the plain version's time and the roofline bound
+   clocks before and after), the weight preparation's and the forward's
+   device time from ``torch.profiler`` with the rate of products, the L2
+   bytes of the split weight stream, the plain version's time and the roofline bound
    (the SIREN rows' bound: matrix products at the tensor cores' 3xTF32
    rate, sines at the CUDA-core float32 rate, bytes at the HBM rate, the
    largest; the CUDA-core figure of all the flops is logged beside it);
-4. dz kernel (the chain's dz mode and its fold) against its plain version
+4. dz kernel (the cluster chain's dz mode and its fold) against its plain version
    and a float64 autograd run (same criterion on ``dL/dlatents``, each
    error printed as a share of its limit),
    two launches bitwise equal: at Case4 widths 384 rows x 10 sensors, 384 x
-   1024 and a ragged 100 x 3000 (rows cut across blocks and chunks), at
+   1024 and a ragged 100 x 3000 (rows cut across clusters and chunks), at
    Case2 widths 3 x 3000 and at the hidden width 96 at 4 x 3000; at 384 x
    1024 also against the training
    backward's dz under the same criterion; at 384 x 1024 and 384 x 10 the
    kernel's time (median of 7 separately timed calls with the least and
    largest, the SM clocks before and after), the chain's, the fold's and
-   the split's device time from ``torch.profiler`` with the rate of
+   the weight preparation's device time from ``torch.profiler`` with the rate of
    products, the peak workspace, the plain version's time and the bound;
    then the time and peak memory above inputs of the whole operator
    gradient (plain autograd decode vs forward + dz kernels) over a sweep of
@@ -167,14 +168,23 @@ Phases, each fatal on failure:
     for 3 steps with ``remat_policy`` "full" and "matmuls": ms per step and
     peak memory of each.
 16. the slice of the 2-D turbulence demo:
-    (a) every SIREN kernel at the widths above 384, H = 448 (3 -> 448 x 6
-    -> 3) and 512 (2 -> 512 x 6 -> 2), where a block owns 32 pairs: the
-    float32 forward at 4 x 16384 and a ragged 3 x 3001, the bf16 forward
-    at 4 x 16384, dz at 64 x 1024 (also against the training backward's)
-    and a ragged 100 x 3000, the training backward at 4 x 16384, under the
-    criteria of phases 3, 15, 4 and 7; each width's registers, spills and
-    shared memory; the float32 forward and the training backward timed at
-    4 x 262144 (median of 7, with their bounds and plain versions);
+    (a) the float32 SIREN kernels (the cluster forward and the cluster
+    chain in its dz and training modes) at the narrow widths a recipe may
+    ask for (``NARROW_CHECKS``): H = 64 (padded to 128), 128, 256, 320
+    (padded to 384), 384, 448 (padded to 512) and 512 (3 -> 3 or 2 -> 2,
+    six modulated layers), and one modulated layer at 128: the forward at
+    4 x 16384 and a ragged 3 x 3001, dz at 64 x 1024 (also against the
+    training backward's) and a ragged 100 x 3000 (rows cut across
+    clusters and chunks), the training backward at 4 x 16384, under the
+    criteria of phases 3, 4 and 7 with bitwise repeats, and at 448 and 512
+    the bf16 forward at 4 x 16384 under phase 15's; each width's plan,
+    registers, spills and clusters the card holds at once; the launches of
+    each width's checks (zeroed before, read after), and the kernel
+    instantiations a profiled forward, dz and training backward ran, which
+    must be the width's plan's; the float32 forward and the training
+    backward timed at 4 x 262144 at 448 and 512 and at the demo
+    ``--fast``'s 64 x 1024 at 128 (median of 7, with their bounds and
+    plain versions);
     (b) the Case4 U-Net (float32, batch 8, flash on) trained by
     ``TrainLoop`` with ``steps_per_call`` 4 over 32 seeded images resident
     on the card (``device_data``): ms per step of a call, against
@@ -275,7 +285,7 @@ Phases, each fatal on failure:
 19. the SIREN kernels at every width a FiLM recipe may ask for (hidden
     widths up to 1024, the float32 forward up to 3072, up to 16
     coordinates and outputs; blocks of 16 pairs above 512 in the bf16
-    forward, dz and the training backward), on
+    forward), on
     ``recipes/cnf/case4.yml`` with ``hidden_features`` 1024 and
     ``out_features`` 5 (``WIDE_CNF``: 3 -> 1024 x 16 modulated layers -> 5,
     which the kernels refused before):
@@ -309,12 +319,12 @@ Phases, each fatal on failure:
     after) are the H = 1024 rows' counts; (e) also times the forward at
     the shapes they launch it at (4 x 65536, 384 x 1000, 16 x 4096) and
     the training backward at 4 x 65536;
-    (f) above H = 512 the float32 forward and the chain of dz and the
-    training backward are thread-block cluster kernels
+    (f) the float32 forward and the chain of dz and the training backward
+    are thread-block cluster kernels at every width
     (``csrc/siren_fwd_cluster.cu``, ``csrc/siren_chain_cluster.cu``:
     wgmma, bulk asynchronous copies, distributed shared memory), so (a)'s
-    checks above 512 hold them, and they are also checked alone: their
-    plan at every width 576..3072 equal to the built library's, their
+    checks hold them, and they are also checked alone: their plan at every
+    width 64..3072 equal to the built library's, their
     weight preparations bitwise against the plain layouts at 576, 1024,
     2048 and 3072, the forward, dz and the training backward against their
     plain versions and float64 at 1536, 2048 and 3072 (3 -> 5, six
@@ -332,7 +342,10 @@ The script imports nothing of JAX or of ``confild_tpu``.  With no CUDA
 device it exits non-zero and prints no result.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
 (the rows at H = 448 and 512, at C = 16 and at H = 3072 with 0 launches:
-no main path runs them; the rows at H = 1024 and 2048 with phase 19's).
+no main path runs them; the rows at H = 128 with the demo ``--fast``'s
+launches, phase 16c; the rows at H = 1024 and 2048 with phase 19's); the
+card's name and power limit, the build's seconds and the script's total
+come before it.
 """
 
 from __future__ import annotations
@@ -427,10 +440,10 @@ ACT_FLOPS = 15
 PTXAS = {}
 
 
-def block_pairs(h: int) -> int:
-    """Pairs a SIREN kernel block owns at hidden width ``h``, as the built
-    library reports it."""
-    return sd._bwd_library().siren_bwd_tile_pairs(h)
+def bf16_block_pairs(h: int) -> int:
+    """Pairs a block of the bf16 SIREN forward owns at hidden width ``h``,
+    as the built library reports it."""
+    return sd._library().siren_fwd_bf16_pairs(h)
 
 
 def log(msg: str) -> None:
@@ -529,7 +542,7 @@ def phase_device():
 
 
 def kernel_label(line: str) -> str | None:
-    """``flash_bwd_dq_kernel<64, f32>``, ``siren_bwd_chain_kernel<6>``,
+    """``flash_bwd_dq_kernel<64, f32>``, ``siren_fwd_bf16_kernel<6>``,
     ``siren_fwd_cluster_kernel<256, 2>`` or
     ``siren_chain_cluster_kernel<256, 2, dz>`` (its training mode ``bwd``)
     from a line holding a kernel's mangled name, or None."""
@@ -598,8 +611,7 @@ def tc_label(counts: dict) -> str:
 # cores: mma.sync (HMMA), and wgmma (HGMMA) for the cluster kernels
 CLUSTER_KERNELS = ("siren_fwd_cluster_kernel", "siren_chain_cluster_kernel")
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                       "siren_fwd_kernel", "siren_fwd_bf16_kernel", "siren_bwd_chain_kernel",
-                       "siren_dz_chain_kernel", "siren_bwd_reduce_kernel") + CLUSTER_KERNELS
+                       "siren_fwd_bf16_kernel", "siren_bwd_reduce_kernel") + CLUSTER_KERNELS
 
 
 def phase_build():
@@ -747,10 +759,7 @@ def forward_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
                   + h * c_out + c_out + pairs * c_out)
     bound_ms, bound_by = tc_bound(mat, nbytes, act / PEAK_F32_FLOPS)
     fwd_ms = 0.0
-    cluster = h > sd.NARROW_HIDDEN
-    names = ((("prep", "siren_cluster_prep_kernel"), ("forward", "siren_fwd_cluster_kernel"))
-             if cluster else (("split", "siren_split_kernel"), ("forward", "siren_fwd_kernel")))
-    for part, name in names:
+    for part, name in (("prep", PREP_KERNEL), ("forward", "siren_fwd_cluster_kernel")):
         hits = [v for k, v in prof.items() if name in k]
         dev_ms = sum(ms_ for ms_, _ in hits)
         if not hits:
@@ -761,11 +770,10 @@ def forward_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
         fwd_ms = dev_ms if part == "forward" else fwd_ms
         log(f"[forward-time] {rows}x{points} {part}: {dev_ms:.3f} ms device, "
             f"{sum(n for _, n in hits)} launches{rate}")
-    # every block (every cluster above NARROW_HIDDEN, each block its
-    # columns) reads the whole split stream
-    group = sd.cluster_plan(h).pairs if cluster else block_pairs(h)
+    # every cluster (each block its columns) reads the whole split stream
+    group = sd.cluster_plan(h).pairs
     stream = -(-pairs // group) * (n_mod - 1) * 2 * h * h * 4
-    log(f"[forward-time] {rows}x{points}: the {'clusters' if cluster else 'blocks'} read "
+    log(f"[forward-time] {rows}x{points}: the clusters of {group} pairs read "
         f"{stream / 1e12:.3f} TB of the "
         f"{(n_mod - 1) * 2 * h * h * 4 / 1e6:.1f} MB split weight stream from L2"
         + (f" ({stream / 1e9 / fwd_ms:.2f} TB/s over the forward's device time)"
@@ -857,26 +865,21 @@ def peak_above(fn) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
-def chain_kernel(h: int, narrow: str) -> str:
-    """The chain's kernel name at width ``h``: the narrow one up to
-    ``NARROW_HIDDEN``, the cluster chain above it."""
-    return "siren_chain_cluster_kernel" if h > sd.NARROW_HIDDEN else narrow
-
-
-def prep_kernel(h: int) -> str:
-    """The weight preparation's kernel name at width ``h``."""
-    return "siren_cluster_prep_kernel" if h > sd.NARROW_HIDDEN else "siren_split_kernel"
+# the kernels of the float32 forward's and the chain's weight preparation
+# and of the chain, in both modes, at every width
+PREP_KERNEL = "siren_cluster_prep_kernel"
+CHAIN_KERNEL = "siren_chain_cluster_kernel"
 
 
 def chain_stream(pairs: int, h: int, n_mod: int, chain_ms: float) -> str:
-    """The bytes that the chain's blocks (above ``NARROW_HIDDEN`` its
-    clusters, each block its columns) read of the split weight stream,
-    the forward's products and the dx chain's, over ``pairs`` pairs in
-    chunks of ``BWD_PAIRS``, and the rate over the chain's device time."""
-    group = sd.cluster_plan(h).pairs if h > sd.NARROW_HIDDEN else block_pairs(h)
+    """The bytes that the chain's clusters (each block its columns) read of
+    the split weight stream, the forward's products and the dx chain's,
+    over ``pairs`` pairs in chunks of ``BWD_PAIRS``, and the rate over the
+    chain's device time."""
+    group = sd.cluster_plan(h).pairs
     units = sum(-(-q // group) for _, q in sd.pair_chunks(pairs, min(pairs, sd.BWD_PAIRS)))
     one = 2 * (n_mod - 1) * 2 * h * h * 4
-    return (f"the {'clusters' if h > sd.NARROW_HIDDEN else 'blocks'} of {group} pairs read "
+    return (f"the clusters of {group} pairs read "
             f"{units * one / 1e12:.3f} TB of the {one / 1e6:.1f} MB split weight stream from L2"
             + (f" ({units * one / 1e9 / chain_ms:.2f} TB/s over the chain's device time)"
                if chain_ms else ""))
@@ -885,7 +888,8 @@ def chain_stream(pairs: int, h: int, n_mod: int, chain_ms: float) -> str:
 def dz_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
     """The dz kernel at ``rows x points``: median of ``repeats`` separately
     timed calls with the least and largest and the SM clocks around them, the
-    device time of the chain, the fold and the split (torch.profiler) with
+    device time of the chain, the fold and the weight preparation
+    (torch.profiler) with
     the rate of products, the peak workspace, the plain version's time and
     the bound."""
     coords, _, g, z, ops, _, _ = dz_case(model, device, rows, points, seed)
@@ -907,8 +911,8 @@ def dz_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
         f"pre-activations and partials, the split weights)")
     products = pairs * 4 * (n_mod - 1) * h * h   # forward recompute and dx chain
     chain_ms = 0.0
-    for part, name in (("chain", chain_kernel(h, "siren_dz_chain_kernel")),
-                       ("fold", "siren_dz_fold_kernel"), ("split", prep_kernel(h))):
+    for part, name in (("chain", CHAIN_KERNEL), ("fold", "siren_dz_fold_kernel"),
+                       ("prep", PREP_KERNEL)):
         hits = [v for k, v in prof.items() if name in k]
         dev_ms = sum(ms_ for ms_, _ in hits)
         chain_ms = dev_ms if part == "chain" else chain_ms
@@ -1286,9 +1290,8 @@ def bwd_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
     # the products each kernel computes (the chain: forward and dx chain)
     products = {"chain": pairs * 4 * (n_mod - 1) * h * h, "reduce": pairs * 2 * (n_mod - 1) * h * h}
     chain_ms = 0.0
-    for part in ("chain", "reduce", "sums", "split", "fold"):
-        name = {"split": prep_kernel(h), "chain": chain_kernel(h, "siren_bwd_chain_kernel")}.get(
-            part, f"siren_bwd_{part}_kernel")
+    for part in ("chain", "reduce", "sums", "prep", "fold"):
+        name = {"prep": PREP_KERNEL, "chain": CHAIN_KERNEL}.get(part, f"siren_bwd_{part}_kernel")
         hits = [v for k, v in prof.items() if name in k]
         dev_ms = sum(ms for ms, _ in hits)
         chain_ms = dev_ms if part == "chain" else chain_ms
@@ -2157,7 +2160,7 @@ def bf16_forward_time(model, device, rows, points, seed, repeats: int = 7) -> di
                 if part == "forward" and dev_ms else "")
         log(f"[bf16-time] {rows}x{points} {part}: {dev_ms:.3f} ms device, "
             f"{sum(n for _, n in hits)} launches{rate}")
-    stream = -(-pairs // block_pairs(h)) * (n_mod - 1) * h * h * 2
+    stream = -(-pairs // bf16_block_pairs(h)) * (n_mod - 1) * h * h * 2
     ms, least, largest = t["bf16"]
     log(f"[bf16-forward] {rows}x{points} H={h}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] "
         f"median of {repeats} ({(mat + act) / ms / 1e9:.2f} TFLOP/s), float32 kernel in this run "
@@ -2372,43 +2375,140 @@ def train_xl(root, policy: str, batch: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 16: the SIREN kernels at H = 448 and 512, multi-step training from a
-# device-resident set, the turbulence demo end to end
+# phase 16: the float32 SIREN kernels at the narrow widths, multi-step
+# training from a device-resident set, the turbulence demo end to end
 # ---------------------------------------------------------------------------
 
-# six modulated layers at the two widths above 384 (blocks of 32 pairs):
-# Case4's 3 coordinates and outputs at 448, the demo's 2 at 512
+# six modulated layers at the widest narrow plan, two blocks of 256 columns
+# (448 padded to it): Case4's 3 coordinates and outputs at 448, the demo's
+# 2 at 512
 WIDE_CNFS = {448: dict(in_coord_features=3, in_latent_features=256, out_features=3,
                        num_hidden_layers=5, hidden_features=448, w0=30.0),
              512: dict(in_coord_features=2, in_latent_features=256, out_features=2,
                        num_hidden_layers=5, hidden_features=512, w0=30.0)}
+# the narrower plans, (C_in, C_out, hidden layers, H): six modulated layers
+# at 64 (padded to 128), 256 (a cluster of one block), 320 (padded to 384)
+# and 384 (two blocks of 192), 3 -> 3, and one modulated layer (no middle
+# weight) at 128; the demo --fast's decoder (DEMO_CNFS, 2 -> 128 x 5 -> 2,
+# one block) is checked and timed beside them
+NARROW_CHECKS = ((3, 3, 5, 64), (3, 3, 0, 128), (3, 3, 5, 256), (3, 3, 5, 320),
+                 (3, 3, 5, 384))
+# the families whose launches every narrow width's checks must count
+FLOAT32_KEYS = ("siren_decode_forward", "siren_decode_dz", "siren_decode_bwd")
 
 
-def phase_wide(device, results) -> None:
-    """Phase 16a: every SIREN kernel at H = 448 and 512 against its plain
-    version and float64 under the criteria of phases 3, 4, 7 and 15; each
-    width's registers, spills and shared memory; the float32 forward and
-    the training backward timed at 4 x 262144."""
+def cluster_route(model, device, label) -> list:
+    """The kernel instantiations that a float32 forward, dz and training
+    backward of ``model`` at 4 x 4096 ran, each call profiled on its own
+    (torch.profiler), held to the cluster plan of its kernel width:
+    ``siren_fwd_cluster_kernel<S, MT>`` and ``siren_chain_cluster_kernel<S,
+    MT, dz | bwd>``.  The profiler may record only part of a window, so a
+    call whose instantiation is missing is profiled again, up to three
+    times; any other float32 SIREN instantiation fails the check.  Returns
+    what was recorded."""
+    coords, _, z, ops = forward_case(model, device, 4, 4096, 29)
+    c_in, c_out = coords.shape[1], ops[2].shape[1]
+    plan = sd.cluster_plan(sd.kernel_hidden_width(z.shape[2], c_in, c_out, "forward"))
+    g = torch.randn((4, 4096, c_out), generator=torch.Generator(device=device).manual_seed(29),
+                    device=device)
+    pl = f"{plan.share}, {plan.m_tiles}"
+    calls = ((f"siren_fwd_cluster_kernel<{pl}>", lambda: sd.decode_forward(coords, z, *ops)),
+             (f"{CHAIN_KERNEL}<{pl}, dz>", lambda: sd.decode_dz(coords, z, g, *ops[:3])),
+             (f"{CHAIN_KERNEL}<{pl}, bwd>", lambda: sd.decode_bwd(coords, z, g, *ops[:3])))
+    ran = set()
+    for want, call in calls:
+        for _ in range(3):
+            # a fill first: the profiler may drop the window's first launch
+            with torch.no_grad():
+                prof = device_profile(f"{label}: {want}",
+                                      lambda: (torch.zeros(1, device=device), call()), top=0)
+            for name in prof:
+                found = re.search(r"(siren_\w+_kernel)<(\d+), (\d+)(?:, (true|false))?>", name)
+                if found:
+                    mode = {"true": ", dz", "false": ", bwd"}.get(found.group(4), "")
+                    ran.add(f"{found.group(1)}<{found.group(2)}, {found.group(3)}{mode}>")
+                elif kernel_label(name):
+                    ran.add(kernel_label(name))
+            if want in ran:
+                break
+    ran = sorted(k for k in ran if k.startswith(("siren_fwd_cluster_kernel<", CHAIN_KERNEL + "<")))
+    expected = sorted(want for want, _ in calls)
+    log(f"[narrow] {label}: the profiled calls ran {ran or 'nothing recorded'}; the plan's "
+        f"instantiations {expected}")
+    if set(ran) - set(expected):
+        raise SystemExit(f"{label}: the float32 SIREN calls ran {ran}, not only the cluster "
+                         f"plan's {expected}")
+    return ran
+
+
+def narrow_checks(model, device, label, bf16: bool = False) -> dict:
+    """The float32 forward, dz and the training backward of ``model`` (a
+    width up to 512) against their plain versions and float64 under the
+    criteria of phases 3, 4 and 7, each with a bitwise repeat: the forward
+    at 4 x 16384 and a ragged 3 x 3001 (with ``bf16`` also the bf16
+    forward at 4 x 16384), dz at 64 x 1024 (also against the training
+    backward's) and a ragged 100 x 3000 (rows cut across clusters and
+    chunks), the training backward at 4 x 16384; the width's cluster plans
+    first; the checks' launches (zeroed before, read after), which every
+    float32 family must have; then ``cluster_route``.  Returns the
+    kernels' errors against float64."""
+    h = model.net1[0].out_features
+    width = sd.kernel_hidden_width(h, model.net1[0].in_features, model.net1[-1].out_features,
+                                   "forward")
+    for family in ("forward", "dz", "bwd"):
+        log(f"[narrow] {label}: {sd.FAMILIES[family]}: {cluster_plan_line(width, family)}")
+    sd.reset_launch_counts()
+    errs = {"forward": forward_check(model, device, 4, 16384, 21, label)}
+    forward_check(model, device, 3, 3001, 22, label)
+    if bf16:
+        errs["bf16"] = bf16_forward_check(model, device, 4, 16384, 23, label)
+    errs["dz"] = dz_check(model, device, 64, 1024, 24, label, against_bwd=True)
+    dz_check(model, device, 100, 3000, 25, label)
+    errs["bwd"] = bwd_check(model, device, 4, 16384, seed=26)
+    torch.cuda.synchronize()
+    counts = dict(sd.LAUNCHES)
+    log(f"[narrow] {label}: launches of the checks {counts}")
+    missing = [k for k in FLOAT32_KEYS if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"{label}: the checks did not launch {missing}")
+    cluster_route(model, device, label)
+    return errs
+
+
+def phase_narrow(device, results) -> None:
+    """Phase 16a: the float32 forward, dz and the training backward on the
+    cluster kernels at every narrow plan (``NARROW_CHECKS``, the demo
+    --fast's decoder and ``WIDE_CNFS``, with the bf16 forward at 448 and
+    512) under ``narrow_checks``; the float32 forward and the training
+    backward timed at 4 x 262144 at 448 and 512, and at the demo --fast's
+    batch (64 x 1024) at 128, whose rows in the kernels line take that
+    run's launches."""
+    for c_in, c_out, layers, h in NARROW_CHECKS:
+        model, label = check_decoder(device, c_in, c_out, layers, h)
+        narrow_checks(model, device, label + f" ({layers + 1} modulated)")
+        del model
+        torch.cuda.empty_cache()
+    cfg, rows, points = DEMO_CNFS["--fast"]
+    model = SirenFilm(**cfg, generator=torch.Generator().manual_seed(rows)).to(
+        device).requires_grad_(False)
+    errs = narrow_checks(model, device, "demo --fast H=128")
+    results["siren_decode_forward@H128"] = dict(
+        forward_time(model, device, rows, points, 27), max_abs_err=errs["forward"])
+    results["siren_decode_bwd@H128"] = dict(
+        bwd_time(model, device, rows, points, seed=28), max_abs_err=errs["bwd"])
+    del model
+    torch.cuda.empty_cache()
     for h, cfg in WIDE_CNFS.items():
-        nt = h // 64
-        for kernel in ("siren_fwd_kernel", "siren_fwd_bf16_kernel", "siren_bwd_chain_kernel",
-                       "siren_dz_chain_kernel"):
-            log(f"[wide] H={h}: {kernel}<{nt}>: {PTXAS.get(f'{kernel}<{nt}>', 'not reported')}")
-        log(f"[wide] H={h}: blocks of {block_pairs(h)} pairs; chain shared memory "
-            f"{sd._bwd_library().siren_bwd_chain_smem(h)} bytes (of 232448 a block may take)")
+        log(f"[narrow] H={h}: siren_fwd_bf16_kernel<{h // 64}>: "
+            f"{PTXAS.get(f'siren_fwd_bf16_kernel<{h // 64}>', 'not reported')}, blocks of "
+            f"{bf16_block_pairs(h)} pairs")
         model = SirenFilm(**cfg, generator=torch.Generator().manual_seed(h)).to(
             device).requires_grad_(False)
-        label = f"H={h}"
-        err_f = forward_check(model, device, 4, 16384, 21, label)
-        forward_check(model, device, 3, 3001, 22, label)
-        bf16_forward_check(model, device, 4, 16384, 23, label)
-        dz_check(model, device, 64, 1024, 24, label, against_bwd=True)
-        dz_check(model, device, 100, 3000, 25, label)
-        err_b = bwd_check(model, device, 4, 16384, seed=26)
+        errs = narrow_checks(model, device, f"H={h}", bf16=True)
         results[f"siren_decode_forward@H{h}"] = dict(
-            forward_time(model, device, 4, 262144, 27), max_abs_err=err_f)
+            forward_time(model, device, 4, 262144, 27), max_abs_err=errs["forward"])
         results[f"siren_decode_bwd@H{h}"] = dict(
-            bwd_time(model, device, 4, 262144, seed=28), max_abs_err=err_b)
+            bwd_time(model, device, 4, 262144, seed=28), max_abs_err=errs["bwd"])
         del model
         torch.cuda.empty_cache()
 
@@ -2476,6 +2576,10 @@ DEMO_CNFS = {"--fast": (dict(in_coord_features=2, in_latent_features=32, out_fea
                                      hidden_features=384, w0=30.0), 128, 4096)}
 
 
+# each demo run's SIREN launches, by its label in DEMO_CNFS (phase_demo)
+DEMO_LAUNCHES = {}
+
+
 def phase_demo(root, device) -> dict:
     """Phase 16c: ``confild_tpu_torch.examples.demo_turbulence`` end to end
     on the card, ``--fast`` (32^2 grid, H = 128), then at the f4 widths
@@ -2486,7 +2590,8 @@ def phase_demo(root, device) -> dict:
     CNF batch step, the diffusion step, the metrics; every gate finite, and
     the CNF stage launched the SIREN forward and training-backward kernels
     (counts zeroed before each run, read after; the later stages launch
-    none).  Returns the two runs' launch counts."""
+    none).  Returns the two runs' launch counts; each run's are kept in
+    ``DEMO_LAUNCHES`` under its label."""
     counts = dict.fromkeys(sd.LAUNCHES, 0)
     for label, name, argv in (("--fast", "demo_fast", ["--fast"]),
                               ("f4 widths, cut", "demo_f4", DEMO_F4_CUT)):
@@ -2503,7 +2608,7 @@ def phase_demo(root, device) -> dict:
         sd.reset_launch_counts()
         m = demo_turbulence.main(argv + ["--out", os.path.join(root, name)])
         synchronize(torch.device("cuda"))
-        run = dict(sd.LAUNCHES)
+        run = DEMO_LAUNCHES[label] = dict(sd.LAUNCHES)
         for k, v in run.items():
             counts[k] += v
         gates = m["cnf_rmae"] + [m["spectra_relative_error"], m["timescale_ratio"]]
@@ -3695,29 +3800,19 @@ def wide_kernel_checks(model, device, label) -> dict:
     and float64 under the criteria of phases 3, 15, 4 and 7, each with a
     bitwise repeat: the float32 and bf16 forwards at 4 x 16384, dz at a
     ragged 64 x 1000 (also against the training backward's), the training
-    backward at 4 x 16384; the width's registers, spills and shared memory
-    first (above H = 512 the float32 forward is the cluster kernel).
-    Returns the kernels' errors against float64."""
+    backward at 4 x 16384; the width's cluster plans (the float32 forward,
+    dz and the training backward), registers, spills and shared memory
+    first.  Returns the kernels' errors against float64."""
     h = model.net1[0].out_features
     width = sd.kernel_hidden_width(h, model.net1[0].in_features, model.net1[-1].out_features,
                                    "bwd")
-    kernels = ("siren_fwd_bf16_kernel",)
-    if width <= sd.NARROW_HIDDEN:
-        kernels = ("siren_fwd_kernel",) + kernels + ("siren_bwd_chain_kernel",
-                                                     "siren_dz_chain_kernel")
-    else:
-        for family in ("forward", "dz", "bwd"):
-            log(f"[wider] {label}: cluster {sd.FAMILIES[family]}: "
-                f"{cluster_plan_line(width, family)}")
-    for kernel in kernels:
-        nt = width // 64
-        log(f"[wider] {label}: {kernel}<{nt}>: {PTXAS.get(f'{kernel}<{nt}>', 'not reported')}")
-    if width > sd.NARROW_HIDDEN:
-        log(f"[wider] {label}: the bf16 forward's blocks of {block_pairs(width)} pairs")
-    else:
-        log(f"[wider] {label}: blocks of {block_pairs(width)} pairs; chain shared memory "
-            f"{sd._bwd_library().siren_bwd_chain_smem(width)} bytes (of 232448 a block may "
-            f"take)")
+    for family in ("forward", "dz", "bwd"):
+        log(f"[wider] {label}: cluster {sd.FAMILIES[family]}: "
+            f"{cluster_plan_line(width, family)}")
+    nt = width // 64
+    log(f"[wider] {label}: siren_fwd_bf16_kernel<{nt}>: "
+        f"{PTXAS.get(f'siren_fwd_bf16_kernel<{nt}>', 'not reported')}, blocks of "
+        f"{bf16_block_pairs(width)} pairs")
     return {"forward": forward_check(model, device, 4, 16384, 31, label),
             "bf16": bf16_forward_check(model, device, 4, 16384, 32, label),
             "dz": dz_check(model, device, 64, WIDE_SENSORS, 33, label, against_bwd=True),
@@ -3775,11 +3870,10 @@ def phase_wider(root, device, results) -> dict:
         errs[h, c_out] = wide_kernel_checks(model, device, label)
         if c_out == 16:
             tag = f"@H{h}C16"
-            wide = "_cluster" if h > sd.NARROW_HIDDEN else ""
-            results[f"siren_decode_forward{wide}{tag}"] = dict(
+            results[f"siren_decode_forward{tag}"] = dict(
                 forward_time(model, device, 4, C16_POINTS, 35, repeats=3),
                 max_abs_err=errs[h, c_out]["forward"])
-            results[f"siren_decode_bwd{wide}{tag}"] = dict(
+            results[f"siren_decode_bwd{tag}"] = dict(
                 bwd_time(model, device, 4, C16_POINTS, seed=36, repeats=3),
                 max_abs_err=errs[h, c_out]["bwd"])
         del model
@@ -3795,13 +3889,13 @@ def phase_wider(root, device, results) -> dict:
     err["dz"] = dz_check(model, device, CASE4_RECIPE["time_length"], WIDE_SENSORS, 41, label,
                          against_bwd=True)
     err["bwd"] = bwd_check(model, device, 4, WIDE_POINTS, seed=42)
-    results["siren_decode_forward_cluster@H1024"] = dict(
+    results["siren_decode_forward@H1024"] = dict(
         forward_time(model, device, 4, 262144, 38, repeats=3), max_abs_err=err["forward"])
-    results["siren_decode_bwd_cluster@H1024"] = dict(
+    results["siren_decode_bwd@H1024"] = dict(
         bwd_time(model, device, 4, 262144, seed=39, repeats=3), max_abs_err=err["bwd"])
     results["siren_decode_forward_bf16@H1024"] = dict(
         bf16_forward_time(model, device, 4, 262144, 38, repeats=3), max_abs_err=err["bf16"])
-    results["siren_decode_dz_cluster@H1024"] = dict(
+    results["siren_decode_dz@H1024"] = dict(
         dz_time(model, device, CASE4_RECIPE["time_length"], WIDE_SENSORS, 40, repeats=3),
         max_abs_err=err["dz"])
     # the shapes (b) and (c) launch the forward and the training backward
@@ -3815,7 +3909,7 @@ def phase_wider(root, device, results) -> dict:
     torch.cuda.empty_cache()
     cluster_checks(device, results)
     counts = wider_paths(root)
-    counts["siren_decode_forward_cluster@H2048"] = infer_2048(root, device)
+    counts["siren_decode_forward@H2048"] = infer_2048(root, device)
     return counts
 
 
@@ -3847,7 +3941,7 @@ def prep_check(h: int) -> None:
 def cluster_checks(device, results) -> None:
     """Phase 19 (f): the cluster kernels above H = 1024, where only they
     and the bf16 forward's refusal run.  Their plan at every width they
-    take, held to the built library's (``siren_fwd_cluster_plan``: the two
+    take (64 .. 3072), held to the built library's (``siren_fwd_cluster_plan``: the two
     share ``siren_cluster.cuh::plan_for``); their preparations bitwise against the
     plain layouts; the forward against its plain version and float64
     (phase 3's criterion, bitwise repeat) at ``CLUSTER_CHECKS`` (4 x 16384)
@@ -3860,14 +3954,14 @@ def cluster_checks(device, results) -> None:
     ``CLUSTER_MAX_POINTS``, dz at 384 x ``WIDE_SENSORS``)."""
     lib = sd._cluster_library()
     out = (ctypes.c_int * 5)()
-    for h in range(sd.NARROW_HIDDEN + 64, sd.MAX_HIDDEN["forward"] + 1, 64):
+    for h in range(64, sd.MAX_HIDDEN["forward"] + 1, 64):
         plan = sd.cluster_plan(h)
         sd._raise_on(lib.siren_fwd_cluster_plan(h, out), "siren_fwd_cluster_plan")
         if tuple(out) != (plan.blocks, plan.share, plan.m_tiles, plan.stages, plan.smem_bytes):
             raise SystemExit(f"cluster plan at H = {h}: the library's {tuple(out)}, the "
                              f"wrapper's {plan}")
     log(f"[cluster] the wrapper's plans equal the library's (siren_cluster.cuh::plan_for, "
-        f"which the forward and the chain share) at H = {sd.NARROW_HIDDEN + 64}.."
+        f"which the forward and the chain share) at H = 64.."
         f"{sd.MAX_HIDDEN['forward']}")
     for h in PREP_WIDTHS:
         prep_check(h)
@@ -3883,13 +3977,13 @@ def cluster_checks(device, results) -> None:
         err_dz = dz_check(model, device, 64, WIDE_SENSORS, 50, label, against_bwd=True)
         err_bwd = bwd_check(model, device, 4, 16384, seed=51)
         if h == sd.MAX_HIDDEN["forward"]:
-            results[f"siren_decode_forward_cluster@H{h}"] = dict(
+            results[f"siren_decode_forward@H{h}"] = dict(
                 forward_time(model, device, 4, CLUSTER_MAX_POINTS, 45, repeats=3),
                 max_abs_err=err)
-            results[f"siren_decode_dz_cluster@H{h}"] = dict(
+            results[f"siren_decode_dz@H{h}"] = dict(
                 dz_time(model, device, CASE4_RECIPE["time_length"], WIDE_SENSORS, 52,
                         repeats=3), max_abs_err=err_dz)
-            results[f"siren_decode_bwd_cluster@H{h}"] = dict(
+            results[f"siren_decode_bwd@H{h}"] = dict(
                 bwd_time(model, device, 4, CLUSTER_MAX_POINTS, seed=53, repeats=3),
                 max_abs_err=err_bwd)
         del model
@@ -3907,7 +4001,7 @@ def cluster_checks(device, results) -> None:
                       generator=torch.Generator().manual_seed(2048)).to(
         device).requires_grad_(False)
     err = forward_check(model, device, 4, 16384, 46, "Case4 at H=2048 3->5")
-    results["siren_decode_forward_cluster@H2048"] = dict(
+    results["siren_decode_forward@H2048"] = dict(
         forward_time(model, device, 4, 262144, 47, repeats=3), max_abs_err=err)
     del model
     torch.cuda.empty_cache()
@@ -3946,7 +4040,7 @@ def infer_2048(root, device) -> int:
     t0 = time.perf_counter()
     fused = CNF_inference(*args, device=device).predict(coords, batch_size=rows)
     wall = time.perf_counter() - t0
-    launches = sd.LAUNCHES["siren_decode_forward_cluster"]
+    launches = sd.LAUNCHES["siren_decode_forward"]
     plain = CNF_inference(*args, device=device, use_pallas=False).predict(coords,
                                                                           batch_size=rows)
     rel = float(np.linalg.norm(fused - plain) / np.linalg.norm(plain))
@@ -3973,8 +4067,7 @@ def wider_paths(root) -> dict:
     log(f"[wider] cli.train_cnf on case4.yml with {WIDE_NF}: ms per batch step (4 x "
         f"{WIDE_POINTS}) {[round(x, 1) for x in run['step_ms']]}, peak {run['peak']:.2f} GiB, "
         f"launches {counts}")
-    missing = [k for k in ("siren_decode_forward_cluster", "siren_decode_bwd_cluster")
-               if counts[k] == 0]
+    missing = [k for k in ("siren_decode_forward", "siren_decode_bwd") if counts[k] == 0]
     if missing:
         raise SystemExit(f"the wide CNF trained without launching {missing}")
 
@@ -4001,8 +4094,7 @@ def wider_paths(root) -> dict:
     if fields.shape != expected or not np.isfinite(fields).all():
         raise SystemExit(f"the wide CNF's DPS output is wrong: {fields.shape}, expected "
                          f"{expected}")
-    missing = [k for k in ("siren_decode_forward_cluster", "siren_decode_dz_cluster")
-               if dps[k] == 0]
+    missing = [k for k in ("siren_decode_forward", "siren_decode_dz") if dps[k] == 0]
     if missing or not timings["fused"]:
         raise SystemExit(f"the wide CNF's DPS run did not launch {missing}")
     for k, v in dps.items():
@@ -4059,8 +4151,8 @@ def main() -> int:
             stamp(label)
         phase_remat(root, device)
         stamp("phase 15c (remat)")
-        phase_wide(device, results)
-        stamp("phase 16a (SIREN kernels at H = 448 and 512)")
+        phase_narrow(device, results)
+        stamp("phase 16a (the float32 SIREN kernels at H = 64 .. 512)")
         phase_multistep(root, device, figures)
         stamp("phase 16b (multi-step training from device data)")
         for k, v in phase_demo(root, device).items():
@@ -4086,54 +4178,34 @@ def main() -> int:
               f"to H = {sd.MAX_HIDDEN['forward']})")
     launches.update(flash_launches)
 
-    kernels = []
-    for kname, key, src, replaces in (
-            ("siren_decode_forward", "siren_decode_forward", "siren_decode.cu",
-             "siren_decode.py:96"),
+    # the rows at H = 128 take the demo --fast's launches (its CNF stage is
+    # the decoder phase 16a times there)
+    for kname in ("siren_decode_forward", "siren_decode_bwd"):
+        wide_launches[f"{kname}@H128"] = DEMO_LAUNCHES["--fast"][kname]
+    fwd, chain = ("siren_fwd_cluster.cu", "siren_decode.py:96"), ("siren_chain_cluster.cu",)
+    rows = [("siren_decode_forward", "siren_decode_forward", *fwd),
             ("siren_decode_forward_bf16", "siren_decode_forward_bf16", "siren_decode.cu",
              "siren_decode.py:96"),
-            ("siren_decode_dz", "siren_decode_dz@384x1024", "siren_decode_bwd.cu",
-             "siren_decode.py:315"),
-            ("siren_decode_bwd", "siren_decode_bwd", "siren_decode_bwd.cu",
-             "siren_decode.py:434"),
-            ("siren_decode_forward", "siren_decode_forward@H448", "siren_decode.cu",
-             "siren_decode.py:96"),
-            ("siren_decode_forward", "siren_decode_forward@H512", "siren_decode.cu",
-             "siren_decode.py:96"),
-            ("siren_decode_bwd", "siren_decode_bwd@H448", "siren_decode_bwd.cu",
-             "siren_decode.py:434"),
-            ("siren_decode_bwd", "siren_decode_bwd@H512", "siren_decode_bwd.cu",
-             "siren_decode.py:434"),
-            ("siren_decode_forward_cluster", "siren_decode_forward_cluster@H1024",
-             "siren_fwd_cluster.cu", "siren_decode.py:96"),
-            ("siren_decode_forward_cluster", "siren_decode_forward_cluster@H2048",
-             "siren_fwd_cluster.cu", "siren_decode.py:96"),
-            ("siren_decode_forward_cluster",
-             f"siren_decode_forward_cluster@H{sd.MAX_HIDDEN['forward']}",
-             "siren_fwd_cluster.cu", "siren_decode.py:96"),
-            ("siren_decode_forward_bf16", "siren_decode_forward_bf16@H1024",
-             "siren_decode.cu", "siren_decode.py:96"),
-            ("siren_decode_dz_cluster", "siren_decode_dz_cluster@H1024",
-             "siren_chain_cluster.cu", "siren_decode.py:315"),
-            ("siren_decode_bwd_cluster", "siren_decode_bwd_cluster@H1024",
-             "siren_chain_cluster.cu", "siren_decode.py:434"),
-            ("siren_decode_dz_cluster",
-             f"siren_decode_dz_cluster@H{sd.MAX_HIDDEN['dz']}", "siren_chain_cluster.cu",
-             "siren_decode.py:315"),
-            ("siren_decode_bwd_cluster",
-             f"siren_decode_bwd_cluster@H{sd.MAX_HIDDEN['bwd']}", "siren_chain_cluster.cu",
-             "siren_decode.py:434"),
-            ("siren_decode_forward_cluster", "siren_decode_forward_cluster@H1024C16",
-             "siren_fwd_cluster.cu", "siren_decode.py:96"),
-            ("siren_decode_bwd_cluster", "siren_decode_bwd_cluster@H1024C16",
-             "siren_chain_cluster.cu", "siren_decode.py:434"),
-            ("siren_decode_forward", "siren_decode_forward@H384C16", "siren_decode.cu",
-             "siren_decode.py:96"),
-            ("siren_decode_bwd", "siren_decode_bwd@H384C16", "siren_decode_bwd.cu",
-             "siren_decode.py:434"),
-            ("flash_forward", "flash_forward", "flash_attention.cu", "flash_attention.py:56"),
-            ("flash_bwd_dq", "flash_bwd_dq", "flash_attention.cu", "flash_attention.py:158"),
-            ("flash_bwd_dkv", "flash_bwd_dkv", "flash_attention.cu", "flash_attention.py:188")):
+            ("siren_decode_dz", "siren_decode_dz@384x1024", *chain, "siren_decode.py:315"),
+            ("siren_decode_bwd", "siren_decode_bwd", *chain, "siren_decode.py:434")]
+    for h in (128, 448, 512):
+        rows += [("siren_decode_forward", f"siren_decode_forward@H{h}", *fwd),
+                 ("siren_decode_bwd", f"siren_decode_bwd@H{h}", *chain, "siren_decode.py:434")]
+    rows += [("siren_decode_forward", f"siren_decode_forward@H{h}", *fwd)
+             for h in (1024, 2048, sd.MAX_HIDDEN["forward"])]
+    rows += [("siren_decode_forward_bf16", "siren_decode_forward_bf16@H1024", "siren_decode.cu",
+              "siren_decode.py:96")]
+    for h in (1024, sd.MAX_HIDDEN["dz"]):
+        rows += [("siren_decode_dz", f"siren_decode_dz@H{h}", *chain, "siren_decode.py:315"),
+                 ("siren_decode_bwd", f"siren_decode_bwd@H{h}", *chain, "siren_decode.py:434")]
+    for h in (1024, 384):
+        rows += [("siren_decode_forward", f"siren_decode_forward@H{h}C16", *fwd),
+                 ("siren_decode_bwd", f"siren_decode_bwd@H{h}C16", *chain, "siren_decode.py:434")]
+    rows += [("flash_forward", "flash_forward", "flash_attention.cu", "flash_attention.py:56"),
+             ("flash_bwd_dq", "flash_bwd_dq", "flash_attention.cu", "flash_attention.py:158"),
+             ("flash_bwd_dkv", "flash_bwd_dkv", "flash_attention.cu", "flash_attention.py:188")]
+    kernels = []
+    for kname, key, src, replaces in rows:
         r = results[key]
         kernels.append({
             "name": key if "@H" in key else kname, "route": "cuda",
@@ -4141,9 +4213,9 @@ def main() -> int:
             "replaces": f"confild_tpu/ops/{replaces}",
             # phase 19's main paths (cli.train_cnf, cli.sample_conditional)
             # run its decoder at H = 1024, 3 -> 5, and (g)
-            # inference.CNF_inference one at 2048; no main path runs the
-            # other widths above 384 or C = 16 (the base rows count the
-            # narrow widths' launches)
+            # inference.CNF_inference one at 2048; the demo --fast runs
+            # H = 128; no main path runs the other widths listed apart or
+            # C = 16 (the base rows count the other main paths' launches)
             "launches": (wide_launches[kname] if key.endswith("@H1024")
                          else wide_launches.get(key, 0) if "@H" in key
                          else launches[kname]),
@@ -4151,6 +4223,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"],
             **{k: r[k] for k in ("library_call", "library_covers") if k in r}})
+    log(f"[time] total {time.perf_counter() - start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

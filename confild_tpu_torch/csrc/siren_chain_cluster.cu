@@ -1,19 +1,19 @@
-// The float32 SIREN-FiLM chain above H = 512 (a forward recompute, then the
-// dx chain), in its dz mode and its training mode, as a thread-block cluster
-// kernel for Hopper (sm_90a): wgmma on the tensor cores (3xTF32), the
-// weights streamed by bulk asynchronous copies, the activations and dpre
-// spread over the cluster's blocks and read through distributed shared
-// memory (siren_cluster.cuh, shared with the cluster forward).
+// The float32 SIREN-FiLM chain (a forward recompute, then the dx chain), in
+// its dz mode and its training mode, as a thread-block cluster kernel for
+// Hopper (sm_90a): wgmma on the tensor cores (3xTF32), the weights streamed
+// by bulk asynchronous copies, the activations and dpre spread over the
+// cluster's blocks and read through distributed shared memory
+// (siren_cluster.cuh, shared with the cluster forward), at every hidden
+// width up to 3072.
 //
 // siren_decode_dz_cluster replaces the Pallas kernel _decode_dz_kernel
 // (confild_tpu/ops/siren_decode.py:315, launched at :393 by
-// fused_siren_decode_dz) at H > 512: dL/dz_l for every layer, (n_mod, T, H),
-// the sum over each row's points of dpre_l.  siren_bwd_chain_cluster is the
-// chain part of _decode_bwd_kernel (:434, launched at :523 by
-// fused_siren_decode_bwd) at H > 512: every pre-activation r_l and every
-// dpre_l of a chunk into the workspace, which siren_decode_bwd.cu's
-// reduction, sums and fold turn into dz, dW_first, dW_mid and dW_head as
-// they do at H <= 512.  With dpre_l = dx_l * 2 pi cos2pi(r_l) and
+// fused_siren_decode_dz): dL/dz_l for every layer, (n_mod, T, H), the sum
+// over each row's points of dpre_l.  siren_bwd_chain_cluster is the chain
+// part of _decode_bwd_kernel (:434, launched at :523 by
+// fused_siren_decode_bwd): every pre-activation r_l and every dpre_l of a
+// chunk into the workspace, which siren_decode_bwd.cu's reduction, sums and
+// fold turn into dz, dW_first, dW_mid and dW_head.  With dpre_l = dx_l * 2 pi cos2pi(r_l) and
 // dx_{l-1} = dpre_l . W_l^T, on the folded operands of siren_decode.cu
 // (w_first, w_mid and z scaled by w0 / (2 pi)):
 //   coords (M, C_in)   z (n_mod, T, H)   g (T, M, C_out)   w_first (C_in, H)
@@ -28,10 +28,12 @@
 // Bound on the H100: operations.  A pair costs 2 x 2 (n_mod - 1) H^2 flops
 // of products (the forward recompute and the dx chain), at the dense TF32
 // rate over three products each (495 / 3 TFLOP/s): 384 x 1000 pairs at 16
-// modulated layers of 1024 take at least 146 ms.  A design of blocks that
-// each hold their pairs' full activation rows (16 pairs at H = 1024) is
-// bound instead by its L2 weight stream: every block rereads the forward's
-// and the dx chain's split weights, 6.0 TB a call at that shape.
+// modulated layers of 1024 take at least 146 ms, 384 x 1024 at Case4 (16 of
+// 384) 21.1 ms.  A design of blocks that each hold their pairs' full
+// activation rows (16 pairs at H = 1024, 64 at Case4) is bound instead by
+// its L2 weight stream: every block rereads the forward's and the dx
+// chain's split weights, 6.0 TB a call at the first shape (the mma.sync
+// chain this kernel replaced at H <= 512 ran near that stream's rate).
 //
 // Design.  A cluster of CL blocks owns P = 64 MT pairs (128 up to H = 2048,
 // 64 above) and reads the weight stream once, 0.75 TB at the shape above.

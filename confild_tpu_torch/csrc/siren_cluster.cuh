@@ -1,7 +1,7 @@
 // The thread-block cluster machinery shared by the SIREN-FiLM cluster
-// kernels for Hopper (sm_90a): the float32 forward above H = 512
-// (siren_fwd_cluster.cu) and the chain above it, dz and the training
-// backward (siren_chain_cluster.cu).
+// kernels for Hopper (sm_90a): the float32 forward (siren_fwd_cluster.cu)
+// and the chain, dz and the training backward (siren_chain_cluster.cu), at
+// every hidden width up to 3072.
 //
 // A cluster of CL blocks owns P = 64 MT consecutive (row, point) pairs;
 // block b owns columns [b S, (b + 1) S) of every layer's output and keeps
@@ -34,6 +34,9 @@
 //     float32 add carries into the running sum (tf32_mma.cuh: the tensor
 //     cores truncate their own sums); two partials take turns, so one
 //     subtile's products run while the one before is carried.
+//   * A cluster may be one block (H up to 256): its reads of "another
+//     block's" share and its cluster barriers then address the block
+//     itself.
 //   * A block is two warpgroups and no producer warpgroup, so that a thread
 //     may take up to 255 registers (three warpgroups would cap it at 168).
 // Between products the kernels publish the new shares with two cluster
@@ -62,7 +65,13 @@ constexpr int THREADS = 128 * CONSUMERS;
 constexpr int SMEM_MAX = 232448;                // what a block may take
 constexpr int ALIGN = 128;                      // the stages' alignment
 
-// (S, MT) of each instantiation: S columns a block, MT m64 tiles a cluster
+// (S, MT) of each instantiation: S columns a block, MT m64 tiles a cluster.
+// Up to 512 a width pads to 128, 192, 256, 384 or 512 (one block of 128,
+// 192 or 256 columns, two of 192 or 256).  An instantiation of 64 columns
+// would pad only to the next multiple of 64, but measured slower than the
+// padding in the forward (320 as five blocks of 64: 24.6 ms against 21.9
+// padded to 384; 448 as seven: 52.8 against 33.1 padded to 512, 4 x 262144
+// on an H100, tools/siren_narrow_plans.py).
 constexpr int CONFIGS[][2] = {{128, 2}, {192, 2}, {256, 2}, {384, 1}};
 
 __host__ __device__ constexpr int cluster_pairs(int MT) { return 64 * MT; }

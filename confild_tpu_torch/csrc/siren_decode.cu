@@ -1,5 +1,6 @@
-// SIREN-FiLM decode kernels for Hopper (sm_90a): float32 results, every
-// hidden-by-hidden product on the tensor cores as 3xTF32.
+// The SIREN-FiLM decode forward with bfloat16 operands for Hopper (sm_90a):
+// float32 results, every product on the tensor cores.  The float32 forward
+// is siren_fwd_cluster.cu's.
 //
 // The kernel takes operands that the Python wrapper
 // (confild_tpu_torch/ops/siren_decode.py) has already folded: the first and
@@ -13,46 +14,15 @@
 //   coords  (M, C_in)          normalized query points
 //   z       (n_mod, T, H)      scaled FiLM rows  z_l = (latents @ W2_l + b1_l) * s
 //   w_first (C_in, H)          scaled first weight  [in][out]
-//   wsplit  the middle weights (n_mod - 1, H, H) split into TF32 halves in
-//           B-fragment order (siren_tc.cuh): the forward's n_mod - 1
-//           products
+//   wfrag   the middle weights (n_mod - 1, H, H) rounded to bf16 in
+//           B-fragment order (siren_bf16_frag_kernel)
 //   w_head  (H, C_out), b_head (C_out)
 //
 // ---------------------------------------------------------------------------
-// siren_decode_forward replaces the Pallas kernel _decode_kernel
+// siren_decode_forward_bf16 replaces the Pallas kernel _decode_kernel
 // (confild_tpu/ops/siren_decode.py:96, launched at :177 by _fused_forward)
-// at H <= 512; wider float32 forwards are siren_fwd_cluster.cu's.
-//
-// Bound on the H100: operations.  Each (row, point) pair costs
-// 2*H*(C_in + (n_mod-1)*H + C_out) flops (4.4 MFLOP at Case4) against 12
-// bytes of coordinates and outputs.  With the products at the tensor
-// cores' dense TF32 rate and three products each (495 / 3 TFLOP/s),
-// 16 x 262144 pairs at Case4 take at least 112.6 ms.
-//
-// Design: the training chain's forward half (siren_decode_bwd.cu), without
-// its workspace.  A block owns CP consecutive (row, point) pairs,
-// p = t * M + m (the M dimension of every product; CP = 64 up to H = 384,
-// 32 at H = 448 and 512, siren_tc.cuh::block_pairs),
-// and keeps their CP x H activations in shared memory for the whole layer
-// stack.  Eight warps each own H / 8 output columns.  Every H x H product is
-// a 3xTF32 mma.sync.m16n8k8 (tf32_mma.cuh): the middle weights are split
-// once a call (siren_split_kernel, the n_mod - 1 forward products only,
-// 17.7 MB at Case4) and stream as K-slices of 16 rows through a two-stage
-// cp.async buffer,
-// in one stream across the layers, so the next layer's first slice loads
-// while a layer's epilogue runs (chain_product, siren_tc.cuh).  The
-// epilogue adds the FiLM row and applies sin2pi in place; nothing goes to
-// global memory until the head.  The first layer (C_in columns) and the
-// head (C_out columns, one warp per output, lanes striding over H, a
-// shuffle tree) stay on the CUDA cores in float32.  The ragged last block
-// is masked.  No atomics: two launches are bitwise equal.
-// Known cost: every block rereads the whole split stream from L2, CP pairs
-// a read (1.16 TB per 16 x 262144 call at Case4).
-//
-// ---------------------------------------------------------------------------
-// siren_decode_forward_bf16 is the same forward with the JAX kernel's
-// compute_dtype = bfloat16 (_decode_kernel's mxu helper, siren_decode.py:
-// 109-111): both operands of every product (coords x w_first, activations x
+// with the JAX kernel's compute_dtype = bfloat16 (_decode_kernel's mxu
+// helper, siren_decode.py:109-111): both operands of every product (coords x w_first, activations x
 // w_mid[l], activations x w_head) are rounded to bf16, the weights after the
 // w0 / (2*pi) scale, and the products accumulate in float32; the FiLM row,
 // the bias and sin2pi stay float32.
@@ -63,11 +33,10 @@
 // flops each at 67 TFLOP/s); 16 x 262144 pairs take at least 18.8 ms of
 // products and 5.8 ms of sines.
 //
-// Design: siren_fwd_kernel's scheme with mma.sync.m16n8k16.bf16 and an f32
-// accumulator, at every H up to 1024.  A block owns CP pairs (64 up to
-// H = 384, 32 at 448 and 512, 16 from 576 to 1024) and keeps
-// their activations in
-// shared memory as bf16 (the rounding JAX applies at the next product), row
+// Design: mma.sync.m16n8k16.bf16 with an f32 accumulator, at every H up to
+// 1024.  A block owns CP pairs (64 up to H = 384, 32 at 448 and 512, 16
+// from 576 to 1024, siren_tc.cuh::block_pairs) and keeps their activations
+// in shared memory as bf16 (the rounding JAX applies at the next product), row
 // stride H + 8 so that A fragments hit 32 banks.  Eight warps each own H / 8
 // output columns.  The middle weights are rounded to bf16 once a call, in
 // B-fragment order (siren_bf16_frag_kernel: no split, half the bytes of one
@@ -83,9 +52,9 @@
 // launches are bitwise equal.  Every block reads the whole bf16 stream from
 // L2 (4.4 MB at Case4, 0.29 TB per 16 x 262144 call).
 //
-// The dz kernel (the DPS guidance gradient) is the training chain's dz mode
-// and lives with it in siren_decode_bwd.cu; as in JAX it runs in float32
-// whatever the forward's compute dtype.
+// The dz kernel (the DPS guidance gradient) is the cluster chain's dz mode
+// (siren_chain_cluster.cu); as in JAX it runs in float32 whatever the
+// forward's compute dtype.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -96,106 +65,6 @@
 namespace {
 
 using siren::sin2pi;
-
-// ---------------------------------------------------------------------------
-// forward: eight warps over a block's pairs (siren_tc.cuh)
-// ---------------------------------------------------------------------------
-
-size_t fwd_smem_bytes(int H) {
-  using namespace siren_tc;
-  const size_t cp = block_pairs(H);
-  return sizeof(float) * (cp * (H + A_PAD) + 2 * (size_t)kslice_floats(H) + cp * MAX_C) +
-         sizeof(int) * cp;
-}
-
-template <int NT>
-__global__ void __launch_bounds__(siren_tc::THREADS, 1)
-siren_fwd_kernel(const float* __restrict__ coords,
-                 const float* __restrict__ z,
-                 const float* __restrict__ w_first,
-                 const float* __restrict__ wstream,
-                 const float* __restrict__ w_head,
-                 const float* __restrict__ b_head,
-                 float* __restrict__ out,
-                 int T, int M, int C_in, int n_mod, int C_out) {
-  using namespace siren_tc;
-  constexpr int H = NT * 64;
-  constexpr int lda = H + A_PAD;
-  constexpr int CP = block_pairs(H), MT = m_tiles(NT);
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                              // CP x (H + A_PAD) activations
-  float* stage = As + CP * lda;                  // two K-slices
-  float* cs = stage + 2 * kslice_floats(H);      // CP x C_in
-  int* zrow = reinterpret_cast<int*>(cs + CP * MAX_C);  // CP row offsets t * H
-
-  const int tid = threadIdx.x;
-  const long long P = (long long)T * M;
-  const long long p0 = (long long)blockIdx.x * CP;
-  const int u_total = (n_mod - 1) * (H / KROWS);
-  int u = 0;
-  issue_kslice(stage, wstream, 0, u_total, H);
-
-  for (int i = tid; i < CP * C_in; i += THREADS) {
-    const long long q = p0 + i / C_in;
-    cs[i] = q < P ? coords[(q % M) * C_in + i % C_in] : 0.f;
-  }
-  for (int p = tid; p < CP; p += THREADS) {
-    const long long q = p0 + p < P ? p0 + p : P - 1;
-    zrow[p] = (int)(q / M) * H;
-  }
-  __syncthreads();
-
-  float acc[MT][NT][4];
-  // first layer on the CUDA cores: r_0 = coords . w_first + z_0
-  first_layer_frags<NT>(cs, w_first, C_in, H, acc);
-  for (int l = 0; l < n_mod; ++l) {
-    if (l > 0) {
-      chain_product<NT>(As, stage, wstream, u, u_total, H, acc);
-      __syncthreads();  // every warp is done reading As
-    }
-    const float* zl = z + (size_t)l * T * H;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          int row, col;
-          frag_pos<NT>(mt, nt, h, row, col);
-          const float2 zz = *reinterpret_cast<const float2*>(zl + zrow[row] + col);
-          *reinterpret_cast<float2*>(As + row * lda + col) =
-              make_float2(sin2pi(acc[mt][nt][2 * h] + zz.x), sin2pi(acc[mt][nt][2 * h + 1] + zz.y));
-        }
-  }
-  __syncthreads();  // the last activations are complete
-
-  // linear head on the CUDA cores: one warp per (pair, output), lanes
-  // stride over H, then a shuffle tree
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int o_idx = warp; o_idx < CP * C_out; o_idx += THREADS / 32) {
-    const int p = o_idx / C_out, o = o_idx % C_out;
-    float s = 0.f;
-    for (int k = lane; k < H; k += 32) s = fmaf(As[p * lda + k], __ldg(w_head + k * C_out + o), s);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0 && p0 + p < P) out[(p0 + p) * C_out + o] = s + b_head[o];
-  }
-}
-
-template <int NT>
-int launch_fwd(const float* coords, const float* z, const float* w_first, const float* wsplit,
-               const float* w_head, const float* b_head, float* out, int T, int M, int C_in,
-               int n_mod, int C_out, cudaStream_t stream) {
-  static unsigned long long done = 0;
-  const size_t smem = fwd_smem_bytes(NT * 64);
-  cudaError_t err = tf32mma::allow_smem(siren_fwd_kernel<NT>, smem, done);
-  if (err != cudaSuccess) return (int)err;
-  const long long pairs = (long long)T * M, cp = siren_tc::block_pairs(NT * 64);
-  const unsigned int blocks = (unsigned int)((pairs + cp - 1) / cp);
-  siren_fwd_kernel<NT><<<blocks, siren_tc::THREADS, smem, stream>>>(
-      coords, z, w_first, wsplit, w_head, b_head, out, T, M, C_in, n_mod, C_out);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // forward, compute dtype bfloat16: mma.sync.m16n8k16 on bf16 operands
@@ -256,8 +125,9 @@ __device__ __forceinline__ void issue_kslice16(uint2* stage, const uint2* wfrag,
 }
 
 // acc = A (CP x H bf16 in shared memory, row stride H + A_PAD16) . B, B being
-// the H / KS16 slices u .. of the fragment stream; the K-slice protocol of
-// siren_tc::chain_product
+// the H / KS16 slices u .. of the fragment stream.  On entry slice u is in
+// flight into stage buffer u & 1; each slice waits for its copy and a block
+// barrier, then issues the next slice's copy before its products.
 template <int NT>
 __device__ __forceinline__ void bf16_product(const __nv_bfloat16* As, uint2* stage,
                                              const uint2* wfrag, int& u, int u_total,
@@ -439,24 +309,8 @@ int launch_fwd_bf16(const float* coords, const float* z, const float* w_first,
 
 extern "C" {
 
-// the forward's n_mid products only
-int siren_fwd_split(const float* w_mid, float* wsplit, int H, int n_mid, void* stream) {
-  return siren_tc::launch_split(w_mid, wsplit, H, n_mid, n_mid, (cudaStream_t)stream);
-}
-
-int siren_decode_forward(const float* coords, const float* z, const float* w_first,
-                         const float* wsplit, const float* w_head, const float* b_head,
-                         float* out, int T, int M, int C_in, int H, int n_mod, int C_out,
-                         void* stream) {
-  if (!siren_tc::shape_ok(H, n_mod, C_in, C_out) || H > siren_tc::CHAIN_MAX_H || T <= 0 || M <= 0 ||
-      (long long)T * M > 2147483647LL * siren_tc::block_pairs(H) || (long long)T * H > 2147483647LL ||
-      (n_mod > 1 && wsplit == nullptr))
-    return (int)cudaErrorInvalidValue;
-  return siren_tc::with_width<siren_tc::CHAIN_MAX_H>(H, [&](auto nt) {
-    return launch_fwd<decltype(nt)::value>(coords, z, w_first, wsplit, w_head, b_head, out, T,
-                                           M, C_in, n_mod, C_out, (cudaStream_t)stream);
-  });
-}
+// pairs a block of the bf16 forward owns at hidden width H
+int siren_fwd_bf16_pairs(int H) { return siren_tc::block_pairs(H); }
 
 // compute dtype bfloat16: the n_mid middle weights as bf16 B fragments
 int siren_fwd_bf16_frags(const float* w_mid, void* wfrag, int H, int n_mid, void* stream) {

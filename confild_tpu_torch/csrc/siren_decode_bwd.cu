@@ -1,8 +1,10 @@
-// SIREN-FiLM training backward and dz kernels for Hopper (sm_90a): float32
-// results, the hidden-by-hidden matrix products on the tensor cores as
-// 3xTF32.
+// The SIREN-FiLM training backward's reduction, sums and fold for Hopper
+// (sm_90a): float32 results, the hidden-by-hidden matrix products on the
+// tensor cores as 3xTF32.
 //
-// siren_decode_bwd replaces the Pallas kernel _decode_bwd_kernel
+// The training backward (ops/siren_decode.py::decode_bwd: the cluster
+// chain of siren_chain_cluster.cu, then the kernels here) replaces the
+// Pallas kernel _decode_bwd_kernel
 // (confild_tpu/ops/siren_decode.py:434, launched at :523 by
 // fused_siren_decode_bwd): every training cotangent of the decode on the
 // folded operands of siren_decode.cu (w_first, w_mid and z scaled by
@@ -25,44 +27,28 @@
 // Design.  The TPU kernel keeps the 8.8 MB dW_mid accumulator in VMEM across
 // a sequential grid.  Hopper blocks run in no order, so the host walks
 // chunks of Q consecutive (row, point) pairs (p = t * M + m) and runs per
-// chunk a chain kernel, which writes every pre-activation r_l and every
-// dpre_l of the chunk to a global workspace, then the kernels that reduce
-// that workspace over the pair axis.  Every product of two hidden-wide
-// operands is a 3xTF32 mma.sync.m16n8k8 (tf32_mma.cuh): each f32 operand is
-// split into big and small TF32 halves and a product is small*big +
-// big*small + big*big.  The tensor cores truncate their own f32 sums, so a
-// fragment's products of two k8 steps go into a zeroed partial that a
-// float32 add carries into the running sum.  Per call:
+// chunk the chain, which writes every pre-activation r_l and every dpre_l of
+// the chunk to a global workspace, then the kernels here, which reduce that
+// workspace over the pair axis.  Every product of two hidden-wide operands
+// is 3xTF32 on the tensor cores (tf32_mma.cuh): each f32 operand is split
+// into big and small TF32 halves and a product is small*big + big*small +
+// big*big.  The tensor cores truncate their own f32 sums, so a fragment's
+// products of two k8 steps go into a zeroed partial that a float32 add
+// carries into the running sum.  Per call:
 //
-// * siren_split_kernel (siren_tc.cuh, shared with the forward): the middle
-//   weights in the order the chain consumes them (W_1 .. W_{n-1} for the
-//   forward, W_{n-1}^T .. W_1^T for the dx chain), split once into their
-//   halves and laid out as mma.sync B fragments: a lane's four values (big
-//   and small of its two k rows) are one 16-byte load.  35 MB at Case4, read
-//   by every chain block from L2.
-// * siren_bwd_chain_kernel: the training mode of siren_tc.cuh's chain_body,
-//   whose dz mode is the dz kernel below (the same forward recompute and dx
-//   chain, writing per-row sums of dpre instead of D; its product,
-//   chain_product, is the forward's too): a block owns CP = 64
-//   pairs (32 at H = 448 and 512; the M dimension of every product) and
-//   keeps their CP x H activations in shared memory.  Eight warps each own
-//   H / 8 output columns for all CP rows, 96 accumulators a thread at
-//   H = 384 (64 at H = 512).  The weights stream as K-slices of 16 rows
-//   through a two-stage cp.async buffer, one continuous stream
-//   across all 2 (n_mod - 1) products, so the next product's first slice
-//   loads while a layer's epilogue runs.  The activations are split as
-//   their A fragments are loaded.
-//   sin2pi, its derivative, the first layer (C_in columns) and the head
-//   (C_out columns) stay on the CUDA cores in float32.
+// * the chain, siren_chain_cluster.cu's training mode (a thread-block
+//   cluster kernel on wgmma at every width, with its weight preparation):
+//   R[l][q][j] and D[l][q][j], layer stride Qa * H;
 // * siren_bwd_reduce_kernel: dW_mid[l-1] = sin2pi(R_{l-1})^T . D_l as a
-//   3xTF32 GEMM over the pair axis.  A block owns a 128 x 128 output tile of
-//   one layer and one of BWD_SLICES fixed slices of the chunk's pairs (so
-//   each workspace element is read three times at H = 384, and 15 layers x
-//   9 tiles x 16 slices is 16.4 waves of one block an SM on 132 SMs rather
-//   than 1.02).  Steps of 32 pairs arrive by cp.async; each thread applies
-//   sin2pi to its own chunks of R once and splits them.  The partials are
-//   added into a segment sum, zeroed every RSEG steps (512 pairs) and added
-//   by its owner thread to the slice's partial in global memory.
+//   3xTF32 GEMM over the pair axis on mma.sync.m16n8k8.  A block owns a
+//   128 x 128 output tile of one layer and one of BWD_SLICES fixed slices of
+//   the chunk's pairs (so each workspace element is read three times at
+//   H = 384, and 15 layers x 9 tiles x 16 slices is 16.4 waves of one block
+//   an SM on 132 SMs rather than 1.02).  Steps of 32 pairs arrive by
+//   cp.async; each thread applies sin2pi to its own chunks of R once and
+//   splits them.  The partials are added into a segment sum, zeroed every
+//   RSEG steps (512 pairs) and added by its owner thread to the slice's
+//   partial in global memory.
 // * siren_bwd_sums_kernel (CUDA cores, float32: these products have C_in,
 //   C_out or one row as their second dimension, almost no flops): dz row
 //   sums, dW_first and dW_head, per slice, in segments of SSEG pairs within
@@ -71,62 +57,32 @@
 //   at most 4 and MAX_C = 16 otherwise.
 // * siren_bwd_fold_kernel: the slices' partials added in slice order into
 //   the outputs.
-// The chain takes H up to 512; above it siren_chain_cluster.cu's cluster
-// chain writes the same workspace, which the reduction, the sums and the
-// fold here take at every H up to WORKSPACE_MAX_H.
+// The reduction, the sums and the fold take every H up to WORKSPACE_MAX_H.
 //
 // Every partial element has one owner thread, which adds the chunks in
 // order: no atomics, a fixed summation order, bitwise the same result from
 // run to run.
 //
-// What holds it back (tools/siren_bwd_ablation.py, on an H100, cutting one
-// cost at a time): in
-// the chain the mma.sync work is about 40% of the time and the split of A
-// about 11%; the rest is shared-memory fragment loads, the barrier of each
-// K-slice and the layer epilogues, which an mma.sync kernel with one block
-// of eight warps an SM does not overlap.  The reduction spends about 56% in
+// What holds the reduction back (tools/siren_bwd_ablation.py, on an H100,
+// cutting one cost at a time): it spends about 56% of its time in
 // mma.sync.  wgmma (asynchronous, operands from shared memory) is the way
-// past both; TF32 wgmma wants both operands K-major, which the pair-major
-// workspace and the activation tile are not.
+// past it; TF32 wgmma wants both operands K-major, which the pair-major
+// workspace is not.
 //
-// ---------------------------------------------------------------------------
-// siren_decode_dz replaces the Pallas kernel _decode_dz_kernel
-// (confild_tpu/ops/siren_decode.py:315, launched at :393 by
-// fused_siren_decode_dz): dL/dz_l for every layer, (n_mod, T, H), the sum
-// over each row's points of dpre_l.
-//
-// Bound on the H100: operations.  A pair costs the forward recompute and
-// the dx chain, 2 x 2 (n_mod - 1) H^2 flops of products (8.85 MFLOP at
-// Case4), against 24 bytes of coordinates and cotangent; 384 x 1024 pairs
-// take at least 21.1 ms at the tensor cores' 3xTF32 rate.
-//
-// Design: the chain in its dz mode, one block per CP pairs whatever the row
-// length, so a call with few points per row still fills the card.  The
-// weights are split as for the training backward (siren_bwd_split), and the
-// host walks the same chunks of at most BWD_PAIRS pairs, so the workspace is
-// bounded by a chunk, not by T x M.  Per chunk:
-// * siren_dz_chain_kernel: the forward recompute stores every r_l (R, as in
-//   training mode), then the dx chain; after each layer the block sums
-//   dpre_l over its CP pairs in pair order, one sum per latent row they
-//   touch, into its partial parts[block][l][slot][H] (slot: the row less
-//   the row of the block's first pair; siren::dz_slots(M, CP) of them, at
-//   CP = 64 8 when M = 10 and 2 when M >= 64);
-// * siren_dz_fold_kernel (siren_dz_fold.cuh): each (layer, row, column) of
-//   dz adds the partials of the blocks that hold the row, in block order,
-//   to what earlier chunks left there.
-// No atomics: two launches are bitwise equal.
+// dz (siren_decode_dz_cluster, the DPS guidance gradient) is the cluster
+// chain's dz mode with its fold (siren_chain_cluster.cu,
+// siren_dz_fold.cuh); it needs none of the kernels here.
 // ---------------------------------------------------------------------------
 
 #include <stdint.h>
 
 #include "siren_common.cuh"
-#include "siren_dz_fold.cuh"
 #include "siren_tc.cuh"
 
 namespace {
 
 using siren::sin2pi;
-using namespace siren_tc;  // THREADS (every kernel but the sums), block_pairs, MAX_C
+using namespace siren_tc;  // THREADS (every kernel but the sums), MAX_C
 
 // the widest H of the workspace that the reduction, the sums and the fold
 // take (the cluster chain's, siren_chain_cluster.cu)
@@ -154,48 +110,6 @@ __host__ __device__ inline int slice_len(int Q, int slices) {
 inline bool workspace_ok(int H, int n_mod, int C_in, int C_out) {
   return H > 0 && H % 64 == 0 && H <= WORKSPACE_MAX_H && n_mod >= 1 && C_in >= 1 &&
          C_in <= MAX_C && C_out >= 1 && C_out <= MAX_C;
-}
-
-// ---------------------------------------------------------------------------
-// chain
-// ---------------------------------------------------------------------------
-
-// Workspace: R[l][q][j] and D[l][q][j], layer stride Qa * H (the chain's
-// training mode, siren_tc.cuh)
-template <int NT>
-__global__ void __launch_bounds__(THREADS, 1)
-siren_bwd_chain_kernel(const float* __restrict__ coords,
-                       const float* __restrict__ z,
-                       const float* __restrict__ g,
-                       const float* __restrict__ w_first,
-                       const float* __restrict__ wstream,
-                       const float* __restrict__ w_head,
-                       float* __restrict__ R,
-                       float* __restrict__ D,
-                       long long p0, int Q, int Qa, int T, int M, int C_in,
-                       int n_mod, int C_out) {
-  extern __shared__ __align__(16) float smem[];
-  chain_body<NT, false>(smem, coords, z, g, w_first, wstream, w_head, R, D, p0, Q, Qa, T, M,
-                        C_in, n_mod, C_out, 0);
-}
-
-// Workspace: R as above and the blocks' partials parts[block][l][slot][j]
-// (the chain's dz mode)
-template <int NT>
-__global__ void __launch_bounds__(THREADS, 1)
-siren_dz_chain_kernel(const float* __restrict__ coords,
-                      const float* __restrict__ z,
-                      const float* __restrict__ g,
-                      const float* __restrict__ w_first,
-                      const float* __restrict__ wstream,
-                      const float* __restrict__ w_head,
-                      float* __restrict__ R,
-                      float* __restrict__ parts,
-                      long long p0, int Q, int Qa, int T, int M, int C_in,
-                      int n_mod, int C_out) {
-  extern __shared__ __align__(16) float smem[];
-  chain_body<NT, true>(smem, coords, z, g, w_first, wstream, w_head, R, parts, p0, Q, Qa, T, M,
-                       C_in, n_mod, C_out, siren::dz_slots(M, block_pairs(NT * 64)));
 }
 
 // ---------------------------------------------------------------------------
@@ -492,63 +406,9 @@ siren_bwd_fold_kernel(const float* __restrict__ parts, float* __restrict__ out, 
   }
 }
 
-// the chain over a chunk of Q pairs, one block per block_pairs(H) pairs: training mode
-// (DZ_MODE false) writes D into out, dz mode the blocks' partials
-template <int NT, bool DZ_MODE>
-int launch_chain(const float* coords, const float* z, const float* g, const float* w_first,
-                 const float* wsplit, const float* w_head, float* R, float* out, long long p0,
-                 int Q, int Qa, int T, int M, int C_in, int n_mod, int C_out,
-                 cudaStream_t stream) {
-  static unsigned long long done = 0;
-  const auto kernel = DZ_MODE ? siren_dz_chain_kernel<NT> : siren_bwd_chain_kernel<NT>;
-  const size_t smem = chain_smem_bytes(NT * 64);
-  cudaError_t err = allow_smem(kernel, smem, done);
-  if (err != cudaSuccess) return (int)err;
-  constexpr int cp = block_pairs(NT * 64);
-  const unsigned int blocks = (unsigned int)((Q + cp - 1) / cp);
-  kernel<<<blocks, THREADS, smem, stream>>>(coords, z, g, w_first, wsplit, w_head, R, out, p0,
-                                            Q, Qa, T, M, C_in, n_mod, C_out);
-  return (int)cudaGetLastError();
-}
-
-// the width's instantiation of launch_chain
-template <bool DZ_MODE>
-int chain(const float* coords, const float* z, const float* g, const float* w_first,
-          const float* wsplit, const float* w_head, float* R, float* out, long long p0, int Q,
-          int Qa, int T, int M, int C_in, int H, int n_mod, int C_out, cudaStream_t stream) {
-  return with_width<CHAIN_MAX_H>(H, [&](auto nt) {
-    return launch_chain<decltype(nt)::value, DZ_MODE>(coords, z, g, w_first, wsplit, w_head, R,
-                                                      out, p0, Q, Qa, T, M, C_in, n_mod, C_out,
-                                                      stream);
-  });
-}
-
 }  // namespace
 
 extern "C" {
-
-// pairs a chain block owns at hidden width H: a chunk's workspace is
-// padded to a multiple of it
-int siren_bwd_tile_pairs(int H) { return block_pairs(H); }
-
-// dynamic shared memory of a chain block at hidden width H, in bytes
-long long siren_bwd_chain_smem(int H) { return (long long)chain_smem_bytes(H); }
-
-// the forward's and the dx chain's products: 2 n_mid
-int siren_bwd_split(const float* w_mid, float* wsplit, int H, int n_mid, void* stream) {
-  return launch_split(w_mid, wsplit, H, n_mid, 2 * n_mid, (cudaStream_t)stream);
-}
-
-int siren_bwd_chain(const float* coords, const float* z, const float* g, const float* w_first,
-                    const float* wsplit, const float* w_head, float* R, float* D, long long p0,
-                    int Q, int Qa, int T, int M, int C_in, int H, int n_mod, int C_out,
-                    void* stream) {
-  if (!shape_ok(H, n_mod, C_in, C_out) || T <= 0 || M <= 0 || Q <= 0 || Qa < Q ||
-      Qa % block_pairs(H) != 0 || (n_mod > 1 && wsplit == nullptr))
-    return (int)cudaErrorInvalidValue;
-  return chain<false>(coords, z, g, w_first, wsplit, w_head, R, D, p0, Q, Qa, T, M, C_in, H,
-                      n_mod, C_out, (cudaStream_t)stream);
-}
 
 int siren_bwd_reduce(const float* R, const float* D, float* parts, long long E,
                      long long dwmid_off, int Q, int Qa, int H, int n_mod, int slices,
@@ -588,29 +448,6 @@ int siren_bwd_fold(const float* parts, float* out, long long E, int slices, void
   const unsigned int blocks = (unsigned int)(want < 4096 ? want : 4096);
   siren_bwd_fold_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(parts, out, E, slices);
   return (int)cudaGetLastError();
-}
-
-int siren_dz_slots(int M, int H) {
-  return M > 0 && H > 0 ? siren::dz_slots(M, block_pairs(H)) : 0;
-}
-
-// One chunk of dz: the pairs p0 .. p0 + Q - 1, with R (n_mod, Qa, H) and
-// parts (Qa / siren_bwd_tile_pairs(H), n_mod, siren_dz_slots(M, H), H) its
-// workspace; the chain,
-// then the fold into dz (zeroed before the first chunk).
-int siren_decode_dz(const float* coords, const float* z, const float* g, const float* w_first,
-                    const float* wsplit, const float* w_head, float* R, float* parts, float* dz,
-                    long long p0, int Q, int Qa, int T, int M, int C_in, int H, int n_mod,
-                    int C_out, void* stream) {
-  if (!shape_ok(H, n_mod, C_in, C_out) || T <= 0 || M <= 0 || Q <= 0 || Qa < Q ||
-      Qa % block_pairs(H) != 0 || p0 < 0 || p0 + Q > (long long)T * M ||
-      (long long)T * H > 2147483647LL || (n_mod > 1 && wsplit == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int err = chain<true>(coords, z, g, w_first, wsplit, w_head, R, parts, p0, Q, Qa, T, M,
-                              C_in, H, n_mod, C_out, s);
-  if (err != 0) return err;
-  return siren::launch_dz_fold(parts, dz, p0, Q, T, M, H, n_mod, block_pairs(H), s);
 }
 
 }  // extern "C"

@@ -1,6 +1,5 @@
-// dz's row slots and the fold of its per-unit row sums, shared by the two dz
-// kernels: siren_decode_bwd.cu's chain (a unit is a block of block_pairs(H)
-// pairs) and siren_chain_cluster.cu's (a unit is a cluster of P pairs).
+// dz's row slots and the fold of its per-unit row sums, for the cluster
+// chain's dz mode (siren_chain_cluster.cu: a unit is a cluster of P pairs).
 // A unit sums dpre_l over its pairs in pair order, one sum per latent row
 // it touches, into its partial parts[unit][l][slot][H] (slot: the row less
 // the row of the unit's first pair); the fold adds each row's partials in
@@ -22,8 +21,8 @@ __host__ __device__ inline int dz_slots(int M, int cp) {
 constexpr int FOLD_THREADS = 256;
 
 // One thread per (layer, row of the chunk, column): dz += the partials
-// parts[unit][l][slot][H] of the chunk's units of cp pairs (a chain block, or
-// a cluster) that hold the row, in unit order.
+// parts[unit][l][slot][H] of the chunk's units of cp pairs (clusters) that
+// hold the row, in unit order.
 __global__ void __launch_bounds__(FOLD_THREADS)
 siren_dz_fold_kernel(const float* __restrict__ parts, float* __restrict__ dz, long long p0,
                      int Q, int T, int M, int H, int n_mod, int cp) {

@@ -1,15 +1,15 @@
-// The float32 SIREN-FiLM decode forward for hidden widths above 512, as a
-// thread-block cluster kernel for Hopper (sm_90a): wgmma on the tensor cores
-// (3xTF32), the weights streamed by bulk asynchronous copies into a ring of
-// shared-memory stages, the activations spread over the cluster's blocks and
-// read through distributed shared memory.
+// The float32 SIREN-FiLM decode forward, as a thread-block cluster kernel
+// for Hopper (sm_90a): wgmma on the tensor cores (3xTF32), the weights
+// streamed by bulk asynchronous copies into a ring of shared-memory stages,
+// the activations spread over the cluster's blocks and read through
+// distributed shared memory.
 //
 // siren_decode_forward_cluster replaces the Pallas kernel _decode_kernel
 // (confild_tpu/ops/siren_decode.py:96, launched at :177 by _fused_forward)
-// in float32 at H > 512; siren_decode.cu keeps H <= 512 and every bf16
-// forward.  Operands as siren_decode.cu takes them, folded by the wrapper
-// (confild_tpu_torch/ops/siren_decode.py): the first and middle weights and
-// the FiLM table z scaled by w0 / (2 pi), so the activation is
+// in float32 at every hidden width up to 3072; siren_decode.cu keeps the
+// bf16 forward.  Operands as siren_decode.cu takes them, folded by the
+// wrapper (confild_tpu_torch/ops/siren_decode.py): the first and middle
+// weights and the FiLM table z scaled by w0 / (2 pi), so the activation is
 // sin2pi(r) = sin(2 pi r), the JAX package's odd minimax polynomial.
 //   coords  (M, C_in)        z (n_mod, T, H)       w_first (C_in, H)
 //   wprep   the middle weights (n_mod - 1, H, H) split into TF32 halves and
@@ -20,17 +20,20 @@
 // Bound on the H100: operations.  A (row, point) pair costs 2 H (C_in +
 // (n_mod - 1) H + C_out) flops, the (n_mod - 1) H x H products on the tensor
 // cores at the dense TF32 rate over three products each (495 / 3 TFLOP/s):
-// 4 x 262144 pairs at 16 modulated layers of 1024 take at least 200 ms.
-// A design of blocks that each hold their pairs' full activation rows (16
-// pairs at H = 1024) is bound instead by its L2 weight stream: every block
-// rereads the whole split stream, 8.25 TB a call at that shape.
+// 4 x 262144 pairs at 16 modulated layers of 1024 take at least 200 ms, 16 x
+// 262144 at Case4 (16 of 384) 112.6 ms.  A design of blocks that each hold
+// their pairs' full activation rows (16 pairs at H = 1024, 64 at Case4) is
+// bound instead by its L2 weight stream: every block rereads the whole split
+// stream, 8.25 TB a call at the first shape, 1.16 TB at the second (the
+// mma.sync forward this kernel replaced at H <= 512 ran at that stream's
+// rate, 343 ms at Case4).
 //
 // Design.  A cluster of CL blocks owns P = 64 MT consecutive pairs, p = t M
 // + m (MT m64 tiles: 128 pairs up to H = 2048, 64 above).  Block b owns
 // columns [b S, (b + 1) S) of every layer's output and keeps only that share
 // of the P x H activations in shared memory, so no block ever holds a full
 // activation row and the weight stream is read once per cluster, not once
-// per block: 1.03 TB at the shape above.
+// per block: 1.03 TB at the first shape above, 0.58 TB at Case4.
 //   The weights stream as the blocks' stage images (the preparation, one
 //   bulk copy a K-slice), the activations are read from the owner blocks
 //   through distributed shared memory, and two consumer warpgroups run

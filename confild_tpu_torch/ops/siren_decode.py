@@ -10,17 +10,13 @@ polynomial.
 
 Kernels:
 
-* ``siren_decode_forward`` (``csrc/siren_decode.cu``) replaces
-  ``_decode_kernel`` at H <= 512: the full forward, its hidden-by-hidden
-  products on the tensor cores, as two launches per call (the middle
-  weights split into TF32 halves, then the forward).
 * ``siren_decode_forward_cluster`` (``csrc/siren_fwd_cluster.cu``)
-  replaces ``_decode_kernel`` in float32 above H = 512: a thread-block
-  cluster splits every layer's output columns over its blocks (``wgmma``,
-  the weights streamed by bulk asynchronous copies, the activations read
-  through distributed shared memory), as two launches per call (the
-  middle weights split into TF32 halves and laid out as the blocks' stage
-  images, :func:`cluster_weight_layout`, then the forward).
+  replaces ``_decode_kernel`` in float32 at every hidden width: a
+  thread-block cluster splits every layer's output columns over its blocks
+  (``wgmma``, the weights streamed by bulk asynchronous copies, the
+  activations read through distributed shared memory), as two launches per
+  call (the middle weights split into TF32 halves and laid out as the
+  blocks' stage images, :func:`cluster_weight_layout`, then the forward).
 * ``siren_decode_forward_bf16`` (``csrc/siren_decode.cu``) replaces
   ``_decode_kernel`` with ``compute_dtype=jnp.bfloat16``: every product's
   operands rounded to bfloat16 (the weights after the ``w0 / (2*pi)``
@@ -28,24 +24,22 @@ Kernels:
   launches per call (the middle weights rounded to bfloat16 fragments,
   then the forward).  As in JAX, the backward kernels stay float32
   whatever the forward's ``compute_dtype``.
-* ``siren_decode_dz`` (``csrc/siren_decode_bwd.cu``) replaces
-  ``_decode_dz_kernel`` at H <= 512: ``dL/dz`` for every layer, from which
-  ``dL/dlatents`` is two small matmuls.  It is the training backward's
-  chain in a dz mode (the weights split once a call, then per chunk of
-  ``BWD_PAIRS`` pairs the chain and the fold of its per-block row sums).
-* ``siren_decode_bwd`` (``csrc/siren_decode_bwd.cu``) replaces
-  ``_decode_bwd_kernel`` at H <= 512: every training cotangent (``dz`` and
-  the weight gradients of the first, middle and head layers): per chunk of
-  ``BWD_PAIRS`` pairs the chain, which writes every pre-activation and
-  dpre to a workspace, then the reduction and the sums of that workspace;
-  the fold of their partials at the end.
-* ``siren_decode_dz_cluster`` and ``siren_decode_bwd_cluster``
-  (``csrc/siren_chain_cluster.cu``) replace them above H = 512: the chain
-  as a thread-block cluster kernel, in its dz mode and its training mode,
-  on the cluster forward's machinery (``csrc/siren_cluster.cuh``); its
-  weight preparation lays out the forward's products and the dx chain's
-  transposed ones (:func:`cluster_chain_weight_layout`).  The training
-  mode's workspace goes through the same reduction, sums and fold.
+* ``siren_decode_dz_cluster`` (``csrc/siren_chain_cluster.cu``) replaces
+  ``_decode_dz_kernel``: ``dL/dz`` for every layer, from which
+  ``dL/dlatents`` is two small matmuls.  It is the chain (a forward
+  recompute, then the dx chain) as a thread-block cluster kernel on the
+  cluster forward's machinery (``csrc/siren_cluster.cuh``) in its dz mode:
+  the weights prepared once a call (the forward's products and the dx
+  chain's transposed ones, :func:`cluster_chain_weight_layout`), then per
+  chunk of ``BWD_PAIRS`` pairs the chain and the fold of its per-cluster
+  row sums.
+* The training backward replaces ``_decode_bwd_kernel``: every training
+  cotangent (``dz`` and the weight gradients of the first, middle and head
+  layers): per chunk of ``BWD_PAIRS`` pairs the same cluster chain in its
+  training mode (``siren_bwd_chain_cluster``), which writes every
+  pre-activation and dpre to a workspace, then the reduction and the sums
+  of that workspace (``csrc/siren_decode_bwd.cu``); the fold of their
+  partials at the end.
 
 As in the JAX package, the FiLM table and the folding stay outside the
 kernels: the autograd functions take the folded operands, and autograd
@@ -53,21 +47,21 @@ chains ``dz`` back through :func:`film_table` and :func:`stack_weights`
 to the latents, ``net2`` and the biases, undoing the scale.
 
 Each kernel family has its own widest hidden layer (``MAX_HIDDEN``): the
-float32 forward, dz and the training backward 3072 (a block owns 64 pairs
-up to 384 and 32 at 448 and 512, ``csrc/siren_tc.cuh``; above 512 a
-cluster of up to 8 blocks, :func:`cluster_plan`), the bf16 forward 1024
-(16 pairs a block above 512); all take at most 16 input and output
-features.  A
-hidden width is zero-padded to the kernel's width (the next multiple of 64,
-or the cluster plan's width, :func:`kernel_hidden_width`,
-:func:`pad_hidden`), which is exact: a padded unit has zero weights, bias
+float32 forward, dz and the training backward 3072 (a cluster of up to 8
+blocks, :func:`cluster_plan`), the bf16 forward 1024 (a block owns 64
+pairs up to 384, 32 at 448 and 512 and 16 above, ``csrc/siren_tc.cuh``);
+all take at most 16 input and output features.  A hidden width is
+zero-padded to the kernel's width (the cluster plan's width, up to 512
+one of 128, 192, 256, 384 and 512, or for the bf16 forward the next
+multiple of 64, :func:`kernel_hidden_width`, :func:`pad_hidden`), which is
+exact: a padded unit has zero weights, bias
 and FiLM column, so its pre-activation is 0, ``sin2pi(0) = 0``, and the
 next layer's zero rows ignore it.
 
 Each kernel has a plain PyTorch version beside it that repeats its
 arithmetic.  A wrapper takes the plain version only for CPU tensors; for
 CUDA tensors it launches its kernel or raises.  ``LAUNCHES`` counts kernel
-launches (plain-version calls are not counted).
+launches (plain-version calls are not counted), one key a family.
 """
 
 from __future__ import annotations
@@ -94,23 +88,18 @@ _SIN2PI_COEFFS = (
     -12.271581478633225,
 )
 
-LAUNCHES = {"siren_decode_forward": 0, "siren_decode_forward_cluster": 0,
-            "siren_decode_forward_bf16": 0, "siren_decode_dz": 0, "siren_decode_bwd": 0,
-            "siren_decode_dz_cluster": 0, "siren_decode_bwd_cluster": 0}
+LAUNCHES = {"siren_decode_forward": 0, "siren_decode_forward_bf16": 0,
+            "siren_decode_dz": 0, "siren_decode_bwd": 0}
 # the forward's compute dtypes (the JAX kernel's ``compute_dtype``)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
-# each kernel family's widest hidden layer (csrc/siren_tc.cuh::shape_ok;
-# the float32 families above NARROW_HIDDEN: csrc/siren_fwd_cluster.cu,
-# csrc/siren_chain_cluster.cu) and the widest C_in, C_out of all of them
+# each kernel family's widest hidden layer (the float32 families' cluster
+# plan, csrc/siren_cluster.cuh::plan_for; the bf16 forward's
+# csrc/siren_tc.cuh::shape_ok) and the widest C_in, C_out of all of them
 FAMILIES = {"forward": "float32 forward", "forward_bf16": "bfloat16 forward",
             "dz": "dz", "bwd": "training backward"}
 MAX_HIDDEN = {"forward": 3072, "forward_bf16": 1024, "dz": 3072, "bwd": 3072}
 MAX_FEATURES = 16
-# the widest H of the float32 forward on siren_decode.cu's kernel and of dz
-# and the training backward on siren_decode_bwd.cu's chain; wider is the
-# cluster kernels'
-NARROW_HIDDEN = 512
-# the families that run on a cluster kernel above NARROW_HIDDEN
+# the families that run on the cluster kernels, at every width
 CLUSTER_FAMILIES = ("forward", "dz", "bwd")
 
 # pairs per chunk of the training backward, whatever the width: its
@@ -223,12 +212,13 @@ def _check_cuda(device: torch.device, **tensors: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the float32 forward above NARROW_HIDDEN: the cluster plan and the weights'
-# stage images (csrc/siren_fwd_cluster.cu)
+# the float32 kernels' cluster plan and the weights' stage images
+# (csrc/siren_cluster.cuh)
 # ---------------------------------------------------------------------------
 
-# (S, MT) of the cluster kernel's instantiations: S columns a block, MT m64
-# tiles (64 pairs each) a cluster
+# (S, MT) of the cluster kernels' instantiations: S columns a block, MT m64
+# tiles (64 pairs each) a cluster (csrc/siren_cluster.cuh::CONFIGS; up to
+# 512 a width pads to 128, 192, 256, 384 or 512)
 CLUSTER_CONFIGS = ((128, 2), (192, 2), (256, 2), (384, 1))
 CLUSTER_MAX_BLOCKS = 8         # the largest portable cluster
 CLUSTER_KSLICE = 16            # weight rows a stage holds
@@ -271,7 +261,7 @@ class ClusterPlan(NamedTuple):
 
 
 def cluster_plan(h: int) -> ClusterPlan:
-    """The cluster for hidden width ``h`` (``csrc/siren_fwd_cluster.cu::
+    """The cluster for hidden width ``h`` (``csrc/siren_cluster.cuh::
     plan_for``): the smallest padded width ``blocks * share >= h`` with at
     most ``CLUSTER_MAX_BLOCKS`` blocks; ties go to more pairs a cluster,
     then to fewer blocks."""
@@ -316,16 +306,17 @@ def cluster_chain_weight_layout(w_mid: torch.Tensor, share: int) -> torch.Tensor
 
 def kernel_hidden_width(h: int, c_in: int, c_out: int, family: str) -> int:
     """The hidden width the ``family`` kernel (a key of ``FAMILIES``) runs
-    a decoder of ``h`` units at: the next multiple of 64, or above
-    ``NARROW_HIDDEN`` for the float32 families (``CLUSTER_FAMILIES``) the
-    cluster plan's width.  Raises beyond the family's limits."""
+    a decoder of ``h`` units at: for the float32 families
+    (``CLUSTER_FAMILIES``) the cluster plan's width (up to 512 one of 128,
+    192, 256, 384 and 512), for the bf16 forward the next multiple of 64.
+    Raises beyond the family's limits."""
     limit = MAX_HIDDEN[family]
     if h > limit or c_in > MAX_FEATURES or c_out > MAX_FEATURES:
         raise ValueError(
             f"the CUDA SIREN {FAMILIES[family]} kernel takes a hidden width of at most {limit} "
             f"(zero-padded to its kernel width) and at most {MAX_FEATURES} input and output "
             f"features, got {h}, {c_in}, {c_out}")
-    if family in CLUSTER_FAMILIES and h > NARROW_HIDDEN:
+    if family in CLUSTER_FAMILIES:
         return cluster_plan(h).width
     return -(-h // 64) * 64
 
@@ -366,12 +357,11 @@ def padded_bwd(bwd_fn, coords, z, g, w_first, w_mid, w_head, width: int):
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    """The built kernels with their C signatures declared."""
+    """The built bf16 forward with its C signatures declared."""
     lib = cuda_build.load("siren_decode")
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, args in (
-            ("siren_fwd_split", [p, p, i, i, p]),
-            ("siren_decode_forward", [p] * 7 + [i] * 6 + [p]),
+            ("siren_fwd_bf16_pairs", [i]),
             ("siren_fwd_bf16_frags", [p, p, i, i, p]),
             ("siren_decode_forward_bf16", [p] * 7 + [i] * 6 + [p])):
         getattr(lib, name).argtypes = args
@@ -381,22 +371,16 @@ def _library() -> ctypes.CDLL:
 
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
-    """The built training-backward and dz kernels with their C signatures."""
+    """The built training backward's reduction, sums and fold with their C
+    signatures."""
     lib = cuda_build.load("siren_decode_bwd")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, args in (
-            ("siren_bwd_split", [p, p, i, i, p]),
-            ("siren_bwd_chain", [p] * 8 + [ll] + [i] * 8 + [p]),
             ("siren_bwd_reduce", [p] * 3 + [ll, ll] + [i] * 5 + [p]),
             ("siren_bwd_sums", [p] * 5 + [ll] * 4 + [i] * 9 + [p]),
-            ("siren_bwd_fold", [p, p, ll, i, p]),
-            ("siren_bwd_tile_pairs", [i]),
-            ("siren_bwd_chain_smem", [i]),
-            ("siren_dz_slots", [i, i]),
-            ("siren_decode_dz", [p] * 9 + [ll] + [i] * 8 + [p])):
+            ("siren_bwd_fold", [p, p, ll, i, p])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i
-    lib.siren_bwd_chain_smem.restype = ll
     return lib
 
 
@@ -481,15 +465,14 @@ def _device_index(dev: torch.device) -> int:
 
 
 def _launch_forward_cluster(coords, z, w_first, w_mid, w_head, b_head):
-    """Launches of the float32 forward above ``NARROW_HIDDEN`` on operands
-    of the cluster plan's width: the weights' stage images, then the
-    forward."""
+    """Launches of the float32 forward on operands of the cluster plan's
+    width: the weights' stage images, then the forward."""
     lib = _cluster_library()
     dev = coords.device
     n_mod, t, h = z.shape
     m, c_in = coords.shape
     c_out = w_head.shape[1]
-    name = "siren_decode_forward_cluster"
+    name = "siren_decode_forward"
     out = torch.empty((t, m, c_out), device=dev, dtype=torch.float32)
     if t == 0 or m == 0:
         return out
@@ -512,18 +495,17 @@ def _launch_forward_cluster(coords, z, w_first, w_mid, w_head, b_head):
 
 
 def _launch_forward(coords, z, w_first, w_mid, w_head, b_head, compute_dtype):
-    """Launches on operands of a kernel width: the weights' preparation
-    (the TF32 split, or the bf16 fragments), then the forward; the float32
-    forward above ``NARROW_HIDDEN`` is the cluster kernel's."""
-    n_mod, t, h = z.shape
-    bf16 = compute_dtype == torch.bfloat16
-    if not bf16 and h > NARROW_HIDDEN:
+    """Launches on operands of a kernel width: the float32 forward is the
+    cluster kernel's (:func:`_launch_forward_cluster`); the bf16 forward
+    rounds the middle weights into bf16 fragments, then runs."""
+    if compute_dtype != torch.bfloat16:
         return _launch_forward_cluster(coords, z, w_first, w_mid, w_head, b_head)
     lib = _library()
     dev = coords.device
+    n_mod, t, h = z.shape
     m, c_in = coords.shape
     c_out = w_head.shape[1]
-    name = "siren_decode_forward_bf16" if bf16 else "siren_decode_forward"
+    name = "siren_decode_forward_bf16"
     out = torch.empty((t, m, c_out), device=dev, dtype=torch.float32)
     if t == 0 or m == 0:
         return out
@@ -531,15 +513,11 @@ def _launch_forward(coords, z, w_first, w_mid, w_head, b_head, compute_dtype):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         wprep = None
         if n_mod > 1:
-            if bf16:
-                wprep = torch.empty((n_mod - 1, h, h), device=dev, dtype=torch.bfloat16)
-                err = lib.siren_fwd_bf16_frags(_ptr(w_mid), _ptr(wprep), h, n_mod - 1, stream)
-            else:
-                wprep = torch.empty((n_mod - 1, 2, h, h), device=dev, dtype=torch.float32)
-                err = lib.siren_fwd_split(_ptr(w_mid), _ptr(wprep), h, n_mod - 1, stream)
-            _raise_on(err, f"{name} weight preparation launch")
+            wprep = torch.empty((n_mod - 1, h, h), device=dev, dtype=torch.bfloat16)
+            _raise_on(lib.siren_fwd_bf16_frags(_ptr(w_mid), _ptr(wprep), h, n_mod - 1, stream),
+                      f"{name} weight preparation launch")
             LAUNCHES[name] += 1
-        err = getattr(lib, name)(
+        err = lib.siren_decode_forward_bf16(
             _ptr(coords), _ptr(z), _ptr(w_first),
             _ptr(wprep) if wprep is not None else None, _ptr(w_head), _ptr(b_head),
             _ptr(out), t, m, c_in, h, n_mod, c_out, stream)
@@ -553,14 +531,14 @@ def decode_forward(coords, z, w_first, w_mid, w_head, b_head,
     """Fused forward on folded operands: ``(T, M, C_out)``.
 
     CPU tensors take :func:`decode_forward_plain`.  CUDA tensors launch, on
-    operands padded to the kernel's hidden width, ``siren_decode_forward``
-    for ``compute_dtype`` float32 up to ``NARROW_HIDDEN`` (the middle
-    weights split once into TF32 halves, then the 3xTF32 tensor-core
-    forward) and ``siren_decode_forward_cluster`` above it
-    (``csrc/siren_fwd_cluster.cu``), or ``siren_decode_forward_bf16`` for
-    bfloat16 (the middle weights rounded once into bfloat16 fragments, then
-    the bf16 tensor-core forward), ``csrc/siren_decode.cu``; any other
-    ``compute_dtype`` raises.  The operands are float32 in both modes."""
+    operands padded to the kernel's hidden width,
+    ``siren_decode_forward_cluster`` for ``compute_dtype`` float32
+    (``csrc/siren_fwd_cluster.cu``: the middle weights split once into TF32
+    halves as the blocks' stage images, then the 3xTF32 cluster forward), or
+    ``siren_decode_forward_bf16`` for bfloat16 (``csrc/siren_decode.cu``:
+    the middle weights rounded once into bfloat16 fragments, then the bf16
+    tensor-core forward); any other ``compute_dtype`` raises.  The operands
+    are float32 in both modes."""
     _operand_rounding(compute_dtype)
     if coords.device.type == "cpu":
         return decode_forward_plain(coords, z, w_first, w_mid, w_head, b_head, compute_dtype)
@@ -607,26 +585,20 @@ def pair_chunks(pairs: int, chunk: int) -> list[tuple[int, int]]:
 
 def _chain_setup(w_mid, pairs, stream, counter):
     """What the dz and training-backward wrappers set up alike for the
-    chain: the middle weights prepared once, the forward's products then
-    the dx chain's (one launch, counted under ``counter``), the pairs a
-    block (or above ``NARROW_HIDDEN`` a cluster) owns, the padded length
-    ``qa`` of a chunk's workspace, a multiple of them, and the chunks
-    ``(p0, q)`` of at most ``BWD_PAIRS`` pairs.  Up to ``NARROW_HIDDEN``
-    the preparation is the TF32 split in B-fragment order
-    (``csrc/siren_decode_bwd.cu``), above it the blocks' stage images
-    (``csrc/siren_chain_cluster.cu``, :func:`cluster_chain_weight_layout`)."""
+    cluster chain: the middle weights prepared once as the blocks' stage
+    images, the forward's products then the dx chain's (one launch, counted
+    under ``counter``; ``csrc/siren_chain_cluster.cu``,
+    :func:`cluster_chain_weight_layout`), the pairs a cluster owns, the
+    padded length ``qa`` of a chunk's workspace, a multiple of them, and the
+    chunks ``(p0, q)`` of at most ``BWD_PAIRS`` pairs."""
     n_mid, h = w_mid.shape[0], w_mid.shape[2]
-    wide = h > NARROW_HIDDEN
     wprep = torch.empty((max(n_mid, 1), 4, h, h), device=w_mid.device, dtype=torch.float32)
     if n_mid:
-        if wide:
-            err = _chain_cluster_library().siren_chain_cluster_prep(_ptr(w_mid), _ptr(wprep), h,
-                                                                    n_mid, stream)
-        else:
-            err = _bwd_library().siren_bwd_split(_ptr(w_mid), _ptr(wprep), h, n_mid, stream)
-        _raise_on(err, f"{counter} weight preparation launch")
+        _raise_on(_chain_cluster_library().siren_chain_cluster_prep(_ptr(w_mid), _ptr(wprep), h,
+                                                                   n_mid, stream),
+                  f"{counter} weight preparation launch")
         LAUNCHES[counter] += 1
-    tile = cluster_plan(h).pairs if wide else _bwd_library().siren_bwd_tile_pairs(h)
+    tile = cluster_plan(h).pairs
     chunk = min(pairs, BWD_PAIRS)
     return wprep, tile, -(-chunk // tile) * tile, pair_chunks(pairs, chunk)
 
@@ -635,14 +607,13 @@ def decode_dz(coords, z, g, w_first, w_mid, w_head) -> torch.Tensor:
     """``dL/dz`` on folded operands, ``(n_mod, T, H)``.
 
     CPU tensors take :func:`decode_dz_plain`; CUDA tensors launch, on
-    operands padded to the kernels' hidden width, ``siren_decode_dz`` up to
-    ``NARROW_HIDDEN`` (``csrc/siren_decode_bwd.cu``) and
-    ``siren_decode_dz_cluster`` above it (``csrc/siren_chain_cluster.cu``):
-    the middle weights prepared once (the forward's products and the dx
+    operands padded to the kernels' hidden width,
+    ``siren_decode_dz_cluster`` (``csrc/siren_chain_cluster.cu``): the
+    middle weights prepared once (the forward's products and the dx
     chain's), then per chunk of ``BWD_PAIRS`` (row, point) pairs the
-    tensor-core chain in its dz mode and the fold of its per-block (or
-    per-cluster) row sums into ``dz``.  The workspace is one chunk's
-    pre-activations and partials, whatever ``T x M``."""
+    cluster chain in its dz mode and the fold of its per-cluster row sums
+    into ``dz``.  The workspace is one chunk's pre-activations and
+    partials, whatever ``T x M``."""
     if coords.device.type == "cpu":
         return decode_dz_plain(coords, z, g, w_first, w_mid, w_head)
     _, width = _operands("dz", coords, z, w_first, w_mid, w_head, g=g)
@@ -660,14 +631,9 @@ def _launch_dz(coords, z, g, w_first, w_mid, w_head) -> torch.Tensor:
     pairs = t * m
     if pairs == 0:
         return dz
-    wide = h > NARROW_HIDDEN
-    if wide:
-        name, lib = "siren_decode_dz_cluster", _chain_cluster_library()
-        cluster_capacity(_device_index(dev), h, c_in, c_out, "dz")
-        launch, slots = lib.siren_decode_dz_cluster, lib.siren_dz_cluster_slots(m, h)
-    else:
-        name, lib = "siren_decode_dz", _bwd_library()
-        launch, slots = lib.siren_decode_dz, lib.siren_dz_slots(m, h)
+    name, lib = "siren_decode_dz", _chain_cluster_library()
+    cluster_capacity(_device_index(dev), h, c_in, c_out, "dz")
+    launch, slots = lib.siren_decode_dz_cluster, lib.siren_dz_cluster_slots(m, h)
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         wprep, tile, qa, chunks = _chain_setup(w_mid, pairs, stream, name)
@@ -712,13 +678,11 @@ def decode_bwd(coords, z, g, w_first, w_mid, w_head):
     dw_head)``.
 
     CPU tensors take :func:`decode_bwd_plain`; CUDA tensors launch, on
-    operands padded to the kernels' hidden width, ``siren_decode_bwd`` up
-    to ``NARROW_HIDDEN`` and ``siren_decode_bwd_cluster`` above it: the
-    weights prepared once, then per chunk of ``BWD_PAIRS`` (row, point)
-    pairs the chain (``csrc/siren_decode_bwd.cu``, above ``NARROW_HIDDEN``
-    the cluster chain of ``csrc/siren_chain_cluster.cu``), the tensor-core
-    reduction and the CUDA-core sums, then the fold of the ``BWD_SLICES``
-    partials (``csrc/siren_decode_bwd.cu``)."""
+    operands padded to the kernels' hidden width: the weights prepared
+    once, then per chunk of ``BWD_PAIRS`` (row, point) pairs the cluster
+    chain in its training mode (``csrc/siren_chain_cluster.cu``), the
+    tensor-core reduction and the CUDA-core sums, then the fold of the
+    ``BWD_SLICES`` partials (``csrc/siren_decode_bwd.cu``)."""
     if coords.device.type == "cpu":
         return decode_bwd_plain(coords, z, g, w_first, w_mid, w_head)
     _, width = _operands("bwd", coords, z, w_first, w_mid, w_head, g=g)
@@ -739,12 +703,8 @@ def _launch_bwd(coords, z, g, w_first, w_mid, w_head):
     out = torch.zeros(n_el, device=dev, dtype=torch.float32)
     pairs = t * m
     if pairs > 0:
-        if h > NARROW_HIDDEN:
-            name = "siren_decode_bwd_cluster"
-            chain = _chain_cluster_library().siren_bwd_chain_cluster
-            cluster_capacity(_device_index(dev), h, c_in, c_out, "bwd")
-        else:
-            name, chain = "siren_decode_bwd", lib.siren_bwd_chain
+        name, chain = "siren_decode_bwd", _chain_cluster_library().siren_bwd_chain_cluster
+        cluster_capacity(_device_index(dev), h, c_in, c_out, "bwd")
         dwf_off, dwmid_off = sizes[0], sizes[0] + sizes[1]
         dwh_off = dwmid_off + sizes[2]
         with torch.cuda.device(dev):

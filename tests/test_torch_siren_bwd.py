@@ -1,13 +1,15 @@
 """The SIREN-FiLM training backward's numeric scheme on the CPU, at Case4
 width (3 -> 384 x 16 modulated layers -> 3, w0 30).
 
-The CUDA kernels of ``confild_tpu_torch/csrc/siren_decode_bwd.cu`` run every
-hidden-by-hidden matrix product on the tensor cores with a 3xTF32 split.
-Their arithmetic is emulated here on ``decode_bwd_plain``'s layer walk:
+The CUDA kernels (the cluster chain of
+``confild_tpu_torch/csrc/siren_chain_cluster.cu``, then the reduction and
+sums of ``csrc/siren_decode_bwd.cu``) run every hidden-by-hidden matrix
+product on the tensor cores with a 3xTF32 split.  Their arithmetic is
+emulated here on ``decode_bwd_plain``'s layer walk:
 
 * the chain (forward recompute and dx chain): each product is a sum of
-  zeroed partials, one per two k8 steps (16) of the hidden axis, carried by
-  float32 adds in k order;
+  zeroed partials, one per K-slice of 16 (two k8 steps) of the hidden
+  axis, carried by float32 adds in k order;
 * the reduction ``dW_mid[l-1] = sin2pi(r_{l-1})^T . dpre_l``: a partial per
   16 pairs, ``RED_SEG`` steps of ``RED_STEP`` pairs summed
   apart before they join a slice's total, ``BWD_SLICES`` slices of the

@@ -1,7 +1,8 @@
-"""The float32 SIREN-FiLM kernels above H = 512, on the CPU.
+"""The float32 SIREN-FiLM cluster kernels' plan, layouts and wide widths, on
+the CPU.
 
 On the card the forward, dz and the training backward's chain are
-thread-block cluster kernels there (``csrc/siren_fwd_cluster.cu``,
+thread-block cluster kernels at every width (``csrc/siren_fwd_cluster.cu``,
 ``csrc/siren_chain_cluster.cu``): each block of a cluster owns a share of
 every layer's output columns, and the middle weights stream from a
 preparation that lays them out as the blocks' shared-memory stage images
@@ -15,7 +16,7 @@ weight layouts (their inverse and their TF32 halves, and the preparation
 kernel's index arithmetic written out), and the per-family width limits.
 dz and the training backward at 1536 and 2048 against the JAX kernels are
 ``test_torch_siren_wide.py``'s.  The kernels themselves run on the card
-(``chip_smoke.py`` phase 19).
+(``chip_smoke.py`` phases 3, 4, 7, 16 and 19).
 """
 
 import jax.numpy as jnp
@@ -31,8 +32,8 @@ from confild_tpu_torch.inference import CNF_inference
 from confild_tpu_torch.ops import siren_decode as tsd
 from torch_parity_utils import jax_siren, limit_torch_threads, t
 
-# the widths the cluster kernel takes: multiples of 64 above NARROW_HIDDEN
-CLUSTER_WIDTHS = range(tsd.NARROW_HIDDEN + 64, tsd.MAX_HIDDEN["forward"] + 1, 64)
+# the widths the cluster kernels take: every multiple of 64 up to the widest
+CLUSTER_WIDTHS = range(64, tsd.MAX_HIDDEN["forward"] + 1, 64)
 CONSUMERS = 2   # consumer warpgroups a block (csrc/siren_fwd_cluster.cu)
 
 
@@ -112,11 +113,14 @@ def test_cluster_plan(h):
     shared memory a Hopper block may take, the smallest padded width of the
     instantiations (a plan's width plans to itself), every (pair, column)
     of the cluster's tile owned by exactly one consumer warpgroup, and at
-    most 256 columns a warpgroup in whole n64 subtiles."""
+    most 256 columns a warpgroup in whole n64 subtiles.  Up to 512 a
+    cluster owns 128 pairs and pads to 128, 192, 256, 384 or 512."""
     plan = tsd.cluster_plan(h)
     assert 1 <= plan.blocks <= tsd.CLUSTER_MAX_BLOCKS and plan.pairs in (64, 128)
     assert plan.smem_bytes <= tsd.SMEM_PER_BLOCK and 2 <= plan.stages <= 4
     assert plan.width >= h and plan.width - h < plan.share
+    if h <= 512:
+        assert plan.pairs == 128 and plan.width in (128, 192, 256, 384, 512)
     assert plan.width == min(-(-h // s) * s for s, _ in tsd.CLUSTER_CONFIGS
                              if -(-h // s) <= tsd.CLUSTER_MAX_BLOCKS)
     assert tsd.cluster_plan(plan.width) == plan
@@ -173,7 +177,7 @@ def _prep_source(e, h, share, n_mid, n_prod=None):
     return half, product, (ks, n)
 
 
-@pytest.mark.parametrize("h", [576, 1024, 2304])
+@pytest.mark.parametrize("h", [128, 256, 384, 576, 1024, 2304])
 def test_cluster_weight_layout(h):
     """The plain stage images of two middle weights: the inverse gives back
     W's TF32 halves exactly, big and small keep no bits below TF32's
@@ -198,7 +202,7 @@ def test_cluster_weight_layout(h):
         assert torch.equal(quads[e], src[index])
 
 
-@pytest.mark.parametrize("h", [576, 1024, 2304])
+@pytest.mark.parametrize("h", [128, 256, 384, 576, 1024, 2304])
 def test_cluster_chain_weight_layout(h):
     """The chain's stage images of three middle weights: per block the
     forward's three products, then the dx chain's W_2^T, W_1^T, W_0^T.
@@ -230,10 +234,10 @@ def test_cluster_chain_weight_layout(h):
 
 @pytest.mark.parametrize("family", ["dz", "bwd"])
 def test_chain_widths_follow_the_cluster_plan(family):
-    """dz and the training backward run above 512 at the cluster plan's
-    width, as the forward does, at every width up to 3072 and with up to 16
+    """dz and the training backward run at the cluster plan's width, as
+    the forward does, at every width up to 3072 and with up to 16
     coordinates and outputs; past 3072 they raise, naming the family."""
-    for h in range(tsd.NARROW_HIDDEN + 1, tsd.MAX_HIDDEN[family] + 1, 37):
+    for h in range(1, tsd.MAX_HIDDEN[family] + 1, 37):
         assert tsd.kernel_hidden_width(h, 3, 5, family) == tsd.cluster_plan(h).width
     for h in CLUSTER_WIDTHS:
         assert tsd.kernel_hidden_width(h, 16, 16, family) == tsd.cluster_plan(h).width

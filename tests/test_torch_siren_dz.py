@@ -1,25 +1,25 @@
 """The SIREN-FiLM dz kernel's numeric scheme and index maps on the CPU.
 
-``siren_decode_dz`` (``confild_tpu_torch/csrc/siren_decode_bwd.cu``) runs the
-training backward's chain (``csrc/siren_tc.cuh::chain_body``) in its dz
-mode: every hidden-by-hidden product of the forward recompute and of the dx
-chain is a 3xTF32 tensor-core product summed as zeroed partials per 16 of
-k; after each layer a block of ``CP`` = 64 pairs (32 at H = 448 and 512;
-above 512 a cluster of 128 or 64, ``tests/test_torch_siren_wide.py``) sums
-``dpre_l`` over its pairs in pair order, one float32 sum per latent row it
-touches (a slot), and a fold adds each row's block sums in block order, chunk after
-chunk of ``BWD_PAIRS`` pairs.  That arithmetic is emulated here on
+``siren_decode_dz_cluster`` (``confild_tpu_torch/csrc/siren_chain_cluster.cu``)
+runs the training backward's cluster chain in its dz mode: every
+hidden-by-hidden product of the forward recompute and of the dx chain is a
+3xTF32 tensor-core product summed as zeroed partials per 16 of k; after
+each layer a cluster of ``CP`` = 128 pairs (64 above H = 2048,
+``tests/test_torch_siren_wide.py``) sums ``dpre_l`` over its pairs in pair
+order, one float32 sum per latent row it touches (a slot), and a fold adds
+each row's cluster sums in cluster order, chunk after chunk of
+``BWD_PAIRS`` pairs.  That arithmetic is emulated here on
 ``decode_dz_plain``'s walk (the chain's products from
 ``tests/test_torch_siren_bwd.py``, the TF32 products from
-``tests/test_torch_flash.py``), at a chunk small enough that blocks and
+``tests/test_torch_flash.py``), at a chunk small enough that clusters and
 chunks cut rows.
 
 The emulation must meet ``|x - f64| <= 2 |plain f32 - f64| + 1e-6
 max|f64|`` on ``dL/dlatents`` (and on dz) at the Case4 and Case2 widths,
 where the float64 truth is the same walk with exact sines; with one TF32
-product per matmul it must miss.  The index maps (the block's row slots
+product per matmul it must miss.  The index maps (the cluster's row slots
 and the fold's sources) are held to the plain definition ``row = pair //
-M``, the kernel's count of slots to the most rows a block touches, and the
+M``, the kernel's count of slots to the most rows a cluster touches, and the
 port's CPU op to the JAX kernel in interpret mode.
 """
 
@@ -35,11 +35,13 @@ from test_torch_siren_bwd import _bwd_f64, _chain_mm, _dsin, _np, _seq_sum, _sin
 from test_torch_siren_fwd import WIDTHS
 from torch_parity_utils import jax_siren, limit_torch_threads, t
 
-# pairs a chain block owns up to H = 384 (csrc/siren_tc.cuh::block_pairs)
-CP = 64
-# 3 rows of 100 points in chunks of 192 pairs: blocks of 64 cut rows 0 and 1
-# (at pairs 100 and 200), and the chunk boundary at 192 cuts row 1
-ROWS, POINTS, CHUNK = 3, 100, 192
+# pairs a cluster of the chain owns up to H = 2048 (ops/siren_decode.py::
+# cluster_plan), the unit of dz's row sums
+CP = 128
+# 3 rows of 100 points in chunks of 256 pairs: clusters of 128 cut rows 1
+# and 2 (at pairs 100 and 200), the chunk boundary at 256 cuts row 2, and
+# the second chunk's one cluster is ragged (44 pairs)
+ROWS, POINTS, CHUNK = 3, 100, 256
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -63,26 +65,27 @@ def _case(width, seed=0):
 
 
 # ---------------------------------------------------------------------------
-# the kernels' index maps (csrc/siren_tc.cuh::row_sums,
+# the kernels' index maps (csrc/siren_chain_cluster.cu's row sums,
 # csrc/siren_dz_fold.cuh::dz_slots and siren_dz_fold_kernel)
 # ---------------------------------------------------------------------------
 
 def _dz_slots(m):
-    """The slots of a block's partial, as ``dz_slots`` computes them:
+    """The slots of a cluster's partial, as ``dz_slots`` computes them:
     ``ceil((CP - 1) / M) + 1``, at most ``CP``."""
     return min(CP, (CP - 2 + m) // m + 1)
 
 
 def _block_slots(p0, q, m):
-    """Per block of the chunk, the slot of each of its pairs: its row less
-    the row of the block's first pair."""
+    """Per cluster of the chunk, the slot of each of its pairs: its row
+    less the row of the cluster's first pair."""
     return [(p0 + np.arange(b, min(q, b + CP))) // m - (p0 + b) // m
             for b in range(0, q, CP)]
 
 
 def _fold_sources(p0, q, m):
-    """Per row of the chunk, the ``(block, slot)`` partials the fold adds,
-    in block order: the blocks that hold the row's pairs of the chunk."""
+    """Per row of the chunk, the ``(cluster, slot)`` partials the fold
+    adds, in cluster order: the clusters that hold the row's pairs of the
+    chunk."""
     sources = {}
     for row in range(p0 // m, (p0 + q - 1) // m + 1):
         a, b = max(row * m, p0) - p0, min((row + 1) * m, p0 + q) - p0
@@ -91,8 +94,8 @@ def _fold_sources(p0, q, m):
 
 
 def _dz_emulated(mm, coords, z, g, w_first, w_mid, w_head, chunk=CHUNK):
-    """``decode_dz_plain``'s walk with the kernels' products, block sums and
-    fold."""
+    """``decode_dz_plain``'s walk with the kernels' products, cluster sums
+    and fold."""
     n_mod, rows, h = z.shape
     m = coords.shape[0]
     z, w_first, w_mid, w_head = map(_np, (z, w_first, w_mid, w_head))
@@ -140,7 +143,7 @@ def _margins(mm, width, seed=0):
 
 @pytest.mark.parametrize("width", ["case4", "case2"])
 def test_3xtf32_dz_meets_the_f32_criterion(width):
-    """3xTF32 chain products, block row sums and the fold keep dz and
+    """3xTF32 chain products, cluster row sums and the fold keep dz and
     dL/dlatents within the criterion."""
     margins = _margins(_mm_3xtf32, width)
     assert max(margins.values()) <= 1.0, margins
@@ -191,8 +194,8 @@ def test_cpu_op_matches_pallas_interpret(c_in, latent, c_out, layers, hidden, ro
     (10, 384, tsd.BWD_PAIRS), (1024, 384, tsd.BWD_PAIRS),
 ])
 def test_slots_and_fold_cover_every_pair_once(m, rows, chunk):
-    """The chunk walk, the blocks' row slots and the fold's sources cover
-    every (row, point) pair exactly once and put it in its row; a block
+    """The chunk walk, the clusters' row slots and the fold's sources cover
+    every (row, point) pair exactly once and put it in its row; a cluster
     never needs more slots than ``dz_slots``."""
     pairs = rows * m
     walk = tsd.pair_chunks(pairs, chunk)
@@ -211,9 +214,10 @@ def test_slots_and_fold_cover_every_pair_once(m, rows, chunk):
     assert (seen == 1).all()
 
 
-@pytest.mark.parametrize("m,want", [(1, 64), (7, 10), (10, 8), (63, 2), (64, 2), (1024, 2)])
+@pytest.mark.parametrize("m,want", [(1, 128), (7, 20), (10, 14), (63, 4), (64, 3), (1024, 2)])
 def test_row_slots(m, want):
-    """A block of 64 consecutive pairs touches at most ceil(63 / M) + 1 rows."""
+    """A cluster of 128 consecutive pairs touches at most ceil(127 / M) + 1
+    rows: 14 at Case4's 10 sensors (12.8 rows a cluster)."""
     assert _dz_slots(m) == want
     firsts = np.arange(0, 4 * m * CP, 1)
     touched = (firsts + CP - 1) // m - firsts // m + 1

@@ -1,10 +1,11 @@
 """The SIREN-FiLM decode forward's numeric scheme on the CPU.
 
-The CUDA forward of ``confild_tpu_torch/csrc/siren_decode.cu`` runs every
+The float32 CUDA forward (the cluster kernel of
+``confild_tpu_torch/csrc/siren_fwd_cluster.cu``) runs every
 hidden-by-hidden product on the tensor cores with a 3xTF32 split, as the
-training backward's chain does (``csrc/siren_tc.cuh``): each product is a
-sum of zeroed partials, one per two k8 steps (16) of the hidden axis,
-carried by float32 adds in k order.  The first layer and the head stay in
+training backward's chain does (``csrc/siren_cluster.cuh``): each product
+is a sum of zeroed partials, one per K-slice of 16 (two k8 steps) of the
+hidden axis, carried by float32 adds in k order.  The first layer and the head stay in
 float32 on the CUDA cores.  That arithmetic is emulated here on
 ``decode_forward_plain``'s layer walk (the chain's products from
 ``tests/test_torch_siren_bwd.py``, the TF32 products from
@@ -160,10 +161,11 @@ def test_emulation_matches_pallas_interpret():
 
 @pytest.mark.parametrize("hidden", [32, 96])
 def test_hidden_padding_is_exact(hidden):
-    """The CUDA wrappers zero-pad the hidden width to the kernels' next
-    multiple of 64: through the padding functions the plain forward, dz and
-    training backward equal the unpadded ones (1e-6), cotangents sliced
-    back to ``H``."""
+    """The CUDA wrappers zero-pad the hidden width to the kernels' width
+    (the float32 cluster kernels' 128 here, the bf16 forward's next
+    multiple of 64): through the padding functions the plain forward, dz
+    and training backward equal the unpadded ones (1e-6), cotangents
+    sliced back to ``H``."""
     _, model = jax_siren(c_in=3, latent=16, c_out=2, layers=2, hidden=hidden)
     rng = np.random.default_rng(7)
     coords = t(rng.uniform(-1, 1, (200, 3)))
@@ -173,7 +175,8 @@ def test_hidden_padding_is_exact(hidden):
         w_first, w_mid, w_head, b_head, w2, b1, scale = tsd.stack_weights(model, model.w0)
         z = tsd.film_table(latents, w2, b1, scale)
         width = tsd.kernel_hidden_width(hidden, 3, 2, "forward")
-        assert width == 64 * (hidden // 64 + 1)
+        assert width == tsd.cluster_plan(hidden).width == 128
+        assert tsd.kernel_hidden_width(hidden, 3, 2, "forward_bf16") == 64 * (hidden // 64 + 1)
         close = dict(rtol=1e-6, atol=1e-6)
         for dtype in (torch.float32, torch.bfloat16):
             torch.testing.assert_close(
@@ -193,15 +196,17 @@ def test_hidden_padding_is_exact(hidden):
 
 
 def test_kernel_width_limits():
-    """Each kernel family's widths: the next multiple of 64 up to 512, then
-    for the bf16 forward up to its limit of 1024 and for the float32
-    families (the forward, dz and the training backward) at the cluster
-    plan's width up to 3072; past a limit, or past 16 coordinates or
-    outputs, the error names the family."""
-    narrow = (1, 64, 65, 384, 385, 400, 448, 449, 500, 512)
-    for family in tsd.FAMILIES:
+    """Each kernel family's widths: for the bf16 forward the next multiple
+    of 64 up to its limit of 1024, for the float32 families (the forward,
+    dz and the training backward) the cluster plan's width up to 3072 (up
+    to 512 one of 128, 192, 256, 384 and 512); past a limit, or past 16
+    coordinates or outputs, the error names the family."""
+    narrow = (1, 64, 65, 129, 193, 257, 384, 385, 400, 448, 449, 500, 512)
+    assert [tsd.kernel_hidden_width(h, 3, 3, "forward_bf16") for h in narrow] \
+        == [64, 64, 128, 192, 256, 320, 384, 448, 448, 448, 512, 512, 512]
+    for family in tsd.CLUSTER_FAMILIES:
         assert [tsd.kernel_hidden_width(h, 3, 3, family) for h in narrow] \
-            == [64, 64, 128, 384, 448, 448, 448, 512, 512, 512]
+            == [128, 128, 128, 192, 256, 384, 384, 512, 512, 512, 512, 512, 512]
     assert [tsd.kernel_hidden_width(h, 3, 3, "forward_bf16")
             for h in (513, 576, 600, 640, 1000, 1024)] == [576, 576, 640, 640, 1024, 1024]
     assert tsd.kernel_hidden_width(1024, 16, 16, "forward_bf16") == 1024
@@ -220,4 +225,4 @@ def test_kernel_width_limits():
                                                  f"width of at most 3072"):
                 tsd.kernel_hidden_width(*args, family)
     assert tsd.MAX_HIDDEN == {"forward": 3072, "forward_bf16": 1024, "dz": 3072, "bwd": 3072}
-    assert tsd.MAX_FEATURES == 16 and tsd.NARROW_HIDDEN == 512
+    assert tsd.MAX_FEATURES == 16

@@ -1,12 +1,11 @@
 """The SIREN-FiLM kernels' widths above 384, and the demo CNF's, on the CPU.
 
-The CUDA kernels take up to 16 coordinates and outputs; above 384 a block
-of the narrow kernels owns 32 pairs instead of 64
-(``csrc/siren_tc.cuh::block_pairs``), so that the accumulators stay in
-registers and the two K-slice stages fit the shared memory of a block, and
-above 512 the float32 forward, dz and the training backward's chain are
-cluster kernels (a cluster owns 128 pairs, 64 above H = 2048) up to
-H = 3072.  Here (the width limits are
+The CUDA kernels take up to 16 coordinates and outputs; the float32
+forward, dz and the training backward's chain are cluster kernels at every
+width up to H = 3072 (a cluster owns 128 pairs, 64 above H = 2048; 448
+pads to 512, two blocks of 256 columns), and above 384 a block of
+the bf16 forward owns 32 pairs instead of 64
+(``csrc/siren_tc.cuh::block_pairs``).  Here (the width limits are
 ``test_torch_siren_fwd.py::test_kernel_width_limits``): the plain
 versions (what a CPU tensor takes) at H = 448, 512, 640, 1024, 1536,
 2048 and 3072, with 5
@@ -19,8 +18,8 @@ dz and the training backward rtol 1e-4, the tolerances of
 ``tests/test_torch_siren_fwd.py``, ``test_torch_siren_dz.py`` and
 ``test_torch_train.py``, the backward's absolute floor scaled to each
 leaf's magnitude); the dz kernel's row slots and fold cover every pair
-once with 32-pair blocks and with the cluster chain's 128- and 64-pair
-clusters; and one epoch of the port's
+once with the cluster chain's 128- and 64-pair clusters, at 448 and 512
+and above; and one epoch of the port's
 ``CNFTrainer`` against the JAX trainer (which trains through its Pallas
 kernels at any width) at ``hidden_features`` 640 and ``out_features`` 5.
 The kernels themselves run on the card (``chip_smoke.py`` phases 16a, 16c
@@ -50,11 +49,11 @@ def _threads():
     limit_torch_threads()
 
 
-# (c_in, latent, c_out, middle layers, hidden, rows, points): the widths
-# of 32-pair blocks; those of the cluster kernels with 5 outputs (up to
+# (c_in, latent, c_out, middle layers, hidden, rows, points): 448 (padded
+# to 512) and 512 (two blocks of 256 columns a cluster); those of the cluster kernels with 5 outputs (up to
 # 2048, where a cluster owns 128 pairs, and the widest, 3072; also of one
 # modulated layer, with no middle weight) and with 16 coordinates and
-# outputs; 16 outputs at a width of 64-pair blocks; and
+# outputs; 16 outputs at Case4's width; and
 # the turbulence demo CNF's at its f4 widths (7 modulated layers of 384)
 # and under --fast (5 of 128), with 2 coordinates and 2 outputs
 WIDE = {"448": (3, 16, 3, 2, 448, 3, 200), "512": (2, 16, 2, 1, 512, 2, 150),
@@ -116,9 +115,9 @@ def test_bwd_plain_matches_pallas_interpret(name):
 
 
 def _check_slots_and_fold(monkeypatch, cp, m, rows, chunk):
-    """The dz kernel's index maps at blocks of ``cp`` pairs: every (row,
-    point) pair in exactly one block slot of its own row, and every row's
-    slots folded once; a block needs at most ``dz_slots``."""
+    """The dz kernel's index maps at units (clusters) of ``cp`` pairs:
+    every (row, point) pair in exactly one slot of its own row, and every
+    row's slots folded once; a unit needs at most ``dz_slots``."""
     monkeypatch.setattr(dz_maps, "CP", cp)
     pairs = rows * m
     seen = np.zeros(pairs, np.int64)
@@ -142,11 +141,13 @@ def _check_slots_and_fold(monkeypatch, cp, m, rows, chunk):
     (10, 50, 448), (31, 20, 448), (64, 20, 448), (1000, 3, 448), (1024, 3, 640),
     (10, 384, tsd.BWD_PAIRS), (4096, 64, tsd.BWD_PAIRS),
 ])
-def test_slots_and_fold_cover_every_pair_once_with_32_pair_blocks(monkeypatch, m, rows,
-                                                                 chunk):
-    """The index maps at the block of 32 pairs (H = 448 and 512)."""
-    _check_slots_and_fold(monkeypatch, 32, m, rows, chunk)
-    assert dz_maps._dz_slots(10) == 5 and dz_maps._dz_slots(64) == 2
+def test_slots_and_fold_cover_every_pair_once_at_448_and_512(monkeypatch, m, rows, chunk):
+    """The index maps at H = 448 and 512, whose clusters (two blocks of
+    256 columns, 448 padded) own 128 pairs, as the narrower widths' do."""
+    cps = {tsd.cluster_plan(h).pairs for h in (448, 512)}
+    assert cps == {128}
+    _check_slots_and_fold(monkeypatch, cps.pop(), m, rows, chunk)
+    assert dz_maps._dz_slots(10) == 14 and dz_maps._dz_slots(64) == 3
 
 
 @pytest.mark.parametrize("cp", [tsd.cluster_plan(h).pairs for h in (1024, 3072)])
