@@ -10,10 +10,11 @@ Phases, each fatal on failure:
    process per source, all started together (timed; ptxas registers and
    spills, and for the flash and SIREN tensor-core kernels the count of
    ``HMMA`` and ``HGMMA`` instructions in ``cuobjdump -sass``: every flash
-   forward and backward instantiation, every instantiation of the bf16
-   SIREN forward and the training reduction kernel must have some, and
-   every instantiation of the SIREN cluster kernels (the float32 forward,
-   the chain in its training mode and in its dz mode) some ``HGMMA``);
+   forward and backward instantiation and every instantiation of the bf16
+   SIREN forward must have some, every instantiation of the SIREN cluster
+   kernels (the float32 forward, the chain in its training mode and in its
+   dz mode) and of the training backward's reduction some ``HGMMA``, the
+   reduction no ``HMMA``, and each of its tile widths an instantiation);
 3. forward decode kernel against its plain version and a float64 run under
    the JAX tests' criterion ``err_kernel <= 2 * err_plain_f32 + 1e-6`` (each
    error printed as a share of its limit), two launches bitwise equal: at
@@ -60,7 +61,11 @@ Phases, each fatal on failure:
    kernels and forced onto the plain decode, at 10 and at 1024 sensors;
    they must agree to a relative L2 error of 1e-3; each step's time, and
    at 1024 sensors each route's device time from ``torch.profiler``;
-7. training-backward kernel against its plain version at Case4 widths,
+7. the training backward's dW_mid reduction alone on seeded workspaces
+   (Case4's chunk, ragged steps and tiles, H = 3072) against ``torch.bmm``
+   in float32 and float64 under the same criterion, two launches bitwise
+   equal; then the training-backward kernel against its plain version at
+   Case4 widths,
    4 rows x 262144 points (a training batch: each row spans 4 chunks of
    the kernel) and 4 rows x 16384 points (one chunk holds every row):
    every cotangent (dz, dW_first, dW_mid, dW_head, and after the
@@ -71,7 +76,9 @@ Phases, each fatal on failure:
    the kernel's time (median of 7 separately timed calls with the least
    and largest, the SM clocks before and after), each of its kernels'
    device time from ``torch.profiler`` (the chain and the reduction with
-   their rate of products), the plain version's time, and the bound;
+   their rate of products; the reduction's own bound, plain time and the
+   float32 ``torch.bmm`` of its products as the library figure), the plain
+   version's time, and the bound;
 8. the general op's gradient on the card (latents, decoder and coordinates
    all requiring grad) against plain autograd at 4 x 4096, and one training
    batch's gradients with ``use_fused_decode`` true and false at 4 x 16384:
@@ -608,10 +615,17 @@ def tc_label(counts: dict) -> str:
 
 
 # kernels whose every instantiation must run its products on the tensor
-# cores: mma.sync (HMMA), and wgmma (HGMMA) for the cluster kernels
+# cores: mma.sync (HMMA), and wgmma (HGMMA) for the cluster kernels and the
+# training backward's reduction, which has no mma.sync at all
 CLUSTER_KERNELS = ("siren_fwd_cluster_kernel", "siren_chain_cluster_kernel")
+WGMMA_ONLY_KERNELS = ("siren_bwd_reduce_kernel",)
+WGMMA_KERNELS = CLUSTER_KERNELS + WGMMA_ONLY_KERNELS
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                       "siren_fwd_bf16_kernel", "siren_bwd_reduce_kernel") + CLUSTER_KERNELS
+                       "siren_fwd_bf16_kernel") + WGMMA_KERNELS
+# the reduction's instantiations, ``<tile columns, subtile columns>``, one a
+# tile width (csrc/siren_decode_bwd.cu::reduce_cols), both launched by the
+# main paths (128 at H = 128, 512 and 1024; 192 at Case4's 384)
+REDUCE_TILES = (128, 192)
 
 
 def phase_build():
@@ -643,9 +657,15 @@ def phase_build():
                 if k.split("<")[0] in TENSOR_CORE_KERNELS}
     no_tc = [k for k, v in required.items() if v == 0]
     no_hgmma = [k for k, v in hmma.items()
-                if k.startswith(CLUSTER_KERNELS) and v["HGMMA"] == 0]
+                if k.startswith(WGMMA_KERNELS) and v["HGMMA"] == 0]
     if no_hgmma:
-        raise SystemExit(f"cluster kernel instantiations without wgmma (HGMMA): {no_hgmma}")
+        raise SystemExit(f"wgmma kernel instantiations without wgmma (HGMMA): {no_hgmma}")
+    mma_sync = [k for k, v in hmma.items() if k.startswith(WGMMA_ONLY_KERNELS) and v["HMMA"]]
+    missing = [bn for bn in REDUCE_TILES
+               if not any(k.startswith(f"siren_bwd_reduce_kernel<{bn},") for k in hmma)]
+    if mma_sync or missing:
+        raise SystemExit(f"reduction instantiations with mma.sync (HMMA): {mma_sync}; "
+                         f"tile widths without one: {missing}")
     if no_tc or not all(any(k.split("<")[0] == p for k in required)
                         for p in TENSOR_CORE_KERNELS):
         raise SystemExit(f"kernels without tensor-core instructions: {no_tc} "
@@ -1230,6 +1250,127 @@ def bwd_check(model, device, rows, points, seed, chunk: int = 4096) -> float:
     return max_abs_err
 
 
+# (H, n_mod, pairs) of the reduction's own checks: Case4's chunk (tiles of
+# 192 columns), a ragged step on tiles of 128, ragged row and column tiles
+# (320 = 2.5 x 128), the widest width
+REDUCE_CHECKS = ((384, 16, 65536), (128, 3, 1000), (320, 3, 4100), (3072, 2, 4096))
+
+
+def reduce_workspace(device, h, n_mod, q, seed):
+    """A chunk's workspace as the chain leaves it, from a seed: R (n_mod,
+    Qa, H) uniform in [-1, 1) and D normal, Qa = q rounded up to 128 pairs."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qa = -(-q // 128) * 128
+    r = torch.rand((n_mod, qa, h), generator=gen, device=device) * 2 - 1
+    d = torch.randn((n_mod, qa, h), generator=gen, device=device)
+    return r, d, qa
+
+
+def reduce_launch(r, d, parts, q, qa) -> None:
+    """The reduction kernel alone on a workspace, into ``parts``
+    (``BWD_SLICES`` partials of dW_mid, added to): a comparison launch,
+    counted nowhere."""
+    n_mod, _, h = r.shape
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    sd._raise_on(sd._bwd_library().siren_bwd_reduce(
+        sd._ptr(r), sd._ptr(d), sd._ptr(parts), parts.shape[1], 0, q, qa, h, n_mod,
+        sd.BWD_SLICES, stream), "siren_bwd_reduce launch")
+
+
+def reduce_products(r, d, q, dtype=torch.float32):
+    """sin2pi(R[0:n-1])^T . D[1:n] over the first q pairs as one
+    ``torch.bmm`` (float32 with TF32 off, or float64)."""
+    s, dd = sd._sin2pi(r[:-1, :q]).to(dtype), d[1:, :q].to(dtype)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.bmm(s.transpose(1, 2), dd)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def reduce_check(device, h, n_mod, q, seed) -> float:
+    """The dW_mid reduction kernel alone on a seeded workspace: its slices'
+    partials folded in slice order, against ``torch.bmm`` in float32 and
+    float64 (the phase 7 criterion), and two launches bitwise equal;
+    returns its largest error against float64.  The library's tile width
+    must be ``sd.reduce_cols``'s."""
+    r, d, qa = reduce_workspace(device, h, n_mod, q, seed)
+    runs = []
+    for _ in range(2):
+        parts = torch.zeros((sd.BWD_SLICES, (n_mod - 1) * h * h), device=device)
+        reduce_launch(r, d, parts, q, qa)
+        got = parts[0].clone()
+        for p in parts[1:]:
+            got += p
+        runs.append(got.view(n_mod - 1, h, h))
+    torch.cuda.synchronize()
+    same = torch.equal(*runs)
+    plain = reduce_products(r, d, q)
+    truth = reduce_products(r, d, q, torch.float64)
+    err_k, err_p = abs_max(runs[0].double() - truth), abs_max(plain.double() - truth)
+    top = abs_max(truth)
+    cols = sd._bwd_library().siren_bwd_reduce_cols(h)
+    good = (same and err_k <= 2 * err_p + 1e-6 * top and cols == sd.reduce_cols(h)
+            and torch.isfinite(runs[0]).all().item())
+    log(f"[reduce] H={h} n_mod={n_mod} Q={q} (tiles 128 x {cols}, the mirror's "
+        f"{sd.reduce_cols(h)}): |kernel-f64| {err_k:.3e}, "
+        f"|bmm f32-f64| {err_p:.3e}, max |f64| {top:.3e}, two launches bitwise equal: {same} "
+        f"-> {'ok' if good else 'FAIL'}")
+    if not good:
+        raise SystemExit("the dW_mid reduction fails the f64-relative criterion or is not "
+                         "deterministic")
+    del r, d, runs, plain, truth
+    torch.cuda.empty_cache()
+    return err_k
+
+
+def reduce_figures(device, h, n_mod, pairs, profiled_ms, repeats: int = 7) -> dict:
+    """The reduction's own row at ``pairs`` pairs, on one chunk's seeded
+    workspace, times the chunks: its time (the median of ``repeats``
+    launches, CUDA events; ``profiled_ms``, its device time inside the
+    backward's profiled call, is printed beside it: the profiler now and
+    then drops launches), its bound (the 3xTF32 products and the workspace
+    it reads, the sines on the CUDA cores), its plain version's time
+    (``decode_bwd_plain``'s sine and product a layer), and the library
+    figure: the median of ``repeats`` of one float32 ``torch.bmm`` (TF32
+    off) of sin2pi(R[0:n-1])^T . D[1:n], the sines computed before it
+    (products only)."""
+    q = min(pairs, sd.BWD_PAIRS)
+    chunks = pairs / q
+    r, d, qa = reduce_workspace(device, h, n_mod, q, seed=0)
+    parts = torch.zeros((sd.BWD_SLICES, (n_mod - 1) * h * h), device=device)
+    ms = cuda_median(lambda: reduce_launch(r, d, parts, q, qa), 1, repeats)[0] * chunks
+    del parts
+    s, dd = sd._sin2pi(r[:-1, :q]), d[1:, :q]
+
+    def plain():
+        for l in range(n_mod - 1):
+            sd._sin2pi(r[l, :q]).t() @ d[l + 1, :q]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib = cuda_median(lambda: torch.bmm(s.transpose(1, 2), dd), 1, repeats)[0] * chunks
+        del s, dd
+        plain_ms = cuda_median(plain, 1, repeats=1)[0] * chunks
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del r, d
+    torch.cuda.empty_cache()
+    flops = 2 * (n_mod - 1) * h * h * pairs
+    nbytes = 4 * (2 * (n_mod - 1) * pairs * h + (n_mod - 1) * h * h)
+    bound_ms, bound_by = tc_bound(flops, nbytes, (n_mod - 1) * pairs * h * ACT_FLOPS
+                                  / PEAK_F32_FLOPS)
+    log(f"[bwd-time] reduce alone: {ms:.3f} ms ({profiled_ms:.3f} ms device as profiled in the "
+        f"backward), bound {bound_ms:.3f} ms ({bound_by}: {flops / 1e12:.2f} TFLOP of products "
+        f"x {TF32_SPLIT_PRODUCTS} at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e9:.2f} GB "
+        f"of workspace at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s), {bound_ms / ms:.1%} of it; plain "
+        f"{plain_ms:.3f} ms; library torch.bmm float32 (TF32 off, products only) {lib:.3f} ms")
+    return dict(ms=ms, profiled_ms=profiled_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib, library_call="torch.bmm float32, TF32 off",
+                library_covers="products only")
+
+
 def phase_bwd(device, results):
     """The training-backward kernel checked at 4 x 262144, the shape the
     training path gives it (every row spans 4 chunks of ``BWD_PAIRS``
@@ -1237,6 +1378,8 @@ def phase_bwd(device, results):
     (one chunk holds all four rows); kernel and plain timed at 4 x 262144,
     the kernel as the median of 7 separately timed calls, and the device
     time of each of its kernels from one profiled call."""
+    for i, (h, n_mod, q) in enumerate(REDUCE_CHECKS):
+        reduce_check(device, h, n_mod, q, seed=60 + i)
     model = case4_decoder(device)
     max_abs_err = bwd_check(model, device, 4, 262144, seed=14)
     bwd_check(model, device, 4, 16384, seed=13)
@@ -1289,17 +1432,22 @@ def bwd_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
                               lambda: sd.decode_bwd(coords, z, g, *ops), top=6)
     # the products each kernel computes (the chain: forward and dx chain)
     products = {"chain": pairs * 4 * (n_mod - 1) * h * h, "reduce": pairs * 2 * (n_mod - 1) * h * h}
-    chain_ms = 0.0
+    part_ms = {}
     for part in ("chain", "reduce", "sums", "prep", "fold"):
         name = {"prep": PREP_KERNEL, "chain": CHAIN_KERNEL}.get(part, f"siren_bwd_{part}_kernel")
         hits = [v for k, v in prof.items() if name in k]
-        dev_ms = sum(ms for ms, _ in hits)
-        chain_ms = dev_ms if part == "chain" else chain_ms
+        dev_ms = part_ms[part] = sum(ms for ms, _ in hits)
         rate = (f", {products[part] / dev_ms / 1e9:.2f} TFLOP/s of products"
                 if part in products and dev_ms else "")
+        if part == "sums":   # a pass over D of every layer and the last R, bound by bytes
+            sums_bytes = 4 * (pairs * h * (n_mod + 1) + points * c_in + pairs * c_out)
+            rate = (f", bound {sums_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms (bytes: "
+                    f"{sums_bytes / 1e9:.2f} GB of workspace, coordinates and cotangent)")
         log(f"[bwd-time] {part}: {dev_ms:.3f} ms device, {sum(n for _, n in hits)} "
             f"launches{rate}")
-    log(f"[bwd-time] {rows}x{points}: {chain_stream(pairs, h, n_mod, chain_ms)}")
+    log(f"[bwd-time] {rows}x{points}: {chain_stream(pairs, h, n_mod, part_ms['chain'])}")
+    reduce = (reduce_figures(device, h, n_mod, pairs, part_ms["reduce"], repeats)
+              if n_mod > 1 else None)
     log(f"[bwd] {rows}x{points} H={h}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] median "
         f"of {repeats} ({flops / ms / 1e9:.2f} TFLOP/s), bound {bound_ms:.3f} ms ({bound_by}, "
         f"{flops / 1e12:.2f} TFLOP; every flop on the CUDA cores: "
@@ -1308,7 +1456,7 @@ def bwd_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
         + f" (peak memory {plain_peak:.2f} GiB); library: none (no single PyTorch call "
         f"computes it)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                shape=f"{rows}x{points}")
+                shape=f"{rows}x{points}", **({"reduce": reduce} if reduce else {}))
 
 
 def rel_l2(a, b) -> float:
@@ -4222,7 +4370,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"],
-            **{k: r[k] for k in ("library_call", "library_covers") if k in r}})
+            **{k: r[k] for k in ("library_call", "library_covers", "reduce") if k in r}})
     log(f"[time] total {time.perf_counter() - start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,9 @@
 // The thread-block cluster machinery shared by the SIREN-FiLM cluster
 // kernels for Hopper (sm_90a): the float32 forward (siren_fwd_cluster.cu)
 // and the chain, dz and the training backward (siren_chain_cluster.cu), at
-// every hidden width up to 3072.
+// every hidden width up to 3072.  The training backward's reduction
+// (siren_decode_bwd.cu, one block, no cluster) takes its mbarriers and its
+// K-slice product (issue_slice, carry, b_desc) from here too.
 //
 // A cluster of CL blocks owns P = 64 MT consecutive (row, point) pairs;
 // block b owns columns [b S, (b + 1) S) of every layer's output and keeps

@@ -1,6 +1,6 @@
 // The SIREN-FiLM training backward's reduction, sums and fold for Hopper
 // (sm_90a): float32 results, the hidden-by-hidden matrix products on the
-// tensor cores as 3xTF32.
+// tensor cores as 3xTF32 on wgmma.
 //
 // The training backward (ops/siren_decode.py::decode_bwd: the cluster
 // chain of siren_chain_cluster.cu, then the kernels here) replaces the
@@ -17,38 +17,42 @@
 //
 // with dpre_l = dx_l * 2*pi*cos2pi(r_l) and dx_{l-1} = dpre_l . W_l^T.
 //
-// Bound on the H100: operations.  A pair costs the forward recompute, the
-// dx chain and the dW products, 3 x 2 (n_mod - 1) H^2 flops of matrix
-// products (13.3 MFLOP at Case4), against 24 bytes of coordinates and
-// cotangent.  With the products at the tensor cores' dense TF32 rate and
-// three products each (495 / 3 TFLOP/s), 4 x 262144 pairs at Case4 take at
-// least 84.4 ms; on the CUDA cores' float32 rate 211.0 ms.
-//
 // Design.  The TPU kernel keeps the 8.8 MB dW_mid accumulator in VMEM across
 // a sequential grid.  Hopper blocks run in no order, so the host walks
 // chunks of Q consecutive (row, point) pairs (p = t * M + m) and runs per
 // chunk the chain, which writes every pre-activation r_l and every dpre_l of
 // the chunk to a global workspace, then the kernels here, which reduce that
-// workspace over the pair axis.  Every product of two hidden-wide operands
-// is 3xTF32 on the tensor cores (tf32_mma.cuh): each f32 operand is split
-// into big and small TF32 halves and a product is small*big + big*small +
-// big*big.  The tensor cores truncate their own f32 sums, so a fragment's
-// products of two k8 steps go into a zeroed partial that a float32 add
-// carries into the running sum.  Per call:
+// workspace over the pair axis in BWD_SLICES fixed slices of the chunk, each
+// into its own partial of every cotangent.  Per call:
 //
 // * the chain, siren_chain_cluster.cu's training mode (a thread-block
 //   cluster kernel on wgmma at every width, with its weight preparation):
-//   R[l][q][j] and D[l][q][j], layer stride Qa * H;
-// * siren_bwd_reduce_kernel: dW_mid[l-1] = sin2pi(R_{l-1})^T . D_l as a
-//   3xTF32 GEMM over the pair axis on mma.sync.m16n8k8.  A block owns a
-//   128 x 128 output tile of one layer and one of BWD_SLICES fixed slices of
-//   the chunk's pairs (so each workspace element is read three times at
-//   H = 384, and 15 layers x 9 tiles x 16 slices is 16.4 waves of one block
-//   an SM on 132 SMs rather than 1.02).  Steps of 32 pairs arrive by
-//   cp.async; each thread applies sin2pi to its own chunks of R once and
-//   splits them.  The partials are added into a segment sum, zeroed every
-//   RSEG steps (512 pairs) and added by its owner thread to the slice's
-//   partial in global memory.
+//   R[l][q][j] and D[l][q][j], layer stride Qa * H, pair-major;
+// * siren_bwd_reduce_kernel: dW_mid[l-1] = sin2pi(R_{l-1})^T . D_l, a GEMM
+//   over the pair axis (K) on wgmma in 3xTF32 (tf32_mma.cuh: each f32
+//   operand split into TF32 big and small halves, a product is small*big +
+//   big*small + big*big).  A block owns a 128 x BN output tile (BN = 192
+//   where it divides H, else 128) of one layer and one slice; its two
+//   warpgroups each own 64 rows and all BN columns, as m64n64 subtiles at
+//   BN = 192 (two partials taking turns) and one m64n128 at BN = 128.  TF32
+//   wgmma reads shared-memory operands only K-major, and the workspace is
+//   pair-major, so neither operand arrives as it wants: sin2pi(R)^T is the
+//   register A operand, each thread loading its fragments straight from the
+//   raw pair-major rows, applying sin2pi and splitting them in registers; D
+//   is the B operand, which every thread helps transpose once a step from
+//   its raw rows into the no-swizzle K-major core-matrix image of both
+//   halves (reduce_image).  The raw rows of a step of 32 pairs arrive as
+//   two 2-D bulk tensor copies (TMA, a tensor map per operand; one bulk
+//   copy a row was 1.5x slower: the copy engine's rate for 512-byte copies)
+//   into a ring of 3 or 4 stages, two steps ahead.  The products of a
+//   K-slice of 16 pairs go into a zeroed partial that a float32 add carries
+//   into the running sum (the tensor cores truncate their own sums), and
+//   the running sum joins the slice's partial in global memory every RSEG
+//   steps (512 pairs) by a reduction instruction of its owner thread (red,
+//   no read back: a load and a store there took a quarter of the time).  A
+//   workspace element crosses L2 -> SM H / BN times as R and H / 128 times
+//   as D: at H = 384, 2 and 3 (the mma.sync kernel this replaced took 128 x
+//   128 tiles, 3 and 3).
 // * siren_bwd_sums_kernel (CUDA cores, float32: these products have C_in,
 //   C_out or one row as their second dimension, almost no flops): dz row
 //   sums, dW_first and dW_head, per slice, in segments of SSEG pairs within
@@ -57,43 +61,77 @@
 //   at most 4 and MAX_C = 16 otherwise.
 // * siren_bwd_fold_kernel: the slices' partials added in slice order into
 //   the outputs.
-// The reduction, the sums and the fold take every H up to WORKSPACE_MAX_H.
+// The reduction, the sums and the fold take every H that is a multiple of
+// 64 up to WORKSPACE_MAX_H, a ragged last tile and a ragged last step.
 //
 // Every partial element has one owner thread, which adds the chunks in
-// order: no atomics, a fixed summation order, bitwise the same result from
-// run to run.
+// order (the reduction's adds are reductions to an element no other thread
+// touches): a fixed summation order, bitwise the same result from run to
+// run.
 //
-// What holds the reduction back (tools/siren_bwd_ablation.py, on an H100,
-// cutting one cost at a time): it spends about 56% of its time in
-// mma.sync.  wgmma (asynchronous, operands from shared memory) is the way
-// past it; TF32 wgmma wants both operands K-major, which the pair-major
-// workspace is not.
+// Bound on the H100 of the reduction: operations.  At Case4 (15 middle
+// layers of 384, 4 x 262144 pairs a CNF batch step) it computes 4.64 TFLOP
+// of products, three times over for 3xTF32 at the dense TF32 rate of 495
+// TFLOP/s: 28.1 ms; it reads 48.3 GB of workspace, 14.4 ms at 3.35 TB/s.
+// It takes 59.5 ms there (2.1x; the mma.sync kernel 104.9), 112 ms at
+// 3 -> 1024 x 16 -> 5 on 4 x 65536 (tools/siren_bwd_ablation.py, an
+// H100).  What still holds it back, cutting one cost at a time: the step's
+// B image through the threads (a load, a split and two 16-byte stores an
+// element; 12 ms at Case4), two of the three products (14 ms: not the
+// tensor rate itself, the waits of a warpgroup on its own subtiles), the
+// sines (5 ms, once for each column tile of the same R element) and the
+// flush (4 ms).  Wider subtiles (one m64n192), partials of 32 pairs and a
+// ring of two stages measured slower or the same.
 //
 // dz (siren_decode_dz_cluster, the DPS guidance gradient) is the cluster
 // chain's dz mode with its fold (siren_chain_cluster.cu,
 // siren_dz_fold.cuh); it needs none of the kernels here.
 // ---------------------------------------------------------------------------
 
+#include <cuda.h>
 #include <stdint.h>
 
+#include "siren_cluster.cuh"
 #include "siren_common.cuh"
-#include "siren_tc.cuh"
 
 namespace {
 
 using siren::sin2pi;
-using namespace siren_tc;  // THREADS (every kernel but the sums), MAX_C
+using namespace siren_cluster;  // THREADS, MAX_C, the mbarriers and the wgmma product
+using tf32mma::smem_addr;
 
 // the widest H of the workspace that the reduction, the sums and the fold
 // take (the cluster chain's, siren_chain_cluster.cu)
 constexpr int WORKSPACE_MAX_H = 3072;
 
 // reduction
-constexpr int RT = 128;          // output tile
-constexpr int RK = 32;           // pairs a step
+constexpr int RM = 128;          // output rows a block (sin2pi(R)'s columns): 64 a warpgroup
+constexpr int RK = 32;           // pairs a step: two K-slices of 16, a tensor copy's rows
 constexpr int RSEG = 16;         // steps summed apart before joining the slice's partial
-constexpr int R_LD = RT + 8;     // split-tile row stride: fragments hit 32 banks
-constexpr int R_CHUNKS = RK * RT / 4 / THREADS;   // 16-byte chunks a thread copies, per operand
+// raw R row stride, the width of R's tensor copy (its last 8 columns are
+// never read): a warp's A fragment loads hit 32 banks
+constexpr int RA_LD = RM + 8;
+
+// the output tile's columns (D's) at width H: 192 where they divide H,
+// else 128 (a ragged last tile is masked)
+__host__ __device__ constexpr int reduce_cols(int H) { return H % 192 == 0 ? 192 : 128; }
+// the columns of a wgmma subtile at each tile width (at tiles of 192, one
+// subtile of 96 or 192 measured slower than three of 64)
+constexpr int SUBN_192 = 64, SUBN_128 = 128;
+// bytes of one raw stage: RK rows of R's RM columns, then RK rows of D's BN
+__host__ __device__ constexpr int raw_bytes(int BN) { return RK * (RA_LD + BN) * 4; }
+// bytes of one step's B image: two K-slices x two k8 steps x big, small
+__host__ __device__ constexpr int image_bytes(int BN) { return RK * BN * 2 * 4; }
+// raw stages in the ring: as many as fit, 2 to 4
+__host__ __device__ constexpr int reduce_stages(int BN) {
+  int ns = 4;
+  while (ns > 2 && ALIGN + ns * raw_bytes(BN) + 2 * image_bytes(BN) + ns * 8 > SMEM_MAX) --ns;
+  return ns;
+}
+__host__ __device__ constexpr int reduce_smem(int BN) {
+  return ALIGN + reduce_stages(BN) * raw_bytes(BN) + 2 * image_bytes(BN) +
+         reduce_stages(BN) * 8;
+}
 
 // sums
 constexpr int STHREADS = 128;
@@ -113,168 +151,278 @@ inline bool workspace_ok(int H, int n_mod, int C_in, int C_out) {
 }
 
 // ---------------------------------------------------------------------------
-// reduction: dW_mid on the tensor cores
+// reduction: dW_mid on wgmma
 // ---------------------------------------------------------------------------
 
-constexpr size_t REDUCE_SMEM = sizeof(float) * (2 * RK * RT + 4 * RK * R_LD);
-
-// the thread's chunk i of a RK x RT step: pair row k, column c
-__device__ __forceinline__ void r_chunk(int i, int& k, int& c) {
-  const int e = threadIdx.x + i * THREADS;
-  k = e / (RT / 4);
-  c = (e % (RT / 4)) * 4;
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-__device__ __forceinline__ void r_issue(float* raw, const float* src, int q, int hi, int col0,
-                                        int H) {
+// The step from pair q0 into a raw stage, by one thread: a box of RK
+// workspace rows (row_a = layer * Qa + q0 of R, row_b of D) by RA_LD
+// columns of R from a0 and one by BN columns of D from b0, each one bulk
+// tensor copy (columns past H and rows past the workspace come as zeros);
+// the stage's barrier expects both boxes.
+template <int BN>
+__device__ __forceinline__ void reduce_fill(uint32_t stage, uint32_t bar, const CUtensorMap* map_r,
+                                            const CUtensorMap* map_d, int row_a, int row_b,
+                                            int a0, int b0) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(raw_bytes(BN))
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(stage),
+      "l"(reinterpret_cast<uint64_t>(map_r)), "r"(a0), "r"(row_a), "r"(bar)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(stage + 4u * RK * RA_LD),
+      "l"(reinterpret_cast<uint64_t>(map_d)), "r"(b0), "r"(row_b), "r"(bar)
+      : "memory");
+}
+
+// A step's B image from its raw D rows (every thread its share; valid: the
+// step's pairs before hi): for each K-slice c, k8 step kk and half, the
+// no-swizzle K-major core matrices the wgmma descriptor reads (b_desc),
+// [n / 8][k / 4][n % 8][4 k], small BN x 32 bytes after big, the k8 steps
+// 2 BN x 32 apart, the K-slices 4 BN x 32.  A thread writes one 16-byte
+// row at a time: pairs 4 r .. 4 r + 3 of column n, zero from valid on.
+// (Mirrored by ops/siren_decode.py::reduce_operand_layout.)
+template <int BN>
+__device__ __forceinline__ void reduce_image(const float* rawB, unsigned char* img, int valid) {
 #pragma unroll
-  for (int i = 0; i < R_CHUNKS; ++i) {
-    int k, c;
-    r_chunk(i, k, c);
-    const bool valid = q + k < hi && col0 + c < H;
-    cp_async16(raw + 4 * (threadIdx.x + i * THREADS),
-               src + (valid ? (size_t)(q + k) * H + col0 + c : 0), valid);
+  for (int i = 0; i < RK * BN / 4 / THREADS; ++i) {
+    const int u = threadIdx.x + i * THREADS;
+    const int r = u / BN, n = u % BN;
+    uint32_t big[4], small[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = 4 * r + e < valid ? rawB[(4 * r + e) * BN + n] : 0.f;
+      tf32mma::split<false>(x, big[e], small[e]);
+    }
+    const int off = (r >> 2) * (128 * BN) + ((r >> 1) & 1) * (64 * BN) + (n >> 3) * 256 +
+                    (r & 1) * 128 + (n & 7) * 16;
+    *reinterpret_cast<uint4*>(img + off) = make_uint4(big[0], big[1], big[2], big[3]);
+    *reinterpret_cast<uint4*>(img + off + 32 * BN) =
+        make_uint4(small[0], small[1], small[2], small[3]);
   }
 }
 
-// the thread's own raw chunks into split tiles [RK][R_LD], through sin2pi
-// for the A operand
-template <bool SIN>
-__device__ __forceinline__ void r_split(const float* raw, float* big, float* small) {
+// The A fragments of K-slice c (16 pairs) straight from a step's raw R
+// rows: A(m, k) = sin2pi(R[q0 + 16 c + k][a0 + m]), zero from valid on;
+// lane (g, t) of warp w of a warpgroup holds rows 16 w + g (+ 8) and
+// columns t (+ 4) of each k8 step (wgmma_tf32).  arow: the block's row
+// 64 wg + 16 w + g.
+__device__ __forceinline__ void reduce_load_a(float (&ar)[2][4], const float* rawA, int arow,
+                                              int t, int c, int valid) {
 #pragma unroll
-  for (int i = 0; i < R_CHUNKS; ++i) {
-    int k, c;
-    r_chunk(i, k, c);
-    float4 x = *reinterpret_cast<const float4*>(raw + 4 * (threadIdx.x + i * THREADS));
-    if constexpr (SIN) x = make_float4(sin2pi(x.x), sin2pi(x.y), sin2pi(x.z), sin2pi(x.w));
-    uint32_t b[4], s[4];
-    split<false>(x.x, b[0], s[0]);
-    split<false>(x.y, b[1], s[1]);
-    split<false>(x.z, b[2], s[2]);
-    split<false>(x.w, b[3], s[3]);
-    *reinterpret_cast<uint4*>(big + k * R_LD + c) = make_uint4(b[0], b[1], b[2], b[3]);
-    *reinterpret_cast<uint4*>(small + k * R_LD + c) = make_uint4(s[0], s[1], s[2], s[3]);
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 16 * c + 8 * kk + t + 4 * (e >> 1);
+      const float x = rawA[k * RA_LD + arow + 8 * (e & 1)];
+      ar[kk][e] = k < valid ? sin2pi(x) : 0.f;
+    }
+}
+
+// d (m64 x nN, f32) = a (m64 x k8, TF32 in registers) . b (k8 x nN, TF32
+// in shared memory, K-major, b_desc) + (scale_d ? d : 0), as
+// siren_cluster.cuh::wgmma_tf32 at N = 64; d[4j + e]: row 16 w + g +
+// 8 (e / 2), column 8 j + 2 t + e % 2.
+template <int N>
+__device__ __forceinline__ void wgmma_n(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc,
+                                        int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_n<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                            int scale_d) {
+  wgmma_tf32(d, a, desc, scale_d);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_n<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// One K-slice's six products for one m64 x SUBN subtile into the partial
+// d, committed as one group (siren_cluster.cuh::issue_slice at any width):
+// for each k8 step small . big (zeroing d at the first), big . small,
+// big . big; b is the subtile's first column in the step's image.
+template <int BN, int SUBN>
+__device__ __forceinline__ void reduce_slice(float (&d)[SUBN / 2], const uint32_t (&ab)[2][4],
+                                             const uint32_t (&as)[2][4], uint32_t b) {
+#pragma unroll
+  for (int i = 0; i < SUBN / 2; ++i) fence_reg(d[i]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const uint32_t img = b + kk * (2 * BN * 32);
+    const uint64_t big = b_desc(img), small = b_desc(img + BN * 32);
+    wgmma_n<SUBN>(d, as[kk], big, kk);
+    wgmma_n<SUBN>(d, ab[kk], small, 1);
+    wgmma_n<SUBN>(d, ab[kk], big, 1);
+  }
+  wgmma_commit();
+}
+
+// acc += a finished partial, in float32 (round to nearest)
+template <int R>
+__device__ __forceinline__ void carry_n(float (&acc)[R], float (&part)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    fence_reg(part[i]);
+    acc[i] += part[i];
   }
 }
 
 // blockIdx.x = (slice * n_mid + layer) * tiles + tile: the tiles of one
 // layer and slice are neighbours, so they run together and share its
-// workspace reads in L2.  Warp (wa, wb) = (w / 4, w % 4) owns rows
-// 64 wa .. + 63 and columns 32 wb .. + 31 of the tile.
+// workspace reads in L2.  A block owns rows a0 .. + RM - 1 (sin2pi(R)'s
+// columns) and columns b0 .. + BN - 1 (D's) of one layer's dW_mid over one
+// slice of the chunk's pairs; warpgroup wg owns rows 64 wg .. + 63 and all
+// BN columns as BN / SUBN m64 x SUBN subtiles.
+//
+// A step of RK pairs: its raw rows come by two tensor copies into stage
+// s % NS of the ring; every thread writes its share of the step's B image
+// (two images take turns) and fences it for the async proxy.  At the
+// step's block barrier the image is whole and every thread is done with
+// step s - 1 (its raw stage, its image, its products), so thread 0 refills
+// that stage with step s - 1 + NS.  The products of each K-slice run
+// subtile by subtile; while the first subtile's run, the thread loads the
+// next K-slice's A fragments, or in the step's last K-slice waits for step
+// s + 1's raw rows and writes its image and first A fragments.  The running
+// sum joins the slice's partial every RSEG steps.
+template <int BN, int SUBN>
 __global__ void __launch_bounds__(THREADS, 1)
-siren_bwd_reduce_kernel(const float* __restrict__ R,
-                        const float* __restrict__ D,
+siren_bwd_reduce_kernel(const __grid_constant__ CUtensorMap map_r,
+                        const __grid_constant__ CUtensorMap map_d,
                         float* __restrict__ parts,
                         long long E, long long dwmid_off, int Q, int Qa, int H, int n_mod,
                         int slices) {
-  extern __shared__ __align__(16) float smem[];
-  float* rawA = smem;
-  float* rawB = rawA + RK * RT;
-  float* Ab = rawB + RK * RT;
-  float* As = Ab + RK * R_LD;
-  float* Bb = As + RK * R_LD;
-  float* Bs = Bb + RK * R_LD;
+  constexpr int NS = reduce_stages(BN);
+  constexpr int NSUB = BN / SUBN, NP = NSUB > 1 ? 2 : 1;   // subtiles, partials
+  static_assert(BN % SUBN == 0 && SUBN % 32 == 0, "whole subtiles");
+  constexpr int RAW = raw_bytes(BN), IMG = image_bytes(BN);
+  static_assert(RK == 32 && RK * BN / 4 % THREADS == 0, "a step's image splits over the block");
+  static_assert(reduce_smem(BN) <= SMEM_MAX, "the tile exceeds a block's shared memory");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~(uintptr_t)(ALIGN - 1));
+  unsigned char* img = base + NS * RAW;
+  const uint32_t raw0 = smem_addr(base), full0 = smem_addr(img + 2 * IMG);
 
   const int n_mid = n_mod - 1;
-  const int tb = (H + RT - 1) / RT;
-  const int tiles = tb * tb;
+  const int tn = (H + BN - 1) / BN;
+  const int tiles = (H + RM - 1) / RM * tn;
   const int tile = blockIdx.x % tiles;
   const int layer = (blockIdx.x / tiles) % n_mid;
   const int slice = blockIdx.x / tiles / n_mid;
-  const int a0 = (tile / tb) * RT, b0 = (tile % tb) * RT;
+  const int a0 = (tile / tn) * RM, b0 = (tile % tn) * BN;
   const int len = slice_len(Q, slices);
   const int lo = slice * len;
   const int hi = min(Q, lo + len);
   if (lo >= hi) return;
 
-  const size_t lstride = (size_t)Qa * H;
-  const float* A = R + layer * lstride;
-  const float* B = D + (layer + 1) * lstride;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wa = warp / 4, wb = warp % 4;
+  const int row_a = layer * Qa + lo, row_b = (layer + 1) * Qa + lo;
+  const int tid = threadIdx.x, lane = tid & 31, t = lane & 3;
+  const int arow = (tid >> 7) * 64 + 16 * ((tid & 127) >> 5) + (lane >> 2);
+  const int steps = (hi - lo + RK - 1) / RK;
 
-  float seg[4][4][4];
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) mbar_init(full0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int u = 0; u < NS && u < steps; ++u)
+      reduce_fill<BN>(raw0 + u * RAW, full0 + 8 * u, &map_r, &map_d, row_a + u * RK,
+                      row_b + u * RK, a0, b0);
+
+  float acc[NSUB][SUBN / 2], part[NP][SUBN / 2];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int j = 0; j < NSUB; ++j)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) seg[mt][nt][e] = 0.f;
+    for (int i = 0; i < SUBN / 2; ++i) acc[j][i] = 0.f;
+  float ar[2][4];
+  // step 0's image and first A fragments
+  mbar_wait(full0, 0);
+  reduce_image<BN>(reinterpret_cast<const float*>(base + RK * RA_LD * 4), img, hi - lo);
+  fence_proxy_async();
+  reduce_load_a(ar, reinterpret_cast<const float*>(base), arow, t, 0, hi - lo);
 
   float* out = parts + (size_t)slice * E + dwmid_off + (size_t)layer * H * H;
-  const int steps = (hi - lo + RK - 1) / RK;
-  r_issue(rawA, A, lo, hi, a0, H);
-  r_issue(rawB, B, lo, hi, b0, H);
-  cp_async_commit();
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait_all();
-    __syncthreads();  // every warp is done with the split tiles of the step before
-    r_split<true>(rawA, Ab, As);
-    r_split<false>(rawB, Bb, Bs);
-    if (step + 1 < steps) {  // the raw chunks are the thread's own: reuse at once
-      r_issue(rawA, A, lo + (step + 1) * RK, hi, a0, H);
-      r_issue(rawB, B, lo + (step + 1) * RK, hi, b0, H);
+  for (int s = 0; s < steps; ++s) {
+    const int q0 = lo + s * RK;
+    const float* rawA = reinterpret_cast<const float*>(base + (s % NS) * RAW);
+    const uint32_t ib = smem_addr(img + (s & 1) * IMG);
+    __syncthreads();  // the step's image is whole; every thread is done with step s - 1
+    if (tid == 0 && s > 0 && s - 1 + NS < steps) {
+      const int u = s - 1 + NS;
+      fence_proxy_async();  // the stage's generic reads before the async proxy's refill
+      reduce_fill<BN>(raw0 + (u % NS) * RAW, full0 + 8 * (u % NS), &map_r, &map_d,
+                      row_a + u * RK, row_b + u * RK, a0, b0);
     }
-    cp_async_commit();
-    __syncthreads();
-    // two k8 steps (16 pairs) a zeroed partial per fragment
 #pragma unroll
-    for (int k16 = 0; k16 < RK / 16; ++k16) {
-      // A (16 x 8) = sin2pi(R)^T: element (a, q) at split tile [q][a]
-      uint32_t ab[2][4][4], as[2][4][4];
+    for (int c = 0; c < 2; ++c) {
+      uint32_t ab[2][4], as[2][4];
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          const int o = (k16 * 16 + kk * 8 + t) * R_LD + wa * 64 + mt * 16 + g;
-          ab[kk][mt][0] = __float_as_uint(Ab[o]);
-          ab[kk][mt][1] = __float_as_uint(Ab[o + 8]);
-          ab[kk][mt][2] = __float_as_uint(Ab[o + 4 * R_LD]);
-          ab[kk][mt][3] = __float_as_uint(Ab[o + 4 * R_LD + 8]);
-          as[kk][mt][0] = __float_as_uint(As[o]);
-          as[kk][mt][1] = __float_as_uint(As[o + 8]);
-          as[kk][mt][2] = __float_as_uint(As[o + 4 * R_LD]);
-          as[kk][mt][3] = __float_as_uint(As[o + 4 * R_LD + 8]);
-        }
+        for (int e = 0; e < 4; ++e) tf32mma::split<false>(ar[kk][e], ab[kk][e], as[kk][e]);
+      // subtile j's products go into partial j % 2 while the sum of
+      // subtile j - 1's is carried into its accumulators
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        // B (8 x 8) = D: element (q, b) at split tile [q][b]
-        uint32_t bb[2][2], bs[2][2];
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          const int o = (k16 * 16 + kk * 8 + t) * R_LD + wb * 32 + nt * 8 + g;
-          bb[kk][0] = __float_as_uint(Bb[o]);
-          bb[kk][1] = __float_as_uint(Bb[o + 4 * R_LD]);
-          bs[kk][0] = __float_as_uint(Bs[o]);
-          bs[kk][1] = __float_as_uint(Bs[o + 4 * R_LD]);
-        }
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          float part[4] = {0.f, 0.f, 0.f, 0.f};
-          mma3_into<false, false>(part, ab[0][mt], as[0][mt], bb[0], bs[0]);
-          mma3_into<false, false>(part, ab[1][mt], as[1][mt], bb[1], bs[1]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) seg[mt][nt][e] += part[e];
+      for (int j = 0; j < NSUB; ++j) {
+        reduce_slice<BN, SUBN>(part[j % NP], ab, as, ib + c * (128 * BN) + j * (SUBN * 32));
+        if (j > 0) {
+          wgmma_wait<1>();
+          carry_n(acc[j - 1], part[(j - 1) % NP]);
+        } else if (c == 0) {  // the thread's other work while the products run
+          reduce_load_a(ar, rawA, arow, t, 1, hi - q0);
+        } else if (s + 1 < steps) {
+          const int sn = s + 1;
+          const unsigned char* raw_n = base + (sn % NS) * RAW;
+          mbar_wait(full0 + 8 * (sn % NS), (sn / NS) & 1);
+          reduce_image<BN>(reinterpret_cast<const float*>(raw_n + RK * RA_LD * 4),
+                           img + (sn & 1) * IMG, hi - q0 - RK);
+          fence_proxy_async();
+          reduce_load_a(ar, reinterpret_cast<const float*>(raw_n), arow, t, 0, hi - q0 - RK);
         }
       }
+      wgmma_wait<0>();
+      carry_n(acc[NSUB - 1], part[(NSUB - 1) % NP]);
     }
-    if ((step + 1) % RSEG == 0 || step + 1 == steps) {
+    if ((s + 1) % RSEG == 0 || s + 1 == steps) {
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
+      for (int j = 0; j < NSUB; ++j)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int a = a0 + wa * 64 + mt * 16 + g + 8 * h;
-            const int b = b0 + wb * 32 + nt * 8 + 2 * t;
-            if (a < H && b < H) {
-              float2* p = reinterpret_cast<float2*>(out + (size_t)a * H + b);
-              const float2 v = *p;
-              *p = make_float2(v.x + seg[mt][nt][2 * h], v.y + seg[mt][nt][2 * h + 1]);
-            }
-            seg[mt][nt][2 * h] = seg[mt][nt][2 * h + 1] = 0.f;
-          }
+        for (int i = 0; i < SUBN / 2; i += 2) {
+          const int a = a0 + arow + 8 * ((i >> 1) & 1);
+          const int b = b0 + SUBN * j + (i >> 2) * 8 + 2 * t;
+          if (a < H && b < H)   // a reduction, no read back: the owner's adds in order
+            atomicAdd(reinterpret_cast<float2*>(out + (size_t)a * H + b),
+                      make_float2(acc[j][i], acc[j][i + 1]));
+          acc[j][i] = acc[j][i + 1] = 0.f;
+        }
     }
   }
 }
@@ -406,23 +554,74 @@ siren_bwd_fold_kernel(const float* __restrict__ parts, float* __restrict__ out, 
   }
 }
 
+// cuTensorMapEncodeTiled, looked up once through the runtime (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A workspace (rows x H floats, row-major) as boxes of RK rows by cols
+// columns, no swizzle, zeros outside it
+inline int workspace_map(CUtensorMap* map, const float* base, long long rows, int H, int cols) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dim[2] = {(cuuint64_t)H, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)H * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)cols, (cuuint32_t)RK};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
+                            dim, stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int BN, int SUBN>
+int launch_reduce(const float* R, const float* D, float* parts, long long E, long long dwmid_off,
+                  int Q, int Qa, int H, int n_mod, int slices, cudaStream_t stream) {
+  static unsigned long long done = 0;
+  cudaError_t err =
+      tf32mma::allow_smem(siren_bwd_reduce_kernel<BN, SUBN>, reduce_smem(BN), done);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_r, map_d;
+  int bad = workspace_map(&map_r, R, (long long)n_mod * Qa, H, RA_LD);
+  if (bad == 0) bad = workspace_map(&map_d, D, (long long)n_mod * Qa, H, BN);
+  if (bad != 0) return bad;
+  const long long tiles = (long long)((H + RM - 1) / RM) * ((H + BN - 1) / BN);
+  const unsigned int blocks = (unsigned int)(tiles * (n_mod - 1) * slices);
+  siren_bwd_reduce_kernel<BN, SUBN><<<blocks, THREADS, reduce_smem(BN), stream>>>(
+      map_r, map_d, parts, E, dwmid_off, Q, Qa, H, n_mod, slices);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// the columns of the reduction's output tile at width H (128 or 192)
+int siren_bwd_reduce_cols(int H) { return reduce_cols(H); }
 
 int siren_bwd_reduce(const float* R, const float* D, float* parts, long long E,
                      long long dwmid_off, int Q, int Qa, int H, int n_mod, int slices,
                      void* stream) {
   if (!workspace_ok(H, n_mod, 1, 1) || n_mod < 2 || Q <= 0 || Qa < Q || slices < 1)
     return (int)cudaErrorInvalidValue;
-  static unsigned long long done = 0;
-  cudaError_t err = allow_smem(siren_bwd_reduce_kernel, REDUCE_SMEM, done);
-  if (err != cudaSuccess) return (int)err;
-  const int tb = (H + RT - 1) / RT;
-  const unsigned int blocks = (unsigned int)(tb * tb * (n_mod - 1) * slices);
-  siren_bwd_reduce_kernel<<<blocks, THREADS, REDUCE_SMEM, (cudaStream_t)stream>>>(
-      R, D, parts, E, dwmid_off, Q, Qa, H, n_mod, slices);
-  return (int)cudaGetLastError();
+  const auto launch = reduce_cols(H) == 192 ? launch_reduce<192, SUBN_192>
+                                             : launch_reduce<128, SUBN_128>;
+  return launch(R, D, parts, E, dwmid_off, Q, Qa, H, n_mod, slices, (cudaStream_t)stream);
 }
 
 int siren_bwd_sums(const float* R, const float* D, const float* coords, const float* g,

@@ -1,14 +1,13 @@
-// The block shape of the SIREN-FiLM bf16 forward (siren_decode.cu), and the
-// constants and helpers that it and the training backward's reduction and
-// sums (siren_decode_bwd.cu) share: a block of eight warps, at most MAX_C
-// coordinates and outputs.
+// The block shape of the SIREN-FiLM bf16 forward (siren_decode.cu) and its
+// constants: a block of eight warps, at most MAX_C coordinates and outputs.
 //
 // A block of the bf16 forward owns block_pairs(H) (row, point) pairs (the M
 // dimension of every product: 64 up to H = 384, 32 at 448 and 512, 16 from
 // 576 to 1024) and keeps their activations in shared memory.  Eight warps
 // each own H / 8 output columns for all of the block's rows, 4 * m_tiles *
 // H / 64 accumulators a thread.  The float32 forward and the chain of dz and
-// the training backward are the cluster kernels' (siren_cluster.cuh).
+// the training backward are the cluster kernels' (siren_cluster.cuh), the
+// training backward's reduction is on wgmma too (siren_decode_bwd.cu).
 #pragma once
 
 #include <stdint.h>

@@ -37,9 +37,11 @@ Kernels:
   cotangent (``dz`` and the weight gradients of the first, middle and head
   layers): per chunk of ``BWD_PAIRS`` pairs the same cluster chain in its
   training mode (``siren_bwd_chain_cluster``), which writes every
-  pre-activation and dpre to a workspace, then the reduction and the sums
-  of that workspace (``csrc/siren_decode_bwd.cu``); the fold of their
-  partials at the end.
+  pre-activation and dpre to a workspace, then the reduction of
+  ``dW_mid`` (``wgmma`` with ``sin2pi(R)^T`` in registers and ``D``
+  transposed into its K-major image, :func:`reduce_operand_layout`) and
+  the sums of that workspace (``csrc/siren_decode_bwd.cu``); the fold of
+  their partials at the end.
 
 As in the JAX package, the FiLM table and the folding stay outside the
 kernels: the autograd functions take the folded operands, and autograd
@@ -304,6 +306,33 @@ def cluster_chain_weight_layout(w_mid: torch.Tensor, share: int) -> torch.Tensor
     return cluster_weight_layout(torch.cat([w_mid, w_mid.transpose(1, 2).flip(0)]), share)
 
 
+# pairs a step of the training backward's reduction (csrc/siren_decode_bwd.cu)
+REDUCE_STEP = 32
+
+
+def reduce_cols(h: int) -> int:
+    """The columns (D's) of the reduction's output tile at workspace width
+    ``h`` (``csrc/siren_decode_bwd.cu::reduce_cols``): 192 where they divide
+    ``h``, else 128."""
+    return 192 if h % 192 == 0 else 128
+
+
+def reduce_operand_layout(d: torch.Tensor, q0: int, hi: int, b0: int, cols: int) -> torch.Tensor:
+    """What the reduction writes, flat, as the B image of the step of
+    ``REDUCE_STEP`` pairs from ``q0`` of one layer's dpre ``d`` (pairs x
+    H, pair-major) for its output tile's ``cols`` columns from ``b0``
+    (``csrc/siren_decode_bwd.cu::reduce_image``): for each K-slice of 16
+    pairs, k8 step and TF32 half (big, small), the no-swizzle K-major core
+    matrices ``[n / 8][k / 4][n % 8][k % 4]``; pairs from ``hi`` on are
+    zero, and so (here) are columns past H."""
+    x = torch.zeros((REDUCE_STEP, cols), dtype=torch.float32)
+    rows, width = max(0, min(REDUCE_STEP, hi - q0)), max(0, min(cols, d.shape[1] - b0))
+    x[:rows, :width] = d[q0:q0 + rows, b0:b0 + width]
+    halves = torch.stack(tf32_split(x)).view(2, 2, 2, 2, 4, cols // 8, 8)
+    # (half, slice, k8, k / 4, k % 4, n / 8, n % 8) -> the image order
+    return halves.permute(1, 2, 0, 5, 3, 6, 4).reshape(-1)
+
+
 def kernel_hidden_width(h: int, c_in: int, c_out: int, family: str) -> int:
     """The hidden width the ``family`` kernel (a key of ``FAMILIES``) runs
     a decoder of ``h`` units at: for the float32 families
@@ -376,6 +405,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib = cuda_build.load("siren_decode_bwd")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, args in (
+            ("siren_bwd_reduce_cols", [i]),
             ("siren_bwd_reduce", [p] * 3 + [ll, ll] + [i] * 5 + [p]),
             ("siren_bwd_sums", [p] * 5 + [ll] * 4 + [i] * 9 + [p]),
             ("siren_bwd_fold", [p, p, ll, i, p])):
@@ -681,7 +711,7 @@ def decode_bwd(coords, z, g, w_first, w_mid, w_head):
     operands padded to the kernels' hidden width: the weights prepared
     once, then per chunk of ``BWD_PAIRS`` (row, point) pairs the cluster
     chain in its training mode (``csrc/siren_chain_cluster.cu``), the
-    tensor-core reduction and the CUDA-core sums, then the fold of the
+    ``wgmma`` reduction and the CUDA-core sums, then the fold of the
     ``BWD_SLICES`` partials (``csrc/siren_decode_bwd.cu``)."""
     if coords.device.type == "cpu":
         return decode_bwd_plain(coords, z, g, w_first, w_mid, w_head)

@@ -10,10 +10,12 @@ emulated here on ``decode_bwd_plain``'s layer walk:
 * the chain (forward recompute and dx chain): each product is a sum of
   zeroed partials, one per K-slice of 16 (two k8 steps) of the hidden
   axis, carried by float32 adds in k order;
-* the reduction ``dW_mid[l-1] = sin2pi(r_{l-1})^T . dpre_l``: a partial per
-  16 pairs, ``RED_SEG`` steps of ``RED_STEP`` pairs summed
-  apart before they join a slice's total, ``BWD_SLICES`` slices of the
-  chunk added in order at the end;
+* the reduction ``dW_mid[l-1] = sin2pi(r_{l-1})^T . dpre_l`` (``wgmma``,
+  ``sin2pi(r)^T`` in registers, dpre through its K-major image): a zeroed
+  partial per K-slice of 16 pairs (two k8 steps) carried by a float32 add
+  into the running sum, which joins a slice's total every ``RED_SEG`` steps
+  of ``RED_STEP`` pairs, ``BWD_SLICES`` slices of the chunk added in order
+  at the end;
 * dz, dW_first and dW_head (CUDA cores, float32): segment sums of
   ``SUM_SEG`` pairs within a row and a slice, the slices added in order.
 
@@ -38,8 +40,9 @@ CASE4 = dict(in_coord_features=3, in_latent_features=384, out_features=3,
              num_hidden_layers=15, hidden_features=384, w0=30.0)
 ROWS, POINTS = 2, 128
 # siren_decode_bwd.cu: pairs per step of the reduction (RK), steps summed
-# apart (RSEG), pairs per segment of the CUDA-core sums (SSEG)
-RED_STEP, RED_SEG, SUM_SEG = 32, 16, 512
+# apart (RSEG), pairs per segment of the CUDA-core sums (SSEG); pairs a
+# partial of the reduction sums on the tensor cores (a K-slice, two k8 steps)
+RED_STEP, RED_SEG, SUM_SEG, RED_PARTIAL = 32, 16, 512, 16
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -112,7 +115,7 @@ def _reduce_mm(mm, a, b, slices):
             seg = np.zeros_like(total)
             e = min(hi, s0 + RED_STEP * RED_SEG)
             at, bt = _np(a[s0:e].T), _np(b[s0:e])
-            for k in range(0, e - s0, 16):
+            for k in range(0, e - s0, RED_PARTIAL):
                 seg = seg + _partial(mm, at, bt, k)
             total = total + seg
         parts.append(total)
@@ -251,7 +254,8 @@ def test_emulation_follows_the_plain_version():
                                    atol=1e-4 * b.abs().max().item(), err_msg=name)
 
 
-@pytest.mark.parametrize("q,slices", [(256, 16), (65536, 16), (1000, 3), (31, 16)])
+@pytest.mark.parametrize("q,slices", [(256, 16), (65536, 16), (1000, 3), (31, 16), (4097, 16),
+                                      (62000, 16)])
 def test_slices_cover_the_chunk_once(q, slices):
     """The slices partition the chunk in order, each a whole number of
     reduction steps but the last."""
@@ -260,3 +264,49 @@ def test_slices_cover_the_chunk_once(q, slices):
     covered = [i for lo, hi in ranges for i in range(lo, hi)]
     assert covered == list(range(q))
     assert all((hi - lo) % RED_STEP == 0 for lo, hi in ranges[:-1] if hi < q)
+
+
+def test_reduction_constants_mirror_the_module():
+    """The emulation's step and the module's mirror of the kernel's
+    (``REDUCE_STEP``) agree, and a partial spans whole k8 steps within a
+    step."""
+    assert tsd.REDUCE_STEP == RED_STEP and RED_STEP % RED_PARTIAL == 0
+    assert RED_PARTIAL % 8 == 0
+
+
+def _image_index(cols):
+    """Where the wgmma descriptor (no swizzle, K-major, 128-byte leading and
+    256-byte stride offsets: ``csrc/siren_cluster.cuh::b_desc``) reads
+    element (pair k, column n) of a step's big image, in floats: K-slices
+    of 16 pairs 4 x 32 x cols bytes apart, k8 steps 2 x 32 x cols, the small
+    half 32 x cols after the big."""
+    k, n = torch.meshgrid(torch.arange(RED_STEP), torch.arange(cols), indexing="ij")
+    return ((k // 16) * 32 * cols + (k // 8 % 2) * 16 * cols + (n // 8) * 64 + (k % 8 // 4) * 32
+            + (n % 8) * 4 + k % 4)
+
+
+@pytest.mark.parametrize("h,q0,hi", [(128, 0, 32), (384, 64, 90), (1024, 32, 64),
+                                     (3072, 0, 17), (320, 32, 64)])
+def test_reduce_operand_layout(h, q0, hi):
+    """The reduction's B image of one step for every column tile of a
+    width (ragged at 320, zero past ``hi``): read back through the
+    descriptor's addressing it gives dpre's TF32 halves exactly, every
+    float of the image is read once, and the columns are 192 where they
+    divide H, else 128."""
+    cols = tsd.reduce_cols(h)
+    assert cols == (192 if h % 192 == 0 else 128)
+    rng = np.random.default_rng(h)
+    d = torch.from_numpy(rng.standard_normal((q0 + 2 * RED_STEP, h)).astype(np.float32))
+    halves = tsd.tf32_split(d)
+    idx = _image_index(cols)
+    assert torch.cat([idx.flatten(), idx.flatten() + 8 * cols]).unique().numel() == \
+        2 * RED_STEP * cols
+    rows = min(RED_STEP, hi - q0)
+    for b0 in range(0, h, cols):
+        image = tsd.reduce_operand_layout(d, q0, hi, b0, cols)
+        assert image.numel() == 2 * RED_STEP * cols
+        width = min(cols, h - b0)
+        for half, want in enumerate(halves):
+            expect = torch.zeros((RED_STEP, cols))
+            expect[:rows, :width] = want[q0:q0 + rows, b0:b0 + width]
+            assert torch.equal(image[idx + half * 8 * cols], expect)

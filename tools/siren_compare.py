@@ -2,7 +2,7 @@
 """The SIREN-FiLM kernels of two checkouts of the port on one card, in
 turns: the other tree, this one, this one, the other.
 
-    python3 tools/siren_compare.py OTHER_TREE [--kernels forward|chain|steps]
+    python3 tools/siren_compare.py OTHER_TREE [--kernels forward|chain|bwd|steps]
         [--decoder wide|case4] [--hidden 1024[,384,...]] [--rows 4[,16]]
         [--points 262144] [--sensors 1000]
 
@@ -21,7 +21,11 @@ x ``--sensors``, the guided step's operator, and the training backward
 more process a tree holds the float32 kernels at the narrow widths against
 float64 (``chip_smoke.py`` phases 3, 4 and 7's Case4 shapes and phase 16a's
 H = 448 and 512 decoders) and prints both trees' errors side by side.
-``--kernels steps`` times what the Case4 users wait on (one process a tree
+``--kernels bwd`` times the training backward alone (``chip_smoke.bwd_time``)
+on fixed shapes, with its chain's, reduction's and sums' device times:
+Case4's decoder at H = 384, 128, 256 and 512 and the wide recipe's 3 ->
+1024 x 16 -> 5 at 4 x 262144, and six modulated layers of 3072 (3 -> 5) at
+4 x 65536.  ``--kernels steps`` times what the Case4 users wait on (one process a tree
 in turns, as above): phase 9's CNF batch step (``CNFTrainer._run_epoch`` on
 one batch of 4 x 262144 with its decoder step, median of 5) and phase 6's
 guided step at 1024 sensors with the operator on the kernels (median of 3
@@ -84,6 +88,32 @@ with torch.no_grad():
         for r, p in sorted({(4, 65536)} | {(r, points) for r in rows}):
             out[f"bwd@H{h}@{r}x{p}"] = cs.bwd_time(model, device, r, p, seed=39, repeats=3)
 """,
+    "bwd": "FAMILY_LIBS = ('siren_decode_bwd', 'siren_chain_cluster')\n" + HEAD + r"""
+import re
+lines, log = [], cs.log
+cs.log = lambda msg: (lines.append(msg), log(msg))
+# Case4's decoder at 384 and at the narrow plans, the wide recipe's 1024 x
+# 16 -> 5 (4 x 262144), and six layers of 3072 (4 x 65536, phase 19's)
+shapes = [(f"case4@H{h}", lambda h=h: SirenFilm(**dict(cs.CASE4_CNF, hidden_features=h),
+                                                generator=torch.Generator().manual_seed(1)),
+           262144) for h in (384, 128, 256, 512)]
+shapes += [("wide@H1024", lambda: SirenFilm(**dict(cs.WIDE_CNF, hidden_features=1024),
+                                            generator=torch.Generator().manual_seed(19)),
+            262144),
+           ("six@H3072", lambda: cs.check_decoder(device, 3, 5, 5, 3072)[0], 65536)]
+out = {}
+with torch.no_grad():
+    for key, make, p in shapes:
+        model = make().to(device).requires_grad_(False)
+        del lines[:]
+        out[f"bwd@{key}@4x{p}"] = r = cs.bwd_time(model, device, 4, p, seed=39, repeats=3)
+        for part in ("chain", "reduce", "sums"):
+            found = [float(m.group(1)) for m in (
+                re.match(rf"\[bwd-time\] {part}: ([0-9.]+) ms device", x) for x in lines) if m]
+            r[f"{part}_device_ms"] = found[0]
+        del model
+        torch.cuda.empty_cache()
+""",
     "steps": "FAMILY_LIBS = ('siren_fwd_cluster', 'siren_decode_bwd', 'siren_chain_cluster')\n"
     + HEAD + r"""
 import os, tempfile
@@ -138,7 +168,9 @@ out["guided_step_1024"] = timed(
 """,
 }
 TAIL = r"""
-print("TURN " + json.dumps({k: {n: v[n] for n in ("ms", "plain_ms", "bound_ms", "device_ms")
+print("TURN " + json.dumps({k: {n: v[n] for n in ("ms", "plain_ms", "bound_ms", "device_ms",
+                                                   "chain_device_ms", "reduce_device_ms",
+                                                   "sums_device_ms")
                                 if n in v} for k, v in out.items()}))
 """
 
@@ -198,8 +230,10 @@ def main() -> int:
                "hidden": args.hidden, "other_tree": str(other),
                **{f"{key}_{label}_ms": [r[key]["ms"] for r in rs]
                   for key in first for label, rs in runs.items()},
-               **{f"{key}_{label}_device_ms": [r[key]["device_ms"] for r in rs]
-                  for key in first if "device_ms" in first[key] for label, rs in runs.items()},
+               **{f"{key}_{label}_{n}": [r[key][n] for r in rs]
+                  for key in first for n in ("device_ms", "chain_device_ms", "reduce_device_ms",
+                                             "sums_device_ms")
+                  if n in first[key] for label, rs in runs.items()},
                **{f"{key}_{n}": first[key][n] for key in first for n in ("plain_ms", "bound_ms")
                   if n in first[key]}}
     if args.kernels == "chain":
