@@ -10,11 +10,11 @@ Phases, each fatal on failure:
    process per source, all started together (timed; ptxas registers and
    spills, and for the flash and SIREN tensor-core kernels the count of
    ``HMMA`` and ``HGMMA`` instructions in ``cuobjdump -sass``: every flash
-   forward and backward instantiation and every instantiation of the bf16
-   SIREN forward must have some, every instantiation of the SIREN cluster
-   kernels (the float32 forward, the chain in its training mode and in its
-   dz mode) and of the training backward's reduction some ``HGMMA``, the
-   reduction no ``HMMA``, and each of its tile widths an instantiation);
+   forward and backward instantiation must have some, every instantiation
+   of the SIREN cluster kernels (the float32 and bf16 forwards, the chain
+   in its training mode and in its dz mode) and of the training backward's
+   reduction some ``HGMMA``, the reduction and the bf16 forward no
+   ``HMMA``, and each of the reduction's tile widths an instantiation);
 3. forward decode kernel against its plain version and a float64 run under
    the JAX tests' criterion ``err_kernel <= 2 * err_plain_f32 + 1e-6`` (each
    error printed as a share of its limit), two launches bitwise equal: at
@@ -150,12 +150,16 @@ Phases, each fatal on failure:
     Launch counts are zeroed before and read after each CLI run; the flash
     forward must launch in (a) and the SIREN forward in (b).
 15. bf16 and rematerialization, at full width:
-    (a) the bf16 SIREN forward kernel (``compute_dtype`` bfloat16) against
+    (a) the bf16 SIREN forward kernel (``compute_dtype`` bfloat16: the
+    cluster kernel's bf16 mode, ``siren_fwd_cluster_bf16_kernel``) against
     its plain version (relative L2 1e-2) at 16 x 262144 and 384 x 10 on
     Case4's decoder, two launches bitwise equal, its float64 error beside
-    the float32 kernel's; its time (median of 7) at 16 x 262144 and 4 x
-    262144 beside the float32 kernel's in the same run and the plain bf16
-    version's, with its bound at the dense bf16 tensor-core rate; one
+    the float32 kernel's, its plan, registers, spills and shared memory,
+    and the instantiation a profiled call ran held to the plan's (every
+    bf16 check does all this); its time (median of 7) at 16 x 262144 and 4
+    x 262144 beside the float32 kernel's in the same run and the plain bf16
+    version's, with its bound at the dense bf16 tensor-core rate and the
+    L2 bytes of its weight stream; one
     ``fused_siren_decode_frozen(..., compute_dtype=bf16)`` forward and its
     dz backward at 384 x 1024 (counts zeroed before, read after: the bf16
     forward and dz kernels must launch), its gradient equal to the float32
@@ -183,8 +187,10 @@ Phases, each fatal on failure:
     4 x 16384 and a ragged 3 x 3001, dz at 64 x 1024 (also against the
     training backward's) and a ragged 100 x 3000 (rows cut across
     clusters and chunks), the training backward at 4 x 16384, under the
-    criteria of phases 3, 4 and 7 with bitwise repeats, and at 448 and 512
-    the bf16 forward at 4 x 16384 under phase 15's; each width's plan,
+    criteria of phases 3, 4 and 7 with bitwise repeats, and the bf16
+    forward at 4 x 16384 under phase 15's at each of these widths and
+    alone at 192 (one block of 192 columns, also a ragged 3 x 3001); each
+    width's plan,
     registers, spills and clusters the card holds at once; the launches of
     each width's checks (zeroed before, read after), and the kernel
     instantiations a profiled forward, dz and training backward ran, which
@@ -290,9 +296,8 @@ Phases, each fatal on failure:
     Phase 18's flash launches are added to the kernels' counts, and so are
     the SIREN launches of its FiLM run.
 19. the SIREN kernels at every width a FiLM recipe may ask for (hidden
-    widths up to 1024, the float32 forward up to 3072, up to 16
-    coordinates and outputs; blocks of 16 pairs above 512 in the bf16
-    forward), on
+    widths up to 1024, the float32 and bf16 forwards up to 3072, up to 16
+    coordinates and outputs), on
     ``recipes/cnf/case4.yml`` with ``hidden_features`` 1024 and
     ``out_features`` 5 (``WIDE_CNF``: 3 -> 1024 x 16 modulated layers -> 5,
     which the kernels refused before):
@@ -308,7 +313,8 @@ Phases, each fatal on failure:
     training backward's) and the training backward at 4 x 65536; each
     width's registers, spills and shared memory;
     (e) at ``WIDE_CNF`` the float32 forward, the training backward and the
-    bf16 forward at 4 x 262144 and dz at 384 x 1000 timed (medians of 3,
+    bf16 forward at 4 x 262144 (the bf16 beside the float32 kernel in the
+    same call) and dz at 384 x 1000 timed (medians of 3,
     beside their bounds and plain versions; the plain training backward
     over chunks of the points), and the forward and training backward of
     the two C = 16 decoders at 4 x 65536;
@@ -326,21 +332,23 @@ Phases, each fatal on failure:
     after) are the H = 1024 rows' counts; (e) also times the forward at
     the shapes they launch it at (4 x 65536, 384 x 1000, 16 x 4096) and
     the training backward at 4 x 65536;
-    (f) the float32 forward and the chain of dz and the training backward
-    are thread-block cluster kernels at every width
+    (f) the float32 and bf16 forwards and the chain of dz and the training
+    backward are thread-block cluster kernels at every width
     (``csrc/siren_fwd_cluster.cu``, ``csrc/siren_chain_cluster.cu``:
     wgmma, bulk asynchronous copies, distributed shared memory), so (a)'s
     checks hold them, and they are also checked alone: their plan at every
-    width 64..3072 equal to the built library's, their
-    weight preparations bitwise against the plain layouts at 576, 1024,
-    2048 and 3072, the forward, dz and the training backward against their
-    plain versions and float64 at 1536, 2048 and 3072 (3 -> 5, six
-    modulated layers; a ragged 3 x 3001 forward at 2048; bitwise repeats),
-    dz and the training backward also on decoders of one and two modulated
-    layers at 640, 2048 and 3072, and timed (medians of 3, SM clocks, the
-    stream bytes) at 2048 with ``WIDE_CNF``'s depth at 4 x 262144 (the
-    forward) and at 3072 at six layers; the SASS scan counts their wgmma
-    (HGMMA) instructions;
+    width 64..3072 equal to the built library's (with both forwards'
+    rings and shared memory), their weight preparations (the bf16
+    forward's too) bitwise against the plain layouts at 576, 1024, 2048
+    and 3072, the float32 and bf16 forwards, dz and the training backward
+    against their plain versions and float64 at 1536, 2048 and 3072 (3 ->
+    5, six modulated layers; ragged 3 x 3001 forwards at 2048; bitwise
+    repeats), the bf16 forward also at 1152 (six blocks of 192), dz and the
+    training backward also on decoders of one and two modulated layers at
+    640, 2048 and 3072, and timed (medians of 3, SM clocks, the stream
+    bytes) at 2048 with ``WIDE_CNF``'s depth at 4 x 262144 (the float32
+    and bf16 forwards) and at 3072 at six layers (the bf16 forward too, at
+    4 x 65536); the SASS scan counts their wgmma (HGMMA) instructions;
     (g) a decoder of ``WIDE_CNF``'s depth at H = 2048 through
     ``inference.CNF_inference`` (16 rows x 4096 points, against its plain
     route): its launches are the H = 2048 row's.
@@ -348,9 +356,10 @@ Phases, each fatal on failure:
 The script imports nothing of JAX or of ``confild_tpu``.  With no CUDA
 device it exits non-zero and prints no result.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists every kernel
-(the rows at H = 448 and 512, at C = 16 and at H = 3072 with 0 launches:
-no main path runs them; the rows at H = 128 with the demo ``--fast``'s
-launches, phase 16c; the rows at H = 1024 and 2048 with phase 19's); the
+(the rows at H = 448 and 512, at C = 16, at H = 3072 and the bf16 rows
+above 384 with 0 launches: no main path runs them; the rows at H = 128
+with the demo ``--fast``'s launches, phase 16c; the float32 rows at H =
+1024 and 2048 with phase 19's); the
 card's name and power limit, the build's seconds and the script's total
 come before it.
 """
@@ -445,12 +454,6 @@ ACT_FLOPS = 15
 # ptxas's report of each kernel instantiation ("N registers, ..."), filled
 # by phase 2
 PTXAS = {}
-
-
-def bf16_block_pairs(h: int) -> int:
-    """Pairs a block of the bf16 SIREN forward owns at hidden width ``h``,
-    as the built library reports it."""
-    return sd._library().siren_fwd_bf16_pairs(h)
 
 
 def log(msg: str) -> None:
@@ -549,8 +552,8 @@ def phase_device():
 
 
 def kernel_label(line: str) -> str | None:
-    """``flash_bwd_dq_kernel<64, f32>``, ``siren_fwd_bf16_kernel<6>``,
-    ``siren_fwd_cluster_kernel<256, 2>`` or
+    """``flash_bwd_dq_kernel<64, f32>``, ``siren_fwd_cluster_kernel<256, 2>``,
+    ``siren_fwd_cluster_bf16_kernel<256, 2>`` or
     ``siren_chain_cluster_kernel<256, 2, dz>`` (its training mode ``bwd``)
     from a line holding a kernel's mangled name, or None."""
     chain = re.search(r"(siren_chain_cluster_kernel)ILi(\d+)ELi(\d+)ELb([01])E", line)
@@ -616,12 +619,14 @@ def tc_label(counts: dict) -> str:
 
 # kernels whose every instantiation must run its products on the tensor
 # cores: mma.sync (HMMA), and wgmma (HGMMA) for the cluster kernels and the
-# training backward's reduction, which has no mma.sync at all
-CLUSTER_KERNELS = ("siren_fwd_cluster_kernel", "siren_chain_cluster_kernel")
-WGMMA_ONLY_KERNELS = ("siren_bwd_reduce_kernel",)
-WGMMA_KERNELS = CLUSTER_KERNELS + WGMMA_ONLY_KERNELS
-TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                       "siren_fwd_bf16_kernel") + WGMMA_KERNELS
+# training backward's reduction; the reduction and the bf16 forward have no
+# mma.sync at all
+BF16_FWD_KERNEL = "siren_fwd_cluster_bf16_kernel"
+CLUSTER_KERNELS = ("siren_fwd_cluster_kernel", "siren_chain_cluster_kernel", BF16_FWD_KERNEL)
+WGMMA_ONLY_KERNELS = ("siren_bwd_reduce_kernel", BF16_FWD_KERNEL)
+WGMMA_KERNELS = CLUSTER_KERNELS + WGMMA_ONLY_KERNELS[:1]
+TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                       "flash_bwd_dkv_kernel") + WGMMA_KERNELS
 # the reduction's instantiations, ``<tile columns, subtile columns>``, one a
 # tile width (csrc/siren_decode_bwd.cu::reduce_cols), both launched by the
 # main paths (128 at H = 128, 512 and 1024; 192 at Case4's 384)
@@ -638,7 +643,7 @@ def phase_build():
     # and for the tensor-core libraries the HMMA and HGMMA counts of each
     # kernel
     hmma = hmma_counts(cuda_build.library_path(lib) for lib in (
-        "flash_attention", "siren_decode", "siren_decode_bwd", "siren_fwd_cluster",
+        "flash_attention", "siren_decode_bwd", "siren_fwd_cluster",
         "siren_chain_cluster"))
     for name in names:
         kernel, spill = None, ""
@@ -2244,8 +2249,14 @@ REMAT_REL_TOL = 1e-5
 def bf16_forward_check(model, device, rows, points, seed, label="case4") -> float:
     """The bf16 forward kernel against its plain bf16 version (relative L2)
     and float64 beside the float32 kernel's and the plain version's errors,
-    two launches bitwise equal; returns its largest error against float64."""
+    two launches bitwise equal; the width's bf16 plan (shared memory,
+    stages, registers, spills, clusters at once) logged, and the
+    instantiation a profiled bf16 forward ran held to it
+    (``bf16_route``); returns its largest error against float64."""
     coords, latents, z, ops = forward_case(model, device, rows, points, seed)
+    width = sd.kernel_hidden_width(z.shape[2], coords.shape[1], ops[2].shape[1], "forward_bf16")
+    log(f"[bf16-forward] {label}: {cluster_plan_line(width, 'forward_bf16')}")
+    bf16_route(coords, z, ops, label)
 
     def bf16():
         return sd.decode_forward(coords, z, *ops, compute_dtype=torch.bfloat16)
@@ -2274,6 +2285,36 @@ def bf16_forward_check(model, device, rows, points, seed, label="case4") -> floa
     return errs["bf16 kernel"][0]
 
 
+def bf16_route(coords, z, ops, label) -> None:
+    """The kernel instantiation a bf16 forward of these operands ran (one
+    call profiled on its own, up to three times, as ``cluster_route``),
+    held to the cluster plan of its kernel width:
+    ``siren_fwd_cluster_bf16_kernel<S, MT>``; any other SIREN forward
+    instantiation fails.  As in ``cluster_route``, a profile that records
+    nothing is logged, not failed: the profiler now and then drops every
+    launch of a window."""
+    plan = sd.cluster_plan(sd.kernel_hidden_width(z.shape[2], coords.shape[1], ops[2].shape[1],
+                                                  "forward_bf16"))
+    want = f"{BF16_FWD_KERNEL}<{plan.share}, {plan.m_tiles}>"
+    ran = set()
+    for _ in range(3):
+        with torch.no_grad():
+            prof = device_profile(f"{label}: {want}", lambda: (
+                torch.zeros(1, device=coords.device),
+                sd.decode_forward(coords, z, *ops, compute_dtype=torch.bfloat16)), top=0)
+        for name in prof:
+            found = re.search(r"(siren_fwd\w*_kernel)<(\d+), (\d+)>", name)
+            if found:
+                ran.add(f"{found.group(1)}<{found.group(2)}, {found.group(3)}>")
+        if want in ran:
+            break
+    log(f"[bf16-forward] {label}: the profiled bf16 forward ran {sorted(ran) or 'nothing recorded'}"
+        f"; the plan's instantiation {want}")
+    if ran - {want}:
+        raise SystemExit(f"{label}: the bf16 forward ran {sorted(ran)}, not only the plan's "
+                         f"{want}")
+
+
 def bf16_forward_time(model, device, rows, points, seed, repeats: int = 7) -> dict:
     """The bf16 forward kernel and the float32 one at ``rows x points`` in
     this run (medians of ``repeats`` with the least and largest, SM clocks around
@@ -2297,8 +2338,7 @@ def bf16_forward_time(model, device, rows, points, seed, repeats: int = 7) -> di
     nbytes = 4 * (points * c_in + n_mod * rows * h + c_in * h + (n_mod - 1) * h * h
                   + h * c_out + c_out + pairs * c_out)
     bound_ms, bound_by = tc_bound(mat, nbytes, act / PEAK_F32_FLOPS, rate=PEAK_BF16_FLOPS)
-    for part, name in (("fragments", "siren_bf16_frag_kernel"),
-                       ("forward", "siren_fwd_bf16_kernel")):
+    for part, name in (("prep", "siren_cluster_prep_bf16_kernel"), ("forward", BF16_FWD_KERNEL)):
         hits = [v for k, v in prof.items() if name in k]
         if not hits:
             log(f"[bf16-time] {rows}x{points} {part}: device time not measured")
@@ -2308,16 +2348,19 @@ def bf16_forward_time(model, device, rows, points, seed, repeats: int = 7) -> di
                 if part == "forward" and dev_ms else "")
         log(f"[bf16-time] {rows}x{points} {part}: {dev_ms:.3f} ms device, "
             f"{sum(n for _, n in hits)} launches{rate}")
-    stream = -(-pairs // bf16_block_pairs(h)) * (n_mod - 1) * h * h * 2
+    # every cluster (each block its columns) reads the whole bf16 stream
+    group = sd.cluster_plan(h).pairs
+    stream = -(-pairs // group) * (n_mod - 1) * h * h * 2
     ms, least, largest = t["bf16"]
     log(f"[bf16-forward] {rows}x{points} H={h}: kernel {ms:.3f} ms [{least:.3f}-{largest:.3f}] "
         f"median of {repeats} ({(mat + act) / ms / 1e9:.2f} TFLOP/s), float32 kernel in this run "
         f"{t['f32'][0]:.3f} ms [{t['f32'][1]:.3f}-{t['f32'][2]:.3f}] "
         f"({t['f32'][0] / ms:.2f}x), plain bf16 {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-        f"({bound_by}: products at the dense bf16 rate, sines on the CUDA cores); the blocks "
-        f"read {stream / 1e12:.3f} TB of bf16 weight fragments from L2; library: none")
+        f"({bound_by}: products at the dense bf16 rate, sines on the CUDA cores); the clusters "
+        f"of {group} pairs read {stream / 1e12:.3f} TB of the bf16 weight stream from L2; "
+        f"library: none")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                shape=f"{rows}x{points}", f32_ms=t["f32"][0])
+                shape=f"{rows}x{points}", f32_ms=t["f32"][0], stream_tb=stream / 1e12)
 
 
 def bf16_frozen_path(device) -> dict:
@@ -2541,6 +2584,9 @@ WIDE_CNFS = {448: dict(in_coord_features=3, in_latent_features=256, out_features
 # one block) is checked and timed beside them
 NARROW_CHECKS = ((3, 3, 5, 64), (3, 3, 0, 128), (3, 3, 5, 256), (3, 3, 5, 320),
                  (3, 3, 5, 384))
+# the narrow plan no float32 check takes, one block of 192 columns: the bf16
+# forward's alone (six modulated layers, 3 -> 3)
+BF16_ONLY_NARROW = 192
 # the families whose launches every narrow width's checks must count
 FLOAT32_KEYS = ("siren_decode_forward", "siren_decode_dz", "siren_decode_bwd")
 
@@ -2599,7 +2645,7 @@ def narrow_checks(model, device, label, bf16: bool = False) -> dict:
     chunks), the training backward at 4 x 16384; the width's cluster plans
     first; the checks' launches (zeroed before, read after), which every
     float32 family must have; then ``cluster_route``.  Returns the
-    kernels' errors against float64."""
+    kernels' errors against float64 (``bf16`` the bf16 forward's too)."""
     h = model.net1[0].out_features
     width = sd.kernel_hidden_width(h, model.net1[0].in_features, model.net1[-1].out_features,
                                    "forward")
@@ -2624,22 +2670,30 @@ def narrow_checks(model, device, label, bf16: bool = False) -> dict:
 
 
 def phase_narrow(device, results) -> None:
-    """Phase 16a: the float32 forward, dz and the training backward on the
-    cluster kernels at every narrow plan (``NARROW_CHECKS``, the demo
-    --fast's decoder and ``WIDE_CNFS``, with the bf16 forward at 448 and
-    512) under ``narrow_checks``; the float32 forward and the training
+    """Phase 16a: the float32 and bf16 forwards, dz and the training
+    backward on the cluster kernels at every narrow plan (``NARROW_CHECKS``,
+    the demo --fast's decoder and ``WIDE_CNFS``) under ``narrow_checks``, and
+    the bf16 forward alone at ``BF16_ONLY_NARROW`` (also a ragged 3 x
+    3001); the float32 forward and the training
     backward timed at 4 x 262144 at 448 and 512, and at the demo --fast's
     batch (64 x 1024) at 128, whose rows in the kernels line take that
     run's launches."""
     for c_in, c_out, layers, h in NARROW_CHECKS:
         model, label = check_decoder(device, c_in, c_out, layers, h)
-        narrow_checks(model, device, label + f" ({layers + 1} modulated)")
+        narrow_checks(model, device, label + f" ({layers + 1} modulated)", bf16=True)
         del model
         torch.cuda.empty_cache()
+    # the bf16 forward alone on the plan of one block of 192 columns, with a
+    # ragged tail
+    model, label = check_decoder(device, 3, 3, 5, BF16_ONLY_NARROW)
+    bf16_forward_check(model, device, 4, 16384, 23, label)
+    bf16_forward_check(model, device, 3, 3001, 22, label)
+    del model
+    torch.cuda.empty_cache()
     cfg, rows, points = DEMO_CNFS["--fast"]
     model = SirenFilm(**cfg, generator=torch.Generator().manual_seed(rows)).to(
         device).requires_grad_(False)
-    errs = narrow_checks(model, device, "demo --fast H=128")
+    errs = narrow_checks(model, device, "demo --fast H=128", bf16=True)
     results["siren_decode_forward@H128"] = dict(
         forward_time(model, device, rows, points, 27), max_abs_err=errs["forward"])
     results["siren_decode_bwd@H128"] = dict(
@@ -2647,9 +2701,6 @@ def phase_narrow(device, results) -> None:
     del model
     torch.cuda.empty_cache()
     for h, cfg in WIDE_CNFS.items():
-        log(f"[narrow] H={h}: siren_fwd_bf16_kernel<{h // 64}>: "
-            f"{PTXAS.get(f'siren_fwd_bf16_kernel<{h // 64}>', 'not reported')}, blocks of "
-            f"{bf16_block_pairs(h)} pairs")
         model = SirenFilm(**cfg, generator=torch.Generator().manual_seed(h)).to(
             device).requires_grad_(False)
         errs = narrow_checks(model, device, f"H={h}", bf16=True)
@@ -3911,6 +3962,9 @@ CLUSTER_CHECKS = tuple((3, 5, 5, h) for h in (1536, 2048, sd.MAX_HIDDEN["forward
 # the widest)
 SHALLOW_CHECKS = tuple((3, 5, layers, h) for h in (640, 2048, sd.MAX_HIDDEN["dz"])
                        for layers in (0, 1))
+# the bf16 forward alone at a plan above 1024 that no other check takes:
+# six blocks of 192 columns (3 -> 5, six modulated layers)
+BF16_CLUSTER_ONLY = (1152,)
 # the preparation's widths, checked bitwise against the plain layout
 PREP_WIDTHS = (576, 1024, 2048, sd.MAX_HIDDEN["forward"])
 # the widest forward's timed shape: 4 x this many points
@@ -3932,13 +3986,16 @@ def check_decoder(device, c_in: int, c_out: int, layers: int, h: int):
 def cluster_plan_line(h: int, family: str = "forward") -> str:
     """A cluster kernel's plan at width ``h`` (``sd.cluster_plan``, held to
     the built libraries'), its ptxas line and the clusters the card holds
-    at once: the float32 forward's, or the chain's in the ``family`` "dz"
-    or "bwd" (its dz or training mode)."""
+    at once: the float32 forward's, the bf16 forward's (``family``
+    "forward_bf16"), or the chain's in the ``family`` "dz" or "bwd" (its dz
+    or training mode)."""
     plan = sd.cluster_plan(h)
+    bf16 = family == "forward_bf16"
     kernel = (f"siren_fwd_cluster_kernel<{plan.share}, {plan.m_tiles}>" if family == "forward"
+              else f"{BF16_FWD_KERNEL}<{plan.share}, {plan.m_tiles}>" if bf16
               else f"siren_chain_cluster_kernel<{plan.share}, {plan.m_tiles}, {family}>")
     return (f"{plan.blocks} blocks of {plan.share} columns over {plan.pairs} pairs, "
-            f"{plan.stages} stages, {plan.smem_bytes} bytes of shared memory, "
+            f"{plan.ring(bf16)} stages, {plan.shared_bytes(bf16)} bytes of shared memory, "
             f"{sd.cluster_capacity(torch.cuda.current_device(), plan.width, 3, 5, family)} "
             f"clusters at once; {kernel}: {PTXAS.get(kernel, 'not reported')}")
 
@@ -3949,18 +4006,15 @@ def wide_kernel_checks(model, device, label) -> dict:
     bitwise repeat: the float32 and bf16 forwards at 4 x 16384, dz at a
     ragged 64 x 1000 (also against the training backward's), the training
     backward at 4 x 16384; the width's cluster plans (the float32 forward,
-    dz and the training backward), registers, spills and shared memory
-    first.  Returns the kernels' errors against float64."""
+    dz and the training backward; the bf16 forward's in its check),
+    registers, spills and shared memory first.  Returns the kernels' errors
+    against float64."""
     h = model.net1[0].out_features
     width = sd.kernel_hidden_width(h, model.net1[0].in_features, model.net1[-1].out_features,
                                    "bwd")
     for family in ("forward", "dz", "bwd"):
         log(f"[wider] {label}: cluster {sd.FAMILIES[family]}: "
             f"{cluster_plan_line(width, family)}")
-    nt = width // 64
-    log(f"[wider] {label}: siren_fwd_bf16_kernel<{nt}>: "
-        f"{PTXAS.get(f'siren_fwd_bf16_kernel<{nt}>', 'not reported')}, blocks of "
-        f"{bf16_block_pairs(width)} pairs")
     return {"forward": forward_check(model, device, 4, 16384, 31, label),
             "bf16": bf16_forward_check(model, device, 4, 16384, 32, label),
             "dz": dz_check(model, device, 64, WIDE_SENSORS, 33, label, against_bwd=True),
@@ -4064,9 +4118,10 @@ def phase_wider(root, device, results) -> dict:
 def prep_check(h: int) -> None:
     """The cluster kernels' weight preparations at width ``h`` (two middle
     weights from a seed) bitwise against their plain layouts: the
-    forward's (``sd.cluster_weight_layout``) and the chain's, the forward's
+    forward's (``sd.cluster_weight_layout``), the chain's, the forward's
     products then the dx chain's transposed ones
-    (``sd.cluster_chain_weight_layout``)."""
+    (``sd.cluster_chain_weight_layout``), and the bf16 forward's
+    (``sd.cluster_bf16_weight_layout``)."""
     plan = sd.cluster_plan(h)
     gen = torch.Generator(device="cuda").manual_seed(h)
     w_mid = torch.randn((2, h, h), generator=gen, device="cuda")
@@ -4075,8 +4130,12 @@ def prep_check(h: int) -> None:
             ("forward", sd._cluster_library().siren_fwd_cluster_prep, sd.cluster_weight_layout,
              2),
             ("chain", sd._chain_cluster_library().siren_chain_cluster_prep,
-             sd.cluster_chain_weight_layout, 4)):
-        image = torch.empty(n_prod * 2 * h * h, device="cuda")
+             sd.cluster_chain_weight_layout, 4),
+            ("bf16 forward", sd._cluster_library().siren_fwd_cluster_prep_bf16,
+             sd.cluster_bf16_weight_layout, 2)):
+        bf16 = what == "bf16 forward"
+        image = (torch.empty(n_prod * h * h, device="cuda", dtype=torch.bfloat16) if bf16
+                 else torch.empty(n_prod * 2 * h * h, device="cuda"))
         sd._raise_on(prep(sd._ptr(w_mid), sd._ptr(image), h, 2, stream), f"the {what}'s prep")
         same = torch.equal(image, layout(w_mid, plan.share))
         log(f"[cluster] H={h}: the {what}'s preparation of 2 middle weights ({n_prod} "
@@ -4087,30 +4146,35 @@ def prep_check(h: int) -> None:
 
 
 def cluster_checks(device, results) -> None:
-    """Phase 19 (f): the cluster kernels above H = 1024, where only they
-    and the bf16 forward's refusal run.  Their plan at every width they
-    take (64 .. 3072), held to the built library's (``siren_fwd_cluster_plan``: the two
-    share ``siren_cluster.cuh::plan_for``); their preparations bitwise against the
-    plain layouts; the forward against its plain version and float64
-    (phase 3's criterion, bitwise repeat) at ``CLUSTER_CHECKS`` (4 x 16384)
-    and a ragged 3 x 3001 at 2048, the chain's dz mode (64 x
+    """Phase 19 (f): the cluster kernels above H = 1024.  Their plan at
+    every width they take (64 .. 3072), held to the built library's
+    (``siren_fwd_cluster_plan``, float32 and bf16: the forwards and the
+    chain share ``siren_cluster.cuh::plan_for``); their preparations
+    bitwise against the plain layouts; the float32 and bf16 forwards
+    against their plain versions and float64 (phases 3 and 15's criteria,
+    bitwise repeats) at ``CLUSTER_CHECKS`` (4 x 16384) and a ragged 3 x
+    3001 at 2048, the bf16 forward alone at ``BF16_CLUSTER_ONLY``, the
+    chain's dz mode (64 x
     ``WIDE_SENSORS``, also against the training backward's dz) and training
     mode (4 x 16384) under phases 4 and 7's criteria at ``CLUSTER_CHECKS``
-    and on the shallow decoders of ``SHALLOW_CHECKS``; timed (medians of 3, SM clocks, the reckoned stream bytes) at 2048 with
-    WIDE_CNF's depth at 4 x 262144 (the forward) and at the widest at six
-    layers (the forward and the training backward at 4 x
+    and on the shallow decoders of ``SHALLOW_CHECKS``; timed (medians of
+    3, SM clocks, the reckoned stream bytes) at 2048 with WIDE_CNF's depth
+    at 4 x 262144 (the float32 and bf16 forwards) and at the widest at six
+    layers (the float32 and bf16 forwards and the training backward at 4 x
     ``CLUSTER_MAX_POINTS``, dz at 384 x ``WIDE_SENSORS``)."""
     lib = sd._cluster_library()
     out = (ctypes.c_int * 5)()
     for h in range(64, sd.MAX_HIDDEN["forward"] + 1, 64):
         plan = sd.cluster_plan(h)
-        sd._raise_on(lib.siren_fwd_cluster_plan(h, out), "siren_fwd_cluster_plan")
-        if tuple(out) != (plan.blocks, plan.share, plan.m_tiles, plan.stages, plan.smem_bytes):
-            raise SystemExit(f"cluster plan at H = {h}: the library's {tuple(out)}, the "
-                             f"wrapper's {plan}")
+        for bf16 in (False, True):
+            sd._raise_on(lib.siren_fwd_cluster_plan(h, int(bf16), out), "siren_fwd_cluster_plan")
+            if tuple(out) != (plan.blocks, plan.share, plan.m_tiles, plan.ring(bf16),
+                              plan.shared_bytes(bf16)):
+                raise SystemExit(f"cluster plan at H = {h} (bf16 {bf16}): the library's "
+                                 f"{tuple(out)}, the wrapper's {plan}")
     log(f"[cluster] the wrapper's plans equal the library's (siren_cluster.cuh::plan_for, "
-        f"which the forward and the chain share) at H = 64.."
-        f"{sd.MAX_HIDDEN['forward']}")
+        f"which the float32 and bf16 forwards and the chain share; the rings and shared "
+        f"memory of both forwards) at H = 64..{sd.MAX_HIDDEN['forward']}")
     for h in PREP_WIDTHS:
         prep_check(h)
     for c_in, c_out, layers, h in CLUSTER_CHECKS:
@@ -4118,8 +4182,10 @@ def cluster_checks(device, results) -> None:
         for family in ("forward", "dz", "bwd"):
             log(f"[cluster] {label}: {sd.FAMILIES[family]}: {cluster_plan_line(h, family)}")
         err = forward_check(model, device, 4, 16384, 43, label)
+        err_bf16 = bf16_forward_check(model, device, 4, 16384, 56, label)
         if h == 2048:
             forward_check(model, device, 3, 3001, 44, label)
+            bf16_forward_check(model, device, 3, 3001, 57, label)
         # the chain in both modes: dz at a ragged 64 x 1000 (also against the
         # training backward's dz), the training backward at 4 x 16384
         err_dz = dz_check(model, device, 64, WIDE_SENSORS, 50, label, against_bwd=True)
@@ -4134,6 +4200,14 @@ def cluster_checks(device, results) -> None:
             results[f"siren_decode_bwd@H{h}"] = dict(
                 bwd_time(model, device, 4, CLUSTER_MAX_POINTS, seed=53, repeats=3),
                 max_abs_err=err_bwd)
+            results[f"siren_decode_forward_bf16@H{h}"] = dict(
+                bf16_forward_time(model, device, 4, CLUSTER_MAX_POINTS, 45, repeats=3),
+                max_abs_err=err_bf16)
+        del model
+        torch.cuda.empty_cache()
+    for h in BF16_CLUSTER_ONLY:
+        model, label = check_decoder(device, 3, 5, 5, h)
+        bf16_forward_check(model, device, 4, 16384, 58, label)
         del model
         torch.cuda.empty_cache()
     for c_in, c_out, layers, h in SHALLOW_CHECKS:
@@ -4149,8 +4223,11 @@ def cluster_checks(device, results) -> None:
                       generator=torch.Generator().manual_seed(2048)).to(
         device).requires_grad_(False)
     err = forward_check(model, device, 4, 16384, 46, "Case4 at H=2048 3->5")
+    err_bf16 = bf16_forward_check(model, device, 4, 16384, 59, "Case4 at H=2048 3->5")
     results["siren_decode_forward@H2048"] = dict(
         forward_time(model, device, 4, 262144, 47, repeats=3), max_abs_err=err)
+    results["siren_decode_forward_bf16@H2048"] = dict(
+        bf16_forward_time(model, device, 4, 262144, 47, repeats=3), max_abs_err=err_bf16)
     del model
     torch.cuda.empty_cache()
 
@@ -4332,8 +4409,7 @@ def main() -> int:
         wide_launches[f"{kname}@H128"] = DEMO_LAUNCHES["--fast"][kname]
     fwd, chain = ("siren_fwd_cluster.cu", "siren_decode.py:96"), ("siren_chain_cluster.cu",)
     rows = [("siren_decode_forward", "siren_decode_forward", *fwd),
-            ("siren_decode_forward_bf16", "siren_decode_forward_bf16", "siren_decode.cu",
-             "siren_decode.py:96"),
+            ("siren_decode_forward_bf16", "siren_decode_forward_bf16", *fwd),
             ("siren_decode_dz", "siren_decode_dz@384x1024", *chain, "siren_decode.py:315"),
             ("siren_decode_bwd", "siren_decode_bwd", *chain, "siren_decode.py:434")]
     for h in (128, 448, 512):
@@ -4341,8 +4417,8 @@ def main() -> int:
                  ("siren_decode_bwd", f"siren_decode_bwd@H{h}", *chain, "siren_decode.py:434")]
     rows += [("siren_decode_forward", f"siren_decode_forward@H{h}", *fwd)
              for h in (1024, 2048, sd.MAX_HIDDEN["forward"])]
-    rows += [("siren_decode_forward_bf16", "siren_decode_forward_bf16@H1024", "siren_decode.cu",
-              "siren_decode.py:96")]
+    rows += [("siren_decode_forward_bf16", f"siren_decode_forward_bf16@H{h}", *fwd)
+             for h in (1024, 2048, sd.MAX_HIDDEN["forward_bf16"])]
     for h in (1024, sd.MAX_HIDDEN["dz"]):
         rows += [("siren_decode_dz", f"siren_decode_dz@H{h}", *chain, "siren_decode.py:315"),
                  ("siren_decode_bwd", f"siren_decode_bwd@H{h}", *chain, "siren_decode.py:434")]

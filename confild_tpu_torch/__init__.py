@@ -8,8 +8,8 @@ the JAX package's ``.ckpt`` pytrees both load (``io/convert.py``).
 
 It imports neither ``jax`` nor ``confild_tpu``.  The SIREN-FiLM decode
 kernels (``ops/siren_decode.py``) are hand-written CUDA C++ for ``sm_90a``
-(``csrc/siren_decode.cu``, ``csrc/siren_decode_bwd.cu``), built with
-``nvcc`` at first use.  Entry points
+(``csrc/siren_fwd_cluster.cu``, ``csrc/siren_chain_cluster.cu``,
+``csrc/siren_decode_bwd.cu``), built with ``nvcc`` at first use.  Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

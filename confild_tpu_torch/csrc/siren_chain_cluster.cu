@@ -14,7 +14,7 @@
 // fused_siren_decode_bwd): every pre-activation r_l and every dpre_l of a
 // chunk into the workspace, which siren_decode_bwd.cu's reduction, sums and
 // fold turn into dz, dW_first, dW_mid and dW_head.  With dpre_l = dx_l * 2 pi cos2pi(r_l) and
-// dx_{l-1} = dpre_l . W_l^T, on the folded operands of siren_decode.cu
+// dx_{l-1} = dpre_l . W_l^T, on the folded operands of siren_fwd_cluster.cu
 // (w_first, w_mid and z scaled by w0 / (2 pi)):
 //   coords (M, C_in)   z (n_mod, T, H)   g (T, M, C_out)   w_first (C_in, H)
 //   wprep  the middle weights as the blocks' stage images, the forward's

@@ -1,9 +1,10 @@
 // The thread-block cluster machinery shared by the SIREN-FiLM cluster
-// kernels for Hopper (sm_90a): the float32 forward (siren_fwd_cluster.cu)
-// and the chain, dz and the training backward (siren_chain_cluster.cu), at
-// every hidden width up to 3072.  The training backward's reduction
-// (siren_decode_bwd.cu, one block, no cluster) takes its mbarriers and its
-// K-slice product (issue_slice, carry, b_desc) from here too.
+// kernels for Hopper (sm_90a): the float32 and bf16 forwards
+// (siren_fwd_cluster.cu) and the chain, dz and the training backward
+// (siren_chain_cluster.cu), at every hidden width up to 3072.  The training
+// backward's reduction (siren_decode_bwd.cu, one block, no cluster) takes
+// its mbarriers and its K-slice product (issue_slice, carry, b_desc) from
+// here too.
 //
 // A cluster of CL blocks owns P = 64 MT consecutive (row, point) pairs;
 // block b owns columns [b S, (b + 1) S) of every layer's output and keeps
@@ -41,11 +42,26 @@
 //     itself.
 //   * A block is two warpgroups and no producer warpgroup, so that a thread
 //     may take up to 255 registers (three warpgroups would cap it at 168).
+// The bf16 mode (Consumer<S, MT, true>, the bf16 forward) keeps the plan,
+// the ring and the cluster barriers and changes what a stage and a share
+// hold: the shares are bf16, a stage is one k16 step of bf16 weights (16 x
+// S x 2 bytes, a quarter of a float32 stage) in the no-swizzle K-major
+// image [n / 8][k / 8][n % 8][8 k] with K permuted within each pair of
+// slices as load_a16 reads A, and a K-slice is one m64nNk16 bf16 wgmma (N
+// the warpgroup's columns) straight into the accumulators, which carry the
+// sum over the whole K (no partials: the tensor cores' truncation of their
+// sums, 2^-23 relative, is far below the operands' bf16 rounding, 2^-9).
+// The ring is deeper (as many stages as fit, up to 16), A is loaded a batch
+// of four K-slices at a time, one batch ahead (a block's own columns by
+// ld.shared), and each batch takes one wgmma.fence.  The bf16 forward keeps
+// two share buffers, so that a layer needs one cluster barrier, not the two
+// below.
 // Between products the kernels publish the new shares with two cluster
 // barriers: every block done reading the shares (arrive after the product,
 // wait before the share is written), then every share written.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,8 +74,9 @@ namespace siren_cluster {
 using tf32mma::rna_tf32;
 using tf32mma::smem_addr;
 
-constexpr int KS = 16;           // weight rows (K) a stage holds: one partial
+constexpr int KS = 16;           // weight rows (K) a stage holds: one partial, or one k16 step
 constexpr int A_PAD = 16;        // share row stride S + 16: a quarter warp's A loads hit 32 banks
+constexpr int A_PAD16 = 32;      // bf16 share row stride S + 32: the same for 16-byte loads
 constexpr int MAX_C = 16;        // widest C_in and C_out
 constexpr int MAX_CL = 8;        // largest portable cluster
 constexpr int CONSUMERS = 2;     // consumer warpgroups
@@ -77,27 +94,35 @@ constexpr int ALIGN = 128;                      // the stages' alignment
 constexpr int CONFIGS[][2] = {{128, 2}, {192, 2}, {256, 2}, {384, 1}};
 
 __host__ __device__ constexpr int cluster_pairs(int MT) { return 64 * MT; }
-__host__ __device__ constexpr int stage_bytes(int S) { return KS * S * 2 * 4; }
-__host__ __device__ constexpr int share_bytes(int S, int MT) {
-  return cluster_pairs(MT) * (S + A_PAD) * 4;
+// bytes of a stage and of a share: float32 (TF32 halves), or bf16
+__host__ __device__ constexpr int stage_bytes(int S, bool bf16 = false) {
+  return bf16 ? KS * S * 2 : KS * S * 2 * 4;
+}
+__host__ __device__ constexpr int share_stride(int S, bool bf16 = false) {
+  return S + (bf16 ? A_PAD16 : A_PAD);
+}
+// the shares: float32, or two bf16 buffers that the layers take in turns
+__host__ __device__ constexpr int share_bytes(int S, int MT, bool bf16 = false) {
+  return cluster_pairs(MT) * share_stride(S, bf16) * (bf16 ? 2 * 2 : 4);
 }
 // coordinates and a second P x MAX_C table (the forward's head partials,
 // the chain's cotangent g), row offsets, the stages' mbarriers and release
-// counters
-__host__ __device__ constexpr int tail_bytes(int MT, int NS) {
-  return 2 * cluster_pairs(MT) * MAX_C * 4 + cluster_pairs(MT) * 4 + 2 * NS * 8;
+// counters; the bf16 forward keeps its coordinates in the second share
+// buffer and its head partials in the ring, both idle when it needs them
+__host__ __device__ constexpr int tail_bytes(int MT, int NS, bool bf16 = false) {
+  return (bf16 ? 0 : 2 * cluster_pairs(MT) * MAX_C * 4) + cluster_pairs(MT) * 4 + 2 * NS * 8;
 }
-// stages of the ring: as many as fit, 2 to 4
-__host__ __device__ constexpr int n_stages(int S, int MT) {
-  int ns = 4;
-  while (ns > 2 &&
-         ALIGN + ns * stage_bytes(S) + share_bytes(S, MT) + tail_bytes(MT, ns) > SMEM_MAX)
+// stages of the ring: as many as fit, 2 to 4 (float32) or 16 (bf16)
+__host__ __device__ constexpr int n_stages(int S, int MT, bool bf16 = false) {
+  int ns = bf16 ? 16 : 4;
+  while (ns > 2 && ALIGN + ns * stage_bytes(S, bf16) + share_bytes(S, MT, bf16) +
+                           tail_bytes(MT, ns, bf16) > SMEM_MAX)
     --ns;
   return ns;
 }
-__host__ __device__ constexpr int smem_bytes(int S, int MT) {
-  return ALIGN + n_stages(S, MT) * stage_bytes(S) + share_bytes(S, MT) +
-         tail_bytes(MT, n_stages(S, MT));
+__host__ __device__ constexpr int smem_bytes(int S, int MT, bool bf16 = false) {
+  return ALIGN + n_stages(S, MT, bf16) * stage_bytes(S, bf16) + share_bytes(S, MT, bf16) +
+         tail_bytes(MT, n_stages(S, MT, bf16), bf16);
 }
 
 struct Plan {
@@ -187,6 +212,16 @@ __device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
   return v;
 }
 
+// 16 bytes of this block's shared memory
+__device__ __forceinline__ uint4 ld_shared4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
 }
@@ -269,6 +304,143 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+// d (m64 x n64, f32) = a (m64 x k16, bf16 pairs in registers) . b (k16 x
+// n64, bf16 in shared memory, K-major) + (scale_d ? d : 0).  a: rows 16 w + g
+// (+ 8), columns 2 t, 2 t + 1 (+ 8) of warp w, the smaller column in the low
+// half; d as wgmma_tf32's.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d (m64 x nN, f32) = a (m64 x k16, bf16 pairs in registers, as
+// wgmma_bf16's) . b (k16 x nN, bf16 in shared memory, K-major) + (scale_d ?
+// d : 0), for the widths N a bf16 consumer warpgroup owns: d is the n64
+// blocks' accumulators side by side (d[32 j + i] is block j's d[i] of
+// wgmma_bf16), one instruction where n64 blocks would take N / 64.
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_bf16_n192(float (&d)[96], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_wide(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  static_assert(N == 64 || N == 128 || N == 192 || N == 256, "a bf16 warpgroup's width");
+  if constexpr (N == 64) wgmma_bf16(d, a, desc, scale_d);
+  if constexpr (N == 128) wgmma_bf16_n128(d, a, desc, scale_d);
+  if constexpr (N == 192) wgmma_bf16_n192(d, a, desc, scale_d);
+  if constexpr (N == 256) wgmma_bf16_n256(d, a, desc, scale_d);
+}
+
+// (lo, hi) rounded to bf16 (to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// x rounded to bf16 (to nearest even), as a float
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // ---------------------------------------------------------------------------
 // the weights' preparation
 // ---------------------------------------------------------------------------
@@ -328,6 +500,48 @@ inline int launch_prep(const float* w_mid, float* wprep, int H, int n_mid, int n
   return (int)cudaGetLastError();
 }
 
+// The bf16 stage images: one thread a 16-byte row of a core matrix, 8 k of
+// one column n of w_mid[l] ([k][n]) rounded to bf16 (to nearest even).  A
+// K-slice's image is [n / 8][k / 8][n % 8][8 k] in the fragments' k order:
+// fragment k 8 h + 2 q + e of slice 2 g + s is row 32 g + 8 q + 4 s + 2 h + e
+// of the weight (load_a16).
+__global__ void __launch_bounds__(256)
+siren_cluster_prep_bf16_kernel(const float* __restrict__ w_mid, uint4* __restrict__ wprep, int H,
+                               int S, int n_mid) {
+  const int slices = H / KS;
+  const long long stage = (long long)S * 2;           // uint4s of a stage
+  const long long per_rank = (long long)n_mid * slices * stage;
+  const long long total = per_rank * (H / S);
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const int rank = (int)(e / per_rank);
+    const long long rem = e % per_rank;
+    const int u = (int)(rem / stage), x = (int)(rem % stage);
+    const int l = u / slices, c = u % slices;
+    const int g8 = x / 16, h = (x / 8) % 2, r = x % 8;
+    const int k0 = (c / 2) * 2 * KS + 4 * (c % 2) + 2 * h;
+    const float* src = w_mid + ((size_t)l * H + k0) * H + rank * S + g8 * 8 + r;
+    uint32_t v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      v[q] = pack_bf16(src[(size_t)(8 * q) * H], src[(size_t)(8 * q + 1) * H]);
+    wprep[e] = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// the n_mid middle weights (n_mid, H, H) as the blocks' bf16 stage images,
+// on the stream
+inline int launch_prep_bf16(const float* w_mid, void* wprep, int H, int n_mid,
+                            cudaStream_t stream) {
+  Plan p{};
+  if (!exact_plan(H, p) || n_mid < 1) return (int)cudaErrorInvalidValue;
+  const long long items = (long long)n_mid * H * H / 8;
+  const unsigned int blocks = (unsigned int)((items + 255) / 256);
+  siren_cluster_prep_bf16_kernel<<<blocks, 256, 0, stream>>>(
+      w_mid, reinterpret_cast<uint4*>(wprep), H, p.share, n_mid);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // one product of a layer
 // ---------------------------------------------------------------------------
@@ -383,31 +597,71 @@ __device__ __forceinline__ void load_a(float (&ar)[2][4], uint32_t share0, int a
   ar[1][3] = r8.w;
 }
 
-// The consumer thread's place in the cluster's tile and its weight stream.
-template <int S, int MT>
+// The bf16 A fragments of the K-slices 2 g and 2 g + 1 (two k16 steps), from
+// the block of the cluster that owns their columns: r[0] row arow, r[1]
+// row arow + 8.  Within each pair of slices the K order is permuted, in A
+// and B alike: fragment column 8 h + 2 t + e of slice 2 g + s (lane t's pair
+// e of half h) is column 8 t + 4 s + 2 h + e of the 32, so that lane t's
+// eight columns of a row are 8t .. 8t + 7, one 16-byte load.  The block's
+// own columns are read from its shared memory directly, not through the
+// cluster's network (ld.shared, not ld.shared::cluster).
+template <int S>
+__device__ __forceinline__ void load_a16(uint4 (&r)[2], uint32_t share0, int arow, int t, int g,
+                                         int rank) {
+  constexpr int LDS = share_stride(S, true);
+  const int k0 = g * 2 * KS, owner = k0 / S;
+  const uint32_t off = 2u * (arow * LDS + k0 % S + 8 * t);
+  if (owner == rank) {
+    r[0] = ld_shared4(share0 + off);
+    r[1] = ld_shared4(share0 + off + 2u * 8 * LDS);
+    return;
+  }
+  const uint32_t src = map_rank(share0, owner) + off;
+  const float4 r0 = ld_cluster4(src), r8 = ld_cluster4(src + 2u * 8 * LDS);
+  r[0] = make_uint4(__float_as_uint(r0.x), __float_as_uint(r0.y), __float_as_uint(r0.z),
+                    __float_as_uint(r0.w));
+  r[1] = make_uint4(__float_as_uint(r8.x), __float_as_uint(r8.y), __float_as_uint(r8.z),
+                    __float_as_uint(r8.w));
+}
+// slice s (0, 1) of a pair's loaded fragments as wgmma's four A registers
+__device__ __forceinline__ void frag16(uint32_t (&a)[4], const uint4 (&r)[2], int s) {
+  a[0] = s ? r[0].z : r[0].x;
+  a[1] = s ? r[1].z : r[1].x;
+  a[2] = s ? r[0].w : r[0].y;
+  a[3] = s ? r[1].w : r[1].y;
+}
+
+// The consumer thread's place in the cluster's tile and its weight stream:
+// float32 (product, store_share), or with BF16 bf16 (product16,
+// store_share16).
+template <int S, int MT, bool BF16 = false>
 struct Consumer {
-  static constexpr int NS = n_stages(S, MT);
+  static constexpr int NS = n_stages(S, MT, BF16);
   static constexpr int N_WG = S * MT / CONSUMERS;   // columns a consumer warpgroup owns
   static constexpr int NSUB = N_WG / 64;            // its m64n64 subtiles
-  static constexpr int STAGE = stage_bytes(S);
+  static constexpr int STAGE = stage_bytes(S, BF16);
+  static constexpr int LDS = share_stride(S, BF16);   // a share's row stride
   static_assert(N_WG % 64 == 0 && S % KS == 0, "a warpgroup owns whole n64 subtiles");
-  static_assert(smem_bytes(S, MT) <= SMEM_MAX, "the plan exceeds a block's shared memory");
+  static_assert(smem_bytes(S, MT, BF16) <= SMEM_MAX,
+                "the plan exceeds a block's shared memory");
 
   unsigned char* stages;          // NS x STAGE
   const unsigned char* wsrc;      // this block's stream of stage images
   uint32_t full0, released0;      // the stages' mbarriers, then their release counters
   uint32_t share0;                // this block's share (the same offset in every block)
   int u_total;                    // K-slices of the stream
+  int rank;                       // this block's rank in the cluster
   int tid, t, arow, n_off;
 
-  __device__ Consumer(unsigned char* stages_, const float* wprep, uint64_t* bars,
-                      const float* share, int rank, int u_total_)
+  __device__ Consumer(unsigned char* stages_, const void* wprep, uint64_t* bars,
+                      const void* share, int rank_, int u_total_)
       : stages(stages_),
-        wsrc(reinterpret_cast<const unsigned char*>(wprep) + (size_t)rank * u_total_ * STAGE),
+        wsrc(static_cast<const unsigned char*>(wprep) + (size_t)rank_ * u_total_ * STAGE),
         full0(smem_addr(bars)),
         released0(smem_addr(bars) + 8 * NS),
         share0(smem_addr(share)),
-        u_total(u_total_) {
+        u_total(u_total_),
+        rank(rank_) {
     tid = threadIdx.x;
     const int wg = tid / 128, wwarp = tid % 128 / 32, lane = tid % 32;
     t = lane % 4;
@@ -493,15 +747,108 @@ struct Consumer {
         *reinterpret_cast<float2*>(share + row(i) * LDS + col(j, i)) =
             make_float2(acc[j][i], acc[j][i + 1]);
   }
+
+  // bf16: acc = (the cluster's bf16 shares at src, P x H) . (the next H /
+  // KS K-slices of the bf16 stream); u moves past them.  One k16 wgmma a
+  // subtile and K-slice, accumulated in acc over the whole K (the first
+  // K-slice's zeroes it), in batches of BATCH K-slices, one wgmma.fence a
+  // batch.  A batch's groups are waited for one batch later, which frees
+  // its stages and its set of A registers, into which the next batch's A
+  // then loads (batch16's B, a constant in each unrolled call).  (Waiting
+  // after every K-slice for the one two before it, to refill the ring
+  // sooner, measured slower on an H100: 92.4 against 88.6 ms at Case4's
+  // 16 x 262144.)
+  // K-slices a batch (H is a multiple of 64: chunks of BATCH).  Batches of
+  // 2 where the ring is short (10 stages at 256 and 384 columns), to load
+  // slices further ahead, measured slower on an H100: 127.7 against 121.8
+  // ms at 1024 x 16 -> 5 on 4 x 262144, the A loads then further behind.
+  static constexpr int BATCH = 4;
+  // a batch's stages are released only after the next batch is issued, so
+  // the ring holds two batches and the next one's slices in flight
+  static_assert(!BF16 || NS >= 2 * BATCH, "the bf16 ring needs two batches of stages");
+  __device__ __forceinline__ void product16(float (&acc)[NSUB][32], int& u, int chunks,
+                                            uint32_t src) const {
+    uint4 a[2][BATCH / 2][2];   // [set][pair of slices][row arow, arow + 8]
+    const int nb = chunks / BATCH;
+    load_batch(a[0], 0, src);
+    for (int b = 0; b < nb; b += 2) {
+      batch16<0>(acc, a, b, u, nb, src);
+      if (b + 1 < nb) batch16<1>(acc, a, b + 1, u, nb, src);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) fence_reg(acc[j][i]);
+#pragma unroll
+    for (int k = BATCH; k > 0; --k) release(u - k);
+  }
+
+  // the A fragments of batch b (its pairs of K-slices) of the shares at src
+  __device__ __forceinline__ void load_batch(uint4 (&a)[BATCH / 2][2], int b,
+                                             uint32_t src) const {
+#pragma unroll
+    for (int q = 0; q < BATCH / 2; ++q) load_a16<S>(a[q], src, arow, t, BATCH / 2 * b + q, rank);
+  }
+
+  // batch b of product16 (stream slices u .. u + BATCH - 1; u moves past
+  // them), its A in a[B]
+  template <int B>
+  __device__ __forceinline__ void batch16(float (&acc)[NSUB][32], uint4 (&a)[2][BATCH / 2][2],
+                                          int b, int& u, int nb, uint32_t src) const {
+#pragma unroll
+    for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) fence_reg(acc[j][i]);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      const int v = u + k, s = v % NS;
+      mbar_wait(full0 + 8 * s, (v / NS) & 1);
+      const uint32_t sb = smem_addr(stages + s * STAGE);
+      uint32_t f[4];
+      frag16(f, a[B][k / 2], k % 2);
+      wgmma_bf16_wide<N_WG>(*reinterpret_cast<float(*)[NSUB * 32]>(&acc[0][0]), f,
+                            b_desc(sb + n_off * 32), b > 0 || k > 0);
+      wgmma_commit();
+    }
+    u += BATCH;
+    if (b > 0) {
+      wgmma_wait<BATCH>();   // batch b - 1 is done: its stages and A set are free
+#pragma unroll
+      for (int k = 2 * BATCH; k > BATCH; --k) release(u - k);
+    }
+    if (b + 1 < nb) load_batch(a[B ^ 1], b + 1, src);
+  }
+
+  // this warpgroup is done with stream slice v's stage: its first thread
+  // counts the release, and the second release refills the stage
+  __device__ __forceinline__ void release(int v) const {
+    const int s = v % NS;
+    const bool second = leader_count(tid % 128 == 0, released0 + 8 * s) & 1;
+    if (v + NS < u_total) fill(second, v + NS);
+  }
+
+  // bf16: the accumulators (pairs of adjacent columns) into the share,
+  // rounded to bf16 (to nearest even)
+  __device__ __forceinline__ void store_share16(__nv_bfloat16* share,
+                                                const float (&acc)[NSUB][32]) const {
+#pragma unroll
+    for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2)
+        *reinterpret_cast<uint32_t*>(share + row(i) * LDS + col(j, i)) =
+            pack_bf16(acc[j][i], acc[j][i + 1]);
+  }
 };
 
 // Launches kernel over ceil(pairs / P) clusters of the plan's CL blocks
 // (or, with max_clusters, only asks how many such clusters the card holds
 // at once).
-template <int S, int MT, typename K, typename... Args>
+template <int S, int MT, bool BF16 = false, typename K, typename... Args>
 int launch_clusters(K kernel, unsigned long long& done, const Plan& plan, long long pairs,
                     cudaStream_t stream, int* max_clusters, Args... args) {
-  cudaError_t err = tf32mma::allow_smem(kernel, smem_bytes(S, MT), done);
+  cudaError_t err = tf32mma::allow_smem(kernel, smem_bytes(S, MT, BF16), done);
   if (err != cudaSuccess) return (int)err;
   const long long clusters = (pairs + cluster_pairs(MT) - 1) / cluster_pairs(MT);
   cudaLaunchAttribute attr[1];
@@ -512,7 +859,7 @@ int launch_clusters(K kernel, unsigned long long& done, const Plan& plan, long l
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned int)(clusters * plan.cl), 1, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem_bytes(S, MT);
+  cfg.dynamicSmemBytes = smem_bytes(S, MT, BF16);
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;

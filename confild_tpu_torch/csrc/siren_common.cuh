@@ -1,7 +1,7 @@
-// Device helpers shared by the SIREN-FiLM decode kernels (siren_decode.cu,
-// siren_decode_bwd.cu, siren_fwd_cluster.cu, siren_chain_cluster.cu and
-// siren_tc.cuh): the polynomial sine in turns.  See siren_decode.cu for the
-// operand layouts.
+// Device helpers shared by the SIREN-FiLM decode kernels
+// (siren_fwd_cluster.cu, siren_chain_cluster.cu, siren_decode_bwd.cu): the
+// polynomial sine in turns.  See siren_fwd_cluster.cu for the operand
+// layouts.
 #pragma once
 
 #include <cuda_runtime.h>

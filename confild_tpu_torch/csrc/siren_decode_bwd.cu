@@ -7,7 +7,7 @@
 // Pallas kernel _decode_bwd_kernel
 // (confild_tpu/ops/siren_decode.py:434, launched at :523 by
 // fused_siren_decode_bwd): every training cotangent of the decode on the
-// folded operands of siren_decode.cu (w_first, w_mid and z scaled by
+// folded operands of siren_fwd_cluster.cu (w_first, w_mid and z scaled by
 // w0 / (2*pi)):
 //
 //   dz      (n_mod, T, H)      dL/dz_l, summed over the points of each row

@@ -1,6 +1,6 @@
 // Helpers shared by the port's tensor-core kernels (flash_attention.cu,
-// through siren_cluster.cuh the cluster kernels and siren_decode_bwd.cu,
-// and through siren_tc.cuh siren_decode.cu): 16-byte
+// and through siren_cluster.cuh the cluster kernels and
+// siren_decode_bwd.cu): 16-byte
 // cp.async copies into shared memory, float32 products on the tensor cores
 // as a 3xTF32 split on mma.sync.m16n8k8, and on the host the dynamic
 // shared-memory attribute, set once per kernel and device.

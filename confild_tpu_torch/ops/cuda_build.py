@@ -7,9 +7,9 @@ the flags names the library, so an edited source is rebuilt and a built
 one is reused.  Nothing is compiled
 when a module is imported: the CPU tests import every module and have no
 ``nvcc``.  ``--split-compile=0`` lets each nvcc optimise a source's kernels
-on every CPU core at once: the bf16 SIREN forward instantiates every
-hidden width up to 1024, one kernel a width, and the cluster sources one
-kernel (a mode) per plan.
+on every CPU core at once: the cluster sources instantiate one kernel per
+plan and mode (the float32 and bf16 forwards, the chain's dz and training
+modes), and flash one per head width and dtype.
 """
 
 from __future__ import annotations

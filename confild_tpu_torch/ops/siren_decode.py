@@ -17,13 +17,15 @@ Kernels:
   activations read through distributed shared memory), as two launches per
   call (the middle weights split into TF32 halves and laid out as the
   blocks' stage images, :func:`cluster_weight_layout`, then the forward).
-* ``siren_decode_forward_bf16`` (``csrc/siren_decode.cu``) replaces
-  ``_decode_kernel`` with ``compute_dtype=jnp.bfloat16``: every product's
-  operands rounded to bfloat16 (the weights after the ``w0 / (2*pi)``
-  scale), float32 accumulation, FiLM and ``sin2pi`` in float32; two
-  launches per call (the middle weights rounded to bfloat16 fragments,
-  then the forward).  As in JAX, the backward kernels stay float32
-  whatever the forward's ``compute_dtype``.
+* ``siren_decode_forward_cluster_bf16`` (the same source and plan)
+  replaces ``_decode_kernel`` with ``compute_dtype=jnp.bfloat16``: every
+  product's operands rounded to bfloat16 (the weights after the ``w0 /
+  (2*pi)`` scale), float32 accumulation, FiLM and ``sin2pi`` in float32;
+  the shares held as bfloat16 and one bf16 ``wgmma`` a K-slice; two
+  launches per call (the middle weights rounded to bfloat16 as the blocks'
+  stage images, :func:`cluster_bf16_weight_layout`, then the forward).
+  As in JAX, the backward kernels stay float32 whatever the forward's
+  ``compute_dtype``.
 * ``siren_decode_dz_cluster`` (``csrc/siren_chain_cluster.cu``) replaces
   ``_decode_dz_kernel``: ``dL/dz`` for every layer, from which
   ``dL/dlatents`` is two small matmuls.  It is the chain (a forward
@@ -48,17 +50,15 @@ kernels: the autograd functions take the folded operands, and autograd
 chains ``dz`` back through :func:`film_table` and :func:`stack_weights`
 to the latents, ``net2`` and the biases, undoing the scale.
 
-Each kernel family has its own widest hidden layer (``MAX_HIDDEN``): the
-float32 forward, dz and the training backward 3072 (a cluster of up to 8
-blocks, :func:`cluster_plan`), the bf16 forward 1024 (a block owns 64
-pairs up to 384, 32 at 448 and 512 and 16 above, ``csrc/siren_tc.cuh``);
-all take at most 16 input and output features.  A hidden width is
-zero-padded to the kernel's width (the cluster plan's width, up to 512
-one of 128, 192, 256, 384 and 512, or for the bf16 forward the next
-multiple of 64, :func:`kernel_hidden_width`, :func:`pad_hidden`), which is
-exact: a padded unit has zero weights, bias
-and FiLM column, so its pre-activation is 0, ``sin2pi(0) = 0``, and the
-next layer's zero rows ignore it.
+Every kernel family (``FAMILIES``: the float32 and bf16 forwards, dz and
+the training backward) runs on the cluster kernels and takes hidden widths
+up to 3072 (``MAX_HIDDEN``, a cluster of up to 8 blocks,
+:func:`cluster_plan`) and at most 16 input and output features.  A hidden
+width is zero-padded to the cluster plan's width (up to 512 one of 128,
+192, 256, 384 and 512, :func:`kernel_hidden_width`, :func:`pad_hidden`),
+which is exact: a padded unit has zero weights, bias and FiLM column, so
+its pre-activation is 0, ``sin2pi(0) = 0``, and the next layer's zero rows
+ignore it.
 
 Each kernel has a plain PyTorch version beside it that repeats its
 arithmetic.  A wrapper takes the plain version only for CPU tensors; for
@@ -94,15 +94,14 @@ LAUNCHES = {"siren_decode_forward": 0, "siren_decode_forward_bf16": 0,
             "siren_decode_dz": 0, "siren_decode_bwd": 0}
 # the forward's compute dtypes (the JAX kernel's ``compute_dtype``)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
-# each kernel family's widest hidden layer (the float32 families' cluster
-# plan, csrc/siren_cluster.cuh::plan_for; the bf16 forward's
-# csrc/siren_tc.cuh::shape_ok) and the widest C_in, C_out of all of them
+# each kernel family's widest hidden layer (the cluster plan's,
+# csrc/siren_cluster.cuh::plan_for) and the widest C_in, C_out of all of them
 FAMILIES = {"forward": "float32 forward", "forward_bf16": "bfloat16 forward",
             "dz": "dz", "bwd": "training backward"}
-MAX_HIDDEN = {"forward": 3072, "forward_bf16": 1024, "dz": 3072, "bwd": 3072}
+MAX_HIDDEN = {"forward": 3072, "forward_bf16": 3072, "dz": 3072, "bwd": 3072}
 MAX_FEATURES = 16
-# the families that run on the cluster kernels, at every width
-CLUSTER_FAMILIES = ("forward", "dz", "bwd")
+# the families that run on the cluster kernels, at every width: all of them
+CLUSTER_FAMILIES = tuple(FAMILIES)
 
 # pairs per chunk of the training backward, whatever the width: its
 # workspace holds every pre-activation and dpre of a chunk, 2 * n_mod *
@@ -191,7 +190,9 @@ def decode_forward_plain(coords, z, w_first, w_mid, w_head, b_head,
                          compute_dtype=torch.float32):
     """The forward kernels' arithmetic as a layer loop: ``(T, M, C_out)``;
     with ``compute_dtype`` bfloat16 each product's operands are rounded to
-    bfloat16 and multiplied in float32."""
+    bfloat16 and multiplied in float32, where the bf16 kernel rounds them:
+    the coordinates and every weight as it reads them, an activation as it
+    stores it in its share (the next product's operand)."""
     r = _operand_rounding(compute_dtype)
     x = _sin2pi((r(coords) @ r(w_first))[None] + z[0][:, None, :])
     for l in range(1, z.shape[0]):
@@ -214,7 +215,7 @@ def _check_cuda(device: torch.device, **tensors: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the float32 kernels' cluster plan and the weights' stage images
+# the cluster kernels' plan and the weights' stage images
 # (csrc/siren_cluster.cuh)
 # ---------------------------------------------------------------------------
 
@@ -225,7 +226,8 @@ CLUSTER_CONFIGS = ((128, 2), (192, 2), (256, 2), (384, 1))
 CLUSTER_MAX_BLOCKS = 8         # the largest portable cluster
 CLUSTER_KSLICE = 16            # weight rows a stage holds
 SMEM_PER_BLOCK = 232448        # the shared memory a Hopper block may take
-_SHARE_PAD, _SMEM_ALIGN = 16, 128
+# a share's row padding (float32 and bf16 elements) and the stages' alignment
+_SHARE_PAD, _SHARE_PAD_BF16, _SMEM_ALIGN = 16, 32, 128
 
 
 class ClusterPlan(NamedTuple):
@@ -243,23 +245,28 @@ class ClusterPlan(NamedTuple):
     def pairs(self) -> int:
         return 64 * self.m_tiles
 
-    def _bytes(self, stages: int) -> int:
-        p = self.pairs
-        return (_SMEM_ALIGN + stages * CLUSTER_KSLICE * self.share * 8
-                + p * (self.share + _SHARE_PAD) * 4 + 2 * p * MAX_FEATURES * 4 + p * 4
-                + 2 * stages * 8)
+    def _bytes(self, stages: int, bf16: bool) -> int:
+        # the float32 kernels' share and two P x 16 tables, or the bf16
+        # forward's two bf16 buffers (its tables live in them and in the ring)
+        p, share = self.pairs, (2 * 2 if bf16 else 4)
+        pad = _SHARE_PAD_BF16 if bf16 else _SHARE_PAD
+        tables = 0 if bf16 else 2 * p * MAX_FEATURES * 4
+        return (_SMEM_ALIGN + stages * CLUSTER_KSLICE * self.share * 2 * (1 if bf16 else 4)
+                + p * (self.share + pad) * share + tables + p * 4 + 2 * stages * 8)
 
-    @property
-    def stages(self) -> int:
-        """Stages of the weight ring: as many as fit, 2 to 4."""
-        ns = 4
-        while ns > 2 and self._bytes(ns) > SMEM_PER_BLOCK:
+    def ring(self, bf16: bool = False) -> int:
+        """Stages of the weight ring: as many as fit, 2 to 4 for the
+        float32 kernels' TF32 halves, 2 to 16 for the bf16 forward's bf16
+        stages (a quarter of the bytes)."""
+        ns = 16 if bf16 else 4
+        while ns > 2 and self._bytes(ns, bf16) > SMEM_PER_BLOCK:
             ns -= 1
         return ns
 
-    @property
-    def smem_bytes(self) -> int:
-        return self._bytes(self.stages)
+    def shared_bytes(self, bf16: bool = False) -> int:
+        """A block's shared memory: the ring (:meth:`ring`), the shares and
+        the tables."""
+        return self._bytes(self.ring(bf16), bf16)
 
 
 def cluster_plan(h: int) -> ClusterPlan:
@@ -295,6 +302,20 @@ def cluster_weight_layout(w_mid: torch.Tensor, share: int) -> torch.Tensor:
     x = torch.stack(tf32_split(w_mid)).view(2, n_mid, h // 16, 4, 2, 2, h // share, share // 8, 8)
     # (half, layer, slice, j % 4, k8, j / 4, block, n / 8, n % 8) -> the image order
     return x.permute(6, 1, 2, 4, 0, 7, 5, 8, 3).reshape(-1)
+
+
+def cluster_bf16_weight_layout(w_mid: torch.Tensor, share: int) -> torch.Tensor:
+    """What the bf16 forward's preparation writes, flat, as bfloat16: for
+    each block (its ``share`` columns), middle weight and 16-row K-slice,
+    the stage image ``[n / 8][j / 8][n % 8][j % 8]`` of ``w_mid`` ``(n_mid,
+    H, H)`` [k][n] rounded to bfloat16 (to nearest even); fragment row
+    ``j = 8 h + 2 q + e`` of slice ``2 g + s`` is row ``32 g + 8 q + 4 s + 2 h
+    + e`` of the weight (the kernel's ``load_a16`` reads A in the same
+    order, a 16-byte load a lane and row for two slices)."""
+    n_mid, h, _ = w_mid.shape
+    x = w_mid.to(torch.bfloat16).view(n_mid, h // 32, 4, 2, 2, 2, h // share, share // 8, 8)
+    # (layer, g, q, s, h, e, block, n / 8, n % 8) -> the image order
+    return x.permute(6, 0, 1, 3, 7, 4, 8, 2, 5).reshape(-1)
 
 
 def cluster_chain_weight_layout(w_mid: torch.Tensor, share: int) -> torch.Tensor:
@@ -335,19 +356,15 @@ def reduce_operand_layout(d: torch.Tensor, q0: int, hi: int, b0: int, cols: int)
 
 def kernel_hidden_width(h: int, c_in: int, c_out: int, family: str) -> int:
     """The hidden width the ``family`` kernel (a key of ``FAMILIES``) runs
-    a decoder of ``h`` units at: for the float32 families
-    (``CLUSTER_FAMILIES``) the cluster plan's width (up to 512 one of 128,
-    192, 256, 384 and 512), for the bf16 forward the next multiple of 64.
-    Raises beyond the family's limits."""
+    a decoder of ``h`` units at: the cluster plan's width (up to 512 one of
+    128, 192, 256, 384 and 512).  Raises beyond the family's limits."""
     limit = MAX_HIDDEN[family]
     if h > limit or c_in > MAX_FEATURES or c_out > MAX_FEATURES:
         raise ValueError(
             f"the CUDA SIREN {FAMILIES[family]} kernel takes a hidden width of at most {limit} "
             f"(zero-padded to its kernel width) and at most {MAX_FEATURES} input and output "
             f"features, got {h}, {c_in}, {c_out}")
-    if family in CLUSTER_FAMILIES:
-        return cluster_plan(h).width
-    return -(-h // 64) * 64
+    return cluster_plan(h).width
 
 
 def pad_hidden(z, w_first, w_mid, w_head, width: int):
@@ -382,20 +399,6 @@ def padded_bwd(bwd_fn, coords, z, g, w_first, w_mid, w_head, width: int):
     dz, dw_first, dw_mid, dw_head = bwd_fn(coords, zp, g, w_first, w_mid, w_head)
     return (dz[..., :h].contiguous(), dw_first[:, :h].contiguous(),
             dw_mid[:, :h, :h].contiguous(), dw_head[:h].contiguous())
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The built bf16 forward with its C signatures declared."""
-    lib = cuda_build.load("siren_decode")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    for name, args in (
-            ("siren_fwd_bf16_pairs", [i]),
-            ("siren_fwd_bf16_frags", [p, p, i, i, p]),
-            ("siren_decode_forward_bf16", [p] * 7 + [i] * 6 + [p])):
-        getattr(lib, name).argtypes = args
-        getattr(lib, name).restype = i
-    return lib
 
 
 @functools.cache
@@ -438,14 +441,17 @@ def _operands(family, coords, z, w_first, w_mid, w_head, **more):
 
 @functools.cache
 def _cluster_library() -> ctypes.CDLL:
-    """The built cluster forward with its C signatures declared."""
+    """The built cluster forwards (float32 and bf16) with their C
+    signatures declared."""
     lib = cuda_build.load("siren_fwd_cluster")
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, args in (
-            ("siren_fwd_cluster_plan", [i, p]),
-            ("siren_fwd_cluster_max_clusters", [i, i, i, p]),
+            ("siren_fwd_cluster_plan", [i, i, p]),
+            ("siren_fwd_cluster_max_clusters", [i, i, i, i, p]),
             ("siren_fwd_cluster_prep", [p, p, i, i, p]),
-            ("siren_decode_forward_cluster", [p] * 7 + [i] * 6 + [p])):
+            ("siren_fwd_cluster_prep_bf16", [p, p, i, i, p]),
+            ("siren_decode_forward_cluster", [p] * 7 + [i] * 6 + [p]),
+            ("siren_decode_forward_cluster_bf16", [p] * 7 + [i] * 6 + [p])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = i
     return lib
@@ -476,9 +482,9 @@ def cluster_capacity(device_index: int, h: int, c_in: int, c_out: int,
     ``CLUSTER_FAMILIES``); raises when it holds none."""
     n = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        if family == "forward":
-            err = _cluster_library().siren_fwd_cluster_max_clusters(h, c_in, c_out,
-                                                                    ctypes.byref(n))
+        if family in ("forward", "forward_bf16"):
+            err = _cluster_library().siren_fwd_cluster_max_clusters(
+                h, c_in, c_out, int(family == "forward_bf16"), ctypes.byref(n))
         else:
             err = _chain_cluster_library().siren_chain_cluster_max_clusters(
                 int(family == "dz"), h, c_in, c_out, ctypes.byref(n))
@@ -486,7 +492,8 @@ def cluster_capacity(device_index: int, h: int, c_in: int, c_out: int,
     if n.value < 1:
         plan = cluster_plan(h)
         raise RuntimeError(f"the card admits no cluster of {plan.blocks} blocks with "
-                           f"{plan.smem_bytes} bytes of shared memory each (H = {h})")
+                           f"{plan.shared_bytes(family == 'forward_bf16')} bytes of shared "
+                           f"memory each (H = {h})")
     return n.value
 
 
@@ -494,63 +501,36 @@ def _device_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def _launch_forward_cluster(coords, z, w_first, w_mid, w_head, b_head):
-    """Launches of the float32 forward on operands of the cluster plan's
-    width: the weights' stage images, then the forward."""
+def _launch_forward(coords, z, w_first, w_mid, w_head, b_head, compute_dtype):
+    """Launches of the forward on operands of the cluster plan's width: the
+    weights' stage images (TF32 halves, or bf16), then the forward."""
     lib = _cluster_library()
     dev = coords.device
     n_mod, t, h = z.shape
     m, c_in = coords.shape
     c_out = w_head.shape[1]
-    name = "siren_decode_forward"
+    bf16 = compute_dtype == torch.bfloat16
+    name = "siren_decode_forward_bf16" if bf16 else "siren_decode_forward"
+    if bf16:
+        prep, launch = lib.siren_fwd_cluster_prep_bf16, lib.siren_decode_forward_cluster_bf16
+    else:
+        prep, launch = lib.siren_fwd_cluster_prep, lib.siren_decode_forward_cluster
     out = torch.empty((t, m, c_out), device=dev, dtype=torch.float32)
     if t == 0 or m == 0:
         return out
-    cluster_capacity(_device_index(dev), h, c_in, c_out)
+    cluster_capacity(_device_index(dev), h, c_in, c_out, "forward_bf16" if bf16 else "forward")
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         wprep = None
         if n_mod > 1:
-            wprep = torch.empty((n_mod - 1) * 2 * h * h, device=dev, dtype=torch.float32)
-            _raise_on(lib.siren_fwd_cluster_prep(_ptr(w_mid), _ptr(wprep), h, n_mod - 1, stream),
+            wprep = (torch.empty((n_mod - 1) * h * h, device=dev, dtype=torch.bfloat16) if bf16
+                     else torch.empty((n_mod - 1) * 2 * h * h, device=dev, dtype=torch.float32))
+            _raise_on(prep(_ptr(w_mid), _ptr(wprep), h, n_mod - 1, stream),
                       f"{name} weight preparation launch")
             LAUNCHES[name] += 1
-        err = lib.siren_decode_forward_cluster(
-            _ptr(coords), _ptr(z), _ptr(w_first),
-            _ptr(wprep) if wprep is not None else None, _ptr(w_head), _ptr(b_head),
-            _ptr(out), t, m, c_in, h, n_mod, c_out, stream)
-    _raise_on(err, f"{name} launch")
-    LAUNCHES[name] += 1
-    return out
-
-
-def _launch_forward(coords, z, w_first, w_mid, w_head, b_head, compute_dtype):
-    """Launches on operands of a kernel width: the float32 forward is the
-    cluster kernel's (:func:`_launch_forward_cluster`); the bf16 forward
-    rounds the middle weights into bf16 fragments, then runs."""
-    if compute_dtype != torch.bfloat16:
-        return _launch_forward_cluster(coords, z, w_first, w_mid, w_head, b_head)
-    lib = _library()
-    dev = coords.device
-    n_mod, t, h = z.shape
-    m, c_in = coords.shape
-    c_out = w_head.shape[1]
-    name = "siren_decode_forward_bf16"
-    out = torch.empty((t, m, c_out), device=dev, dtype=torch.float32)
-    if t == 0 or m == 0:
-        return out
-    with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        wprep = None
-        if n_mod > 1:
-            wprep = torch.empty((n_mod - 1, h, h), device=dev, dtype=torch.bfloat16)
-            _raise_on(lib.siren_fwd_bf16_frags(_ptr(w_mid), _ptr(wprep), h, n_mod - 1, stream),
-                      f"{name} weight preparation launch")
-            LAUNCHES[name] += 1
-        err = lib.siren_decode_forward_bf16(
-            _ptr(coords), _ptr(z), _ptr(w_first),
-            _ptr(wprep) if wprep is not None else None, _ptr(w_head), _ptr(b_head),
-            _ptr(out), t, m, c_in, h, n_mod, c_out, stream)
+        err = launch(_ptr(coords), _ptr(z), _ptr(w_first),
+                     _ptr(wprep) if wprep is not None else None, _ptr(w_head), _ptr(b_head),
+                     _ptr(out), t, m, c_in, h, n_mod, c_out, stream)
     _raise_on(err, f"{name} launch")
     LAUNCHES[name] += 1
     return out
@@ -561,14 +541,14 @@ def decode_forward(coords, z, w_first, w_mid, w_head, b_head,
     """Fused forward on folded operands: ``(T, M, C_out)``.
 
     CPU tensors take :func:`decode_forward_plain`.  CUDA tensors launch, on
-    operands padded to the kernel's hidden width,
-    ``siren_decode_forward_cluster`` for ``compute_dtype`` float32
-    (``csrc/siren_fwd_cluster.cu``: the middle weights split once into TF32
+    operands padded to the cluster plan's hidden width
+    (``csrc/siren_fwd_cluster.cu``), ``siren_decode_forward_cluster`` for
+    ``compute_dtype`` float32 (the middle weights split once into TF32
     halves as the blocks' stage images, then the 3xTF32 cluster forward), or
-    ``siren_decode_forward_bf16`` for bfloat16 (``csrc/siren_decode.cu``:
-    the middle weights rounded once into bfloat16 fragments, then the bf16
-    tensor-core forward); any other ``compute_dtype`` raises.  The operands
-    are float32 in both modes."""
+    ``siren_decode_forward_cluster_bf16`` for bfloat16 (the middle weights
+    rounded once to bfloat16 as the blocks' stage images, then the bf16
+    cluster forward); any other ``compute_dtype`` raises.  The operands are
+    float32 in both modes."""
     _operand_rounding(compute_dtype)
     if coords.device.type == "cpu":
         return decode_forward_plain(coords, z, w_first, w_mid, w_head, b_head, compute_dtype)

@@ -5,6 +5,8 @@ gradients on the dense and the flash route, ``cast_torso_params``, and the
 SIREN-FiLM decode forward with ``compute_dtype`` bfloat16 (the plain
 version of the bf16 forward kernel) and its frozen op's gradient."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -163,6 +165,58 @@ def test_bf16_forward_plain_matches_pallas_interpret(layers, hidden):
     assert got.shape == want.shape == (5, 300, 3)
     assert _rel(got.numpy(), want) <= DECODE_BF16_TOL
     assert _rel(f32.numpy(), want) > 2 * DECODE_BF16_TOL
+
+
+def test_bf16_forward_plain_matches_pallas_interpret_above_1024():
+    """Above the old bf16 limit of 1024: H = 1152 (six blocks of 192
+    columns on the card), two modulated layers, 3 -> 5 on 2 rows x 64
+    points: ``decode_forward_plain(..., bfloat16)``, the bf16 kernel's
+    plain version, against JAX's bf16 ``_decode_kernel`` in interpret mode
+    (tiles of 2 x 64), and the port's bf16 forward (``fused_siren_decode``
+    on the CPU) with it."""
+    params, model = jax_siren(c_in=3, latent=16, c_out=5, layers=1, hidden=1152)
+    rng = np.random.default_rng(11)
+    coords = rng.uniform(-1, 1, (64, 3)).astype(np.float32)
+    latents = (0.1 * rng.standard_normal((2, 16))).astype(np.float32)
+    want = np.asarray(jsd._fused_forward(params, jnp.asarray(coords), jnp.asarray(latents),
+                                         30.0, 2, 64, True, jnp.bfloat16))
+    with torch.no_grad():
+        w_first, w_mid, w_head, b_head, w2, b1, scale = tsd.stack_weights(model, model.w0)
+        z = tsd.film_table(t(latents), w2, b1, scale)
+        got = tsd.decode_forward_plain(t(coords), z, w_first, w_mid, w_head, b_head,
+                                       torch.bfloat16)
+        fused = tsd.fused_siren_decode(model, t(coords), t(latents),
+                                       compute_dtype=torch.bfloat16)
+    assert tsd.kernel_hidden_width(1152, 3, 5, "forward_bf16") == 1152
+    assert got.shape == want.shape == (2, 64, 5)
+    assert _rel(got.numpy(), want) <= DECODE_BF16_TOL
+    assert torch.equal(fused, got)
+
+
+def test_bf16_padding_to_a_cluster_width_is_exact():
+    """H = 1100 runs on the card at the bf16 plan's width, 1152 (six blocks
+    of 192): through the padding function the plain bf16 forward equals the
+    unpadded one up to the order of its float32 sums (the float32 forward
+    padded moves 5e-8; in bf16 that flips a rounding now and then, so the
+    bf16 forwards are held to ``DECODE_BF16_TOL``, measured 1e-5 to 9e-5,
+    and the float32 one to 1e-6)."""
+    params, model = jax_siren(c_in=3, latent=16, c_out=3, layers=2, hidden=1100)
+    rng = np.random.default_rng(12)
+    coords = t(rng.uniform(-1, 1, (48, 3)).astype(np.float32))
+    latents = t((0.1 * rng.standard_normal((2, 16))).astype(np.float32))
+    width = tsd.kernel_hidden_width(1100, 3, 3, "forward_bf16")
+    assert width == tsd.cluster_plan(1100).width == 1152
+    with torch.no_grad():
+        w_first, w_mid, w_head, b_head, w2, b1, scale = tsd.stack_weights(model, model.w0)
+        z = tsd.film_table(latents, w2, b1, scale)
+        ops = (coords, z, w_first, w_mid, w_head, b_head)
+        bf16 = functools.partial(tsd.decode_forward_plain, compute_dtype=torch.bfloat16)
+        padded = tsd.padded_forward(bf16, *ops, width)
+        torch.testing.assert_close(tsd.padded_forward(tsd.decode_forward_plain, *ops, width),
+                                   tsd.decode_forward_plain(*ops), rtol=1e-6, atol=1e-6)
+        plain = bf16(*ops)
+    assert padded.shape == plain.shape == (2, 48, 3)
+    assert _rel(padded.numpy(), plain.numpy()) <= DECODE_BF16_TOL
 
 
 def test_bf16_frozen_decode_matches_jax():

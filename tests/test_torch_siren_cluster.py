@@ -117,7 +117,11 @@ def test_cluster_plan(h):
     cluster owns 128 pairs and pads to 128, 192, 256, 384 or 512."""
     plan = tsd.cluster_plan(h)
     assert 1 <= plan.blocks <= tsd.CLUSTER_MAX_BLOCKS and plan.pairs in (64, 128)
-    assert plan.smem_bytes <= tsd.SMEM_PER_BLOCK and 2 <= plan.stages <= 4
+    assert plan.shared_bytes() <= tsd.SMEM_PER_BLOCK and 2 <= plan.ring() <= 4
+    # the bf16 forward's ring on the same plan: bf16 shares and stages, up
+    # to 16 stages, never fewer than the float32 kernels'
+    assert plan.shared_bytes(bf16=True) <= tsd.SMEM_PER_BLOCK
+    assert plan.ring() <= plan.ring(bf16=True) <= 16
     assert plan.width >= h and plan.width - h < plan.share
     if h <= 512:
         assert plan.pairs == 128 and plan.width in (128, 192, 256, 384, 512)
@@ -232,6 +236,54 @@ def test_cluster_chain_weight_layout(h):
         assert torch.equal(quads[e], src[index])
 
 
+def _bf16_weights(image, share, n_mid, h):
+    """The inverse of ``cluster_bf16_weight_layout``: ``(n_mid, H, H)``
+    bf16."""
+    x = image.view(h // share, n_mid, h // 32, 2, share // 8, 2, 8, 4, 2)
+    return x.permute(1, 2, 7, 3, 5, 8, 0, 4, 6).reshape(n_mid, h, h)
+
+
+def _prep_bf16_source(e, h, share, n_mid):
+    """What the bf16 preparation kernel (``csrc/siren_cluster.cuh::
+    siren_cluster_prep_bf16_kernel``) reads for its 16-byte row ``e``: the
+    middle weight, the eight rows of it in the row's order and the
+    column."""
+    slices, stage = h // 16, share * 2
+    rank, rem = divmod(e, n_mid * slices * stage)
+    u, x = divmod(rem, stage)
+    layer, c = divmod(u, slices)
+    g8, half, r = x // 16, (x // 8) % 2, x % 8
+    k0 = (c // 2) * 32 + 4 * (c % 2) + 2 * half
+    return layer, [k0 + 8 * q + i for q in range(4) for i in range(2)], rank * share + g8 * 8 + r
+
+
+@pytest.mark.parametrize("h, n_mid", [(128, 2), (384, 2), (1152, 2), (2048, 2), (3072, 1)])
+def test_cluster_bf16_weight_layout(h, n_mid):
+    """The bf16 forward's stage images of ``n_mid`` middle weights (one or
+    two at 3072, with 64 pairs a cluster; two at the plans of 128, 192 and
+    256 columns): the inverse gives back the weights rounded to bf16 (to
+    nearest even, as ``Tensor.to``) exactly, a block's images are its own
+    columns, and the preparation kernel's index arithmetic reads, for
+    every 257th 16-byte row, the elements the layout puts there."""
+    plan = tsd.cluster_plan(h)
+    assert plan.width == h
+    w = torch.from_numpy(np.random.default_rng(h + 2).standard_normal((n_mid, h, h))
+                         .astype(np.float32))
+    image = tsd.cluster_bf16_weight_layout(w, plan.share)
+    assert image.dtype == torch.bfloat16 and image.numel() == n_mid * h * h
+    want = w.to(torch.bfloat16)
+    assert torch.equal(_bf16_weights(image, plan.share, n_mid, h), want)
+    blocks = image.view(plan.blocks, -1)
+    for b in (0, plan.blocks - 1):
+        cols = want[:, :, b * plan.share:(b + 1) * plan.share]
+        assert torch.equal(torch.sort(blocks[b].float()).values,
+                           torch.sort(cols.reshape(-1).float()).values)
+    rows = image.view(-1, 8)
+    for e in range(0, rows.shape[0], 257):
+        layer, ks, n = _prep_bf16_source(e, h, plan.share, n_mid)
+        assert torch.equal(rows[e], want[layer, ks, n])
+
+
 @pytest.mark.parametrize("family", ["dz", "bwd"])
 def test_chain_widths_follow_the_cluster_plan(family):
     """dz and the training backward run at the cluster plan's width, as
@@ -249,12 +301,11 @@ def test_chain_widths_follow_the_cluster_plan(family):
 
 @pytest.mark.parametrize("family", sorted(tsd.FAMILIES))
 def test_width_limits_per_family(family):
-    """The float32 forward, dz and the training backward take every width
-    up to 3072 (their cluster plan's above 512), the bf16 forward up to
-    1024; past a family's limit the error names the family and its
-    limit."""
+    """Every family, the float32 and bf16 forwards, dz and the training
+    backward, takes every width up to 3072 (its cluster plan's); past a
+    family's limit the error names the family and its limit."""
     limit = tsd.MAX_HIDDEN[family]
-    assert limit == (1024 if family == "forward_bf16" else 3072)
+    assert limit == 3072
     assert tsd.kernel_hidden_width(limit, 3, 5, family) == limit
     with pytest.raises(ValueError, match=f"the CUDA SIREN {tsd.FAMILIES[family]} kernel takes "
                                          f"a hidden width of at most {limit}"):

@@ -162,10 +162,10 @@ def test_emulation_matches_pallas_interpret():
 @pytest.mark.parametrize("hidden", [32, 96])
 def test_hidden_padding_is_exact(hidden):
     """The CUDA wrappers zero-pad the hidden width to the kernels' width
-    (the float32 cluster kernels' 128 here, the bf16 forward's next
-    multiple of 64): through the padding functions the plain forward, dz
-    and training backward equal the unpadded ones (1e-6), cotangents
-    sliced back to ``H``."""
+    (the cluster plan's 128 here, for the float32 and bf16 forwards alike):
+    through the padding functions the plain forward, dz and training
+    backward equal the unpadded ones (1e-6), cotangents sliced back to
+    ``H``."""
     _, model = jax_siren(c_in=3, latent=16, c_out=2, layers=2, hidden=hidden)
     rng = np.random.default_rng(7)
     coords = t(rng.uniform(-1, 1, (200, 3)))
@@ -176,7 +176,7 @@ def test_hidden_padding_is_exact(hidden):
         z = tsd.film_table(latents, w2, b1, scale)
         width = tsd.kernel_hidden_width(hidden, 3, 2, "forward")
         assert width == tsd.cluster_plan(hidden).width == 128
-        assert tsd.kernel_hidden_width(hidden, 3, 2, "forward_bf16") == 64 * (hidden // 64 + 1)
+        assert tsd.kernel_hidden_width(hidden, 3, 2, "forward_bf16") == 128
         close = dict(rtol=1e-6, atol=1e-6)
         for dtype in (torch.float32, torch.bfloat16):
             torch.testing.assert_close(
@@ -196,26 +196,17 @@ def test_hidden_padding_is_exact(hidden):
 
 
 def test_kernel_width_limits():
-    """Each kernel family's widths: for the bf16 forward the next multiple
-    of 64 up to its limit of 1024, for the float32 families (the forward,
-    dz and the training backward) the cluster plan's width up to 3072 (up
-    to 512 one of 128, 192, 256, 384 and 512); past a limit, or past 16
-    coordinates or outputs, the error names the family."""
+    """Each kernel family's widths: every family (the float32 and bf16
+    forwards, dz and the training backward) runs at the cluster plan's
+    width up to 3072 (up to 512 one of 128, 192, 256, 384 and 512); past a
+    limit, or past 16 coordinates or outputs, the error names the
+    family."""
     narrow = (1, 64, 65, 129, 193, 257, 384, 385, 400, 448, 449, 500, 512)
-    assert [tsd.kernel_hidden_width(h, 3, 3, "forward_bf16") for h in narrow] \
-        == [64, 64, 128, 192, 256, 320, 384, 448, 448, 448, 512, 512, 512]
+    assert set(tsd.CLUSTER_FAMILIES) == set(tsd.FAMILIES)
     for family in tsd.CLUSTER_FAMILIES:
         assert [tsd.kernel_hidden_width(h, 3, 3, family) for h in narrow] \
             == [128, 128, 128, 192, 256, 384, 384, 512, 512, 512, 512, 512, 512]
-    assert [tsd.kernel_hidden_width(h, 3, 3, "forward_bf16")
-            for h in (513, 576, 600, 640, 1000, 1024)] == [576, 576, 640, 640, 1024, 1024]
-    assert tsd.kernel_hidden_width(1024, 16, 16, "forward_bf16") == 1024
-    for args in ((1025, 3, 3), (1088, 2, 2), (2048, 3, 5), (384, 17, 3), (384, 3, 17),
-                 (1024, 17, 2), (512, 2, 17)):
-        with pytest.raises(ValueError, match="bfloat16 forward kernel takes a hidden "
-                                             "width of at most 1024"):
-            tsd.kernel_hidden_width(*args, "forward_bf16")
-    for family in ("forward", "dz", "bwd"):
+    for family in ("forward", "forward_bf16", "dz", "bwd"):
         assert [tsd.kernel_hidden_width(h, 3, 3, family)
                 for h in (513, 576, 600, 640, 1000, 1024, 1025, 2048, 2049, 3072)] \
             == [576, 576, 640, 640, 1024, 1024, 1152, 2048, 2304, 3072]
@@ -224,5 +215,5 @@ def test_kernel_width_limits():
             with pytest.raises(ValueError, match=f"{tsd.FAMILIES[family]} kernel takes a hidden "
                                                  f"width of at most 3072"):
                 tsd.kernel_hidden_width(*args, family)
-    assert tsd.MAX_HIDDEN == {"forward": 3072, "forward_bf16": 1024, "dz": 3072, "bwd": 3072}
+    assert tsd.MAX_HIDDEN == {"forward": 3072, "forward_bf16": 3072, "dz": 3072, "bwd": 3072}
     assert tsd.MAX_FEATURES == 16

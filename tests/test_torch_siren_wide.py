@@ -1,11 +1,9 @@
 """The SIREN-FiLM kernels' widths above 384, and the demo CNF's, on the CPU.
 
-The CUDA kernels take up to 16 coordinates and outputs; the float32
-forward, dz and the training backward's chain are cluster kernels at every
-width up to H = 3072 (a cluster owns 128 pairs, 64 above H = 2048; 448
-pads to 512, two blocks of 256 columns), and above 384 a block of
-the bf16 forward owns 32 pairs instead of 64
-(``csrc/siren_tc.cuh::block_pairs``).  Here (the width limits are
+The CUDA kernels take up to 16 coordinates and outputs; the float32 and
+bf16 forwards, dz and the training backward's chain are cluster kernels
+at every width up to H = 3072 (a cluster owns 128 pairs, 64 above H =
+2048; 448 pads to 512, two blocks of 256 columns).  Here (the width limits are
 ``test_torch_siren_fwd.py::test_kernel_width_limits``): the plain
 versions (what a CPU tensor takes) at H = 448, 512, 640, 1024, 1536,
 2048 and 3072, with 5

@@ -24,6 +24,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -71,10 +72,11 @@ def routes(model, device, rows, points, padded_width):
     g = torch.randn((rows, points, ops[2].shape[1]), device=device,
                     generator=torch.Generator(device=device).manual_seed(6))
     h = z.shape[2]
+    fwd32 = functools.partial(sd._launch_forward, compute_dtype=torch.float32)
     out = {}
     for route, width in (("plan", h), ("padded", padded_width)):
         out[route] = (
-            lambda w=width: sd.padded_forward(sd._launch_forward_cluster, coords, z, *ops, w),
+            lambda w=width: sd.padded_forward(fwd32, coords, z, *ops, w),
             lambda w=width: sd.padded_bwd(sd._launch_bwd, coords, z, g, *ops[:3], w))
     return out
 
