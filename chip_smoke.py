@@ -10,11 +10,14 @@ Phases, each fatal on failure:
    process per source, all started together (timed; ptxas registers and
    spills, and for the flash and SIREN tensor-core kernels the count of
    ``HMMA`` and ``HGMMA`` instructions in ``cuobjdump -sass``: every flash
-   forward and backward instantiation must have some, every instantiation
-   of the SIREN cluster kernels (the float32 and bf16 forwards, the chain
-   in its training mode and in its dz mode) and of the training backward's
-   reduction some ``HGMMA``, the reduction and the bf16 forward no
-   ``HMMA``, and each of the reduction's tile widths an instantiation);
+   backward instantiation must have some, every instantiation of the SIREN
+   cluster kernels (the float32 and bf16 forwards, the chain in its
+   training mode and in its dz mode), of the training backward's reduction
+   and of the flash forward some ``HGMMA``, the reduction, the bf16 SIREN
+   forward and the flash forward no ``HMMA``, each of the reduction's tile
+   widths an instantiation, and the flash forward all six (D = 32, 64,
+   128 in float32 and bf16), each with its plan (keys a tile, raw and image
+   stages, dynamic shared memory) held to the wrapper's mirror);
 3. forward decode kernel against its plain version and a float64 run under
    the JAX tests' criterion ``err_kernel <= 2 * err_plain_f32 + 1e-6`` (each
    error printed as a share of its limit), two launches bitwise equal: at
@@ -108,7 +111,14 @@ Phases, each fatal on failure:
     their least and largest (at 144 tokens, where the host's launch rate
     bounds those, also the forwards' device time from ``torch.profiler``),
     the SM clock and its maximum logged before and after, beside two
-    bounds (the tensor cores' 3xTF32 rate, and CUDA-core float32);
+    bounds (the tensor cores' 3xTF32 rate, and CUDA-core float32); then
+    the forward alone (on ``wgmma``) beside its plain version and
+    SDPA on the same tensors, both layouts, and its bound (products at the
+    3xTF32 or the dense bf16 rate, exponentials, bytes): bf16 at the same
+    three shapes, float32 at phase 18 (d)'s classifier shapes (16, 1024,
+    64), (32, 256, 64) and (32, 64, 64); and the wrapper's host time a
+    call at (64, 144, 64) (``time.perf_counter`` over 200 unsynchronised
+    calls) with its parts, beside SDPA's;
 11. the full-width Case4 U-Net (384^2, 128 ch, mult 1,1,2,2,4,4, heads of
     64), batch 8: one ``training_losses`` forward and backward with
     ``use_flash_attention`` true and false on the same weights and draws;
@@ -448,6 +458,9 @@ FLASH_CHECKS = ((64, 144, 64, torch.float32), (2, 200, 32, torch.float32),
                 (8, 144, 16, torch.float32), (8, 144, 16, torch.bfloat16))
 FLASH_TIMES = ((64, 144, 64), (16, 9216, 64), (4, 16384, 64))
 FLASH_PATH_SHAPE = "64x144x64"
+# phase 18 (d)'s classifier at batch 4: 4 heads at 1024 tokens, 8 at 256
+# and at 64, of 64 channels
+FLASH_CLASSIFIER_SHAPES = ((16, 1024, 64), (32, 256, 64), (32, 64, 64))
 # flops of one sin2pi activation in the kernels: round-reduce (2), square (1),
 # five FMAs (10), final multiply (1), FiLM add (1)
 ACT_FLOPS = 15
@@ -612,21 +625,29 @@ def hmma_in(sass: str) -> dict:
     return counts
 
 
+def flash_fwd_label(d: int, dtype) -> str:
+    """``flash_fwd_kernel<64, f32>``, as ``kernel_label`` names it."""
+    return f"{FLASH_FWD_KERNEL}<{d}, {'f32' if dtype == torch.float32 else 'bf16'}>"
+
+
 def tc_label(counts: dict) -> str:
     """``48 HMMA`` or ``0 HMMA, 24 HGMMA``."""
     return f"{counts['HMMA']} HMMA" + (f", {counts['HGMMA']} HGMMA" if counts["HGMMA"] else "")
 
 
 # kernels whose every instantiation must run its products on the tensor
-# cores: mma.sync (HMMA), and wgmma (HGMMA) for the cluster kernels and the
-# training backward's reduction; the reduction and the bf16 forward have no
-# mma.sync at all
+# cores: mma.sync (HMMA), and wgmma (HGMMA) for the cluster kernels, the
+# training backward's reduction and the flash forward; the reduction, the
+# bf16 SIREN forward and the flash forward have no mma.sync at all
 BF16_FWD_KERNEL = "siren_fwd_cluster_bf16_kernel"
+FLASH_FWD_KERNEL = "flash_fwd_kernel"
 CLUSTER_KERNELS = ("siren_fwd_cluster_kernel", "siren_chain_cluster_kernel", BF16_FWD_KERNEL)
-WGMMA_ONLY_KERNELS = ("siren_bwd_reduce_kernel", BF16_FWD_KERNEL)
-WGMMA_KERNELS = CLUSTER_KERNELS + WGMMA_ONLY_KERNELS[:1]
-TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                       "flash_bwd_dkv_kernel") + WGMMA_KERNELS
+WGMMA_ONLY_KERNELS = ("siren_bwd_reduce_kernel", BF16_FWD_KERNEL, FLASH_FWD_KERNEL)
+WGMMA_KERNELS = CLUSTER_KERNELS + ("siren_bwd_reduce_kernel", FLASH_FWD_KERNEL)
+TENSOR_CORE_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel") + WGMMA_KERNELS
+# the flash forward's instantiations: every head width in both types
+FLASH_FWD_INSTANCES = tuple((d, dtype) for d in (32, 64, 128)
+                            for dtype in (torch.float32, torch.bfloat16))
 # the reduction's instantiations, ``<tile columns, subtile columns>``, one a
 # tile width (csrc/siren_decode_bwd.cu::reduce_cols), both launched by the
 # main paths (128 at H = 128, 512 and 1024; 192 at Case4's 384)
@@ -668,9 +689,23 @@ def phase_build():
     mma_sync = [k for k, v in hmma.items() if k.startswith(WGMMA_ONLY_KERNELS) and v["HMMA"]]
     missing = [bn for bn in REDUCE_TILES
                if not any(k.startswith(f"siren_bwd_reduce_kernel<{bn},") for k in hmma)]
+    missing += [flash_fwd_label(d, dtype) for d, dtype in FLASH_FWD_INSTANCES
+                if flash_fwd_label(d, dtype) not in hmma]
     if mma_sync or missing:
-        raise SystemExit(f"reduction instantiations with mma.sync (HMMA): {mma_sync}; "
-                         f"tile widths without one: {missing}")
+        raise SystemExit(f"wgmma-only kernel instantiations with mma.sync (HMMA): {mma_sync}; "
+                         f"reduction tile widths or flash forward instantiations missing: "
+                         f"{missing}")
+    # the flash forward's plan in each instantiation: the library's against
+    # the wrapper's mirror, beside its registers and spills
+    for d, dtype in FLASH_FWD_INSTANCES:
+        label = flash_fwd_label(d, dtype)
+        plan = fa.library_forward_plan(d, dtype)
+        log(f"[build] {label}: {plan['keys']} keys a tile, {plan['raw_stages']} raw and "
+            f"{plan['image_stages']} image stages, {plan['smem']} bytes of dynamic shared "
+            f"memory; {PTXAS.get(label)}")
+        if plan != fa.forward_plan(d, dtype):
+            raise SystemExit(f"{label}: the library's plan {plan} is not the wrapper's "
+                             f"{fa.forward_plan(d, dtype)}")
     if no_tc or not all(any(k.split("<")[0] == p for k in required)
                         for p in TENSOR_CORE_KERNELS):
         raise SystemExit(f"kernels without tensor-core instructions: {no_tc} "
@@ -1802,6 +1837,81 @@ def flash_times(device, bh, n, d) -> dict:
     return dict(t, bounds=b, spread=spread)
 
 
+def forward_bound(bh, n, d, dtype) -> tuple[float, str]:
+    """The forward's bound (ms, what bounds it): its products at the 3xTF32
+    rate (float32) or the dense bf16 rate, its exponentials, and the bytes
+    of q, k, v, out and lse."""
+    size = torch.empty((), dtype=dtype).element_size()
+    rate = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+            else PEAK_TF32_FLOPS / TF32_SPLIT_PRODUCTS)
+    return tc_bound(4 * bh * n * n * d, 4 * bh * n * d * size + 4 * bh * n,
+                    bh * n * n / PEAK_EXP_PER_S, rate=rate)
+
+
+def forward_times(device, bh, n, d, dtype) -> dict:
+    """The forward kernel as called, its plain version and
+    scaled_dot_product_attention on the same tensors, on their (BH, N, D)
+    layout and their (1, BH, N, D) view, each the median of 7 separately
+    timed runs of back-to-back calls (20 below 1000 tokens, where the host's
+    launch rate bounds them) with their least and largest: ms a call."""
+    q, k, v, _ = flash_case(device, bh, n, d, dtype, seed=11)
+    q4, k4, v4 = (t.reshape(1, bh, n, d) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    calls = 20 if n < 1000 else 1
+    fns = {"kernel": lambda: fa.flash_forward(q, k, v),
+           "sdpa": lambda: sdpa(q, k, v), "sdpa_4d": lambda: sdpa(q4, k4, v4),
+           "plain": lambda: fa.flash_forward_plain(q, k, v)}
+    t = {name: cuda_median(fn, calls) for name, fn in fns.items()}
+    b_ms, b_by = forward_bound(bh, n, d, dtype)
+
+    def ms(name):
+        return f"{t[name][0]:.4f} [{t[name][1]:.4f}-{t[name][2]:.4f}]"
+    lib = min(t["sdpa"][0], t["sdpa_4d"][0])
+    log(f"[flash-fwd] ({bh}, {n}, {d}) {str(dtype)[6:]}, ms as median [least-largest] of 7 "
+        f"({calls} calls each): forward kernel {ms('kernel')} (bound {b_ms:.4f}, {b_by}; "
+        f"{4 * bh * n * n * d / t['kernel'][0] / 1e9:.1f} TFLOP/s), plain {ms('plain')}, "
+        f"sdpa {ms('sdpa')} ((1, BH, N, D) view {ms('sdpa_4d')}): the kernel "
+        f"{'beats' if t['kernel'][0] < lib else 'does not beat'} SDPA's faster layout")
+    del q, k, v, q4, k4, v4
+    torch.cuda.empty_cache()
+    return dict(t, bound=(b_ms, b_by))
+
+
+def forward_host_us(device, bh=64, n=144, d=64, calls=200) -> dict:
+    """Host microseconds a call at (64, 144, 64) float32 (time.perf_counter
+    over ``calls`` calls with no synchronisation between them, median of 5
+    runs), of the forward as called and of its parts: the wrapper behind
+    the CPU / padding dispatch (``_launch_forward``), its two output
+    allocations alone, and the library call alone on ready arguments (which
+    launches the kernel); beside scaled_dot_product_attention's."""
+    q, k, v, _ = flash_case(device, bh, n, d, torch.float32, seed=12)
+    out, lse = torch.empty_like(q), torch.empty((bh, n), device=device)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = fa._library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, n, d,
+            0, 1.0 / d ** 0.5, fa._stream(q.get_device()))
+    parts = {"flash_forward": lambda: fa.flash_forward(q, k, v),
+             "_launch_forward": lambda: fa._launch_forward(q, k, v, None),
+             "allocations": lambda: (torch.empty_like(q), q.new_empty((bh, n))),
+             "library call": lambda: lib.flash_forward(*args),
+             "sdpa": lambda: sdpa(q, k, v)}
+    us = {}
+    for name, fn in parts.items():
+        runs = []
+        for _ in range(5):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            runs.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        us[name] = sorted(runs)[2]
+    log(f"[flash-host] ({bh}, {n}, {d}) f32, host us a call (perf_counter over {calls} "
+        f"unsynchronised calls, median of 5): " + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
+    return us
+
+
 def phase_flash(device, results) -> None:
     errs = {}
     for bh, n, d, dtype in FLASH_CHECKS:
@@ -1811,7 +1921,13 @@ def phase_flash(device, results) -> None:
     path = errs[(64, 144, 64, torch.float32)]
     log(f"[flash-time] SM clock, max SM clock before the timings: {sm_clocks()}")
     times = {f"{bh}x{n}x{d}": flash_times(device, bh, n, d) for bh, n, d in FLASH_TIMES}
+    # the forward alone: bf16 at the same shapes, float32 at the classifier's
+    fwd_times = {f"{bh}x{n}x{d} {str(dtype)[6:]}": forward_times(device, bh, n, d, dtype)
+                 for (bh, n, d), dtype in [(s, torch.bfloat16) for s in FLASH_TIMES]
+                 + [(s, torch.float32) for s in FLASH_CLASSIFIER_SHAPES]}
+    host = forward_host_us(device)
     log(f"[flash-time] SM clock, max SM clock after the timings: {sm_clocks()}")
+    log("[flash-fwd] " + json.dumps(dict(fwd_times, host_us=host)))
     log("[flash-time] " + json.dumps({s: {k: v for k, v in t.items() if k != "bounds"}
                                       for s, t in times.items()}))
     t = times[FLASH_PATH_SHAPE]

@@ -1,0 +1,85 @@
+// PTX helpers for the port's Hopper (sm_90a) kernels, shared by the SIREN
+// cluster kernels (siren_cluster.cuh and its users) and the flash-attention
+// forward (flash_attention.cu): 16-byte shared loads, mbarriers, 1-D bulk
+// async copies completed on an mbarrier, the wgmma fences and waits, the
+// no-swizzle K-major shared-memory descriptor, and bf16 packing.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// 16 bytes of this block's shared memory
+__device__ __forceinline__ uint4 ld_shared4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+// wait for the completion of the phase of this parity
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// bytes global -> this block's shared memory, completing on bar, which
+// expects them; issued by the leader thread alone, as predicated
+// instructions, so that the caller's warpgroup does not diverge around its
+// wgmma
+__device__ __forceinline__ void bulk_fill(bool leader, uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%3], %2;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      "}\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "r"((int)leader)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of x across the asyncronous product
+__device__ __forceinline__ void fence_reg(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+
+// K-major B operand without swizzle: 8 x 16-byte core matrices, the two of
+// a k8 step 128 bytes apart (leading byte offset), successive 8-row groups
+// of N 256 bytes apart (stride byte offset)
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+// (lo, hi) rounded to bf16 (to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// x rounded to bf16 (to nearest even), as a float
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+}  // namespace hopper

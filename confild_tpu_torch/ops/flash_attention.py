@@ -17,7 +17,9 @@ Kernels (``csrc/flash_attention.cu``):
 All three kernels run their products on the tensor cores as 3xTF32 (each
 float32 operand split into two TF32 halves, three products), which keeps
 the float32 result within the same float64 criterion as the plain version
-(``chip_smoke.py`` phase 10).  For bfloat16 inputs the kernels, like the
+(``chip_smoke.py`` phase 10): the forward on ``wgmma``, fed by a producer
+warpgroup through bulk async copies (its plan: :func:`forward_plan`), the
+backward on ``mma.sync``.  For bfloat16 inputs the kernels, like the
 plain versions, round P to bfloat16 before P.V and before dV, and dS before
 dQ and dK, as the JAX kernels do (``:80-81, 180, 210, 214``).
 
@@ -31,7 +33,11 @@ with the logits scaled by ``1/sqrt`` of the true width; wider heads raise.
 
 Each kernel has a plain PyTorch version beside it.  A wrapper takes the
 plain version only for CPU tensors; for CUDA tensors it launches its kernel
-or raises.  ``LAUNCHES`` counts kernel launches.
+or raises.  ``LAUNCHES`` counts kernel launches.  The forward's wrapper is
+on the U-Net's path at 144 tokens, where its host time is the call's time:
+it checks its operands in one expression (``_check`` names what is wrong),
+passes raw pointers and the raw current stream to ``ctypes``, and enters a
+device context only when ``q`` is not on the current device.
 """
 
 from __future__ import annotations
@@ -49,6 +55,11 @@ LAUNCHES = {"flash_forward": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INV_SQRT = {d: 1.0 / math.sqrt(d) for d in _HEAD_DIMS}
+# the raw current-stream handle and the current device's index, on CUDA
+# builds (the public lookups build a Stream object, or initialise first)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_get_device = getattr(torch._C, "_cuda_getDevice", None)
 
 
 def reset_launch_counts() -> None:
@@ -154,10 +165,17 @@ def padded_backward(backward, q, k, v, out, lse, g):
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernels with their C signatures declared."""
-    lib = cuda_build.load("flash_attention")
+    return declare(cuda_build.load("flash_attention"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/flash_attention.cu``) with its C
+    signatures declared."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_forward.argtypes = [p] * 5 + [i] * 4 + [f, p]
     lib.flash_forward.restype = i
+    lib.flash_forward_plan.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.flash_forward_plan.restype = i
     lib.flash_bwd_dq.argtypes = [p] * 7 + [i] * 4 + [f, p]
     lib.flash_bwd_dq.restype = i
     lib.flash_bwd_dkv.argtypes = [p] * 8 + [i] * 4 + [f, p]
@@ -165,8 +183,52 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+# ---------------------------------------------------------------------------
+# the forward kernel's plan and operand images (csrc/flash_attention.cu::fwd)
+# ---------------------------------------------------------------------------
+
+FWD_ROWS = 128          # query rows a block: two consumer warpgroups of 64
+FWD_MAX_RAW_STAGES = 4
+FWD_SMEM_LIMIT = 232448
+
+
+def forward_plan(d: int, dtype: torch.dtype) -> dict:
+    """The forward kernel's plan at head width ``d``: keys a tile, raw
+    stages, image stages and bytes of dynamic shared memory (mirrors
+    ``fwd::Plan``; ``library_forward_plan`` asks the built library)."""
+    f32 = dtype == torch.float32
+    size, halves = (4, 2) if f32 else (2, 1)
+    kt = 16 if f32 and d == 128 else 64
+    ni = 2
+    q_img, kv_img, raw = FWD_ROWS * d * size * halves, kt * d * size * halves, kt * d * size
+    fixed = 128 + q_img + ni * 2 * kv_img + 8 * (FWD_MAX_RAW_STAGES + 2 * ni)
+    nr = min(FWD_MAX_RAW_STAGES, (FWD_SMEM_LIMIT - fixed) // (2 * raw))
+    return {"keys": kt, "raw_stages": nr, "image_stages": ni, "smem": fixed + nr * 2 * raw}
+
+
+def library_forward_plan(d: int, dtype: torch.dtype) -> dict:
+    """The built library's forward plan (``flash_forward_plan``)."""
+    out = (ctypes.c_int * 4)()
+    _raise_on(_library().flash_forward_plan(d, _DTYPES[dtype], out), "flash_forward_plan")
+    return dict(zip(("keys", "raw_stages", "image_stages", "smem"), out))
+
+
+def image_offset(r: int, ck: int, rows: int, halves: int) -> int:
+    """Byte offset of 16-byte chunk ``ck`` (along K) of row ``r`` in the
+    forward's image of an operand of ``rows`` rows (``fwd::img_off``): the
+    no-swizzle K-major core matrices, a k-step (two chunks) a block of
+    ``rows`` x 32 bytes a half."""
+    return (ck >> 1) * (rows * 32 * halves) + (r >> 3) * 256 + (ck & 1) * 128 + (r & 7) * 16
+
+
+def v_image_keys(dtype: torch.dtype, ck: int) -> list[int]:
+    """The keys of a tile that 16-byte chunk ``ck`` of a column of V's image
+    holds, in order (``fwd::build_images``): float32, keys 8 (ck / 2) +
+    ck % 2 + 2e (P's register fragment takes key 2t of a k8 step as index t
+    and 2t + 1 as t + 4); bf16, keys 8 ck .. 8 ck + 7."""
+    if dtype == torch.float32:
+        return [8 * (ck >> 1) + (ck & 1) + 2 * e for e in range(4)]
+    return [8 * ck + e for e in range(8)]
 
 
 def _check(ref, **tensors) -> tuple[int, int, int, int]:
@@ -191,8 +253,20 @@ def _check(ref, **tensors) -> tuple[int, int, int, int]:
     return bh, n, d, _DTYPES[ref.dtype]
 
 
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+def _stream(index: int) -> int:
+    """The raw handle of the current stream of CUDA device ``index``."""
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _on_device(index: int, fn, *args) -> int:
+    """``fn(*args, stream)`` with device ``index`` current (a device context
+    only where it is not already)."""
+    if index == (_get_device() if _get_device is not None else torch.cuda.current_device()):
+        return fn(*args, _stream(index))
+    with torch.cuda.device(index):
+        return fn(*args, _stream(index))
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -207,12 +281,18 @@ def _scale(q, scale):
 def _launch_forward(q, k, v, scale):
     """``(out, lse)`` on CUDA tensors of a kernel head width: launches
     ``flash_forward``."""
-    bh, n, d, code = _check(q, q=q, k=k, v=v)
+    shape, dtype, device = q.shape, q.dtype, q.device
+    if not (shape[-1] in _HEAD_DIMS and dtype in _DTYPES and k.dtype is dtype
+            and v.dtype is dtype and k.shape == shape and v.shape == shape
+            and k.device == device and v.device == device and q.is_contiguous()
+            and k.is_contiguous() and v.is_contiguous()):
+        _check(q, q=q, k=k, v=v)   # raises, naming what is wrong
+    bh, n, d = shape
     out = torch.empty_like(q)
-    lse = torch.empty((bh, n), device=q.device, dtype=torch.float32)
-    with torch.cuda.device(q.device):
-        err = _library().flash_forward(_ptr(q), _ptr(k), _ptr(v), _ptr(out), _ptr(lse),
-                                       bh, n, d, code, _scale(q, scale), _stream(q.device))
+    lse = q.new_empty((bh, n), dtype=torch.float32)
+    err = _on_device(device.index, _library().flash_forward, q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, n, d, _DTYPES[dtype],
+                     _INV_SQRT[d] if scale is None else scale)
     _raise_on(err, "flash_forward launch")
     LAUNCHES["flash_forward"] += 1
     return out, lse
@@ -222,8 +302,10 @@ def flash_forward(q, k, v):
     """``(out, lse)``.  CPU tensors take :func:`flash_forward_plain`; CUDA
     tensors launch ``flash_forward`` (on a head padded to the kernels'
     width, :func:`padded_forward`)."""
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return flash_forward_plain(q, k, v)
+    if q.shape[-1] in _HEAD_DIMS:
+        return _launch_forward(q, k, v, None)
     return padded_forward(_launch_forward, q, k, v)
 
 
@@ -232,10 +314,9 @@ def bwd_dq(q, k, v, g, lse, delta, scale=None):
     ``flash_bwd_dq``."""
     bh, n, d, code = _check(q, q=q, k=k, v=v, g=g, lse=lse, delta=delta)
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = _library().flash_bwd_dq(_ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse),
-                                      _ptr(delta), _ptr(dq), bh, n, d, code,
-                                      _scale(q, scale), _stream(q.device))
+    err = _on_device(q.get_device(), _library().flash_bwd_dq, q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     dq.data_ptr(), bh, n, d, code, _scale(q, scale))
     _raise_on(err, "flash_bwd_dq launch")
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
@@ -246,10 +327,9 @@ def bwd_dkv(q, k, v, g, lse, delta, scale=None):
     ``flash_bwd_dkv``."""
     bh, n, d, code = _check(q, q=q, k=k, v=v, g=g, lse=lse, delta=delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = _library().flash_bwd_dkv(_ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse),
-                                       _ptr(delta), _ptr(dk), _ptr(dv), bh, n, d, code,
-                                       _scale(q, scale), _stream(q.device))
+    err = _on_device(q.get_device(), _library().flash_bwd_dkv, q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), bh, n, d, code, _scale(q, scale))
     _raise_on(err, "flash_bwd_dkv launch")
     LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
@@ -289,5 +369,9 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v):
-    """Online-softmax attention: q, k, v ``(BH, N, D)`` -> ``(BH, N, D)``."""
-    return _FlashAttention.apply(q, k, v)
+    """Online-softmax attention: q, k, v ``(BH, N, D)`` -> ``(BH, N, D)``.
+    Where no gradient is wanted (sampling), the forward is called without
+    the autograd function and saves nothing."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v)
+    return flash_forward(q.contiguous(), k.contiguous(), v.contiguous())[0]

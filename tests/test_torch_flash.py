@@ -1,9 +1,10 @@
 """Port vs JAX package for flash attention on the CPU: the port's autograd
 function (its plain versions, which the CUDA kernels repeat) against the
 JAX Pallas kernels in interpret mode, at the JAX tests' shapes and
-tolerances (``tests/test_flash_attention.py``), plus the wrapper's operand
-checks and the kernels' 3xTF32 numeric scheme, forward and backward
-(emulated here), against float64."""
+tolerances (``tests/test_flash_attention.py``), plus the wrappers' operand
+checks, the kernels' 3xTF32 numeric scheme, forward (its ``wgmma`` partials
+and tiles, with the tensor cores' truncating sums) and backward (emulated
+here), against float64, and the forward's plan and V image."""
 
 import jax
 import jax.numpy as jnp
@@ -286,48 +287,108 @@ def test_single_tf32_backward_misses_the_f32_criterion():
     assert min(margins) > 10.0, margins
 
 
-def _forward_with(mm, q, k, v):
-    """The forward kernel's loop head by head, every product through ``mm``:
-    64-key tiles, a running max in log2 units, the alpha rescale of the sum
-    and the output, P = 2^(S scale log2 e - m); ``(out, lse)`` with
-    lse = m ln 2 + ln l.  The sum l is kept as the kernel keeps it: lane t
-    of a row's quad holds keys 8j + 2t + e (j < 8, e < 2) of each tile, adds
-    those 16 in order into a tile sum, adds that into its own running sum,
-    and the four lanes' sums are added pairwise at the end, all in float32."""
+def _tc_add(c, a, b):
+    """``c + a @ b`` as the tensor cores add one k-step of a product: the
+    products exact, every addend (``c`` among them) cut toward zero to 24
+    significant bits below the largest one's exponent, the sum cut toward
+    zero to float32 (the truncation the kernels' partials guard against)."""
+    terms = np.concatenate([c.astype(np.float64)[:, None, :],
+                            a.astype(np.float64)[:, :, None] * b.astype(np.float64)[None]], axis=1)
+    top = np.abs(terms).max(axis=1, keepdims=True)
+    quantum = np.exp2(np.floor(np.log2(np.where(top > 0, top, 1.0))) - 23)
+    total = (np.trunc(terms / quantum) * quantum).sum(axis=1)
+    out = total.astype(np.float32)
+    over = np.abs(out.astype(np.float64)) > np.abs(total)
+    out[over] = np.nextafter(out[over], np.float32(0))
+    return out
+
+
+def _tc_product(a, b, k_step, carry, split):
+    """``a @ b`` as the forward kernel's ``wgmma`` runs it: k-steps of
+    ``k_step``, each three TF32 products (small.big, big.small, big.big;
+    ``split``) or one of operands rounded to TF32 once, into a zeroed
+    partial that a float32 add carries into the sum every ``carry`` k-steps."""
+    if split:
+        (ab, as_), (bb, bs) = _split(a), _split(b)
+        terms = lambda sl: ((as_[:, sl], bb[sl]), (ab[:, sl], bs[sl]), (ab[:, sl], bb[sl]))
+    else:
+        ar, br = _rna_tf32(a), _rna_tf32(b)
+        terms = lambda sl: ((ar[:, sl], br[sl]),)
+    total = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    steps = range(0, a.shape[1], k_step)
+    for i, k0 in enumerate(steps):
+        if i % carry == 0:
+            part = np.zeros_like(total)
+        for x, y in terms(slice(k0, k0 + k_step)):
+            part = _tc_add(part, x, y)
+        if (i + 1) % carry == 0 or i + 1 == len(steps):
+            total = total + part
+    return total
+
+
+def _fma32(a, b, c):
+    """float32 ``a * b + c`` rounded once, as ``fmaf``."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+# P.V's k index within a k8 step: index t is key 2t, index t + 4 key 2t + 1
+# (the order of P's register fragment; V's image holds its keys so)
+PV_KEY_ORDER = np.array([0, 2, 4, 6, 1, 3, 5, 7])
+
+
+def _forward_with(split, q, k, v):
+    """The forward kernel's loop head by head (csrc/flash_attention.cu):
+    tiles of ``forward_plan``'s keys; S = Q K^T on the tensor cores with a
+    partial carried every k16 step (two k8 steps); a running max in log2
+    units (the tile's largest raw logit times scale log2 e); P = 2^(S scale
+    log2 e - m), one fma into the exponential; P.V over the tile's keys, taken in
+    ``PV_KEY_ORDER`` within each k8 step, into one partial carried as
+    acc = fma(acc, alpha, partial).  The sum l is kept as the kernel keeps
+    it: lane t of a row's quad holds keys 8j + 2t + e of each tile, adds them
+    in order into a tile sum and that into its running sum by an fma, and
+    the four lanes' sums are added pairwise at the end; out = acc * (1 / l),
+    lse = m ln 2 + ln l, all in float32."""
+    d = q.shape[-1]
+    kt = tfa.forward_plan(d, torch.float32)["keys"]
     log2e = np.float32(1.4426950408889634)
-    scale2 = np.float32(1.0 / np.sqrt(q.shape[-1])) * log2e
+    scale2 = np.float32(1.0 / np.sqrt(d)) * log2e
     outs, lses = [], []
     for b in range(q.shape[0]):
         n = q.shape[1]
         m = np.full(n, -np.inf, np.float32)
         lanes = np.zeros((n, 4), np.float32)
-        acc = np.zeros((n, q.shape[-1]), np.float32)
-        for k0 in range(0, n, 64):
-            s = mm(q[b], np.ascontiguousarray(k[b, k0:k0 + 64].T)) * scale2
-            m_new = np.maximum(m, s.max(-1))
+        acc = np.zeros((n, d), np.float32)
+        for k0 in range(0, n, kt):
+            valid = min(kt, n - k0)
+            kb = np.zeros((kt, d), np.float32)
+            vb = np.zeros((kt, d), np.float32)
+            kb[:valid], vb[:valid] = k[b, k0:k0 + valid], v[b, k0:k0 + valid]
+            s = _tc_product(q[b], np.ascontiguousarray(kb.T), 8, 2, split)
+            s[:, valid:] = -np.inf
+            m_new = np.maximum(m, s.max(-1) * scale2)
             alpha = np.exp2(m - m_new)
-            p = np.exp2(s - m_new[:, None])
-            by_lane = np.zeros((n, 64), np.float32)   # keys past n: P = 0
-            by_lane[:, :p.shape[1]] = p
-            by_lane = by_lane.reshape(n, 8, 4, 2)      # [row, j, t, e]
+            p = np.exp2(_fma32(s, scale2, -m_new[:, None]))
+            by_lane = p.reshape(n, kt // 8, 4, 2)     # [row, j, t, e]
             tile_sum = np.zeros((n, 4), np.float32)
-            for j in range(8):
+            for j in range(kt // 8):
                 for e in range(2):
                     tile_sum = tile_sum + by_lane[:, j, :, e]
-            lanes = alpha[:, None] * lanes + tile_sum
-            acc = alpha[:, None] * acc + mm(p, v[b, k0:k0 + 64])
+            lanes = _fma32(alpha[:, None], lanes, tile_sum)
+            order = (np.arange(0, kt, 8)[:, None] + PV_KEY_ORDER).ravel()
+            pv = _tc_product(p[:, order], vb[order], 8, kt // 8, split)
+            acc = _fma32(acc, alpha[:, None], pv)
             m = m_new
         l = (lanes[:, 0] + lanes[:, 1]) + (lanes[:, 2] + lanes[:, 3])
-        outs.append(acc / l[:, None])
+        outs.append(acc * (np.float32(1) / l)[:, None])
         lses.append(m * np.float32(0.6931471805599453) + np.log(l))
     return np.stack(outs), np.stack(lses)
 
 
-def _forward_margins(mm, bh, n, d, seed):
+def _forward_margins(split, bh, n, d, seed):
     """error / limit of out and lse under the kernels' criterion."""
     q, k, v = _inputs(bh, n, d, seed=seed, count=3)
     plain = [x.numpy() for x in tfa.flash_forward_plain(*map(torch.from_numpy, (q, k, v)))]
-    got = _forward_with(mm, q, k, v)
+    got = _forward_with(split, q, k, v)
     s = np.einsum("bqd,bkd->bqk", q.astype(np.float64), k.astype(np.float64)) / np.sqrt(d)
     lse = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
     truth = (np.einsum("bqk,bkd->bqd", np.exp(s - lse[..., None]), v.astype(np.float64)), lse)
@@ -335,19 +396,125 @@ def _forward_margins(mm, bh, n, d, seed):
             for x, pl, t in zip(got, plain, truth)]
 
 
-@pytest.mark.parametrize("bh,n,d", [(2, 200, 32), (8, 144, 64)])
+@pytest.mark.parametrize("bh,n,d", [(2, 200, 32), (8, 144, 64), (2, 144, 128)])
 def test_3xtf32_forward_meets_the_f32_criterion(bh, n, d):
-    """3xTF32 products with the forward kernel's online softmax keep out and
-    lse within the criterion the CUDA kernel is held to on the card (the
-    ragged last key tile included at N = 200)."""
-    margins = _forward_margins(_mm_3xtf32, bh, n, d, seed=7)
+    """3xTF32 products with the forward kernel's partials, tiles and online
+    softmax keep out and lse within the criterion the CUDA kernel is held to
+    on the card (the ragged last key tile included at N = 200; tiles of 64
+    keys, 16 at D = 128)."""
+    margins = _forward_margins(True, bh, n, d, seed=7)
     assert max(margins) <= 1.0, margins
 
 
 def test_single_tf32_forward_misses_the_f32_criterion():
-    """One TF32 product per matmul puts out and lse far outside it."""
-    margins = _forward_margins(_mm_tf32, 8, 144, 64, seed=7)
+    """One TF32 product per k8 step puts out and lse far outside it."""
+    margins = _forward_margins(False, 8, 144, 64, seed=7)
     assert min(margins) > 10.0, margins
+
+
+def test_tensor_core_truncation_model():
+    """``_tc_add`` cuts toward zero where float32 rounds to nearest, and is
+    exact where the sum fits in 24 bits."""
+    c = np.array([[1.0]], np.float32)
+    a = np.array([[2.0 ** -24, 2.0 ** -24]], np.float32)
+    b = np.ones((2, 1), np.float32)
+    assert _tc_add(c, a, b)[0, 0] == np.float32(1.0)            # 1 + 2^-23 cut away
+    assert (c + a @ b)[0, 0] == np.float32(1 + 2.0 ** -23)     # float32 keeps it
+    x = np.random.default_rng(0).integers(-64, 64, (4, 8)).astype(np.float32)
+    y = np.random.default_rng(1).integers(-64, 64, (8, 3)).astype(np.float32)
+    np.testing.assert_array_equal(_tc_add(np.zeros((4, 3), np.float32), x, y), x @ y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_v_image_gives_back_pv(dtype, d):
+    """V's image (``v_image_keys`` at ``image_offset``), read back as the
+    P.V ``wgmma`` reads its B operand, times P's register fragment as the
+    kernel forms it from the S accumulator (float32: key 2t of a k8 step as
+    index t, 2t + 1 as t + 4; bf16: in order) is P.V exactly, and the image
+    holds every (key, column) of the tile once."""
+    plan = tfa.forward_plan(d, dtype)
+    kt, size = plan["keys"], 4 if dtype == torch.float32 else 2
+    epc = 16 // size                       # elements a chunk; a k-step is two
+    halves = 2 if dtype == torch.float32 else 1
+    rng = np.random.default_rng(d)
+    p = rng.integers(-8, 8, (64, kt)).astype(np.float64)
+    v = rng.integers(-8, 8, (kt, d)).astype(np.float64)
+    slots = {}
+    for col in range(d):
+        for ck in range(kt // epc):
+            for e, key in enumerate(tfa.v_image_keys(dtype, ck)):
+                slot = tfa.image_offset(col, ck, d, halves) // size + e
+                assert slot not in slots
+                slots[slot] = (key, col)
+    assert sorted(slots.values()) == [(key, col) for key in range(kt) for col in range(d)]
+    image = {slot: v[key, col] for slot, (key, col) in slots.items()}
+    got = np.zeros((64, d))
+    for c in range(kt // (2 * epc)):       # k-steps
+        for kappa in range(2 * epc):
+            if dtype == torch.float32:     # P's fragment index kappa of k8 step c
+                key = 8 * c + (2 * kappa if kappa < 4 else 2 * (kappa - 4) + 1)
+            else:
+                key = 16 * c + kappa
+            b_row = [image[tfa.image_offset(n, 2 * c + kappa // epc, d, halves) // size
+                           + kappa % epc] for n in range(d)]
+            got += np.outer(p[:, key], b_row)
+    np.testing.assert_array_equal(got, p @ v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_forward_plan_fits(dtype, d):
+    """Every instantiation's plan fits a block's shared memory with two
+    image stages, at least one raw stage and whole k16 steps a tile; the
+    plans the kernel's note states."""
+    plan = tfa.forward_plan(d, dtype)
+    assert 1 <= plan["raw_stages"] <= 4 and plan["keys"] % 16 == 0
+    assert plan["image_stages"] == 2 and plan["smem"] <= tfa.FWD_SMEM_LIMIT
+    want = {(32, torch.float32): (64, 4, 164032), (64, torch.float32): (64, 1, 229568),
+            (128, torch.float32): (16, 2, 229568), (32, torch.bfloat16): (64, 4, 57536),
+            (64, torch.bfloat16): (64, 4, 114880), (128, torch.bfloat16): (64, 4, 229568)}
+    assert (plan["keys"], plan["raw_stages"], plan["smem"]) == want[(d, dtype)]
+
+
+@pytest.mark.parametrize("case,exc,match", [
+    ("head_width", ValueError, "head width"),
+    ("dtype", TypeError, "float32 or bfloat16"),
+    ("shape", ValueError, "shape"),
+    ("strided", ValueError, "contiguous"),
+    ("device", ValueError, "is on"),
+    ("v_dtype", TypeError, "v must be"),
+])
+def test_forward_wrapper_checks(case, exc, match):
+    """The forward's wrapper refuses what ``_check`` refuses, with its
+    message, before any launch."""
+    q = torch.zeros(2, 16, 64)
+    ops = {"q": q, "k": q.clone(), "v": q.clone()}
+    if case == "head_width":
+        ops = {k: torch.zeros(2, 16, 48) for k in "qkv"}
+    elif case == "dtype":
+        ops = {k: torch.zeros(2, 16, 64, dtype=torch.float64) for k in "qkv"}
+    elif case == "shape":
+        ops["v"] = torch.zeros(2, 17, 64)
+    elif case == "strided":
+        ops["k"] = torch.zeros(2, 64, 16).transpose(1, 2)
+    elif case == "device":
+        ops["v"] = torch.zeros(2, 16, 64, device="meta")
+    else:
+        ops["v"] = torch.zeros(2, 16, 64, dtype=torch.bfloat16)
+    with pytest.raises(exc, match=match):
+        tfa._launch_forward(ops["q"], ops["k"], ops["v"], None)
+
+
+def test_no_grad_forward_skips_the_autograd_function():
+    """Without a gradient to take, ``flash_attention`` returns the forward's
+    output as the autograd route does, with no graph."""
+    q, k, v = map(torch.from_numpy, _inputs(2, 96, 32, seed=8, count=3))
+    with torch.no_grad():
+        fast = tfa.flash_attention(q, k, v)
+    slow = tfa.flash_attention(*(t.clone().requires_grad_(True) for t in (q, k, v)))
+    assert fast.grad_fn is None and slow.grad_fn is not None
+    torch.testing.assert_close(fast, slow.detach(), rtol=0, atol=0)
 
 
 def test_rna_tf32_rounding():

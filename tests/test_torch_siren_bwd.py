@@ -276,7 +276,7 @@ def test_reduction_constants_mirror_the_module():
 
 def _image_index(cols):
     """Where the wgmma descriptor (no swizzle, K-major, 128-byte leading and
-    256-byte stride offsets: ``csrc/siren_cluster.cuh::b_desc``) reads
+    256-byte stride offsets: ``csrc/hopper.cuh::b_desc``) reads
     element (pair k, column n) of a step's big image, in floats: K-slices
     of 16 pairs 4 x 32 x cols bytes apart, k8 steps 2 x 32 x cols, the small
     half 32 x cols after the big."""

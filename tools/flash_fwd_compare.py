@@ -1,0 +1,292 @@
+#!/usr/bin/env python3
+"""The flash-attention forward kernel against another build of it, on one H100.
+
+    python3 tools/flash_fwd_compare.py [--parent DIR] [--variants a,b] [--no-checks]
+        [--trap] [--out DIR]
+
+Builds ``confild_tpu_torch/csrc/flash_attention.cu`` as it stands and, with
+``--parent``, the same file of another checkout (``DIR`` is its root, for
+example a ``git archive`` of the parent commit), each with ``nvcc`` into
+``--out`` (default a temporary directory), and prints each build's ptxas
+report and ``cuobjdump -sass`` tensor-core instruction counts
+(``HMMA``, ``HGMMA``) of every ``flash_fwd_kernel`` instantiation, and the
+forward's plan.  Then:
+
+* unless ``--no-checks``: ``chip_smoke.py`` phase 10's checks of the
+  kernels against their plain versions and float64 at every
+  ``FLASH_CHECKS`` shape (forward and backward, bitwise repeats);
+* the forward's time at (64, 144, 64), (16, 9216, 64), (4, 16384, 64) in
+  float32 and bf16 and at phase 18 (d)'s classifier shapes in float32: each
+  build's library called directly on the same tensors (``flash_forward``,
+  its C entry point), in turns (parent and variants, this, this, then
+  variants and parent again), median of 7
+  separately timed runs of back-to-back calls (20 below 1000 tokens), with
+  ``scaled_dot_product_attention``'s on both layouts and the bound beside;
+* the wrapper's host time a call at (64, 144, 64) (``chip_smoke.py``'s
+  ``forward_host_us``), and where ``DIR`` holds the other checkout's
+  ``ops/flash_attention.py``, its wrapper's beside this one's in turns,
+  each launching its own build: host microseconds a call and the event
+  median of 20 back-to-back calls, beside SDPA's.
+
+``--variants`` adds ablations of this tree's source, each timed beside it
+(never checked: their results are wrong on purpose): ``noexp`` multiplies
+where the softmax exponentiates, ``noimage`` has the producer write no
+operand images (it still waits and signals), ``nosoftmax`` sends S to P.V
+as it is.
+
+``--trap`` builds this tree's source with every mbarrier wait bounded: a
+wait that spins past about 2^26 polls ends the kernel with a trap, so a
+wrong barrier phase fails the call instead of hanging the card.  Before
+any launch the tool refuses a build whose forward does not start at 168
+registers a thread (the block's 384 threads' share, which the warpgroups'
+``setmaxnreg`` moves between them).  Needs a CUDA card and ``nvcc``;
+imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from confild_tpu_torch.ops import cuda_build  # noqa: E402
+from confild_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+TRAP_WAIT = '''__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  unsigned long long polls = 0;
+  do {
+    asm volatile(
+        "{\\n.reg .pred p;\\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\\n"
+        "selp.u32 %0, 1, 0, p;\\n}\\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (++polls > (1ull << 26)) __trap();
+  } while (!done);
+}'''
+
+
+# Ablations: each cuts one cost of the forward out of a copy of this tree's
+# source (wrong results on purpose; timed, never checked).  Every variant
+# waits on the same barriers in every thread, so none can hang the card.
+VARIANTS = {
+    # exponentials: the softmax multiplies where it exponentiates
+    "noexp": [(r"s\[i\] = ex2\(fmaf\(s\[i\], scale2, neg\[\(i >> 1\) & 1\]\)\);",
+               "s[i] = fmaf(s[i], scale2, neg[(i >> 1) & 1]) * 0.5f;")],
+    # the producer's images: it waits and signals, writing nothing
+    "noimage": [(r"build_images<D, T>\(raw, kimg, kimg \+ P::KV_IMG,[^;]*;",
+                 "")],
+    # the softmax: S goes to P.V as it is
+    "nosoftmax": [(r"softmax_tile<KT>\((\w+), m, l, alpha, it \* KT, n, t, scale2\);",
+                   "alpha[0] = alpha[1] = 1.f;")],
+}
+
+
+def build(csrc: str, out_dir: str, tag: str, trap: bool = False,
+          patches=()) -> tuple[str, str]:
+    """``csrc/flash_attention.cu`` (with the headers beside it, ``patches``
+    applied) into ``out_dir/tag.so``; returns the library path and nvcc's
+    report."""
+    src = os.path.join(out_dir, f"src_{tag}")
+    shutil.copytree(csrc, src, dirs_exist_ok=True)
+    if patches:
+        path = os.path.join(src, "flash_attention.cu")
+        text = open(path).read()
+        for pattern, repl in patches:
+            text, hits = re.subn(pattern, lambda _: repl, text)
+            if hits == 0:
+                raise SystemExit(f"{tag}: no match for {pattern}")
+        open(path, "w").write(text)
+    if trap:
+        hdr = os.path.join(src, "hopper.cuh")
+        text = open(hdr).read()
+        text, hits = re.subn(r"__device__ __forceinline__ void mbar_wait\(.*?\n\}", lambda _: TRAP_WAIT,
+                             text, flags=re.S)
+        if hits != 1:
+            raise SystemExit("could not bound mbar_wait in hopper.cuh")
+        open(hdr, "w").write(text)
+    lib = os.path.join(out_dir, f"{tag}.so")
+    proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", lib,
+                           os.path.join(src, "flash_attention.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc failed for {tag}:\n{proc.stdout}{proc.stderr}")
+    return lib, proc.stdout + proc.stderr
+
+
+def report(tag: str, lib: str, log: str) -> dict:
+    """Registers and spills (ptxas) and HMMA / HGMMA counts of each forward
+    instantiation; returns ``{label: registers}``."""
+    regs, kernel, spill = {}, None, ""
+    for line in log.splitlines():
+        if "Function properties" in line:
+            kernel = cs.kernel_label(line)
+        elif "spill stores" in line:
+            spill = re.sub(r"\s+", " ", line.strip())
+        elif "registers" in line and kernel:
+            if kernel.startswith(cs.FLASH_FWD_KERNEL):
+                regs[kernel] = int(re.search(r"Used (\d+) registers", line).group(1))
+                print(f"[{tag}] {kernel}: {regs[kernel]} registers, {spill}", flush=True)
+            kernel = None
+    counts = cs.hmma_counts([lib])
+    for k, v in sorted(counts.items()):
+        if k.startswith(cs.FLASH_FWD_KERNEL):
+            print(f"[{tag}] {k}: {cs.tc_label(v)}", flush=True)
+    return regs
+
+
+def forward_call(lib, q, k, v):
+    """A call of the library's forward on ready outputs (the device's work
+    alone, the wrapper's host time apart)."""
+    bh, n, d = q.shape
+    out, lse = torch.empty_like(q), torch.empty((bh, n), device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, n, d,
+            0 if q.dtype == torch.float32 else 1, 1.0 / d ** 0.5, fa._stream(q.get_device()))
+
+    def call():
+        err = lib.flash_forward(*args)
+        if err:
+            raise SystemExit(f"flash_forward failed with CUDA error {err}")
+    return call
+
+
+def compare(libs: dict, device) -> None:
+    shapes = ([(s, torch.float32) for s in cs.FLASH_TIMES]
+              + [(s, torch.bfloat16) for s in cs.FLASH_TIMES]
+              + [(s, torch.float32) for s in cs.FLASH_CLASSIFIER_SHAPES])
+    others = [t for t in libs if t != "this"]
+    order = others + ["this", "this"] + others[::-1]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for (bh, n, d), dtype in shapes:
+        q, k, v, _ = cs.flash_case(device, bh, n, d, dtype, seed=11)
+        calls = 20 if n < 1000 else 1
+        got = {}
+        for tag in order:
+            med, lo, hi = cs.cuda_median(forward_call(libs[tag], q, k, v), calls)
+            got.setdefault(tag, []).append(f"{med:.4f} [{lo:.4f}-{hi:.4f}]")
+        q4, k4, v4 = (t.reshape(1, bh, n, d) for t in (q, k, v))
+        s3 = cs.cuda_median(lambda: sdpa(q, k, v), calls)[0]
+        s4 = cs.cuda_median(lambda: sdpa(q4, k4, v4), calls)[0]
+        b_ms, b_by = cs.forward_bound(bh, n, d, dtype)
+        print(f"[compare] ({bh}, {n}, {d}) {str(dtype)[6:]} ms a call, median [least-largest] "
+              f"of 7: " + "; ".join(f"{t} {', '.join(x)}" for t, x in got.items())
+              + f"; sdpa {s3:.4f}, view {s4:.4f}; bound {b_ms:.4f} ({b_by})", flush=True)
+        del q, k, v, q4, k4, v4
+        torch.cuda.empty_cache()
+
+
+def parent_wrapper(root: str, lib):
+    """The other checkout's ``ops/flash_attention.py`` as a module of its own
+    whose wrappers launch that checkout's build ``lib``."""
+    path = os.path.join(root, "confild_tpu_torch", "ops", "flash_attention.py")
+    spec = importlib.util.spec_from_file_location("parent_flash_attention", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod._library = lambda: lib
+    return mod
+
+
+def host_compare(wrappers: dict, device, calls: int = 200) -> None:
+    """Each wrapper's ``flash_forward`` at (64, 144, 64) f32 on the same
+    tensors, in turns: host microseconds a call (perf_counter over ``calls``
+    unsynchronised calls, median of 5) and the event median of 20
+    back-to-back calls (as phase 10 times it), beside SDPA's on the (1, BH,
+    N, D) view."""
+    q, k, v, _ = cs.flash_case(device, 64, 144, 64, torch.float32, seed=12)
+    order = ["parent", "this", "this", "parent"] if "parent" in wrappers else ["this", "this"]
+    got = {}
+    for tag in order:
+        fn = lambda: wrappers[tag].flash_forward(q, k, v)   # noqa: E731
+        runs = []
+        for _ in range(5):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            runs.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        event = cs.cuda_median(fn, 20)[0]
+        got.setdefault(tag, []).append(f"host {sorted(runs)[2]:.2f} us, event {event:.4f} ms")
+    q4, k4, v4 = (t.reshape(1, 64, 144, 64) for t in (q, k, v))
+    sdpa = cs.cuda_median(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4),
+                          20)[0]
+    print("[host] (64, 144, 64) f32 flash_forward as called: " + "; ".join(
+        f"{t} {', '.join(x)}" for t, x in got.items()) + f"; sdpa view event {sdpa:.4f} ms",
+        flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="root of another checkout to build and compare")
+    ap.add_argument("--no-checks", action="store_true", help="skip phase 10's checks")
+    ap.add_argument("--trap", action="store_true", help="bound every mbarrier wait")
+    ap.add_argument("--out", help="build directory (default: a temporary one)")
+    ap.add_argument("--variants", default="",
+                    help=f"ablations to time beside this build: {', '.join(VARIANTS)}")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("flash_fwd_compare: no CUDA device", file=sys.stderr)
+        return 1
+    device = cs.resolve_device("cuda")
+    cs.phase_device()
+    out = args.out or tempfile.mkdtemp(prefix="flash_fwd_")
+    os.makedirs(out, exist_ok=True)
+    path, log = build(str(cuda_build.CSRC_DIR), out, "this", trap=args.trap)
+    regs = report("this", path, log)
+    wrong = {k: r for k, r in regs.items() if r != 168}
+    if len(regs) != len(cs.FLASH_FWD_INSTANCES) or wrong:
+        raise SystemExit(f"refusing to launch: forward instantiations {regs} (each must start "
+                         f"at 168 registers)")
+    libs = {"this": fa.declare(ctypes.CDLL(path))}
+    if args.parent:
+        ppath, plog = build(os.path.join(args.parent, "confild_tpu_torch", "csrc"), out,
+                            "parent")
+        report("parent", ppath, plog)
+        libs["parent"] = ctypes.CDLL(ppath)   # its flash_forward: the same C signature
+        libs["parent"].flash_forward.argtypes = libs["this"].flash_forward.argtypes
+        libs["parent"].flash_forward.restype = libs["this"].flash_forward.restype
+    for name in filter(None, args.variants.split(",")):
+        vpath, vlog = build(str(cuda_build.CSRC_DIR), out, name, patches=VARIANTS[name])
+        report(name, vpath, vlog)
+        libs[name] = ctypes.CDLL(vpath)
+        libs[name].flash_forward.argtypes = libs["this"].flash_forward.argtypes
+        libs[name].flash_forward.restype = libs["this"].flash_forward.restype
+    this = libs["this"]
+    fa._library = lambda: this   # the wrappers launch this build
+    for d, dtype in cs.FLASH_FWD_INSTANCES:
+        print(f"[plan] {cs.flash_fwd_label(d, dtype)}: {fa.library_forward_plan(d, dtype)} "
+              f"(wrapper: {fa.forward_plan(d, dtype)})", flush=True)
+    if not args.no_checks:
+        for bh, n, d, dtype in cs.FLASH_CHECKS:
+            cs.flash_check(device, bh, n, d, dtype)
+        cs.flash_memory(device)
+    print(f"[compare] SM clock, max SM clock: {cs.sm_clocks()}", flush=True)
+    compare(libs, device)
+    cs.forward_host_us(device)
+    wrappers = {"this": fa}
+    if args.parent and os.path.exists(os.path.join(args.parent, "confild_tpu_torch", "ops",
+                                                   "flash_attention.py")):
+        wrappers["parent"] = parent_wrapper(args.parent, libs["parent"])
+    host_compare(wrappers, device)
+    print(f"[compare] SM clock, max SM clock: {cs.sm_clocks()}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
