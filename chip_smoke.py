@@ -451,11 +451,13 @@ RECIPE_DIFFUSION = os.path.join(os.path.dirname(os.path.abspath(__file__)), "rec
                                 "diffusion", "case4.yml")
 # (BH, N, D, dtype) of the flash checks: the Case4 middle block at batch 8,
 # a ragged edge, the xl recipe's level-8 block at batch 4, the auto
-# threshold, bf16
+# threshold, bf16, a 16-channel head (padded to 32), and the widest head
+# the kernels take, 128 (its own plans: one consumer warpgroup in float32)
 FLASH_CHECKS = ((64, 144, 64, torch.float32), (2, 200, 32, torch.float32),
                 (16, 9216, 64, torch.float32), (4, 16384, 64, torch.float32),
                 (2, 256, 64, torch.bfloat16), (64, 144, 64, torch.bfloat16),
-                (8, 144, 16, torch.float32), (8, 144, 16, torch.bfloat16))
+                (8, 144, 16, torch.float32), (8, 144, 16, torch.bfloat16),
+                (2, 144, 128, torch.float32), (2, 144, 128, torch.bfloat16))
 FLASH_TIMES = ((64, 144, 64), (16, 9216, 64), (4, 16384, 64))
 FLASH_PATH_SHAPE = "64x144x64"
 # phase 18 (d)'s classifier at batch 4: 4 heads at 1024 tokens, 8 at 256
@@ -636,18 +638,25 @@ def tc_label(counts: dict) -> str:
 
 
 # kernels whose every instantiation must run its products on the tensor
-# cores: mma.sync (HMMA), and wgmma (HGMMA) for the cluster kernels, the
-# training backward's reduction and the flash forward; the reduction, the
-# bf16 SIREN forward and the flash forward have no mma.sync at all
+# cores' wgmma (HGMMA) and none on mma.sync (HMMA): the SIREN cluster
+# kernels, the training backward's reduction and the three flash kernels
 BF16_FWD_KERNEL = "siren_fwd_cluster_bf16_kernel"
 FLASH_FWD_KERNEL = "flash_fwd_kernel"
+FLASH_BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 CLUSTER_KERNELS = ("siren_fwd_cluster_kernel", "siren_chain_cluster_kernel", BF16_FWD_KERNEL)
-WGMMA_ONLY_KERNELS = ("siren_bwd_reduce_kernel", BF16_FWD_KERNEL, FLASH_FWD_KERNEL)
-WGMMA_KERNELS = CLUSTER_KERNELS + ("siren_bwd_reduce_kernel", FLASH_FWD_KERNEL)
-TENSOR_CORE_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel") + WGMMA_KERNELS
-# the flash forward's instantiations: every head width in both types
+WGMMA_KERNELS = (CLUSTER_KERNELS + ("siren_bwd_reduce_kernel", FLASH_FWD_KERNEL)
+                 + FLASH_BWD_KERNELS)
+# the flash kernels' instantiations: every head width in both types
 FLASH_FWD_INSTANCES = tuple((d, dtype) for d in (32, 64, 128)
                             for dtype in (torch.float32, torch.bfloat16))
+
+
+def flash_bwd_label(kernel: str, d: int, dtype) -> str:
+    """``flash_bwd_dq_kernel<64, f32>`` (``kernel`` "dq" or "dkv"), as
+    ``kernel_label`` names it."""
+    return f"flash_bwd_{kernel}_kernel<{d}, {'f32' if dtype == torch.float32 else 'bf16'}>"
+
+
 # the reduction's instantiations, ``<tile columns, subtile columns>``, one a
 # tile width (csrc/siren_decode_bwd.cu::reduce_cols), both launched by the
 # main paths (128 at H = 128, 512 and 1024; 192 at Case4's 384)
@@ -679,24 +688,20 @@ def phase_build():
                 PTXAS[kernel] = f"{regs} registers, {spill}{tc}"
                 log(f"[build] {name}: {kernel}: {PTXAS[kernel]}")
                 kernel = None
-    required = {k: v["HMMA"] + v["HGMMA"] for k, v in hmma.items()
-                if k.split("<")[0] in TENSOR_CORE_KERNELS}
-    no_tc = [k for k, v in required.items() if v == 0]
-    no_hgmma = [k for k, v in hmma.items()
-                if k.startswith(WGMMA_KERNELS) and v["HGMMA"] == 0]
-    if no_hgmma:
-        raise SystemExit(f"wgmma kernel instantiations without wgmma (HGMMA): {no_hgmma}")
-    mma_sync = [k for k, v in hmma.items() if k.startswith(WGMMA_ONLY_KERNELS) and v["HMMA"]]
+    no_hgmma = [k for k, v in hmma.items() if k.startswith(WGMMA_KERNELS) and v["HGMMA"] == 0]
+    mma_sync = [k for k, v in hmma.items() if k.startswith(WGMMA_KERNELS) and v["HMMA"]]
     missing = [bn for bn in REDUCE_TILES
                if not any(k.startswith(f"siren_bwd_reduce_kernel<{bn},") for k in hmma)]
-    missing += [flash_fwd_label(d, dtype) for d, dtype in FLASH_FWD_INSTANCES
-                if flash_fwd_label(d, dtype) not in hmma]
-    if mma_sync or missing:
-        raise SystemExit(f"wgmma-only kernel instantiations with mma.sync (HMMA): {mma_sync}; "
-                         f"reduction tile widths or flash forward instantiations missing: "
-                         f"{missing}")
-    # the flash forward's plan in each instantiation: the library's against
-    # the wrapper's mirror, beside its registers and spills
+    missing += [label for d, dtype in FLASH_FWD_INSTANCES
+                for label in (flash_fwd_label(d, dtype), flash_bwd_label("dq", d, dtype),
+                              flash_bwd_label("dkv", d, dtype)) if label not in hmma]
+    missing += [p for p in WGMMA_KERNELS if not any(k.split("<")[0] == p for k in hmma)]
+    if no_hgmma or mma_sync or missing:
+        raise SystemExit(f"kernel instantiations without wgmma (HGMMA): {no_hgmma}; with "
+                         f"mma.sync (HMMA): {mma_sync}; reduction tile widths, flash "
+                         f"instantiations or kernels missing: {missing}")
+    # the flash kernels' plans in each instantiation: the library's against
+    # the wrapper's mirror, beside their registers and spills
     for d, dtype in FLASH_FWD_INSTANCES:
         label = flash_fwd_label(d, dtype)
         plan = fa.library_forward_plan(d, dtype)
@@ -706,10 +711,16 @@ def phase_build():
         if plan != fa.forward_plan(d, dtype):
             raise SystemExit(f"{label}: the library's plan {plan} is not the wrapper's "
                              f"{fa.forward_plan(d, dtype)}")
-    if no_tc or not all(any(k.split("<")[0] == p for k in required)
-                        for p in TENSOR_CORE_KERNELS):
-        raise SystemExit(f"kernels without tensor-core instructions: {no_tc} "
-                         f"(found {sorted(required)})")
+        plans = fa.library_backward_plan(d, dtype)
+        for kernel in fa.BWD_KERNELS:
+            label, plan = flash_bwd_label(kernel, d, dtype), plans[kernel]
+            log(f"[build] {label}: {plan['rows']} rows a block in {plan['consumers']} consumer "
+                f"warpgroups, {plan['tile']} rows a tile, {plan['raw_stages']} raw and "
+                f"{plan['image_stages']} image stages, {plan['smem']} bytes of dynamic shared "
+                f"memory; {PTXAS.get(label)}")
+            if plan != fa.backward_plan(d, dtype, kernel):
+                raise SystemExit(f"{label}: the library's plan {plan} is not the wrapper's "
+                                 f"{fa.backward_plan(d, dtype, kernel)}")
 
 
 def case4_decoder(device):
@@ -1729,19 +1740,24 @@ def flash_memory(device) -> None:
         raise SystemExit("flash forward + backward is not O(N) in memory")
 
 
-def flash_bounds(bh, n, d) -> dict:
+def flash_bounds(bh, n, d, dtype=torch.float32) -> dict:
     """Per function ``(tensor-core ms, bound_by, CUDA-core f32 ms)`` from its
-    flops, its exponentials and the bytes of its inputs and outputs (f32);
-    on the CUDA cores an exponential counts as one operation."""
+    flops, its exponentials and the bytes of its inputs and outputs in
+    ``dtype``; the products at the 3xTF32 rate (float32) or the dense bf16
+    rate, like ``forward_bound``; on the CUDA cores an exponential counts as
+    one operation."""
     mat, rows, exps = bh * n * n * d, bh * n, bh * n * n
-    io = 4 * bh * n * d
-    work = {"flash_forward": (4 * mat, 3 * io + io + 4 * rows),
-            "flash_bwd_dq": (6 * mat, 4 * io + 8 * rows + io),
-            "flash_bwd_dkv": (8 * mat, 4 * io + 8 * rows + 2 * io),
-            "backward": (10 * mat, 5 * io + 4 * rows + 3 * io)}
-    return {name: (*tc_bound(flops, nbytes, exps / PEAK_EXP_PER_S),
-                   bound(flops + exps, nbytes)[0])
-            for name, (flops, nbytes) in work.items()}
+    io = torch.empty((), dtype=dtype).element_size() * bh * n * d
+    rate = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+            else PEAK_TF32_FLOPS / TF32_SPLIT_PRODUCTS)
+    work = {"flash_forward": (4 * mat, 3 * io + io + 4 * rows, exps),
+            "flash_bwd_dq": (6 * mat, 4 * io + 8 * rows + io, exps),
+            "flash_bwd_dkv": (8 * mat, 4 * io + 8 * rows + 2 * io, exps),
+            "backward": (10 * mat, 5 * io + 4 * rows + 3 * io, exps),
+            "bwd_pair": (14 * mat, 8 * io + 16 * rows + 3 * io, 2 * exps)}
+    return {name: (*tc_bound(flops, nbytes, e / PEAK_EXP_PER_S, rate=rate),
+                   bound(flops + e, nbytes)[0])
+            for name, (flops, nbytes, e) in work.items()}
 
 
 def sdpa_kernels(device, bh, n, d) -> None:
@@ -1877,6 +1893,58 @@ def forward_times(device, bh, n, d, dtype) -> dict:
     return dict(t, bound=(b_ms, b_by))
 
 
+def backward_times(device, bh, n, d, dtype) -> dict:
+    """The backward kernels alone and as called (``flash_backward``: delta,
+    then both), the plain backward and scaled_dot_product_attention's
+    backward alone on both layouts, on the same tensors, each the median of
+    7 separately timed runs of back-to-back calls (20 below 1000 tokens,
+    where the host's launch rate bounds them) with their least and largest:
+    ms a call; below 1000 tokens also the pair's device time a call
+    (torch.profiler)."""
+    q, k, v, g = flash_case(device, bh, n, d, dtype, seed=13)
+    out, lse = fa.flash_forward(q, k, v)
+    delta = fa._delta(out, g)
+    calls = 20 if n < 1000 else 1
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    leaves4 = [t.detach().reshape(1, bh, n, d).requires_grad_(True) for t in leaves]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    graph, graph4 = sdpa(*leaves), sdpa(*leaves4)   # retained: the backward alone is timed
+    fns = {"flash_bwd_dq": lambda: fa.bwd_dq(q, k, v, g, lse, delta),
+           "flash_bwd_dkv": lambda: fa.bwd_dkv(q, k, v, g, lse, delta),
+           "backward": lambda: fa.flash_backward(q, k, v, out, lse, g),
+           "plain": lambda: fa.flash_backward_plain(q, k, v, out, lse, g),
+           "sdpa_backward": lambda: torch.autograd.grad(graph, leaves, g, retain_graph=True),
+           "sdpa_4d_backward": lambda: torch.autograd.grad(
+               graph4, leaves4, g.reshape(1, bh, n, d), retain_graph=True)}
+    t = {name: cuda_median(fn, calls) for name, fn in fns.items()}
+    pair = t["flash_bwd_dq"][0] + t["flash_bwd_dkv"][0]
+    b = flash_bounds(bh, n, d, dtype)
+    device_ms = None
+    if calls > 1:
+        kernels = device_profile(f"flash backward ({bh}, {n}, {d}) {str(dtype)[6:]}, {calls} "
+                                 f"calls", lambda: [fns["backward"]() for _ in range(calls)],
+                                 top=4)
+        device_ms = {name: ms / calls for name, (ms, _) in kernels.items()
+                     if "flash_bwd" in name}
+
+    def ms(name):
+        return f"{t[name][0]:.4f} [{t[name][1]:.4f}-{t[name][2]:.4f}]"
+    lib = min(t["sdpa_backward"][0], t["sdpa_4d_backward"][0])
+    log(f"[flash-bwd] ({bh}, {n}, {d}) {str(dtype)[6:]}, ms as median [least-largest] of 7 "
+        f"({calls} calls each): dq kernel {ms('flash_bwd_dq')} (bound "
+        f"{b['flash_bwd_dq'][0]:.4f}, {b['flash_bwd_dq'][1]}), dk/dv kernel "
+        f"{ms('flash_bwd_dkv')} (bound {b['flash_bwd_dkv'][0]:.4f}); pair {pair:.4f} (bound "
+        f"{b['bwd_pair'][0]:.4f}; {14 * bh * n * n * d / pair / 1e9:.1f} TFLOP/s), as called "
+        f"{ms('backward')}, plain {ms('plain')}, sdpa backward {ms('sdpa_backward')} ((1, BH, "
+        f"N, D) view {ms('sdpa_4d_backward')}): the pair "
+        f"{'beats' if pair < lib else 'does not beat'} SDPA's faster layout"
+        + (f"; device time a call (torch.profiler): {device_ms}" if device_ms else ""))
+    del leaves, leaves4, graph, graph4, q, k, v, g, out, lse, delta
+    torch.cuda.empty_cache()
+    return dict(t, bounds={k: b[k][:2] for k in ("flash_bwd_dq", "flash_bwd_dkv", "bwd_pair")},
+                device_ms=device_ms)
+
+
 def forward_host_us(device, bh=64, n=144, d=64, calls=200) -> dict:
     """Host microseconds a call at (64, 144, 64) float32 (time.perf_counter
     over ``calls`` calls with no synchronisation between them, median of 5
@@ -1926,8 +1994,15 @@ def phase_flash(device, results) -> None:
                  for (bh, n, d), dtype in [(s, torch.bfloat16) for s in FLASH_TIMES]
                  + [(s, torch.float32) for s in FLASH_CLASSIFIER_SHAPES]}
     host = forward_host_us(device)
+    # the backward pair: its device time at 144 tokens in float32, bf16 at the
+    # same shapes, float32 at the classifier's
+    bwd_times = {f"{bh}x{n}x{d} {str(dtype)[6:]}": backward_times(device, bh, n, d, dtype)
+                 for (bh, n, d), dtype in [(FLASH_TIMES[0], torch.float32)]
+                 + [(s, torch.bfloat16) for s in FLASH_TIMES]
+                 + [(s, torch.float32) for s in FLASH_CLASSIFIER_SHAPES]}
     log(f"[flash-time] SM clock, max SM clock after the timings: {sm_clocks()}")
     log("[flash-fwd] " + json.dumps(dict(fwd_times, host_us=host)))
+    log("[flash-bwd] " + json.dumps(bwd_times))
     log("[flash-time] " + json.dumps({s: {k: v for k, v in t.items() if k != "bounds"}
                                       for s, t in times.items()}))
     t = times[FLASH_PATH_SHAPE]

@@ -1,5 +1,6 @@
 // Flash attention for Hopper (sm_90a): the online-softmax forward and the
-// two-pass backward, float32 arithmetic for float32 and bfloat16 inputs.
+// two-pass backward, float32 arithmetic for float32 and bfloat16 inputs,
+// every product on wgmma.
 //
 // Layouts (row-major, contiguous): q, k, v, dO, out, dq, dk, dv are
 // (BH, N, D); lse and delta are (BH, N) float32.  D is 32, 64 or 128 (the
@@ -16,25 +17,24 @@
 //
 // Bound on the H100: operations.  The forward does 4 N^2 D flops per head
 // (two products) and N^2 exponentials, the backward 14 N^2 D over its two
-// passes (dq: S, dP, dQ; dk/dv: S, dP, dV, dK), against O(N D) bytes, so at
-// N >= 144 the arithmetic bounds all three.  For float32 inputs every
-// product is 3xTF32 (below): three TF32 products at the dense 495 TFLOP/s,
-// 165 TFLOP/s of attention arithmetic; bf16 products run at 989 TFLOP/s,
-// where the forward's exponentials (4.18e12 a second on the special-function
-// units) bound it about as much as its products.
+// passes (dq: S, dP, dQ; dk/dv: S, dP, dV, dK) and 2 N^2 exponentials,
+// against O(N D) bytes, so at N >= 144 the arithmetic bounds all three.
+// For float32 inputs every product is 3xTF32 (below): three TF32 products
+// at the dense 495 TFLOP/s, 165 TFLOP/s of attention arithmetic; bf16
+// products run at 989 TFLOP/s, where the exponentials (4.18e12 a second on
+// the special-function units) bound the forward about as much as its
+// products.
 //
-// Common to all three.  The TPU kernels carry the running max, denominator
-// and output accumulator in VMEM across a sequential kv grid axis; Hopper
-// blocks run in no order, so each block loops over the other axis itself:
-// the forward one block per (head, 128 query rows) over tiles of keys; dq
-// one block per (head, 64 query rows), the same loop; dk/dv one block per
-// (head, 64 keys) over 64-query tiles.  Every output element has one owner
-// thread, so there are no atomics and two launches give bitwise-equal
-// results.  Ragged edges are masked in the kernels, with no padded copy:
-// keys past N get probability 0 (a forward tile always holds a real key, so
-// the running max is finite and exp never sees -inf - -inf), and query rows
-// past N add nothing to dK and dV.  The (N, N) matrices never leave shared
-// memory or registers: memory is O(N).
+// Common to all three.  The TPU kernels carry their sums in VMEM across a
+// sequential grid axis; Hopper blocks run in no order, so each block loops
+// over the other axis itself: the forward and dq over tiles of keys for a
+// block of query rows, dk/dv over tiles of queries for a block of keys.
+// Every output element has one owner thread, so there are no atomics and
+// two launches give bitwise-equal results.  Ragged edges are masked in the
+// kernels, with no padded copy: keys past N get probability 0 (a forward
+// tile always holds a real key, so the running max is finite and exp never
+// sees -inf - -inf), and query rows past N add nothing to dK and dV.  The
+// (N, N) matrices never leave shared memory or registers: memory is O(N).
 //
 // 3xTF32.  A plain TF32 product keeps 11 significant bits and misses the
 // float32 criterion the kernels are held to (|kernel - f64| <= 2 |plain f32
@@ -43,19 +43,29 @@
 // accumulates small*big + big*small (first) + big*big: about 22 significant
 // bits per operand.  The tensor cores truncate their f32 sums, so the
 // products go into short zeroed partials that float32 adds carry into the
-// running sums.  bf16 inputs are exact in TF32 (no small half), and for them
-// P and dS are rounded to bf16 before their products, as the JAX kernels
-// round them (flash_attention.py:80-81, 180, 210, 214).
+// running sums.  bf16 operands take one bf16 product a k16 step; P and dS
+// are rounded to bf16 before their products, as the JAX kernels round them
+// (flash_attention.py:80-81, 180, 210, 214).
+//
+// The pieces both passes share (namespace tc): the wgmma products, mma_ss
+// (A and B K-major in shared memory) and mma_ss's register-A sibling
+// mma_rs; the operand images, no-swizzle K-major core matrices that b_desc
+// reads (img_off), written by threads: a row-major tile as it is (K-major
+// along D) or transposed (K along the tile's rows, in the register A
+// operand's order); the S-like product of two images with its partials
+// (ss_product) and the products with a register A operand formed in an
+// accumulator (tf32_frags / bf16_frags, rs_tf32 / rs_bf16); the producer
+// warpgroup's ring (a raw stage of 1-D bulk async copies on an mbarrier,
+// image stages with full and empty mbarriers).
 //
 // Forward (replaces _flash_kernel, confild_tpu/ops/flash_attention.py:56):
-// every product on wgmma, for both types and every D.
 //   * Bound: float32, 3 x 4 N^2 D flops at 495 TFLOP/s; bf16, 4 N^2 D at
 //     989 TFLOP/s and N^2 exponentials at 4.18e12 a second, about equal at
 //     D = 64.  Beside the products the loop splits K and V (float32) or
 //     transposes V (bf16), rounds or splits P, takes the row max (two
 //     shuffles), rescales and carries.  On an H100 (NVIDIA H100 80GB HBM3,
 //     700.00 W, tools/flash_fwd_compare.py) at (16, 9216, 64) it takes 3.80
-//     ms in float32 (bound 2.11; the mma.sync kernel it replaced 4.17-6.35)
+//     ms in float32 (bound 2.11; the warp-level HMMA kernel it replaced 4.17-6.35)
 //     and 1.10 ms in bf16 (bound 0.35; 1.55-3.5); the producer's images
 //     are what is left in its way (a variant that writes none: 2.71 and 0.93
 //     ms), then the consumers' waits on their own products.
@@ -100,51 +110,77 @@
 //     raw stage, 224 KB; D = 128: 16 keys, 2 raw stages, 224 KB (Q's two
 //     halves alone take 128 KB); bf16: 64 keys and 4 raw stages at every D
 //     (56, 112 and 224 KB).  One block an SM.
-
-// Why the backward stays on mma.sync.  Its three products with P and dS
-// (dQ = dS.K, dK = dS^T.Q, dV = P^T.dO) reduce along the rows of row-major
-// tiles, so on TF32 wgmma each needs a transposed image (Kt for dq, Qt and
-// dOt for dk/dv) written by threads, and P and dS reach their products in a
-// different layout than they leave S and dP; mma.sync fragments are
-// ordinary shared loads in either direction.  Its redesign is its own PR.
 //
-// Backward.
-//   * Bound: 3 x 14 N^2 D tensor-core flops at 495 TFLOP/s dense TF32, i.e.
-//     165 TFLOP/s of backward arithmetic, 2.5x the CUDA-core f32 rate.
-//     Beside each product the loop loads and splits its operands (two
-//     integer operations and a subtract each) and adds its partial, and it
-//     waits on dependent mma chains and on the barriers between products;
-//     chip_smoke.py phase 10 times the pair against this bound.
-//   * Eight warps: warp (wm, wn) = (w % 4, w / 4) owns rows 16 wm .. 16 wm
-//     + 15 of the block's 64 (query rows in dq, keys in dk/dv); it computes
-//     S and dP for the 32 columns of half wn as four n8 fragments, and dQ
-//     (or dK and dV) for the D / 2 output columns of half wn, kept in
-//     registers across the loop.  The backward needs no row max, so P and
-//     dS are formed in the accumulator registers; they reach the next
-//     product (whose A layout differs) through one 64 x 64 tile in shared
-//     memory.  A block runs at up to 255 registers a thread, one an SM
-//     (dq at 128 spills, and ran slower on the card); dk/dv at D = 32 fits
-//     two an SM and runs at 128.
-//   * The streamed tiles (K, V for dq; Q, dO, lse and delta for dk/dv)
-//     arrive by 16-byte cp.async in a raw stage while the tile before them
-//     computes.  After the barrier that ends that tile, each thread splits
-//     its own chunks of the stage into big and small halves in shared
-//     memory (once, rather than by every warp at every use, four times
-//     over) and then issues the copies of the next tile.  Where the stage
-//     does not fit (D = 128), each thread loads its chunks into registers
-//     at the top of the tile instead, which overlaps only the barrier.
-//     The resident tiles (Q, dO for dq; K, V for dk/dv) arrive by cp.async
-//     and are split when their A fragments are loaded, as are P and dS
-//     (rounded to bf16 instead for bf16 inputs: P for dV, dS for dQ and dK;
-//     dS itself is formed from the float32 P, as in JAX).  bf16 tiles are
-//     widened to f32 (exact in TF32: no small half).
-//   * Shared tiles have a row stride of D with an XOR swizzle of the column
-//     (c ^ swz(r), swz(r) = 8 (r & 3) + (r & 4)): fragments read along
-//     rows (A, and B of S) and along columns (B of dQ, dK, dV) both hit 32
-//     distinct banks, and a 16-byte chunk stays contiguous.
-//   * Shared memory (f32): the resident pair, the streamed pair's two
-//     halves, the P / dS tile (+ lse and delta) and the stage: 80 KB at
-//     D = 32, 144 KB at D = 64, and 208 KB at D = 128, with no stage.
+// Backward (replaces _bwd_dq_kernel and _bwd_dkv_kernel): the forward's
+// design, with the roles of the operands as the two passes need them.
+//   * Bound: 3 x 6 N^2 D (dq) and 3 x 8 N^2 D (dk/dv) flops at 495 TFLOP/s
+//     for float32, 6 and 8 N^2 D at 989 TFLOP/s for bf16; N^2 exponentials
+//     each.  Beside the products: the producer's images, P's exponential,
+//     dS's multiply-add, the register operands' split (float32) or rounding
+//     (bf16), the partials' carries.  On an H100 (NVIDIA H100 80GB HBM3,
+//     700.00 W, tools/flash_fwd_compare.py --backward) at (16, 9216, 64) the
+//     float32 pair takes 17.5 ms (bound 7.38; the HMMA pair it replaced
+//     25.0-25.4), dq 7.0 and dk/dv 10.5; bf16 3.7 ms (bound 1.23; 15.0
+//     before, SDPA's bf16 backward 2.05-2.34).  A variant whose producers
+//     write no images takes 13.8 and 2.5 ms: in float32 the consumer's
+//     waits on its own products come first (one consumer warpgroup a
+//     block), in bf16 dk/dv's producer (four images, two transposed).
+//   * dq, a block of query rows over tiles of keys.  Resident (written by
+//     the consumers, each its own 64 rows): the images of Q and dO, the A
+//     operands of S = Q.K^T and dP = dO.V^T.  Streamed (the producer's three
+//     images a tile): K and V as they are (the B operands of S and dP,
+//     K-major along D, as the forward's K) and K^T (the B operand of dQ +=
+//     dS.K, keys along K, as the forward's V).  P = 2^(S scale log2 e - lse
+//     log2 e) is one fma into ex2.approx, dS = P (dP - delta) is formed in
+//     the dP accumulator (lse and delta of the thread's two rows are in
+//     registers for the whole loop), and dS goes to dQ's product as register
+//     A (split into TF32 halves, or rounded to bf16), with no trip through
+//     shared memory.
+//   * dk/dv, a block of keys over tiles of queries.  The products are
+//     transposed: S^T = K.Q^T and dP^T = V.dO^T with K and V resident and
+//     Q and dO streamed as they are; then dV += P^T.dO and dK += dS^T.Q with
+//     P^T and dS^T as register A and dO^T and Q^T streamed (four images a
+//     tile).  lse and delta are per query, so they run along the
+//     accumulator's columns: the producer puts the tile's lse log2 e (+inf
+//     past N, which makes P 0 there with no mask) and delta beside its
+//     images, and a thread reads a float2 of each a column pair.
+//   * float32 partials: S and dP as in the forward (a zeroed partial a k16
+//     step, two taking turns); the products with P and dS one zeroed partial
+//     a tile (its ST / 8 k8 steps, three products each) carried by a float32
+//     add, of 64 output columns at a time (at D = 128, two in turn, which
+//     halves the partial's registers).  bf16: every product straight into
+//     its sum (the truncation's bias, about 2^-23 a step, is far below the
+//     bf16 outputs' rounding).  Each partial is zeroed where it is declared,
+//     though its first product ignores it: with undefined inputs to the asm
+//     the compiler folded dk/dv's two S-like products into one (S^T took
+//     dP^T's values, 20 of 60 HGMMA went, every dK and dV was wrong).
+//   * The transposed images are written by the producer's threads from the
+//     raw rows, for bf16 too.  wgmma could read a bf16 B operand MN-major
+//     through the descriptor's transpose bit, but the no-swizzle MN-major
+//     layout's strides could not be probed without the card, and the
+//     written image is the forward's, tried on it.  Tried and dropped:
+//     bf16 transposes by ldmatrix / stmatrix.trans from the K-major image
+//     just written (4.1-4.8 ms against 3.7: the barrier between the two
+//     passes serialises the producer, which then spilled); S and dP in
+//     common commit groups (17.9 against 17.7 ms in float32, 3.9 against
+//     3.7 in bf16); dV's and dK's products in one group with both register
+//     operands formed first (444 bytes of spill, dk/dv 16.6 ms against
+//     10.9); two consumer warpgroups in float32 (16-row tiles at D = 64,
+//     where 128 resident rows of Q and dO with both halves take 128 KB:
+//     19.0 ms against 17.6, and twice as slow at (32, 256, 64), whose 64
+//     blocks of 128 rows left half the card idle).
+//   * Plans (bwd::Plan; per (D, type, pass): consumer warpgroups C, rows a
+//     block 64 C, the streamed tile ST, image stages NI, raw stages NR as
+//     many as fit up to four, bytes): float32 has one consumer warpgroup
+//     (resident images of 64 rows, 64 KB at D = 64) and ST = 2048 / D
+//     (dq and dk/dv at D = 64: 32-row tiles, two image stages, four and two
+//     raw stages, 224 KB); at D = 128 dq has no raw stage (its producer
+//     reads the rows from global memory) and dk/dv one image stage.  bf16 has
+//     two consumer warpgroups and 64-row tiles (32 for dk/dv at D = 128, whose
+//     two accumulators of 64 registers leave no room for more).  The
+//     producer is at setmaxnreg 56 and the consumers at 224 with two consumer
+//     warpgroups; with one, no setmaxnreg (up to 255 registers).  One block an
+//     SM.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -157,299 +193,17 @@
 
 namespace {
 
-using namespace hopper;    // mbarriers, bulk copies, wgmma (the forward)
-using namespace tf32mma;   // cp.async and 3xTF32 mma.sync (the backward)
+using namespace hopper;    // mbarriers, bulk copies, wgmma fences, b_desc
+using namespace tf32mma;   // the TF32 split, allow_smem
 
-constexpr int TILE = 64;       // the backward's rows a tile and keys (or queries) a tile
-constexpr int THREADS = 256;   // the backward: 8 warps
-
-// ---------------------------------------------------------------------------
-// the backward's helpers: swizzled tiles, cp.async, 3xTF32 mma.sync fragments
-// ---------------------------------------------------------------------------
-// backward, eight warps: warp w owns rows 16 (w % 4) .. + 15 of the block's
-// 64 and half of each product's columns, (w / 4) of two
-constexpr int KEYS_HALF = TILE / 2;   // S / dP columns a warp computes
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-constexpr size_t SMEM_MAX = 227 * 1024;   // shared memory a block may take
-constexpr size_t SMEM_SM = 228 * 1024;    // an SM's, 1 KB of it reserved per block
-
-// floats one raw (unconverted) 64 x D tile of T takes in the stage
-template <int D, typename T>
-constexpr int RAW = TILE * D * (int)sizeof(T) / 4;
-
-// The streamed pair (K, V for dq; Q, dO for dk/dv) goes through a raw stage
-// in shared memory where it fits: 16-byte cp.async copies of the next tile
-// run while the current one computes.  dq: the resident pair, the streamed
-// pair's big and small halves, the dS tile, then the stage.  dk/dv: the same
-// with P / dS, lse and delta of the query tile, then the stage with its
-// lse and delta.
-template <int D>
-__host__ __device__ constexpr size_t dq_base() {
-  return sizeof(float) * (6 * TILE * D + TILE * TILE);
-}
-template <int D, typename T>
-__host__ __device__ constexpr bool dq_staged() {
-  return dq_base<D>() + sizeof(float) * 2 * RAW<D, T> <= SMEM_MAX;
-}
-template <int D, typename T>
-__host__ __device__ constexpr size_t dq_smem() {
-  return dq_base<D>() + (dq_staged<D, T>() ? sizeof(float) * 2 * RAW<D, T> : 0);
-}
-template <int D>
-__host__ __device__ constexpr size_t dkv_base() {
-  return sizeof(float) * (6 * TILE * D + TILE * TILE + 2 * TILE);
-}
-template <int D, typename T>
-__host__ __device__ constexpr bool dkv_staged() {
-  return dkv_base<D>() + sizeof(float) * (2 * RAW<D, T> + 2 * TILE) <= SMEM_MAX;
-}
-template <int D, typename T>
-__host__ __device__ constexpr size_t dkv_smem() {
-  return dkv_base<D>() + (dkv_staged<D, T>() ? sizeof(float) * (2 * RAW<D, T> + 2 * TILE) : 0);
-}
-// blocks an SM holds at this much shared memory, as a launch bound (1 or 2)
-constexpr int blocks_for(size_t smem) { return 2 * (smem + 1024) <= SMEM_SM ? 2 : 1; }
-// column swizzle of row r: fragment walks along rows and along columns both
-// conflict-free; bits 0-1 stay 0, so a 4-float chunk stays contiguous
-__device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
-template <int LD>
-__device__ __forceinline__ float ld_sw(const float* tile, int r, int c) {
-  return tile[r * LD + (c ^ swz(r))];
-}
-
-// 4 bytes (rows of lse and delta need not be 16-byte aligned)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-// A 64 x D tile moves as 16-byte chunks (4 float32 or 8 bfloat16 values),
-// CHUNKS a thread; chunk i of this thread sits at row r, column c.
-template <int D, typename T>
-constexpr int CHUNKS = RAW<D, T> / 4 / THREADS;
-
-template <int D, typename T>
-__device__ __forceinline__ void chunk_at(int i, int& r, int& c) {
-  constexpr int PER = 16 / (int)sizeof(T);
-  const int e = threadIdx.x + i * THREADS;
-  r = e / (D / PER);
-  c = (e % (D / PER)) * PER;
-}
-
-// this thread's chunks of rows row0 .. row0 + TILE - 1 of a (N, D) matrix,
-// unconverted (zeros past n): into registers, or by cp.async into the raw
-// stage, where chunk i of thread t sits at float 4 (t + i THREADS)
-template <int D, typename T>
-__device__ __forceinline__ void fetch_rows(float4 x[CHUNKS<D, T>], const T* src, int row0,
-                                           int n) {
-#pragma unroll
-  for (int i = 0; i < CHUNKS<D, T>; ++i) {
-    int r, c;
-    chunk_at<D, T>(i, r, c);
-    x[i] = row0 + r < n
-               ? __ldg(reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c))
-               : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-template <int D, typename T>
-__device__ __forceinline__ void stage_rows(float* raw, const T* src, int row0, int n) {
-#pragma unroll
-  for (int i = 0; i < CHUNKS<D, T>; ++i) {
-    int r, c;
-    chunk_at<D, T>(i, r, c);
-    const int gr = row0 + r;
-    cp_async16(raw + 4 * (threadIdx.x + i * THREADS), src + (size_t)(gr < n ? gr : 0) * D + c,
-               gr < n);
-  }
-}
-
-// chunk i, as loaded, into swizzled tiles of row stride D: float32 split
-// into its big and small halves, bfloat16 widened (exact in TF32: big only)
-template <int D, typename T>
-__device__ __forceinline__ void put_chunk(float4 x, int i, float* big, float* small) {
-  int r, c;
-  chunk_at<D, T>(i, r, c);
-  const int sw = swz(r);
-  if constexpr (sizeof(T) == 2) {
-    const uint32_t u[4] = {__float_as_uint(x.x), __float_as_uint(x.y), __float_as_uint(x.z),
-                           __float_as_uint(x.w)};
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float4*>(big + r * D + ((c + 4 * h) ^ sw)) = make_float4(
-          __uint_as_float(u[2 * h] << 16), __uint_as_float(u[2 * h] & 0xffff0000u),
-          __uint_as_float(u[2 * h + 1] << 16), __uint_as_float(u[2 * h + 1] & 0xffff0000u));
-  } else {
-    uint32_t b[4], sm[4];
-    split<false>(x.x, b[0], sm[0]);
-    split<false>(x.y, b[1], sm[1]);
-    split<false>(x.z, b[2], sm[2]);
-    split<false>(x.w, b[3], sm[3]);
-    const int o = r * D + (c ^ sw);
-    *reinterpret_cast<uint4*>(big + o) = make_uint4(b[0], b[1], b[2], b[3]);
-    *reinterpret_cast<uint4*>(small + o) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
-  }
-}
-template <int D, typename T>
-__device__ __forceinline__ void put_rows(const float4 x[CHUNKS<D, T>], float* big,
-                                         float* small) {
-#pragma unroll
-  for (int i = 0; i < CHUNKS<D, T>; ++i) put_chunk<D, T>(x[i], i, big, small);
-}
-// the thread's own chunks of the raw stage (its cp.async copies, visible to
-// it after cp_async_wait_all) into split tiles
-template <int D, typename T>
-__device__ __forceinline__ void put_staged(const float* raw, float* big, float* small) {
-#pragma unroll
-  for (int i = 0; i < CHUNKS<D, T>; ++i)
-    put_chunk<D, T>(
-        *reinterpret_cast<const float4*>(raw + 4 * (threadIdx.x + i * THREADS)), i, big, small);
-}
-
-// a resident tile (Q, dO for dq; K, V for dk/dv):
-// float32 by cp.async straight into the swizzled tile (split later, at
-// fragment load; waited for with cp_async_wait_all), bfloat16 through
-// registers, widened
-template <int D, typename T>
-__device__ __forceinline__ void load_resident(float* tile, const T* src, int row0, int n) {
-  if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int i = 0; i < CHUNKS<D, T>; ++i) {
-      int r, c;
-      chunk_at<D, T>(i, r, c);
-      const int gr = row0 + r;
-      cp_async16(tile + r * D + (c ^ swz(r)), src + (size_t)(gr < n ? gr : 0) * D + c, gr < n);
-    }
-  } else {
-    float4 x[CHUNKS<D, T>];
-    fetch_rows<D, T>(x, src, row0, n);
-    put_rows<D, T>(x, tile, nullptr);
-  }
-}
-
-// An operand of the backward's products with P and dS: split into TF32 halves, or for bf16 inputs (ROUND) rounded to bf16 as
-// the JAX kernels round P and dS, which is exact in TF32 (no small half).
-template <bool ROUND>
-__device__ __forceinline__ void split_p(float x, uint32_t& big, uint32_t& small) {
-  if constexpr (ROUND) {
-    big = __float_as_uint(__bfloat162float(__float2bfloat16_rn(x)));
-    small = 0u;
-  } else {
-    split<false>(x, big, small);
-  }
-}
-
-// Fragments of m16n8k8 (g = lane / 4, t = lane % 4).  A, 16 x 8 at (r0, c0):
-// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); split<EXACT>, or rounded to
-// bf16 when ROUND (split_p)
-template <int LD, bool EXACT, bool ROUND = false>
-__device__ __forceinline__ void frag_a(uint32_t big[4], uint32_t small[4], const float* tile,
-                                       int r0, int c0) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const float x[4] = {ld_sw<LD>(tile, r0 + g, c0 + t), ld_sw<LD>(tile, r0 + g + 8, c0 + t),
-                      ld_sw<LD>(tile, r0 + g, c0 + t + 4),
-                      ld_sw<LD>(tile, r0 + g + 8, c0 + t + 4)};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if constexpr (ROUND)
-      split_p<true>(x[i], big[i], small[i]);
-    else
-      split<EXACT>(x[i], big[i], small[i]);
-  }
-}
-// B, 8 x 8, B[k][j] = tile[n0 + j][c0 + k] (a product with the tile's
-// transpose): (k, j) = (t, g), (t + 4, g); from a tile's split halves
-template <int LD, bool EXACT>
-__device__ __forceinline__ void frag_b_rows(uint32_t big[2], uint32_t small[2], const float* tb,
-                                            const float* ts, int n0, int c0) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3, r = n0 + g;
-  const int o0 = r * LD + ((c0 + t) ^ swz(r)), o1 = r * LD + ((c0 + t + 4) ^ swz(r));
-  big[0] = __float_as_uint(tb[o0]);
-  big[1] = __float_as_uint(tb[o1]);
-  if constexpr (!EXACT) {
-    small[0] = __float_as_uint(ts[o0]);
-    small[1] = __float_as_uint(ts[o1]);
-  }
-}
-// B, 8 x 8, B[k][j] = tile[k0 + k][n0 + j] (a product with the tile)
-template <int LD, bool EXACT>
-__device__ __forceinline__ void frag_b_cols(uint32_t big[2], uint32_t small[2], const float* tb,
-                                            const float* ts, int k0, int n0) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int o0 = (k0 + t) * LD + ((n0 + g) ^ swz(k0 + t));
-  const int o1 = (k0 + t + 4) * LD + ((n0 + g) ^ swz(k0 + t + 4));
-  big[0] = __float_as_uint(tb[o0]);
-  big[1] = __float_as_uint(tb[o1]);
-  if constexpr (!EXACT) {
-    small[0] = __float_as_uint(ts[o0]);
-    small[1] = __float_as_uint(ts[o1]);
-  }
-}
-
-// c[j] = rows r0 .. r0 + 15 of a times rows n0 + 8j .. n0 + 8j + 7 of b
-// (given as its split halves), transposed, j < NT: a warp's 16 x 8NT block
-// of a . b^T over D (accumulator layout: c[j][2h + e] is row r0 + g + 8h,
-// column n0 + 8j + 2t + e); abt_step is its k8 step kk
-template <int D, bool EXACT, int NT>
-__device__ __forceinline__ void abt_step(float c[NT][4], const float* a, const float* bb_tile,
-                                         const float* bs_tile, int r0, int n0, int kk) {
-  uint32_t ab[4], as[4];
-  frag_a<D, EXACT>(ab, as, a, r0, 8 * kk);
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    uint32_t bb[2], bs[2];
-    frag_b_rows<D, EXACT>(bb, bs, bb_tile, bs_tile, n0 + 8 * j, 8 * kk);
-    mma3<EXACT, EXACT>(c[j], ab, as, bb, bs);
-  }
-}
-template <int D, bool EXACT, int NT>
-__device__ __forceinline__ void strip_abt(float c[NT][4], const float* a, const float* bb_tile,
-                                          const float* bs_tile, int r0, int n0) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) abt_step<D, EXACT, NT>(c, a, bb_tile, bs_tile, r0, n0, kk);
-}
-
-// acc[nd] += rows r0 .. r0 + 15 of the block's 64 x 64 P or dS tile
-// (float32, split here; for bf16 inputs, EXACT, rounded to bf16 here, as
-// JAX rounds P and dS) times columns c0 + 8nd .. of a 64 x D tile (given
-// as its split halves; exact in TF32 when EXACT), nd < NT
-template <int D, bool EXACT, int NT>
-__device__ __forceinline__ void strip_pm(float acc[NT][4], const float* p, const float* mb,
-                                         const float* ms, int r0, int c0) {
-#pragma unroll
-  for (int k2 = 0; k2 < TILE / 8; k2 += 2) {
-    float part[NT][4];
-#pragma unroll
-    for (int nd = 0; nd < NT; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[nd][e] = 0.f;
-#pragma unroll
-    for (int kc = k2; kc < k2 + 2; ++kc) {
-      uint32_t ab[4], as[4];
-      frag_a<TILE, false, EXACT>(ab, as, p, r0, 8 * kc);
-#pragma unroll
-      for (int nd = 0; nd < NT; ++nd) {
-        uint32_t bb[2], bs[2];
-        frag_b_cols<D, EXACT>(bb, bs, mb, ms, 8 * kc, c0 + 8 * nd);
-        mma3_into<EXACT, EXACT>(part[nd], ab, as, bb, bs);
-      }
-    }
-#pragma unroll
-    for (int nd = 0; nd < NT; ++nd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nd][e] += part[nd][e];
-  }
-}
-
-// the accumulator pair (row, col) and (row, col + 1), col even, into the
-// block's swizzled 64 x 64 P / dS tile
-__device__ __forceinline__ void store_pair(float* tile, int row, int col, float x, float y) {
-  *reinterpret_cast<float2*>(tile + row * TILE + (col ^ swz(row))) = make_float2(x, y);
-}
+constexpr int ALIGN = 128;
+constexpr int SMEM_LIMIT = 232448;   // what a block may take
+constexpr int MAX_NR = 4;            // raw stages, at most
+// setmaxnreg with three warpgroups: a thread starts at 65536 / 384 = 168
+// registers; the producer gives 112 of them to each consumer thread
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
 
 template <typename T> __device__ __forceinline__ void store2(T* dst, float x, float y);
 template <> __device__ __forceinline__ void store2<float>(float* dst, float x, float y) {
@@ -461,15 +215,15 @@ template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16*
 }
 
 // ---------------------------------------------------------------------------
-// the forward's wgmma products, m64nNk8 (TF32) and m64nNk16 (bf16), float32
-// accumulators d (d[4j + e]: row 16 w + g + 8 (e / 2), column 8 j + 2 t +
-// e % 2 of warp w of the warpgroup; g = lane / 4, t = lane % 4) + (scale_d ?
-// d : 0).  mma_ss: A and B K-major in shared memory (descriptors, b_desc);
-// mma_rs: A in registers (TF32: rows g, g + 8, columns t, t + 4; bf16: rows
-// g, g + 8, column pairs 2t, 2t + 8, the smaller column in the low half),
-// B K-major in shared memory.
+// wgmma products, m64nNk8 (TF32) and m64nNk16 (bf16), float32 accumulators
+// d (d[4j + e]: row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2 of warp w
+// of the warpgroup; g = lane / 4, t = lane % 4) + (scale_d ? d : 0).
+// mma_ss: A and B K-major in shared memory (descriptors, b_desc); mma_rs: A
+// in registers (TF32: rows g, g + 8, columns t, t + 4; bf16: rows g, g + 8,
+// column pairs 2t, 2t + 8, the smaller column in the low half), B K-major
+// in shared memory.
 // ---------------------------------------------------------------------------
-namespace fwd {
+namespace tc {
 
 template <int N, typename T>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
@@ -626,48 +380,17 @@ __device__ __forceinline__ void mma_rs<128, __nv_bfloat16>(float (&d)[64], const
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-}  // namespace fwd
-
-// ---------------------------------------------------------------------------
-// forward: out = softmax(q k^T * scale) v, lse = logsumexp of each row, on
-// wgmma (the plan and the roles: the note at the top)
-// ---------------------------------------------------------------------------
-namespace fwd {
-
-constexpr int CONSUMERS = 2;                      // consumer warpgroups, 64 query rows each
-constexpr int ROWS = 64 * CONSUMERS;              // query rows a block
-constexpr int THREADS = 128 * (CONSUMERS + 1);    // and the producer warpgroup
-// setmaxnreg: a thread starts at 65536 / 384 = 168 registers; the producer
-// gives 112 of them to each consumer thread
-constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
-constexpr int MAX_NR = 4;                         // raw stages, at most
-constexpr int ALIGN = 128;
-constexpr int SMEM_LIMIT = 232448;                // what a block may take
-
-// The plan of one instantiation: KT keys a tile; Q's image; NI stages of K
-// and V images; NR raw stages (as many as fit, up to MAX_NR).  float32
-// tiles are 16 keys at D = 128, where Q's two halves take 128 KB (tiles of
-// 32 keys at D = 64, for a ring of four raw stages in place of one, ran
-// slower: a tile's fixed cost is the consumers' waits on their products).
-// Mirrored by ops/flash_attention.py::forward_plan.
-template <int D, typename T>
-struct Plan {
-  static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr int HALVES = F32 ? 2 : 1;            // TF32 big and small, or bf16
-  static constexpr int EPC = 16 / (int)sizeof(T);       // elements a 16-byte chunk
-  static constexpr int CPR = D / EPC;                   // chunks a row of q, k, v
-  static constexpr int KT = F32 && D == 128 ? 16 : 64;   // keys a tile
-  static constexpr int NI = 2;                                 // image stages
-  static constexpr int Q_IMG = ROWS * D * (int)sizeof(T) * HALVES;
-  static constexpr int KV_IMG = KT * D * (int)sizeof(T) * HALVES;   // K's image; V's
-  static constexpr int RAW = KT * D * (int)sizeof(T);                // one raw tile
-  static constexpr int FIXED = ALIGN + Q_IMG + NI * 2 * KV_IMG + 8 * (MAX_NR + 2 * NI);
-  static constexpr int FIT = (SMEM_LIMIT - FIXED) / (2 * RAW);
-  static constexpr int NR = FIT < MAX_NR ? FIT : MAX_NR;
-  static constexpr int SMEM = FIXED + NR * 2 * RAW;
-  static_assert(NR >= 1 && SMEM <= SMEM_LIMIT, "the plan exceeds a block's shared memory");
-  static_assert(D % 16 == 0 && KT % 16 == 0 && (KT * CPR) % 128 == 0, "whole chunks a thread");
-};
+template <>
+__device__ __forceinline__ void mma_ss<32, __nv_bfloat16>(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
 // Byte offset of 16-byte chunk ck (along K) of row r (along M or N) in the
 // image of an operand of R rows: the no-swizzle K-major core matrices that
@@ -679,11 +402,11 @@ __device__ __forceinline__ int img_off(int r, int ck) {
   return (ck >> 1) * (R * 32 * HALVES) + (r >> 3) * 256 + (ck & 1) * 128 + (r & 7) * 16;
 }
 
-// a chunk of q or k into its image: float32 split into TF32 halves, bf16
-// as it is
+// a chunk of a row into an image of R rows: float32 split into TF32
+// halves, bf16 as it is
 template <int R, typename T>
 __device__ __forceinline__ void put16(unsigned char* img, int r, int ck, uint4 x) {
-  const int o = img_off<R, Plan<32, T>::HALVES>(r, ck);
+  const int o = img_off<R, sizeof(T) == 4 ? 2 : 1>(r, ck);
   if constexpr (sizeof(T) == 4) {
     uint32_t b[4], s[4];
     split<false>(__uint_as_float(x.x), b[0], s[0]);
@@ -711,127 +434,11 @@ __device__ __forceinline__ void wg_sync(int id) {
 }
 __device__ __forceinline__ void fence_u32(uint32_t& x) { asm volatile("" : "+r"(x)::"memory"); }
 
-// Key tile `tile` of k and v (rows k0 .. k0 + valid - 1, contiguous in
-// global memory) into a raw stage, K then V, by one thread: two 1-D bulk
-// copies completing on the stage's barrier, which expects both.
-template <int D, typename T>
-__device__ __forceinline__ void fill_tile(uint32_t stage, uint32_t bar, const T* k, const T* v,
-                                          int k0, int valid) {
-  using P = Plan<D, T>;
-  const uint32_t bytes = (uint32_t)(valid * D * (int)sizeof(T));
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(2 * bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(stage), "l"(k + (size_t)k0 * D), "r"(bytes), "r"(bar)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(stage + (uint32_t)P::RAW), "l"(v + (size_t)k0 * D), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// The producer warpgroup's images of one tile from its raw stage (ptid:
-// the thread's rank among the 128; rows from valid on are zeros):
-// K as the B operand of S = Q K^T (KT rows, K along D), V as the B operand
-// of P V (D rows, K along the keys).  float32: each element split into its
-// TF32 halves, and V's keys within each k8 step taken in the order of P's
-// register fragment (index t is key 2t, index t + 4 key 2t + 1): chunk
-// (d, ck) holds keys 8 (ck / 2) + ck % 2 + 2e, e < 4.  bf16: V's chunk
-// (d, ck) holds keys 8 ck .. 8 ck + 7 (P's fragment takes them in order).
-// A phase of eight lanes reads and writes eight distinct 16-byte bank
-// groups: K's chunks run diagonally (eight consecutive rows, eight chunk
-// columns), V's one column a lane.
-template <int D, typename T>
-__device__ __forceinline__ void build_images(const unsigned char* raw, unsigned char* kimg,
-                                             unsigned char* vimg, int valid, int ptid) {
-  using P = Plan<D, T>;
-  constexpr int KT = P::KT, KU = KT * P::CPR / 128;   // K's chunks a thread
-  constexpr int B = KU < 4 ? KU : 4;   // chunks a thread loads before it writes any
-  static_assert(KU % B == 0 && (D * (KT / 4) / 128) % 4 == 0, "whole batches a thread");
-#pragma unroll 1
-  for (int j0 = 0; j0 < KU; j0 += B) {
-    uint4 x[B];
-#pragma unroll
-    for (int j = 0; j < B; ++j) {
-      const int u = ptid + 128 * (j0 + j), r = u % KT, ck = (u / KT + r) % P::CPR;
-      x[j] = r < valid ? *reinterpret_cast<const uint4*>(raw + (r * P::CPR + ck) * 16)
-                       : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int j = 0; j < B; ++j) {
-      const int u = ptid + 128 * (j0 + j), r = u % KT, ck = (u / KT + r) % P::CPR;
-      put16<KT, T>(kimg, r, ck, x[j]);
-    }
-  }
-  const unsigned char* rawv = raw + P::RAW;
-  if constexpr (P::F32) {
-    const float* rv = reinterpret_cast<const float*>(rawv);
-    constexpr int VU = D * (KT / 4) / 128;
-#pragma unroll 1
-    for (int j0 = 0; j0 < VU; j0 += 4) {
-      float x[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int u = ptid + 128 * (j0 + j), d = u % D, ck = u / D;
-        const int key0 = 8 * (ck >> 1) + (ck & 1);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + 2 * e;
-          x[j][e] = key < valid ? rv[key * D + d] : 0.f;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int u = ptid + 128 * (j0 + j), d = u % D, ck = u / D;
-        uint32_t b[4], sm[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) split<false>(x[j][e], b[e], sm[e]);
-        const int o = img_off<D, 2>(d, ck);
-        *reinterpret_cast<uint4*>(vimg + o) = make_uint4(b[0], b[1], b[2], b[3]);
-        *reinterpret_cast<uint4*>(vimg + o + D * 32) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
-      }
-    }
-  } else {
-    // columns 2 dp, 2 dp + 1 of keys 8 ck .. 8 ck + 7: eight 32-bit words,
-    // their low halves one chunk and their high halves the next
-    const uint32_t* rv = reinterpret_cast<const uint32_t*>(rawv);
-    constexpr int VU = (D / 2) * (KT / 8) / 128;
-#pragma unroll
-    for (int j = 0; j < VU; ++j) {
-      const int u = ptid + 128 * j, dp = u % (D / 2), ck = u / (D / 2);
-      uint32_t w[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int key = 8 * ck + e;
-        w[e] = key < valid ? rv[key * (D / 2) + dp] : 0u;
-      }
-      *reinterpret_cast<uint4*>(vimg + img_off<D, 1>(2 * dp, ck)) =
-          make_uint4(__byte_perm(w[0], w[1], 0x5410), __byte_perm(w[2], w[3], 0x5410),
-                     __byte_perm(w[4], w[5], 0x5410), __byte_perm(w[6], w[7], 0x5410));
-      *reinterpret_cast<uint4*>(vimg + img_off<D, 1>(2 * dp + 1, ck)) =
-          make_uint4(__byte_perm(w[0], w[1], 0x7632), __byte_perm(w[2], w[3], 0x7632),
-                     __byte_perm(w[4], w[5], 0x7632), __byte_perm(w[6], w[7], 0x7632));
-    }
-  }
-}
-
-// One consumer warpgroup's 64 rows of Q (block rows 64 wg ..) into Q's
-// image, read straight from global memory (zeros past n).
-template <int D, typename T>
-__device__ __forceinline__ void q_image(unsigned char* qimg, const T* q, int q0, int n, int wg,
-                                        int ctid) {
-  using P = Plan<D, T>;
-#pragma unroll 2
-  for (int u = ctid; u < 64 * P::CPR; u += 128) {
-    const int r = u % 64, ck = (u / 64 + r) % P::CPR;
-    const int row = 64 * wg + r;
-    const uint4 x = q0 + row < n
-                        ? __ldg(reinterpret_cast<const uint4*>(q + (size_t)(q0 + row) * D) + ck)
-                        : make_uint4(0u, 0u, 0u, 0u);
-    put16<ROWS, T>(qimg, row, ck, x);
-  }
+// 2^x on the special-function unit (flushes results below 2^-126 to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <int R>
@@ -843,32 +450,170 @@ __device__ __forceinline__ void carry(float (&acc)[R], float (&part)[R]) {
   }
 }
 
-// s = this warpgroup's 64 rows of Q times the stage's KT keys, transposed
-// (accumulator layout: s[4j + e] is row 16 w + g + 8 (e / 2), key 8 j + 2 t +
-// e % 2).  float32: three TF32 products a k8 step into a zeroed partial a
-// k16 step (two partials taking turns, one carried while the next runs);
-// bf16: one k16 product a step into s.
+// Rows row0 .. row0 + valid - 1 of a row-major (., D) matrix (contiguous:
+// a raw stage, or global memory) into a ring's stage by one thread: one 1-D
+// bulk copy completing on bar, which the caller armed for the stage.
 template <int D, typename T>
-__device__ __forceinline__ void qk_product(float (&s)[Plan<D, T>::KT / 2], uint32_t qa,
-                                           uint32_t kb) {
-  using P = Plan<D, T>;
-  constexpr int KT = P::KT;
+__device__ __forceinline__ void bulk_rows(uint32_t dst, uint32_t bar, const T* src, int row0,
+                                          int valid) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src + (size_t)row0 * D), "r"((uint32_t)(valid * D * (int)sizeof(T))),
+      "r"(bar)
+      : "memory");
+}
+// arm bar for the bytes of two tiles of valid rows each
+template <int D, typename T>
+__device__ __forceinline__ void expect_rows(uint32_t bar, int valid) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"((uint32_t)(2 * valid * D * (int)sizeof(T)))
+               : "memory");
+}
+
+// The producer's image of R rows of a (., D) matrix as they are, K-major
+// along D (the B operand of a product over D: the forward's K; the
+// backward's K, V, Q, dO), from the rows at src (a raw stage or global
+// memory; generic loads) by the producer's 128 threads (ptid); rows from
+// valid on are zeros.  float32 split into its TF32 halves.  Each thread
+// loads up to four 16-byte chunks before it writes any; a phase of eight
+// lanes reads and writes eight distinct 16-byte bank groups (the chunks
+// run diagonally: eight consecutive rows, eight chunk columns).
+template <int R, int D, typename T>
+__device__ __forceinline__ void kmajor_image(const unsigned char* src, unsigned char* img,
+                                             int valid, int ptid) {
+  constexpr int CPR = D * (int)sizeof(T) / 16;   // chunks a row
+  constexpr int KU = R * CPR / 128;              // chunks a thread
+  constexpr int B = KU < 4 ? KU : 4;
+  static_assert(KU >= 1 && KU % B == 0 && (R * CPR) % 128 == 0, "whole batches a thread");
+#pragma unroll 1
+  for (int j0 = 0; j0 < KU; j0 += B) {
+    uint4 x[B];
 #pragma unroll
-  for (int i = 0; i < KT / 2; ++i) s[i] = 0.f;
-  if constexpr (P::F32) {
-    constexpr int QB = ROWS * 32 * 2, KB = KT * 32 * 2;   // bytes of a k8 step's images
-    float part[2][KT / 2];
+    for (int j = 0; j < B; ++j) {
+      const int u = ptid + 128 * (j0 + j), r = u % R, ck = (u / R + r) % CPR;
+      x[j] = r < valid ? *reinterpret_cast<const uint4*>(src + (r * CPR + ck) * 16)
+                       : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      const int u = ptid + 128 * (j0 + j), r = u % R, ck = (u / R + r) % CPR;
+      put16<R, T>(img, r, ck, x[j]);
+    }
+  }
+}
+
+// The producer's image of R rows of a (., D) matrix transposed: D rows, K
+// along the R rows (the B operand of a product over those rows with a
+// register A operand: the forward's V; the backward's K^T, Q^T, dO^T).
+// float32: each element split into its TF32 halves, and the rows within
+// each k8 step taken in the order of the register fragment that the
+// accumulator gives (index t is row 2t, index t + 4 row 2t + 1): chunk
+// (d, ck) holds rows 8 (ck / 2) + ck % 2 + 2e, e < 4.  bf16: chunk (d, ck)
+// holds rows 8 ck .. 8 ck + 7 (the fragment takes them in order).  A phase
+// of eight lanes reads eight consecutive columns and writes one chunk
+// column each.
+template <int R, int D, typename T>
+__device__ __forceinline__ void transposed_image(const unsigned char* src, unsigned char* img,
+                                                 int valid, int ptid) {
+  if constexpr (sizeof(T) == 4) {
+    const float* rv = reinterpret_cast<const float*>(src);
+    constexpr int VU = D * (R / 4) / 128;   // chunks a thread
+    constexpr int B = VU < 4 ? VU : 4;
+    static_assert(VU >= 1 && VU % B == 0 && (D * (R / 4)) % 128 == 0, "whole batches a thread");
+#pragma unroll 1
+    for (int j0 = 0; j0 < VU; j0 += B) {
+      float x[B][4];
+#pragma unroll
+      for (int j = 0; j < B; ++j) {
+        const int u = ptid + 128 * (j0 + j), d = u % D, ck = u / D;
+        const int row0 = 8 * (ck >> 1) + (ck & 1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + 2 * e;
+          x[j][e] = row < valid ? rv[row * D + d] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < B; ++j) {
+        const int u = ptid + 128 * (j0 + j), d = u % D, ck = u / D;
+        uint32_t b[4], sm[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split<false>(x[j][e], b[e], sm[e]);
+        const int o = img_off<D, 2>(d, ck);
+        *reinterpret_cast<uint4*>(img + o) = make_uint4(b[0], b[1], b[2], b[3]);
+        *reinterpret_cast<uint4*>(img + o + D * 32) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
+      }
+    }
+  } else {
+    // columns 2 dp, 2 dp + 1 of rows 8 ck .. 8 ck + 7: eight 32-bit words,
+    // their low halves one chunk and their high halves the next
+    const uint32_t* rv = reinterpret_cast<const uint32_t*>(src);
+    constexpr int VU = (D / 2) * (R / 8) / 128;
+    static_assert(VU >= 1 && ((D / 2) * (R / 8)) % 128 == 0, "whole chunks a thread");
+#pragma unroll
+    for (int j = 0; j < VU; ++j) {
+      const int u = ptid + 128 * j, dp = u % (D / 2), ck = u / (D / 2);
+      uint32_t w[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int row = 8 * ck + e;
+        w[e] = row < valid ? rv[row * (D / 2) + dp] : 0u;
+      }
+      *reinterpret_cast<uint4*>(img + img_off<D, 1>(2 * dp, ck)) =
+          make_uint4(__byte_perm(w[0], w[1], 0x5410), __byte_perm(w[2], w[3], 0x5410),
+                     __byte_perm(w[4], w[5], 0x5410), __byte_perm(w[6], w[7], 0x5410));
+      *reinterpret_cast<uint4*>(img + img_off<D, 1>(2 * dp + 1, ck)) =
+          make_uint4(__byte_perm(w[0], w[1], 0x7632), __byte_perm(w[2], w[3], 0x7632),
+                     __byte_perm(w[4], w[5], 0x7632), __byte_perm(w[6], w[7], 0x7632));
+    }
+  }
+}
+
+// One consumer warpgroup's 64 rows (image rows 64 wg ..) of a resident A
+// operand of R rows (the forward's Q; the backward's Q, dO or K, V), read
+// straight from global memory rows row0 .. (zeros past n).
+template <int R, int D, typename T>
+__device__ __forceinline__ void a_image(unsigned char* img, const T* src, int row0, int n,
+                                        int wg, int ctid) {
+  constexpr int CPR = D * (int)sizeof(T) / 16;
+#pragma unroll 2
+  for (int u = ctid; u < 64 * CPR; u += 128) {
+    const int r = u % 64, ck = (u / 64 + r) % CPR;
+    const int row = 64 * wg + r;
+    const uint4 x = row0 + row < n
+                        ? __ldg(reinterpret_cast<const uint4*>(src + (size_t)(row0 + row) * D) + ck)
+                        : make_uint4(0u, 0u, 0u, 0u);
+    put16<R, T>(img, row, ck, x);
+  }
+}
+
+// s = a warpgroup's 64 rows of an A image of AR rows (at a, its first row
+// group) times the N rows of a B image (at b), transposed, over D
+// (accumulator layout: s[4j + e] is row 16 w + g + 8 (e / 2), column 8 j +
+// 2 t + e % 2).  float32: three TF32 products a k8 step into a zeroed
+// partial a k16 step (two partials taking turns, one carried while the next
+// runs); bf16: one k16 product a step into s.
+template <int N, int AR, int D, typename T>
+__device__ __forceinline__ void ss_product(float (&s)[N / 2], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] = 0.f;
+  if constexpr (sizeof(T) == 4) {
+    constexpr int AB = AR * 32 * 2, BB = N * 32 * 2;   // bytes of a k8 step's images
+    // zeroed, though the first product of each ignores them: with undefined
+    // inputs to its asm the compiler may fold two such products into one
+    // (dk/dv's S^T and dP^T became one, and its results were wrong)
+    float part[2][N / 2] = {};
 #pragma unroll
     for (int c2 = 0; c2 < D / 16; ++c2) {
 #pragma unroll
-      for (int i = 0; i < KT / 2; ++i) fence_reg(part[c2 & 1][i]);
+      for (int i = 0; i < N / 2; ++i) fence_reg(part[c2 & 1][i]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
-        const uint32_t a = qa + (2 * c2 + kk) * QB, b = kb + (2 * c2 + kk) * KB;
-        mma_ss<KT, float>(part[c2 & 1], b_desc(a + ROWS * 32), b_desc(b), kk);
-        mma_ss<KT, float>(part[c2 & 1], b_desc(a), b_desc(b + KT * 32), 1);
-        mma_ss<KT, float>(part[c2 & 1], b_desc(a), b_desc(b), 1);
+        const uint32_t ak = a + (2 * c2 + kk) * AB, bk = b + (2 * c2 + kk) * BB;
+        mma_ss<N, float>(part[c2 & 1], b_desc(ak + AR * 32), b_desc(bk), kk);
+        mma_ss<N, float>(part[c2 & 1], b_desc(ak), b_desc(bk + N * 32), 1);
+        mma_ss<N, float>(part[c2 & 1], b_desc(ak), b_desc(bk), 1);
       }
       wgmma_commit();
       if (c2 > 0) {
@@ -880,16 +625,196 @@ __device__ __forceinline__ void qk_product(float (&s)[Plan<D, T>::KT / 2], uint3
     carry(s, part[(D / 16 - 1) & 1]);
   } else {
 #pragma unroll
-    for (int i = 0; i < KT / 2; ++i) fence_reg(s[i]);
+    for (int i = 0; i < N / 2; ++i) fence_reg(s[i]);
     wgmma_fence();
 #pragma unroll
     for (int c = 0; c < D / 16; ++c)
-      mma_ss<KT, __nv_bfloat16>(s, b_desc(qa + c * ROWS * 32), b_desc(kb + c * KT * 32), c > 0);
+      mma_ss<N, __nv_bfloat16>(s, b_desc(a + c * AR * 32), b_desc(b + c * N * 32), c > 0);
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < KT / 2; ++i) fence_reg(s[i]);
+    for (int i = 0; i < N / 2; ++i) fence_reg(s[i]);
   }
+}
+
+// The register A operand of a product over ST columns of an accumulator x
+// (64 rows of a warpgroup): float32, its TF32 halves, column 2t of a k8
+// step as index t and 2t + 1 as t + 4 (the transposed images hold their
+// rows in that order); bf16, rounded to bf16 (to nearest even) and packed
+// in place.
+template <int ST>
+__device__ __forceinline__ void tf32_frags(const float (&x)[ST / 2], uint32_t (&big)[ST / 8][4],
+                                           uint32_t (&sm)[ST / 8][4]) {
+#pragma unroll
+  for (int c = 0; c < ST / 8; ++c) {
+    split<false>(x[4 * c], big[c][0], sm[c][0]);       // (g, column 2t)
+    split<false>(x[4 * c + 2], big[c][1], sm[c][1]);   // (g + 8, column 2t)
+    split<false>(x[4 * c + 1], big[c][2], sm[c][2]);   // (g, column 2t + 1)
+    split<false>(x[4 * c + 3], big[c][3], sm[c][3]);   // (g + 8, column 2t + 1)
+  }
+}
+template <int ST>
+__device__ __forceinline__ void bf16_frags(const float (&x)[ST / 2], uint32_t (&a)[ST / 16][4]) {
+#pragma unroll
+  for (int c = 0; c < ST / 16; ++c) {
+    a[c][0] = pack_bf16(x[8 * c], x[8 * c + 1]);       // (g, columns 2t, 2t + 1)
+    a[c][1] = pack_bf16(x[8 * c + 2], x[8 * c + 3]);   // (g + 8, the same)
+    a[c][2] = pack_bf16(x[8 * c + 4], x[8 * c + 5]);   // (g, columns 2t + 8, 2t + 9)
+    a[c][3] = pack_bf16(x[8 * c + 6], x[8 * c + 7]);   // (g + 8, the same)
+  }
+}
+template <int ST>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[ST][4]) {
+#pragma unroll
+  for (int c = 0; c < ST; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) fence_u32(a[c][e]);
+}
+
+// d (N columns) += the register A operand (ST columns) times N rows of a
+// transposed image of BR rows at b (its k-step blocks BR x 32 bytes a
+// half), issued only (the caller fences, commits and waits): float32, three
+// TF32 products a k8 step; bf16, one k16 product a step.  The first step
+// scales d by first (0: d starts from zero).
+template <int N, int ST, int BR>
+__device__ __forceinline__ void rs_tf32(float (&d)[N / 2], const uint32_t (&big)[ST / 8][4],
+                                        const uint32_t (&sm)[ST / 8][4], uint32_t b, int first) {
+#pragma unroll
+  for (int c = 0; c < ST / 8; ++c) {
+    const uint32_t bk = b + c * BR * 32 * 2;
+    mma_rs<N, float>(d, sm[c], b_desc(bk), c > 0 ? 1 : first);
+    mma_rs<N, float>(d, big[c], b_desc(bk + BR * 32), 1);
+    mma_rs<N, float>(d, big[c], b_desc(bk), 1);
+  }
+}
+template <int N, int ST, int BR>
+__device__ __forceinline__ void rs_bf16(float (&d)[N / 2], const uint32_t (&a)[ST / 16][4],
+                                        uint32_t b, int first) {
+#pragma unroll
+  for (int c = 0; c < ST / 16; ++c)
+    mma_rs<N, __nv_bfloat16>(d, a[c], b_desc(b + c * BR * 32), c > 0 ? 1 : first);
+}
+
+// The producer warpgroup (ptid: its thread's rank) of a plan P (ST rows a
+// tile of the streamed axis, NR raw and NI image stages, RAW bytes a raw
+// tile, STAGE an image stage): for every tile, the rows of its two
+// matrices a and b (the forward's and dq's K, V; dk/dv's Q, dO) into a raw
+// stage by two bulk copies, issued by thread 0 (NR > 0; else read from
+// global memory), then the tile's images into an image stage by all 128
+// threads (images(ra, rb, stage, valid, row0)), then the raw stage
+// refilled.
+template <class P, int D, typename T, class Images>
+__device__ __forceinline__ void produce(unsigned char* raw0, uint32_t raw_full,
+                                        unsigned char* img0, uint32_t img_full,
+                                        uint32_t img_empty, const T* a, const T* b, int n,
+                                        int ptid, Images images) {
+  constexpr int ST = P::ST, NR = P::NR, NI = P::NI;
+  const int tiles = (n + ST - 1) / ST;
+  auto fill = [&](int u, uint32_t stage, uint32_t bar) {
+    const int valid = min(ST, n - u * ST);
+    expect_rows<D, T>(bar, valid);
+    bulk_rows<D, T>(stage, bar, a, u * ST, valid);
+    bulk_rows<D, T>(stage + (uint32_t)P::RAW, bar, b, u * ST, valid);
+  };
+  if constexpr (NR > 0) {
+    if (ptid == 0)
+      for (int u = 0; u < NR && u < tiles; ++u)
+        fill(u, smem_addr(raw0 + u * 2 * P::RAW), raw_full + 8 * u);
+  }
+  for (int it = 0; it < tiles; ++it) {
+    const int si = it % NI, row0 = it * ST;
+    const unsigned char *ra, *rb;
+    if constexpr (NR > 0) {
+      ra = raw0 + (it % NR) * 2 * P::RAW;
+      rb = ra + P::RAW;
+      mbar_wait(raw_full + 8 * (it % NR), (it / NR) & 1);
+    } else {
+      ra = reinterpret_cast<const unsigned char*>(a + (size_t)row0 * D);
+      rb = reinterpret_cast<const unsigned char*>(b + (size_t)row0 * D);
+    }
+    if (it >= NI) mbar_wait(img_empty + 8 * si, ((it / NI) + 1) & 1);
+    images(ra, rb, img0 + si * P::STAGE, min(ST, n - row0), row0);
+    fence_async();
+    mbar_arrive(img_full + 8 * si);
+    if constexpr (NR > 0) {
+      if (it + NR < tiles) {   // every producer thread is done with the raw stage: refill it
+        wg_sync(1);
+        if (ptid == 0) {
+          fence_async();
+          fill(it + NR, smem_addr(ra), raw_full + 8 * (it % NR));
+        }
+      }
+    }
+  }
+}
+
+// a plan's barriers, after its raw stages: raw_full[NR] (the bulk copies),
+// img_full[NI] (the producer's 128 threads), img_empty[NI] (the C
+// consumer warpgroups' warps)
+template <class P>
+__device__ __forceinline__ void init_barriers(uint32_t raw_full) {
+  const uint32_t img_full = raw_full + 8 * P::NR, img_empty = img_full + 8 * P::NI;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::NR; ++s) mbar_init(raw_full + 8 * s, 1);
+    for (int s = 0; s < P::NI; ++s) {
+      mbar_init(img_full + 8 * s, 128);
+      mbar_init(img_empty + 8 * s, 4 * P::C);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// forward: out = softmax(q k^T * scale) v, lse = logsumexp of each row, on
+// wgmma (the plan and the roles: the note at the top)
+// ---------------------------------------------------------------------------
+namespace fwd {
+
+using namespace tc;
+
+constexpr int CONSUMERS = 2;                      // consumer warpgroups, 64 query rows each
+constexpr int ROWS = 64 * CONSUMERS;              // query rows a block
+constexpr int THREADS = 128 * (CONSUMERS + 1);    // and the producer warpgroup
+
+// The plan of one instantiation: KT keys a tile; Q's image; NI stages of K
+// and V images; NR raw stages (as many as fit, up to MAX_NR).  float32
+// tiles are 16 keys at D = 128, where Q's two halves take 128 KB (tiles of
+// 32 keys at D = 64, for a ring of four raw stages in place of one, ran
+// slower: a tile's fixed cost is the consumers' waits on their products).
+// Mirrored by ops/flash_attention.py::forward_plan.
+template <int D, typename T>
+struct Plan {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int HALVES = F32 ? 2 : 1;            // TF32 big and small, or bf16
+  static constexpr int EPC = 16 / (int)sizeof(T);       // elements a 16-byte chunk
+  static constexpr int CPR = D / EPC;                   // chunks a row of q, k, v
+  static constexpr int KT = F32 && D == 128 ? 16 : 64;   // keys a tile
+  static constexpr int NI = 2;                                 // image stages
+  static constexpr int Q_IMG = ROWS * D * (int)sizeof(T) * HALVES;
+  static constexpr int KV_IMG = KT * D * (int)sizeof(T) * HALVES;   // K's image; V's
+  static constexpr int RAW = KT * D * (int)sizeof(T);                // one raw tile
+  static constexpr int FIXED = ALIGN + Q_IMG + NI * 2 * KV_IMG + 8 * (MAX_NR + 2 * NI);
+  static constexpr int FIT = (SMEM_LIMIT - FIXED) / (2 * RAW);
+  static constexpr int NR = FIT < MAX_NR ? FIT : MAX_NR;
+  static constexpr int SMEM = FIXED + NR * 2 * RAW;
+  static constexpr int C = CONSUMERS, ST = KT, STAGE = 2 * KV_IMG;   // as tc::produce takes them
+  static_assert(NR >= 1 && SMEM <= SMEM_LIMIT, "the plan exceeds a block's shared memory");
+  static_assert(D % 16 == 0 && KT % 16 == 0 && (KT * CPR) % 128 == 0, "whole chunks a thread");
+};
+
+// The producer warpgroup's images of one key tile from its raw rows (ptid:
+// the thread's rank among the 128; rows from valid on are zeros): K as the
+// B operand of S = Q K^T (KT rows, K along D), V transposed as the B
+// operand of P V (D rows, K along the keys, in P's fragment order).
+template <int D, typename T>
+__device__ __forceinline__ void build_images(const unsigned char* rk, const unsigned char* rv,
+                                             unsigned char* stage, int valid, int ptid) {
+  using P = Plan<D, T>;
+  kmajor_image<P::KT, D, T>(rk, stage, valid, ptid);
+  transposed_image<P::KT, D, T>(rv, stage + P::KV_IMG, valid, ptid);
 }
 
 // pv = P (in s, accumulator layout) times the stage's V, over the tile's
@@ -905,61 +830,25 @@ __device__ __forceinline__ void pv_product(float (&pv)[D / 2], const float (&s)[
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) fence_reg(pv[i]);
   if constexpr (P::F32) {
-    constexpr int VB = D * 32 * 2;   // bytes of a k8 step's images
     uint32_t pb[KT / 8][4], ps[KT / 8][4];
-#pragma unroll
-    for (int c = 0; c < KT / 8; ++c) {
-      split<false>(s[4 * c], pb[c][0], ps[c][0]);       // (g, key 2t)
-      split<false>(s[4 * c + 2], pb[c][1], ps[c][1]);   // (g + 8, key 2t)
-      split<false>(s[4 * c + 1], pb[c][2], ps[c][2]);   // (g, key 2t + 1)
-      split<false>(s[4 * c + 3], pb[c][3], ps[c][3]);   // (g + 8, key 2t + 1)
-    }
+    tf32_frags<KT>(s, pb, ps);
     wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < KT / 8; ++c) {
-      const uint32_t b = vb + c * VB;
-      mma_rs<D, float>(pv, ps[c], b_desc(b), c > 0);
-      mma_rs<D, float>(pv, pb[c], b_desc(b + D * 32), 1);
-      mma_rs<D, float>(pv, pb[c], b_desc(b), 1);
-    }
+    rs_tf32<D, KT, D>(pv, pb, ps, vb, 0);
     wgmma_commit();
     wgmma_wait<0>();
-#pragma unroll
-    for (int c = 0; c < KT / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {   // P's registers stay untouched until the products end
-        fence_u32(pb[c][e]);
-        fence_u32(ps[c][e]);
-      }
+    fence_frags(pb);   // P's registers stay untouched until the products end
+    fence_frags(ps);
   } else {
     uint32_t pa[KT / 16][4];
-#pragma unroll
-    for (int c = 0; c < KT / 16; ++c) {
-      pa[c][0] = pack_bf16(s[8 * c], s[8 * c + 1]);       // (g, keys 2t, 2t + 1)
-      pa[c][1] = pack_bf16(s[8 * c + 2], s[8 * c + 3]);   // (g + 8, the same)
-      pa[c][2] = pack_bf16(s[8 * c + 4], s[8 * c + 5]);   // (g, keys 2t + 8, 2t + 9)
-      pa[c][3] = pack_bf16(s[8 * c + 6], s[8 * c + 7]);   // (g + 8, the same)
-    }
+    bf16_frags<KT>(s, pa);
     wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < KT / 16; ++c)
-      mma_rs<D, __nv_bfloat16>(pv, pa[c], b_desc(vb + c * D * 32), c > 0);
+    rs_bf16<D, KT, D>(pv, pa, vb, 0);
     wgmma_commit();
     wgmma_wait<0>();
-#pragma unroll
-    for (int c = 0; c < KT / 16; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) fence_u32(pa[c][e]);
+    fence_frags(pa);
   }
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) fence_reg(pv[i]);
-}
-
-// 2^x on the special-function unit (flushes results below 2^-126 to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The online softmax of one tile's logits s (accumulator layout), in
@@ -1025,48 +914,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const size_t base = (size_t)blockIdx.y * n * D;
   const int tiles = (n + KT - 1) / KT;
 
-  if (tid == 0) {
-    for (int s = 0; s < NR; ++s) mbar_init(raw_full + 8 * s, 1);
-    for (int s = 0; s < NI; ++s) {
-      mbar_init(img_full + 8 * s, 128);
-      mbar_init(img_empty + 8 * s, 4 * CONSUMERS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
+  init_barriers<P>(raw_full);
 
   if (wg == CONSUMERS) {   // the producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     const int ptid = tid - 128 * CONSUMERS;
-    if (ptid == 0)
-      for (int u = 0; u < NR && u < tiles; ++u)
-        fill_tile<D, T>(smem_addr(raw0 + u * 2 * P::RAW), raw_full + 8 * u, k + base, v + base,
-                        u * KT, min(KT, n - u * KT));
-    for (int it = 0; it < tiles; ++it) {
-      const int sr = it % NR, si = it % NI;
-      const unsigned char* raw = raw0 + sr * 2 * P::RAW;
-      unsigned char* kimg = img0 + si * 2 * P::KV_IMG;
-      mbar_wait(raw_full + 8 * sr, (it / NR) & 1);
-      if (it >= NI) mbar_wait(img_empty + 8 * si, ((it / NI) + 1) & 1);
-      build_images<D, T>(raw, kimg, kimg + P::KV_IMG, min(KT, n - it * KT), ptid);
-      fence_async();
-      mbar_arrive(img_full + 8 * si);
-      if (it + NR < tiles) {   // every producer thread is done with the raw stage: refill it
-        wg_sync(1);
-        if (ptid == 0) {
-          fence_async();
-          const int u = it + NR;
-          fill_tile<D, T>(smem_addr(raw), raw_full + 8 * sr, k + base, v + base, u * KT,
-                          min(KT, n - u * KT));
-        }
-      }
-    }
+    produce<P, D, T>(raw0, raw_full, img0, img_full, img_empty, k + base, v + base, n, ptid,
+                     [&](const unsigned char* rk, const unsigned char* rv, unsigned char* stage,
+                         int valid, int) { build_images<D, T>(rk, rv, stage, valid, ptid); });
     return;
   }
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
   const int ctid = tid & 127, warp = ctid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  q_image<D, T>(qimg, q + base, q0, n, wg, ctid);
+  a_image<ROWS, D, T>(qimg, q + base, q0, n, wg, ctid);
   fence_async();
   wg_sync(2 + wg);
   const uint32_t qa = smem_addr(qimg) + wg * 2048;   // the warpgroup's 64 rows: 8 row groups
@@ -1091,8 +952,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int it = 0; it < tiles; ++it) {
     wait_full(it);
-    float s[KT / 2], alpha[2], pv[D / 2];
-    qk_product<D, T>(s, qa, smem_addr(stage(it)));
+    float s[KT / 2], alpha[2], pv[D / 2] = {};   // pv zeroed: as ss_product's partials
+    ss_product<KT, ROWS, D, T>(s, qa, smem_addr(stage(it)));
     softmax_tile<KT>(s, m, l, alpha, it * KT, n, t, scale2);
     pv_product<D, T>(pv, s, smem_addr(stage(it) + P::KV_IMG));
     finish(it, alpha, pv);
@@ -1117,246 +978,298 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
-// backward, pass 1: dQ = scale * sum_j dS_ij K_j,
-//   P = exp(S - lse), dS = P * (dO V^T - delta).
-// Block: 64 query rows; K and V streamed (through the stage where it fits)
-// and split.  Warp (wm, wn) = (w % 4, w / 4) computes S, dP and dS of rows
-// 16wm .. 16wm + 15 and keys 32wn .. 32wn + 31, and dQ of the same rows and
-// columns (D / 2) wn .. (D / 2) wn + D / 2 - 1.
+// backward: the two passes on wgmma (the plans and the roles: the note at
+// the top)
+// ---------------------------------------------------------------------------
+namespace bwd {
+
+using namespace tc;
+
+// The plan of one instantiation of a pass (DKV: dk/dv, else dq): C consumer
+// warpgroups of 64 rows (query rows in dq, keys in dk/dv), ST rows of the
+// streamed axis a tile (keys in dq, queries in dk/dv), NI image stages, NR
+// raw stages (as many as fit, up to MAX_NR; 0: the producer reads the rows
+// from global memory).  Resident: the two A images (Q, dO; K, V).  A stage:
+// the streamed images (dq: K, V, K^T; dk/dv: Q, dO, Q^T, dO^T) and for
+// dk/dv the tile's lse log2 e and delta.  Mirrored by
+// ops/flash_attention.py::backward_plan.
+template <int D, typename T, bool DKV>
+struct Plan {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int HALVES = F32 ? 2 : 1;
+  static constexpr int C = F32 ? 1 : 2;
+  static constexpr int ST = F32 ? 2048 / D : (DKV && D == 128 ? 32 : 64);
+  static constexpr int NI = F32 && D == 128 && DKV ? 1 : 2;
+  static constexpr int ROWS = 64 * C;
+  static constexpr int THREADS = 128 * (C + 1);
+  static constexpr int RES_IMG = ROWS * D * (int)sizeof(T) * HALVES;   // one resident image
+  static constexpr int ST_IMG = ST * D * (int)sizeof(T) * HALVES;      // one streamed image
+  static constexpr int VEC = DKV ? 2 * ST * 4 : 0;                      // lse log2 e, delta
+  static constexpr int STAGE = (DKV ? 4 : 3) * ST_IMG + VEC;
+  static constexpr int RAW = ST * D * (int)sizeof(T);                   // one raw tile
+  static constexpr int FIXED = ALIGN + 2 * RES_IMG + NI * STAGE + 8 * (MAX_NR + 2 * NI);
+  static constexpr int FIT = (SMEM_LIMIT - FIXED) / (2 * RAW);
+  static constexpr int NR = FIT < MAX_NR ? FIT : MAX_NR;
+  static constexpr int SMEM = FIXED + NR * 2 * RAW;
+  static_assert(NR >= 0 && SMEM <= SMEM_LIMIT, "the plan exceeds a block's shared memory");
+  static_assert(ST % 16 == 0 && D % 16 == 0, "whole k16 steps");
+};
+
+// dq's images of a key tile: K and V as they are, K transposed
+template <class P, int D, typename T>
+__device__ __forceinline__ void dq_images(const unsigned char* rk, const unsigned char* rv,
+                                          unsigned char* stage, int valid, int ptid) {
+  kmajor_image<P::ST, D, T>(rk, stage, valid, ptid);
+  kmajor_image<P::ST, D, T>(rv, stage + P::ST_IMG, valid, ptid);
+  transposed_image<P::ST, D, T>(rk, stage + 2 * P::ST_IMG, valid, ptid);
+}
+
+// dk/dv's images of a query tile: Q and dO as they are, Q and dO
+// transposed
+template <class P, int D, typename T>
+__device__ __forceinline__ void dkv_images(const unsigned char* rq, const unsigned char* ro,
+                                           unsigned char* stage, int valid, int ptid) {
+  kmajor_image<P::ST, D, T>(rq, stage, valid, ptid);
+  kmajor_image<P::ST, D, T>(ro, stage + P::ST_IMG, valid, ptid);
+  transposed_image<P::ST, D, T>(rq, stage + 2 * P::ST_IMG, valid, ptid);
+  transposed_image<P::ST, D, T>(ro, stage + 3 * P::ST_IMG, valid, ptid);
+}
+
+// d += the register operand x (64 rows x ST columns, accumulator layout:
+// P or dS, or their transposes) times the transposed image at b (D rows,
+// ST along K): float32, TF32 halves into a zeroed partial carried by a
+// float32 add, 64 output columns at a time; bf16, rounded to bf16, straight
+// into d.
+template <int D, int ST, typename T>
+__device__ __forceinline__ void rs_accumulate(float (&d)[D / 2], const float (&x)[ST / 2],
+                                              uint32_t b) {
+  if constexpr (sizeof(T) == 4) {
+    constexpr int NH = D < 64 ? D : 64;
+    uint32_t big[ST / 8][4], sm[ST / 8][4];
+    tf32_frags<ST>(x, big, sm);
+#pragma unroll
+    for (int h = 0; h < D / NH; ++h) {
+      float part[NH / 2] = {};   // zeroed: as ss_product's partials
+#pragma unroll
+      for (int i = 0; i < NH / 2; ++i) fence_reg(part[i]);
+      wgmma_fence();
+      rs_tf32<NH, ST, D>(part, big, sm, b + h * (NH / 8) * 256, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < NH / 2; ++i) {
+        fence_reg(part[i]);
+        d[h * (NH / 2) + i] += part[i];
+      }
+    }
+    fence_frags(big);
+    fence_frags(sm);
+  } else {
+    uint32_t a[ST / 16][4];
+    bf16_frags<ST>(x, a);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) fence_reg(d[i]);
+    wgmma_fence();
+    rs_bf16<D, ST, D>(d, a, b, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_frags(a);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) fence_reg(d[i]);
+  }
+}
+
+}  // namespace bwd
+
+// ---------------------------------------------------------------------------
+// backward, pass 1: dQ = scale * sum_j dS_ij K_j, P = exp(S - lse),
+// dS = P * (dO V^T - delta).  Block: ROWS query rows of one head;
+// warpgroups 0 .. C - 1 consume (64 rows each), warpgroup C produces.
 // ---------------------------------------------------------------------------
 template <int D, typename T>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(bwd::Plan<D, T, false>::THREADS, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int n, float scale) {
-  constexpr bool EXACT = sizeof(T) == 2;   // bfloat16 operands are exact in TF32
-  constexpr bool STAGED = dq_staged<D, T>();
-  constexpr int NS = KEYS_HALF / 8, ND = D / 16;
+  using namespace bwd;
+  using P = Plan<D, T, false>;
+  constexpr int ST = P::ST, NR = P::NR, NI = P::NI, C = P::C;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qimg = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~(uintptr_t)(ALIGN - 1));
+  unsigned char* oimg = qimg + P::RES_IMG;
+  unsigned char* img0 = oimg + P::RES_IMG;      // NI stages: K, V, K^T images
+  unsigned char* raw0 = img0 + NI * P::STAGE;   // NR stages: raw K, raw V
+  const uint32_t raw_full = smem_addr(raw0 + NR * 2 * P::RAW);
+  const uint32_t img_full = raw_full + 8 * NR, img_empty = img_full + 8 * NI;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int q0 = blockIdx.x * P::ROWS;
+  const size_t base = (size_t)blockIdx.y * n * D, rbase = (size_t)blockIdx.y * n;
+  init_barriers<P>(raw_full);
+
+  if (wg == C) {   // the producer
+    if constexpr (C > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    const int ptid = tid - 128 * C;
+    produce<P, D, T>(raw0, raw_full, img0, img_full, img_empty, k + base, v + base, n, ptid,
+                     [&](const unsigned char* rk, const unsigned char* rv, unsigned char* stage,
+                         int valid, int) { dq_images<P, D, T>(rk, rv, stage, valid, ptid); });
+    return;
+  }
+
+  if constexpr (C > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  const int ctid = tid & 127, warp = ctid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  a_image<P::ROWS, D, T>(qimg, q + base, q0, n, wg, ctid);
+  a_image<P::ROWS, D, T>(oimg, dout + base, q0, n, wg, ctid);
+  fence_async();
+  wg_sync(2 + wg);
+  const uint32_t qa = smem_addr(qimg) + wg * 2048, oa = smem_addr(oimg) + wg * 2048;
   const float scale2 = scale * LOG2E;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sO = sQ + TILE * D;           // dO tile
-  float* sKb = sO + TILE * D;          // K and V, big and small halves
-  float* sKs = sKb + TILE * D;
-  float* sVb = sKs + TILE * D;
-  float* sVs = sVb + TILE * D;
-  float* sS = sVs + TILE * D;          // dS tile
-  float* sRaw = sS + TILE * TILE;      // stage: raw K, V of the next tile
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int r0 = 16 * (warp & 3), n0 = KEYS_HALF * (warp >> 2), c0 = (D / 2) * (warp >> 2);
-  const int q0 = blockIdx.x * TILE;
-  const size_t base = (size_t)blockIdx.y * n * D;
-  const size_t rbase = (size_t)blockIdx.y * n;
 
-  load_resident<D, T>(sQ, q + base, q0, n);
-  load_resident<D, T>(sO, dout + base, q0, n);
-  if constexpr (STAGED) {
-    stage_rows<D, T>(sRaw, k + base, 0, n);
-    stage_rows<D, T>(sRaw + RAW<D, T>, v + base, 0, n);
-  }
-  cp_async_commit();
-
-  float lr[2], dr[2], acc[ND][4];
+  // rows 16 warp + g + 8h of the warpgroup's: lse log2 e and delta, and dQ
+  // in accumulator layout (acc[4j + 2h + e] is column 8j + 2t + e)
+  float lse2[2], dlt[2], acc[D / 2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = q0 + r0 + g + 8 * h;
-    lr[h] = r < n ? lse[rbase + r] * LOG2E : 0.f;   // P = 2^(S scale log2 e - lse log2 e)
-    dr[h] = r < n ? delta[rbase + r] : 0.f;
+    const int r = q0 + 64 * wg + 16 * warp + g + 8 * h;
+    lse2[h] = r < n ? lse[rbase + r] * LOG2E : 0.f;
+    dlt[h] = r < n ? delta[rbase + r] : 0.f;
   }
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-  const int tiles = (n + TILE - 1) / TILE;
+  const int tiles = (n + ST - 1) / ST;
   for (int it = 0; it < tiles; ++it) {
-    const int k0 = it * TILE;
-    if constexpr (STAGED) {
-      cp_async_wait_all();
-      __syncthreads();   // every warp is done with tile it - 1; the resident tiles are in
-      put_staged<D, T>(sRaw, sKb, sKs);
-      put_staged<D, T>(sRaw + RAW<D, T>, sVb, sVs);
-      __syncthreads();
-      if (it + 1 < tiles) {   // tile it + 1 streams in while tile it computes
-        stage_rows<D, T>(sRaw, k + base, k0 + TILE, n);
-        stage_rows<D, T>(sRaw + RAW<D, T>, v + base, k0 + TILE, n);
-        cp_async_commit();
-      }
-    } else {
-      float4 xk[CHUNKS<D, T>], xv[CHUNKS<D, T>];
-      fetch_rows<D, T>(xk, k + base, k0, n);
-      fetch_rows<D, T>(xv, v + base, k0, n);
-      __syncthreads();   // every warp is done with tile it - 1
-      put_rows<D, T>(xk, sKb, sKs);
-      put_rows<D, T>(xv, sVb, sVs);
-      cp_async_wait_all();
-      __syncthreads();
+    const int si = it % NI, k0 = it * ST;
+    mbar_wait(img_full + 8 * si, (it / NI) & 1);
+    const uint32_t stage = smem_addr(img0 + si * P::STAGE);
+    float s[ST / 2], dp[ST / 2];
+    ss_product<ST, P::ROWS, D, T>(s, qa, stage);                 // S = Q K^T
+    ss_product<ST, P::ROWS, D, T>(dp, oa, stage + P::ST_IMG);    // dP = dO V^T
+    if (k0 + ST > n) {   // keys past n: P = 0
+#pragma unroll
+      for (int i = 0; i < ST / 2; ++i)
+        if (k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= n) s[i] = -INFINITY;
     }
-    float s[NS][4], dp[NS][4];
-    strip_abt<D, EXACT, NS>(s, sQ, sKb, sKs, r0, n0);
-    strip_abt<D, EXACT, NS>(dp, sO, sVb, sVs, r0, n0);
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool ok = q0 + r0 + g + 8 * h < n && k0 + n0 + 8 * j + 2 * t + e < n;
-          const float p = ok ? exp2f(s[j][2 * h + e] * scale2 - lr[h]) : 0.f;
-          ds[e] = p * (dp[j][2 * h + e] - dr[h]);
-        }
-        store_pair(sS, r0 + g + 8 * h, n0 + 8 * j + 2 * t, ds[0], ds[1]);
-      }
-    __syncthreads();   // both halves of every dS row are in
-    strip_pm<D, EXACT, ND>(acc, sS, sKb, sKs, r0, c0);
+    for (int i = 0; i < ST / 2; ++i) {   // dS = P (dP - delta), in dp
+      const int h = (i >> 1) & 1;
+      dp[i] = ex2(fmaf(s[i], scale2, -lse2[h])) * (dp[i] - dlt[h]);
+    }
+    rs_accumulate<D, ST, T>(acc, dp, stage + 2 * P::ST_IMG);    // dQ += dS K
+    __syncwarp();
+    if (lane == 0) mbar_arrive(img_empty + 8 * si);   // this warp is done with the stage
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = q0 + r0 + g + 8 * h;
+    const int r = q0 + 64 * wg + 16 * warp + g + 8 * h;
     if (r >= n) continue;
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      store2<T>(dq + base + (size_t)r * D + c0 + 8 * nd + 2 * t, acc[nd][2 * h] * scale,
-                acc[nd][2 * h + 1] * scale);
+    for (int j = 0; j < D / 8; ++j)
+      store2<T>(dq + base + (size_t)r * D + 8 * j + 2 * t, acc[4 * j + 2 * h] * scale,
+                acc[4 * j + 2 * h + 1] * scale);
   }
 }
 
 // ---------------------------------------------------------------------------
 // backward, pass 2: dV_j = sum_i P_ij dO_i, dK_j = scale * sum_i dS_ij Q_i.
-// Block: 64 keys; Q and dO streamed (through the stage where it fits) and
-// split, lse and delta streamed.  The products are transposed (rows are
-// keys, columns queries); warp (wm, wn) computes P^T, dP^T and dS^T of keys
-// 16wm .. 16wm + 15 and queries 32wn .. 32wn + 31, and dK, dV of the same
-// keys and columns (D / 2) wn .. (D / 2) wn + D / 2 - 1.
+// Block: ROWS keys of one head; the products transposed (rows are keys,
+// columns queries); warpgroups 0 .. C - 1 consume, warpgroup C produces.
 // ---------------------------------------------------------------------------
 template <int D, typename T>
-__global__ void __launch_bounds__(THREADS, blocks_for(dkv_smem<D, T>()))
+__global__ void __launch_bounds__(bwd::Plan<D, T, true>::THREADS, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      int n, float scale) {
-  constexpr bool EXACT = sizeof(T) == 2;
-  constexpr bool STAGED = dkv_staged<D, T>();
-  constexpr int NS = KEYS_HALF / 8, ND = D / 16;
-  const float scale2 = scale * LOG2E;
-  extern __shared__ __align__(16) float smem[];
-  float* sK = smem;
-  float* sV = sK + TILE * D;
-  float* sQb = sV + TILE * D;          // Q and dO, big and small halves
-  float* sQs = sQb + TILE * D;
-  float* sOb = sQs + TILE * D;
-  float* sOs = sOb + TILE * D;
-  float* sP = sOs + TILE * D;          // P^T, then dS^T
-  float* sL = sP + TILE * TILE;        // lse and delta of the query tile
-  float* sD = sL + TILE;
-  float* sRaw = sD + TILE;             // stage: raw Q, dO, lse, delta of the next tile
-  float* sRawL = sRaw + 2 * RAW<D, T>;
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int r0 = 16 * (warp & 3), n0 = KEYS_HALF * (warp >> 2), c0 = (D / 2) * (warp >> 2);
-  const int k0 = blockIdx.x * TILE;
-  const size_t base = (size_t)blockIdx.y * n * D;
-  const size_t rbase = (size_t)blockIdx.y * n;
-  // lse (threads 0 .. 63) and delta (64 .. 127) of a query tile
-  const int vi = threadIdx.x % TILE;
-  const float* vsrc = (threadIdx.x < TILE ? lse : delta) + rbase;
+  using namespace bwd;
+  using P = Plan<D, T, true>;
+  constexpr int ST = P::ST, NR = P::NR, NI = P::NI, C = P::C;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* kimg = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + ALIGN - 1) & ~(uintptr_t)(ALIGN - 1));
+  unsigned char* vimg = kimg + P::RES_IMG;
+  unsigned char* img0 = vimg + P::RES_IMG;      // NI stages: Q, dO, Q^T, dO^T, lse, delta
+  unsigned char* raw0 = img0 + NI * P::STAGE;   // NR stages: raw Q, raw dO
+  const uint32_t raw_full = smem_addr(raw0 + NR * 2 * P::RAW);
+  const uint32_t img_full = raw_full + 8 * NR, img_empty = img_full + 8 * NI;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int k0 = blockIdx.x * P::ROWS;
+  const size_t base = (size_t)blockIdx.y * n * D, rbase = (size_t)blockIdx.y * n;
+  init_barriers<P>(raw_full);
 
-  load_resident<D, T>(sK, k + base, k0, n);
-  load_resident<D, T>(sV, v + base, k0, n);
-  if constexpr (STAGED) {
-    stage_rows<D, T>(sRaw, q + base, 0, n);
-    stage_rows<D, T>(sRaw + RAW<D, T>, dout + base, 0, n);
-    if (threadIdx.x < 2 * TILE) cp_async4(sRawL + threadIdx.x, vsrc + (vi < n ? vi : 0), vi < n);
+  if (wg == C) {   // the producer
+    if constexpr (C > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    const int ptid = tid - 128 * C;
+    produce<P, D, T>(
+        raw0, raw_full, img0, img_full, img_empty, q + base, dout + base, n, ptid,
+        [&](const unsigned char* rq, const unsigned char* ro, unsigned char* stage, int valid,
+            int row0) {
+          dkv_images<P, D, T>(rq, ro, stage, valid, ptid);
+          if (ptid < ST) {
+            float* vec = reinterpret_cast<float*>(stage + 4 * P::ST_IMG);
+            const bool ok = ptid < valid;
+            vec[ptid] = ok ? lse[rbase + row0 + ptid] * LOG2E : INFINITY;
+            vec[ST + ptid] = ok ? delta[rbase + row0 + ptid] : 0.f;
+          }
+        });
+    return;
   }
-  cp_async_commit();
 
-  float acc_k[ND][4], acc_v[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[nd][e] = acc_v[nd][e] = 0.f;
+  if constexpr (C > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  const int ctid = tid & 127, warp = ctid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  a_image<P::ROWS, D, T>(kimg, k + base, k0, n, wg, ctid);
+  a_image<P::ROWS, D, T>(vimg, v + base, k0, n, wg, ctid);
+  fence_async();
+  wg_sync(2 + wg);
+  const uint32_t ka = smem_addr(kimg) + wg * 2048, va = smem_addr(vimg) + wg * 2048;
+  const float scale2 = scale * LOG2E;
 
-  const int tiles = (n + TILE - 1) / TILE;
+  // keys 16 warp + g + 8h of the warpgroup's: dK and dV in accumulator
+  // layout (acc[4j + 2h + e] is column 8j + 2t + e)
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  const int tiles = (n + ST - 1) / ST;
   for (int it = 0; it < tiles; ++it) {
-    const int q0 = it * TILE;
-    if constexpr (STAGED) {
-      cp_async_wait_all();
-      __syncthreads();   // every warp is done with tile it - 1; the resident tiles are in
-      put_staged<D, T>(sRaw, sQb, sQs);
-      put_staged<D, T>(sRaw + RAW<D, T>, sOb, sOs);
-      if (threadIdx.x < 2 * TILE) sL[threadIdx.x] = sRawL[threadIdx.x];
-      __syncthreads();
-      if (it + 1 < tiles) {   // tile it + 1 streams in while tile it computes
-        const int q1 = q0 + TILE;
-        stage_rows<D, T>(sRaw, q + base, q1, n);
-        stage_rows<D, T>(sRaw + RAW<D, T>, dout + base, q1, n);
-        if (threadIdx.x < 2 * TILE)
-          cp_async4(sRawL + threadIdx.x, vsrc + (q1 + vi < n ? q1 + vi : 0), q1 + vi < n);
-        cp_async_commit();
+    const int si = it % NI;
+    mbar_wait(img_full + 8 * si, (it / NI) & 1);
+    const unsigned char* st = img0 + si * P::STAGE;
+    const uint32_t stage = smem_addr(st);
+    const float* vec = reinterpret_cast<const float*>(st + 4 * P::ST_IMG);
+    // s[4j + 2h + e]: key 16 warp + g + 8h, query 8j + 2t + e of the tile
+    float s[ST / 2], dp[ST / 2];
+    ss_product<ST, P::ROWS, D, T>(s, ka, stage);                 // S^T = K Q^T
+    ss_product<ST, P::ROWS, D, T>(dp, va, stage + P::ST_IMG);    // dP^T = V dO^T
+#pragma unroll
+    for (int j = 0; j < ST / 8; ++j) {   // P^T, and dS^T = P^T (dP^T - delta) in dp
+      const float2 l2 = *reinterpret_cast<const float2*>(vec + 8 * j + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(vec + ST + 8 * j + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h;
+        s[i] = ex2(fmaf(s[i], scale2, -l2.x));
+        s[i + 1] = ex2(fmaf(s[i + 1], scale2, -l2.y));
+        dp[i] = s[i] * (dp[i] - dl.x);
+        dp[i + 1] = s[i + 1] * (dp[i + 1] - dl.y);
       }
-    } else {
-      float4 xq[CHUNKS<D, T>], xo[CHUNKS<D, T>];
-      fetch_rows<D, T>(xq, q + base, q0, n);
-      fetch_rows<D, T>(xo, dout + base, q0, n);
-      const float ld = threadIdx.x < 2 * TILE && q0 + vi < n ? vsrc[q0 + vi] : 0.f;
-      __syncthreads();   // every warp is done with tile it - 1
-      put_rows<D, T>(xq, sQb, sQs);
-      put_rows<D, T>(xo, sOb, sOs);
-      if (threadIdx.x < 2 * TILE) sL[threadIdx.x] = ld;
-      cp_async_wait_all();
-      __syncthreads();
     }
-
-    // P^T: s[j][2h + e] is key r0 + g + 8h, query n0 + 8j + 2t + e
-    float s[NS][4];
-    strip_abt<D, EXACT, NS>(s, sK, sQb, sQs, r0, n0);
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float p[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int qc = n0 + 8 * j + 2 * t + e;   // query rows past N add nothing
-          p[e] = q0 + qc < n ? exp2f(s[j][2 * h + e] * scale2 - sL[qc] * LOG2E) : 0.f;
-        }
-        store_pair(sP, r0 + g + 8 * h, n0 + 8 * j + 2 * t, p[0], p[1]);
-      }
-    __syncthreads();
-    strip_pm<D, EXACT, ND>(acc_v, sP, sOb, sOs, r0, c0);
-
-    // dS^T = P^T * (dP^T - delta), P^T read back from this thread's own slots
-    float dp[NS][4];
-    strip_abt<D, EXACT, NS>(dp, sV, sOb, sOs, r0, n0);
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = r0 + g + 8 * h, col = n0 + 8 * j + 2 * t;
-        const float2 p = *reinterpret_cast<const float2*>(sP + row * TILE + (col ^ swz(row)));
-        dp[j][2 * h] = p.x * (dp[j][2 * h] - sD[col]);
-        dp[j][2 * h + 1] = p.y * (dp[j][2 * h + 1] - sD[col + 1]);
-      }
-    __syncthreads();   // every warp has read P^T as fragments
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        store_pair(sP, r0 + g + 8 * h, n0 + 8 * j + 2 * t, dp[j][2 * h], dp[j][2 * h + 1]);
-    __syncthreads();
-    strip_pm<D, EXACT, ND>(acc_k, sP, sQb, sQs, r0, c0);
+    rs_accumulate<D, ST, T>(acc_v, s, stage + 3 * P::ST_IMG);    // dV += P^T dO
+    rs_accumulate<D, ST, T>(acc_k, dp, stage + 2 * P::ST_IMG);   // dK += dS^T Q
+    __syncwarp();
+    if (lane == 0) mbar_arrive(img_empty + 8 * si);   // this warp is done with the stage
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = k0 + r0 + g + 8 * h;
+    const int r = k0 + 64 * wg + 16 * warp + g + 8 * h;
     if (r >= n) continue;
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      const size_t o = base + (size_t)r * D + c0 + 8 * nd + 2 * t;
-      store2<T>(dk + o, acc_k[nd][2 * h] * scale, acc_k[nd][2 * h + 1] * scale);
-      store2<T>(dv + o, acc_v[nd][2 * h], acc_v[nd][2 * h + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      const size_t o = base + (size_t)r * D + 8 * j + 2 * t;
+      store2<T>(dk + o, acc_k[4 * j + 2 * h] * scale, acc_k[4 * j + 2 * h + 1] * scale);
+      store2<T>(dv + o, acc_v[4 * j + 2 * h], acc_v[4 * j + 2 * h + 1]);
     }
   }
 }
@@ -1364,10 +1277,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // ---------------------------------------------------------------------------
 // launchers: one instantiation per (D, type)
 // ---------------------------------------------------------------------------
-// the backward: one block per (head, 64 rows)
-dim3 grid_for(int bh, int n) { return dim3((unsigned)((n + TILE - 1) / TILE), (unsigned)bh); }
-
-// the tile copies move 16 bytes a thread
+// the operands' rows move as 16-byte chunks and bulk copies
 bool aligned16(const void* a, const void* b, const void* c, const void* d) {
   return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c | (uintptr_t)d) & 15u) == 0;
 }
@@ -1394,20 +1304,41 @@ int plan_fwd(int* plan) {
   using P = fwd::Plan<D, T>;
   plan[0] = P::KT;
   plan[1] = P::NR;
-  plan[2] = fwd::Plan<D, T>::NI;
+  plan[2] = P::NI;
   plan[3] = P::SMEM;
   return 0;
 }
 
+// the backward's plans of one (D, type): dq's, then dk/dv's, each {rows a
+// block, consumer warpgroups, streamed rows a tile, raw stages, image
+// stages, dynamic shared-memory bytes}
+template <class P>
+void plan_of(int* plan) {
+  plan[0] = P::ROWS;
+  plan[1] = P::C;
+  plan[2] = P::ST;
+  plan[3] = P::NR;
+  plan[4] = P::NI;
+  plan[5] = P::SMEM;
+}
+template <int D, typename T>
+int plan_bwd(int* plan) {
+  plan_of<bwd::Plan<D, T, false>>(plan);
+  plan_of<bwd::Plan<D, T, true>>(plan + 6);
+  return 0;
+}
+
+// the backward: one block per (head, ROWS rows)
 template <int D, typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* delta, void* dq, int bh, int n, float scale, cudaStream_t stream) {
   if (!aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
-  const size_t smem = dq_smem<D, T>();
+  using P = bwd::Plan<D, T, false>;
   static unsigned long long done = 0;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, T>, smem, done);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, T>, P::SMEM, done);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<D, T><<<grid_for(bh, n), THREADS, smem, stream>>>(
+  const dim3 grid((unsigned)((n + P::ROWS - 1) / P::ROWS), (unsigned)bh);
+  flash_bwd_dq_kernel<D, T><<<grid, P::THREADS, P::SMEM, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, n, scale);
   return (int)cudaGetLastError();
 }
@@ -1417,11 +1348,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                const float* delta, void* dk, void* dv, int bh, int n, float scale,
                cudaStream_t stream) {
   if (!aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
-  const size_t smem = dkv_smem<D, T>();
+  using P = bwd::Plan<D, T, true>;
   static unsigned long long done = 0;
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, T>, smem, done);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, T>, P::SMEM, done);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<D, T><<<grid_for(bh, n), THREADS, smem, stream>>>(
+  const dim3 grid((unsigned)((n + P::ROWS - 1) / P::ROWS), (unsigned)bh);
+  flash_bwd_dkv_kernel<D, T><<<grid, P::THREADS, P::SMEM, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, n,
       scale);
   return (int)cudaGetLastError();
@@ -1460,6 +1392,14 @@ int flash_forward(const void* q, const void* k, const void* v, void* out, float*
 int flash_forward_plan(int d, int dtype, int* plan) {
   if (!args_ok(1, 1, d, dtype)) return (int)cudaErrorInvalidValue;
   FLASH_DISPATCH(plan_fwd, plan)
+}
+
+// the backward's plans at head width d and dtype: plan[12], dq's six
+// numbers then dk/dv's, each {rows a block, consumer warpgroups, streamed
+// rows a tile, raw stages, image stages, shared-memory bytes}
+int flash_backward_plan(int d, int dtype, int* plan) {
+  if (!args_ok(1, 1, d, dtype)) return (int)cudaErrorInvalidValue;
+  FLASH_DISPATCH(plan_bwd, plan)
 }
 
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

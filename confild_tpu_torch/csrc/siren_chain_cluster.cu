@@ -32,8 +32,8 @@
 // 384) 21.1 ms.  A design of blocks that each hold their pairs' full
 // activation rows (16 pairs at H = 1024, 64 at Case4) is bound instead by
 // its L2 weight stream: every block rereads the forward's and the dx
-// chain's split weights, 6.0 TB a call at the first shape (the mma.sync
-// chain this kernel replaced at H <= 512 ran near that stream's rate).
+// chain's split weights, 6.0 TB a call at the first shape (the warp-level
+// HMMA chain this kernel replaced at H <= 512 ran near that stream's rate).
 //
 // Design.  A cluster of CL blocks owns P = 64 MT pairs (128 up to H = 2048,
 // 64 above) and reads the weight stream once, 0.75 TB at the shape above.

@@ -51,7 +51,7 @@
 //   steps (512 pairs) by a reduction instruction of its owner thread (red,
 //   no read back: a load and a store there took a quarter of the time).  A
 //   workspace element crosses L2 -> SM H / BN times as R and H / 128 times
-//   as D: at H = 384, 2 and 3 (the mma.sync kernel this replaced took 128 x
+//   as D: at H = 384, 2 and 3 (the HMMA kernel this replaced took 128 x
 //   128 tiles, 3 and 3).
 // * siren_bwd_sums_kernel (CUDA cores, float32: these products have C_in,
 //   C_out or one row as their second dimension, almost no flops): dz row
@@ -73,7 +73,7 @@
 // layers of 384, 4 x 262144 pairs a CNF batch step) it computes 4.64 TFLOP
 // of products, three times over for 3xTF32 at the dense TF32 rate of 495
 // TFLOP/s: 28.1 ms; it reads 48.3 GB of workspace, 14.4 ms at 3.35 TB/s.
-// It takes 59.5 ms there (2.1x; the mma.sync kernel 104.9), 112 ms at
+// It takes 59.5 ms there (2.1x; the HMMA kernel 104.9), 112 ms at
 // 3 -> 1024 x 16 -> 5 on 4 x 65536 (tools/siren_bwd_ablation.py, an
 // H100).  What still holds it back, cutting one cost at a time: the step's
 // B image through the threads (a load, a split and two 16-byte stores an

@@ -29,7 +29,7 @@
 // that each hold their pairs' full activation rows (16 pairs at H = 1024,
 // 64 at Case4) is bound instead by its L2 weight stream: every block rereads
 // the whole split stream, 8.25 TB a call at the first shape, 1.16 TB at the
-// second (the mma.sync forward this kernel replaced at H <= 512 ran at that
+// second (the HMMA forward this kernel replaced at H <= 512 ran at that
 // stream's rate, 343 ms at Case4).
 //
 // Design.  A cluster of CL blocks owns P = 64 MT consecutive pairs, p = t M
@@ -86,7 +86,7 @@
 //   * What bounds it (tools/siren_bf16_ablation.py): not the products.  The
 //     weight stream from L2 (read once per cluster of 128 pairs, 64 above
 //     2048: 0.145 TB at Case4's 16 x 262144, 0.26 TB at 16 layers of 1024
-//     over 4 x 262144, where the mma.sync forward this replaced reread it in
+//     over 4 x 262144, where the HMMA forward this replaced reread it in
 //     every block of 16 to 64 pairs, 0.29 and 2.06 TB), the A reads through
 //     distributed shared memory (each block reads all P x H activations a
 //     layer, (CL - 1) / CL of them from other blocks), the sines, the first

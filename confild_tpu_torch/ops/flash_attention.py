@@ -14,12 +14,14 @@ Kernels (``csrc/flash_attention.cu``):
 * ``flash_bwd_dq`` replaces ``_bwd_dq_kernel``: ``dQ``;
 * ``flash_bwd_dkv`` replaces ``_bwd_dkv_kernel``: ``dK`` and ``dV``.
 
-All three kernels run their products on the tensor cores as 3xTF32 (each
+All three kernels run their products on the tensor cores' ``wgmma``, fed
+by a producer warpgroup through bulk async copies into operand images: the
+forward (its plan: :func:`forward_plan`) and the two backward passes (their
+plans: :func:`backward_plan`), with P and dS going to their products as
+register operands.  For float32 inputs every product is 3xTF32 (each
 float32 operand split into two TF32 halves, three products), which keeps
 the float32 result within the same float64 criterion as the plain version
-(``chip_smoke.py`` phase 10): the forward on ``wgmma``, fed by a producer
-warpgroup through bulk async copies (its plan: :func:`forward_plan`), the
-backward on ``mma.sync``.  For bfloat16 inputs the kernels, like the
+(``chip_smoke.py`` phase 10).  For bfloat16 inputs the kernels, like the
 plain versions, round P to bfloat16 before P.V and before dV, and dS before
 dQ and dK, as the JAX kernels do (``:80-81, 180, 210, 214``).
 
@@ -37,7 +39,8 @@ or raises.  ``LAUNCHES`` counts kernel launches.  The forward's wrapper is
 on the U-Net's path at 144 tokens, where its host time is the call's time:
 it checks its operands in one expression (``_check`` names what is wrong),
 passes raw pointers and the raw current stream to ``ctypes``, and enters a
-device context only when ``q`` is not on the current device.
+device context only when ``q`` is not on the current device.  The
+backward's wrapper does the same for its two launches, with one check.
 """
 
 from __future__ import annotations
@@ -176,6 +179,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_forward.restype = i
     lib.flash_forward_plan.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
     lib.flash_forward_plan.restype = i
+    lib.flash_backward_plan.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.flash_backward_plan.restype = i
     lib.flash_bwd_dq.argtypes = [p] * 7 + [i] * 4 + [f, p]
     lib.flash_bwd_dq.restype = i
     lib.flash_bwd_dkv.argtypes = [p] * 8 + [i] * 4 + [f, p]
@@ -223,12 +228,56 @@ def image_offset(r: int, ck: int, rows: int, halves: int) -> int:
 
 def v_image_keys(dtype: torch.dtype, ck: int) -> list[int]:
     """The keys of a tile that 16-byte chunk ``ck`` of a column of V's image
-    holds, in order (``fwd::build_images``): float32, keys 8 (ck / 2) +
+    holds, in order (``tc::transposed_image``): float32, keys 8 (ck / 2) +
     ck % 2 + 2e (P's register fragment takes key 2t of a k8 step as index t
-    and 2t + 1 as t + 4); bf16, keys 8 ck .. 8 ck + 7."""
+    and 2t + 1 as t + 4); bf16, keys 8 ck .. 8 ck + 7.  The backward's
+    transposed images (K^T in dq; Q^T, dO^T in dk/dv) hold their keys or
+    queries in the same order."""
     if dtype == torch.float32:
         return [8 * (ck >> 1) + (ck & 1) + 2 * e for e in range(4)]
     return [8 * ck + e for e in range(8)]
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels' plans (csrc/flash_attention.cu::bwd)
+# ---------------------------------------------------------------------------
+
+BWD_KERNELS = ("dq", "dkv")
+_BWD_PLAN_KEYS = ("rows", "consumers", "tile", "raw_stages", "image_stages", "smem")
+
+
+def backward_plan(d: int, dtype: torch.dtype, kernel: str) -> dict:
+    """A backward kernel's plan at head width ``d`` (``kernel`` "dq" or
+    "dkv"; mirrors ``bwd::Plan``, ``library_backward_plan`` asks the built
+    library): rows a block (query rows in dq, keys in dk/dv) in ``consumers``
+    warpgroups of 64, the streamed axis's rows a ``tile`` (keys in dq,
+    queries in dk/dv), raw and image stages and bytes of dynamic shared
+    memory.  A stage holds the streamed images (dq: K, V, K^T; dk/dv: Q, dO,
+    Q^T, dO^T) and for dk/dv the tile's lse and delta; the two resident A
+    images (Q, dO; K, V) take both TF32 halves in float32, so a float32
+    block is one consumer warpgroup and streams 2048 / d rows a tile."""
+    f32, dkv = dtype == torch.float32, kernel == "dkv"
+    if kernel not in BWD_KERNELS:
+        raise ValueError(f"kernel is one of {BWD_KERNELS}, got {kernel!r}")
+    size, halves = (4, 2) if f32 else (2, 1)
+    consumers = 1 if f32 else 2
+    tile = 2048 // d if f32 else (32 if dkv and d == 128 else 64)
+    ni = 1 if f32 and d == 128 and dkv else 2
+    rows = 64 * consumers
+    stage = (4 if dkv else 3) * tile * d * size * halves + (2 * tile * 4 if dkv else 0)
+    raw = tile * d * size
+    fixed = 128 + 2 * rows * d * size * halves + ni * stage + 8 * (FWD_MAX_RAW_STAGES + 2 * ni)
+    nr = min(FWD_MAX_RAW_STAGES, (FWD_SMEM_LIMIT - fixed) // (2 * raw))
+    return dict(zip(_BWD_PLAN_KEYS, (rows, consumers, tile, nr, ni, fixed + nr * 2 * raw)))
+
+
+def library_backward_plan(d: int, dtype: torch.dtype) -> dict:
+    """The built library's backward plans (``flash_backward_plan``):
+    ``{"dq": plan, "dkv": plan}``."""
+    out = (ctypes.c_int * 12)()
+    _raise_on(_library().flash_backward_plan(d, _DTYPES[dtype], out), "flash_backward_plan")
+    return {kernel: dict(zip(_BWD_PLAN_KEYS, out[6 * i:6 * i + 6]))
+            for i, kernel in enumerate(BWD_KERNELS)}
 
 
 def _check(ref, **tensors) -> tuple[int, int, int, int]:
@@ -309,36 +358,59 @@ def flash_forward(q, k, v):
     return padded_forward(_launch_forward, q, k, v)
 
 
-def bwd_dq(q, k, v, g, lse, delta, scale=None):
-    """``dq`` on CUDA tensors of a kernel head width: launches
-    ``flash_bwd_dq``."""
-    bh, n, d, code = _check(q, q=q, k=k, v=v, g=g, lse=lse, delta=delta)
+def _launch_dq(q, k, v, g, lse, delta, scale, code, index):
+    """``dq`` from checked operands: launches ``flash_bwd_dq``."""
+    bh, n, d = q.shape
     dq = torch.empty_like(q)
-    err = _on_device(q.get_device(), _library().flash_bwd_dq, q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                     dq.data_ptr(), bh, n, d, code, _scale(q, scale))
+    err = _on_device(index, _library().flash_bwd_dq, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, n, d,
+                     code, _scale(q, scale))
     _raise_on(err, "flash_bwd_dq launch")
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
 
 
-def bwd_dkv(q, k, v, g, lse, delta, scale=None):
-    """``(dk, dv)`` on CUDA tensors of a kernel head width: launches
-    ``flash_bwd_dkv``."""
-    bh, n, d, code = _check(q, q=q, k=k, v=v, g=g, lse=lse, delta=delta)
+def _launch_dkv(q, k, v, g, lse, delta, scale, code, index):
+    """``(dk, dv)`` from checked operands: launches ``flash_bwd_dkv``."""
+    bh, n, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _on_device(q.get_device(), _library().flash_bwd_dkv, q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                     dk.data_ptr(), dv.data_ptr(), bh, n, d, code, _scale(q, scale))
+    err = _on_device(index, _library().flash_bwd_dkv, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), bh, n, d, code, _scale(q, scale))
     _raise_on(err, "flash_bwd_dkv launch")
     LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
 
 
+def bwd_dq(q, k, v, g, lse, delta, scale=None):
+    """``dq`` on CUDA tensors of a kernel head width: launches
+    ``flash_bwd_dq``."""
+    code = _check(q, q=q, k=k, v=v, g=g, lse=lse, delta=delta)[3]
+    return _launch_dq(q, k, v, g, lse, delta, scale, code, q.get_device())
+
+
+def bwd_dkv(q, k, v, g, lse, delta, scale=None):
+    """``(dk, dv)`` on CUDA tensors of a kernel head width: launches
+    ``flash_bwd_dkv``."""
+    code = _check(q, q=q, k=k, v=v, g=g, lse=lse, delta=delta)[3]
+    return _launch_dkv(q, k, v, g, lse, delta, scale, code, q.get_device())
+
+
 def _launch_backward(q, k, v, out, lse, g, scale):
-    _check(q, out=out)
-    delta = _delta(out, g).contiguous()
-    return (bwd_dq(q, k, v, g, lse, delta, scale), *bwd_dkv(q, k, v, g, lse, delta, scale))
+    """``(dq, dk, dv)`` on CUDA tensors of a kernel head width: one check of
+    every operand (``_check`` names what is wrong), ``delta`` from torch,
+    then ``flash_bwd_dq`` and ``flash_bwd_dkv``."""
+    shape, dtype, device = q.shape, q.dtype, q.device
+    if not (shape[-1] in _HEAD_DIMS and dtype in _DTYPES
+            and all(t.dtype is dtype and t.shape == shape and t.device == device
+                    and t.is_contiguous() for t in (q, k, v, out, g))
+            and lse.dtype is torch.float32 and lse.shape == shape[:2]
+            and lse.device == device and lse.is_contiguous()):
+        _check(q, q=q, k=k, v=v, out=out, g=g, lse=lse)   # raises, naming what is wrong
+    delta = _delta(out, g)
+    code, index = _DTYPES[dtype], device.index
+    return (_launch_dq(q, k, v, g, lse, delta, scale, code, index),
+            *_launch_dkv(q, k, v, g, lse, delta, scale, code, index))
 
 
 def flash_backward(q, k, v, out, lse, g):

@@ -2,9 +2,10 @@
 function (its plain versions, which the CUDA kernels repeat) against the
 JAX Pallas kernels in interpret mode, at the JAX tests' shapes and
 tolerances (``tests/test_flash_attention.py``), plus the wrappers' operand
-checks, the kernels' 3xTF32 numeric scheme, forward (its ``wgmma`` partials
-and tiles, with the tensor cores' truncating sums) and backward (emulated
-here), against float64, and the forward's plan and V image."""
+checks, the kernels' 3xTF32 numeric scheme, forward and backward (their
+``wgmma`` partials, tiles and register operands' order, with the tensor
+cores' truncating sums), against float64, and the kernels' plans and
+transposed operand images."""
 
 import jax
 import jax.numpy as jnp
@@ -231,21 +232,6 @@ def _mm_tf32(a, b):
     return (torch.from_numpy(_rna_tf32(a)) @ torch.from_numpy(_rna_tf32(b))).numpy()
 
 
-def _backward_with(mm, q, k, v, g, lse, delta):
-    """The kernels' arithmetic head by head, every product through ``mm``:
-    P = 2^(S scale log2 e - lse log2 e), dS = P (dO V^T - delta)."""
-    log2e = np.float32(1.4426950408889634)
-    scale = np.float32(1.0 / np.sqrt(q.shape[-1]))
-    grads = []
-    for b in range(q.shape[0]):
-        s = mm(q[b], np.ascontiguousarray(k[b].T))
-        p = np.exp2(s * (scale * log2e) - lse[b][:, None] * log2e).astype(np.float32)
-        ds = (p * (mm(g[b], np.ascontiguousarray(v[b].T)) - delta[b][:, None])).astype(np.float32)
-        grads.append((mm(ds, k[b]) * scale, mm(np.ascontiguousarray(ds.T), q[b]) * scale,
-                      mm(np.ascontiguousarray(p.T), g[b])))
-    return [np.stack(x) for x in zip(*grads)]
-
-
 def _f64_backward(q, k, v, g):
     q, k, v, g = (x.astype(np.float64) for x in (q, k, v, g))
     s = np.einsum("bqd,bkd->bqk", q, k) / np.sqrt(q.shape[-1])
@@ -256,35 +242,6 @@ def _f64_backward(q, k, v, g):
     scale = 1.0 / np.sqrt(q.shape[-1])
     return (np.einsum("bqk,bkd->bqd", ds, k) * scale, np.einsum("bqk,bqd->bkd", ds, q) * scale,
             np.einsum("bqk,bqd->bkd", p, g))
-
-
-def _scheme_margins(mm, bh, n, d, seed):
-    """error / limit of dq, dk, dv under the kernels' criterion
-    ``|x - f64| <= 2 |plain f32 - f64| + 1e-6 max|f64|``."""
-    q, k, v, g = _inputs(bh, n, d, seed=seed)
-    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
-    out, lse = tfa.flash_forward_plain(tq, tk, tv)
-    plain = [x.numpy() for x in tfa.flash_backward_plain(tq, tk, tv, out, lse, tg)]
-    delta = tfa._delta(out, tg).numpy()
-    got = _backward_with(mm, q, k, v, g, lse.numpy(), delta)
-    truth = _f64_backward(q, k, v, g)
-    return [np.abs(x - t).max() / (2 * np.abs(pl - t).max() + 1e-6 * np.abs(t).max())
-            for x, pl, t in zip(got, plain, truth)]
-
-
-@pytest.mark.parametrize("bh,n,d", [(2, 200, 32), (8, 144, 64)])
-def test_3xtf32_backward_meets_the_f32_criterion(bh, n, d):
-    """3xTF32 products (with float32 sums) keep dq, dk, dv within the
-    criterion the CUDA kernels are held to on the card."""
-    margins = _scheme_margins(_mm_3xtf32, bh, n, d, seed=6)
-    assert max(margins) <= 1.0, margins
-
-
-def test_single_tf32_backward_misses_the_f32_criterion():
-    """One TF32 product per matmul (11 significant bits) is far outside it:
-    the split is needed."""
-    margins = _scheme_margins(_mm_tf32, 8, 144, 64, seed=6)
-    assert min(margins) > 10.0, margins
 
 
 def _tc_add(c, a, b):
@@ -412,6 +369,100 @@ def test_single_tf32_forward_misses_the_f32_criterion():
     assert min(margins) > 10.0, margins
 
 
+def _tiles(x, row0, rows):
+    """Rows ``row0 .. row0 + rows - 1`` of ``x``, zeros past its end, and
+    how many are real."""
+    valid = min(rows, x.shape[0] - row0)
+    out = np.zeros((rows, x.shape[1]), np.float32)
+    out[:valid] = x[row0:row0 + valid]
+    return out, valid
+
+
+def _register_order(st):
+    """The order in which a register A operand of ``st`` columns meets the
+    rows of its transposed B image: ``PV_KEY_ORDER`` within each k8 step."""
+    return (np.arange(0, st, 8)[:, None] + PV_KEY_ORDER).ravel()
+
+
+def _backward_with(split, q, k, v, g, lse, delta):
+    """The backward kernels' loops head by head (csrc/flash_attention.cu):
+    tiles of ``backward_plan``'s streamed rows; S = Q K^T and dP = dO V^T
+    (dk/dv: S^T = K Q^T, dP^T = V dO^T) on the tensor cores with a partial
+    carried every k16 step; P = 2^(S scale log2 e - lse log2 e), one fma
+    into the exponential (+inf for lse past N in dk/dv: P = 0); dS = P (dP
+    - delta); dQ += dS K, dV += P^T dO, dK += dS^T Q over the tile's rows,
+    taken in ``PV_KEY_ORDER`` within each k8 step, into one partial a tile
+    that a float32 add carries; dQ and dK times scale at the end.  ``split``:
+    3xTF32 products, else one TF32 product a k8 step."""
+    n, d = q.shape[1], q.shape[2]
+    log2e = np.float32(1.4426950408889634)
+    scale = np.float32(1.0 / np.sqrt(d))
+    scale2 = scale * log2e
+    st_q = tfa.backward_plan(d, torch.float32, "dq")["tile"]
+    st_kv = tfa.backward_plan(d, torch.float32, "dkv")["tile"]
+    grads = []
+    for b in range(q.shape[0]):
+        lse2 = lse[b] * log2e
+        dq = np.zeros((n, d), np.float32)
+        for k0 in range(0, n, st_q):
+            kb, valid = _tiles(k[b], k0, st_q)
+            vb, _ = _tiles(v[b], k0, st_q)
+            s = _tc_product(q[b], np.ascontiguousarray(kb.T), 8, 2, split)
+            dp = _tc_product(g[b], np.ascontiguousarray(vb.T), 8, 2, split)
+            s[:, valid:] = -np.inf
+            p = np.exp2(_fma32(s, scale2, -lse2[:, None]))
+            ds = p * (dp - delta[b][:, None])
+            order = _register_order(st_q)
+            dq = dq + _tc_product(ds[:, order], kb[order], 8, st_q // 8, split)
+        dk = np.zeros((n, d), np.float32)
+        dv = np.zeros((n, d), np.float32)
+        for q0 in range(0, n, st_kv):
+            qb, valid = _tiles(q[b], q0, st_kv)
+            gb, _ = _tiles(g[b], q0, st_kv)
+            l2 = np.full(st_kv, np.inf, np.float32)
+            dl = np.zeros(st_kv, np.float32)
+            l2[:valid], dl[:valid] = lse2[q0:q0 + valid], delta[b][q0:q0 + valid]
+            st = _tc_product(k[b], np.ascontiguousarray(qb.T), 8, 2, split)
+            dpt = _tc_product(v[b], np.ascontiguousarray(gb.T), 8, 2, split)
+            pt = np.exp2(_fma32(st, scale2, -l2[None, :]))
+            dst = pt * (dpt - dl[None, :])
+            order = _register_order(st_kv)
+            dv = dv + _tc_product(pt[:, order], gb[order], 8, st_kv // 8, split)
+            dk = dk + _tc_product(dst[:, order], qb[order], 8, st_kv // 8, split)
+        grads.append((dq * scale, dk * scale, dv))
+    return [np.stack(x) for x in zip(*grads)]
+
+
+def _scheme_margins(split, bh, n, d, seed):
+    """error / limit of dq, dk, dv under the kernels' criterion
+    ``|x - f64| <= 2 |plain f32 - f64| + 1e-6 max|f64|``."""
+    q, k, v, g = _inputs(bh, n, d, seed=seed)
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out, lse = tfa.flash_forward_plain(tq, tk, tv)
+    plain = [x.numpy() for x in tfa.flash_backward_plain(tq, tk, tv, out, lse, tg)]
+    delta = tfa._delta(out, tg).numpy()
+    got = _backward_with(split, q, k, v, g, lse.numpy(), delta)
+    truth = _f64_backward(q, k, v, g)
+    return [np.abs(x - t).max() / (2 * np.abs(pl - t).max() + 1e-6 * np.abs(t).max())
+            for x, pl, t in zip(got, plain, truth)]
+
+
+@pytest.mark.parametrize("bh,n,d", [(2, 200, 32), (8, 144, 64), (2, 144, 128)])
+def test_3xtf32_backward_meets_the_f32_criterion(bh, n, d):
+    """3xTF32 products with the backward kernels' partials, tiles and
+    register operands keep dq, dk, dv within the criterion the CUDA kernels
+    are held to on the card (a ragged last tile at N = 200; 64-, 32- and
+    16-row tiles at D = 32, 64 and 128)."""
+    margins = _scheme_margins(True, bh, n, d, seed=6)
+    assert max(margins) <= 1.0, margins
+
+
+def test_single_tf32_backward_misses_the_f32_criterion():
+    """One TF32 product a k8 step is far outside it: the split is needed."""
+    margins = _scheme_margins(False, 8, 144, 64, seed=6)
+    assert min(margins) > 10.0, margins
+
+
 def test_tensor_core_truncation_model():
     """``_tc_add`` cuts toward zero where float32 rounds to nearest, and is
     exact where the sum fits in 24 bits."""
@@ -475,6 +526,122 @@ def test_forward_plan_fits(dtype, d):
             (128, torch.float32): (16, 2, 229568), (32, torch.bfloat16): (64, 4, 57536),
             (64, torch.bfloat16): (64, 4, 114880), (128, torch.bfloat16): (64, 4, 229568)}
     assert (plan["keys"], plan["raw_stages"], plan["smem"]) == want[(d, dtype)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_backward_images_give_back_products(dtype, d):
+    """The backward's transposed images (dq: K^T; dk/dv: Q^T and dO^T), one
+    tile of ``backward_plan``'s rows at ``image_offset`` in ``v_image_keys``'
+    order, read back as the ``wgmma`` of dQ += dS K, dK += dS^T Q and dV +=
+    P^T dO reads its B operand (a descriptor a k-step block, 64 output
+    columns at a time in float32 at D = 128), times the register operand as
+    the kernels form it from their accumulators (float32: column 2t of a k8
+    step as index t, 2t + 1 as t + 4; bf16: in order), give back the
+    products exactly, and each image holds every (row, column) of the tile
+    once."""
+    f32 = dtype == torch.float32
+    size, halves = (4, 2) if f32 else (2, 1)
+    epc = 16 // size                       # elements a chunk; a k-step is two
+    nh = min(d, 64) if f32 else d          # output columns a product
+    rng = np.random.default_rng(d + 7)
+    for kernel in tfa.BWD_KERNELS:
+        st = tfa.backward_plan(d, dtype, kernel)["tile"]
+        for operand in ("K", ) if kernel == "dq" else ("Q", "dO"):
+            x = rng.integers(-8, 8, (64, st)).astype(np.float64)   # dS, dS^T or P^T
+            m = rng.integers(-8, 8, (st, d)).astype(np.float64)    # K, Q or dO tile
+            slots = {}
+            for col in range(d):
+                for ck in range(st // epc):
+                    for e, row in enumerate(tfa.v_image_keys(dtype, ck)):
+                        slot = tfa.image_offset(col, ck, d, halves) // size + e
+                        assert slot not in slots, (kernel, operand)
+                        slots[slot] = (row, col)
+            assert sorted(slots.values()) == [(r, c) for r in range(st) for c in range(d)]
+            image = {slot: m[row, col] for slot, (row, col) in slots.items()}
+            got = np.zeros((64, d))
+            for h in range(d // nh):
+                start = h * (nh // 8) * 256    # the descriptor's start, bytes
+                for c in range(st // (2 * epc)):           # k-steps
+                    block = start + c * d * 32 * halves
+                    for kappa in range(2 * epc):
+                        if f32:            # the fragment's index kappa of k8 step c
+                            row = 8 * c + (2 * kappa if kappa < 4 else 2 * (kappa - 4) + 1)
+                        else:
+                            row = 16 * c + kappa
+                        ck = kappa // epc
+                        b_row = [image[(block + (n >> 3) * 256 + ck * 128 + (n & 7) * 16)
+                                       // size + kappa % epc] for n in range(nh)]
+                        got[:, h * nh:(h + 1) * nh] += np.outer(x[:, row], b_row)
+            np.testing.assert_array_equal(got, x @ m, err_msg=f"{kernel} {operand}")
+
+
+# the backward's plans: (rows, consumer warpgroups, tile, raw stages, image
+# stages, bytes) of dq and dk/dv, as csrc/flash_attention.cu's note states
+BACKWARD_PLANS = {
+    (32, torch.float32): ((64, 1, 64, 4, 2, 196800), (64, 1, 64, 4, 2, 230592)),
+    (64, torch.float32): ((64, 1, 32, 4, 2, 229568), (64, 1, 32, 2, 2, 230080)),
+    (128, torch.float32): ((64, 1, 16, 0, 2, 229568), (64, 1, 16, 2, 1, 229680)),
+    (32, torch.bfloat16): ((128, 2, 64, 4, 2, 73920), (128, 2, 64, 4, 2, 83136)),
+    (64, torch.bfloat16): ((128, 2, 64, 4, 2, 147648), (128, 2, 64, 4, 2, 165056)),
+    (128, torch.bfloat16): ((128, 2, 64, 2, 2, 229568), (128, 2, 32, 4, 2, 197312)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_backward_plan_fits(dtype, d):
+    """Each of the 12 backward instantiations' plans fits a block's shared
+    memory (232,448 bytes) with whole k16 steps a tile and whole 16-byte
+    chunks a producer thread in every image, 64 rows a consumer warpgroup,
+    one or two image stages; the plans the kernels' note states."""
+    size = 4 if dtype == torch.float32 else 2
+    for kernel, want in zip(tfa.BWD_KERNELS, BACKWARD_PLANS[(d, dtype)]):
+        plan = tfa.backward_plan(d, dtype, kernel)
+        assert plan["smem"] <= tfa.FWD_SMEM_LIMIT and plan["tile"] % 16 == 0
+        assert plan["rows"] == 64 * plan["consumers"] and plan["consumers"] in (1, 2)
+        assert 1 <= plan["image_stages"] <= 2 and 0 <= plan["raw_stages"] <= 4
+        assert plan["tile"] * (d * size // 16) % 128 == 0          # the K-major images
+        assert (d * plan["tile"] // (4 if size == 4 else 16)) % 128 == 0   # the transposed
+        assert tuple(plan.values()) == want, (kernel, plan)
+
+
+@pytest.mark.parametrize("case,exc,match", [
+    ("head_width", ValueError, "head width"),
+    ("dtype", TypeError, "float32 or bfloat16"),
+    ("out_dtype", TypeError, "out must be"),
+    ("g_shape", ValueError, "shape"),
+    ("lse_dtype", TypeError, "lse must be"),
+    ("lse_shape", ValueError, "lse has shape"),
+    ("strided", ValueError, "contiguous"),
+    ("device", ValueError, "is on"),
+])
+def test_backward_wrapper_checks(case, exc, match):
+    """The backward's wrapper checks every operand once, before any launch,
+    and refuses what ``_check`` refuses, with its message."""
+    q = torch.zeros(2, 16, 64)
+    ops = {"q": q, "k": q.clone(), "v": q.clone(), "out": q.clone(), "lse": torch.zeros(2, 16),
+           "g": q.clone()}
+    if case == "head_width":
+        ops.update({name: torch.zeros(2, 16, 48) for name in ("q", "k", "v", "out", "g")})
+    elif case == "dtype":
+        ops.update({name: torch.zeros(2, 16, 64, dtype=torch.float64)
+                    for name in ("q", "k", "v", "out", "g")})
+    elif case == "out_dtype":
+        ops["out"] = torch.zeros(2, 16, 64, dtype=torch.bfloat16)
+    elif case == "g_shape":
+        ops["g"] = torch.zeros(2, 17, 64)
+    elif case == "lse_dtype":
+        ops["lse"] = torch.zeros(2, 16, dtype=torch.bfloat16)
+    elif case == "lse_shape":
+        ops["lse"] = torch.zeros(2, 17)
+    elif case == "strided":
+        ops["g"] = torch.zeros(2, 64, 16).transpose(1, 2)
+    else:
+        ops["k"] = torch.zeros(2, 16, 64, device="meta")
+    with pytest.raises(exc, match=match):
+        tfa._launch_backward(ops["q"], ops["k"], ops["v"], ops["out"], ops["lse"], ops["g"],
+                             None)
 
 
 @pytest.mark.parametrize("case,exc,match", [

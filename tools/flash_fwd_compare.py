@@ -1,43 +1,49 @@
 #!/usr/bin/env python3
-"""The flash-attention forward kernel against another build of it, on one H100.
+"""The flash-attention kernels against another build of them, on one H100.
 
-    python3 tools/flash_fwd_compare.py [--parent DIR] [--variants a,b] [--no-checks]
-        [--trap] [--out DIR]
+    python3 tools/flash_fwd_compare.py [--backward] [--parent DIR] [--variants a,b]
+        [--no-checks] [--trap] [--out DIR]
 
 Builds ``confild_tpu_torch/csrc/flash_attention.cu`` as it stands and, with
 ``--parent``, the same file of another checkout (``DIR`` is its root, for
 example a ``git archive`` of the parent commit), each with ``nvcc`` into
 ``--out`` (default a temporary directory), and prints each build's ptxas
 report and ``cuobjdump -sass`` tensor-core instruction counts
-(``HMMA``, ``HGMMA``) of every ``flash_fwd_kernel`` instantiation, and the
-forward's plan.  Then:
+(``HMMA``, ``HGMMA``) of every flash kernel instantiation, and this build's
+plans (the library's beside the wrapper's mirror).  Then:
 
 * unless ``--no-checks``: ``chip_smoke.py`` phase 10's checks of the
   kernels against their plain versions and float64 at every
-  ``FLASH_CHECKS`` shape (forward and backward, bitwise repeats);
-* the forward's time at (64, 144, 64), (16, 9216, 64), (4, 16384, 64) in
-  float32 and bf16 and at phase 18 (d)'s classifier shapes in float32: each
-  build's library called directly on the same tensors (``flash_forward``,
-  its C entry point), in turns (parent and variants, this, this, then
-  variants and parent again), median of 7
-  separately timed runs of back-to-back calls (20 below 1000 tokens), with
-  ``scaled_dot_product_attention``'s on both layouts and the bound beside;
-* the wrapper's host time a call at (64, 144, 64) (``chip_smoke.py``'s
-  ``forward_host_us``), and where ``DIR`` holds the other checkout's
-  ``ops/flash_attention.py``, its wrapper's beside this one's in turns,
-  each launching its own build: host microseconds a call and the event
-  median of 20 back-to-back calls, beside SDPA's.
+  ``FLASH_CHECKS`` shape (forward and backward, bitwise repeats, O(N)
+  memory);
+* the forward (default) or, with ``--backward``, the two backward kernels
+  (dq, dk/dv) at (64, 144, 64), (16, 9216, 64), (4, 16384, 64) in float32
+  and bf16 and at phase 18 (d)'s classifier shapes in float32: each build's
+  library called directly on the same tensors (its C entry points), in
+  turns (parent and variants, this, this, then variants and parent again),
+  median of 7 separately timed runs of back-to-back calls (20 below 1000
+  tokens), with ``scaled_dot_product_attention``'s (its forward, or its
+  backward alone) on both layouts and the bound beside; for the backward
+  below 1000 tokens also each build's device time of the pair a call
+  (torch.profiler), where the events time the host;
+* for the forward, the wrapper's host time a call at (64, 144, 64)
+  (``chip_smoke.py``'s ``forward_host_us``), and where ``DIR`` holds the
+  other checkout's ``ops/flash_attention.py``, its wrapper's beside this
+  one's in turns, each launching its own build: host microseconds a call
+  and the event median of 20 back-to-back calls, beside SDPA's.
 
 ``--variants`` adds ablations of this tree's source, each timed beside it
-(never checked: their results are wrong on purpose): ``noexp`` multiplies
-where the softmax exponentiates, ``noimage`` has the producer write no
-operand images (it still waits and signals), ``nosoftmax`` sends S to P.V
-as it is.
+(never checked: their results are wrong on purpose): for the forward
+``noexp`` multiplies where the softmax exponentiates, ``noimage`` has the
+producer write no operand images (it still waits and signals),
+``nosoftmax`` sends S to P.V as it is; for the backward ``bwd_noimage``
+has both passes' producers write no images (nor lse and delta).
 
 ``--trap`` builds this tree's source with every mbarrier wait bounded: a
 wait that spins past about 2^26 polls ends the kernel with a trap, so a
 wrong barrier phase fails the call instead of hanging the card.  Before
-any launch the tool refuses a build whose forward does not start at 168
+any launch the tool refuses a build whose forward, or a backward
+instantiation with two consumer warpgroups, does not start at 168
 registers a thread (the block's 384 threads' share, which the warpgroups'
 ``setmaxnreg`` moves between them).  Needs a CUDA card and ``nvcc``;
 imports nothing of JAX.
@@ -89,8 +95,11 @@ VARIANTS = {
     "noexp": [(r"s\[i\] = ex2\(fmaf\(s\[i\], scale2, neg\[\(i >> 1\) & 1\]\)\);",
                "s[i] = fmaf(s[i], scale2, neg[(i >> 1) & 1]) * 0.5f;")],
     # the producer's images: it waits and signals, writing nothing
-    "noimage": [(r"build_images<D, T>\(raw, kimg, kimg \+ P::KV_IMG,[^;]*;",
-                 "")],
+    "noimage": [(r"build_images<D, T>\(rk, rv, stage, valid, ptid\);", "")],
+    # the backward's producers: they wait and signal, writing nothing
+    "bwd_noimage": [(r"dq_images<P, D, T>\(rk, rv, stage, valid, ptid\);", ""),
+                    (r"dkv_images<P, D, T>\(rq, ro, stage, valid, ptid\);", ""),
+                    (r"if \(ptid < ST\) \{", "if (ptid < 0) {")],
     # the softmax: S goes to P.V as it is
     "nosoftmax": [(r"softmax_tile<KT>\((\w+), m, l, alpha, it \* KT, n, t, scale2\);",
                    "alpha[0] = alpha[1] = 1.f;")],
@@ -130,8 +139,8 @@ def build(csrc: str, out_dir: str, tag: str, trap: bool = False,
 
 
 def report(tag: str, lib: str, log: str) -> dict:
-    """Registers and spills (ptxas) and HMMA / HGMMA counts of each forward
-    instantiation; returns ``{label: registers}``."""
+    """Registers and spills (ptxas) and HMMA / HGMMA counts of each flash
+    kernel instantiation; returns ``{label: registers}``."""
     regs, kernel, spill = {}, None, ""
     for line in log.splitlines():
         if "Function properties" in line:
@@ -139,15 +148,35 @@ def report(tag: str, lib: str, log: str) -> dict:
         elif "spill stores" in line:
             spill = re.sub(r"\s+", " ", line.strip())
         elif "registers" in line and kernel:
-            if kernel.startswith(cs.FLASH_FWD_KERNEL):
+            if kernel.startswith("flash_"):
                 regs[kernel] = int(re.search(r"Used (\d+) registers", line).group(1))
                 print(f"[{tag}] {kernel}: {regs[kernel]} registers, {spill}", flush=True)
             kernel = None
     counts = cs.hmma_counts([lib])
     for k, v in sorted(counts.items()):
-        if k.startswith(cs.FLASH_FWD_KERNEL):
+        if k.startswith("flash_"):
             print(f"[{tag}] {k}: {cs.tc_label(v)}", flush=True)
     return regs
+
+
+def setmaxnreg_ready(regs: dict, lib) -> None:
+    """Refuses to go on unless all 18 flash instantiations exist and every
+    forward one, and every backward one whose plan in ``lib`` (a build of
+    this tree's source, declared) has two consumer warpgroups, starts at
+    168 registers (its setmaxnreg moves them between the warpgroups)."""
+    want = {}
+    for d, dtype in cs.FLASH_FWD_INSTANCES:
+        want[cs.flash_fwd_label(d, dtype)] = 168
+        out = (ctypes.c_int * 12)()
+        if lib.flash_backward_plan(d, 0 if dtype == torch.float32 else 1, out):
+            raise SystemExit("flash_backward_plan failed")
+        for i, kernel in enumerate(fa.BWD_KERNELS):
+            want[cs.flash_bwd_label(kernel, d, dtype)] = 168 if out[6 * i + 1] == 2 else None
+    wrong = {k: regs.get(k) for k, r in want.items()
+             if k not in regs or (r is not None and regs[k] != r)}
+    if wrong:
+        raise SystemExit(f"refusing to launch: instantiations {wrong} (the forward's and the "
+                         f"two-consumer backward's must start at 168 registers)")
 
 
 def forward_call(lib, q, k, v):
@@ -187,6 +216,71 @@ def compare(libs: dict, device) -> None:
               f"of 7: " + "; ".join(f"{t} {', '.join(x)}" for t, x in got.items())
               + f"; sdpa {s3:.4f}, view {s4:.4f}; bound {b_ms:.4f} ({b_by})", flush=True)
         del q, k, v, q4, k4, v4
+        torch.cuda.empty_cache()
+
+
+def backward_calls(lib, q, k, v, g, lse, delta):
+    """Calls of the library's two backward kernels on ready outputs."""
+    bh, n, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+              delta.data_ptr())
+    tail = (bh, n, d, 0 if q.dtype == torch.float32 else 1, 1.0 / d ** 0.5,
+            fa._stream(q.get_device()))
+
+    def dq_call():
+        err = lib.flash_bwd_dq(*common, dq.data_ptr(), *tail)
+        if err:
+            raise SystemExit(f"flash_bwd_dq failed with CUDA error {err}")
+
+    def dkv_call():
+        err = lib.flash_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), *tail)
+        if err:
+            raise SystemExit(f"flash_bwd_dkv failed with CUDA error {err}")
+    return dq_call, dkv_call
+
+
+def compare_backward(libs: dict, device) -> None:
+    shapes = ([(s, torch.float32) for s in cs.FLASH_TIMES]
+              + [(s, torch.bfloat16) for s in cs.FLASH_TIMES]
+              + [(s, torch.float32) for s in cs.FLASH_CLASSIFIER_SHAPES])
+    others = [t for t in libs if t != "this"]
+    order = others + ["this", "this"] + others[::-1]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for (bh, n, d), dtype in shapes:
+        q, k, v, g = cs.flash_case(device, bh, n, d, dtype, seed=13)
+        out, lse = fa.flash_forward(q, k, v)
+        delta = fa._delta(out, g)
+        calls = 20 if n < 1000 else 1
+        got = {}
+        for tag in order:
+            dq_call, dkv_call = backward_calls(libs[tag], q, k, v, g, lse, delta)
+            a = cs.cuda_median(dq_call, calls)
+            b = cs.cuda_median(dkv_call, calls)
+            text = (f"dq {a[0]:.4f} [{a[1]:.4f}-{a[2]:.4f}], dkv {b[0]:.4f} "
+                    f"[{b[1]:.4f}-{b[2]:.4f}], pair {a[0] + b[0]:.4f}")
+            if calls > 1:
+                kernels = cs.device_profile(f"{tag} backward pair ({bh}, {n}, {d}) "
+                                            f"{str(dtype)[6:]}, {calls} calls",
+                                            lambda: [(dq_call(), dkv_call())
+                                                     for _ in range(calls)], top=2)
+                dev = sum(ms for name, (ms, _) in kernels.items() if "flash_bwd" in name)
+                text += f", pair device {dev / calls:.4f}"
+            got.setdefault(tag, []).append(text)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        leaves4 = [t.detach().reshape(1, bh, n, d).requires_grad_(True) for t in leaves]
+        graph, graph4 = sdpa(*leaves), sdpa(*leaves4)
+        s3 = cs.cuda_median(lambda: torch.autograd.grad(graph, leaves, g, retain_graph=True),
+                            calls)[0]
+        s4 = cs.cuda_median(lambda: torch.autograd.grad(
+            graph4, leaves4, g.reshape(1, bh, n, d), retain_graph=True), calls)[0]
+        b = cs.flash_bounds(bh, n, d, dtype)
+        print(f"[compare-bwd] ({bh}, {n}, {d}) {str(dtype)[6:]} ms a call, median "
+              f"[least-largest] of 7: " + "; ".join(f"{t} {' / '.join(x)}" for t, x in got.items())
+              + f"; sdpa backward {s3:.4f}, view {s4:.4f}; bound dq "
+              f"{b['flash_bwd_dq'][0]:.4f}, dkv {b['flash_bwd_dkv'][0]:.4f}, pair "
+              f"{b['bwd_pair'][0]:.4f} ({b['bwd_pair'][1]})", flush=True)
+        del q, k, v, g, out, lse, delta, leaves, leaves4, graph, graph4
         torch.cuda.empty_cache()
 
 
@@ -233,6 +327,8 @@ def host_compare(wrappers: dict, device, calls: int = 200) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--backward", action="store_true",
+                    help="time the backward kernels (default: the forward)")
     ap.add_argument("--parent", help="root of another checkout to build and compare")
     ap.add_argument("--no-checks", action="store_true", help="skip phase 10's checks")
     ap.add_argument("--trap", action="store_true", help="bound every mbarrier wait")
@@ -248,42 +344,48 @@ def main() -> int:
     out = args.out or tempfile.mkdtemp(prefix="flash_fwd_")
     os.makedirs(out, exist_ok=True)
     path, log = build(str(cuda_build.CSRC_DIR), out, "this", trap=args.trap)
-    regs = report("this", path, log)
-    wrong = {k: r for k, r in regs.items() if r != 168}
-    if len(regs) != len(cs.FLASH_FWD_INSTANCES) or wrong:
-        raise SystemExit(f"refusing to launch: forward instantiations {regs} (each must start "
-                         f"at 168 registers)")
     libs = {"this": fa.declare(ctypes.CDLL(path))}
+    setmaxnreg_ready(report("this", path, log), libs["this"])
+    entry = ("flash_bwd_dq", "flash_bwd_dkv") if args.backward else ("flash_forward",)
+
+    def same_signatures(lib):   # the C entry points timed here: this build's signatures
+        for name in entry:
+            getattr(lib, name).argtypes = getattr(libs["this"], name).argtypes
+            getattr(lib, name).restype = getattr(libs["this"], name).restype
+        return lib
     if args.parent:
         ppath, plog = build(os.path.join(args.parent, "confild_tpu_torch", "csrc"), out,
                             "parent")
         report("parent", ppath, plog)
-        libs["parent"] = ctypes.CDLL(ppath)   # its flash_forward: the same C signature
-        libs["parent"].flash_forward.argtypes = libs["this"].flash_forward.argtypes
-        libs["parent"].flash_forward.restype = libs["this"].flash_forward.restype
+        libs["parent"] = same_signatures(ctypes.CDLL(ppath))
     for name in filter(None, args.variants.split(",")):
-        vpath, vlog = build(str(cuda_build.CSRC_DIR), out, name, patches=VARIANTS[name])
-        report(name, vpath, vlog)
-        libs[name] = ctypes.CDLL(vpath)
-        libs[name].flash_forward.argtypes = libs["this"].flash_forward.argtypes
-        libs[name].flash_forward.restype = libs["this"].flash_forward.restype
+        vpath, vlog = build(str(cuda_build.CSRC_DIR), out, name, trap=args.trap,
+                            patches=VARIANTS[name])
+        libs[name] = fa.declare(ctypes.CDLL(vpath))
+        setmaxnreg_ready(report(name, vpath, vlog), libs[name])
     this = libs["this"]
     fa._library = lambda: this   # the wrappers launch this build
     for d, dtype in cs.FLASH_FWD_INSTANCES:
         print(f"[plan] {cs.flash_fwd_label(d, dtype)}: {fa.library_forward_plan(d, dtype)} "
               f"(wrapper: {fa.forward_plan(d, dtype)})", flush=True)
+        for kernel, plan in fa.library_backward_plan(d, dtype).items():
+            print(f"[plan] {cs.flash_bwd_label(kernel, d, dtype)}: {plan} (wrapper: "
+                  f"{fa.backward_plan(d, dtype, kernel)})", flush=True)
     if not args.no_checks:
         for bh, n, d, dtype in cs.FLASH_CHECKS:
             cs.flash_check(device, bh, n, d, dtype)
         cs.flash_memory(device)
     print(f"[compare] SM clock, max SM clock: {cs.sm_clocks()}", flush=True)
-    compare(libs, device)
-    cs.forward_host_us(device)
-    wrappers = {"this": fa}
-    if args.parent and os.path.exists(os.path.join(args.parent, "confild_tpu_torch", "ops",
-                                                   "flash_attention.py")):
-        wrappers["parent"] = parent_wrapper(args.parent, libs["parent"])
-    host_compare(wrappers, device)
+    if args.backward:
+        compare_backward(libs, device)
+    else:
+        compare(libs, device)
+        cs.forward_host_us(device)
+        wrappers = {"this": fa}
+        if args.parent and os.path.exists(os.path.join(args.parent, "confild_tpu_torch", "ops",
+                                                       "flash_attention.py")):
+            wrappers["parent"] = parent_wrapper(args.parent, libs["parent"])
+        host_compare(wrappers, device)
     print(f"[compare] SM clock, max SM clock: {cs.sm_clocks()}", flush=True)
     return 0
 
