@@ -17,7 +17,10 @@ Phases, each fatal on failure:
    forward and the flash forward no ``HMMA``, each of the reduction's tile
    widths an instantiation, and the flash forward all six (D = 32, 64,
    128 in float32 and bf16), each with its plan (keys a tile, raw and image
-   stages, dynamic shared memory) held to the wrapper's mirror);
+   stages, dynamic shared memory) held to the wrapper's mirror; the three
+   column-group flash kernels for heads above 128 one instantiation a type
+   each, ``HGMMA`` only, their plans at D = 256 and 1024 held to the
+   mirror);
 3. forward decode kernel against its plain version and a float64 run under
    the JAX tests' criterion ``err_kernel <= 2 * err_plain_f32 + 1e-6`` (each
    error printed as a share of its limit), two launches bitwise equal: at
@@ -98,8 +101,11 @@ Phases, each fatal on failure:
     versions and a float64 run at the path's shape (64, 144, 64), a ragged
     (2, 200, 32), the xl recipe's (16, 9216, 64), the auto threshold's
     (4, 16384, 64), bf16 (2, 256, 64) and (64, 144, 64) (P and dS rounded
-    to bf16 as in JAX), and 16-channel heads (8, 144, 16) in f32 and bf16
-    (zero-padded to 32 by the wrapper), under the same criterion (each
+    to bf16 as in JAX), 16-channel heads (8, 144, 16) in f32 and bf16
+    (zero-padded to 32 by the wrapper), and above 128 (the column-group
+    kernels) D = 160 (padded to 256), 256 and 512 at a ragged (2, 300, D),
+    1024 at (2, 200, 1024) and the one-head Case4 middle block (8, 144,
+    512), each in f32 and bf16, under the same criterion (each
     error's share of its limit is printed); two launches bitwise equal;
     forward + backward at (4, 16384, 64) within 64 MB above inputs and
     outputs (O(N) memory); times of the kernels, the plain versions and
@@ -116,9 +122,12 @@ Phases, each fatal on failure:
     SDPA on the same tensors, both layouts, and its bound (products at the
     3xTF32 or the dense bf16 rate, exponentials, bytes): bf16 at the same
     three shapes, float32 at phase 18 (d)'s classifier shapes (16, 1024,
-    64), (32, 256, 64) and (32, 64, 64); and the wrapper's host time a
+    64), (32, 256, 64) and (32, 64, 64); the wrapper's host time a
     call at (64, 144, 64) (``time.perf_counter`` over 200 unsynchronised
-    calls) with its parts, beside SDPA's;
+    calls) with its parts, beside SDPA's; and above 128 the column-group
+    forward and backward pair at (8, 144, 512) and (8, 9216, 256) in f32
+    and bf16 as the forward and the pair above (``[flash-fwd]``,
+    ``[flash-bwd]``), with their recompute factors (``[flash-wide]``);
 11. the full-width Case4 U-Net (384^2, 128 ch, mult 1,1,2,2,4,4, heads of
     64), batch 8: one ``training_losses`` forward and backward with
     ``use_flash_attention`` true and false on the same weights and draws;
@@ -131,6 +140,13 @@ Phases, each fatal on failure:
     resume from ``model000003.pt`` to step 4 that must read back the step
     count and the EMA; ms per step, peak memory, a device profile of one
     step;
+12b. the slice's path above 128: the same CLI and recipe with the JAX
+    ``create_model`` head defaults (``num_heads`` 1, ``num_head_channels``
+    -1: one head of all a block's channels; Case4's one attention block,
+    the middle block's, becomes one head of 512 channels at 144 tokens) and
+    flash on, batch 8, 3 steps and a resume to step 4: every column-group
+    kernel launched at D = 512 (counts zeroed before and read after each
+    run), no narrow one, finite losses, ms per step;
 13. train -> sample: ``cli.sample_conditional.main`` once more with the EMA
     just written and flash attention on (the DPS gradient runs the flash
     forward and backward).
@@ -215,7 +231,8 @@ Phases, each fatal on failure:
     finite losses, the EMA moved;
     (c) ``confild_tpu_torch.examples.demo_turbulence`` end to end, ``--fast``
     (32^2 grid, H = 128) and at the f4 widths cut to 2 trajectories, 2 CNF
-    epochs and 25 diffusion steps, each run after the SIREN forward and
+    epochs, 25 diffusion steps and 100 sampling steps (the script's 500
+    took 99 s of the run), each run after the SIREN forward and
     training-backward kernels are held against their plain versions and
     float64 at its CNF's widths and batch (2 -> 128 x 5 -> 2 over 64 x
     1024; 2 -> 384 x 7 -> 2 over 128 x 4096; criteria of phases 3 and 7):
@@ -302,9 +319,13 @@ Phases, each fatal on failure:
     step's guided mean against float64 (1e-3);
     (f) ``create_sr_model(256, 64, 128, 2)``: one forward and backward at
     batch 4 against float64 (1e-3 on the output, the input's and every
-    parameter's gradient).
+    parameter's gradient), then the same weights with
+    ``use_flash_attention`` (its one head a block: 512 channels at 256 and
+    64 tokens, the column-group kernels) against the dense route (1e-3 on
+    the same).
     Phase 18's flash launches are added to the kernels' counts, and so are
-    the SIREN launches of its FiLM run.
+    the SIREN launches of its FiLM run; the column-group launches of 12b
+    and (f) are the kernels line's ``@D256`` / ``@D512`` rows'.
 19. the SIREN kernels at every width a FiLM recipe may ask for (hidden
     widths up to 1024, the float32 and bf16 forwards up to 3072, up to 16
     coordinates and outputs), on
@@ -458,7 +479,19 @@ FLASH_CHECKS = ((64, 144, 64, torch.float32), (2, 200, 32, torch.float32),
                 (2, 256, 64, torch.bfloat16), (64, 144, 64, torch.bfloat16),
                 (8, 144, 16, torch.float32), (8, 144, 16, torch.bfloat16),
                 (2, 144, 128, torch.float32), (2, 144, 128, torch.bfloat16))
+# heads above 128 (the column-group kernels): D = 160 (padded to 256), 256,
+# 512 and 1024 on a ragged N, and the one-head Case4 middle block at batch 8
+# (8, 144, 512), each in float32 and bf16
+FLASH_WIDE_CHECKS = tuple((bh, n, d, dtype)
+                          for bh, n, d in ((2, 300, 160), (2, 300, 256), (2, 300, 512),
+                                           (2, 200, 1024), (8, 144, 512))
+                          for dtype in (torch.float32, torch.bfloat16))
+FLASH_CHECKS += FLASH_WIDE_CHECKS
 FLASH_TIMES = ((64, 144, 64), (16, 9216, 64), (4, 16384, 64))
+# timed above 128: the one-head Case4 middle block at batch 8 (the slice's
+# path; the kernels line's @D512 rows) and the xl recipe's ds-8 block
+# (9216 tokens) under num_heads 1 at batch 8 (the @D256 rows)
+FLASH_WIDE_TIMES = {"@D512": (8, 144, 512), "@D256": (8, 9216, 256)}
 FLASH_PATH_SHAPE = "64x144x64"
 # phase 18 (d)'s classifier at batch 4: 4 heads at 1024 tokens, 8 at 256
 # and at 64, of 64 channels
@@ -644,11 +677,19 @@ BF16_FWD_KERNEL = "siren_fwd_cluster_bf16_kernel"
 FLASH_FWD_KERNEL = "flash_fwd_kernel"
 FLASH_BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 CLUSTER_KERNELS = ("siren_fwd_cluster_kernel", "siren_chain_cluster_kernel", BF16_FWD_KERNEL)
+# the column-group kernels above 128, one instantiation a type
+FLASH_WIDE_KERNELS = ("flash_fwd_wide_kernel", "flash_bwd_dq_wide_kernel",
+                      "flash_bwd_dkv_wide_kernel")
 WGMMA_KERNELS = (CLUSTER_KERNELS + ("siren_bwd_reduce_kernel", FLASH_FWD_KERNEL)
-                 + FLASH_BWD_KERNELS)
+                 + FLASH_BWD_KERNELS + FLASH_WIDE_KERNELS)
 # the flash kernels' instantiations: every head width in both types
 FLASH_FWD_INSTANCES = tuple((d, dtype) for d in (32, 64, 128)
                             for dtype in (torch.float32, torch.bfloat16))
+
+
+def flash_wide_label(kernel: str, dtype) -> str:
+    """``flash_fwd_wide_kernel<128, f32>``, as ``kernel_label`` names it."""
+    return f"{kernel}<128, {'f32' if dtype == torch.float32 else 'bf16'}>"
 
 
 def flash_bwd_label(kernel: str, d: int, dtype) -> str:
@@ -695,6 +736,9 @@ def phase_build():
     missing += [label for d, dtype in FLASH_FWD_INSTANCES
                 for label in (flash_fwd_label(d, dtype), flash_bwd_label("dq", d, dtype),
                               flash_bwd_label("dkv", d, dtype)) if label not in hmma]
+    missing += [flash_wide_label(k, dtype) for k in FLASH_WIDE_KERNELS
+                for dtype in (torch.float32, torch.bfloat16)
+                if flash_wide_label(k, dtype) not in hmma]
     missing += [p for p in WGMMA_KERNELS if not any(k.split("<")[0] == p for k in hmma)]
     if no_hgmma or mma_sync or missing:
         raise SystemExit(f"kernel instantiations without wgmma (HGMMA): {no_hgmma}; with "
@@ -721,6 +765,19 @@ def phase_build():
             if plan != fa.backward_plan(d, dtype, kernel):
                 raise SystemExit(f"{label}: the library's plan {plan} is not the wrapper's "
                                  f"{fa.backward_plan(d, dtype, kernel)}")
+    # above 128: one plan a pass and type, whatever the width
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (256, 1024):
+            plans = {"fwd": fa.library_forward_plan(d, dtype),
+                     **fa.library_backward_plan(d, dtype)}
+            mirror = {"fwd": fa.forward_plan(d, dtype),
+                      **{k: fa.backward_plan(d, dtype, k) for k in fa.BWD_KERNELS}}
+            for kernel, key in zip(FLASH_WIDE_KERNELS, ("fwd", "dq", "dkv")):
+                label = flash_wide_label(kernel, dtype)
+                log(f"[build] {label} at D = {d}: {plans[key]}; {PTXAS.get(label)}")
+                if plans[key] != mirror[key]:
+                    raise SystemExit(f"{label} at D = {d}: the library's plan {plans[key]} is "
+                                     f"not the wrapper's {mirror[key]}")
 
 
 def case4_decoder(device):
@@ -1980,6 +2037,15 @@ def forward_host_us(device, bh=64, n=144, d=64, calls=200) -> dict:
     return us
 
 
+def wide_factors(d: int) -> tuple[float, float]:
+    """The column-group kernels' products over the least that attention
+    needs, forward and backward pair: d / 128 groups each compute S (and in
+    the backward dP) over the whole head, and their own 128 columns of the
+    rest: forward (d / 128 + 1) / 2, pair (8 d / 128 + 6) / 14."""
+    groups = d // fa.WIDE_GROUP
+    return (groups + 1) / 2, (8 * groups + 6) / 14
+
+
 def phase_flash(device, results) -> None:
     errs = {}
     for bh, n, d, dtype in FLASH_CHECKS:
@@ -2000,6 +2066,18 @@ def phase_flash(device, results) -> None:
                  for (bh, n, d), dtype in [(FLASH_TIMES[0], torch.float32)]
                  + [(s, torch.bfloat16) for s in FLASH_TIMES]
                  + [(s, torch.float32) for s in FLASH_CLASSIFIER_SHAPES]}
+    # above 128 (the column-group kernels) at the slice's shape and the xl
+    # recipe's under num_heads 1, both types: the forward and the backward
+    # pair beside their plain versions, SDPA and their bounds
+    wide_t = {(tag, dtype): (forward_times(device, *shape, dtype),
+                             backward_times(device, *shape, dtype))
+              for tag, shape in FLASH_WIDE_TIMES.items()
+              for dtype in (torch.float32, torch.bfloat16)}
+    for tag, (bh, n, d) in FLASH_WIDE_TIMES.items():
+        log(f"[flash-wide] ({bh}, {n}, {d}): the column-group kernels' products are "
+            f"{wide_factors(d)[0]:.2f}x the least in the forward, {wide_factors(d)[1]:.2f}x in "
+            f"the backward pair ({d // fa.WIDE_GROUP} groups each compute S, and dP, over the "
+            f"head)")
     log(f"[flash-time] SM clock, max SM clock after the timings: {sm_clocks()}")
     log("[flash-fwd] " + json.dumps(dict(fwd_times, host_us=host)))
     log("[flash-bwd] " + json.dumps(bwd_times))
@@ -2024,6 +2102,26 @@ def phase_flash(device, results) -> None:
                              library_ms=lib, library_call=f"scaled_dot_product_attention "
                              f"{step} on {layout}", library_covers=covers,
                              shape=FLASH_PATH_SHAPE)
+    # the rows above 128, float32: errors from the checks at the same width
+    for tag, (bh, n, d) in FLASH_WIDE_TIMES.items():
+        fw, bw = wide_t[(tag, torch.float32)]
+        check = errs[(8, 144, 512, torch.float32) if d == 512 else (2, 300, 256, torch.float32)]
+        fwd_lib = min((fw["sdpa"][0], "forward on (BH, N, D)"),
+                      (fw["sdpa_4d"][0], "forward on (1, BH, N, D)"))
+        bwd_lib = min((bw["sdpa_backward"][0], "backward on (BH, N, D)"),
+                      (bw["sdpa_4d_backward"][0], "backward on (1, BH, N, D)"))
+        for name, err, ms, plain, bnd, (lib, call), covers, factor in (
+                ("flash_forward", max(check["out"], check["lse"]), fw["kernel"][0],
+                 fw["plain"][0], fw["bound"], fwd_lib, "flash_forward", wide_factors(d)[0]),
+                ("flash_bwd_dq", check["dq"], bw["flash_bwd_dq"][0], bw["plain"][0],
+                 bw["bounds"]["flash_bwd_dq"], bwd_lib, pair, wide_factors(d)[1]),
+                ("flash_bwd_dkv", max(check["dk"], check["dv"]), bw["flash_bwd_dkv"][0],
+                 bw["plain"][0], bw["bounds"]["flash_bwd_dkv"], bwd_lib, pair,
+                 wide_factors(d)[1])):
+            results[name + tag] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=lib, library_call=f"scaled_dot_product_attention {call}",
+                library_covers=covers, shape=f"{bh}x{n}x{d}", recompute=factor)
 
 
 CASE4_UNET = {k: CASE4_RECIPE[k] for k in (
@@ -2184,6 +2282,76 @@ def phase_train_diffusion(root, figures) -> tuple[dict, str]:
     del again
     torch.cuda.empty_cache()
     return counts, os.path.join(logs, "ema_0.9999_000004.pt")
+
+
+# the launches of the column-group flash kernels on the paths that run them
+# (phase 12b and phase 18 (f)), by pass and padded width: the kernels line's
+# @D256 / @D512 rows
+WIDE_FLASH_LAUNCHES = {}
+# the one-head recipe: create_model's JAX defaults, one head a block
+ONE_HEAD = dict(num_heads=1, num_head_channels=-1)
+
+
+def _add_wide_launches(counts) -> None:
+    for k, v in counts.items():
+        WIDE_FLASH_LAUNCHES[k] = WIDE_FLASH_LAUNCHES.get(k, 0) + v
+
+
+def phase_one_head(root) -> dict:
+    """Phase 12b, the slice's path above 128: ``cli.train_diffusion`` on
+    ``recipes/diffusion/case4.yml`` with ``create_model``'s JAX head defaults
+    (``num_heads`` 1, ``num_head_channels`` -1: one head of all a block's
+    channels; its attention resolutions 32, 16, 8 are ds 12, 24, 48, no level
+    of the 384^2 U-Net, so its one attention block is the middle block's,
+    one head of 512 channels at 144 tokens) and flash on, batch 8, 3 steps
+    and a resume to step 4; every column-group kernel must launch at D =
+    512, and no narrow one.  Returns the wide launches."""
+    recipe = write_diffusion_case(os.path.join(root, "one_head"), **ONE_HEAD)
+    logs = recipe["log_path"]
+    path = _write_yaml(os.path.join(root, "one_head", "case4.yml"), recipe)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    loop = train_diffusion.main([path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, narrow, steps = dict(fa.LAUNCHES_WIDE), dict(fa.LAUNCHES), loop.step
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plan = loop.model.plan
+    heads = sorted({(s.ch // s.num_heads, s.use_flash) for block in (
+        *plan.input_blocks, plan.middle_block, *plan.output_blocks) for s in block
+        if isinstance(s, tunet.AttnSpec)})
+    with open(os.path.join(logs, "progress.csv")) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    data = [next(loop.data)[0] for _ in range(2)]
+    step_ms = timed_steps(loop, data)
+    log(f"[one-head] Case4 U-Net, num_heads 1, flash on, batch {loop.batch_size}: heads "
+        f"(width, flash) {heads}; {steps} steps, losses {[round(x, 6) for x in losses]}, "
+        f"CLI wall {wall:.1f} s, peak memory {peak:.2f} GiB, ms per step after the CLI's "
+        f"{[round(x, 1) for x in step_ms]}; column-group launches {counts}, narrow {narrow}")
+    missing = [f"{k}@D512" for k in fa.LAUNCHES if counts.get(f"{k}@D512", 0) == 0]
+    if not (steps == 3 and len(losses) == 3 and np.isfinite(losses).all()):
+        raise SystemExit("one-head diffusion training: wrong step count or non-finite losses")
+    if missing or any(narrow.values()):
+        raise SystemExit(f"one-head diffusion training did not launch {missing}, or launched "
+                         f"a narrow flash kernel: {narrow}")
+    del loop
+    torch.cuda.empty_cache()
+    resume = dict(recipe, lr_anneal_steps=4,
+                  resume_checkpoint=os.path.join(logs, "model000003.pt"))
+    fa.reset_launch_counts()
+    again = train_diffusion.main([_write_yaml(path, resume)])
+    torch.cuda.synchronize()
+    log(f"[one-head] resume: resume step {again.resume_step}, final step {again.step}; "
+        f"launches {dict(fa.LAUNCHES_WIDE)}")
+    if not (again.resume_step == 3 and again.step == 4):
+        raise SystemExit("the resumed one-head run did not read back the step")
+    for k, v in fa.LAUNCHES_WIDE.items():
+        counts[k] = counts.get(k, 0) + v
+    del again
+    torch.cuda.empty_cache()
+    _add_wide_launches(counts)
+    return counts
 
 
 def phase_train_to_sample(root, ema_path) -> dict:
@@ -2952,7 +3120,8 @@ def phase_multistep(root, device, figures) -> None:
 DEMO_F4_CUT = ["--flow", "forced_soft", "--n-traj", "2", "--n-snap", "64", "--window", "64",
                "--latent", "256", "--hidden", "384", "--nf-layers", "6", "--nf-cadence",
                "batch", "--unet-channels", "96", "--unet-mult", "1,1,2,2,4", "--diff-batch",
-               "64", "--scale-sigmas", "2.5", "--cnf-epochs", "2", "--diff-steps", "25"]
+               "64", "--scale-sigmas", "2.5", "--cnf-epochs", "2", "--diff-steps", "25",
+               "--sample-steps", "100"]
 
 
 # the demo CNF (its cnf.yml: 2 coordinates and outputs, w0 30) and the batch
@@ -4114,7 +4283,35 @@ def phase_classifier(root, device) -> dict:
         f"{worst[0]:.3e} ({worst[1]}) (tol {GRAD_REL_TOL})")
     if not all(e <= GRAD_REL_TOL for e in (*errs.values(), worst[0])):
         raise SystemExit("SuperResModel disagrees with float64")
-    del sr, res
+    # the same weights with flash on (its one head a block: 512 channels at
+    # 256 and 64 tokens, the column-group kernels) against the dense route;
+    # the model doubles its config's in_channels for the low-resolution input
+    flash_sr = unet_extras.SuperResModel(dataclasses.replace(
+        sr.cfg, use_flash_attention=True, in_channels=sr.cfg.in_channels // 2)).to(device)
+    flash_sr.load_state_dict(sr.state_dict())
+    fa.reset_launch_counts()
+    xi = xs.detach().requires_grad_(True)
+    o = flash_sr(xi, ts, low_res=low)
+    (o * g).sum().backward()
+    torch.cuda.synchronize()
+    sr_counts = dict(fa.LAUNCHES_WIDE)
+    dense = res[torch.float32]
+    flash_res = {"out": o.detach(), "dx": xi.grad,
+                 **{n: p.grad for n, p in flash_sr.named_parameters()}}
+    errs = {"out": rel_l2(flash_res["out"], dense["out"]),
+            "dx": rel_l2(flash_res["dx"], dense["dx"]),
+            "params": rel_l2(torch.cat([flash_res[n].flatten() for n in names]),
+                             torch.cat([dense[n].flatten() for n in names]))}
+    log(f"[super-res] the same with use_flash_attention, against the dense route: rel L2 of "
+        f"the output {errs['out']:.3e}, of dx {errs['dx']:.3e}, of all parameter gradients "
+        f"{errs['params']:.3e} (tol {GRAD_REL_TOL}); column-group launches {sr_counts}, "
+        f"narrow {dict(fa.LAUNCHES)}")
+    if not (all(e <= GRAD_REL_TOL for e in errs.values())
+            and all(sr_counts.get(f"{k}@D512", 0) > 0 for k in fa.LAUNCHES)):
+        raise SystemExit("the super-resolution model's flash route disagrees with its dense "
+                         "route or did not launch every column-group kernel")
+    _add_wide_launches(sr_counts)
+    del sr, res, flash_sr, flash_res, dense
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -4551,6 +4748,8 @@ def main() -> int:
         figures = {}
         flash_launches, ema_path = phase_train_diffusion(root, figures)
         stamp("phases 11-12 (diffusion training)")
+        phase_one_head(root)
+        stamp("phase 12b (one head a block: the flash kernels above 128)")
         for label, run in (("phase 13 (train -> sample)",
                             lambda: phase_train_to_sample(root, ema_path)),
                            ("phase 14 (generation, evaluation)",
@@ -4619,25 +4818,35 @@ def main() -> int:
     rows += [("flash_forward", "flash_forward", "flash_attention.cu", "flash_attention.py:56"),
              ("flash_bwd_dq", "flash_bwd_dq", "flash_attention.cu", "flash_attention.py:158"),
              ("flash_bwd_dkv", "flash_bwd_dkv", "flash_attention.cu", "flash_attention.py:188")]
+    for tag in FLASH_WIDE_TIMES:
+        rows += [("flash_forward", f"flash_forward{tag}", "flash_attention.cu",
+                  "flash_attention.py:56"),
+                 ("flash_bwd_dq", f"flash_bwd_dq{tag}", "flash_attention.cu",
+                  "flash_attention.py:158"),
+                 ("flash_bwd_dkv", f"flash_bwd_dkv{tag}", "flash_attention.cu",
+                  "flash_attention.py:188")]
     kernels = []
     for kname, key, src, replaces in rows:
         r = results[key]
         kernels.append({
-            "name": key if "@H" in key else kname, "route": "cuda",
+            "name": key if "@H" in key or "@D" in key else kname, "route": "cuda",
             "source": f"confild_tpu_torch/csrc/{src}",
             "replaces": f"confild_tpu/ops/{replaces}",
             # phase 19's main paths (cli.train_cnf, cli.sample_conditional)
             # run its decoder at H = 1024, 3 -> 5, and (g)
             # inference.CNF_inference one at 2048; the demo --fast runs
             # H = 128; no main path runs the other widths listed apart or
-            # C = 16 (the base rows count the other main paths' launches)
+            # C = 16 (the base rows count the other main paths' launches);
+            # the flash rows above 128 take phase 12b's and 18 (f)'s
             "launches": (wide_launches[kname] if key.endswith("@H1024")
                          else wide_launches.get(key, 0) if "@H" in key
+                         else WIDE_FLASH_LAUNCHES.get(key, 0) if "@D" in key
                          else launches[kname]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": r["shape"],
-            **{k: r[k] for k in ("library_call", "library_covers", "reduce") if k in r}})
+            **{k: r[k] for k in ("library_call", "library_covers", "reduce", "recompute")
+               if k in r}})
     log(f"[time] total {time.perf_counter() - start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

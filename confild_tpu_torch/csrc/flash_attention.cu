@@ -3,10 +3,11 @@
 // every product on wgmma.
 //
 // Layouts (row-major, contiguous): q, k, v, dO, out, dq, dk, dv are
-// (BH, N, D); lse and delta are (BH, N) float32.  D is 32, 64 or 128 (the
-// wrapper zero-pads a narrower head to the next of these).  Logits are
-// scaled by the caller's scale (1 / sqrt of the unpadded width); the softmax
-// runs in float32.
+// (BH, N, D); lse and delta are (BH, N) float32.  D is 32, 64 or 128, or a
+// multiple of 128 above that (the wrapper zero-pads any other head to the
+// next of these); above 128 each pass has a kernel of its own (the last
+// section of this note).  Logits are scaled by the caller's scale (1 / sqrt
+// of the unpadded width); the softmax runs in float32.
 //
 // ---------------------------------------------------------------------------
 // flash_forward replaces the Pallas kernel _flash_kernel
@@ -181,6 +182,51 @@
 //     producer is at setmaxnreg 56 and the consumers at 224 with two consumer
 //     warpgroups; with one, no setmaxnreg (up to 255 registers).  One block an
 //     SM.
+//
+// Heads wider than 128 (flash_fwd_wide_kernel, flash_bwd_dq_wide_kernel,
+// flash_bwd_dkv_wide_kernel; namespace wide): the same three functions of
+// the same three TPU kernels, which block on the whole head (a (1, block,
+// D) BlockSpec under a 100 MiB VMEM limit) and so take any width.
+//   * Why not the plans above at D = 256: Q's 128-row image in TF32 halves
+//     alone is 256 KB, over a block's 227 KB, and a warpgroup's float32
+//     output accumulator of 64 rows takes D / 2 registers a thread (256 at
+//     D = 512, against 255).  So the head is split.
+//   * Design: a block owns 64 rows (one consumer warpgroup) and one group
+//     of G = 128 output columns (the wrapper pads D to a multiple of 128; a
+//     grid index runs over (row tile, group), heads on the other axis).
+//     The products that reduce over D (S, and in the backward dP) loop over
+//     the head in chunks of GC columns (64 in float32, 128 in bf16, where a
+//     tile's time follows its count of items): each chunk is one ss_product
+//     into the same sum (its ACC mode), so S over the chunks is S over D,
+//     the same partials carried every k16 step.  The products over the
+//     streamed rows take only the group's columns: O_g += P V_g, dQ_g +=
+//     dS K_g, dV_g += P^T dO_g, dK_g += dS^T Q_g, each bwd::rs_accumulate
+//     on a transposed image of the group (G rows, tc::transposed_image), P
+//     and dS as register A as above.  Every group recomputes S (and dP):
+//     the products are (D / G + 1) / 2 times the least in the forward and
+//     (8 D / G + 6) / 14 in the backward pair, 1.5x and 1.57x at D = 256,
+//     2.5x and 2.71x at 512.  On an H100 (NVIDIA H100 80GB HBM3, 700.00 W,
+//     chip_smoke.py phase 10) at (8, 9216, 256): the forward 22.65 ms in
+//     float32 (bound 4.22) and 6.86 in bf16 (0.70), the pair 96.1 and 26.0
+//     (14.8 and 2.46).  Every group computes the same m, l and lse,
+//     bitwise; group 0 writes lse.  Every output element still has one
+//     owner: no atomics, bitwise repeats.
+//   * The ring: the producer warpgroup writes a sequence of items, each
+//     into one of NI image stages (full and empty mbarriers, as above, no
+//     raw stage: it reads global memory): per streamed tile, the chunks of
+//     S (resident rows A and the tile's rows B, both K-major, the A chunk
+//     written again every tile), the chunks of dP (backward), then the
+//     group images (dk/dv: dO^T with the tile's lse log2 e and delta, then
+//     Q^T).  Each producer thread loads all of an item's 16-byte chunks (or
+//     elements, for a transposed image) before it writes any: one round
+//     trip to memory an item.
+//   * Plans (wide::Plan, one a type and pass, whatever D; the stage the
+//     larger of a chunk item and a group item): float32 forward and dq
+//     64-row tiles, three stages of 64 KB (196784 bytes); dk/dv 32-row
+//     tiles (its two accumulators of the group's columns take 128
+//     registers), four of 48.25 KB (197824); bf16 64-row tiles, four stages
+//     of 32 KB (131264; dk/dv 133312).  One block an SM (up to 255
+//     registers a thread, no setmaxnreg).
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -504,21 +550,24 @@ __device__ __forceinline__ void kmajor_image(const unsigned char* src, unsigned 
 
 // The producer's image of R rows of a (., D) matrix transposed: D rows, K
 // along the R rows (the B operand of a product over those rows with a
-// register A operand: the forward's V; the backward's K^T, Q^T, dO^T).
-// float32: each element split into its TF32 halves, and the rows within
+// register A operand: the forward's V; the backward's K^T, Q^T, dO^T; ld
+// elements from one source row to the next: D, or the head's width where
+// the image is one column group of a wider head; MAXB chunks a thread
+// loaded before any is written).  float32: each element split into its
+// TF32 halves, and the rows within
 // each k8 step taken in the order of the register fragment that the
 // accumulator gives (index t is row 2t, index t + 4 row 2t + 1): chunk
 // (d, ck) holds rows 8 (ck / 2) + ck % 2 + 2e, e < 4.  bf16: chunk (d, ck)
 // holds rows 8 ck .. 8 ck + 7 (the fragment takes them in order).  A phase
 // of eight lanes reads eight consecutive columns and writes one chunk
 // column each.
-template <int R, int D, typename T>
+template <int R, int D, typename T, int MAXB = 4>
 __device__ __forceinline__ void transposed_image(const unsigned char* src, unsigned char* img,
-                                                 int valid, int ptid) {
+                                                 int valid, int ptid, int ld = D) {
   if constexpr (sizeof(T) == 4) {
     const float* rv = reinterpret_cast<const float*>(src);
     constexpr int VU = D * (R / 4) / 128;   // chunks a thread
-    constexpr int B = VU < 4 ? VU : 4;
+    constexpr int B = VU < MAXB ? VU : MAXB;
     static_assert(VU >= 1 && VU % B == 0 && (D * (R / 4)) % 128 == 0, "whole batches a thread");
 #pragma unroll 1
     for (int j0 = 0; j0 < VU; j0 += B) {
@@ -530,7 +579,7 @@ __device__ __forceinline__ void transposed_image(const unsigned char* src, unsig
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int row = row0 + 2 * e;
-          x[j][e] = row < valid ? rv[row * D + d] : 0.f;
+          x[j][e] = row < valid ? rv[row * ld + d] : 0.f;
         }
       }
 #pragma unroll
@@ -557,7 +606,7 @@ __device__ __forceinline__ void transposed_image(const unsigned char* src, unsig
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const int row = 8 * ck + e;
-        w[e] = row < valid ? rv[row * (D / 2) + dp] : 0u;
+        w[e] = row < valid ? rv[row * (ld / 2) + dp] : 0u;
       }
       *reinterpret_cast<uint4*>(img + img_off<D, 1>(2 * dp, ck)) =
           make_uint4(__byte_perm(w[0], w[1], 0x5410), __byte_perm(w[2], w[3], 0x5410),
@@ -590,13 +639,16 @@ __device__ __forceinline__ void a_image(unsigned char* img, const T* src, int ro
 // s = a warpgroup's 64 rows of an A image of AR rows (at a, its first row
 // group) times the N rows of a B image (at b), transposed, over D
 // (accumulator layout: s[4j + e] is row 16 w + g + 8 (e / 2), column 8 j +
-// 2 t + e % 2).  float32: three TF32 products a k8 step into a zeroed
-// partial a k16 step (two partials taking turns, one carried while the next
-// runs); bf16: one k16 product a step into s.
-template <int N, int AR, int D, typename T>
+// 2 t + e % 2); with ACC, s += the same (the wide kernels' chunks of a
+// product over a head wider than 128).  float32: three TF32 products a k8
+// step into a zeroed partial a k16 step (two partials taking turns, one
+// carried while the next runs); bf16: one k16 product a step into s.
+template <int N, int AR, int D, typename T, bool ACC = false>
 __device__ __forceinline__ void ss_product(float (&s)[N / 2], uint32_t a, uint32_t b) {
+  if constexpr (!ACC) {
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) s[i] = 0.f;
+    for (int i = 0; i < N / 2; ++i) s[i] = 0.f;
+  }
   if constexpr (sizeof(T) == 4) {
     constexpr int AB = AR * 32 * 2, BB = N * 32 * 2;   // bytes of a k8 step's images
     // zeroed, though the first product of each ignores them: with undefined
@@ -629,7 +681,7 @@ __device__ __forceinline__ void ss_product(float (&s)[N / 2], uint32_t a, uint32
     wgmma_fence();
 #pragma unroll
     for (int c = 0; c < D / 16; ++c)
-      mma_ss<N, __nv_bfloat16>(s, b_desc(a + c * AR * 32), b_desc(b + c * N * 32), c > 0);
+      mma_ss<N, __nv_bfloat16>(s, b_desc(a + c * AR * 32), b_desc(b + c * N * 32), ACC || c > 0);
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
@@ -1275,7 +1327,411 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 // ---------------------------------------------------------------------------
-// launchers: one instantiation per (D, type)
+// heads wider than 128 (the plans and the roles: the note at the top)
+// ---------------------------------------------------------------------------
+namespace wide {
+
+using namespace tc;
+
+constexpr int G = 128;            // output columns a block; the wrapper pads d to a multiple
+constexpr int BLOCK_ROWS = 64;    // rows a block: one consumer warpgroup
+constexpr int THREADS = 256;      // and the producer warpgroup
+constexpr int MAX_NI = 4;         // image stages, at most
+enum Kind { FWD = 0, DQ = 1, DKV = 2 };
+
+// The plan of one instantiation of a kind: ST rows of the streamed axis a
+// tile (keys in the forward and dq, queries in dk/dv), chunks of GC
+// columns of the head (64 in float32, 128 in bf16: a bf16 tile's time
+// follows its count of items), NI image stages of STAGE bytes, each
+// holding one item: a chunk of GC columns of the
+// resident operand's BLOCK_ROWS rows (A) and of the tile's rows (B), or one
+// column group of the tile's rows transposed (G rows, K along the tile),
+// and for dk/dv the tile's lse log2 e and delta after the images.  No raw
+// stage: the producer reads global memory.  Mirrored by
+// ops/flash_attention.py::forward_plan / backward_plan above 128.
+template <typename T, int KIND>
+struct Plan {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int EB = (int)sizeof(T) * (F32 ? 2 : 1);   // image bytes an element
+  static constexpr int C = 1, NR = 0, ROWS = BLOCK_ROWS;
+  static constexpr int ST = KIND == DKV && F32 ? 32 : 64;
+  static constexpr int GC = F32 ? 64 : 128;
+  static constexpr int A_IMG = ROWS * GC * EB;   // a chunk of the resident rows
+  static constexpr int B_IMG = ST * GC * EB;     // a chunk of the tile's rows
+  static constexpr int T_IMG = G * ST * EB;      // a column group of the tile, transposed
+  static constexpr int IMG = A_IMG + B_IMG > T_IMG ? A_IMG + B_IMG : T_IMG;
+  static constexpr int VEC = KIND == DKV ? 2 * ST * 4 : 0;
+  static constexpr int STAGE = IMG + VEC;
+  static constexpr int FIT = (SMEM_LIMIT - ALIGN - 8 * 2 * MAX_NI) / STAGE;
+  static constexpr int NI = FIT < MAX_NI ? FIT : MAX_NI;
+  static constexpr int SMEM = ALIGN + NI * STAGE + 8 * 2 * NI;
+  static_assert(NI >= 2 && SMEM <= SMEM_LIMIT, "the plan exceeds a block's shared memory");
+  static_assert(ST % 16 == 0 && G % GC == 0, "whole k16 steps and chunks");
+};
+
+// The producer warpgroup: items 0 .. items - 1 in order, item it into image
+// stage it % NI once the consumer has released it (item(it, stage) writes
+// the images), then the stage's full barrier.
+template <class P, class Item>
+__device__ __forceinline__ void produce_items(unsigned char* img0, uint32_t img_full,
+                                              uint32_t img_empty, int items, Item item) {
+#pragma unroll 1
+  for (int it = 0; it < items; ++it) {
+    const int si = it % P::NI;
+    if (it >= P::NI) mbar_wait(img_empty + 8 * si, ((it / P::NI) + 1) & 1);
+    item(it, img0 + si * P::STAGE);
+    fence_async();
+    mbar_arrive(img_full + 8 * si);
+  }
+}
+
+// The consumer warpgroup's side of the ring: the items in the producer's
+// order, each waited for and released once.
+template <class P>
+struct Ring {
+  unsigned char* img0;
+  uint32_t full, empty;
+  int it;
+  __device__ __forceinline__ unsigned char* acquire() {
+    const int si = it % P::NI;
+    mbar_wait(full + 8 * si, (it / P::NI) & 1);
+    return img0 + si * P::STAGE;
+  }
+  __device__ __forceinline__ void release(int lane) {   // this warp is done with the item
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (it % P::NI));
+    ++it;
+  }
+};
+
+// A chunk item: P::GC columns (from column a / b on, d elements a row) of
+// the resident rows (a_valid of them real) and of the tile's (b_valid), as
+// kmajor_image writes them, but every chunk of both loaded before any is
+// written: the producer reads global memory, one round trip an item.
+template <class P, typename T>
+__device__ __forceinline__ void chunk_images(unsigned char* stage, const T* a, int a_valid,
+                                             const T* b, int b_valid, int d, int ptid) {
+  constexpr int CPR = P::GC * (int)sizeof(T) / 16;   // chunks a row
+  constexpr int KA = P::ROWS * CPR / 128, KB = P::ST * CPR / 128;
+  static_assert(KA >= 1 && KB >= 1 && (P::ST * CPR) % 128 == 0, "whole chunks a thread");
+  const unsigned char* ra = reinterpret_cast<const unsigned char*>(a);
+  const unsigned char* rb = reinterpret_cast<const unsigned char*>(b);
+  const int ldb = d * (int)sizeof(T);
+  uint4 xa[KA], xb[KB];
+#pragma unroll
+  for (int j = 0; j < KA; ++j) {
+    const int u = ptid + 128 * j, r = u % P::ROWS, ck = (u / P::ROWS + r) % CPR;
+    xa[j] = r < a_valid ? *reinterpret_cast<const uint4*>(ra + r * ldb + ck * 16)
+                        : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int j = 0; j < KB; ++j) {
+    const int u = ptid + 128 * j, r = u % P::ST, ck = (u / P::ST + r) % CPR;
+    xb[j] = r < b_valid ? *reinterpret_cast<const uint4*>(rb + r * ldb + ck * 16)
+                        : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int j = 0; j < KA; ++j) {
+    const int u = ptid + 128 * j, r = u % P::ROWS, ck = (u / P::ROWS + r) % CPR;
+    put16<P::ROWS, T>(stage, r, ck, xa[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < KB; ++j) {
+    const int u = ptid + 128 * j, r = u % P::ST, ck = (u / P::ST + r) % CPR;
+    put16<P::ST, T>(stage + P::A_IMG, r, ck, xb[j]);
+  }
+}
+
+// A column-group item: the G columns from src on of the tile's valid rows,
+// transposed, as transposed_image writes them, every element loaded first.
+template <class P, typename T>
+__device__ __forceinline__ void group_image(unsigned char* stage, const T* src, int valid, int d,
+                                            int ptid) {
+  transposed_image<P::ST, G, T, 16>(reinterpret_cast<const unsigned char*>(src), stage, valid,
+                                    ptid, d);
+}
+
+// s = the resident rows times the tile's rows, transposed, over the whole
+// head: one chunk item after another, each one ss_product into s.
+template <class P, typename T>
+__device__ __forceinline__ void products_over_head(float (&s)[P::ST / 2], Ring<P>& ring, int nch,
+                                                   int lane) {
+#pragma unroll
+  for (int i = 0; i < P::ST / 2; ++i) s[i] = 0.f;
+#pragma unroll 1
+  for (int c = 0; c < nch; ++c) {
+    const uint32_t st = smem_addr(ring.acquire());
+    ss_product<P::ST, P::ROWS, P::GC, T, true>(s, st, st + P::A_IMG);
+    ring.release(lane);
+  }
+}
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + ALIGN - 1) &
+                                          ~(uintptr_t)(ALIGN - 1));
+}
+
+}  // namespace wide
+
+// Forward above 128: a block is (64 query rows, column group) of one head;
+// each key tile's items are the nch = d / P::GC chunks (Q, K) of S, then V's
+// group transposed.  Every group computes the same m, l and lse; group 0
+// writes lse.
+template <int GW, typename T>
+__global__ void __launch_bounds__(wide::THREADS, 1)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      T* __restrict__ out, float* __restrict__ lse, int n, int d, float scale) {
+  using namespace wide;
+  using P = Plan<T, FWD>;
+  static_assert(GW == G, "one column-group width");
+  constexpr int KT = P::ST;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* img0 = aligned_smem(smem_raw);
+  const uint32_t img_full = smem_addr(img0 + P::NI * P::STAGE), img_empty = img_full + 8 * P::NI;
+  const int tid = threadIdx.x, groups = d / G;
+  const int grp = blockIdx.x % groups, q0 = (blockIdx.x / groups) * P::ROWS;
+  const size_t base = (size_t)blockIdx.y * n * d;
+  const int nch = d / P::GC, per_tile = nch + 1, tiles = (n + KT - 1) / KT;
+  init_barriers<P>(img_full);
+
+  if (tid >= 128) {   // the producer
+    const int ptid = tid - 128, qvalid = min(P::ROWS, n - q0);
+    const T* qrows = q + base + (size_t)q0 * d;
+    produce_items<P>(img0, img_full, img_empty, tiles * per_tile,
+                     [&](int it, unsigned char* stage) {
+                       const int tile = it / per_tile, j = it - tile * per_tile;
+                       const int row0 = tile * KT, valid = min(KT, n - row0);
+                       const size_t rows = base + (size_t)row0 * d;
+                       if (j < nch)
+                         chunk_images<P, T>(stage, qrows + j * P::GC, qvalid, k + rows + j * P::GC,
+                                            valid, d, ptid);
+                       else
+                         group_image<P, T>(stage, v + rows + grp * G, valid, d, ptid);
+                     });
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  Ring<P> ring{img0, img_full, img_empty, 0};
+  const float scale2 = scale * LOG2E;
+  // rows 16 warp + g + 8h: running max (log2 units), this thread's share of
+  // the running sum, the group's output columns in accumulator layout
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[G / 2];
+#pragma unroll
+  for (int i = 0; i < G / 2; ++i) acc[i] = 0.f;
+  for (int tile = 0; tile < tiles; ++tile) {
+    float s[KT / 2], alpha[2];
+    products_over_head<P, T>(s, ring, nch, lane);                 // S = Q K^T
+    fwd::softmax_tile<KT>(s, m, l, alpha, tile * KT, n, t, scale2);
+#pragma unroll
+    for (int i = 0; i < G / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    const uint32_t vb = smem_addr(ring.acquire());
+    bwd::rs_accumulate<G, KT, T>(acc, s, vb);                     // O_g += P V_g
+    ring.release(lane);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + 16 * warp + g + 8 * h;
+    if (r >= n) continue;
+    const float inv = 1.f / l[h];
+    T* row = out + base + (size_t)r * d + grp * G;
+#pragma unroll
+    for (int j = 0; j < G / 8; ++j)
+      store2<T>(row + 8 * j + 2 * t, acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+    if (t == 0 && grp == 0) lse[(size_t)blockIdx.y * n + r] = m[h] * LN2 + logf(l[h]);
+  }
+}
+
+// dq above 128: a block is (64 query rows, column group); each key tile's
+// items are the chunks (Q, K) of S, the chunks (dO, V) of dP, then K's
+// group transposed for dQ_g += dS K_g.
+template <int GW, typename T>
+__global__ void __launch_bounds__(wide::THREADS, 1)
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         T* __restrict__ dq, int n, int d, float scale) {
+  using namespace wide;
+  using P = Plan<T, DQ>;
+  static_assert(GW == G, "one column-group width");
+  constexpr int ST = P::ST;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* img0 = aligned_smem(smem_raw);
+  const uint32_t img_full = smem_addr(img0 + P::NI * P::STAGE), img_empty = img_full + 8 * P::NI;
+  const int tid = threadIdx.x, groups = d / G;
+  const int grp = blockIdx.x % groups, q0 = (blockIdx.x / groups) * P::ROWS;
+  const size_t base = (size_t)blockIdx.y * n * d, rbase = (size_t)blockIdx.y * n;
+  const int nch = d / P::GC, per_tile = 2 * nch + 1, tiles = (n + ST - 1) / ST;
+  init_barriers<P>(img_full);
+
+  if (tid >= 128) {   // the producer
+    const int ptid = tid - 128, qvalid = min(P::ROWS, n - q0);
+    const size_t qrows = base + (size_t)q0 * d;
+    produce_items<P>(img0, img_full, img_empty, tiles * per_tile,
+                     [&](int it, unsigned char* stage) {
+                       const int tile = it / per_tile, j = it - tile * per_tile;
+                       const int row0 = tile * ST, valid = min(ST, n - row0);
+                       const size_t rows = base + (size_t)row0 * d;
+                       if (j < nch)
+                         chunk_images<P, T>(stage, q + qrows + j * P::GC, qvalid, k + rows + j * P::GC,
+                                            valid, d, ptid);
+                       else if (j < 2 * nch)
+                         chunk_images<P, T>(stage, dout + qrows + (j - nch) * P::GC, qvalid,
+                                            v + rows + (j - nch) * P::GC, valid, d, ptid);
+                       else
+                         group_image<P, T>(stage, k + rows + grp * G, valid, d, ptid);
+                     });
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  Ring<P> ring{img0, img_full, img_empty, 0};
+  const float scale2 = scale * LOG2E;
+  float lse2[2], dlt[2], acc[G / 2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + 16 * warp + g + 8 * h;
+    lse2[h] = r < n ? lse[rbase + r] * LOG2E : 0.f;
+    dlt[h] = r < n ? delta[rbase + r] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < G / 2; ++i) acc[i] = 0.f;
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int k0 = tile * ST;
+    float s[ST / 2], dp[ST / 2];
+    products_over_head<P, T>(s, ring, nch, lane);    // S = Q K^T
+    products_over_head<P, T>(dp, ring, nch, lane);   // dP = dO V^T
+    if (k0 + ST > n) {   // keys past n: P = 0
+#pragma unroll
+      for (int i = 0; i < ST / 2; ++i)
+        if (k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= n) s[i] = -INFINITY;
+    }
+#pragma unroll
+    for (int i = 0; i < ST / 2; ++i) {   // dS = P (dP - delta), in dp
+      const int h = (i >> 1) & 1;
+      dp[i] = ex2(fmaf(s[i], scale2, -lse2[h])) * (dp[i] - dlt[h]);
+    }
+    const uint32_t kb = smem_addr(ring.acquire());
+    bwd::rs_accumulate<G, ST, T>(acc, dp, kb);       // dQ_g += dS K_g
+    ring.release(lane);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + 16 * warp + g + 8 * h;
+    if (r >= n) continue;
+    T* row = dq + base + (size_t)r * d + grp * G;
+#pragma unroll
+    for (int j = 0; j < G / 8; ++j)
+      store2<T>(row + 8 * j + 2 * t, acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
+  }
+}
+
+// dk/dv above 128: a block is (64 keys, column group); each query tile's
+// items are the chunks (K, Q) of S^T, the chunks (V, dO) of dP^T, dO's
+// group transposed with the tile's lse log2 e and delta (dV_g += P^T dO_g),
+// then Q's group transposed (dK_g += dS^T Q_g).
+template <int GW, typename T>
+__global__ void __launch_bounds__(wide::THREADS, 1)
+flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int n, int d, float scale) {
+  using namespace wide;
+  using P = Plan<T, DKV>;
+  static_assert(GW == G, "one column-group width");
+  constexpr int ST = P::ST;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* img0 = aligned_smem(smem_raw);
+  const uint32_t img_full = smem_addr(img0 + P::NI * P::STAGE), img_empty = img_full + 8 * P::NI;
+  const int tid = threadIdx.x, groups = d / G;
+  const int grp = blockIdx.x % groups, k0 = (blockIdx.x / groups) * P::ROWS;
+  const size_t base = (size_t)blockIdx.y * n * d, rbase = (size_t)blockIdx.y * n;
+  const int nch = d / P::GC, per_tile = 2 * nch + 2, tiles = (n + ST - 1) / ST;
+  init_barriers<P>(img_full);
+
+  if (tid >= 128) {   // the producer
+    const int ptid = tid - 128, kvalid = min(P::ROWS, n - k0);
+    const size_t krows = base + (size_t)k0 * d;
+    produce_items<P>(
+        img0, img_full, img_empty, tiles * per_tile, [&](int it, unsigned char* stage) {
+          const int tile = it / per_tile, j = it - tile * per_tile;
+          const int row0 = tile * ST, valid = min(ST, n - row0);
+          const size_t rows = base + (size_t)row0 * d;
+          if (j < nch) {
+            chunk_images<P, T>(stage, k + krows + j * P::GC, kvalid, q + rows + j * P::GC, valid, d,
+                               ptid);
+          } else if (j < 2 * nch) {
+            chunk_images<P, T>(stage, v + krows + (j - nch) * P::GC, kvalid,
+                               dout + rows + (j - nch) * P::GC, valid, d, ptid);
+          } else if (j == 2 * nch) {
+            group_image<P, T>(stage, dout + rows + grp * G, valid, d, ptid);
+            if (ptid < ST) {
+              float* vec = reinterpret_cast<float*>(stage + P::IMG);
+              const bool ok = ptid < valid;
+              vec[ptid] = ok ? lse[rbase + row0 + ptid] * LOG2E : INFINITY;
+              vec[ST + ptid] = ok ? delta[rbase + row0 + ptid] : 0.f;
+            }
+          } else {
+            group_image<P, T>(stage, q + rows + grp * G, valid, d, ptid);
+          }
+        });
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  Ring<P> ring{img0, img_full, img_empty, 0};
+  const float scale2 = scale * LOG2E;
+  // keys 16 warp + g + 8h: the group's columns of dK and dV
+  float acc_k[G / 2], acc_v[G / 2];
+#pragma unroll
+  for (int i = 0; i < G / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  for (int tile = 0; tile < tiles; ++tile) {
+    // s[4j + 2h + e]: key 16 warp + g + 8h, query 8j + 2t + e of the tile
+    float s[ST / 2], dp[ST / 2];
+    products_over_head<P, T>(s, ring, nch, lane);    // S^T = K Q^T
+    products_over_head<P, T>(dp, ring, nch, lane);   // dP^T = V dO^T
+    const unsigned char* st = ring.acquire();
+    const float* vec = reinterpret_cast<const float*>(st + P::IMG);
+#pragma unroll
+    for (int j = 0; j < ST / 8; ++j) {   // P^T, and dS^T = P^T (dP^T - delta) in dp
+      const float2 l2 = *reinterpret_cast<const float2*>(vec + 8 * j + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(vec + ST + 8 * j + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h;
+        s[i] = ex2(fmaf(s[i], scale2, -l2.x));
+        s[i + 1] = ex2(fmaf(s[i + 1], scale2, -l2.y));
+        dp[i] = s[i] * (dp[i] - dl.x);
+        dp[i + 1] = s[i + 1] * (dp[i + 1] - dl.y);
+      }
+    }
+    bwd::rs_accumulate<G, ST, T>(acc_v, s, smem_addr(st));   // dV_g += P^T dO_g
+    ring.release(lane);
+    const uint32_t qb = smem_addr(ring.acquire());
+    bwd::rs_accumulate<G, ST, T>(acc_k, dp, qb);             // dK_g += dS^T Q_g
+    ring.release(lane);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = k0 + 16 * warp + g + 8 * h;
+    if (r >= n) continue;
+    const size_t o = base + (size_t)r * d + grp * G;
+#pragma unroll
+    for (int j = 0; j < G / 8; ++j) {
+      store2<T>(dk + o + 8 * j + 2 * t, acc_k[4 * j + 2 * h] * scale,
+                acc_k[4 * j + 2 * h + 1] * scale);
+      store2<T>(dv + o + 8 * j + 2 * t, acc_v[4 * j + 2 * h], acc_v[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers: one instantiation per (D, type), and per type above 128
 // ---------------------------------------------------------------------------
 // the operands' rows move as 16-byte chunks and bulk copies
 bool aligned16(const void* a, const void* b, const void* c, const void* d) {
@@ -1359,11 +1815,81 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 float32, 1 bfloat16
-bool args_ok(int bh, int n, int d, int dtype) {
-  return bh > 0 && bh <= 65535 && n > 0 && (d == 32 || d == 64 || d == 128) &&
-         (dtype == 0 || dtype == 1);
+// above 128: one block per (head, 64 rows, column group of 128)
+template <typename T>
+int launch_fwd_wide(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                    int n, int d, float scale, cudaStream_t stream) {
+  if (!aligned16(q, k, v, out)) return (int)cudaErrorMisalignedAddress;
+  using P = wide::Plan<T, wide::FWD>;
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem(flash_fwd_wide_kernel<wide::G, T>, P::SMEM, done);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(((n + P::ROWS - 1) / P::ROWS) * (d / wide::G)), (unsigned)bh);
+  flash_fwd_wide_kernel<wide::G, T><<<grid, wide::THREADS, P::SMEM, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, n, d, scale);
+  return (int)cudaGetLastError();
 }
+
+template <typename T>
+int launch_dq_wide(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dq, int bh, int n, int d,
+                   float scale, cudaStream_t stream) {
+  if (!aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
+  using P = wide::Plan<T, wide::DQ>;
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem(flash_bwd_dq_wide_kernel<wide::G, T>, P::SMEM, done);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(((n + P::ROWS - 1) / P::ROWS) * (d / wide::G)), (unsigned)bh);
+  flash_bwd_dq_wide_kernel<wide::G, T><<<grid, wide::THREADS, P::SMEM, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, n, d, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, void* dk, void* dv, int bh, int n,
+                    int d, float scale, cudaStream_t stream) {
+  if (!aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
+  using P = wide::Plan<T, wide::DKV>;
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem(flash_bwd_dkv_wide_kernel<wide::G, T>, P::SMEM, done);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(((n + P::ROWS - 1) / P::ROWS) * (d / wide::G)), (unsigned)bh);
+  flash_bwd_dkv_wide_kernel<wide::G, T><<<grid, wide::THREADS, P::SMEM, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, n, d,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+// the plans above 128 (one a type: d is an argument of the kernels), as
+// plan_fwd and plan_bwd give them
+template <typename T>
+int plan_fwd_wide(int* plan) {
+  using P = wide::Plan<T, wide::FWD>;
+  plan[0] = P::ST;
+  plan[1] = P::NR;
+  plan[2] = P::NI;
+  plan[3] = P::SMEM;
+  return 0;
+}
+template <typename T>
+int plan_bwd_wide(int* plan) {
+  plan_of<wide::Plan<T, wide::DQ>>(plan);
+  plan_of<wide::Plan<T, wide::DKV>>(plan + 6);
+  return 0;
+}
+
+// dtype: 0 float32, 1 bfloat16; d: 32, 64, or a multiple of 128 (above 128
+// the column-group kernels)
+bool args_ok(int bh, int n, int d, int dtype) {
+  return bh > 0 && bh <= 65535 && n > 0 && (d == 32 || d == 64 || (d > 0 && d % 128 == 0)) &&
+         (dtype == 0 || dtype == 1) && (long long)((n + 63) / 64) * (d / 128) < (1ll << 31);
+}
+
+// above 128: the column-group instantiation of the type
+#define WIDE_DISPATCH(LAUNCH, ...)                                                   \
+  if (d > 128)                                                                       \
+    return dtype == 0 ? LAUNCH<float>(__VA_ARGS__) : LAUNCH<__nv_bfloat16>(__VA_ARGS__);
 
 #define FLASH_DISPATCH(LAUNCH, ...)                                         \
   switch (d * 2 + dtype) {                                                  \
@@ -1384,6 +1910,7 @@ extern "C" {
 int flash_forward(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
                   int n, int d, int dtype, float scale, void* stream) {
   if (!args_ok(bh, n, d, dtype)) return (int)cudaErrorInvalidValue;
+  WIDE_DISPATCH(launch_fwd_wide, q, k, v, out, lse, bh, n, d, scale, (cudaStream_t)stream)
   FLASH_DISPATCH(launch_fwd, q, k, v, out, lse, bh, n, scale, (cudaStream_t)stream)
 }
 
@@ -1391,6 +1918,7 @@ int flash_forward(const void* q, const void* k, const void* v, void* out, float*
 // plan[4] = {keys a tile, raw stages, image stages, shared-memory bytes}
 int flash_forward_plan(int d, int dtype, int* plan) {
   if (!args_ok(1, 1, d, dtype)) return (int)cudaErrorInvalidValue;
+  WIDE_DISPATCH(plan_fwd_wide, plan)
   FLASH_DISPATCH(plan_fwd, plan)
 }
 
@@ -1399,6 +1927,7 @@ int flash_forward_plan(int d, int dtype, int* plan) {
 // rows a tile, raw stages, image stages, shared-memory bytes}
 int flash_backward_plan(int d, int dtype, int* plan) {
   if (!args_ok(1, 1, d, dtype)) return (int)cudaErrorInvalidValue;
+  WIDE_DISPATCH(plan_bwd_wide, plan)
   FLASH_DISPATCH(plan_bwd, plan)
 }
 
@@ -1406,6 +1935,8 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                  const float* lse, const float* delta, void* dq, int bh, int n, int d,
                  int dtype, float scale, void* stream) {
   if (!args_ok(bh, n, d, dtype)) return (int)cudaErrorInvalidValue;
+  WIDE_DISPATCH(launch_dq_wide, q, k, v, dout, lse, delta, dq, bh, n, d, scale,
+                (cudaStream_t)stream)
   FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, bh, n, scale, (cudaStream_t)stream)
 }
 
@@ -1413,6 +1944,8 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, void* dk, void* dv, int bh, int n,
                   int d, int dtype, float scale, void* stream) {
   if (!args_ok(bh, n, d, dtype)) return (int)cudaErrorInvalidValue;
+  WIDE_DISPATCH(launch_dkv_wide, q, k, v, dout, lse, delta, dk, dv, bh, n, d, scale,
+                (cudaStream_t)stream)
   FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, n, scale,
                  (cudaStream_t)stream)
 }

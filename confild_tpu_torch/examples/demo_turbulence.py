@@ -146,6 +146,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="stage-1 epochs (a total horizon: a resumed run trains the rest)")
     ap.add_argument("--diff-steps", type=int, default=None,
                     help="stage-2 diffusion training steps (a total horizon)")
+    ap.add_argument("--sample-steps", type=int, default=None,
+                    help="respaced sampling steps of the generated windows (default 500, "
+                         "10 under --fast)")
     ap.add_argument("--latent", type=int, default=None,
                     help="latent features per snapshot row (default 64, 32 under --fast)")
     ap.add_argument("--hidden", type=int, default=128, help="SIREN hidden width")
@@ -218,7 +221,7 @@ def main(argv=None) -> dict:
                   else (40 if args.fast else 2500))
     diff_steps = (args.diff_steps if args.diff_steps is not None
                   else (30 if args.fast else 30000))
-    sample_steps = 10 if args.fast else 500
+    sample_steps = args.sample_steps or (10 if args.fast else 500)
     n_gen = 8 if args.fast else 64
     stage_s = {}
 

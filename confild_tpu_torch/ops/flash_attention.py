@@ -29,13 +29,21 @@ dQ and dK, as the JAX kernels do (``:80-81, 180, 210, 214``).
 kernels (``:233-234``).  The TPU kernels' block sizes and interpret mode are
 Mosaic tiling and have no counterpart; ragged ``N`` is masked inside the
 CUDA kernels, with no padded copy.  The kernels take a head width ``D`` of
-32, 64 or 128: a narrower head is zero-padded to the next of these
-(:func:`padded_forward`, :func:`padded_backward`), which changes no logit,
-with the logits scaled by ``1/sqrt`` of the true width; wider heads raise.
+32, 64 or 128, or any multiple of ``WIDE_GROUP`` (128) above that, as the
+JAX kernels take any width that fits their VMEM: a head is zero-padded to
+the next of these (:func:`kernel_head_width`; :func:`padded_forward`,
+:func:`padded_backward`), which changes no logit, with the logits scaled by
+``1/sqrt`` of the true width.  Above 128 each pass has its own kernel (its
+plan: the same :func:`forward_plan` and :func:`backward_plan`): a block owns
+one group of ``WIDE_GROUP`` output columns and computes S (and in the
+backward dP) over the whole head in chunks of :func:`wide_chunk` columns,
+so the head's ``D / WIDE_GROUP`` groups each recompute them.
 
 Each kernel has a plain PyTorch version beside it.  A wrapper takes the
 plain version only for CPU tensors; for CUDA tensors it launches its kernel
-or raises.  ``LAUNCHES`` counts kernel launches.  The forward's wrapper is
+or raises.  ``LAUNCHES`` counts kernel launches at D <= 128, and
+``LAUNCHES_WIDE`` those above, by pass and padded width
+(``"flash_forward@D512"``).  The forward's wrapper is
 on the U-Net's path at 144 tokens, where its host time is the call's time:
 it checks its operands in one expression (``_check`` names what is wrong),
 passes raw pointers and the raw current stream to ``ctypes``, and enters a
@@ -55,8 +63,12 @@ import torch.nn.functional as F
 from confild_tpu_torch.ops import cuda_build
 
 LAUNCHES = {"flash_forward": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LAUNCHES_WIDE: dict[str, int] = {}
 
 _HEAD_DIMS = (32, 64, 128)
+# heads wider than 128 (csrc/flash_attention.cu::wide): a block's output
+# columns and rows
+WIDE_GROUP, WIDE_ROWS = 128, 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INV_SQRT = {d: 1.0 / math.sqrt(d) for d in _HEAD_DIMS}
 # the raw current-stream handle and the current device's index, on CUDA
@@ -68,6 +80,12 @@ _get_device = getattr(torch._C, "_cuda_getDevice", None)
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_WIDE.clear()
+
+
+def _count_wide(name: str, d: int) -> None:
+    key = f"{name}@D{d}"
+    LAUNCHES_WIDE[key] = LAUNCHES_WIDE.get(key, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -128,12 +146,15 @@ def flash_backward_plain(q, k, v, out, lse, g, scale=None):
 
 def kernel_head_width(d: int) -> int:
     """The head width the kernels run a head of ``d`` channels at: the next
-    of ``_HEAD_DIMS``."""
+    of ``_HEAD_DIMS``, or above 128 the next multiple of ``WIDE_GROUP``."""
     for width in _HEAD_DIMS:
         if d <= width:
             return width
-    raise ValueError(f"the CUDA flash kernels take a head width of at most "
-                     f"{_HEAD_DIMS[-1]}, got {d}")
+    return -(-d // WIDE_GROUP) * WIDE_GROUP
+
+
+def _is_kernel_width(d: int) -> bool:
+    return d in _HEAD_DIMS or (d > 0 and d % WIDE_GROUP == 0)
 
 
 def _pad_head(t, width):
@@ -200,7 +221,11 @@ FWD_SMEM_LIMIT = 232448
 def forward_plan(d: int, dtype: torch.dtype) -> dict:
     """The forward kernel's plan at head width ``d``: keys a tile, raw
     stages, image stages and bytes of dynamic shared memory (mirrors
-    ``fwd::Plan``; ``library_forward_plan`` asks the built library)."""
+    ``fwd::Plan``, above 128 ``wide::Plan``; ``library_forward_plan`` asks
+    the built library)."""
+    if d > 128:
+        tile, stages, smem = _wide_plan(dtype, "fwd")
+        return {"keys": tile, "raw_stages": 0, "image_stages": stages, "smem": smem}
     f32 = dtype == torch.float32
     size, halves = (4, 2) if f32 else (2, 1)
     kt = 16 if f32 and d == 128 else 64
@@ -209,6 +234,32 @@ def forward_plan(d: int, dtype: torch.dtype) -> dict:
     fixed = 128 + q_img + ni * 2 * kv_img + 8 * (FWD_MAX_RAW_STAGES + 2 * ni)
     nr = min(FWD_MAX_RAW_STAGES, (FWD_SMEM_LIMIT - fixed) // (2 * raw))
     return {"keys": kt, "raw_stages": nr, "image_stages": ni, "smem": fixed + nr * 2 * raw}
+
+
+WIDE_MAX_STAGES = 4
+
+
+def wide_chunk(dtype: torch.dtype) -> int:
+    """Columns a chunk of the products over the head above 128 (``GC`` of
+    ``wide::Plan``): 64 in float32, 128 in bf16."""
+    return 64 if dtype == torch.float32 else 128
+
+
+def _wide_plan(dtype: torch.dtype, kind: str) -> tuple[int, int, int]:
+    """``(tile, image stages, bytes)`` of the kernel of ``kind`` ("fwd",
+    "dq", "dkv") above 128 (mirrors ``wide::Plan``): a stage holds one item,
+    a chunk of the head's columns of the block's ``WIDE_ROWS`` resident
+    rows and of the tile's rows, or one group of ``WIDE_GROUP`` columns of
+    the tile transposed, the larger (both TF32 halves in float32), and for
+    dk/dv the tile's lse and delta; the tile is 64 rows, 32 in float32
+    dk/dv (its two accumulators of the group's columns take 128 registers),
+    the chunk :func:`wide_chunk`'s columns."""
+    eb = 8 if dtype == torch.float32 else 2
+    tile = 32 if kind == "dkv" and dtype == torch.float32 else 64
+    image = max((WIDE_ROWS + tile) * wide_chunk(dtype) * eb, WIDE_GROUP * tile * eb)
+    stage = image + (2 * tile * 4 if kind == "dkv" else 0)
+    stages = min(WIDE_MAX_STAGES, (FWD_SMEM_LIMIT - 128 - 16 * WIDE_MAX_STAGES) // stage)
+    return tile, stages, 128 + stages * stage + 16 * stages
 
 
 def library_forward_plan(d: int, dtype: torch.dtype) -> dict:
@@ -255,10 +306,14 @@ def backward_plan(d: int, dtype: torch.dtype, kernel: str) -> dict:
     memory.  A stage holds the streamed images (dq: K, V, K^T; dk/dv: Q, dO,
     Q^T, dO^T) and for dk/dv the tile's lse and delta; the two resident A
     images (Q, dO; K, V) take both TF32 halves in float32, so a float32
-    block is one consumer warpgroup and streams 2048 / d rows a tile."""
+    block is one consumer warpgroup and streams 2048 / d rows a tile.  Above
+    128: one consumer warpgroup, no raw stage, :func:`_wide_plan`'s stages."""
     f32, dkv = dtype == torch.float32, kernel == "dkv"
     if kernel not in BWD_KERNELS:
         raise ValueError(f"kernel is one of {BWD_KERNELS}, got {kernel!r}")
+    if d > 128:
+        tile, stages, smem = _wide_plan(dtype, kernel)
+        return dict(zip(_BWD_PLAN_KEYS, (WIDE_ROWS, 1, tile, 0, stages, smem)))
     size, halves = (4, 2) if f32 else (2, 1)
     consumers = 1 if f32 else 2
     tile = 2048 // d if f32 else (32 if dkv and d == 128 else 64)
@@ -284,8 +339,9 @@ def _check(ref, **tensors) -> tuple[int, int, int, int]:
     """Device, type, shape and contiguity of the kernels' operands against
     ``ref`` (q); returns ``(BH, N, D, dtype code)``."""
     bh, n, d = ref.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"the CUDA flash kernels take a head width of {_HEAD_DIMS}, got {d}")
+    if not _is_kernel_width(d):
+        raise ValueError(f"the CUDA flash kernels take a head width of 32, 64 or a multiple "
+                         f"of {WIDE_GROUP}, got {d}")
     if ref.dtype not in _DTYPES:
         raise TypeError(f"the CUDA flash kernels take float32 or bfloat16, got {ref.dtype}")
     for name, t in tensors.items():
@@ -331,19 +387,22 @@ def _launch_forward(q, k, v, scale):
     """``(out, lse)`` on CUDA tensors of a kernel head width: launches
     ``flash_forward``."""
     shape, dtype, device = q.shape, q.dtype, q.device
-    if not (shape[-1] in _HEAD_DIMS and dtype in _DTYPES and k.dtype is dtype
+    bh, n, d = shape
+    if not (_is_kernel_width(d) and dtype in _DTYPES and k.dtype is dtype
             and v.dtype is dtype and k.shape == shape and v.shape == shape
             and k.device == device and v.device == device and q.is_contiguous()
             and k.is_contiguous() and v.is_contiguous()):
         _check(q, q=q, k=k, v=v)   # raises, naming what is wrong
-    bh, n, d = shape
     out = torch.empty_like(q)
     lse = q.new_empty((bh, n), dtype=torch.float32)
     err = _on_device(device.index, _library().flash_forward, q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, n, d, _DTYPES[dtype],
-                     _INV_SQRT[d] if scale is None else scale)
+                     (_INV_SQRT.get(d) or 1.0 / math.sqrt(d)) if scale is None else scale)
     _raise_on(err, "flash_forward launch")
-    LAUNCHES["flash_forward"] += 1
+    if d > 128:
+        _count_wide("flash_forward", d)
+    else:
+        LAUNCHES["flash_forward"] += 1
     return out, lse
 
 
@@ -366,7 +425,10 @@ def _launch_dq(q, k, v, g, lse, delta, scale, code, index):
                      g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, n, d,
                      code, _scale(q, scale))
     _raise_on(err, "flash_bwd_dq launch")
-    LAUNCHES["flash_bwd_dq"] += 1
+    if d > 128:
+        _count_wide("flash_bwd_dq", d)
+    else:
+        LAUNCHES["flash_bwd_dq"] += 1
     return dq
 
 
@@ -378,7 +440,10 @@ def _launch_dkv(q, k, v, g, lse, delta, scale, code, index):
                      g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                      dv.data_ptr(), bh, n, d, code, _scale(q, scale))
     _raise_on(err, "flash_bwd_dkv launch")
-    LAUNCHES["flash_bwd_dkv"] += 1
+    if d > 128:
+        _count_wide("flash_bwd_dkv", d)
+    else:
+        LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
 
 
@@ -401,7 +466,7 @@ def _launch_backward(q, k, v, out, lse, g, scale):
     every operand (``_check`` names what is wrong), ``delta`` from torch,
     then ``flash_bwd_dq`` and ``flash_bwd_dkv``."""
     shape, dtype, device = q.shape, q.dtype, q.device
-    if not (shape[-1] in _HEAD_DIMS and dtype in _DTYPES
+    if not (_is_kernel_width(shape[-1]) and dtype in _DTYPES
             and all(t.dtype is dtype and t.shape == shape and t.device == device
                     and t.is_contiguous() for t in (q, k, v, out, g))
             and lse.dtype is torch.float32 and lse.shape == shape[:2]

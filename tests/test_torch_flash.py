@@ -160,10 +160,16 @@ def test_head_padding_is_exact(d):
 
 
 def test_head_width_limit():
+    """Up to 128 the next of 32, 64, 128; above, the next multiple of 128
+    (the column-group kernels), with no upper limit; the kernels' checks
+    take only those widths, so 160 is padded before it reaches them."""
     assert [tfa.kernel_head_width(d) for d in (8, 32, 33, 64, 100, 128)] == [32, 32, 64, 64,
                                                                                128, 128]
-    with pytest.raises(ValueError, match="at most 128"):
-        tfa.kernel_head_width(160)
+    assert [tfa.kernel_head_width(d) for d in (129, 160, 256, 257, 512, 1000, 4096)] == [
+        256, 256, 256, 384, 512, 1024, 4096]
+    with pytest.raises(ValueError, match="head width"):
+        tfa._check(torch.zeros(2, 16, 160), q=torch.zeros(2, 16, 160))
+    assert tfa._check(torch.zeros(2, 16, 384), q=torch.zeros(2, 16, 384))[2] == 384
 
 
 def test_launch_counts_untouched_on_cpu():
@@ -293,7 +299,7 @@ def _fma32(a, b, c):
 PV_KEY_ORDER = np.array([0, 2, 4, 6, 1, 3, 5, 7])
 
 
-def _forward_with(split, q, k, v):
+def _forward_with(split, q, k, v, rescale_first=False):
     """The forward kernel's loop head by head (csrc/flash_attention.cu):
     tiles of ``forward_plan``'s keys; S = Q K^T on the tensor cores with a
     partial carried every k16 step (two k8 steps); a running max in log2
@@ -304,7 +310,8 @@ def _forward_with(split, q, k, v):
     it: lane t of a row's quad holds keys 8j + 2t + e of each tile, adds them
     in order into a tile sum and that into its running sum by an fma, and
     the four lanes' sums are added pairwise at the end; out = acc * (1 / l),
-    lse = m ln 2 + ln l, all in float32."""
+    lse = m ln 2 + ln l, all in float32.  ``rescale_first``: acc = acc *
+    alpha, then + partial (the column-group kernel above 128)."""
     d = q.shape[-1]
     kt = tfa.forward_plan(d, torch.float32)["keys"]
     log2e = np.float32(1.4426950408889634)
@@ -333,7 +340,7 @@ def _forward_with(split, q, k, v):
             lanes = _fma32(alpha[:, None], lanes, tile_sum)
             order = (np.arange(0, kt, 8)[:, None] + PV_KEY_ORDER).ravel()
             pv = _tc_product(p[:, order], vb[order], 8, kt // 8, split)
-            acc = _fma32(acc, alpha[:, None], pv)
+            acc = acc * alpha[:, None] + pv if rescale_first else _fma32(acc, alpha[:, None], pv)
             m = m_new
         l = (lanes[:, 0] + lanes[:, 1]) + (lanes[:, 2] + lanes[:, 3])
         outs.append(acc * (np.float32(1) / l)[:, None])
@@ -341,11 +348,11 @@ def _forward_with(split, q, k, v):
     return np.stack(outs), np.stack(lses)
 
 
-def _forward_margins(split, bh, n, d, seed):
+def _forward_margins(split, bh, n, d, seed, rescale_first=False):
     """error / limit of out and lse under the kernels' criterion."""
     q, k, v = _inputs(bh, n, d, seed=seed, count=3)
     plain = [x.numpy() for x in tfa.flash_forward_plain(*map(torch.from_numpy, (q, k, v)))]
-    got = _forward_with(split, q, k, v)
+    got = _forward_with(split, q, k, v, rescale_first)
     s = np.einsum("bqd,bkd->bqk", q.astype(np.float64), k.astype(np.float64)) / np.sqrt(d)
     lse = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
     truth = (np.einsum("bqk,bkd->bqd", np.exp(s - lse[..., None]), v.astype(np.float64)), lse)
