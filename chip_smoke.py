@@ -19,8 +19,10 @@ Phases, each fatal on failure:
    128 in float32 and bf16), each with its plan (keys a tile, raw and image
    stages, dynamic shared memory) held to the wrapper's mirror; the three
    column-group flash kernels for heads above 128 one instantiation a type
-   each, ``HGMMA`` only, their plans at D = 256 and 1024 held to the
-   mirror);
+   each, ``HGMMA`` only, their plans at D = 256, 384, 512 and 1024 held to
+   the mirror; the float32 forward with Q resident (D up to 512, groups of
+   128 and 256) and the bf16 forward on TMA tensor copies at D = 256, 384
+   and 512, ``HGMMA`` only, no spill, their plans held to the mirror);
 3. forward decode kernel against its plain version and a float64 run under
    the JAX tests' criterion ``err_kernel <= 2 * err_plain_f32 + 1e-6`` (each
    error printed as a share of its limit), two launches bitwise equal: at
@@ -103,7 +105,9 @@ Phases, each fatal on failure:
     (4, 16384, 64), bf16 (2, 256, 64) and (64, 144, 64) (P and dS rounded
     to bf16 as in JAX), 16-channel heads (8, 144, 16) in f32 and bf16
     (zero-padded to 32 by the wrapper), and above 128 (the column-group
-    kernels) D = 160 (padded to 256), 256 and 512 at a ragged (2, 300, D),
+    kernels; the forward up to 512 the float32 kernel with Q resident and
+    the bf16 one on TMA tensor copies)
+    D = 160 (padded to 256), 256, 384 and 512 at a ragged (2, 300, D),
     1024 at (2, 200, 1024) and the one-head Case4 middle block (8, 144,
     512), each in f32 and bf16, under the same criterion (each
     error's share of its limit is printed); two launches bitwise equal;
@@ -127,7 +131,8 @@ Phases, each fatal on failure:
     calls) with its parts, beside SDPA's; and above 128 the column-group
     forward and backward pair at (8, 144, 512) and (8, 9216, 256) in f32
     and bf16 as the forward and the pair above (``[flash-fwd]``,
-    ``[flash-bwd]``), with their recompute factors (``[flash-wide]``);
+    ``[flash-bwd]``), and the forward alone at (4, 9216, 512), with their
+    recompute factors (``[flash-wide]``);
 11. the full-width Case4 U-Net (384^2, 128 ch, mult 1,1,2,2,4,4, heads of
     64), batch 8: one ``training_losses`` forward and backward with
     ``use_flash_attention`` true and false on the same weights and draws;
@@ -146,7 +151,9 @@ Phases, each fatal on failure:
     the middle block's, becomes one head of 512 channels at 144 tokens) and
     flash on, batch 8, 3 steps and a resume to step 4: every column-group
     kernel launched at D = 512 (counts zeroed before and read after each
-    run), no narrow one, finite losses, ms per step;
+    run), no narrow one, finite losses, ms per step; then the same in bf16
+    (``use_bf16``, 3 steps): the TMA forward and the bf16 backward pair at
+    D = 512 launched;
 13. train -> sample: ``cli.sample_conditional.main`` once more with the EMA
     just written and flash attention on (the DPS gradient runs the flash
     forward and backward).
@@ -325,17 +332,19 @@ Phases, each fatal on failure:
     the same).
     Phase 18's flash launches are added to the kernels' counts, and so are
     the SIREN launches of its FiLM run; the column-group launches of 12b
-    and (f) are the kernels line's ``@D256`` / ``@D512`` rows'.
+    and (f) are the kernels line's ``@D256`` / ``@D512`` rows' (and the
+    ``@D512N9216`` rows', the same instantiations), 12b's bf16 launches
+    the ``flash_forward_bf16@D512`` row's.
 19. the SIREN kernels at every width a FiLM recipe may ask for (hidden
-    widths up to 1024, the float32 and bf16 forwards up to 3072, up to 16
+    widths up to 1024, the float32 and bf16 forwards up to 3072, 16
     coordinates and outputs), on
     ``recipes/cnf/case4.yml`` with ``hidden_features`` 1024 and
     ``out_features`` 5 (``WIDE_CNF``: 3 -> 1024 x 16 modulated layers -> 5,
     which the kernels refused before):
     (a) every SIREN kernel (float32 and bf16 forward, dz, training
     backward) against its plain version and float64 under the criteria of
-    phases 3, 15, 4 and 7, with bitwise repeats, at H = 576, 640, 768 and
-    896 with 3 -> 5 (six modulated layers), at H = 1024 with 16 -> 16 and
+    phases 3, 15, 4 and 7, with bitwise repeats, at H = 576 and 896 with 3
+    -> 5 (six modulated layers), at H = 1024 with 16 -> 16 and
     at 384 with 3 -> 16 (six layers), and at ``WIDE_CNF`` (also a ragged 3
     x 3001 forward): the forwards at 4 x 16384, dz at a ragged 64 x 1000
     (also against the training backward's), the training backward at 4 x
@@ -372,17 +381,31 @@ Phases, each fatal on failure:
     rings and shared memory), their weight preparations (the bf16
     forward's too) bitwise against the plain layouts at 576, 1024, 2048
     and 3072, the float32 and bf16 forwards, dz and the training backward
-    against their plain versions and float64 at 1536, 2048 and 3072 (3 ->
-    5, six modulated layers; ragged 3 x 3001 forwards at 2048; bitwise
-    repeats), the bf16 forward also at 1152 (six blocks of 192), dz and the
-    training backward also on decoders of one and two modulated layers at
-    640, 2048 and 3072, and timed (medians of 3, SM clocks, the stream
+    against their plain versions and float64 at 2048 and 3072 (3 -> 5, six
+    modulated layers; ragged 3 x 3001 forwards at 2048; bitwise repeats),
+    the bf16 forward also at 1152 (six blocks of 192), dz and the training
+    backward also on decoders of one and two modulated layers at 640 and
+    3072, and timed (medians of 3, SM clocks, the stream
     bytes) at 2048 with ``WIDE_CNF``'s depth at 4 x 262144 (the float32
     and bf16 forwards) and at 3072 at six layers (the bf16 forward too, at
     4 x 65536); the SASS scan counts their wgmma (HGMMA) instructions;
     (g) a decoder of ``WIDE_CNF``'s depth at H = 2048 through
     ``inference.CNF_inference`` (16 rows x 4096 points, against its plain
     route): its launches are the H = 2048 row's.
+20. the SIREN kernels at more than 16 coordinates or outputs (their tables
+    take 16 features, wider ones in chunks): (a) every SIREN kernel against
+    its plain version and float64 as in 19 (a), at Case4's decoder (384 x
+    16 modulated layers) at 20 -> 24 and at six layers of 1024 at 40 ->
+    64, timed at the first (the kernels line's ``@H384C20x24`` rows); (b)
+    ``cli.train_cnf`` on ``recipes/cnf/case4.yml`` at 20 -> 24 over 4
+    seeded 24-field snapshots of 65536 points, 2 epochs and a 1-epoch
+    resume: losses finite and falling, the forward and training-backward
+    kernels launched; (c) its checkpoint through ``inference.CNF_inference``
+    at its mesh against the plain route (relative 1e-4), and its bf16
+    ``compute_dtype`` forward against its plain version (1e-2); (d) a guided
+    step's gradient through ``CNFDecodeOperator`` at 1000 sensors (384 x
+    1000 pairs: the forward and dz kernels) against the plain route's (1e-3).
+    (b)-(d)'s launches (zeroed before each run, read after) are the rows'.
 
 The script imports nothing of JAX or of ``confild_tpu``.  With no CUDA
 device it exits non-zero and prints no result.  The last line is
@@ -428,7 +451,7 @@ from confild_tpu_torch.device import resolve_device, synchronize
 from confild_tpu_torch.examples import demo_conditional, demo_report, demo_turbulence
 from confild_tpu_torch.guidance import (create_sampler, get_conditioning_method,
                                         get_noise, get_operator)
-from confild_tpu_torch.guidance.operators import FUSED_MIN_PAIRS
+from confild_tpu_torch.guidance.operators import FUSED_MIN_PAIRS, CNFDecodeOperator
 from confild_tpu_torch.inference import CNF_inference
 from confild_tpu_torch.io.checkpoint import latest_checkpoint
 from confild_tpu_torch.models import unet as tunet
@@ -479,12 +502,13 @@ FLASH_CHECKS = ((64, 144, 64, torch.float32), (2, 200, 32, torch.float32),
                 (2, 256, 64, torch.bfloat16), (64, 144, 64, torch.bfloat16),
                 (8, 144, 16, torch.float32), (8, 144, 16, torch.bfloat16),
                 (2, 144, 128, torch.float32), (2, 144, 128, torch.bfloat16))
-# heads above 128 (the column-group kernels): D = 160 (padded to 256), 256,
-# 512 and 1024 on a ragged N, and the one-head Case4 middle block at batch 8
-# (8, 144, 512), each in float32 and bf16
+# heads above 128 (the column-group kernels; in bf16 at 256, 384 and 512 the
+# TMA forward): D = 160 (padded to 256), 256, 384, 512 and 1024 on a ragged
+# N, and the one-head Case4 middle block at batch 8 (8, 144, 512), each in
+# float32 and bf16
 FLASH_WIDE_CHECKS = tuple((bh, n, d, dtype)
-                          for bh, n, d in ((2, 300, 160), (2, 300, 256), (2, 300, 512),
-                                           (2, 200, 1024), (8, 144, 512))
+                          for bh, n, d in ((2, 300, 160), (2, 300, 256), (2, 300, 384),
+                                           (2, 300, 512), (2, 200, 1024), (8, 144, 512))
                           for dtype in (torch.float32, torch.bfloat16))
 FLASH_CHECKS += FLASH_WIDE_CHECKS
 FLASH_TIMES = ((64, 144, 64), (16, 9216, 64), (4, 16384, 64))
@@ -492,6 +516,10 @@ FLASH_TIMES = ((64, 144, 64), (16, 9216, 64), (4, 16384, 64))
 # path; the kernels line's @D512 rows) and the xl recipe's ds-8 block
 # (9216 tokens) under num_heads 1 at batch 8 (the @D256 rows)
 FLASH_WIDE_TIMES = {"@D512": (8, 144, 512), "@D256": (8, 9216, 256)}
+# the forward alone above 128 at a many-token head of 512 (four heads of
+# the xl recipe's ds-8 block at 9216 tokens): the kernels line's
+# @D512N9216 rows
+FLASH_WIDE_FWD_TIMES = {"@D512N9216": (4, 9216, 512)}
 FLASH_PATH_SHAPE = "64x144x64"
 # phase 18 (d)'s classifier at batch 4: 4 heads at 1024 tokens, 8 at 256
 # and at 64, of 64 channels
@@ -680,8 +708,14 @@ CLUSTER_KERNELS = ("siren_fwd_cluster_kernel", "siren_chain_cluster_kernel", BF1
 # the column-group kernels above 128, one instantiation a type
 FLASH_WIDE_KERNELS = ("flash_fwd_wide_kernel", "flash_bwd_dq_wide_kernel",
                       "flash_bwd_dkv_wide_kernel")
+# the bf16 forward on TMA tensor copies, one instantiation a width, and
+# the float32 forward with Q resident, one a group width (128, 256), at
+# 256, 384 and 512
+FLASH_TMA_KERNEL = "flash_fwd_tma_kernel"
+FLASH_WQ_KERNELS = ("flash_fwd_wq_kernel<128, f32>", "flash_fwd_wq_kernel<256, f32>")
 WGMMA_KERNELS = (CLUSTER_KERNELS + ("siren_bwd_reduce_kernel", FLASH_FWD_KERNEL)
-                 + FLASH_BWD_KERNELS + FLASH_WIDE_KERNELS)
+                 + FLASH_BWD_KERNELS + FLASH_WIDE_KERNELS
+                 + (FLASH_TMA_KERNEL, "flash_fwd_wq_kernel"))
 # the flash kernels' instantiations: every head width in both types
 FLASH_FWD_INSTANCES = tuple((d, dtype) for d in (32, 64, 128)
                             for dtype in (torch.float32, torch.bfloat16))
@@ -690,6 +724,11 @@ FLASH_FWD_INSTANCES = tuple((d, dtype) for d in (32, 64, 128)
 def flash_wide_label(kernel: str, dtype) -> str:
     """``flash_fwd_wide_kernel<128, f32>``, as ``kernel_label`` names it."""
     return f"{kernel}<128, {'f32' if dtype == torch.float32 else 'bf16'}>"
+
+
+def flash_tma_label(d: int) -> str:
+    """``flash_fwd_tma_kernel<256, bf16>``, as ``kernel_label`` names it."""
+    return f"{FLASH_TMA_KERNEL}<{d}, bf16>"
 
 
 def flash_bwd_label(kernel: str, d: int, dtype) -> str:
@@ -736,6 +775,8 @@ def phase_build():
     missing += [label for d, dtype in FLASH_FWD_INSTANCES
                 for label in (flash_fwd_label(d, dtype), flash_bwd_label("dq", d, dtype),
                               flash_bwd_label("dkv", d, dtype)) if label not in hmma]
+    missing += [flash_tma_label(d) for d in fa.TMA_WIDTHS if flash_tma_label(d) not in hmma]
+    missing += [k for k in FLASH_WQ_KERNELS if k not in hmma]
     missing += [flash_wide_label(k, dtype) for k in FLASH_WIDE_KERNELS
                 for dtype in (torch.float32, torch.bfloat16)
                 if flash_wide_label(k, dtype) not in hmma]
@@ -765,9 +806,28 @@ def phase_build():
             if plan != fa.backward_plan(d, dtype, kernel):
                 raise SystemExit(f"{label}: the library's plan {plan} is not the wrapper's "
                                  f"{fa.backward_plan(d, dtype, kernel)}")
-    # above 128: one plan a pass and type, whatever the width
+    # the float32 forward with Q resident: no spill (its plans: below)
+    for label in FLASH_WQ_KERNELS:
+        log(f"[build] {label}: {PTXAS.get(label)}")
+        if " 0 bytes spill stores" not in PTXAS.get(label, ""):
+            raise SystemExit(f"{label} spills: {PTXAS.get(label)}")
+    # the bf16 TMA forward: every instantiation HGMMA only with no spill,
+    # its plan the wrapper's
+    for d in fa.TMA_WIDTHS:
+        label, plan = flash_tma_label(d), fa.library_forward_plan(d, torch.bfloat16)
+        log(f"[build] {label}: {plan['keys']} keys a tile, {plan['raw_stages']} TMA stages, "
+            f"{fa.forward_columns(d, torch.bfloat16)} output columns a block, {plan['smem']} "
+            f"bytes of dynamic shared memory; {PTXAS.get(label)}")
+        if plan != fa.forward_plan(d, torch.bfloat16):
+            raise SystemExit(f"{label}: the library's plan {plan} is not the wrapper's "
+                             f"{fa.forward_plan(d, torch.bfloat16)}")
+        if " 0 bytes spill stores" not in PTXAS.get(label, ""):
+            raise SystemExit(f"{label} spills: {PTXAS.get(label)}")
+    # above 128: one plan a pass and type, whatever the width (the bf16
+    # forward's at 256 and 512 is the TMA forward's, above; the float32
+    # forward's up to 512 that with Q resident, whose bytes follow d)
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (256, 1024):
+        for d in (256, 384, 512, 1024):
             plans = {"fwd": fa.library_forward_plan(d, dtype),
                      **fa.library_backward_plan(d, dtype)}
             mirror = {"fwd": fa.forward_plan(d, dtype),
@@ -2037,13 +2097,15 @@ def forward_host_us(device, bh=64, n=144, d=64, calls=200) -> dict:
     return us
 
 
-def wide_factors(d: int) -> tuple[float, float]:
-    """The column-group kernels' products over the least that attention
-    needs, forward and backward pair: d / 128 groups each compute S (and in
-    the backward dP) over the whole head, and their own 128 columns of the
-    rest: forward (d / 128 + 1) / 2, pair (8 d / 128 + 6) / 14."""
-    groups = d // fa.WIDE_GROUP
-    return (groups + 1) / 2, (8 * groups + 6) / 14
+def wide_factors(d: int, dtype=torch.float32) -> tuple[float, float]:
+    """The kernels' products above 128 over the least that attention
+    needs, forward and backward pair: the forward's d / c groups of c
+    output columns (``fa.forward_columns``: 128, and in bf16 the TMA
+    forward's 256 where they divide d) each compute S over the whole head,
+    and their own c columns of P V: (d / c + 1) / 2; the backward's d / 128
+    groups S and dP: (8 d / 128 + 6) / 14."""
+    groups = d // fa.forward_columns(d, dtype)
+    return (groups + 1) / 2, (8 * (d // fa.WIDE_GROUP) + 6) / 14
 
 
 def phase_flash(device, results) -> None:
@@ -2073,11 +2135,17 @@ def phase_flash(device, results) -> None:
                              backward_times(device, *shape, dtype))
               for tag, shape in FLASH_WIDE_TIMES.items()
               for dtype in (torch.float32, torch.bfloat16)}
-    for tag, (bh, n, d) in FLASH_WIDE_TIMES.items():
-        log(f"[flash-wide] ({bh}, {n}, {d}): the column-group kernels' products are "
-            f"{wide_factors(d)[0]:.2f}x the least in the forward, {wide_factors(d)[1]:.2f}x in "
-            f"the backward pair ({d // fa.WIDE_GROUP} groups each compute S, and dP, over the "
-            f"head)")
+    # the forward alone at many tokens and 512 channels
+    wide_fwd = {(tag, dtype): forward_times(device, *shape, dtype)
+                for tag, shape in FLASH_WIDE_FWD_TIMES.items()
+                for dtype in (torch.float32, torch.bfloat16)}
+    for tag, (bh, n, d) in {**FLASH_WIDE_TIMES, **FLASH_WIDE_FWD_TIMES}.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            log(f"[flash-wide] ({bh}, {n}, {d}) {str(dtype)[6:]}: the forward's products are "
+                f"{wide_factors(d, dtype)[0]:.2f}x the least ({d // fa.forward_columns(d, dtype)}"
+                f" groups of {fa.forward_columns(d, dtype)} columns each compute S over the "
+                f"head), the backward pair's {wide_factors(d, dtype)[1]:.2f}x ("
+                f"{d // fa.WIDE_GROUP} groups each compute S and dP)")
     log(f"[flash-time] SM clock, max SM clock after the timings: {sm_clocks()}")
     log("[flash-fwd] " + json.dumps(dict(fwd_times, host_us=host)))
     log("[flash-bwd] " + json.dumps(bwd_times))
@@ -2102,6 +2170,25 @@ def phase_flash(device, results) -> None:
                              library_ms=lib, library_call=f"scaled_dot_product_attention "
                              f"{step} on {layout}", library_covers=covers,
                              shape=FLASH_PATH_SHAPE)
+    # the forward's rows above 128 in bf16 (the TMA forward) and at many
+    # tokens and 512 channels in both types: errors from the checks at the
+    # same width
+    fwd_rows = {(tag, dtype): wide_fwd[(tag, dtype)]
+                for tag, dtype in wide_fwd}
+    fwd_rows.update({(tag, torch.bfloat16): wide_t[(tag, torch.bfloat16)][0]
+                     for tag in FLASH_WIDE_TIMES})
+    for (tag, dtype), fw in fwd_rows.items():
+        bh, n, d = {**FLASH_WIDE_TIMES, **FLASH_WIDE_FWD_TIMES}[tag]
+        check = errs[(8, 144, 512, dtype) if d == 512 else (2, 300, d, dtype)]
+        lib, call = min((fw["sdpa"][0], "forward on (BH, N, D)"),
+                        (fw["sdpa_4d"][0], "forward on (1, BH, N, D)"))
+        name = "flash_forward" + ("_bf16" if dtype == torch.bfloat16 else "")
+        results[name + tag] = dict(
+            max_abs_err=max(check["out"], check["lse"]), ms=fw["kernel"][0],
+            plain_ms=fw["plain"][0], bound_ms=fw["bound"][0], bound_by=fw["bound"][1],
+            library_ms=lib, library_call=f"scaled_dot_product_attention {call}",
+            library_covers="flash_forward", shape=f"{bh}x{n}x{d}",
+            recompute=wide_factors(d, dtype)[0])
     # the rows above 128, float32: errors from the checks at the same width
     for tag, (bh, n, d) in FLASH_WIDE_TIMES.items():
         fw, bw = wide_t[(tag, torch.float32)]
@@ -2305,7 +2392,9 @@ def phase_one_head(root) -> dict:
     of the 384^2 U-Net, so its one attention block is the middle block's,
     one head of 512 channels at 144 tokens) and flash on, batch 8, 3 steps
     and a resume to step 4; every column-group kernel must launch at D =
-    512, and no narrow one.  Returns the wide launches."""
+    512, and no narrow one; then the same in bf16 (``use_bf16``, 3 steps):
+    the TMA forward at 512 and the column-group backward in bf16 must
+    launch.  Returns the wide launches."""
     recipe = write_diffusion_case(os.path.join(root, "one_head"), **ONE_HEAD)
     logs = recipe["log_path"]
     path = _write_yaml(os.path.join(root, "one_head", "case4.yml"), recipe)
@@ -2349,6 +2438,32 @@ def phase_one_head(root) -> dict:
     for k, v in fa.LAUNCHES_WIDE.items():
         counts[k] = counts.get(k, 0) + v
     del again
+    torch.cuda.empty_cache()
+    # the bf16 torso (use_bf16) with the same heads: the forward on TMA
+    # tensor copies at 512, the column-group backward in bf16
+    rec16 = write_diffusion_case(os.path.join(root, "one_head_bf16"), use_bf16=True, **ONE_HEAD)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    loop16 = train_diffusion.main([_write_yaml(os.path.join(root, "one_head_bf16", "case4.yml"),
+                                               rec16)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c16, narrow16 = dict(fa.LAUNCHES_WIDE), dict(fa.LAUNCHES)
+    with open(os.path.join(rec16["log_path"], "progress.csv")) as f:
+        losses16 = [float(r["loss"]) for r in csv.DictReader(f)]
+    log(f"[one-head] the same in bf16 (use_bf16): {loop16.step} steps, losses "
+        f"{[round(x, 6) for x in losses16]}, CLI wall {wall:.1f} s; launches {c16}, narrow "
+        f"{narrow16}")
+    missing = [f"{k}_bf16@D512" for k in fa.LAUNCHES if c16.get(f"{k}_bf16@D512", 0) == 0]
+    if not (loop16.step == 3 and len(losses16) == 3 and np.isfinite(losses16).all()):
+        raise SystemExit("one-head bf16 diffusion training: wrong step count or non-finite "
+                         "losses")
+    if missing or any(narrow16.values()):
+        raise SystemExit(f"one-head bf16 diffusion training did not launch {missing}, or "
+                         f"launched a narrow flash kernel: {narrow16}")
+    for k, v in c16.items():
+        counts[k] = counts.get(k, 0) + v
+    del loop16
     torch.cuda.empty_cache()
     _add_wide_launches(counts)
     return counts
@@ -4327,9 +4442,11 @@ def phase_classifier(root, device) -> dict:
 WIDE_NF = dict(hidden_features=1024, out_features=5)
 WIDE_CNF = dict(CASE4_CNF, **WIDE_NF)
 # (a)'s other decoders, (C_in, C_out, hidden layers, H): six modulated
-# layers at each width above 512 with Case4's coordinates and WIDE_NF's
-# outputs, 16 coordinates and outputs at 1024, 16 outputs at Case4's 384
-WIDER_CHECKS = tuple((3, 5, 5, h) for h in (576, 640, 768, 896)) + (
+# layers with Case4's coordinates and WIDE_NF's outputs at the narrowest and
+# the widest plan of 3 to 7 blocks above 512 (576: three blocks of 192; 896:
+# seven of 128; 640 and 768 were cut for the script's time), 16 coordinates
+# and outputs at 1024, 16 outputs at Case4's 384
+WIDER_CHECKS = tuple((3, 5, 5, h) for h in (576, 896)) + (
     (16, 16, 5, 1024), (3, 16, 5, 384))
 # the timed C = 16 decoders, at 4 x this many points
 C16_POINTS = 65536
@@ -4342,13 +4459,14 @@ WIDE_POINTS = 65536
 WIDE_LR = {"nf": 1e-6, "latents": 1e-3}
 # the cluster forward alone at widths no other kernel takes, (C_in, C_out,
 # hidden layers, H): six modulated layers, Case4's coordinates, WIDE_NF's
-# outputs, up to the widest (sd.MAX_HIDDEN["forward"])
-CLUSTER_CHECKS = tuple((3, 5, 5, h) for h in (1536, 2048, sd.MAX_HIDDEN["forward"]))
+# outputs, up to the widest (sd.MAX_HIDDEN["forward"]); 1536 was cut for
+# the script's time (2048 has the same 256-column blocks, eight of them)
+CLUSTER_CHECKS = tuple((3, 5, 5, h) for h in (2048, sd.MAX_HIDDEN["forward"]))
 # the chain in both modes on shallow decoders, (C_in, C_out, hidden layers,
 # H): one modulated layer (no middle weight, no dx product) and two, at
-# each pair count of the cluster plans (128 pairs at 640 and 2048, 64 at
-# the widest)
-SHALLOW_CHECKS = tuple((3, 5, layers, h) for h in (640, 2048, sd.MAX_HIDDEN["dz"])
+# each pair count of the cluster plans (128 pairs at 640, 64 at the widest;
+# 2048 was cut for the script's time)
+SHALLOW_CHECKS = tuple((3, 5, layers, h) for h in (640, sd.MAX_HIDDEN["dz"])
                        for layers in (0, 1))
 # the bf16 forward alone at a plan above 1024 that no other check takes:
 # six blocks of 192 columns (3 -> 5, six modulated layers)
@@ -4715,6 +4833,175 @@ def wider_paths(root) -> dict:
     return counts
 
 
+# phase 20: the SIREN kernels at more than 16 coordinates or outputs (the
+# tables take them in chunks of 16).  (C_in, C_out, hidden layers, H): Case4's
+# decoder (384 x 16 modulated layers) at 20 -> 24, neither a multiple of 16,
+# and six layers of 1024 at 40 -> 64
+FEATURE_CHECKS = ((20, 24, 15, 384), (40, 64, 5, 1024))
+FEATURE_CNF = dict(CASE4_CNF, in_coord_features=20, out_features=24)
+FEATURE_TAG = "@H384C20x24"
+FEATURE_POINTS = 65536
+FEATURE_SENSORS = 1000
+# the kernels' launches in phase 20's main paths, by family
+feature_launches = {}
+
+
+def write_feature_case(root, n_snapshots: int, points: int) -> str:
+    """``recipes/cnf/case4.yml`` with ``FEATURE_CNF``'s coordinates and
+    outputs (``dims`` 20, ``out_features`` 24) on seeded synthetic
+    snapshots: 24 smooth travelling waves on random 20-D points."""
+    os.makedirs(root, exist_ok=True)
+    c_in, c_out = FEATURE_CNF["in_coord_features"], FEATURE_CNF["out_features"]
+    rng = np.random.default_rng(points + c_in)
+    coords = rng.uniform(size=(points, c_in)).astype(np.float32)
+    phase = rng.uniform(0, 2 * np.pi, size=(n_snapshots, 1, c_out))
+    k = rng.normal(size=(c_in, c_out)) * 2
+    fois = np.sin(coords @ k + phase) + 0.1 * rng.standard_normal((n_snapshots, points, c_out))
+    np.save(os.path.join(root, "output.npy"), fois.astype(np.float32))
+    np.save(os.path.join(root, "coords.npy"), coords)
+    with open(RECIPE_CNF) as f:
+        recipe = yaml.safe_load(f)
+    recipe.update(data_path=os.path.join(root, "output.npy"),
+                  coor_path=os.path.join(root, "coords.npy"),
+                  save_path=os.path.join(root, "run"), epochs=2, save_every=2, multiGPU=1,
+                  dims=c_in)
+    recipe["NF"].update(in_coord_features=c_in, out_features=c_out)
+    return _write_yaml(os.path.join(root, "case4.yml"), recipe)
+
+
+def feature_paths(root, device) -> dict:
+    """Phase 20 (b)-(d), the main paths at ``FEATURE_CNF``: (b)
+    ``cli.train_cnf`` on 4 snapshots of ``FEATURE_POINTS`` points, 2
+    epochs and a 1-epoch resume (the forward and the training backward);
+    (c) its checkpoint read back and decoded at its mesh through
+    ``inference.CNF_inference`` (the float32 forward) against the plain
+    route, and the same decoder's bf16 ``compute_dtype`` forward
+    (``fused_siren_decode``, as phase 15a; neither package's inference API
+    takes a compute dtype) against its plain version; (d) one guided step's
+    gradient through ``CNFDecodeOperator`` at ``FEATURE_SENSORS`` sensors (384
+    x 1000 pairs, above ``FUSED_MIN_PAIRS``: the forward and dz) against the
+    plain route's.  Returns the launches, zeroed before each run and read
+    after."""
+    froot = os.path.join(root, "features")
+    recipe = write_feature_case(froot, 4, FEATURE_POINTS)
+    run = zoo_train(froot, "SIRENAutodecoder_film", recipe, lr=WIDE_LR)
+    counts = dict(run["counts"])
+    log(f"[features] cli.train_cnf at {FEATURE_CNF['in_coord_features']} -> "
+        f"{FEATURE_CNF['out_features']} features: ms per batch step (4 x {FEATURE_POINTS}) "
+        f"{[round(x, 1) for x in run['step_ms']]}, peak {run['peak']:.2f} GiB, launches "
+        f"{counts}")
+    missing = [k for k in ("siren_decode_forward", "siren_decode_bwd") if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"the CNF at C > 16 trained without launching {missing}")
+    ckpt = latest_checkpoint(os.path.join(froot, "SIRENAutodecoder_film"))[0]
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the training mesh (the normalizers are pointwise over it)
+    rows, rng = CASE4_RECIPE["decode_batch_size"], np.random.default_rng(20)
+    coords = np.load(os.path.join(froot, "coords.npy"))
+    sd.reset_launch_counts()
+    inf = CNF_inference(ckpt, recipe, device=device)
+    fused = inf.predict(coords, list(range(min(rows, inf.latents.shape[0]))), batch_size=rows)
+    counts["siren_decode_forward"] += sd.LAUNCHES["siren_decode_forward"]
+    plain = CNF_inference(ckpt, recipe, device=device, use_pallas=False).predict(
+        coords, list(range(min(rows, inf.latents.shape[0]))), batch_size=rows)
+    rel = float(np.linalg.norm(fused - plain) / np.linalg.norm(plain))
+    model, lat = inf.model, inf.latents
+    ncoords = inf.x_normalizer.normalize(torch.as_tensor(coords, device=device)).contiguous()
+    sd.reset_launch_counts()
+    with torch.no_grad():
+        bf16 = sd.fused_siren_decode(model, ncoords, lat, compute_dtype=torch.bfloat16)
+        counts["siren_decode_forward_bf16"] += sd.LAUNCHES["siren_decode_forward_bf16"]
+        w_first, w_mid, w_head, b_head, w2, b1, scale = sd.stack_weights(model, model.w0)
+        bf16_plain = sd.decode_forward_plain(ncoords, sd.film_table(lat, w2, b1, scale),
+                                             w_first, w_mid, w_head, b_head, torch.bfloat16)
+    rel16 = rel_l2(bf16, bf16_plain)
+    ok = (fused.shape == plain.shape and np.isfinite(fused).all() and rel <= ZOO_REL_TOL
+          and torch.isfinite(bf16).all().item() and rel16 <= 1e-2)
+    log(f"[features] inference.CNF_inference on the trained checkpoint: {fused.shape}, "
+        f"finite {bool(np.isfinite(fused).all())}, against the plain route rel L2 {rel:.3e} "
+        f"(tol {ZOO_REL_TOL}); the bf16 forward on {tuple(lat.shape)} latents against its "
+        f"plain version rel L2 {rel16:.3e} (tol 1e-2) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the decode at C > 16 is wrong")
+    # (d) a guided step's gradient at FEATURE_SENSORS sensors
+    T, L = CASE4_RECIPE["time_length"], CASE4_RECIPE["latent_size"]
+    sensors = rng.uniform(size=(FEATURE_SENSORS, FEATURE_CNF["in_coord_features"])).astype(
+        np.float32)
+    y = torch.as_tensor(0.1 * rng.standard_normal((T, FEATURE_SENSORS,
+                                                   FEATURE_CNF["out_features"])),
+                        dtype=torch.float32, device=device)
+    x = torch.as_tensor(rng.uniform(-1, 1, (1, 1, T, L)), dtype=torch.float32, device=device)
+    c_out = FEATURE_CNF["out_features"]
+    # the CNF's coordinate normalizer; fields in [-1, 1] (the trained one is
+    # pointwise over the training mesh)
+    y_norm = Normalizer((torch.ones(1, c_out), -torch.ones(1, c_out)), "-11", 0)
+    grads, walls = {}, {}
+    for route in (None, False):
+        op = CNFDecodeOperator(model=model, coords=sensors, x_normalizer=inf.x_normalizer,
+                               y_normalizer=y_norm, max_val=1.0, min_val=-1.0,
+                               use_pallas=route, device=device)
+        xr = x.clone().requires_grad_(True)
+        sd.reset_launch_counts()
+        t0 = time.perf_counter()
+        (grads[route],) = torch.autograd.grad(((op.forward(xr) - y) ** 2).sum(), xr)
+        torch.cuda.synchronize()
+        walls[route] = (time.perf_counter() - t0) * 1e3
+        if route is None:
+            fused_route = op.fused_route(T)
+            for k in ("siren_decode_forward", "siren_decode_dz"):
+                counts[k] += sd.LAUNCHES[k]
+            step = dict(sd.LAUNCHES)
+    rel_g = rel_l2(grads[None], grads[False])
+    ok = (fused_route and torch.isfinite(grads[None]).all().item() and rel_g <= GRAD_REL_TOL
+          and step["siren_decode_forward"] > 0 and step["siren_decode_dz"] > 0)
+    log(f"[features] a guided step's gradient through CNFDecodeOperator at {FEATURE_SENSORS} "
+        f"sensors ({T} x {FEATURE_SENSORS} pairs, kernels {fused_route}): against the plain "
+        f"route rel L2 {rel_g:.3e} (tol {GRAD_REL_TOL}); wall {walls[None]:.1f} ms (plain "
+        f"route {walls[False]:.1f} ms, first calls); launches {step} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the guided step at C > 16 is wrong or did not launch the kernels")
+    return counts
+
+
+def phase_features(root, device, results) -> dict:
+    """Phase 20: the SIREN kernels at more than 16 coordinates or outputs,
+    which the port refused before while the JAX kernels ran.  (a) every
+    SIREN kernel (the float32 and bf16 forwards, dz, the training backward)
+    at each of ``FEATURE_CHECKS`` against its plain version and float64
+    under the criteria of phases 3, 15, 4 and 7, with bitwise repeats and
+    its plans logged (``wide_kernel_checks``); timed at Case4's width at 20
+    -> 24 (the forward, bf16 forward and the backward at 4 x
+    ``FEATURE_POINTS``, dz at 384 x ``FEATURE_SENSORS``; medians of 3):
+    the kernels line's ``FEATURE_TAG`` rows; then the main paths
+    (``feature_paths``), whose launches the rows take."""
+    errs = {}
+    for c_in, c_out, layers, h in FEATURE_CHECKS:
+        model, label = check_decoder(device, c_in, c_out, layers, h)
+        errs[h] = wide_kernel_checks(model, device, label)
+        if h == 384:
+            T = CASE4_RECIPE["time_length"]
+            results[f"siren_decode_forward{FEATURE_TAG}"] = dict(
+                forward_time(model, device, 4, FEATURE_POINTS, 60, repeats=3),
+                max_abs_err=errs[h]["forward"])
+            results[f"siren_decode_forward_bf16{FEATURE_TAG}"] = dict(
+                bf16_forward_time(model, device, 4, FEATURE_POINTS, 61, repeats=3),
+                max_abs_err=errs[h]["bf16"])
+            results[f"siren_decode_dz{FEATURE_TAG}"] = dict(
+                dz_time(model, device, T, FEATURE_SENSORS, 62, repeats=3),
+                max_abs_err=errs[h]["dz"])
+            results[f"siren_decode_bwd{FEATURE_TAG}"] = dict(
+                bwd_time(model, device, 4, FEATURE_POINTS, seed=63, repeats=3),
+                max_abs_err=errs[h]["bwd"])
+        del model
+        torch.cuda.empty_cache()
+    counts = feature_paths(root, device)
+    feature_launches.update(counts)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4791,6 +5078,8 @@ def main() -> int:
         wide_launches = phase_wider(root, device, results)
         stamp("phase 19 (the SIREN kernels up to H = 1024, C = 16; the cluster kernels up "
               f"to H = {sd.MAX_HIDDEN['forward']})")
+        phase_features(root, device, results)
+        stamp("phase 20 (the SIREN kernels at C > 16)")
     launches.update(flash_launches)
 
     # the rows at H = 128 take the demo --fast's launches (its CNF stage is
@@ -4825,6 +5114,16 @@ def main() -> int:
                   "flash_attention.py:158"),
                  ("flash_bwd_dkv", f"flash_bwd_dkv{tag}", "flash_attention.cu",
                   "flash_attention.py:188")]
+    rows += [("flash_forward", f"flash_forward{bf16}{tag}", "flash_attention.cu",
+              "flash_attention.py:56")
+             for tag, bf16 in [(t, "_bf16") for t in FLASH_WIDE_TIMES]
+             + [(t, b) for t in FLASH_WIDE_FWD_TIMES for b in ("", "_bf16")]]
+    # the SIREN kernels at more than 16 features (phase 20)
+    rows += [(fam, f"{fam}{FEATURE_TAG}", *(fwd if "forward" in fam else chain),
+              *(() if "forward" in fam else
+                (f"siren_decode.py:{315 if fam == 'siren_decode_dz' else 434}",)))
+             for fam in ("siren_decode_forward", "siren_decode_forward_bf16",
+                         "siren_decode_dz", "siren_decode_bwd")]
     kernels = []
     for kname, key, src, replaces in rows:
         r = results[key]
@@ -4838,9 +5137,13 @@ def main() -> int:
             # H = 128; no main path runs the other widths listed apart or
             # C = 16 (the base rows count the other main paths' launches);
             # the flash rows above 128 take phase 12b's and 18 (f)'s
+            # the rows at many tokens and 512 channels are the same
+            # instantiations as @D512's: their launches
             "launches": (wide_launches[kname] if key.endswith("@H1024")
+                         else feature_launches[kname] if key.endswith(FEATURE_TAG)
                          else wide_launches.get(key, 0) if "@H" in key
-                         else WIDE_FLASH_LAUNCHES.get(key, 0) if "@D" in key
+                         else WIDE_FLASH_LAUNCHES.get(key.replace("N9216", ""), 0)
+                         if "@D" in key
                          else launches[kname]),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

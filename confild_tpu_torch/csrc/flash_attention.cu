@@ -227,6 +227,82 @@
 //     registers), four of 48.25 KB (197824); bf16 64-row tiles, four stages
 //     of 32 KB (131264; dk/dv 133312).  One block an SM (up to 255
 //     registers a thread, no setmaxnreg).
+//
+// The float32 forward at D = 256, 384 and 512 (flash_fwd_wq_kernel<GW>;
+// namespace wq) replaces the column-group forward there, whose producer
+// bounded it: at (8, 9216, 256), with groups of 256 columns, it took 23.5
+// ms, and 8.8 with its producer's items cut out (tools/flash_fwd_compare.py
+// on an H100, its mbarrier waits bounded); that producer split and wrote
+// Q's chunk images again for every key tile and group, half of all it
+// wrote.
+//   * Q stays resident as raw rows: the consumer warpgroup loads its 64
+//     rows once (row stride D + 4 floats, so a warp's loads hit 32 banks)
+//     and S = Q K^T takes Q as the register A operand, each thread loading
+//     its fragments of a k16 step from the rows and splitting them into
+//     TF32 halves while the step before runs (two sets of registers, the
+//     older freed by the wait on its products).  TF32 wgmma reads a shared
+//     operand K-major only and needs both halves, so K's chunks and V's
+//     columns still pass through the producer's threads as images.
+//   * A block owns GW output columns, 256 where they divide D (the whole
+//     head at 256; the recompute 1.5x at 512, where groups of 128 took
+//     2.5x), else 128 (384), over 32-key tiles (the accumulator takes 128
+//     registers a thread); its items are 16 KB each, a chunk of 64 columns
+//     of K or a sub-group of 64 columns of V transposed, in six stages; the
+//     products with P run a sub-group at a time into one partial.  The
+//     producer keeps the next item's loads in flight while it writes the
+//     current one (produce_ahead), each item released as soon as written.
+//   * On an H100 (tools/flash_fwd_compare.py, mbarrier waits bounded) at
+//     (8, 9216, 256): 15.8 ms against the column-group forward's 22.4 and
+//     SDPA's 17.7 (bound 4.22); at (4, 9216, 512) 23.5 against 37.1 and
+//     17.0.  The producer still bounds it: with its items cut out it takes
+//     12.2 and 20.0; its loads two or three items ahead, 16.0 and 16.4.
+//   * Not taken: K's and V's halves written once to global memory and
+//     bulk-copied (twice the bytes through L2 that the producer's loads
+//     move now, every group and tile); two consumer warpgroups (a block of
+//     three warpgroups caps a thread at 168 registers, under the
+//     accumulator and its partials).  Above 512 Q's rows no longer fit
+//     beside the stages, and the column-group forward stays.
+//
+// The bf16 forward at D = 256, 384 and 512 (flash_fwd_tma_kernel<D, bf16>;
+// namespace tma) replaces the column-group forward there.  What held that
+// one back (6.86 ms at (8, 9216, 256) against SDPA's 1.10 on an H100): every
+// group recomputed S over the head, Q's chunk images were written again
+// every key tile, the producer's threads read global memory one round trip
+// an item and wrote every image, V's transposed image included, and one
+// consumer warpgroup a block.
+//   * A block is 128 query rows, two consumer warpgroups of 64, and owns
+//     GW output columns: the whole head at 256 (the output accumulator is
+//     128 float32 registers a thread), groups of 256 at 512 (1.5x the
+//     least products), of 128 at 384 (2x).  Eight warps and no producer
+//     warpgroup: a ninth warp would cap a thread at 168 registers (two
+//     warps a register file at most), and the copies take no thread's
+//     time.
+//   * Q's 128 rows are loaded once, by TMA tensor copies
+//     (cp.async.bulk.tensor on a 3-D map (column, row, head), so rows past
+//     N arrive as zeros), as D / 64 slabs of 128 rows x 128 bytes in the
+//     128-byte swizzle; each key tile's K (D / 64 slabs) and V's group
+//     (GW / 64 slabs) stream through a ring of NS stages by the same
+//     copies, a stage's full barrier armed with its bytes (expect-tx).
+//     Thread 0 issues Q and the first NS tiles; a stage is refilled with
+//     the tile NS on by the warpgroup that releases it second (a release
+//     count a stage), so neither warpgroup waits for the other.
+//   * No thread writes an operand image: S = Q K^T reads both operands
+//     K-major from the swizzled slabs (a k16 step is the next 32 bytes of
+//     a row, sbo 1024), P V reads V MN-major through the descriptor's
+//     transpose bit (lbo the slab stride KT x 128, sbo 1024), P in
+//     registers as in the narrow forward.  64 keys a tile where two stages
+//     fit beside Q (256: 197672 bytes; 384: 230440), else 32 (512: 230440).
+//   * Above 512 a resident Q of 128 rows no longer fits beside two stages,
+//     and the column-group forward stays.  P is rounded to bf16 relative to
+//     the running max as before; every group the same m, l and lse (group
+//     0 writes lse); every output element one owner; bitwise repeats.
+//   * On an H100 (tools/flash_fwd_compare.py, mbarrier waits bounded) at
+//     (8, 9216, 256): 1.29-1.33 ms against the column-group forward's 6.8
+//     and SDPA's 1.12-1.26 (bound 0.70); at (4, 9216, 512) 2.86-2.95
+//     against 12.5 and SDPA's 6.4.  Without S = Q K^T it takes 0.92-0.98,
+//     without P V 1.15-1.26: S's products of 64 keys (m64n64k16, 16 of them
+//     a tile at 256) cost more than P V's four m64n256k16, and each
+//     warpgroup runs S, the softmax and P V one after another.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -1731,6 +1807,582 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// float32 heads of 256, 384 and 512: the forward with Q resident as raw rows
+// (the plan and the roles: the note at the top)
+// ---------------------------------------------------------------------------
+namespace wq {
+
+using namespace tc;
+
+constexpr int ROWS = 64;        // query rows a block: one consumer warpgroup
+constexpr int THREADS = 256;    // and the producer warpgroup
+constexpr int KT = 32;          // keys a tile
+constexpr int SUB = 64;         // columns an item: a chunk of K, or a sub-group of V
+constexpr int Q_PAD = 4;        // Q's row stride d + 4: a warp's A loads hit 32 banks
+constexpr int MAX_D = 512;      // the widest head whose Q fits beside the stages
+constexpr int LOAD_AHEAD = 1;   // items whose loads a producer thread keeps in flight
+
+// Items of KT x SUB floats in both TF32 halves (a K chunk K-major, or SUB
+// columns of V transposed), NI stages of them, their barriers, then Q's
+// rows.  Mirrored by ops/flash_attention.py::forward_plan.
+struct Plan {
+  static constexpr int C = 1, NR = 0, ST = KT;   // as tc::init_barriers, wide::Ring take them
+  static constexpr int STAGE = KT * SUB * 8;
+  static constexpr int NI = 6;
+  static constexpr int FIXED = ALIGN + NI * STAGE + 8 * 2 * NI;
+  __host__ __device__ static constexpr int smem(int d) { return FIXED + ROWS * (d + Q_PAD) * 4; }
+};
+static_assert(Plan::smem(MAX_D) <= SMEM_LIMIT, "the plan exceeds a block's shared memory");
+
+// An item's loads into a thread's registers (16 words), then its writes:
+// a chunk item, SUB columns of the tile's valid rows from src (row stride
+// d), K-major in both halves (kmajor_image's layout); or a sub-group item,
+// SUB columns from src of the tile's valid rows, transposed
+// (transposed_image's layout and key order)
+constexpr int WORDS = 16;
+__device__ __forceinline__ void k_load(uint32_t (&w)[WORDS], const float* src, int valid, int d,
+                                       int ptid) {
+  constexpr int CPR = SUB * 4 / 16, KB = KT * CPR / 128;
+  static_assert(4 * KB == WORDS && (KT * CPR) % 128 == 0, "whole chunks a thread");
+#pragma unroll
+  for (int j = 0; j < KB; ++j) {
+    const int u = ptid + 128 * j, r = u % KT, ck = (u / KT + r) % CPR;
+    const uint4 x = r < valid ? *reinterpret_cast<const uint4*>(src + (size_t)r * d + 4 * ck)
+                              : make_uint4(0u, 0u, 0u, 0u);
+    w[4 * j] = x.x;
+    w[4 * j + 1] = x.y;
+    w[4 * j + 2] = x.z;
+    w[4 * j + 3] = x.w;
+  }
+}
+__device__ __forceinline__ void k_store(unsigned char* stage, const uint32_t (&w)[WORDS],
+                                        int ptid) {
+  constexpr int CPR = SUB * 4 / 16, KB = KT * CPR / 128;
+#pragma unroll
+  for (int j = 0; j < KB; ++j) {
+    const int u = ptid + 128 * j, r = u % KT, ck = (u / KT + r) % CPR;
+    put16<KT, float>(stage, r, ck, make_uint4(w[4 * j], w[4 * j + 1], w[4 * j + 2], w[4 * j + 3]));
+  }
+}
+__device__ __forceinline__ void v_load(uint32_t (&w)[WORDS], const float* src, int valid, int d,
+                                       int ptid) {
+  constexpr int VU = SUB * (KT / 4) / 128;
+  static_assert(4 * VU == WORDS, "whole chunks a thread");
+#pragma unroll
+  for (int j = 0; j < VU; ++j) {
+    const int u = ptid + 128 * j, c = u % SUB, ck = u / SUB;
+    const int row0 = 8 * (ck >> 1) + (ck & 1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + 2 * e;
+      w[4 * j + e] = __float_as_uint(row < valid ? src[(size_t)row * d + c] : 0.f);
+    }
+  }
+}
+__device__ __forceinline__ void v_store(unsigned char* stage, const uint32_t (&w)[WORDS],
+                                        int ptid) {
+  constexpr int VU = SUB * (KT / 4) / 128;
+#pragma unroll
+  for (int j = 0; j < VU; ++j) {
+    const int u = ptid + 128 * j, c = u % SUB, ck = u / SUB;
+    uint32_t b[4], sm[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split<false>(__uint_as_float(w[4 * j + e]), b[e], sm[e]);
+    const int o = img_off<SUB, 2>(c, ck);
+    *reinterpret_cast<uint4*>(stage + o) = make_uint4(b[0], b[1], b[2], b[3]);
+    *reinterpret_cast<uint4*>(stage + o + SUB * 32) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
+  }
+}
+
+// The producer warpgroup: items 0 .. items - 1 in order, as
+// wide::produce_items, with the loads of the A items after the one it
+// writes in flight (A + 1 sets of WORDS registers, taken in turns by a
+// loop unrolled by A + 1); each item is fenced and released as soon as it
+// is written (a batch of items released at once measured slower: 19.7 and
+// 21.6 ms at (8, 9216, 256) for two and four, against 15.8 for one ahead)
+template <int A, class Load, class Store>
+__device__ __forceinline__ void produce_ahead(unsigned char* img0, uint32_t img_full,
+                                              uint32_t img_empty, int items, Load load,
+                                              Store store) {
+  constexpr int NB = A + 1;
+  uint32_t buf[NB][WORDS];
+#pragma unroll
+  for (int b = 0; b < A; ++b)
+    if (b < items) load(b, buf[b]);
+#pragma unroll 1
+  for (int it0 = 0; it0 < items; it0 += NB) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int it = it0 + b, si = it % Plan::NI;
+      if (it >= items) break;
+      if (it + A < items) load(it + A, buf[(b + A) % NB]);   // the set item it - 1 freed
+      if (it >= Plan::NI) mbar_wait(img_empty + 8 * si, ((it / Plan::NI) + 1) & 1);
+      store(it, buf[b], img0 + si * Plan::STAGE);
+      fence_async();
+      mbar_arrive(img_full + 8 * si);
+    }
+  }
+}
+
+// The TF32 A fragments of one k16 step from Q's raw rows: k8 step kk's
+// columns k0 + 8 kk + t (+ 4) of rows arow (+ 8), split into halves
+__device__ __forceinline__ void q_frags(uint32_t (&ab)[2][4], uint32_t (&as)[2][4],
+                                        const float* qr, int ld, int k0, int arow, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const float* p = qr + arow * ld + k0 + 8 * kk + t;
+    const float x[4] = {p[0], p[8 * ld], p[4], p[8 * ld + 4]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split<false>(x[e], ab[kk][e], as[kk][e]);
+  }
+}
+
+// s += Q's columns 64 c .. 64 c + 63 (register A: this thread's fragments
+// from the raw rows, split in registers) times the chunk item's K rows at
+// b, transposed: three TF32 products a k8 step into a zeroed partial a k16
+// step, carried into s (two partials taking turns); the next k16 step's A
+// loads and splits while the current one's products run, into the other
+// set of registers, whose products the wait before has finished
+__device__ __forceinline__ void s_chunk(float (&s)[KT / 2], const float* qr, int ld, int c,
+                                        uint32_t b, int arow, int t) {
+  constexpr int STEPS = SUB / 16;
+  uint32_t ab[2][2][4], as[2][2][4];
+  float part[2][KT / 2] = {};   // zeroed: as ss_product's partials
+  q_frags(ab[0], as[0], qr, ld, c * SUB, arow, t);
+#pragma unroll
+  for (int c2 = 0; c2 < STEPS; ++c2) {
+    const int x = c2 & 1;
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) fence_reg(part[x][i]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint32_t bk = b + (2 * c2 + kk) * (KT * 32 * 2);
+      mma_rs<KT, float>(part[x], as[x][kk], b_desc(bk), kk);
+      mma_rs<KT, float>(part[x], ab[x][kk], b_desc(bk + KT * 32), 1);
+      mma_rs<KT, float>(part[x], ab[x][kk], b_desc(bk), 1);
+    }
+    wgmma_commit();
+    if (c2 > 0) {
+      wgmma_wait<1>();   // step c2 - 1 done: its partial and its A registers
+      fence_frags(ab[x ^ 1]);
+      fence_frags(as[x ^ 1]);
+      carry(s, part[x ^ 1]);
+    }
+    if (c2 + 1 < STEPS) q_frags(ab[x ^ 1], as[x ^ 1], qr, ld, c * SUB + 16 * (c2 + 1), arow, t);
+  }
+  wgmma_wait<0>();
+  fence_frags(ab[(STEPS - 1) & 1]);
+  fence_frags(as[(STEPS - 1) & 1]);
+  carry(s, part[(STEPS - 1) & 1]);
+}
+
+// acc (GW columns) += P (s's TF32 halves as register A) times the tile's V,
+// one sub-group item of SUB columns after another, each into the one
+// partial (its first product ignores it), carried into its columns
+template <int GW>
+__device__ __forceinline__ void pv_subgroups(float (&acc)[GW / 2], const float (&s)[KT / 2],
+                                             wide::Ring<Plan>& ring, int lane) {
+  uint32_t big[KT / 8][4], sm[KT / 8][4];
+  tf32_frags<KT>(s, big, sm);
+  float part[SUB / 2] = {};
+#pragma unroll
+  for (int h = 0; h < GW / SUB; ++h) {
+    const uint32_t vb = smem_addr(ring.acquire());
+#pragma unroll
+    for (int i = 0; i < SUB / 2; ++i) fence_reg(part[i]);
+    wgmma_fence();
+    rs_tf32<SUB, KT, SUB>(part, big, sm, vb, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < SUB / 2; ++i) {
+      fence_reg(part[i]);
+      acc[h * (SUB / 2) + i] += part[i];
+    }
+    ring.release(lane);
+  }
+  fence_frags(big);
+  fence_frags(sm);
+}
+
+}  // namespace wq
+
+// Forward, float32, D = 256, 384, 512: a block is (64 query rows, group of
+// GW output columns) of one head; the consumer warpgroup loads the rows of
+// Q once, the producer warpgroup writes each key tile's items: the d / 64
+// chunks of K, then the GW / 64 sub-groups of V transposed.  Every group
+// computes the same m, l and lse; group 0 writes lse.
+template <int GW>
+__global__ void __launch_bounds__(wq::THREADS, 1)
+flash_fwd_wq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out,
+                    float* __restrict__ lse, int n, int d, float scale) {
+  using namespace wq;
+  using P = Plan;
+  static_assert(GW % SUB == 0, "whole sub-groups");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* img0 = wide::aligned_smem(smem_raw);
+  const uint32_t img_full = smem_addr(img0 + P::NI * P::STAGE), img_empty = img_full + 8 * P::NI;
+  float* qr = reinterpret_cast<float*>(img0 + P::NI * P::STAGE + 16 * P::NI);   // ROWS x ld
+  const int tid = threadIdx.x, groups = d / GW, ld = d + Q_PAD;
+  const int grp = blockIdx.x % groups, q0 = (blockIdx.x / groups) * ROWS;
+  const size_t base = (size_t)blockIdx.y * n * d;
+  const int nch = d / SUB, per_tile = nch + GW / SUB, tiles = (n + KT - 1) / KT;
+  init_barriers<P>(img_full);
+
+  if (tid >= 128) {   // the producer, its loads LOAD_AHEAD items ahead
+    const int ptid = tid - 128;
+    produce_ahead<LOAD_AHEAD>(
+        img0, img_full, img_empty, tiles * per_tile,
+        [&](int it, uint32_t (&w)[WORDS]) {
+          const int tile = it / per_tile, j = it - tile * per_tile;
+          const int row0 = tile * KT, valid = min(KT, n - row0);
+          const size_t rows = base + (size_t)row0 * d;
+          if (j < nch)
+            k_load(w, k + rows + j * SUB, valid, d, ptid);
+          else
+            v_load(w, v + rows + grp * GW + (j - nch) * SUB, valid, d, ptid);
+        },
+        [&](int it, const uint32_t (&w)[WORDS], unsigned char* stage) {
+          if (it % per_tile < nch)
+            k_store(stage, w, ptid);
+          else
+            v_store(stage, w, ptid);
+        });
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int arow = 16 * warp + g;
+  // Q's rows once (zeros past n), read by this warpgroup alone
+  for (int u = tid; u < ROWS * (d / 4); u += 128) {
+    const int r = u / (d / 4), c4 = u % (d / 4);
+    const float4 x = q0 + r < n
+                         ? __ldg(reinterpret_cast<const float4*>(q + base + (size_t)(q0 + r) * d) + c4)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(qr + r * ld + 4 * c4) = x;
+  }
+  wg_sync(2);
+  wide::Ring<P> ring{img0, img_full, img_empty, 0};
+  const float scale2 = scale * LOG2E;
+  // rows 16 warp + g + 8h: running max (log2 units), this thread's share of
+  // the running sum, the group's output columns in accumulator layout
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[GW / 2];
+#pragma unroll
+  for (int i = 0; i < GW / 2; ++i) acc[i] = 0.f;
+  for (int tile = 0; tile < tiles; ++tile) {
+    float s[KT / 2], alpha[2];
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) s[i] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < nch; ++c) {                                   // S = Q K^T
+      const uint32_t kb = smem_addr(ring.acquire());
+      s_chunk(s, qr, ld, c, kb, arow, t);
+      ring.release(lane);
+    }
+    fwd::softmax_tile<KT>(s, m, l, alpha, tile * KT, n, t, scale2);
+#pragma unroll
+    for (int i = 0; i < GW / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    pv_subgroups<GW>(acc, s, ring, lane);                             // O_g += P V_g
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + 16 * warp + g + 8 * h;
+    if (r >= n) continue;
+    const float inv = 1.f / l[h];
+    float* row = out + base + (size_t)r * d + grp * GW;
+#pragma unroll
+    for (int j = 0; j < GW / 8; ++j)
+      store2<float>(row + 8 * j + 2 * t, acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+    if (t == 0 && grp == 0) lse[(size_t)blockIdx.y * n + r] = m[h] * LN2 + logf(l[h]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 heads of 256, 384 and 512: the forward on TMA tensor copies (the
+// plan and the roles: the note at the top)
+// ---------------------------------------------------------------------------
+namespace tma {
+
+using namespace tc;
+
+constexpr int CONSUMERS = 2;                      // consumer warpgroups, 64 query rows each
+constexpr int ROWS = 64 * CONSUMERS;              // query rows a block
+// and no producer: one thread of each warpgroup issues copies (the copies
+// take no thread's time), so a block is eight warps, two on each of the
+// SM's four register files, and a thread may take 255 registers (a ninth
+// warp, or a producer warpgroup, caps them at 168, under the consumers'
+// output accumulator of 128 at 256 columns and its operands)
+constexpr int THREADS = 128 * CONSUMERS;
+constexpr int SLAB = 64;                          // bf16 columns of a 128-byte swizzled row
+constexpr int SLAB_ROW = 128;                     // its bytes
+constexpr int ATOM = 1024;                        // the swizzle's atom: 8 rows of 128 bytes
+constexpr int MAX_NS = 4;                         // stages, at most
+
+// The plan at head width D (256, 384 or 512): each block owns GW output
+// columns (the whole head where D is a multiple of 256 up to 256, groups
+// of 256 at 512, of 128 at 384); Q's 128 rows stay resident (D / 64
+// slabs of 128 rows x 128 bytes); a stage holds one key tile of KT keys:
+// K's D / 64 slabs then V's group, GW / 64 slabs, each KT rows x 128
+// bytes; KT = 64 where two stages fit beside Q, else 32; as many stages as
+// fit, up to MAX_NS.  Mirrored by ops/flash_attention.py::forward_plan.
+template <int D>
+struct Plan {
+  static constexpr int GW = D % 256 == 0 ? 256 : 128;
+  static constexpr int Q_BYTES = ROWS * D * 2;
+  static constexpr int FIXED = ATOM + Q_BYTES + 8;             // alignment slack, Q, q_full
+  static constexpr int KT = (SMEM_LIMIT - FIXED) / (64 * (D + GW) * 2 + 16) >= 2 ? 64 : 32;
+  static constexpr int STAGE = KT * (D + GW) * 2;
+  static constexpr int FIT = (SMEM_LIMIT - FIXED) / (STAGE + 16);   // a stage, its barrier and count
+  static constexpr int NS = FIT < MAX_NS ? FIT : MAX_NS;
+  static constexpr int SMEM = FIXED + NS * (STAGE + 16);
+  static constexpr int SLABS = D / SLAB;
+  static_assert(D % 128 == 0 && D > 128 && D % GW == 0, "a head of whole groups");
+  static_assert(NS >= 2 && SMEM <= SMEM_LIMIT, "the plan exceeds a block's shared memory");
+};
+
+// The descriptor of a wgmma operand in the 128-byte swizzle TMA writes
+// (rows of 128 bytes, a row's 16-byte chunks permuted by the row's index
+// within its 8-row atom, atoms 1024-byte aligned): lbo and sbo in bytes.
+// K-major (Q, K: a k16 step is the next 32 bytes of a row, lbo unused),
+// sbo the 1024 bytes between 8-row groups; MN-major (V, read through the
+// transpose bit: K along the rows), lbo between the 64-column slabs, sbo
+// between 8-row groups of K.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// arm bar for bytes
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// a box of a (D, N, BH) tensor map at (column, row, head) into dst,
+// completing on bar; rows past N (and the tensor) come as zeros
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int col, int row,
+                                        int head, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head), "r"(bar)
+      : "memory");
+}
+
+// d (m64 x nN, f32) += a (m64 x k16, bf16 pairs in registers, as mma_rs's)
+// . b (k16 x nN, bf16 in shared memory, MN-major: the transpose bit)
+template <int N>
+__device__ __forceinline__ void mma_rs_t(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d);
+template <>
+__device__ __forceinline__ void mma_rs_t<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs_t<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+// sc = the warpgroup's 64 rows of Q (qa) times the tile's KT keys (kb),
+// transposed, over the head: D / 64 slabs of four k16 steps, each step the
+// next 32 bytes of the swizzled rows, one commit group
+template <int D, int KT>
+__device__ __forceinline__ void s_product(float (&sc)[KT / 2], uint32_t qa, uint32_t kb) {
+#pragma unroll
+  for (int i = 0; i < KT / 2; ++i) {
+    sc[i] = 0.f;
+    fence_reg(sc[i]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < D / SLAB; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      mma_ss<KT, __nv_bfloat16>(sc, sw128_desc(qa + c * ROWS * SLAB_ROW + 32 * j, 16, ATOM),
+                                sw128_desc(kb + c * KT * SLAB_ROW + 32 * j, 16, ATOM), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < KT / 2; ++i) fence_reg(sc[i]);
+}
+
+// acc (the group's GW columns) += P (sc rounded to bf16 as register A) times
+// the stage's V group (vb, KT rows of GW / 64 slabs, MN-major), one k16 step
+// of keys (16 rows, 2048 bytes) a product
+template <int GW, int KT>
+__device__ __forceinline__ void pv_product(float (&acc)[GW / 2], const float (&sc)[KT / 2],
+                                           uint32_t vb) {
+  uint32_t pa[KT / 16][4];
+  bf16_frags<KT>(sc, pa);
+#pragma unroll
+  for (int i = 0; i < GW / 2; ++i) fence_reg(acc[i]);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < KT / 16; ++c)
+    mma_rs_t<GW>(acc, pa[c], sw128_desc(vb + c * 16 * SLAB_ROW, KT * SLAB_ROW, ATOM), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_frags(pa);
+#pragma unroll
+  for (int i = 0; i < GW / 2; ++i) fence_reg(acc[i]);
+}
+
+}  // namespace tma
+
+// Forward, bf16, D = 256, 384, 512: a block is (128 query rows, group of
+// GW output columns) of one head, two warpgroups of 64 rows.  Thread 0
+// issues Q's copies and the first NS tiles'; a stage is refilled with the
+// tile NS on by the warpgroup that releases it second (a release count a
+// stage, counted by each warpgroup's first thread after its products
+// end), so neither warpgroup waits for the other.  Barriers: q_full (Q's
+// tensor copies), full[NS] (a tile's K and V copies).  Every group
+// computes the same m, l and lse; group 0 writes lse.
+template <int D, typename T>
+__global__ void __launch_bounds__(tma::THREADS, 1)
+flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v, T* __restrict__ out,
+                     float* __restrict__ lse, int n, float scale) {
+  using namespace tma;
+  using P = Plan<D>;
+  constexpr int GW = P::GW, KT = P::KT, NS = P::NS;
+  static_assert(sizeof(T) == 2, "bf16 operands");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + ATOM - 1) & ~(uintptr_t)(ATOM - 1));
+  unsigned char* st0 = qs + P::Q_BYTES;             // NS stages: K's slabs, then V's
+  const uint32_t q_full = smem_addr(st0 + NS * P::STAGE), full = q_full + 8;
+  // the stages' release counts, 8 bytes apart after the full barriers
+  unsigned int* released = reinterpret_cast<unsigned int*>(st0 + NS * P::STAGE + 8 + 8 * NS);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  constexpr int groups = D / GW;
+  const int grp = blockIdx.x % groups, q0 = (blockIdx.x / groups) * ROWS;
+  const int head = blockIdx.y;
+  const int tiles = (n + KT - 1) / KT;
+  // tile u's K slabs and V's group slabs into stage u % NS, by one thread
+  auto fill = [&](int u) {
+    const int s = u % NS;
+    const uint32_t kb = smem_addr(st0 + s * P::STAGE), vb = kb + KT * D * 2;
+    mbar_expect(full + 8 * s, P::STAGE);
+#pragma unroll 1
+    for (int c = 0; c < P::SLABS; ++c)
+      tma_box(kb + c * KT * SLAB_ROW, &map_k, c * SLAB, u * KT, head, full + 8 * s);
+#pragma unroll 1
+    for (int c = 0; c < GW / SLAB; ++c)
+      tma_box(vb + c * KT * SLAB_ROW, &map_v, grp * GW + c * SLAB, u * KT, head, full + 8 * s);
+  };
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      released[2 * s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(q_full, P::Q_BYTES);
+#pragma unroll 1
+    for (int c = 0; c < P::SLABS; ++c)
+      tma_box(smem_addr(qs + c * ROWS * SLAB_ROW), &map_q, c * SLAB, q0, head, q_full);
+    for (int u = 0; u < NS && u < tiles; ++u) fill(u);
+  }
+
+  const int ctid = tid & 127, warp = ctid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t qa = smem_addr(qs) + wg * 64 * SLAB_ROW;   // the warpgroup's 64 rows
+  const float scale2 = scale * LOG2E;
+  // rows 16 warp + g + 8h of the warpgroup's: running max (log2 units),
+  // this thread's share of the running sum, the group's output columns in
+  // accumulator layout
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[GW / 2];
+#pragma unroll
+  for (int i = 0; i < GW / 2; ++i) acc[i] = 0.f;
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % NS;
+    mbar_wait(full + 8 * s, (it / NS) & 1);
+    const uint32_t kb = smem_addr(st0 + s * P::STAGE), vb = kb + KT * D * 2;
+    float sc[KT / 2], alpha[2];
+    s_product<D, KT>(sc, qa, kb);                                       // S = Q K^T
+    fwd::softmax_tile<KT>(sc, m, l, alpha, it * KT, n, t, scale2);
+#pragma unroll
+    for (int i = 0; i < GW / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    pv_product<GW, KT>(acc, sc, vb);                                   // O_g += P V_g
+    // this warpgroup is done with the stage: its first thread counts the
+    // release, and the second release refills the stage
+    if (ctid == 0 && (atomicAdd(released + 2 * s, 1u) & 1u) && it + NS < tiles) fill(it + NS);
+    __syncwarp();
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + 64 * wg + 16 * warp + g + 8 * h;
+    if (r >= n) continue;
+    const float inv = 1.f / l[h];
+    T* row = out + ((size_t)head * n + r) * D + grp * GW;
+#pragma unroll
+    for (int j = 0; j < GW / 8; ++j)
+      store2<T>(row + 8 * j + 2 * t, acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+    if (t == 0 && grp == 0) lse[(size_t)head * n + r] = m[h] * LN2 + logf(l[h]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers: one instantiation per (D, type), and per type above 128
 // ---------------------------------------------------------------------------
 // the operands' rows move as 16-byte chunks and bulk copies
@@ -1815,11 +2467,30 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
-// above 128: one block per (head, 64 rows, column group of 128)
+// float32 at D <= 512: one block per (head, 64 rows, group of GW), Q
+// resident
+template <int GW>
+int launch_fwd_wq(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                  int n, int d, float scale, cudaStream_t stream) {
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem(flash_fwd_wq_kernel<GW>, wq::Plan::smem(wq::MAX_D), done);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(((n + wq::ROWS - 1) / wq::ROWS) * (d / GW)), (unsigned)bh);
+  flash_fwd_wq_kernel<GW><<<grid, wq::THREADS, wq::Plan::smem(d), stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, n, d, scale);
+  return (int)cudaGetLastError();
+}
+
+// above 128: one block per (head, 64 rows, column group of 128); float32
+// up to 512 the forward with Q resident, in groups of 256 where they
+// divide d
 template <typename T>
 int launch_fwd_wide(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
                     int n, int d, float scale, cudaStream_t stream) {
   if (!aligned16(q, k, v, out)) return (int)cudaErrorMisalignedAddress;
+  if (sizeof(T) == 4 && d <= wq::MAX_D)
+    return d % 256 == 0 ? launch_fwd_wq<256>(q, k, v, out, lse, bh, n, d, scale, stream)
+                        : launch_fwd_wq<128>(q, k, v, out, lse, bh, n, d, scale, stream);
   using P = wide::Plan<T, wide::FWD>;
   static unsigned long long done = 0;
   cudaError_t err = allow_smem(flash_fwd_wide_kernel<wide::G, T>, P::SMEM, done);
@@ -1861,14 +2532,73 @@ int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dou
   return (int)cudaGetLastError();
 }
 
+// A (BH, N, D) bf16 tensor as a 3-D tensor map (columns, rows, heads) of
+// boxes of 64 columns by rows of one head, in the 128-byte swizzle; rows
+// past N come as zeros (hopper.cuh::encode_tiled)
+inline int head_map(CUtensorMap* map, const void* base, int bh, int n, int d, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dim[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)bh};
+  const cuuint64_t stride[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)tma::SLAB, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dim, stride, box,
+             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// bf16 at D = 256, 384, 512: one block per (head, 128 rows, group of GW)
+template <int D>
+int launch_fwd_tma(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                   int n, float scale, cudaStream_t stream) {
+  if (!aligned16(q, k, v, out)) return (int)cudaErrorMisalignedAddress;
+  using P = tma::Plan<D>;
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem(flash_fwd_tma_kernel<D, __nv_bfloat16>, P::SMEM, done);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_q, map_k, map_v;
+  int bad = head_map(&map_q, q, bh, n, D, tma::ROWS);
+  if (bad == 0) bad = head_map(&map_k, k, bh, n, D, P::KT);
+  if (bad == 0) bad = head_map(&map_v, v, bh, n, D, P::KT);
+  if (bad != 0) return bad;
+  const dim3 grid((unsigned)(((n + tma::ROWS - 1) / tma::ROWS) * (D / P::GW)), (unsigned)bh);
+  flash_fwd_tma_kernel<D, __nv_bfloat16><<<grid, tma::THREADS, P::SMEM, stream>>>(
+      map_q, map_k, map_v, (__nv_bfloat16*)out, lse, n, scale);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 forward at d on TMA (256, 384, 512), or -1: the column-group
+// kernel (a resident Q of 128 rows no longer fits beside two stages)
+#define TMA_DISPATCH(LAUNCH, ...)                         \
+  if (dtype == 1) switch (d) {                            \
+      case 256: return LAUNCH<256>(__VA_ARGS__);          \
+      case 384: return LAUNCH<384>(__VA_ARGS__);          \
+      case 512: return LAUNCH<512>(__VA_ARGS__);          \
+      default: break;                                     \
+    }
+
 // the plans above 128 (one a type: d is an argument of the kernels), as
 // plan_fwd and plan_bwd give them
 template <typename T>
-int plan_fwd_wide(int* plan) {
+int plan_fwd_wide(int* plan, int d) {
   using P = wide::Plan<T, wide::FWD>;
-  plan[0] = P::ST;
-  plan[1] = P::NR;
-  plan[2] = P::NI;
+  const bool resident = sizeof(T) == 4 && d <= wq::MAX_D;   // the forward with Q resident
+  plan[0] = resident ? wq::KT : P::ST;
+  plan[1] = 0;
+  plan[2] = resident ? wq::Plan::NI : P::NI;
+  plan[3] = resident ? wq::Plan::smem(d) : P::SMEM;
+  return 0;
+}
+// the TMA forward's: {keys a tile, stages (raw: TMA writes the operands
+// wgmma reads), no image stage, shared-memory bytes}
+template <int D>
+int plan_fwd_tma(int* plan) {
+  using P = tma::Plan<D>;
+  plan[0] = P::KT;
+  plan[1] = P::NS;
+  plan[2] = 0;
   plan[3] = P::SMEM;
   return 0;
 }
@@ -1910,6 +2640,7 @@ extern "C" {
 int flash_forward(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
                   int n, int d, int dtype, float scale, void* stream) {
   if (!args_ok(bh, n, d, dtype)) return (int)cudaErrorInvalidValue;
+  TMA_DISPATCH(launch_fwd_tma, q, k, v, out, lse, bh, n, scale, (cudaStream_t)stream)
   WIDE_DISPATCH(launch_fwd_wide, q, k, v, out, lse, bh, n, d, scale, (cudaStream_t)stream)
   FLASH_DISPATCH(launch_fwd, q, k, v, out, lse, bh, n, scale, (cudaStream_t)stream)
 }
@@ -1918,7 +2649,8 @@ int flash_forward(const void* q, const void* k, const void* v, void* out, float*
 // plan[4] = {keys a tile, raw stages, image stages, shared-memory bytes}
 int flash_forward_plan(int d, int dtype, int* plan) {
   if (!args_ok(1, 1, d, dtype)) return (int)cudaErrorInvalidValue;
-  WIDE_DISPATCH(plan_fwd_wide, plan)
+  TMA_DISPATCH(plan_fwd_tma, plan)
+  WIDE_DISPATCH(plan_fwd_wide, plan, d)
   FLASH_DISPATCH(plan_fwd, plan)
 }
 

@@ -1,10 +1,12 @@
 // PTX helpers for the port's Hopper (sm_90a) kernels, shared by the SIREN
 // cluster kernels (siren_cluster.cuh and its users) and the flash-attention
-// forward (flash_attention.cu): 16-byte shared loads, mbarriers, 1-D bulk
+// kernels (flash_attention.cu): 16-byte shared loads, mbarriers, 1-D bulk
 // async copies completed on an mbarrier, the wgmma fences and waits, the
-// no-swizzle K-major shared-memory descriptor, and bf16 packing.
+// no-swizzle K-major shared-memory descriptor, bf16 packing, and on the
+// host the TMA tensor maps' encoder.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,6 +82,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // x rounded to bf16 (to nearest even), as a float
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// cuTensorMapEncodeTiled, looked up once through the runtime (no link to
+// libcuda): the host side of every TMA tensor copy (cp.async.bulk.tensor)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 }  // namespace hopper

@@ -41,8 +41,13 @@
 //   * forward recompute, as the cluster forward: the first layer on the CUDA
 //     cores, then per layer the product, the FiLM add (r_l, which block b
 //     writes to R for its S columns) and sin2pi into the share;
-//   * dx_last = g . w_head^T on the CUDA cores in float32 (C_out <= 16),
-//     straight into the accumulator positions;
+//   * dx_last = g . w_head^T on the CUDA cores in float32, straight into
+//     the accumulator positions;
+//   * any C_in and C_out, as the TPU kernels: the tables of coordinates and
+//     g hold MAX_C = 16 features a pair, and wider ones go through them in
+//     chunks of 16 (the first layer's sums carried in the share, dx_last's
+//     in the accumulators), so a block's shared memory, and every plan, do
+//     not depend on C; at C <= 16 there is one chunk, as before;
 //   * per layer l = n_mod - 1 .. 0: dpre_l = dx_l * 2 pi cos2pi(r_l), r_l read
 //     back from R where the same thread wrote it (the first layer's by
 //     another thread of the block, before a barrier); training mode writes
@@ -98,8 +103,8 @@ siren_chain_cluster_kernel(const float* __restrict__ coords,
   unsigned char* base = smem_raw + ((ALIGN - raw % ALIGN) % ALIGN);
   unsigned char* stages = base;                                         // NS x STAGE
   float* share = reinterpret_cast<float*>(stages + C::NS * C::STAGE);   // P x LDS
-  float* cs = share + P * LDS;                                          // P x C_in
-  float* gs = cs + P * MAX_C;                                           // P x C_out
+  float* cs = share + P * LDS;                   // a chunk of the coordinates, P x nc
+  float* gs = cs + P * MAX_C;                    // a chunk of g, P x no
   int* zrow = reinterpret_cast<int*>(gs + P * MAX_C);                   // P row offsets t H
   uint64_t* bars = reinterpret_cast<uint64_t*>(zrow + P);   // full, then release counts
 
@@ -112,15 +117,24 @@ siren_chain_cluster_kernel(const float* __restrict__ coords,
   // block rank's columns of the forward's products, then of the dx chain's
   const C wg(stages, wprep, bars, share, rank, 2 * (n_mod - 1) * (H / KS));
 
+  // the chunk of MAX_C features from k0 of the coordinates, and of g
+  auto stage_coords = [&](int k0) {
+    const int nc = min(MAX_C, C_in - k0);
+    for (int i = tid; i < P * nc; i += THREADS) {
+      const int q = q0 + i / nc;
+      cs[i] = q < Q ? coords[((p0 + q) % M) * C_in + k0 + i % nc] : 0.f;
+    }
+  };
+  auto stage_g = [&](int o0) {
+    const int no = min(MAX_C, C_out - o0);
+    for (int i = tid; i < P * no; i += THREADS) {
+      const int q = q0 + i / no;
+      gs[i] = q < Q ? g[(p0 + q) * C_out + o0 + i % no] : 0.f;
+    }
+  };
   if (tid == 0) wg.init(bars);
-  for (int i = tid; i < P * C_in; i += THREADS) {
-    const int q = q0 + i / C_in;
-    cs[i] = q < Q ? coords[((p0 + q) % M) * C_in + i % C_in] : 0.f;
-  }
-  for (int i = tid; i < P * C_out; i += THREADS) {
-    const int q = q0 + i / C_out;
-    gs[i] = q < Q ? g[(p0 + q) * C_out + i % C_out] : 0.f;
-  }
+  stage_coords(0);
+  stage_g(0);
   for (int p = tid; p < P; p += THREADS) {
     const int q = q0 + p < Q ? q0 + p : Q - 1;
     zrow[p] = (int)((p0 + q) / M) * H;
@@ -130,16 +144,30 @@ siren_chain_cluster_kernel(const float* __restrict__ coords,
   wg.start();
 
   // first layer on the CUDA cores: r_0 = coords . w_first + z_0 into R,
-  // sin2pi(r_0) into the share
+  // sin2pi(r_0) into the share; chunk by chunk of the coordinates, the sums
+  // carried in the share
   float* R0 = R + (size_t)q0 * H + col0;
-  for (int i = tid; i < P * S; i += THREADS) {
-    const int p = i / S, c = i % S;
-    float a = 0.f;
-    for (int k = 0; k < C_in; ++k)
-      a = fmaf(cs[p * C_in + k], __ldg(w_first + (size_t)k * H + col0 + c), a);
-    const float r = a + __ldg(z + zrow[p] + col0 + c);
-    R0[(size_t)p * H + c] = r;
-    share[p * LDS + c] = sin2pi(r);
+  for (int k0 = 0; k0 < C_in; k0 += MAX_C) {
+    if (k0 > 0) {
+      __syncthreads();   // every thread is done with the table
+      stage_coords(k0);
+      __syncthreads();
+    }
+    const int nc = min(MAX_C, C_in - k0);
+    const bool last = k0 + nc == C_in;
+    for (int i = tid; i < P * S; i += THREADS) {
+      const int p = i / S, c = i % S;
+      float a = k0 > 0 ? share[p * LDS + c] : 0.f;
+      for (int k = 0; k < nc; ++k)
+        a = fmaf(cs[p * nc + k], __ldg(w_first + (size_t)(k0 + k) * H + col0 + c), a);
+      if (last) {
+        const float r = a + __ldg(z + zrow[p] + col0 + c);
+        R0[(size_t)p * H + c] = r;
+        share[p * LDS + c] = sin2pi(r);
+      } else {
+        share[p * LDS + c] = a;
+      }
+    }
   }
   cluster_sync();
 
@@ -176,18 +204,27 @@ siren_chain_cluster_kernel(const float* __restrict__ coords,
     }
   }
 
-  // the head's cotangent on the CUDA cores: dx = g . w_head^T
-  const float* wh = w_head + (size_t)col0 * C_out;
-#pragma unroll
-  for (int j = 0; j < NSUB; ++j)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int row = wg.row(i), col = wg.col(j, i) + (i & 1);
-      float a = 0.f;
-      for (int o = 0; o < C_out; ++o)
-        a = fmaf(gs[row * C_out + o], __ldg(wh + (size_t)col * C_out + o), a);
-      acc[j][i] = a;
+  // the head's cotangent on the CUDA cores: dx = g . w_head^T, chunk by
+  // chunk of g, the sums carried in the accumulators
+  for (int o0 = 0; o0 < C_out; o0 += MAX_C) {
+    if (o0 > 0) {
+      __syncthreads();   // every thread is done with the table
+      stage_g(o0);
+      __syncthreads();
     }
+    const int no = min(MAX_C, C_out - o0);
+    const float* wh = w_head + (size_t)col0 * C_out + o0;
+#pragma unroll
+    for (int j = 0; j < NSUB; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int row = wg.row(i), col = wg.col(j, i) + (i & 1);
+        float a = o0 > 0 ? acc[j][i] : 0.f;
+        for (int o = 0; o < no; ++o)
+          a = fmaf(gs[row * no + o], __ldg(wh + (size_t)col * C_out + o), a);
+        acc[j][i] = a;
+      }
+  }
 
   // per layer dpre = dx * 2 pi cos2pi(r), then dx = dpre . W_l^T
   const int n = min(P, Q - q0);   // the cluster's pairs in the chunk
@@ -244,8 +281,8 @@ int chain(bool dz_mode, const float* coords, const float* z, const float* g,
           long long p0, int Q, int Qa, int T, int M, int C_in, int H, int n_mod, int C_out,
           cudaStream_t stream, int* max_clusters) {
   Plan plan{};
-  if (!exact_plan(H, plan) || n_mod < 1 || C_in < 1 || C_in > MAX_C || C_out < 1 ||
-      C_out > MAX_C || T <= 0 || M <= 0 || Q <= 0 || Qa < Q ||
+  if (!exact_plan(H, plan) || n_mod < 1 || C_in < 1 || C_out < 1 || T <= 0 || M <= 0 ||
+      Q <= 0 || Qa < Q ||
       Qa % cluster_pairs(plan.mt) != 0 || p0 < 0 || p0 + Q > (long long)T * M ||
       (long long)T * H > 2147483647LL ||
       (n_mod > 1 && wprep == nullptr && max_clusters == nullptr))

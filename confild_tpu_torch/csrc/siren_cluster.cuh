@@ -79,7 +79,7 @@ using tf32mma::smem_addr;
 constexpr int KS = 16;           // weight rows (K) a stage holds: one partial, or one k16 step
 constexpr int A_PAD = 16;        // share row stride S + 16: a quarter warp's A loads hit 32 banks
 constexpr int A_PAD16 = 32;      // bf16 share row stride S + 32: the same for 16-byte loads
-constexpr int MAX_C = 16;        // widest C_in and C_out
+constexpr int MAX_C = 16;        // features a table holds: C_in and C_out go in chunks of it
 constexpr int MAX_CL = 8;        // largest portable cluster
 constexpr int CONSUMERS = 2;     // consumer warpgroups
 constexpr int THREADS = 128 * CONSUMERS;
@@ -108,9 +108,10 @@ __host__ __device__ constexpr int share_bytes(int S, int MT, bool bf16 = false) 
   return cluster_pairs(MT) * share_stride(S, bf16) * (bf16 ? 2 * 2 : 4);
 }
 // coordinates and a second P x MAX_C table (the forward's head partials,
-// the chain's cotangent g), row offsets, the stages' mbarriers and release
-// counters; the bf16 forward keeps its coordinates in the second share
-// buffer and its head partials in the ring, both idle when it needs them
+// the chain's cotangent g), each one chunk of MAX_C features at a time,
+// row offsets, the stages' mbarriers and release counters; the bf16
+// forward keeps its coordinates in the second share buffer and its head
+// partials in the ring, both idle when it needs them
 __host__ __device__ constexpr int tail_bytes(int MT, int NS, bool bf16 = false) {
   return (bf16 ? 0 : 2 * cluster_pairs(MT) * MAX_C * 4) + cluster_pairs(MT) * 4 + 2 * NS * 8;
 }

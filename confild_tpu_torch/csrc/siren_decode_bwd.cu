@@ -58,7 +58,10 @@
 //   sums, dW_first and dW_head, per slice, in segments of SSEG pairs within
 //   each row's run of pairs; a pass over the workspace, bound by bytes.
 //   Its per-feature sums sit in registers, sized 4 when C_in and C_out are
-//   at most 4 and MAX_C = 16 otherwise.
+//   at most 4 and MAX_C = 16 otherwise; wider C_in and C_out (any, as the
+//   TPU kernel) take one more job each chunk of MAX_C features past the
+//   first, which sums only dW_first's or dW_head's columns of its chunk, so
+//   the registers do not depend on C.
 // * siren_bwd_fold_kernel: the slices' partials added in slice order into
 //   the outputs.
 // The reduction, the sums and the fold take every H that is a multiple of
@@ -88,7 +91,6 @@
 // siren_dz_fold.cuh); it needs none of the kernels here.
 // ---------------------------------------------------------------------------
 
-#include <cuda.h>
 #include <stdint.h>
 
 #include "siren_cluster.cuh"
@@ -144,11 +146,13 @@ __host__ __device__ inline int slice_len(int Q, int slices) {
   return (per + RK - 1) / RK * RK;
 }
 
-// H a multiple of 64 up to WORKSPACE_MAX_H, C_in and C_out up to MAX_C
+// H a multiple of 64 up to WORKSPACE_MAX_H, any C_in and C_out
 inline bool workspace_ok(int H, int n_mod, int C_in, int C_out) {
   return H > 0 && H % 64 == 0 && H <= WORKSPACE_MAX_H && n_mod >= 1 && C_in >= 1 &&
-         C_in <= MAX_C && C_out >= 1 && C_out <= MAX_C;
+         C_out >= 1;
 }
+// chunks of MAX_C features
+inline int feature_chunks(int c) { return (c + MAX_C - 1) / MAX_C; }
 
 // ---------------------------------------------------------------------------
 // reduction: dW_mid on wgmma
@@ -434,7 +438,7 @@ siren_bwd_reduce_kernel(const __grid_constant__ CUtensorMap map_r,
 enum SumKind { DZ = 0, DZ_FIRST = 1, HEAD = 2 };
 
 // One pair's terms: dz and, for DZ_FIRST, dW_first += coords (x);
-// for HEAD, dW_head += sin2pi(x) g; nc <= NC features.
+// for HEAD, dW_head += sin2pi(x) g; nc <= NC features from cq, gq on.
 template <int KIND, int NC>
 __device__ __forceinline__ void sum_pair(float x, const float* __restrict__ cq,
                                          const float* __restrict__ gq, int nc, float& seg,
@@ -456,16 +460,19 @@ __device__ __forceinline__ void sum_pair(float x, const float* __restrict__ cq,
 
 // Thread j owns column j of X (D_l, or R_last for HEAD) over the pairs
 // [lo, hi) of one slice: each row's run of pairs in segments of SSEG; dz
-// row totals go to the slice's partial as each run ends, the dW totals at
-// the end.
+// row totals go to the slice's partial as each run ends (unless dz_row0 is
+// null: a later chunk of dW_first's features), the dW totals of the
+// features c0 .. c0 + NC - 1 at the end.
 template <int KIND, int NC>
 __device__ __forceinline__ void sums_body(const float* __restrict__ X,
                                           const float* __restrict__ coords,
                                           const float* __restrict__ g,
                                           float* __restrict__ dz_row0, float* __restrict__ dw,
                                           long long p0, int lo, int hi, int M, int C_in, int H,
-                                          int C_out, int j) {
-  const int nc = KIND == HEAD ? C_out : C_in;
+                                          int C_out, int j, int c0) {
+  const int nc = min(NC, (KIND == HEAD ? C_out : C_in) - c0);
+  coords += c0;
+  g += c0;
   float tot_c[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) tot_c[c] = 0.f;
@@ -496,23 +503,25 @@ __device__ __forceinline__ void sums_body(const float* __restrict__ X,
 #pragma unroll
       for (int c = 0; c < NC; ++c) tot_c[c] += seg_c[c];
     }
-    if constexpr (KIND != HEAD) dz_row0[(size_t)t * H + j] += tot;
+    if (KIND != HEAD && dz_row0 != nullptr) dz_row0[(size_t)t * H + j] += tot;
     a = b;
   }
   if constexpr (KIND == HEAD) {
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      if (c < nc) dw[(size_t)j * C_out + c] += tot_c[c];
+      if (c < nc) dw[(size_t)j * C_out + c0 + c] += tot_c[c];
   } else if constexpr (KIND == DZ_FIRST) {
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      if (c < nc) dw[(size_t)c * H + j] += tot_c[c];
+      if (c < nc) dw[(size_t)(c0 + c) * H + j] += tot_c[c];
   }
 }
 
-// grid (column tiles of STHREADS, n_mod + 1 jobs, slices).  Job l < n_mod:
-// dz_l row sums of D_l (and for l = 0 dW_first = coords^T D_0); job n_mod:
-// dW_head = sin2pi(R_last)^T g.  C_in, C_out <= NC.
+// grid (column tiles of STHREADS, jobs, slices).  Job l < n_mod: dz_l row
+// sums of D_l (and for l = 0 dW_first = coords^T D_0, its first NC
+// features); job n_mod: dW_head = sin2pi(R_last)^T g, its first NC
+// features; then a job for each further chunk of NC features of dW_first
+// (no dz), then of dW_head.
 template <int NC>
 __global__ void __launch_bounds__(STHREADS)
 siren_bwd_sums_kernel(const float* __restrict__ R,
@@ -532,14 +541,23 @@ siren_bwd_sums_kernel(const float* __restrict__ R,
   float* ps = parts + (size_t)slice * E;
   const size_t lstride = (size_t)Qa * H;
   float* dz_l = ps + (size_t)job * T * H;  // dz is the partial's first block
+  const int more_in = (C_in + NC - 1) / NC - 1;   // dW_first's chunks past the first
+  const float* r_last = R + (n_mod - 1) * lstride;
   if (job == n_mod)
-    sums_body<HEAD, NC>(R + (n_mod - 1) * lstride, coords, g, nullptr, ps + dwh_off, p0, lo,
-                        hi, M, C_in, H, C_out, j);
+    sums_body<HEAD, NC>(r_last, coords, g, nullptr, ps + dwh_off, p0, lo, hi, M, C_in, H, C_out,
+                        j, 0);
   else if (job == 0)
-    sums_body<DZ_FIRST, NC>(D, coords, g, dz_l, ps + dwf_off, p0, lo, hi, M, C_in, H, C_out, j);
-  else
+    sums_body<DZ_FIRST, NC>(D, coords, g, dz_l, ps + dwf_off, p0, lo, hi, M, C_in, H, C_out, j,
+                            0);
+  else if (job < n_mod)
     sums_body<DZ, NC>(D + job * lstride, coords, g, dz_l, nullptr, p0, lo, hi, M, C_in, H,
-                      C_out, j);
+                      C_out, j, 0);
+  else if (job <= n_mod + more_in)
+    sums_body<DZ_FIRST, NC>(D, coords, g, nullptr, ps + dwf_off, p0, lo, hi, M, C_in, H, C_out,
+                            j, NC * (job - n_mod));
+  else
+    sums_body<HEAD, NC>(r_last, coords, g, nullptr, ps + dwh_off, p0, lo, hi, M, C_in, H, C_out,
+                        j, NC * (job - n_mod - more_in));
 }
 
 // out[e] = parts[0][e] + parts[1][e] + ... in slice order
@@ -554,27 +572,8 @@ siren_bwd_fold_kernel(const float* __restrict__ parts, float* __restrict__ out, 
   }
 }
 
-// cuTensorMapEncodeTiled, looked up once through the runtime (no link to libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A workspace (rows x H floats, row-major) as boxes of RK rows by cols
-// columns, no swizzle, zeros outside it
+// columns, no swizzle, zeros outside it (hopper.cuh::encode_tiled)
 inline int workspace_map(CUtensorMap* map, const float* base, long long rows, int H, int cols) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
@@ -631,7 +630,10 @@ int siren_bwd_sums(const float* R, const float* D, const float* coords, const fl
   if (!workspace_ok(H, n_mod, C_in, C_out) || T <= 0 || M <= 0 || Q <= 0 || Qa < Q ||
       slices < 1)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned int)((H + STHREADS - 1) / STHREADS), (unsigned int)(n_mod + 1),
+  // a job a layer's dz, dW_head's first chunk, and every further chunk of
+  // MAX_C features of dW_first and dW_head
+  const int jobs = n_mod + feature_chunks(C_in) + feature_chunks(C_out) - 1;
+  const dim3 grid((unsigned int)((H + STHREADS - 1) / STHREADS), (unsigned int)jobs,
                   (unsigned int)slices);
   const auto kernel = C_in <= NARROW_C && C_out <= NARROW_C ? siren_bwd_sums_kernel<NARROW_C>
                                                             : siren_bwd_sums_kernel<MAX_C>;

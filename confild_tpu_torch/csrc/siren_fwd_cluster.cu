@@ -46,11 +46,24 @@
 //   * After each layer the epilogue adds the FiLM row z[l, t, cols] and
 //     applies sin2pi in registers; two cluster barriers (every block done
 //     reading the shares, then every share written) publish the new shares.
-//   * The first layer (C_in <= 16) stays on the CUDA cores in float32, each
-//     block its own columns.  The head: each block forms its P x C_out
-//     partial over its columns, block 0 sums the CL partials in rank order
-//     through distributed shared memory and adds b_head.  No atomics: two
-//     launches are bitwise equal.  The ragged last cluster is masked.
+//   * The first layer stays on the CUDA cores in float32, each block its
+//     own columns.  The head: each block forms its P x C_out partial over
+//     its columns, block 0 sums the CL partials in rank order through
+//     distributed shared memory and adds b_head.  No atomics: two launches
+//     are bitwise equal.  The ragged last cluster is masked.
+//   * Any C_in and C_out, as the TPU kernel, which blocks on the whole
+//     feature axis: the tables of coordinates and head partials hold MAX_C
+//     = 16 features, and wider ones go through them in chunks of 16, so a
+//     block's shared memory and registers, and so every plan, do not
+//     depend on C.  The first layer carries each pre-activation across
+//     the chunks of C_in in the share (float32) or in registers (bf16,
+//     whose share is bf16: a thread keeps its item's 16 sums while all
+//     threads take the chunks in lockstep); the head runs once a chunk of
+//     C_out, its partials summed and written before the next.  (Reading
+//     the coordinates from global memory in place of a table would save
+//     the chunks' barriers, but add a load to every product of the first
+//     layer.)  At C <= 16 there is one chunk and the code path is the one
+//     before.
 //
 // The bf16 forward (siren_fwd_cluster_bf16_kernel, the same body with BF16)
 // computes what _decode_kernel computes with compute_dtype bfloat16
@@ -159,22 +172,78 @@ __device__ __forceinline__ void first_layer16(__nv_bfloat16* share, const float*
   }
 }
 
-// The bf16 forward's head partials: hpart (P x C_out) = the last layer's
-// share (P x S bf16) . this block's rows of w_head rounded to bf16, in
-// float32, each sum in column order.  The rows (S x C_out) are first copied
-// into ws; hpart and ws are the ring's stages, which the last product has
-// finished with.
+// The bf16 first layer at C_in > MAX_C: as first_layer16, over the chunks
+// of MAX_C coordinates.  Every thread takes its items in lockstep rounds
+// (a round an item a thread), and in each round the chunks one after
+// another: the block stages a chunk's coordinates in cs (P x MAX_C,
+// rounded, zero past C_in), then each thread adds the chunk's products to
+// its item's G sums, kept in registers across the chunks.
+template <int S, int P, int LDS>
+__device__ __forceinline__ void first_layer16_chunks(__nv_bfloat16* share, float* cs,
+                                                     const int* zrow,
+                                                     const float* __restrict__ coords,
+                                                     const float* __restrict__ w_first,
+                                                     const float* __restrict__ z, int rank, int H,
+                                                     int C_in, long long p0, long long Ptot,
+                                                     int M) {
+  constexpr int G = 16, ITEMS = S * (P / G);
+  static_assert(ITEMS % THREADS == 0, "every thread takes the same rounds");
+  const int n_cc = (C_in + MAX_C - 1) / MAX_C;
+  for (int item = threadIdx.x; item < ITEMS; item += THREADS) {
+    const int c = item % S, col = rank * S + c, pi = item / S * G;
+    float a[G];
+#pragma unroll
+    for (int p = 0; p < G; ++p) a[p] = 0.f;
+    for (int kc = 0; kc < n_cc; ++kc) {
+      const int k0 = kc * MAX_C;
+      __syncthreads();   // every thread is done with the table
+      for (int i = threadIdx.x; i < P * MAX_C; i += THREADS) {
+        const long long q = p0 + i / MAX_C;
+        const int k = k0 + i % MAX_C;
+        cs[i] = q < Ptot && k < C_in ? round_bf16(coords[(q % M) * C_in + k]) : 0.f;
+      }
+      __syncthreads();
+      float wf[MAX_C];
+#pragma unroll
+      for (int k = 0; k < MAX_C; ++k)
+        wf[k] = k0 + k < C_in ? round_bf16(__ldg(w_first + (size_t)(k0 + k) * H + col)) : 0.f;
+#pragma unroll
+      for (int p = 0; p < G; ++p) {
+        const float4* c4 = reinterpret_cast<const float4*>(cs + (pi + p) * MAX_C);
+#pragma unroll
+        for (int k = 0; k < MAX_C; k += 4) {
+          const float4 x = c4[k / 4];
+          a[p] = fmaf(x.x, wf[k], a[p]);
+          a[p] = fmaf(x.y, wf[k + 1], a[p]);
+          a[p] = fmaf(x.z, wf[k + 2], a[p]);
+          a[p] = fmaf(x.w, wf[k + 3], a[p]);
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < G; ++p)
+      share[(pi + p) * LDS + c] =
+          __float2bfloat16_rn(sin2pi(a[p] + __ldg(z + zrow[pi + p] + col)));
+  }
+}
+
+// The bf16 forward's head partials of one chunk of no <= MAX_C outputs:
+// hpart (P x no) = the last layer's share (P x S bf16) . this block's rows
+// of w_head's columns o0 .. o0 + no - 1 rounded to bf16, in float32, each
+// sum in column order.  The rows (S x no) are first copied into ws; hpart
+// and ws are the ring's stages, which the last product has finished with.
 template <int S, int P, int LDS>
 __device__ __forceinline__ void head16(float* hpart, const __nv_bfloat16* share, float* ws,
-                                       const float* __restrict__ wh, int C_out) {
-  for (int i = threadIdx.x; i < S * C_out; i += THREADS) ws[i] = round_bf16(__ldg(wh + i));
+                                       const float* __restrict__ wh, int C_out, int o0, int no) {
+  for (int i = threadIdx.x; i < S * no; i += THREADS)
+    ws[i] = round_bf16(__ldg(wh + (size_t)(i / no) * C_out + o0 + i % no));
   __syncthreads();
-  for (int i = threadIdx.x; i < P * C_out; i += THREADS) {
-    const int p = i / C_out, o = i % C_out;
+  for (int i = threadIdx.x; i < P * no; i += THREADS) {
+    const int p = i / no, o = i % no;
     float a = 0.f;
 #pragma unroll 8
     for (int k = 0; k < S; ++k)
-      a = fmaf(__bfloat162float(share[p * LDS + k]), ws[k * C_out + o], a);
+      a = fmaf(__bfloat162float(share[p * LDS + k]), ws[k * no + o], a);
     hpart[i] = a;
   }
 }
@@ -203,9 +272,10 @@ __device__ __forceinline__ void fwd_cluster(const float* __restrict__ coords,
   unsigned char* base = smem_raw + ((ALIGN - raw % ALIGN) % ALIGN);
   unsigned char* stages = base;                                    // NS x STAGE
   E* share = reinterpret_cast<E*>(stages + C::NS * C::STAGE);      // P x LDS (bf16: two)
-  // P x C_in (bf16: P x MAX_C, in the second share buffer, idle in the
-  // first layer), then P x C_out (bf16: in the ring, idle after the last
-  // product), then P row offsets t H
+  // a chunk of the coordinates, P x nc (bf16: P x MAX_C, in the second
+  // share buffer, idle in the first layer), then a chunk of the head's
+  // partials, P x no (bf16: in the ring, idle after the last product), then
+  // P row offsets t H
   float* cs = reinterpret_cast<float*>(share + P * LDS);
   float* hpart = BF16 ? reinterpret_cast<float*>(stages) : cs + P * MAX_C;
   int* zrow = reinterpret_cast<int*>(BF16 ? reinterpret_cast<float*>(share + 2 * P * LDS)
@@ -221,18 +291,25 @@ __device__ __forceinline__ void fwd_cluster(const float* __restrict__ coords,
   // one K-slice a stage, in one stream across the layers
   const C wg(stages, wprep, bars, share, rank, (n_mod - 1) * (H / KS));
 
+  // the coordinates' chunk kc (float32: P x its nc features)
+  const int n_cc = (C_in + MAX_C - 1) / MAX_C;
+  auto stage_coords = [&](int kc) {
+    const int k0 = kc * MAX_C, nc = min(MAX_C, C_in - k0);
+    for (int i = tid; i < P * nc; i += THREADS) {
+      const long long q = p0 + i / nc;
+      cs[i] = q < Ptot ? coords[(q % M) * C_in + k0 + i % nc] : 0.f;
+    }
+  };
   if (tid == 0) wg.init(bars);
-  if constexpr (BF16) {   // P x MAX_C, rounded, zero past C_in
-    for (int i = tid; i < P * MAX_C; i += THREADS) {
-      const long long q = p0 + i / MAX_C;
-      const int k = i % MAX_C;
-      cs[i] = q < Ptot && k < C_in ? round_bf16(coords[(q % M) * C_in + k]) : 0.f;
-    }
+  if constexpr (BF16) {   // P x MAX_C, rounded, zero past C_in (wider: in the first layer)
+    if (n_cc == 1)
+      for (int i = tid; i < P * MAX_C; i += THREADS) {
+        const long long q = p0 + i / MAX_C;
+        const int k = i % MAX_C;
+        cs[i] = q < Ptot && k < C_in ? round_bf16(coords[(q % M) * C_in + k]) : 0.f;
+      }
   } else {
-    for (int i = tid; i < P * C_in; i += THREADS) {
-      const long long q = p0 + i / C_in;
-      cs[i] = q < Ptot ? coords[(q % M) * C_in + i % C_in] : 0.f;
-    }
+    stage_coords(0);
   }
   for (int p = tid; p < P; p += THREADS) {
     const long long q = p0 + p < Ptot ? p0 + p : Ptot - 1;
@@ -243,16 +320,31 @@ __device__ __forceinline__ void fwd_cluster(const float* __restrict__ coords,
   wg.start();
 
   // first layer on the CUDA cores: share = sin2pi(coords . w_first + z_0)
-  if constexpr (BF16)
-    first_layer16<S, P, LDS>(share, cs, zrow, w_first, z, rank, H, C_in);
-  else
-    for (int i = tid; i < P * S; i += THREADS) {
-      const int p = i / S, c = i % S, col = rank * S + c;
-      float a = 0.f;
-      for (int k = 0; k < C_in; ++k)
-        a = fmaf(cs[p * C_in + k], __ldg(w_first + (size_t)k * H + col), a);
-      share[p * LDS + c] = sin2pi(a + __ldg(z + zrow[p] + col));
+  if constexpr (BF16) {
+    if (n_cc == 1)
+      first_layer16<S, P, LDS>(share, cs, zrow, w_first, z, rank, H, C_in);
+    else
+      first_layer16_chunks<S, P, LDS>(share, cs, zrow, coords, w_first, z, rank, H, C_in, p0,
+                                      Ptot, M);
+  } else {
+    // chunk by chunk of the coordinates, the sums carried in the share
+    for (int kc = 0; kc < n_cc; ++kc) {
+      if (kc > 0) {
+        __syncthreads();   // every thread is done with the table
+        stage_coords(kc);
+        __syncthreads();
+      }
+      const int k0 = kc * MAX_C, nc = min(MAX_C, C_in - k0);
+      const bool last = kc + 1 == n_cc;
+      for (int i = tid; i < P * S; i += THREADS) {
+        const int p = i / S, c = i % S, col = rank * S + c;
+        float a = kc > 0 ? share[p * LDS + c] : 0.f;
+        for (int k = 0; k < nc; ++k)
+          a = fmaf(cs[p * nc + k], __ldg(w_first + (size_t)(k0 + k) * H + col), a);
+        share[p * LDS + c] = last ? sin2pi(a + __ldg(z + zrow[p] + col)) : a;
+      }
     }
+  }
   cluster_sync();
 
   float acc[NSUB][32];
@@ -294,31 +386,37 @@ __device__ __forceinline__ void fwd_cluster(const float* __restrict__ coords,
     }
   }
 
-  // head: this block's P x C_out partial over its columns, in column order
-  if constexpr (BF16)
-    head16<S, P, LDS>(hpart, share + ((n_mod - 1) & 1) * P * LDS, hpart + P * MAX_C,
-                      w_head + (size_t)rank * S * C_out, C_out);
-  else
-    for (int i = tid; i < P * C_out; i += THREADS) {
-      const int p = i / C_out, o = i % C_out;
-      const float* wh = w_head + (size_t)rank * S * C_out + o;
-      float a = 0.f;
-      for (int k = 0; k < S; ++k) a = fmaf(share[p * LDS + k], __ldg(wh + (size_t)k * C_out), a);
-      hpart[i] = a;
+  // head, a chunk of MAX_C outputs at a time: this block's P x no partial
+  // over its columns, in column order
+  for (int o0 = 0; o0 < C_out; o0 += MAX_C) {
+    const int no = min(MAX_C, C_out - o0);
+    if constexpr (BF16)
+      head16<S, P, LDS>(hpart, share + ((n_mod - 1) & 1) * P * LDS, hpart + P * MAX_C,
+                        w_head + (size_t)rank * S * C_out, C_out, o0, no);
+    else
+      for (int i = tid; i < P * no; i += THREADS) {
+        const int p = i / no, o = i % no;
+        const float* wh = w_head + (size_t)rank * S * C_out + o0 + o;
+        float a = 0.f;
+        for (int k = 0; k < S; ++k)
+          a = fmaf(share[p * LDS + k], __ldg(wh + (size_t)k * C_out), a);
+        hpart[i] = a;
+      }
+    cluster_sync();
+    if (rank == 0) {
+      // block 0 sums the partials in rank order
+      const uint32_t h0 = smem_addr(hpart);
+      for (int i = tid; i < P * no; i += THREADS) {
+        const long long q = p0 + i / no;
+        if (q >= Ptot) continue;
+        float a = 0.f;
+        for (int r = 0; r < cl; ++r) a += ld_cluster(map_rank(h0 + 4u * i, r));
+        out[q * C_out + o0 + i % no] = a + b_head[o0 + i % no];
+      }
     }
-  cluster_sync();
-  if (rank == 0) {
-    // block 0 sums the partials in rank order
-    const uint32_t h0 = smem_addr(hpart);
-    for (int i = tid; i < P * C_out; i += THREADS) {
-      const long long q = p0 + i / C_out;
-      if (q >= Ptot) continue;
-      float a = 0.f;
-      for (int r = 0; r < cl; ++r) a += ld_cluster(map_rank(h0 + 4u * i, r));
-      out[q * C_out + i % C_out] = a + b_head[i % C_out];
-    }
+    // no block leaves, or overwrites its partials, while they may be read
+    cluster_sync();
   }
-  cluster_sync();   // no block leaves while its shared memory may be read
 }
 
 template <int S, int MT>
@@ -346,8 +444,8 @@ int run(bool bf16, const float* coords, const float* z, const float* w_first,
         const void* wprep, const float* w_head, const float* b_head, float* out, int T, int M,
         int C_in, int H, int n_mod, int C_out, cudaStream_t stream, int* max_clusters) {
   Plan plan{};
-  if (!exact_plan(H, plan) || n_mod < 1 || C_in < 1 || C_in > MAX_C || C_out < 1 ||
-      C_out > MAX_C || T <= 0 || M <= 0 || (long long)T * H > 2147483647LL ||
+  if (!exact_plan(H, plan) || n_mod < 1 || C_in < 1 || C_out < 1 || T <= 0 || M <= 0 ||
+      (long long)T * H > 2147483647LL ||
       ((long long)T * M + cluster_pairs(plan.mt) - 1) / cluster_pairs(plan.mt) * plan.cl >
           2147483647LL ||
       (n_mod > 1 && wprep == nullptr && max_clusters == nullptr))

@@ -37,13 +37,21 @@ the next of these (:func:`kernel_head_width`; :func:`padded_forward`,
 plan: the same :func:`forward_plan` and :func:`backward_plan`): a block owns
 one group of ``WIDE_GROUP`` output columns and computes S (and in the
 backward dP) over the whole head in chunks of :func:`wide_chunk` columns,
-so the head's ``D / WIDE_GROUP`` groups each recompute them.
+so the head's ``D / WIDE_GROUP`` groups each recompute them.  The
+forward up to 512 has kernels of its own instead, a block owning
+:func:`forward_columns` output columns (the whole head at 256, groups of
+256 at 512 and of 128 at 384): in bf16 at ``TMA_WIDTHS``, 128 query rows
+a block with Q resident, K and V streamed by TMA tensor copies into the
+128-byte swizzle ``wgmma`` reads (V through the transpose bit); in float32
+up to ``RESIDENT_MAX``, 64 query rows with Q resident as raw rows, the
+register operand of S.
 
 Each kernel has a plain PyTorch version beside it.  A wrapper takes the
 plain version only for CPU tensors; for CUDA tensors it launches its kernel
 or raises.  ``LAUNCHES`` counts kernel launches at D <= 128, and
-``LAUNCHES_WIDE`` those above, by pass and padded width
-(``"flash_forward@D512"``).  The forward's wrapper is
+``LAUNCHES_WIDE`` those above, by pass, type and padded width
+(``"flash_forward@D512"`` in float32, ``"flash_forward_bf16@D512"`` in
+bf16).  The forward's wrapper is
 on the U-Net's path at 144 tokens, where its host time is the call's time:
 it checks its operands in one expression (``_check`` names what is wrong),
 passes raw pointers and the raw current stream to ``ctypes``, and enters a
@@ -83,8 +91,8 @@ def reset_launch_counts() -> None:
     LAUNCHES_WIDE.clear()
 
 
-def _count_wide(name: str, d: int) -> None:
-    key = f"{name}@D{d}"
+def _count_wide(name: str, d: int, dtype: torch.dtype) -> None:
+    key = f"{name}{'_bf16' if dtype == torch.bfloat16 else ''}@D{d}"
     LAUNCHES_WIDE[key] = LAUNCHES_WIDE.get(key, 0) + 1
 
 
@@ -221,8 +229,13 @@ FWD_SMEM_LIMIT = 232448
 def forward_plan(d: int, dtype: torch.dtype) -> dict:
     """The forward kernel's plan at head width ``d``: keys a tile, raw
     stages, image stages and bytes of dynamic shared memory (mirrors
-    ``fwd::Plan``, above 128 ``wide::Plan``; ``library_forward_plan`` asks
-    the built library)."""
+    ``fwd::Plan``; above 128 ``wide::Plan``, in float32 up to
+    ``RESIDENT_MAX`` ``wq::Plan``, in bf16 at ``TMA_WIDTHS`` ``tma::Plan``;
+    ``library_forward_plan`` asks the built library)."""
+    if d > 128 and dtype == torch.bfloat16 and d in TMA_WIDTHS:
+        return _tma_plan(d)
+    if d > 128 and dtype == torch.float32 and d <= RESIDENT_MAX:
+        return _resident_plan(d)
     if d > 128:
         tile, stages, smem = _wide_plan(dtype, "fwd")
         return {"keys": tile, "raw_stages": 0, "image_stages": stages, "smem": smem}
@@ -237,6 +250,55 @@ def forward_plan(d: int, dtype: torch.dtype) -> dict:
 
 
 WIDE_MAX_STAGES = 4
+# the bf16 forward's widths on TMA tensor copies (csrc/flash_attention.cu::
+# tma): a block's 128 resident query rows of Q fit beside two stages up to
+# 512; its stages hold K's tile and V's group as TMA writes them
+TMA_WIDTHS = (256, 384, 512)
+TMA_ROWS, TMA_MAX_STAGES, TMA_ATOM = 128, 4, 1024
+
+
+# the float32 forward with Q resident (csrc/flash_attention.cu::wq) up to
+# this width: 64 raw rows of Q beside six stages of 32-key items
+RESIDENT_MAX, RESIDENT_KEYS, RESIDENT_STAGES, RESIDENT_PAD = 512, 32, 6, 4
+
+
+def forward_columns(d: int, dtype: torch.dtype) -> int:
+    """The output columns a forward block owns at kernel width ``d``: the
+    whole head up to 128; above, up to 512 (bf16 ``TMA_WIDTHS``, float32
+    ``RESIDENT_MAX``) 256 where they divide ``d`` (the whole head at 256),
+    else ``WIDE_GROUP``."""
+    if d <= 128:
+        return d
+    if d <= RESIDENT_MAX:
+        return 256 if d % 256 == 0 else WIDE_GROUP
+    return WIDE_GROUP
+
+
+def _resident_plan(d: int) -> dict:
+    """The float32 forward's plan at 128 < ``d`` <= ``RESIDENT_MAX``
+    (mirrors ``wq::Plan``): 32 keys a tile, six image stages of one item
+    (32 x 64 floats in both TF32 halves: a chunk of K, or 64 columns of V
+    transposed), their barriers, and Q's 64 rows at a stride of ``d`` + 4
+    floats."""
+    stage = RESIDENT_KEYS * 64 * 8
+    smem = 128 + RESIDENT_STAGES * stage + 16 * RESIDENT_STAGES + 64 * (d + RESIDENT_PAD) * 4
+    return {"keys": RESIDENT_KEYS, "raw_stages": 0, "image_stages": RESIDENT_STAGES,
+            "smem": smem}
+
+
+def _tma_plan(d: int) -> dict:
+    """The bf16 TMA forward's plan at ``d`` (mirrors ``tma::Plan``): keys a
+    tile (64 where two stages of K's tile and V's group fit beside Q's 128
+    rows and the swizzle's alignment, else 32), its stages as ``raw_stages``
+    (TMA writes the operands as ``wgmma`` reads them: no image stage), and
+    the bytes: the alignment slack, Q, Q's barrier, then each stage with
+    its barrier and its release count."""
+    gw = forward_columns(d, torch.bfloat16)
+    fixed = TMA_ATOM + TMA_ROWS * d * 2 + 8
+    kt = 64 if (FWD_SMEM_LIMIT - fixed) // (64 * (d + gw) * 2 + 16) >= 2 else 32
+    stage = kt * (d + gw) * 2
+    ns = min(TMA_MAX_STAGES, (FWD_SMEM_LIMIT - fixed) // (stage + 16))
+    return {"keys": kt, "raw_stages": ns, "image_stages": 0, "smem": fixed + ns * (stage + 16)}
 
 
 def wide_chunk(dtype: torch.dtype) -> int:
@@ -400,7 +462,7 @@ def _launch_forward(q, k, v, scale):
                      (_INV_SQRT.get(d) or 1.0 / math.sqrt(d)) if scale is None else scale)
     _raise_on(err, "flash_forward launch")
     if d > 128:
-        _count_wide("flash_forward", d)
+        _count_wide("flash_forward", d, dtype)
     else:
         LAUNCHES["flash_forward"] += 1
     return out, lse
@@ -426,7 +488,7 @@ def _launch_dq(q, k, v, g, lse, delta, scale, code, index):
                      code, _scale(q, scale))
     _raise_on(err, "flash_bwd_dq launch")
     if d > 128:
-        _count_wide("flash_bwd_dq", d)
+        _count_wide("flash_bwd_dq", d, q.dtype)
     else:
         LAUNCHES["flash_bwd_dq"] += 1
     return dq
@@ -441,7 +503,7 @@ def _launch_dkv(q, k, v, g, lse, delta, scale, code, index):
                      dv.data_ptr(), bh, n, d, code, _scale(q, scale))
     _raise_on(err, "flash_bwd_dkv launch")
     if d > 128:
-        _count_wide("flash_bwd_dkv", d)
+        _count_wide("flash_bwd_dkv", d, q.dtype)
     else:
         LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv

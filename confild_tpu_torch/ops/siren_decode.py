@@ -53,7 +53,10 @@ to the latents, ``net2`` and the biases, undoing the scale.
 Every kernel family (``FAMILIES``: the float32 and bf16 forwards, dz and
 the training backward) runs on the cluster kernels and takes hidden widths
 up to 3072 (``MAX_HIDDEN``, a cluster of up to 8 blocks,
-:func:`cluster_plan`) and at most 16 input and output features.  A hidden
+:func:`cluster_plan`) and any number of input and output features, as the
+JAX kernels do: a block's tables hold ``FEATURE_CHUNK`` (16) of them, and
+wider coordinates and outputs go through them in chunks, so the plans do
+not depend on them.  A hidden
 width is zero-padded to the cluster plan's width (up to 512 one of 128,
 192, 256, 384 and 512, :func:`kernel_hidden_width`, :func:`pad_hidden`),
 which is exact: a padded unit has zero weights, bias and FiLM column, so
@@ -95,11 +98,13 @@ LAUNCHES = {"siren_decode_forward": 0, "siren_decode_forward_bf16": 0,
 # the forward's compute dtypes (the JAX kernel's ``compute_dtype``)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 # each kernel family's widest hidden layer (the cluster plan's,
-# csrc/siren_cluster.cuh::plan_for) and the widest C_in, C_out of all of them
+# csrc/siren_cluster.cuh::plan_for)
 FAMILIES = {"forward": "float32 forward", "forward_bf16": "bfloat16 forward",
             "dz": "dz", "bwd": "training backward"}
 MAX_HIDDEN = {"forward": 3072, "forward_bf16": 3072, "dz": 3072, "bwd": 3072}
-MAX_FEATURES = 16
+# the features (C_in, C_out) a block's tables hold (csrc/siren_cluster.cuh::
+# MAX_C): any C_in and C_out go through them in chunks of this many
+FEATURE_CHUNK = 16
 # the families that run on the cluster kernels, at every width: all of them
 CLUSTER_FAMILIES = tuple(FAMILIES)
 
@@ -246,11 +251,13 @@ class ClusterPlan(NamedTuple):
         return 64 * self.m_tiles
 
     def _bytes(self, stages: int, bf16: bool) -> int:
-        # the float32 kernels' share and two P x 16 tables, or the bf16
-        # forward's two bf16 buffers (its tables live in them and in the ring)
+        # the float32 kernels' share and two P x FEATURE_CHUNK tables (one
+        # chunk of the features each), or the bf16 forward's two bf16
+        # buffers (its tables live in them and in the ring); none depends on
+        # C_in or C_out
         p, share = self.pairs, (2 * 2 if bf16 else 4)
         pad = _SHARE_PAD_BF16 if bf16 else _SHARE_PAD
-        tables = 0 if bf16 else 2 * p * MAX_FEATURES * 4
+        tables = 0 if bf16 else 2 * p * FEATURE_CHUNK * 4
         return (_SMEM_ALIGN + stages * CLUSTER_KSLICE * self.share * 2 * (1 if bf16 else 4)
                 + p * (self.share + pad) * share + tables + p * 4 + 2 * stages * 8)
 
@@ -354,16 +361,38 @@ def reduce_operand_layout(d: torch.Tensor, q0: int, hi: int, b0: int, cols: int)
     return halves.permute(1, 2, 0, 5, 3, 6, 4).reshape(-1)
 
 
+def feature_chunks(c: int) -> list[tuple[int, int]]:
+    """``(c0, n)``: the first feature and the count of each chunk of at most
+    ``FEATURE_CHUNK`` of ``c`` features, in the order the kernels take
+    them."""
+    return [(c0, min(FEATURE_CHUNK, c - c0)) for c0 in range(0, c, FEATURE_CHUNK)]
+
+
+def bwd_sums_jobs(n_mod: int, c_in: int, c_out: int) -> list[tuple[str, int, int]]:
+    """The training backward's sums kernel's jobs, in grid order
+    (``csrc/siren_decode_bwd.cu::siren_bwd_sums_kernel``): ``(what, layer,
+    c0)`` with ``what`` "dz" (layer 0 also dW_first's first chunk of
+    features), "head" (dW_head's first chunk), then "first" and "head" for
+    every further chunk of dW_first's and dW_head's features from ``c0``."""
+    jobs = [("dz", l, 0) for l in range(n_mod)] + [("head", n_mod - 1, 0)]
+    jobs += [("first", 0, c0) for c0, _ in feature_chunks(c_in)[1:]]
+    return jobs + [("head", n_mod - 1, c0) for c0, _ in feature_chunks(c_out)[1:]]
+
+
 def kernel_hidden_width(h: int, c_in: int, c_out: int, family: str) -> int:
     """The hidden width the ``family`` kernel (a key of ``FAMILIES``) runs
-    a decoder of ``h`` units at: the cluster plan's width (up to 512 one of
-    128, 192, 256, 384 and 512).  Raises beyond the family's limits."""
+    a decoder of ``h`` units and ``c_in`` -> ``c_out`` features at: the
+    cluster plan's width (up to 512 one of 128, 192, 256, 384 and 512),
+    whatever the features.  Raises beyond the family's hidden-width limit
+    or on no feature."""
     limit = MAX_HIDDEN[family]
-    if h > limit or c_in > MAX_FEATURES or c_out > MAX_FEATURES:
+    if h > limit:
         raise ValueError(
             f"the CUDA SIREN {FAMILIES[family]} kernel takes a hidden width of at most {limit} "
-            f"(zero-padded to its kernel width) and at most {MAX_FEATURES} input and output "
-            f"features, got {h}, {c_in}, {c_out}")
+            f"(zero-padded to its kernel width), got {h}")
+    if c_in < 1 or c_out < 1:
+        raise ValueError(f"the CUDA SIREN {FAMILIES[family]} kernel needs at least one input "
+                         f"and one output feature, got {c_in}, {c_out}")
     return cluster_plan(h).width
 
 

@@ -137,6 +137,12 @@ def test_wide_operand_checks(d):
 # (tile, image stages, bytes) of the forward, dq and dk/dv
 WIDE_PLANS = {torch.float32: ((64, 3, 196784), (64, 3, 196784), (32, 4, 197824)),
               torch.bfloat16: ((64, 4, 131264), (64, 4, 131264), (64, 4, 133312))}
+# the float32 forward with Q resident's (keys, image stages, bytes) at 256,
+# 384 and 512, as the note states them
+RESIDENT_PLANS = {256: (32, 6, 165088), 384: (32, 6, 197856), 512: (32, 6, 230624)}
+# the bf16 TMA forward's (keys, stages, bytes, output columns a block) at
+# 256, 384 and 512, as the note states them
+TMA_PLANS = {256: (64, 2, 197672, 256), 384: (64, 2, 230440, 128), 512: (32, 2, 230440, 256)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -145,13 +151,23 @@ def test_wide_plans(dtype):
     argument of the kernels): it fits a block's shared memory with at least
     two image stages, no raw stage, one consumer warpgroup of 64 rows,
     whole k16 steps a tile and whole 16-byte chunks a producer thread in
-    every image; the plans the kernels' note states."""
+    every image; the plans the kernels' note states.  The bf16 forward at
+    ``TMA_WIDTHS`` has the TMA forward's plan instead (its own test), and
+    the float32 forward up to ``RESIDENT_MAX`` the plan with Q resident
+    (32-key tiles, six stages, Q's rows after them)."""
     size = 4 if dtype == torch.float32 else 2
     fwd, dq, dkv = WIDE_PLANS[dtype]
     for d in (256, 384, 512, 1024):
         plan = tfa.forward_plan(d, dtype)
-        assert (plan["keys"], plan["image_stages"], plan["smem"]) == fwd
-        assert plan["raw_stages"] == 0
+        if dtype == torch.bfloat16 and d in tfa.TMA_WIDTHS:
+            assert (plan["keys"], plan["raw_stages"], plan["smem"]) == TMA_PLANS[d][:3]
+        elif dtype == torch.float32 and d <= tfa.RESIDENT_MAX:
+            assert (plan["keys"], plan["image_stages"], plan["smem"]) == RESIDENT_PLANS[d]
+            assert plan["raw_stages"] == 0 and plan["smem"] <= tfa.FWD_SMEM_LIMIT
+        else:
+            assert tfa.forward_columns(d, dtype) == tfa.WIDE_GROUP
+            assert (plan["keys"], plan["image_stages"], plan["smem"]) == fwd
+            assert plan["raw_stages"] == 0
         for kernel, want in zip(tfa.BWD_KERNELS, (dq, dkv)):
             plan = tfa.backward_plan(d, dtype, kernel)
             assert (plan["rows"], plan["consumers"], plan["raw_stages"]) == (64, 1, 0)
@@ -166,6 +182,30 @@ def test_wide_plans(dtype):
             cover = {(u % rows, (u // rows + u % rows) % cpr) for u in range(rows * cpr)}
             assert len(cover) == rows * cpr
         assert tfa.WIDE_GROUP * tile // (4 if size == 4 else 16) % 128 == 0   # the group image
+
+
+@pytest.mark.parametrize("d", [256, 384, 512])
+def test_tma_forward_plans(d):
+    """The bf16 TMA forward's plan at each of its widths: Q's 128 rows
+    resident, two stages or more of K's tile and V's group of
+    ``forward_columns`` columns beside them (64 keys where two fit, else
+    32), within a block's shared memory with the 1024 bytes the swizzle's
+    alignment may take, and whole k16 steps and 64-column slabs; the
+    widths above take the column-group kernel, and float32 always."""
+    plan, gw = tfa.forward_plan(d, torch.bfloat16), tfa.forward_columns(d, torch.bfloat16)
+    kt, ns, smem = plan["keys"], plan["raw_stages"], plan["smem"]
+    assert (kt, ns, smem, gw) == TMA_PLANS[d] and plan["image_stages"] == 0
+    stage = kt * (d + gw) * 2
+    assert smem == 1024 + 128 * d * 2 + 8 + ns * (stage + 16) <= tfa.FWD_SMEM_LIMIT
+    assert ns >= 2 and kt % 16 == 0 and d % 64 == 0 and gw % 64 == 0 and d % gw == 0
+    # a stage's slabs and Q's start on the swizzle's 1024-byte atoms
+    assert all(x % 1024 == 0 for x in (128 * d * 2, stage, kt * 128, kt * d * 2))
+    if kt == 32:   # 64 keys would leave one stage
+        assert 1024 + 128 * d * 2 + 8 + 2 * (64 * (d + gw) * 2 + 16) > tfa.FWD_SMEM_LIMIT
+    assert tfa.forward_columns(d, torch.float32) == gw
+    for wider in (640, 768, 1024):
+        assert tfa.forward_plan(wider, torch.bfloat16)["image_stages"] > 0
+        assert tfa.forward_columns(wider, torch.bfloat16) == tfa.WIDE_GROUP
 
 
 def _read_kmajor(image, rows, kdim, halves, size):

@@ -134,7 +134,7 @@ def test_cluster_plan(h):
         assert len(rows) == 64 and len(cols) <= 256 and len(cols) % 64 == 0
         owner[rows.start:rows.stop, cols.start:cols.stop] += 1
     assert (owner == 1).all()
-    for c in (1, 3, 5, tsd.MAX_FEATURES):
+    for c in (1, 3, 5, tsd.FEATURE_CHUNK, tsd.FEATURE_CHUNK + 1, 64):
         assert tsd.kernel_hidden_width(h, c, c, "forward") == plan.width
 
 

@@ -198,8 +198,9 @@ def test_hidden_padding_is_exact(hidden):
 def test_kernel_width_limits():
     """Each kernel family's widths: every family (the float32 and bf16
     forwards, dz and the training backward) runs at the cluster plan's
-    width up to 3072 (up to 512 one of 128, 192, 256, 384 and 512); past a
-    limit, or past 16 coordinates or outputs, the error names the
+    width up to 3072 (up to 512 one of 128, 192, 256, 384 and 512), at any
+    number of coordinates and outputs (the tables take them in chunks of
+    ``FEATURE_CHUNK``); past the width limit the error names the
     family."""
     narrow = (1, 64, 65, 129, 193, 257, 384, 385, 400, 448, 449, 500, 512)
     assert set(tsd.CLUSTER_FAMILIES) == set(tsd.FAMILIES)
@@ -211,9 +212,11 @@ def test_kernel_width_limits():
                 for h in (513, 576, 600, 640, 1000, 1024, 1025, 2048, 2049, 3072)] \
             == [576, 576, 640, 640, 1024, 1024, 1152, 2048, 2304, 3072]
         assert tsd.kernel_hidden_width(3072, 16, 16, family) == 3072
-        for args in ((3073, 3, 3), (4096, 2, 2), (2048, 17, 3), (1024, 3, 17)):
+        for args in ((3073, 3, 3), (4096, 2, 2)):
             with pytest.raises(ValueError, match=f"{tsd.FAMILIES[family]} kernel takes a hidden "
                                                  f"width of at most 3072"):
                 tsd.kernel_hidden_width(*args, family)
+        assert tsd.kernel_hidden_width(2048, 17, 3, family) == 2048
+        assert tsd.kernel_hidden_width(1024, 3, 17, family) == 1024
     assert tsd.MAX_HIDDEN == {"forward": 3072, "forward_bf16": 3072, "dz": 3072, "bwd": 3072}
-    assert tsd.MAX_FEATURES == 16
+    assert tsd.FEATURE_CHUNK == 16

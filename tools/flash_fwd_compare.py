@@ -2,7 +2,7 @@
 """The flash-attention kernels against another build of them, on one H100.
 
     python3 tools/flash_fwd_compare.py [--backward] [--parent DIR] [--variants a,b]
-        [--no-checks] [--trap] [--out DIR]
+        [--no-checks] [--trap] [--wide-only] [--out DIR]
 
 Builds ``confild_tpu_torch/csrc/flash_attention.cu`` as it stands and, with
 ``--parent``, the same file of another checkout (``DIR`` is its root, for
@@ -18,7 +18,10 @@ plans (the library's beside the wrapper's mirror).  Then:
   memory);
 * the forward (default) or, with ``--backward``, the two backward kernels
   (dq, dk/dv) at (64, 144, 64), (16, 9216, 64), (4, 16384, 64) in float32
-  and bf16 and at phase 18 (d)'s classifier shapes in float32: each build's
+  and bf16 and at phase 18 (d)'s classifier shapes in float32 (the forward
+  also above 128, ``WIDE_SHAPES``: (8, 144, 512), (8, 9216, 256) and (4,
+  9216, 512) in both types, where bf16 up to 512 is the TMA forward and
+  the rest the column-group kernel): each build's
   library called directly on the same tensors (its C entry points), in
   turns (parent and variants, this, this, then variants and parent again),
   median of 7 separately timed runs of back-to-back calls (20 below 1000
@@ -34,10 +37,21 @@ plans (the library's beside the wrapper's mirror).  Then:
 
 ``--variants`` adds ablations of this tree's source, each timed beside it
 (never checked: their results are wrong on purpose): for the forward
-``noexp`` multiplies where the softmax exponentiates, ``noimage`` has the
-producer write no operand images (it still waits and signals),
-``nosoftmax`` sends S to P.V as it is; for the backward ``bwd_noimage``
-has both passes' producers write no images (nor lse and delta).
+``noexp`` multiplies where the softmax exponentiates (in every forward),
+``noimage`` has the producer write no operand images (it still waits and
+signals), ``nosoftmax`` sends S to P.V as it is, and for the bf16 TMA
+forward ``tma_nos`` skips S = Q K^T (S is zero) and ``tma_nopv`` skips
+O += P V (its copies still land and are waited for); for the backward
+``bwd_noimage`` has both passes' producers write no images (nor lse and
+delta).  The ``--parent`` build of the commit before the TMA forward is
+its thread-pass ablation: the column-group kernel, whose producer's
+threads load and write every operand image.
+
+``--wide-only`` checks and times the forward above 128 alone
+(``FLASH_WIDE_CHECKS``, ``WIDE_SHAPES``); ``wq_noproducer`` and
+``wq_nopv`` ablate the float32 forward with Q resident (its producer's
+items, or the products of its P V_g), and ``wq_ahead2`` / ``wq_ahead3``
+keep its producer's loads 2 or 3 items ahead in place of 1.
 
 ``--trap`` builds this tree's source with every mbarrier wait bounded: a
 wait that spins past about 2^26 polls ends the kernel with a trap, so a
@@ -103,7 +117,25 @@ VARIANTS = {
     # the softmax: S goes to P.V as it is
     "nosoftmax": [(r"softmax_tile<KT>\((\w+), m, l, alpha, it \* KT, n, t, scale2\);",
                    "alpha[0] = alpha[1] = 1.f;")],
+    # the TMA forward's products: S = Q K^T skipped (S zero), or O += P V
+    "tma_nos": [(r"s_product<D, KT>\(sc, qa, kb\);",
+                 "for (int i = 0; i < KT / 2; ++i) sc[i] = 0.f;")],
+    "tma_nopv": [(r"pv_product<GW, KT>\(acc, sc, vb\);", "")],
+    # the float32 forward with Q resident (D <= 512): its producer writes no
+    # item (nor loads one), or its consumer skips the products of O += P V_g
+    # (still taking and releasing V's items)
+    "wq_noproducer": [(r"k_store\(stage, w, ptid\);", ";"),
+                      (r"v_store\(stage, w, ptid\);", ";")],
+    "wq_nopv": [(r"rs_tf32<SUB, KT, SUB>\(part, big, sm, vb, 0\);", "")],
+    # its producer's loads 2 or 3 items ahead, not 1 (right results)
+    "wq_ahead2": [(r"constexpr int LOAD_AHEAD = 1;", "constexpr int LOAD_AHEAD = 2;")],
+    "wq_ahead3": [(r"constexpr int LOAD_AHEAD = 1;", "constexpr int LOAD_AHEAD = 3;")],
 }
+
+# the forward's shapes above 128: the one-head Case4 middle block at batch
+# 8, the xl recipe's ds-8 block under num_heads 1 at batch 8, and four heads
+# of 512 channels at 9216 tokens
+WIDE_SHAPES = ((8, 144, 512), (8, 9216, 256), (4, 9216, 512))
 
 
 def build(csrc: str, out_dir: str, tag: str, trap: bool = False,
@@ -194,10 +226,11 @@ def forward_call(lib, q, k, v):
     return call
 
 
-def compare(libs: dict, device) -> None:
-    shapes = ([(s, torch.float32) for s in cs.FLASH_TIMES]
-              + [(s, torch.bfloat16) for s in cs.FLASH_TIMES]
-              + [(s, torch.float32) for s in cs.FLASH_CLASSIFIER_SHAPES])
+def compare(libs: dict, device, wide_only: bool = False) -> None:
+    shapes = [] if wide_only else ([(s, torch.float32) for s in cs.FLASH_TIMES]
+                                   + [(s, torch.bfloat16) for s in cs.FLASH_TIMES]
+                                   + [(s, torch.float32) for s in cs.FLASH_CLASSIFIER_SHAPES])
+    shapes += [(s, dtype) for s in WIDE_SHAPES for dtype in (torch.bfloat16, torch.float32)]
     others = [t for t in libs if t != "this"]
     order = others + ["this", "this"] + others[::-1]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -332,6 +365,8 @@ def main() -> int:
     ap.add_argument("--parent", help="root of another checkout to build and compare")
     ap.add_argument("--no-checks", action="store_true", help="skip phase 10's checks")
     ap.add_argument("--trap", action="store_true", help="bound every mbarrier wait")
+    ap.add_argument("--wide-only", action="store_true",
+                    help="check and time only above 128 (FLASH_WIDE_CHECKS, WIDE_SHAPES)")
     ap.add_argument("--out", help="build directory (default: a temporary one)")
     ap.add_argument("--variants", default="",
                     help=f"ablations to time beside this build: {', '.join(VARIANTS)}")
@@ -365,6 +400,9 @@ def main() -> int:
         setmaxnreg_ready(report(name, vpath, vlog), libs[name])
     this = libs["this"]
     fa._library = lambda: this   # the wrappers launch this build
+    for d in fa.TMA_WIDTHS:
+        print(f"[plan] {cs.flash_tma_label(d)}: {fa.library_forward_plan(d, torch.bfloat16)} "
+              f"(wrapper: {fa.forward_plan(d, torch.bfloat16)})", flush=True)
     for d, dtype in cs.FLASH_FWD_INSTANCES:
         print(f"[plan] {cs.flash_fwd_label(d, dtype)}: {fa.library_forward_plan(d, dtype)} "
               f"(wrapper: {fa.forward_plan(d, dtype)})", flush=True)
@@ -372,14 +410,18 @@ def main() -> int:
             print(f"[plan] {cs.flash_bwd_label(kernel, d, dtype)}: {plan} (wrapper: "
                   f"{fa.backward_plan(d, dtype, kernel)})", flush=True)
     if not args.no_checks:
-        for bh, n, d, dtype in cs.FLASH_CHECKS:
+        for bh, n, d, dtype in cs.FLASH_WIDE_CHECKS if args.wide_only else cs.FLASH_CHECKS:
             cs.flash_check(device, bh, n, d, dtype)
-        cs.flash_memory(device)
+        if not args.wide_only:
+            cs.flash_memory(device)
     print(f"[compare] SM clock, max SM clock: {cs.sm_clocks()}", flush=True)
     if args.backward:
         compare_backward(libs, device)
     else:
-        compare(libs, device)
+        compare(libs, device, args.wide_only)
+        if args.wide_only:   # no host timings at 144 tokens
+            print(f"[compare] SM clock, max SM clock: {cs.sm_clocks()}", flush=True)
+            return 0
         cs.forward_host_us(device)
         wrappers = {"this": fa}
         if args.parent and os.path.exists(os.path.join(args.parent, "confild_tpu_torch", "ops",
