@@ -21,8 +21,9 @@ Phases, each fatal on failure:
    column-group flash kernels for heads above 128 one instantiation a type
    each, ``HGMMA`` only, their plans at D = 256, 384, 512 and 1024 held to
    the mirror; the float32 forward with Q resident (D up to 512, groups of
-   128 and 256) and the bf16 forward on TMA tensor copies at D = 256, 384
-   and 512, ``HGMMA`` only, no spill, their plans held to the mirror);
+   128 and 256) and the bf16 forward and backward pair (dq, dk/dv) on TMA
+   tensor copies at D = 256, 384 and 512, ``HGMMA`` only, no spill, their
+   plans held to the mirror);
 3. forward decode kernel against its plain version and a float64 run under
    the JAX tests' criterion ``err_kernel <= 2 * err_plain_f32 + 1e-6`` (each
    error printed as a share of its limit), two launches bitwise equal: at
@@ -106,7 +107,8 @@ Phases, each fatal on failure:
     to bf16 as in JAX), 16-channel heads (8, 144, 16) in f32 and bf16
     (zero-padded to 32 by the wrapper), and above 128 (the column-group
     kernels; the forward up to 512 the float32 kernel with Q resident and
-    the bf16 one on TMA tensor copies)
+    the bf16 one on TMA tensor copies, the bf16 backward pair up to 512 on
+    TMA tensor copies too)
     D = 160 (padded to 256), 256, 384 and 512 at a ragged (2, 300, D),
     1024 at (2, 200, 1024) and the one-head Case4 middle block (8, 144,
     512), each in f32 and bf16, under the same criterion (each
@@ -128,9 +130,9 @@ Phases, each fatal on failure:
     three shapes, float32 at phase 18 (d)'s classifier shapes (16, 1024,
     64), (32, 256, 64) and (32, 64, 64); the wrapper's host time a
     call at (64, 144, 64) (``time.perf_counter`` over 200 unsynchronised
-    calls) with its parts, beside SDPA's; and above 128 the column-group
-    forward and backward pair at (8, 144, 512) and (8, 9216, 256) in f32
-    and bf16 as the forward and the pair above (``[flash-fwd]``,
+    calls) with its parts, beside SDPA's; and above 128 the forward and
+    backward pair at (8, 144, 512) and (8, 9216, 256) in f32 and bf16 as
+    the forward and the pair above (``[flash-fwd]``,
     ``[flash-bwd]``), and the forward alone at (4, 9216, 512), with their
     recompute factors (``[flash-wide]``);
 11. the full-width Case4 U-Net (384^2, 128 ch, mult 1,1,2,2,4,4, heads of
@@ -334,7 +336,8 @@ Phases, each fatal on failure:
     the SIREN launches of its FiLM run; the column-group launches of 12b
     and (f) are the kernels line's ``@D256`` / ``@D512`` rows' (and the
     ``@D512N9216`` rows', the same instantiations), 12b's bf16 launches
-    the ``flash_forward_bf16@D512`` row's.
+    the ``flash_forward_bf16@D512``, ``flash_bwd_dq_bf16@D512`` and
+    ``flash_bwd_dkv_bf16@D512`` rows'.
 19. the SIREN kernels at every width a FiLM recipe may ask for (hidden
     widths up to 1024, the float32 and bf16 forwards up to 3072, 16
     coordinates and outputs), on
@@ -503,9 +506,9 @@ FLASH_CHECKS = ((64, 144, 64, torch.float32), (2, 200, 32, torch.float32),
                 (8, 144, 16, torch.float32), (8, 144, 16, torch.bfloat16),
                 (2, 144, 128, torch.float32), (2, 144, 128, torch.bfloat16))
 # heads above 128 (the column-group kernels; in bf16 at 256, 384 and 512 the
-# TMA forward): D = 160 (padded to 256), 256, 384, 512 and 1024 on a ragged
-# N, and the one-head Case4 middle block at batch 8 (8, 144, 512), each in
-# float32 and bf16
+# TMA forward and backward): D = 160 (padded to 256), 256, 384, 512 and 1024
+# on a ragged N, and the one-head Case4 middle block at batch 8 (8, 144,
+# 512), each in float32 and bf16
 FLASH_WIDE_CHECKS = tuple((bh, n, d, dtype)
                           for bh, n, d in ((2, 300, 160), (2, 300, 256), (2, 300, 384),
                                            (2, 300, 512), (2, 200, 1024), (8, 144, 512))
@@ -713,9 +716,12 @@ FLASH_WIDE_KERNELS = ("flash_fwd_wide_kernel", "flash_bwd_dq_wide_kernel",
 # 256, 384 and 512
 FLASH_TMA_KERNEL = "flash_fwd_tma_kernel"
 FLASH_WQ_KERNELS = ("flash_fwd_wq_kernel<128, f32>", "flash_fwd_wq_kernel<256, f32>")
+# the bf16 backward on TMA tensor copies (dq, dk/dv), one instantiation a
+# width each at 256, 384 and 512
+FLASH_TMA_BWD_KERNELS = ("flash_bwd_dq_tma_kernel", "flash_bwd_dkv_tma_kernel")
 WGMMA_KERNELS = (CLUSTER_KERNELS + ("siren_bwd_reduce_kernel", FLASH_FWD_KERNEL)
                  + FLASH_BWD_KERNELS + FLASH_WIDE_KERNELS
-                 + (FLASH_TMA_KERNEL, "flash_fwd_wq_kernel"))
+                 + (FLASH_TMA_KERNEL, "flash_fwd_wq_kernel") + FLASH_TMA_BWD_KERNELS)
 # the flash kernels' instantiations: every head width in both types
 FLASH_FWD_INSTANCES = tuple((d, dtype) for d in (32, 64, 128)
                             for dtype in (torch.float32, torch.bfloat16))
@@ -726,9 +732,11 @@ def flash_wide_label(kernel: str, dtype) -> str:
     return f"{kernel}<128, {'f32' if dtype == torch.float32 else 'bf16'}>"
 
 
-def flash_tma_label(d: int) -> str:
-    """``flash_fwd_tma_kernel<256, bf16>``, as ``kernel_label`` names it."""
-    return f"{FLASH_TMA_KERNEL}<{d}, bf16>"
+def flash_tma_label(d: int, kernel: str = "fwd") -> str:
+    """``flash_fwd_tma_kernel<256, bf16>`` (``kernel`` "fwd"), or
+    ``flash_bwd_dq_tma_kernel<256, bf16>`` ("dq", "dkv"), as
+    ``kernel_label`` names it."""
+    return f"flash_{'fwd' if kernel == 'fwd' else 'bwd_' + kernel}_tma_kernel<{d}, bf16>"
 
 
 def flash_bwd_label(kernel: str, d: int, dtype) -> str:
@@ -775,7 +783,8 @@ def phase_build():
     missing += [label for d, dtype in FLASH_FWD_INSTANCES
                 for label in (flash_fwd_label(d, dtype), flash_bwd_label("dq", d, dtype),
                               flash_bwd_label("dkv", d, dtype)) if label not in hmma]
-    missing += [flash_tma_label(d) for d in fa.TMA_WIDTHS if flash_tma_label(d) not in hmma]
+    missing += [flash_tma_label(d, kernel) for d in fa.TMA_WIDTHS
+                for kernel in ("fwd", *fa.BWD_KERNELS) if flash_tma_label(d, kernel) not in hmma]
     missing += [k for k in FLASH_WQ_KERNELS if k not in hmma]
     missing += [flash_wide_label(k, dtype) for k in FLASH_WIDE_KERNELS
                 for dtype in (torch.float32, torch.bfloat16)
@@ -823,9 +832,22 @@ def phase_build():
                              f"{fa.forward_plan(d, torch.bfloat16)}")
         if " 0 bytes spill stores" not in PTXAS.get(label, ""):
             raise SystemExit(f"{label} spills: {PTXAS.get(label)}")
+        # the bf16 TMA backward: the same, both passes
+        for kernel, plan in fa.library_backward_plan(d, torch.bfloat16).items():
+            label = flash_tma_label(d, kernel)
+            log(f"[build] {label}: {plan['rows']} rows a block in {plan['consumers']} consumer "
+                f"warpgroups, {plan['tile']} rows a tile, {plan['raw_stages']} TMA stages, "
+                f"{fa.backward_columns(d, torch.bfloat16)} output columns a block, "
+                f"{plan['smem']} bytes of dynamic shared memory; {PTXAS.get(label)}")
+            if plan != fa.backward_plan(d, torch.bfloat16, kernel):
+                raise SystemExit(f"{label}: the library's plan {plan} is not the wrapper's "
+                                 f"{fa.backward_plan(d, torch.bfloat16, kernel)}")
+            if " 0 bytes spill stores" not in PTXAS.get(label, ""):
+                raise SystemExit(f"{label} spills: {PTXAS.get(label)}")
     # above 128: one plan a pass and type, whatever the width (the bf16
-    # forward's at 256 and 512 is the TMA forward's, above; the float32
-    # forward's up to 512 that with Q resident, whose bytes follow d)
+    # forward's and backward's at 256, 384 and 512 are the TMA kernels',
+    # above; the float32 forward's up to 512 that with Q resident, whose
+    # bytes follow d)
     for dtype in (torch.float32, torch.bfloat16):
         for d in (256, 384, 512, 1024):
             plans = {"fwd": fa.library_forward_plan(d, dtype),
@@ -833,7 +855,8 @@ def phase_build():
             mirror = {"fwd": fa.forward_plan(d, dtype),
                       **{k: fa.backward_plan(d, dtype, k) for k in fa.BWD_KERNELS}}
             for kernel, key in zip(FLASH_WIDE_KERNELS, ("fwd", "dq", "dkv")):
-                label = flash_wide_label(kernel, dtype)
+                label = (flash_tma_label(d, key) if dtype == torch.bfloat16
+                         and d in fa.TMA_WIDTHS else flash_wide_label(kernel, dtype))
                 log(f"[build] {label} at D = {d}: {plans[key]}; {PTXAS.get(label)}")
                 if plans[key] != mirror[key]:
                     raise SystemExit(f"{label} at D = {d}: the library's plan {plans[key]} is "
@@ -2102,10 +2125,11 @@ def wide_factors(d: int, dtype=torch.float32) -> tuple[float, float]:
     needs, forward and backward pair: the forward's d / c groups of c
     output columns (``fa.forward_columns``: 128, and in bf16 the TMA
     forward's 256 where they divide d) each compute S over the whole head,
-    and their own c columns of P V: (d / c + 1) / 2; the backward's d / 128
-    groups S and dP: (8 d / 128 + 6) / 14."""
+    and their own c columns of P V: (d / c + 1) / 2; the backward's
+    ``fa.backward_products`` (column groups: (8 g + 6) / 14; the bf16 TMA
+    pair, its dk/dv split by output: (5 g + 3) / 7)."""
     groups = d // fa.forward_columns(d, dtype)
-    return (groups + 1) / 2, (8 * (d // fa.WIDE_GROUP) + 6) / 14
+    return (groups + 1) / 2, fa.backward_products(d, dtype)
 
 
 def phase_flash(device, results) -> None:
@@ -2145,7 +2169,10 @@ def phase_flash(device, results) -> None:
                 f"{wide_factors(d, dtype)[0]:.2f}x the least ({d // fa.forward_columns(d, dtype)}"
                 f" groups of {fa.forward_columns(d, dtype)} columns each compute S over the "
                 f"head), the backward pair's {wide_factors(d, dtype)[1]:.2f}x ("
-                f"{d // fa.WIDE_GROUP} groups each compute S and dP)")
+                f"{d // fa.backward_columns(d, dtype)} groups of "
+                f"{fa.backward_columns(d, dtype)} columns each compute S and dP"
+                + (", dk/dv split by output" if dtype == torch.bfloat16
+                   and d in fa.TMA_WIDTHS else "") + ")")
     log(f"[flash-time] SM clock, max SM clock after the timings: {sm_clocks()}")
     log("[flash-fwd] " + json.dumps(dict(fwd_times, host_us=host)))
     log("[flash-bwd] " + json.dumps(bwd_times))
@@ -2209,6 +2236,22 @@ def phase_flash(device, results) -> None:
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
                 library_ms=lib, library_call=f"scaled_dot_product_attention {call}",
                 library_covers=covers, shape=f"{bh}x{n}x{d}", recompute=factor)
+    # the backward rows above 128 in bf16 (the TMA pair at 256 and 512):
+    # errors from the bf16 checks at the same width
+    for tag, (bh, n, d) in FLASH_WIDE_TIMES.items():
+        bw = wide_t[(tag, torch.bfloat16)][1]
+        check = errs[(8, 144, 512, torch.bfloat16) if d == 512
+                     else (2, 300, 256, torch.bfloat16)]
+        lib, call = min((bw["sdpa_backward"][0], "backward on (BH, N, D)"),
+                        (bw["sdpa_4d_backward"][0], "backward on (1, BH, N, D)"))
+        for name, err in (("flash_bwd_dq", check["dq"]),
+                          ("flash_bwd_dkv", max(check["dk"], check["dv"]))):
+            bnd = bw["bounds"][name]
+            results[f"{name}_bf16{tag}"] = dict(
+                max_abs_err=err, ms=bw[name][0], plain_ms=bw["plain"][0], bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=lib,
+                library_call=f"scaled_dot_product_attention {call}", library_covers=pair,
+                shape=f"{bh}x{n}x{d}", recompute=wide_factors(d, torch.bfloat16)[1])
 
 
 CASE4_UNET = {k: CASE4_RECIPE[k] for k in (
@@ -2393,8 +2436,8 @@ def phase_one_head(root) -> dict:
     one head of 512 channels at 144 tokens) and flash on, batch 8, 3 steps
     and a resume to step 4; every column-group kernel must launch at D =
     512, and no narrow one; then the same in bf16 (``use_bf16``, 3 steps):
-    the TMA forward at 512 and the column-group backward in bf16 must
-    launch.  Returns the wide launches."""
+    the TMA forward and the TMA backward pair at 512 must launch.  Returns
+    the wide launches."""
     recipe = write_diffusion_case(os.path.join(root, "one_head"), **ONE_HEAD)
     logs = recipe["log_path"]
     path = _write_yaml(os.path.join(root, "one_head", "case4.yml"), recipe)
@@ -2439,8 +2482,8 @@ def phase_one_head(root) -> dict:
         counts[k] = counts.get(k, 0) + v
     del again
     torch.cuda.empty_cache()
-    # the bf16 torso (use_bf16) with the same heads: the forward on TMA
-    # tensor copies at 512, the column-group backward in bf16
+    # the bf16 torso (use_bf16) with the same heads: the forward and the
+    # backward pair on TMA tensor copies at 512
     rec16 = write_diffusion_case(os.path.join(root, "one_head_bf16"), use_bf16=True, **ONE_HEAD)
     fa.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2448,14 +2491,15 @@ def phase_one_head(root) -> dict:
                                                rec16)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    c16, narrow16 = dict(fa.LAUNCHES_WIDE), dict(fa.LAUNCHES)
+    c16, narrow16, steps16 = dict(fa.LAUNCHES_WIDE), dict(fa.LAUNCHES), loop16.step
     with open(os.path.join(rec16["log_path"], "progress.csv")) as f:
         losses16 = [float(r["loss"]) for r in csv.DictReader(f)]
-    log(f"[one-head] the same in bf16 (use_bf16): {loop16.step} steps, losses "
-        f"{[round(x, 6) for x in losses16]}, CLI wall {wall:.1f} s; launches {c16}, narrow "
-        f"{narrow16}")
+    step16_ms = timed_steps(loop16, [next(loop16.data)[0] for _ in range(2)])
+    log(f"[one-head] the same in bf16 (use_bf16): {steps16} steps, losses "
+        f"{[round(x, 6) for x in losses16]}, CLI wall {wall:.1f} s, ms per step after the "
+        f"CLI's {[round(x, 1) for x in step16_ms]}; launches {c16}, narrow {narrow16}")
     missing = [f"{k}_bf16@D512" for k in fa.LAUNCHES if c16.get(f"{k}_bf16@D512", 0) == 0]
-    if not (loop16.step == 3 and len(losses16) == 3 and np.isfinite(losses16).all()):
+    if not (steps16 == 3 and len(losses16) == 3 and np.isfinite(losses16).all()):
         raise SystemExit("one-head bf16 diffusion training: wrong step count or non-finite "
                          "losses")
     if missing or any(narrow16.values()):
@@ -5118,6 +5162,10 @@ def main() -> int:
               "flash_attention.py:56")
              for tag, bf16 in [(t, "_bf16") for t in FLASH_WIDE_TIMES]
              + [(t, b) for t in FLASH_WIDE_FWD_TIMES for b in ("", "_bf16")]]
+    # the bf16 backward above 128 (the TMA pair)
+    rows += [(name, f"{name}_bf16{tag}", "flash_attention.cu", f"flash_attention.py:{line}")
+             for tag in FLASH_WIDE_TIMES
+             for name, line in (("flash_bwd_dq", 158), ("flash_bwd_dkv", 188))]
     # the SIREN kernels at more than 16 features (phase 20)
     rows += [(fam, f"{fam}{FEATURE_TAG}", *(fwd if "forward" in fam else chain),
               *(() if "forward" in fam else

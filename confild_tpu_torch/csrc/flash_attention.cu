@@ -226,7 +226,9 @@
 //     tiles (its two accumulators of the group's columns take 128
 //     registers), four of 48.25 KB (197824); bf16 64-row tiles, four stages
 //     of 32 KB (131264; dk/dv 133312).  One block an SM (up to 255
-//     registers a thread, no setmaxnreg).
+//     registers a thread, no setmaxnreg).  The bf16 backward at 256, 384
+//     and 512 runs on the TMA pair below instead; these serve float32 at
+//     every width and bf16 above 512.
 //
 // The float32 forward at D = 256, 384 and 512 (flash_fwd_wq_kernel<GW>;
 // namespace wq) replaces the column-group forward there, whose producer
@@ -303,6 +305,77 @@
 //     without P V 1.15-1.26: S's products of 64 keys (m64n64k16, 16 of them
 //     a tile at 256) cost more than P V's four m64n256k16, and each
 //     warpgroup runs S, the softmax and P V one after another.
+//
+// The bf16 backward at D = 256, 384 and 512 (flash_bwd_dq_tma_kernel<D,
+// bf16>, flash_bwd_dkv_tma_kernel<D, bf16>; namespace tmab) replaces the
+// column-group pair there, on the TMA forward's pattern.  What held that
+// pair back (26.0 ms at (8, 9216, 256) against SDPA's backward 5.35 on an
+// H100): every 128-column group recomputed S and dP over the head (1.57x
+// the least products at 256, 2.71x at 512), its producer read global
+// memory an item at a time and wrote every operand image (the resident
+// rows' chunks again every tile, the transposed groups), and a block was
+// one consumer warpgroup of 64 rows.
+//   * Block: two consumer warpgroups and no producer (a ninth warp would cap
+//     a thread at 168 registers; the copies take no thread's time).  At 256
+//     each warpgroup owns 64 rows of the block's 128 and the whole head (the
+//     output accumulator, 128 float32 registers a thread); at 384 and 512
+//     both resident operands' 128 rows no longer fit beside two stages, so
+//     a block is 64 rows and its two warpgroups own two groups of them, of
+//     192 (384) or 256 (512) columns, sharing the resident rows and the
+//     stream.  A thread may keep 255 registers (at 256: dq 242, dk/dv 201;
+//     none spills).
+//   * Resident (loaded once by TMA tensor copies, 3-D maps (column, row,
+//     head), D / 64 slabs in the 128-byte swizzle): dq's Q and dO, dk/dv's
+//     K and V (the dV blocks K alone).  Streamed through NS stages by the
+//     same copies, a stage's full barrier armed with its whole box (rows
+//     past N arrive as zeros and count): dq's key tiles of K and V, dk/dv's
+//     query tiles of Q and dO.  No thread writes an operand image.
+//   * Products: S = Q K^T and dP = dO V^T (dk/dv: S^T = K Q^T, dP^T = V
+//     dO^T) read both operands K-major from the slabs (a k16 step is the
+//     next 32 bytes of a row, sbo 1024); the products over the streamed
+//     rows, dQ_g += dS K_g, dV_g += P^T dO_g, dK_g += dS^T Q_g, take P or
+//     dS rounded to bf16 as register A in the accumulator's layout and read
+//     the stage's group slabs MN-major through the descriptor's transpose
+//     bit (lbo the slab stride ST x 128, sbo 1024), as the TMA forward
+//     reads V.  S and dP go in two commit groups: P's exponentials run
+//     between the two waits, while dP's products do; a tile's product into
+//     the output is left running while the next tile's S and dP are issued
+//     (AHEAD).  Only wgmma writes an accumulator while a product is in
+//     flight (a tile's first step has scale-d 0, P has registers of its
+//     own), and dk/dv runs one loop for each output: a register of S or dP
+//     zeroed or overwritten there, or the dV path's values laid over dP^T's
+//     accumulator in one loop with a branch, made ptxas serialise every
+//     wgmma (C7515: 8.6-9.6 ms against 6.4 at (8, 9216, 256)).
+//   * dk/dv split by output: each (key block, groups) has a dV block, which
+//     computes S^T and dV_g += P^T dO_g, and a dK block, which computes S^T,
+//     dP^T and dK_g += dS^T Q_g, so no block holds two output accumulators.
+//     With g groups the pair does (5 g + 3) / 7 of the least products: 1.14x
+//     at 256 (the column-group pair 1.57x), 1.86x at 384 and 512 (2.14x,
+//     2.71x; groups of 128 at 384 would make it 2.57x).  Every output
+//     element has one owner: no atomics, bitwise repeats.
+//   * Ragged edges: TMA's zeros mask nothing (a zero key gives S = 0 and P
+//     = 2^-lse), so dq sets S to -inf for keys past N by index, and dk/dv
+//     reads lse as +inf (P^T = 0) and delta as 0 for queries past N,
+//     loading a tile's lse log2 e and delta with its own threads (a 2-D map
+//     needs 16-byte row strides, and N = 301 has none), before it waits on
+//     the stage so the loads run under the wait.
+//   * The release handoff: a warpgroup's wgmma wait covers its own warp's
+//     share only, so its four warps join on a named barrier (bar.sync 1 +
+//     wg, 128) before its first thread counts the release; the second
+//     release refills the stage with the tile NS on, by TMA.
+//   * Plans (tmab::Plan, one for both passes): 256: 128 rows a block, 32
+//     rows a tile, 3 stages (230456 bytes); 384: 64 rows, 32, 2 (197672);
+//     512: 64 rows, 16, 3 (230456).  Above 512 the column-group pair stays.
+//   * On an H100 (tools/flash_fwd_compare.py --backward --wide-only, waits
+//     bounded) at (8, 9216, 256): 6.36 ms (dq 2.32, dk/dv 4.03) against the
+//     column-group pair's 25.6 and SDPA's backward 5.13 (bound 2.46); at
+//     (4, 9216, 512) 18.1 against 52.4 and SDPA's 31.4.  Without the
+//     products into the outputs it takes 2.45-2.51, without S 4.60: the
+//     products over the streamed rows, each a k16 step or two of
+//     m64n256k16 on a 32-row tile, and the shared-memory reads of S's and
+//     dP's operands (a 64-row A operand read again for every 32 keys) hold
+//     it back.  Tiles of 64 rows would halve those reads, but beside 128
+//     resident rows at 256 they leave one stage.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -500,6 +573,17 @@ __device__ __forceinline__ void mma_rs<128, __nv_bfloat16>(float (&d)[64], const
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void mma_ss<16, __nv_bfloat16>(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 template <>
@@ -2202,6 +2286,33 @@ __device__ __forceinline__ void mma_rs_t<128>(float (&d)[64], const uint32_t (&a
 }
 
 template <>
+__device__ __forceinline__ void mma_rs_t<192>(float (&d)[96], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void mma_rs_t<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
@@ -2233,9 +2344,45 @@ __device__ __forceinline__ void mma_rs_t<256>(float (&d)[128], const uint32_t (&
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
+
+// acc = the warpgroup's 64 rows of a (slabs of AR rows) times the tile's KT
+// rows of b, transposed, over the head: D / 64 slabs of four k16 steps,
+// each step the next 32 bytes of the swizzled rows, the first with scale-d
+// 0 (acc's old values ignored: the backward lets no instruction but the
+// wgmma write an accumulator while a product is in flight, or ptxas
+// serialises them), issued and committed as one group; the caller waits
+template <int D, int KT, int AR>
+__device__ __forceinline__ void issue_s(float (&acc)[KT / 2], uint32_t a, uint32_t b) {
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < D / SLAB; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      mma_ss<KT, __nv_bfloat16>(acc, sw128_desc(a + c * AR * SLAB_ROW + 32 * j, 16, ATOM),
+                                sw128_desc(b + c * KT * SLAB_ROW + 32 * j, 16, ATOM),
+                                c > 0 || j > 0);
+  wgmma_commit();
+}
+
+// acc (GW columns) += the register operand pa (ST columns of P or dS, rounded
+// to bf16 by tc::bf16_frags) times the ST rows of the group's slabs at b,
+// read MN-major through the transpose bit (lbo the slab stride, sbo 1024;
+// a k16 step 16 rows on), issued and committed as one group; the caller
+// waits, and keeps pa until then
+template <int GW, int ST>
+__device__ __forceinline__ void issue_pv(float (&acc)[GW / 2], const uint32_t (&pa)[ST / 16][4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int i = 0; i < GW / 2; ++i) fence_reg(acc[i]);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < ST / 16; ++c)
+    mma_rs_t<GW>(acc, pa[c], sw128_desc(b + c * 16 * SLAB_ROW, ST * SLAB_ROW, ATOM), 1);
+  wgmma_commit();
+}
+
 // sc = the warpgroup's 64 rows of Q (qa) times the tile's KT keys (kb),
-// transposed, over the head: D / 64 slabs of four k16 steps, each step the
-// next 32 bytes of the swizzled rows, one commit group
+// transposed, over the head (issue_s), waited for
 template <int D, int KT>
 __device__ __forceinline__ void s_product(float (&sc)[KT / 2], uint32_t qa, uint32_t kb) {
 #pragma unroll
@@ -2243,34 +2390,21 @@ __device__ __forceinline__ void s_product(float (&sc)[KT / 2], uint32_t qa, uint
     sc[i] = 0.f;
     fence_reg(sc[i]);
   }
-  wgmma_fence();
-#pragma unroll
-  for (int c = 0; c < D / SLAB; ++c)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      mma_ss<KT, __nv_bfloat16>(sc, sw128_desc(qa + c * ROWS * SLAB_ROW + 32 * j, 16, ATOM),
-                                sw128_desc(kb + c * KT * SLAB_ROW + 32 * j, 16, ATOM), 1);
-  wgmma_commit();
+  issue_s<D, KT, ROWS>(sc, qa, kb);
   wgmma_wait<0>();
 #pragma unroll
   for (int i = 0; i < KT / 2; ++i) fence_reg(sc[i]);
 }
 
 // acc (the group's GW columns) += P (sc rounded to bf16 as register A) times
-// the stage's V group (vb, KT rows of GW / 64 slabs, MN-major), one k16 step
-// of keys (16 rows, 2048 bytes) a product
+// the stage's V group (vb, KT rows of GW / 64 slabs, MN-major) (issue_pv),
+// waited for
 template <int GW, int KT>
 __device__ __forceinline__ void pv_product(float (&acc)[GW / 2], const float (&sc)[KT / 2],
                                            uint32_t vb) {
   uint32_t pa[KT / 16][4];
   bf16_frags<KT>(sc, pa);
-#pragma unroll
-  for (int i = 0; i < GW / 2; ++i) fence_reg(acc[i]);
-  wgmma_fence();
-#pragma unroll
-  for (int c = 0; c < KT / 16; ++c)
-    mma_rs_t<GW>(acc, pa[c], sw128_desc(vb + c * 16 * SLAB_ROW, KT * SLAB_ROW, ATOM), 1);
-  wgmma_commit();
+  issue_pv<GW, KT>(acc, pa, vb);
   wgmma_wait<0>();
   fence_frags(pa);
 #pragma unroll
@@ -2379,6 +2513,365 @@ flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int j = 0; j < GW / 8; ++j)
       store2<T>(row + 8 * j + 2 * t, acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
     if (t == 0 && grp == 0) lse[(size_t)head * n + r] = m[h] * LN2 + logf(l[h]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 heads of 256, 384 and 512: the backward on TMA tensor copies (the
+// plan and the roles: the note at the top)
+// ---------------------------------------------------------------------------
+namespace tmab {
+
+using namespace tc;
+using tma::ATOM;
+using tma::SLAB;
+using tma::SLAB_ROW;
+
+constexpr int MAX_NS = 4;   // stages, at most
+
+// stages of st streamed rows (of row bytes each, with a barrier and a
+// release count) that fit beside fixed bytes
+constexpr int stages_fit(int fixed, int st, int row) {
+  return (SMEM_LIMIT - fixed) / (st * row + 16);
+}
+
+// The plan at head width D, one for both passes (dq: Q and dO resident, K
+// and V streamed; dk/dv: K and V resident, Q and dO streamed).  A warpgroup
+// owns 64 rows and GW output columns (the whole head at 256, groups of 256
+// at 512, of 192 at 384: groups of 128 would make the split dk/dv dearer
+// than the column-group kernel's).  A block is C = 2 consumer warpgroups:
+// RC = 2 of 64 rows each and one group where both resident operands' 128
+// rows fit beside two stages of 32 rows (256), else RC = 1 block of 64 rows
+// whose two warpgroups own GB = 2 groups of the same rows (384, 512).  ST
+// streamed rows a tile, the most of 64, 32 and 16 that leaves two stages;
+// as many stages as fit, up to MAX_NS.  The resident operands are D / 64
+// slabs of ROWS rows x 128 bytes each, a stage D / 64 slabs of ST rows each
+// of its two operands, all in the 128-byte swizzle TMA writes.  Mirrored by
+// ops/flash_attention.py::backward_plan.
+template <int D>
+struct Plan {
+  static constexpr int GW = D % 256 == 0 ? 256 : 192;
+  static constexpr int GROUPS = D / GW;
+  static constexpr int ROW = 2 * D * 2;   // bytes of a row of both operands
+  static constexpr int RC = ATOM + 8 + 128 * ROW + 2 * (32 * ROW + 16) <= SMEM_LIMIT ? 2 : 1;
+  static constexpr int GB = RC == 2 ? 1 : 2;   // groups a block
+  static constexpr int C = RC * GB;
+  static constexpr int ROWS = 64 * RC;
+  static constexpr int THREADS = 128 * C;
+  static constexpr int RES = ROWS * ROW;                        // both resident operands
+  static constexpr int FIXED = ATOM + RES + 8;                  // alignment slack, res_full
+  static constexpr int ST = stages_fit(FIXED, 64, ROW) >= 2   ? 64
+                            : stages_fit(FIXED, 32, ROW) >= 2 ? 32
+                                                              : 16;
+  static constexpr int STAGE = ST * ROW;
+  static constexpr int FIT = stages_fit(FIXED, ST, ROW);
+  static constexpr int NS = FIT < MAX_NS ? FIT : MAX_NS;
+  static constexpr int SMEM = FIXED + NS * (STAGE + 16);   // a stage, its barrier and count
+  static constexpr int SLABS = D / SLAB;
+  static_assert(D % 128 == 0 && D > 128 && D % GW == 0 && GROUPS % GB == 0,
+                "a head of whole groups, a block of whole groups");
+  static_assert(NS >= 2 && SMEM <= SMEM_LIMIT, "the plan exceeds a block's shared memory");
+};
+
+// A tile's product into the output is left running while the next tile's
+// S and dP (or S^T and dP^T) are issued behind it; false: it is waited for
+// at once
+constexpr bool AHEAD = true;
+
+// dk/dv's output as a type: dK (true) or dV (false)
+template <bool DK>
+struct Output {
+  static constexpr bool value = DK;
+};
+
+template <int N>
+__device__ __forceinline__ void fence_all(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_reg(x[i]);
+}
+
+// A block's shared memory: the resident operands' slabs (1024-byte aligned,
+// the first operand's then the second's), NS stages (the first streamed
+// operand's slabs then the second's), res_full, full[NS], the release counts.
+template <int D>
+struct Smem {
+  using P = Plan<D>;
+  unsigned char* res;
+  unsigned char* st0;
+  uint32_t res_full, full;
+  unsigned int* released;
+  __device__ __forceinline__ explicit Smem(unsigned char* raw) {
+    res = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + ATOM - 1) &
+                                           ~(uintptr_t)(ATOM - 1));
+    st0 = res + P::RES;
+    res_full = smem_addr(st0 + P::NS * P::STAGE);
+    full = res_full + 8;
+    released = reinterpret_cast<unsigned int*>(st0 + P::NS * P::STAGE + 8 + 8 * P::NS);
+  }
+  __device__ __forceinline__ void init() const {   // by thread 0, before a __syncthreads
+    mbar_init(res_full, 1);
+    for (int s = 0; s < P::NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      released[2 * s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // the resident rows row0 .. row0 + ROWS - 1 of a (and of b, unless null)
+  // by one thread, on res_full
+  __device__ __forceinline__ void load_resident(const CUtensorMap* a, const CUtensorMap* b,
+                                                int row0, int head) const {
+    tma::mbar_expect(res_full, b != nullptr ? P::RES : P::RES / 2);
+#pragma unroll 1
+    for (int c = 0; c < P::SLABS; ++c)
+      tma::tma_box(smem_addr(res + c * P::ROWS * SLAB_ROW), a, c * SLAB, row0, head, res_full);
+    if (b != nullptr)
+#pragma unroll 1
+      for (int c = 0; c < P::SLABS; ++c)
+        tma::tma_box(smem_addr(res + P::RES / 2 + c * P::ROWS * SLAB_ROW), b, c * SLAB, row0,
+                     head, res_full);
+  }
+  // tile u of the streamed operands (rows u ST ..) into stage u % NS by one
+  // thread, on its full barrier (armed with the whole box: rows past N
+  // arrive as zeros and count)
+  __device__ __forceinline__ void fill(const CUtensorMap* a, const CUtensorMap* b, int u,
+                                       int head) const {
+    const int s = u % P::NS;
+    const uint32_t sa = smem_addr(st0 + s * P::STAGE), sb = sa + P::ST * D * 2;
+    tma::mbar_expect(full + 8 * s, P::STAGE);
+#pragma unroll 1
+    for (int c = 0; c < P::SLABS; ++c)
+      tma::tma_box(sa + c * P::ST * SLAB_ROW, a, c * SLAB, u * P::ST, head, full + 8 * s);
+#pragma unroll 1
+    for (int c = 0; c < P::SLABS; ++c)
+      tma::tma_box(sb + c * P::ST * SLAB_ROW, b, c * SLAB, u * P::ST, head, full + 8 * s);
+  }
+  __device__ __forceinline__ uint32_t stage(int it) const {
+    return smem_addr(st0 + (it % P::NS) * P::STAGE);
+  }
+  // warpgroup wg is done with tile it's stage: its four warps join on a named
+  // barrier (each warp's wgmma wait covers its own warp only), then its first
+  // thread counts the release; the block's last release refills the stage
+  // with the tile NS on
+  __device__ __forceinline__ void release(int it, int tiles, int wg, int ctid,
+                                          const CUtensorMap* a, const CUtensorMap* b,
+                                          int head) const {
+    wg_sync(1 + wg);
+    const int s = it % P::NS;
+    if (ctid == 0 && (P::C == 1 || (atomicAdd(released + 2 * s, 1u) & 1u)) && it + P::NS < tiles)
+      fill(a, b, it + P::NS, head);
+    __syncwarp();
+  }
+};
+
+}  // namespace tmab
+
+// dq, bf16, D = 256, 384, 512: a block is (ROWS query rows, GB groups of GW
+// output columns) of one head, warpgroup wg its rows 64 (wg % RC) .. and
+// group wg / RC of the block's.  Q's and dO's rows
+// resident; each key tile's K and V slabs streamed: S = Q K^T, dP = dO V^T
+// (both K-major), dS = P (dP - delta) in registers, dQ_g += dS K_g with K's
+// group slabs read MN-major (the transpose bit).  Keys past n: S = -inf.
+template <int D, typename T>
+__global__ void __launch_bounds__(tmab::Plan<D>::THREADS, 1)
+flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_o,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        T* __restrict__ dq, int n, float scale) {
+  using namespace tmab;
+  using P = Plan<D>;
+  constexpr int GW = P::GW, ST = P::ST;
+  static_assert(sizeof(T) == 2, "bf16 operands");
+  extern __shared__ unsigned char smem_raw[];
+  const Smem<D> sm(smem_raw);
+  const int tid = threadIdx.x, wg = tid >> 7, rw = wg % P::RC;
+  constexpr int blocks = P::GROUPS / P::GB;   // blocks across the head
+  const int grp = (blockIdx.x % blocks) * P::GB + wg / P::RC;
+  const int q0 = (blockIdx.x / blocks) * P::ROWS;
+  const int head = blockIdx.y, tiles = (n + ST - 1) / ST;
+  const size_t rbase = (size_t)head * n;
+  if (tid == 0) sm.init();
+  __syncthreads();
+  if (tid == 0) {
+    sm.load_resident(&map_q, &map_o, q0, head);
+    for (int u = 0; u < P::NS && u < tiles; ++u) sm.fill(&map_k, &map_v, u, head);
+  }
+
+  const int ctid = tid & 127, warp = ctid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t qa = smem_addr(sm.res) + rw * 64 * SLAB_ROW, oa = qa + P::RES / 2;
+  const float scale2 = scale * LOG2E;
+  // rows 16 warp + g + 8h of the warpgroup's: lse log2 e and delta, and
+  // the group's columns of dQ in accumulator layout
+  float lse2[2], dlt[2], acc[GW / 2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + 64 * rw + 16 * warp + g + 8 * h;
+    lse2[h] = r < n ? lse[rbase + r] * LOG2E : 0.f;
+    dlt[h] = r < n ? delta[rbase + r] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < GW / 2; ++i) acc[i] = 0.f;
+  // the tile's S and dP (zeroed here, then written by wgmma alone: the
+  // first product of each tile ignores them), and dS rounded to bf16 as
+  // register A of dQ's product (kept until that product has landed)
+  float s[ST / 2] = {}, dp[ST / 2] = {};
+  uint32_t pa[ST / 16][4] = {};
+  mbar_wait(sm.res_full, 0);
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * ST;
+    const uint32_t kb = sm.stage(it);
+    mbar_wait(sm.full + 8 * (it % P::NS), (it / P::NS) & 1);
+    tma::issue_s<D, ST, P::ROWS>(s, qa, kb);                  // S = Q K^T
+    tma::issue_s<D, ST, P::ROWS>(dp, oa, kb + ST * D * 2);    // dP = dO V^T
+    wgmma_wait<1>();   // the tile before's dQ product and this tile's S
+    fence_frags(pa);
+    fence_all(s);
+    if (it > 0) sm.release(it - 1, tiles, wg, ctid, &map_k, &map_v, head);
+    float p[ST / 2];   // P, while dP's products run; 0 at keys past n (zeros from TMA)
+#pragma unroll
+    for (int i = 0; i < ST / 2; ++i)
+      p[i] = k0 + 8 * (i >> 2) + 2 * t + (i & 1) < n
+                 ? ex2(fmaf(s[i], scale2, -lse2[(i >> 1) & 1])) : 0.f;
+    wgmma_wait<0>();
+    fence_all(dp);
+#pragma unroll
+    for (int i = 0; i < ST / 2; ++i)   // dS = P (dP - delta)
+      dp[i] = p[i] * (dp[i] - dlt[(i >> 1) & 1]);
+    bf16_frags<ST>(dp, pa);
+    tma::issue_pv<GW, ST>(acc, pa, kb + grp * (GW / SLAB) * ST * SLAB_ROW);   // dQ_g += dS K_g
+    if constexpr (!AHEAD) wgmma_wait<0>();
+  }
+  wgmma_wait<0>();
+  fence_frags(pa);
+  fence_all(acc);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + 64 * rw + 16 * warp + g + 8 * h;
+    if (r >= n) continue;
+    T* row = dq + (rbase + r) * D + grp * GW;
+#pragma unroll
+    for (int j = 0; j < GW / 8; ++j)
+      store2<T>(row + 8 * j + 2 * t, acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
+  }
+}
+
+// dk/dv, bf16, D = 256, 384, 512: a block is (ROWS keys, GB groups of GW
+// output columns, one output) of one head, warpgroup wg its keys 64 (wg %
+// RC) .. and group wg / RC of the block's; blockIdx.x runs over (key block,
+// groups, output), the output innermost.  K's (and for dK V's) rows
+// resident; each query tile's Q and dO slabs streamed.  Both outputs
+// compute S^T = K Q^T and P^T = 2^(S^T scale log2 e - lse log2 e);
+// the dV block then dV_g += P^T dO_g, the dK block dP^T = V dO^T, dS^T =
+// P^T (dP^T - delta) and dK_g += dS^T Q_g, dO's and Q's group slabs read
+// MN-major.  Queries past n: lse +inf, so P^T = 0 (their Q and dO rows are
+// zeros from TMA, and lse is not read there).
+template <int D, typename T>
+__global__ void __launch_bounds__(tmab::Plan<D>::THREADS, 1)
+flash_bwd_dkv_tma_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_o,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         T* __restrict__ dk, T* __restrict__ dv, int n, float scale) {
+  using namespace tmab;
+  using P = Plan<D>;
+  constexpr int GW = P::GW, ST = P::ST;
+  static_assert(sizeof(T) == 2, "bf16 operands");
+  extern __shared__ unsigned char smem_raw[];
+  const Smem<D> sm(smem_raw);
+  const int tid = threadIdx.x, wg = tid >> 7, rw = wg % P::RC;
+  constexpr int blocks = P::GROUPS / P::GB;   // blocks across the head, an output
+  const bool is_dk = blockIdx.x & 1;
+  const int grp = ((blockIdx.x >> 1) % blocks) * P::GB + wg / P::RC;
+  const int k0 = ((blockIdx.x >> 1) / blocks) * P::ROWS;
+  const int head = blockIdx.y, tiles = (n + ST - 1) / ST;
+  const size_t rbase = (size_t)head * n;
+  if (tid == 0) sm.init();
+  __syncthreads();
+  if (tid == 0) {
+    sm.load_resident(&map_k, is_dk ? &map_v : nullptr, k0, head);
+    for (int u = 0; u < P::NS && u < tiles; ++u) sm.fill(&map_q, &map_o, u, head);
+  }
+
+  const int ctid = tid & 127, warp = ctid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t ka = smem_addr(sm.res) + rw * 64 * SLAB_ROW, va = ka + P::RES / 2;
+  const float scale2 = scale * LOG2E;
+  // keys 16 warp + g + 8h of the warpgroup's: the group's columns of dK or
+  // dV in accumulator layout
+  float acc[GW / 2];
+#pragma unroll
+  for (int i = 0; i < GW / 2; ++i) acc[i] = 0.f;
+  // the block's loop over the query tiles, one for each output (a loop of
+  // its own: in one loop with a branch ptxas may lay the dV path's values
+  // over dP^T's accumulator and serialise every wgmma)
+  auto tiles_loop = [&](auto output) {
+    constexpr bool DK = decltype(output)::value;
+    // the tile's S^T and dP^T (zeroed here, then written by wgmma alone);
+    // P^T (dV) or dS^T (dK) rounded to bf16 as register A of the output's
+    // product (kept until that product has landed); lse log2 e and delta of
+    // the tile's queries 8j + 2t + e, this thread's columns
+    float s[ST / 2] = {}, dp[ST / 2] = {}, l2[ST / 4], dl[ST / 4];
+    uint32_t pa[ST / 16][4] = {};
+    mbar_wait(sm.res_full, 0);
+    for (int it = 0; it < tiles; ++it) {
+      const uint32_t qb = sm.stage(it), ob = qb + ST * D * 2;
+      const uint32_t group = grp * (GW / SLAB) * ST * SLAB_ROW;   // the group's first slab
+#pragma unroll
+      for (int j = 0; j < ST / 8; ++j)   // loaded first: they run under the wait
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = it * ST + 8 * j + 2 * t + e;
+          l2[2 * j + e] = c < n ? lse[rbase + c] * LOG2E : INFINITY;
+          if constexpr (DK) dl[2 * j + e] = c < n ? delta[rbase + c] : 0.f;
+        }
+      mbar_wait(sm.full + 8 * (it % P::NS), (it / P::NS) & 1);
+      // s[4j + 2h + e]: key 16 warp + g + 8h, query 8j + 2t + e of the tile
+      tma::issue_s<D, ST, P::ROWS>(s, ka, qb);                   // S^T = K Q^T
+      if constexpr (DK) {
+        tma::issue_s<D, ST, P::ROWS>(dp, va, ob);                // dP^T = V dO^T
+        wgmma_wait<1>();   // the tile before's dK product and this tile's S^T
+      } else {
+        wgmma_wait<0>();   // the tile before's dV product and this tile's S^T
+      }
+      fence_frags(pa);
+      fence_all(s);
+      if (it > 0) sm.release(it - 1, tiles, wg, ctid, &map_q, &map_o, head);
+      float p[ST / 2];   // P^T, while dP^T's products run
+#pragma unroll
+      for (int i = 0; i < ST / 2; ++i) p[i] = ex2(fmaf(s[i], scale2, -l2[2 * (i >> 2) + (i & 1)]));
+      if constexpr (DK) {
+        wgmma_wait<0>();
+        fence_all(dp);
+#pragma unroll
+        for (int i = 0; i < ST / 2; ++i)   // dS^T = P^T (dP^T - delta)
+          dp[i] = p[i] * (dp[i] - dl[2 * (i >> 2) + (i & 1)]);
+        bf16_frags<ST>(dp, pa);
+        tma::issue_pv<GW, ST>(acc, pa, qb + group);   // dK_g += dS^T Q_g
+      } else {
+        bf16_frags<ST>(p, pa);
+        tma::issue_pv<GW, ST>(acc, pa, ob + group);   // dV_g += P^T dO_g
+      }
+      if constexpr (!AHEAD) wgmma_wait<0>();
+    }
+    wgmma_wait<0>();
+    fence_frags(pa);
+  };
+  if (is_dk)
+    tiles_loop(Output<true>{});
+  else
+    tiles_loop(Output<false>{});
+  fence_all(acc);
+  T* out = is_dk ? dk : dv;
+  const float f = is_dk ? scale : 1.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = k0 + 64 * rw + 16 * warp + g + 8 * h;
+    if (r >= n) continue;
+    T* row = out + (rbase + r) * D + grp * GW;
+#pragma unroll
+    for (int j = 0; j < GW / 8; ++j)
+      store2<T>(row + 8 * j + 2 * t, acc[4 * j + 2 * h] * f, acc[4 * j + 2 * h + 1] * f);
   }
 }
 
@@ -2569,8 +3062,57 @@ int launch_fwd_tma(const void* q, const void* k, const void* v, void* out, float
   return (int)cudaGetLastError();
 }
 
-// the bf16 forward at d on TMA (256, 384, 512), or -1: the column-group
-// kernel (a resident Q of 128 rows no longer fits beside two stages)
+// the bf16 backward at D = 256, 384, 512: dq one block per (head, ROWS
+// query rows, GB groups of GW); dk/dv one per (head, ROWS keys, GB groups,
+// output)
+template <int D>
+int launch_dq_tma(const void* q, const void* k, const void* v, const void* dout,
+                  const float* lse, const float* delta, void* dq, int bh, int n, float scale,
+                  cudaStream_t stream) {
+  if (!aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
+  using P = tmab::Plan<D>;
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem(flash_bwd_dq_tma_kernel<D, __nv_bfloat16>, P::SMEM, done);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_q, map_k, map_v, map_o;
+  int bad = head_map(&map_q, q, bh, n, D, P::ROWS);
+  if (bad == 0) bad = head_map(&map_o, dout, bh, n, D, P::ROWS);
+  if (bad == 0) bad = head_map(&map_k, k, bh, n, D, P::ST);
+  if (bad == 0) bad = head_map(&map_v, v, bh, n, D, P::ST);
+  if (bad != 0) return bad;
+  const dim3 grid((unsigned)(((n + P::ROWS - 1) / P::ROWS) * (P::GROUPS / P::GB)),
+                  (unsigned)bh);
+  flash_bwd_dq_tma_kernel<D, __nv_bfloat16><<<grid, P::THREADS, P::SMEM, stream>>>(
+      map_q, map_k, map_v, map_o, lse, delta, (__nv_bfloat16*)dq, n, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_tma(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dk, void* dv, int bh, int n,
+                   float scale, cudaStream_t stream) {
+  if (!aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
+  using P = tmab::Plan<D>;
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem(flash_bwd_dkv_tma_kernel<D, __nv_bfloat16>, P::SMEM, done);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map_q, map_k, map_v, map_o;
+  int bad = head_map(&map_k, k, bh, n, D, P::ROWS);
+  if (bad == 0) bad = head_map(&map_v, v, bh, n, D, P::ROWS);
+  if (bad == 0) bad = head_map(&map_q, q, bh, n, D, P::ST);
+  if (bad == 0) bad = head_map(&map_o, dout, bh, n, D, P::ST);
+  if (bad != 0) return bad;
+  const dim3 grid((unsigned)(((n + P::ROWS - 1) / P::ROWS) * (P::GROUPS / P::GB) * 2),
+                  (unsigned)bh);
+  flash_bwd_dkv_tma_kernel<D, __nv_bfloat16><<<grid, P::THREADS, P::SMEM, stream>>>(
+      map_q, map_k, map_v, map_o, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, n,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+// the bf16 forward and backward at d on TMA (256, 384, 512); other widths
+// go on to the column-group kernels (above 512 a resident block of query
+// rows no longer fits beside two stages)
 #define TMA_DISPATCH(LAUNCH, ...)                         \
   if (dtype == 1) switch (d) {                            \
       case 256: return LAUNCH<256>(__VA_ARGS__);          \
@@ -2600,6 +3142,22 @@ int plan_fwd_tma(int* plan) {
   plan[1] = P::NS;
   plan[2] = 0;
   plan[3] = P::SMEM;
+  return 0;
+}
+// the TMA backward's, both passes the same: {rows a block, consumer
+// warpgroups, streamed rows a tile, stages (raw: TMA writes the operands
+// wgmma reads), no image stage, shared-memory bytes}
+template <int D>
+int plan_bwd_tma(int* plan) {
+  using P = tmab::Plan<D>;
+  for (int i = 0; i < 12; i += 6) {
+    plan[i] = P::ROWS;
+    plan[i + 1] = P::C;
+    plan[i + 2] = P::ST;
+    plan[i + 3] = P::NS;
+    plan[i + 4] = 0;
+    plan[i + 5] = P::SMEM;
+  }
   return 0;
 }
 template <typename T>
@@ -2659,6 +3217,7 @@ int flash_forward_plan(int d, int dtype, int* plan) {
 // rows a tile, raw stages, image stages, shared-memory bytes}
 int flash_backward_plan(int d, int dtype, int* plan) {
   if (!args_ok(1, 1, d, dtype)) return (int)cudaErrorInvalidValue;
+  TMA_DISPATCH(plan_bwd_tma, plan)
   WIDE_DISPATCH(plan_bwd_wide, plan)
   FLASH_DISPATCH(plan_bwd, plan)
 }
@@ -2667,6 +3226,7 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                  const float* lse, const float* delta, void* dq, int bh, int n, int d,
                  int dtype, float scale, void* stream) {
   if (!args_ok(bh, n, d, dtype)) return (int)cudaErrorInvalidValue;
+  TMA_DISPATCH(launch_dq_tma, q, k, v, dout, lse, delta, dq, bh, n, scale, (cudaStream_t)stream)
   WIDE_DISPATCH(launch_dq_wide, q, k, v, dout, lse, delta, dq, bh, n, d, scale,
                 (cudaStream_t)stream)
   FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, bh, n, scale, (cudaStream_t)stream)
@@ -2676,6 +3236,8 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, void* dk, void* dv, int bh, int n,
                   int d, int dtype, float scale, void* stream) {
   if (!args_ok(bh, n, d, dtype)) return (int)cudaErrorInvalidValue;
+  TMA_DISPATCH(launch_dkv_tma, q, k, v, dout, lse, delta, dk, dv, bh, n, scale,
+               (cudaStream_t)stream)
   WIDE_DISPATCH(launch_dkv_wide, q, k, v, dout, lse, delta, dk, dv, bh, n, d, scale,
                 (cudaStream_t)stream)
   FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, n, scale,

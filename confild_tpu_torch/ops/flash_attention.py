@@ -44,7 +44,12 @@ forward up to 512 has kernels of its own instead, a block owning
 a block with Q resident, K and V streamed by TMA tensor copies into the
 128-byte swizzle ``wgmma`` reads (V through the transpose bit); in float32
 up to ``RESIDENT_MAX``, 64 query rows with Q resident as raw rows, the
-register operand of S.
+register operand of S.  The bf16 backward at ``TMA_WIDTHS`` has its own
+pair too (its plan: :func:`backward_plan`, its columns
+:func:`backward_columns`): two consumer warpgroups a block, the resident
+operands and the streamed tiles copied by TMA into the same swizzle, the
+products over the streamed rows reading them through the transpose bit,
+and dk/dv's blocks split by output (a dV block and a dK block a group).
 
 Each kernel has a plain PyTorch version beside it.  A wrapper takes the
 plain version only for CPU tensors; for CUDA tensors it launches its kernel
@@ -369,10 +374,13 @@ def backward_plan(d: int, dtype: torch.dtype, kernel: str) -> dict:
     Q^T, dO^T) and for dk/dv the tile's lse and delta; the two resident A
     images (Q, dO; K, V) take both TF32 halves in float32, so a float32
     block is one consumer warpgroup and streams 2048 / d rows a tile.  Above
-    128: one consumer warpgroup, no raw stage, :func:`_wide_plan`'s stages."""
+    128: one consumer warpgroup, no raw stage, :func:`_wide_plan`'s stages;
+    in bf16 at ``TMA_WIDTHS`` :func:`_tma_backward_plan`."""
     f32, dkv = dtype == torch.float32, kernel == "dkv"
     if kernel not in BWD_KERNELS:
         raise ValueError(f"kernel is one of {BWD_KERNELS}, got {kernel!r}")
+    if d > 128 and dtype == torch.bfloat16 and d in TMA_WIDTHS:
+        return _tma_backward_plan(d)
     if d > 128:
         tile, stages, smem = _wide_plan(dtype, kernel)
         return dict(zip(_BWD_PLAN_KEYS, (WIDE_ROWS, 1, tile, 0, stages, smem)))
@@ -386,6 +394,59 @@ def backward_plan(d: int, dtype: torch.dtype, kernel: str) -> dict:
     fixed = 128 + 2 * rows * d * size * halves + ni * stage + 8 * (FWD_MAX_RAW_STAGES + 2 * ni)
     nr = min(FWD_MAX_RAW_STAGES, (FWD_SMEM_LIMIT - fixed) // (2 * raw))
     return dict(zip(_BWD_PLAN_KEYS, (rows, consumers, tile, nr, ni, fixed + nr * 2 * raw)))
+
+
+def _tma_backward_plan(d: int) -> dict:
+    """The bf16 TMA backward's plan at ``d`` (mirrors ``tmab::Plan``), one
+    for both passes: two consumer warpgroups a block, of 64 rows each (128
+    rows a block) where both resident operands' 128 rows fit beside two
+    stages of 32 streamed rows, else both on the same 64 rows, each with its
+    own group of :func:`backward_columns` output columns; streamed rows a
+    ``tile``, the most of 64, 32 and 16 that leaves two stages; its stages
+    as ``raw_stages`` (TMA writes the operands as ``wgmma`` reads them: no
+    image stage), up to ``TMA_MAX_STAGES``; the bytes: the alignment slack,
+    both resident operands, their barrier, then each stage (both streamed
+    operands) with its barrier and its release count."""
+    row = 2 * d * 2
+
+    def fit(fixed, tile):
+        return (FWD_SMEM_LIMIT - fixed) // (tile * row + 16)
+    two = TMA_ATOM + 8 + TMA_ROWS * row + 2 * (32 * row + 16) <= FWD_SMEM_LIMIT
+    rows = 128 if two else 64
+    fixed = TMA_ATOM + rows * row + 8
+    tile = next(t for t in (64, 32, 16) if fit(fixed, t) >= 2 or t == 16)
+    stages = min(TMA_MAX_STAGES, fit(fixed, tile))
+    return dict(zip(_BWD_PLAN_KEYS, (rows, 2, tile, stages, 0,
+                                     fixed + stages * (tile * row + 16))))
+
+
+def backward_columns(d: int, dtype: torch.dtype) -> int:
+    """The output columns a backward block owns at kernel width ``d``: the
+    whole head up to 128; above, in bf16 at ``TMA_WIDTHS`` the TMA
+    backward's (the whole head at 256, groups of 256 at 512, of 192 at 384,
+    where groups of 128 would make its dk/dv dearer than the column-group
+    kernel's: :func:`backward_products`), else ``WIDE_GROUP``."""
+    if d <= 128:
+        return d
+    if dtype == torch.bfloat16 and d in TMA_WIDTHS:
+        return 256 if d % 256 == 0 else 192
+    return WIDE_GROUP
+
+
+def backward_products(d: int, dtype: torch.dtype) -> float:
+    """The backward pair's products over the least (14 N^2 d flops: S, dP,
+    dQ; S^T, dP^T, dV, dK) at kernel width ``d``.  Column-group kernels
+    (groups of c = :func:`backward_columns` columns, g = d / c of them)
+    recompute S and dP in every group of both passes: (8 g + 6) / 14.  The
+    TMA backward: dq the same, 2 g + 1 of 2 N^2 d; dk/dv splits each group
+    by output, the dV block S^T and its dV_g, the dK block S^T, dP^T and its
+    dK_g, 3 g + 2: (5 g + 3) / 7."""
+    if d <= 128:
+        return 1.0
+    groups = d // backward_columns(d, dtype)
+    if dtype == torch.bfloat16 and d in TMA_WIDTHS:
+        return (5 * groups + 3) / 7
+    return (8 * groups + 6) / 14
 
 
 def library_backward_plan(d: int, dtype: torch.dtype) -> dict:

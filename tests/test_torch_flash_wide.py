@@ -9,6 +9,7 @@ super-resolution model built with the JAX package's default head rule
 against the JAX package's."""
 
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -133,10 +134,17 @@ def test_wide_operand_checks(d):
         tfa._launch_forward(x, x, x, None)
 
 
-# the plans above 128, as csrc/flash_attention.cu's note states them:
-# (tile, image stages, bytes) of the forward, dq and dk/dv
+# the column-group plans above 128, as csrc/flash_attention.cu's note states
+# them: (tile, image stages, bytes) of the forward, dq and dk/dv (bf16's
+# backward above 512 only: at TMA_WIDTHS it is the TMA backward's,
+# TMA_BWD_PLANS)
 WIDE_PLANS = {torch.float32: ((64, 3, 196784), (64, 3, 196784), (32, 4, 197824)),
               torch.bfloat16: ((64, 4, 131264), (64, 4, 131264), (64, 4, 133312))}
+# the bf16 TMA backward's plan at 256, 384 and 512, both passes, as the note
+# states it: (rows a block, consumer warpgroups, streamed rows a tile,
+# stages, bytes, output columns a warpgroup)
+TMA_BWD_PLANS = {256: (128, 2, 32, 3, 230456, 256), 384: (64, 2, 32, 2, 197672, 192),
+                 512: (64, 2, 16, 3, 230456, 256)}
 # the float32 forward with Q resident's (keys, image stages, bytes) at 256,
 # 384 and 512, as the note states them
 RESIDENT_PLANS = {256: (32, 6, 165088), 384: (32, 6, 197856), 512: (32, 6, 230624)}
@@ -154,7 +162,8 @@ def test_wide_plans(dtype):
     every image; the plans the kernels' note states.  The bf16 forward at
     ``TMA_WIDTHS`` has the TMA forward's plan instead (its own test), and
     the float32 forward up to ``RESIDENT_MAX`` the plan with Q resident
-    (32-key tiles, six stages, Q's rows after them)."""
+    (32-key tiles, six stages, Q's rows after them), and the bf16 backward
+    at ``TMA_WIDTHS`` the TMA backward's (``test_tma_backward_plans``)."""
     size = 4 if dtype == torch.float32 else 2
     fwd, dq, dkv = WIDE_PLANS[dtype]
     for d in (256, 384, 512, 1024):
@@ -170,6 +179,10 @@ def test_wide_plans(dtype):
             assert plan["raw_stages"] == 0
         for kernel, want in zip(tfa.BWD_KERNELS, (dq, dkv)):
             plan = tfa.backward_plan(d, dtype, kernel)
+            if dtype == torch.bfloat16 and d in tfa.TMA_WIDTHS:
+                rows, c, tile, ns, smem, _ = TMA_BWD_PLANS[d]
+                assert tuple(plan.values()) == (rows, c, tile, ns, 0, smem)
+                continue
             assert (plan["rows"], plan["consumers"], plan["raw_stages"]) == (64, 1, 0)
             assert (plan["tile"], plan["image_stages"], plan["smem"]) == want
     for tile, stages, smem in (fwd, dq, dkv):
@@ -206,6 +219,136 @@ def test_tma_forward_plans(d):
     for wider in (640, 768, 1024):
         assert tfa.forward_plan(wider, torch.bfloat16)["image_stages"] > 0
         assert tfa.forward_columns(wider, torch.bfloat16) == tfa.WIDE_GROUP
+
+
+@pytest.mark.parametrize("d", [256, 384, 512])
+def test_tma_backward_plans(d):
+    """The bf16 TMA backward's plan at each of its widths, one for dq and
+    dk/dv: two consumer warpgroups, of 64 rows each where both resident
+    operands' 128 rows fit beside two stages of 32 streamed rows, else both
+    on the same 64 rows, each with its own group; the streamed tile
+    the most of 64, 32 and 16 rows that leaves two stages; within a block's
+    shared memory with the swizzle's 1024-byte alignment slack; every slab
+    on a 1024-byte atom; output columns in whole 64-column slabs (groups of
+    192 at 384, whose products beat groups of 128 and the column-group
+    pair's); bf16 at 640, 768 and 1024 and float32 everywhere keep the
+    column-group plan."""
+    rows, c, tile, ns, smem, gw = TMA_BWD_PLANS[d]
+    for kernel in tfa.BWD_KERNELS:
+        plan = tfa.backward_plan(d, torch.bfloat16, kernel)
+        assert tuple(plan.values()) == (rows, c, tile, ns, 0, smem)
+    assert tfa.backward_columns(d, torch.bfloat16) == gw and d % gw == 0 and gw % 64 == 0
+    row = 2 * d * 2                                   # a row of both operands
+    assert smem == 1024 + rows * row + 8 + ns * (tile * row + 16) <= tfa.FWD_SMEM_LIMIT
+    assert ns >= 2 and c == 2 and tile % 16 == 0
+    two = 1024 + 8 + 128 * row + 2 * (32 * row + 16) <= tfa.FWD_SMEM_LIMIT
+    assert rows == (128 if two else 64)
+    # a block's warpgroups: two row blocks of one group, or two groups
+    assert (rows // 64) * (1 if two else 2) == c and (two or (d // gw) % 2 == 0)
+    if tile < 64:   # the next larger tile would leave one stage
+        assert 1024 + rows * row + 8 + 2 * (2 * tile * row + 16) > tfa.FWD_SMEM_LIMIT
+    assert all(x % 1024 == 0 for x in (rows * 128, tile * 128, rows * row, tile * row))
+    # the split dk/dv's products over the least: below the column-group pair's
+    groups = d // gw
+    assert tfa.backward_products(d, torch.bfloat16) == pytest.approx((5 * groups + 3) / 7)
+    assert tfa.backward_products(d, torch.bfloat16) < tfa.backward_products(d, torch.float32)
+    for wider in (640, 768, 1024):
+        assert tfa.backward_plan(wider, torch.bfloat16, "dq")["image_stages"] > 0
+        assert tfa.backward_columns(wider, torch.bfloat16) == tfa.WIDE_GROUP
+    assert tfa.backward_plan(d, torch.float32, "dkv")["image_stages"] > 0
+    assert tfa.backward_columns(d, torch.float32) == tfa.WIDE_GROUP
+
+
+def _swizzle(addr):
+    """The 128-byte swizzle of a shared-memory byte address: its 16-byte
+    chunk within a 128-byte row XORed with the row's index within its
+    1024-byte atom (address bits 4-6 with bits 7-9)."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def _tma_store(smem, base, x):
+    """TMA's copies of a (rows, d) bf16 matrix into d / 64 slabs at ``base``
+    (1024-byte aligned), each ``rows`` rows x 128 bytes: element (r, c) of
+    slab c // 64 at byte r * 128 + 2 (c % 64) of the slab, swizzled
+    (``smem`` holds a value a bf16 slot, indexed by byte address / 2)."""
+    rows, d = x.shape
+    r, c = np.meshgrid(np.arange(rows), np.arange(d), indexing="ij")
+    addr = base + (c // 64) * rows * 128 + r * 128 + 2 * (c % 64)
+    smem[_swizzle(addr) // 2] = x
+
+
+def _kmajor(smem, start, m, sbo=1024):
+    """A K-major wgmma operand of m rows x one k16 step through a
+    128-byte-swizzle descriptor at ``start`` (lbo unused): element (i, k) at
+    start + (i / 8) sbo + (i % 8) 128 + 2 k, swizzled."""
+    i, k = np.meshgrid(np.arange(m), np.arange(16), indexing="ij")
+    return smem[_swizzle(start + (i // 8) * sbo + (i % 8) * 128 + 2 * k) // 2]
+
+
+def _mnmajor(smem, start, n, lbo, sbo=1024):
+    """An MN-major wgmma B operand of one k16 step x n columns through the
+    transpose bit: element (k, j) at start + (j / 64) lbo + (k / 8) sbo +
+    (k % 8) 128 + 2 (j % 64), swizzled."""
+    k, j = np.meshgrid(np.arange(16), np.arange(n), indexing="ij")
+    return smem[_swizzle(start + (j // 64) * lbo + (k // 8) * sbo + (k % 8) * 128
+                         + 2 * (j % 64)) // 2]
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("d", [256, 384, 512])
+def test_tma_backward_swizzle_gives_back_products(d, kernel):
+    """The one check of the TMA backward's descriptors without the card: a
+    numpy model of the 128-byte swizzle TMA writes (the resident operands'
+    slabs of the plan's rows, a stage's two operands' slabs of its tile),
+    read back as ``wgmma`` reads it, K-major with sbo 1024 and a k16 step
+    the next 32 bytes of a row (``tma::s_product``), and MN-major through
+    the transpose bit with lbo the slab stride (tile x 128) and sbo 1024, a
+    k16 step 2048 bytes on (``tma::pv_product``), from its group's first
+    slab; on small seeded integer tiles it gives back, exactly, dq's S = Q
+    K^T, dP = dO V^T and dQ_g += dS K_g, or dk/dv's S^T = K Q^T, dP^T = V
+    dO^T, dV_g += P^T dO_g and dK_g += dS^T Q_g, for each consumer
+    warpgroup's 64 rows (its own where a block holds 128, the block's with
+    its own group where it holds 64) and each group of the head."""
+    plan = tfa.backward_plan(d, torch.bfloat16, kernel)
+    rows, tile, gw = plan["rows"], plan["tile"], tfa.backward_columns(d, torch.bfloat16)
+    rng = np.random.default_rng(d + len(kernel))
+    res_a, res_b = (rng.integers(-4, 5, (rows, d)).astype(np.float64) for _ in range(2))
+    st_a, st_b = (rng.integers(-4, 5, (tile, d)).astype(np.float64) for _ in range(2))
+    res_bytes, stage = rows * d * 2 * 2, 1024 + rows * d * 4   # the stage after the residents
+    smem = np.full((stage + tile * d * 4) // 2, np.nan)
+    _tma_store(smem, 1024, res_a)                         # Q (dq) or K (dk/dv)
+    _tma_store(smem, 1024 + res_bytes // 2, res_b)         # dO or V
+    _tma_store(smem, stage, st_a)                          # K or Q
+    _tma_store(smem, stage + tile * d * 2, st_b)           # V or dO
+    for wg, grp in itertools.product(range(rows // 64), range(d // gw)):
+        group = grp * (gw // 64) * tile * 128                  # the group's first slab
+        cols = slice(grp * gw, (grp + 1) * gw)
+        a_rows = slice(64 * wg, 64 * wg + 64)
+
+        def over_head(res_start, st_start):   # tma::s_product<D, ST, ROWS>
+            acc = np.zeros((64, tile))
+            for c in range(d // 64):
+                for j in range(4):
+                    a = _kmajor(smem, res_start + wg * 64 * 128 + c * rows * 128 + 32 * j, 64)
+                    b = _kmajor(smem, st_start + c * tile * 128 + 32 * j, tile)
+                    acc += a @ b.T
+            return acc
+
+        def into_group(x, st_start):   # tma::pv_product<GW, ST>
+            acc = np.zeros((64, gw))
+            for c in range(tile // 16):
+                b = _mnmajor(smem, st_start + group + c * 16 * 128, gw, tile * 128)
+                acc += x[:, 16 * c:16 * c + 16] @ b
+            return acc
+        np.testing.assert_array_equal(over_head(1024, stage), res_a[a_rows] @ st_a.T)
+        np.testing.assert_array_equal(over_head(1024 + res_bytes // 2, stage + tile * d * 2),
+                                      res_b[a_rows] @ st_b.T)
+        x = rng.integers(-4, 5, (64, tile)).astype(np.float64)   # dS; P^T or dS^T
+        if kernel == "dq":   # dQ_g += dS K_g
+            np.testing.assert_array_equal(into_group(x, stage), x @ st_a[:, cols])
+        else:                # dV_g += P^T dO_g, dK_g += dS^T Q_g
+            np.testing.assert_array_equal(into_group(x, stage + tile * d * 2), x @ st_b[:, cols])
+            np.testing.assert_array_equal(into_group(x, stage), x @ st_a[:, cols])
 
 
 def _read_kmajor(image, rows, kdim, halves, size):
@@ -394,3 +537,21 @@ def test_build_report_names_the_column_group_kernels(mangled, label):
     assert label in {cs.flash_wide_label(k, dt) for k in cs.FLASH_WIDE_KERNELS
                      for dt in (torch.float32, torch.bfloat16)}
     assert label.startswith(cs.WGMMA_KERNELS)
+
+
+@pytest.mark.parametrize("mangled,label", [
+    ("_ZN12_GLOBAL__N_123flash_bwd_dq_tma_kernelILi256E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_"
+     "S2_PKfS4_PT0_if", "flash_bwd_dq_tma_kernel<256, bf16>"),
+    ("_ZN12_GLOBAL__N_124flash_bwd_dkv_tma_kernelILi512E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_"
+     "S2_PKfS4_PT0_S6_if", "flash_bwd_dkv_tma_kernel<512, bf16>"),
+])
+def test_build_report_names_the_tma_backward_kernels(mangled, label):
+    """``chip_smoke.py`` phase 2 finds each bf16 TMA backward instantiation
+    by these labels, among those it requires at ``TMA_WIDTHS`` and counts
+    among the kernels that must run on wgmma only."""
+    import chip_smoke as cs
+    assert cs.kernel_label(f"ptxas info    : Function properties for {mangled}") == label
+    assert label in {cs.flash_tma_label(d, k) for d in tfa.TMA_WIDTHS for k in tfa.BWD_KERNELS}
+    assert label.startswith(cs.WGMMA_KERNELS)
+    d = int(label.split("<")[1].split(",")[0])
+    assert cs.wide_factors(d, torch.bfloat16)[1] == tfa.backward_products(d, torch.bfloat16)

@@ -47,8 +47,13 @@ delta).  The ``--parent`` build of the commit before the TMA forward is
 its thread-pass ablation: the column-group kernel, whose producer's
 threads load and write every operand image.
 
-``--wide-only`` checks and times the forward above 128 alone
-(``FLASH_WIDE_CHECKS``, ``WIDE_SHAPES``); ``wq_noproducer`` and
+``--wide-only`` checks and times only above 128 (``FLASH_WIDE_CHECKS``,
+then ``WIDE_SHAPES``: the forward in both types, or with ``--backward``
+the bf16 backward pair, the TMA kernels at 256 and 512, with its device
+time at 144 tokens); ``tmab_nos`` skips the TMA backward's S and S^T,
+``tmab_noout`` its products into dQ, dV and dK (their copies still land),
+and ``tmab_serial`` waits for a tile's product into the output before the
+next tile's S and dP are issued (right results); ``wq_noproducer`` and
 ``wq_nopv`` ablate the float32 forward with Q resident (its producer's
 items, or the products of its P V_g), and ``wq_ahead2`` / ``wq_ahead3``
 keep its producer's loads 2 or 3 items ahead in place of 1.
@@ -121,6 +126,14 @@ VARIANTS = {
     "tma_nos": [(r"s_product<D, KT>\(sc, qa, kb\);",
                  "for (int i = 0; i < KT / 2; ++i) sc[i] = 0.f;")],
     "tma_nopv": [(r"pv_product<GW, KT>\(acc, sc, vb\);", "")],
+    # the bf16 TMA backward: S and S^T skipped (each tile takes the values
+    # the registers hold), or the products into the outputs (dQ_g, dV_g,
+    # dK_g) skipped, every copy still landing and waited for; or each tile's
+    # product into the output waited for before the next tile's S and dP
+    # are issued (right results)
+    "tmab_nos": [(r"tma::issue_s<D, ST, P::ROWS>\(s, [qk]a, [kq]b\);", ";")],
+    "tmab_noout": [(r"tma::issue_pv<GW, ST>\(acc, pa, [^;]*\);", ";")],
+    "tmab_serial": [(r"constexpr bool AHEAD = true;", "constexpr bool AHEAD = false;")],
     # the float32 forward with Q resident (D <= 512): its producer writes no
     # item (nor loads one), or its consumer skips the products of O += P V_g
     # (still taking and releasing V's items)
@@ -175,6 +188,8 @@ def report(tag: str, lib: str, log: str) -> dict:
     kernel instantiation; returns ``{label: registers}``."""
     regs, kernel, spill = {}, None, ""
     for line in log.splitlines():
+        if "wgmma" in line:   # ptxas serialising a kernel's wgmma, and why
+            print(f"[{tag}] ptxas: {line.strip()}", flush=True)
         if "Function properties" in line:
             kernel = cs.kernel_label(line)
         elif "spill stores" in line:
@@ -273,10 +288,11 @@ def backward_calls(lib, q, k, v, g, lse, delta):
     return dq_call, dkv_call
 
 
-def compare_backward(libs: dict, device) -> None:
-    shapes = ([(s, torch.float32) for s in cs.FLASH_TIMES]
-              + [(s, torch.bfloat16) for s in cs.FLASH_TIMES]
-              + [(s, torch.float32) for s in cs.FLASH_CLASSIFIER_SHAPES])
+def compare_backward(libs: dict, device, wide_only: bool = False) -> None:
+    shapes = [(s, torch.bfloat16) for s in WIDE_SHAPES] if wide_only else (
+        [(s, torch.float32) for s in cs.FLASH_TIMES]
+        + [(s, torch.bfloat16) for s in cs.FLASH_TIMES]
+        + [(s, torch.float32) for s in cs.FLASH_CLASSIFIER_SHAPES])
     others = [t for t in libs if t != "this"]
     order = others + ["this", "this"] + others[::-1]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -403,6 +419,9 @@ def main() -> int:
     for d in fa.TMA_WIDTHS:
         print(f"[plan] {cs.flash_tma_label(d)}: {fa.library_forward_plan(d, torch.bfloat16)} "
               f"(wrapper: {fa.forward_plan(d, torch.bfloat16)})", flush=True)
+        for kernel, plan in fa.library_backward_plan(d, torch.bfloat16).items():
+            print(f"[plan] {cs.flash_tma_label(d, kernel)}: {plan} (wrapper: "
+                  f"{fa.backward_plan(d, torch.bfloat16, kernel)})", flush=True)
     for d, dtype in cs.FLASH_FWD_INSTANCES:
         print(f"[plan] {cs.flash_fwd_label(d, dtype)}: {fa.library_forward_plan(d, dtype)} "
               f"(wrapper: {fa.forward_plan(d, dtype)})", flush=True)
@@ -416,7 +435,7 @@ def main() -> int:
             cs.flash_memory(device)
     print(f"[compare] SM clock, max SM clock: {cs.sm_clocks()}", flush=True)
     if args.backward:
-        compare_backward(libs, device)
+        compare_backward(libs, device, args.wide_only)
     else:
         compare(libs, device, args.wide_only)
         if args.wide_only:   # no host timings at 144 tokens
