@@ -23,7 +23,9 @@ Phases, each fatal on failure:
    the mirror; the float32 forward with Q resident (D up to 512, groups of
    128 and 256) and the bf16 forward and backward pair (dq, dk/dv) on TMA
    tensor copies at D = 256, 384 and 512, ``HGMMA`` only, no spill, their
-   plans held to the mirror);
+   plans held to the mirror; the float32 backward pair with the resident
+   rows at the same widths likewise, starting at 168 registers, with no
+   note of ptxas's that it serialised their wgmma, C7515 or C7514);
 3. forward decode kernel against its plain version and a float64 run under
    the JAX tests' criterion ``err_kernel <= 2 * err_plain_f32 + 1e-6`` (each
    error printed as a share of its limit), two launches bitwise equal: at
@@ -107,8 +109,9 @@ Phases, each fatal on failure:
     to bf16 as in JAX), 16-channel heads (8, 144, 16) in f32 and bf16
     (zero-padded to 32 by the wrapper), and above 128 (the column-group
     kernels; the forward up to 512 the float32 kernel with Q resident and
-    the bf16 one on TMA tensor copies, the bf16 backward pair up to 512 on
-    TMA tensor copies too)
+    the bf16 one on TMA tensor copies, the backward pair up to 512 the
+    bf16 one on TMA tensor copies and the float32 one with the resident
+    rows)
     D = 160 (padded to 256), 256, 384 and 512 at a ragged (2, 300, D),
     1024 at (2, 200, 1024) and the one-head Case4 middle block (8, 144,
     512), each in f32 and bf16, under the same criterion (each
@@ -151,8 +154,8 @@ Phases, each fatal on failure:
     ``create_model`` head defaults (``num_heads`` 1, ``num_head_channels``
     -1: one head of all a block's channels; Case4's one attention block,
     the middle block's, becomes one head of 512 channels at 144 tokens) and
-    flash on, batch 8, 3 steps and a resume to step 4: every column-group
-    kernel launched at D = 512 (counts zeroed before and read after each
+    flash on, batch 8, 3 steps and a resume to step 4: every flash kernel
+    above 128 launched at D = 512 (counts zeroed before and read after each
     run), no narrow one, finite losses, ms per step; then the same in bf16
     (``use_bf16``, 3 steps): the TMA forward and the bf16 backward pair at
     D = 512 launched;
@@ -330,10 +333,10 @@ Phases, each fatal on failure:
     batch 4 against float64 (1e-3 on the output, the input's and every
     parameter's gradient), then the same weights with
     ``use_flash_attention`` (its one head a block: 512 channels at 256 and
-    64 tokens, the column-group kernels) against the dense route (1e-3 on
+    64 tokens, the kernels above 128) against the dense route (1e-3 on
     the same).
     Phase 18's flash launches are added to the kernels' counts, and so are
-    the SIREN launches of its FiLM run; the column-group launches of 12b
+    the SIREN launches of its FiLM run; the launches above 128 of 12b
     and (f) are the kernels line's ``@D256`` / ``@D512`` rows' (and the
     ``@D512N9216`` rows', the same instantiations), 12b's bf16 launches
     the ``flash_forward_bf16@D512``, ``flash_bwd_dq_bf16@D512`` and
@@ -505,8 +508,10 @@ FLASH_CHECKS = ((64, 144, 64, torch.float32), (2, 200, 32, torch.float32),
                 (2, 256, 64, torch.bfloat16), (64, 144, 64, torch.bfloat16),
                 (8, 144, 16, torch.float32), (8, 144, 16, torch.bfloat16),
                 (2, 144, 128, torch.float32), (2, 144, 128, torch.bfloat16))
-# heads above 128 (the column-group kernels; in bf16 at 256, 384 and 512 the
-# TMA forward and backward): D = 160 (padded to 256), 256, 384, 512 and 1024
+# heads above 128 (at 256, 384 and 512 the float32 forward with Q resident
+# and backward pair with the resident rows, the bf16 TMA forward and
+# backward; above, the column-group kernels): D = 160 (padded to 256), 256,
+# 384, 512 and 1024
 # on a ragged N, and the one-head Case4 middle block at batch 8 (8, 144,
 # 512), each in float32 and bf16
 FLASH_WIDE_CHECKS = tuple((bh, n, d, dtype)
@@ -523,6 +528,9 @@ FLASH_WIDE_TIMES = {"@D512": (8, 144, 512), "@D256": (8, 9216, 256)}
 # the xl recipe's ds-8 block at 9216 tokens): the kernels line's
 # @D512N9216 rows
 FLASH_WIDE_FWD_TIMES = {"@D512N9216": (4, 9216, 512)}
+# the float32 backward pair at the same shape (the resident rows' pair at
+# 512): the kernels line's float32 @D512N9216 backward rows
+FLASH_WIDE_BWD_TIMES = {"@D512N9216": (4, 9216, 512)}
 FLASH_PATH_SHAPE = "64x144x64"
 # phase 18 (d)'s classifier at batch 4: 4 heads at 1024 tokens, 8 at 256
 # and at 64, of 64 channels
@@ -717,11 +725,14 @@ FLASH_WIDE_KERNELS = ("flash_fwd_wide_kernel", "flash_bwd_dq_wide_kernel",
 FLASH_TMA_KERNEL = "flash_fwd_tma_kernel"
 FLASH_WQ_KERNELS = ("flash_fwd_wq_kernel<128, f32>", "flash_fwd_wq_kernel<256, f32>")
 # the bf16 backward on TMA tensor copies (dq, dk/dv), one instantiation a
-# width each at 256, 384 and 512
+# width each at 256, 384 and 512, and the float32 backward with the
+# resident rows, the same
 FLASH_TMA_BWD_KERNELS = ("flash_bwd_dq_tma_kernel", "flash_bwd_dkv_tma_kernel")
+FLASH_WQB_KERNELS = ("flash_bwd_dq_wq_kernel", "flash_bwd_dkv_wq_kernel")
 WGMMA_KERNELS = (CLUSTER_KERNELS + ("siren_bwd_reduce_kernel", FLASH_FWD_KERNEL)
                  + FLASH_BWD_KERNELS + FLASH_WIDE_KERNELS
-                 + (FLASH_TMA_KERNEL, "flash_fwd_wq_kernel") + FLASH_TMA_BWD_KERNELS)
+                 + (FLASH_TMA_KERNEL, "flash_fwd_wq_kernel") + FLASH_TMA_BWD_KERNELS
+                 + FLASH_WQB_KERNELS)
 # the flash kernels' instantiations: every head width in both types
 FLASH_FWD_INSTANCES = tuple((d, dtype) for d in (32, 64, 128)
                             for dtype in (torch.float32, torch.bfloat16))
@@ -737,6 +748,23 @@ def flash_tma_label(d: int, kernel: str = "fwd") -> str:
     ``flash_bwd_dq_tma_kernel<256, bf16>`` ("dq", "dkv"), as
     ``kernel_label`` names it."""
     return f"flash_{'fwd' if kernel == 'fwd' else 'bwd_' + kernel}_tma_kernel<{d}, bf16>"
+
+
+def flash_wide_bwd_label(d: int, kernel: str, dtype) -> str:
+    """The backward instantiation above 128 at ``TMA_WIDTHS``:
+    ``flash_bwd_dq_tma_kernel<256, bf16>`` in bf16,
+    ``flash_bwd_dq_wq_kernel<256, f32>`` (``kernel`` "dq" or "dkv") in
+    float32, as ``kernel_label`` names them."""
+    if dtype == torch.bfloat16:
+        return flash_tma_label(d, kernel)
+    return f"flash_bwd_{kernel}_wq_kernel<{d}, f32>"
+
+
+def ptxas_serial_notes(log: str, labels) -> list[str]:
+    """ptxas's notes (C7515, C7514) that it serialised the ``wgmma`` of one
+    of the kernels ``labels`` (as ``kernel_label`` names them)."""
+    return [line.strip() for line in log.splitlines()
+            if re.search(r"C751[45]", line) and kernel_label(line) in labels]
 
 
 def flash_bwd_label(kernel: str, d: int, dtype) -> str:
@@ -786,6 +814,9 @@ def phase_build():
     missing += [flash_tma_label(d, kernel) for d in fa.TMA_WIDTHS
                 for kernel in ("fwd", *fa.BWD_KERNELS) if flash_tma_label(d, kernel) not in hmma]
     missing += [k for k in FLASH_WQ_KERNELS if k not in hmma]
+    missing += [flash_wide_bwd_label(d, kernel, torch.float32) for d in fa.TMA_WIDTHS
+                for kernel in fa.BWD_KERNELS
+                if flash_wide_bwd_label(d, kernel, torch.float32) not in hmma]
     missing += [flash_wide_label(k, dtype) for k in FLASH_WIDE_KERNELS
                 for dtype in (torch.float32, torch.bfloat16)
                 if flash_wide_label(k, dtype) not in hmma]
@@ -832,18 +863,32 @@ def phase_build():
                              f"{fa.forward_plan(d, torch.bfloat16)}")
         if " 0 bytes spill stores" not in PTXAS.get(label, ""):
             raise SystemExit(f"{label} spills: {PTXAS.get(label)}")
-        # the bf16 TMA backward: the same, both passes
-        for kernel, plan in fa.library_backward_plan(d, torch.bfloat16).items():
-            label = flash_tma_label(d, kernel)
-            log(f"[build] {label}: {plan['rows']} rows a block in {plan['consumers']} consumer "
-                f"warpgroups, {plan['tile']} rows a tile, {plan['raw_stages']} TMA stages, "
-                f"{fa.backward_columns(d, torch.bfloat16)} output columns a block, "
-                f"{plan['smem']} bytes of dynamic shared memory; {PTXAS.get(label)}")
-            if plan != fa.backward_plan(d, torch.bfloat16, kernel):
-                raise SystemExit(f"{label}: the library's plan {plan} is not the wrapper's "
-                                 f"{fa.backward_plan(d, torch.bfloat16, kernel)}")
-            if " 0 bytes spill stores" not in PTXAS.get(label, ""):
-                raise SystemExit(f"{label} spills: {PTXAS.get(label)}")
+        # the bf16 TMA backward and the float32 backward with the resident
+        # rows: the same, both passes; the float32 pair with no note of
+        # ptxas's that it serialised its wgmma either
+        for dtype in (torch.bfloat16, torch.float32):
+            for kernel, plan in fa.library_backward_plan(d, dtype).items():
+                label = flash_wide_bwd_label(d, kernel, dtype)
+                log(f"[build] {label}: {plan['rows']} rows a block in {plan['consumers']} "
+                    f"consumer warpgroups, {plan['tile']} rows a tile, {plan['raw_stages']} "
+                    f"TMA and {plan['image_stages']} item stages, "
+                    f"{fa.backward_columns(d, dtype)} output columns a block, "
+                    f"{plan['smem']} bytes of dynamic shared memory; {PTXAS.get(label)}")
+                if plan != fa.backward_plan(d, dtype, kernel):
+                    raise SystemExit(f"{label}: the library's plan {plan} is not the "
+                                     f"wrapper's {fa.backward_plan(d, dtype, kernel)}")
+                if " 0 bytes spill stores" not in PTXAS.get(label, ""):
+                    raise SystemExit(f"{label} spills: {PTXAS.get(label)}")
+                # three warpgroups whose setmaxnreg share out the 168 each starts at
+                if dtype == torch.float32 and not PTXAS.get(label, "").startswith("168 "):
+                    raise SystemExit(f"{label} does not start at 168 registers: "
+                                     f"{PTXAS.get(label)}")
+        serial = ptxas_serial_notes(cuda_build.build_logs.get("flash_attention", ""),
+                                    {flash_wide_bwd_label(d, kernel, torch.float32)
+                                     for kernel in fa.BWD_KERNELS})
+        if serial:
+            raise SystemExit(f"ptxas serialised the float32 backward's wgmma at D = {d}: "
+                             f"{serial}")
     # above 128: one plan a pass and type, whatever the width (the bf16
     # forward's and backward's at 256, 384 and 512 are the TMA kernels',
     # above; the float32 forward's up to 512 that with Q resident, whose
@@ -855,8 +900,10 @@ def phase_build():
             mirror = {"fwd": fa.forward_plan(d, dtype),
                       **{k: fa.backward_plan(d, dtype, k) for k in fa.BWD_KERNELS}}
             for kernel, key in zip(FLASH_WIDE_KERNELS, ("fwd", "dq", "dkv")):
-                label = (flash_tma_label(d, key) if dtype == torch.bfloat16
-                         and d in fa.TMA_WIDTHS else flash_wide_label(kernel, dtype))
+                label = (flash_wide_label(kernel, dtype) if d not in fa.TMA_WIDTHS
+                         else flash_wide_bwd_label(d, key, dtype) if key != "fwd"
+                         else flash_tma_label(d) if dtype == torch.bfloat16
+                         else FLASH_WQ_KERNELS[d % 256 == 0])
                 log(f"[build] {label} at D = {d}: {plans[key]}; {PTXAS.get(label)}")
                 if plans[key] != mirror[key]:
                     raise SystemExit(f"{label} at D = {d}: the library's plan {plans[key]} is "
@@ -2019,6 +2066,12 @@ def forward_times(device, bh, n, d, dtype) -> dict:
            "plain": lambda: fa.flash_forward_plain(q, k, v)}
     t = {name: cuda_median(fn, calls) for name, fn in fns.items()}
     b_ms, b_by = forward_bound(bh, n, d, dtype)
+    device_ms = None
+    if calls > 1 and d > 128:   # the events time the host there: the device time too
+        kernels = device_profile(f"flash forward ({bh}, {n}, {d}) {str(dtype)[6:]}, {calls} "
+                                 f"calls", lambda: [fns["kernel"]() for _ in range(calls)],
+                                 top=2)
+        device_ms = sum(ms for name, (ms, _) in kernels.items() if "flash_fwd" in name) / calls
 
     def ms(name):
         return f"{t[name][0]:.4f} [{t[name][1]:.4f}-{t[name][2]:.4f}]"
@@ -2027,10 +2080,11 @@ def forward_times(device, bh, n, d, dtype) -> dict:
         f"({calls} calls each): forward kernel {ms('kernel')} (bound {b_ms:.4f}, {b_by}; "
         f"{4 * bh * n * n * d / t['kernel'][0] / 1e9:.1f} TFLOP/s), plain {ms('plain')}, "
         f"sdpa {ms('sdpa')} ((1, BH, N, D) view {ms('sdpa_4d')}): the kernel "
-        f"{'beats' if t['kernel'][0] < lib else 'does not beat'} SDPA's faster layout")
+        f"{'beats' if t['kernel'][0] < lib else 'does not beat'} SDPA's faster layout"
+        + (f"; device time a call (torch.profiler): {device_ms:.4f}" if device_ms else ""))
     del q, k, v, q4, k4, v4
     torch.cuda.empty_cache()
-    return dict(t, bound=(b_ms, b_by))
+    return dict(t, bound=(b_ms, b_by), device_ms=device_ms)
 
 
 def backward_times(device, bh, n, d, dtype) -> dict:
@@ -2126,8 +2180,9 @@ def wide_factors(d: int, dtype=torch.float32) -> tuple[float, float]:
     output columns (``fa.forward_columns``: 128, and in bf16 the TMA
     forward's 256 where they divide d) each compute S over the whole head,
     and their own c columns of P V: (d / c + 1) / 2; the backward's
-    ``fa.backward_products`` (column groups: (8 g + 6) / 14; the bf16 TMA
-    pair, its dk/dv split by output: (5 g + 3) / 7)."""
+    ``fa.backward_products`` (the pairs at 256, 384 and 512, their dk/dv
+    split by output: (5 g + 3) / 7; column groups above: (8 g + 6) /
+    14)."""
     groups = d // fa.forward_columns(d, dtype)
     return (groups + 1) / 2, fa.backward_products(d, dtype)
 
@@ -2152,17 +2207,20 @@ def phase_flash(device, results) -> None:
                  for (bh, n, d), dtype in [(FLASH_TIMES[0], torch.float32)]
                  + [(s, torch.bfloat16) for s in FLASH_TIMES]
                  + [(s, torch.float32) for s in FLASH_CLASSIFIER_SHAPES]}
-    # above 128 (the column-group kernels) at the slice's shape and the xl
+    # above 128 at the slice's shape and the xl
     # recipe's under num_heads 1, both types: the forward and the backward
     # pair beside their plain versions, SDPA and their bounds
     wide_t = {(tag, dtype): (forward_times(device, *shape, dtype),
                              backward_times(device, *shape, dtype))
               for tag, shape in FLASH_WIDE_TIMES.items()
               for dtype in (torch.float32, torch.bfloat16)}
-    # the forward alone at many tokens and 512 channels
+    # the forward alone at many tokens and 512 channels, and the float32
+    # backward pair there
     wide_fwd = {(tag, dtype): forward_times(device, *shape, dtype)
                 for tag, shape in FLASH_WIDE_FWD_TIMES.items()
                 for dtype in (torch.float32, torch.bfloat16)}
+    wide_bwd = {tag: backward_times(device, *shape, torch.float32)
+                for tag, shape in FLASH_WIDE_BWD_TIMES.items()}
     for tag, (bh, n, d) in {**FLASH_WIDE_TIMES, **FLASH_WIDE_FWD_TIMES}.items():
         for dtype in (torch.float32, torch.bfloat16):
             log(f"[flash-wide] ({bh}, {n}, {d}) {str(dtype)[6:]}: the forward's products are "
@@ -2171,8 +2229,7 @@ def phase_flash(device, results) -> None:
                 f"head), the backward pair's {wide_factors(d, dtype)[1]:.2f}x ("
                 f"{d // fa.backward_columns(d, dtype)} groups of "
                 f"{fa.backward_columns(d, dtype)} columns each compute S and dP"
-                + (", dk/dv split by output" if dtype == torch.bfloat16
-                   and d in fa.TMA_WIDTHS else "") + ")")
+                + (", dk/dv split by output" if d in fa.TMA_WIDTHS else "") + ")")
     log(f"[flash-time] SM clock, max SM clock after the timings: {sm_clocks()}")
     log("[flash-fwd] " + json.dumps(dict(fwd_times, host_us=host)))
     log("[flash-bwd] " + json.dumps(bwd_times))
@@ -2217,6 +2274,19 @@ def phase_flash(device, results) -> None:
             library_covers="flash_forward", shape=f"{bh}x{n}x{d}",
             recompute=wide_factors(d, dtype)[0])
     # the rows above 128, float32: errors from the checks at the same width
+    # (the backward alone at many tokens and 512 channels: those at 512)
+    for tag, (bh, n, d) in FLASH_WIDE_BWD_TIMES.items():
+        bw, check = wide_bwd[tag], errs[(8, 144, 512, torch.float32)]
+        lib, call = min((bw["sdpa_backward"][0], "backward on (BH, N, D)"),
+                        (bw["sdpa_4d_backward"][0], "backward on (1, BH, N, D)"))
+        for name, err in (("flash_bwd_dq", check["dq"]),
+                          ("flash_bwd_dkv", max(check["dk"], check["dv"]))):
+            bnd = bw["bounds"][name]
+            results[name + tag] = dict(
+                max_abs_err=err, ms=bw[name][0], plain_ms=bw["plain"][0], bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=lib,
+                library_call=f"scaled_dot_product_attention {call}", library_covers=pair,
+                shape=f"{bh}x{n}x{d}", recompute=wide_factors(d)[1])
     for tag, (bh, n, d) in FLASH_WIDE_TIMES.items():
         fw, bw = wide_t[(tag, torch.float32)]
         check = errs[(8, 144, 512, torch.float32) if d == 512 else (2, 300, 256, torch.float32)]
@@ -2414,7 +2484,7 @@ def phase_train_diffusion(root, figures) -> tuple[dict, str]:
     return counts, os.path.join(logs, "ema_0.9999_000004.pt")
 
 
-# the launches of the column-group flash kernels on the paths that run them
+# the launches of the flash kernels above 128 on the paths that run them
 # (phase 12b and phase 18 (f)), by pass and padded width: the kernels line's
 # @D256 / @D512 rows
 WIDE_FLASH_LAUNCHES = {}
@@ -2434,7 +2504,7 @@ def phase_one_head(root) -> dict:
     channels; its attention resolutions 32, 16, 8 are ds 12, 24, 48, no level
     of the 384^2 U-Net, so its one attention block is the middle block's,
     one head of 512 channels at 144 tokens) and flash on, batch 8, 3 steps
-    and a resume to step 4; every column-group kernel must launch at D =
+    and a resume to step 4; every flash kernel above 128 must launch at D =
     512, and no narrow one; then the same in bf16 (``use_bf16``, 3 steps):
     the TMA forward and the TMA backward pair at 512 must launch.  Returns
     the wide launches."""
@@ -2460,7 +2530,7 @@ def phase_one_head(root) -> dict:
     log(f"[one-head] Case4 U-Net, num_heads 1, flash on, batch {loop.batch_size}: heads "
         f"(width, flash) {heads}; {steps} steps, losses {[round(x, 6) for x in losses]}, "
         f"CLI wall {wall:.1f} s, peak memory {peak:.2f} GiB, ms per step after the CLI's "
-        f"{[round(x, 1) for x in step_ms]}; column-group launches {counts}, narrow {narrow}")
+        f"{[round(x, 1) for x in step_ms]}; launches above 128 {counts}, narrow {narrow}")
     missing = [f"{k}@D512" for k in fa.LAUNCHES if counts.get(f"{k}@D512", 0) == 0]
     if not (steps == 3 and len(losses) == 3 and np.isfinite(losses).all()):
         raise SystemExit("one-head diffusion training: wrong step count or non-finite losses")
@@ -4443,7 +4513,7 @@ def phase_classifier(root, device) -> dict:
     if not all(e <= GRAD_REL_TOL for e in (*errs.values(), worst[0])):
         raise SystemExit("SuperResModel disagrees with float64")
     # the same weights with flash on (its one head a block: 512 channels at
-    # 256 and 64 tokens, the column-group kernels) against the dense route;
+    # 256 and 64 tokens, the kernels above 128) against the dense route;
     # the model doubles its config's in_channels for the low-resolution input
     flash_sr = unet_extras.SuperResModel(dataclasses.replace(
         sr.cfg, use_flash_attention=True, in_channels=sr.cfg.in_channels // 2)).to(device)
@@ -4463,12 +4533,12 @@ def phase_classifier(root, device) -> dict:
                              torch.cat([dense[n].flatten() for n in names]))}
     log(f"[super-res] the same with use_flash_attention, against the dense route: rel L2 of "
         f"the output {errs['out']:.3e}, of dx {errs['dx']:.3e}, of all parameter gradients "
-        f"{errs['params']:.3e} (tol {GRAD_REL_TOL}); column-group launches {sr_counts}, "
+        f"{errs['params']:.3e} (tol {GRAD_REL_TOL}); launches above 128 {sr_counts}, "
         f"narrow {dict(fa.LAUNCHES)}")
     if not (all(e <= GRAD_REL_TOL for e in errs.values())
             and all(sr_counts.get(f"{k}@D512", 0) > 0 for k in fa.LAUNCHES)):
         raise SystemExit("the super-resolution model's flash route disagrees with its dense "
-                         "route or did not launch every column-group kernel")
+                         "route or did not launch every flash kernel above 128")
     _add_wide_launches(sr_counts)
     del sr, res, flash_sr, flash_res, dense
     gc.collect()
@@ -5162,9 +5232,13 @@ def main() -> int:
               "flash_attention.py:56")
              for tag, bf16 in [(t, "_bf16") for t in FLASH_WIDE_TIMES]
              + [(t, b) for t in FLASH_WIDE_FWD_TIMES for b in ("", "_bf16")]]
-    # the bf16 backward above 128 (the TMA pair)
+    # the bf16 backward above 128 (the TMA pair), and the float32 pair at
+    # many tokens and 512 channels
     rows += [(name, f"{name}_bf16{tag}", "flash_attention.cu", f"flash_attention.py:{line}")
              for tag in FLASH_WIDE_TIMES
+             for name, line in (("flash_bwd_dq", 158), ("flash_bwd_dkv", 188))]
+    rows += [(name, f"{name}{tag}", "flash_attention.cu", f"flash_attention.py:{line}")
+             for tag in FLASH_WIDE_BWD_TIMES
              for name, line in (("flash_bwd_dq", 158), ("flash_bwd_dkv", 188))]
     # the SIREN kernels at more than 16 features (phase 20)
     rows += [(fam, f"{fam}{FEATURE_TAG}", *(fwd if "forward" in fam else chain),

@@ -226,9 +226,10 @@
 //     tiles (its two accumulators of the group's columns take 128
 //     registers), four of 48.25 KB (197824); bf16 64-row tiles, four stages
 //     of 32 KB (131264; dk/dv 133312).  One block an SM (up to 255
-//     registers a thread, no setmaxnreg).  The bf16 backward at 256, 384
-//     and 512 runs on the TMA pair below instead; these serve float32 at
-//     every width and bf16 above 512.
+//     registers a thread, no setmaxnreg).  The backward at 256, 384 and
+//     512 runs on its own pairs below instead (bf16 on TMA, float32 with
+//     the resident rows), as the forward does; these serve every width
+//     above 512.
 //
 // The float32 forward at D = 256, 384 and 512 (flash_fwd_wq_kernel<GW>;
 // namespace wq) replaces the column-group forward there, whose producer
@@ -376,6 +377,95 @@
 //     dP's operands (a 64-row A operand read again for every 32 keys) hold
 //     it back.  Tiles of 64 rows would halve those reads, but beside 128
 //     resident rows at 256 they leave one stage.
+//
+// The float32 backward at D = 256, 384 and 512 (flash_bwd_dq_wq_kernel<D>,
+// flash_bwd_dkv_wq_kernel<D>; namespace wqb) replaces the column-group pair
+// there.  What held that pair back (96.1 ms at (8, 9216, 256) against SDPA's
+// backward 35.3 on an H100): every 128-column group recomputed S and dP
+// over the head (1.57x the least products at 256, 2.71x at 512); its
+// producer wrote the resident rows' chunks again every tile, half of what
+// dq's wrote, and loaded each item whole before writing any; dk/dv held two
+// accumulators (32-row tiles, groups of 128); one consumer warpgroup ran S,
+// dP and the products into the output one after another.
+//   * Block: 64 rows (query rows in dq, keys in dk/dv) and GW output
+//     columns (the whole head at 256, groups of 256 at 512, of 192 at 384,
+//     as the bf16 pair), the streamed axis in 32-row tiles, three
+//     warpgroups: S's, the output's and a producer (setmaxnreg from 168 to
+//     136, 240 and 128 registers a thread).  dk/dv is split by output as the
+//     bf16 pair: a dV block (S^T, P^T, dV_g) and a dK block (S^T, P^T,
+//     dP^T, dS^T, dK_g) a (key block, group), one accumulator each; the pair
+//     does (5 g + 3) / 7 of the least products, 8/7 at 256, 13/7 at 384 and
+//     512.
+//   * The S warpgroup loads the first operand's 64 rows once, raw, at a
+//     stride of D + 4 floats (dq's Q; dk/dv's K) and computes S = Q K^T (S^T
+//     = K Q^T) with them as register A, as the float32 forward (a k16
+//     step's fragments loaded and split while the step before runs), then
+//     P = 2^(S scale log2 e - lse log2 e), which it hands to the output
+//     warpgroup through two slots of 8 KB (thread i of either warpgroup
+//     holds the same places of its accumulator; full and empty mbarriers).
+//     It writes the chunks of K (Q) it reads itself, into two stages of
+//     its own, its loads a chunk ahead: it does half the output warpgroup's
+//     products and has the time, and a ring fed by the producer made it
+//     wait for the output's items (the producer writes in one order).
+//   * The output warpgroup holds the second operand (dq's dO, the dK
+//     block's V) as raw rows where both fit (256: 133 KB of the block's
+//     shared memory); at 384 and 512 it takes it as raw items, 64 rows x
+//     64 columns that the producer copies by cp.async (no register holds
+//     them; column c of row r at r 64 + (c ^ 4 (r % 8)), so a warp's A loads
+//     hit 32 banks).  It computes dP = dO V^T (dP^T = V dO^T), then, P
+//     taken, dS = P (dP - delta) and dQ_g += dS K_g (dK_g += dS^T Q_g; the
+//     dV block dV_g += P^T dO_g), dS or P split as register A, the group's
+//     rows transposed in sub-groups of 64 columns as B.
+//   * Items (16 KB: 32 rows x 64 columns in both TF32 halves, K-major for a
+//     product over the head, transposed in register A's key order for a
+//     product into the output; or a raw item): the producer writes the
+//     output warpgroup's in its order, a tile's chunks of dP, then its GW /
+//     64 sub-groups, into the stages after the S warpgroup's two, one
+//     item's loads in flight while it writes the one before, each released
+//     as soon as written (a raw item once its copies land,
+//     cp.async.mbarrier.arrive).  A 32-row tile: dq 12 items at 256 (384
+//     KB of images per 64 keys, against the column-group dq's 1152), 21 at
+//     384, 28 at 512 (8 of them raw); the dV block 8, 9 and 12.
+//   * Plans (wqb::Plan, one for both passes; rows a block, consumer
+//     warpgroups, tile, item stages, bytes): 256: 64, 2, 32, 5, 231664
+//     (both resident operands, 133120 bytes); 384: 64, 2, 32, 7, 230672;
+//     512: 64, 2, 32, 5, 230640 (P's slots 16 KB each time).  Every output
+//     element has one owner: no atomics, bitwise repeats.  The numerics are
+//     the float32 kernels': 3xTF32, S and dP with a zeroed partial a k16
+//     step, the products into the output one a tile and sub-group, carried
+//     by float32 adds; keys past N get S = -inf by index in dq, queries past
+//     N lse +inf and delta 0 in dk/dv.
+//   * Tried (tools/flash_fwd_compare.py --backward --wide-only on an H100;
+//     at (8, 9216, 256) / (4, 9216, 512) ms, and the pair's device time at
+//     (8, 144, 512)): one consumer warpgroup for everything beside a
+//     producer, 61.3 / 137.7 / 0.2285; its first build, whose k16 steps ran
+//     from one chunk into the next without a wait, made ptxas serialise
+//     every wgmma (C7514: 87.4 / 150.8 / 0.261) and, unrolled, spilled;
+//     the S and output warpgroups fed by one producer, 54.2 / 136.3 /
+//     0.232; by two producers on half of every item, 54.2; by a producer
+//     each, 51.4 / 118.9 / 0.1995; the S warpgroup writing its own chunks
+//     with the producer two items ahead, 47.8 / 108.8 / 0.176 (one ahead,
+//     kept: 45.2 / 94.4 / 0.163).  Two consumer warpgroups need a ring
+//     each: an mbarrier's parity tells only its last two phases apart, and
+//     the S warpgroup runs a tile ahead.
+//   * On an H100 (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phase 10,
+//     medians of 7): at (8, 9216, 256) 47.1 ms (dq 16.9, dk/dv 30.1)
+//     against the column-group pair's 96.1, SDPA's backward 35.3 and the
+//     plain backward 47.7 (bound 14.8); at (4, 9216, 512) 96.0 against
+//     SDPA's 32.6 and the plain 42.7; at (8, 144, 512) 0.167 ms of device
+//     time a call against 0.184.  In one tools/flash_fwd_compare.py call
+//     (waits bounded: 48.9 / 108.7 / 0.179): with no item written 36.7 /
+//     72.6 / 0.134, so the items hold it back first; without the products
+//     into the outputs 42.7 / 101.0 / 0.159; the output's sub-group
+//     products two in flight (OUT_AHEAD) 48.6 / 109.2 / 0.181, left off;
+//     the producer two items ahead 52.3 / 117.6 / 0.188; the S
+//     warpgroup's next tile held until the output warpgroup has taken P,
+//     49.0 / 108.3 / 0.182 (another call); at 384 and 512
+//     the second operand's A fragments loaded from global memory each k16
+//     step (A_GLOBAL, no raw items) 114.1 / 0.193, so the raw items stay.
+//   * Not taken: the B operands' TF32 halves split once into global scratch
+//     and streamed by TMA (14 scratch tensors, and twice the bytes through
+//     L2 on every tile and group, as the float32 forward's note weighs it).
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -2876,6 +2966,656 @@ flash_bwd_dkv_tma_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ---------------------------------------------------------------------------
+// float32 heads of 256, 384 and 512: the backward with the resident operands
+// as raw rows (the plan and the roles: the note at the top)
+// ---------------------------------------------------------------------------
+namespace wqb {
+
+using namespace tc;
+using wq::KT;    // streamed rows a tile: keys in dq, queries in dk/dv
+using wq::SUB;   // columns an item
+
+constexpr int ROWS = 64;        // rows a block (query rows in dq, keys in dk/dv)
+// three warpgroups: S (0), which writes its own items, the output's (1),
+// and the producer of the output warpgroup's items (2)
+constexpr int THREADS = 384;
+constexpr int S_WG = 0, PRODUCER_WG = 2;
+// setmaxnreg: a thread starts at 65536 / 384 = 168 registers; the output
+// warpgroup (its accumulator of GW / 2) takes what the others give up
+constexpr int S_REGS = 136, OUT_REGS = 240, ITEM_REGS = 128;
+constexpr int LOAD_AHEAD = 1;   // items a producer keeps loading ahead of the one it writes
+constexpr int PAD = 4;          // the resident rows' stride d + 4: a warp's A loads hit 32 banks
+constexpr int MAX_NI = 8;       // item stages, at most
+// A group's next output product is issued before the one before it is
+// waited for (two partials); false: each waited for at once
+constexpr bool OUT_AHEAD = false;
+// The second operand of dP (dq's dO, dk/dv's V) where it is not resident
+// (384, 512): raw items the producer copies (false), or its A fragments
+// loaded by the output warpgroup straight from global memory (true)
+constexpr bool A_GLOBAL = false;
+
+// The plan at head width D, one for both passes: GW output columns a
+// block (the whole head at 256, groups of 256 at 512, of 192 at 384); RES
+// resident operands of 64 raw rows at a stride of D + 4 floats (both at
+// 256: dq's Q and dO, dk/dv's K and V; at 384 and 512 the first alone);
+// two tiles of P handed from the S warpgroup to the output warpgroup (PX
+// bytes, four barriers); NI item stages of 16 KB (as many as fit, up to
+// MAX_NI: the S warpgroup's own NS, then the output warpgroup's ring) and
+// their barriers.  Mirrored by ops/flash_attention.py::backward_plan.
+template <int D>
+struct Plan {
+  static constexpr int C = 2;   // consumer warpgroups: S's and the output's
+  static constexpr int GW = D % 256 == 0 ? 256 : 192;
+  static constexpr int GROUPS = D / GW;
+  static constexpr int NCH = D / SUB;              // chunks of the head
+  static constexpr int RES = D == 256 ? 2 : 1;
+  static constexpr int LD = D + PAD;
+  static constexpr int RES_BYTES = RES * ROWS * LD * 4;
+  static constexpr int PX = 2 * ROWS * KT * 4;
+  static constexpr int STAGE = KT * SUB * 8;
+  static constexpr int FIXED = ALIGN + RES_BYTES + PX + 8 * 4;
+  static constexpr int FIT = (SMEM_LIMIT - FIXED) / (STAGE + 16);
+  static constexpr int NI = FIT < MAX_NI ? FIT : MAX_NI;
+  static constexpr int NS = 2;   // the S warpgroup's own stages; the output's ring the rest
+  static constexpr int SMEM = FIXED + NI * (STAGE + 16);
+  // the second operand of dP: resident rows (0), raw items (1), global memory (2)
+  static constexpr int MODE = RES == 2 ? 0 : A_GLOBAL ? 2 : 1;
+  static constexpr int DP_ITEMS = MODE == 1 ? 2 * NCH : NCH;   // dP's items a tile
+  static constexpr int OUT_ITEMS = GW / SUB;                  // the output product's
+  static_assert(D % 128 == 0 && D % GW == 0 && GW % SUB == 0, "whole groups and sub-groups");
+  static_assert(NI >= 4 && SMEM <= SMEM_LIMIT, "the plan exceeds a block's shared memory");
+};
+
+// A block's shared memory: NI item stages, their full and empty barriers,
+// P's two slots' full and empty barriers, the slots, then the resident
+// rows (the first operand's, then the second's)
+template <int D>
+struct Smem {
+  using P = Plan<D>;
+  unsigned char* img0;
+  uint32_t full, empty, p_full, p_empty;
+  float4* px;
+  float* res;
+  __device__ __forceinline__ explicit Smem(unsigned char* raw) {
+    img0 = wide::aligned_smem(raw);
+    full = smem_addr(img0 + P::NI * P::STAGE);
+    empty = full + 8 * P::NI;
+    p_full = empty + 8 * P::NI;
+    p_empty = p_full + 16;
+    px = reinterpret_cast<float4*>(img0 + P::NI * (P::STAGE + 16) + 32);
+    res = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(px) + P::PX);
+  }
+  __device__ __forceinline__ void init() const {   // by thread 0, before a __syncthreads
+    for (int s = 0; s < P::NI; ++s) {
+      mbar_init(full + 8 * s, 128);   // its producer's threads
+      mbar_init(empty + 8 * s, 4);    // the warps of the warpgroup that takes the item
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(p_full + 8 * s, 128);
+      mbar_init(p_empty + 8 * s, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+};
+
+// A consumer warpgroup's ring: count stages from stage base, its items by
+// their place in its order
+template <class P>
+struct Items {
+  unsigned char* img0;
+  uint32_t full, empty;
+  int base, count;
+  __device__ __forceinline__ unsigned char* acquire(int i) const {
+    const int si = base + i % count;
+    mbar_wait(full + 8 * si, (i / count) & 1);
+    return img0 + si * P::STAGE;
+  }
+  __device__ __forceinline__ void release(int i, int lane) const {   // this warp is done with it
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (base + i % count));
+  }
+};
+
+// The S warpgroup's items, written by its own threads (no producer, no
+// mbarrier): chunk i of its order (tile i / NCH, chunk i % NCH of the
+// head's columns of src's tile rows) into stage i % 2, its loads issued a
+// chunk ahead, so they run under the chunk before's products; a named
+// barrier of the warpgroup (id) orders the writes before wgmma reads them,
+// and no warp writes a stage before every warp's products from it, two
+// chunks back, have landed (each warp waited for them before it joined the
+// barrier of the chunk between)
+template <int D>
+struct OwnChunks {
+  using P = Plan<D>;
+  unsigned char* img0;
+  const float* src;
+  int n, total, ptid, id;
+  uint32_t w[wq::WORDS];
+  __device__ __forceinline__ void load(int i) {
+    if (i >= total) return;
+    const int tile = i / P::NCH;
+    wq::k_load(w, src + (size_t)tile * KT * D + (i - tile * P::NCH) * SUB, min(KT, n - tile * KT),
+               D, ptid);
+  }
+  __device__ __forceinline__ unsigned char* acquire(int i) {
+    unsigned char* stage = img0 + (i & 1) * P::STAGE;
+    wq::k_store(stage, w, ptid);
+    fence_async();
+    wg_sync(id);
+    load(i + 1);
+    return stage;
+  }
+  __device__ __forceinline__ void release(int, int) const {}
+};
+
+// P's hand-off from the S warpgroup to the output warpgroup, a tile at a
+// time in two slots: thread i of either warpgroup holds the same (row,
+// column) places of its accumulator, so a slot is 4 float4 a thread
+template <int D>
+__device__ __forceinline__ void hand_p(const Smem<D>& sm, const float (&p)[KT / 2], int tile,
+                                       int ctid) {
+  const int slot = tile & 1;
+  if (tile >= 2) mbar_wait(sm.p_empty + 8 * slot, ((tile >> 1) + 1) & 1);
+  float4* dst = sm.px + slot * (ROWS * KT / 4);
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j)
+    dst[j * 128 + ctid] = make_float4(p[4 * j], p[4 * j + 1], p[4 * j + 2], p[4 * j + 3]);
+  mbar_arrive(sm.p_full + 8 * slot);
+}
+template <int D>
+__device__ __forceinline__ void take_p(const Smem<D>& sm, float (&p)[KT / 2], int tile,
+                                       int ctid) {
+  const int slot = tile & 1;
+  mbar_wait(sm.p_full + 8 * slot, (tile >> 1) & 1);
+  const float4* src = sm.px + slot * (ROWS * KT / 4);
+#pragma unroll
+  for (int j = 0; j < KT / 8; ++j) {
+    const float4 x = src[j * 128 + ctid];
+    p[4 * j] = x.x;
+    p[4 * j + 1] = x.y;
+    p[4 * j + 2] = x.z;
+    p[4 * j + 3] = x.w;
+  }
+  mbar_arrive(sm.p_empty + 8 * slot);
+}
+
+// A raw item: ROWS rows x SUB columns of the block's rows at src (row
+// stride D; zeros from row valid on) as they are, column c of row r at
+// float r SUB + (c ^ 4 (r % 8)), so that a warp's A loads hit 32 banks;
+// copied by the producer's threads as cp.async of 16 bytes each (no
+// register holds them), the stage's full barrier arrived on when they land
+template <int D>
+__device__ __forceinline__ void a_copy(unsigned char* stage, const float* src, int valid,
+                                       int ptid) {
+#pragma unroll
+  for (int j = 0; j < ROWS * SUB / 4 / 128; ++j) {
+    const int u = ptid + 128 * j, r = u / (SUB / 4), c4 = u % (SUB / 4);
+    const uint32_t dst = smem_addr(stage + 4 * (r * SUB + ((4 * c4) ^ ((r & 7) << 2))));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+                 "l"(src + (r < valid ? (size_t)r * D + 4 * c4 : 0)), "r"(r < valid ? 16 : 0)
+                 : "memory");
+  }
+}
+
+// The TF32 A fragments of one k16 step of the A operand's rows arow, arow
+// + 8 (columns k0 + 8 kk + t, + 4), split into halves: MODE 0 raw rows at a
+// stride of LDA floats, 1 a raw item (LDA = SUB, swizzled), 2 global memory
+// (LDA = D, zeros from row valid on)
+template <int MODE, int LDA>
+__device__ __forceinline__ void a_frags(uint32_t (&ab)[2][4], uint32_t (&as)[2][4],
+                                        const float* a, int k0, int arow, int t, int valid) {
+  const int sw = MODE == 1 ? (arow & 7) << 2 : 0;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const int c = (k0 + 8 * kk + t) ^ sw;
+    const float* p = a + arow * LDA;
+    float x[4];
+    if constexpr (MODE == 2) {
+      x[0] = arow < valid ? __ldg(p + c) : 0.f;
+      x[1] = arow + 8 < valid ? __ldg(p + 8 * LDA + c) : 0.f;
+      x[2] = arow < valid ? __ldg(p + c + 4) : 0.f;
+      x[3] = arow + 8 < valid ? __ldg(p + 8 * LDA + c + 4) : 0.f;
+    } else {
+      x[0] = p[c];
+      x[1] = p[8 * LDA + c];
+      x[2] = p[c ^ 4];
+      x[3] = p[8 * LDA + (c ^ 4)];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split<false>(x[e], ab[kk][e], as[kk][e]);
+  }
+}
+
+// s += the A operand's 64 rows times the B rows of the chunk items (from
+// item first on), transposed, over the head (NCH chunks of SUB columns):
+// the products of S = Q K^T, dP = dO V^T (dk/dv: S^T = K Q^T, dP^T = V
+// dO^T).  A chunk is one K-major B item, with MODE 1 a raw A item before
+// it; A's fragments come from the resident rows at a (MODE 0, columns c SUB
+// on), the raw item (1) or global memory at a (2).  Three TF32 products a
+// k8 step into a zeroed partial a k16 step (two taking turns), carried
+// into s; a step is issued before the one before is waited for, the next
+// step's fragments load and split while it runs, and a chunk's items are
+// released once its last step has landed.  (Its steps run one chunk at a
+// time: the next chunk's first step issued before this chunk's last had
+// landed made ptxas serialise every wgmma of the kernel, C7514, or, the
+// chunks unrolled, spill.)
+template <int NCH, int MODE, int LDA, class R>
+__device__ __forceinline__ void over_head(float (&s)[KT / 2], R& items, int first,
+                                          const float* a, int arow, int t, int valid, int lane) {
+  constexpr int IPC = MODE == 1 ? 2 : 1;   // items a chunk
+  constexpr int STEPS = SUB / 16;
+#pragma unroll 1
+  for (int c = 0; c < NCH; ++c) {
+    const int i0 = first + c * IPC;
+    float part[2][KT / 2] = {};   // zeroed: as ss_product's partials
+    uint32_t ab[2][2][4], as[2][2][4];
+    const float* ac = MODE == 1 ? reinterpret_cast<const float*>(items.acquire(i0)) : a;
+    const uint32_t b = smem_addr(items.acquire(i0 + IPC - 1));
+    const int col = MODE == 1 ? 0 : c * SUB;
+    a_frags<MODE, LDA>(ab[0], as[0], ac, col, arow, t, valid);
+#pragma unroll
+    for (int st = 0; st < STEPS; ++st) {
+      const int x = st & 1;
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) fence_reg(part[x][i]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t bk = b + (2 * st + kk) * (KT * 32 * 2);
+        mma_rs<KT, float>(part[x], as[x][kk], b_desc(bk), kk);
+        mma_rs<KT, float>(part[x], ab[x][kk], b_desc(bk + KT * 32), 1);
+        mma_rs<KT, float>(part[x], ab[x][kk], b_desc(bk), 1);
+      }
+      wgmma_commit();
+      if (st > 0) {
+        wgmma_wait<1>();   // the step before: its partial, its A registers
+        fence_frags(ab[x ^ 1]);
+        fence_frags(as[x ^ 1]);
+        carry(s, part[x ^ 1]);
+      }
+      if (st + 1 < STEPS)
+        a_frags<MODE, LDA>(ab[x ^ 1], as[x ^ 1], ac, col + 16 * (st + 1), arow, t, valid);
+    }
+    wgmma_wait<0>();
+    fence_frags(ab[(STEPS - 1) & 1]);
+    fence_frags(as[(STEPS - 1) & 1]);
+    carry(s, part[(STEPS - 1) & 1]);
+#pragma unroll
+    for (int i = 0; i < IPC; ++i) items.release(i0 + i, lane);
+  }
+}
+
+// acc (GW columns) += x (P, dS or their transposes: s's TF32 halves as
+// register A) times the tile's rows of the group, one transposed sub-group
+// item (from item first on) of SUB columns after another, each into a
+// zeroed partial carried into its columns; with OUT_AHEAD two partials
+// take turns, a sub-group's products issued before the one before is
+// waited for
+template <int GW, class R>
+__device__ __forceinline__ void out_subgroups(float (&acc)[GW / 2], const float (&x)[KT / 2],
+                                              const R& items, int first, int lane) {
+  constexpr int H = GW / SUB;
+  uint32_t big[KT / 8][4], sm[KT / 8][4];
+  tf32_frags<KT>(x, big, sm);
+  float part[2][SUB / 2] = {};
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const int y = OUT_AHEAD ? h & 1 : 0;
+    const uint32_t b = smem_addr(items.acquire(first + h));
+#pragma unroll
+    for (int i = 0; i < SUB / 2; ++i) fence_reg(part[y][i]);
+    wgmma_fence();
+    rs_tf32<SUB, KT, SUB>(part[y], big, sm, b, 0);
+    wgmma_commit();
+    if (!OUT_AHEAD || h > 0) {
+      const int done = OUT_AHEAD ? h - 1 : h, py = OUT_AHEAD ? done & 1 : 0;   // landed
+      if constexpr (OUT_AHEAD)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < SUB / 2; ++i) {
+        fence_reg(part[py][i]);
+        acc[done * (SUB / 2) + i] += part[py][i];
+      }
+      items.release(first + done, lane);
+    }
+  }
+  if constexpr (OUT_AHEAD) {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < SUB / 2; ++i) {
+      fence_reg(part[(H - 1) & 1][i]);
+      acc[(H - 1) * (SUB / 2) + i] += part[(H - 1) & 1][i];
+    }
+    items.release(first + H - 1, lane);
+  }
+  fence_frags(big);
+  fence_frags(sm);
+}
+
+// a consumer warpgroup's resident rows, once (zeros past n): rows row0 ..
+// of src at res, then its named barrier id
+template <int D>
+__device__ __forceinline__ void load_resident(float* res, const float* src, int row0, int n,
+                                              int ctid, int id) {
+  constexpr int C4 = D / 4, LD = D + PAD;
+#pragma unroll 1
+  for (int u = ctid; u < ROWS * C4; u += 128) {
+    const int r = u / C4, c4 = u % C4;
+    const float4 x = row0 + r < n
+                         ? __ldg(reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D) + c4)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(res + r * LD + 4 * c4) = x;
+  }
+  wg_sync(id);
+}
+
+// A producer warpgroup's ring: count stages from stage base, items 0 ..
+// items - 1 of its consumer's order; the data of the LOAD_AHEAD items
+// after item i loaded into registers (load(i, w)) while item i is written
+// (store(i, w, stage)), each released as soon as written, or for a raw
+// item (store returns true) once its copies land
+template <int D, class Load, class Store>
+__device__ __forceinline__ void produce_ring(const Smem<D>& sm, int base, int count, int items,
+                                             Load load, Store store) {
+  constexpr int NB = LOAD_AHEAD + 1;
+  uint32_t buf[NB][wq::WORDS];
+#pragma unroll
+  for (int x = 0; x < LOAD_AHEAD; ++x)
+    if (x < items) load(x, buf[x]);
+#pragma unroll 1
+  for (int i0 = 0; i0 < items; i0 += NB) {
+#pragma unroll
+    for (int x = 0; x < NB; ++x) {
+      const int i = i0 + x;
+      if (i >= items) break;
+      if (i + LOAD_AHEAD < items) load(i + LOAD_AHEAD, buf[(x + LOAD_AHEAD) % NB]);
+      const int si = base + i % count, round = i / count;
+      if (round > 0) mbar_wait(sm.empty + 8 * si, (round + 1) & 1);
+      if (store(i, buf[x], sm.img0 + si * Plan<D>::STAGE)) {
+        asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(sm.full + 8 * si)
+                     : "memory");
+      } else {
+        fence_async();
+        mbar_arrive(sm.full + 8 * si);
+      }
+    }
+  }
+}
+
+// The producer of the output warpgroup's items (ptid: its thread's rank):
+// each tile's chunks of dp_b (each after dp_a's raw chunk where it
+// streams; dp_b null: no dP), then the GW / SUB sub-groups of out_b
+// transposed, into the stages after the S warpgroup's.  B rows: the
+// tile's, from row base on; raw rows: the block's, from a_rows on (a_valid
+// of them real).
+template <int D>
+__device__ __forceinline__ void produce_items(const Smem<D>& sm, int tiles, int n, size_t base,
+                                              size_t a_rows, int a_valid, const float* dp_a,
+                                              const float* dp_b, const float* out_b, int grp,
+                                              int ptid) {
+  using P = Plan<D>;
+  const auto tile_rows = [&](int tile) { return base + (size_t)tile * KT * D; };
+  const auto valid = [&](int tile) { return min(KT, n - tile * KT); };
+  const int dp_items = dp_b != nullptr ? P::DP_ITEMS : 0, per_tile = dp_items + P::OUT_ITEMS;
+  // item j of a tile: 0 a K-major chunk, 1 a raw chunk, 2 a transposed
+  // sub-group; and its columns' first
+  const auto kind = [&](int j, int& col) {
+    if (j >= dp_items) {
+      col = grp * P::GW + (j - dp_items) * SUB;
+      return 2;
+    }
+    col = (P::MODE == 1 ? j >> 1 : j) * SUB;
+    return P::MODE == 1 && (j & 1) == 0 ? 1 : 0;
+  };
+  produce_ring<D>(
+      sm, P::NS, P::NI - P::NS, tiles * per_tile,
+      [&](int i, uint32_t (&w)[wq::WORDS]) {
+        const int tile = i / per_tile;
+        int col;
+        const int k = kind(i - tile * per_tile, col);
+        if (k == 0) wq::k_load(w, dp_b + tile_rows(tile) + col, valid(tile), D, ptid);
+        if (k == 2) wq::v_load(w, out_b + tile_rows(tile) + col, valid(tile), D, ptid);
+      },
+      [&](int i, const uint32_t (&w)[wq::WORDS], unsigned char* stage) {
+        int col;
+        const int k = kind(i % per_tile, col);
+        if (k == 0) wq::k_store(stage, w, ptid);
+        if (k == 2) wq::v_store(stage, w, ptid);
+        if (k == 1) a_copy<D>(stage, dp_a + a_rows + col, a_valid, ptid);
+        return k == 1;
+      });
+}
+
+}  // namespace wqb
+
+// dq, float32, D = 256, 384, 512: a block is (64 query rows, group of GW
+// output columns) of one head and three warpgroups.  The S warpgroup loads
+// Q's rows once, writes each key tile's D / 64 chunks of K itself and
+// computes S = Q K^T and P = 2^(S scale log2 e - lse log2 e) (keys past n:
+// S = -inf), handing P over; the producer writes the output warpgroup's
+// items, a tile's chunks of V (each after dO's raw chunk where dO is not
+// resident), then its GW / 64 sub-groups of K transposed; the output
+// warpgroup loads dO's rows where both fit and computes dP = dO V^T, dS = P
+// (dP - delta) and dQ_g += dS K_g, while the S warpgroup goes on to the
+// next tile.
+template <int D>
+__global__ void __launch_bounds__(wqb::THREADS, 1)
+flash_bwd_dq_wq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       float* __restrict__ dq, int n, float scale) {
+  using namespace wqb;
+  using P = Plan<D>;
+  constexpr int GW = P::GW, LD = P::LD;
+  extern __shared__ unsigned char smem_raw[];
+  const Smem<D> sm(smem_raw);
+  const int tid = threadIdx.x, wg = tid >> 7, ctid = tid & 127;
+  const int grp = blockIdx.x % P::GROUPS, q0 = (blockIdx.x / P::GROUPS) * ROWS;
+  const size_t base = (size_t)blockIdx.y * n * D, rbase = (size_t)blockIdx.y * n;
+  const int tiles = (n + KT - 1) / KT, qvalid = min(ROWS, n - q0);
+  if (tid == 0) sm.init();
+  __syncthreads();
+
+  if (wg == PRODUCER_WG) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(ITEM_REGS));
+    produce_items<D>(sm, tiles, n, base, base + (size_t)q0 * D, qvalid, dout, v, k, grp, ctid);
+    return;
+  }
+  const int warp = ctid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3, arow = 16 * warp + g;
+  constexpr int OUT_TILE = P::DP_ITEMS + P::OUT_ITEMS;   // the output warpgroup's items a tile
+  if (wg == S_WG) {   // S and P, K's chunks written by its own threads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(S_REGS));
+    OwnChunks<D> items{sm.img0, k + base, n, tiles * P::NCH, ctid, 2};
+    items.load(0);
+    load_resident<D>(sm.res, q + base, q0, n, ctid, 2);
+    const float scale2 = scale * LOG2E;
+    float lse2[2];   // rows 16 warp + g + 8h
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = q0 + arow + 8 * h;
+      lse2[h] = r < n ? lse[rbase + r] * LOG2E : 0.f;
+    }
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int k0 = tile * KT;
+      float s[KT / 2] = {};
+      over_head<P::NCH, 0, LD>(s, items, tile * P::NCH, sm.res, arow, t, ROWS, lane);   // S
+      if (k0 + KT > n) {   // keys past n: P = 0
+#pragma unroll
+        for (int i = 0; i < KT / 2; ++i)
+          if (k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= n) s[i] = -INFINITY;
+      }
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) s[i] = ex2(fmaf(s[i], scale2, -lse2[(i >> 1) & 1]));
+      hand_p<D>(sm, s, tile, ctid);
+    }
+    return;
+  }
+
+  // the output warpgroup: dP, dS, dQ_g
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(OUT_REGS));
+  Items<P> items{sm.img0, sm.full, sm.empty, P::NS, P::NI - P::NS};
+  if constexpr (P::RES == 2) load_resident<D>(sm.res + ROWS * LD, dout + base, q0, n, ctid, 3);
+  // rows 16 warp + g + 8h: delta, and the group's columns of dQ in
+  // accumulator layout
+  float dlt[2], acc[GW / 2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + arow + 8 * h;
+    dlt[h] = r < n ? delta[rbase + r] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < GW / 2; ++i) acc[i] = 0.f;
+  const float* dp_a = P::MODE == 0 ? sm.res + ROWS * LD : dout + base + (size_t)q0 * D;
+  constexpr int DP_LD = P::MODE == 0 ? LD : P::MODE == 1 ? SUB : D;
+  for (int tile = 0; tile < tiles; ++tile) {
+    float dp[KT / 2] = {}, p[KT / 2];
+    over_head<P::NCH, P::MODE, DP_LD>(dp, items, tile * OUT_TILE, dp_a, arow, t, qvalid,
+                                      lane);                             // dP = dO V^T
+    take_p<D>(sm, p, tile, ctid);
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) dp[i] = p[i] * (dp[i] - dlt[(i >> 1) & 1]);   // dS
+    out_subgroups<GW>(acc, dp, items, tile * OUT_TILE + P::DP_ITEMS, lane);   // dQ_g += dS K_g
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + arow + 8 * h;
+    if (r >= n) continue;
+    float* row = dq + (rbase + r) * D + grp * GW;
+#pragma unroll
+    for (int j = 0; j < GW / 8; ++j)
+      store2<float>(row + 8 * j + 2 * t, acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
+  }
+}
+
+// dk/dv, float32, D = 256, 384, 512: a block is (64 keys, group of GW
+// output columns, one output) of one head and three warpgroups;
+// blockIdx.x runs over (key block, group, output), the output innermost.
+// The S warpgroup loads K's rows once, writes each query tile's chunks of
+// Q itself and computes S^T = K Q^T and P^T = 2^(S^T scale log2 e - lse
+// log2 e), handing P^T over; the producer writes the output warpgroup's
+// items, for dK a tile's chunks of dO (each after V's raw chunk where V is
+// not resident), then the sub-groups of dO (dV) or Q (dK) transposed; the
+// output warpgroup computes dV_g += P^T dO_g, or (loading V's rows where
+// both fit) dP^T = V dO^T, dS^T = P^T (dP^T - delta) and dK_g += dS^T Q_g.
+// Queries past n: lse +inf (P^T = 0) and delta 0, loaded by the
+// warpgroups' threads before each tile's first wait.
+template <int D>
+__global__ void __launch_bounds__(wqb::THREADS, 1)
+flash_bwd_dkv_wq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv, int n, float scale) {
+  using namespace wqb;
+  using P = Plan<D>;
+  constexpr int GW = P::GW, LD = P::LD;
+  extern __shared__ unsigned char smem_raw[];
+  const Smem<D> sm(smem_raw);
+  const int tid = threadIdx.x, wg = tid >> 7, ctid = tid & 127;
+  const bool is_dk = blockIdx.x & 1;
+  const int grp = (blockIdx.x >> 1) % P::GROUPS, k0 = ((blockIdx.x >> 1) / P::GROUPS) * ROWS;
+  const size_t base = (size_t)blockIdx.y * n * D, rbase = (size_t)blockIdx.y * n;
+  const int tiles = (n + KT - 1) / KT, kvalid = min(ROWS, n - k0);
+  const int dp_items = is_dk ? P::DP_ITEMS : 0, per_tile = P::NCH + dp_items + P::OUT_ITEMS;
+  if (tid == 0) sm.init();
+  __syncthreads();
+
+  if (wg == PRODUCER_WG) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(ITEM_REGS));
+    produce_items<D>(sm, tiles, n, base, base + (size_t)k0 * D, kvalid, v,
+                     is_dk ? dout : nullptr, is_dk ? q : dout, grp, ctid);
+    return;
+  }
+  const int warp = ctid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3, arow = 16 * warp + g;
+  if (wg == S_WG) {   // S^T and P^T, Q's chunks written by its own threads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(S_REGS));
+    OwnChunks<D> items{sm.img0, q + base, n, tiles * P::NCH, ctid, 2};
+    items.load(0);
+    load_resident<D>(sm.res, k + base, k0, n, ctid, 2);
+    const float scale2 = scale * LOG2E;
+    for (int tile = 0; tile < tiles; ++tile) {
+      // lse log2 e of the tile's queries 8j + 2t + e, this thread's
+      // columns, loaded first: they run under the first wait
+      float l2[KT / 4];
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = tile * KT + 8 * j + 2 * t + e;
+          l2[2 * j + e] = c < n ? lse[rbase + c] * LOG2E : INFINITY;
+        }
+      // s[4j + 2h + e]: key 16 warp + g + 8h, query 8j + 2t + e of the tile
+      float s[KT / 2] = {};
+      over_head<P::NCH, 0, LD>(s, items, tile * P::NCH, sm.res, arow, t, ROWS, lane);   // S^T
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) s[i] = ex2(fmaf(s[i], scale2, -l2[2 * (i >> 2) + (i & 1)]));
+      hand_p<D>(sm, s, tile, ctid);
+    }
+    return;
+  }
+
+  // the output warpgroup: dV_g, or dP^T, dS^T and dK_g
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(OUT_REGS));
+  Items<P> items{sm.img0, sm.full, sm.empty, P::NS, P::NI - P::NS};
+  const int out_tile = per_tile - P::NCH;   // the output warpgroup's items a tile
+  if constexpr (P::RES == 2)
+    if (is_dk) load_resident<D>(sm.res + ROWS * LD, v + base, k0, n, ctid, 3);
+  // keys 16 warp + g + 8h: the group's columns of dK or dV in accumulator
+  // layout
+  float acc[GW / 2];
+#pragma unroll
+  for (int i = 0; i < GW / 2; ++i) acc[i] = 0.f;
+  const float* dp_a = P::MODE == 0 ? sm.res + ROWS * LD : v + base + (size_t)k0 * D;
+  constexpr int DP_LD = P::MODE == 0 ? LD : P::MODE == 1 ? SUB : D;
+  // the block's loop over the query tiles, one for each output (a loop of
+  // its own: tmab's lesson, ptxas serialises the wgmma of one loop with a
+  // branch on the output)
+  auto tiles_loop = [&](auto output) {
+    constexpr bool DK = decltype(output)::value;
+    for (int tile = 0; tile < tiles; ++tile) {
+      float p[KT / 2];
+      if constexpr (DK) {
+        float dl[KT / 4];   // delta of the tile's queries, this thread's columns
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = tile * KT + 8 * j + 2 * t + e;
+            dl[2 * j + e] = c < n ? delta[rbase + c] : 0.f;
+          }
+        float dp[KT / 2] = {};
+        over_head<P::NCH, P::MODE, DP_LD>(dp, items, tile * out_tile, dp_a, arow, t, kvalid,
+                                          lane);                         // dP^T = V dO^T
+        take_p<D>(sm, p, tile, ctid);
+#pragma unroll
+        for (int i = 0; i < KT / 2; ++i)   // dS^T = P^T (dP^T - delta)
+          dp[i] = p[i] * (dp[i] - dl[2 * (i >> 2) + (i & 1)]);
+        out_subgroups<GW>(acc, dp, items, tile * out_tile + P::DP_ITEMS, lane);   // dK_g
+      } else {
+        take_p<D>(sm, p, tile, ctid);
+        out_subgroups<GW>(acc, p, items, tile * out_tile, lane);   // dV_g += P^T dO_g
+      }
+    }
+  };
+  if (is_dk)
+    tiles_loop(tmab::Output<true>{});
+  else
+    tiles_loop(tmab::Output<false>{});
+  float* out = is_dk ? dk : dv;
+  const float f = is_dk ? scale : 1.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = k0 + arow + 8 * h;
+    if (r >= n) continue;
+    float* row = out + (rbase + r) * D + grp * GW;
+#pragma unroll
+    for (int j = 0; j < GW / 8; ++j)
+      store2<float>(row + 8 * j + 2 * t, acc[4 * j + 2 * h] * f, acc[4 * j + 2 * h + 1] * f);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers: one instantiation per (D, type), and per type above 128
 // ---------------------------------------------------------------------------
 // the operands' rows move as 16-byte chunks and bulk copies
@@ -3110,11 +3850,46 @@ int launch_dkv_tma(const void* q, const void* k, const void* v, const void* dout
   return (int)cudaGetLastError();
 }
 
-// the bf16 forward and backward at d on TMA (256, 384, 512); other widths
-// go on to the column-group kernels (above 512 a resident block of query
-// rows no longer fits beside two stages)
-#define TMA_DISPATCH(LAUNCH, ...)                         \
-  if (dtype == 1) switch (d) {                            \
+// the float32 backward at D = 256, 384, 512: dq one block per (head, 64
+// query rows, group of GW); dk/dv one per (head, 64 keys, group, output)
+template <int D>
+int launch_dq_wqb(const void* q, const void* k, const void* v, const void* dout,
+                  const float* lse, const float* delta, void* dq, int bh, int n, float scale,
+                  cudaStream_t stream) {
+  if (!aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
+  using P = wqb::Plan<D>;
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem(flash_bwd_dq_wq_kernel<D>, P::SMEM, done);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(((n + wqb::ROWS - 1) / wqb::ROWS) * P::GROUPS), (unsigned)bh);
+  flash_bwd_dq_wq_kernel<D><<<grid, wqb::THREADS, P::SMEM, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
+      (float*)dq, n, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_wqb(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dk, void* dv, int bh, int n,
+                   float scale, cudaStream_t stream) {
+  if (!aligned16(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
+  using P = wqb::Plan<D>;
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem(flash_bwd_dkv_wq_kernel<D>, P::SMEM, done);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(((n + wqb::ROWS - 1) / wqb::ROWS) * P::GROUPS * 2), (unsigned)bh);
+  flash_bwd_dkv_wq_kernel<D><<<grid, wqb::THREADS, P::SMEM, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta,
+      (float*)dk, (float*)dv, n, scale);
+  return (int)cudaGetLastError();
+}
+
+// at d = 256, 384, 512 in one type (0 float32, 1 bf16): the bf16 forward
+// and backward on TMA, the float32 backward with its resident rows; other
+// widths go on to the column-group kernels (above 512 a resident block of
+// rows no longer fits beside the stages)
+#define WIDTH_DISPATCH(TYPE, LAUNCH, ...)                 \
+  if (dtype == TYPE) switch (d) {                         \
       case 256: return LAUNCH<256>(__VA_ARGS__);          \
       case 384: return LAUNCH<384>(__VA_ARGS__);          \
       case 512: return LAUNCH<512>(__VA_ARGS__);          \
@@ -3160,6 +3935,22 @@ int plan_bwd_tma(int* plan) {
   }
   return 0;
 }
+// the float32 backward's with the resident rows, both passes the same:
+// {rows a block, consumer warpgroups, streamed rows a tile, no raw stage,
+// item stages, shared-memory bytes}
+template <int D>
+int plan_bwd_wqb(int* plan) {
+  using P = wqb::Plan<D>;
+  for (int i = 0; i < 12; i += 6) {
+    plan[i] = wqb::ROWS;
+    plan[i + 1] = P::C;
+    plan[i + 2] = wqb::KT;
+    plan[i + 3] = 0;
+    plan[i + 4] = P::NI;
+    plan[i + 5] = P::SMEM;
+  }
+  return 0;
+}
 template <typename T>
 int plan_bwd_wide(int* plan) {
   plan_of<wide::Plan<T, wide::DQ>>(plan);
@@ -3198,7 +3989,7 @@ extern "C" {
 int flash_forward(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
                   int n, int d, int dtype, float scale, void* stream) {
   if (!args_ok(bh, n, d, dtype)) return (int)cudaErrorInvalidValue;
-  TMA_DISPATCH(launch_fwd_tma, q, k, v, out, lse, bh, n, scale, (cudaStream_t)stream)
+  WIDTH_DISPATCH(1, launch_fwd_tma, q, k, v, out, lse, bh, n, scale, (cudaStream_t)stream)
   WIDE_DISPATCH(launch_fwd_wide, q, k, v, out, lse, bh, n, d, scale, (cudaStream_t)stream)
   FLASH_DISPATCH(launch_fwd, q, k, v, out, lse, bh, n, scale, (cudaStream_t)stream)
 }
@@ -3207,7 +3998,7 @@ int flash_forward(const void* q, const void* k, const void* v, void* out, float*
 // plan[4] = {keys a tile, raw stages, image stages, shared-memory bytes}
 int flash_forward_plan(int d, int dtype, int* plan) {
   if (!args_ok(1, 1, d, dtype)) return (int)cudaErrorInvalidValue;
-  TMA_DISPATCH(plan_fwd_tma, plan)
+  WIDTH_DISPATCH(1, plan_fwd_tma, plan)
   WIDE_DISPATCH(plan_fwd_wide, plan, d)
   FLASH_DISPATCH(plan_fwd, plan)
 }
@@ -3217,7 +4008,8 @@ int flash_forward_plan(int d, int dtype, int* plan) {
 // rows a tile, raw stages, image stages, shared-memory bytes}
 int flash_backward_plan(int d, int dtype, int* plan) {
   if (!args_ok(1, 1, d, dtype)) return (int)cudaErrorInvalidValue;
-  TMA_DISPATCH(plan_bwd_tma, plan)
+  WIDTH_DISPATCH(1, plan_bwd_tma, plan)
+  WIDTH_DISPATCH(0, plan_bwd_wqb, plan)
   WIDE_DISPATCH(plan_bwd_wide, plan)
   FLASH_DISPATCH(plan_bwd, plan)
 }
@@ -3226,7 +4018,10 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                  const float* lse, const float* delta, void* dq, int bh, int n, int d,
                  int dtype, float scale, void* stream) {
   if (!args_ok(bh, n, d, dtype)) return (int)cudaErrorInvalidValue;
-  TMA_DISPATCH(launch_dq_tma, q, k, v, dout, lse, delta, dq, bh, n, scale, (cudaStream_t)stream)
+  WIDTH_DISPATCH(1, launch_dq_tma, q, k, v, dout, lse, delta, dq, bh, n, scale,
+                 (cudaStream_t)stream)
+  WIDTH_DISPATCH(0, launch_dq_wqb, q, k, v, dout, lse, delta, dq, bh, n, scale,
+                 (cudaStream_t)stream)
   WIDE_DISPATCH(launch_dq_wide, q, k, v, dout, lse, delta, dq, bh, n, d, scale,
                 (cudaStream_t)stream)
   FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, bh, n, scale, (cudaStream_t)stream)
@@ -3236,8 +4031,10 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, void* dk, void* dv, int bh, int n,
                   int d, int dtype, float scale, void* stream) {
   if (!args_ok(bh, n, d, dtype)) return (int)cudaErrorInvalidValue;
-  TMA_DISPATCH(launch_dkv_tma, q, k, v, dout, lse, delta, dk, dv, bh, n, scale,
-               (cudaStream_t)stream)
+  WIDTH_DISPATCH(1, launch_dkv_tma, q, k, v, dout, lse, delta, dk, dv, bh, n, scale,
+                 (cudaStream_t)stream)
+  WIDTH_DISPATCH(0, launch_dkv_wqb, q, k, v, dout, lse, delta, dk, dv, bh, n, scale,
+                 (cudaStream_t)stream)
   WIDE_DISPATCH(launch_dkv_wide, q, k, v, dout, lse, delta, dk, dv, bh, n, d, scale,
                 (cudaStream_t)stream)
   FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, n, scale,

@@ -44,12 +44,17 @@ forward up to 512 has kernels of its own instead, a block owning
 a block with Q resident, K and V streamed by TMA tensor copies into the
 128-byte swizzle ``wgmma`` reads (V through the transpose bit); in float32
 up to ``RESIDENT_MAX``, 64 query rows with Q resident as raw rows, the
-register operand of S.  The bf16 backward at ``TMA_WIDTHS`` has its own
-pair too (its plan: :func:`backward_plan`, its columns
-:func:`backward_columns`): two consumer warpgroups a block, the resident
+register operand of S.  The backward at ``TMA_WIDTHS`` has its own pair
+in each type (its plan: :func:`backward_plan`, its columns
+:func:`backward_columns`), dk/dv's blocks split by output (a dV block and a
+dK block a group): in bf16 two consumer warpgroups a block, the resident
 operands and the streamed tiles copied by TMA into the same swizzle, the
-products over the streamed rows reading them through the transpose bit,
-and dk/dv's blocks split by output (a dV block and a dK block a group).
+products over the streamed rows reading them through the transpose bit; in
+float32 64 rows a block and three warpgroups, one computing S and P from
+the first operand's raw rows (the register operand of S, as the float32
+forward's Q) and handing P to one that computes dP and the output, the
+streamed operands as 16 KB items in both TF32 halves (at 384 and 512 the
+second operand, dq's dO or dk/dv's V, streamed as raw items too).
 
 Each kernel has a plain PyTorch version beside it.  A wrapper takes the
 plain version only for CPU tensors; for CUDA tensors it launches its kernel
@@ -375,12 +380,15 @@ def backward_plan(d: int, dtype: torch.dtype, kernel: str) -> dict:
     images (Q, dO; K, V) take both TF32 halves in float32, so a float32
     block is one consumer warpgroup and streams 2048 / d rows a tile.  Above
     128: one consumer warpgroup, no raw stage, :func:`_wide_plan`'s stages;
-    in bf16 at ``TMA_WIDTHS`` :func:`_tma_backward_plan`."""
+    in bf16 at ``TMA_WIDTHS`` :func:`_tma_backward_plan`, in float32 up to
+    ``RESIDENT_MAX`` :func:`_resident_backward_plan`."""
     f32, dkv = dtype == torch.float32, kernel == "dkv"
     if kernel not in BWD_KERNELS:
         raise ValueError(f"kernel is one of {BWD_KERNELS}, got {kernel!r}")
     if d > 128 and dtype == torch.bfloat16 and d in TMA_WIDTHS:
         return _tma_backward_plan(d)
+    if d > 128 and dtype == torch.float32 and d <= RESIDENT_MAX:
+        return _resident_backward_plan(d)
     if d > 128:
         tile, stages, smem = _wide_plan(dtype, kernel)
         return dict(zip(_BWD_PLAN_KEYS, (WIDE_ROWS, 1, tile, 0, stages, smem)))
@@ -420,15 +428,39 @@ def _tma_backward_plan(d: int) -> dict:
                                      fixed + stages * (tile * row + 16))))
 
 
+# the float32 backward with the resident rows (csrc/flash_attention.cu::
+# wqb): 32 streamed rows a tile, items of 16 KB in up to eight stages
+RESIDENT_BWD_STAGES = 8
+
+
+def _resident_backward_plan(d: int) -> dict:
+    """The float32 backward's plan at 128 < ``d`` <= ``RESIDENT_MAX``
+    (mirrors ``wqb::Plan``), one for both passes: 64 rows a block, two
+    consumer warpgroups (S's and the output's, on the same rows), 32
+    streamed rows a tile, as many 16 KB item stages as fit up to
+    ``RESIDENT_BWD_STAGES`` (no raw stage), and the bytes: the alignment
+    slack, the resident operands' 64 rows at a stride of ``d`` + 4 floats
+    (both at 256: dq's Q and dO, dk/dv's K and V; the first alone at 384 and
+    512), two tiles of P handed between the warpgroups and their four
+    barriers, then the stages with their barriers."""
+    stage = RESIDENT_KEYS * 64 * 8
+    fixed = (128 + (2 if d == 256 else 1) * WIDE_ROWS * (d + RESIDENT_PAD) * 4
+             + 2 * WIDE_ROWS * RESIDENT_KEYS * 4 + 32)
+    stages = min(RESIDENT_BWD_STAGES, (FWD_SMEM_LIMIT - fixed) // (stage + 16))
+    return dict(zip(_BWD_PLAN_KEYS, (WIDE_ROWS, 2, RESIDENT_KEYS, 0, stages,
+                                     fixed + stages * (stage + 16))))
+
+
 def backward_columns(d: int, dtype: torch.dtype) -> int:
     """The output columns a backward block owns at kernel width ``d``: the
-    whole head up to 128; above, in bf16 at ``TMA_WIDTHS`` the TMA
-    backward's (the whole head at 256, groups of 256 at 512, of 192 at 384,
-    where groups of 128 would make its dk/dv dearer than the column-group
-    kernel's: :func:`backward_products`), else ``WIDE_GROUP``."""
+    whole head up to 128; above, at ``TMA_WIDTHS`` (the bf16 TMA pair and
+    the float32 pair with the resident rows) the whole head at 256, groups
+    of 256 at 512, of 192 at 384, where groups of 128 would make the split
+    dk/dv dearer than the column-group kernel's (:func:`backward_products`);
+    else ``WIDE_GROUP``."""
     if d <= 128:
         return d
-    if dtype == torch.bfloat16 and d in TMA_WIDTHS:
+    if d in TMA_WIDTHS:
         return 256 if d % 256 == 0 else 192
     return WIDE_GROUP
 
@@ -438,13 +470,14 @@ def backward_products(d: int, dtype: torch.dtype) -> float:
     dQ; S^T, dP^T, dV, dK) at kernel width ``d``.  Column-group kernels
     (groups of c = :func:`backward_columns` columns, g = d / c of them)
     recompute S and dP in every group of both passes: (8 g + 6) / 14.  The
-    TMA backward: dq the same, 2 g + 1 of 2 N^2 d; dk/dv splits each group
-    by output, the dV block S^T and its dV_g, the dK block S^T, dP^T and its
-    dK_g, 3 g + 2: (5 g + 3) / 7."""
+    pairs at ``TMA_WIDTHS`` (bf16 on TMA, float32 with the resident rows):
+    dq the same, 2 g + 1 of 2 N^2 d; dk/dv splits each group by output, the
+    dV block S^T and its dV_g, the dK block S^T, dP^T and its dK_g, 3 g + 2:
+    (5 g + 3) / 7."""
     if d <= 128:
         return 1.0
     groups = d // backward_columns(d, dtype)
-    if dtype == torch.bfloat16 and d in TMA_WIDTHS:
+    if d in TMA_WIDTHS:
         return (5 * groups + 3) / 7
     return (8 * groups + 6) / 14
 

@@ -1,12 +1,13 @@
 """Port vs JAX package for flash attention at head widths above 128 on the
 CPU: the port's autograd function (its plain versions, which the CUDA
-column-group kernels repeat) against the JAX Pallas kernels in interpret
-mode at D = 160, 256 and 512 on a ragged N, in float32 and bf16; the
+kernels above 128 repeat) against the JAX Pallas kernels in interpret
+mode at D = 160, 256, 384 and 512 on a ragged N, in float32 and bf16; the
 padding to a multiple of 128; the column-group kernels' plans, chunk images
-and group images; their 3xTF32 scheme against float64; and a U-Net and a
-super-resolution model built with the JAX package's default head rule
-(``num_heads=1``: one head of all a block's channels) with flash on,
-against the JAX package's."""
+and group images; the TMA backward's swizzle and the float32 backward's
+items and register fragments (resident raw rows); their 3xTF32 scheme
+against float64; and a U-Net and a super-resolution model built with the
+JAX package's default head rule (``num_heads=1``: one head of all a
+block's channels) with flash on, against the JAX package's."""
 
 import dataclasses
 import itertools
@@ -25,7 +26,7 @@ from confild_tpu_torch.models import unet as tunet
 from confild_tpu_torch.models import unet_extras as textras
 from confild_tpu_torch.ops import flash_attention as tfa
 from test_torch_flash import (FWD_TOL, GRAD_TOL, _forward_margins, _inputs, _jax_grads,
-                              _port_grads, _scheme_margins)
+                              _port_grads, _register_order, _rna_tf32, _scheme_margins)
 from torch_parity_utils import limit_torch_threads, perturbed, t
 
 # bf16 in and out, float32 softmax: the tolerances test_torch_flash.py's
@@ -58,7 +59,7 @@ def test_wide_forward_and_lse_match_jax(d):
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **FWD_TOL)
 
 
-@pytest.mark.parametrize("d", [160, 256, 512])
+@pytest.mark.parametrize("d", [160, 256, 384, 512])
 def test_wide_gradients_match_jax(d):
     """dQ, dK, dV through the port's autograd function against the JAX
     Pallas backward, ragged N = 300."""
@@ -135,9 +136,10 @@ def test_wide_operand_checks(d):
 
 
 # the column-group plans above 128, as csrc/flash_attention.cu's note states
-# them: (tile, image stages, bytes) of the forward, dq and dk/dv (bf16's
-# backward above 512 only: at TMA_WIDTHS it is the TMA backward's,
-# TMA_BWD_PLANS)
+# them: (tile, image stages, bytes) of the forward, dq and dk/dv (the
+# backward above 512 only: at TMA_WIDTHS it is the bf16 TMA backward's,
+# TMA_BWD_PLANS, or the float32 backward's with the resident rows,
+# RESIDENT_BWD_PLANS)
 WIDE_PLANS = {torch.float32: ((64, 3, 196784), (64, 3, 196784), (32, 4, 197824)),
               torch.bfloat16: ((64, 4, 131264), (64, 4, 131264), (64, 4, 133312))}
 # the bf16 TMA backward's plan at 256, 384 and 512, both passes, as the note
@@ -148,6 +150,11 @@ TMA_BWD_PLANS = {256: (128, 2, 32, 3, 230456, 256), 384: (64, 2, 32, 2, 197672, 
 # the float32 forward with Q resident's (keys, image stages, bytes) at 256,
 # 384 and 512, as the note states them
 RESIDENT_PLANS = {256: (32, 6, 165088), 384: (32, 6, 197856), 512: (32, 6, 230624)}
+# the float32 backward with the resident rows at 256, 384 and 512, both
+# passes, as the note states it: (rows a block, consumer warpgroups,
+# streamed rows a tile, item stages, bytes, output columns a block)
+RESIDENT_BWD_PLANS = {256: (64, 2, 32, 5, 231664, 256), 384: (64, 2, 32, 7, 230672, 192),
+                      512: (64, 2, 32, 5, 230640, 256)}
 # the bf16 TMA forward's (keys, stages, bytes, output columns a block) at
 # 256, 384 and 512, as the note states them
 TMA_PLANS = {256: (64, 2, 197672, 256), 384: (64, 2, 230440, 128), 512: (32, 2, 230440, 256)}
@@ -162,8 +169,10 @@ def test_wide_plans(dtype):
     every image; the plans the kernels' note states.  The bf16 forward at
     ``TMA_WIDTHS`` has the TMA forward's plan instead (its own test), and
     the float32 forward up to ``RESIDENT_MAX`` the plan with Q resident
-    (32-key tiles, six stages, Q's rows after them), and the bf16 backward
-    at ``TMA_WIDTHS`` the TMA backward's (``test_tma_backward_plans``)."""
+    (32-key tiles, six stages, Q's rows after them), and the backward at
+    ``TMA_WIDTHS`` the bf16 TMA backward's (``test_tma_backward_plans``) or
+    the float32 one's with the resident rows
+    (``test_resident_backward_plans``)."""
     size = 4 if dtype == torch.float32 else 2
     fwd, dq, dkv = WIDE_PLANS[dtype]
     for d in (256, 384, 512, 1024):
@@ -182,6 +191,10 @@ def test_wide_plans(dtype):
             if dtype == torch.bfloat16 and d in tfa.TMA_WIDTHS:
                 rows, c, tile, ns, smem, _ = TMA_BWD_PLANS[d]
                 assert tuple(plan.values()) == (rows, c, tile, ns, 0, smem)
+                continue
+            if d in tfa.TMA_WIDTHS:   # float32: the pair with the resident rows
+                rows, c, tile, ni, smem, _ = RESIDENT_BWD_PLANS[d]
+                assert tuple(plan.values()) == (rows, c, tile, 0, ni, smem)
                 continue
             assert (plan["rows"], plan["consumers"], plan["raw_stages"]) == (64, 1, 0)
             assert (plan["tile"], plan["image_stages"], plan["smem"]) == want
@@ -231,8 +244,9 @@ def test_tma_backward_plans(d):
     shared memory with the swizzle's 1024-byte alignment slack; every slab
     on a 1024-byte atom; output columns in whole 64-column slabs (groups of
     192 at 384, whose products beat groups of 128 and the column-group
-    pair's); bf16 at 640, 768 and 1024 and float32 everywhere keep the
-    column-group plan."""
+    pair's); bf16 at 640, 768 and 1024 keeps the column-group plan, and
+    float32 has its own plan (``test_resident_backward_plans``) with the
+    same output columns."""
     rows, c, tile, ns, smem, gw = TMA_BWD_PLANS[d]
     for kernel in tfa.BWD_KERNELS:
         plan = tfa.backward_plan(d, torch.bfloat16, kernel)
@@ -248,15 +262,16 @@ def test_tma_backward_plans(d):
     if tile < 64:   # the next larger tile would leave one stage
         assert 1024 + rows * row + 8 + 2 * (2 * tile * row + 16) > tfa.FWD_SMEM_LIMIT
     assert all(x % 1024 == 0 for x in (rows * 128, tile * 128, rows * row, tile * row))
-    # the split dk/dv's products over the least: below the column-group pair's
+    # the split dk/dv's products over the least: below the column-group
+    # pair's at the same width (groups of 128, S and dP in every group)
     groups = d // gw
     assert tfa.backward_products(d, torch.bfloat16) == pytest.approx((5 * groups + 3) / 7)
-    assert tfa.backward_products(d, torch.bfloat16) < tfa.backward_products(d, torch.float32)
+    assert tfa.backward_products(d, torch.bfloat16) < (8 * (d // tfa.WIDE_GROUP) + 6) / 14
     for wider in (640, 768, 1024):
         assert tfa.backward_plan(wider, torch.bfloat16, "dq")["image_stages"] > 0
         assert tfa.backward_columns(wider, torch.bfloat16) == tfa.WIDE_GROUP
     assert tfa.backward_plan(d, torch.float32, "dkv")["image_stages"] > 0
-    assert tfa.backward_columns(d, torch.float32) == tfa.WIDE_GROUP
+    assert tfa.backward_columns(d, torch.float32) == gw
 
 
 def _swizzle(addr):
@@ -351,6 +366,231 @@ def test_tma_backward_swizzle_gives_back_products(d, kernel):
             np.testing.assert_array_equal(into_group(x, stage), x @ st_a[:, cols])
 
 
+# the float32 backward with the resident rows (csrc/flash_attention.cu::wqb):
+# streamed rows a tile, columns an item; items a 32-row tile of dq (and of
+# dk/dv's dK block), and of the dV block, as the note counts them
+KT, SUB = 32, 64
+RESIDENT_BWD_ITEMS = {256: (12, 8), 384: (21, 9), 512: (28, 12)}
+
+
+@pytest.mark.parametrize("d", [256, 384, 512])
+def test_resident_backward_plans(d):
+    """The float32 backward with the resident rows at each of its widths,
+    one plan for dq and dk/dv: 64 rows a block, two consumer warpgroups on
+    them (S's and the output's), 32 streamed rows a tile, 16 KB items (32
+    rows x 64 columns in both TF32 halves, or a raw item of 64 rows x 64
+    floats) in as many stages as fit up to eight, beside the resident
+    operands' 64 rows at a stride of d + 4 floats (both at 256; at 384 and
+    512 the first alone: two no longer fit beside four stages) and two
+    tiles of P handed between the warpgroups; output columns the bf16 TMA
+    pair's; a tile's items as the note counts them; the widths above 512
+    keep the column-group plan."""
+    rows, c, tile, ni, smem, gw = RESIDENT_BWD_PLANS[d]
+    for kernel in tfa.BWD_KERNELS:
+        plan = tfa.backward_plan(d, torch.float32, kernel)
+        assert tuple(plan.values()) == (rows, c, tile, 0, ni, smem)
+    assert tfa.backward_columns(d, torch.float32) == gw == tfa.backward_columns(d, torch.bfloat16)
+    assert tile == KT and d % gw == 0 and gw % SUB == 0
+    item = KT * SUB * 8
+    assert item == 64 * SUB * 4 == 16384
+    resident = 2 if d == 256 else 1
+
+    def fixed(operands):   # slack, resident rows, P's two tiles and four barriers
+        return 128 + operands * 64 * (d + 4) * 4 + 2 * 64 * KT * 4 + 32
+    assert smem == fixed(resident) + ni * (item + 16) <= tfa.FWD_SMEM_LIMIT
+    assert 4 <= ni <= tfa.RESIDENT_BWD_STAGES
+    if ni < tfa.RESIDENT_BWD_STAGES:   # one more stage would not fit
+        assert fixed(resident) + (ni + 1) * (item + 16) > tfa.FWD_SMEM_LIMIT
+    assert (fixed(2) + 4 * (item + 16) <= tfa.FWD_SMEM_LIMIT) == (d == 256)
+    # a tile: S's chunks, dP's (each after the second operand's raw chunk
+    # where it streams), the group's sub-groups; the dV block no dP
+    nch, sub = d // SUB, gw // SUB
+    assert RESIDENT_BWD_ITEMS[d] == (nch + nch * (3 - resident) + sub, nch + sub)
+    for wider in (640, 768, 1024):
+        plan = tfa.backward_plan(wider, torch.float32, "dq")
+        assert (plan["tile"], plan["image_stages"]) == WIDE_PLANS[torch.float32][1][:2]
+        assert tfa.backward_columns(wider, torch.float32) == tfa.WIDE_GROUP
+
+
+@pytest.mark.parametrize("d,want", [(256, 8 / 7), (384, 13 / 7), (512, 13 / 7), (1024, 5.0)])
+def test_float32_backward_products(d, want):
+    """The float32 pair's products over the least (14 N^2 d flops): 8/7 at
+    256 (one group, dk/dv split by output; the column-group pair 1.57x),
+    13/7 at 384 and 512 (two groups of 192 or 256; 2.14x, 2.71x), as the
+    bf16 TMA pair's; above 512 the column-group pair's (8 g + 6) / 14, 5x at
+    1024; ``chip_smoke.py``'s factor the same."""
+    import chip_smoke as cs
+    assert tfa.backward_products(d, torch.float32) == pytest.approx(want)
+    assert tfa.backward_products(d, torch.float32) == tfa.backward_products(d, torch.bfloat16)
+    assert cs.wide_factors(d)[1] == tfa.backward_products(d, torch.float32)
+    if d in tfa.TMA_WIDTHS:
+        assert want < (8 * (d // tfa.WIDE_GROUP) + 6) / 14
+
+
+def _halves(x):
+    """float32 -> its TF32 halves (big, small), as ``tf32mma::split``."""
+    big = _rna_tf32(x)
+    return big, _rna_tf32(x - big)
+
+
+def _k_item(x):
+    """``wq::k_store``'s item of a (KT, SUB) tile, by the producer's map of
+    its threads' chunks: K-major at ``image_offset``, the big half, the
+    small one KT x 32 bytes on."""
+    img = np.full(KT * SUB * 2, np.nan, np.float32)
+    big, small = _halves(x)
+    cpr = SUB // 4
+    for u in range(KT * cpr):   # thread u % 128's chunk u // 128
+        r, ck = u % KT, (u // KT + u % KT) % cpr
+        slot = tfa.image_offset(r, ck, KT, 2) // 4
+        assert np.isnan(img[slot:slot + 4]).all()
+        img[slot:slot + 4], img[slot + KT * 8:slot + KT * 8 + 4] = (
+            big[r, 4 * ck:4 * ck + 4], small[r, 4 * ck:4 * ck + 4])
+    return img
+
+
+def _v_item(x):
+    """``wq::v_store``'s item of a (KT, SUB) tile transposed: column c's
+    chunk ck holds rows ``v_image_keys`` (the register fragment's order), at
+    ``image_offset`` of an image of SUB rows, both halves."""
+    img = np.full(KT * SUB * 2, np.nan, np.float32)
+    big, small = _halves(x)
+    for u in range(SUB * KT // 4):
+        c, ck = u % SUB, u // SUB
+        keys = tfa.v_image_keys(torch.float32, ck)
+        slot = tfa.image_offset(c, ck, SUB, 2) // 4
+        assert np.isnan(img[slot:slot + 4]).all()
+        img[slot:slot + 4], img[slot + SUB * 8:slot + SUB * 8 + 4] = big[keys, c], small[keys, c]
+    return img
+
+
+def _a_item(x):
+    """``wqb::a_store``'s raw item of the block's (64, SUB) rows: element
+    (r, c) at float r SUB + (c ^ 4 (r % 8)), by the producer's map."""
+    img = np.full(64 * SUB, np.nan, np.float32)
+    for u in range(64 * SUB // 4):
+        r, c4 = u // (SUB // 4), u % (SUB // 4)
+        slot = r * SUB + ((4 * c4) ^ ((r & 7) << 2))
+        assert np.isnan(img[slot:slot + 4]).all()
+        img[slot:slot + 4] = x[r, 4 * c4:4 * c4 + 4]
+    return img
+
+
+def _read_b(img, rows, kdim):
+    """A B operand of ``rows`` rows and ``kdim`` along K as ``wgmma`` reads
+    it from an item through ``b_desc`` (a k8 step's block rows x 64 bytes,
+    the small half rows x 32 bytes after the big): (big, small)."""
+    r, k = np.meshgrid(np.arange(rows), np.arange(kdim), indexing="ij")
+    slot = (k // 8) * rows * 16 + (r >> 3) * 64 + ((k % 8) // 4) * 32 + (r & 7) * 4 + k % 4
+    return img[slot], img[slot + rows * 8]
+
+
+def _a_frags(buf, ld, k0, swizzled):
+    """``wqb::a_frags`` of one k16 step from column k0 on: thread (warp w,
+    lane 4 g + t) loads rows 16 w + g and + 8, columns k0 + 8 kk + t and + 4
+    of ``buf`` (row stride ``ld``; the raw item's swizzle); returns the 64 x
+    16 step as the TF32 fragments place it (rows g, g + 8, columns t, t +
+    4 of each k8 step) and, per warp and load, the 32 lanes' float
+    addresses."""
+    step, loads = np.full((64, 16), np.nan, np.float32), {}
+    for w, g, t, kk in itertools.product(range(4), range(8), range(4), range(2)):
+        r = 16 * w + g
+        c = (k0 + 8 * kk + t) ^ (((r & 7) << 2) if swizzled else 0)
+        for e, (addr, at) in enumerate((
+                (r * ld + c, (r, 8 * kk + t)), ((r + 8) * ld + c, (r + 8, 8 * kk + t)),
+                (r * ld + (c ^ 4), (r, 8 * kk + t + 4)),
+                ((r + 8) * ld + (c ^ 4), (r + 8, 8 * kk + t + 4)))):
+            step[at] = buf[addr]
+            loads.setdefault((w, kk, e), []).append(addr)
+    return step, loads
+
+
+def _tf32_product(a, b_big, b_small, split):
+    """a (its halves split in registers) times B transposed, in float64:
+    small.big + big.small + big.big (``split``), else big.big."""
+    a_big, a_small = (x.astype(np.float64) for x in _halves(a))
+    b_big, b_small = b_big.astype(np.float64), b_small.astype(np.float64)
+    out = a_big @ b_big.T
+    return out + a_small @ b_big.T + a_big @ b_small.T if split else out
+
+
+def _over_head(a, b, raw, split):
+    """``wqb::over_head``: the block's 64 rows ``a`` times the tile's rows
+    ``b`` transposed, over the head: a chunk item of b a 64 columns; A's
+    fragments from the resident rows at a stride of d + 4 floats, or
+    (``raw``) from the chunk's raw item; every load of a warp on 32 banks."""
+    d = a.shape[1]
+    resident = np.pad(a, ((0, 0), (0, 4)), constant_values=np.nan).ravel()
+    out = np.zeros((64, KT))
+    for c in range(d // SUB):
+        b_big, b_small = _read_b(_k_item(b[:, c * SUB:(c + 1) * SUB]), KT, SUB)
+        buf, ld, col = ((_a_item(a[:, c * SUB:(c + 1) * SUB]), SUB, 0) if raw
+                        else (resident, d + 4, c * SUB))
+        for st in range(SUB // 16):
+            step, loads = _a_frags(buf, ld, col + 16 * st, raw)
+            assert all(len({x % 32 for x in addrs}) == 32 for addrs in loads.values())
+            for kk in range(2):
+                ks = slice(16 * st + 8 * kk, 16 * st + 8 * kk + 8)
+                out += _tf32_product(step[:, 8 * kk:8 * kk + 8], b_big[:, ks], b_small[:, ks],
+                                     split)
+    return out
+
+
+def _into_group(x, m, split):
+    """``wqb::out_subgroups``: x (64 rows x the tile's KT, in accumulator
+    order) as register A, in the fragment's order, times each transposed
+    sub-group item of the tile's rows m (KT x the group's columns)."""
+    xr = x[:, _register_order(KT)]
+    out = np.zeros((64, m.shape[1]))
+    for h in range(m.shape[1] // SUB):
+        b_big, b_small = _read_b(_v_item(m[:, h * SUB:(h + 1) * SUB]), SUB, KT)
+        out[:, h * SUB:(h + 1) * SUB] = _tf32_product(xr, b_big, b_small, split)
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("d", [256, 384, 512])
+def test_resident_backward_items_give_back_products(d, kernel):
+    """A numpy model of the float32 backward's items and fragments at each
+    of its widths: the K-major chunk items and the transposed sub-groups
+    (both TF32 halves, by the producer's map of its threads' chunks, each
+    slot written once), the raw items of the second operand at 384 and 512
+    (swizzled) and the register A fragments from the resident raw rows
+    (stride d + 4), every warp's load on 32 banks; read back as the
+    kernels' descriptors and fragments read them, they give back dq's S = Q
+    K^T, dP = dO V^T and dQ_g = dS K_g, or dk/dv's S^T = K Q^T, dP^T = V
+    dO^T, dV_g = P^T dO_g and dK_g = dS^T Q_g, for each group of the head:
+    exactly on integer tiles, and on float32 tiles within the 3xTF32
+    criterion (|error| <= 2^-20 |a| |b| a product, which one TF32 product
+    a k8 step misses)."""
+    gw, raw = tfa.backward_columns(d, torch.float32), d != 256
+    rng = np.random.default_rng(d + len(kernel))
+    for exact in (True, False):
+        def make(*shape):
+            x = rng.integers(-4, 5, shape) if exact else rng.standard_normal(shape)
+            return x.astype(np.float32)
+        res_a, res_b = make(64, d), make(64, d)   # dq: Q, dO; dk/dv: K, V (the block's rows)
+        st_a, st_b = make(KT, d), make(KT, d)     # dq: K, V; dk/dv: Q, dO (the tile's rows)
+        x = make(64, KT)                           # dS; P^T or dS^T
+        checks = [(_over_head(res_a, st_a, False, True), res_a, st_a),
+                  (_over_head(res_b, st_b, raw, True), res_b, st_b)]
+        for grp in range(d // gw):
+            cols = slice(grp * gw, (grp + 1) * gw)
+            outs = (st_a,) if kernel == "dq" else (st_b, st_a)   # dQ_g; dV_g, dK_g
+            checks += [(_into_group(x, m[:, cols], True), x, m[:, cols].T) for m in outs]
+        for got, a, b in checks:
+            want = a.astype(np.float64) @ b.astype(np.float64).T
+            if exact:
+                np.testing.assert_array_equal(got, want)
+            else:
+                bound = 2.0 ** -20 * (np.abs(a).astype(np.float64) @ np.abs(b).T)
+                assert np.all(np.abs(got - want) <= bound)
+    # one TF32 product a k8 step misses the criterion by far
+    a, b = make(64, d), make(KT, d)
+    one = _over_head(a, b, False, False) - a.astype(np.float64) @ b.astype(np.float64).T
+    assert np.max(np.abs(one) / (2.0 ** -20 * (np.abs(a).astype(np.float64) @ np.abs(b).T))) > 10
+
+
 def _read_kmajor(image, rows, kdim, halves, size):
     """An image of ``rows`` rows and ``kdim`` columns read back as wgmma
     reads a K-major operand through ``b_desc``: a k-step block (k8 TF32 or
@@ -418,12 +658,13 @@ def test_wide_3xtf32_forward_meets_the_f32_criterion(bh, n, d):
     assert max(margins) <= 1.0, margins
 
 
-@pytest.mark.parametrize("bh,n,d", [(2, 200, 256)])
+@pytest.mark.parametrize("bh,n,d", [(2, 200, 256), (2, 200, 512)])
 def test_wide_3xtf32_backward_meets_the_f32_criterion(bh, n, d):
-    """The column-group backward's arithmetic (``backward_plan``'s tiles
-    above 128: 64 keys in dq, 32 queries in float32 dk/dv; S and dP over the
-    head with a partial a k16 step; the group's products one partial a
-    tile) keeps dq, dk, dv within the criterion the CUDA kernels are held
+    """The float32 backward's arithmetic above 128 (``backward_plan``'s
+    tiles: 32 keys in dq, 32 queries in dk/dv, the pair with the resident
+    rows at 256 and 512; S and dP over the head with a partial a k16 step;
+    the group's products one partial a tile, a sub-group of 64 columns at a
+    time) keeps dq, dk, dv within the criterion the CUDA kernels are held
     to on the card."""
     margins = _scheme_margins(True, bh, n, d, seed=16)
     assert max(margins) <= 1.0, margins
@@ -555,3 +796,29 @@ def test_build_report_names_the_tma_backward_kernels(mangled, label):
     assert label.startswith(cs.WGMMA_KERNELS)
     d = int(label.split("<")[1].split(",")[0])
     assert cs.wide_factors(d, torch.bfloat16)[1] == tfa.backward_products(d, torch.bfloat16)
+
+
+@pytest.mark.parametrize("mangled,label", [
+    ("_ZN12_GLOBAL__N_122flash_bwd_dq_wq_kernelILi256EEEvPKfS2_S2_S2_S2_S2_Pfif",
+     "flash_bwd_dq_wq_kernel<256, f32>"),
+    ("_ZN12_GLOBAL__N_123flash_bwd_dkv_wq_kernelILi384EEEvPKfS2_S2_S2_S2_S2_PfS3_if",
+     "flash_bwd_dkv_wq_kernel<384, f32>"),
+    ("_ZN12_GLOBAL__N_122flash_bwd_dq_wq_kernelILi512EEEvPKfS2_S2_S2_S2_S2_Pfif",
+     "flash_bwd_dq_wq_kernel<512, f32>"),
+])
+def test_build_report_names_the_resident_backward_kernels(mangled, label):
+    """``chip_smoke.py`` phase 2 finds each float32 backward instantiation
+    above 128 by these labels, among those it requires at ``TMA_WIDTHS`` and
+    counts among the kernels that must run on wgmma only, and finds ptxas's
+    notes that it serialised their wgmma (C7515, C7514) by the same
+    labels."""
+    import chip_smoke as cs
+    assert cs.kernel_label(f"ptxas info    : Function properties for {mangled}") == label
+    assert label in {cs.flash_wide_bwd_label(d, k, torch.float32) for d in tfa.TMA_WIDTHS
+                     for k in tfa.BWD_KERNELS}
+    assert label.startswith(cs.WGMMA_KERNELS)
+    note = ("ptxas info    : (C7514) Potential Performance Loss: wgmma.mma_async instructions "
+            "are serialized due to non wgmma instructions reading accumulator registers of  a "
+            f"wgmma between start and end of the pipeline stage in the function '{mangled}'")
+    assert cs.ptxas_serial_notes(note, {label}) == [note]
+    assert cs.ptxas_serial_notes(note.replace("C7514", "C7519"), {label}) == []

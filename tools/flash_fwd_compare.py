@@ -7,7 +7,8 @@
 Builds ``confild_tpu_torch/csrc/flash_attention.cu`` as it stands and, with
 ``--parent``, the same file of another checkout (``DIR`` is its root, for
 example a ``git archive`` of the parent commit), each with ``nvcc`` into
-``--out`` (default a temporary directory), and prints each build's ptxas
+``--out`` (default a temporary directory; all builds at once, one nvcc
+each), and prints each build's ptxas
 report and ``cuobjdump -sass`` tensor-core instruction counts
 (``HMMA``, ``HGMMA``) of every flash kernel instantiation, and this build's
 plans (the library's beside the wrapper's mirror).  Then:
@@ -20,8 +21,8 @@ plans (the library's beside the wrapper's mirror).  Then:
   (dq, dk/dv) at (64, 144, 64), (16, 9216, 64), (4, 16384, 64) in float32
   and bf16 and at phase 18 (d)'s classifier shapes in float32 (the forward
   also above 128, ``WIDE_SHAPES``: (8, 144, 512), (8, 9216, 256) and (4,
-  9216, 512) in both types, where bf16 up to 512 is the TMA forward and
-  the rest the column-group kernel): each build's
+  9216, 512) in both types, where up to 512 bf16 is the TMA forward and
+  float32 the forward with Q resident): each build's
   library called directly on the same tensors (its C entry points), in
   turns (parent and variants, this, this, then variants and parent again),
   median of 7 separately timed runs of back-to-back calls (20 below 1000
@@ -49,22 +50,40 @@ threads load and write every operand image.
 
 ``--wide-only`` checks and times only above 128 (``FLASH_WIDE_CHECKS``,
 then ``WIDE_SHAPES``: the forward in both types, or with ``--backward``
-the bf16 backward pair, the TMA kernels at 256 and 512, with its device
-time at 144 tokens); ``tmab_nos`` skips the TMA backward's S and S^T,
+the backward pair in both types, the bf16 TMA pair and the float32 pair
+with the resident rows at 256 and 512, with its device time at 144
+tokens); ``tmab_nos`` skips the TMA backward's S and S^T,
 ``tmab_noout`` its products into dQ, dV and dK (their copies still land),
 and ``tmab_serial`` waits for a tile's product into the output before the
 next tile's S and dP are issued (right results); ``wq_noproducer`` and
 ``wq_nopv`` ablate the float32 forward with Q resident (its producer's
 items, or the products of its P V_g), and ``wq_ahead2`` / ``wq_ahead3``
-keep its producer's loads 2 or 3 items ahead in place of 1.
+keep its producer's loads 2 or 3 items ahead in place of 1.  The float32
+backward with the resident rows (D = 256, 384, 512): ``wqb_noproducer``
+writes no item (nor loads one: neither the S warpgroup its own chunks nor
+the producer the output warpgroup's), ``wqb_noout`` skips the products
+into dQ_g, dV_g and dK_g (their items still taken and released),
+``wqb_outahead`` issues each sub-group's output product before the one
+before it is waited for (``OUT_AHEAD`` on), ``wqb_onetile`` holds the S
+warpgroup's next tile until the output warpgroup has taken this tile's P
+(the next tile's S no longer runs under this tile's dP, only under its
+products into the output), ``wqb_ahead2`` keeps its
+producer's loads two items ahead in place of one, and ``wqb_aglobal``
+loads the A fragments of dP's second operand at 384 and 512 (dq's dO,
+dk/dv's V) from global memory each k16 step in place of the producer's
+raw items (the last four right results).
 
 ``--trap`` builds this tree's source with every mbarrier wait bounded: a
-wait that spins past about 2^26 polls ends the kernel with a trap, so a
-wrong barrier phase fails the call instead of hanging the card.  Before
+wait that spins past about 2^26 polls gives up and sets a flag, every
+wait after it gives up within 1024 polls, and the tool fails the call
+when a build's flag is set, so a wrong barrier phase fails the call
+instead of hanging the card (a trap instruction in the wait made ptxas
+hold the float32 backward's setmaxnreg regions to 168 registers, and
+spill).  Before
 any launch the tool refuses a build whose forward, or a backward
 instantiation with two consumer warpgroups, does not start at 168
 registers a thread (the block's 384 threads' share, which the warpgroups'
-``setmaxnreg`` moves between them).  Needs a CUDA card and ``nvcc``;
+``setmaxnreg`` moves between them; the float32 pair above 128 too).  Needs a CUDA card and ``nvcc``;
 imports nothing of JAX.
 """
 
@@ -80,6 +99,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -91,9 +111,9 @@ import chip_smoke as cs  # noqa: E402
 from confild_tpu_torch.ops import cuda_build  # noqa: E402
 from confild_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
-TRAP_WAIT = '''__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  unsigned long long polls = 0;
+TRAP_WAIT = '''__device__ unsigned int mbar_wait_gave_up = 0;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, polls = 0;
   do {
     asm volatile(
         "{\\n.reg .pred p;\\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\\n"
@@ -101,8 +121,16 @@ TRAP_WAIT = '''__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t 
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
-    if (++polls > (1ull << 26)) __trap();
+    if (!done && (++polls & 1023u) == 0) {
+      if (polls > (1u << 26)) atomicExch(&mbar_wait_gave_up, 1u);
+      if (*(volatile unsigned int*)&mbar_wait_gave_up) return;
+    }
   } while (!done);
+}
+extern "C" int mbar_wait_gave_up_flag() {
+  unsigned int x = 0;
+  cudaMemcpyFromSymbol(&x, mbar_wait_gave_up, sizeof x);
+  return (int)x;
 }'''
 
 
@@ -143,6 +171,23 @@ VARIANTS = {
     # its producer's loads 2 or 3 items ahead, not 1 (right results)
     "wq_ahead2": [(r"constexpr int LOAD_AHEAD = 1;", "constexpr int LOAD_AHEAD = 2;")],
     "wq_ahead3": [(r"constexpr int LOAD_AHEAD = 1;", "constexpr int LOAD_AHEAD = 3;")],
+    # the float32 backward with the resident rows: no item written (the
+    # loads, unused, go too); its output products skipped; dP's second
+    # operand's A fragments from global memory (no raw items)
+    "wqb_noproducer": [(r"wq::k_store\(stage, w, ptid\);", ";"),
+                       (r"wq::v_store\(stage, w, ptid\);", ";"),
+                       (r"a_copy<D>\(stage, [^;]*\);", ";")],
+    "wqb_noout": [(r"rs_tf32<SUB, KT, SUB>\(part\[y\], big, sm, b, 0\);", "")],
+    "wqb_aglobal": [(r"constexpr bool A_GLOBAL = false;", "constexpr bool A_GLOBAL = true;")],
+    # its producer's loads 2 items ahead, not 1, and its output's products
+    # two sub-groups in flight (right results)
+    "wqb_ahead2": [(r"constexpr int LOAD_AHEAD = 1;   // items a producer keeps",
+                    "constexpr int LOAD_AHEAD = 2;   // items a producer keeps")],
+    "wqb_outahead": [(r"constexpr bool OUT_AHEAD = false;", "constexpr bool OUT_AHEAD = true;")],
+    # the S warpgroup's next tile waits until the output warpgroup has taken
+    # this tile's P (one slot in use: the next S no longer under this dP)
+    "wqb_onetile": [(r"if \(tile >= 2\) mbar_wait\(sm\.p_empty \+ 8 \* slot, \(\(tile >> 1\) \+ 1\) & 1\);",
+                     "if (tile >= 1) mbar_wait(sm.p_empty + 8 * (slot ^ 1), ((tile - 1) >> 1) & 1);")],
 }
 
 # the forward's shapes above 128: the one-head Case4 middle block at batch
@@ -206,11 +251,22 @@ def report(tag: str, lib: str, log: str) -> dict:
     return regs
 
 
+def waits_gave_up(libs: dict) -> None:
+    """Fails the call if a bounded mbarrier wait of a ``--trap`` build (the
+    only ones with the flag) gave up."""
+    for tag, lib in libs.items():
+        flag = getattr(lib, "mbar_wait_gave_up_flag", None)
+        if flag is not None and flag():
+            raise SystemExit(f"{tag}: an mbarrier wait gave up (a wrong barrier phase)")
+
+
 def setmaxnreg_ready(regs: dict, lib) -> None:
-    """Refuses to go on unless all 18 flash instantiations exist and every
-    forward one, and every backward one whose plan in ``lib`` (a build of
-    this tree's source, declared) has two consumer warpgroups, starts at
-    168 registers (its setmaxnreg moves them between the warpgroups)."""
+    """Refuses to go on unless all 18 flash instantiations at D <= 128 and
+    the six float32 backward ones above exist and every forward one, every
+    backward one at D <= 128 whose plan in ``lib`` (a build of this tree's
+    source, declared) has two consumer warpgroups, and every float32
+    backward one above 128 starts at 168 registers (its setmaxnreg moves
+    them between the warpgroups)."""
     want = {}
     for d, dtype in cs.FLASH_FWD_INSTANCES:
         want[cs.flash_fwd_label(d, dtype)] = 168
@@ -219,6 +275,9 @@ def setmaxnreg_ready(regs: dict, lib) -> None:
             raise SystemExit("flash_backward_plan failed")
         for i, kernel in enumerate(fa.BWD_KERNELS):
             want[cs.flash_bwd_label(kernel, d, dtype)] = 168 if out[6 * i + 1] == 2 else None
+    for d in fa.TMA_WIDTHS:   # the float32 pair above 128: three warpgroups, setmaxnreg
+        for kernel in fa.BWD_KERNELS:
+            want[cs.flash_wide_bwd_label(d, kernel, torch.float32)] = 168
     wrong = {k: regs.get(k) for k, r in want.items()
              if k not in regs or (r is not None and regs[k] != r)}
     if wrong:
@@ -289,7 +348,8 @@ def backward_calls(lib, q, k, v, g, lse, delta):
 
 
 def compare_backward(libs: dict, device, wide_only: bool = False) -> None:
-    shapes = [(s, torch.bfloat16) for s in WIDE_SHAPES] if wide_only else (
+    shapes = [(s, dtype) for s in WIDE_SHAPES
+              for dtype in (torch.bfloat16, torch.float32)] if wide_only else (
         [(s, torch.float32) for s in cs.FLASH_TIMES]
         + [(s, torch.bfloat16) for s in cs.FLASH_TIMES]
         + [(s, torch.float32) for s in cs.FLASH_CLASSIFIER_SHAPES])
@@ -394,7 +454,19 @@ def main() -> int:
     cs.phase_device()
     out = args.out or tempfile.mkdtemp(prefix="flash_fwd_")
     os.makedirs(out, exist_ok=True)
-    path, log = build(str(cuda_build.CSRC_DIR), out, "this", trap=args.trap)
+    # every build at once (one nvcc each): this tree, the parent, the variants
+    jobs = {"this": (str(cuda_build.CSRC_DIR), args.trap, ())}
+    if args.parent:
+        jobs["parent"] = (os.path.join(args.parent, "confild_tpu_torch", "csrc"), False, ())
+    for name in filter(None, args.variants.split(",")):
+        jobs[name] = (str(cuda_build.CSRC_DIR), args.trap, VARIANTS[name])
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = dict(zip(jobs, pool.map(
+            lambda job: build(job[1][0], out, job[0], trap=job[1][1], patches=job[1][2]),
+            jobs.items())))
+    print(f"[build] {len(jobs)} builds at once in {time.perf_counter() - t0:.1f} s", flush=True)
+    path, log = built["this"]
     libs = {"this": fa.declare(ctypes.CDLL(path))}
     setmaxnreg_ready(report("this", path, log), libs["this"])
     entry = ("flash_bwd_dq", "flash_bwd_dkv") if args.backward else ("flash_forward",)
@@ -405,23 +477,21 @@ def main() -> int:
             getattr(lib, name).restype = getattr(libs["this"], name).restype
         return lib
     if args.parent:
-        ppath, plog = build(os.path.join(args.parent, "confild_tpu_torch", "csrc"), out,
-                            "parent")
-        report("parent", ppath, plog)
-        libs["parent"] = same_signatures(ctypes.CDLL(ppath))
-    for name in filter(None, args.variants.split(",")):
-        vpath, vlog = build(str(cuda_build.CSRC_DIR), out, name, trap=args.trap,
-                            patches=VARIANTS[name])
-        libs[name] = fa.declare(ctypes.CDLL(vpath))
-        setmaxnreg_ready(report(name, vpath, vlog), libs[name])
+        report("parent", *built["parent"])
+        libs["parent"] = same_signatures(ctypes.CDLL(built["parent"][0]))
+    for name in jobs:
+        if name not in ("this", "parent"):
+            libs[name] = fa.declare(ctypes.CDLL(built[name][0]))
+            setmaxnreg_ready(report(name, *built[name]), libs[name])
     this = libs["this"]
     fa._library = lambda: this   # the wrappers launch this build
     for d in fa.TMA_WIDTHS:
         print(f"[plan] {cs.flash_tma_label(d)}: {fa.library_forward_plan(d, torch.bfloat16)} "
               f"(wrapper: {fa.forward_plan(d, torch.bfloat16)})", flush=True)
-        for kernel, plan in fa.library_backward_plan(d, torch.bfloat16).items():
-            print(f"[plan] {cs.flash_tma_label(d, kernel)}: {plan} (wrapper: "
-                  f"{fa.backward_plan(d, torch.bfloat16, kernel)})", flush=True)
+        for dtype in (torch.bfloat16, torch.float32):
+            for kernel, plan in fa.library_backward_plan(d, dtype).items():
+                print(f"[plan] {cs.flash_wide_bwd_label(d, kernel, dtype)}: {plan} (wrapper: "
+                      f"{fa.backward_plan(d, dtype, kernel)})", flush=True)
     for d, dtype in cs.FLASH_FWD_INSTANCES:
         print(f"[plan] {cs.flash_fwd_label(d, dtype)}: {fa.library_forward_plan(d, dtype)} "
               f"(wrapper: {fa.forward_plan(d, dtype)})", flush=True)
@@ -433,6 +503,7 @@ def main() -> int:
             cs.flash_check(device, bh, n, d, dtype)
         if not args.wide_only:
             cs.flash_memory(device)
+        waits_gave_up(libs)
     print(f"[compare] SM clock, max SM clock: {cs.sm_clocks()}", flush=True)
     if args.backward:
         compare_backward(libs, device, args.wide_only)
@@ -440,6 +511,7 @@ def main() -> int:
         compare(libs, device, args.wide_only)
         if args.wide_only:   # no host timings at 144 tokens
             print(f"[compare] SM clock, max SM clock: {cs.sm_clocks()}", flush=True)
+            waits_gave_up(libs)
             return 0
         cs.forward_host_us(device)
         wrappers = {"this": fa}
@@ -448,6 +520,7 @@ def main() -> int:
             wrappers["parent"] = parent_wrapper(args.parent, libs["parent"])
         host_compare(wrappers, device)
     print(f"[compare] SM clock, max SM clock: {cs.sm_clocks()}", flush=True)
+    waits_gave_up(libs)
     return 0
 
 
